@@ -1,0 +1,153 @@
+"""The port's paged-attention decode, paged prefill and fused sampling
+(``trlx_tpu_torch/ops``) against the JAX package.
+
+On the CPU each wrapper runs its plain PyTorch version; these tests hold
+those plain versions against the JAX Pallas kernels run the way
+``tests/test_paged_attention.py`` runs them on the CPU (interpreter mode),
+and against the JAX ``*_reference`` oracles. Inputs come from numpy with a
+seed. Attention is compared in f32 at ``atol=1e-5``; sampling must give
+equal tokens and logprobs within ``1e-6`` from the same numpy Gumbel noise.
+The CUDA kernels themselves are held against these plain versions on the
+card by ``tests/test_torch_kernels_cuda.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from trlx_tpu.ops.paged_attention import (
+    fused_sample as jax_fused_sample,
+    paged_attention_decode as jax_decode,
+    paged_attention_decode_reference,
+)
+from trlx_tpu.ops.paged_prefill import (
+    paged_prefill_attention as jax_prefill,
+    paged_prefill_attention_reference,
+)
+from trlx_tpu.ops.sampling import process_logits as jax_process_logits
+from trlx_tpu_torch.ops.kernel_utils import clamp_block_table, pad_bias_to
+from trlx_tpu_torch.ops.paged_attention import (
+    fused_sample,
+    fused_sample_reference,
+    paged_attention_decode,
+)
+from trlx_tpu_torch.ops.paged_prefill import paged_prefill_attention
+from trlx_tpu_torch.ops.sampling import gumbel_noise, process_logits
+
+from torch_kernel_cases import GEOMETRIES, SAMPLE_SETTINGS, paged_case, t, tied_logits
+
+ATOL = 1e-5
+
+# the JAX references under one jit each: eager, every op compiles on its
+# own for every shape, which is many times slower here
+jax_decode_ref = jax.jit(paged_attention_decode_reference)
+jax_prefill_ref = jax.jit(paged_prefill_attention_reference)
+
+
+@pytest.mark.parametrize("per_head_bias", [False, True])
+@pytest.mark.parametrize("geometry", GEOMETRIES)
+def test_prefill_plain_matches_jax(geometry, per_head_bias):
+    q, kp, vp, table, bias = paged_case(geometry, per_head_bias, seed=sum(geometry))
+    got = paged_prefill_attention(t(q), t(kp), t(vp), t(table), t(bias)).numpy()
+    args = tuple(jnp.asarray(a) for a in (q, kp, vp, table, bias))
+    np.testing.assert_allclose(got, np.asarray(jax_prefill_ref(*args)), atol=ATOL, rtol=0)
+    if per_head_bias:  # the interpreted Pallas kernel (slow to trace: once per geometry)
+        np.testing.assert_allclose(got, np.asarray(jax_prefill(*args)), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("per_head_bias", [False, True])
+@pytest.mark.parametrize("geometry", GEOMETRIES)
+def test_decode_plain_matches_jax(geometry, per_head_bias):
+    q, kp, vp, table, bias = paged_case(geometry, per_head_bias, seed=7 + sum(geometry))
+    q1, b1 = q[:, -1], bias[:, :, -1]
+    got = paged_attention_decode(t(q1), t(kp), t(vp), t(table), t(b1)).numpy()
+    args = tuple(jnp.asarray(a) for a in (q1, kp, vp, table, b1))
+    np.testing.assert_allclose(got, np.asarray(jax_decode_ref(*args)), atol=ATOL, rtol=0)
+    if not per_head_bias:  # the interpreted Pallas kernel, once per geometry
+        np.testing.assert_allclose(got, np.asarray(jax_decode(*args)), atol=ATOL, rtol=0)
+
+
+def test_masked_stale_blocks_contribute_nothing():
+    """Overwriting every masked column's pool value changes nothing."""
+    q, kp, vp, table, bias = paged_case((2, 3, 4, 2, 16, 4, 11), False, seed=3)
+    out = paged_prefill_attention(t(q), t(kp), t(vp), t(table), t(bias))
+    NB, bs = kp.shape[:2]
+    safe = np.minimum(table, NB - 1)
+    visible_any = (bias[:, 0] > -1).any(axis=1)  # [B, S]
+    seen = {
+        (int(safe[b, s // bs]), s % bs)
+        for b in range(table.shape[0]) for s in range(bias.shape[-1]) if visible_any[b, s]
+    }
+    kp2, vp2 = np.full_like(kp, 1e3), np.full_like(vp, -1e3)
+    for blk, off in seen:  # every pool slot no visible column reads is garbage
+        kp2[blk, off], vp2[blk, off] = kp[blk, off], vp[blk, off]
+    out2 = paged_prefill_attention(t(q), t(kp2), t(vp2), t(table), t(bias))
+    torch.testing.assert_close(out, out2, atol=ATOL, rtol=0)
+
+
+def test_shape_validation_raises():
+    q, kp, vp, table, bias = paged_case((2, 3, 4, 2, 16, 4, 11), False, seed=5)
+    with pytest.raises(ValueError, match="bias head dim"):
+        paged_prefill_attention(t(q), t(kp), t(vp), t(table), t(bias).repeat(1, 3, 1, 1))
+    with pytest.raises(ValueError, match="chunk length"):
+        paged_prefill_attention(t(q), t(kp), t(vp), t(table), t(bias)[:, :, :2])
+    with pytest.raises(ValueError, match="block table covers"):
+        paged_attention_decode(t(q[:, 0]), t(kp), t(vp), t(table)[:, :1], t(bias[:, :, 0]))
+
+
+def test_table_helpers():
+    tbl = torch.tensor([[0, 5, 9, 12]], dtype=torch.int32)
+    assert clamp_block_table(tbl, 10).tolist() == [[0, 5, 9, 9]]
+    b = pad_bias_to(torch.zeros(2, 1, 3, dtype=torch.float64), 5)
+    assert b.shape == (2, 1, 5) and b.dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# fused sampling
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sample", [False, True])
+@pytest.mark.parametrize("settings", SAMPLE_SETTINGS)
+def test_fused_sample_plain_matches_jax(settings, sample):
+    x = tied_logits(seed=11)
+    rs = np.random.RandomState(12)
+    g = (-np.log(-np.log(rs.uniform(1e-7, 1 - 1e-7, x.shape)))).astype(np.float32) if sample else None
+    tok, lp = fused_sample(t(x), None if g is None else t(g), **settings)
+    jtok, jlp = jax_fused_sample(jnp.asarray(x), None if g is None else jnp.asarray(g), **settings)
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
+    np.testing.assert_allclose(lp.numpy(), np.asarray(jlp), atol=1e-6, rtol=0)
+    assert tok.dtype == torch.int32 and lp.dtype == torch.float32
+
+
+@pytest.mark.parametrize("settings", SAMPLE_SETTINGS)
+def test_process_logits_matches_jax(settings):
+    x = tied_logits(seed=21)
+    got = process_logits(t(x), **settings).numpy()
+    want = np.asarray(jax_process_logits(jnp.asarray(x), **settings))
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    np.testing.assert_allclose(got[~np.isinf(got)], want[~np.isinf(want)], atol=1e-6)
+
+
+def test_fused_sample_greedy_first_index_on_ties():
+    x = torch.zeros(2, 9)
+    x[0, [2, 6]] = 3.0
+    x[1, [8, 1]] = 3.0
+    tok, _ = fused_sample_reference(x, None, temperature=1.0, top_k=0, top_p=1.0)
+    assert tok.tolist() == [2, 1]
+
+
+def test_gumbel_noise_is_per_row_and_batch_invariant():
+    seeds = torch.tensor([5, 9, 5, 123456789012])
+    steps = torch.tensor([0, 3, 1, 7])
+    g = gumbel_noise(seeds, steps, 50)
+    solo = torch.cat([gumbel_noise(seeds[i : i + 1], steps[i : i + 1], 50) for i in range(4)])
+    torch.testing.assert_close(g, solo, atol=0, rtol=0)
+    assert not torch.equal(g[0], g[2])  # same seed, other step
+    again = gumbel_noise(seeds.flip(0), steps.flip(0), 50).flip(0)
+    torch.testing.assert_close(g, again, atol=0, rtol=0)
+    # roughly standard Gumbel: mean ≈ Euler-Mascheroni constant
+    big = gumbel_noise(torch.arange(16), torch.zeros(16, dtype=torch.int64), 4096)
+    assert torch.isfinite(big).all()
+    assert abs(big.mean().item() - 0.5772) < 0.03

@@ -1,0 +1,225 @@
+"""The port's GPT-2 transformer (``trlx_tpu_torch/models``) against the JAX
+``CausalTransformer``: weights carried over with ``params_from_jax``, the
+same numpy inputs on both sides, logits compared in f32 at ``atol=1e-4``
+— full passes over left-padded prompts, dense-cache prefill and decode
+steps, and the paged (block-table) branch."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from trlx_tpu.data.configs import ModelConfig
+from trlx_tpu.models.builder import build_causal_lm as jax_build
+from trlx_tpu.models.transformer import CausalTransformer as JaxCausalTransformer
+from trlx_tpu.models.transformer import TransformerConfig as JaxConfig
+from trlx_tpu.models.transformer import make_kv_cache as jax_make_kv_cache
+from trlx_tpu.models.transformer import stack_layer_params
+from trlx_tpu_torch.models.builder import build_causal_lm
+from trlx_tpu_torch.models.transformer import (
+    CausalTransformer,
+    TransformerConfig,
+    config_from_spec,
+    make_kv_cache,
+)
+from trlx_tpu_torch.models.weights import params_from_jax
+from trlx_tpu_torch.ops.paged_kv import attach_block_table, detach_block_table
+
+ATOL = 1e-4
+
+# gpt2-test, and a 2-layer 128-wide GPT-2 with a vocab that is not a
+# multiple of anything convenient
+_WIDE = dict(vocab_size=301, hidden_size=128, num_layers=2, num_heads=4,
+             intermediate_size=512, max_position_embeddings=64)
+
+
+def _numpy_params(cfg, seed):
+    """A random parameter tree in the JAX module's structure, made with
+    numpy: normal(0.02) weights, non-zero biases, norm scales near 1."""
+    shapes = jax.eval_shape(lambda: JaxCausalTransformer(cfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 4), jnp.int32))["params"])
+    rs = np.random.RandomState(seed)
+
+    def make(path, leaf):
+        name = path[-1].key
+        x = rs.randn(*leaf.shape).astype(np.float32)
+        return 1.0 + 0.1 * x if name == "scale" else 0.02 * x
+
+    return jax.tree_util.tree_map_with_path(make, shapes)
+
+
+def _jax_model(spec):
+    cfg = JaxConfig.gpt2("test", **({} if spec == "gpt2-test" else _WIDE))
+    torch_cfg = TransformerConfig.gpt2(
+        "test", dtype=torch.float32, **({} if spec == "gpt2-test" else _WIDE))
+    cfg32 = dataclasses.replace(cfg, dtype=jnp.float32)
+    params = _numpy_params(cfg32, seed=len(spec))
+    return _Jitted(JaxCausalTransformer(cfg32)), params, cfg32, torch_cfg
+
+
+class _Jitted:
+    """``module.apply`` under one ``jax.jit`` (an eager flax forward
+    compiles every op on its own, which is many times slower here)."""
+
+    def __init__(self, module):
+        self._fn = jax.jit(module.apply, static_argnames=("logits_span",))
+
+    def apply(self, variables, ids, **kw):
+        return self._fn(variables, ids, **kw)
+
+
+@pytest.fixture(scope="module", params=["gpt2-test", "wide"])
+def pair(request):
+    jm, params, jcfg, tcfg = _jax_model(request.param)
+    model = CausalTransformer(tcfg)
+    model.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, params), tcfg))
+    model.eval()
+    return jm, params, jcfg, model, tcfg
+
+
+def _prompts(V, B=3, P=10, seed=0):
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, V, (B, P)).astype(np.int32)
+    mask = np.ones_like(ids)
+    for b in range(B):  # left padding of 0, 3, 1 columns
+        mask[b, : (0, 3, 1)[b % 3]] = 0
+    return ids, mask
+
+
+def test_full_pass_left_padded(pair):
+    jm, params, _, model, tcfg = pair
+    ids, mask = _prompts(tcfg.vocab_size)
+    want = jm.apply({"params": params}, jnp.asarray(ids), attention_mask=jnp.asarray(mask))
+    with torch.no_grad():
+        got = model(torch.tensor(ids), attention_mask=torch.tensor(mask))
+    np.testing.assert_allclose(got["logits"].numpy(), np.asarray(want["logits"]), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got["hidden_states"].numpy(),
+                               np.asarray(want["hidden_states"]), atol=ATOL, rtol=0)
+
+
+def test_dense_cache_prefill_and_decode_steps(pair):
+    jm, params, jcfg, model, tcfg = pair
+    ids, mask = _prompts(tcfg.vocab_size, seed=1)
+    B, P = ids.shape
+    N = 2
+    slot_mask = np.concatenate([mask, np.zeros((B, N), np.int32)], axis=1)
+    jcache = jax_make_kv_cache(jcfg, B, P + N)
+    tcache = make_kv_cache(tcfg, B, P + N)
+    jo = jm.apply({"params": params}, jnp.asarray(ids), attention_mask=jnp.asarray(slot_mask),
+                  cache=jcache, cache_index=jnp.asarray(0), logits_span=(P - 1, P))
+    with torch.no_grad():
+        to = model(torch.tensor(ids), attention_mask=torch.tensor(slot_mask), cache=tcache,
+                   cache_index=0, logits_span=(P - 1, P))
+    np.testing.assert_allclose(to["logits"].numpy(), np.asarray(jo["logits"]), atol=ATOL, rtol=0)
+    jcache = jo["cache"]
+    rs = np.random.RandomState(2)
+    for step in range(N):
+        tok = rs.randint(0, tcfg.vocab_size, (B, 1)).astype(np.int32)
+        slot_mask[:, P + step] = 1
+        pos = (mask.sum(1) + step)[:, None]
+        jo = jm.apply({"params": params}, jnp.asarray(tok), attention_mask=jnp.asarray(slot_mask),
+                      positions=jnp.asarray(pos), cache=jcache, cache_index=jnp.asarray(P + step))
+        jcache = jo["cache"]
+        with torch.no_grad():
+            to = model(torch.tensor(tok), attention_mask=torch.tensor(slot_mask),
+                       positions=torch.tensor(pos), cache=tcache, cache_index=P + step)
+        np.testing.assert_allclose(to["logits"].numpy(), np.asarray(jo["logits"]),
+                                   atol=ATOL, rtol=0, err_msg=f"decode step {step}")
+
+
+@pytest.mark.parametrize("block_size", [1, 3, 4])
+def test_paged_branch_matches_jax_dense(pair, block_size):
+    """Prefill through the paged branch (block tables with poisoned padding
+    rows), then per-row decode steps at a [B] cache index, against the JAX
+    dense-cache forward."""
+    jm, params, jcfg, model, tcfg = pair
+    ids, mask = _prompts(tcfg.vocab_size, seed=4)
+    B, P = ids.shape
+    N = 2
+    S = P + N
+    TB = -(-S // block_size)
+    NB = 1 + (B + 1) * TB
+    pool = make_kv_cache(tcfg, NB, block_size)
+    for layer in pool:  # stale values everywhere: masking must hide them
+        layer["k"].normal_()
+        layer["v"].normal_()
+    perm = np.random.RandomState(5).permutation(np.arange(1, NB))[: B * TB]
+    table = torch.tensor(perm.reshape(B, TB), dtype=torch.int32)
+    pad_row = torch.full((1, TB), NB, dtype=torch.int32)  # a bucket-padding row
+    slot_mask = np.concatenate([mask, np.zeros((B, N), np.int32)], axis=1)
+    jo = jm.apply({"params": params}, jnp.asarray(ids), attention_mask=jnp.asarray(slot_mask),
+                  cache=jax_make_kv_cache(jcfg, B, S), cache_index=jnp.asarray(0))
+    ids_pad = np.concatenate([ids, np.zeros((1, P), np.int32)])
+    sm_pad = np.concatenate([slot_mask, np.zeros((1, S), np.int32)])
+    with torch.no_grad():
+        to = model(torch.tensor(ids_pad), attention_mask=torch.tensor(sm_pad),
+                   cache=attach_block_table(pool, torch.cat([table, pad_row])), cache_index=0)
+    # left-pad query positions see no key at all (uniform softmax over the
+    # whole row, stale pool values included): only real positions count
+    real = mask.astype(bool)
+    np.testing.assert_allclose(to["logits"][:B].numpy()[real], np.asarray(jo["logits"])[real],
+                               atol=ATOL, rtol=0)
+    # the pool was updated in place: the returned cache is the same pool
+    bare = detach_block_table(to["cache"])
+    assert all("block_table" not in c and c["k"] is p["k"] for c, p in zip(bare, pool))
+    jcache = jo["cache"]
+    for step in range(N):
+        tok = np.full((B, 1), 7 + step, np.int32)
+        slot_mask[:, P + step] = 1
+        pos = (mask.sum(1) + step)[:, None]
+        jo = jm.apply({"params": params}, jnp.asarray(tok), attention_mask=jnp.asarray(slot_mask),
+                      positions=jnp.asarray(pos), cache=jcache, cache_index=jnp.asarray(P + step))
+        jcache = jo["cache"]
+        with torch.no_grad():
+            to = model(torch.tensor(tok), attention_mask=torch.tensor(slot_mask),
+                       positions=torch.tensor(pos), cache=attach_block_table(pool, table),
+                       cache_index=torch.full((B,), P + step))
+        np.testing.assert_allclose(to["logits"].numpy(), np.asarray(jo["logits"]),
+                                   atol=ATOL, rtol=0, err_msg=f"paged decode step {step}")
+
+
+def test_scanned_params_convert_like_unscanned():
+    jcfg = JaxConfig.gpt2("test")
+    params = _numpy_params(jcfg, seed=1)
+    tcfg = TransformerConfig.gpt2("test")
+    flat = params_from_jax(params, tcfg)
+    stacked = stack_layer_params(params, jcfg.num_layers)
+    scanned = params_from_jax(jax.tree_util.tree_map(np.asarray, stacked), tcfg)
+    assert flat.keys() == scanned.keys()
+    for k in flat:
+        torch.testing.assert_close(flat[k], scanned[k], atol=0, rtol=0)
+    # flax kernels are [in, out]; torch Linear weights are [out, in]
+    np.testing.assert_array_equal(
+        flat["blocks.0.mlp.up_proj.weight"].numpy(),
+        np.asarray(params["h_0"]["mlp"]["up_proj"]["kernel"]).T)
+    assert "lm_head.weight" not in flat  # tied to wte
+
+
+def test_jax_builder_tree_converts():
+    """The tree structure the JAX builder produces loads into the port
+    (strict: every key present, every shape right)."""
+    _, shapes, _ = jax_build(ModelConfig(model_path="builtin:gpt2-test"), abstract=True)
+    params = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes)
+    model = CausalTransformer(TransformerConfig.gpt2("test"))
+    model.load_state_dict(params_from_jax(params, model.config), strict=True)
+
+
+def test_builder_is_seeded_and_validates():
+    a, cfg = build_causal_lm("builtin:gpt2-test", seed=3, device="cpu")
+    b, _ = build_causal_lm("builtin:gpt2-test", seed=3, device="cpu")
+    c, _ = build_causal_lm("builtin:gpt2-test", seed=4, device="cpu")
+    assert cfg.dtype == torch.bfloat16 and a.wte.weight.dtype == torch.float32
+    assert torch.equal(a.wte.weight, b.wte.weight)
+    assert not torch.equal(a.wte.weight, c.wte.weight)
+    assert float(a.blocks[0].ln_attn.weight.min()) == 1.0
+    assert float(a.blocks[0].attn.q_proj.bias.abs().max()) == 0.0
+    assert config_from_spec("builtin:gpt2-small").hidden_size == 768
+    with pytest.raises(ValueError, match="unported"):
+        config_from_spec("builtin:llama-test")
+    with pytest.raises(ValueError, match="GPT-2 family"):
+        TransformerConfig.gpt2("test", norm="rmsnorm")
+    with pytest.raises(ValueError, match="no heads"):
+        build_causal_lm("builtin:gpt2-test", device="cpu", head="value")

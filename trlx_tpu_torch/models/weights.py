@@ -1,0 +1,78 @@
+"""Weights carried across from the JAX package.
+
+:func:`params_from_jax` turns a JAX ``CausalTransformer`` parameter tree,
+given as nested dicts of numpy arrays, into the port's ``state_dict``:
+
+- flax ``Dense`` kernels are ``[in, out]``; ``torch.nn.Linear`` weights are
+  ``[out, in]`` — every kernel is transposed;
+- tied embeddings: the LM head reuses ``wte`` (no ``lm_head`` entry);
+- layers come as ``h_{i}`` subtrees (the unscanned layout). A scanned tree
+  (``h_scan/block`` with a leading layer axis, ``stack_layer_params``) is
+  sliced back into ``h_{i}`` first, as ``unstack_layer_params`` does.
+"""
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from trlx_tpu_torch.models.transformer import TransformerConfig
+
+__all__ = ["params_from_jax"]
+
+
+def _unstack(backbone: Dict[str, Any]) -> Dict[str, Any]:
+    if "h_scan" not in backbone:
+        return backbone
+    out = {k: v for k, v in backbone.items() if k != "h_scan"}
+    stacked = backbone["h_scan"]["block"]
+
+    def take(tree, i):
+        if isinstance(tree, dict):
+            return {k: take(v, i) for k, v in tree.items()}
+        return np.asarray(tree)[i]
+
+    first = stacked
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    for i in range(np.asarray(first).shape[0]):
+        out[f"h_{i}"] = take(stacked, i)
+    return out
+
+
+def params_from_jax(np_params: Dict[str, Any], cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
+    """JAX parameter tree (numpy leaves) → the port's ``state_dict``."""
+    tree = np_params.get("backbone", np_params)
+    tree = _unstack(tree)
+
+    def t(x):
+        return torch.tensor(np.asarray(x), dtype=cfg.param_dtype)
+
+    sd: Dict[str, torch.Tensor] = {
+        "wte.weight": t(tree["wte"]["embedding"]),
+        "wpe.weight": t(tree["wpe"]["embedding"]),
+    }
+
+    def dense(prefix, node):
+        sd[f"{prefix}.weight"] = t(np.asarray(node["kernel"]).T)
+        if "bias" in node:
+            sd[f"{prefix}.bias"] = t(node["bias"])
+
+    def norm(prefix, node):
+        sd[f"{prefix}.weight"] = t(node["scale"])
+        sd[f"{prefix}.bias"] = t(node["bias"])
+
+    for i in range(cfg.num_layers):
+        layer = tree[f"h_{i}"]
+        p = f"blocks.{i}"
+        norm(f"{p}.ln_attn", layer["ln_attn"])
+        norm(f"{p}.ln_mlp", layer["ln_mlp"])
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            dense(f"{p}.attn.{proj}", layer["attn"][proj])
+        for proj in ("up_proj", "down_proj"):
+            dense(f"{p}.mlp.{proj}", layer["mlp"][proj])
+    if cfg.final_norm:
+        norm("ln_f", tree["ln_f"])
+    if not cfg.tie_word_embeddings:
+        dense("lm_head", tree["lm_head"])
+    return sd

@@ -1,0 +1,330 @@
+"""Slot-refill decode: the device half of the paged continuous-batching
+engine, in PyTorch.
+
+Port of ``trlx_tpu/ops/slot_refill.py`` restricted to the in-place kernel
+path: ``paged=PagedSpec(...)``, ``decode_kernel="pallas"``,
+``prefill_kernel="pallas"`` and ``speculative=0`` (the names keep the JAX
+package's config values; here they select the CUDA kernels). Anything
+else raises ``ValueError``, as the JAX module does for invalid
+combinations.
+
+Decode runs in fixed-size **segments** over per-slot state: after each
+segment the host engine harvests finished slots and refills them with
+fresh prompts through an on-demand prefill into the freed slots' pool
+blocks. Row independence is what makes this exact: every slot decodes at
+its own cache column (a ``[B]`` ``cache_index``), samples from its own
+seed at its own step, and frozen (finished) slots neither write K/V (their
+table rows are poisoned out of range every step) nor advance — so a
+harvested sequence equals what a solo :func:`ops.sampling.generate` of the
+same prompt and seed produces.
+
+- refill: the prompt span ``[0, P)`` of ``R`` rows is prefilled in place —
+  the model's paged branch commits K/V through the rows' block tables and
+  calls the paged-prefill kernel; rows are padded to a power-of-two bucket
+  (padding rows carry out-of-range tables, so every write drops), which
+  bounds the set of shapes the kernels see;
+- decode segment: up to ``segment_len`` steps of fused sampling
+  (``ops/paged_attention.py::sample_token_fused``) then a one-token forward
+  through the paged-decode kernel. The JAX ``lax.while_loop`` is a Python
+  loop with an early exit when every slot is done.
+"""
+
+import dataclasses
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from trlx_tpu_torch.ops.kernel_utils import resolve_device
+from trlx_tpu_torch.ops.paged_attention import sample_token_fused
+from trlx_tpu_torch.ops.paged_kv import (
+    PagedKV,
+    PagedSpec,
+    attach_block_table,
+    init_paged_kv,
+)
+from trlx_tpu_torch.ops.sampling import GenerationConfig, last_step_info
+
+__all__ = ["SlotState", "SlotRefillFns", "make_slot_refill_fns"]
+
+
+@dataclasses.dataclass
+class SlotState:
+    """Per-slot decode state (``B`` slots over ``S = P + N`` cache columns).
+    Tensors are updated in place by the refill and segment programs."""
+
+    tokens: torch.Tensor  # [B, N] int32 response tokens (pad after eos)
+    logprobs: torch.Tensor  # [B, N] f32 behaviour logprobs
+    mask: torch.Tensor  # [B, N] int32, 1 on real response tokens
+    slot_mask: torch.Tensor  # [B, S] int64 attention slot mask
+    cache: PagedKV  # block pool + [B, TB] block table
+    logits: torch.Tensor  # [B, V] logits feeding the next sample
+    step_out: Dict[str, torch.Tensor]  # last-position views (adjust hook)
+    prompt_len: torch.Tensor  # [B] int64 real prompt lengths
+    done: torch.Tensor  # [B] bool finished (or empty) slots
+    step: torch.Tensor  # [B] int64 per-slot decode step
+    seed: torch.Tensor  # [B] int64 per-slot sampling seeds
+    greedy: torch.Tensor  # [B] bool slots decoded greedily (zero noise)
+
+
+class SlotRefillFns(NamedTuple):
+    """The slot-refill programs + static shape info."""
+
+    init_state: Callable[[], SlotState]
+    # (model, state, ids [r,P], mask [r,P], slot_idx [r], seeds [r],
+    #  table_rows [r,TB], hit=0) → state
+    refill_rows: Callable[..., SlotState]
+    prewarm: Callable[[Any, SlotState], SlotState]
+    # (model, state) → (state, live_steps, steps_run)
+    decode_segment: Callable[..., Tuple[SlotState, int, int]]
+    batch_size: int
+    prompt_len: int
+    max_new_tokens: int
+    segment_len: int
+    paged: PagedSpec
+    device: torch.device
+
+
+def _row_set(buf: torch.Tensor, val: torch.Tensor, col: torch.Tensor,
+             live: torch.Tensor) -> torch.Tensor:
+    """``buf[i, col[i]] = val[i]`` for live rows; frozen rows keep their
+    buffer (no host sync: a scatter then a row-masked select)."""
+    col = torch.clamp(col, max=buf.shape[1] - 1)[:, None]
+    written = buf.scatter(1, col, val.to(buf.dtype)[:, None])
+    return torch.where(live[:, None], written, buf)
+
+
+def make_slot_refill_fns(
+    cfg: Any,  # TransformerConfig of the served model
+    batch_size: int,
+    prompt_len: int,
+    config: GenerationConfig,
+    adjust_logits: Optional[Callable[[Dict[str, Any], torch.Tensor], torch.Tensor]] = None,
+    segment_len: int = 8,
+    paged: Optional[PagedSpec] = None,
+    decode_kernel: str = "pallas",
+    prefill_kernel: str = "pallas",
+    speculative: int = 0,
+    device: Any = None,
+) -> SlotRefillFns:
+    """Build the slot-refill programs for one engine geometry on
+    ``device`` (default: the GPU; raises without one)."""
+    if paged is None:
+        raise ValueError(
+            "the port's slot-refill engine is the paged backend: pass "
+            "paged=PagedSpec(...) (the dense backend is not ported)"
+        )
+    if decode_kernel != "pallas":
+        raise ValueError(
+            f"decode_kernel {decode_kernel!r}: the port runs the in-place "
+            "paged-decode kernel ('pallas'); the gather path is not ported"
+        )
+    if prefill_kernel != "pallas":
+        raise ValueError(
+            f"prefill_kernel {prefill_kernel!r}: the port runs the in-place "
+            "paged-prefill kernel ('pallas'); the gather path is not ported"
+        )
+    if speculative:
+        raise ValueError("speculative decode segments are not ported yet")
+    device = resolve_device(device)
+    B, P, N = batch_size, prompt_len, config.max_new_tokens
+    S = P + N
+    V = cfg.vocab_size
+    warmed = {"done": False}
+
+    def init_cache(rows: int, length: int):
+        from trlx_tpu_torch.models.transformer import make_kv_cache
+
+        return make_kv_cache(cfg, rows, length, device=device)
+
+    def empty_state() -> SlotState:
+        i64 = dict(dtype=torch.int64, device=device)
+        return SlotState(
+            tokens=torch.full((B, N), config.pad_token_id, dtype=torch.int32, device=device),
+            logprobs=torch.zeros((B, N), dtype=torch.float32, device=device),
+            mask=torch.zeros((B, N), dtype=torch.int32, device=device),
+            slot_mask=torch.zeros((B, S), **i64),
+            cache=init_paged_kv(init_cache, paged, B, S, device=device),
+            logits=torch.zeros((B, V), dtype=cfg.dtype, device=device),
+            step_out={
+                "hidden_states": torch.zeros((B, cfg.hidden_size), dtype=cfg.dtype, device=device),
+                "last_tokens": torch.zeros((B,), **i64),
+            },
+            prompt_len=torch.zeros((B,), **i64),
+            done=torch.ones((B,), dtype=torch.bool, device=device),
+            step=torch.zeros((B,), **i64),
+            seed=torch.zeros((B,), **i64),
+            greedy=torch.zeros((B,), dtype=torch.bool, device=device),
+        )
+
+    @torch.no_grad()
+    def refill(model, state: SlotState, input_ids, prompt_mask, slot_idx,
+               seeds, table_rows, greedy) -> SlotState:
+        """Prefill ``R`` rows in place through their block tables and seed
+        their slots. ``slot_idx >= B`` marks bucket padding: those rows'
+        tables are out of range (their writes drop) and their results are
+        not scattered into the state."""
+        R = input_ids.shape[0]
+        ids = torch.as_tensor(input_ids, dtype=torch.int64).to(device)
+        pmask = torch.as_tensor(prompt_mask, dtype=torch.int64).to(device)
+        tables = torch.as_tensor(table_rows, dtype=torch.int32).to(device)
+        slot_mask_r = torch.cat(
+            [pmask, torch.zeros((R, N), dtype=torch.int64, device=device)], dim=1
+        )
+        out = model(
+            ids, attention_mask=slot_mask_r,
+            cache=attach_block_table(state.cache.pool, tables),
+            cache_index=0, logits_span=(P - 1, P),
+        )
+        step_out_r = {**last_step_info(out), "last_tokens": ids[:, -1]}
+        keep = np.nonzero(np.asarray(slot_idx) < B)[0]
+        if keep.size == 0:
+            return state
+        src = torch.as_tensor(keep, device=device)
+        dst = torch.as_tensor(np.asarray(slot_idx)[keep], dtype=torch.int64, device=device)
+        state.tokens[dst] = config.pad_token_id
+        state.logprobs[dst] = 0.0
+        state.mask[dst] = 0
+        state.slot_mask[dst] = slot_mask_r[src]
+        state.cache.block_table[dst] = tables[src]
+        state.logits[dst] = out["logits"][src, -1].to(state.logits.dtype)
+        for k, v in step_out_r.items():
+            state.step_out[k][dst] = v[src].to(state.step_out[k].dtype)
+        state.prompt_len[dst] = pmask[src].sum(dim=1)
+        state.done[dst] = False
+        state.step[dst] = 0
+        state.seed[dst] = torch.as_tensor(np.asarray(seeds), dtype=torch.int64).to(device)[src]
+        state.greedy[dst] = torch.as_tensor(np.asarray(greedy), dtype=torch.bool).to(device)[src]
+        return state
+
+    def _bucket_pad(input_ids, prompt_mask, table_rows):
+        """Round ``r`` up to the next power-of-two bucket; padding rows
+        carry pad tokens, all-zero masks and ``max_blocks``-poisoned
+        tables (every commit drops)."""
+        input_ids = np.asarray(input_ids, np.int64)
+        prompt_mask = np.asarray(prompt_mask, np.int64)
+        table_rows = np.asarray(table_rows, np.int32)
+        r = input_ids.shape[0]
+        bucket = 1
+        while bucket < r:
+            bucket *= 2
+        bucket = min(bucket, max(B, 1))
+        if bucket < r:
+            raise ValueError(f"refilling {r} rows into {B} slots")
+        pad = bucket - r
+        if pad:
+            input_ids = np.concatenate(
+                [input_ids, np.full((pad, P), config.pad_token_id, np.int64)])
+            prompt_mask = np.concatenate([prompt_mask, np.zeros((pad, P), np.int64)])
+            table_rows = np.concatenate(
+                [table_rows, np.full((pad, table_rows.shape[1]), paged.max_blocks, np.int32)])
+        return bucket, pad, input_ids, prompt_mask, table_rows
+
+    def refill_rows(model, state, input_ids, prompt_mask, slot_idx, seeds,
+                    table_rows, hit: int = 0, greedy=None) -> SlotState:
+        """Host wrapper: pad ``r`` rows to a power-of-two bucket (padding
+        rows carry ``slot_idx = B``) and run the refill. ``greedy`` ([r]
+        bool, default all False) marks rows decoded greedily."""
+        if hit:
+            raise ValueError("prefix-cache hits (hit > 0) are not ported yet")
+        slot_idx = np.asarray(slot_idx, np.int64)
+        seeds = np.asarray(seeds, np.int64).reshape(-1)
+        greedy = np.zeros(seeds.shape, bool) if greedy is None else np.asarray(greedy, bool)
+        _, pad, input_ids, prompt_mask, table_rows = _bucket_pad(
+            input_ids, prompt_mask, table_rows)
+        if pad:
+            slot_idx = np.concatenate([slot_idx, np.full((pad,), B, np.int64)])
+            seeds = np.concatenate([seeds, np.zeros((pad,), np.int64)])
+            greedy = np.concatenate([greedy, np.zeros((pad,), bool)])
+        return refill(model, state, input_ids, prompt_mask, slot_idx, seeds,
+                      table_rows, greedy)
+
+    def prewarm(model, state: SlotState) -> SlotState:
+        """Run every refill bucket once as a no-op (all rows padding, every
+        write drops): the first call of each shape pays kernel loading and
+        library setup before any request is timed. Once per fns."""
+        if warmed["done"]:
+            return state
+        TB = state.cache.block_table.shape[1]
+        bucket = 1
+        while True:
+            refill(model, state,
+                   np.full((bucket, P), config.pad_token_id, np.int64),
+                   np.zeros((bucket, P), np.int64),
+                   np.full((bucket,), B, np.int64), np.zeros((bucket,), np.int64),
+                   np.full((bucket, TB), paged.max_blocks, np.int32),
+                   np.zeros((bucket,), bool))
+            if bucket >= B:
+                break
+            bucket = min(bucket * 2, B)
+        warmed["done"] = True
+        return state
+
+    @torch.no_grad()
+    def decode_segment(model, state: SlotState):
+        """Up to ``segment_len`` decode steps over live slots, stopping
+        early when every slot is done. Returns ``(state, live_steps,
+        steps_run)``. Each step samples with the fused kernel, commits one
+        K/V column per live row through its table (frozen rows' tables are
+        poisoned out of range, so they write nothing) and runs the
+        paged-decode kernel."""
+        st = state
+        table = st.cache.block_table
+        poisoned = torch.full_like(table, paged.max_blocks)
+        live_steps = torch.zeros((), dtype=torch.int64, device=device)
+        steps = 0
+        for _ in range(segment_len):
+            if bool(st.done.all()):
+                break
+            live = ~st.done
+            next_token, logprob = sample_token_fused(
+                st.logits, st.step_out, st.seed, config, st.step, adjust_logits,
+                greedy=st.greedy,
+            )
+            next_token = torch.where(
+                live, next_token, torch.full_like(next_token, config.pad_token_id))
+            st.tokens = _row_set(st.tokens, next_token, st.step, live)
+            st.logprobs = _row_set(
+                st.logprobs, torch.where(live, logprob, torch.zeros_like(logprob)),
+                st.step, live)
+            st.mask = _row_set(st.mask, live.to(torch.int32), st.step, live)
+            done = st.done
+            if config.eos_token_id is not None:
+                done = done | (live & (next_token == config.eos_token_id))
+            # a live row that just wrote its N-th column is finished
+            done = done | (live & (st.step + 1 >= N))
+            slot = P + st.step
+            st.slot_mask = _row_set(st.slot_mask, live.to(torch.int64), slot, live)
+            out = model(
+                next_token[:, None].to(torch.int64),
+                attention_mask=st.slot_mask,
+                positions=(st.prompt_len + st.step)[:, None],
+                cache=attach_block_table(
+                    st.cache.pool, torch.where(live[:, None], table, poisoned)),
+                cache_index=slot,
+            )
+            step_out = {**last_step_info(out), "last_tokens": next_token.to(torch.int64)}
+            st.logits = torch.where(live[:, None], out["logits"][:, -1], st.logits)
+            st.step_out = {
+                k: torch.where(live.view(-1, *([1] * (v.ndim - 1))),
+                               step_out[k].to(v.dtype), v)
+                for k, v in st.step_out.items()
+            }
+            st.done = done
+            st.step = torch.where(live, st.step + 1, st.step)
+            live_steps += live.sum()
+            steps += 1
+        return st, int(live_steps), steps
+
+    return SlotRefillFns(
+        init_state=empty_state,
+        refill_rows=refill_rows,
+        prewarm=prewarm,
+        decode_segment=decode_segment,
+        batch_size=B,
+        prompt_len=P,
+        max_new_tokens=N,
+        segment_len=segment_len,
+        paged=paged,
+        device=device,
+    )
