@@ -58,7 +58,34 @@ REPLACES = {
     "paged_decode": "trlx_tpu/ops/paged_attention.py:226",
     "paged_prefill": "trlx_tpu/ops/paged_prefill.py:212",
     "fused_sample": "trlx_tpu/ops/paged_attention.py:373",
+    "flash_fwd": "trlx_tpu/ops/flash_attention.py:318",
+    "flash_bwd": "trlx_tpu/ops/flash_attention.py:377",
+    "fused_loss_fwd": "trlx_tpu/ops/fused_loss.py:274",
+    "fused_loss_bwd": "trlx_tpu/ops/fused_loss.py:309",
 }
+SERVE_KERNELS = ("paged_prefill", "paged_decode", "fused_sample")
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd", "fused_loss_fwd", "fused_loss_bwd")
+
+
+def kernel_wrappers():
+    """name → wrapper (each carries its ``launches`` counter)."""
+    from trlx_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    from trlx_tpu_torch.ops.fused_loss import fused_loss_bwd, fused_loss_fwd
+    from trlx_tpu_torch.ops.paged_attention import fused_sample, paged_attention_decode
+    from trlx_tpu_torch.ops.paged_prefill import paged_prefill_attention
+
+    return {"paged_prefill": paged_prefill_attention, "paged_decode": paged_attention_decode,
+            "fused_sample": fused_sample, "flash_fwd": flash_fwd, "flash_bwd": flash_bwd,
+            "fused_loss_fwd": fused_loss_fwd, "fused_loss_bwd": fused_loss_bwd}
+
+
+def launch_counts():
+    return {k: w.launches for k, w in kernel_wrappers().items()}
+
+
+def zero_launch_counts():
+    for w in kernel_wrappers().values():
+        w.launches = 0
 
 
 def emit(obj):
@@ -383,9 +410,7 @@ def phase_slice(device="cuda", spec="builtin:gpt2-small", slots=8, block_size=16
                 segment_len=8, prompt_len=64, max_new=40, n_requests=16, card=""):
     from trlx_tpu_torch.engine.core import ContinuousEngine, kernel_launches
     from trlx_tpu_torch.models.builder import build_causal_lm
-    from trlx_tpu_torch.ops.paged_attention import fused_sample, paged_attention_decode
     from trlx_tpu_torch.ops.paged_kv import PagedSpec, num_table_blocks
-    from trlx_tpu_torch.ops.paged_prefill import paged_prefill_attention
     from trlx_tpu_torch.ops.sampling import GenerationConfig, generate
     from trlx_tpu_torch.ops.slot_refill import make_slot_refill_fns
 
@@ -417,8 +442,7 @@ def phase_slice(device="cuda", spec="builtin:gpt2-small", slots=8, block_size=16
                "do_sample": bool(i % 2), "stream": i == 0}
               for i in range(n_requests)]
     sync()
-    for wrapper in (paged_prefill_attention, paged_attention_decode, fused_sample):
-        wrapper.launches = 0
+    zero_launch_counts()
     engine.begin_collection()  # the engine's launch gauges count from here
     # -- the main path: HTTP requests through the server -----------------
     results, wall, server = serve_over_http(engine, bodies, max_new, V, sync)
@@ -499,8 +523,445 @@ def phase_slice(device="cuda", spec="builtin:gpt2-small", slots=8, block_size=16
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the training kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# (atol, rtol) per tensor and type. f32: summation order only (up to 1024
+# terms per sum). bf16: the kernel reads bf16 and accumulates in f32; it is
+# held against the plain version run in f32 on the same (upcast) inputs,
+# so the difference is the rounding of the bf16 outputs.
+FLASH_TOL = {
+    torch.float32: {"out": (1e-4, 0.0), "lse": (1e-4, 0.0), "grad": (1e-3, 1e-4)},
+    torch.bfloat16: {"out": (2e-2, 0.0), "lse": (1e-3, 0.0), "grad": (2e-2, 1e-2)},
+}
+# fused loss, f32 in both: reduction order differs
+LOSS_RTOL, LOSS_ATOL, LOSS_GRAD_ATOL = 1e-4, 1e-6, 1e-7
+
+
+def excess(got, want, atol, rtol):
+    """Largest amount by which |got - want| exceeds atol + rtol |want|
+    (≤ 0 passes), and the max abs error."""
+    got, want = got.float(), want.float()
+    err = torch.nan_to_num((got - want).abs(), nan=float("inf"))  # NaN fails
+    return float((err - atol - rtol * want.abs()).max()), float(err.max())
+
+
+def flash_case_inputs(rs, B, T, S, H, KV, D, dtype, dev, left_pad, alibi, q_offset,
+                      dead_keys):
+    """q, k, v, key mask (random left padding per row; ``dead_keys`` masks a
+    key range of row 0 so that some of its queries see no key), ALiBi
+    positions and slopes, the output cotangent."""
+    mask = np.ones((B, S), np.float32)
+    if left_pad:
+        for b in range(B):
+            mask[b, : rs.randint(0, max(S // 4, 1))] = 0.0
+    if dead_keys:
+        mask[0, dead_keys[0]:dead_keys[1]] = 0.0
+    f = lambda *shape: torch.tensor(rs.randn(*shape), dtype=torch.float32).to(dev, dtype)  # noqa: E731
+    q, k, v, do = f(B, T, H, D), f(B, S, KV, D), f(B, S, KV, D), f(B, T, H, D)
+    alibi_args = [None, None, None]
+    if alibi:
+        kpos = np.maximum(np.cumsum(mask, axis=1) - 1, 0).astype(np.int32)
+        qpos = (np.arange(T, dtype=np.int32)[None].repeat(B, 0) + q_offset)
+        slopes = (2.0 ** (-8.0 * np.arange(1, H + 1) / H)).astype(np.float32)
+        alibi_args = [torch.tensor(x, device=dev) for x in (qpos, kpos, slopes)]
+    return q, k, v, torch.tensor(mask, device=dev), alibi_args, do
+
+
+def flash_visible_pairs(mask, T, S, causal, q_offset, window):
+    """(query, key) pairs visible per head, summed over the batch, and the
+    boolean [B, 1, T, S] visibility."""
+    qs = torch.arange(T, device=mask.device)[:, None] + q_offset
+    ks = torch.arange(S, device=mask.device)[None, :]
+    vis = (mask > 0.5)[:, None, None, :]
+    if causal:
+        vis = vis & (ks <= qs)
+    if window:
+        vis = vis & (qs - ks < window)
+    return int(vis.sum()), vis
+
+
+def check_flash(label, B, T, S, H, KV, D, dtype, seed, causal=True, q_offset=0, window=0,
+                alibi=False, left_pad=True, dead_keys=None, timed=False):
+    """Kernels #5 and #6 against their plain versions: out, lse, dq, dk,
+    dv. With ``timed``: kernel, plain and library times and the bound."""
+    from trlx_tpu_torch.ops.flash_attention import (
+        flash_bwd,
+        flash_bwd_reference,
+        flash_fwd,
+        flash_fwd_reference,
+    )
+
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(seed)
+    q, k, v, mask, alibi_args, do = flash_case_inputs(
+        rs, B, T, S, H, KV, D, dtype, dev, left_pad, alibi, q_offset, dead_keys)
+    kw = dict(sm_scale=D ** -0.5, causal=causal, q_offset=q_offset, k_offset=0, window=window)
+    before = (flash_fwd.launches, flash_bwd.launches)
+    out, lse = flash_fwd(q, k, v, mask, *alibi_args, **kw)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    grads = flash_bwd(q, k, v, mask, *alibi_args, lse, delta, do, **kw)
+    torch.cuda.synchronize()
+    f32 = [x.float() for x in (q, k, v)]
+    want, want_lse = flash_fwd_reference(*f32, mask, *alibi_args, **kw)
+    wgrads = flash_bwd_reference(*f32, mask, *alibi_args, lse, delta, do.float(), **kw)
+    tol = FLASH_TOL[dtype]
+    worst, max_err, report = -1.0, 0.0, {}
+    for name, got, w, t in (("out", out, want, "out"), ("lse", lse, want_lse, "lse"),
+                            ("dq", grads[0], wgrads[0], "grad"),
+                            ("dk", grads[1], wgrads[1], "grad"),
+                            ("dv", grads[2], wgrads[2], "grad")):
+        ex, err = excess(got, w, *tol[t])
+        report[name] = err
+        worst, max_err = max(worst, ex), max(max_err, err)
+    dead_rows = int((lse <= -1e29).sum())
+    pairs, vis = flash_visible_pairs(mask, T, S, causal, q_offset, window)
+    rec = {"phase": "kernel_check", "kernel": "flash_fwd+flash_bwd", "case": label,
+           "dtype": str(dtype).split(".")[-1], "B": B, "T": T, "S": S, "H": H, "KV": KV,
+           "D": D, "q_offset": q_offset, "window": window, "alibi": alibi,
+           "fully_masked_rows": dead_rows, "max_abs_err": report, "tol": tol}
+    if not math.isfinite(max_err) or worst > 0:
+        emit({**rec, "ok": False})
+        raise AssertionError(f"flash {label} {dtype} disagrees with its plain version: {report}")
+    if timed:
+        elem = torch.finfo(dtype).bits // 8
+        io = elem * (2 * B * T * H * D + 2 * B * S * KV * D)
+        fwd_bytes = io + 4 * B * S + 4 * B * H * T
+        bwd_bytes = 2 * io + 8 * B * H * T + 4 * B * S
+        rec["fwd"] = {"kernel_ms": time_ms(lambda: flash_fwd(q, k, v, mask, *alibi_args, **kw)),
+                      "plain_ms": time_ms(lambda: flash_fwd_reference(
+                          q, k, v, mask, *alibi_args, **kw))}
+        rec["bwd"] = {"kernel_ms": time_ms(lambda: flash_bwd(
+                          q, k, v, mask, *alibi_args, lse, delta, do, **kw)),
+                      "plain_ms": time_ms(lambda: flash_bwd_reference(
+                          q, k, v, mask, *alibi_args, lse, delta, do, **kw))}
+        # library yardstick: SDPA with the same boolean mask (GQA repeated),
+        # forward, and its backward alone on a retained graph
+        g = H // KV
+        qd = q.transpose(1, 2).detach().requires_grad_(True)
+        kd = k.repeat_interleave(g, dim=2).transpose(1, 2).detach().requires_grad_(True)
+        vd = v.repeat_interleave(g, dim=2).transpose(1, 2).detach().requires_grad_(True)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        with torch.no_grad():
+            rec["fwd"]["library_ms"] = time_ms(lambda: sdpa(qd, kd, vd, attn_mask=vis))
+        ref_out = sdpa(qd, kd, vd, attn_mask=vis)
+        dod = do.transpose(1, 2)
+        rec["bwd"]["library_ms"] = time_ms(lambda: torch.autograd.grad(
+            ref_out, (qd, kd, vd), dod, retain_graph=True))
+        rec["fwd"]["bound_ms"], rec["fwd"]["bound_by"] = bound(fwd_bytes, 4 * D * H * pairs, dtype)
+        rec["bwd"]["bound_ms"], rec["bwd"]["bound_by"] = bound(bwd_bytes, 10 * D * H * pairs, dtype)
+        rec["visible_pairs_per_head"] = pairs
+    flash_fwd.launches, flash_bwd.launches = before
+    emit({**rec, "ok": True})
+    return rec
+
+
+def loss_operands(B, R, seed, dev):
+    """The fused loss's seven (B, R) f32 operands: ratios inside and
+    outside the clip range, a fully masked row, new values exactly on the
+    value-clip bounds (exact ties for the backward), behaviour logprobs."""
+    rs = np.random.RandomState(seed)
+    lp = (rs.randn(B, R) * 0.1).astype(np.float32)
+    olp = (lp + rs.randn(B, R) * 0.15).astype(np.float32)
+    ov = rs.randn(B, R).astype(np.float32)
+    v = (ov + rs.randn(B, R) * 0.3).astype(np.float32)
+    v[:, ::4] = (ov + np.float32(0.2))[:, ::4]
+    rw = (rs.randn(B, R) * 0.05).astype(np.float32)
+    mask = (rs.rand(B, R) > 0.25).astype(np.float32)
+    mask[0] = 0.0
+    blp = (olp + rs.randn(B, R) * 0.05).astype(np.float32)
+    return [torch.tensor(x, device=dev) for x in (lp, v, olp, ov, rw, mask, blp)]
+
+
+def edge_values(p, ops):
+    """Masked sketched values within 1e-5 of a bin edge (a 1-ulp
+    difference may move them to the neighbouring bin)."""
+    from trlx_tpu_torch.ops.fused_loss import _method_of
+    from trlx_tpu_torch.utils.dynamics import SKETCH_BINS, SKETCH_RANGES
+
+    m = _method_of(p)
+    lp, v, olp, ov, rw, mask = ops[:6]
+    adv, ret = m.get_advantages_and_returns(ov, rw, mask)
+    lr = (lp - olp) * mask
+    vals = {"log_ratio": lr, "kl": (torch.exp(lr) - 1) - lr, "advantages": adv,
+            "value_error": v - ret}
+    n = 0
+    for name, x in vals.items():
+        lo, hi = SKETCH_RANGES[name]
+        edges = lo + (hi - lo) / SKETCH_BINS * torch.arange(SKETCH_BINS + 1, device=x.device)
+        d = (x[..., None] - edges).abs().amin(-1)
+        n += int(((d < 1e-5) & (mask > 0)).sum())
+    return n
+
+
+def check_loss(B, R, use_iw, seed, timed=False):
+    """Kernels #7 and #8 against their plain versions: the loss, every
+    stat, every bin, dlogprobs and dvalues."""
+    from trlx_tpu_torch.ops.fused_loss import (
+        LossParams,
+        fused_loss_bwd,
+        fused_loss_bwd_reference,
+        fused_loss_fwd,
+        fused_loss_fwd_reference,
+    )
+
+    dev = torch.device("cuda")
+    p = LossParams(gamma=1.0, lam=0.95, cliprange=0.2, cliprange_value=0.2, vf_coef=1.0,
+                   iw_correction="clip" if use_iw else "off", iw_clip=1.05, dist_sketches=True)
+    ops = loss_operands(B, R, seed, dev)[: 7 if use_iw else 6]
+    g = torch.tensor(1.0, device=dev)
+    before = (fused_loss_fwd.launches, fused_loss_bwd.launches)
+    loss, sc, hist = fused_loss_fwd(p, ops)
+    dlp, dv = fused_loss_bwd(p, ops, g)
+    torch.cuda.synchronize()
+    wloss, wsc, whist = fused_loss_fwd_reference(p, ops)
+    wlp, wv = fused_loss_bwd_reference(p, ops, g)
+    errs = {"loss": excess(loss, wloss, LOSS_ATOL, LOSS_RTOL),
+            "stats": excess(sc, wsc, LOSS_ATOL, LOSS_RTOL),
+            "dlogprobs": excess(dlp, wlp, LOSS_GRAD_ATOL, LOSS_RTOL),
+            "dvalues": excess(dv, wv, LOSS_GRAD_ATOL, LOSS_RTOL)}
+    bin_diff = float((hist - whist).abs().sum())
+    edge = edge_values(p, ops)
+    rec = {"phase": "kernel_check", "kernel": "fused_loss_fwd+fused_loss_bwd", "B": B, "R": R,
+           "iw": use_iw, "sketches": True, "max_abs_err": {k: e[1] for k, e in errs.items()},
+           "bins_abs_diff": bin_diff, "values_near_bin_edges": edge,
+           "tol": {"rtol": LOSS_RTOL, "atol": LOSS_ATOL, "grad_atol": LOSS_GRAD_ATOL}}
+    if any(e[0] > 0 or not math.isfinite(e[1]) for e in errs.values()) or bin_diff > 2 * edge:
+        emit({**rec, "ok": False})
+        raise AssertionError(f"fused loss ({B}, {R}, iw={use_iw}) disagrees: {rec}")
+    if timed:
+        n = B * R
+        fwd_bytes = 4 * n * len(ops) + 4 * (1 + sc.numel() + hist.numel())
+        bwd_bytes = 4 * n * (len(ops) + 2) + 4
+        rec["fwd"] = {"kernel_ms": time_ms(lambda: fused_loss_fwd(p, ops)),
+                      "plain_ms": time_ms(lambda: fused_loss_fwd_reference(p, ops)),
+                      "library_ms": None}
+        rec["bwd"] = {"kernel_ms": time_ms(lambda: fused_loss_bwd(p, ops, g)),
+                      "plain_ms": time_ms(lambda: fused_loss_bwd_reference(p, ops, g)),
+                      "library_ms": None}
+        # about 60 f32 operations per element forward (GAE, whitening,
+        # both clipped losses, stats, sketches), about 40 backward
+        rec["fwd"]["bound_ms"], rec["fwd"]["bound_by"] = bound(fwd_bytes, 60 * n, torch.float32)
+        rec["bwd"]["bound_ms"], rec["bwd"]["bound_by"] = bound(bwd_bytes, 40 * n, torch.float32)
+    fused_loss_fwd.launches, fused_loss_bwd.launches = before
+    emit({**rec, "ok": True})
+    return rec
+
+
+def phase_train_kernels():
+    """Returns the timed bf16 record of each training kernel at the
+    training shape (and the long-sequence flash record)."""
+    timed = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        bf = dtype == torch.bfloat16
+        # (a) the slice's train shape
+        a = check_flash("train", B=16, T=104, S=104, H=12, KV=12, D=64, dtype=dtype, seed=21,
+                        timed=bf)
+        # (b) the default config's length
+        b = check_flash("long", B=4, T=1024, S=1024, H=12, KV=12, D=64, dtype=dtype, seed=22,
+                        timed=bf)
+        # (c) GQA, T != S, a query offset, a window, ALiBi, fully masked rows
+        check_flash("gqa_window_alibi", B=2, T=77, S=300, H=32, KV=8, D=128, dtype=dtype,
+                    seed=23, q_offset=223, window=64, alibi=True, dead_keys=(200, 290))
+        if bf:
+            timed["flash_train"], timed["flash_long"] = a, b
+    for B, R in ((16, 40), (13, 77)):
+        for use_iw in (False, True):
+            rec = check_loss(B, R, use_iw, seed=B * R + use_iw,
+                             timed=(B, R, use_iw) == (16, 40, False))
+            if "fwd" in rec:
+                timed["loss"] = rec
+    return timed
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the training slice — PPO on GPT-2 small through trlx.train
+# ---------------------------------------------------------------------------
+
+def phase_slice_train(device="cuda", spec="builtin:gpt2-small", total_steps=12, card=""):
+    """PPO through ``trlx_tpu_torch.trlx.train``; every kernel counter is
+    set to 0 just before and read just after. Returns (trainer, launches)."""
+    import trlx_tpu_torch
+    from trlx_tpu_torch.profile_train import reward_fn, slice_prompts, train_config
+
+    dev = torch.device(device)
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_train")
+    # total_steps 12, not 8: 64 rollouts / batch 16 × 2 PPO epochs is 8
+    # updates per collection, so 8 steps would end before the second one
+    config = train_config(ckpt, spec, total_steps)
+    prompts = slice_prompts()
+    start = {}
+
+    def hook(trainer):
+        start.update({k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()})
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    # -- the main path ---------------------------------------------------
+    trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=prompts, config=config,
+                                   init_trainer_hook=hook, device=dev)
+    # -------------------------------------------------------------------
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    hist = trainer.tracker.history
+    steps = [st for _, st in hist if "gradients/global_norm" in st]
+    collections = [st for _, st in hist if "time/exp" in st]
+    losses = [st["losses/total_loss"] for st in steps]
+    end = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    L = trainer.tcfg.num_layers
+    frozen = [k for k in end if k.startswith("backbone.blocks.")
+              and int(k.split(".")[2]) < L - 2]
+    moved_keys = [k for k in end if k not in frozen]
+    unchanged = [k for k in frozen if not torch.equal(end[k], start[k])]
+    not_moved = [k for k in moved_keys if k.startswith(("backbone.blocks.", "backbone.ln_f",
+                                                        "backbone.wte", "v_head"))
+                 and k.endswith("weight") and torch.equal(end[k], start[k])]
+    step_ms = [1e3 * st["time/step"] for st in steps]
+    tok_s = [st["throughput/tokens_per_sec"] for st in steps]
+    rec = {"phase": "slice_train", "model": spec, "dtype": str(trainer.tcfg.dtype).split(".")[-1],
+           "num_layers_unfrozen": 2, "seq_length": 104, "batch_size": 16,
+           "ppo_epochs": 2, "num_rollouts": 64, "chunk_size": 32, "max_new_tokens": 40,
+           "optimizer_steps": len(steps), "rollout_collections": len(collections),
+           "losses": losses, "wall_s": wall,
+           "rollout_tokens_per_s": [c.get("throughput/rollout_tokens_per_sec") for c in collections],
+           "time_exp_s": [c["time/exp"] for c in collections],
+           "train_step_ms_median": statistics.median(step_ms) if step_ms else None,
+           "train_step_ms": step_ms,
+           "train_tokens_per_s_median": statistics.median(tok_s) if tok_s else None,
+           "launches": launches,
+           "launches_per_train_step": {k: launches[k] / max(len(steps), 1) for k in TRAIN_KERNELS},
+           "frozen_blocks_changed": unchanged, "trained_weights_unmoved": not_moved,
+           "card": card}
+    problems = []
+    if len(steps) < 8:
+        problems.append(f"only {len(steps)} optimizer steps")
+    if len(collections) < 2:
+        problems.append(f"only {len(collections)} rollout collections")
+    if not all(math.isfinite(x) for x in losses):
+        problems.append("a non-finite loss")
+    if unchanged:
+        problems.append(f"frozen blocks changed: {unchanged[:4]}")
+    if not_moved:
+        problems.append(f"trainable weights did not move: {not_moved[:4]}")
+    if dev.type == "cuda" and min(launches.values()) <= 0:
+        problems.append(f"a kernel of the path never launched: {launches}")
+    emit({**rec, "ok": not problems})
+    if problems:
+        raise AssertionError(f"slice_train: {problems}")
+    return trainer, launches
+
+
+# gradients on the card (kernels, f32) against the CPU plain versions (f32):
+# reduction order and the order of the kernels' sums differ
+PARITY_GRAD_RTOL = 1e-3
+PARITY_STAT_RTOL, PARITY_STAT_ATOL = 1e-4, 1e-5
+
+
+def phase_slice_train_parity(trainer, card="cuda"):
+    """One collated batch of the run's store through ``loss_fn`` and
+    backward: on the card in f32 through the kernels (TF32 off), and on a
+    CPU copy of the same f32 model through the plain versions."""
+    from trlx_tpu_torch.models.heads import CausalLMWithValueHead
+    from trlx_tpu_torch.trainer.base import host_stats
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch = next(iter(trainer.store.create_loader(trainer.config.train.batch_size)))
+    cfg32 = dataclasses.replace(trainer.tcfg, dtype=torch.float32, attention_impl="pallas")
+    state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    model, device = trainer.model, trainer.device
+    results = {}
+    try:
+        for key, dev in (("card", torch.device(card)), ("cpu", torch.device("cpu"))):
+            m = CausalLMWithValueHead(cfg32)
+            m.load_state_dict(state)
+            m = m.to(dev).requires_grad_(True)
+            trainer.model, trainer.device = m, dev
+            trainer._drop_batch_memo()
+            zero_launch_counts()
+            loss, stats = trainer.loss_fn(trainer._device_batch(batch))
+            loss.backward()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            results[key] = {
+                "loss": float(loss.detach()), "stats": host_stats(stats),
+                "grads": {k: p.grad.detach().cpu() for k, p in m.named_parameters()},
+                "launches": launch_counts(),
+            }
+    finally:
+        trainer.model, trainer.device = model, device
+        trainer._drop_batch_memo()
+    gpu, cpu = results["card"], results["cpu"]
+    n = float(np.asarray(batch.response_mask).sum())
+    worst_stat, stat_name = 0.0, None
+    problems = []
+    for k, want in cpu["stats"].items():
+        if k == "train/loss_kernel_pallas":
+            continue
+        got = gpu["stats"][k]
+        # a ratio within rounding of a clip bound may flip one token
+        atol = 1.5 / n if k.endswith("clipfrac") else PARITY_STAT_ATOL
+        err = abs(got - want)
+        if not err <= atol + PARITY_STAT_RTOL * abs(want):
+            problems.append(f"stat {k}: {got} vs {want}")
+        rel = err / max(abs(want), 1e-12)
+        if rel > worst_stat:
+            worst_stat, stat_name = rel, k
+    # relative to each tensor's largest gradient, with an absolute floor of
+    # 1e-5 of the model's largest: the key-projection biases have a zero
+    # gradient in exact arithmetic (softmax ignores a shift every key
+    # shares, so each query's terms cancel), and both sides hold rounding
+    # noise there. The record prints that noise: the largest error over the
+    # model's largest gradient among the tensors the floor governs
+    gmax = max(float(g.abs().max()) for g in cpu["grads"].values())
+    floor = 1e-5 * gmax
+    worst_grad, grad_name = 0.0, None
+    worst_floored, floored_name = 0.0, None
+    for k, want in cpu["grads"].items():
+        err = float((gpu["grads"][k] - want).abs().max())
+        scale = float(want.abs().max())
+        rel = err / max(scale, floor)
+        if not rel <= worst_grad:  # NaN counts as worst
+            worst_grad, grad_name = rel, k
+        if scale < floor and not err / gmax <= worst_floored:
+            worst_floored, floored_name = err / gmax, k
+    if not worst_grad <= PARITY_GRAD_RTOL:
+        problems.append(f"gradient {grad_name}: relative {worst_grad}")
+    loss_rel = abs(gpu["loss"] - cpu["loss"]) / max(abs(cpu["loss"]), 1e-12)
+    if not loss_rel <= PARITY_STAT_RTOL:
+        problems.append(f"loss {gpu['loss']} vs {cpu['loss']}")
+    through = {k: gpu["launches"][k] for k in TRAIN_KERNELS}
+    if max(cpu["launches"].values()) != 0 or (
+            torch.device(card).type == "cuda" and min(through.values()) <= 0):
+        problems.append(f"launches card {gpu['launches']} / cpu {cpu['launches']}")
+    rec = {"phase": "slice_train_parity", "batch": list(np.asarray(batch.query_tensors).shape)
+           + [int(np.asarray(batch.response_tensors).shape[1])],
+           "tf32": False, "loss_card": gpu["loss"], "loss_cpu": cpu["loss"],
+           "loss_rel_err": loss_rel, "worst_stat_rel_err": worst_stat, "worst_stat": stat_name,
+           "worst_grad_rel_err": worst_grad, "worst_grad": grad_name,
+           "grad_abs_floor": floor, "largest_grad": gmax,
+           "floored_grad_err_over_largest": worst_floored, "floored_grad": floored_name,
+           "grad_rtol": PARITY_GRAD_RTOL, "stat_rtol": PARITY_STAT_RTOL,
+           "kernel_launches_card": through, "params_compared": len(cpu["grads"])}
+    emit({**rec, "ok": not problems})
+    if problems:
+        raise AssertionError(f"slice_train_parity: {problems}")
+    zero_launch_counts()
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
+
+
+def kernel_record(name, launches, max_abs_err, rec):
+    return {"name": name, "route": "cuda", "source": f"trlx_tpu_torch/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": launches, "max_abs_err": max_abs_err,
+            "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
 
 
 def main():
@@ -512,17 +973,22 @@ def main():
     smi = phase_device()
     phase_build()
     timed = phase_kernels()
-    launches = phase_slice(card=smi)
-    kernels = []
-    for name in ("paged_prefill", "paged_decode", "fused_sample"):
-        rec = timed[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": f"trlx_tpu_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
-            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-        })
+    timed_train = phase_train_kernels()
+    serve_launches = phase_slice(card=smi)
+    trainer, train_launches = phase_slice_train(card=smi)
+    phase_slice_train_parity(trainer)
+    kernels = [kernel_record(name, serve_launches[name], timed[name]["max_abs_err"], timed[name])
+               for name in SERVE_KERNELS]
+    flash, loss = timed_train["flash_train"], timed_train["loss"]
+    for name, rec, part, err in (
+        ("flash_fwd", flash, "fwd", max(flash["max_abs_err"]["out"], flash["max_abs_err"]["lse"])),
+        ("flash_bwd", flash, "bwd", max(flash["max_abs_err"][g] for g in ("dq", "dk", "dv"))),
+        ("fused_loss_fwd", loss, "fwd", max(loss["max_abs_err"]["loss"],
+                                            loss["max_abs_err"]["stats"])),
+        ("fused_loss_bwd", loss, "bwd", max(loss["max_abs_err"]["dlogprobs"],
+                                            loss["max_abs_err"]["dvalues"])),
+    ):
+        kernels.append(kernel_record(name, train_launches[name], err, rec[part]))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,7 +3,9 @@ the JAX package: more prompts than slots (so slots are refilled), an
 eos-boost adjust hook for ragged lengths, greedy decoding — every
 harvested sequence equals JAX ``generate`` token for token, across block
 sizes. Sampled decoding is held against the port's own plain ``generate``
-with the same per-row seeds (the noise is batch-composition invariant)."""
+with the same per-row seeds (the noise is batch-composition invariant).
+With a value-head policy every harvested row carries the value head's
+output beside each token, as the JAX engine's harvest does."""
 
 import dataclasses
 
@@ -14,6 +16,11 @@ import pytest
 import torch
 
 from tests.test_torch_transformer import _numpy_params
+from trlx_tpu.engine.core import ContinuousEngine as JaxContinuousEngine
+from trlx_tpu.models.heads import CausalLMWithValueHead as JaxValueHeadLM
+from trlx_tpu.ops.paged_kv import PagedSpec as JaxPagedSpec
+from trlx_tpu.ops.sampling import per_row_keys
+from trlx_tpu.ops.slot_refill import make_slot_refill_fns as jax_make_slot_refill_fns
 from trlx_tpu.models.transformer import CausalTransformer as JaxCausalTransformer
 from trlx_tpu.models.transformer import TransformerConfig as JaxConfig
 from trlx_tpu.models.transformer import make_kv_cache as jax_make_kv_cache
@@ -25,6 +32,7 @@ from trlx_tpu_torch.engine.allocator import (
     TenantQuotaExceeded,
 )
 from trlx_tpu_torch.engine.core import ContinuousEngine
+from trlx_tpu_torch.models.heads import CausalLMWithValueHead
 from trlx_tpu_torch.models.transformer import CausalTransformer, TransformerConfig
 from trlx_tpu_torch.models.weights import params_from_jax
 from trlx_tpu_torch.ops.paged_kv import PagedSpec, num_table_blocks
@@ -92,10 +100,12 @@ def jax_reference(lm):
     return tokens, mask, np.asarray(out.response_logprobs)
 
 
-def _engine(tcfg, model, block_size, config, segment_len=3, max_blocks=0, **kw):
+def _engine(tcfg, model, block_size, config, segment_len=3, max_blocks=0, value_head=False,
+            **kw):
     paged = PagedSpec(block_size, max_blocks or 1 + 2 * B * num_table_blocks(P + N, block_size) + 4)
     fns = make_slot_refill_fns(tcfg, B, P, config, adjust_logits=_boost_torch,
-                               segment_len=segment_len, paged=paged, device="cpu")
+                               segment_len=segment_len, paged=paged, device="cpu",
+                               value_head=value_head)
     return ContinuousEngine(fns, model, PAD, **kw)
 
 
@@ -151,6 +161,55 @@ def test_mixed_greedy_and_sampled_rows(lm, jax_reference):
     for c in engine.run():
         if greedy[c.index]:
             np.testing.assert_array_equal(c.tokens, tokens[c.index])
+
+
+def test_value_head_harvest_matches_jax_engine(lm):
+    """The repair of the port's harvests: ``CompletedSequence.values`` (and
+    ``GenerationOutput.response_values``) hold the value head's output for
+    the state before each sampled token, zeros after a row ends — the JAX
+    paged engine's harvest values on the same value-head weights."""
+    jcfg = dataclasses.replace(JaxConfig.gpt2("test"), dtype=jnp.float32)
+    params = _numpy_params(jcfg, seed=13, module_cls=JaxValueHeadLM)
+    module = JaxValueHeadLM(jcfg)
+    jconfig = JaxGenerationConfig(max_new_tokens=N, eos_token_id=EOS, pad_token_id=PAD,
+                                  min_new_tokens=2, do_sample=False, per_row_rng=True)
+    paged = 1 + 2 * B * num_table_blocks(P + N, 4) + 4
+    jfns = jax_make_slot_refill_fns(
+        lambda p, x, **kw: module.apply({"params": p}, x, **kw),
+        lambda b, s: jax_make_kv_cache(jcfg, b, s), B, P, jconfig,
+        adjust_logits=_boost_jax, segment_len=3, params_example=params,
+        paged=JaxPagedSpec(4, paged))
+    jengine = JaxContinuousEngine(jfns, params, PAD)
+    prompts, masks = _prompt_set()
+    jengine.enqueue_prompts(prompts, masks,
+                            np.asarray(per_row_keys(jax.random.PRNGKey(0), len(prompts))))
+    want = {c.index: c for c in jengine.run()}
+
+    tcfg = TransformerConfig.gpt2("test", dtype=torch.float32)
+    policy = CausalLMWithValueHead(tcfg).eval()
+    policy.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, params), tcfg))
+    engine = _engine(tcfg, policy, 4, _gen_config(), value_head=True)
+    engine.enqueue_prompts(prompts, masks, np.arange(len(prompts)))
+    got = {c.index: c for c in engine.run()}
+    assert sorted(got) == sorted(want) == list(range(len(prompts)))
+    for i, c in got.items():
+        np.testing.assert_array_equal(c.tokens, want[i].tokens, err_msg=f"prompt {i}")
+        np.testing.assert_array_equal(c.mask, want[i].mask)
+        assert np.abs(c.values).max() > 0
+        np.testing.assert_allclose(c.values, np.asarray(want[i].values), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(c.logprobs, np.asarray(want[i].logprobs), atol=1e-5, rtol=0)
+    # the plain dense generate carries the same values
+    solo = generate(policy, torch.tensor(prompts[:2]), torch.tensor(masks[:2]),
+                    torch.tensor([0, 1]), _gen_config(), adjust_logits=_boost_torch)
+    for j in range(2):
+        np.testing.assert_allclose(solo.response_values[j].numpy(), got[j].values, atol=1e-5)
+    assert "value" in engine.fns.init_state().step_out
+    # a bare LM carries no value in its step state and harvests zero values
+    _, _, model, _ = lm
+    bare = _engine(tcfg, model, 4, _gen_config())
+    assert "value" not in bare.fns.init_state().step_out
+    bare.enqueue_prompts(prompts[:2], masks[:2], [0, 1])
+    assert all(np.all(c.values == 0.0) for c in bare.run())
 
 
 def test_rejects_unported_configurations(lm):

@@ -128,6 +128,8 @@ def test_entry_points_default_to_cuda():
 def test_every_cuda_source_has_wrapper_counter_and_plain_version():
     sources = sorted(p.stem for p in (PKG / "csrc").glob("*.cu"))
     assert sources == sorted(kernel_utils.KERNELS)
+    assert {"paged_decode", "paged_prefill", "fused_sample", "flash_fwd", "flash_bwd",
+            "fused_loss_fwd", "fused_loss_bwd"} == set(sources)
     for stem in sources:
         text = (PKG / "csrc" / f"{stem}.cu").read_text()
         # the source note: what it replaces, what bounds it, the design
@@ -143,6 +145,27 @@ def test_every_cuda_source_has_wrapper_counter_and_plain_version():
         assert src.count(f"{wrapper_name}.launches += 1") == 1
         assert f'kernel_fn("{stem}"' in src
         assert 'device.type == "cpu"' in src and plain_name in src
+
+
+def test_trainer_and_train_default_to_cuda(tmp_path):
+    from trlx_tpu_torch.data.default_configs import default_ppo_config
+    from trlx_tpu_torch.trainer.ppo import PPOTrainer
+    from trlx_tpu_torch.trlx import train
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    config = default_ppo_config().evolve(
+        model=dict(model_path="builtin:gpt2-test"),
+        train=dict(continuous_batching=True, checkpoint_dir=str(tmp_path)),
+        engine=dict(backend="paged", decode_kernel="pallas", prefill_kernel="pallas"),
+        method=dict(loss_kernel="pallas"),
+    )
+    reward = lambda samples, prompts, outputs: [0.0] * len(samples)  # noqa: E731
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PPOTrainer(config=config, reward_fn=reward)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(reward_fn=reward, prompts=["a"], config=config)
+    assert PPOTrainer(config=config, reward_fn=reward, device="cpu").device.type == "cpu"
 
 
 def test_wrappers_raise_on_other_devices():

@@ -1,8 +1,10 @@
 """The port's GPT-2 transformer (``trlx_tpu_torch/models``) against the JAX
 ``CausalTransformer``: weights carried over with ``params_from_jax``, the
 same numpy inputs on both sides, logits compared in f32 at ``atol=1e-4``
-— full passes over left-padded prompts, dense-cache prefill and decode
-steps, and the paged (block-table) branch."""
+— full passes over left-padded prompts (bias and flash branches),
+dense-cache prefill and decode steps, the paged (block-table) branch, and
+the value-head policy with its hydra branch (``branch_input``,
+``forward_branch`` and the frozen ``HydraBranch`` copy)."""
 
 import dataclasses
 
@@ -14,11 +16,14 @@ import torch
 
 from trlx_tpu.data.configs import ModelConfig
 from trlx_tpu.models.builder import build_causal_lm as jax_build
+from trlx_tpu.models.builder import hydra_ref_params as jax_hydra_ref_params
+from trlx_tpu.models.heads import CausalLMWithValueHead as JaxValueHeadLM
 from trlx_tpu.models.transformer import CausalTransformer as JaxCausalTransformer
 from trlx_tpu.models.transformer import TransformerConfig as JaxConfig
 from trlx_tpu.models.transformer import make_kv_cache as jax_make_kv_cache
 from trlx_tpu.models.transformer import stack_layer_params
-from trlx_tpu_torch.models.builder import build_causal_lm
+from trlx_tpu_torch.models.builder import build_causal_lm, hydra_ref_params, trainable_mask
+from trlx_tpu_torch.models.heads import CausalLMWithValueHead
 from trlx_tpu_torch.models.transformer import (
     CausalTransformer,
     TransformerConfig,
@@ -36,10 +41,10 @@ _WIDE = dict(vocab_size=301, hidden_size=128, num_layers=2, num_heads=4,
              intermediate_size=512, max_position_embeddings=64)
 
 
-def _numpy_params(cfg, seed):
+def _numpy_params(cfg, seed, module_cls=JaxCausalTransformer):
     """A random parameter tree in the JAX module's structure, made with
     numpy: normal(0.02) weights, non-zero biases, norm scales near 1."""
-    shapes = jax.eval_shape(lambda: JaxCausalTransformer(cfg).init(
+    shapes = jax.eval_shape(lambda: module_cls(cfg).init(
         jax.random.PRNGKey(0), jnp.zeros((1, 4), jnp.int32))["params"])
     rs = np.random.RandomState(seed)
 
@@ -221,5 +226,88 @@ def test_builder_is_seeded_and_validates():
         config_from_spec("builtin:llama-test")
     with pytest.raises(ValueError, match="GPT-2 family"):
         TransformerConfig.gpt2("test", norm="rmsnorm")
-    with pytest.raises(ValueError, match="no heads"):
-        build_causal_lm("builtin:gpt2-test", device="cpu", head="value")
+    with pytest.raises(ValueError, match="value-head policy"):
+        build_causal_lm("builtin:gpt2-test", device="cpu", head="ilql")
+    policy, _ = build_causal_lm("builtin:gpt2-test", seed=3, device="cpu", head="value")
+    assert isinstance(policy, CausalLMWithValueHead)
+    assert torch.equal(policy.backbone.wte.weight, a.wte.weight)
+
+
+def test_flash_branch_matches_jax_logits(pair):
+    """``attention_impl: pallas`` sends full passes through the flash
+    wrappers (their plain versions on the CPU): JAX's logits still."""
+    jm, params, _, model, tcfg = pair
+    flash = CausalTransformer(dataclasses.replace(tcfg, attention_impl="pallas"))
+    flash.load_state_dict(model.state_dict())
+    ids, mask = _prompts(tcfg.vocab_size, seed=6)
+    want = jm.apply({"params": params}, jnp.asarray(ids), attention_mask=jnp.asarray(mask))
+    with torch.no_grad():
+        got = flash(torch.tensor(ids), attention_mask=torch.tensor(mask))
+    real = mask.astype(bool)  # pad queries see no key: out 0 vs a uniform row
+    np.testing.assert_allclose(got["logits"].numpy()[real], np.asarray(want["logits"])[real],
+                               atol=ATOL, rtol=0)
+    assert tcfg.resolved_attention_impl(torch.device("cpu")) == "xla"
+    assert flash.config.resolved_attention_impl(torch.device("cpu")) == "pallas"
+    with pytest.raises(ValueError, match="attention_impl"):
+        TransformerConfig.gpt2("test", attention_impl="mosaic")
+
+
+def test_attention_impl_on_cuda_tensors_is_the_flash_branch():
+    """Full passes on CUDA tensors run the flash kernels: ``auto`` and
+    ``pallas`` resolve to them there, and ``xla`` (the bias path, kept for
+    CPU tensors) raises instead of sending card tensors to it."""
+    cuda = torch.device("cuda")
+    for impl in ("auto", "pallas"):
+        assert TransformerConfig.gpt2("test", attention_impl=impl).resolved_attention_impl(
+            cuda) == "pallas"
+    xla = TransformerConfig.gpt2("test", attention_impl="xla")
+    assert xla.resolved_attention_impl(torch.device("cpu")) == "xla"
+    with pytest.raises(ValueError, match="attention_impl='xla'"):
+        xla.resolved_attention_impl(cuda)
+
+
+@pytest.mark.parametrize("attention_impl", ["xla", "pallas"])
+def test_value_head_and_hydra_branch_match_jax(attention_impl):
+    jcfg = dataclasses.replace(JaxConfig.gpt2("test"), dtype=jnp.float32)
+    params = _numpy_params(jcfg, seed=9, module_cls=JaxValueHeadLM)
+    module = JaxValueHeadLM(jcfg)
+    tcfg = TransformerConfig.gpt2("test", dtype=torch.float32, attention_impl=attention_impl)
+    policy = CausalLMWithValueHead(tcfg)
+    policy.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, params), tcfg))
+    ids, mask = _prompts(tcfg.vocab_size, seed=7)
+    P = ids.shape[1]
+    span = (2, P - 1)
+    fwd = jax.jit(lambda p, i, m: module.apply({"params": p}, i, attention_mask=m,
+                                               branch_layer=1, logits_span=span))
+    want = fwd(params, jnp.asarray(ids), jnp.asarray(mask))
+    with torch.no_grad():
+        got = policy(torch.tensor(ids), attention_mask=torch.tensor(mask), branch_layer=1,
+                     logits_span=span)
+    real = mask.astype(bool)
+    np.testing.assert_allclose(got["value"].numpy()[real], np.asarray(want["value"])[real],
+                               atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got["logits"].numpy()[real[:, 2:P - 1]],
+                               np.asarray(want["logits"])[real[:, 2:P - 1]], atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got["branch_input"].numpy()[real],
+                               np.asarray(want["branch_input"])[real], atol=ATOL, rtol=0)
+    # the hydra branch replayed with frozen reference weights: the JAX
+    # subtree through params_from_jax, and the port's own snapshot
+    ref_tree = jax.tree_util.tree_map(np.asarray, jax_hydra_ref_params(params, jcfg, 1))
+    branch = jax.jit(lambda r, h, m: module.apply(
+        {"params": {"backbone": r}}, h, 1, m, None, span,
+        method=JaxValueHeadLM.forward_branch))
+    want_ref = branch(ref_tree, want["branch_input"], jnp.asarray(mask))
+    snapshot = hydra_ref_params(policy, tcfg, 1)
+    assert snapshot.state_dict().keys() == params_from_jax(ref_tree, tcfg).keys()
+    with torch.no_grad():
+        ref_out = snapshot(got["branch_input"], torch.tensor(mask), None, span)
+        own = policy.forward_branch(got["branch_input"], 1, torch.tensor(mask), None, span)
+    sub = real[:, 2:P - 1]
+    for out in (ref_out, own):
+        np.testing.assert_allclose(out["logits"].numpy()[sub], np.asarray(want_ref["logits"])[sub],
+                                   atol=ATOL, rtol=0)
+    mask_of = trainable_mask(policy, tcfg, 1)
+    assert not mask_of["backbone.blocks.0.attn.q_proj.weight"]
+    assert all(mask_of[k] for k in ("backbone.blocks.1.attn.q_proj.weight",
+                                    "backbone.wte.weight", "backbone.wpe.weight",
+                                    "backbone.ln_f.weight", "v_head.out_proj.bias"))

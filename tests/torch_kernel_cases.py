@@ -65,3 +65,55 @@ def tied_logits(seed, B=6, V=97):
 
 def t(x):
     return torch.tensor(np.asarray(x))
+
+
+# flash attention: (B, T, S, H, KV, D, causal, left_pad, q_offset, k_offset,
+# window, alibi) — ragged tiles (T, S not multiples of 32), GQA, a window,
+# ALiBi and rows that see no key (k_offset ahead of the queries)
+FLASH_CASES = [
+    (2, 13, 13, 4, 4, 64, True, 3, 0, 0, 0, False),
+    (2, 40, 70, 8, 2, 64, True, 5, 30, 0, 0, False),
+    (1, 33, 33, 4, 2, 128, True, 0, 0, 0, 9, True),
+    (2, 20, 20, 2, 2, 32, True, 0, 0, 6, 0, False),
+    (2, 17, 45, 4, 4, 16, False, 7, 0, 0, 0, True),
+]
+
+
+def flash_case(case, seed):
+    """(q, k, v, key_mask, extra kwargs, cotangent) as numpy; ``extra``
+    holds the ALiBi positions and slopes when the case has them."""
+    B, T, S, H, KV, D, causal, left_pad, qo, ko, window, alibi = case
+    rs = np.random.RandomState(seed)
+    q = rs.randn(B, T, H, D).astype(np.float32)
+    k = rs.randn(B, S, KV, D).astype(np.float32)
+    v = rs.randn(B, S, KV, D).astype(np.float32)
+    mask = np.ones((B, S), np.float32)
+    if left_pad:
+        mask[:, :left_pad] = 0.0
+        mask[0, : left_pad + 2] = 0.0
+    extra = dict(causal=causal, q_offset=qo, k_offset=ko, window=window)
+    if alibi:
+        extra["k_positions"] = np.maximum(np.cumsum(mask, axis=1) - 1, 0).astype(np.int32)
+        extra["q_positions"] = (np.arange(T, dtype=np.int32)[None].repeat(B, 0) + qo)
+        extra["alibi_slopes"] = (2.0 ** (-8.0 * np.arange(1, H + 1) / H)).astype(np.float32)
+    return q, k, v, mask, extra, rs.randn(B, T, H, D).astype(np.float32)
+
+
+def loss_case(B, R, seed, tie_values=False):
+    """The fused loss's seven (B, R) f32 operands (logprobs, values,
+    old_logprobs, old_values, rewards, mask, behavior_logprobs): ratios
+    inside and outside the clip range, a fully masked row, and (with
+    ``tie_values``) new values exactly on the value-clip bounds."""
+    rs = np.random.RandomState(seed)
+    lp = (rs.randn(B, R) * 0.1).astype(np.float32)
+    olp = (lp + rs.randn(B, R) * 0.15).astype(np.float32)
+    ov = rs.randn(B, R).astype(np.float32)
+    v = (ov + rs.randn(B, R) * 0.3).astype(np.float32)
+    rw = (rs.randn(B, R) * 0.05).astype(np.float32)
+    mask = (rs.rand(B, R) > 0.25).astype(np.float32)
+    mask[0] = 0.0
+    if tie_values:
+        v[:, ::4] = (ov + np.float32(0.2))[:, ::4]
+        v[:, 1::4] = (ov - np.float32(0.2))[:, 1::4]
+    blp = (olp + rs.randn(B, R) * 0.05).astype(np.float32)
+    return [lp, v, olp, ov, rw, mask, blp]

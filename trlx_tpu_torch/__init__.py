@@ -6,9 +6,21 @@ layout (``models/``, ``ops/``, ``engine/``, ``serve/``) and imports
 passes ``device="cpu"``. Kernels are hand-written CUDA C++ for Hopper
 (``csrc/``), built with ``nvcc`` at first use.
 
-Ported so far: the serving path — GPT-2 on the paged ``ContinuousEngine``
-with in-place paged prefill, paged decode and fused sampling kernels,
-behind the ``ServeServer`` HTTP frontend.
+Ported so far:
+
+- the serving path — GPT-2 on the paged ``ContinuousEngine`` with in-place
+  paged prefill, paged decode and fused sampling kernels, behind the
+  ``ServeServer`` HTTP frontend;
+- online PPO through :func:`train` (``trlx.py``) — rollouts on that engine,
+  scoring and training on the flash-attention forward and backward
+  kernels, the loss on the fused PPO loss kernels.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
+
+
+def train(*args, **kwargs):
+    """``trlx_tpu_torch.trlx.train`` (imported on first call)."""
+    from trlx_tpu_torch.trlx import train as _train
+
+    return _train(*args, **kwargs)

@@ -71,6 +71,7 @@ class CompletedSequence:
     prompt_mask: np.ndarray  # [P]
     tokens: np.ndarray  # [N] response tokens (pad after eos)
     logprobs: np.ndarray  # [N] behaviour logprobs
+    values: np.ndarray  # [N] value-head outputs (0 if no head)
     mask: np.ndarray  # [N] 1 on real response tokens (incl. eos)
     meta: Any = None
     # lifecycle timestamps (perf_counter): the serve SLO metrics derive
@@ -438,7 +439,7 @@ class ContinuousEngine:
         idx = torch.as_tensor(finished, device=self.fns.device)
         host = {
             name: getattr(self.state, name)[idx, : self.N].cpu().numpy()
-            for name in ("tokens", "logprobs", "mask")
+            for name in ("tokens", "logprobs", "values", "mask")
         }
         self.stats.note_harvest(host["tokens"], host["mask"])
         t_harvest = time.perf_counter()
@@ -453,7 +454,8 @@ class ContinuousEngine:
             completed.append(CompletedSequence(
                 index=req.index, prompt_ids=req.input_ids,
                 prompt_mask=req.attention_mask, tokens=host["tokens"][j],
-                logprobs=host["logprobs"][j], mask=host["mask"][j],
+                logprobs=host["logprobs"][j], values=host["values"][j],
+                mask=host["mask"][j],
                 meta=req.meta, t_enqueue=req.t_enqueue, t_prefill0=req.t_refill0,
                 t_prefill1=req.t_refill1, t_harvest=t_harvest,
             ))

@@ -1,24 +1,36 @@
 """Model construction from a ``builtin:<family>-<size>`` spec.
 
-Port of the part of ``trlx_tpu/models/builder.py::build_causal_lm`` the
-serving path needs: a backbone with no head, randomly initialised from a
-seed (no download). Initialisation runs on the CPU from a seeded
-``torch.Generator`` and the model then moves to the device, so one seed
-gives the same weights on every device.
+Port of the parts of ``trlx_tpu/models/builder.py`` the serving and PPO
+paths need:
+
+- :func:`build_causal_lm`: a backbone (``head=None``) or the policy with a
+  value head (``head="value"``), randomly initialised from a seed (no
+  download). Initialisation runs on the CPU from a seeded
+  ``torch.Generator`` and the model then moves to the device, so one seed
+  gives the same weights on every device;
+- :func:`hydra_ref_params`: the frozen hydra reference — copies of the top
+  ``num_layers_unfrozen`` blocks, the final norm and the tied embedding;
+- :func:`trainable_mask`: which parameters train. The JAX semantics: with
+  ``num_layers_unfrozen = k > 0`` only the top ``k`` blocks train among the
+  blocks, while every non-block backbone entry (``wte``, ``wpe``,
+  ``ln_f``) and the heads train; ``-1`` trains everything.
 """
 
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
+from torch import nn
 
+from trlx_tpu_torch.models.heads import CausalLMWithValueHead
 from trlx_tpu_torch.models.transformer import (
     CausalTransformer,
+    HydraBranch,
     TransformerConfig,
     config_from_spec,
 )
 from trlx_tpu_torch.ops.kernel_utils import resolve_device
 
-__all__ = ["build_causal_lm"]
+__all__ = ["build_causal_lm", "hydra_ref_params", "trainable_mask"]
 
 
 def build_causal_lm(
@@ -27,14 +39,56 @@ def build_causal_lm(
     device: Union[None, str, torch.device] = None,
     head: Optional[str] = None,
     **overrides,
-) -> Tuple[CausalTransformer, TransformerConfig]:
+) -> Tuple[nn.Module, TransformerConfig]:
     """Build ``(model, config)`` for a builtin spec with seeded weights, in
-    eval mode on ``device`` (default: the GPU; raises without one)."""
-    if head is not None:
-        raise ValueError(f"head={head!r}: the port builds the bare LM (no heads yet)")
+    eval mode with gradients off, on ``device`` (default: the GPU; raises
+    without one). ``head="value"`` wraps the backbone with the value head."""
+    if head not in (None, "value"):
+        raise ValueError(f"head={head!r}: the port builds the bare LM or the value-head policy")
     device = resolve_device(device)
     cfg = config_from_spec(model_path, **overrides)
-    model = CausalTransformer(cfg)
+    model = CausalTransformer(cfg) if head is None else CausalLMWithValueHead(cfg)
     gen = torch.Generator().manual_seed(int(seed))
     model.reset_parameters(gen)
     return model.to(device).eval().requires_grad_(False), cfg
+
+
+def _backbone(model: nn.Module) -> CausalTransformer:
+    return model.backbone if hasattr(model, "backbone") else model
+
+
+def hydra_ref_params(
+    model: nn.Module, tcfg: TransformerConfig, num_layers_unfrozen: int
+) -> HydraBranch:
+    """Frozen copy of the reference branch: the top ``num_layers_unfrozen``
+    blocks + final norm + lm head (tied embedding), on the model's device,
+    gradients off."""
+    backbone = _backbone(model)
+    start = tcfg.num_layers - num_layers_unfrozen
+    ref = HydraBranch(tcfg, list(range(start, tcfg.num_layers)))
+    state = {k: v for k, v in backbone.state_dict().items() if k in ref.state_dict()}
+    ref.load_state_dict({k: v.detach().clone() for k, v in state.items()})
+    device = next(backbone.parameters()).device
+    return ref.to(device).eval().requires_grad_(False)
+
+
+def trainable_mask(
+    model: nn.Module, tcfg: TransformerConfig, num_layers_unfrozen: int
+) -> Dict[str, bool]:
+    """``{parameter name: trains}`` with the JAX ``trainable_mask`` rules."""
+    mask: Dict[str, bool] = {}
+    wrapped = hasattr(model, "backbone")
+    for name, _ in model.named_parameters():
+        inner = name[len("backbone."):] if wrapped and name.startswith("backbone.") else None
+        if wrapped and inner is None:
+            mask[name] = True  # heads
+            continue
+        inner = name if inner is None else inner
+        if inner.startswith("blocks."):
+            layer = int(inner.split(".")[1])
+            mask[name] = num_layers_unfrozen < 0 or (
+                layer >= tcfg.num_layers - num_layers_unfrozen
+            )
+        else:
+            mask[name] = True  # wte, wpe, ln_f (and an untied lm_head)
+    return mask

@@ -11,9 +11,17 @@ Numerics follow the JAX module: parameters are kept in ``param_dtype``
 at use; layer norms compute their statistics in f32; attention scores are
 formed in the compute dtype, the softmax runs in f32.
 
-Attention has two cache branches:
+Attention has three branches:
 
-- **dense** (``cache = {"k", "v"}`` of ``[B, S, KV, D]``): this call's K/V
+- **flash** (full passes: no cache, ``T > 1``, when
+  :meth:`TransformerConfig.resolved_attention_impl` says so): the
+  flash-attention forward and backward kernels (``ops/flash_attention.py``)
+  with the same masking semantics as the bias (slot-causal + key validity),
+  resolved inside the kernel — no ``[B, 1, T, S]`` bias exists. This is the
+  scoring and training path;
+
+- **dense** (``cache = {"k", "v"}`` of ``[B, S, KV, D]``, or no cache on
+  the bias path): this call's K/V
   are written at ``cache_index`` (a scalar, or a ``[B]`` vector of per-row
   columns) and the einsum attention runs over the whole cache — the plain
   reference path behind ``ops/sampling.py::generate``;
@@ -24,6 +32,11 @@ Attention has two cache branches:
   writes). A single-token step then calls the paged-decode kernel, a span
   (``T > 1``, scalar ``cache_index``) the paged-prefill kernel. The pool is
   updated in place.
+
+The PPO path adds the hydra branch: ``forward(branch_layer=k)`` returns the
+activations entering the top ``k`` blocks as ``branch_input``, and
+:meth:`CausalTransformer.forward_branch` (or a frozen :class:`HydraBranch`
+copy of those blocks) replays the top of the model from them.
 """
 
 import dataclasses
@@ -40,6 +53,7 @@ __all__ = [
     "MLP",
     "Block",
     "CausalTransformer",
+    "HydraBranch",
     "make_kv_cache",
     "config_from_spec",
 ]
@@ -70,6 +84,12 @@ class TransformerConfig:
     final_norm: bool = True
     param_dtype: torch.dtype = torch.float32
     dtype: torch.dtype = torch.bfloat16  # activation/compute dtype
+    # attention implementation of full passes: "auto" (the flash kernels for
+    # CUDA tensors, the bias path otherwise — as JAX's "auto" means the TPU
+    # kernel on a TPU), "xla" (the bias path, the JAX name; CPU tensors only)
+    # or "pallas" (force the flash branch; on CPU tensors its wrappers run
+    # their plain versions)
+    attention_impl: str = "auto"
 
     def __post_init__(self):
         unsupported = {
@@ -83,6 +103,24 @@ class TransformerConfig:
                     f"{field}={got!r}: the port supports the GPT-2 family "
                     f"({field}={want!r}) so far"
                 )
+        if self.attention_impl not in ("auto", "xla", "pallas"):
+            raise ValueError(
+                f"attention_impl={self.attention_impl!r} (auto | xla | pallas)"
+            )
+
+    def resolved_attention_impl(self, device: Optional[torch.device] = None) -> str:
+        """``"pallas"`` (the flash branch) or ``"xla"`` (the bias path) for
+        full passes on ``device``. Full passes on CUDA tensors run the flash
+        kernels: ``"xla"`` there raises."""
+        cuda = device is not None and device.type == "cuda"
+        if self.attention_impl == "auto":
+            return "pallas" if cuda else "xla"
+        if self.attention_impl == "xla" and cuda:
+            raise ValueError(
+                "attention_impl='xla': the bias path serves CPU tensors only; full "
+                "passes on the GPU run the flash-attention kernels ('auto' or 'pallas')"
+            )
+        return self.attention_impl
 
     @property
     def kv_heads(self) -> int:
@@ -197,6 +235,7 @@ class Attention(nn.Module):
         cache: Optional[Dict[str, torch.Tensor]] = None,
         cache_index: Any = None,
         paged_write: Optional[PagedWrite] = None,
+        flash_args: Optional[Dict[str, Any]] = None,
     ):
         cfg = self.cfg
         dt = cfg.dtype
@@ -224,6 +263,13 @@ class Attention(nn.Module):
                     attention_bias.contiguous(),
                 )
             return _linear(self.o_proj, out.reshape(B, T, H * D), dt), cache
+
+        if flash_args is not None:
+            from trlx_tpu_torch.ops.flash_attention import flash_attention
+
+            out = flash_attention(q, k, v, flash_args["key_mask"], causal=True,
+                                  q_offset=flash_args.get("q_offset", 0))
+            return _linear(self.o_proj, out.reshape(B, T, H * D), dt), None
 
         if cache is not None:
             ci = torch.as_tensor(cache_index)
@@ -268,9 +314,10 @@ class Block(nn.Module):
         self.ln_mlp = LayerNorm(cfg)
         self.mlp = MLP(cfg)
 
-    def forward(self, x, attention_bias, cache=None, cache_index=None, paged_write=None):
+    def forward(self, x, attention_bias, cache=None, cache_index=None, paged_write=None,
+                flash_args=None):
         attn_out, new_cache = self.attn(
-            self.ln_attn(x), attention_bias, cache, cache_index, paged_write
+            self.ln_attn(x), attention_bias, cache, cache_index, paged_write, flash_args
         )
         x = x + attn_out
         x = x + self.mlp(self.ln_mlp(x))
@@ -327,6 +374,24 @@ class CausalTransformer(nn.Module):
         )
         return bias[:, None]
 
+    def _attn_inputs(self, key_mask, query_slots, use_flash):
+        """``(bias, flash_args)`` for one forward — the single definition of
+        the masking semantics, shared by the full pass, the cached passes
+        and the hydra branch replay."""
+        if use_flash:
+            return None, {"key_mask": key_mask, "q_offset": 0}
+        return self._attention_bias(key_mask, query_slots), None
+
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        dt = self.config.dtype
+        if self.config.tie_word_embeddings:
+            return h @ self.wte.weight.to(dt).t()
+        return _linear(self.lm_head, h, dt)
+
+    def project_logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """Vocab projection of (already final-normed) hidden states."""
+        return self._logits(hidden)
+
     def forward(
         self,
         input_ids: torch.Tensor,  # [B, T]
@@ -335,6 +400,7 @@ class CausalTransformer(nn.Module):
         cache: Optional[List[Dict[str, torch.Tensor]]] = None,
         cache_index: Any = None,
         logits_span: Optional[Tuple[int, int]] = None,
+        branch_layer: Optional[int] = None,
     ) -> Dict[str, Any]:
         cfg = self.config
         B, T = input_ids.shape
@@ -352,7 +418,10 @@ class CausalTransformer(nn.Module):
         dt = cfg.dtype
         x = self.wte.weight.to(dt)[input_ids.to(torch.int64)]
         x = x + self.wpe.weight.to(dt)[positions + cfg.pos_offset]
-        bias = self._attention_bias(attention_mask, query_slots)
+        use_flash = (
+            cache is None and T > 1 and cfg.resolved_attention_impl(device) == "pallas"
+        )
+        bias, flash_args = self._attn_inputs(attention_mask, query_slots, use_flash)
 
         paged_write = None
         if cache is not None and "block_table" in cache[0]:
@@ -360,19 +429,80 @@ class CausalTransformer(nn.Module):
             paged_write = PagedWrite(cache[0]["block_table"], offset, T,
                                      pool.shape[0], pool.shape[1])
         new_cache = [] if cache is not None else None
+        branch_input = None
         for i, block in enumerate(self.blocks):
+            if branch_layer is not None and i == len(self.blocks) - branch_layer:
+                branch_input = x
             layer_cache = cache[i] if cache is not None else None
-            x, updated = block(x, bias, layer_cache, offset, paged_write)
+            x, updated = block(x, bias, layer_cache, offset, paged_write, flash_args)
             if cache is not None:
                 new_cache.append(updated)
 
         h = self.ln_f(x) if cfg.final_norm else x
-        hs = h if logits_span is None else h[:, logits_span[0] : logits_span[1]]
+        logits = self._logits(h if logits_span is None else h[:, logits_span[0] : logits_span[1]])
+        return {"logits": logits, "hidden_states": h, "branch_input": branch_input,
+                "cache": new_cache}
+
+    def forward_branch(
+        self,
+        hidden_states: torch.Tensor,  # [B, T, E] activations entering the branch
+        branch_layer: int,
+        attention_mask: Optional[torch.Tensor] = None,
+        positions: Optional[torch.Tensor] = None,
+        logits_span: Optional[Tuple[int, int]] = None,
+    ) -> Dict[str, Any]:
+        """Run the top ``branch_layer`` blocks + final norm + lm head (the
+        JAX ``forward_branch``; GPT-2's learned positions entered at the
+        embedding, so ``positions`` is unused)."""
+        blocks = list(self.blocks)[len(self.blocks) - branch_layer:]
+        return _run_branch(self, blocks, hidden_states, attention_mask, logits_span)
+
+
+def _run_branch(owner, blocks, hidden_states, attention_mask, logits_span):
+    """Replay ``blocks`` + ``owner``'s final norm and lm head on
+    ``hidden_states`` (a full pass: slot-causal over ``attention_mask``)."""
+    cfg = owner.config
+    B, T, _ = hidden_states.shape
+    device = hidden_states.device
+    if attention_mask is None:
+        attention_mask = torch.ones((B, T), dtype=torch.int64, device=device)
+    attention_mask = attention_mask.to(device)
+    use_flash = T > 1 and cfg.resolved_attention_impl(device) == "pallas"
+    bias, flash_args = CausalTransformer._attn_inputs(
+        owner, attention_mask, _query_slots(0, B, T, device), use_flash)
+    x = hidden_states
+    for block in blocks:
+        x, _ = block(x, bias, flash_args=flash_args)
+    h = owner.ln_f(x) if cfg.final_norm else x
+    logits = owner._logits(h if logits_span is None else h[:, logits_span[0] : logits_span[1]])
+    return {"logits": logits, "hidden_states": h}
+
+
+class HydraBranch(nn.Module):
+    """The frozen hydra reference of a partially unfrozen model: copies of
+    the top blocks (named by their layer index, as in the backbone's state
+    dict), the final norm and the (tied) embedding — what
+    ``trlx_tpu/models/builder.py::hydra_ref_params`` keeps."""
+
+    def __init__(self, cfg: TransformerConfig, layers: List[int]):
+        super().__init__()
+        self.config = cfg
+        self.layers = list(layers)
+        self.blocks = nn.ModuleDict({str(i): Block(cfg) for i in self.layers})
+        if cfg.final_norm:
+            self.ln_f = LayerNorm(cfg)
         if cfg.tie_word_embeddings:
-            logits = hs @ self.wte.weight.to(dt).t()
+            self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, dtype=cfg.param_dtype)
         else:
-            logits = _linear(self.lm_head, hs, dt)
-        return {"logits": logits, "hidden_states": h, "cache": new_cache}
+            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
+                                     dtype=cfg.param_dtype)
+
+    _attention_bias = CausalTransformer._attention_bias
+    _logits = CausalTransformer._logits
+
+    def forward(self, hidden_states, attention_mask=None, positions=None, logits_span=None):
+        blocks = [self.blocks[str(i)] for i in self.layers]
+        return _run_branch(self, blocks, hidden_states, attention_mask, logits_span)
 
 
 def make_kv_cache(

@@ -8,7 +8,14 @@ given as nested dicts of numpy arrays, into the port's ``state_dict``:
 - tied embeddings: the LM head reuses ``wte`` (no ``lm_head`` entry);
 - layers come as ``h_{i}`` subtrees (the unscanned layout). A scanned tree
   (``h_scan/block`` with a leading layer axis, ``stack_layer_params``) is
-  sliced back into ``h_{i}`` first, as ``unstack_layer_params`` does.
+  sliced back into ``h_{i}`` first, as ``unstack_layer_params`` does;
+- a value-head policy's tree (``backbone`` + ``v_head``) maps onto
+  :class:`~trlx_tpu_torch.models.heads.CausalLMWithValueHead`
+  (``backbone.*`` and ``v_head.in_proj`` / ``v_head.out_proj``);
+- a hydra reference subtree (``builder.py::hydra_ref_params``: the top
+  ``h_{i}``, ``ln_f`` and ``wte``) maps onto
+  :class:`~trlx_tpu_torch.models.transformer.HydraBranch`: only the entries
+  present are converted.
 """
 
 from typing import Any, Dict
@@ -48,10 +55,10 @@ def params_from_jax(np_params: Dict[str, Any], cfg: TransformerConfig) -> Dict[s
     def t(x):
         return torch.tensor(np.asarray(x), dtype=cfg.param_dtype)
 
-    sd: Dict[str, torch.Tensor] = {
-        "wte.weight": t(tree["wte"]["embedding"]),
-        "wpe.weight": t(tree["wpe"]["embedding"]),
-    }
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("wte", "wpe"):
+        if name in tree:
+            sd[f"{name}.weight"] = t(tree[name]["embedding"])
 
     def dense(prefix, node):
         sd[f"{prefix}.weight"] = t(np.asarray(node["kernel"]).T)
@@ -63,6 +70,8 @@ def params_from_jax(np_params: Dict[str, Any], cfg: TransformerConfig) -> Dict[s
         sd[f"{prefix}.bias"] = t(node["bias"])
 
     for i in range(cfg.num_layers):
+        if f"h_{i}" not in tree:  # a hydra reference holds the top layers only
+            continue
         layer = tree[f"h_{i}"]
         p = f"blocks.{i}"
         norm(f"{p}.ln_attn", layer["ln_attn"])
@@ -75,4 +84,9 @@ def params_from_jax(np_params: Dict[str, Any], cfg: TransformerConfig) -> Dict[s
         norm("ln_f", tree["ln_f"])
     if not cfg.tie_word_embeddings:
         dense("lm_head", tree["lm_head"])
+    if "v_head" not in np_params:
+        return sd
+    sd = {f"backbone.{k}": v for k, v in sd.items()}
+    for proj in ("in_proj", "out_proj"):
+        dense(f"v_head.{proj}", np_params["v_head"][proj])
     return sd

@@ -1,0 +1,306 @@
+"""Fused PPO learner loss: GAE + whitening + clipped loss + stats + sketches.
+
+Port of ``trlx_tpu/ops/fused_loss.py``. Two CUDA kernels written for
+Hopper, each with a plain PyTorch version beside it:
+
+- :func:`fused_loss_fwd` (``csrc/fused_loss_fwd.cu``): the reversed GAE,
+  masked whitening, the clipped policy and value losses, every scalar stat
+  of ``PPOConfig.loss`` and the four ``dist/*`` sketches, in one launch;
+- :func:`fused_loss_bwd` (``csrc/fused_loss_bwd.cu``): the loss's gradient
+  with respect to ``logprobs`` and ``values``, derived by hand with JAX's
+  tie rules.
+
+:class:`_FusedLoss` pairs them as a ``torch.autograd.Function`` (the JAX
+``custom_vjp``): gradients flow to ``logprobs`` and ``values`` only — the
+other operands are batch constants in the trainer, and advantages and
+returns are detached in the staged path too, so this is exact.
+
+The plain versions keep the JAX design of calling the port's own
+``PPOConfig`` methods (:func:`_loss_core`: ``get_advantages_and_returns``
+then ``loss``) instead of a transcription of them. Stats are packed in the
+order the JAX package discovers its keys: sorted scalar keys, then sorted
+histogram keys (:func:`stat_keys`).
+
+Operands are f32 (the trainer's store is f32); other dtypes raise.
+"""
+
+import ctypes
+import functools
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from trlx_tpu_torch.ops.kernel_utils import (
+    check_cuda_operand,
+    check_launch,
+    current_stream_ptr,
+    kernel_fn,
+)
+from trlx_tpu_torch.utils.dynamics import SKETCH_BINS
+
+__all__ = [
+    "LossParams",
+    "loss_params_of",
+    "stat_keys",
+    "fused_ppo_loss",
+    "fused_ppo_loss_reference",
+    "fused_loss_fwd",
+    "fused_loss_fwd_reference",
+    "fused_loss_bwd",
+    "fused_loss_bwd_reference",
+]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# the kernel's scalar slots: every scalar stat of PPOConfig.loss with the
+# IW correction, in sorted key order (the IW pair sorts first)
+_IW_KEYS = ("iw/rho_clipfrac", "iw/rho_mean")
+_SCALAR_KEYS = _IW_KEYS + (
+    "losses/policy_loss", "losses/total_loss", "losses/value_loss",
+    "old_values/max", "old_values/mean", "old_values/min", "old_values/std",
+    "padding_percentage",
+    "policy/approx_kl", "policy/clipfrac",
+    "ratio",
+    "returns/max", "returns/mean", "returns/min", "returns/std",
+    "values/clipfrac", "values/max", "values/mean", "values/min", "values/std",
+    "values/values_error",
+)
+_HIST_KEYS = (
+    "dist/advantages_hist", "dist/kl_hist", "dist/log_ratio_hist",
+    "dist/value_error_hist",
+)
+
+
+class LossParams(NamedTuple):
+    """The subset of ``PPOConfig`` the fused loss reads."""
+
+    gamma: float
+    lam: float
+    cliprange: float
+    cliprange_value: float
+    vf_coef: float
+    iw_correction: str
+    iw_clip: float
+    dist_sketches: bool
+
+
+def loss_params_of(method) -> LossParams:
+    """Extract :class:`LossParams` from a ``PPOConfig``-shaped method."""
+    return LossParams(
+        gamma=float(method.gamma),
+        lam=float(method.lam),
+        cliprange=float(method.cliprange),
+        cliprange_value=float(method.cliprange_value),
+        vf_coef=float(method.vf_coef),
+        iw_correction=str(method.iw_correction),
+        iw_clip=float(method.iw_clip),
+        dist_sketches=bool(method.dist_sketches),
+    )
+
+
+def stat_keys(p: LossParams, use_iw: bool) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """``(scalar_keys, hist_keys)`` in packing order."""
+    scalars = _SCALAR_KEYS if use_iw else _SCALAR_KEYS[len(_IW_KEYS):]
+    return scalars, (_HIST_KEYS if p.dist_sketches else ())
+
+
+@functools.lru_cache(maxsize=None)
+def _method_of(p: LossParams):
+    """A fresh ``PPOConfig`` carrying ``p``: the plain versions call the
+    genuine method implementations, never a transcription of them."""
+    from trlx_tpu_torch.models.ppo import PPOConfig  # late: models import this module
+
+    return PPOConfig(
+        gamma=p.gamma, lam=p.lam, cliprange=p.cliprange,
+        cliprange_value=p.cliprange_value, vf_coef=p.vf_coef,
+        iw_correction=p.iw_correction, iw_clip=p.iw_clip,
+        dist_sketches=p.dist_sketches,
+    )
+
+
+def _loss_core(p: LossParams, logprobs, values, old_logprobs, old_values, rewards,
+               mask, behavior_logprobs=None):
+    """The staged chain: GAE → whiten → clipped loss + stats."""
+    m = _method_of(p)
+    advantages, returns = m.get_advantages_and_returns(old_values, rewards, mask)
+    return m.loss(
+        logprobs=logprobs, values=values, old_logprobs=old_logprobs,
+        old_values=old_values, advantages=advantages, returns=returns, mask=mask,
+        behavior_logprobs=behavior_logprobs,
+    )
+
+
+def _check_operands(operands):
+    B, R = operands[0].shape
+    for i, x in enumerate(operands):
+        if x.dtype != torch.float32:
+            raise ValueError(f"fused loss operand {i} has dtype {x.dtype}; expected float32")
+        if tuple(x.shape) != (B, R):
+            raise ValueError(f"fused loss operand {i} has shape {tuple(x.shape)} != {(B, R)}")
+
+
+def _scalar_args(p: LossParams):
+    return (float(p.gamma), float(p.gamma * p.lam), float(1.0 - p.cliprange),
+            float(1.0 + p.cliprange), float(p.cliprange_value), float(p.vf_coef),
+            float(p.iw_clip))
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def fused_loss_fwd(p: LossParams, operands: Tuple[torch.Tensor, ...]):
+    """Loss, packed scalar stats and sketches of the 6 operands ``(logprobs,
+    values, old_logprobs, old_values, rewards, mask)``, plus
+    ``behavior_logprobs`` as a 7th with the IW correction. Returns ``(loss
+    [], scalars [NS], hists [NH, 32])`` in :func:`stat_keys` order."""
+    _check_operands(operands)
+    device = operands[0].device
+    if device.type == "cpu":
+        return fused_loss_fwd_reference(p, operands)
+    if device.type != "cuda":
+        raise ValueError(f"fused_loss_fwd runs on cuda or cpu, not {device}")
+    ops = [x.contiguous() for x in operands]
+    for i, x in enumerate(ops):
+        check_cuda_operand(x, f"operand {i}", device, (torch.float32,))
+    B, R = ops[0].shape
+    use_iw = len(ops) == 7
+    adv = torch.empty((B, R), dtype=torch.float32, device=device)
+    ret = torch.empty_like(adv)
+    loss = torch.empty((), dtype=torch.float32, device=device)
+    scalars = torch.empty((len(_SCALAR_KEYS),), dtype=torch.float32, device=device)
+    hists = torch.empty((len(_HIST_KEYS), SKETCH_BINS), dtype=torch.float32, device=device)
+    fn = kernel_fn("fused_loss_fwd", [_P] * 12 + [_I, _I] + [_F] * 7 + [_I, _P])
+    rc = fn(*(x.data_ptr() for x in ops[:6]), ops[6].data_ptr() if use_iw else None,
+            adv.data_ptr(), ret.data_ptr(), loss.data_ptr(), scalars.data_ptr(),
+            hists.data_ptr(), B, R, *_scalar_args(p), int(p.dist_sketches),
+            current_stream_ptr(device))
+    check_launch("fused_loss_fwd", rc)
+    fused_loss_fwd.launches += 1
+    if not use_iw:
+        scalars = scalars[len(_IW_KEYS):]
+    if not p.dist_sketches:
+        hists = hists[:0]
+    return loss, scalars, hists
+
+
+fused_loss_fwd.launches = 0
+
+
+def fused_loss_fwd_reference(p: LossParams, operands):
+    """Plain version of :func:`fused_loss_fwd`: :func:`_loss_core`, packed."""
+    use_iw = len(operands) == 7
+    with torch.no_grad():
+        loss, stats = _loss_core(p, *operands[:6], operands[6] if use_iw else None)
+    scalar_keys, hist_keys = stat_keys(p, use_iw)
+    scalars = torch.stack([stats[k].float() for k in scalar_keys])
+    hists = (torch.stack([stats[k].float() for k in hist_keys]) if hist_keys
+             else torch.zeros((0, SKETCH_BINS), dtype=torch.float32, device=loss.device))
+    return loss.float(), scalars, hists
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+
+def fused_loss_bwd(p: LossParams, operands: Tuple[torch.Tensor, ...], g_loss: torch.Tensor):
+    """Gradient of the loss w.r.t. ``logprobs`` and ``values`` given the
+    loss cotangent ``g_loss`` (a 0-dim f32 tensor). Returns ``(dlogprobs,
+    dvalues)``, (B, R) f32."""
+    _check_operands(operands)
+    device = operands[0].device
+    if device.type == "cpu":
+        return fused_loss_bwd_reference(p, operands, g_loss)
+    if device.type != "cuda":
+        raise ValueError(f"fused_loss_bwd runs on cuda or cpu, not {device}")
+    ops = [x.contiguous() for x in operands]
+    for i, x in enumerate(ops):
+        check_cuda_operand(x, f"operand {i}", device, (torch.float32,))
+    g = g_loss.to(device=device, dtype=torch.float32).reshape(1).contiguous()
+    B, R = ops[0].shape
+    use_iw = len(ops) == 7
+    adv = torch.empty((B, R), dtype=torch.float32, device=device)
+    ret = torch.empty_like(adv)
+    dlp = torch.empty_like(adv)
+    dv = torch.empty_like(adv)
+    fn = kernel_fn("fused_loss_bwd", [_P] * 12 + [_I, _I] + [_F] * 7 + [_P])
+    rc = fn(*(x.data_ptr() for x in ops[:6]), ops[6].data_ptr() if use_iw else None,
+            g.data_ptr(), adv.data_ptr(), ret.data_ptr(), dlp.data_ptr(), dv.data_ptr(),
+            B, R, *_scalar_args(p), current_stream_ptr(device))
+    check_launch("fused_loss_bwd", rc)
+    fused_loss_bwd.launches += 1
+    return dlp, dv
+
+
+fused_loss_bwd.launches = 0
+
+
+def fused_loss_bwd_reference(p: LossParams, operands, g_loss):
+    """Plain version of :func:`fused_loss_bwd`: autograd through
+    :func:`_loss_core` w.r.t. the first two operands."""
+    use_iw = len(operands) == 7
+    with torch.enable_grad():
+        lp = operands[0].detach().requires_grad_(True)
+        v = operands[1].detach().requires_grad_(True)
+        rest = [x.detach() for x in operands[2:6]]
+        loss, _ = _loss_core(p, lp, v, *rest, operands[6].detach() if use_iw else None)
+        dlp, dv = torch.autograd.grad(loss, (lp, v), grad_outputs=g_loss.to(loss.dtype))
+    return dlp, dv
+
+
+# ---------------------------------------------------------------------------
+# autograd pairing and the entry points
+# ---------------------------------------------------------------------------
+
+
+class _FusedLoss(torch.autograd.Function):
+    """Forward kernel #7 paired with backward kernel #8."""
+
+    @staticmethod
+    def forward(ctx, p, *operands):
+        loss, scalars, hists = fused_loss_fwd(p, operands)
+        ctx.p = p
+        ctx.save_for_backward(*operands)
+        ctx.mark_non_differentiable(scalars, hists)
+        return loss, scalars, hists
+
+    @staticmethod
+    def backward(ctx, g_loss, g_scalars, g_hists):
+        operands = ctx.saved_tensors
+        dlp, dv = fused_loss_bwd(ctx.p, operands, g_loss)
+        return (None, dlp, dv) + (None,) * (len(operands) - 2)
+
+
+def fused_ppo_loss_reference(method, logprobs, values, old_logprobs, old_values,
+                             rewards, mask, behavior_logprobs=None):
+    """The staged composition — GAE → whiten → loss — exactly as the JAX
+    package's ``loss_kernel: xla`` path runs it (test reference)."""
+    return _loss_core(loss_params_of(method), logprobs, values, old_logprobs,
+                      old_values, rewards, mask, behavior_logprobs)
+
+
+def fused_ppo_loss(
+    method,
+    logprobs: torch.Tensor,  # [B, R] new per-token logprobs
+    values: torch.Tensor,  # [B, R] new value predictions
+    old_logprobs: torch.Tensor,  # [B, R] scoring-forward logprobs
+    old_values: torch.Tensor,  # [B, R] rollout values (GAE input + clip anchor)
+    rewards: torch.Tensor,  # [B, R] per-token KL-penalty rewards
+    mask: torch.Tensor,  # [B, R] 1.0 on real response tokens
+    behavior_logprobs: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, dict]:
+    """GAE + whitening + clipped PPO loss through the fused kernels.
+    Returns ``(loss, stats)``; stats are detached, and gradients flow
+    through ``loss`` to ``logprobs`` and ``values`` only."""
+    p = loss_params_of(method)
+    use_iw = behavior_logprobs is not None and p.iw_correction != "off"
+    operands = (logprobs, values, old_logprobs, old_values, rewards, mask)
+    if use_iw:
+        operands = operands + (behavior_logprobs,)
+    loss, scalars, hists = _FusedLoss.apply(p, *operands)
+    scalar_keys, hist_keys = stat_keys(p, use_iw)
+    stats = {k: scalars[i] for i, k in enumerate(scalar_keys)}
+    stats.update({k: hists[i] for i, k in enumerate(hist_keys)})
+    return loss, stats

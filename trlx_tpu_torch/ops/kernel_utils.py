@@ -15,6 +15,10 @@ Counterpart of ``trlx_tpu/ops/pallas_utils.py``. Three things live here:
 - **Paged-table helpers** shared by the paged kernels' plain versions:
   :func:`clamp_block_table` and :func:`pad_bias_to`.
 
+Shared device code lives in ``csrc/*.cuh`` headers, included by the
+sources that need it; a library's name hashes its source and the headers,
+so editing a header rebuilds every kernel.
+
 Masking convention shared with the JAX package: masked key columns carry
 an additive ``-1e9`` bias, so ``exp(masked - max)`` underflows to exactly
 ``0.0`` and stale values in recycled pool blocks contribute nothing.
@@ -68,6 +72,26 @@ KERNELS: Dict[str, tuple] = {
         "fused_sample",
         "fused_sample_reference",
     ),
+    "flash_fwd": (
+        "trlx_tpu_torch.ops.flash_attention",
+        "flash_fwd",
+        "flash_fwd_reference",
+    ),
+    "flash_bwd": (
+        "trlx_tpu_torch.ops.flash_attention",
+        "flash_bwd",
+        "flash_bwd_reference",
+    ),
+    "fused_loss_fwd": (
+        "trlx_tpu_torch.ops.fused_loss",
+        "fused_loss_fwd",
+        "fused_loss_fwd_reference",
+    ),
+    "fused_loss_bwd": (
+        "trlx_tpu_torch.ops.fused_loss",
+        "fused_loss_bwd",
+        "fused_loss_bwd_reference",
+    ),
 }
 
 _NVCC_FLAGS = [
@@ -102,9 +126,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by the hash of the source
+    and of every shared header beside it (``csrc/*.cuh``)."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _compile(name: str) -> Path:

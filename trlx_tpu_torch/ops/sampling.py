@@ -157,6 +157,7 @@ class GenerationOutput(NamedTuple):
     response_tokens: torch.Tensor  # [B, N] pad-filled after eos
     response_mask: torch.Tensor  # [B, N] 1 on real response tokens (incl. eos)
     response_logprobs: torch.Tensor  # [B, N] behaviour logprobs
+    response_values: torch.Tensor  # [B, N] value-head outputs (0 if no head)
     prompt_mask: torch.Tensor  # [B, P]
 
 
@@ -192,6 +193,7 @@ def generate(
 
     tokens = torch.full((B, N), config.pad_token_id, dtype=torch.int32, device=device)
     logprobs = torch.zeros((B, N), dtype=torch.float32, device=device)
+    values = torch.zeros((B, N), dtype=torch.float32, device=device)
     mask = torch.zeros((B, N), dtype=torch.int32, device=device)
     done = torch.zeros((B,), dtype=torch.bool, device=device)
     for step in range(N):
@@ -203,6 +205,9 @@ def generate(
         tok = torch.where(live, tok, torch.full_like(tok, config.pad_token_id))
         tokens[:, step] = tok
         logprobs[:, step] = torch.where(live, lp, torch.zeros_like(lp))
+        if "value" in step_out:
+            # the value prediction of the state before this token
+            values[:, step] = torch.where(live, step_out["value"].float(), torch.zeros_like(lp))
         mask[:, step] = live.to(torch.int32)
         if config.eos_token_id is not None:
             done = done | (tok == config.eos_token_id)
@@ -219,5 +224,6 @@ def generate(
         response_tokens=tokens,
         response_mask=mask,
         response_logprobs=logprobs,
+        response_values=values,
         prompt_mask=attention_mask.to(torch.int32),
     )

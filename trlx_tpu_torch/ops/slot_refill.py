@@ -55,6 +55,7 @@ class SlotState:
 
     tokens: torch.Tensor  # [B, N] int32 response tokens (pad after eos)
     logprobs: torch.Tensor  # [B, N] f32 behaviour logprobs
+    values: torch.Tensor  # [B, N] f32 value-head outputs (0 if no head)
     mask: torch.Tensor  # [B, N] int32, 1 on real response tokens
     slot_mask: torch.Tensor  # [B, S] int64 attention slot mask
     cache: PagedKV  # block pool + [B, TB] block table
@@ -106,9 +107,13 @@ def make_slot_refill_fns(
     prefill_kernel: str = "pallas",
     speculative: int = 0,
     device: Any = None,
+    value_head: bool = False,
 ) -> SlotRefillFns:
     """Build the slot-refill programs for one engine geometry on
-    ``device`` (default: the GPU; raises without one)."""
+    ``device`` (default: the GPU; raises without one). ``value_head``
+    says whether the served model emits ``out["value"]``: only then does a
+    decode step record it into ``SlotState.values``; a bare LM's values
+    stay the zeros allocated once."""
     if paged is None:
         raise ValueError(
             "the port's slot-refill engine is the paged backend: pass "
@@ -142,6 +147,7 @@ def make_slot_refill_fns(
         return SlotState(
             tokens=torch.full((B, N), config.pad_token_id, dtype=torch.int32, device=device),
             logprobs=torch.zeros((B, N), dtype=torch.float32, device=device),
+            values=torch.zeros((B, N), dtype=torch.float32, device=device),
             mask=torch.zeros((B, N), dtype=torch.int32, device=device),
             slot_mask=torch.zeros((B, S), **i64),
             cache=init_paged_kv(init_cache, paged, B, S, device=device),
@@ -149,6 +155,9 @@ def make_slot_refill_fns(
             step_out={
                 "hidden_states": torch.zeros((B, cfg.hidden_size), dtype=cfg.dtype, device=device),
                 "last_tokens": torch.zeros((B,), **i64),
+                # a value-head model's "value" rides here
+                **({"value": torch.zeros((B,), dtype=torch.float32, device=device)}
+                   if value_head else {}),
             },
             prompt_len=torch.zeros((B,), **i64),
             done=torch.ones((B,), dtype=torch.bool, device=device),
@@ -184,12 +193,15 @@ def make_slot_refill_fns(
         dst = torch.as_tensor(np.asarray(slot_idx)[keep], dtype=torch.int64, device=device)
         state.tokens[dst] = config.pad_token_id
         state.logprobs[dst] = 0.0
+        if value_head:
+            state.values[dst] = 0.0
         state.mask[dst] = 0
         state.slot_mask[dst] = slot_mask_r[src]
         state.cache.block_table[dst] = tables[src]
         state.logits[dst] = out["logits"][src, -1].to(state.logits.dtype)
-        for k, v in step_out_r.items():
-            state.step_out[k][dst] = v[src].to(state.step_out[k].dtype)
+        for k, v in state.step_out.items():
+            if k in step_out_r:
+                v[dst] = step_out_r[k][src].to(v.dtype)
         state.prompt_len[dst] = pmask[src].sum(dim=1)
         state.done[dst] = False
         state.step[dst] = 0
@@ -287,6 +299,11 @@ def make_slot_refill_fns(
             st.logprobs = _row_set(
                 st.logprobs, torch.where(live, logprob, torch.zeros_like(logprob)),
                 st.step, live)
+            if value_head:
+                # the value prediction of the state before this token
+                value = st.step_out["value"]
+                st.values = _row_set(
+                    st.values, torch.where(live, value, torch.zeros_like(value)), st.step, live)
             st.mask = _row_set(st.mask, live.to(torch.int32), st.step, live)
             done = st.done
             if config.eos_token_id is not None:
@@ -307,7 +324,7 @@ def make_slot_refill_fns(
             st.logits = torch.where(live[:, None], out["logits"][:, -1], st.logits)
             st.step_out = {
                 k: torch.where(live.view(-1, *([1] * (v.ndim - 1))),
-                               step_out[k].to(v.dtype), v)
+                               step_out[k].to(v.dtype), v) if k in step_out else v
                 for k, v in st.step_out.items()
             }
             st.done = done

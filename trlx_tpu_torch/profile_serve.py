@@ -34,7 +34,8 @@ import torch
 
 # substrings of the device kernel names, by group
 _PORT_KERNELS = ("paged_decode_kernel", "paged_prefill_kernel", "fused_sample_kernel")
-_MATMUL = ("gemm", "gemv", "cutlass", "xmma", "cublas", "splitk")
+# cuBLAS's kernels on Hopper are named nvjet_*
+_MATMUL = ("gemm", "gemv", "cutlass", "xmma", "cublas", "splitk", "nvjet")
 
 
 def _workload(device: torch.device, spec: str, slots: int = 8, block_size: int = 16,
@@ -100,6 +101,16 @@ def _busy_us(intervals) -> float:
     return total
 
 
+def device_events(prof):
+    """The profiler's device kernel events, without the user annotations
+    (such as ``Optimizer.step``) that the CUDA timeline also carries and
+    that overlap the kernels they enclose."""
+    return [evt for evt in prof.events()
+            if evt.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(evt, "is_user_annotation", False)
+            and not evt.name.startswith(("Optimizer.", "ProfilerStep"))]
+
+
 def _group(name: str) -> str:
     if any(k in name for k in _PORT_KERNELS):
         return "port_kernels"
@@ -127,9 +138,7 @@ def profile_serve(device: torch.device, spec: str = "builtin:gpt2-small",
 
     by_name: Dict[str, list] = defaultdict(lambda: [0, 0.0])
     intervals = []
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for evt in device_events(prof):
         dur = evt.time_range.end - evt.time_range.start
         intervals.append((evt.time_range.start, evt.time_range.end))
         by_name[evt.name][0] += 1
