@@ -28,7 +28,17 @@ Phases, each printing one JSON line:
    stated logit gap of the f32 argmax (bf16 rounding flips argmaxes at
    gaps far above any tie tolerance); the line prints the f32 top-2 gaps
    at the served positions, i.e. how often a second-best token would be
-   caught.
+   caught;
+5. the training kernels against their plain versions, and the training
+   slice: PPO on full-width GPT-2 small through ``trlx_tpu_torch.train``
+   (``slice_train``), then one f32 batch held card against CPU
+   (``slice_train_parity``);
+6. the speculative slice: the same PPO run with ``engine.speculative: 4``
+   and a six-layer GPT-2 draft (``slice_spec``; the verify kernel must
+   launch and the spec gauges must be in range), and in f32 with TF32
+   off, greedy, the speculative engine's answers against the plain
+   ``generate`` token for token, and with the draft set to the target's
+   own weights an acceptance of exactly 1.0 (``slice_spec_parity``).
 
 The line before the last holds the kernel summary, the one before it the
 card's name and power limit; the last line is the result object. Any
@@ -53,28 +63,40 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, per type
 
-# file:line of each replaced TPU kernel's pl.pallas_call
+# file:line of each replaced TPU kernel's pl.pallas_call (the verify's
+# entry, which delegates to the prefill's pallas_call)
 REPLACES = {
     "paged_decode": "trlx_tpu/ops/paged_attention.py:226",
     "paged_prefill": "trlx_tpu/ops/paged_prefill.py:212",
+    "paged_verify": "trlx_tpu/ops/paged_attention.py:269",
     "fused_sample": "trlx_tpu/ops/paged_attention.py:373",
     "flash_fwd": "trlx_tpu/ops/flash_attention.py:318",
     "flash_bwd": "trlx_tpu/ops/flash_attention.py:377",
     "fused_loss_fwd": "trlx_tpu/ops/fused_loss.py:274",
     "fused_loss_bwd": "trlx_tpu/ops/fused_loss.py:309",
 }
+# the CUDA source of each kernel row (the verify runs the prefill kernel)
+SOURCES = {"paged_verify": "paged_prefill"}
 SERVE_KERNELS = ("paged_prefill", "paged_decode", "fused_sample")
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd", "fused_loss_fwd", "fused_loss_bwd")
+# the speculative rollout path: target refill, verify, draft refill and
+# scoring, train step
+SPEC_KERNELS = ("paged_prefill", "paged_verify") + TRAIN_KERNELS
 
 
 def kernel_wrappers():
     """name → wrapper (each carries its ``launches`` counter)."""
     from trlx_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
     from trlx_tpu_torch.ops.fused_loss import fused_loss_bwd, fused_loss_fwd
-    from trlx_tpu_torch.ops.paged_attention import fused_sample, paged_attention_decode
+    from trlx_tpu_torch.ops.paged_attention import (
+        fused_sample,
+        paged_attention_decode,
+        paged_verify_attention,
+    )
     from trlx_tpu_torch.ops.paged_prefill import paged_prefill_attention
 
     return {"paged_prefill": paged_prefill_attention, "paged_decode": paged_attention_decode,
+            "paged_verify": paged_verify_attention,
             "fused_sample": fused_sample, "flash_fwd": flash_fwd, "flash_bwd": flash_bwd,
             "fused_loss_fwd": fused_loss_fwd, "fused_loss_bwd": fused_loss_bwd}
 
@@ -180,6 +202,43 @@ def paged_inputs(rs, B, T, H, KV, D, bs, S, HB, dtype, dev, poison):
     )
 
 
+def verify_inputs(rs, B, T, H, KV, D, bs, S, dtype, dev, poison):
+    """The speculative verify's operands at per-row depths: ``G = T - 1``,
+    ``N = S - P - G`` with ``P = 64``; row ``b`` has committed ``n_b``
+    tokens (random, row 1's probe window ``[c - 1, c + G)`` crossing a
+    block edge), a left-padded prompt, and the slot-causal bias over its
+    committed slots and probe slots, as the model builds it; table entries
+    past the row's allocated blocks stay 0 (the reserved block), and the
+    last ``poison`` rows are done (whole table out of range)."""
+    from trlx_tpu_torch.models.transformer import CausalTransformer
+    from trlx_tpu_torch.ops.paged_kv import num_table_blocks
+
+    G, P = T - 1, 64
+    N = S - P - G
+    TB = num_table_blocks(S, bs)
+    NB = 1 + B * TB + 3
+    n_out = rs.randint(0, N - G, size=B)
+    n_out[1] = bs * (-(-(P + G) // bs)) - 1 - P  # c - 1: a block's second-to-last column
+    c = P + n_out
+    slot_mask = np.zeros((B, S), np.int64)
+    for b in range(B):
+        slot_mask[b, rs.randint(0, 8): c[b] + G] = 1
+    query_slots = torch.tensor(c[:, None] - 1 + np.arange(T)[None, :])
+    bias = CausalTransformer._attention_bias(None, torch.tensor(slot_mask), query_slots)
+    perm = rs.permutation(np.arange(1, NB))[: B * TB].reshape(B, TB)
+    table = np.zeros((B, TB), np.int64)
+    for b in range(B):
+        alloc = -(-int(c[b] + rs.randint(0, G + 1)) // bs)  # covers the committed columns
+        table[b, :alloc] = perm[b, :alloc]
+    table[B - poison:] = NB
+    f = lambda *shape: torch.tensor(rs.randn(*shape), dtype=torch.float32).to(dev, dtype)  # noqa: E731
+    return dict(
+        q=f(B, T, H, D), k=f(NB, bs, KV, D), v=f(NB, bs, KV, D),
+        table=torch.tensor(table, dtype=torch.int32, device=dev),
+        bias=bias.to(dev).contiguous(), vis=(bias[:, 0] > -1).numpy(), TB=TB, NB=NB,
+    )
+
+
 def attention_bound(inp, B, T, H, KV, D, S, HB, dtype):
     elem = torch.finfo(dtype).bits // 8
     visible_cols = int(inp["vis"].any(axis=1).sum())  # key columns any query needs
@@ -197,6 +256,8 @@ def check_attention(kind, B, T, H, KV, D, bs, S, HB, dtype, poison, seed,
         _gathered_view,
         paged_attention_decode,
         paged_attention_decode_reference,
+        paged_verify_attention,
+        paged_verify_attention_reference,
     )
     from trlx_tpu_torch.ops.paged_prefill import (
         paged_prefill_attention,
@@ -205,10 +266,16 @@ def check_attention(kind, B, T, H, KV, D, bs, S, HB, dtype, poison, seed,
 
     dev = torch.device("cuda")
     rs = np.random.RandomState(seed)
-    inp = paged_inputs(rs, B, T, H, KV, D, bs, S, HB, dtype, dev, poison)
+    if kind == "paged_verify":
+        inp = verify_inputs(rs, B, T, H, KV, D, bs, S, dtype, dev, poison)
+    else:
+        inp = paged_inputs(rs, B, T, H, KV, D, bs, S, HB, dtype, dev, poison)
     if kind == "paged_decode":
         q, bias = inp["q"][:, 0].contiguous(), inp["bias"][:, :, 0].contiguous()
         kern, ref = paged_attention_decode, paged_attention_decode_reference
+    elif kind == "paged_verify":
+        q, bias = inp["q"], inp["bias"]
+        kern, ref = paged_verify_attention, paged_verify_attention_reference
     else:
         q, bias = inp["q"], inp["bias"]
         kern, ref = paged_prefill_attention, paged_prefill_attention_reference
@@ -306,6 +373,14 @@ def phase_kernels():
                         **gqa_geo)
         check_attention("paged_decode", T=1, dtype=dtype, poison=True, seed=4,
                         **gqa_geo)
+    # the speculative verify (#4): 32 slots, G = 4 probes over S = 64 + 40 + 4
+    # columns, rows at their own depths, 4 done rows poisoned
+    for dtype in (torch.bfloat16, torch.float32):
+        rec = check_attention("paged_verify", B=32, T=5, H=12, KV=12, D=64, bs=16, S=108,
+                              HB=1, dtype=dtype, poison=4, seed=5,
+                              timed=dtype == torch.bfloat16)
+        if "kernel_ms" in rec:
+            timed["paged_verify"] = rec
     for i, mode in enumerate(("greedy", "temp_topk", "topp")):
         for dname in ("bfloat16", "float32"):
             rec = check_sample(mode, dname, B=8, V=50257, seed=10 + i,
@@ -451,9 +526,11 @@ def phase_slice(device="cuda", spec="builtin:gpt2-small", slots=8, block_size=16
     st = engine.stats
     gauges = {"paged_prefill": st.prefill_kernel_launches,
               "paged_decode": st.decode_kernel_launches,
+              "paged_verify": st.verify_kernel_launches,
               "fused_sample": st.sample_kernel_launches}
     if gauges != launches:
         raise AssertionError(f"engine launch gauges {gauges} != wrapper counts {launches}")
+    launches = {k: launches[k] for k in SERVE_KERNELS}
     # on CPU tensors the wrappers run their plain versions and count nothing
     if dev.type == "cuda" and min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
@@ -845,7 +922,7 @@ def phase_slice_train(device="cuda", spec="builtin:gpt2-small", total_steps=12, 
         problems.append(f"frozen blocks changed: {unchanged[:4]}")
     if not_moved:
         problems.append(f"trainable weights did not move: {not_moved[:4]}")
-    if dev.type == "cuda" and min(launches.values()) <= 0:
+    if dev.type == "cuda" and min(launches[k] for k in SERVE_KERNELS + TRAIN_KERNELS) <= 0:
         problems.append(f"a kernel of the path never launched: {launches}")
     emit({**rec, "ok": not problems})
     if problems:
@@ -953,12 +1030,173 @@ def phase_slice_train_parity(trainer, card="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the speculative slice — PPO with draft-propose → verify → accept
+# ---------------------------------------------------------------------------
+
+SPEC_GAMMA = 4
+# distilgpt2's published shape: GPT-2 small's widths at 6 layers
+DRAFT_LAYERS = 6
+
+
+def phase_slice_spec(device="cuda", spec="builtin:gpt2-small", draft_layers=DRAFT_LAYERS,
+                     total_steps=12, card=""):
+    """``slice_train``'s PPO run with speculative rollouts: every kernel
+    counter is set to 0 just before ``trlx_tpu_torch.train`` and read just
+    after. Returns the launches."""
+    import trlx_tpu_torch
+    from trlx_tpu_torch.profile_train import reward_fn, slice_prompts, train_config
+
+    dev = torch.device(device)
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_spec")
+    config = train_config(ckpt, spec, total_steps).evolve(
+        engine=dict(speculative=SPEC_GAMMA),
+        model=dict(draft_model_path=spec, draft_model_extra_kwargs={"num_layers": draft_layers}),
+    )
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    # -- the main path ---------------------------------------------------
+    trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=slice_prompts(),
+                                   config=config, device=dev)
+    # -------------------------------------------------------------------
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    hist = trainer.tracker.history
+    steps = [st for _, st in hist if "gradients/global_norm" in st]
+    collections = [st for _, st in hist if "time/exp" in st]
+    losses = [st["losses/total_loss"] for st in steps]
+    acc = [c["engine/spec_acceptance_rate"] for c in collections]
+    tpr = [c["engine/spec_tokens_per_round"] for c in collections]
+    rec = {"phase": "slice_spec", "model": spec, "draft_layers": draft_layers,
+           "speculative": SPEC_GAMMA, "dtype": str(trainer.tcfg.dtype).split(".")[-1],
+           "optimizer_steps": len(steps), "rollout_collections": len(collections),
+           "losses": losses, "wall_s": wall,
+           "time_exp_s": [c["time/exp"] for c in collections],
+           "rollout_tokens_per_s": [c.get("throughput/rollout_tokens_per_sec")
+                                    for c in collections],
+           "spec_acceptance_rate": acc, "spec_tokens_per_round": tpr,
+           "spec_rounds": [c["rollout/spec_rounds"] for c in collections],
+           "verify_launches_per_collection": [c["engine/verify_kernel_launches"]
+                                              for c in collections],
+           "train_step_ms_median": statistics.median(1e3 * st["time/step"] for st in steps),
+           "launches": launches, "card": card}
+    problems = []
+    if len(collections) < 2:
+        problems.append(f"only {len(collections)} rollout collections")
+    if not all(math.isfinite(x) for x in losses):
+        problems.append("a non-finite loss")
+    if not all(0.0 < a <= 1.0 for a in acc):
+        problems.append(f"acceptance {acc} outside (0, 1]")
+    if not all(1.0 <= x <= SPEC_GAMMA + 1 for x in tpr):
+        problems.append(f"tokens per round {tpr} outside [1, {SPEC_GAMMA + 1}]")
+    if dev.type == "cuda" and min(launches[k] for k in SPEC_KERNELS) <= 0:
+        problems.append(f"a kernel of the path never launched: {launches}")
+    emit({**rec, "ok": not problems})
+    if problems:
+        raise AssertionError(f"slice_spec: {problems}")
+    return launches
+
+
+def spec_engine(target, draft, draft_cfg, cfg, gen, slots, prompt_len, dev):
+    from trlx_tpu_torch.engine.core import ContinuousEngine
+    from trlx_tpu_torch.ops.paged_kv import PagedSpec, num_table_blocks
+    from trlx_tpu_torch.ops.slot_refill import make_slot_refill_fns
+
+    S = prompt_len + gen.max_new_tokens + SPEC_GAMMA
+    paged = PagedSpec(16, 1 + slots * num_table_blocks(S, 16))
+    fns = make_slot_refill_fns(cfg, slots, prompt_len, gen, segment_len=4, paged=paged,
+                               speculative=SPEC_GAMMA, draft_cfg=draft_cfg, device=dev)
+    return ContinuousEngine(fns, (target, draft), gen.pad_token_id)
+
+
+def phase_slice_spec_parity(device="cuda", spec="builtin:gpt2-small",
+                            draft_layers=DRAFT_LAYERS, slots=8, prompt_len=64, max_new=40,
+                            n_prompts=16, card=""):
+    """f32, TF32 off, greedy. (a) The speculative engine (six-layer draft)
+    answers ``n_prompts`` prompts; each answer equals the plain ``generate``
+    of the target token for token (a divergence is tolerated only at a
+    near tie of the plain path's top-2 logits, as in ``slice_parity``):
+    greedy speculation is exact for any draft. (b) With the target's own
+    weights as the draft, acceptance is exactly 1.0 and every round
+    commits ``G + 1`` tokens (``max_new`` a multiple of ``G + 1``, no eos)."""
+    from trlx_tpu_torch.models.builder import build_causal_lm
+    from trlx_tpu_torch.ops.sampling import GenerationConfig, generate
+
+    if max_new % (SPEC_GAMMA + 1):
+        raise ValueError(f"max_new {max_new} must be a multiple of {SPEC_GAMMA + 1}")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    f32 = dict(dtype=torch.float32)
+    target, cfg = build_causal_lm(spec, seed=0, device=dev, **f32)
+    draft, draft_cfg = build_causal_lm(spec, seed=1, device=dev, num_layers=draft_layers, **f32)
+    V = cfg.vocab_size
+    gen = GenerationConfig(max_new_tokens=max_new, do_sample=False, eos_token_id=V - 1,
+                           pad_token_id=V - 1)
+    prompts = np.random.RandomState(4321).randint(0, V - 1, size=(n_prompts, prompt_len))
+    ones = np.ones_like(prompts)
+    zero_launch_counts()
+    engine = spec_engine(target, draft, draft_cfg, cfg, gen, slots, prompt_len, dev)
+    engine.enqueue_prompts(prompts, ones, np.arange(n_prompts))
+    got = {c.index: c for c in engine.run()}
+    verify_launches = launch_counts()["paged_verify"]
+    plain = generate(target, torch.tensor(prompts), torch.tensor(ones),
+                     torch.arange(n_prompts), gen)
+    plain_tok = plain.response_tokens.cpu().numpy()
+    plain_mask = plain.response_mask.cpu().numpy()
+    ties, rows_equal = [], 0
+    for i in range(n_prompts):
+        a = got[i].tokens[got[i].mask == 1]
+        b = plain_tok[i][plain_mask[i] == 1]
+        if np.array_equal(a, b):
+            rows_equal += 1
+            continue
+        n = min(len(a), len(b))
+        diff = np.nonzero(a[:n] != b[:n])[0]
+        pos = min(int(diff[0]) if len(diff) else n, len(b) - 1)
+        _, gap2 = f32_gaps(target, [prompts[i]], [b[: pos + 1]])[0]
+        ties.append({"prompt": i, "position": pos, "top2_gap": float(gap2[pos])})
+    draft_stats = {"acceptance": engine.stats.spec_acceptance_rate,
+                   "tokens_per_round": engine.stats.spec_tokens_per_round}
+
+    # (b) the target as its own draft
+    self_gen = dataclasses.replace(gen, eos_token_id=None)
+    n_self = n_prompts // 2
+    engine = spec_engine(target, target, cfg, cfg, self_gen, slots, prompt_len, dev)
+    engine.enqueue_prompts(prompts[:n_self], ones[:n_self], np.arange(n_self))
+    engine.run()
+    st = engine.stats
+    rec = {"phase": "slice_spec_parity", "model": spec, "draft_layers": draft_layers,
+           "dtype": "float32", "tf32": False, "prompts": n_prompts, "max_new_tokens": max_new,
+           "rows_equal_to_plain": rows_equal, "near_ties": ties,
+           "tie_gap_tol": F32_TIE_GAP, "draft": draft_stats, "verify_launches": verify_launches,
+           "self_draft": {"prompts": n_self, "acceptance": st.spec_acceptance_rate,
+                          "tokens_per_round": st.spec_tokens_per_round,
+                          "rounds": st.spec_rounds}, "card": card}
+    problems = [f"prompt {t['prompt']} diverges at {t['position']}" for t in ties
+                if t["top2_gap"] >= F32_TIE_GAP]
+    if st.spec_acceptance_rate != 1.0 or st.spec_tokens_per_round != SPEC_GAMMA + 1:
+        problems.append(f"self-draft acceptance {st.spec_acceptance_rate}, tokens per "
+                        f"round {st.spec_tokens_per_round}")
+    if dev.type == "cuda" and verify_launches <= 0:
+        problems.append("the verify kernel never launched")
+    emit({**rec, "ok": not problems})
+    if problems:
+        raise AssertionError(f"slice_spec_parity: {problems}")
+    zero_launch_counts()
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 
 def kernel_record(name, launches, max_abs_err, rec):
-    return {"name": name, "route": "cuda", "source": f"trlx_tpu_torch/csrc/{name}.cu",
+    source = SOURCES.get(name, name)
+    return {"name": name, "route": "cuda", "source": f"trlx_tpu_torch/csrc/{source}.cu",
             "replaces": REPLACES[name], "launches": launches, "max_abs_err": max_abs_err,
             "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
@@ -977,8 +1215,14 @@ def main():
     serve_launches = phase_slice(card=smi)
     trainer, train_launches = phase_slice_train(card=smi)
     phase_slice_train_parity(trainer)
+    del trainer
+    spec_launches = phase_slice_spec(card=smi)
+    phase_slice_spec_parity(card=smi)
     kernels = [kernel_record(name, serve_launches[name], timed[name]["max_abs_err"], timed[name])
                for name in SERVE_KERNELS]
+    kernels.insert(2, kernel_record("paged_verify", spec_launches["paged_verify"],
+                                    timed["paged_verify"]["max_abs_err"],
+                                    timed["paged_verify"]))
     flash, loss = timed_train["flash_train"], timed_train["loss"]
     for name, rec, part, err in (
         ("flash_fwd", flash, "fwd", max(flash["max_abs_err"]["out"], flash["max_abs_err"]["lse"])),

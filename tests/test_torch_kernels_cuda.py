@@ -8,7 +8,8 @@ imports no JAX, so it runs on a machine without it::
 The cases are the CPU parity tests' edge cases (block sizes 1/3/4, GQA,
 head-uniform and per-head bias, out-of-range table ids, masked columns
 over stale pool blocks, ties at the top-k and top-p boundaries), in f32 and
-bf16; for flash attention ragged tiles, GQA, a window, ALiBi and rows that
+bf16; for the speculative verify rows at their own depths, a probe window
+across a block edge and done rows with poisoned tables; for flash attention ragged tiles, GQA, a window, ALiBi and rows that
 see no key; for the fused loss IW on and off, a masked row and values on
 the clip bounds. ``chip_smoke.py`` makes the same comparison at the
 serving and training shapes.
@@ -22,6 +23,8 @@ from trlx_tpu_torch.ops.paged_attention import (
     fused_sample_reference,
     paged_attention_decode,
     paged_attention_decode_reference,
+    paged_verify_attention,
+    paged_verify_attention_reference,
 )
 from trlx_tpu_torch.ops.paged_prefill import (
     paged_prefill_attention,
@@ -47,11 +50,13 @@ from torch_kernel_cases import (
     FLASH_CASES,
     GEOMETRIES,
     SAMPLE_SETTINGS,
+    VERIFY_CASES,
     flash_case,
     loss_case,
     paged_case,
     t,
     tied_logits,
+    verify_case,
 )
 
 # f32: summation order only; bf16: the output's rounding (the kernel
@@ -94,6 +99,22 @@ def test_cuda_kernels_match_plain_versions(cuda, geometry, per_head_bias, dtype)
     torch.testing.assert_close(out.float(), want, atol=_TOL[dtype], rtol=0)
     assert (paged_prefill_attention.launches, paged_attention_decode.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", VERIFY_CASES)
+def test_cuda_verify_matches_plain_version(cuda, case, dtype):
+    q, kp, vp, table, bias = verify_case(case, seed=sum(case))
+    args = [t(a).to(cuda, dtype) for a in (q, kp, vp)] + [t(table).to(cuda), t(bias).to(cuda)]
+    before = (paged_verify_attention.launches, paged_prefill_attention.launches)
+    out = paged_verify_attention(*args)
+    assert out.dtype == dtype and out.is_cuda
+    want = paged_verify_attention_reference(*_as_f32(args))
+    torch.testing.assert_close(out.float(), want, atol=_TOL[dtype], rtol=0)
+    # the verify counts its own launches of the prefill kernel
+    assert (paged_verify_attention.launches, paged_prefill_attention.launches) == (
+        before[0] + 1, before[1])
 
 
 @pytest.mark.gpu

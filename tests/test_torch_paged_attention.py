@@ -1,5 +1,5 @@
-"""The port's paged-attention decode, paged prefill and fused sampling
-(``trlx_tpu_torch/ops``) against the JAX package.
+"""The port's paged-attention decode, paged prefill, speculative verify and
+fused sampling (``trlx_tpu_torch/ops``) against the JAX package.
 
 On the CPU each wrapper runs its plain PyTorch version; these tests hold
 those plain versions against the JAX Pallas kernels run the way
@@ -21,6 +21,7 @@ from trlx_tpu.ops.paged_attention import (
     fused_sample as jax_fused_sample,
     paged_attention_decode as jax_decode,
     paged_attention_decode_reference,
+    paged_verify_attention as jax_verify,
 )
 from trlx_tpu.ops.paged_prefill import (
     paged_prefill_attention as jax_prefill,
@@ -32,11 +33,21 @@ from trlx_tpu_torch.ops.paged_attention import (
     fused_sample,
     fused_sample_reference,
     paged_attention_decode,
+    paged_verify_attention,
+    paged_verify_attention_reference,
 )
 from trlx_tpu_torch.ops.paged_prefill import paged_prefill_attention
 from trlx_tpu_torch.ops.sampling import gumbel_noise, process_logits
 
-from torch_kernel_cases import GEOMETRIES, SAMPLE_SETTINGS, paged_case, t, tied_logits
+from torch_kernel_cases import (
+    GEOMETRIES,
+    SAMPLE_SETTINGS,
+    VERIFY_CASES,
+    paged_case,
+    t,
+    tied_logits,
+    verify_case,
+)
 
 ATOL = 1e-5
 
@@ -67,6 +78,23 @@ def test_decode_plain_matches_jax(geometry, per_head_bias):
     np.testing.assert_allclose(got, np.asarray(jax_decode_ref(*args)), atol=ATOL, rtol=0)
     if not per_head_bias:  # the interpreted Pallas kernel, once per geometry
         np.testing.assert_allclose(got, np.asarray(jax_decode(*args)), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("case", VERIFY_CASES)
+def test_verify_plain_matches_jax_interpreted(case):
+    """``paged_verify_attention_reference`` (what the wrapper runs on CPU
+    tensors) against JAX ``paged_verify_attention`` — the Pallas prefill
+    kernel, interpreted — at per-row probe depths, a window across a block
+    edge, zero-block table entries and poisoned done rows."""
+    q, kp, vp, table, bias = verify_case(case, seed=3 + sum(case))
+    got = paged_verify_attention(t(q), t(kp), t(vp), t(table), t(bias))
+    torch.testing.assert_close(
+        got, paged_verify_attention_reference(t(q), t(kp), t(vp), t(table), t(bias)),
+        atol=0, rtol=0)
+    want = jax_verify(*(jnp.asarray(a) for a in (q, kp, vp, table, bias)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    with pytest.raises(ValueError, match="verify window"):
+        paged_verify_attention(t(q), t(kp), t(vp), t(table), t(bias)[:, :, :-1])
 
 
 def test_masked_stale_blocks_contribute_nothing():

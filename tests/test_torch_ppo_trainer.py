@@ -211,7 +211,8 @@ def test_train_entry_point_end_to_end(tmp_path):
         ({"parallel": {"remat": "full"}}, "parallel.remat"),
         ({"model": {"model_arch_type": "seq2seq"}}, "model.model_arch_type"),
         ({"model": {"peft_kwargs": {"peft_type": "lora", "r": 8}}}, "model.peft_kwargs"),
-        ({"model": {"draft_model_path": "builtin:gpt2-test"}}, "model.draft_model_path"),
+        # a draft whose vocabulary is not the policy's (50257 against 259)
+        ({"model": {"draft_model_path": "builtin:gpt2-small"}}, "model.draft_model_path"),
         ({"train": {"resume_from_checkpoint": True}}, "train.resume_from_checkpoint"),
         ({"train": {"tracker": "wandb"}}, "train.tracker"),
         ({"method": {"loss_kernel": "mosaic"}}, "method.loss_kernel"),

@@ -2,9 +2,12 @@
 ``CausalTransformer``: weights carried over with ``params_from_jax``, the
 same numpy inputs on both sides, logits compared in f32 at ``atol=1e-4``
 — full passes over left-padded prompts (bias and flash branches),
-dense-cache prefill and decode steps, the paged (block-table) branch, and
-the value-head policy with its hydra branch (``branch_input``,
-``forward_branch`` and the frozen ``HydraBranch`` copy)."""
+dense-cache prefill and decode steps (a dense-cache prefill also through
+the flash branch, at f32 1e-5), per-row multi-position spans (the
+speculative verify's shape) through the dense and the paged branches, the
+paged (block-table) branch, and the value-head policy with its hydra
+branch (``branch_input``, ``forward_branch`` and the frozen
+``HydraBranch`` copy)."""
 
 import dataclasses
 
@@ -133,6 +136,137 @@ def test_dense_cache_prefill_and_decode_steps(pair):
                        positions=torch.tensor(pos), cache=tcache, cache_index=P + step)
         np.testing.assert_allclose(to["logits"].numpy(), np.asarray(jo["logits"]),
                                    atol=ATOL, rtol=0, err_msg=f"decode step {step}")
+
+
+@pytest.mark.parametrize("cache_index", [0, 5])
+def test_dense_cache_prefill_runs_the_flash_branch(pair, cache_index, monkeypatch):
+    """The JAX ``use_flash`` rule: a multi-token pass over a dense cache at
+    a scalar ``cache_index`` runs the flash branch (``attention_impl:
+    pallas``, its plain version on CPU tensors) with its queries at slots
+    ``[ci, ci + T)`` over the whole S-wide cache, and matches the JAX
+    dense-cache forward at f32 1e-5; single-token steps and per-row
+    indices keep the bias path."""
+    import trlx_tpu_torch.ops.flash_attention as fa
+
+    jm, params, jcfg, model, tcfg = pair
+    flash = CausalTransformer(dataclasses.replace(tcfg, attention_impl="pallas")).eval()
+    flash.load_state_dict(model.state_dict())
+    offsets, real_flash = [], fa.flash_attention
+
+    def spy(*args, **kw):
+        offsets.append(kw["q_offset"])
+        return real_flash(*args, **kw)
+
+    monkeypatch.setattr(fa, "flash_attention", spy)
+    ids, mask = _prompts(tcfg.vocab_size, seed=7)
+    B, P = ids.shape
+    S = P + 4
+    slot_mask = np.concatenate([mask, np.zeros((B, S - P), np.int32)], axis=1)
+    jcache, tcache = jax_make_kv_cache(jcfg, B, S), make_kv_cache(tcfg, B, S)
+    spans = [(0, cache_index), (cache_index, P)] if cache_index else [(0, P)]
+    for lo, hi in spans:
+        jo = jm.apply({"params": params}, jnp.asarray(ids[:, lo:hi]),
+                      attention_mask=jnp.asarray(slot_mask), cache=jcache,
+                      cache_index=jnp.asarray(lo))
+        jcache = jo["cache"]
+        with torch.no_grad():
+            to = flash(torch.tensor(ids[:, lo:hi]), attention_mask=torch.tensor(slot_mask),
+                       cache=tcache, cache_index=lo)
+        real = mask[:, lo:hi].astype(bool)  # pad queries see no key: out 0 vs uniform
+        np.testing.assert_allclose(to["logits"].numpy()[real], np.asarray(jo["logits"])[real],
+                                   atol=1e-5, rtol=0, err_msg=f"span [{lo}, {hi})")
+    assert offsets == [lo for lo, _ in spans for _ in range(tcfg.num_layers)]
+    # the cache the flash passes wrote is the JAX cache (real columns)
+    np.testing.assert_allclose(tcache[-1]["k"][:, :P].numpy()[mask.astype(bool)],
+                               np.asarray(jcache[-1]["k"])[:, :P][mask.astype(bool)], atol=1e-5)
+    slot_mask[:, P] = 1
+    with torch.no_grad():
+        flash(torch.tensor(ids[:, :1]), attention_mask=torch.tensor(slot_mask), cache=tcache,
+              cache_index=P)
+        flash(torch.tensor(ids[:, :2]), attention_mask=torch.tensor(slot_mask), cache=tcache,
+              cache_index=torch.full((B,), P - 1))
+    assert len(offsets) == len(spans) * tcfg.num_layers
+
+
+def _verify_step_inputs(ids, mask, T, n_out, seed):
+    """A verify-shaped step after a prompt prefill: per-row first columns
+    ``ci = P + n_out - 1`` and the slot mask of the committed columns plus
+    each row's ``T - 1`` probe columns."""
+    B, P = ids.shape
+    ci = P + np.asarray(n_out) - 1
+    S = P + max(n_out) + T
+    rs = np.random.RandomState(seed)
+    slot_mask = np.zeros((B, S), np.int32)
+    slot_mask[:, :P] = mask
+    for b in range(B):
+        slot_mask[b, P: ci[b] + T] = 1
+    tok = rs.randint(0, 250, (B, T)).astype(np.int32)
+    return tok, ci, slot_mask, S
+
+
+@pytest.mark.parametrize("block_size", [3, 4])
+def test_per_row_multi_position_spans_match_jax(pair, block_size):
+    """The speculative verify's forward: ``T`` tokens per row at a ``[B]``
+    ``cache_index`` (rows at different depths, windows across block edges),
+    through the dense branch's per-row windows and through the paged
+    branch (``PagedWrite`` + ``paged_verify_attention``, whose plain
+    version runs here), against the JAX dense forward."""
+    jm, params, jcfg, model, tcfg = pair
+    ids, mask = _prompts(tcfg.vocab_size, seed=8)
+    B, P = ids.shape
+    T, n_out = 3, [1, 4, 2]
+    tok, ci, slot_mask, S = _verify_step_inputs(ids, mask, T, n_out, seed=9)
+    prefill_mask = np.concatenate([mask, np.zeros((B, S - P), np.int32)], axis=1)
+    jo = jm.apply({"params": params}, jnp.asarray(ids), attention_mask=jnp.asarray(prefill_mask),
+                  cache=jax_make_kv_cache(jcfg, B, S), cache_index=jnp.asarray(0))
+    # the committed columns between the prompt and each window
+    fill = np.random.RandomState(10).randint(0, 250, (B, S - P)).astype(np.int32)
+    jcache = jo["cache"]
+    for k in range(max(n_out) - 1):
+        sm = slot_mask.copy()
+        sm[:, P + k + 1:] = 0
+        sm[:, P + k] = 1
+        jcache = jm.apply({"params": params}, jnp.asarray(fill[:, k:k + 1]),
+                          attention_mask=jnp.asarray(sm), cache=jcache,
+                          cache_index=jnp.asarray(P + k))["cache"]
+    want = jm.apply({"params": params}, jnp.asarray(tok), attention_mask=jnp.asarray(slot_mask),
+                    cache=jcache, cache_index=jnp.asarray(ci))
+
+    TB = -(-S // block_size)
+    NB = 1 + B * TB
+    pool = make_kv_cache(tcfg, NB, block_size)
+    for layer in pool:  # stale values everywhere: masking must hide them
+        layer["k"].normal_()
+        layer["v"].normal_()
+    table = torch.tensor(np.random.RandomState(11).permutation(np.arange(1, NB))
+                         .reshape(B, TB), dtype=torch.int32)
+    dense = make_kv_cache(tcfg, B, S)
+    with torch.no_grad():
+        for cache in (dense, attach_block_table(pool, table)):
+            model(torch.tensor(ids), attention_mask=torch.tensor(prefill_mask), cache=cache,
+                  cache_index=0)
+            for k in range(max(n_out) - 1):
+                sm = slot_mask.copy()
+                sm[:, P + k + 1:] = 0
+                sm[:, P + k] = 1
+                model(torch.tensor(fill[:, k:k + 1]), attention_mask=torch.tensor(sm),
+                      cache=cache, cache_index=P + k)
+        got_dense = model(torch.tensor(tok), attention_mask=torch.tensor(slot_mask),
+                          cache=dense, cache_index=torch.tensor(ci))
+        got_paged = model(torch.tensor(tok), attention_mask=torch.tensor(slot_mask),
+                          cache=attach_block_table(pool, table), cache_index=torch.tensor(ci))
+    for got in (got_dense, got_paged):
+        np.testing.assert_allclose(got["logits"].numpy(), np.asarray(want["logits"]),
+                                   atol=ATOL, rtol=0)
+    # each row's window landed at its own columns, in both caches
+    for b in range(B):
+        cols = slice(ci[b], ci[b] + T)
+        np.testing.assert_allclose(dense[0]["k"][b, cols].numpy(),
+                                   np.asarray(want["cache"][0]["k"])[b, cols], atol=ATOL)
+        blocks = table[b].long()[torch.arange(ci[b], ci[b] + T) // block_size]
+        paged_k = pool[0]["k"][blocks, torch.arange(ci[b], ci[b] + T) % block_size]
+        np.testing.assert_allclose(paged_k.numpy(),
+                                   np.asarray(want["cache"][0]["k"])[b, cols], atol=ATOL)
 
 
 @pytest.mark.parametrize("block_size", [1, 3, 4])

@@ -49,6 +49,48 @@ def paged_case(geometry, per_head_bias, seed):
     return q, k_pool, v_pool, table, bias
 
 
+# the speculative verify: (B, G, H, KV, D, block_size, P, N, done rows)
+VERIFY_CASES = [
+    (4, 3, 4, 2, 16, 4, 8, 10, 1),
+    (5, 4, 8, 8, 32, 3, 11, 9, 2),
+]
+
+
+def verify_case(case, seed):
+    """The verify's operands at per-row depths: row ``b`` has committed
+    ``n_b`` tokens behind a left-padded prompt and probes the ``T = G + 1``
+    columns ``[c - 1, c + G)``, ``c = P + n_b`` (row 0's window crosses a
+    block edge); the bias is the slot-causal mask over committed and probe
+    slots; table entries past a row's allocated blocks stay 0 (the reserved
+    block, which probe writes dirty); the last rows are done, their whole
+    table poisoned out of range. Returns ``(q, k_pool, v_pool, table,
+    bias)`` as numpy."""
+    B, G, H, KV, D, bs, P, N, done = case
+    T, S = G + 1, P + N + G
+    rs = np.random.RandomState(seed)
+    TB = num_table_blocks(S, bs)
+    NB = 1 + B * TB + 3
+    n_out = rs.randint(0, N, size=B)
+    n_out[0] = (bs - (P - 1) % bs - 2) % bs  # c - 1 on a block's second-to-last column
+    c = P + n_out
+    slot_mask = np.zeros((B, S), bool)
+    for b in range(B):
+        slot_mask[b, rs.randint(0, P // 2): c[b] + G] = True
+    vis = slot_mask[:, None, :] & (np.arange(S)[None, None, :]
+                                   <= (c[:, None] - 1 + np.arange(T))[:, :, None])
+    bias = np.where(vis, 0.0, -1e9)[:, None].astype(np.float32)
+    perm = rs.permutation(np.arange(1, NB))[: B * TB].reshape(B, TB)
+    table = np.zeros((B, TB), np.int32)
+    for b in range(B):
+        alloc = -(-int(c[b]) // bs)  # the committed columns' blocks
+        table[b, :alloc] = perm[b, :alloc]
+    table[B - done:] = NB
+    q = rs.randn(B, T, H, D).astype(np.float32)
+    k_pool = rs.randn(NB, bs, KV, D).astype(np.float32)
+    v_pool = rs.randn(NB, bs, KV, D).astype(np.float32)
+    return q, k_pool, v_pool, table, bias
+
+
 def tied_logits(seed, B=6, V=97):
     """Random logits with exact ties planted at the top-k boundary (the 4th
     to 7th largest values repeat) and a run of equal values mid-row, so

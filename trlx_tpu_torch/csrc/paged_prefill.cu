@@ -3,7 +3,11 @@
 // row's block table. The chunk's own K/V is committed by the caller first.
 //
 // Replaces: trlx_tpu/ops/paged_prefill.py::paged_prefill_attention
-//   (_paged_prefill_kernel, the pl.pallas_call at paged_prefill.py:212).
+//   (_paged_prefill_kernel, the pl.pallas_call at paged_prefill.py:212),
+//   and with it trlx_tpu/ops/paged_attention.py::paged_verify_attention
+//   (paged_attention.py:269), the speculative verify, which the JAX
+//   package runs through the same pallas_call at T = G + 1 probe queries
+//   per row. The verify's skinny T fills 5 of a tile's QT = 16 query rows.
 //
 // What bounds it on an H100: at the serving shapes (B=8, T=64, S~104,
 // H=12, D=64) the work is about 4 x B x H x T x S x D ~ 160 MFLOP against

@@ -3,8 +3,8 @@
 Port of ``trlx_tpu/engine/allocator.py`` (host Python, near verbatim).
 Owns the free list over the pool built by ``ops/paged_kv.py``. Every block
 carries a reference count; a decoding slot holds one ref on each block its
-table points at. Block 0 is the reserved all-zeros block
-(``paged_kv.ZERO_BLOCK``): never allocated, never freed.
+table points at. Block 0 is the reserved block (``paged_kv.ZERO_BLOCK``):
+never allocated, never freed.
 
 Tenant quotas: a block allocated on behalf of a named tenant counts
 against that tenant's budget until it is freed; ``tenant=None`` is

@@ -1,8 +1,9 @@
 """The continuous-batching generation engine over the paged block pool.
 
-Port of ``trlx_tpu/engine/core.py`` for the paged, non-speculative path
-(``prefix_cache=False``, ``prefill_chunk=0``): :class:`ContinuousEngine`,
-:class:`EngineStats` and :class:`CompletedSequence`.
+Port of ``trlx_tpu/engine/core.py`` for the paged path without the prefix
+cache and chunked prefill (``prefix_cache=False``, ``prefill_chunk=0``):
+:class:`ContinuousEngine`, :class:`EngineStats` and
+:class:`CompletedSequence`.
 
 The engine is the host half: a queue of prompts, ``B`` slots, a
 refcounted :class:`~trlx_tpu_torch.engine.allocator.BlockAllocator` over
@@ -13,10 +14,20 @@ the next segment, runs one decode segment (``ops/slot_refill.py``) and
 harvests finished slots in slot order. A harvested sequence equals a solo
 ``ops/sampling.py::generate`` of the same prompt and seed.
 
+Speculative segments (``fns.speculative = G > 0``): the engine's params
+are a ``(target, draft)`` tuple, adopted as one object by
+:meth:`ContinuousEngine.begin_collection` and
+:meth:`ContinuousEngine.swap_params`; caches span ``S = P + N + G``
+columns; a segment may commit up to ``segment_len · (G + 1)`` tokens per
+row, so tables grow by that much, and after each segment every row's
+committed length is read from the device ``step``. A harvested sequence
+equals a solo ``ops/speculative.py::generate_speculative`` of the row.
+``EngineStats.spec_*`` feed the ``engine/spec_*`` gauges.
+
 Kernel gauges: ``engine/decode_kernel_launches``,
-``engine/prefill_kernel_launches`` and ``engine/sample_kernel_launches``
-are read from the kernel wrappers' launch counters — what actually
-launched, never a configuration string.
+``engine/prefill_kernel_launches``, ``engine/verify_kernel_launches`` and
+``engine/sample_kernel_launches`` are read from the kernel wrappers'
+launch counters — what actually launched, never a configuration string.
 
 Thread affinity: single-threaded by design — exactly one thread (the
 caller, or the serve pump thread) calls ``enqueue_prompts``/``step``.
@@ -35,7 +46,11 @@ from trlx_tpu_torch.engine.allocator import (
     BlockPoolExhausted,
     TenantQuotaExceeded,
 )
-from trlx_tpu_torch.ops.paged_attention import fused_sample, paged_attention_decode
+from trlx_tpu_torch.ops.paged_attention import (
+    fused_sample,
+    paged_attention_decode,
+    paged_verify_attention,
+)
 from trlx_tpu_torch.ops.paged_kv import block_bytes, kv_bytes, num_table_blocks
 from trlx_tpu_torch.ops.paged_prefill import paged_prefill_attention
 
@@ -54,10 +69,11 @@ _CLASS_RANK = {k: i for i, k in enumerate(SERVE_CLASSES)}
 
 
 def kernel_launches() -> Dict[str, int]:
-    """The serving path's kernel launch counters, read from the wrappers."""
+    """The engine's kernel launch counters, read from the wrappers."""
     return {
         "paged_prefill": paged_prefill_attention.launches,
         "paged_decode": paged_attention_decode.launches,
+        "paged_verify": paged_verify_attention.launches,
         "fused_sample": fused_sample.launches,
     }
 
@@ -123,7 +139,16 @@ class EngineStats:
     # counters since the collection began)
     decode_kernel_launches: int = 0
     prefill_kernel_launches: int = 0
+    verify_kernel_launches: int = 0
     sample_kernel_launches: int = 0
+    # speculative segments: deltas of the device-cumulative counters over
+    # this collection — rounds run, live row-rounds, draft tokens accepted
+    # (before budget/eos clipping), tokens committed (after)
+    spec_gamma: int = 0
+    spec_rounds: int = 0
+    spec_live_rounds: int = 0
+    spec_accepted: int = 0
+    spec_committed: int = 0
     gen_len_samples: List[float] = field(default_factory=list)
     repeat_pairs: int = 0
     repeat_pairs_total: int = 0
@@ -135,6 +160,21 @@ class EngineStats:
     @property
     def padded_decode_frac(self) -> float:
         return 1.0 - self.slot_utilization if self.slot_steps else 0.0
+
+    @property
+    def spec_acceptance_rate(self) -> float:
+        """Share of proposed draft tokens accepted, over live row-rounds
+        (each proposes ``spec_gamma``)."""
+        if self.spec_live_rounds == 0:
+            return 0.0
+        return self.spec_accepted / (self.spec_live_rounds * max(self.spec_gamma, 1))
+
+    @property
+    def spec_tokens_per_round(self) -> float:
+        """Committed tokens per live row-round, in ``[1, gamma + 1]``."""
+        if self.spec_live_rounds == 0:
+            return 0.0
+        return self.spec_committed / self.spec_live_rounds
 
     @staticmethod
     def _pct(samples: List[float], q: float) -> float:
@@ -169,6 +209,13 @@ class EngineStats:
             "engine/prefill_kernel_launches": float(self.prefill_kernel_launches),
             "engine/sample_kernel_launches": float(self.sample_kernel_launches),
         }
+        if self.spec_gamma:
+            stats["engine/spec_acceptance_rate"] = self.spec_acceptance_rate
+            stats["engine/spec_tokens_per_round"] = self.spec_tokens_per_round
+            stats["rollout/spec_rounds"] = float(self.spec_rounds)
+            stats["engine/verify_kernel_launches"] = float(self.verify_kernel_launches)
+            # 1.0 only when the verify kernel, not its plain version, ran
+            stats["engine/spec_verify_kernel_pallas"] = float(self.verify_kernel_launches > 0)
         if self.gen_len_samples:
             stats["rollout/gen_len_p50"] = self._pct(self.gen_len_samples, 50.0)
             stats["rollout/gen_len_p95"] = self._pct(self.gen_len_samples, 95.0)
@@ -205,7 +252,8 @@ class ContinuousEngine:
         self.B = fns.batch_size
         self.P = fns.prompt_len
         self.N = fns.max_new_tokens
-        self._S = self.P + self.N
+        self._gamma = int(fns.speculative)
+        self._S = self.P + self.N + self._gamma
         self._queue: deque = deque()
         self._slots: List[Optional[_Request]] = [None] * self.B
         self._submitted = 0
@@ -225,8 +273,13 @@ class ContinuousEngine:
         self._alloc_upto = [0] * self.B
         self._steps_bound = [0] * self.B
         self.stats.kv_blocks_total = self.spec.max_blocks - 1
+        self.stats.spec_gamma = self._gamma
         self._block_bytes = block_bytes(self.state.cache)
         self.stats.kv_cache_bytes = kv_bytes(self.state.cache)
+        if self._gamma:
+            # the draft's dense [B, S] cache is persistent engine state too
+            self.stats.kv_cache_bytes += kv_bytes(self.state.d_cache)
+        self._spec_base = self._read_spec_counters()
         self._params_version: Optional[int] = None
         if prewarm:
             self.state = self.fns.prewarm(self.params, self.state)
@@ -252,17 +305,30 @@ class ContinuousEngine:
         self.stats = EngineStats(
             kv_cache_bytes=self.stats.kv_cache_bytes,
             kv_blocks_total=self.stats.kv_blocks_total,
+            spec_gamma=self._gamma,
         )
+        self._spec_base = self._read_spec_counters()
         self.allocator.high_water = self.allocator.blocks_in_use
         self._launch_base = kernel_launches()
 
+    @staticmethod
+    def _same_params(a: Any, b: Any) -> bool:
+        """Identity, element-wise over ``(target, draft)`` tuples: the
+        speculative engine's params often arrive as a fresh tuple around
+        the same models."""
+        if type(a) is tuple and type(b) is tuple and len(a) == len(b):
+            return all(x is y for x, y in zip(a, b))
+        return a is b
+
     def swap_params(self, model: Any, version: Optional[int] = None) -> bool:
-        """Adopt an updated model at a step boundary. Returns True when the
-        model (or its memoized version) changed."""
+        """Adopt an updated model — or ``(target, draft)`` pair, as one
+        object, so a swap never verifies an old target against a new draft
+        — at a step boundary. Returns True when it (or its memoized
+        version) changed."""
         if version is not None and self._params_version is not None:
             changed = version != self._params_version
         else:
-            changed = model is not self.params
+            changed = not self._same_params(model, self.params)
         self._params_version = version
         self.params = model
         return changed
@@ -301,6 +367,11 @@ class ContinuousEngine:
                 [np.zeros((b, pad), np.int64), attention_mask], axis=1)
         seeds = np.asarray(seeds, np.int64).reshape(-1)
         greedy = np.zeros((b,), bool) if greedy is None else np.asarray(greedy, bool)
+        if self._gamma and self.fns.config.do_sample and greedy.any():
+            raise ValueError(
+                "greedy rows in a sampling speculative engine: the speculative path "
+                "has no per-row greedy flag (the generation config decides for every row)"
+            )
         t_enqueue = time.perf_counter()
         for i in range(b):
             self._queue.append(_Request(
@@ -355,7 +426,9 @@ class ContinuousEngine:
         for slot in range(self.B):
             if self._slots[slot] is None:
                 continue
-            need_cols = self.P + min(self.N, self._steps_bound[slot] + segment_len)
+            # a spec segment commits up to (gamma + 1) tokens per round
+            need_cols = self.P + min(self.N, self._steps_bound[slot]
+                                     + segment_len * (self._gamma + 1))
             need_blocks = (need_cols - 1) // self._bs + 1
             have = self._alloc_upto[slot]
             if need_blocks > have:
@@ -484,7 +557,18 @@ class ContinuousEngine:
         base = self._launch_base
         self.stats.prefill_kernel_launches = now["paged_prefill"] - base["paged_prefill"]
         self.stats.decode_kernel_launches = now["paged_decode"] - base["paged_decode"]
+        self.stats.verify_kernel_launches = now["paged_verify"] - base["paged_verify"]
         self.stats.sample_kernel_launches = now["fused_sample"] - base["fused_sample"]
+
+    _SPEC_COUNTERS = ("rounds", "accepted", "live_rounds", "committed")
+
+    def _read_spec_counters(self) -> Dict[str, int]:
+        """The device-cumulative spec counters (one copy; zeros for a plain
+        engine)."""
+        if not self._gamma:
+            return dict.fromkeys(self._SPEC_COUNTERS, 0)
+        vals = torch.stack([getattr(self.state, k) for k in self._SPEC_COUNTERS]).tolist()
+        return dict(zip(self._SPEC_COUNTERS, vals))
 
     def step(self) -> List[CompletedSequence]:
         """One admit → prefill → segment → harvest turn; returns newly
@@ -503,9 +587,17 @@ class ContinuousEngine:
         self.stats.decode_steps += steps
         self.stats.slot_steps += steps * self.B
         self.stats.live_slot_steps += live_steps
+        if self._gamma:
+            # rows advance unevenly: the device step IS each row's committed
+            # length. Read once per segment, with the spec counters
+            cur = self._read_spec_counters()
+            for k in self._SPEC_COUNTERS:
+                setattr(self.stats, f"spec_{k}", cur[k] - self._spec_base[k])
+            bound = self.state.step.tolist()
         for slot in range(self.B):
             if self._slots[slot] is not None:
-                self._steps_bound[slot] = min(self.N, self._steps_bound[slot] + steps)
+                self._steps_bound[slot] = (int(bound[slot]) if self._gamma else
+                                           min(self.N, self._steps_bound[slot] + steps))
         out = self._harvest()
         self._note_launches()
         return out

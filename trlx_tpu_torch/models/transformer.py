@@ -13,25 +13,30 @@ formed in the compute dtype, the softmax runs in f32.
 
 Attention has three branches:
 
-- **flash** (full passes: no cache, ``T > 1``, when
-  :meth:`TransformerConfig.resolved_attention_impl` says so): the
-  flash-attention forward and backward kernels (``ops/flash_attention.py``)
-  with the same masking semantics as the bias (slot-causal + key validity),
-  resolved inside the kernel — no ``[B, 1, T, S]`` bias exists. This is the
-  scoring and training path;
-
+- **flash** (``T > 1`` with no cache or a dense cache at a scalar
+  ``cache_index``, when :meth:`TransformerConfig.resolved_attention_impl`
+  says so — the JAX ``use_flash`` rule): the flash-attention forward and
+  backward kernels (``ops/flash_attention.py``) with the same masking
+  semantics as the bias (slot-causal + key validity), resolved inside the
+  kernel — no ``[B, 1, T, S]`` bias exists. This is the scoring and
+  training path, and a dense-cache prefill (the span's K/V are written
+  into the cache first, then the queries at slots ``[ci, ci + T)`` attend
+  over the whole ``S``-wide cache);
 - **dense** (``cache = {"k", "v"}`` of ``[B, S, KV, D]``, or no cache on
-  the bias path): this call's K/V
-  are written at ``cache_index`` (a scalar, or a ``[B]`` vector of per-row
-  columns) and the einsum attention runs over the whole cache — the plain
-  reference path behind ``ops/sampling.py::generate``;
+  the bias path): this call's K/V are written at ``cache_index`` (a
+  scalar, or a ``[B]`` vector of per-row first columns: each row writes
+  its own ``[ci, ci + T)`` window) and the einsum attention runs over the
+  whole cache — the plain reference path behind ``ops/sampling.py::generate``
+  and ``ops/speculative.py::generate_speculative``;
 - **paged** (the cache carries a ``"block_table"``, see
   ``ops/paged_kv.py::attach_block_table``): K/V live in the block pool and
   this call's K/V are committed straight through each row's table, rows
   whose table ids are out of range writing nothing (the JAX drop-mode
   writes). A single-token step then calls the paged-decode kernel, a span
-  (``T > 1``, scalar ``cache_index``) the paged-prefill kernel. The pool is
-  updated in place.
+  at a scalar ``cache_index`` the paged-prefill kernel, and a span at a
+  ``[B]`` ``cache_index`` (the speculative verify: ``G + 1`` probe columns
+  per row at per-row depths) the paged-verify entry. The pool is updated
+  in place.
 
 The PPO path adds the hydra branch: ``forward(branch_layer=k)`` returns the
 activations entering the top ``k`` blocks as ``branch_input``, and
@@ -182,28 +187,20 @@ class PagedWrite:
     """Where one forward's ``T`` new K/V columns land in the pool: the
     ``(row, position)`` pairs whose table id is in range, and their flat
     ``block * block_size + offset`` pool rows. Computed once per forward
-    and shared by every layer (the pools of all layers share one table)."""
+    and shared by every layer (the pools of all layers share one table).
+
+    ``cache_index`` is a scalar (every row writes ``[ci, ci + T)``) or a
+    ``[B]`` vector (row ``b`` writes ``[ci[b], ci[b] + T)``: a decode step,
+    or the speculative verify's per-row probe windows, which may cross
+    block edges)."""
 
     def __init__(self, table: torch.Tensor, cache_index: Any, T: int,
                  num_blocks: int, block_size: int):
         B, TB = table.shape
-        ci = torch.as_tensor(cache_index, device=table.device)
-        if T == 1:
-            ci = ci.expand(B) if ci.ndim == 0 else ci
-            ci = ci.to(torch.int64)[:, None]  # [B, 1]
-            blk = table.to(torch.int64).gather(
-                1, torch.clamp(ci // block_size, max=TB - 1)
-            )
-            off = ci % block_size
-        else:
-            if ci.ndim != 0:
-                raise ValueError(
-                    "a multi-position paged span needs one scalar cache_index "
-                    "(per-row spans are the speculative verify path)"
-                )
-            cols = int(ci) + torch.arange(T, device=table.device)
-            blk = table.to(torch.int64)[:, cols // block_size]  # [B, T]
-            off = (cols % block_size)[None, :].expand(B, T)
+        ci = torch.as_tensor(cache_index, device=table.device).to(torch.int64)
+        cols = (ci.reshape(-1, 1) + torch.arange(T, device=table.device)).expand(B, T)
+        blk = table.to(torch.int64).gather(1, torch.clamp(cols // block_size, max=TB - 1))
+        off = cols % block_size
         valid = (blk >= 0) & (blk < num_blocks)
         self.rows, self.pos = valid.nonzero(as_tuple=True)
         self.dst = (blk * block_size + off)[self.rows, self.pos]
@@ -246,7 +243,10 @@ class Attention(nn.Module):
         v = _linear(self.v_proj, x, dt).view(B, T, KV, D)
 
         if cache is not None and "block_table" in cache:
-            from trlx_tpu_torch.ops.paged_attention import paged_attention_decode
+            from trlx_tpu_torch.ops.paged_attention import (
+                paged_attention_decode,
+                paged_verify_attention,
+            )
             from trlx_tpu_torch.ops.paged_prefill import paged_prefill_attention
 
             table = cache["block_table"]
@@ -258,18 +258,11 @@ class Attention(nn.Module):
                     attention_bias[:, :, 0, :].contiguous(),
                 )
             else:
-                out = paged_prefill_attention(
-                    q.contiguous(), cache["k"], cache["v"], table,
-                    attention_bias.contiguous(),
-                )
+                span = (paged_prefill_attention if torch.as_tensor(cache_index).ndim == 0
+                        else paged_verify_attention)
+                out = span(q.contiguous(), cache["k"], cache["v"], table,
+                           attention_bias.contiguous())
             return _linear(self.o_proj, out.reshape(B, T, H * D), dt), cache
-
-        if flash_args is not None:
-            from trlx_tpu_torch.ops.flash_attention import flash_attention
-
-            out = flash_attention(q, k, v, flash_args["key_mask"], causal=True,
-                                  q_offset=flash_args.get("q_offset", 0))
-            return _linear(self.o_proj, out.reshape(B, T, H * D), dt), None
 
         if cache is not None:
             ci = torch.as_tensor(cache_index)
@@ -277,11 +270,19 @@ class Attention(nn.Module):
                 c = int(ci)
                 cache["k"][:, c : c + T] = k.to(cache["k"].dtype)
                 cache["v"][:, c : c + T] = v.to(cache["v"].dtype)
-            else:  # per-row columns, one position each
-                rows = torch.arange(B, device=x.device)
-                cache["k"][rows, ci.to(x.device)] = k[:, 0].to(cache["k"].dtype)
-                cache["v"][rows, ci.to(x.device)] = v[:, 0].to(cache["v"].dtype)
+            else:  # per-row windows [ci, ci + T)
+                rows = torch.arange(B, device=x.device)[:, None]
+                cols = ci.to(x.device, torch.int64)[:, None] + torch.arange(T, device=x.device)
+                cache["k"][rows, cols] = k.to(cache["k"].dtype)
+                cache["v"][rows, cols] = v.to(cache["v"].dtype)
             k, v = cache["k"].to(dt), cache["v"].to(dt)
+
+        if flash_args is not None:
+            from trlx_tpu_torch.ops.flash_attention import flash_attention
+
+            out = flash_attention(q, k, v, flash_args["key_mask"], causal=True,
+                                  q_offset=flash_args["q_offset"])
+            return _linear(self.o_proj, out.reshape(B, T, H * D), dt), cache
 
         if KV < H:
             k = torch.repeat_interleave(k, H // KV, dim=2)
@@ -374,12 +375,13 @@ class CausalTransformer(nn.Module):
         )
         return bias[:, None]
 
-    def _attn_inputs(self, key_mask, query_slots, use_flash):
+    def _attn_inputs(self, key_mask, query_slots, use_flash, q_offset=0):
         """``(bias, flash_args)`` for one forward — the single definition of
         the masking semantics, shared by the full pass, the cached passes
-        and the hydra branch replay."""
+        and the hydra branch replay. Flash queries sit at slots
+        ``[q_offset, q_offset + T)`` (a scalar)."""
         if use_flash:
-            return None, {"key_mask": key_mask, "q_offset": 0}
+            return None, {"key_mask": key_mask, "q_offset": int(q_offset)}
         return self._attention_bias(key_mask, query_slots), None
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
@@ -418,13 +420,18 @@ class CausalTransformer(nn.Module):
         dt = cfg.dtype
         x = self.wte.weight.to(dt)[input_ids.to(torch.int64)]
         x = x + self.wpe.weight.to(dt)[positions + cfg.pos_offset]
+        # the JAX rule: flash for every multi-token pass except per-row
+        # (vector) cache indices and paged caches, whose kernels consume the
+        # additive bias rows
+        paged = cache is not None and "block_table" in cache[0]
         use_flash = (
-            cache is None and T > 1 and cfg.resolved_attention_impl(device) == "pallas"
+            T > 1 and torch.as_tensor(offset).ndim == 0 and not paged
+            and cfg.resolved_attention_impl(device) == "pallas"
         )
-        bias, flash_args = self._attn_inputs(attention_mask, query_slots, use_flash)
+        bias, flash_args = self._attn_inputs(attention_mask, query_slots, use_flash, offset)
 
         paged_write = None
-        if cache is not None and "block_table" in cache[0]:
+        if paged:
             pool = cache[0]["k"]
             paged_write = PagedWrite(cache[0]["block_table"], offset, T,
                                      pool.shape[0], pool.shape[1])

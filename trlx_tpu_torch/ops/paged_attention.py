@@ -8,6 +8,11 @@ version beside it:
   through the block table in place — no dense view of the pool is ever
   built. The current step's K/V is committed by the caller first
   (``models/transformer.py::Attention``).
+- :func:`paged_verify_attention` is the speculative verify: ``G + 1``
+  probe queries per row at per-row depths over the row's committed
+  prefix. It is a prefill-shaped pass, so on CUDA tensors it launches the
+  paged-prefill kernel (``csrc/paged_prefill.cu``), as the JAX function
+  delegates to the Pallas prefill kernel; it counts its own launches.
 - :func:`fused_sample` (``csrc/fused_sample.cu``) runs the temperature /
   top-k / top-p filter, the Gumbel-argmax draw and the behaviour logprob
   as one kernel per row, without a sort.
@@ -41,6 +46,8 @@ from trlx_tpu_torch.ops.sampling import _block_eos, gumbel_noise, process_logits
 __all__ = [
     "paged_attention_decode",
     "paged_attention_decode_reference",
+    "paged_verify_attention",
+    "paged_verify_attention_reference",
     "fused_sample",
     "fused_sample_reference",
     "sample_token_fused",
@@ -134,6 +141,56 @@ def paged_attention_decode_reference(q, k_pool, v_pool, block_table, bias):
     k = _gathered_view(k_pool, block_table, S, H)
     v = _gathered_view(v_pool, block_table, S, H)
     return _dense_attention(q[:, None], k, v, bias[:, :, None, :])[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# multi-position speculative verify
+# ---------------------------------------------------------------------------
+
+
+def paged_verify_attention(
+    q: torch.Tensor,  # (B, G+1, H, D) probe-column queries
+    k_pool: torch.Tensor,  # (NB, bs, KV, D) — the persistent block pool
+    v_pool: torch.Tensor,  # (NB, bs, KV, D)
+    block_table: torch.Tensor,  # (B, TB) int32; out-of-range ids clamp
+    bias: torch.Tensor,  # (B, HB, G+1, S) additive f32 slot-causality bias
+) -> torch.Tensor:
+    """Speculative verify: the target scoring ``G + 1`` probe columns (the
+    re-fed last committed token and ``G`` draft tokens) against the row's
+    committed prefix, in place through the block table. The per-row probe
+    window's slot-causality is carried by ``bias``; the probes' K/V were
+    committed by the caller. Returns ``(B, G+1, H, D)`` in ``q.dtype``.
+
+    Port of ``trlx_tpu/ops/paged_attention.py::paged_verify_attention``,
+    which delegates to the prefill kernel ("delegation is the bit-parity
+    guarantee"): here the same CUDA kernel as
+    :func:`~trlx_tpu_torch.ops.paged_prefill.paged_prefill_attention`
+    runs, at ``T = G + 1``."""
+    from trlx_tpu_torch.ops.paged_prefill import (
+        SPAN_ARGTYPES,
+        check_span_shapes,
+        span_launch_args,
+    )
+
+    check_span_shapes(q, k_pool, block_table, bias, "verify window")
+    if q.device.type == "cpu":
+        return paged_verify_attention_reference(q, k_pool, v_pool, block_table, bias)
+    out, args = span_launch_args(q, k_pool, v_pool, block_table, bias,
+                                 "paged_verify_attention")
+    check_launch("paged_prefill", kernel_fn("paged_prefill", SPAN_ARGTYPES)(*args))
+    paged_verify_attention.launches += 1
+    return out
+
+
+paged_verify_attention.launches = 0
+
+
+def paged_verify_attention_reference(q, k_pool, v_pool, block_table, bias):
+    """Gather-then-dense plain version of :func:`paged_verify_attention`
+    (the prefill's: the verify is a prefill-shaped pass)."""
+    from trlx_tpu_torch.ops.paged_prefill import paged_prefill_attention_reference
+
+    return paged_prefill_attention_reference(q, k_pool, v_pool, block_table, bias)
 
 
 # ---------------------------------------------------------------------------

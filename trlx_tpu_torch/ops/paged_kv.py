@@ -8,8 +8,11 @@ tensors of ``[max_blocks, block_size, kv_heads, head_dim]`` — plus a
 the host allocator (``trlx_tpu_torch/engine/allocator.py``) as sequences
 grow and freed at harvest.
 
-Physical block 0 is the reserved all-zeros block: fresh table entries
-point there, the allocator never hands it out and nothing writes it.
+Physical block 0 is the reserved block: fresh table entries point there
+and the allocator never hands it out. It starts as zeros, but nothing
+relies on that: the speculative verify's probe columns past a row's
+allocated blocks are written into it (as in the JAX package), and every
+column that reads it is masked by the ``-1e9`` bias.
 Unlike the JAX package (immutable arrays), the pool here is updated in
 place: the model's paged attention commits each step's K/V straight into
 the pool tensors, which saves a pool copy per step.

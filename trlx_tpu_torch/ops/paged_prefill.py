@@ -41,31 +41,44 @@ def paged_prefill_attention(
 ) -> torch.Tensor:
     """Chunked prompt attention reading K/V through the block table.
     Returns ``(B, T, H, D)`` in ``q.dtype``. The pool is only read."""
-    B, T, H, D = q.shape
-    NB, bs, KV, _ = k_pool.shape
-    TB = block_table.shape[1]
-    HB = bias.shape[1]
-    if bias.shape[2] != T:
-        raise ValueError(f"bias query dim {bias.shape[2]} != chunk length T={T}")
-    S = bias.shape[3]
-    _check_paged_shapes(H, KV, HB, S, TB, bs)
+    check_span_shapes(q, k_pool, block_table, bias, "chunk length")
     if q.device.type == "cpu":
         return paged_prefill_attention_reference(q, k_pool, v_pool, block_table, bias)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_prefill_attention runs on cuda or cpu, not {q.device}")
-    _check_paged_operands(q, k_pool, v_pool, block_table, bias)
-    out = torch.empty_like(q)
-    fn = kernel_fn("paged_prefill", [_P] * 6 + [_I] * 11 + [_P])
-    rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_table.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            B, T, H, KV, D, NB, bs, TB, HB, S, _DTYPE_CODE[q.dtype],
-            current_stream_ptr(q.device))
-    check_launch("paged_prefill", rc)
+    out, args = span_launch_args(q, k_pool, v_pool, block_table, bias,
+                                 "paged_prefill_attention")
+    check_launch("paged_prefill", kernel_fn("paged_prefill", SPAN_ARGTYPES)(*args))
     paged_prefill_attention.launches += 1
     return out
 
 
 paged_prefill_attention.launches = 0
+
+# the C entry of csrc/paged_prefill.cu: six pointers, eleven ints, the stream
+SPAN_ARGTYPES = [_P] * 6 + [_I] * 11 + [_P]
+
+
+def check_span_shapes(q, k_pool, block_table, bias, what: str) -> None:
+    """Shape checks of a span of ``T`` queries over the ``S``-wide row."""
+    if bias.shape[2] != q.shape[1]:
+        raise ValueError(f"bias query dim {bias.shape[2]} != {what} T={q.shape[1]}")
+    _check_paged_shapes(q.shape[2], k_pool.shape[2], bias.shape[1], bias.shape[3],
+                        block_table.shape[1], k_pool.shape[1])
+
+
+def span_launch_args(q, k_pool, v_pool, block_table, bias, caller: str):
+    """``(out, C arguments)`` of one ``csrc/paged_prefill.cu`` launch on
+    CUDA operands — shared by the prefill and the speculative-verify
+    wrappers, which launch the same kernel and count their own launches."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{caller} runs on cuda or cpu, not {q.device}")
+    _check_paged_operands(q, k_pool, v_pool, block_table, bias)
+    B, T, H, D = q.shape
+    NB, bs, KV, _ = k_pool.shape
+    out = torch.empty_like(q)
+    args = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_table.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), B, T, H, KV, D, NB, bs, block_table.shape[1],
+            bias.shape[1], bias.shape[3], _DTYPE_CODE[q.dtype], current_stream_ptr(q.device))
+    return out, args
 
 
 def paged_prefill_attention_reference(q, k_pool, v_pool, block_table, bias):

@@ -13,7 +13,9 @@ slot position — so a sequence that migrates through refilled engine slots
 draws exactly what a solo :func:`generate` with the same seed draws. The
 hash is plain integer tensor arithmetic, so the CPU and the card produce
 the same noise. The noise is an input to sampling, exactly as the fused
-sampling kernel takes it.
+sampling kernel takes it. The speculative sampler (``ops/speculative.py``)
+draws from the same hash with its own counters (:func:`uniform_noise` for
+the acceptance uniforms).
 """
 
 import dataclasses
@@ -25,6 +27,7 @@ __all__ = [
     "GenerationConfig",
     "GenerationOutput",
     "process_logits",
+    "uniform_noise",
     "gumbel_noise",
     "sample_token_from_logits",
     "last_step_info",
@@ -85,28 +88,40 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def uniform_noise(
+    seeds: torch.Tensor,  # [B] int64 per-row seeds
+    counters: torch.Tensor,  # [B] int64 per-row draw counters
+    n: int,
+) -> torch.Tensor:
+    """``[B, n]`` f32 uniforms in ``(0, 1)``; row ``i`` is a pure function
+    of ``(seeds[i], counters[i])``. The counter hash behind every draw of
+    the port (the Gumbel noise is ``-log(-log(u))`` of these)."""
+    device = seeds.device
+    row = _mix32((_mix32(seeds.to(torch.int64) & _M32)
+                  + (counters.to(torch.int64) & _M32) * 2 + 1) & _M32)
+    col = _mix32(torch.arange(n, device=device, dtype=torch.int64) * 2 + 1)
+    bits = _mix32(row[:, None] ^ col[None, :])
+    return ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / 16777216.0)
+
+
 def gumbel_noise(
     seeds: torch.Tensor,  # [B] int64 per-row seeds
-    steps: torch.Tensor,  # [B] int64 per-row decode steps
+    steps: torch.Tensor,  # [B] int64 per-row decode steps (draw counters)
     vocab_size: int,
 ) -> torch.Tensor:
     """``[B, V]`` f32 standard Gumbel noise; row ``i`` is a pure function
     of ``(seeds[i], steps[i])``."""
-    device = seeds.device
-    row = _mix32((_mix32(seeds.to(torch.int64) & _M32)
-                  + (steps.to(torch.int64) & _M32) * 2 + 1) & _M32)
-    col = _mix32(torch.arange(vocab_size, device=device, dtype=torch.int64) * 2 + 1)
-    bits = _mix32(row[:, None] ^ col[None, :])
-    u = ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / 16777216.0)
-    return -torch.log(-torch.log(u))
+    return -torch.log(-torch.log(uniform_noise(seeds, steps, vocab_size)))
 
 
 def _block_eos(logits, config, step):
+    """``min_new_tokens`` eos blocking: ``step`` is a scalar or holds the
+    response position of each logits row (``logits.shape[:-1]``)."""
     if config.eos_token_id is not None and config.min_new_tokens > 0:
         step = torch.as_tensor(step, device=logits.device)
         block = step < config.min_new_tokens
         if block.ndim:
-            block = block[:, None]
+            block = block[..., None]
         is_eos = (
             torch.arange(logits.shape[-1], device=logits.device)[None, :]
             == config.eos_token_id

@@ -2,11 +2,11 @@
 engine, in PyTorch.
 
 Port of ``trlx_tpu/ops/slot_refill.py`` restricted to the in-place kernel
-path: ``paged=PagedSpec(...)``, ``decode_kernel="pallas"``,
-``prefill_kernel="pallas"`` and ``speculative=0`` (the names keep the JAX
-package's config values; here they select the CUDA kernels). Anything
-else raises ``ValueError``, as the JAX module does for invalid
-combinations.
+path: ``paged=PagedSpec(...)``, ``decode_kernel="pallas"`` and
+``prefill_kernel="pallas"`` (the names keep the JAX package's config
+values; here they select the CUDA kernels), plain or speculative
+(``speculative=G``). Anything else raises ``ValueError``, as the JAX
+module does for invalid combinations.
 
 Decode runs in fixed-size **segments** over per-slot state: after each
 segment the host engine harvests finished slots and refills them with
@@ -27,6 +27,21 @@ same prompt and seed produces.
   (``ops/paged_attention.py::sample_token_fused``) then a one-token forward
   through the paged-decode kernel. The JAX ``lax.while_loop`` is a Python
   loop with an early exit when every slot is done.
+
+Speculative segments (``speculative = G > 0``, the JAX in-place
+``_spec_decode_segment_paged_kernel``): the programs take ``params =
+(target, draft)`` and the state is a :class:`SpecState`. A refill
+prefills the target's prompt in place (paged prefill, logits unused) and
+the draft's whole prompt on a fresh dense ``[R, S]`` cache (the flash
+kernel on the card), scattered whole-row into the state's draft cache. A
+segment runs up to ``segment_len`` rounds of
+``ops/speculative.py::spec_round_step``; each round attaches a table in
+which rows done at the round's start are poisoned out of range, so their
+verify writes drop. The verify's probe columns ``[c − 1, c + G)`` are
+written in place: rejected ones sit above every committed length and stay
+invisible through the slot mask; columns past a row's allocated blocks
+land in table entries left at 0 (the reserved block), which only probes
+past the budget ``N`` read.
 """
 
 import dataclasses
@@ -44,8 +59,9 @@ from trlx_tpu_torch.ops.paged_kv import (
     init_paged_kv,
 )
 from trlx_tpu_torch.ops.sampling import GenerationConfig, last_step_info
+from trlx_tpu_torch.ops.speculative import reject_spec_hooks, spec_round_step
 
-__all__ = ["SlotState", "SlotRefillFns", "make_slot_refill_fns"]
+__all__ = ["SlotState", "SpecState", "SlotRefillFns", "make_slot_refill_fns"]
 
 
 @dataclasses.dataclass
@@ -68,6 +84,36 @@ class SlotState:
     greedy: torch.Tensor  # [B] bool slots decoded greedily (zero noise)
 
 
+@dataclasses.dataclass
+class SpecState:
+    """Per-slot state of the speculative segments: solo
+    ``generate_speculative``'s geometry per slot — buffers ``[B, NB = N +
+    G + 1]`` (a round's block write never clips), the target's ``S = P +
+    N + G`` columns through the block table, the draft's own dense ``[B,
+    S]`` cache. ``step`` counts committed tokens (rows advance unevenly);
+    ``round`` is the per-row round counter behind the draws (reset at
+    refill). The four scalar counters are cumulative; the engine
+    differences them per collection."""
+
+    tokens: torch.Tensor  # [B, NB] int32 response tokens (pad after eos)
+    logprobs: torch.Tensor  # [B, NB] f32 target behaviour logprobs
+    values: torch.Tensor  # [B, NB] f32 value-head outputs (0 if no head)
+    mask: torch.Tensor  # [B, NB] int32, 1 on real response tokens
+    prompt_mask: torch.Tensor  # [B, P] int64 (round masks are rebuilt from it)
+    cache: PagedKV  # target block pool + [B, TB] block table
+    d_cache: list  # draft dense per-layer {"k", "v"} of [B, S, KV, D]
+    t_last: torch.Tensor  # [B] int64 last committed token (re-fed each round)
+    prompt_len: torch.Tensor  # [B] int64 real prompt lengths
+    done: torch.Tensor  # [B] bool finished (or empty) slots
+    step: torch.Tensor  # [B] int64 committed generated tokens (solo's n_out)
+    seed: torch.Tensor  # [B] int64 per-slot sampling seeds
+    round: torch.Tensor  # [B] int64 per-slot round counters
+    rounds: torch.Tensor  # [] int64 rounds run
+    accepted: torch.Tensor  # [] int64 accepted draft tokens (before clipping)
+    live_rounds: torch.Tensor  # [] int64 live row-rounds
+    committed: torch.Tensor  # [] int64 committed tokens (after clipping)
+
+
 class SlotRefillFns(NamedTuple):
     """The slot-refill programs + static shape info."""
 
@@ -84,6 +130,10 @@ class SlotRefillFns(NamedTuple):
     segment_len: int
     paged: PagedSpec
     device: torch.device
+    # speculative segments (0 = plain): up to ``speculative + 1`` committed
+    # tokens per live row per round; the programs take (target, draft)
+    speculative: int = 0
+    config: Optional[GenerationConfig] = None
 
 
 def _row_set(buf: torch.Tensor, val: torch.Tensor, col: torch.Tensor,
@@ -108,12 +158,17 @@ def make_slot_refill_fns(
     speculative: int = 0,
     device: Any = None,
     value_head: bool = False,
+    draft_cfg: Any = None,  # TransformerConfig of the draft (speculative)
 ) -> SlotRefillFns:
     """Build the slot-refill programs for one engine geometry on
     ``device`` (default: the GPU; raises without one). ``value_head``
     says whether the served model emits ``out["value"]``: only then does a
     decode step record it into ``SlotState.values``; a bare LM's values
-    stay the zeros allocated once."""
+    stay the zeros allocated once.
+
+    ``speculative = G > 0`` swaps in the speculative programs: the draft
+    model rides in the programs' ``params = (target, draft)`` as the
+    target does, and ``draft_cfg`` shapes its dense cache."""
     if paged is None:
         raise ValueError(
             "the port's slot-refill engine is the paged backend: pass "
@@ -129,17 +184,29 @@ def make_slot_refill_fns(
             f"prefill_kernel {prefill_kernel!r}: the port runs the in-place "
             "paged-prefill kernel ('pallas'); the gather path is not ported"
         )
-    if speculative:
-        raise ValueError("speculative decode segments are not ported yet")
+    G = int(speculative or 0)
+    if G < 0:
+        raise ValueError(f"speculative must be >= 0, got {G}")
+    if G:
+        if draft_cfg is None:
+            raise ValueError(
+                "speculative decode segments need the draft model: pass draft_cfg "
+                "(model.draft_model_path resolves it in the trainer) and run the "
+                "programs on params = (target, draft)"
+            )
+        reject_spec_hooks(adjust_logits=adjust_logits)
     device = resolve_device(device)
     B, P, N = batch_size, prompt_len, config.max_new_tokens
-    S = P + N
+    # the speculative geometry is solo's: each round probes G columns past
+    # the last commit
+    S = P + N + G
+    NB = N + G + 1
     V = cfg.vocab_size
     warmed = {"done": False}
 
-    def init_cache(rows: int, length: int):
-        from trlx_tpu_torch.models.transformer import make_kv_cache
+    from trlx_tpu_torch.models.transformer import make_kv_cache
 
+    def init_cache(rows: int, length: int):
         return make_kv_cache(cfg, rows, length, device=device)
 
     def empty_state() -> SlotState:
@@ -209,6 +276,105 @@ def make_slot_refill_fns(
         state.greedy[dst] = torch.as_tensor(np.asarray(greedy), dtype=torch.bool).to(device)[src]
         return state
 
+    def empty_spec_state() -> SpecState:
+        i64 = dict(dtype=torch.int64, device=device)
+        return SpecState(
+            tokens=torch.full((B, NB), config.pad_token_id, dtype=torch.int32, device=device),
+            logprobs=torch.zeros((B, NB), dtype=torch.float32, device=device),
+            values=torch.zeros((B, NB), dtype=torch.float32, device=device),
+            mask=torch.zeros((B, NB), dtype=torch.int32, device=device),
+            prompt_mask=torch.zeros((B, P), **i64),
+            cache=init_paged_kv(init_cache, paged, B, S, device=device),
+            d_cache=make_kv_cache(draft_cfg, B, S, device=device),
+            t_last=torch.zeros((B,), **i64),
+            prompt_len=torch.zeros((B,), **i64),
+            done=torch.ones((B,), dtype=torch.bool, device=device),
+            step=torch.zeros((B,), **i64),
+            seed=torch.zeros((B,), **i64),
+            round=torch.zeros((B,), **i64),
+            **{k: torch.zeros((), **i64)
+               for k in ("rounds", "accepted", "live_rounds", "committed")},
+        )
+
+    @torch.no_grad()
+    def spec_refill(params, state: SpecState, input_ids, prompt_mask, slot_idx,
+                    seeds, table_rows, greedy) -> SpecState:
+        """The speculative twin of :func:`refill`: the target's prompt is
+        prefilled in place through the rows' tables (K/V only: the first
+        round re-feeds the last prompt token), the draft's on a fresh dense
+        ``[R, S]`` cache scattered whole-row into the state (which also
+        clears a recycled slot's stale columns). Both use solo's ``S``-wide
+        slot mask."""
+        target, draft = params  # ``greedy``: ContinuousEngine rejects mixed rows
+        R = input_ids.shape[0]
+        ids = torch.as_tensor(input_ids, dtype=torch.int64).to(device)
+        pmask = torch.as_tensor(prompt_mask, dtype=torch.int64).to(device)
+        tables = torch.as_tensor(table_rows, dtype=torch.int32).to(device)
+        slot_mask_r = torch.cat(
+            [pmask, torch.zeros((R, S - P), dtype=torch.int64, device=device)], dim=1)
+        target(ids, attention_mask=slot_mask_r,
+               cache=attach_block_table(state.cache.pool, tables),
+               cache_index=0, logits_span=(0, 0))
+        d_cache = make_kv_cache(draft_cfg, R, S, device=device)
+        draft(ids, attention_mask=slot_mask_r, cache=d_cache, cache_index=0,
+              logits_span=(0, 0))
+        keep = np.nonzero(np.asarray(slot_idx) < B)[0]
+        if keep.size == 0:
+            return state
+        src = torch.as_tensor(keep, device=device)
+        dst = torch.as_tensor(np.asarray(slot_idx)[keep], dtype=torch.int64, device=device)
+        for big, rows in zip(state.d_cache, d_cache):
+            for name in ("k", "v"):
+                big[name][dst] = rows[name][src]
+        state.tokens[dst] = config.pad_token_id
+        state.logprobs[dst] = 0.0
+        state.values[dst] = 0.0
+        state.mask[dst] = 0
+        state.prompt_mask[dst] = pmask[src]
+        state.cache.block_table[dst] = tables[src]
+        state.t_last[dst] = ids[src, -1]
+        state.prompt_len[dst] = pmask[src].sum(dim=1)
+        state.done[dst] = False
+        state.step[dst] = 0
+        state.seed[dst] = torch.as_tensor(np.asarray(seeds), dtype=torch.int64).to(device)[src]
+        state.round[dst] = 0
+        return state
+
+    @torch.no_grad()
+    def spec_decode_segment(params, state: SpecState):
+        """Up to ``segment_len`` draft-propose → verify → accept rounds
+        over live slots, stopping early when every slot is done (one host
+        sync per round). Each round attaches a table in which rows done at
+        its start are poisoned, runs the shared round body, and detaches.
+        Returns ``(state, live_rounds, rounds_run)`` — the plain segment's
+        contract in round units."""
+        target, draft = params
+        table = state.cache.block_table
+        poisoned = torch.full_like(table, paged.max_blocks)
+        carry = {
+            "seed": state.seed, "round": state.round, "n_out": state.step,
+            "done": state.done, "t_last": state.t_last, "t_cache": None,
+            "d_cache": state.d_cache, "tokens": state.tokens, "logprobs": state.logprobs,
+            "values": state.values, "mask": state.mask, "rounds": state.rounds,
+            "accepted": state.accepted, "live_rounds": state.live_rounds,
+            "committed": state.committed,
+        }
+        live_before, rounds = state.live_rounds, 0
+        while rounds < segment_len and not bool(carry["done"].all()):
+            carry["t_cache"] = attach_block_table(
+                state.cache.pool, torch.where(carry["done"][:, None], poisoned, table))
+            carry = spec_round_step(carry, prompt_mask=state.prompt_mask, target=target,
+                                    draft=draft, config=config, G=G)
+            rounds += 1
+        for name, key in (("round", "round"), ("step", "n_out"), ("done", "done"),
+                          ("t_last", "t_last"), ("rounds", "rounds"),
+                          ("accepted", "accepted"), ("live_rounds", "live_rounds"),
+                          ("committed", "committed")):
+            setattr(state, name, carry[key])
+        return state, int(state.live_rounds - live_before), rounds
+
+    run_refill = spec_refill if G else refill
+
     def _bucket_pad(input_ids, prompt_mask, table_rows):
         """Round ``r`` up to the next power-of-two bucket; padding rows
         carry pad tokens, all-zero masks and ``max_blocks``-poisoned
@@ -248,8 +414,8 @@ def make_slot_refill_fns(
             slot_idx = np.concatenate([slot_idx, np.full((pad,), B, np.int64)])
             seeds = np.concatenate([seeds, np.zeros((pad,), np.int64)])
             greedy = np.concatenate([greedy, np.zeros((pad,), bool)])
-        return refill(model, state, input_ids, prompt_mask, slot_idx, seeds,
-                      table_rows, greedy)
+        return run_refill(model, state, input_ids, prompt_mask, slot_idx, seeds,
+                          table_rows, greedy)
 
     def prewarm(model, state: SlotState) -> SlotState:
         """Run every refill bucket once as a no-op (all rows padding, every
@@ -260,12 +426,12 @@ def make_slot_refill_fns(
         TB = state.cache.block_table.shape[1]
         bucket = 1
         while True:
-            refill(model, state,
-                   np.full((bucket, P), config.pad_token_id, np.int64),
-                   np.zeros((bucket, P), np.int64),
-                   np.full((bucket,), B, np.int64), np.zeros((bucket,), np.int64),
-                   np.full((bucket, TB), paged.max_blocks, np.int32),
-                   np.zeros((bucket,), bool))
+            run_refill(model, state,
+                       np.full((bucket, P), config.pad_token_id, np.int64),
+                       np.zeros((bucket, P), np.int64),
+                       np.full((bucket,), B, np.int64), np.zeros((bucket,), np.int64),
+                       np.full((bucket, TB), paged.max_blocks, np.int32),
+                       np.zeros((bucket,), bool))
             if bucket >= B:
                 break
             bucket = min(bucket * 2, B)
@@ -334,14 +500,16 @@ def make_slot_refill_fns(
         return st, int(live_steps), steps
 
     return SlotRefillFns(
-        init_state=empty_state,
+        init_state=empty_spec_state if G else empty_state,
         refill_rows=refill_rows,
         prewarm=prewarm,
-        decode_segment=decode_segment,
+        decode_segment=spec_decode_segment if G else decode_segment,
         batch_size=B,
         prompt_len=P,
         max_new_tokens=N,
         segment_len=segment_len,
         paged=paged,
         device=device,
+        speculative=G,
+        config=config,
     )

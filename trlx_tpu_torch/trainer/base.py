@@ -15,7 +15,10 @@ Port of ``trlx_tpu/trainer/base.py`` (``TPUBaseTrainer``) as
   optimizer). ``learning_rate`` is the schedule at the step count before
   the update;
 - rollouts and evaluation generate through the paged
-  ``ContinuousEngine`` (``engine/core.py``) on the CUDA kernels;
+  ``ContinuousEngine`` (``engine/core.py``) on the CUDA kernels; with
+  ``engine.speculative: k`` and ``model.draft_model_path`` its segments
+  run draft-propose → verify → accept rounds, the draft a bare LM built
+  from ``train.seed + 1``;
 - ``learn`` runs the JAX loop (epochs → batches → updates per batch,
   interval and final checkpoints, interval and final evaluation) without
   its observability, resilience and serving hooks;
@@ -41,6 +44,7 @@ import torch
 from trlx_tpu_torch.data.tokenizer import from_config as tokenizer_from_config
 from trlx_tpu_torch.engine.core import ContinuousEngine
 from trlx_tpu_torch.models.builder import build_causal_lm, trainable_mask
+from trlx_tpu_torch.models.transformer import config_from_spec
 from trlx_tpu_torch.ops.kernel_utils import resolve_device
 from trlx_tpu_torch.ops.paged_kv import PagedSpec, num_table_blocks
 from trlx_tpu_torch.ops.sampling import GenerationConfig
@@ -61,13 +65,35 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch
 _PARALLEL_AXES = ("fsdp", "pipe", "model", "sequence", "expert", "dcn_data_parallelism")
 
 
+def validate_speculative(config) -> None:
+    """The JAX trainer's speculative-engine checks, each its own error:
+    ``engine.speculative >= 0``, a draft model, the paged backend."""
+    k = int(config.engine.speculative)
+    if k < 0:
+        raise ValueError(f"engine.speculative {k} must be >= 0 (0 = off, k = draft "
+                         "tokens proposed per verify round)")
+    if not k:
+        return
+    if not config.model.draft_model_path:
+        raise ValueError(
+            "engine.speculative (speculative continuous batching) requires "
+            "model.draft_model_path — the engine needs a draft model to propose "
+            "tokens for the target to verify"
+        )
+    if config.engine.backend != "paged":
+        raise ValueError(
+            "engine.speculative requires engine.backend: paged — the verify pass "
+            "commits accepted K/V through the block table with drop-mode writes"
+        )
+
+
 def reject_unported(config) -> None:
     """Raise ``ValueError`` naming the first setting this slice does not
-    run (the serial dense rollout path, async collection, serving inside a
-    trainer, the engine's prefix cache / chunked prefill / speculation /
-    gather kernels, the staged loss,
-    gradient accumulation, parallel axes, scanned or rematerialised
-    layers, seq2seq, LoRA, a draft model, resume, a tracker)."""
+    run (the serial dense rollout path — which also holds the serial
+    speculative sampler —, async collection, serving inside a trainer, the
+    engine's prefix cache / chunked prefill / gather kernels, the staged
+    loss, gradient accumulation, parallel axes, scanned or rematerialised
+    layers, seq2seq, LoRA, resume, a tracker)."""
     t, e, m, par, res = (config.train, config.engine, config.model, config.parallel,
                          config.resilience)
     loss_kernel = getattr(config.method, "loss_kernel", None)
@@ -79,7 +105,6 @@ def reject_unported(config) -> None:
         (e.backend != "paged", f"engine.backend {e.backend!r}: the port's engine is paged"),
         (e.prefix_cache, "engine.prefix_cache: the prefix cache is not ported"),
         (int(e.prefill_chunk) != 0, "engine.prefill_chunk: chunked prefill is not ported"),
-        (int(e.speculative) != 0, "engine.speculative: speculative decoding is not ported"),
         (e.decode_kernel != "pallas", f"engine.decode_kernel {e.decode_kernel!r}: the port "
          "runs the paged-decode kernel ('pallas'); the gather path is not ported"),
         (e.prefill_kernel != "pallas", f"engine.prefill_kernel {e.prefill_kernel!r}: the port "
@@ -93,7 +118,6 @@ def reject_unported(config) -> None:
         (m.model_arch_type != "causal",
          f"model.model_arch_type {m.model_arch_type!r}: seq2seq is not ported"),
         (bool(m.peft_kwargs), "model.peft_kwargs: LoRA/PEFT is not ported"),
-        (bool(m.draft_model_path), "model.draft_model_path: draft models are not ported"),
         (t.resume_from_checkpoint, "train.resume_from_checkpoint: checkpoint load and "
          "resume are not ported"),
         (t.tracker is not None, f"train.tracker {t.tracker!r}: the port logs to an "
@@ -165,6 +189,7 @@ class TorchBaseTrainer(BaseRLTrainer):
         **kwargs,
     ):
         super().__init__(config, reward_fn, metric_fn, stop_sequences, **kwargs)
+        validate_speculative(config)
         reject_unported(config)
         depths = {k: int(getattr(config.train, k) or 0)
                   for k in ("rollout_pipeline_depth", "prefetch_batches")}
@@ -183,6 +208,24 @@ class TorchBaseTrainer(BaseRLTrainer):
             config.model.model_path, seed=config.train.seed, device=self.device,
             head=self.model_head, **overrides,
         )
+        self.draft_model, self.draft_tcfg = None, None
+        if config.model.draft_model_path:
+            # a bare LM, randomly initialised from train.seed + 1
+            draft_overrides = dict(config.model.draft_model_extra_kwargs or {})
+            draft_overrides.setdefault("param_dtype", overrides["param_dtype"])
+            draft_overrides.setdefault("dtype", overrides["dtype"])
+            vocab = config_from_spec(config.model.draft_model_path,
+                                     **draft_overrides).vocab_size
+            if vocab != self.tcfg.vocab_size:
+                raise ValueError(
+                    f"model.draft_model_path {config.model.draft_model_path!r}: draft "
+                    f"vocab {vocab} != policy vocab {self.tcfg.vocab_size}: speculative "
+                    "decoding needs a same-tokenizer draft"
+                )
+            self.draft_model, self.draft_tcfg = build_causal_lm(
+                config.model.draft_model_path, seed=config.train.seed + 1,
+                device=self.device, **draft_overrides,
+            )
         # JAX differentiates every parameter; the mask decides who updates
         self.model.requires_grad_(True)
         self.param_mask = trainable_mask(self.model, self.tcfg, config.model.num_layers_unfrozen)
@@ -202,6 +245,7 @@ class TorchBaseTrainer(BaseRLTrainer):
             if getattr(config.method, "gen_experience_kwargs", None) else None
         )
         self._generate_fns: Dict[Any, Any] = {}
+        self._warned_cb_draft = False
         self._last_batch_host: Any = None
         self._last_batch_device: Any = None
         self.tracker = MemoryTracker()
@@ -304,24 +348,37 @@ class TorchBaseTrainer(BaseRLTrainer):
         ))
         return GenerationConfig(**clean), extra
 
-    def _resolve_paged_spec(self, batch_size: int, prompt_len: int, gen_config) -> PagedSpec:
+    def _resolve_paged_spec(self, batch_size: int, prompt_len: int, gen_config,
+                            gamma: int = 0) -> PagedSpec:
         """The pool geometry of ``engine:``; ``max_kv_blocks: 0`` sizes the
-        pool so every slot can reach full length."""
+        pool so every slot can reach full length. Speculative tables carry
+        entries for the ``gamma`` probe columns past ``P + N`` too."""
         bs = int(self.config.engine.kv_block_size)
         if bs < 1:
             raise ValueError(f"engine.kv_block_size {bs} must be >= 1")
         max_blocks = int(self.config.engine.max_kv_blocks)
         if max_blocks <= 0:
             max_blocks = 1 + batch_size * num_table_blocks(
-                prompt_len + gen_config.max_new_tokens, bs)
+                prompt_len + gen_config.max_new_tokens + int(gamma), bs)
         return PagedSpec(block_size=bs, max_blocks=max_blocks)
 
     def _get_slot_refill_fns(self, gen_config, extra_kwargs, batch_size: int,
                              prompt_len: int, segment_len: int):
         """The slot-refill programs for one engine geometry (cached)."""
-        paged = self._resolve_paged_spec(batch_size, prompt_len, gen_config)
+        gamma = int(self.config.engine.speculative)
+        if gamma and self.draft_model is None:
+            raise ValueError("engine.speculative requires model.draft_model_path (no "
+                             "draft model was built)")
+        if self.draft_model is not None and not gamma and not self._warned_cb_draft:
+            self._warned_cb_draft = True
+            logger.warning(
+                "model.draft_model_path is set but engine.speculative is 0: the engine "
+                "runs plain decode segments (set engine.speculative to propose k "
+                "tokens per verify round)"
+            )
+        paged = self._resolve_paged_spec(batch_size, prompt_len, gen_config, gamma)
         key = ("slot_refill", gen_config, extra_kwargs, batch_size, prompt_len,
-               segment_len, paged)
+               segment_len, paged, gamma)
         if key not in self._generate_fns:
             self._generate_fns[key] = make_slot_refill_fns(
                 self.tcfg, batch_size, prompt_len, gen_config,
@@ -330,13 +387,19 @@ class TorchBaseTrainer(BaseRLTrainer):
                 decode_kernel=self.config.engine.decode_kernel,
                 prefill_kernel=self.config.engine.prefill_kernel,
                 device=self.device, value_head=self.model_head == "value",
+                speculative=gamma, draft_cfg=self.draft_tcfg if gamma else None,
             )
         return self._generate_fns[key]
 
     def _engine_params(self, params: Any = None) -> Any:
         """The model the rollout engines run (the policy itself: the
-        engines read its live weights)."""
-        return self.model if params is None else params
+        engines read its live weights), or with ``engine.speculative`` on
+        the ``(target, draft)`` pair the spec programs unpack — one object,
+        so the engine adopts both at once."""
+        target = self.model if params is None else params
+        if int(self.config.engine.speculative):
+            return (target, self.draft_model)
+        return target
 
     def _cb_make_engine(self, gen_config, extra_kwargs, rows: int, chunk_width: int,
                         tag: Any = None) -> ContinuousEngine:
