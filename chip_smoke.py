@@ -11,10 +11,16 @@ Phases, each printing one JSON line:
    and power limit); no CUDA device is a failure (exit 1);
 2. build every kernel from ``trlx_tpu_torch/csrc`` with ``nvcc`` (one
    process per source, all started together) and print the build seconds;
+   beside it, ``paged_prefill``'s kernels' registers, shared memory and
+   spills (``nvcc -Xptxas -v``) and, where ``cuobjdump`` exists, their
+   tensor-core (``HMMA``) instruction counts;
 3. every kernel against its plain PyTorch version on the card, at the
-   serving slice's shapes and at a GQA shape, in bf16 and f32, with the
-   max error, the stated tolerance, kernel / plain / library times (median
-   of CUDA-event timed runs) and the least time the card could take;
+   serving slice's shapes, at the paged span kernel's layout edges (T = 5
+   and 17) and at a GQA shape, in bf16 and f32, with the max error, the
+   stated tolerance, kernel / plain / library times (device time per call
+   of back-to-back calls enqueued behind a sleeping card, and the per-call
+   time with the host's launch, ``call_ms``; see ``time_ms``) and the least
+   time the card could take;
 4. the slice: full-width GPT-2 small (random weights from a seed) on the
    paged ``ContinuousEngine`` behind ``ServeServer`` and its HTTP
    frontend, warmed up off the clock; 16 POSTed requests (half greedy,
@@ -114,21 +120,92 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(fn, runs=25, warmup=3):
-    """Median milliseconds of ``fn`` over ``runs`` CUDA-event timed calls."""
+# torch.cuda._sleep spins for a number of SM clock cycles; at or above this
+# many per millisecond (the H100's boost clock is ~1.98 GHz) a sleep lasts
+# at least as many milliseconds as it was sized for
+SLEEP_CYCLES_PER_MS = 2.0e6
+
+
+def time_ms(fn, n=50, windows=5, calls=25, warmup=3):
+    """``(ms, call_ms)`` of ``fn``, in milliseconds per call.
+
+    ``ms`` is device time alone: the card sleeps (``torch.cuda._sleep``)
+    while the host enqueues event ``a``, ``n`` back-to-back calls and event
+    ``b``, so the calls run one after another with no host time between
+    them, and (b - a) / n is what the card spends on one call. The sleep is
+    sized from the host time of ``n`` calls and must still be running when
+    ``b`` is enqueued (``a`` not yet reached). If it is not, the host fell
+    behind: the sleep was short, or ``n`` calls of many small kernels
+    filled the launch queue and the host waited for the card; the window is
+    taken again with half the calls behind twice the sleep; a ``fn`` that
+    still falls behind at one call waits for the card itself and reads
+    :func:`busy_ms` instead. Median over ``windows`` windows; warm L2, as
+    on the main path, where a layer reads what it has just written.
+
+    ``call_ms`` is the per-call figure the main path pays, host included:
+    event, one call, event, synchronize; median over ``calls`` calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    per_call = []
+    for _ in range(calls):
+        a, b = ev(), ev()
         a.record()
         fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+        per_call.append(a.elapsed_time(b))
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    cycles = int((2.0 * host_ms + 1.0) * SLEEP_CYCLES_PER_MS)
+    device = []
+    while len(device) < windows:
+        a, b = ev(), ev()
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        covered = not a.query()
+        b.synchronize()
+        if covered:
+            device.append(a.elapsed_time(b) / n)
+            continue
+        if n == 1:  # fn waits for the card itself: its kernels' busy time
+            emit({"phase": "timer", "busy_ms_for": f"chip_smoke.py:{fn.__code__.co_firstlineno}"})
+            return busy_ms(fn), statistics.median(per_call)
+        cycles = min(2 * cycles, int(2000 * SLEEP_CYCLES_PER_MS))  # at most a 2 s sleep
+        n = n // 2
+    return statistics.median(device), statistics.median(per_call)
+
+
+def busy_ms(fn, calls=10):
+    """Device time per call of a ``fn`` that waits for the card itself (a
+    host sync inside), whose calls cannot queue behind a sleep: the union
+    of its kernels' intervals on ``torch.profiler``'s device timeline."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from trlx_tpu_torch.profile_serve import _busy_us, device_events
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end) for e in device_events(prof)]
+    return _busy_us(spans) / calls / 1e3
+
+
+def timed_pair(kernel, plain):
+    """Device and per-call times of a kernel and of its plain version."""
+    rec = {}
+    rec["kernel_ms"], rec["call_ms"] = time_ms(kernel)
+    rec["plain_ms"], rec["plain_call_ms"] = time_ms(plain)
+    return rec
 
 
 def bound(nbytes, ops, dtype):
@@ -154,12 +231,87 @@ def phase_device():
 
 
 def phase_build():
+    """Every kernel built, and beside the build (its own nvcc, started
+    together) the resources of ``paged_prefill``'s kernels."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from trlx_tpu_torch.ops.kernel_utils import build_kernels
 
     t0 = time.perf_counter()
-    paths = build_kernels()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        resources = pool.submit(kernel_resources, "paged_prefill")
+        paths = build_kernels()
+        resources = resources.result()
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "kernels": sorted(paths)})
+    emit(resources)
+
+
+def _cuda_tool(name):
+    """A CUDA toolkit binary (``cuobjdump``, ``cu++filt``), or None."""
+    import shutil
+
+    for cand in (shutil.which(name), f"/usr/local/cuda/bin/{name}"):
+        if cand and os.path.exists(cand):
+            return cand
+    try:  # Triton's wheel carries cuobjdump and nvdisasm
+        import triton
+
+        cand = os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin", name)
+        return cand if os.path.exists(cand) else None
+    except ImportError:
+        return None
+
+
+def kernel_resources(name):
+    """``nvcc -Xptxas -v`` of ``csrc/<name>.cu`` compiled to a cubin:
+    registers, static shared memory and spill bytes of each kernel in it;
+    with ``cuobjdump``, the count of ``HMMA`` (tensor-core) instructions in
+    each kernel's SASS. A bf16 span kernel without ``HMMA`` fails."""
+    import re
+
+    from trlx_tpu_torch.ops.kernel_utils import BUILD_DIR, CSRC_DIR, _nvcc
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cubin = BUILD_DIR / f"{name}-{os.getpid()}.cubin"
+    proc = subprocess.run(
+        [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-cubin",
+         "-Xptxas", "-v", "-o", str(cubin), str(CSRC_DIR / f"{name}.cu")],
+        capture_output=True, text=True, check=True)
+    kernels, current = {}, None
+    for line in proc.stderr.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            current = kernels.setdefault(m.group(1), {})
+        elif current is not None:
+            for key, pat in (("spill_store_bytes", r"(\d+) bytes spill stores"),
+                             ("spill_load_bytes", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers"),
+                             ("static_smem_bytes", r"(\d+) bytes smem")):
+                m = re.search(pat, line)
+                if m:
+                    current[key] = int(m.group(1))
+    cuobjdump = _cuda_tool("cuobjdump")
+    if cuobjdump:
+        sass = subprocess.run([cuobjdump, "-sass", str(cubin)], capture_output=True, text=True,
+                              check=True).stdout
+        for section in sass.split("Function : ")[1:]:
+            fn = section.split()[0]
+            kernels.setdefault(fn, {})["hmma"] = section.count("HMMA")
+    cubin.unlink()
+    demangle = _cuda_tool("cu++filt")
+    rows = []
+    for fn, info in sorted(kernels.items()):
+        readable = fn
+        if demangle:
+            readable = subprocess.run([demangle, fn], capture_output=True, text=True).stdout.strip()
+        rows.append({"kernel": readable or fn, **info})
+    rec = {"phase": "kernel_resources", "source": f"trlx_tpu_torch/csrc/{name}.cu",
+           "cuobjdump": cuobjdump, "kernels": rows}
+    mma = [r for r in rows if "mma" in r["kernel"]]
+    if cuobjdump and (not mma or any(r.get("hmma", 0) == 0 for r in mma)):
+        raise AssertionError(f"a bf16 span kernel has no HMMA in its SASS: {rec}")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -295,16 +447,15 @@ def check_attention(kind, B, T, H, KV, D, bs, S, HB, dtype, poison, seed,
         emit({**rec, "ok": False})
         raise AssertionError(f"{kind} disagrees with its plain version: {err} > {tol}")
     if timed:
-        rec["kernel_ms"] = time_ms(lambda: kern(*args))
-        rec["plain_ms"] = time_ms(lambda: ref(*args))
+        rec.update(timed_pair(lambda: kern(*args), lambda: ref(*args)))
         # library yardstick: SDPA on a gathered dense view with the same
         # bias (the gather itself is not timed)
         kd = _gathered_view(inp["k"], inp["table"], S, H).transpose(1, 2)
         vd = _gathered_view(inp["v"], inp["table"], S, H).transpose(1, 2)
         qd = inp["q"].transpose(1, 2)
         mask = inp["bias"].to(dtype)
-        rec["library_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qd, kd, vd, attn_mask=mask))
+        rec["library_ms"], rec["library_call_ms"] = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask))
         b_ms, b_by = attention_bound(inp, B, T, H, KV, D, S, HB, dtype)
         rec["bound_ms"], rec["bound_by"] = b_ms, b_by
         rec["bound_us"] = 1e3 * b_ms
@@ -345,8 +496,8 @@ def check_sample(mode, dtype_name, B, V, seed, timed=False):
         emit({**rec, "ok": False})
         raise AssertionError(f"fused_sample {mode} disagrees: {mism} tokens, lp err {err}")
     if timed:
-        rec["kernel_ms"] = time_ms(lambda: fused_sample(logits, gumbel, **settings))
-        rec["plain_ms"] = time_ms(lambda: fused_sample_reference(logits, gumbel, **settings))
+        rec.update(timed_pair(lambda: fused_sample(logits, gumbel, **settings),
+                              lambda: fused_sample_reference(logits, gumbel, **settings)))
         rec["library_ms"] = None  # no single PyTorch call computes it
         nbytes = B * V * 4 * (2 if gumbel is not None else 1) + B * 8
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4 * B * V, torch.float32)
@@ -369,6 +520,11 @@ def phase_kernels():
                               seed=2, timed=bf, **slice_geo)
         if bf:
             timed["paged_prefill"], timed["paged_decode"] = pre, dec
+        # the bf16 kernel's layout edges: T = 5 (the verify's G + 1, keys
+        # split over four warps) and T = 17 (two-warp query tiles, ragged)
+        for T in (5, 17):
+            check_attention("paged_prefill", T=T, dtype=dtype, poison=True, seed=6 + T,
+                            **slice_geo)
         check_attention("paged_prefill", T=24, dtype=dtype, poison=True, seed=3,
                         **gqa_geo)
         check_attention("paged_decode", T=1, dtype=dtype, poison=True, seed=4,
@@ -705,13 +861,12 @@ def check_flash(label, B, T, S, H, KV, D, dtype, seed, causal=True, q_offset=0, 
         io = elem * (2 * B * T * H * D + 2 * B * S * KV * D)
         fwd_bytes = io + 4 * B * S + 4 * B * H * T
         bwd_bytes = 2 * io + 8 * B * H * T + 4 * B * S
-        rec["fwd"] = {"kernel_ms": time_ms(lambda: flash_fwd(q, k, v, mask, *alibi_args, **kw)),
-                      "plain_ms": time_ms(lambda: flash_fwd_reference(
-                          q, k, v, mask, *alibi_args, **kw))}
-        rec["bwd"] = {"kernel_ms": time_ms(lambda: flash_bwd(
-                          q, k, v, mask, *alibi_args, lse, delta, do, **kw)),
-                      "plain_ms": time_ms(lambda: flash_bwd_reference(
-                          q, k, v, mask, *alibi_args, lse, delta, do, **kw))}
+        rec["fwd"] = timed_pair(
+            lambda: flash_fwd(q, k, v, mask, *alibi_args, **kw),
+            lambda: flash_fwd_reference(q, k, v, mask, *alibi_args, **kw))
+        rec["bwd"] = timed_pair(
+            lambda: flash_bwd(q, k, v, mask, *alibi_args, lse, delta, do, **kw),
+            lambda: flash_bwd_reference(q, k, v, mask, *alibi_args, lse, delta, do, **kw))
         # library yardstick: SDPA with the same boolean mask (GQA repeated),
         # forward, and its backward alone on a retained graph
         g = H // KV
@@ -720,11 +875,12 @@ def check_flash(label, B, T, S, H, KV, D, dtype, seed, causal=True, q_offset=0, 
         vd = v.repeat_interleave(g, dim=2).transpose(1, 2).detach().requires_grad_(True)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         with torch.no_grad():
-            rec["fwd"]["library_ms"] = time_ms(lambda: sdpa(qd, kd, vd, attn_mask=vis))
+            rec["fwd"]["library_ms"], rec["fwd"]["library_call_ms"] = time_ms(
+                lambda: sdpa(qd, kd, vd, attn_mask=vis))
         ref_out = sdpa(qd, kd, vd, attn_mask=vis)
         dod = do.transpose(1, 2)
-        rec["bwd"]["library_ms"] = time_ms(lambda: torch.autograd.grad(
-            ref_out, (qd, kd, vd), dod, retain_graph=True))
+        rec["bwd"]["library_ms"], rec["bwd"]["library_call_ms"] = time_ms(
+            lambda: torch.autograd.grad(ref_out, (qd, kd, vd), dod, retain_graph=True))
         rec["fwd"]["bound_ms"], rec["fwd"]["bound_by"] = bound(fwd_bytes, 4 * D * H * pairs, dtype)
         rec["bwd"]["bound_ms"], rec["bwd"]["bound_by"] = bound(bwd_bytes, 10 * D * H * pairs, dtype)
         rec["visible_pairs_per_head"] = pairs
@@ -810,11 +966,12 @@ def check_loss(B, R, use_iw, seed, timed=False):
         n = B * R
         fwd_bytes = 4 * n * len(ops) + 4 * (1 + sc.numel() + hist.numel())
         bwd_bytes = 4 * n * (len(ops) + 2) + 4
-        rec["fwd"] = {"kernel_ms": time_ms(lambda: fused_loss_fwd(p, ops)),
-                      "plain_ms": time_ms(lambda: fused_loss_fwd_reference(p, ops)),
+        # no single PyTorch call computes either
+        rec["fwd"] = {**timed_pair(lambda: fused_loss_fwd(p, ops),
+                                   lambda: fused_loss_fwd_reference(p, ops)),
                       "library_ms": None}
-        rec["bwd"] = {"kernel_ms": time_ms(lambda: fused_loss_bwd(p, ops, g)),
-                      "plain_ms": time_ms(lambda: fused_loss_bwd_reference(p, ops, g)),
+        rec["bwd"] = {**timed_pair(lambda: fused_loss_bwd(p, ops, g),
+                                   lambda: fused_loss_bwd_reference(p, ops, g)),
                       "library_ms": None}
         # about 60 f32 operations per element forward (GAE, whitening,
         # both clipped losses, stats, sketches), about 40 backward
@@ -1198,7 +1355,8 @@ def kernel_record(name, launches, max_abs_err, rec):
     source = SOURCES.get(name, name)
     return {"name": name, "route": "cuda", "source": f"trlx_tpu_torch/csrc/{source}.cu",
             "replaces": REPLACES[name], "launches": launches, "max_abs_err": max_abs_err,
-            "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "ms": rec["kernel_ms"], "call_ms": rec["call_ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
 
 

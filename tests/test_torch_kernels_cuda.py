@@ -8,8 +8,12 @@ imports no JAX, so it runs on a machine without it::
 The cases are the CPU parity tests' edge cases (block sizes 1/3/4, GQA,
 head-uniform and per-head bias, out-of-range table ids, masked columns
 over stale pool blocks, ties at the top-k and top-p boundaries), in f32 and
-bf16; for the speculative verify rows at their own depths, a probe window
-across a block edge and done rows with poisoned tables; for flash attention ragged tiles, GQA, a window, ALiBi and rows that
+bf16, and for the paged span kernel the edges of its bf16 tensor-core
+layouts (T on both sides of 16 with ragged query tiles, block size 16,
+head dims 16/64/128, a query whose every column is masked); for the
+speculative verify rows at their own depths, a probe window across a block
+edge and done rows with poisoned tables; for flash attention ragged tiles,
+GQA, a window, ALiBi and rows that
 see no key; for the fused loss IW on and off, a masked row and values on
 the clip bounds. ``chip_smoke.py`` makes the same comparison at the
 serving and training shapes.
@@ -47,10 +51,11 @@ from trlx_tpu_torch.ops.fused_loss import (
 )
 
 from torch_kernel_cases import (
+    CUDA_GEOMETRIES,
+    CUDA_VERIFY_CASES,
     FLASH_CASES,
     GEOMETRIES,
     SAMPLE_SETTINGS,
-    VERIFY_CASES,
     flash_case,
     loss_case,
     paged_case,
@@ -71,8 +76,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _attention_args(geometry, per_head_bias, seed, dtype, dev):
-    q, kp, vp, table, bias = paged_case(geometry, per_head_bias, seed)
+def _attention_args(geometry, per_head_bias, seed, dtype, dev, dead_row=False):
+    q, kp, vp, table, bias = paged_case(geometry, per_head_bias, seed, dead_row)
     return ([t(a).to(dev, dtype) for a in (q, kp, vp)]
             + [t(table).to(dev), t(bias).to(dev)])
 
@@ -84,9 +89,9 @@ def _as_f32(args):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("per_head_bias", [False, True])
-@pytest.mark.parametrize("geometry", GEOMETRIES)
+@pytest.mark.parametrize("geometry", CUDA_GEOMETRIES)
 def test_cuda_kernels_match_plain_versions(cuda, geometry, per_head_bias, dtype):
-    args = _attention_args(geometry, per_head_bias, sum(geometry), dtype, cuda)
+    args = _attention_args(geometry, per_head_bias, sum(geometry), dtype, cuda, dead_row=True)
     before = (paged_prefill_attention.launches, paged_attention_decode.launches)
     out = paged_prefill_attention(*args)
     assert out.dtype == dtype and out.is_cuda
@@ -103,7 +108,7 @@ def test_cuda_kernels_match_plain_versions(cuda, geometry, per_head_bias, dtype)
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", VERIFY_CASES)
+@pytest.mark.parametrize("case", CUDA_VERIFY_CASES)
 def test_cuda_verify_matches_plain_version(cuda, case, dtype):
     q, kp, vp, table, bias = verify_case(case, seed=sum(case))
     args = [t(a).to(cuda, dtype) for a in (q, kp, vp)] + [t(table).to(cuda), t(bias).to(cuda)]
@@ -115,6 +120,22 @@ def test_cuda_verify_matches_plain_version(cuda, case, dtype):
     # the verify counts its own launches of the prefill kernel
     assert (paged_verify_attention.launches, paged_prefill_attention.launches) == (
         before[0] + 1, before[1])
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_span_rejects_unsupported_head_dim(cuda):
+    # the bf16 kernel is templated over D in {16, 32, 64, 128}: any other D
+    # raises before a launch, for the prefill and the verify alike
+    args = _attention_args((2, 5, 4, 2, 48, 4, 13), False, 1, torch.bfloat16, cuda)
+    before = (paged_prefill_attention.launches, paged_verify_attention.launches)
+    for fn in (paged_prefill_attention, paged_verify_attention):
+        with pytest.raises(ValueError, match="D=48"):
+            fn(*args)
+    assert (paged_prefill_attention.launches, paged_verify_attention.launches) == before
+    # f32 stays on CUDA cores and takes any D
+    out = paged_prefill_attention(*[a.float() if a.is_floating_point() else a for a in args])
+    want = paged_prefill_attention_reference(*_as_f32(args))
+    torch.testing.assert_close(out, want, atol=_TOL[torch.float32], rtol=0)
 
 
 @pytest.mark.gpu

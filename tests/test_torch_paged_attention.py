@@ -36,7 +36,11 @@ from trlx_tpu_torch.ops.paged_attention import (
     paged_verify_attention,
     paged_verify_attention_reference,
 )
-from trlx_tpu_torch.ops.paged_prefill import paged_prefill_attention
+from trlx_tpu_torch.ops.paged_prefill import (
+    MMA_HEAD_DIMS,
+    check_mma_operands,
+    paged_prefill_attention,
+)
 from trlx_tpu_torch.ops.sampling import gumbel_noise, process_logits
 
 from torch_kernel_cases import (
@@ -123,6 +127,35 @@ def test_shape_validation_raises():
         paged_prefill_attention(t(q), t(kp), t(vp), t(table), t(bias)[:, :, :2])
     with pytest.raises(ValueError, match="block table covers"):
         paged_attention_decode(t(q[:, 0]), t(kp), t(vp), t(table)[:, :1], t(bias[:, :, 0]))
+
+
+def test_fully_masked_query_averages_like_jax():
+    """A query whose every column carries the ``-1e9`` bias: the plain
+    version (and so the CUDA kernels, held to it on the card) averages the
+    row's ``S`` columns through the clamped table, as the JAX reference does."""
+    q, kp, vp, table, bias = paged_case((2, 4, 4, 2, 16, 3, 10), True, seed=11, dead_row=True)
+    assert (bias[0, :, 0] <= -1e9).all()
+    got = paged_prefill_attention(t(q), t(kp), t(vp), t(table), t(bias)).numpy()
+    args = tuple(jnp.asarray(a) for a in (q, kp, vp, table, bias))
+    np.testing.assert_allclose(got, np.asarray(jax_prefill_ref(*args)), atol=ATOL, rtol=0)
+    NB, bs, KV = kp.shape[:3]
+    S, H = bias.shape[-1], q.shape[2]
+    safe = np.minimum(table[0], NB - 1)
+    v_row = np.stack([vp[safe[s // bs], s % bs] for s in range(S)])  # [S, KV, D]
+    want = v_row.mean(axis=0)[np.arange(H) // (H // KV)]
+    np.testing.assert_allclose(got[0, 0], want, atol=ATOL, rtol=0)
+
+
+def test_bf16_span_kernel_limits():
+    """The bf16 span kernel's limits, checked before any launch: head dims
+    16/32/64/128 (a template parameter) and 16-byte aligned operands."""
+    x = torch.zeros(64, dtype=torch.bfloat16)
+    for D in MMA_HEAD_DIMS:
+        check_mma_operands(D, x)
+    with pytest.raises(ValueError, match="D=48"):
+        check_mma_operands(48, x)
+    with pytest.raises(ValueError, match="aligned"):
+        check_mma_operands(64, x[1:])
 
 
 def test_table_helpers():

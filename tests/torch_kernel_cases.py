@@ -15,6 +15,21 @@ GEOMETRIES = [
     (2, 4, 8, 2, 16, 4, 13),
 ]
 
+# on the card only, the bf16 tensor-core kernel's edges besides: T on both
+# sides of its layout switch at 16 (1, 5, 16, 17, 33, 64, 100; 17, 33 and
+# 100 leave a ragged last query tile), block sizes 1/3/16 with S not a
+# multiple of its 16- or 32-column chunks, head dims 16/64/128, GQA groups
+# 1 and 4
+CUDA_GEOMETRIES = GEOMETRIES + [
+    (2, 1, 4, 4, 16, 1, 9),
+    (3, 5, 8, 2, 64, 3, 40),
+    (2, 16, 4, 1, 128, 16, 50),
+    (2, 17, 4, 4, 64, 16, 45),
+    (2, 64, 2, 2, 64, 16, 104),
+    (1, 100, 4, 1, 16, 3, 130),
+    (2, 33, 4, 1, 128, 1, 70),
+]
+
 SAMPLE_SETTINGS = [
     dict(temperature=1.0, top_k=0, top_p=1.0),
     dict(temperature=0.7, top_k=5, top_p=1.0),
@@ -23,11 +38,13 @@ SAMPLE_SETTINGS = [
 ]
 
 
-def paged_case(geometry, per_head_bias, seed):
+def paged_case(geometry, per_head_bias, seed, dead_row=False):
     """Random pool/table/bias: rows see a random causal prefix with holes;
     table entries past a row's visible columns are poisoned out of range
     (they clamp, and their columns are masked); every pool block holds
-    random stale values that masked columns must not leak."""
+    random stale values that masked columns must not leak. ``dead_row``
+    masks every column of row 0's first query (the softmax then averages
+    all ``S`` columns)."""
     B, T, H, KV, D, bs, S = geometry
     rs = np.random.RandomState(seed)
     TB = num_table_blocks(S, bs)
@@ -40,6 +57,8 @@ def paged_case(geometry, per_head_bias, seed):
     q_slots = valid[:, None] - T + np.arange(T)[None, :]
     vis = (np.arange(S)[None, None, :] <= q_slots[:, :, None]) & (rs.rand(B, 1, S) > 0.15)
     vis[:, :, 0] = True
+    if dead_row:
+        vis[0, 0] = False
     HB = H if per_head_bias else 1
     bias = np.where(vis, 0.0, -1e9)[:, None].repeat(HB, axis=1).astype(np.float32)
     if per_head_bias:  # ALiBi-shaped per-head additive terms
@@ -53,6 +72,16 @@ def paged_case(geometry, per_head_bias, seed):
 VERIFY_CASES = [
     (4, 3, 4, 2, 16, 4, 8, 10, 1),
     (5, 4, 8, 8, 32, 3, 11, 9, 2),
+]
+
+# on the card only besides: D = 128 with GQA group 4, T = 16 at the bf16
+# kernel's layout switch with block size 1, T = 17 (a verify through the
+# prefill layout), and the speculative slice's shape (G = 4, S = 108)
+CUDA_VERIFY_CASES = VERIFY_CASES + [
+    (4, 4, 4, 1, 128, 16, 40, 30, 1),
+    (3, 15, 4, 4, 16, 1, 20, 20, 1),
+    (3, 16, 2, 2, 64, 3, 24, 20, 1),
+    (32, 4, 12, 12, 64, 16, 64, 40, 4),
 ]
 
 

@@ -165,7 +165,10 @@ def paged_verify_attention(
     which delegates to the prefill kernel ("delegation is the bit-parity
     guarantee"): here the same CUDA kernel as
     :func:`~trlx_tpu_torch.ops.paged_prefill.paged_prefill_attention`
-    runs, at ``T = G + 1``."""
+    runs, at ``T = G + 1``. For ``T <= 16`` its bf16 launcher picks the
+    skinny layout: one 16-row query tile per (row, head), the row's key
+    chunks split over four warps whose partial softmax states merge at
+    the end."""
     from trlx_tpu_torch.ops.paged_prefill import (
         SPAN_ARGTYPES,
         check_span_shapes,

@@ -2,11 +2,19 @@
 S-wide key row, reading K/V in place through the block table.
 
 Port of ``trlx_tpu/ops/paged_prefill.py``. The kernel is
-``csrc/paged_prefill.cu`` (one thread block per query tile, head and row;
-online softmax in f32). The chunk's own K/V is committed through the table
-by the caller (``models/transformer.py::Attention``) before the call, so
-no dense view exists on entry and nothing is scattered on exit. Masked
-key columns carry the ``-1e9`` additive bias and contribute exactly 0.
+``csrc/paged_prefill.cu``. In bf16 it runs on tensor cores (``mma.sync``)
+over chunks of key columns gathered through the table by ``cp.async``
+into a ring of stages, with an online softmax in f32, in one of two
+layouts chosen by ``T``: above 16 queries (prefill) a block of two warps
+holds 32 queries of one (row, head) over shared 32-column chunks, three
+stages deep; at 16 or fewer (the speculative verify's ``G + 1``) a block
+of four warps splits the row's 16-column chunks, each warp
+double-buffered, and merges the four partial softmax states. bf16 takes
+head dims 16, 32, 64 and 128. The f32 kernel (the parity runs) stays on CUDA
+cores. The chunk's own K/V is committed through the table by the caller
+(``models/transformer.py::Attention``) before the call, so no dense view
+exists on entry and nothing is scattered on exit. Masked key columns
+carry the ``-1e9`` additive bias and contribute exactly 0.
 
 The wrapper runs :func:`paged_prefill_attention_reference` only for CPU
 tensors; on CUDA tensors it launches the kernel or raises.
@@ -73,12 +81,29 @@ def span_launch_args(q, k_pool, v_pool, block_table, bias, caller: str):
         raise ValueError(f"{caller} runs on cuda or cpu, not {q.device}")
     _check_paged_operands(q, k_pool, v_pool, block_table, bias)
     B, T, H, D = q.shape
+    if q.dtype == torch.bfloat16:
+        check_mma_operands(D, q, k_pool, v_pool)
     NB, bs, KV, _ = k_pool.shape
     out = torch.empty_like(q)
     args = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_table.data_ptr(),
             bias.data_ptr(), out.data_ptr(), B, T, H, KV, D, NB, bs, block_table.shape[1],
             bias.shape[1], bias.shape[3], _DTYPE_CODE[q.dtype], current_stream_ptr(q.device))
     return out, args
+
+
+MMA_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def check_mma_operands(D: int, *tensors: torch.Tensor) -> None:
+    """The bf16 kernel's limits: head dim in :data:`MMA_HEAD_DIMS` (a
+    template parameter) and 16-byte aligned operands (K/V rows are copied
+    16 bytes at a time)."""
+    if D not in MMA_HEAD_DIMS:
+        raise ValueError(f"bf16 paged span attention takes head dim D in {MMA_HEAD_DIMS}, "
+                         f"not D={D}")
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("bf16 paged span attention needs 16-byte aligned operands")
 
 
 def paged_prefill_attention_reference(q, k_pool, v_pool, block_table, bias):

@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 # substrings of the device kernel names, by group
-_PORT_KERNELS = ("paged_decode_kernel", "paged_prefill_kernel", "fused_sample_kernel")
+_PORT_KERNELS = ("paged_decode_kernel", "paged_prefill_mma_kernel", "paged_prefill_f32_kernel",
+                 "fused_sample_kernel")
 # cuBLAS's kernels on Hopper are named nvjet_*
 _MATMUL = ("gemm", "gemv", "cutlass", "xmma", "cublas", "splitk", "nvjet")
 
