@@ -11,12 +11,14 @@ Phases, each printing one JSON line:
    and power limit); no CUDA device is a failure (exit 1);
 2. build every kernel from ``trlx_tpu_torch/csrc`` with ``nvcc`` (one
    process per source, all started together) and print the build seconds;
-   beside it, ``paged_prefill``'s kernels' registers, shared memory and
-   spills (``nvcc -Xptxas -v``) and, where ``cuobjdump`` exists, their
-   tensor-core (``HMMA``) instruction counts;
+   beside it, the registers, shared memory and spills (``nvcc -Xptxas -v``)
+   of the redesigned kernels (``paged_prefill``, ``flash_bwd``,
+   ``paged_decode``) and, where ``cuobjdump`` exists, their tensor-core
+   (``HMMA``) instruction counts;
 3. every kernel against its plain PyTorch version on the card, at the
    serving slice's shapes, at the paged span kernel's layout edges (T = 5
-   and 17) and at a GQA shape, in bf16 and f32, with the max error, the
+   and 17), at a GQA shape and (decode) at a 1000-column row, in bf16 and
+   f32, with the max error, the
    stated tolerance, kernel / plain / library times (device time per call
    of back-to-back calls enqueued behind a sleeping card, and the per-call
    time with the host's launch, ``call_ms``; see ``time_ms``) and the least
@@ -230,21 +232,28 @@ def phase_device():
     return smi
 
 
+# the sources whose kernels' resources phase_build reports (the redesigned
+# kernels), and whether their bf16 kernels run on tensor cores
+RESOURCE_SOURCES = {"paged_prefill": True, "flash_bwd": True, "paged_decode": False}
+
+
 def phase_build():
-    """Every kernel built, and beside the build (its own nvcc, started
-    together) the resources of ``paged_prefill``'s kernels."""
+    """Every kernel built, and beside the build (their own nvcc processes,
+    all started together) the resources of the redesigned kernels."""
     from concurrent.futures import ThreadPoolExecutor
 
     from trlx_tpu_torch.ops.kernel_utils import build_kernels
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        resources = pool.submit(kernel_resources, "paged_prefill")
+    with ThreadPoolExecutor(max_workers=len(RESOURCE_SOURCES)) as pool:
+        resources = [pool.submit(kernel_resources, name, mma)
+                     for name, mma in RESOURCE_SOURCES.items()]
         paths = build_kernels()
-        resources = resources.result()
+        resources = [r.result() for r in resources]
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "kernels": sorted(paths)})
-    emit(resources)
+    for rec in resources:
+        emit(rec)
 
 
 def _cuda_tool(name):
@@ -263,11 +272,12 @@ def _cuda_tool(name):
         return None
 
 
-def kernel_resources(name):
+def kernel_resources(name, tensor_cores):
     """``nvcc -Xptxas -v`` of ``csrc/<name>.cu`` compiled to a cubin:
     registers, static shared memory and spill bytes of each kernel in it;
     with ``cuobjdump``, the count of ``HMMA`` (tensor-core) instructions in
-    each kernel's SASS. A bf16 span kernel without ``HMMA`` fails."""
+    each kernel's SASS. With ``tensor_cores``, a source without a kernel
+    named ``*mma*``, or such a kernel without ``HMMA``, fails."""
     import re
 
     from trlx_tpu_torch.ops.kernel_utils import BUILD_DIR, CSRC_DIR, _nvcc
@@ -309,8 +319,8 @@ def kernel_resources(name):
     rec = {"phase": "kernel_resources", "source": f"trlx_tpu_torch/csrc/{name}.cu",
            "cuobjdump": cuobjdump, "kernels": rows}
     mma = [r for r in rows if "mma" in r["kernel"]]
-    if cuobjdump and (not mma or any(r.get("hmma", 0) == 0 for r in mma)):
-        raise AssertionError(f"a bf16 span kernel has no HMMA in its SASS: {rec}")
+    if tensor_cores and cuobjdump and (not mma or any(r.get("hmma", 0) == 0 for r in mma)):
+        raise AssertionError(f"a tensor-core kernel has no HMMA in its SASS: {rec}")
     return rec
 
 
@@ -518,6 +528,10 @@ def phase_kernels():
                               seed=1, timed=bf, **slice_geo)
         dec = check_attention("paged_decode", T=1, dtype=dtype, poison=True,
                               seed=2, timed=bf, **slice_geo)
+        # a long row (recorded, not gated): the decode's column split over
+        # 4 spans of 256 and its merge launch
+        check_attention("paged_decode", T=1, dtype=dtype, poison=True, seed=7,
+                        timed=bf, **{**slice_geo, "S": 1000})
         if bf:
             timed["paged_prefill"], timed["paged_decode"] = pre, dec
         # the bf16 kernel's layout edges: T = 5 (the verify's G + 1, keys
@@ -1091,12 +1105,61 @@ def phase_slice_train(device="cuda", spec="builtin:gpt2-small", total_steps=12, 
 # reduction order and the order of the kernels' sums differ
 PARITY_GRAD_RTOL = 1e-3
 PARITY_STAT_RTOL, PARITY_STAT_ATOL = 1e-4, 1e-5
+# the CPU may take the card's value-head ReLU branch only at a kink within
+# f32 rounding: |pre-activation| at most RELU_KINK_ATOL (the H100 read at
+# most 1.43e-6 over 5 such units), and at most RELU_KINK_MAX units a batch
+RELU_KINK_ATOL, RELU_KINK_MAX = 1e-5, 32
+
+
+class CardReluBranches:
+    """``torch.nn.functional`` for ``models/heads.py`` while the parity
+    phase runs: ``relu`` records the card pass's branch mask, and the CPU
+    pass takes the card's branch (``x * mask``), as the sampling parity
+    hands both sides the same noise. A value-head unit whose pre-activation
+    lies within f32 rounding of 0 would otherwise take the other branch on
+    the CPU and move that unit's weight gradient by a whole token's term,
+    a difference of the ReLU's kink, not of a kernel. The record counts the
+    branches taken from the card and the largest |pre-activation| there;
+    :meth:`problems` bounds both and checks that every mask recorded was
+    replayed once."""
+
+    def __init__(self):
+        self.recording, self.masks, self.replayed = True, [], 0
+        self.taken, self.taken_pre_max = 0, 0.0
+
+    def __getattr__(self, name):
+        return getattr(torch.nn.functional, name)
+
+    def relu(self, x):
+        if self.recording:
+            self.masks.append((x > 0).detach().cpu())
+            return torch.nn.functional.relu(x)
+        mask = self.masks[self.replayed].to(x.device)
+        self.replayed += 1
+        if mask.shape != x.shape:
+            raise AssertionError(f"ReLU replay: mask {tuple(mask.shape)} for {tuple(x.shape)}")
+        differs = mask != (x > 0)
+        if bool(differs.any()):
+            self.taken += int(differs.sum())
+            self.taken_pre_max = max(self.taken_pre_max, float(x.detach()[differs].abs().max()))
+        return x * mask.to(x.dtype)
+
+    def problems(self):
+        out = []
+        if not self.masks or self.replayed != len(self.masks):
+            out.append(f"ReLU replay: {len(self.masks)} masks recorded, {self.replayed} replayed")
+        if not (self.taken <= RELU_KINK_MAX and self.taken_pre_max <= RELU_KINK_ATOL):
+            out.append(f"ReLU branches from the card: {self.taken} units, "
+                       f"|pre-activation| up to {self.taken_pre_max}")
+        return out
 
 
 def phase_slice_train_parity(trainer, card="cuda"):
     """One collated batch of the run's store through ``loss_fn`` and
     backward: on the card in f32 through the kernels (TF32 off), and on a
-    CPU copy of the same f32 model through the plain versions."""
+    CPU copy of the same f32 model through the plain versions, the value
+    head's ReLU taking the card's branches (:class:`CardReluBranches`)."""
+    from trlx_tpu_torch.models import heads
     from trlx_tpu_torch.models.heads import CausalLMWithValueHead
     from trlx_tpu_torch.trainer.base import host_stats
 
@@ -1107,8 +1170,10 @@ def phase_slice_train_parity(trainer, card="cuda"):
     state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
     model, device = trainer.model, trainer.device
     results = {}
+    relu = heads.F = CardReluBranches()
     try:
         for key, dev in (("card", torch.device(card)), ("cpu", torch.device("cpu"))):
+            relu.recording = key == "card"
             m = CausalLMWithValueHead(cfg32)
             m.load_state_dict(state)
             m = m.to(dev).requires_grad_(True)
@@ -1125,12 +1190,13 @@ def phase_slice_train_parity(trainer, card="cuda"):
                 "launches": launch_counts(),
             }
     finally:
+        heads.F = torch.nn.functional
         trainer.model, trainer.device = model, device
         trainer._drop_batch_memo()
     gpu, cpu = results["card"], results["cpu"]
     n = float(np.asarray(batch.response_mask).sum())
     worst_stat, stat_name = 0.0, None
-    problems = []
+    problems = relu.problems()
     for k, want in cpu["stats"].items():
         if k == "train/loss_kernel_pallas":
             continue
@@ -1178,6 +1244,9 @@ def phase_slice_train_parity(trainer, card="cuda"):
            "grad_abs_floor": floor, "largest_grad": gmax,
            "floored_grad_err_over_largest": worst_floored, "floored_grad": floored_name,
            "grad_rtol": PARITY_GRAD_RTOL, "stat_rtol": PARITY_STAT_RTOL,
+           "relu_branches_from_card": relu.taken, "relu_pre_max_there": relu.taken_pre_max,
+           "relu_masks_replayed": relu.replayed,
+           "relu_kink_bounds": [RELU_KINK_MAX, RELU_KINK_ATOL],
            "kernel_launches_card": through, "params_compared": len(cpu["grads"])}
     emit({**rec, "ok": not problems})
     if problems:

@@ -154,3 +154,94 @@ def test_wrappers_check_shapes_and_devices():
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_bwd(q, q, q, torch.empty(1, 4, device=meta), None, None, None, lse, lse, q,
                   sm_scale=1.0, causal=True)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 backward's rounding, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's FLASH_TOL[bf16]["grad"]: the card's bf16 gradients are held
+# to atol + rtol * |want| against the plain version run in f32
+BF16_GRAD_ATOL, BF16_GRAD_RTOL = 2e-2, 1e-2
+
+# chip_smoke.py's check_flash shapes: (B, T, S, H, KV, D, q_offset, window,
+# alibi, dead key range of row 0) — the training shape, and GQA at D = 128
+# with a window, ALiBi and rows that see no key
+BUDGET_SHAPES = {
+    "train": (16, 104, 104, 12, 12, 64, 0, 0, False, None),
+    "gqa_window_alibi": (2, 77, 300, 32, 8, 128, 223, 64, True, (200, 290)),
+}
+
+
+def _bf16_case(shape, seed):
+    """bf16 operands as chip_smoke.py's check_flash makes them (random left
+    padding per row), and the plain forward's lse and delta."""
+    B, T, S, H, KV, D, qo, window, alibi, dead = shape
+    rs = np.random.RandomState(seed)
+    mask = np.ones((B, S), np.float32)
+    for b in range(B):
+        mask[b, : rs.randint(0, max(S // 4, 1))] = 0.0
+    if dead:
+        mask[0, dead[0]:dead[1]] = 0.0
+    bf = lambda *s: torch.tensor(rs.randn(*s), dtype=torch.float32).to(torch.bfloat16)  # noqa: E731
+    q, k, v, do = bf(B, T, H, D), bf(B, S, KV, D), bf(B, S, KV, D), bf(B, T, H, D)
+    alibi_args = [None, None, None]
+    if alibi:
+        kpos = np.maximum(np.cumsum(mask, axis=1) - 1, 0).astype(np.int32)
+        qpos = np.arange(T, dtype=np.int32)[None].repeat(B, 0) + qo
+        slopes = (2.0 ** (-8.0 * np.arange(1, H + 1) / H)).astype(np.float32)
+        alibi_args = [torch.tensor(x) for x in (qpos, kpos, slopes)]
+    kw = dict(sm_scale=D ** -0.5, causal=True, q_offset=qo, k_offset=0, window=window)
+    f32 = [x.float() for x in (q, k, v)]
+    mask = torch.tensor(mask)
+    out, lse = flash_fwd(*f32, mask, *alibi_args, **kw)
+    delta = (do.float() * out.to(torch.bfloat16).float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, mask, alibi_args, lse, delta, do, kw
+
+
+def _bf16_kernel_emulation(q, k, v, mask, alibi_args, lse, delta, do, kw):
+    """``csrc/flash_bwd.cu``'s bf16 arithmetic in plain torch: bf16
+    operands, f32 products and sums; ``p`` enters ``dv = p^T do`` as a bf16
+    high half plus a bf16 low half, ``ds`` enters ``dk`` and ``dq`` rounded
+    to bf16 once; sm_scale applied to ``s`` in f32 and to ``dk``/``dq`` at
+    the end; the gradients rounded to bf16."""
+    from trlx_tpu_torch.ops.flash_attention import _visible
+
+    bf = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+    B, T, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    krep, vrep = (torch.repeat_interleave(x, g, dim=2) for x in (kf, vf))
+    s = torch.einsum("bthd,bshd->bhts", qf, krep) * kw["sm_scale"]
+    qpos, kpos, slopes = alibi_args
+    if slopes is not None:
+        s = s + slopes[None, :, None, None] * (kpos[:, None, :] - qpos[:, :, None]).float()[:, None]
+    vis = _visible(mask, T, S, kw["causal"], kw["q_offset"], kw["k_offset"], kw["window"])
+    p = torch.where(vis, torch.exp(torch.where(vis, s, torch.zeros_like(s)) - lse[..., None]),
+                    torch.zeros_like(s))
+    p_hi = bf(p)
+    dv = torch.einsum("bhts,bthd->bshd", p_hi, dof) + torch.einsum(
+        "bhts,bthd->bshd", bf(p - p_hi), dof)
+    dp = torch.einsum("bthd,bshd->bhts", dof, vrep)
+    ds = bf(p * (dp - delta[..., None]))
+    dk = torch.einsum("bhts,bthd->bshd", ds, qf) * kw["sm_scale"]
+    dq = torch.einsum("bhts,bshd->bthd", ds, krep) * kw["sm_scale"]
+    dk = dk.reshape(B, S, KV, g, D).sum(dim=3)
+    dv = dv.reshape(B, S, KV, g, D).sum(dim=3)
+    return bf(dq), bf(dk), bf(dv)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("shape", sorted(BUDGET_SHAPES))
+def test_bf16_backward_rounding_within_the_card_tolerance(shape, seed):
+    """The bf16 backward's rounding design, checked before any chip run: its
+    emulation stays within the card's bf16 gradient tolerance of the plain
+    version run in f32 on the same bf16 operands."""
+    q, k, v, mask, alibi_args, lse, delta, do, kw = _bf16_case(BUDGET_SHAPES[shape], 20 + seed)
+    got = _bf16_kernel_emulation(q, k, v, mask, alibi_args, lse, delta, do, kw)
+    f32 = [x.float() for x in (q, k, v)]
+    want = flash_bwd(*f32, mask, *alibi_args, lse, delta, do.float(), **kw)
+    for name, gg, w in zip(("dq", "dk", "dv"), got, want):
+        excess = (gg - w).abs() - BF16_GRAD_ATOL - BF16_GRAD_RTOL * w.abs()
+        assert float(excess.max()) <= 0, f"{shape} {name}: {float((gg - w).abs().max())}"

@@ -12,9 +12,12 @@ bf16, and for the paged span kernel the edges of its bf16 tensor-core
 layouts (T on both sides of 16 with ragged query tiles, block size 16,
 head dims 16/64/128, a query whose every column is masked); for the
 speculative verify rows at their own depths, a probe window across a block
-edge and done rows with poisoned tables; for flash attention ragged tiles,
-GQA, a window, ALiBi and rows that
-see no key; for the fused loss IW on and off, a masked row and values on
+edge and done rows with poisoned tables; for the decode kernel one-column
+and 1024-column rows (split and merged) and head groups of 3, 8 and 12; for
+flash attention ragged tiles on both sides of the bf16 backward's 64-row
+tiles, T = 1, GQA, a window edge inside a tile, ALiBi and rows that see no
+key, bit-equal repeated bf16 backwards and head dims the bf16 backward
+and the decode do not take; for the fused loss IW on and off, a masked row and values on
 the clip bounds. ``chip_smoke.py`` makes the same comparison at the
 serving and training shapes.
 """
@@ -139,6 +142,20 @@ def test_cuda_bf16_span_rejects_unsupported_head_dim(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_rejects_unsupported_head_dim(cuda, dtype):
+    # the decode kernel is templated over D in {16, 32, 64, 128} in both
+    # types: any other D raises before a launch
+    args = _attention_args((2, 1, 4, 2, 48, 4, 13), False, 1, dtype, cuda)
+    dargs = [args[0][:, -1].contiguous(), args[1], args[2], args[3],
+             args[4][:, :, -1].contiguous()]
+    before = paged_attention_decode.launches
+    with pytest.raises(ValueError, match="D=48"):
+        paged_attention_decode(*dargs)
+    assert paged_attention_decode.launches == before
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("sample", [False, True])
 @pytest.mark.parametrize("settings", SAMPLE_SETTINGS)
 def test_cuda_fused_sample_matches_plain_version(cuda, settings, sample):
@@ -195,6 +212,40 @@ def test_cuda_flash_matches_plain_versions(cuda, case, dtype):
         assert got.dtype == dtype
         torch.testing.assert_close(got.float(), w, atol=_TOL[dtype] * 10, rtol=_TOL[dtype])
     assert (flash_fwd.launches, flash_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [FLASH_CASES[1], FLASH_CASES[9]])
+def test_cuda_bf16_flash_bwd_is_deterministic(cuda, case):
+    # no atomics: the dk/dv and dq launches each own their outputs, so two
+    # calls on the same inputs agree bit for bit
+    q, k, v, mask, alibi, kw, do = _flash_args(case, 11, torch.bfloat16, cuda)
+    out, lse = flash_fwd(q, k, v, mask, *alibi, **kw)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    first = flash_bwd(q, k, v, mask, *alibi, lse, delta, do, **kw)
+    second = flash_bwd(q, k, v, mask, *alibi, lse, delta, do, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_flash_bwd_rejects_unsupported_head_dim(cuda):
+    # the bf16 tensor-core kernels are templated over D in {16, 32, 64, 128}:
+    # any other D raises before a launch; f32 stays on CUDA cores, any D
+    case = (2, 13, 13, 4, 4, 48, True, 3, 0, 0, 0, False)
+    q, k, v, mask, alibi, kw, do = _flash_args(case, 3, torch.bfloat16, cuda)
+    out, lse = flash_fwd(q, k, v, mask, *alibi, **kw)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    before = flash_bwd.launches
+    with pytest.raises(ValueError, match="D=48"):
+        flash_bwd(q, k, v, mask, *alibi, lse, delta, do, **kw)
+    assert flash_bwd.launches == before
+    f32 = [x.float() for x in (q, k, v)]
+    grads = flash_bwd(*f32, mask, *alibi, lse, delta, do.float(), **kw)
+    wants = flash_bwd_reference(*f32, mask, *alibi, lse, delta, do.float(), **kw)
+    for got, w in zip(grads, wants):
+        torch.testing.assert_close(got, w, atol=_TOL[torch.float32] * 10,
+                                   rtol=_TOL[torch.float32])
 
 
 @pytest.mark.gpu

@@ -9,6 +9,7 @@ import importlib
 import inspect
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -145,6 +146,24 @@ def test_every_cuda_source_has_wrapper_counter_and_plain_version():
         assert src.count(f"{wrapper_name}.launches += 1") == 1
         assert f'kernel_fn("{stem}"' in src
         assert 'device.type == "cpu"' in src and plain_name in src
+
+
+_KERNEL_DEF = re.compile(
+    r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s*)?(\w+)\s*\(")
+
+
+@pytest.mark.parametrize("stem", sorted(kernel_utils.KERNELS))
+def test_profilers_count_every_device_kernel_as_the_ports(stem):
+    # profile_serve.py and profile_train.py group device time by kernel name:
+    # every __global__ function of the port's sources must land in the
+    # port's group of one of them, or its time would be filed as "other"
+    from trlx_tpu_torch import profile_serve, profile_train
+
+    names = _KERNEL_DEF.findall((PKG / "csrc" / f"{stem}.cu").read_text())
+    assert names
+    for name in names:
+        mangled = f"void (anonymous namespace)::{name}<float>(float const*)"
+        assert "port_kernels" in (profile_serve._group(mangled), profile_train._group(mangled)), name
 
 
 def test_trainer_and_train_default_to_cuda(tmp_path):

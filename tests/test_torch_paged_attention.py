@@ -11,6 +11,9 @@ The CUDA kernels themselves are held against these plain versions on the
 card by ``tests/test_torch_kernels_cuda.py``.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,19 +31,22 @@ from trlx_tpu.ops.paged_prefill import (
     paged_prefill_attention_reference,
 )
 from trlx_tpu.ops.sampling import process_logits as jax_process_logits
-from trlx_tpu_torch.ops.kernel_utils import clamp_block_table, pad_bias_to
+from trlx_tpu_torch.ops import kernel_utils
+from trlx_tpu_torch.ops.kernel_utils import (
+    HEAD_DIMS,
+    check_head_dim,
+    clamp_block_table,
+    pad_bias_to,
+)
 from trlx_tpu_torch.ops.paged_attention import (
+    DECODE_SPAN_COLS,
     fused_sample,
     fused_sample_reference,
     paged_attention_decode,
     paged_verify_attention,
     paged_verify_attention_reference,
 )
-from trlx_tpu_torch.ops.paged_prefill import (
-    MMA_HEAD_DIMS,
-    check_mma_operands,
-    paged_prefill_attention,
-)
+from trlx_tpu_torch.ops.paged_prefill import paged_prefill_attention
 from trlx_tpu_torch.ops.sampling import gumbel_noise, process_logits
 
 from torch_kernel_cases import (
@@ -147,15 +153,24 @@ def test_fully_masked_query_averages_like_jax():
 
 
 def test_bf16_span_kernel_limits():
-    """The bf16 span kernel's limits, checked before any launch: head dims
-    16/32/64/128 (a template parameter) and 16-byte aligned operands."""
+    """The limits of the kernels templated on the head dim (the bf16 span
+    and flash-backward kernels, the decode kernel), checked before any
+    launch: head dims 16/32/64/128 and 16-byte aligned operands."""
     x = torch.zeros(64, dtype=torch.bfloat16)
-    for D in MMA_HEAD_DIMS:
-        check_mma_operands(D, x)
+    for D in HEAD_DIMS:
+        check_head_dim("bf16 paged span attention", D, x)
     with pytest.raises(ValueError, match="D=48"):
-        check_mma_operands(48, x)
+        check_head_dim("bf16 paged span attention", 48, x)
     with pytest.raises(ValueError, match="aligned"):
-        check_mma_operands(64, x[1:])
+        check_head_dim("bf16 paged span attention", 64, x[1:])
+
+
+def test_decode_span_width_matches_the_kernel():
+    """The wrapper sizes the decode's merge scratch by DECODE_SPAN_COLS; the
+    kernel splits a row's columns by its own compile-time SPAN_COLS."""
+    src = (Path(kernel_utils.__file__).parent.parent / "csrc" / "paged_decode.cu").read_text()
+    found = re.findall(r"constexpr int SPAN_COLS = (\d+);", src)
+    assert found == [str(DECODE_SPAN_COLS)]
 
 
 def test_table_helpers():

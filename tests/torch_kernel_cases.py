@@ -19,7 +19,11 @@ GEOMETRIES = [
 # sides of its layout switch at 16 (1, 5, 16, 17, 33, 64, 100; 17, 33 and
 # 100 leave a ragged last query tile), block sizes 1/3/16 with S not a
 # multiple of its 16- or 32-column chunks, head dims 16/64/128, GQA groups
-# 1 and 4
+# 1 and 4; and the decode kernel's: a one-column row (S = 1), a row split
+# into four 256-column spans and merged (S = 1024), head groups of 3, 8 and
+# 12 (its blocks serve up to 8 heads of a group: 3 of 4, and 8 + 4 over
+# two blocks). Every geometry runs with head-uniform and per-head bias and
+# poisoned table ids.
 CUDA_GEOMETRIES = GEOMETRIES + [
     (2, 1, 4, 4, 16, 1, 9),
     (3, 5, 8, 2, 64, 3, 40),
@@ -28,6 +32,11 @@ CUDA_GEOMETRIES = GEOMETRIES + [
     (2, 64, 2, 2, 64, 16, 104),
     (1, 100, 4, 1, 16, 3, 130),
     (2, 33, 4, 1, 128, 1, 70),
+    (3, 1, 4, 4, 64, 16, 1),
+    (2, 2, 4, 2, 64, 16, 1024),
+    (2, 3, 16, 2, 32, 5, 60),
+    (2, 4, 6, 2, 16, 3, 20),
+    (1, 2, 12, 1, 128, 4, 30),
 ]
 
 SAMPLE_SETTINGS = [
@@ -140,13 +149,24 @@ def t(x):
 
 # flash attention: (B, T, S, H, KV, D, causal, left_pad, q_offset, k_offset,
 # window, alibi) — ragged tiles (T, S not multiples of 32), GQA, a window,
-# ALiBi and rows that see no key (k_offset ahead of the queries)
+# ALiBi and rows that see no key (k_offset ahead of the queries); for the
+# bf16 backward's 64-row tiles besides: T and S of 63, 65 and 129 on both
+# sides of a tile edge, T = 1, GQA group 4 at D = 128 (dk/dv summed over the
+# group inside a block), a window edge inside a tile, and rows that see no
+# key across a whole tile
 FLASH_CASES = [
     (2, 13, 13, 4, 4, 64, True, 3, 0, 0, 0, False),
     (2, 40, 70, 8, 2, 64, True, 5, 30, 0, 0, False),
     (1, 33, 33, 4, 2, 128, True, 0, 0, 0, 9, True),
     (2, 20, 20, 2, 2, 32, True, 0, 0, 6, 0, False),
     (2, 17, 45, 4, 4, 16, False, 7, 0, 0, 0, True),
+    (2, 63, 65, 4, 4, 64, True, 3, 2, 0, 0, False),
+    (1, 65, 63, 2, 1, 32, False, 5, 0, 0, 0, True),
+    (1, 129, 129, 2, 2, 64, True, 9, 0, 0, 0, False),
+    (2, 1, 40, 4, 2, 64, True, 3, 39, 0, 0, False),
+    (1, 70, 70, 8, 2, 128, True, 4, 0, 0, 0, True),
+    (1, 100, 100, 2, 2, 64, True, 0, 0, 0, 37, False),
+    (1, 90, 90, 2, 2, 16, True, 0, 0, 70, 0, False),
 ]
 
 

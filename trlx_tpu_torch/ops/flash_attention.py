@@ -6,7 +6,8 @@ Hopper, each with a plain PyTorch version beside it:
 - :func:`flash_fwd` (``csrc/flash_fwd.cu``): online-softmax attention that
   emits the output and the per-row logsumexp ``lse``;
 - :func:`flash_bwd` (``csrc/flash_bwd.cu``): dq, dk and dv recomputed from
-  ``lse`` and ``delta = rowsum(do * out)`` (two launches, dk/dv then dq).
+  ``lse`` and ``delta = rowsum(do * out)`` (two launches, dk/dv then dq;
+  in bf16 on tensor cores, for head dims 16, 32, 64 and 128).
 
 :class:`_FlashAttention` pairs them as a ``torch.autograd.Function``, the
 counterpart of the JAX module's ``custom_vjp``; :func:`flash_attention` is
@@ -36,6 +37,7 @@ import torch
 
 from trlx_tpu_torch.ops.kernel_utils import (
     check_cuda_operand,
+    check_head_dim,
     check_launch,
     current_stream_ptr,
     kernel_fn,
@@ -214,6 +216,8 @@ def flash_bwd(
     check_cuda_operand(lse, "lse", q.device, (torch.float32,))
     check_cuda_operand(delta, "delta", q.device, (torch.float32,))
     B, T, H, D = q.shape
+    if q.dtype == torch.bfloat16:  # the tensor-core kernels' template limits
+        check_head_dim("bf16 flash_bwd", D, q, k, v, do)
     S, KV = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)

@@ -46,6 +46,8 @@ __all__ = [
     "kernel_fn",
     "check_launch",
     "check_cuda_operand",
+    "HEAD_DIMS",
+    "check_head_dim",
     "current_stream_ptr",
     "clamp_block_table",
     "pad_bias_to",
@@ -196,6 +198,20 @@ def check_cuda_operand(
         raise ValueError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def check_head_dim(what: str, D: int, *tensors: torch.Tensor) -> None:
+    """Raise unless ``D`` is one of :data:`HEAD_DIMS` (the head dims the
+    kernels that copy rows 16 bytes at a time are templated on) and every
+    tensor starts on a 16-byte boundary."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{what} takes head dim D in {HEAD_DIMS}, not D={D}")
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} needs 16-byte aligned operands")
 
 
 def current_stream_ptr(device: torch.device) -> int:

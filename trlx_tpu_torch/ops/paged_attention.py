@@ -36,6 +36,7 @@ import torch
 
 from trlx_tpu_torch.ops.kernel_utils import (
     check_cuda_operand,
+    check_head_dim,
     check_launch,
     clamp_block_table,
     current_stream_ptr,
@@ -55,6 +56,9 @@ __all__ = [
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# key columns per block of the decode kernel: csrc/paged_decode.cu's
+# SPAN_COLS, which this sizes the merge scratch for (a test ties the two)
+DECODE_SPAN_COLS = 256
 
 
 def _check_paged_shapes(H, KV, HB, S, TB, bs):
@@ -89,7 +93,10 @@ def paged_attention_decode(
     bias: torch.Tensor,  # (B, HB, S) additive f32 bias; HB is 1 or H
 ) -> torch.Tensor:
     """One decode step of attention, reading K/V through the block table.
-    Returns ``(B, H, D)`` in ``q.dtype``. The pool is only read."""
+    Returns ``(B, H, D)`` in ``q.dtype``. The pool is only read. On CUDA
+    tensors D is one of 16, 32, 64 and 128; rows longer than
+    :data:`DECODE_SPAN_COLS` columns are split over that many columns per
+    block and merged by a second launch (one call, one count)."""
     B, H, D = q.shape
     NB, bs, KV, _ = k_pool.shape
     TB = block_table.shape[1]
@@ -100,10 +107,16 @@ def paged_attention_decode(
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_decode runs on cuda or cpu, not {q.device}")
     _check_paged_operands(q, k_pool, v_pool, block_table, bias)
+    check_head_dim("paged_attention_decode", D, q, k_pool, v_pool)
     out = torch.empty_like(q)
-    fn = kernel_fn("paged_decode", [_P] * 6 + [_I] * 10 + [_P])
+    spans = -(-S // DECODE_SPAN_COLS)
+    part = None
+    if spans > 1:  # each span's (acc, max, sum), merged by a second launch
+        part = torch.empty((B, H, spans, D + 2), dtype=torch.float32, device=q.device)
+    fn = kernel_fn("paged_decode", [_P] * 7 + [_I] * 10 + [_P])
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_table.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            part.data_ptr() if part is not None else None,
             B, H, KV, D, NB, bs, TB, HB, S, _DTYPE_CODE[q.dtype],
             current_stream_ptr(q.device))
     check_launch("paged_decode", rc)

@@ -23,6 +23,7 @@ tensors; on CUDA tensors it launches the kernel or raises.
 import torch
 
 from trlx_tpu_torch.ops.kernel_utils import (
+    check_head_dim,
     check_launch,
     current_stream_ptr,
     kernel_fn,
@@ -81,29 +82,14 @@ def span_launch_args(q, k_pool, v_pool, block_table, bias, caller: str):
         raise ValueError(f"{caller} runs on cuda or cpu, not {q.device}")
     _check_paged_operands(q, k_pool, v_pool, block_table, bias)
     B, T, H, D = q.shape
-    if q.dtype == torch.bfloat16:
-        check_mma_operands(D, q, k_pool, v_pool)
+    if q.dtype == torch.bfloat16:  # the tensor-core kernel's template limits
+        check_head_dim("bf16 paged span attention", D, q, k_pool, v_pool)
     NB, bs, KV, _ = k_pool.shape
     out = torch.empty_like(q)
     args = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_table.data_ptr(),
             bias.data_ptr(), out.data_ptr(), B, T, H, KV, D, NB, bs, block_table.shape[1],
             bias.shape[1], bias.shape[3], _DTYPE_CODE[q.dtype], current_stream_ptr(q.device))
     return out, args
-
-
-MMA_HEAD_DIMS = (16, 32, 64, 128)
-
-
-def check_mma_operands(D: int, *tensors: torch.Tensor) -> None:
-    """The bf16 kernel's limits: head dim in :data:`MMA_HEAD_DIMS` (a
-    template parameter) and 16-byte aligned operands (K/V rows are copied
-    16 bytes at a time)."""
-    if D not in MMA_HEAD_DIMS:
-        raise ValueError(f"bf16 paged span attention takes head dim D in {MMA_HEAD_DIMS}, "
-                         f"not D={D}")
-    for t in tensors:
-        if t.data_ptr() % 16:
-            raise ValueError("bf16 paged span attention needs 16-byte aligned operands")
 
 
 def paged_prefill_attention_reference(q, k_pool, v_pool, block_table, bias):
