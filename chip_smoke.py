@@ -13,12 +13,14 @@ Phases, each printing one JSON line:
    process per source, all started together) and print the build seconds;
    beside it, the registers, shared memory and spills (``nvcc -Xptxas -v``)
    of the redesigned kernels (``paged_prefill``, ``flash_bwd``,
-   ``paged_decode``) and, where ``cuobjdump`` exists, their tensor-core
-   (``HMMA``) instruction counts;
+   ``paged_decode``, ``flash_fwd``, ``fused_sample``) and, where
+   ``cuobjdump`` exists, their tensor-core (``HMMA``) instruction counts;
 3. every kernel against its plain PyTorch version on the card, at the
    serving slice's shapes, at the paged span kernel's layout edges (T = 5
-   and 17), at a GQA shape and (decode) at a 1000-column row, in bf16 and
-   f32, with the max error, the
+   and 17), at a GQA shape, (decode) at a 1000-column row and every
+   attention kernel at head dims 12, 48, 96 and 256, in bf16 and f32; the
+   fused sampler in every mode the paths meet at B = 8 and 32 and on a
+   128256-wide row; with the max error, the
    stated tolerance, kernel / plain / library times (device time per call
    of back-to-back calls enqueued behind a sleeping card, and the per-call
    time with the host's launch, ``call_ms``; see ``time_ms``) and the least
@@ -234,7 +236,8 @@ def phase_device():
 
 # the sources whose kernels' resources phase_build reports (the redesigned
 # kernels), and whether their bf16 kernels run on tensor cores
-RESOURCE_SOURCES = {"paged_prefill": True, "flash_bwd": True, "paged_decode": False}
+RESOURCE_SOURCES = {"paged_prefill": True, "flash_bwd": True, "paged_decode": False,
+                    "flash_fwd": True, "fused_sample": False}
 
 
 def phase_build():
@@ -474,6 +477,17 @@ def check_attention(kind, B, T, H, KV, D, bs, S, HB, dtype, poison, seed,
     return rec
 
 
+# the fused sampler's settings: the three timed since PR 1, the served
+# slice's and the training collections'
+SAMPLE_MODES = {
+    "greedy": dict(temperature=1.0, top_k=0, top_p=1.0, sample=False),
+    "temp_topk": dict(temperature=0.7, top_k=50, top_p=1.0, sample=True),
+    "topp": dict(temperature=1.0, top_k=0, top_p=0.9, sample=True),
+    "served": dict(temperature=1.0, top_k=50, top_p=0.95, sample=True),
+    "train": dict(temperature=1.0, top_k=0, top_p=1.0, sample=True),
+}
+
+
 def check_sample(mode, dtype_name, B, V, seed, timed=False):
     from trlx_tpu_torch.ops.paged_attention import fused_sample, fused_sample_reference
 
@@ -483,11 +497,7 @@ def check_sample(mode, dtype_name, B, V, seed, timed=False):
     if dtype_name == "bfloat16":  # bf16 model logits: many exact ties
         logits = logits.to(torch.bfloat16).float()
     logits = logits.to(dev).contiguous()
-    settings = {
-        "greedy": dict(temperature=1.0, top_k=0, top_p=1.0, sample=False),
-        "temp_topk": dict(temperature=0.7, top_k=50, top_p=1.0, sample=True),
-        "topp": dict(temperature=1.0, top_k=0, top_p=0.9, sample=True),
-    }[mode]
+    settings = dict(SAMPLE_MODES[mode])
     gumbel = None
     if settings.pop("sample"):
         u = rs.uniform(1e-7, 1 - 1e-7, size=(B, V))
@@ -551,13 +561,33 @@ def phase_kernels():
                               timed=dtype == torch.bfloat16)
         if "kernel_ms" in rec:
             timed["paged_verify"] = rec
-    for i, mode in enumerate(("greedy", "temp_topk", "topp")):
-        for dname in ("bfloat16", "float32"):
-            rec = check_sample(mode, dname, B=8, V=50257, seed=10 + i,
-                               timed=(mode == "topp" and dname == "bfloat16"))
-            if "kernel_ms" in rec:
-                timed["fused_sample"] = rec
+    # every attention kernel at head dims off the tensor-core templates
+    # (padded inside the loads) and at 256 (CUDA cores for the span kernel,
+    # decode's padded 256), GQA, in both types
+    for D in HEAD_DIM_CHECKS:
+        geo = dict(B=4, H=8, KV=4, D=D, bs=16, S=104, HB=1)
+        for dtype in (torch.bfloat16, torch.float32):
+            check_attention("paged_prefill", T=64, dtype=dtype, poison=True, seed=40 + D, **geo)
+            check_attention("paged_decode", T=1, dtype=dtype, poison=True, seed=41 + D, **geo)
+            check_attention("paged_verify", B=8, T=5, H=8, KV=4, D=D, bs=16, S=108, HB=1,
+                            dtype=dtype, poison=2, seed=42 + D)
+    # the fused sampler: every mode, B = 8 and 32 (timed on bf16-rounded
+    # logits), and a 128256-wide row (llama-3's vocabulary)
+    for i, mode in enumerate(SAMPLE_MODES):
+        for B in (8, 32):
+            for dname in ("bfloat16", "float32"):
+                rec = check_sample(mode, dname, B=B, V=50257, seed=10 + i + B,
+                                   timed=dname == "bfloat16")
+                if (mode, B, dname) == ("topp", 8, "bfloat16"):
+                    timed["fused_sample"] = rec
+    for mode in ("served", "train", "greedy"):
+        check_sample(mode, "bfloat16", B=8, V=128256, seed=60, timed=True)
     return timed
+
+
+# head dims besides the kernels' templates: the randomwalks model's 12, 48,
+# gptneox-20b's 96 and gptj-6b's 256
+HEAD_DIM_CHECKS = (12, 48, 96, 256)
 
 
 # ---------------------------------------------------------------------------
@@ -1011,6 +1041,10 @@ def phase_train_kernels():
         # (c) GQA, T != S, a query offset, a window, ALiBi, fully masked rows
         check_flash("gqa_window_alibi", B=2, T=77, S=300, H=32, KV=8, D=128, dtype=dtype,
                     seed=23, q_offset=223, window=64, alibi=True, dead_keys=(200, 290))
+        # (d) head dims off the tensor-core templates and 256 (CUDA cores)
+        for D in HEAD_DIM_CHECKS:
+            check_flash(f"head_dim_{D}", B=2, T=90, S=90, H=8, KV=4, D=D, dtype=dtype,
+                        seed=24 + D, alibi=D == 96)
         if bf:
             timed["flash_train"], timed["flash_long"] = a, b
     for B, R in ((16, 40), (13, 77)):

@@ -7,8 +7,10 @@ same ``torch.autograd.Function`` the kernels use on the card. The forward
 interpret mode) and ``attention_reference``; the gradients (dq, dk, dv of
 ``sum(out * cotangent)``) against ``jax.grad`` through the reference.
 Cases: causal and not, left-padded masks, q/k slot offsets, GQA (H=4,
-KV=2), a sliding window, ALiBi, fully masked rows, T != S and odd lengths.
-Tolerance (f32): out and lse ``atol=1e-5``, gradients ``atol=1e-4``.
+KV=2), a sliding window, ALiBi, fully masked rows, T != S and odd lengths,
+head dims 12 and 96. Tolerance (f32): out and lse ``atol=1e-5``, gradients
+``atol=1e-4``. The card kernels' bf16 rounding is emulated here too (end
+of file), forward and backward, against the card's bf16 tolerances.
 """
 
 import jax
@@ -42,6 +44,10 @@ CASES = {
     # k_offset ahead of the queries: the first rows see no key at all
     "fully_masked_rows": (2, 10, 10, 2, 2, 8, True, 0, 0, 4, 0, False),
     "window_offsets_gqa_alibi": (2, 7, 19, 4, 2, 16, True, 5, 12, 0, 6, True),
+    # head dims off the card kernels' templates: the randomwalks model's 12
+    # and gptneox-20b's 96
+    "head_dim_12_gqa": (2, 11, 11, 4, 2, 12, True, 2, 0, 0, 0, False),
+    "head_dim_96_window_alibi": (1, 9, 13, 2, 2, 96, True, 2, 3, 0, 6, True),
 }
 
 
@@ -245,3 +251,76 @@ def test_bf16_backward_rounding_within_the_card_tolerance(shape, seed):
     for name, gg, w in zip(("dq", "dk", "dv"), got, want):
         excess = (gg - w).abs() - BF16_GRAD_ATOL - BF16_GRAD_RTOL * w.abs()
         assert float(excess.max()) <= 0, f"{shape} {name}: {float((gg - w).abs().max())}"
+
+
+# chip_smoke.py's FLASH_TOL[bf16]: the card's bf16 out and lse are held to
+# these against the plain version run in f32
+BF16_OUT_ATOL, BF16_LSE_ATOL = 2e-2, 1e-3
+
+
+def _bf16_forward_emulation(q, k, v, mask, alibi_args, kw, tile=64):
+    """``csrc/flash_fwd.cu``'s bf16 arithmetic in plain torch: bf16
+    operands, f32 scores, an online softmax over 64-key tiles; each tile's
+    P rounded to bf16 for ``P V``; the output divided by the sum of the
+    rounded P, lse from the f32 sum of the unrounded P; out rounded to
+    bf16. A row that sees no key gives out 0 and lse ``NEG_INF``."""
+    from trlx_tpu_torch.ops.flash_attention import _visible
+
+    bf = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+    B, T, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    qf = q.float()
+    krep, vrep = (torch.repeat_interleave(x.float(), g, dim=2) for x in (k, v))
+    s = torch.einsum("bthd,bshd->bhts", qf, krep) * kw["sm_scale"]
+    qpos, kpos, slopes = alibi_args
+    if slopes is not None:
+        s = s + slopes[None, :, None, None] * (kpos[:, None, :] - qpos[:, :, None]).float()[:, None]
+    vis = _visible(mask, T, S, kw["causal"], kw["q_offset"], kw["k_offset"], kw["window"])
+    s = torch.where(vis, s, torch.full_like(s, -float("inf")))
+    m = torch.full((B, H, T, 1), -float("inf"))
+    lf, lb = torch.zeros(B, H, T, 1), torch.zeros(B, H, T, 1)
+    acc = torch.zeros(B, H, T, D)
+    for s0 in range(0, S, tile):
+        st = s[..., s0:s0 + tile]
+        m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+        live = m_new > -float("inf")
+        alpha = torch.where(live, torch.exp(m - torch.where(live, m_new, torch.zeros_like(m_new))),
+                            torch.ones_like(m))
+        p = torch.where(st > -float("inf"), torch.exp(st - torch.where(live, m_new, 0.0)),
+                        torch.zeros_like(st))
+        pb = bf(p)
+        lf = lf * alpha + p.sum(-1, keepdim=True)
+        lb = lb * alpha + pb.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhts,bshd->bhtd", pb, vrep[:, s0:s0 + tile])
+        m = m_new
+    out = torch.where(lb > 0, acc / torch.where(lb > 0, lb, torch.ones_like(lb)),
+                      torch.zeros_like(acc))
+    lse = torch.where(lf > 0, m + torch.log(torch.where(lf > 0, lf, torch.ones_like(lf))),
+                      torch.full_like(lf, NEG_INF))
+    return bf(out.transpose(1, 2)), lse[..., 0]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("shape", sorted(BUDGET_SHAPES))
+def test_bf16_forward_rounding_within_the_card_tolerance(shape, seed):
+    """The bf16 forward's rounding design (bf16 P into P V, the output
+    normalised by the rounded P's sum, lse from the f32 sum), checked before
+    any chip run: its emulation stays within the card's bf16 out and lse
+    tolerances of the f32 JAX forward on the same bf16 operands."""
+    q, k, v, mask, alibi_args, _, _, _, kw = _bf16_case(BUDGET_SHAPES[shape], 30 + seed)
+    out, lse = _bf16_forward_emulation(q, k, v, mask, alibi_args, kw)
+    H = q.shape[2]
+    qpos, kpos, slopes = alibi_args
+    extra = dict(causal=kw["causal"], q_offset=kw["q_offset"], k_offset=kw["k_offset"],
+                 window=kw["window"] or None, sm_scale=kw["sm_scale"])
+    if slopes is not None:
+        extra.update(q_positions=jnp.asarray(qpos.numpy()), k_positions=jnp.asarray(kpos.numpy()),
+                     alibi_slopes=jnp.asarray(slopes.numpy()))
+    want, want_lse = jax_attention_reference(
+        jnp.asarray(q.float().numpy()), jnp.asarray(_rep(k.float().numpy(), H)),
+        jnp.asarray(_rep(v.float().numpy(), H)), jnp.asarray(mask.numpy()), **extra)
+    out_err = float(np.abs(out.numpy() - np.asarray(want)).max())
+    lse_err = float(np.abs(lse.numpy() - np.asarray(want_lse)).max())
+    assert out_err <= BF16_OUT_ATOL, f"{shape} out: {out_err}"
+    assert lse_err <= BF16_LSE_ATOL, f"{shape} lse: {lse_err}"

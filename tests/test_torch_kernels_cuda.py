@@ -14,11 +14,14 @@ head dims 16/64/128, a query whose every column is masked); for the
 speculative verify rows at their own depths, a probe window across a block
 edge and done rows with poisoned tables; for the decode kernel one-column
 and 1024-column rows (split and merged) and head groups of 3, 8 and 12; for
-flash attention ragged tiles on both sides of the bf16 backward's 64-row
+flash attention ragged tiles on both sides of the bf16 kernels' 64-row
 tiles, T = 1, GQA, a window edge inside a tile, ALiBi and rows that see no
-key, bit-equal repeated bf16 backwards and head dims the bf16 backward
-and the decode do not take; for the fused loss IW on and off, a masked row and values on
-the clip bounds. ``chip_smoke.py`` makes the same comparison at the
+key, bit-equal repeated bf16 forwards and backwards; for every attention
+kernel head dims 12, 48, 96 and 256 in both types (and the raise above 256);
+for the fused sampler vocabularies of 97, 50257 and 128256 over B = 1, 8
+and 32 in every mode the paths meet, a row with one finite logit and
+bit-equal repeated calls; for the fused loss IW on and off, a masked row
+and values on the clip bounds. ``chip_smoke.py`` makes the same comparison at the
 serving and training shapes.
 """
 
@@ -125,33 +128,66 @@ def test_cuda_verify_matches_plain_version(cuda, case, dtype):
         before[0] + 1, before[1])
 
 
-@pytest.mark.gpu
-def test_cuda_bf16_span_rejects_unsupported_head_dim(cuda):
-    # the bf16 kernel is templated over D in {16, 32, 64, 128}: any other D
-    # raises before a launch, for the prefill and the verify alike
-    args = _attention_args((2, 5, 4, 2, 48, 4, 13), False, 1, torch.bfloat16, cuda)
-    before = (paged_prefill_attention.launches, paged_verify_attention.launches)
-    for fn in (paged_prefill_attention, paged_verify_attention):
-        with pytest.raises(ValueError, match="D=48"):
-            fn(*args)
-    assert (paged_prefill_attention.launches, paged_verify_attention.launches) == before
-    # f32 stays on CUDA cores and takes any D
-    out = paged_prefill_attention(*[a.float() if a.is_floating_point() else a for a in args])
-    want = paged_prefill_attention_reference(*_as_f32(args))
-    torch.testing.assert_close(out, want, atol=_TOL[torch.float32], rtol=0)
+# head dims off the tensor-core kernels' templates (12, 48, 96: padded
+# inside the loads) and 256 (the CUDA-core kernels in bf16; decode's padded
+# 256); 320 is past every kernel's limit
+_HEAD_DIMS = [12, 48, 96, 256]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_decode_rejects_unsupported_head_dim(cuda, dtype):
-    # the decode kernel is templated over D in {16, 32, 64, 128} in both
-    # types: any other D raises before a launch
-    args = _attention_args((2, 1, 4, 2, 48, 4, 13), False, 1, dtype, cuda)
-    dargs = [args[0][:, -1].contiguous(), args[1], args[2], args[3],
-             args[4][:, :, -1].contiguous()]
+@pytest.mark.parametrize("D", _HEAD_DIMS)
+def test_cuda_bf16_span_rejects_unsupported_head_dim(cuda, D, dtype):
+    # every D up to 256 runs for the prefill (both layouts) and the verify,
+    # in both types, against the plain version; D above 256 raises before
+    # a launch
+    for T, seed in ((5, 1), (20, 2)):
+        args = _attention_args((2, T, 4, 2, D, 4, 29), True, seed, dtype, cuda, dead_row=True)
+        before = paged_prefill_attention.launches
+        out = paged_prefill_attention(*args)
+        assert paged_prefill_attention.launches == before + 1
+        want = paged_prefill_attention_reference(*_as_f32(args))
+        torch.testing.assert_close(out.float(), want, atol=_TOL[dtype], rtol=0)
+    q, kp, vp, table, bias = verify_case((3, 4, 4, 2, D, 4, 12, 9, 1), seed=D)
+    vargs = [t(a).to(cuda, dtype) for a in (q, kp, vp)] + [t(table).to(cuda), t(bias).to(cuda)]
+    out = paged_verify_attention(*vargs)
+    want = paged_verify_attention_reference(*_as_f32(vargs))
+    torch.testing.assert_close(out.float(), want, atol=_TOL[dtype], rtol=0)
+    # an operand off a 16-byte boundary takes the element-wise load path
+    q_off = torch.empty(args[0].numel() + 1, dtype=dtype, device=cuda)[1:].view_as(args[0])
+    q_off.copy_(args[0])
+    out = paged_prefill_attention(q_off, *args[1:])
+    torch.testing.assert_close(out.float(), paged_prefill_attention_reference(*_as_f32(args)),
+                               atol=_TOL[dtype], rtol=0)
+    big = _attention_args((1, 3, 2, 2, 320, 4, 9), False, 1, dtype, cuda)
+    before = (paged_prefill_attention.launches, paged_verify_attention.launches)
+    for fn in (paged_prefill_attention, paged_verify_attention):
+        with pytest.raises(ValueError, match="D=320"):
+            fn(*big)
+    assert (paged_prefill_attention.launches, paged_verify_attention.launches) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", _HEAD_DIMS)
+def test_cuda_decode_rejects_unsupported_head_dim(cuda, D, dtype):
+    # every D up to 256 runs in both types, on one span and on a split row
+    # (600 columns: three spans and the merge launch) and with a head group
+    # of 6 (two blocks at D = 256); D above 256 raises before a launch
+    for geometry in ((2, 1, 4, 2, D, 4, 13), (2, 1, 12, 2, D, 16, 600)):
+        args = _attention_args(geometry, True, D, dtype, cuda)
+        dargs = [args[0][:, -1].contiguous(), args[1], args[2], args[3],
+                 args[4][:, :, -1].contiguous()]
+        before = paged_attention_decode.launches
+        out = paged_attention_decode(*dargs)
+        assert paged_attention_decode.launches == before + 1
+        want = paged_attention_decode_reference(*_as_f32(dargs))
+        torch.testing.assert_close(out.float(), want, atol=_TOL[dtype], rtol=0)
+    big = _attention_args((2, 1, 4, 2, 320, 4, 13), False, 1, dtype, cuda)
+    dbig = [big[0][:, -1].contiguous(), big[1], big[2], big[3], big[4][:, :, -1].contiguous()]
     before = paged_attention_decode.launches
-    with pytest.raises(ValueError, match="D=48"):
-        paged_attention_decode(*dargs)
+    with pytest.raises(ValueError, match="D=320"):
+        paged_attention_decode(*dbig)
     assert paged_attention_decode.launches == before
 
 
@@ -168,6 +204,94 @@ def test_cuda_fused_sample_matches_plain_version(cuda, settings, sample):
     rtok, rlp = fused_sample_reference(x, g, **settings)
     assert torch.equal(tok, rtok)
     torch.testing.assert_close(lp, rlp, atol=1e-5, rtol=0)
+
+
+def _gumbel(shape, seed, dev):
+    u = torch.rand(shape, generator=torch.Generator().manual_seed(seed)).clamp(1e-7, 1 - 1e-7)
+    return (-torch.log(-torch.log(u))).to(dev)
+
+
+# every mode the main paths meet: greedy, the served setting (top-k 50,
+# top-p 0.95), the training collection's (no filter, sampled), and top-k
+# and top-p alone
+_SAMPLE_MODES = {
+    "greedy": (dict(temperature=1.0, top_k=0, top_p=1.0), False),
+    "served": (dict(temperature=1.0, top_k=50, top_p=0.95), True),
+    "train": (dict(temperature=1.0, top_k=0, top_p=1.0), True),
+    "temp_topk": (dict(temperature=0.7, top_k=50, top_p=1.0), True),
+    "topp": (dict(temperature=1.0, top_k=0, top_p=0.9), True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(_SAMPLE_MODES))
+@pytest.mark.parametrize("B", [1, 8, 32])
+@pytest.mark.parametrize("V", [97, 50257, 128256, 200003])
+def test_cuda_fused_sample_rows_over_clusters(cuda, V, B, mode):
+    # a row's vocabulary split over the cluster's 8 blocks: V not a multiple
+    # of 8 (97, 50257), llama-3's 128256, and a row too wide for the slices
+    # to stay in shared memory (200003, re-read from global memory);
+    # bf16-rounded logits (exact ties); tokens equal to the plain version's,
+    # logprobs within 1e-4
+    settings, sample = _SAMPLE_MODES[mode]
+    x = torch.randn(B, V, generator=torch.Generator().manual_seed(V + B)) * 3.0
+    x = x.to(torch.bfloat16).float().to(cuda)
+    g = _gumbel((B, V), V * B, cuda) if sample else None
+    before = fused_sample.launches
+    tok, lp = fused_sample(x, g, **settings)
+    assert fused_sample.launches == before + 1
+    rtok, rlp = fused_sample_reference(x, g, **settings)
+    assert torch.equal(tok, rtok)
+    torch.testing.assert_close(lp, rlp, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(_SAMPLE_MODES))
+def test_cuda_fused_sample_one_finite_logit(cuda, mode):
+    # every other logit -inf (an eos-blocked, transition-masked row): the
+    # one finite token is drawn with logprob 0, in every mode
+    settings, sample = _SAMPLE_MODES[mode]
+    x = torch.full((3, 50257), float("-inf"), device=cuda)
+    for b, i in enumerate((0, 31337, 50256)):
+        x[b, i] = 1.5 * b - 2.0
+    g = _gumbel(x.shape, 4, cuda) if sample else None
+    tok, lp = fused_sample(x, g, **settings)
+    rtok, rlp = fused_sample_reference(x, g, **settings)
+    assert tok.tolist() == [0, 31337, 50256] == rtok.tolist()
+    torch.testing.assert_close(lp, rlp, atol=1e-6, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["served", "topp", "temp_topk"])
+def test_cuda_fused_sample_flat_rows(cuda, mode):
+    # rows of few distinct values (a constant row, bf16-rounded logits of
+    # tiny spread): candidate lists overflow, so the thresholds come from
+    # the cluster-wide radix select over the whole row
+    x = torch.randn(4, 50257, generator=torch.Generator().manual_seed(7)) * 0.02
+    x = x.to(torch.bfloat16).float()
+    x[0] = 0.5
+    x[1, :1000] = 3.0
+    x = x.to(cuda)
+    settings, _ = _SAMPLE_MODES[mode]
+    g = _gumbel(x.shape, 8, cuda)
+    tok, lp = fused_sample(x, g, **settings)
+    rtok, rlp = fused_sample_reference(x, g, **settings)
+    assert torch.equal(tok, rtok)
+    torch.testing.assert_close(lp, rlp, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["served", "topp", "greedy"])
+def test_cuda_fused_sample_is_deterministic(cuda, mode):
+    # no float atomics, merges in fixed rank order: two calls agree on the
+    # tokens and on the logprobs' bits
+    settings, sample = _SAMPLE_MODES[mode]
+    x = (torch.randn(32, 50257, generator=torch.Generator().manual_seed(9)) * 3.0).to(cuda)
+    g = _gumbel(x.shape, 10, cuda) if sample else None
+    tok, lp = fused_sample(x, g, **settings)
+    tok2, lp2 = fused_sample(x, g, **settings)
+    assert torch.equal(tok, tok2)
+    assert torch.equal(lp.view(torch.int32), lp2.view(torch.int32))
 
 
 @pytest.mark.gpu
@@ -215,6 +339,17 @@ def test_cuda_flash_matches_plain_versions(cuda, case, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", [FLASH_CASES[1], FLASH_CASES[9], FLASH_CASES[13]])
+def test_cuda_bf16_flash_fwd_is_deterministic(cuda, case):
+    # each block owns its rows of out and lse, and sums in a fixed order:
+    # two calls on the same inputs agree bit for bit
+    q, k, v, mask, alibi, kw, _ = _flash_args(case, 12, torch.bfloat16, cuda)
+    out, lse = flash_fwd(q, k, v, mask, *alibi, **kw)
+    out2, lse2 = flash_fwd(q, k, v, mask, *alibi, **kw)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", [FLASH_CASES[1], FLASH_CASES[9]])
 def test_cuda_bf16_flash_bwd_is_deterministic(cuda, case):
     # no atomics: the dk/dv and dq launches each own their outputs, so two
@@ -229,23 +364,38 @@ def test_cuda_bf16_flash_bwd_is_deterministic(cuda, case):
 
 
 @pytest.mark.gpu
-def test_cuda_bf16_flash_bwd_rejects_unsupported_head_dim(cuda):
-    # the bf16 tensor-core kernels are templated over D in {16, 32, 64, 128}:
-    # any other D raises before a launch; f32 stays on CUDA cores, any D
-    case = (2, 13, 13, 4, 4, 48, True, 3, 0, 0, 0, False)
-    q, k, v, mask, alibi, kw, do = _flash_args(case, 3, torch.bfloat16, cuda)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", _HEAD_DIMS)
+def test_cuda_bf16_flash_bwd_rejects_unsupported_head_dim(cuda, D, dtype):
+    # every D up to 256 runs forward and backward in both types (GQA, ALiBi,
+    # a window, ragged 64-row tiles) against the plain versions; D above
+    # 256 raises before a launch
+    case = (2, 70, 75, 4, 2, D, True, 3, 5, 0, 40, True)
+    q, k, v, mask, alibi, kw, do = _flash_args(case, D, dtype, cuda)
     out, lse = flash_fwd(q, k, v, mask, *alibi, **kw)
+    f32 = [x.float() for x in (q, k, v)]
+    want, want_lse = flash_fwd_reference(*f32, mask, *alibi, **kw)
+    # chip_smoke.py's FLASH_TOL: out 1e-4 (f32) and 2e-2 (bf16)
+    torch.testing.assert_close(out.float(), want, atol=1e-4 if dtype == torch.float32 else 2e-2,
+                               rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4 if dtype == torch.float32 else 1e-3,
+                               rtol=0)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     before = flash_bwd.launches
-    with pytest.raises(ValueError, match="D=48"):
-        flash_bwd(q, k, v, mask, *alibi, lse, delta, do, **kw)
-    assert flash_bwd.launches == before
-    f32 = [x.float() for x in (q, k, v)]
-    grads = flash_bwd(*f32, mask, *alibi, lse, delta, do.float(), **kw)
+    grads = flash_bwd(q, k, v, mask, *alibi, lse, delta, do, **kw)
+    assert flash_bwd.launches == before + 1
     wants = flash_bwd_reference(*f32, mask, *alibi, lse, delta, do.float(), **kw)
     for got, w in zip(grads, wants):
-        torch.testing.assert_close(got, w, atol=_TOL[torch.float32] * 10,
-                                   rtol=_TOL[torch.float32])
+        torch.testing.assert_close(got.float(), w, atol=_TOL[dtype] * 10, rtol=_TOL[dtype])
+    big = _flash_args((1, 5, 5, 2, 2, 320, True, 0, 0, 0, 0, False), 1, dtype, cuda)
+    q, k, v, mask, alibi, kw, do = big
+    before = (flash_fwd.launches, flash_bwd.launches)
+    with pytest.raises(ValueError, match="D=320"):
+        flash_fwd(q, k, v, mask, *alibi, **kw)
+    with pytest.raises(ValueError, match="D=320"):
+        flash_bwd(q, k, v, mask, *alibi, lse[:1, :2, :5].contiguous(),
+                  delta[:1, :2, :5].contiguous(), do, **kw)
+    assert (flash_fwd.launches, flash_bwd.launches) == before
 
 
 @pytest.mark.gpu

@@ -33,13 +33,14 @@ from trlx_tpu.ops.paged_prefill import (
 from trlx_tpu.ops.sampling import process_logits as jax_process_logits
 from trlx_tpu_torch.ops import kernel_utils
 from trlx_tpu_torch.ops.kernel_utils import (
-    HEAD_DIMS,
+    MAX_HEAD_DIM,
     check_head_dim,
     clamp_block_table,
     pad_bias_to,
 )
 from trlx_tpu_torch.ops.paged_attention import (
     DECODE_SPAN_COLS,
+    SAMPLE_MAX_VOCAB,
     fused_sample,
     fused_sample_reference,
     paged_attention_decode,
@@ -153,16 +154,26 @@ def test_fully_masked_query_averages_like_jax():
 
 
 def test_bf16_span_kernel_limits():
-    """The limits of the kernels templated on the head dim (the bf16 span
-    and flash-backward kernels, the decode kernel), checked before any
-    launch: head dims 16/32/64/128 and 16-byte aligned operands."""
-    x = torch.zeros(64, dtype=torch.bfloat16)
-    for D in HEAD_DIMS:
-        check_head_dim("bf16 paged span attention", D, x)
-    with pytest.raises(ValueError, match="D=48"):
-        check_head_dim("bf16 paged span attention", 48, x)
-    with pytest.raises(ValueError, match="aligned"):
-        check_head_dim("bf16 paged span attention", 64, x[1:])
+    """The attention kernels' head-dim limit, checked before any launch:
+    every D from 1 to 256 (the largest of any JAX preset) runs, the
+    tensor-core kernels' other D padded inside their loads, so neither a
+    head dim outside 16/32/64/128 nor an operand off a 16-byte boundary
+    raises; D above 256 does."""
+    assert MAX_HEAD_DIM == 256
+    for D in (1, 12, 16, 48, 64, 96, 128, 200, 256):
+        check_head_dim("paged span attention", D)
+    for D in (0, 257, 512):
+        with pytest.raises(ValueError, match=f"D={D}"):
+            check_head_dim("paged span attention", D)
+
+
+def test_sample_vocab_limit_matches_the_kernel():
+    """The wrapper's widest row is the kernel's cluster size times its
+    largest slice."""
+    src = (Path(kernel_utils.__file__).parent.parent / "csrc" / "fused_sample.cu").read_text()
+    cluster = int(re.findall(r"constexpr int CLUSTER = (\d+);", src)[0])
+    max_slice = int(re.findall(r"constexpr int MAX_SLICE = (\d+);", src)[0])
+    assert SAMPLE_MAX_VOCAB == cluster * max_slice
 
 
 def test_decode_span_width_matches_the_kernel():
@@ -227,3 +238,100 @@ def test_gumbel_noise_is_per_row_and_batch_invariant():
     big = gumbel_noise(torch.arange(16), torch.zeros(16, dtype=torch.int64), 4096)
     assert torch.isfinite(big).all()
     assert abs(big.mean().item() - 0.5772) < 0.03
+
+
+# ---------------------------------------------------------------------------
+# the fused sampler's radix select, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+MASS_ONE = 2 ** 31  # csrc/fused_sample.cu's fixed point: a mass of 1
+
+
+def _fkey(x: torch.Tensor) -> torch.Tensor:
+    """fused_sample.cu's ``fkey``: the order-preserving uint32 image of an
+    f32, as int64."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 2 ** 31, (~u) & 0xFFFFFFFF, u | 2 ** 31)
+
+
+def _radix_select(keys, weights, need):
+    """Four 8-bit rounds, most significant digit first: among keys that
+    match the digits chosen so far, the first digit (from 255 down) whose
+    inclusive cumulative weight reaches ``need``; ``need`` less the weight
+    above it carries to the next round. Returns the selected key."""
+    prefix = 0
+    for r in range(4):
+        shift = 24 - 8 * r
+        cand = torch.ones_like(keys, dtype=torch.bool) if r == 0 else (
+            (keys >> (shift + 8)) == (prefix >> (shift + 8)))
+        digits = (keys[cand] >> shift) & 255
+        hist = torch.zeros(256, dtype=torch.int64).index_add_(0, digits, weights[cand])
+        desc = hist.flip(0)
+        cum = desc.cumsum(0)
+        j = int(torch.nonzero(cum >= need)[0])
+        need -= int(cum[j] - desc[j])
+        prefix |= (255 - j) << shift
+    return prefix
+
+
+def _radix_filter(x: torch.Tensor, temperature, top_k, top_p) -> torch.Tensor:
+    """fused_sample.cu's filter in torch, row by row: the top-k key by
+    counts, then the top-p key over the top-k survivors by fixed-point
+    masses (exp(x - max) in f32, times 2^31, rounded: integer sums, exact in
+    any order), the crossing at ceil(p Z); x kept where its key reaches
+    both."""
+    if temperature != 1.0:
+        x = x / max(temperature, 1e-6)
+    out = torch.empty_like(x)
+    V = x.shape[-1]
+    for b in range(x.shape[0]):
+        row = x[b]
+        keys = _fkey(row)
+        thr = 0
+        surv = torch.ones(V, dtype=torch.bool)
+        if top_k and 0 < top_k < V:
+            thr = _radix_select(keys, torch.ones(V, dtype=torch.int64), top_k)
+            surv = keys >= thr
+        if top_p < 1.0:
+            mass = torch.round(torch.exp(row - row.max()).double() * MASS_ONE).to(torch.int64)
+            mass = torch.where(surv, mass, torch.zeros_like(mass))
+            need = int(np.ceil(np.float64(np.float32(top_p)) * float(int(mass.sum()))))
+            thr = max(thr, _radix_select(keys, mass, need))
+        out[b] = torch.where(keys >= thr, row, torch.full_like(row, float("-inf")))
+    return out
+
+
+def _bf16_rows(seed, B=3, V=50257):
+    """Rows of a bf16 model's logits at GPT-2's vocabulary: many exact ties."""
+    rs = np.random.RandomState(seed)
+    return (rs.randn(B, V) * 3.0).astype(np.float32).astype(jnp.bfloat16).astype(np.float32)
+
+
+_RADIX_CASES = {
+    # tied rows (ties at the top-k and top-p thresholds, an eos-blocked -inf)
+    "tied_topk": ("tied", dict(temperature=0.7, top_k=5, top_p=1.0)),
+    "tied_topp": ("tied", dict(temperature=1.0, top_k=0, top_p=0.8)),
+    "tied_both": ("tied", dict(temperature=1.3, top_k=7, top_p=0.6)),
+    "tied_topk_ge_V": ("tied", dict(temperature=1.0, top_k=97, top_p=0.9)),
+    "tied_top_token_only": ("tied", dict(temperature=1.0, top_k=0, top_p=1e-6)),
+    # bf16-rounded rows at V = 50257: the served and timed settings
+    "bf16_topk": ("bf16", dict(temperature=0.7, top_k=50, top_p=1.0)),
+    "bf16_topp": ("bf16", dict(temperature=1.0, top_k=0, top_p=0.9)),
+    "bf16_served": ("bf16", dict(temperature=1.0, top_k=50, top_p=0.95)),
+    "bf16_topk_ge_V": ("bf16", dict(temperature=1.0, top_k=60000, top_p=0.95)),
+    "bf16_top_token_only": ("bf16", dict(temperature=1.0, top_k=0, top_p=1e-7)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_RADIX_CASES))
+def test_fused_sample_radix_select_matches_jax(name):
+    """The fused sampler's threshold selection (radix select over 8-bit
+    digits of integer keys, fixed-point top-p masses over the top-k
+    survivors), emulated in torch, keeps exactly the set JAX's
+    ``process_logits`` keeps, ties included."""
+    rows, settings = _RADIX_CASES[name]
+    x = tied_logits(seed=31) if rows == "tied" else _bf16_rows(seed=32)
+    got = _radix_filter(t(x), **settings).numpy()
+    want = np.asarray(jax_process_logits(jnp.asarray(x), **settings))
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    np.testing.assert_array_equal(got[~np.isinf(got)], want[~np.isinf(want)])

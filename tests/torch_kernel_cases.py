@@ -8,11 +8,14 @@ import torch
 from trlx_tpu_torch.ops.paged_kv import num_table_blocks
 
 # (B, T, H, KV, D, block_size, S): block sizes 1/3/4, S not a multiple of
-# the block size, GQA ratios 1/2/4, odd table widths
+# the block size, GQA ratios 1/2/4, odd table widths; head dims 12 (the
+# randomwalks model's) and 96 (gptneox-20b's) besides the kernels' templates
 GEOMETRIES = [
     (3, 5, 4, 2, 16, 3, 10),
     (2, 3, 8, 8, 32, 1, 7),
     (2, 4, 8, 2, 16, 4, 13),
+    (2, 3, 4, 2, 12, 4, 11),
+    (2, 4, 4, 4, 96, 3, 9),
 ]
 
 # on the card only, the bf16 tensor-core kernel's edges besides: T on both
@@ -22,7 +25,10 @@ GEOMETRIES = [
 # 1 and 4; and the decode kernel's: a one-column row (S = 1), a row split
 # into four 256-column spans and merged (S = 1024), head groups of 3, 8 and
 # 12 (its blocks serve up to 8 heads of a group: 3 of 4, and 8 + 4 over
-# two blocks). Every geometry runs with head-uniform and per-head bias and
+# two blocks); head dims off the templates, padded inside the kernels (12,
+# 48, 96 on both sides of the layout switch, on the split decode row and in
+# a GQA group) and 256 (CUDA cores for the span kernel, four heads a block
+# for decode). Every geometry runs with head-uniform and per-head bias and
 # poisoned table ids.
 CUDA_GEOMETRIES = GEOMETRIES + [
     (2, 1, 4, 4, 16, 1, 9),
@@ -37,6 +43,13 @@ CUDA_GEOMETRIES = GEOMETRIES + [
     (2, 3, 16, 2, 32, 5, 60),
     (2, 4, 6, 2, 16, 3, 20),
     (1, 2, 12, 1, 128, 4, 30),
+    (2, 17, 4, 2, 48, 16, 45),
+    (2, 5, 4, 1, 96, 3, 40),
+    (2, 33, 4, 4, 12, 16, 70),
+    (2, 1, 4, 4, 12, 16, 600),
+    (2, 3, 12, 2, 256, 16, 50),
+    (2, 20, 4, 4, 256, 3, 40),
+    (1, 2, 8, 1, 256, 16, 300),
 ]
 
 SAMPLE_SETTINGS = [
@@ -81,6 +94,8 @@ def paged_case(geometry, per_head_bias, seed, dead_row=False):
 VERIFY_CASES = [
     (4, 3, 4, 2, 16, 4, 8, 10, 1),
     (5, 4, 8, 8, 32, 3, 11, 9, 2),
+    (3, 2, 4, 2, 12, 4, 8, 6, 1),
+    (3, 3, 4, 4, 96, 3, 7, 6, 1),
 ]
 
 # on the card only besides: D = 128 with GQA group 4, T = 16 at the bf16
@@ -91,6 +106,8 @@ CUDA_VERIFY_CASES = VERIFY_CASES + [
     (3, 15, 4, 4, 16, 1, 20, 20, 1),
     (3, 16, 2, 2, 64, 3, 24, 20, 1),
     (32, 4, 12, 12, 64, 16, 64, 40, 4),
+    (4, 4, 4, 2, 48, 16, 30, 20, 1),
+    (4, 4, 4, 4, 256, 16, 30, 20, 1),
 ]
 
 
@@ -153,7 +170,8 @@ def t(x):
 # bf16 backward's 64-row tiles besides: T and S of 63, 65 and 129 on both
 # sides of a tile edge, T = 1, GQA group 4 at D = 128 (dk/dv summed over the
 # group inside a block), a window edge inside a tile, and rows that see no
-# key across a whole tile
+# key across a whole tile; head dims 12, 48 and 96 (padded inside the
+# tensor-core kernels) and 256 (the CUDA-core kernels in bf16)
 FLASH_CASES = [
     (2, 13, 13, 4, 4, 64, True, 3, 0, 0, 0, False),
     (2, 40, 70, 8, 2, 64, True, 5, 30, 0, 0, False),
@@ -167,6 +185,10 @@ FLASH_CASES = [
     (1, 70, 70, 8, 2, 128, True, 4, 0, 0, 0, True),
     (1, 100, 100, 2, 2, 64, True, 0, 0, 0, 37, False),
     (1, 90, 90, 2, 2, 16, True, 0, 0, 70, 0, False),
+    (2, 70, 70, 4, 4, 12, True, 3, 0, 0, 0, False),
+    (1, 65, 80, 4, 2, 48, True, 5, 15, 0, 0, True),
+    (2, 40, 40, 4, 2, 96, True, 2, 0, 0, 21, False),
+    (1, 37, 50, 4, 2, 256, True, 3, 13, 0, 0, True),
 ]
 
 

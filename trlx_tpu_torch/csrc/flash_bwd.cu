@@ -69,8 +69,11 @@
 //   1e-2 rel) on 3 of 8 seeds of a CPU emulation of this rounding; with
 //   the split none does (tests/test_torch_flash_attention.py runs the
 //   emulation).
-//   D is a template parameter in {16, 32, 64, 128}; the wrapper rejects any
-//   other D for bf16 before launching.
+//   Head dims: the kernels are compiled for D in {16, 32, 64, 128} and take
+//   any D up to 128 padded inside their loads (attn_common.cuh); D in (128,
+//   256] runs the CUDA-core kernels below in bf16 (at D = 256 the dk/dv
+//   accumulators alone would take 256 f32 registers a lane), chosen by D in
+//   the C dispatch before the launch.
 //
 // f32 keeps the first version's CUDA-core kernels (scalar FMA from shared
 // memory, 32 x 32 tiles, q pre-scaled): the f32 parity runs hold the card
@@ -84,30 +87,24 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "attn_common.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using attn::bf16;
+using attn::clampi;
+using attn::floordiv;
+using attn::Geometry;
 
 constexpr int QT = 32;  // query rows per tile (f32)
 constexpr int KT = 32;  // key columns per tile (f32)
 constexpr int NTH = 256;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void from_f(float x, float* y) { *y = x; }
-
-__device__ __forceinline__ int floordiv(int a, int b) {
-  const int q = a / b;
-  return (a % b != 0 && (a < 0)) ? q - 1 : q;
-}
-__device__ __forceinline__ int clampi(int x, int lo, int hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
-}
-
-struct Geometry {
-  int Tq, S, H, KV, D, q_off, k_off, causal, window;
-};
+__device__ __forceinline__ void from_f(float x, bf16* y) { *y = __float2bfloat16(x); }
 
 // visibility of (query row t, key column s) of one batch row
 __device__ __forceinline__ bool visible(const Geometry& g, const float* kmask_row,
@@ -120,7 +117,7 @@ __device__ __forceinline__ bool visible(const Geometry& g, const float* kmask_ro
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores
+// CUDA cores: f32, and bf16 at D > 128
 // ---------------------------------------------------------------------------
 
 // 1. dk / dv
@@ -356,7 +353,8 @@ constexpr int MMA_WARPS = 4;
 constexpr int MMA_THREADS = 32 * MMA_WARPS;
 constexpr int MMA_ROWS = 16 * MMA_WARPS;  // a block's own tile: 64 keys (dk/dv) or queries (dq)
 
-// width of the tiles a block walks: 64 at D <= 64, 32 at D = 128
+// width of the tiles a block walks: 64 at DT <= 64, 32 at DT = 128 (D is
+// the padded head dim in these compile-time helpers)
 template <int D>
 __host__ __device__ constexpr int walk_tile() {
   return D >= 128 ? 32 : 64;
@@ -377,67 +375,10 @@ __host__ __device__ constexpr int dq_smem() {
   return 2 * (2 * walk_tile<D>() * (D + 8) * 2 + 2 * walk_tile<D>() * 4);
 }
 
-// cp.async of ROWS rows of D bf16 (row r at src + r * stride) into shared
-// rows of pitch D + 8; rows >= valid are zero-filled
-template <int D, int ROWS>
-__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src, size_t stride,
-                                          int valid, int tid) {
-  constexpr int SEG = D / 8;
-#pragma unroll
-  for (int i = tid; i < ROWS * SEG; i += MMA_THREADS) {
-    const int r = i / SEG, sg = i % SEG;
-    const bool ok = r < valid;
-    mma_bf16::cp_async_16(dst + r * (D + 8) + sg * 8, src + (ok ? r * stride : 0) + sg * 8, ok);
-  }
-}
-
-// cp.async of n 4-byte words; words >= valid are set to fill
-__device__ __forceinline__ void copy_words(void* dst, const void* src, int n, int valid,
-                                           uint32_t fill, int tid) {
-  uint32_t* d = static_cast<uint32_t*>(dst);
-  for (int i = tid; i < n; i += MMA_THREADS) {
-    if (i < valid)
-      mma_bf16::cp_async_4(d + i, static_cast<const uint32_t*>(src) + i, true);
-    else
-      d[i] = fill;
-  }
-}
-
-// The causal and window rules as one range test: a (query, key) pair is in
-// the band when d = (q slot - k slot) lies in [lo, hi), lo = 0 if causal,
-// hi = window if any; (unsigned)(d - lo) < hi - lo is one compare.
-struct Band {
-  int lo;
-  unsigned span;
-};
-
-__device__ __forceinline__ Band make_band(const Geometry& g) {
-  const int lo = g.causal ? 0 : INT_MIN;
-  const int hi = g.window > 0 ? g.window : INT_MAX;
-  return Band{lo, (unsigned)hi - (unsigned)lo};
-}
-
-// true when every (query, key) pair of the tiles [t0, t0 + nt) x [s0, s0 +
-// ns) lies in the band
-__device__ __forceinline__ bool band_covers(const Geometry& g, int t0, int nt, int s0, int ns) {
-  const int qlo = g.q_off + t0, qhi = qlo + nt - 1;
-  const int klo = g.k_off + s0, khi = klo + ns - 1;
-  return (!g.causal || khi <= qlo) && (g.window <= 0 || qhi - klo < g.window);
-}
-
-// 2^x (ex2.approx, flushing subnormals): p = 2^(s log2(e) - lse log2(e))
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-constexpr float LOG2E = 1.4426950408889634f;
-
-template <bool B>
-struct Flag {
-  static constexpr bool value = B;
-};
+using attn::Band;
+using attn::exp2_approx;
+using attn::Flag;
+using attn::LOG2E;
 
 // blocks per SM the compiler must allow: 3 at D <= 64 (a one-wave grid at
 // the training shape), 1 at D = 128 (whose dk/dv accumulators alone take
@@ -450,36 +391,37 @@ __host__ __device__ constexpr int min_blocks() {
 // 1. dk / dv: block (64-key tile, kv head, row); warp w owns keys w*16 ..
 // w*16 + 15; lane (g, t) holds key rows g and g + 8 of the warp and, per
 // n-tile of queries, query columns 2t and 2t + 1
-template <int D, bool ALIBI>
-__global__ void __launch_bounds__(MMA_THREADS, min_blocks<D>()) flash_bwd_dkdv_mma_kernel(
+template <int DT, bool ALIBI>
+__global__ void __launch_bounds__(MMA_THREADS, min_blocks<DT>()) flash_bwd_dkdv_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const float* __restrict__ kmask, const int32_t* __restrict__ qpos,
     const int32_t* __restrict__ kpos, const float* __restrict__ slopes,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const bf16* __restrict__ dout, bf16* __restrict__ dk, bf16* __restrict__ dv,
-    Geometry g, float scale) {
+    Geometry g, float scale, int vec) {
   using namespace mma_bf16;
-  constexpr int WT = walk_tile<D>();  // queries per ring stage
-  constexpr int P = D + 8;
-  constexpr int KD = D / 16;  // k-steps over D
-  constexpr int NQ = WT / 8;  // n-tiles over the query tile
-  constexpr int KQ = WT / 16; // k-steps over the query tile
-  constexpr int ND = D / 8;   // n-tiles over D
+  constexpr int WT = walk_tile<DT>();  // queries per ring stage
+  constexpr int P = DT + 8;
+  constexpr int KD = DT / 16;  // k-steps over D (padded)
+  constexpr int NQ = WT / 8;   // n-tiles over the query tile
+  constexpr int KQ = WT / 16;  // k-steps over the query tile
+  constexpr int ND = DT / 8;   // n-tiles over D (padded)
   constexpr int STAGE = 2 * WT * P;  // {Q, dO} elements of one stage
 
   extern __shared__ __align__(16) unsigned char mma_smem[];
   bf16* k_s = reinterpret_cast<bf16*>(mma_smem);
   bf16* v_s = k_s + MMA_ROWS * P;
   bf16* ring = v_s + MMA_ROWS * P;
-  float* vec = reinterpret_cast<float*>(ring + 2 * STAGE);  // per stage: lse, delta, qpos
+  float* vecs = reinterpret_cast<float*>(ring + 2 * STAGE);  // per stage: lse, delta, qpos
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, tq = lane & 3, mi = lane >> 3;
   const int s0 = blockIdx.x * MMA_ROWS, kvh = blockIdx.y, b = blockIdx.z;
   const int group = g.H / g.KV;
   constexpr bool alibi = ALIBI;
+  const int D = g.D;
   const size_t kv_stride = (size_t)g.KV * D, q_stride = (size_t)g.H * D;
-  const Band band = make_band(g);
+  const Band band = attn::make_band(g);
   const float scale_l2 = scale * LOG2E;
   // this lane's ldmatrix row offsets (elements): A fragments and transposed
   // B fragments take rows (mi & 1) * 8 + (lane & 7) and column half mi >> 1;
@@ -490,8 +432,8 @@ __global__ void __launch_bounds__(MMA_THREADS, min_blocks<D>()) flash_bwd_dkdv_m
   const uint32_t v_addr = smem_addr(v_s + warp * 16 * P + lane_a);
 
   const size_t kv_off = (((size_t)b * g.S + s0) * g.KV + kvh) * D;
-  copy_rows<D, MMA_ROWS>(k_s, k + kv_off, kv_stride, g.S - s0, tid);
-  copy_rows<D, MMA_ROWS>(v_s, v + kv_off, kv_stride, g.S - s0, tid);
+  attn::copy_rows<DT, MMA_ROWS, MMA_THREADS>(k_s, k + kv_off, kv_stride, g.S - s0, D, vec, tid);
+  attn::copy_rows<DT, MMA_ROWS, MMA_THREADS>(v_s, v + kv_off, kv_stride, g.S - s0, D, vec, tid);
 
   // this lane's key rows: the key mask (and S's end), ALiBi positions
   bool kval[2];
@@ -517,13 +459,14 @@ __global__ void __launch_bounds__(MMA_THREADS, min_blocks<D>()) flash_bwd_dkdv_m
     const int nt = g.Tq - t0;
     bf16* qd = ring + (i & 1) * STAGE;
     const size_t off = (((size_t)b * g.Tq + t0) * g.H + h) * D;
-    copy_rows<D, WT>(qd, q + off, q_stride, nt, tid);
-    copy_rows<D, WT>(qd + WT * P, dout + off, q_stride, nt, tid);
-    float* vd = vec + (i & 1) * 3 * WT;
+    attn::copy_rows<DT, WT, MMA_THREADS>(qd, q + off, q_stride, nt, D, vec, tid);
+    attn::copy_rows<DT, WT, MMA_THREADS>(qd + WT * P, dout + off, q_stride, nt, D, vec, tid);
+    float* vd = vecs + (i & 1) * 3 * WT;
     const size_t row = ((size_t)b * g.H + h) * g.Tq + t0;
-    copy_words(vd, lse + row, WT, nt, __float_as_uint(INFINITY), tid);  // p = 0 past T
-    copy_words(vd + WT, delta + row, WT, nt, 0u, tid);
-    if (alibi) copy_words(vd + 2 * WT, qpos + (size_t)b * g.Tq + t0, WT, nt, 0u, tid);
+    attn::copy_words<MMA_THREADS>(vd, lse + row, WT, nt, __float_as_uint(INFINITY), tid);  // p = 0 past T
+    attn::copy_words<MMA_THREADS>(vd + WT, delta + row, WT, nt, 0u, tid);
+    if (alibi)
+      attn::copy_words<MMA_THREADS>(vd + 2 * WT, qpos + (size_t)b * g.Tq + t0, WT, nt, 0u, tid);
   };
 
   float dk_acc[ND][4], dv_acc[ND][4];
@@ -548,10 +491,10 @@ __global__ void __launch_bounds__(MMA_THREADS, min_blocks<D>()) flash_bwd_dkdv_m
                   (unsigned)band.lo;
     const uint32_t q_addr = smem_addr(ring + (i & 1) * STAGE);  // the stage's Q tile
     const uint32_t o_addr = q_addr + WT * P * 2;                 // ... and dO tile
-    const float* lse_s = vec + (i & 1) * 3 * WT;
+    const float* lse_s = vecs + (i & 1) * 3 * WT;
     const float* dl_s = lse_s + WT;
     const int* qp_s = reinterpret_cast<const int*>(lse_s + 2 * WT);
-    const bool full = band_covers(g, t0, WT, s0, MMA_ROWS);
+    const bool full = attn::band_covers(g, t0, WT, s0, MMA_ROWS);
 
     // S^T = K Q^T: the warp's 16 keys x WT queries
     float st[NQ][4];
@@ -613,7 +556,7 @@ __global__ void __launch_bounds__(MMA_THREADS, min_blocks<D>()) flash_bwd_dkdv_m
       const uint32_t ah[4] = {ph[2 * ks][0], ph[2 * ks][1], ph[2 * ks + 1][0], ph[2 * ks + 1][1]};
       const uint32_t al[4] = {pl[2 * ks][0], pl[2 * ks][1], pl[2 * ks + 1][0], pl[2 * ks + 1][1]};
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < DT / 16; ++dp) {
         uint32_t ob[4];  // queries ks*16 + 0-7 | 8-15, dims dp*16 + 0-7 | 8-15
         ldmatrix_x4_trans(ob, o_addr + 2 * (lane_a + ks * 16 * P + dp * 16));
         mma_16816(dv_acc[2 * dp], ah, ob[0], ob[1]);
@@ -656,7 +599,7 @@ __global__ void __launch_bounds__(MMA_THREADS, min_blocks<D>()) flash_bwd_dkdv_m
     for (int ks = 0; ks < KQ; ++ks) {
       const uint32_t a[4] = {dsa[2 * ks][0], dsa[2 * ks][1], dsa[2 * ks + 1][0], dsa[2 * ks + 1][1]};
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < DT / 16; ++dp) {
         uint32_t qb[4];
         ldmatrix_x4_trans(qb, q_addr + 2 * (lane_a + ks * 16 * P + dp * 16));
         mma_16816(dk_acc[2 * dp], a, qb[0], qb[1]);
@@ -670,13 +613,12 @@ __global__ void __launch_bounds__(MMA_THREADS, min_blocks<D>()) flash_bwd_dkdv_m
   for (int r = 0; r < 2; ++r) {
     const int s = s0 + warp * 16 + gq + 8 * r;
     if (s >= g.S) continue;
-    const size_t off = (((size_t)b * g.S + s) * g.KV + kvh) * D + 2 * tq;
+    const size_t off = (((size_t)b * g.S + s) * g.KV + kvh) * D;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8) =
-          __floats2bfloat162_rn(dk_acc[n][2 * r] * scale, dk_acc[n][2 * r + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8) =
-          __floats2bfloat162_rn(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+      attn::store_pair(dk + off, n * 8 + 2 * tq, D, vec, dk_acc[n][2 * r] * scale,
+                       dk_acc[n][2 * r + 1] * scale);
+      attn::store_pair(dv + off, n * 8 + 2 * tq, D, vec, dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
     }
   }
 }
@@ -684,25 +626,25 @@ __global__ void __launch_bounds__(MMA_THREADS, min_blocks<D>()) flash_bwd_dkdv_m
 // 2. dq: block (64-query tile, head, row); warp w owns queries w*16 ..
 // w*16 + 15; lane (g, t) holds query rows g and g + 8 and, per n-tile of
 // keys, key columns 2t and 2t + 1
-template <int D, bool ALIBI>
-__global__ void __launch_bounds__(MMA_THREADS, min_blocks<D>()) flash_bwd_dq_mma_kernel(
+template <int DT, bool ALIBI>
+__global__ void __launch_bounds__(MMA_THREADS, min_blocks<DT>()) flash_bwd_dq_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const float* __restrict__ kmask, const int32_t* __restrict__ qpos,
     const int32_t* __restrict__ kpos, const float* __restrict__ slopes,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    const bf16* __restrict__ dout, bf16* __restrict__ dq, Geometry g, float scale) {
+    const bf16* __restrict__ dout, bf16* __restrict__ dq, Geometry g, float scale, int vec) {
   using namespace mma_bf16;
-  constexpr int WT = walk_tile<D>();  // keys per ring stage
-  constexpr int P = D + 8;
-  constexpr int KD = D / 16;
+  constexpr int WT = walk_tile<DT>();  // keys per ring stage
+  constexpr int P = DT + 8;
+  constexpr int KD = DT / 16;
   constexpr int NK = WT / 8;   // n-tiles over the key tile
   constexpr int KK = WT / 16;  // k-steps over the key tile
-  constexpr int ND = D / 8;
+  constexpr int ND = DT / 8;
   constexpr int STAGE = 2 * WT * P;  // {K, V} elements of one stage
 
   extern __shared__ __align__(16) unsigned char mma_smem[];
   bf16* ring = reinterpret_cast<bf16*>(mma_smem);
-  float* vec = reinterpret_cast<float*>(ring + 2 * STAGE);  // per stage: key mask, kpos
+  float* vecs = reinterpret_cast<float*>(ring + 2 * STAGE);  // per stage: key mask, kpos
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, tq = lane & 3, mi = lane >> 3;
@@ -710,8 +652,9 @@ __global__ void __launch_bounds__(MMA_THREADS, min_blocks<D>()) flash_bwd_dq_mma
   const int kvh = h / (g.H / g.KV);
   constexpr bool alibi = ALIBI;
   const float slope_l2 = alibi ? slopes[h] * LOG2E : 0.f;
+  const int D = g.D;
   const size_t kv_stride = (size_t)g.KV * D;
-  const Band band = make_band(g);
+  const Band band = attn::make_band(g);
   const float scale_l2 = scale * LOG2E;
   const int lane_a = ((mi & 1) * 8 + (lane & 7)) * P + (mi >> 1) * 8;  // as in dk/dv
   const int lane_b = ((mi >> 1) * 8 + (lane & 7)) * P + (mi & 1) * 8;
@@ -727,11 +670,13 @@ __global__ void __launch_bounds__(MMA_THREADS, min_blocks<D>()) flash_bwd_dq_mma
     const int s0 = (lo + i) * WT;
     bf16* kd = ring + (i & 1) * STAGE;
     const size_t off = (((size_t)b * g.S + s0) * g.KV + kvh) * D;
-    copy_rows<D, WT>(kd, k + off, kv_stride, g.S - s0, tid);
-    copy_rows<D, WT>(kd + WT * P, v + off, kv_stride, g.S - s0, tid);
-    float* vd = vec + (i & 1) * 2 * WT;
-    copy_words(vd, kmask + (size_t)b * g.S + s0, WT, g.S - s0, 0u, tid);  // masked past S
-    if (alibi) copy_words(vd + WT, kpos + (size_t)b * g.S + s0, WT, g.S - s0, 0u, tid);
+    attn::copy_rows<DT, WT, MMA_THREADS>(kd, k + off, kv_stride, g.S - s0, D, vec, tid);
+    attn::copy_rows<DT, WT, MMA_THREADS>(kd + WT * P, v + off, kv_stride, g.S - s0, D, vec, tid);
+    float* vd = vecs + (i & 1) * 2 * WT;
+    attn::copy_words<MMA_THREADS>(vd, kmask + (size_t)b * g.S + s0, WT, g.S - s0, 0u,
+                                  tid);  // masked past S
+    if (alibi)
+      attn::copy_words<MMA_THREADS>(vd + WT, kpos + (size_t)b * g.S + s0, WT, g.S - s0, 0u, tid);
   };
   if (hi > lo) copy_tile(0);
   cp_async_commit();
@@ -747,14 +692,12 @@ __global__ void __launch_bounds__(MMA_THREADS, min_blocks<D>()) flash_bwd_dq_mma
     const int t = t0 + warp * 16 + gq + 8 * r;
     qval[r] = t < g.Tq;
     const size_t off = (((size_t)b * g.Tq + (qval[r] ? t : t0)) * g.H + h) * D;
-    const uint32_t* qrow = reinterpret_cast<const uint32_t*>(q + off);
-    const uint32_t* orow = reinterpret_cast<const uint32_t*>(dout + off);
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
-      qf[kk][r] = qval[r] ? qrow[kk * 8 + tq] : 0u;
-      qf[kk][2 + r] = qval[r] ? qrow[kk * 8 + 4 + tq] : 0u;
-      of[kk][r] = qval[r] ? orow[kk * 8 + tq] : 0u;
-      of[kk][2 + r] = qval[r] ? orow[kk * 8 + 4 + tq] : 0u;
+      qf[kk][r] = qval[r] ? attn::load_pair(q + off, kk * 16 + 2 * tq, D, vec) : 0u;
+      qf[kk][2 + r] = qval[r] ? attn::load_pair(q + off, kk * 16 + 8 + 2 * tq, D, vec) : 0u;
+      of[kk][r] = qval[r] ? attn::load_pair(dout + off, kk * 16 + 2 * tq, D, vec) : 0u;
+      of[kk][2 + r] = qval[r] ? attn::load_pair(dout + off, kk * 16 + 8 + 2 * tq, D, vec) : 0u;
     }
     const size_t row = ((size_t)b * g.H + h) * g.Tq + (qval[r] ? t : t0);
     ls[r] = lse[row] * LOG2E;
@@ -776,9 +719,9 @@ __global__ void __launch_bounds__(MMA_THREADS, min_blocks<D>()) flash_bwd_dq_mma
     const int s0 = (lo + i) * WT;
     const uint32_t k_addr = smem_addr(ring + (i & 1) * STAGE);  // the stage's K tile
     const uint32_t v_addr = k_addr + WT * P * 2;                 // ... and V tile
-    const float* km_s = vec + (i & 1) * 2 * WT;
+    const float* km_s = vecs + (i & 1) * 2 * WT;
     const int* kp_s = reinterpret_cast<const int*>(km_s + WT);
-    const bool full = band_covers(g, t0, MMA_ROWS, s0, WT);
+    const bool full = attn::band_covers(g, t0, MMA_ROWS, s0, WT);
 
     // S = Q K^T and dP = dO V^T: the warp's 16 queries x WT keys
     float s[NK][4], dp[NK][4];
@@ -842,7 +785,7 @@ __global__ void __launch_bounds__(MMA_THREADS, min_blocks<D>()) flash_bwd_dq_mma
     for (int ks = 0; ks < KK; ++ks) {
       const uint32_t a[4] = {dsa[2 * ks][0], dsa[2 * ks][1], dsa[2 * ks + 1][0], dsa[2 * ks + 1][1]};
 #pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
+      for (int dd = 0; dd < DT / 16; ++dd) {
         uint32_t kf[4];  // keys ks*16 + 0-7 | 8-15, dims dd*16 + 0-7 | 8-15
         ldmatrix_x4_trans(kf, k_addr + 2 * (lane_a + ks * 16 * P + dd * 16));
         mma_16816(dq_acc[2 * dd], a, kf[0], kf[1]);
@@ -856,11 +799,11 @@ __global__ void __launch_bounds__(MMA_THREADS, min_blocks<D>()) flash_bwd_dq_mma
   for (int r = 0; r < 2; ++r) {
     if (!qval[r]) continue;
     const int t = t0 + warp * 16 + gq + 8 * r;
-    bf16* row = dq + (((size_t)b * g.Tq + t) * g.H + h) * D + 2 * tq;
+    bf16* row = dq + (((size_t)b * g.Tq + t) * g.H + h) * D;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(row + n * 8) =
-          __floats2bfloat162_rn(dq_acc[n][2 * r] * scale, dq_acc[n][2 * r + 1] * scale);
+      attn::store_pair(row, n * 8 + 2 * tq, D, vec, dq_acc[n][2 * r] * scale,
+                       dq_acc[n][2 * r + 1] * scale);
   }
 }
 
@@ -868,45 +811,47 @@ __global__ void __launch_bounds__(MMA_THREADS, min_blocks<D>()) flash_bwd_dq_mma
 // launchers
 // ---------------------------------------------------------------------------
 
-int launch_f32(const void* q, const void* k, const void* v, const void* kmask,
-               const void* qpos, const void* kpos, const void* slopes,
-               const void* lse, const void* delta, const void* dout, void* dq,
-               void* dk, void* dv, int B, const Geometry& g, float scale,
-               cudaStream_t stream) {
+template <typename T>
+int launch_cc(const void* q, const void* k, const void* v, const void* kmask,
+              const void* qpos, const void* kpos, const void* slopes,
+              const void* lse, const void* delta, const void* dout, void* dq,
+              void* dk, void* dv, int B, const Geometry& g, float scale,
+              cudaStream_t stream) {
   const int D = g.D;
   const size_t smem_kv = sizeof(float) *
       ((size_t)2 * KT * (D + 1) + (size_t)2 * KT * D + (size_t)2 * QT * D +
        2 * QT * KT + 3 * QT + KT);
   const size_t smem_q = sizeof(float) *
       ((size_t)3 * QT * D + (size_t)2 * KT * (D + 1) + QT * KT + 3 * QT + KT);
-  cudaFuncSetAttribute(flash_bwd_dkdv_kernel<float>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
-  cudaFuncSetAttribute(flash_bwd_dq_kernel<float>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(flash_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem_q);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid_kv((g.S + KT - 1) / KT, g.KV, B);
-  flash_bwd_dkdv_kernel<float><<<grid_kv, NTH, smem_kv, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)kmask,
+  flash_bwd_dkdv_kernel<T><<<grid_kv, NTH, smem_kv, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)kmask,
       (const int32_t*)qpos, (const int32_t*)kpos, (const float*)slopes,
-      (const float*)lse, (const float*)delta, (const float*)dout, (float*)dk, (float*)dv,
-      g, scale);
+      (const float*)lse, (const float*)delta, (const T*)dout, (T*)dk, (T*)dv, g, scale);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   dim3 grid_q((g.Tq + QT - 1) / QT, g.H, B);
-  flash_bwd_dq_kernel<float><<<grid_q, NTH, smem_q, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)kmask,
+  flash_bwd_dq_kernel<T><<<grid_q, NTH, smem_q, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)kmask,
       (const int32_t*)qpos, (const int32_t*)kpos, (const float*)slopes,
-      (const float*)lse, (const float*)delta, (const float*)dout, (float*)dq, g, scale);
+      (const float*)lse, (const float*)delta, (const T*)dout, (T*)dq, g, scale);
   return (int)cudaGetLastError();
 }
 
-template <int D, bool ALIBI>
+template <int DT, bool ALIBI>
 int launch_mma(const void* q, const void* k, const void* v, const void* kmask,
                const void* qpos, const void* kpos, const void* slopes, const void* lse,
                const void* delta, const void* dout, void* dq, void* dk, void* dv, int B,
-               const Geometry& g, float scale, cudaStream_t stream) {
-  constexpr int smem_kv = dkdv_smem<D>(), smem_q = dq_smem<D>();
-  auto dkdv = flash_bwd_dkdv_mma_kernel<D, ALIBI>;
-  auto dqk = flash_bwd_dq_mma_kernel<D, ALIBI>;
+               const Geometry& g, float scale, int vec, cudaStream_t stream) {
+  constexpr int smem_kv = dkdv_smem<DT>(), smem_q = dq_smem<DT>();
+  auto dkdv = flash_bwd_dkdv_mma_kernel<DT, ALIBI>;
+  auto dqk = flash_bwd_dq_mma_kernel<DT, ALIBI>;
   cudaError_t e = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
   if (e != cudaSuccess) return (int)e;
   e = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
@@ -914,37 +859,38 @@ int launch_mma(const void* q, const void* k, const void* v, const void* kmask,
   dkdv<<<dim3((g.S + MMA_ROWS - 1) / MMA_ROWS, g.KV, B), MMA_THREADS, smem_kv, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)kmask,
       (const int32_t*)qpos, (const int32_t*)kpos, (const float*)slopes, (const float*)lse,
-      (const float*)delta, (const bf16*)dout, (bf16*)dk, (bf16*)dv, g, scale);
+      (const float*)delta, (const bf16*)dout, (bf16*)dk, (bf16*)dv, g, scale, vec);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   dqk<<<dim3((g.Tq + MMA_ROWS - 1) / MMA_ROWS, g.H, B), MMA_THREADS, smem_q, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)kmask,
       (const int32_t*)qpos, (const int32_t*)kpos, (const float*)slopes, (const float*)lse,
-      (const float*)delta, (const bf16*)dout, (bf16*)dq, g, scale);
+      (const float*)delta, (const bf16*)dout, (bf16*)dq, g, scale, vec);
   return (int)cudaGetLastError();
 }
 
 // ALiBi (slopes given) is a template parameter, so that the GPT-2 path
 // carries none of its arithmetic
-template <int D>
+template <int DT>
 int launch_bf16(const void* q, const void* k, const void* v, const void* kmask,
                 const void* qpos, const void* kpos, const void* slopes,
                 const void* lse, const void* delta, const void* dout, void* dq,
-                void* dk, void* dv, int B, const Geometry& g, float scale,
+                void* dk, void* dv, int B, const Geometry& g, float scale, int vec,
                 cudaStream_t stream) {
   if (slopes != nullptr)
-    return launch_mma<D, true>(q, k, v, kmask, qpos, kpos, slopes, lse, delta, dout, dq, dk,
-                               dv, B, g, scale, stream);
-  return launch_mma<D, false>(q, k, v, kmask, qpos, kpos, slopes, lse, delta, dout, dq, dk,
-                              dv, B, g, scale, stream);
+    return launch_mma<DT, true>(q, k, v, kmask, qpos, kpos, slopes, lse, delta, dout, dq, dk,
+                                dv, B, g, scale, vec, stream);
+  return launch_mma<DT, false>(q, k, v, kmask, qpos, kpos, slopes, lse, delta, dout, dq, dk,
+                               dv, B, g, scale, vec, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and the three gradients
 // share it). lse and delta are (B, H, T) f32; qpos, kpos and slopes are
-// null without ALiBi. bf16 takes D in {16, 32, 64, 128} and 16-byte
-// aligned q, k, v and dout (the wrapper checks).
+// null without ALiBi. bf16 at D <= 128 runs on tensor cores (D padded to
+// 16, 32, 64 or 128 inside the loads), f32 and bf16 at D > 128 on CUDA
+// cores; the wrapper rejects D > 256.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* kmask, const void* qpos, const void* kpos,
                          const void* slopes, const void* lse, const void* delta,
@@ -955,22 +901,26 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
   const Geometry g{Tq, S, H, KV, D, q_off, k_off, causal, window};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_f32(q, k, v, kmask, qpos, kpos, slopes, lse, delta, dout, dq, dk, dv, B,
-                      g, scale, st);
-  switch (D) {
+    return launch_cc<float>(q, k, v, kmask, qpos, kpos, slopes, lse, delta, dout, dq, dk, dv,
+                            B, g, scale, st);
+  if (D > 128)
+    return launch_cc<bf16>(q, k, v, kmask, qpos, kpos, slopes, lse, delta, dout, dq, dk, dv,
+                           B, g, scale, st);
+  const int vec = D % 8 == 0 && attn::aligned16(q) && attn::aligned16(k) &&
+                  attn::aligned16(v) && attn::aligned16(dout) && attn::aligned16(dq) &&
+                  attn::aligned16(dk) && attn::aligned16(dv);
+  switch (attn::padded_dim(D)) {
     case 16:
-      return launch_bf16<16>(q, k, v, kmask, qpos, kpos, slopes, lse, delta, dout, dq, dk,
-                             dv, B, g, scale, st);
+      return launch_bf16<16>(q, k, v, kmask, qpos, kpos, slopes, lse, delta, dout, dq, dk, dv,
+                             B, g, scale, vec, st);
     case 32:
-      return launch_bf16<32>(q, k, v, kmask, qpos, kpos, slopes, lse, delta, dout, dq, dk,
-                             dv, B, g, scale, st);
+      return launch_bf16<32>(q, k, v, kmask, qpos, kpos, slopes, lse, delta, dout, dq, dk, dv,
+                             B, g, scale, vec, st);
     case 64:
-      return launch_bf16<64>(q, k, v, kmask, qpos, kpos, slopes, lse, delta, dout, dq, dk,
-                             dv, B, g, scale, st);
-    case 128:
-      return launch_bf16<128>(q, k, v, kmask, qpos, kpos, slopes, lse, delta, dout, dq, dk,
-                              dv, B, g, scale, st);
+      return launch_bf16<64>(q, k, v, kmask, qpos, kpos, slopes, lse, delta, dout, dq, dk, dv,
+                             B, g, scale, vec, st);
     default:
-      return (int)cudaErrorInvalidValue;
+      return launch_bf16<128>(q, k, v, kmask, qpos, kpos, slopes, lse, delta, dout, dq, dk,
+                              dv, B, g, scale, vec, st);
   }
 }

@@ -44,8 +44,16 @@
 //   exactly 0 (the bias is added before the max) and stale values in
 //   recycled blocks never leak; a row whose every column is masked
 //   averages them as the plain softmax does; columns past S are never read.
-// One design for f32 and bf16, templated on the type and on D in {16, 32,
-// 64, 128}; the wrapper rejects any other D before launching.
+// One design for f32 and bf16, templated on the type and on a padded head
+// dim DT in {16, 32, 64, 128, 256}, which takes any D up to DT at run time:
+// a lane's slice of a row past D is zero (queries) or never read (K/V),
+// and only D columns are stored. Rows are read with their true stride, so
+// no padded copy of the pool exists. Loads are 16 bytes when D is a
+// multiple of 16 bytes' worth of the type and the operands are 16-byte
+// aligned, else element by element (a bf16 row of D = 12 is 24 bytes): a
+// template parameter the launcher picks. At DT = 256 a lane holds 8
+// elements (two 16-byte vectors in f32) and a block serves at most 4 heads
+// of a group.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
@@ -71,6 +79,13 @@ struct Vec<float> {
     x[2] = __uint_as_float(u.z); x[3] = __uint_as_float(u.w);
   }
   __device__ static float store(float x) { return x; }
+  // elements [e0, e0 + 4) of a row of D, zero past D
+  __device__ static void partial(const float* row, int e0, int D, uint4& u) {
+    u.x = e0 < D ? __float_as_uint(row[e0]) : 0u;
+    u.y = e0 + 1 < D ? __float_as_uint(row[e0 + 1]) : 0u;
+    u.z = e0 + 2 < D ? __float_as_uint(row[e0 + 2]) : 0u;
+    u.w = e0 + 3 < D ? __float_as_uint(row[e0 + 3]) : 0u;
+  }
 };
 template <>
 struct Vec<__nv_bfloat16> {
@@ -88,7 +103,30 @@ struct Vec<__nv_bfloat16> {
     }
   }
   __device__ static __nv_bfloat16 store(float x) { return __float2bfloat16(x); }
+  // elements [e0, e0 + 8) of a row of D, zero past D
+  __device__ static void partial(const __nv_bfloat16* row, int e0, int D, uint4& u) {
+    const uint16_t* r = reinterpret_cast<const uint16_t*>(row);
+    uint32_t w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = e0 + 2 * j;
+      w[j] = (e < D ? (uint32_t)r[e] : 0u) | ((e + 1 < D ? (uint32_t)r[e + 1] : 0u) << 16);
+    }
+    u = make_uint4(w[0], w[1], w[2], w[3]);
+  }
 };
+
+// 16 bytes of row (elements [e0, e0 + N)), zero past D: one vector load when
+// `vec` (D a multiple of N, aligned operands), else element by element
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* row, int e0, int D, bool vec, uint4& u) {
+  if (vec) {
+    u = make_uint4(0u, 0u, 0u, 0u);
+    if (e0 < D) Vec<T>::raw(row + e0, u);
+  } else {
+    Vec<T>::partial(row, e0, D, u);
+  }
+}
 
 // (m, l, acc) <- the merge of two online-softmax states; -inf maxima
 // (states that saw no column) weigh 0
@@ -107,7 +145,7 @@ __device__ __forceinline__ void merge_state(float& m, float& l, float (&acc)[N],
 // Grid: x = kv head x head chunk, y = row, z = column span. With one span
 // the block writes the output; with several it writes its span's partial
 // state to part[(b, h, span)] = (acc[0 .. D), m, l).
-template <typename T, int D, int GM>
+template <typename T, int DT, int GM, bool WIDE>
 __global__ void __launch_bounds__(32 * NW) paged_decode_kernel(
     const T* __restrict__ q,            // (B, H, D)
     const T* __restrict__ k_pool,       // (NB, bs, KV, D)
@@ -116,17 +154,20 @@ __global__ void __launch_bounds__(32 * NW) paged_decode_kernel(
     const float* __restrict__ bias,     // (B, HB, S)
     T* __restrict__ out,                // (B, H, D)
     float* __restrict__ part,           // (B, H, spans, D + 2) when spans > 1
-    int H, int KV, int NB, int bs, int TB, int HB, int S, float scale) {
+    int H, int KV, int D, int NB, int bs, int TB, int HB, int S, float scale) {
   using V = Vec<T>;
+  constexpr bool vec = WIDE;
   constexpr int VEC = V::N;
-  constexpr int LPR = D / VEC;     // lanes per key row
-  constexpr int RPW = 32 / LPR;    // key rows a warp serves at once
-  constexpr int U = GM >= 8 ? 2 : 4;  // columns per lane group in flight
-  static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "D must be 16, 32, 64 or 128");
+  constexpr int LPR = DT / VEC > 32 ? 32 : DT / VEC;  // lanes per key row
+  constexpr int NV = DT / (VEC * LPR);                // 16-byte vectors per lane
+  constexpr int EPL = NV * VEC;                       // elements per lane
+  constexpr int RPW = 32 / LPR;                       // key rows a warp serves at once
+  constexpr int U = (GM >= 8 || NV > 1) ? 2 : 4;      // columns per lane group in flight
+  static_assert(LPR >= 1 && 32 % LPR == 0 && LPR * EPL == DT, "DT must be 16 .. 256");
 
   __shared__ int tbl_s[SPAN_COLS + 1];
   __shared__ float ml_s[NW][GM][2];
-  __shared__ float acc_s[NW][GM][D];
+  __shared__ float acc_s[NW][GM][DT];
 
   const int G = H / KV;
   const int chunks = (G + GM - 1) / GM;
@@ -143,23 +184,28 @@ __global__ void __launch_bounds__(32 * NW) paged_decode_kernel(
     const int id = table[(size_t)b * TB + j0 + j];
     tbl_s[j] = id < 0 ? 0 : (id >= NB ? NB - 1 : id);
   }
-  // this lane's slice of the queries
-  float qv[GM][VEC];
+  // this lane's slice of the queries (zero past D)
+  float qv[GM][EPL];
 #pragma unroll
-  for (int g = 0; g < GM; ++g) {
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (g < ng) V::raw(q + ((size_t)b * H + h0 + g) * D + li * VEC, u);
-    V::unpack(u, qv[g]);
-  }
+  for (int g = 0; g < GM; ++g)
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (g < ng) load_vec(q + ((size_t)b * H + h0 + g) * D, li * EPL + j * VEC, D, vec, u);
+      float x[VEC];
+      V::unpack(u, x);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) qv[g][j * VEC + e] = x[e];
+    }
   __syncthreads();
 
-  float m[GM], l[GM], acc[GM][VEC];
+  float m[GM], l[GM], acc[GM][EPL];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
     m[g] = -INFINITY;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
   }
 
   // the warp's contiguous sub-span of columns
@@ -169,20 +215,24 @@ __global__ void __launch_bounds__(32 * NW) paged_decode_kernel(
   const int hb0 = HB == 1 ? 0 : h0;
   // every lane of the warp takes the same trips (the shuffles need all 32)
   for (int base = w0; base < w1; base += RPW * U) {
-    uint4 kr[U], vr[U];
+    uint4 kr[U][NV], vr[U][NV];
     float bb[U][GM];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int col = base + grp + u * RPW;
-      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int j = 0; j < NV; ++j) kr[u][j] = vr[u][j] = make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
       for (int g = 0; g < GM; ++g) bb[u][g] = 0.f;
       if (col < w1) {
-        const int j = col / bs;
-        const size_t off = ((size_t)tbl_s[j - j0] * bs + (col - j * bs)) * row_stride +
-                           (size_t)kvh * D + li * VEC;
-        V::raw(k_pool + off, kr[u]);
-        V::raw(v_pool + off, vr[u]);
+        const int jb = col / bs;
+        const size_t off = ((size_t)tbl_s[jb - j0] * bs + (col - jb * bs)) * row_stride +
+                           (size_t)kvh * D;
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          load_vec(k_pool + off, li * EPL + j * VEC, D, vec, kr[u][j]);
+          load_vec(v_pool + off, li * EPL + j * VEC, D, vec, vr[u][j]);
+        }
         const float* brow = bias + ((size_t)b * HB + hb0) * S + col;
 #pragma unroll
         for (int g = 0; g < GM; ++g)
@@ -192,13 +242,19 @@ __global__ void __launch_bounds__(32 * NW) paged_decode_kernel(
     float sc[U][GM];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float kf[VEC];
-      V::unpack(kr[u], kf);
+      float kf[EPL];
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        float x[VEC];
+        V::unpack(kr[u][j], x);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) kf[j * VEC + e] = x[e];
+      }
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
         float d = 0.f;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) d += qv[g][e] * kf[e];
+        for (int e = 0; e < EPL; ++e) d += qv[g][e] * kf[e];
 #pragma unroll
         for (int o = 1; o < LPR; o <<= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
         const float bg = HB > 1 ? bb[u][g] : bb[u][0];
@@ -214,15 +270,18 @@ __global__ void __launch_bounds__(32 * NW) paged_decode_kernel(
       const float alpha = __expf(m[g] - mx);
       l[g] *= alpha;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[g][e] *= alpha;
+      for (int e = 0; e < EPL; ++e) acc[g][e] *= alpha;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const float p = sc[u][g] == -INFINITY ? 0.f : __expf(sc[u][g] - mx);
-        float vf[VEC];
-        V::unpack(vr[u], vf);
         l[g] += p;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[g][e] += p * vf[e];
+        for (int j = 0; j < NV; ++j) {
+          float vf[VEC];
+          V::unpack(vr[u][j], vf);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[g][j * VEC + e] += p * vf[e];
+        }
       }
       m[g] = mx;
     }
@@ -233,9 +292,9 @@ __global__ void __launch_bounds__(32 * NW) paged_decode_kernel(
   for (int o = LPR; o < 32; o <<= 1)
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
-      float acc2[VEC];
+      float acc2[EPL];
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc2[e] = __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+      for (int e = 0; e < EPL; ++e) acc2[e] = __shfl_xor_sync(0xffffffffu, acc[g][e], o);
       const float m2 = __shfl_xor_sync(0xffffffffu, m[g], o);
       const float l2 = __shfl_xor_sync(0xffffffffu, l[g], o);
       merge_state(m[g], l[g], acc[g], m2, l2, acc2);
@@ -248,14 +307,15 @@ __global__ void __launch_bounds__(32 * NW) paged_decode_kernel(
         ml_s[warp][g][1] = l[g];
       }
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc_s[warp][g][li * VEC + e] = acc[g][e];
+      for (int e = 0; e < EPL; ++e) acc_s[warp][g][li * EPL + e] = acc[g][e];
     }
   }
   __syncthreads();
 
-  // merge the warps in order: thread (g, d)
-  for (int i = tid; i < ng * D; i += 32 * NW) {
-    const int g = i / D, d = i % D;
+  // merge the warps in order: thread (g, d), d < D
+  for (int i = tid; i < ng * DT; i += 32 * NW) {
+    const int g = i / DT, d = i % DT;
+    if (d >= D) continue;
     float mx = -INFINITY;
 #pragma unroll
     for (int w = 0; w < NW; ++w) mx = fmaxf(mx, ml_s[w][g][0]);
@@ -301,16 +361,18 @@ __global__ void paged_decode_merge_kernel(const float* __restrict__ part, T* __r
   }
 }
 
-template <typename T, int D, int GM>
+template <typename T, int DT, int GM>
 int launch_gm(const void* q, const void* k_pool, const void* v_pool, const void* table,
-              const void* bias, void* out, void* part, int B, int H, int KV, int NB, int bs,
-              int TB, int HB, int S, cudaStream_t stream) {
+              const void* bias, void* out, void* part, int B, int H, int KV, int D, int NB,
+              int bs, int TB, int HB, int S, int vec, cudaStream_t stream) {
   const int G = H / KV;
   const int spans = (S + SPAN_COLS - 1) / SPAN_COLS;
   dim3 grid(KV * ((G + GM - 1) / GM), B, spans);
-  paged_decode_kernel<T, D, GM><<<grid, 32 * NW, 0, stream>>>(
+  // the load path by the shape: 16-byte loads, or element by element
+  auto kernel = vec ? paged_decode_kernel<T, DT, GM, true> : paged_decode_kernel<T, DT, GM, false>;
+  kernel<<<grid, 32 * NW, 0, stream>>>(
       (const T*)q, (const T*)k_pool, (const T*)v_pool, (const int32_t*)table,
-      (const float*)bias, (T*)out, (float*)part, H, KV, NB, bs, TB, HB, S,
+      (const float*)bias, (T*)out, (float*)part, H, KV, D, NB, bs, TB, HB, S,
       1.f / sqrtf((float)D));
   int rc = (int)cudaGetLastError();
   if (rc != 0 || spans == 1) return rc;
@@ -318,52 +380,57 @@ int launch_gm(const void* q, const void* k_pool, const void* v_pool, const void*
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+// heads per block by the group size G; at DT = 256 at most 4 (the warps'
+// partial accumulators must fit in static shared memory)
+template <typename T, int DT>
 int launch_d(const void* q, const void* k_pool, const void* v_pool, const void* table,
-             const void* bias, void* out, void* part, int B, int H, int KV, int NB, int bs,
-             int TB, int HB, int S, cudaStream_t stream) {
+             const void* bias, void* out, void* part, int B, int H, int KV, int D, int NB,
+             int bs, int TB, int HB, int S, int vec, cudaStream_t stream) {
   const int G = H / KV;
   if (G <= 1)
-    return launch_gm<T, D, 1>(q, k_pool, v_pool, table, bias, out, part, B, H, KV, NB, bs,
-                              TB, HB, S, stream);
+    return launch_gm<T, DT, 1>(q, k_pool, v_pool, table, bias, out, part, B, H, KV, D, NB, bs,
+                               TB, HB, S, vec, stream);
   if (G <= 2)
-    return launch_gm<T, D, 2>(q, k_pool, v_pool, table, bias, out, part, B, H, KV, NB, bs,
-                              TB, HB, S, stream);
-  if (G <= 4)
-    return launch_gm<T, D, 4>(q, k_pool, v_pool, table, bias, out, part, B, H, KV, NB, bs,
-                              TB, HB, S, stream);
-  return launch_gm<T, D, 8>(q, k_pool, v_pool, table, bias, out, part, B, H, KV, NB, bs, TB,
-                            HB, S, stream);
+    return launch_gm<T, DT, 2>(q, k_pool, v_pool, table, bias, out, part, B, H, KV, D, NB, bs,
+                               TB, HB, S, vec, stream);
+  if (G <= 4 || DT >= 256)
+    return launch_gm<T, DT, 4>(q, k_pool, v_pool, table, bias, out, part, B, H, KV, D, NB, bs,
+                               TB, HB, S, vec, stream);
+  return launch_gm<T, DT, DT >= 256 ? 4 : 8>(q, k_pool, v_pool, table, bias, out, part, B, H,
+                                             KV, D, NB, bs, TB, HB, S, vec, stream);
 }
 
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool, const void* table,
            const void* bias, void* out, void* part, int B, int H, int KV, int D, int NB,
            int bs, int TB, int HB, int S, cudaStream_t stream) {
-  switch (D) {
-    case 16:
-      return launch_d<T, 16>(q, k_pool, v_pool, table, bias, out, part, B, H, KV, NB, bs, TB,
-                             HB, S, stream);
-    case 32:
-      return launch_d<T, 32>(q, k_pool, v_pool, table, bias, out, part, B, H, KV, NB, bs, TB,
-                             HB, S, stream);
-    case 64:
-      return launch_d<T, 64>(q, k_pool, v_pool, table, bias, out, part, B, H, KV, NB, bs, TB,
-                             HB, S, stream);
-    case 128:
-      return launch_d<T, 128>(q, k_pool, v_pool, table, bias, out, part, B, H, KV, NB, bs,
-                              TB, HB, S, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const int vec = D % Vec<T>::N == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(k_pool) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(v_pool) % 16 == 0;
+  if (D <= 16)
+    return launch_d<T, 16>(q, k_pool, v_pool, table, bias, out, part, B, H, KV, D, NB, bs, TB,
+                           HB, S, vec, stream);
+  if (D <= 32)
+    return launch_d<T, 32>(q, k_pool, v_pool, table, bias, out, part, B, H, KV, D, NB, bs, TB,
+                           HB, S, vec, stream);
+  if (D <= 64)
+    return launch_d<T, 64>(q, k_pool, v_pool, table, bias, out, part, B, H, KV, D, NB, bs, TB,
+                           HB, S, vec, stream);
+  if (D <= 128)
+    return launch_d<T, 128>(q, k_pool, v_pool, table, bias, out, part, B, H, KV, D, NB, bs,
+                            TB, HB, S, vec, stream);
+  if (D <= 256)
+    return launch_d<T, 256>(q, k_pool, v_pool, table, bias, out, part, B, H, KV, D, NB, bs,
+                            TB, HB, S, vec, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it). D in {16,
-// 32, 64, 128}, q and the pools 16-byte aligned (the wrapper checks). The
-// columns split into spans of SPAN_COLS (256); with more than one span,
-// part is f32 scratch of (B, H, spans, D + 2).
+// dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it). D up to
+// 256 (padded inside the loads to 16, 32, 64, 128 or 256; the wrapper
+// rejects more). The columns split into spans of SPAN_COLS (256); with
+// more than one span, part is f32 scratch of (B, H, spans, D + 2).
 extern "C" int paged_decode(const void* q, const void* k_pool,
                             const void* v_pool, const void* table,
                             const void* bias, void* out, void* part, int B, int H,

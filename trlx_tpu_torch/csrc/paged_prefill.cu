@@ -57,8 +57,10 @@
 //   whose every column is bias-masked averages its columns as the plain
 //   softmax does; padding query rows are never stored; -inf - -inf never
 //   reaches exp.
-// D is a template parameter in {16, 32, 64, 128}; the wrapper rejects any
-// other D for bf16 before launching.
+// Head dims: the kernel is compiled for D in {16, 32, 64, 128} and takes any
+// D up to 128 padded inside its loads (attn_common.cuh); D in (128, 256]
+// runs the CUDA-core kernel below in bf16, chosen by D in the C dispatch
+// before the launch.
 //
 // The f32 kernel stays on CUDA cores (scalar FMA from shared memory): it
 // serves the f32 parity runs, held to 1e-4, which TF32 mma would not meet.
@@ -70,11 +72,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attn_common.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using attn::bf16;
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
@@ -114,24 +117,25 @@ __device__ __forceinline__ void ring_sync() {
 }
 
 // bytes of one stage of a ring: KC keys of K and of V (bf16, rows padded
-// to D + 8) and the bias tile of the group's 16 NQW query rows (f32, rows
+// to DT + 8) and the bias tile of the group's 16 NQW query rows (f32, rows
 // padded to KC + 8)
-template <int D, int NQW, int KC>
+template <int DT, int NQW, int KC>
 __host__ __device__ constexpr int stage_bytes() {
-  return 2 * KC * (D + 8) * 2 + 16 * NQW * (KC + 8) * 4;
+  return 2 * KC * (DT + 8) * 2 + 16 * NQW * (KC + 8) * 4;
 }
 
 // the dynamic shared memory: the groups' rings, then for a split walk each
 // group's partial (max, sum) per query row
-template <int D, int NQW, int NSPLIT, int STAGES, int KC>
+template <int DT, int NQW, int NSPLIT, int STAGES, int KC>
 __host__ __device__ constexpr int smem_bytes() {
-  return NSPLIT * STAGES * stage_bytes<D, NQW, KC>() + (NSPLIT > 1 ? NSPLIT * 16 * NQW * 8 : 0);
+  return NSPLIT * STAGES * stage_bytes<DT, NQW, KC>() + (NSPLIT > 1 ? NSPLIT * 16 * NQW * 8 : 0);
 }
 
 // NQW warps of 16 query rows each walk the row's keys KC columns at a time
 // through a shared ring of STAGES chunks; NSPLIT such groups split the
-// row's chunks between them and merge at the end.
-template <int D, int NQW, int NSPLIT, int STAGES, int KC>
+// row's chunks between them and merge at the end. DT is the padded head
+// dim, D the true one; VEC selects the 16-byte copy path (attn_common.cuh).
+template <int DT, int NQW, int NSPLIT, int STAGES, int KC, bool VEC>
 __global__ void __launch_bounds__(32 * NQW * NSPLIT) paged_prefill_mma_kernel(
     const bf16* __restrict__ q,          // (B, T, H, D)
     const bf16* __restrict__ k_pool,     // (NB, bs, KV, D)
@@ -139,11 +143,12 @@ __global__ void __launch_bounds__(32 * NQW * NSPLIT) paged_prefill_mma_kernel(
     const int32_t* __restrict__ table,   // (B, TB)
     const float* __restrict__ bias,      // (B, HB, T, S)
     bf16* __restrict__ out,              // (B, T, H, D)
-    int Tq, int H, int KV, int NB, int bs, FastDiv bs_div, int TB, int HB, int S,
+    int Tq, int H, int KV, int D, int NB, int bs, FastDiv bs_div, int TB, int HB, int S,
     int bias_vec, float scale) {
+  constexpr bool vec = VEC;
   using namespace mma_bf16;
-  constexpr int SEG = D / 8;             // 16-byte copies per key row
-  constexpr int PITCH = D + 8;           // K/V shared row pitch in elements
+  constexpr int SEG = DT / 8;            // 16-byte copies per key row
+  constexpr int PITCH = DT + 8;          // K/V shared row pitch in elements
   constexpr int TILE = KC * PITCH;       // one K or V chunk
   constexpr int BP = KC + 8;             // bias shared row pitch in floats
   constexpr int NT = 32 * NQW;           // threads sharing a ring
@@ -151,11 +156,11 @@ __global__ void __launch_bounds__(32 * NQW * NSPLIT) paged_prefill_mma_kernel(
   constexpr int CPT = (SLOTS + NT - 1) / NT;
   constexpr int QROWS = 16 * NQW;        // query rows of a group (and block)
   constexpr int BV = KC / 4;             // 16-byte copies per bias tile row
-  constexpr int KD = D / 16;             // k-steps of Q K^T
-  constexpr int ND = D / 8;              // n-tiles of P V
+  constexpr int KD = DT / 16;            // k-steps of Q K^T
+  constexpr int ND = DT / 8;             // n-tiles of P V
   constexpr int NN = KC / 8;             // n-tiles of Q K^T
   constexpr int KS = KC / 16;            // k-steps of P V
-  constexpr int STAGE = stage_bytes<D, NQW, KC>();
+  constexpr int STAGE = stage_bytes<DT, NQW, KC>();
   static_assert(KC % 16 == 0 && NT % SEG == 0 && NT % KC == 0, "copy slots must tile a chunk");
   static_assert(NQW == 1 || NSPLIT == 1, "a ring is one warp's or the whole block's");
   static_assert(QROWS * PITCH * 4 <= STAGES * STAGE, "the merge slice must fit a ring");
@@ -176,18 +181,17 @@ __global__ void __launch_bounds__(32 * NQW * NSPLIT) paged_prefill_mma_kernel(
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int t = t0 + qw * 16 + g + 8 * r;
-    const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
-        q + (((size_t)b * Tq + (t < Tq ? t : 0)) * H + h) * D);
+    const bf16* qrow = q + (((size_t)b * Tq + (t < Tq ? t : 0)) * H + h) * D;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
-      qf[kk][r] = t < Tq ? qrow[kk * 8 + tq] : 0u;
-      qf[kk][2 + r] = t < Tq ? qrow[kk * 8 + 4 + tq] : 0u;
+      qf[kk][r] = t < Tq ? attn::load_pair(qrow, kk * 16 + 2 * tq, D, vec) : 0u;
+      qf[kk][2 + r] = t < Tq ? attn::load_pair(qrow, kk * 16 + 8 + 2 * tq, D, vec) : 0u;
     }
   }
 
   // this thread's copy slots: K/V rows r0 + k NT / SEG at segment seg
   const int r0 = gtid / SEG, seg = gtid % SEG;
-  const size_t kv_off = (size_t)kvh * D + seg * 8;
+  const size_t kv_off = (size_t)kvh * D;
   const float* bias_rows = bias + (((size_t)b * HB + hb) * Tq) * S;
   const int* trow = table + (size_t)b * TB;
 
@@ -215,8 +219,8 @@ __global__ void __launch_bounds__(32 * NQW * NSPLIT) paged_prefill_mma_kernel(
         const bool valid = c * KC + r < S;
         const int blk = min(max(ids[k], 0), NB - 1);
         const size_t off = (size_t)(blk * bs + (valid ? rin[k] : 0)) * KV * D + kv_off;
-        cp_async_16(kt + r * PITCH + seg * 8, k_pool + off, valid);
-        cp_async_16(vt + r * PITCH + seg * 8, v_pool + off, valid);
+        attn::copy_seg(kt + r * PITCH + seg * 8, k_pool + off, seg * 8, D, valid, vec);
+        attn::copy_seg(vt + r * PITCH + seg * 8, v_pool + off, seg * 8, D, valid, vec);
       }
     }
     if (bias_vec) {
@@ -356,7 +360,7 @@ __global__ void __launch_bounds__(32 * NQW * NSPLIT) paged_prefill_mma_kernel(
         const uint32_t pa[4] = {pp[2 * ks][0], pp[2 * ks][1], pp[2 * ks + 1][0],
                                 pp[2 * ks + 1][1]};
 #pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
+        for (int dp = 0; dp < DT / 16; ++dp) {
           uint32_t vf[4];  // keys ks*16 + 0-7 | 8-15, dims dp*16 + 0-7 | 8-15
           ldmatrix_x4_trans(vf, vt + (ks * 16 + (mi & 1) * 8 + (lane & 7)) * PITCH + dp * 16 +
                                     (mi >> 1) * 8);
@@ -381,8 +385,8 @@ __global__ void __launch_bounds__(32 * NQW * NSPLIT) paged_prefill_mma_kernel(
       bf16* orow = out + (((size_t)b * Tq + t) * H + h) * D;
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd)
-        *reinterpret_cast<__nv_bfloat162*>(orow + nd * 8 + 2 * tq) =
-            __floats2bfloat162_rn(acc[nd][2 * r] * inv, acc[nd][2 * r + 1] * inv);
+        attn::store_pair(orow, nd * 8 + 2 * tq, D, vec, acc[nd][2 * r] * inv,
+                         acc[nd][2 * r + 1] * inv);
     }
   } else {
     // merge the splits' partial states: each group parks (m, l) and its
@@ -402,8 +406,8 @@ __global__ void __launch_bounds__(32 * NQW * NSPLIT) paged_prefill_mma_kernel(
             make_float2(acc[nd][2 * r], acc[nd][2 * r + 1]);
     }
     __syncthreads();
-    for (int e = threadIdx.x; e < QROWS * D / 2; e += blockDim.x) {
-      const int row = (2 * e) / D, d = (2 * e) % D;
+    for (int e = threadIdx.x; e < QROWS * DT / 2; e += blockDim.x) {
+      const int row = (2 * e) / DT, d = (2 * e) % DT;
       const int t = t0 + row;
       if (t >= Tq) continue;
       float mst = -INFINITY;
@@ -422,19 +426,18 @@ __global__ void __launch_bounds__(32 * NQW * NSPLIT) paged_prefill_mma_kernel(
         den += w * st.y;
       }
       const float inv = den > 0.f ? 1.f / den : 0.f;
-      *reinterpret_cast<__nv_bfloat162*>(out + (((size_t)b * Tq + t) * H + h) * D + d) =
-          __floats2bfloat162_rn(x * inv, y * inv);
+      attn::store_pair(out + (((size_t)b * Tq + t) * H + h) * D, d, D, vec, x * inv, y * inv);
     }
   }
 }
 
-template <int D, int NQW, int NSPLIT, int STAGES, int KC>
+template <int DT, int NQW, int NSPLIT, int STAGES, int KC, bool VEC>
 int launch_mma(const void* q, const void* k_pool, const void* v_pool,
                const void* table, const void* bias, void* out, int B, int Tq,
-               int H, int KV, int NB, int bs, int TB, int HB, int S,
+               int H, int KV, int D, int NB, int bs, int TB, int HB, int S,
                cudaStream_t stream) {
-  constexpr int smem = smem_bytes<D, NQW, NSPLIT, STAGES, KC>();
-  auto kernel = paged_prefill_mma_kernel<D, NQW, NSPLIT, STAGES, KC>;
+  constexpr int smem = smem_bytes<DT, NQW, NSPLIT, STAGES, KC>();
+  auto kernel = paged_prefill_mma_kernel<DT, NQW, NSPLIT, STAGES, KC, VEC>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -444,7 +447,7 @@ int launch_mma(const void* q, const void* k_pool, const void* v_pool,
   dim3 grid((Tq + 16 * NQW - 1) / (16 * NQW), H, B);
   kernel<<<grid, 32 * NQW * NSPLIT, smem, stream>>>(
       (const bf16*)q, (const bf16*)k_pool, (const bf16*)v_pool, (const int32_t*)table,
-      (const float*)bias, (bf16*)out, Tq, H, KV, NB, bs, make_fast_div(bs), TB, HB, S,
+      (const float*)bias, (bf16*)out, Tq, H, KV, D, NB, bs, make_fast_div(bs), TB, HB, S,
       bias_vec, 1.f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
@@ -452,38 +455,58 @@ int launch_mma(const void* q, const void* k_pool, const void* v_pool,
 // the layout by T. A verify-sized span (T <= 16): one 16-row tile, the
 // row's 16-column chunks split over 4 warps, double-buffered. A prefill
 // span: 2 warps of 16 queries over shared 32-column chunks, three stages
-// (two chunks in flight; two stages at D = 128 bound the ring).
-template <int D>
+// (two chunks in flight; two stages at DT = 128 bound the ring).
+template <int DT, bool VEC>
+int launch_layout(const void* q, const void* k_pool, const void* v_pool,
+                  const void* table, const void* bias, void* out, int B, int Tq,
+                  int H, int KV, int D, int NB, int bs, int TB, int HB, int S,
+                  cudaStream_t stream) {
+  if (Tq <= 16)
+    return launch_mma<DT, 1, 4, 2, 16, VEC>(q, k_pool, v_pool, table, bias, out, B, Tq, H, KV,
+                                            D, NB, bs, TB, HB, S, stream);
+  constexpr int STAGES = DT >= 128 ? 2 : 3;
+  return launch_mma<DT, 2, 1, STAGES, 32, VEC>(q, k_pool, v_pool, table, bias, out, B, Tq, H,
+                                               KV, D, NB, bs, TB, HB, S, stream);
+}
+
+// the copy path by the shape: 16-byte copies when D % 8 == 0 and the
+// operands are 16-byte aligned, element by element otherwise
+template <int DT>
 int launch_bf16(const void* q, const void* k_pool, const void* v_pool,
                 const void* table, const void* bias, void* out, int B, int Tq,
-                int H, int KV, int NB, int bs, int TB, int HB, int S,
+                int H, int KV, int D, int NB, int bs, int TB, int HB, int S, int vec,
                 cudaStream_t stream) {
-  if (Tq <= 16)
-    return launch_mma<D, 1, 4, 2, 16>(q, k_pool, v_pool, table, bias, out, B, Tq, H, KV,
-                                      NB, bs, TB, HB, S, stream);
-  constexpr int STAGES = D >= 128 ? 2 : 3;
-  return launch_mma<D, 2, 1, STAGES, 32>(q, k_pool, v_pool, table, bias, out, B, Tq, H,
-                                         KV, NB, bs, TB, HB, S, stream);
+  if (vec)
+    return launch_layout<DT, true>(q, k_pool, v_pool, table, bias, out, B, Tq, H, KV, D, NB,
+                                   bs, TB, HB, S, stream);
+  return launch_layout<DT, false>(q, k_pool, v_pool, table, bias, out, B, Tq, H, KV, D, NB,
+                                  bs, TB, HB, S, stream);
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores
+// CUDA cores: f32, and bf16 at D > 128
 // ---------------------------------------------------------------------------
 
 constexpr int QT = 16;  // query rows per thread block
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void from_f(float x, float* y) { *y = x; }
+__device__ __forceinline__ void from_f(float x, bf16* y) { *y = __float2bfloat16(x); }
 
 // one thread block per (q tile of QT rows, head, row): the row's blocks
 // are walked one pool block at a time, each block's bs x D K and V tiles
 // landed in shared memory once per tile of QT queries, with an online
 // softmax (running max and sum in f32) and the output accumulator in
 // shared memory
-__global__ void paged_prefill_f32_kernel(
-    const float* __restrict__ q,        // (B, T, H, D)
-    const float* __restrict__ k_pool,   // (NB, bs, KV, D)
-    const float* __restrict__ v_pool,   // (NB, bs, KV, D)
+template <typename T>
+__global__ void paged_prefill_cc_kernel(
+    const T* __restrict__ q,            // (B, T, H, D)
+    const T* __restrict__ k_pool,       // (NB, bs, KV, D)
+    const T* __restrict__ v_pool,       // (NB, bs, KV, D)
     const int32_t* __restrict__ table,  // (B, TB)
     const float* __restrict__ bias,     // (B, HB, T, S)
-    float* __restrict__ out,            // (B, T, H, D)
+    T* __restrict__ out,                // (B, T, H, D)
     int Tq, int H, int KV, int D, int NB, int bs, int TB, int HB, int S,
     float scale) {
   const int t0 = blockIdx.x * QT;
@@ -507,7 +530,7 @@ __global__ void paged_prefill_f32_kernel(
 
   for (int i = tid; i < QT * D; i += nth) {
     const int r = i / D, d = i % D;
-    q_s[i] = r < nq ? q[(((size_t)b * Tq + t0 + r) * H + h) * D + d] : 0.f;
+    q_s[i] = r < nq ? to_f(q[(((size_t)b * Tq + t0 + r) * H + h) * D + d]) : 0.f;
     acc[i] = 0.f;
   }
   for (int r = tid; r < QT; r += nth) {
@@ -524,8 +547,8 @@ __global__ void paged_prefill_f32_kernel(
     for (int i = tid; i < bs * D; i += nth) {
       const int r = i / D, d = i % D;
       const size_t off = (((size_t)blk * bs + r) * KV + kvh) * D + d;
-      k_s[i] = k_pool[off];
-      v_s[i] = v_pool[off];
+      k_s[i] = to_f(k_pool[off]);
+      v_s[i] = to_f(v_pool[off]);
     }
     __syncthreads();
     for (int i = tid; i < QT * bs; i += nth) {
@@ -568,33 +591,35 @@ __global__ void paged_prefill_f32_kernel(
   for (int i = tid; i < nq * D; i += nth) {
     const int r = i / D, d = i % D;
     const float l = l_s[r];
-    out[(((size_t)b * Tq + t0 + r) * H + h) * D + d] = l > 0.f ? acc[i] / l : 0.f;
+    from_f(l > 0.f ? acc[i] / l : 0.f, &out[(((size_t)b * Tq + t0 + r) * H + h) * D + d]);
   }
 }
 
-int launch_f32(const void* q, const void* k_pool, const void* v_pool,
-               const void* table, const void* bias, void* out, int B, int Tq,
-               int H, int KV, int D, int NB, int bs, int TB, int HB, int S,
-               cudaStream_t stream) {
+template <typename T>
+int launch_cc(const void* q, const void* k_pool, const void* v_pool,
+              const void* table, const void* bias, void* out, int B, int Tq,
+              int H, int KV, int D, int NB, int bs, int TB, int HB, int S,
+              cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       ((size_t)QT * D * 2 + (size_t)bs * D * 2 + (size_t)QT * bs + 3 * QT);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_prefill_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        paged_prefill_cc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid((Tq + QT - 1) / QT, H, B);
-  paged_prefill_f32_kernel<<<grid, 128, smem, stream>>>(
-      (const float*)q, (const float*)k_pool, (const float*)v_pool, (const int32_t*)table,
-      (const float*)bias, (float*)out, Tq, H, KV, D, NB, bs, TB, HB, S,
-      1.f / sqrtf((float)D));
+  paged_prefill_cc_kernel<T><<<grid, 128, smem, stream>>>(
+      (const T*)q, (const T*)k_pool, (const T*)v_pool, (const int32_t*)table,
+      (const float*)bias, (T*)out, Tq, H, KV, D, NB, bs, TB, HB, S, 1.f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it). bf16 takes
-// D in {16, 32, 64, 128} and 16-byte aligned operands (the wrapper checks).
+// dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it). bf16 at
+// D <= 128 runs on tensor cores (D padded to 16, 32, 64 or 128 inside the
+// loads), f32 and bf16 at D > 128 on CUDA cores; the wrapper rejects
+// D > 256.
 extern "C" int paged_prefill(const void* q, const void* k_pool,
                              const void* v_pool, const void* table,
                              const void* bias, void* out, int B, int Tq, int H,
@@ -602,22 +627,25 @@ extern "C" int paged_prefill(const void* q, const void* k_pool,
                              int S, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_f32(q, k_pool, v_pool, table, bias, out, B, Tq, H, KV, D, NB, bs,
-                      TB, HB, S, st);
-  switch (D) {
+    return launch_cc<float>(q, k_pool, v_pool, table, bias, out, B, Tq, H, KV, D, NB, bs,
+                            TB, HB, S, st);
+  if (D > 128)
+    return launch_cc<bf16>(q, k_pool, v_pool, table, bias, out, B, Tq, H, KV, D, NB, bs, TB,
+                           HB, S, st);
+  const int vec = D % 8 == 0 && attn::aligned16(q) && attn::aligned16(k_pool) &&
+                  attn::aligned16(v_pool) && attn::aligned16(out);
+  switch (attn::padded_dim(D)) {
     case 16:
-      return launch_bf16<16>(q, k_pool, v_pool, table, bias, out, B, Tq, H, KV, NB,
-                             bs, TB, HB, S, st);
+      return launch_bf16<16>(q, k_pool, v_pool, table, bias, out, B, Tq, H, KV, D, NB, bs, TB,
+                             HB, S, vec, st);
     case 32:
-      return launch_bf16<32>(q, k_pool, v_pool, table, bias, out, B, Tq, H, KV, NB,
-                             bs, TB, HB, S, st);
+      return launch_bf16<32>(q, k_pool, v_pool, table, bias, out, B, Tq, H, KV, D, NB, bs, TB,
+                             HB, S, vec, st);
     case 64:
-      return launch_bf16<64>(q, k_pool, v_pool, table, bias, out, B, Tq, H, KV, NB,
-                             bs, TB, HB, S, st);
-    case 128:
-      return launch_bf16<128>(q, k_pool, v_pool, table, bias, out, B, Tq, H, KV, NB,
-                              bs, TB, HB, S, st);
+      return launch_bf16<64>(q, k_pool, v_pool, table, bias, out, B, Tq, H, KV, D, NB, bs, TB,
+                             HB, S, vec, st);
     default:
-      return (int)cudaErrorInvalidValue;
+      return launch_bf16<128>(q, k_pool, v_pool, table, bias, out, B, Tq, H, KV, D, NB, bs,
+                              TB, HB, S, vec, st);
   }
 }

@@ -6,8 +6,12 @@ Hopper, each with a plain PyTorch version beside it:
 - :func:`flash_fwd` (``csrc/flash_fwd.cu``): online-softmax attention that
   emits the output and the per-row logsumexp ``lse``;
 - :func:`flash_bwd` (``csrc/flash_bwd.cu``): dq, dk and dv recomputed from
-  ``lse`` and ``delta = rowsum(do * out)`` (two launches, dk/dv then dq;
-  in bf16 on tensor cores, for head dims 16, 32, 64 and 128).
+  ``lse`` and ``delta = rowsum(do * out)`` (two launches, dk/dv then dq).
+
+Both run bf16 on tensor cores at head dims up to 128 (compiled for 16, 32,
+64 and 128, any other D padded inside the loads), bf16 at D in (128, 256]
+and f32 on CUDA cores; the C entries choose by D before the launch. D
+above 256 raises.
 
 :class:`_FlashAttention` pairs them as a ``torch.autograd.Function``, the
 counterpart of the JAX module's ``custom_vjp``; :func:`flash_attention` is
@@ -148,6 +152,7 @@ def flash_fwd(
         raise ValueError(f"flash_fwd runs on cuda or cpu, not {q.device}")
     _check_flash_operands(q, k, v, key_mask, q_positions, k_positions, alibi_slopes)
     B, T, H, D = q.shape
+    check_head_dim("flash_fwd", D)
     S, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
@@ -216,8 +221,7 @@ def flash_bwd(
     check_cuda_operand(lse, "lse", q.device, (torch.float32,))
     check_cuda_operand(delta, "delta", q.device, (torch.float32,))
     B, T, H, D = q.shape
-    if q.dtype == torch.bfloat16:  # the tensor-core kernels' template limits
-        check_head_dim("bf16 flash_bwd", D, q, k, v, do)
+    check_head_dim("flash_bwd", D)
     S, KV = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)

@@ -46,7 +46,7 @@ __all__ = [
     "kernel_fn",
     "check_launch",
     "check_cuda_operand",
-    "HEAD_DIMS",
+    "MAX_HEAD_DIM",
     "check_head_dim",
     "current_stream_ptr",
     "clamp_block_table",
@@ -200,18 +200,19 @@ def check_cuda_operand(
         raise ValueError(f"{name} must be contiguous")
 
 
-HEAD_DIMS = (16, 32, 64, 128)
+# The largest head dim the attention kernels take. The tensor-core kernels
+# are compiled for padded head dims 16, 32, 64 and 128 and take any D up to
+# 128 padded inside their loads; bf16 at D in (128, 256] runs the CUDA-core
+# kernels, f32 always does; the decode kernel runs on CUDA cores with a
+# padded 256 besides. Each C entry picks its instantiation by D (and by the
+# operands' 16-byte alignment) before the launch.
+MAX_HEAD_DIM = 256
 
 
-def check_head_dim(what: str, D: int, *tensors: torch.Tensor) -> None:
-    """Raise unless ``D`` is one of :data:`HEAD_DIMS` (the head dims the
-    kernels that copy rows 16 bytes at a time are templated on) and every
-    tensor starts on a 16-byte boundary."""
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{what} takes head dim D in {HEAD_DIMS}, not D={D}")
-    for t in tensors:
-        if t.data_ptr() % 16:
-            raise ValueError(f"{what} needs 16-byte aligned operands")
+def check_head_dim(what: str, D: int) -> None:
+    """Raise unless ``1 <= D <= MAX_HEAD_DIM``."""
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"{what} takes head dim D <= {MAX_HEAD_DIM}, not D={D}")
 
 
 def current_stream_ptr(device: torch.device) -> int:

@@ -15,7 +15,7 @@ version beside it:
   delegates to the Pallas prefill kernel; it counts its own launches.
 - :func:`fused_sample` (``csrc/fused_sample.cu``) runs the temperature /
   top-k / top-p filter, the Gumbel-argmax draw and the behaviour logprob
-  as one kernel per row, without a sort.
+  as one kernel, one thread-block cluster per row, without a sort.
 
 A wrapper runs its plain version only for tensors on the CPU (the CPU
 tests); for CUDA tensors it launches the kernel or raises — there is no
@@ -24,8 +24,9 @@ attribute, so a run can show that the main path went through the kernel.
 
 The contract is tolerance parity with the plain versions (and, through
 them, with the JAX package), not the TPU kernels' bit parity: the CUDA
-attention uses an online softmax and the sampler sums probabilities in a
-different order than ``cumsum`` (see the sources' notes).
+attention uses an online softmax and the sampler sums its top-p masses
+exactly in fixed point where ``cumsum`` rounds in f32 (see the sources'
+notes).
 """
 
 import ctypes
@@ -59,6 +60,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # key columns per block of the decode kernel: csrc/paged_decode.cu's
 # SPAN_COLS, which this sizes the merge scratch for (a test ties the two)
 DECODE_SPAN_COLS = 256
+# the widest row csrc/fused_sample.cu takes: its CLUSTER blocks' slices of
+# at most MAX_SLICE logits each (16-bit halves of the masses cannot overflow)
+SAMPLE_MAX_VOCAB = 8 * 65535
 
 
 def _check_paged_shapes(H, KV, HB, S, TB, bs):
@@ -94,9 +98,11 @@ def paged_attention_decode(
 ) -> torch.Tensor:
     """One decode step of attention, reading K/V through the block table.
     Returns ``(B, H, D)`` in ``q.dtype``. The pool is only read. On CUDA
-    tensors D is one of 16, 32, 64 and 128; rows longer than
-    :data:`DECODE_SPAN_COLS` columns are split over that many columns per
-    block and merged by a second launch (one call, one count)."""
+    tensors D is at most 256: the kernel is compiled for padded head dims
+    16, 32, 64, 128 and 256 and reads the true D from the pool in place (no
+    padded copy); rows longer than :data:`DECODE_SPAN_COLS` columns are
+    split over that many columns per block and merged by a second launch
+    (one call, one count)."""
     B, H, D = q.shape
     NB, bs, KV, _ = k_pool.shape
     TB = block_table.shape[1]
@@ -107,7 +113,7 @@ def paged_attention_decode(
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_decode runs on cuda or cpu, not {q.device}")
     _check_paged_operands(q, k_pool, v_pool, block_table, bias)
-    check_head_dim("paged_attention_decode", D, q, k_pool, v_pool)
+    check_head_dim("paged_attention_decode", D)
     out = torch.empty_like(q)
     spans = -(-S // DECODE_SPAN_COLS)
     part = None
@@ -222,8 +228,12 @@ def fused_sample(
     top_k: int,
     top_p: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One fused kernel per row: filter + draw + behaviour logprob.
-    Returns ``(token [B] int32, logprob [B] f32)``."""
+    """Filter + draw + behaviour logprob in one kernel launch: a cluster of
+    8 thread blocks per row, each owning a slice of the vocabulary in its
+    shared memory, the top-k and top-p thresholds found by radix select
+    over the logits' order-preserving integer keys, merged through the
+    cluster's distributed shared memory. Deterministic. Returns
+    ``(token [B] int32, logprob [B] f32)``."""
     B, V = logits.shape
     if logits.device.type == "cpu":
         return fused_sample_reference(
@@ -232,6 +242,8 @@ def fused_sample(
     if logits.device.type != "cuda":
         raise ValueError(f"fused_sample runs on cuda or cpu, not {logits.device}")
     check_cuda_operand(logits, "logits", logits.device, (torch.float32,))
+    if V > SAMPLE_MAX_VOCAB:
+        raise ValueError(f"fused_sample takes rows of at most {SAMPLE_MAX_VOCAB} logits, not {V}")
     if gumbel is not None:
         check_cuda_operand(gumbel, "gumbel", logits.device, (torch.float32,))
         if gumbel.shape != logits.shape:

@@ -9,9 +9,10 @@ layouts chosen by ``T``: above 16 queries (prefill) a block of two warps
 holds 32 queries of one (row, head) over shared 32-column chunks, three
 stages deep; at 16 or fewer (the speculative verify's ``G + 1``) a block
 of four warps splits the row's 16-column chunks, each warp
-double-buffered, and merges the four partial softmax states. bf16 takes
-head dims 16, 32, 64 and 128. The f32 kernel (the parity runs) stays on CUDA
-cores. The chunk's own K/V is committed through the table by the caller
+double-buffered, and merges the four partial softmax states. The bf16
+kernel is compiled for head dims 16, 32, 64 and 128 and takes any D up to
+128 padded inside its loads; bf16 at D in (128, 256] runs the CUDA-core
+kernel, chosen by D in the C dispatch, as does f32 (the parity runs). The chunk's own K/V is committed through the table by the caller
 (``models/transformer.py::Attention``) before the call, so no dense view
 exists on entry and nothing is scattered on exit. Masked key columns
 carry the ``-1e9`` additive bias and contribute exactly 0.
@@ -82,8 +83,7 @@ def span_launch_args(q, k_pool, v_pool, block_table, bias, caller: str):
         raise ValueError(f"{caller} runs on cuda or cpu, not {q.device}")
     _check_paged_operands(q, k_pool, v_pool, block_table, bias)
     B, T, H, D = q.shape
-    if q.dtype == torch.bfloat16:  # the tensor-core kernel's template limits
-        check_head_dim("bf16 paged span attention", D, q, k_pool, v_pool)
+    check_head_dim("paged span attention", D)
     NB, bs, KV, _ = k_pool.shape
     out = torch.empty_like(q)
     args = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_table.data_ptr(),

@@ -33,8 +33,7 @@ import numpy as np
 import torch
 
 # substrings of the device kernel names, by group
-_PORT_KERNELS = ("paged_decode_", "paged_prefill_mma_kernel", "paged_prefill_f32_kernel",
-                 "fused_sample_kernel")
+_PORT_KERNELS = ("paged_decode_", "paged_prefill_", "fused_sample_")
 # cuBLAS's kernels on Hopper are named nvjet_*
 _MATMUL = ("gemm", "gemv", "cutlass", "xmma", "cublas", "splitk", "nvjet")
 

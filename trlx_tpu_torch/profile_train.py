@@ -35,8 +35,7 @@ import torch
 from trlx_tpu_torch.profile_serve import _MATMUL, _busy_us, device_events
 
 # substrings of the device kernel names, by group
-_PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_", "flash_bwd_dq_",
-                 "fused_loss_fwd_kernel", "fused_loss_bwd_kernel")
+_PORT_KERNELS = ("flash_fwd_", "flash_bwd_", "fused_loss_fwd_", "fused_loss_bwd_")
 _OPTIMIZER = ("adam", "multi_tensor", "foreach")
 
 REWARD_BYTES = set(b"etaoin shrdlu")
