@@ -18,9 +18,10 @@ Phases, each printing one JSON line:
 3. every kernel against its plain PyTorch version on the card, at the
    serving slice's shapes, at the paged span kernel's layout edges (T = 5
    and 17), at a GQA shape, (decode) at a 1000-column row and every
-   attention kernel at head dims 12, 48, 96 and 256, in bf16 and f32; the
-   fused sampler in every mode the paths meet at B = 8 and 32 and on a
-   128256-wide row; with the max error, the
+   attention kernel at head dims 12, 48, 96, 256, 320 and 512, in bf16 and
+   f32; the fused sampler in every mode the paths meet at B = 8 and 32 and
+   on a 128256-wide row; the fused loss at (B, R) = (16, 40), (32, 40) and
+   (32, 128), IW on and off, with its residuals; with the max error, the
    stated tolerance, kernel / plain / library times (device time per call
    of back-to-back calls enqueued behind a sleeping card, and the per-call
    time with the host's launch, ``call_ms``; see ``time_ms``) and the least
@@ -237,7 +238,8 @@ def phase_device():
 # the sources whose kernels' resources phase_build reports (the redesigned
 # kernels), and whether their bf16 kernels run on tensor cores
 RESOURCE_SOURCES = {"paged_prefill": True, "flash_bwd": True, "paged_decode": False,
-                    "flash_fwd": True, "fused_sample": False}
+                    "flash_fwd": True, "fused_sample": False, "fused_loss_fwd": False,
+                    "fused_loss_bwd": False}
 
 
 def phase_build():
@@ -562,8 +564,9 @@ def phase_kernels():
         if "kernel_ms" in rec:
             timed["paged_verify"] = rec
     # every attention kernel at head dims off the tensor-core templates
-    # (padded inside the loads) and at 256 (CUDA cores for the span kernel,
-    # decode's padded 256), GQA, in both types
+    # (padded inside the loads), at 256 (CUDA cores for the span kernel,
+    # decode's padded 256) and above (split over the head dim), GQA, in
+    # both types
     for D in HEAD_DIM_CHECKS:
         geo = dict(B=4, H=8, KV=4, D=D, bs=16, S=104, HB=1)
         for dtype in (torch.bfloat16, torch.float32):
@@ -586,8 +589,9 @@ def phase_kernels():
 
 
 # head dims besides the kernels' templates: the randomwalks model's 12, 48,
-# gptneox-20b's 96 and gptj-6b's 256
-HEAD_DIM_CHECKS = (12, 48, 96, 256)
+# gptneox-20b's 96 and gptj-6b's 256; 320 and 512, which the CUDA-core
+# kernels split into 256-column chunks (a ragged and an even last chunk)
+HEAD_DIM_CHECKS = (12, 48, 96, 256, 320, 512)
 
 
 # ---------------------------------------------------------------------------
@@ -973,7 +977,8 @@ def edge_values(p, ops):
 
 def check_loss(B, R, use_iw, seed, timed=False):
     """Kernels #7 and #8 against their plain versions: the loss, every
-    stat, every bin, dlogprobs and dvalues."""
+    stat, every bin, the residuals (raw advantages and returns, whitening
+    moments), dlogprobs and dvalues."""
     from trlx_tpu_torch.ops.fused_loss import (
         LossParams,
         fused_loss_bwd,
@@ -988,13 +993,14 @@ def check_loss(B, R, use_iw, seed, timed=False):
     ops = loss_operands(B, R, seed, dev)[: 7 if use_iw else 6]
     g = torch.tensor(1.0, device=dev)
     before = (fused_loss_fwd.launches, fused_loss_bwd.launches)
-    loss, sc, hist = fused_loss_fwd(p, ops)
-    dlp, dv = fused_loss_bwd(p, ops, g)
+    loss, sc, hist, res = fused_loss_fwd(p, ops)
+    dlp, dv = fused_loss_bwd(p, ops, res, g)
     torch.cuda.synchronize()
-    wloss, wsc, whist = fused_loss_fwd_reference(p, ops)
-    wlp, wv = fused_loss_bwd_reference(p, ops, g)
+    wloss, wsc, whist, wres = fused_loss_fwd_reference(p, ops)
+    wlp, wv = fused_loss_bwd_reference(p, ops, wres, g)
     errs = {"loss": excess(loss, wloss, LOSS_ATOL, LOSS_RTOL),
             "stats": excess(sc, wsc, LOSS_ATOL, LOSS_RTOL),
+            "residuals": excess(res, wres, LOSS_ATOL, LOSS_RTOL),
             "dlogprobs": excess(dlp, wlp, LOSS_GRAD_ATOL, LOSS_RTOL),
             "dvalues": excess(dv, wv, LOSS_GRAD_ATOL, LOSS_RTOL)}
     bin_diff = float((hist - whist).abs().sum())
@@ -1008,14 +1014,17 @@ def check_loss(B, R, use_iw, seed, timed=False):
         raise AssertionError(f"fused loss ({B}, {R}, iw={use_iw}) disagrees: {rec}")
     if timed:
         n = B * R
-        fwd_bytes = 4 * n * len(ops) + 4 * (1 + sc.numel() + hist.numel())
-        bwd_bytes = 4 * n * (len(ops) + 2) + 4
+        # forward: the operands read, the residuals, loss, stats, sketches
+        # and moments written; backward: the operands but the rewards and the
+        # residuals read, two gradients written
+        fwd_bytes = 4 * n * len(ops) + 4 * (2 * n + 1 + sc.numel() + hist.numel() + 3)
+        bwd_bytes = 4 * n * (len(ops) - 1 + 2) + 4 * (3 + 1) + 4 * 2 * n
         # no single PyTorch call computes either
         rec["fwd"] = {**timed_pair(lambda: fused_loss_fwd(p, ops),
                                    lambda: fused_loss_fwd_reference(p, ops)),
                       "library_ms": None}
-        rec["bwd"] = {**timed_pair(lambda: fused_loss_bwd(p, ops, g),
-                                   lambda: fused_loss_bwd_reference(p, ops, g)),
+        rec["bwd"] = {**timed_pair(lambda: fused_loss_bwd(p, ops, res, g),
+                                   lambda: fused_loss_bwd_reference(p, ops, wres, g)),
                       "library_ms": None}
         # about 60 f32 operations per element forward (GAE, whitening,
         # both clipped losses, stats, sketches), about 40 backward
@@ -1024,6 +1033,14 @@ def check_loss(B, R, use_iw, seed, timed=False):
     fused_loss_fwd.launches, fused_loss_bwd.launches = before
     emit({**rec, "ok": True})
     return rec
+
+
+# the fused loss's (B, R): the training slice's, default_ppo_config's batch
+# of 32 at 40 new tokens, examples/hh/ppo_hh.py's 125M rung (batch 32, 128
+# new tokens) — the three timed, IW off — and a ragged shape and one past
+# the forward's staged shared-memory layout (read from global memory)
+LOSS_SHAPES = ((16, 40), (32, 40), (32, 128), (13, 77), (48, 160))
+LOSS_TIMED = LOSS_SHAPES[:3]
 
 
 def phase_train_kernels():
@@ -1041,17 +1058,18 @@ def phase_train_kernels():
         # (c) GQA, T != S, a query offset, a window, ALiBi, fully masked rows
         check_flash("gqa_window_alibi", B=2, T=77, S=300, H=32, KV=8, D=128, dtype=dtype,
                     seed=23, q_offset=223, window=64, alibi=True, dead_keys=(200, 290))
-        # (d) head dims off the tensor-core templates and 256 (CUDA cores)
+        # (d) head dims off the tensor-core templates, 256 (CUDA cores) and
+        # above (split over the head dim)
         for D in HEAD_DIM_CHECKS:
             check_flash(f"head_dim_{D}", B=2, T=90, S=90, H=8, KV=4, D=D, dtype=dtype,
                         seed=24 + D, alibi=D == 96)
         if bf:
             timed["flash_train"], timed["flash_long"] = a, b
-    for B, R in ((16, 40), (13, 77)):
+    for B, R in LOSS_SHAPES:
         for use_iw in (False, True):
             rec = check_loss(B, R, use_iw, seed=B * R + use_iw,
-                             timed=(B, R, use_iw) == (16, 40, False))
-            if "fwd" in rec:
+                             timed=(B, R) in LOSS_TIMED and not use_iw)
+            if (B, R, use_iw) == (16, 40, False):
                 timed["loss"] = rec
     return timed
 
@@ -1488,8 +1506,8 @@ def main():
     for name, rec, part, err in (
         ("flash_fwd", flash, "fwd", max(flash["max_abs_err"]["out"], flash["max_abs_err"]["lse"])),
         ("flash_bwd", flash, "bwd", max(flash["max_abs_err"][g] for g in ("dq", "dk", "dv"))),
-        ("fused_loss_fwd", loss, "fwd", max(loss["max_abs_err"]["loss"],
-                                            loss["max_abs_err"]["stats"])),
+        ("fused_loss_fwd", loss, "fwd", max(loss["max_abs_err"][k]
+                                            for k in ("loss", "stats", "residuals"))),
         ("fused_loss_bwd", loss, "bwd", max(loss["max_abs_err"]["dlogprobs"],
                                             loss["max_abs_err"]["dvalues"])),
     ):

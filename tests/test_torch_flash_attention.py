@@ -45,9 +45,10 @@ CASES = {
     "fully_masked_rows": (2, 10, 10, 2, 2, 8, True, 0, 0, 4, 0, False),
     "window_offsets_gqa_alibi": (2, 7, 19, 4, 2, 16, True, 5, 12, 0, 6, True),
     # head dims off the card kernels' templates: the randomwalks model's 12
-    # and gptneox-20b's 96
+    # and gptneox-20b's 96; 320, which the card splits over the head dim
     "head_dim_12_gqa": (2, 11, 11, 4, 2, 12, True, 2, 0, 0, 0, False),
     "head_dim_96_window_alibi": (1, 9, 13, 2, 2, 96, True, 2, 3, 0, 6, True),
+    "head_dim_320_gqa_alibi": (2, 9, 11, 4, 2, 320, True, 2, 0, 0, 0, True),
 }
 
 

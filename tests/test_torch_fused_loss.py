@@ -43,14 +43,19 @@ from trlx_tpu_torch.models.ppo import (
     kl_penalty_rewards_np,
 )
 from trlx_tpu_torch.ops.fused_loss import (
+    LossParams,
     fused_loss_bwd,
+    fused_loss_bwd_reference,
     fused_loss_fwd,
+    fused_loss_fwd_reference,
     fused_ppo_loss,
     loss_params_of,
+    residual_views,
     stat_keys,
 )
 from trlx_tpu_torch.utils.dynamics import SKETCH_BINS, SKETCH_RANGES
 from trlx_tpu_torch.utils.stats import RunningMoments, whiten
+from tests.torch_kernel_cases import loss_case
 
 B, R = 7, 13
 RTOL = 1e-5
@@ -160,6 +165,126 @@ def test_fused_loss_matches_jax(mask_kind, use_iw, tie_values):
     np.testing.assert_allclose(v.grad.numpy(), jgrads[1], rtol=RTOL, atol=1e-7)
 
 
+def kernel_lanes(R):
+    """The lanes the forward kernel gives a row (its launcher's rule)."""
+    return 32 if R > 64 else (16 if R > 32 else 8)
+
+
+def chunked_gae(ov, rw, gamma, gamma_lam, lanes):
+    """The forward kernel's GAE (``csrc/fused_loss_fwd.cu``), emulated in
+    f32: each of a row's ``lanes`` lanes runs A_t = delta_t + c A_{t+1}
+    backwards over its chunk of C = ceil(R / lanes) columns from A = 0,
+    keeping c^len; a Kogge-Stone suffix scan composes the lanes' (c^len,
+    A_first) pairs ((a, b) o (a', b') = (a a', b + a b')); a fix-up adds
+    c^(end - t) times the next lane's scanned value. Returns the raw
+    advantages and returns."""
+    Bn, Rn = ov.shape
+    C = -(-Rn // lanes)
+    pad = lanes * C - Rn
+    ovp = torch.nn.functional.pad(ov, (0, pad)).view(Bn, lanes, C)
+    rwp = torch.nn.functional.pad(rw, (0, pad)).view(Bn, lanes, C)
+    L = (Rn - torch.arange(lanes) * C).clamp(0, C)  # a lane's columns in range
+    g, c = torch.tensor(gamma, dtype=torch.float32), torch.tensor(gamma_lam, dtype=torch.float32)
+    zero = torch.zeros(Bn, 1)
+    nv = torch.cat([ovp[:, 1:, 0], zero], 1)  # the next lane's first value (0 past R)
+    A, a = torch.zeros(Bn, lanes), torch.ones(Bn, lanes)
+    local = torch.zeros(Bn, lanes, C)
+    for j in reversed(range(C)):
+        on = j < L
+        delta = (rwp[:, :, j] + g * nv) - ovp[:, :, j]
+        A = torch.where(on, delta + c * A, A)
+        a = torch.where(on, a * c, a)
+        nv = torch.where(on, ovp[:, :, j], nv)
+        local[:, :, j] = A
+    o = 1
+    while o < lanes:  # every lane reads its right neighbour's old pair
+        a2 = torch.cat([a[:, o:], torch.ones(Bn, o)], 1)
+        A2 = torch.cat([A[:, o:], torch.zeros(Bn, o)], 1)
+        inside = torch.arange(lanes) + o < lanes
+        A, a = torch.where(inside, A + a * A2, A), torch.where(inside, a * a2, a)
+        o *= 2
+    carry = torch.cat([A[:, 1:], zero], 1)
+    adv = torch.zeros(Bn, lanes, C)
+    pw = c.expand(Bn, lanes).clone()
+    for j in reversed(range(C)):
+        on = j < L
+        adv[:, :, j] = local[:, :, j] + pw * carry
+        pw = torch.where(on, pw * c, pw)
+    adv = adv.reshape(Bn, lanes * C)[:, :Rn]
+    return adv, adv + ov
+
+
+# every shape of this file and of the card's timed loss checks
+_GAE_SHAPES = [(B, R), (3, 5), (16, 40), (32, 40), (32, 128), (13, 77), (2, 33)]
+
+
+@pytest.mark.parametrize("gamma,lam", [(1.0, 0.95), (0.95, 0.9)])
+@pytest.mark.parametrize("shape", _GAE_SHAPES + [(4, 1024)])
+def test_chunked_gae_scan_matches_jax(shape, gamma, lam):
+    """The kernel's reassociated GAE rounds within the card's loss
+    tolerance of JAX's sequential scan: raw advantages and returns at
+    1e-5 relative (1e-6 absolute), and the whitened advantages too."""
+    ops = loss_case(*shape, seed=shape[0] * shape[1])
+    ov, rw, mask = ops[3], ops[4], ops[5]
+    jm = JaxPPOConfig(gamma=gamma, lam=lam)
+    jadv, jret = jm.get_advantages_and_returns(jnp.asarray(ov), jnp.asarray(rw),
+                                               use_whitening=False)
+    adv, ret = chunked_gae(torch.tensor(ov), torch.tensor(rw), gamma, float(gamma * lam),
+                           kernel_lanes(shape[1]))
+    np.testing.assert_allclose(adv.numpy(), np.asarray(jadv), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(ret.numpy(), np.asarray(jret), rtol=1e-5, atol=1e-6)
+    jw = jm.get_advantages_and_returns(jnp.asarray(ov), jnp.asarray(rw), jnp.asarray(mask))[0]
+    np.testing.assert_allclose(whiten(adv, torch.tensor(mask)).numpy(), np.asarray(jw),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("use_iw,tie_values", [(False, False), (True, False), (False, True),
+                                                (True, True)])
+def test_residual_plain_versions_match_jax(use_iw, tie_values):
+    """The plain forward returns the residuals the backward takes; loss and
+    stats equal JAX ``fused_ppo_loss`` and the gradients ``jax.grad`` at
+    1e-5 relative in f32, exact ties included."""
+    jm, tm = _methods(iw_correction="clip" if use_iw else "off")
+    ops, blp = _operands("allmasked_row", seed=9, tie_values=tie_values)
+    jops = [jnp.asarray(x) for x in ops]
+    jloss, jstats, jgrads = _jax_loss_and_grads(jm, jops, jnp.asarray(blp) if use_iw else None)
+    p = loss_params_of(tm)
+    tops = [torch.tensor(x) for x in ops] + ([torch.tensor(blp)] if use_iw else [])
+    loss, scalars, hists, res = fused_loss_fwd_reference(p, tops)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=RTOL, atol=1e-7)
+    keys = stat_keys(p, use_iw)[0]
+    for i, k in enumerate(keys):
+        np.testing.assert_allclose(float(scalars[i]), float(jstats[k]), rtol=RTOL, atol=1e-6,
+                                   err_msg=k)
+    # the residuals: JAX's raw GAE, its whitening moments and n
+    adv, ret, moments = residual_views(res, B, R)
+    jadv, jret = jm.get_advantages_and_returns(jops[3], jops[4], use_whitening=False)
+    np.testing.assert_allclose(adv.numpy(), np.asarray(jadv), rtol=RTOL, atol=1e-6)
+    np.testing.assert_allclose(ret.numpy(), np.asarray(jret), rtol=RTOL, atol=1e-6)
+    assert float(moments[2]) == max(float(ops[5].sum()), 1.0)
+    white = (adv - moments[0]) * moments[1]
+    jwhite = jm.get_advantages_and_returns(jops[3], jops[4], jops[5])[0]
+    np.testing.assert_allclose(white.numpy(), np.asarray(jwhite), rtol=RTOL, atol=1e-6)
+    g = torch.tensor(1.0)
+    dlp, dv = fused_loss_bwd_reference(p, tops, res, g)
+    np.testing.assert_allclose(dlp.numpy(), jgrads[0], rtol=RTOL, atol=1e-7)
+    np.testing.assert_allclose(dv.numpy(), jgrads[1], rtol=RTOL, atol=1e-7)
+
+
+def test_fused_loss_cuda_path_rejects_other_devices():
+    """A device neither CPU nor CUDA raises in both wrappers, before any
+    launch; the residuals pack (B, R), (B, R) and (3,) in one tensor."""
+    p = LossParams(gamma=1.0, lam=0.95, cliprange=0.2, cliprange_value=0.2, vf_coef=1.0,
+                   iw_correction="off", iw_clip=1.05, dist_sketches=True)
+    tops = [torch.tensor(x) for x in loss_case(4, 6, seed=1)[:6]]
+    res = fused_loss_fwd(p, tops)[3]
+    assert tuple(res.shape) == (2 * 4 * 6 + 3,)
+    assert [tuple(x.shape) for x in residual_views(res, 4, 6)] == [(4, 6), (4, 6), (3,)]
+    meta = [x.to("meta") for x in tops]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fused_loss_bwd(p, meta, res, torch.tensor(1.0))
+
+
 @pytest.mark.parametrize("use_iw", [False, True])
 @pytest.mark.parametrize("dist_sketches", [False, True])
 def test_stat_key_order_is_the_jax_discovery_order(use_iw, dist_sketches):
@@ -177,8 +302,9 @@ def test_fused_loss_wrappers_take_f32_only():
     p = loss_params_of(tm)
     with pytest.raises(ValueError, match="float32"):
         fused_loss_fwd(p, [tops[0].double()] + tops[1:])
+    res = fused_loss_fwd(p, tops)[3]
     with pytest.raises(ValueError, match="float32"):
-        fused_loss_bwd(p, tops[:5] + [tops[5].to(torch.bfloat16)], torch.tensor(1.0))
+        fused_loss_bwd(p, tops[:5] + [tops[5].to(torch.bfloat16)], res, torch.tensor(1.0))
     with pytest.raises(ValueError, match="cuda or cpu"):
         fused_loss_fwd(p, [x.to("meta") for x in tops])
 

@@ -9,13 +9,15 @@ from trlx_tpu_torch.ops.paged_kv import num_table_blocks
 
 # (B, T, H, KV, D, block_size, S): block sizes 1/3/4, S not a multiple of
 # the block size, GQA ratios 1/2/4, odd table widths; head dims 12 (the
-# randomwalks model's) and 96 (gptneox-20b's) besides the kernels' templates
+# randomwalks model's) and 96 (gptneox-20b's) besides the kernels'
+# templates, and 320 (above 256: split over the head dim on the card)
 GEOMETRIES = [
     (3, 5, 4, 2, 16, 3, 10),
     (2, 3, 8, 8, 32, 1, 7),
     (2, 4, 8, 2, 16, 4, 13),
     (2, 3, 4, 2, 12, 4, 11),
     (2, 4, 4, 4, 96, 3, 9),
+    (2, 3, 4, 2, 320, 4, 11),
 ]
 
 # on the card only, the bf16 tensor-core kernel's edges besides: T on both
@@ -28,8 +30,10 @@ GEOMETRIES = [
 # two blocks); head dims off the templates, padded inside the kernels (12,
 # 48, 96 on both sides of the layout switch, on the split decode row and in
 # a GQA group) and 256 (CUDA cores for the span kernel, four heads a block
-# for decode). Every geometry runs with head-uniform and per-head bias and
-# poisoned table ids.
+# for decode), and 320 and 512 (split into 256-column chunks: a ragged and
+# an even last chunk) with GQA, on both sides of the span kernel's layout
+# switch and on a split decode row. Every geometry runs with head-uniform
+# and per-head bias and poisoned table ids.
 CUDA_GEOMETRIES = GEOMETRIES + [
     (2, 1, 4, 4, 16, 1, 9),
     (3, 5, 8, 2, 64, 3, 40),
@@ -50,6 +54,9 @@ CUDA_GEOMETRIES = GEOMETRIES + [
     (2, 3, 12, 2, 256, 16, 50),
     (2, 20, 4, 4, 256, 3, 40),
     (1, 2, 8, 1, 256, 16, 300),
+    (2, 20, 4, 2, 320, 3, 40),
+    (2, 5, 8, 2, 512, 16, 45),
+    (1, 1, 4, 2, 512, 16, 600),
 ]
 
 SAMPLE_SETTINGS = [
@@ -96,6 +103,7 @@ VERIFY_CASES = [
     (5, 4, 8, 8, 32, 3, 11, 9, 2),
     (3, 2, 4, 2, 12, 4, 8, 6, 1),
     (3, 3, 4, 4, 96, 3, 7, 6, 1),
+    (3, 3, 4, 2, 320, 4, 8, 6, 1),
 ]
 
 # on the card only besides: D = 128 with GQA group 4, T = 16 at the bf16
@@ -108,6 +116,7 @@ CUDA_VERIFY_CASES = VERIFY_CASES + [
     (32, 4, 12, 12, 64, 16, 64, 40, 4),
     (4, 4, 4, 2, 48, 16, 30, 20, 1),
     (4, 4, 4, 4, 256, 16, 30, 20, 1),
+    (3, 4, 4, 2, 512, 16, 30, 20, 1),
 ]
 
 
@@ -171,7 +180,8 @@ def t(x):
 # sides of a tile edge, T = 1, GQA group 4 at D = 128 (dk/dv summed over the
 # group inside a block), a window edge inside a tile, and rows that see no
 # key across a whole tile; head dims 12, 48 and 96 (padded inside the
-# tensor-core kernels) and 256 (the CUDA-core kernels in bf16)
+# tensor-core kernels), 256 (the CUDA-core kernels in bf16), and 320 and
+# 512 with GQA (the CUDA-core kernels split over the head dim)
 FLASH_CASES = [
     (2, 13, 13, 4, 4, 64, True, 3, 0, 0, 0, False),
     (2, 40, 70, 8, 2, 64, True, 5, 30, 0, 0, False),
@@ -189,6 +199,8 @@ FLASH_CASES = [
     (1, 65, 80, 4, 2, 48, True, 5, 15, 0, 0, True),
     (2, 40, 40, 4, 2, 96, True, 2, 0, 0, 21, False),
     (1, 37, 50, 4, 2, 256, True, 3, 13, 0, 0, True),
+    (1, 37, 50, 4, 2, 320, True, 3, 13, 0, 9, True),
+    (2, 33, 33, 4, 2, 512, True, 2, 0, 0, 0, False),
 ]
 
 

@@ -70,10 +70,11 @@
 //   the split none does (tests/test_torch_flash_attention.py runs the
 //   emulation).
 //   Head dims: the kernels are compiled for D in {16, 32, 64, 128} and take
-//   any D up to 128 padded inside their loads (attn_common.cuh); D in (128,
-//   256] runs the CUDA-core kernels below in bf16 (at D = 256 the dk/dv
-//   accumulators alone would take 256 f32 registers a lane), chosen by D in
-//   the C dispatch before the launch.
+//   any D up to 128 padded inside their loads (attn_common.cuh); bf16 above
+//   128 runs the CUDA-core kernels below (at D = 256 the dk/dv accumulators
+//   alone would take 256 f32 registers a lane), chosen by D in the C
+//   dispatch before the launch; they split D above 256 into 256-column
+//   chunks (any D).
 //
 // f32 keeps the first version's CUDA-core kernels (scalar FMA from shared
 // memory, 32 x 32 tiles, q pre-scaled): the f32 parity runs hold the card
@@ -100,6 +101,7 @@ using attn::Geometry;
 constexpr int QT = 32;  // query rows per tile (f32)
 constexpr int KT = 32;  // key columns per tile (f32)
 constexpr int NTH = 256;
+constexpr int DCH = 256;  // head-dim chunk of the SPLIT kernels (D > 256)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -120,9 +122,17 @@ __device__ __forceinline__ bool visible(const Geometry& g, const float* kmask_ro
 // CUDA cores: f32, and bf16 at D > 128
 // ---------------------------------------------------------------------------
 
+// SPLIT (D > 256, any D), both kernels: grid x also counts ceil(D / DCH)
+// output chunks. Per tile pair the scores s = q.k and dp = do.v stream over
+// the head dim: q, do, K and V chunks of DCH columns land in the shared
+// tiles in turn, the partial dots carried across them in shared memory,
+// the chunks taken in the order that ends on the block's own output chunk,
+// which then stays in the tiles for its products (dk, dv: q and do; dq: K).
+// No tile grows past DCH columns; each output chunk recomputes s and dp.
+
 // 1. dk / dv
 
-template <typename T>
+template <typename T, bool SPLIT>
 __global__ void __launch_bounds__(NTH) flash_bwd_dkdv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ kmask, const int32_t* __restrict__ qpos,
@@ -130,11 +140,14 @@ __global__ void __launch_bounds__(NTH) flash_bwd_dkdv_kernel(
     const float* __restrict__ lse, const float* __restrict__ delta,
     const T* __restrict__ dout, T* __restrict__ dk, T* __restrict__ dv,
     Geometry g, float scale) {
-  const int s0 = blockIdx.x * KT;
+  const int nch = SPLIT ? (g.D + DCH - 1) / DCH : 1;  // head-dim chunks
+  const int oc = SPLIT ? blockIdx.x % nch : 0;        // this block's output chunk
+  const int s0 = (SPLIT ? blockIdx.x / nch : blockIdx.x) * KT;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int nk = min(KT, g.S - s0);
-  const int D = g.D, DP = D + 1;
+  const int D = g.D, DC = SPLIT ? DCH : D, DP = DC + 1;
+  const int d0 = oc * DC, od = SPLIT ? min(DC, D - d0) : D;
   const int group = g.H / g.KV;
   const int tid = threadIdx.x;
   const float* kmask_row = kmask + (size_t)b * g.S;
@@ -142,27 +155,29 @@ __global__ void __launch_bounds__(NTH) flash_bwd_dkdv_kernel(
   extern __shared__ float smem[];
   float* k_s = smem;             // KT * DP
   float* v_s = k_s + KT * DP;    // KT * DP
-  float* dk_s = v_s + KT * DP;   // KT * D
-  float* dv_s = dk_s + KT * D;   // KT * D
-  float* q_s = dv_s + KT * D;    // QT * D, pre-scaled
-  float* do_s = q_s + QT * D;    // QT * D
-  float* p_s = do_s + QT * D;    // QT * KT
+  float* dk_s = v_s + KT * DP;   // KT * DC
+  float* dv_s = dk_s + KT * DC;  // KT * DC
+  float* q_s = dv_s + KT * DC;   // QT * DC, pre-scaled
+  float* do_s = q_s + QT * DC;   // QT * DC
+  float* p_s = do_s + QT * DC;   // QT * KT
   float* ds_s = p_s + QT * KT;   // QT * KT
   float* lse_s = ds_s + QT * KT; // QT
   float* dl_s = lse_s + QT;      // QT
   float* qp_s = dl_s + QT;       // QT
   float* kp_s = qp_s + QT;       // KT
 
-  for (int i = tid; i < KT * D; i += NTH) {
-    const int c = i / D, d = i % D;
-    float kx = 0.f, vx = 0.f;
-    if (c < nk) {
-      const size_t off = (((size_t)b * g.S + s0 + c) * g.KV + kvh) * D + d;
-      kx = to_f(k[off]);
-      vx = to_f(v[off]);
+  for (int i = tid; i < KT * DC; i += NTH) {
+    if (!SPLIT) {
+      const int c = i / D, d = i % D;
+      float kx = 0.f, vx = 0.f;
+      if (c < nk) {
+        const size_t off = (((size_t)b * g.S + s0 + c) * g.KV + kvh) * D + d;
+        kx = to_f(k[off]);
+        vx = to_f(v[off]);
+      }
+      k_s[c * DP + d] = kx;
+      v_s[c * DP + d] = vx;
     }
-    k_s[c * DP + d] = kx;
-    v_s[c * DP + d] = vx;
     dk_s[i] = 0.f;
     dv_s[i] = 0.f;
   }
@@ -183,7 +198,7 @@ __global__ void __launch_bounds__(NTH) flash_bwd_dkdv_kernel(
     for (int iq = lo; iq < hi; ++iq) {
       const int t0 = iq * QT;
       const int nq = min(QT, g.Tq - t0);
-      for (int i = tid; i < QT * D; i += NTH) {
+      for (int i = tid; i < (SPLIT ? 0 : QT * D); i += NTH) {
         const int r = i / D, d = i % D;
         float qx = 0.f, dx = 0.f;
         if (r < nq) {
@@ -200,15 +215,60 @@ __global__ void __launch_bounds__(NTH) flash_bwd_dkdv_kernel(
         dl_s[r] = r < nq ? delta[row] : 0.f;
         qp_s[r] = (slopes != nullptr && r < nq) ? (float)qpos[(size_t)b * g.Tq + t0 + r] : 0.f;
       }
-      __syncthreads();
+      if (SPLIT) {  // partial s (p_s) and dp (ds_s) over the chunks, own chunk last
+        for (int n = 1; n <= nch; ++n) {
+          const int cc = (oc + n) % nch, c0 = cc * DC, w = min(DC, D - c0);
+          for (int i = tid; i < QT * DC; i += NTH) {
+            const int r = i / DC, d = i % DC;
+            float qx = 0.f, dx = 0.f;
+            if (r < nq && d < w) {
+              const size_t off = (((size_t)b * g.Tq + t0 + r) * g.H + h) * D + c0 + d;
+              qx = to_f(q[off]) * scale;
+              dx = to_f(dout[off]);
+            }
+            q_s[i] = qx;
+            do_s[i] = dx;
+          }
+          for (int i = tid; i < KT * DC; i += NTH) {
+            const int c = i / DC, d = i % DC;
+            float kx = 0.f, vx = 0.f;
+            if (c < nk && d < w) {
+              const size_t off = (((size_t)b * g.S + s0 + c) * g.KV + kvh) * D + c0 + d;
+              kx = to_f(k[off]);
+              vx = to_f(v[off]);
+            }
+            k_s[c * DP + d] = kx;
+            v_s[c * DP + d] = vx;
+          }
+          __syncthreads();
+          for (int i = tid; i < QT * KT; i += NTH) {
+            const int r = i / KT, c = i % KT;
+            float s = n == 1 ? 0.f : p_s[i], dp = n == 1 ? 0.f : ds_s[i];
+            for (int d = 0; d < w; ++d) {
+              s += q_s[r * DC + d] * k_s[c * DP + d];
+              dp += do_s[r * DC + d] * v_s[c * DP + d];
+            }
+            p_s[i] = s;
+            ds_s[i] = dp;
+          }
+          if (n < nch) __syncthreads();
+        }
+      } else {
+        __syncthreads();
+      }
       for (int i = tid; i < QT * KT; i += NTH) {
         const int r = i / KT, c = i % KT;
         float p = 0.f, ds = 0.f;
         if (visible(g, kmask_row, t0 + r, s0 + c)) {
           float s = 0.f, dp = 0.f;
-          for (int d = 0; d < D; ++d) {
-            s += q_s[r * D + d] * k_s[c * DP + d];
-            dp += do_s[r * D + d] * v_s[c * DP + d];
+          if (SPLIT) {
+            s = p_s[i];
+            dp = ds_s[i];
+          } else {
+            for (int d = 0; d < D; ++d) {
+              s += q_s[r * D + d] * k_s[c * DP + d];
+              dp += do_s[r * D + d] * v_s[c * DP + d];
+            }
           }
           if (slopes != nullptr) s += slope * (kp_s[c] - qp_s[r]);
           p = expf(s - lse_s[r]);
@@ -218,12 +278,12 @@ __global__ void __launch_bounds__(NTH) flash_bwd_dkdv_kernel(
         ds_s[i] = ds;
       }
       __syncthreads();
-      for (int i = tid; i < KT * D; i += NTH) {
-        const int c = i / D, d = i % D;
+      for (int i = tid; i < KT * DC; i += NTH) {
+        const int c = i / DC, d = i % DC;
         float a = dv_s[i], bk = dk_s[i];
         for (int r = 0; r < QT; ++r) {
-          a += p_s[r * KT + c] * do_s[r * D + d];
-          bk += ds_s[r * KT + c] * q_s[r * D + d];
+          a += p_s[r * KT + c] * do_s[r * DC + d];
+          bk += ds_s[r * KT + c] * q_s[r * DC + d];
         }
         dv_s[i] = a;
         dk_s[i] = bk;
@@ -232,9 +292,10 @@ __global__ void __launch_bounds__(NTH) flash_bwd_dkdv_kernel(
     }
   }
 
-  for (int i = tid; i < nk * D; i += NTH) {
-    const int c = i / D, d = i % D;
-    const size_t off = (((size_t)b * g.S + s0 + c) * g.KV + kvh) * D + d;
+  for (int i = tid; i < nk * DC; i += NTH) {
+    const int c = i / DC, d = i % DC;
+    if (d >= od) continue;
+    const size_t off = (((size_t)b * g.S + s0 + c) * g.KV + kvh) * D + d0 + d;
     from_f(dk_s[i], &dk[off]);
     from_f(dv_s[i], &dv[off]);
   }
@@ -244,45 +305,51 @@ __global__ void __launch_bounds__(NTH) flash_bwd_dkdv_kernel(
 // 2. dq
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, bool SPLIT>
 __global__ void __launch_bounds__(NTH) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ kmask, const int32_t* __restrict__ qpos,
     const int32_t* __restrict__ kpos, const float* __restrict__ slopes,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const T* __restrict__ dout, T* __restrict__ dq, Geometry g, float scale) {
-  const int t0 = blockIdx.x * QT;
+  const int nch = SPLIT ? (g.D + DCH - 1) / DCH : 1;  // head-dim chunks
+  const int oc = SPLIT ? blockIdx.x % nch : 0;        // this block's output chunk
+  const int t0 = (SPLIT ? blockIdx.x / nch : blockIdx.x) * QT;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int nq = min(QT, g.Tq - t0);
-  const int D = g.D, DP = D + 1;
+  const int D = g.D, DC = SPLIT ? DCH : D, DP = DC + 1;
+  const int d0 = oc * DC, od = SPLIT ? min(DC, D - d0) : D;
   const int kvh = h / (g.H / g.KV);
   const int tid = threadIdx.x;
   const float* kmask_row = kmask + (size_t)b * g.S;
   const float slope = slopes != nullptr ? slopes[h] : 0.f;
 
   extern __shared__ float smem[];
-  float* q_s = smem;              // QT * D, pre-scaled
-  float* do_s = q_s + QT * D;     // QT * D
-  float* dq_s = do_s + QT * D;    // QT * D
-  float* k_s = dq_s + QT * D;     // KT * DP
+  float* q_s = smem;              // QT * DC, pre-scaled
+  float* do_s = q_s + QT * DC;    // QT * DC
+  float* dq_s = do_s + QT * DC;   // QT * DC
+  float* k_s = dq_s + QT * DC;    // KT * DP
   float* v_s = k_s + KT * DP;     // KT * DP
   float* ds_s = v_s + KT * DP;    // QT * KT
-  float* lse_s = ds_s + QT * KT;  // QT
+  float* s_s = ds_s + QT * KT;    // QT * KT partial scores (SPLIT only)
+  float* lse_s = s_s + (SPLIT ? QT * KT : 0);  // QT
   float* dl_s = lse_s + QT;       // QT
   float* qp_s = dl_s + QT;        // QT
   float* kp_s = qp_s + QT;        // KT
 
-  for (int i = tid; i < QT * D; i += NTH) {
-    const int r = i / D, d = i % D;
-    float qx = 0.f, dx = 0.f;
-    if (r < nq) {
-      const size_t off = (((size_t)b * g.Tq + t0 + r) * g.H + h) * D + d;
-      qx = to_f(q[off]) * scale;
-      dx = to_f(dout[off]);
+  for (int i = tid; i < QT * DC; i += NTH) {
+    if (!SPLIT) {
+      const int r = i / D, d = i % D;
+      float qx = 0.f, dx = 0.f;
+      if (r < nq) {
+        const size_t off = (((size_t)b * g.Tq + t0 + r) * g.H + h) * D + d;
+        qx = to_f(q[off]) * scale;
+        dx = to_f(dout[off]);
+      }
+      q_s[i] = qx;
+      do_s[i] = dx;
     }
-    q_s[i] = qx;
-    do_s[i] = dx;
     dq_s[i] = 0.f;
   }
   for (int r = tid; r < QT; r += NTH) {
@@ -301,7 +368,7 @@ __global__ void __launch_bounds__(NTH) flash_bwd_dq_kernel(
   for (int ik = lo; ik < hi; ++ik) {
     const int s0 = ik * KT;
     const int nk = min(KT, g.S - s0);
-    for (int i = tid; i < KT * D; i += NTH) {
+    for (int i = tid; i < (SPLIT ? 0 : KT * D); i += NTH) {
       const int c = i / D, d = i % D;
       float kx = 0.f, vx = 0.f;
       if (c < nk) {
@@ -314,15 +381,60 @@ __global__ void __launch_bounds__(NTH) flash_bwd_dq_kernel(
     }
     for (int c = tid; c < KT; c += NTH)
       kp_s[c] = (slopes != nullptr && c < nk) ? (float)kpos[(size_t)b * g.S + s0 + c] : 0.f;
-    __syncthreads();
+    if (SPLIT) {  // partial s (s_s) and dp (ds_s) over the chunks, own chunk last
+      for (int n = 1; n <= nch; ++n) {
+        const int cc = (oc + n) % nch, c0 = cc * DC, w = min(DC, D - c0);
+        for (int i = tid; i < QT * DC; i += NTH) {
+          const int r = i / DC, d = i % DC;
+          float qx = 0.f, dx = 0.f;
+          if (r < nq && d < w) {
+            const size_t off = (((size_t)b * g.Tq + t0 + r) * g.H + h) * D + c0 + d;
+            qx = to_f(q[off]) * scale;
+            dx = to_f(dout[off]);
+          }
+          q_s[i] = qx;
+          do_s[i] = dx;
+        }
+        for (int i = tid; i < KT * DC; i += NTH) {
+          const int c = i / DC, d = i % DC;
+          float kx = 0.f, vx = 0.f;
+          if (c < nk && d < w) {
+            const size_t off = (((size_t)b * g.S + s0 + c) * g.KV + kvh) * D + c0 + d;
+            kx = to_f(k[off]);
+            vx = to_f(v[off]);
+          }
+          k_s[c * DP + d] = kx;
+          v_s[c * DP + d] = vx;
+        }
+        __syncthreads();
+        for (int i = tid; i < QT * KT; i += NTH) {
+          const int r = i / KT, c = i % KT;
+          float s = n == 1 ? 0.f : s_s[i], dp = n == 1 ? 0.f : ds_s[i];
+          for (int d = 0; d < w; ++d) {
+            s += q_s[r * DC + d] * k_s[c * DP + d];
+            dp += do_s[r * DC + d] * v_s[c * DP + d];
+          }
+          s_s[i] = s;
+          ds_s[i] = dp;
+        }
+        if (n < nch) __syncthreads();
+      }
+    } else {
+      __syncthreads();
+    }
     for (int i = tid; i < QT * KT; i += NTH) {
       const int r = i / KT, c = i % KT;
       float ds = 0.f;
       if (visible(g, kmask_row, t0 + r, s0 + c)) {
         float s = 0.f, dp = 0.f;
-        for (int d = 0; d < D; ++d) {
-          s += q_s[r * D + d] * k_s[c * DP + d];
-          dp += do_s[r * D + d] * v_s[c * DP + d];
+        if (SPLIT) {
+          s = s_s[i];
+          dp = ds_s[i];
+        } else {
+          for (int d = 0; d < D; ++d) {
+            s += q_s[r * D + d] * k_s[c * DP + d];
+            dp += do_s[r * D + d] * v_s[c * DP + d];
+          }
         }
         if (slopes != nullptr) s += slope * (kp_s[c] - qp_s[r]);
         ds = expf(s - lse_s[r]) * (dp - dl_s[r]);
@@ -330,8 +442,8 @@ __global__ void __launch_bounds__(NTH) flash_bwd_dq_kernel(
       ds_s[i] = ds;
     }
     __syncthreads();
-    for (int i = tid; i < QT * D; i += NTH) {
-      const int r = i / D, d = i % D;
+    for (int i = tid; i < QT * DC; i += NTH) {
+      const int r = i / DC, d = i % DC;
       float a = dq_s[i];
       for (int c = 0; c < KT; ++c) a += ds_s[r * KT + c] * k_s[c * DP + d];
       dq_s[i] = a;
@@ -339,9 +451,10 @@ __global__ void __launch_bounds__(NTH) flash_bwd_dq_kernel(
     __syncthreads();
   }
 
-  for (int i = tid; i < nq * D; i += NTH) {
-    const int r = i / D, d = i % D;
-    from_f(dq_s[i] * scale, &dq[(((size_t)b * g.Tq + t0 + r) * g.H + h) * D + d]);
+  for (int i = tid; i < nq * DC; i += NTH) {
+    const int r = i / DC, d = i % DC;
+    if (d >= od) continue;
+    from_f(dq_s[i] * scale, &dq[(((size_t)b * g.Tq + t0 + r) * g.H + h) * D + d0 + d]);
   }
 }
 
@@ -811,37 +924,51 @@ __global__ void __launch_bounds__(MMA_THREADS, min_blocks<DT>()) flash_bwd_dq_mm
 // launchers
 // ---------------------------------------------------------------------------
 
+template <typename T, bool SPLIT>
+int launch_cc_split(const void* q, const void* k, const void* v, const void* kmask,
+                    const void* qpos, const void* kpos, const void* slopes,
+                    const void* lse, const void* delta, const void* dout, void* dq,
+                    void* dk, void* dv, int B, const Geometry& g, float scale,
+                    cudaStream_t stream) {
+  const int DC = SPLIT ? DCH : g.D, nch = SPLIT ? (g.D + DCH - 1) / DCH : 1;
+  const size_t smem_kv = sizeof(float) *
+      ((size_t)2 * KT * (DC + 1) + (size_t)2 * KT * DC + (size_t)2 * QT * DC +
+       2 * QT * KT + 3 * QT + KT);
+  const size_t smem_q = sizeof(float) *
+      ((size_t)3 * QT * DC + (size_t)2 * KT * (DC + 1) + (SPLIT ? 2 : 1) * QT * KT + 3 * QT +
+       KT);
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, SPLIT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, SPLIT>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid_kv((g.S + KT - 1) / KT * nch, g.KV, B);
+  flash_bwd_dkdv_kernel<T, SPLIT><<<grid_kv, NTH, smem_kv, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)kmask,
+      (const int32_t*)qpos, (const int32_t*)kpos, (const float*)slopes,
+      (const float*)lse, (const float*)delta, (const T*)dout, (T*)dk, (T*)dv, g, scale);
+  int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  dim3 grid_q((g.Tq + QT - 1) / QT * nch, g.H, B);
+  flash_bwd_dq_kernel<T, SPLIT><<<grid_q, NTH, smem_q, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)kmask,
+      (const int32_t*)qpos, (const int32_t*)kpos, (const float*)slopes,
+      (const float*)lse, (const float*)delta, (const T*)dout, (T*)dq, g, scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_cc(const void* q, const void* k, const void* v, const void* kmask,
               const void* qpos, const void* kpos, const void* slopes,
               const void* lse, const void* delta, const void* dout, void* dq,
               void* dk, void* dv, int B, const Geometry& g, float scale,
               cudaStream_t stream) {
-  const int D = g.D;
-  const size_t smem_kv = sizeof(float) *
-      ((size_t)2 * KT * (D + 1) + (size_t)2 * KT * D + (size_t)2 * QT * D +
-       2 * QT * KT + 3 * QT + KT);
-  const size_t smem_q = sizeof(float) *
-      ((size_t)3 * QT * D + (size_t)2 * KT * (D + 1) + QT * KT + 3 * QT + KT);
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(flash_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem_q);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid_kv((g.S + KT - 1) / KT, g.KV, B);
-  flash_bwd_dkdv_kernel<T><<<grid_kv, NTH, smem_kv, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const float*)kmask,
-      (const int32_t*)qpos, (const int32_t*)kpos, (const float*)slopes,
-      (const float*)lse, (const float*)delta, (const T*)dout, (T*)dk, (T*)dv, g, scale);
-  int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  dim3 grid_q((g.Tq + QT - 1) / QT, g.H, B);
-  flash_bwd_dq_kernel<T><<<grid_q, NTH, smem_q, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const float*)kmask,
-      (const int32_t*)qpos, (const int32_t*)kpos, (const float*)slopes,
-      (const float*)lse, (const float*)delta, (const T*)dout, (T*)dq, g, scale);
-  return (int)cudaGetLastError();
+  if (g.D > DCH)
+    return launch_cc_split<T, true>(q, k, v, kmask, qpos, kpos, slopes, lse, delta, dout, dq,
+                                    dk, dv, B, g, scale, stream);
+  return launch_cc_split<T, false>(q, k, v, kmask, qpos, kpos, slopes, lse, delta, dout, dq,
+                                   dk, dv, B, g, scale, stream);
 }
 
 template <int DT, bool ALIBI>
@@ -890,7 +1017,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* kmask,
 // share it). lse and delta are (B, H, T) f32; qpos, kpos and slopes are
 // null without ALiBi. bf16 at D <= 128 runs on tensor cores (D padded to
 // 16, 32, 64 or 128 inside the loads), f32 and bf16 at D > 128 on CUDA
-// cores; the wrapper rejects D > 256.
+// cores, any D (above 256 split over the head dim).
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* kmask, const void* qpos, const void* kpos,
                          const void* slopes, const void* lse, const void* delta,

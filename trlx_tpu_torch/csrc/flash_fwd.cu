@@ -49,8 +49,9 @@
 // this rounding (tests/test_torch_flash_attention.py) chose both.
 // Head dims: the tensor-core kernel is compiled for D in {16, 32, 64, 128}
 // and takes any D up to 128 padded inside its loads (attn_common.cuh);
-// D in (128, 256] runs the CUDA-core kernel below in bf16, chosen by D in
-// the C dispatch before the launch.
+// bf16 above 128 runs the CUDA-core kernel below, chosen by D in the C
+// dispatch before the launch, which splits D above 256 into 256-column
+// chunks (any D).
 //
 // f32 keeps the first version's CUDA-core kernel (scalar FMA from shared
 // memory): the f32 parity runs hold the card to 1e-4 against the CPU,
@@ -83,6 +84,7 @@ constexpr int QT = 32;   // query rows per thread block
 constexpr int KT = 32;   // key columns per tile (one per lane)
 constexpr int NTH = 256;
 constexpr int NWARP = NTH / 32;
+constexpr int DCH = 256;  // head-dim chunk of the SPLIT kernel (D > 256)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -101,37 +103,50 @@ __device__ __forceinline__ float warp_sum(float x) {
 // one thread block per (q tile of QT rows, head, row): the q tile
 // (pre-scaled) in shared memory, the visible K/V tiles of KT columns staged
 // once each, a warp per row with one lane per key column (row max and sum
-// by shuffles); K's rows padded to D + 1 floats against bank conflicts
-template <typename T>
+// by shuffles); K's rows padded to D + 1 floats against bank conflicts.
+// SPLIT (D > 256, any D): grid x also counts ceil(D / DCH) output chunks.
+// Per key tile the scores stream over the head dim: the q and K chunks of
+// DCH columns land in the shared tiles in turn, each score's partial dot
+// carried across them in shared memory (the additions in the order of one
+// pass over D); the tile's V chunk lands with the first, and the block
+// accumulates its own DCH output columns. Every chunk's block computes the
+// same softmax; chunk 0 writes lse. No tile grows past DCH columns.
+template <typename T, bool SPLIT>
 __global__ void __launch_bounds__(NTH) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ kmask, const int32_t* __restrict__ qpos,
     const int32_t* __restrict__ kpos, const float* __restrict__ slopes,
     T* __restrict__ out, float* __restrict__ lse, Geometry g, float scale) {
   const int Tq = g.Tq, S = g.S, H = g.H, KV = g.KV, D = g.D;
-  const int t0 = blockIdx.x * QT;
+  const int nch = SPLIT ? (D + DCH - 1) / DCH : 1;  // head-dim chunks
+  const int oc = SPLIT ? blockIdx.x % nch : 0;      // this block's output chunk
+  const int DC = SPLIT ? DCH : D;                   // columns a shared tile holds
+  const int d0 = oc * DC, od = SPLIT ? min(DC, D - d0) : D;
+  const int t0 = (SPLIT ? blockIdx.x / nch : blockIdx.x) * QT;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int nq = min(QT, Tq - t0);
   const int kvh = h / (H / KV);
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int DP = D + 1;
+  const int DP = DC + 1;
 
   extern __shared__ float smem[];
-  float* q_s = smem;            // QT * D, pre-scaled
-  float* k_s = q_s + QT * D;    // KT * DP
-  float* v_s = k_s + KT * DP;   // KT * D
-  float* p_s = v_s + KT * D;    // QT * KT scores, then probabilities
-  float* acc = p_s + QT * KT;   // QT * D
-  float* m_s = acc + QT * D;    // QT running max
+  float* q_s = smem;            // QT * DC, pre-scaled
+  float* k_s = q_s + QT * DC;   // KT * DP
+  float* v_s = k_s + KT * DP;   // KT * DC
+  float* p_s = v_s + KT * DC;   // QT * KT scores, then probabilities
+  float* acc = p_s + QT * KT;   // QT * DC
+  float* m_s = acc + QT * DC;   // QT running max
   float* l_s = m_s + QT;        // QT running sum
   float* a_s = l_s + QT;        // QT rescale factor of this tile
   float* qp_s = a_s + QT;       // QT query positions (ALiBi)
 
-  for (int i = tid; i < QT * D; i += NTH) {
-    const int r = i / D, d = i % D;
-    q_s[i] = r < nq ? to_f(q[(((size_t)b * Tq + t0 + r) * H + h) * D + d]) * scale : 0.f;
+  for (int i = tid; i < QT * DC; i += NTH) {
+    if (!SPLIT) {
+      const int r = i / D, d = i % D;
+      q_s[i] = r < nq ? to_f(q[(((size_t)b * Tq + t0 + r) * H + h) * D + d]) * scale : 0.f;
+    }
     acc[i] = 0.f;
   }
   for (int r = tid; r < QT; r += NTH) {
@@ -151,18 +166,44 @@ __global__ void __launch_bounds__(NTH) flash_fwd_kernel(
   for (int ik = lo; ik < hi; ++ik) {
     const int s0 = ik * KT;
     const int nk = min(KT, S - s0);
-    for (int i = tid; i < KT * D; i += NTH) {
-      const int c = i / D, d = i % D;
-      float kx = 0.f, vx = 0.f;
-      if (c < nk) {
-        const size_t off = (((size_t)b * S + s0 + c) * KV + kvh) * D + d;
-        kx = to_f(k[off]);
-        vx = to_f(v[off]);
+    if (SPLIT) {  // partial dots over the head-dim chunks, into p_s
+      for (int cc = 0; cc < nch; ++cc) {
+        const int c0 = cc * DC, w = min(DC, D - c0);
+        for (int i = tid; i < QT * DC; i += NTH) {
+          const int r = i / DC, d = i % DC;
+          q_s[i] = r < nq && d < w
+                       ? to_f(q[(((size_t)b * Tq + t0 + r) * H + h) * D + c0 + d]) * scale
+                       : 0.f;
+        }
+        for (int i = tid; i < KT * DC; i += NTH) {
+          const int c = i / DC, d = i % DC;
+          const size_t off = (((size_t)b * S + s0 + c) * KV + kvh) * D;
+          k_s[c * DP + d] = c < nk && d < w ? to_f(k[off + c0 + d]) : 0.f;
+          if (cc == 0) v_s[c * DC + d] = c < nk && d < od ? to_f(v[off + d0 + d]) : 0.f;
+        }
+        __syncthreads();
+        for (int i = tid; i < QT * KT; i += NTH) {
+          const int r = i / KT, c = i % KT;
+          float dot = cc == 0 ? 0.f : p_s[i];
+          for (int d = 0; d < w; ++d) dot += q_s[r * DC + d] * k_s[c * DP + d];
+          p_s[i] = dot;
+        }
+        __syncthreads();
       }
-      k_s[c * DP + d] = kx;
-      v_s[c * D + d] = vx;
+    } else {
+      for (int i = tid; i < KT * D; i += NTH) {
+        const int c = i / D, d = i % D;
+        float kx = 0.f, vx = 0.f;
+        if (c < nk) {
+          const size_t off = (((size_t)b * S + s0 + c) * KV + kvh) * D + d;
+          kx = to_f(k[off]);
+          vx = to_f(v[off]);
+        }
+        k_s[c * DP + d] = kx;
+        v_s[c * D + d] = vx;
+      }
+      __syncthreads();
     }
-    __syncthreads();
     for (int i = tid; i < QT * KT; i += NTH) {
       const int r = i / KT, c = i % KT;
       const int col = s0 + c;
@@ -173,7 +214,11 @@ __global__ void __launch_bounds__(NTH) flash_fwd_kernel(
       float s = -INFINITY;  // invisible: no mass, never raises the max
       if (vis) {
         float dot = 0.f;
-        for (int d = 0; d < D; ++d) dot += q_s[r * D + d] * k_s[c * DP + d];
+        if (SPLIT) {
+          dot = p_s[i];
+        } else {
+          for (int d = 0; d < D; ++d) dot += q_s[r * D + d] * k_s[c * DP + d];
+        }
         if (slopes != nullptr) dot += slope * ((float)kpos[(size_t)b * S + col] - qp_s[r]);
         s = dot;
       }
@@ -195,42 +240,55 @@ __global__ void __launch_bounds__(NTH) flash_fwd_kernel(
       }
     }
     __syncthreads();
-    for (int i = tid; i < QT * D; i += NTH) {
-      const int r = i / D, d = i % D;
+    for (int i = tid; i < QT * DC; i += NTH) {
+      const int r = i / DC, d = i % DC;
       float a = acc[i] * a_s[r];
-      for (int c = 0; c < KT; ++c) a += p_s[r * KT + c] * v_s[c * D + d];
+      for (int c = 0; c < KT; ++c) a += p_s[r * KT + c] * v_s[c * DC + d];
       acc[i] = a;
     }
     __syncthreads();
   }
 
-  for (int i = tid; i < nq * D; i += NTH) {
-    const int r = i / D, d = i % D;
+  for (int i = tid; i < nq * DC; i += NTH) {
+    const int r = i / DC, d = i % DC;
+    if (d >= od) continue;
     const float l = l_s[r];
-    from_f(l > 0.f ? acc[i] / l : 0.f, &out[(((size_t)b * Tq + t0 + r) * H + h) * D + d]);
+    from_f(l > 0.f ? acc[i] / l : 0.f, &out[(((size_t)b * Tq + t0 + r) * H + h) * D + d0 + d]);
   }
+  if (oc != 0) return;
   for (int r = tid; r < nq; r += NTH) {
     const float l = l_s[r];
     lse[((size_t)b * H + h) * Tq + t0 + r] = l > 0.f ? m_s[r] + logf(l) : NEG_INF;
   }
 }
 
-template <typename T>
-int launch_cc(const void* q, const void* k, const void* v, const void* kmask,
-              const void* qpos, const void* kpos, const void* slopes, void* out,
-              void* lse, int B, const Geometry& g, float scale, cudaStream_t stream) {
-  const int D = g.D;
+template <typename T, bool SPLIT>
+int launch_cc_split(const void* q, const void* k, const void* v, const void* kmask,
+                    const void* qpos, const void* kpos, const void* slopes, void* out,
+                    void* lse, int B, const Geometry& g, float scale, cudaStream_t stream) {
+  const int DC = SPLIT ? DCH : g.D, nch = SPLIT ? (g.D + DCH - 1) / DCH : 1;
   const size_t smem = sizeof(float) *
-      ((size_t)QT * D * 2 + (size_t)KT * (D + 1) + (size_t)KT * D + QT * KT + 4 * QT);
+      ((size_t)QT * DC * 2 + (size_t)KT * (DC + 1) + (size_t)KT * DC + QT * KT + 4 * QT);
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<T, SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((g.Tq + QT - 1) / QT, g.H, B);
-  flash_fwd_kernel<T><<<grid, NTH, smem, stream>>>(
+  dim3 grid((g.Tq + QT - 1) / QT * nch, g.H, B);
+  flash_fwd_kernel<T, SPLIT><<<grid, NTH, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)kmask,
       (const int32_t*)qpos, (const int32_t*)kpos, (const float*)slopes, (T*)out,
       (float*)lse, g, scale);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_cc(const void* q, const void* k, const void* v, const void* kmask,
+              const void* qpos, const void* kpos, const void* slopes, void* out,
+              void* lse, int B, const Geometry& g, float scale, cudaStream_t stream) {
+  if (g.D > DCH)
+    return launch_cc_split<T, true>(q, k, v, kmask, qpos, kpos, slopes, out, lse, B, g, scale,
+                                    stream);
+  return launch_cc_split<T, false>(q, k, v, kmask, qpos, kpos, slopes, out, lse, B, g, scale,
+                                   stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -506,7 +564,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* kmask,
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it). qpos, kpos
 // and slopes are null without ALiBi. bf16 at D <= 128 runs on tensor cores
 // (D padded to 16, 32, 64 or 128 inside the loads), f32 and bf16 at
-// D > 128 on CUDA cores; the wrapper rejects D > 256.
+// D > 128 on CUDA cores, any D (above 256 split over the head dim).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* kmask, const void* qpos, const void* kpos,
                          const void* slopes, void* out, void* lse, int B, int Tq,

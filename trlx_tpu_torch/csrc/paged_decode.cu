@@ -53,7 +53,12 @@
 // aligned, else element by element (a bf16 row of D = 12 is 24 bytes): a
 // template parameter the launcher picks. At DT = 256 a lane holds 8
 // elements (two 16-byte vectors in f32) and a block serves at most 4 heads
-// of a group.
+// of a group. D above 256 (any D, as the JAX kernel takes) runs the DT = 256
+// kernel split over the head dim: a grid dimension of ceil(D / 256) output
+// chunks, each block streaming q.k over every chunk (q and K slices loaded
+// chunk by chunk into the same registers) and accumulating its own chunk of
+// P V, so no register array or shared tile grows past DT = 256's; the
+// scores are recomputed once per output chunk.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
@@ -142,10 +147,15 @@ __device__ __forceinline__ void merge_state(float& m, float& l, float (&acc)[N],
   m = mx;
 }
 
-// Grid: x = kv head x head chunk, y = row, z = column span. With one span
-// the block writes the output; with several it writes its span's partial
-// state to part[(b, h, span)] = (acc[0 .. D), m, l).
-template <typename T, int DT, int GM, bool WIDE>
+// Grid: x = kv head x head chunk (x output chunk of DT columns with SPLIT),
+// y = row, z = column span. With one span the block writes the output; with
+// several it writes its span's partial state to part[(b, h, span)] =
+// (acc[0 .. D), m, l). SPLIT (DT = 256, D > 256): q.k streams over the
+// head dim in chunks of DT (q and K slices loaded chunk by chunk, the
+// lane's partial dot carried across chunks) and the block accumulates only
+// its own output chunk of P V; every chunk's block computes the same
+// scores, and chunk 0 writes the span's (m, l).
+template <typename T, int DT, int GM, bool WIDE, bool SPLIT>
 __global__ void __launch_bounds__(32 * NW) paged_decode_kernel(
     const T* __restrict__ q,            // (B, H, D)
     const T* __restrict__ k_pool,       // (NB, bs, KV, D)
@@ -171,7 +181,11 @@ __global__ void __launch_bounds__(32 * NW) paged_decode_kernel(
 
   const int G = H / KV;
   const int chunks = (G + GM - 1) / GM;
-  const int kvh = blockIdx.x / chunks, hc = blockIdx.x % chunks;
+  const int nch = SPLIT ? (D + DT - 1) / DT : 1;   // head-dim chunks
+  const int oc = SPLIT ? blockIdx.x % nch : 0;     // this block's output chunk
+  const int d0 = oc * DT, od = SPLIT ? min(DT, D - d0) : D;
+  const int hx = SPLIT ? blockIdx.x / nch : blockIdx.x;
+  const int kvh = hx / chunks, hc = hx % chunks;
   const int h0 = kvh * G + hc * GM, ng = min(GM, G - hc * GM);
   const int b = blockIdx.y, span = blockIdx.z, spans = gridDim.z;
   const int c0 = span * SPAN_COLS, c1 = min(S, c0 + SPAN_COLS);
@@ -184,19 +198,24 @@ __global__ void __launch_bounds__(32 * NW) paged_decode_kernel(
     const int id = table[(size_t)b * TB + j0 + j];
     tbl_s[j] = id < 0 ? 0 : (id >= NB ? NB - 1 : id);
   }
-  // this lane's slice of the queries (zero past D)
+  // this lane's slice of the queries (zero past D), chunk cc of DT columns
   float qv[GM][EPL];
+  auto load_q = [&](int cc) {
 #pragma unroll
-  for (int g = 0; g < GM; ++g)
+    for (int g = 0; g < GM; ++g)
 #pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (g < ng) load_vec(q + ((size_t)b * H + h0 + g) * D, li * EPL + j * VEC, D, vec, u);
-      float x[VEC];
-      V::unpack(u, x);
+      for (int j = 0; j < NV; ++j) {
+        uint4 u = make_uint4(0u, 0u, 0u, 0u);
+        if (g < ng)
+          load_vec(q + ((size_t)b * H + h0 + g) * D + cc * DT, li * EPL + j * VEC, D - cc * DT,
+                   vec, u);
+        float x[VEC];
+        V::unpack(u, x);
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) qv[g][j * VEC + e] = x[e];
-    }
+        for (int e = 0; e < VEC; ++e) qv[g][j * VEC + e] = x[e];
+      }
+  };
+  if (!SPLIT) load_q(0);
   __syncthreads();
 
   float m[GM], l[GM], acc[GM][EPL];
@@ -217,6 +236,7 @@ __global__ void __launch_bounds__(32 * NW) paged_decode_kernel(
   for (int base = w0; base < w1; base += RPW * U) {
     uint4 kr[U][NV], vr[U][NV];
     float bb[U][GM];
+    size_t offs[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int col = base + grp + u * RPW;
@@ -228,10 +248,11 @@ __global__ void __launch_bounds__(32 * NW) paged_decode_kernel(
         const int jb = col / bs;
         const size_t off = ((size_t)tbl_s[jb - j0] * bs + (col - jb * bs)) * row_stride +
                            (size_t)kvh * D;
+        offs[u] = off;
 #pragma unroll
         for (int j = 0; j < NV; ++j) {
-          load_vec(k_pool + off, li * EPL + j * VEC, D, vec, kr[u][j]);
-          load_vec(v_pool + off, li * EPL + j * VEC, D, vec, vr[u][j]);
+          if (!SPLIT) load_vec(k_pool + off, li * EPL + j * VEC, D, vec, kr[u][j]);
+          load_vec(v_pool + off + d0, li * EPL + j * VEC, D - d0, vec, vr[u][j]);
         }
         const float* brow = bias + ((size_t)b * HB + hb0) * S + col;
 #pragma unroll
@@ -239,22 +260,52 @@ __global__ void __launch_bounds__(32 * NW) paged_decode_kernel(
           if (g < ng && (HB > 1 || g == 0)) bb[u][g] = brow[g * (size_t)S];
       }
     }
+    // the lane's partial q.k of each column, over one chunk (or D)
+    float dd[U][GM];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int g = 0; g < GM; ++g) dd[u][g] = 0.f;
+    auto partial_dots = [&]() {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float kf[EPL];
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          float x[VEC];
+          V::unpack(kr[u][j], x);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) kf[j * VEC + e] = x[e];
+        }
+#pragma unroll
+        for (int g = 0; g < GM; ++g)
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) dd[u][g] += qv[g][e] * kf[e];
+      }
+    };
+    if (SPLIT) {
+      for (int cc = 0; cc < nch; ++cc) {
+        load_q(cc);
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int j = 0; j < NV; ++j) {
+            kr[u][j] = make_uint4(0u, 0u, 0u, 0u);
+            if (base + grp + u * RPW < w1)
+              load_vec(k_pool + offs[u] + cc * DT, li * EPL + j * VEC, D - cc * DT, vec,
+                       kr[u][j]);
+          }
+        partial_dots();
+      }
+    } else {
+      partial_dots();
+    }
     float sc[U][GM];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float kf[EPL];
-#pragma unroll
-      for (int j = 0; j < NV; ++j) {
-        float x[VEC];
-        V::unpack(kr[u][j], x);
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) kf[j * VEC + e] = x[e];
-      }
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
-        float d = 0.f;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) d += qv[g][e] * kf[e];
+        float d = dd[u][g];
 #pragma unroll
         for (int o = 1; o < LPR; o <<= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
         const float bg = HB > 1 ? bb[u][g] : bb[u][0];
@@ -312,10 +363,10 @@ __global__ void __launch_bounds__(32 * NW) paged_decode_kernel(
   }
   __syncthreads();
 
-  // merge the warps in order: thread (g, d), d < D
+  // merge the warps in order: thread (g, d), d < od (this block's columns)
   for (int i = tid; i < ng * DT; i += 32 * NW) {
     const int g = i / DT, d = i % DT;
-    if (d >= D) continue;
+    if (d >= od) continue;
     float mx = -INFINITY;
 #pragma unroll
     for (int w = 0; w < NW; ++w) mx = fmaxf(mx, ml_s[w][g][0]);
@@ -329,11 +380,11 @@ __global__ void __launch_bounds__(32 * NW) paged_decode_kernel(
     }
     const size_t bh = (size_t)b * H + h0 + g;
     if (spans == 1) {
-      out[bh * D + d] = V::store(den > 0.f ? x / den : 0.f);
+      out[bh * D + d0 + d] = V::store(den > 0.f ? x / den : 0.f);
     } else {
       float* p = part + (bh * spans + span) * (D + 2);
-      p[d] = x;
-      if (d == 0) {
+      p[d0 + d] = x;
+      if (d0 + d == 0) {
         p[D] = mx;
         p[D + 1] = den;
       }
@@ -361,43 +412,46 @@ __global__ void paged_decode_merge_kernel(const float* __restrict__ part, T* __r
   }
 }
 
-template <typename T, int DT, int GM>
+template <typename T, int DT, int GM, bool SPLIT>
 int launch_gm(const void* q, const void* k_pool, const void* v_pool, const void* table,
               const void* bias, void* out, void* part, int B, int H, int KV, int D, int NB,
               int bs, int TB, int HB, int S, int vec, cudaStream_t stream) {
   const int G = H / KV;
   const int spans = (S + SPAN_COLS - 1) / SPAN_COLS;
-  dim3 grid(KV * ((G + GM - 1) / GM), B, spans);
+  const int nch = SPLIT ? (D + DT - 1) / DT : 1;
+  dim3 grid(KV * ((G + GM - 1) / GM) * nch, B, spans);
   // the load path by the shape: 16-byte loads, or element by element
-  auto kernel = vec ? paged_decode_kernel<T, DT, GM, true> : paged_decode_kernel<T, DT, GM, false>;
+  auto kernel = vec ? paged_decode_kernel<T, DT, GM, true, SPLIT>
+                    : paged_decode_kernel<T, DT, GM, false, SPLIT>;
   kernel<<<grid, 32 * NW, 0, stream>>>(
       (const T*)q, (const T*)k_pool, (const T*)v_pool, (const int32_t*)table,
       (const float*)bias, (T*)out, (float*)part, H, KV, D, NB, bs, TB, HB, S,
       1.f / sqrtf((float)D));
   int rc = (int)cudaGetLastError();
   if (rc != 0 || spans == 1) return rc;
-  paged_decode_merge_kernel<T><<<B * H, D, 0, stream>>>((const float*)part, (T*)out, D, spans);
+  paged_decode_merge_kernel<T><<<B * H, D < 1024 ? D : 1024, 0, stream>>>((const float*)part,
+                                                                          (T*)out, D, spans);
   return (int)cudaGetLastError();
 }
 
 // heads per block by the group size G; at DT = 256 at most 4 (the warps'
 // partial accumulators must fit in static shared memory)
-template <typename T, int DT>
+template <typename T, int DT, bool SPLIT = false>
 int launch_d(const void* q, const void* k_pool, const void* v_pool, const void* table,
              const void* bias, void* out, void* part, int B, int H, int KV, int D, int NB,
              int bs, int TB, int HB, int S, int vec, cudaStream_t stream) {
   const int G = H / KV;
   if (G <= 1)
-    return launch_gm<T, DT, 1>(q, k_pool, v_pool, table, bias, out, part, B, H, KV, D, NB, bs,
-                               TB, HB, S, vec, stream);
+    return launch_gm<T, DT, 1, SPLIT>(q, k_pool, v_pool, table, bias, out, part, B, H, KV, D,
+                                      NB, bs, TB, HB, S, vec, stream);
   if (G <= 2)
-    return launch_gm<T, DT, 2>(q, k_pool, v_pool, table, bias, out, part, B, H, KV, D, NB, bs,
-                               TB, HB, S, vec, stream);
+    return launch_gm<T, DT, 2, SPLIT>(q, k_pool, v_pool, table, bias, out, part, B, H, KV, D,
+                                      NB, bs, TB, HB, S, vec, stream);
   if (G <= 4 || DT >= 256)
-    return launch_gm<T, DT, 4>(q, k_pool, v_pool, table, bias, out, part, B, H, KV, D, NB, bs,
-                               TB, HB, S, vec, stream);
-  return launch_gm<T, DT, DT >= 256 ? 4 : 8>(q, k_pool, v_pool, table, bias, out, part, B, H,
-                                             KV, D, NB, bs, TB, HB, S, vec, stream);
+    return launch_gm<T, DT, 4, SPLIT>(q, k_pool, v_pool, table, bias, out, part, B, H, KV, D,
+                                      NB, bs, TB, HB, S, vec, stream);
+  return launch_gm<T, DT, DT >= 256 ? 4 : 8, SPLIT>(q, k_pool, v_pool, table, bias, out, part, B,
+                                                    H, KV, D, NB, bs, TB, HB, S, vec, stream);
 }
 
 template <typename T>
@@ -422,14 +476,15 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* ta
   if (D <= 256)
     return launch_d<T, 256>(q, k_pool, v_pool, table, bias, out, part, B, H, KV, D, NB, bs,
                             TB, HB, S, vec, stream);
-  return (int)cudaErrorInvalidValue;
+  return launch_d<T, 256, true>(q, k_pool, v_pool, table, bias, out, part, B, H, KV, D, NB,
+                                bs, TB, HB, S, vec, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it). D up to
-// 256 (padded inside the loads to 16, 32, 64, 128 or 256; the wrapper
-// rejects more). The columns split into spans of SPAN_COLS (256); with
+// dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it). Any D:
+// up to 256 padded inside the loads to 16, 32, 64, 128 or 256, above 256 in
+// chunks of 256 (SPLIT). The columns split into spans of SPAN_COLS (256); with
 // more than one span, part is f32 scratch of (B, H, spans, D + 2).
 extern "C" int paged_decode(const void* q, const void* k_pool,
                             const void* v_pool, const void* table,

@@ -58,9 +58,9 @@
 //   softmax does; padding query rows are never stored; -inf - -inf never
 //   reaches exp.
 // Head dims: the kernel is compiled for D in {16, 32, 64, 128} and takes any
-// D up to 128 padded inside its loads (attn_common.cuh); D in (128, 256]
-// runs the CUDA-core kernel below in bf16, chosen by D in the C dispatch
-// before the launch.
+// D up to 128 padded inside its loads (attn_common.cuh); bf16 above 128
+// runs the CUDA-core kernel below, chosen by D in the C dispatch before the
+// launch, which splits D above 256 into 256-column chunks (any D).
 //
 // The f32 kernel stays on CUDA cores (scalar FMA from shared memory): it
 // serves the f32 parity runs, held to 1e-4, which TF32 mma would not meet.
@@ -488,6 +488,7 @@ int launch_bf16(const void* q, const void* k_pool, const void* v_pool,
 // ---------------------------------------------------------------------------
 
 constexpr int QT = 16;  // query rows per thread block
+constexpr int DCH = 256;  // head-dim chunk of the SPLIT kernel (D > 256)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -498,8 +499,15 @@ __device__ __forceinline__ void from_f(float x, bf16* y) { *y = __float2bfloat16
 // are walked one pool block at a time, each block's bs x D K and V tiles
 // landed in shared memory once per tile of QT queries, with an online
 // softmax (running max and sum in f32) and the output accumulator in
-// shared memory
-template <typename T>
+// shared memory.
+// SPLIT (D > 256, any D): grid x also counts ceil(D / DCH) output chunks.
+// For each pool block the scores stream over the head dim: the q and K
+// chunks of DCH columns land in the shared tiles in turn and each score's
+// partial dot carries across them in shared memory (the same order of
+// additions as one pass over D); the block's V chunk lands with the first,
+// and the block accumulates its own DCH output columns. No tile grows past
+// DCH columns; each output chunk recomputes the scores.
+template <typename T, bool SPLIT>
 __global__ void paged_prefill_cc_kernel(
     const T* __restrict__ q,            // (B, T, H, D)
     const T* __restrict__ k_pool,       // (NB, bs, KV, D)
@@ -509,7 +517,11 @@ __global__ void paged_prefill_cc_kernel(
     T* __restrict__ out,                // (B, T, H, D)
     int Tq, int H, int KV, int D, int NB, int bs, int TB, int HB, int S,
     float scale) {
-  const int t0 = blockIdx.x * QT;
+  const int nch = SPLIT ? (D + DCH - 1) / DCH : 1;  // head-dim chunks
+  const int oc = SPLIT ? blockIdx.x % nch : 0;      // this block's output chunk
+  const int DC = SPLIT ? DCH : D;                   // columns a shared tile holds
+  const int d0 = oc * DC, od = SPLIT ? min(DC, D - d0) : D;
+  const int t0 = (SPLIT ? blockIdx.x / nch : blockIdx.x) * QT;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
@@ -519,18 +531,20 @@ __global__ void paged_prefill_cc_kernel(
   const int nth = blockDim.x;
 
   extern __shared__ float fsmem[];
-  float* q_s = fsmem;             // QT * D
-  float* k_s = q_s + QT * D;      // bs * D
-  float* v_s = k_s + bs * D;      // bs * D
-  float* sc = v_s + bs * D;       // QT * bs
-  float* acc = sc + QT * bs;      // QT * D
-  float* m_s = acc + QT * D;      // QT
+  float* q_s = fsmem;             // QT * DC
+  float* k_s = q_s + QT * DC;     // bs * DC
+  float* v_s = k_s + bs * DC;     // bs * DC
+  float* sc = v_s + bs * DC;      // QT * bs
+  float* acc = sc + QT * bs;      // QT * DC
+  float* m_s = acc + QT * DC;     // QT
   float* l_s = m_s + QT;          // QT
   float* a_s = l_s + QT;          // QT
 
-  for (int i = tid; i < QT * D; i += nth) {
-    const int r = i / D, d = i % D;
-    q_s[i] = r < nq ? to_f(q[(((size_t)b * Tq + t0 + r) * H + h) * D + d]) : 0.f;
+  for (int i = tid; i < QT * DC; i += nth) {
+    if (!SPLIT) {
+      const int r = i / D, d = i % D;
+      q_s[i] = r < nq ? to_f(q[(((size_t)b * Tq + t0 + r) * H + h) * D + d]) : 0.f;
+    }
     acc[i] = 0.f;
   }
   for (int r = tid; r < QT; r += nth) {
@@ -544,23 +558,55 @@ __global__ void paged_prefill_cc_kernel(
     if (col0 >= S) break;
     int blk = table[(size_t)b * TB + j];
     blk = blk < 0 ? 0 : (blk >= NB ? NB - 1 : blk);
-    for (int i = tid; i < bs * D; i += nth) {
-      const int r = i / D, d = i % D;
-      const size_t off = (((size_t)blk * bs + r) * KV + kvh) * D + d;
-      k_s[i] = to_f(k_pool[off]);
-      v_s[i] = to_f(v_pool[off]);
-    }
-    __syncthreads();
-    for (int i = tid; i < QT * bs; i += nth) {
-      const int r = i / bs, c = i % bs;
-      const int col = col0 + c;
-      float s = -INFINITY;
-      if (r < nq && col < S) {
-        float dot = 0.f;
-        for (int d = 0; d < D; ++d) dot += q_s[r * D + d] * k_s[c * D + d];
-        s = dot * scale + bias[(((size_t)b * HB + hb) * Tq + t0 + r) * S + col];
+    if (!SPLIT) {
+      for (int i = tid; i < bs * D; i += nth) {
+        const int r = i / D, d = i % D;
+        const size_t off = (((size_t)blk * bs + r) * KV + kvh) * D + d;
+        k_s[i] = to_f(k_pool[off]);
+        v_s[i] = to_f(v_pool[off]);
       }
-      sc[i] = s;
+      __syncthreads();
+      for (int i = tid; i < QT * bs; i += nth) {
+        const int r = i / bs, c = i % bs;
+        const int col = col0 + c;
+        float s = -INFINITY;
+        if (r < nq && col < S) {
+          float dot = 0.f;
+          for (int d = 0; d < D; ++d) dot += q_s[r * D + d] * k_s[c * D + d];
+          s = dot * scale + bias[(((size_t)b * HB + hb) * Tq + t0 + r) * S + col];
+        }
+        sc[i] = s;
+      }
+    } else {
+      for (int cc = 0; cc < nch; ++cc) {
+        const int c0 = cc * DC, w = min(DC, D - c0);
+        for (int i = tid; i < QT * DC; i += nth) {
+          const int r = i / DC, d = i % DC;
+          q_s[i] = r < nq && d < w ? to_f(q[(((size_t)b * Tq + t0 + r) * H + h) * D + c0 + d])
+                                   : 0.f;
+        }
+        for (int i = tid; i < bs * DC; i += nth) {
+          const int r = i / DC, d = i % DC;
+          const size_t off = (((size_t)blk * bs + r) * KV + kvh) * D;
+          k_s[i] = d < w ? to_f(k_pool[off + c0 + d]) : 0.f;
+          if (cc == 0) v_s[i] = d < od ? to_f(v_pool[off + d0 + d]) : 0.f;
+        }
+        __syncthreads();
+        for (int i = tid; i < QT * bs; i += nth) {
+          const int r = i / bs, c = i % bs;
+          float dot = cc == 0 ? 0.f : sc[i];
+          for (int d = 0; d < w; ++d) dot += q_s[r * DC + d] * k_s[c * DC + d];
+          sc[i] = dot;
+        }
+        __syncthreads();
+      }
+      for (int i = tid; i < QT * bs; i += nth) {
+        const int r = i / bs, c = i % bs;
+        const int col = col0 + c;
+        sc[i] = r < nq && col < S
+                    ? sc[i] * scale + bias[(((size_t)b * HB + hb) * Tq + t0 + r) * S + col]
+                    : -INFINITY;
+      }
     }
     __syncthreads();
     for (int r = tid; r < QT; r += nth) {
@@ -579,20 +625,42 @@ __global__ void paged_prefill_cc_kernel(
       a_s[r] = alpha;
     }
     __syncthreads();
-    for (int i = tid; i < QT * D; i += nth) {
-      const int r = i / D, d = i % D;
+    for (int i = tid; i < QT * DC; i += nth) {
+      const int r = i / DC, d = i % DC;
       float a = acc[i] * a_s[r];
-      for (int c = 0; c < bs; ++c) a += sc[r * bs + c] * v_s[c * D + d];
+      for (int c = 0; c < bs; ++c) a += sc[r * bs + c] * v_s[c * DC + d];
       acc[i] = a;
     }
     __syncthreads();
   }
 
-  for (int i = tid; i < nq * D; i += nth) {
-    const int r = i / D, d = i % D;
+  for (int i = tid; i < nq * DC; i += nth) {
+    const int r = i / DC, d = i % DC;
+    if (d >= od) continue;
     const float l = l_s[r];
-    from_f(l > 0.f ? acc[i] / l : 0.f, &out[(((size_t)b * Tq + t0 + r) * H + h) * D + d]);
+    from_f(l > 0.f ? acc[i] / l : 0.f, &out[(((size_t)b * Tq + t0 + r) * H + h) * D + d0 + d]);
   }
+}
+
+template <typename T, bool SPLIT>
+int launch_cc_split(const void* q, const void* k_pool, const void* v_pool,
+                    const void* table, const void* bias, void* out, int B, int Tq,
+                    int H, int KV, int D, int NB, int bs, int TB, int HB, int S,
+                    cudaStream_t stream) {
+  const int DC = SPLIT ? DCH : D, nch = SPLIT ? (D + DCH - 1) / DCH : 1;
+  const size_t smem = sizeof(float) *
+      ((size_t)QT * DC * 2 + (size_t)bs * DC * 2 + (size_t)QT * bs + 3 * QT);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_prefill_cc_kernel<T, SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid((Tq + QT - 1) / QT * nch, H, B);
+  paged_prefill_cc_kernel<T, SPLIT><<<grid, 128, smem, stream>>>(
+      (const T*)q, (const T*)k_pool, (const T*)v_pool, (const int32_t*)table,
+      (const float*)bias, (T*)out, Tq, H, KV, D, NB, bs, TB, HB, S, 1.f / sqrtf((float)D));
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -600,26 +668,19 @@ int launch_cc(const void* q, const void* k_pool, const void* v_pool,
               const void* table, const void* bias, void* out, int B, int Tq,
               int H, int KV, int D, int NB, int bs, int TB, int HB, int S,
               cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      ((size_t)QT * D * 2 + (size_t)bs * D * 2 + (size_t)QT * bs + 3 * QT);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        paged_prefill_cc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid((Tq + QT - 1) / QT, H, B);
-  paged_prefill_cc_kernel<T><<<grid, 128, smem, stream>>>(
-      (const T*)q, (const T*)k_pool, (const T*)v_pool, (const int32_t*)table,
-      (const float*)bias, (T*)out, Tq, H, KV, D, NB, bs, TB, HB, S, 1.f / sqrtf((float)D));
-  return (int)cudaGetLastError();
+  if (D > DCH)
+    return launch_cc_split<T, true>(q, k_pool, v_pool, table, bias, out, B, Tq, H, KV, D, NB,
+                                    bs, TB, HB, S, stream);
+  return launch_cc_split<T, false>(q, k_pool, v_pool, table, bias, out, B, Tq, H, KV, D, NB,
+                                   bs, TB, HB, S, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it). bf16 at
 // D <= 128 runs on tensor cores (D padded to 16, 32, 64 or 128 inside the
-// loads), f32 and bf16 at D > 128 on CUDA cores; the wrapper rejects
-// D > 256.
+// loads), f32 and bf16 at D > 128 on CUDA cores, any D (above 256 split
+// over the head dim).
 extern "C" int paged_prefill(const void* q, const void* k_pool,
                              const void* v_pool, const void* table,
                              const void* bias, void* out, int B, int Tq, int H,

@@ -9,9 +9,10 @@ Hopper, each with a plain PyTorch version beside it:
   ``lse`` and ``delta = rowsum(do * out)`` (two launches, dk/dv then dq).
 
 Both run bf16 on tensor cores at head dims up to 128 (compiled for 16, 32,
-64 and 128, any other D padded inside the loads), bf16 at D in (128, 256]
-and f32 on CUDA cores; the C entries choose by D before the launch. D
-above 256 raises.
+64 and 128, any other D padded inside the loads), bf16 above 128 and f32
+on CUDA cores; the C entries choose by D before the launch. Any D >= 1
+runs: above 256 the CUDA-core kernels split the head dim into 256-column
+output chunks.
 
 :class:`_FlashAttention` pairs them as a ``torch.autograd.Function``, the
 counterpart of the JAX module's ``custom_vjp``; :func:`flash_attention` is

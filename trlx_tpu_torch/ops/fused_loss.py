@@ -5,19 +5,25 @@ Hopper, each with a plain PyTorch version beside it:
 
 - :func:`fused_loss_fwd` (``csrc/fused_loss_fwd.cu``): the reversed GAE,
   masked whitening, the clipped policy and value losses, every scalar stat
-  of ``PPOConfig.loss`` and the four ``dist/*`` sketches, in one launch;
+  of ``PPOConfig.loss`` and the four ``dist/*`` sketches, in one launch,
+  leaving the backward's residuals packed in one tensor (raw advantages
+  and returns, whitening mean and inverse std, the mask count;
+  :func:`residual_views`);
 - :func:`fused_loss_bwd` (``csrc/fused_loss_bwd.cu``): the loss's gradient
-  with respect to ``logprobs`` and ``values``, derived by hand with JAX's
-  tie rules.
+  with respect to ``logprobs`` and ``values`` from those residuals, one
+  elementwise pass, derived by hand with JAX's tie rules.
 
 :class:`_FusedLoss` pairs them as a ``torch.autograd.Function`` (the JAX
 ``custom_vjp``): gradients flow to ``logprobs`` and ``values`` only — the
 other operands are batch constants in the trainer, and advantages and
-returns are detached in the staged path too, so this is exact.
+returns are detached in the staged path too, so this is exact. The JAX
+kernel's backward recomputes GAE and the moments under ``jax.vjp``; the
+port keeps the forward's residuals instead.
 
 The plain versions keep the JAX design of calling the port's own
 ``PPOConfig`` methods (:func:`_loss_core`: ``get_advantages_and_returns``
-then ``loss``) instead of a transcription of them. Stats are packed in the
+then ``loss``; the backward ``loss`` alone on the residuals) instead of a
+transcription of them. Stats are packed in the
 order the JAX package discovers its keys: sorted scalar keys, then sorted
 histogram keys (:func:`stat_keys`).
 
@@ -37,9 +43,11 @@ from trlx_tpu_torch.ops.kernel_utils import (
     kernel_fn,
 )
 from trlx_tpu_torch.utils.dynamics import SKETCH_BINS
+from trlx_tpu_torch.utils.stats import masked_mean, masked_var
 
 __all__ = [
     "LossParams",
+    "residual_views",
     "loss_params_of",
     "stat_keys",
     "fused_ppo_loss",
@@ -139,10 +147,39 @@ def _check_operands(operands):
             raise ValueError(f"fused loss operand {i} has shape {tuple(x.shape)} != {(B, R)}")
 
 
+def _cuda_operands(what: str, operands, device: torch.device):
+    """The operands as contiguous tensors on ``device`` (a copy only for
+    one that is not contiguous); raises for another device."""
+    if device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {device}")
+    ops = [x if x.is_contiguous() else x.contiguous() for x in operands]
+    for i, x in enumerate(ops):
+        if x.device != device:
+            raise ValueError(f"fused loss operand {i} is on {x.device}, expected {device}")
+    return ops
+
+
 def _scalar_args(p: LossParams):
     return (float(p.gamma), float(p.gamma * p.lam), float(1.0 - p.cliprange),
             float(1.0 + p.cliprange), float(p.cliprange_value), float(p.vf_coef),
             float(p.iw_clip))
+
+
+# ctypes signatures of the two C entries
+_FWD_ARGS = [_P] * 8 + [_I, _I] + [_F] * 7 + [_I, _P]
+_BWD_ARGS = [_P] * 9 + [_I, _I] + [_F] * 5 + [_P]
+# the residual moments: whitening mean, 1 / sqrt(var + 1e-8), n
+_N_MOMENTS = 3
+# the forward's buffer after the residuals: loss, scalar slots, sketches
+_TAIL = 1 + len(_SCALAR_KEYS) + len(_HIST_KEYS) * SKETCH_BINS
+
+
+def residual_views(res: torch.Tensor, B: int, R: int):
+    """``(advantages, returns, moments)`` of packed residuals: the raw
+    (unwhitened) advantages and the returns, (B, R), and the moments
+    (whitening mean, 1 / sqrt(var + 1e-8), n = max(sum(mask), 1))."""
+    n = B * R
+    return res[:n].view(B, R), res[n:2 * n].view(B, R), res[2 * n:]
 
 
 # ---------------------------------------------------------------------------
@@ -154,50 +191,51 @@ def fused_loss_fwd(p: LossParams, operands: Tuple[torch.Tensor, ...]):
     """Loss, packed scalar stats and sketches of the 6 operands ``(logprobs,
     values, old_logprobs, old_values, rewards, mask)``, plus
     ``behavior_logprobs`` as a 7th with the IW correction. Returns ``(loss
-    [], scalars [NS], hists [NH, 32])`` in :func:`stat_keys` order."""
+    [], scalars [NS], hists [NH, 32], res [2 B R + 3])`` in
+    :func:`stat_keys` order; ``res`` packs the residuals
+    :func:`fused_loss_bwd` takes (:func:`residual_views`)."""
     _check_operands(operands)
     device = operands[0].device
     if device.type == "cpu":
         return fused_loss_fwd_reference(p, operands)
-    if device.type != "cuda":
-        raise ValueError(f"fused_loss_fwd runs on cuda or cpu, not {device}")
-    ops = [x.contiguous() for x in operands]
-    for i, x in enumerate(ops):
-        check_cuda_operand(x, f"operand {i}", device, (torch.float32,))
+    ops = _cuda_operands("fused_loss_fwd", operands, device)
     B, R = ops[0].shape
     use_iw = len(ops) == 7
-    adv = torch.empty((B, R), dtype=torch.float32, device=device)
-    ret = torch.empty_like(adv)
-    loss = torch.empty((), dtype=torch.float32, device=device)
-    scalars = torch.empty((len(_SCALAR_KEYS),), dtype=torch.float32, device=device)
-    hists = torch.empty((len(_HIST_KEYS), SKETCH_BINS), dtype=torch.float32, device=device)
-    fn = kernel_fn("fused_loss_fwd", [_P] * 12 + [_I, _I] + [_F] * 7 + [_I, _P])
-    rc = fn(*(x.data_ptr() for x in ops[:6]), ops[6].data_ptr() if use_iw else None,
-            adv.data_ptr(), ret.data_ptr(), loss.data_ptr(), scalars.data_ptr(),
-            hists.data_ptr(), B, R, *_scalar_args(p), int(p.dist_sketches),
-            current_stream_ptr(device))
+    o = 2 * B * R + _N_MOMENTS  # residuals, then loss, scalars, sketches
+    buf = torch.empty(o + _TAIL, dtype=torch.float32, device=device)
+    rc = kernel_fn("fused_loss_fwd", _FWD_ARGS)(
+        *(x.data_ptr() for x in ops[:6]), ops[6].data_ptr() if use_iw else None,
+        buf.data_ptr(), B, R, *_scalar_args(p), int(p.dist_sketches),
+        current_stream_ptr(device))
     check_launch("fused_loss_fwd", rc)
     fused_loss_fwd.launches += 1
-    if not use_iw:
-        scalars = scalars[len(_IW_KEYS):]
-    if not p.dist_sketches:
-        hists = hists[:0]
-    return loss, scalars, hists
+    ns = len(_SCALAR_KEYS)
+    scalars = buf[o + 1 + (0 if use_iw else len(_IW_KEYS)): o + 1 + ns]
+    nh = len(_HIST_KEYS) if p.dist_sketches else 0
+    hists = buf.as_strided((nh, SKETCH_BINS), (SKETCH_BINS, 1), o + 1 + ns)
+    return buf[o], scalars, hists, buf[:o]
 
 
 fused_loss_fwd.launches = 0
 
 
 def fused_loss_fwd_reference(p: LossParams, operands):
-    """Plain version of :func:`fused_loss_fwd`: :func:`_loss_core`, packed."""
+    """Plain version of :func:`fused_loss_fwd`: :func:`_loss_core`, packed,
+    with the residuals from the port's own GAE and whitening pieces."""
     use_iw = len(operands) == 7
     with torch.no_grad():
         loss, stats = _loss_core(p, *operands[:6], operands[6] if use_iw else None)
+        ov, rw, mask = operands[3:6]
+        adv, ret = _method_of(p).get_advantages_and_returns(ov, rw, mask, use_whitening=False)
+        var = masked_var(adv, mask, ddof=1)
+        moments = torch.stack([masked_mean(adv, mask), torch.rsqrt(var + 1e-8),
+                               torch.clamp(mask.sum(), min=1.0)])
+        res = torch.cat([adv.reshape(-1), ret.reshape(-1), moments]).float()
     scalar_keys, hist_keys = stat_keys(p, use_iw)
     scalars = torch.stack([stats[k].float() for k in scalar_keys])
     hists = (torch.stack([stats[k].float() for k in hist_keys]) if hist_keys
              else torch.zeros((0, SKETCH_BINS), dtype=torch.float32, device=loss.device))
-    return loss.float(), scalars, hists
+    return loss.float(), scalars, hists, res
 
 
 # ---------------------------------------------------------------------------
@@ -205,47 +243,52 @@ def fused_loss_fwd_reference(p: LossParams, operands):
 # ---------------------------------------------------------------------------
 
 
-def fused_loss_bwd(p: LossParams, operands: Tuple[torch.Tensor, ...], g_loss: torch.Tensor):
+def fused_loss_bwd(p: LossParams, operands: Tuple[torch.Tensor, ...], res: torch.Tensor,
+                   g_loss: torch.Tensor):
     """Gradient of the loss w.r.t. ``logprobs`` and ``values`` given the
-    loss cotangent ``g_loss`` (a 0-dim f32 tensor). Returns ``(dlogprobs,
-    dvalues)``, (B, R) f32."""
+    forward's packed residuals ``res`` and the loss cotangent ``g_loss``
+    (one f32). Returns ``(dlogprobs, dvalues)``, (B, R) f32."""
     _check_operands(operands)
     device = operands[0].device
     if device.type == "cpu":
-        return fused_loss_bwd_reference(p, operands, g_loss)
-    if device.type != "cuda":
-        raise ValueError(f"fused_loss_bwd runs on cuda or cpu, not {device}")
-    ops = [x.contiguous() for x in operands]
-    for i, x in enumerate(ops):
-        check_cuda_operand(x, f"operand {i}", device, (torch.float32,))
-    g = g_loss.to(device=device, dtype=torch.float32).reshape(1).contiguous()
-    B, R = ops[0].shape
+        return fused_loss_bwd_reference(p, operands, res, g_loss)
+    B, R = operands[0].shape
+    ops = _cuda_operands("fused_loss_bwd", operands, device)
+    check_cuda_operand(res, "residuals", device, (torch.float32,))
+    if res.numel() != 2 * B * R + _N_MOMENTS:
+        raise ValueError(f"fused loss residuals hold {res.numel()} values, not "
+                         f"{2 * B * R + _N_MOMENTS}")
+    if g_loss.dtype != torch.float32 or g_loss.device != device:
+        g_loss = g_loss.to(device=device, dtype=torch.float32)
+    if g_loss.numel() != 1:
+        raise ValueError(f"g_loss must hold one value, not {g_loss.numel()}")
     use_iw = len(ops) == 7
-    adv = torch.empty((B, R), dtype=torch.float32, device=device)
-    ret = torch.empty_like(adv)
-    dlp = torch.empty_like(adv)
-    dv = torch.empty_like(adv)
-    fn = kernel_fn("fused_loss_bwd", [_P] * 12 + [_I, _I] + [_F] * 7 + [_P])
-    rc = fn(*(x.data_ptr() for x in ops[:6]), ops[6].data_ptr() if use_iw else None,
-            g.data_ptr(), adv.data_ptr(), ret.data_ptr(), dlp.data_ptr(), dv.data_ptr(),
-            B, R, *_scalar_args(p), current_stream_ptr(device))
+    out = torch.empty((2, B, R), dtype=torch.float32, device=device)
+    rc = kernel_fn("fused_loss_bwd", _BWD_ARGS)(
+        *(x.data_ptr() for x in ops[:4]), ops[5].data_ptr(),
+        ops[6].data_ptr() if use_iw else None, res.data_ptr(), g_loss.data_ptr(),
+        out.data_ptr(), B, R, *_scalar_args(p)[2:], current_stream_ptr(device))
     check_launch("fused_loss_bwd", rc)
     fused_loss_bwd.launches += 1
-    return dlp, dv
+    return out.unbind(0)
 
 
 fused_loss_bwd.launches = 0
 
 
-def fused_loss_bwd_reference(p: LossParams, operands, g_loss):
+def fused_loss_bwd_reference(p: LossParams, operands, res: torch.Tensor, g_loss):
     """Plain version of :func:`fused_loss_bwd`: autograd through
-    :func:`_loss_core` w.r.t. the first two operands."""
+    ``PPOConfig.loss`` w.r.t. the first two operands, the advantages
+    whitened from the residuals as ``whiten`` does."""
     use_iw = len(operands) == 7
+    lp, v, olp, ov, _, mask = (x.detach() for x in operands[:6])
+    adv, ret, moments = residual_views(res, *lp.shape)
+    white = (adv - moments[0]) * moments[1]
     with torch.enable_grad():
-        lp = operands[0].detach().requires_grad_(True)
-        v = operands[1].detach().requires_grad_(True)
-        rest = [x.detach() for x in operands[2:6]]
-        loss, _ = _loss_core(p, lp, v, *rest, operands[6].detach() if use_iw else None)
+        lp, v = lp.requires_grad_(True), v.requires_grad_(True)
+        loss, _ = _method_of(p).loss(
+            logprobs=lp, values=v, old_logprobs=olp, old_values=ov, advantages=white,
+            returns=ret, mask=mask, behavior_logprobs=operands[6].detach() if use_iw else None)
         dlp, dv = torch.autograd.grad(loss, (lp, v), grad_outputs=g_loss.to(loss.dtype))
     return dlp, dv
 
@@ -256,20 +299,21 @@ def fused_loss_bwd_reference(p: LossParams, operands, g_loss):
 
 
 class _FusedLoss(torch.autograd.Function):
-    """Forward kernel #7 paired with backward kernel #8."""
+    """Forward kernel #7 paired with backward kernel #8 through the
+    forward's residuals."""
 
     @staticmethod
     def forward(ctx, p, *operands):
-        loss, scalars, hists = fused_loss_fwd(p, operands)
+        loss, scalars, hists, res = fused_loss_fwd(p, operands)
         ctx.p = p
-        ctx.save_for_backward(*operands)
+        ctx.save_for_backward(*operands, res)
         ctx.mark_non_differentiable(scalars, hists)
         return loss, scalars, hists
 
     @staticmethod
     def backward(ctx, g_loss, g_scalars, g_hists):
-        operands = ctx.saved_tensors
-        dlp, dv = fused_loss_bwd(ctx.p, operands, g_loss)
+        *operands, res = ctx.saved_tensors
+        dlp, dv = fused_loss_bwd(ctx.p, operands, res, g_loss)
         return (None, dlp, dv) + (None,) * (len(operands) - 2)
 
 

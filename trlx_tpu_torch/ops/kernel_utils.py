@@ -46,7 +46,6 @@ __all__ = [
     "kernel_fn",
     "check_launch",
     "check_cuda_operand",
-    "MAX_HEAD_DIM",
     "check_head_dim",
     "current_stream_ptr",
     "clamp_block_table",
@@ -103,6 +102,7 @@ _NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: _lock
+_fns: Dict[str, tuple] = {}  # name → (library, its C entry with argtypes set)
 
 
 def resolve_device(device: Union[None, str, torch.device] = None) -> torch.device:
@@ -173,10 +173,16 @@ def load_kernel(name: str) -> ctypes.CDLL:
 
 def kernel_fn(name: str, argtypes: list):
     """The C entry ``name`` of ``csrc/<name>.cu`` with its ctypes
-    signature set (pointers and the stream as ``c_void_p``)."""
-    fn = getattr(load_kernel(name), name)
+    signature set (pointers and the stream as ``c_void_p``), kept per
+    loaded library so that a call sets it once."""
+    lib = _libs.get(name) or load_kernel(name)
+    hit = _fns.get(name)
+    if hit is not None and hit[0] is lib:
+        return hit[1]
+    fn = getattr(lib, name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
+    _fns[name] = (lib, fn)
     return fn
 
 
@@ -200,23 +206,26 @@ def check_cuda_operand(
         raise ValueError(f"{name} must be contiguous")
 
 
-# The largest head dim the attention kernels take. The tensor-core kernels
-# are compiled for padded head dims 16, 32, 64 and 128 and take any D up to
-# 128 padded inside their loads; bf16 at D in (128, 256] runs the CUDA-core
-# kernels, f32 always does; the decode kernel runs on CUDA cores with a
-# padded 256 besides. Each C entry picks its instantiation by D (and by the
+# The attention kernels take any head dim D >= 1, as the JAX kernels do. The
+# tensor-core kernels are compiled for padded head dims 16, 32, 64 and 128
+# and take any D up to 128 padded inside their loads; bf16 above 128 runs
+# the CUDA-core kernels, f32 always does; decode runs on CUDA cores with a
+# padded 256 besides. Above 256 the CUDA-core kernels split the head dim
+# into 256-column output chunks (a grid dimension), streaming q.k over
+# every chunk. Each C entry picks its instantiation by D (and by the
 # operands' 16-byte alignment) before the launch.
-MAX_HEAD_DIM = 256
-
-
 def check_head_dim(what: str, D: int) -> None:
-    """Raise unless ``1 <= D <= MAX_HEAD_DIM``."""
-    if not 1 <= D <= MAX_HEAD_DIM:
-        raise ValueError(f"{what} takes head dim D <= {MAX_HEAD_DIM}, not D={D}")
+    """Raise unless ``D >= 1``."""
+    if D < 1:
+        raise ValueError(f"{what} takes head dim D >= 1, not D={D}")
 
 
 def current_stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw ``cudaStream_t`` of ``device``'s current stream (as
+    ``torch.cuda.current_stream(device).cuda_stream``, without building a
+    ``Stream`` object on every launch)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def clamp_block_table(block_table: torch.Tensor, num_blocks: int) -> torch.Tensor:

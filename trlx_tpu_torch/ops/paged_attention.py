@@ -98,9 +98,10 @@ def paged_attention_decode(
 ) -> torch.Tensor:
     """One decode step of attention, reading K/V through the block table.
     Returns ``(B, H, D)`` in ``q.dtype``. The pool is only read. On CUDA
-    tensors D is at most 256: the kernel is compiled for padded head dims
+    tensors any D >= 1 runs: the kernel is compiled for padded head dims
     16, 32, 64, 128 and 256 and reads the true D from the pool in place (no
-    padded copy); rows longer than :data:`DECODE_SPAN_COLS` columns are
+    padded copy), and splits D above 256 into 256-column output chunks;
+    rows longer than :data:`DECODE_SPAN_COLS` columns are
     split over that many columns per block and merged by a second launch
     (one call, one count)."""
     B, H, D = q.shape

@@ -11,8 +11,10 @@ stages deep; at 16 or fewer (the speculative verify's ``G + 1``) a block
 of four warps splits the row's 16-column chunks, each warp
 double-buffered, and merges the four partial softmax states. The bf16
 kernel is compiled for head dims 16, 32, 64 and 128 and takes any D up to
-128 padded inside its loads; bf16 at D in (128, 256] runs the CUDA-core
-kernel, chosen by D in the C dispatch, as does f32 (the parity runs). The chunk's own K/V is committed through the table by the caller
+128 padded inside its loads; bf16 above 128 runs the CUDA-core kernel,
+chosen by D in the C dispatch, as does f32 (the parity runs); it splits D
+above 256 into 256-column output chunks, so any D >= 1 runs. The chunk's
+own K/V is committed through the table by the caller
 (``models/transformer.py::Attention``) before the call, so no dense view
 exists on entry and nothing is scattered on exit. Masked key columns
 carry the ``-1e9`` additive bias and contribute exactly 0.
