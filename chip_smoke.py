@@ -16,16 +16,20 @@ Phases, each printing one JSON line:
    ``paged_decode``, ``flash_fwd``, ``fused_sample``) and, where
    ``cuobjdump`` exists, their tensor-core (``HMMA``) instruction counts;
 3. every kernel against its plain PyTorch version on the card, at the
-   serving slice's shapes, at the paged span kernel's layout edges (T = 5
-   and 17), at a GQA shape, (decode) at a 1000-column row and every
-   attention kernel at head dims 12, 48, 96, 256, 320 and 512, in bf16 and
-   f32; the fused sampler in every mode the paths meet at B = 8 and 32 and
-   on a 128256-wide row; the fused loss at (B, R) = (16, 40), (32, 40) and
-   (32, 128), IW on and off, with its residuals; with the max error, the
-   stated tolerance, kernel / plain / library times (device time per call
-   of back-to-back calls enqueued behind a sleeping card, and the per-call
-   time with the host's launch, ``call_ms``; see ``time_ms``) and the least
-   time the card could take;
+   serving slice's shapes, at the shapes the offline paths give the
+   engine's kernels (``OFFLINE_ENGINE_SHAPES``: SFT's 984-column eval
+   prefill, ILQL's 128 slots, the randomwalks model's head dim 12), at
+   the paged span kernel's layout edges (T = 5 and 17), at a GQA shape,
+   (decode) at a 1000-column row and every attention kernel at head dims
+   12, 48, 96, 256, 320 and 512, in bf16 and f32; the fused sampler in
+   every mode the paths meet at B = 8 and 32, at ILQL's 128 slots, on a
+   128256-wide row and on the randomwalks vocabulary of 24; the fused
+   loss at (B, R) = (16, 40), (32, 40) and (32, 128), IW on and off, with
+   its residuals; with the max error, the stated tolerance, kernel /
+   plain / library times (device time per call of back-to-back calls
+   enqueued behind a sleeping card, and the per-call time with the host's
+   launch, ``call_ms``; see ``time_ms``) and the least time the card could
+   take;
 4. the slice: full-width GPT-2 small (random weights from a seed) on the
    paged ``ContinuousEngine`` behind ``ServeServer`` and its HTTP
    frontend, warmed up off the clock; 16 POSTed requests (half greedy,
@@ -49,9 +53,29 @@ Phases, each printing one JSON line:
    launch and the spec gauges must be in range), and in f32 with TF32
    off, greedy, the speculative engine's answers against the plain
    ``generate`` token for token, and with the draft set to the target's
-   own weights an acceptance of exactly 1.0 (``slice_spec_parity``).
+   own weights an acceptance of exactly 1.0 (``slice_spec_parity``);
+7. the offline slices through ``trlx_tpu_torch.train(samples=...)``: SFT
+   on ``default_sft_config()`` (GPT-2 small, seq_length 1024, batch 8,
+   12 steps; ``slice_sft``) and ILQL on ``default_ilql_config()`` (batch
+   128 at seq_length 64, twin Q heads, 12 steps, the target heads synced
+   after steps 5 and 10 and at no other; ``slice_ilql``), each with its
+   evaluation on the paged engine (the ILQL hook shaping the sampler's f32
+   logits) and a profile of three steps; the flash kernels and #1–#3 must
+   launch, #1–#3 as often as the engine's gauges and prewarm say. In f32
+   with TF32 off, one batch of each store card against CPU and the ILQL
+   greedy answers on the card's engine against the CPU's plain
+   ``generate`` (``slice_offline_parity``). The kernel checks of phase 3
+   and 5 hold the flash kernels on right-padded rows at the SFT and ILQL
+   shapes and the sampler on hook-shaped f32 logits under top-k;
+8. the acceptance runs on the randomwalks model (head dim 12,
+   ``slice_randomwalks``): ``tasks/ppo_randomwalks.py`` (SFT warm start,
+   then 160 PPO steps, ``method.chunk_size`` 64: see ``RANDOMWALKS_PPO``)
+   must end with a mean optimality of at least 0.9 over its last three
+   evals, ``tasks/ilql_randomwalks.py`` (160 steps)
+   must lift its last three evals over its first two by more than 0.1.
 
-The line before the last holds the kernel summary, the one before it the
+The line before the last holds the kernel summary (each kernel's launches
+on its own slice's path, and on every path in ``launches_by_path``), the one before it the
 card's name and power limit; the last line is the result object. Any
 failure raises, and the script exits non-zero without the result line.
 """
@@ -488,9 +512,36 @@ SAMPLE_MODES = {
     "served": dict(temperature=1.0, top_k=50, top_p=0.95, sample=True),
     "train": dict(temperature=1.0, top_k=0, top_p=1.0, sample=True),
 }
+# the ILQL eval's: f32 logits shaped by the trainer's hook
+# (log_softmax(logits) + β (min target-Q − V)) under the preset's top-k 20
+# at temperature 1, ilql_randomwalks' top-k 10 at 0.1, and the acceptance
+# run's 0.05 (RANDOMWALKS_ILQL); the gpu tests share these
+ILQL_SAMPLE_MODES = {
+    "ilql": dict(temperature=1.0, top_k=20, top_p=1.0),
+    "ilql_randomwalks": dict(temperature=0.1, top_k=10, top_p=1.0),
+    "ilql_randomwalks_t0.05": dict(temperature=0.05, top_k=10, top_p=1.0),
+}
+
+
+def ilql_shaped_logits(B, V, seed, beta=1.0):
+    """[B, V] f32 logits as the ILQL hook hands them to the sampler."""
+    rs = np.random.RandomState(seed)
+    logits = rs.randn(B, V) * 3.0
+    logp = logits - logits.max(-1, keepdims=True)
+    logp -= np.log(np.exp(logp).sum(-1, keepdims=True))
+    adv = rs.randn(B, V) * 0.5 - rs.randn(B, 1) * 0.5  # min target-Q − V
+    return (logp + beta * adv).astype(np.float32)
+
+
+def sample_mode(mode):
+    if mode in ILQL_SAMPLE_MODES:
+        return dict(ILQL_SAMPLE_MODES[mode], sample=True)
+    return dict(SAMPLE_MODES[mode])
 
 
 def check_sample(mode, dtype_name, B, V, seed, timed=False):
+    """``dtype_name``: ``bfloat16`` (bf16-rounded model logits), ``float32``,
+    or ``ilql_f32`` (f32 logits shaped by the ILQL hook)."""
     from trlx_tpu_torch.ops.paged_attention import fused_sample, fused_sample_reference
 
     dev = torch.device("cuda")
@@ -498,8 +549,10 @@ def check_sample(mode, dtype_name, B, V, seed, timed=False):
     logits = torch.tensor(rs.randn(B, V) * 3.0, dtype=torch.float32)
     if dtype_name == "bfloat16":  # bf16 model logits: many exact ties
         logits = logits.to(torch.bfloat16).float()
+    if dtype_name == "ilql_f32":
+        logits = torch.tensor(ilql_shaped_logits(B, V, seed))
     logits = logits.to(dev).contiguous()
-    settings = dict(SAMPLE_MODES[mode])
+    settings = sample_mode(mode)
     gumbel = None
     if settings.pop("sample"):
         u = rs.uniform(1e-7, 1 - 1e-7, size=(B, V))
@@ -574,6 +627,17 @@ def phase_kernels():
             check_attention("paged_decode", T=1, dtype=dtype, poison=True, seed=41 + D, **geo)
             check_attention("paged_verify", B=8, T=5, H=8, KV=4, D=D, bs=16, S=108, HB=1,
                             dtype=dtype, poison=2, seed=42 + D)
+    # the offline paths' engine shapes, in both types (timed in bf16)
+    for name, (B, P, S, H, D) in OFFLINE_ENGINE_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            bf = dtype == torch.bfloat16
+            geo = dict(B=B, H=H, KV=H, D=D, bs=16, S=S, HB=1)
+            pre = check_attention("paged_prefill", T=P, dtype=dtype, poison=True,
+                                  seed=80 + P + B, timed=bf, **geo)
+            dec = check_attention("paged_decode", T=1, dtype=dtype, poison=True,
+                                  seed=81 + P + B, timed=bf, **geo)
+            if bf:
+                timed[f"paged_prefill_{name}"], timed[f"paged_decode_{name}"] = pre, dec
     # the fused sampler: every mode, B = 8 and 32 (timed on bf16-rounded
     # logits), and a 128256-wide row (llama-3's vocabulary)
     for i, mode in enumerate(SAMPLE_MODES):
@@ -585,7 +649,38 @@ def phase_kernels():
                     timed["fused_sample"] = rec
     for mode in ("served", "train", "greedy"):
         check_sample(mode, "bfloat16", B=8, V=128256, seed=60, timed=True)
+    # the ILQL eval: hook-shaped f32 logits, top-k, sampled, B = 8 and 32
+    for i, mode in enumerate(ILQL_SAMPLE_MODES):
+        for B in (8, 32):
+            rec = check_sample(mode, "ilql_f32", B=B, V=50257, seed=70 + i + B, timed=True)
+            if (mode, B) == ("ilql", 32):
+                timed["fused_sample_ilql"] = rec
+    # the offline paths' sampler shapes: ILQL's 128 eval slots; the
+    # randomwalks vocabulary of 24 (21 nodes and 3 specials) under the
+    # PPO collection's unfiltered sampling (64 rows) and ILQL's top-k 10
+    # (20 eval prompts)
+    timed["fused_sample_ilql_128"] = check_sample("ilql", "ilql_f32", B=128, V=50257,
+                                                  seed=90, timed=True)
+    for B in (64, 20):
+        check_sample("train", "bfloat16", B=B, V=RANDOMWALKS_VOCAB, seed=91 + B)
+    for mode in ("ilql_randomwalks", "ilql_randomwalks_t0.05"):
+        check_sample(mode, "ilql_f32", B=20, V=RANDOMWALKS_VOCAB, seed=93)
     return timed
+
+
+# the engine geometry (B, P, S, H, D) the offline paths give #1 and #2:
+# SFT's eval prefills its 8 prompts left-padded to seq_length −
+# max_new_tokens = 984 columns (S = 1024); ILQL's eval runs 128 slots (bos
+# × batch 128) at P = 8, S = 64; the randomwalks runs collect 64 rows and
+# evaluate 20 prompts on 12 heads of head dim 12, P = 8 (the prompt
+# loader's width), S = 8 + 9
+OFFLINE_ENGINE_SHAPES = {
+    "sft": (8, 984, 1024, 12, 64),
+    "ilql": (128, 8, 64, 12, 64),
+    "randomwalks_collect": (64, 8, 17, 12, 12),
+    "randomwalks_eval": (20, 8, 17, 12, 12),
+}
+RANDOMWALKS_VOCAB = 24
 
 
 # head dims besides the kernels' templates: the randomwalks model's 12, 48,
@@ -827,13 +922,37 @@ def excess(got, want, atol, rtol):
     return float((err - atol - rtol * want.abs()).max()), float(err.max())
 
 
+# the offline trainers' flash calls: DialogStore and ilql_collate pad on
+# the right, so each row's keys end early and the queries past a row's end
+# still see its valid keys (causal). (B, T, H, D), T = S, KV = H: SFT's
+# training shape (GPT-2 small at seq_length 1024, batch 8), ILQL's (batch
+# 128 at seq_length 64) and ilql_randomwalks' (batch 32 at seq_length 11,
+# head dim 12); the gpu tests share these
+RIGHT_PAD_FLASH_SHAPES = [(8, 1024, 12, 64), (128, 64, 12, 64), (32, 11, 12, 12)]
+
+
+def right_pad_mask(B, S, seed):
+    """[B, S] f32 key mask padded on the right: row 0 full, row 1 one
+    token long, the others of random lengths in [S / 4, S)."""
+    rs = np.random.RandomState(seed)
+    lengths = [S, 1] + list(rs.randint(max(S // 4, 1), S, size=max(B - 2, 0)))
+    mask = np.zeros((B, S), np.float32)
+    for b, n in enumerate(lengths[:B]):
+        mask[b, :n] = 1.0
+    return mask
+
+
 def flash_case_inputs(rs, B, T, S, H, KV, D, dtype, dev, left_pad, alibi, q_offset,
-                      dead_keys):
-    """q, k, v, key mask (random left padding per row; ``dead_keys`` masks a
-    key range of row 0 so that some of its queries see no key), ALiBi
-    positions and slopes, the output cotangent."""
+                      dead_keys, right_pad=False, seed=0):
+    """q, k, v, key mask (random left padding per row, or with
+    ``right_pad`` the offline batches' right padding of ``right_pad_mask``;
+    ``dead_keys`` masks a key range
+    of row 0 so that some of its queries see no key), ALiBi positions and
+    slopes, the output cotangent."""
     mask = np.ones((B, S), np.float32)
-    if left_pad:
+    if right_pad:
+        mask = right_pad_mask(B, S, seed)
+    elif left_pad:
         for b in range(B):
             mask[b, : rs.randint(0, max(S // 4, 1))] = 0.0
     if dead_keys:
@@ -863,7 +982,7 @@ def flash_visible_pairs(mask, T, S, causal, q_offset, window):
 
 
 def check_flash(label, B, T, S, H, KV, D, dtype, seed, causal=True, q_offset=0, window=0,
-                alibi=False, left_pad=True, dead_keys=None, timed=False):
+                alibi=False, left_pad=True, dead_keys=None, right_pad=False, timed=False):
     """Kernels #5 and #6 against their plain versions: out, lse, dq, dk,
     dv. With ``timed``: kernel, plain and library times and the bound."""
     from trlx_tpu_torch.ops.flash_attention import (
@@ -876,7 +995,8 @@ def check_flash(label, B, T, S, H, KV, D, dtype, seed, causal=True, q_offset=0, 
     dev = torch.device("cuda")
     rs = np.random.RandomState(seed)
     q, k, v, mask, alibi_args, do = flash_case_inputs(
-        rs, B, T, S, H, KV, D, dtype, dev, left_pad, alibi, q_offset, dead_keys)
+        rs, B, T, S, H, KV, D, dtype, dev, left_pad, alibi, q_offset, dead_keys,
+        right_pad, seed)
     kw = dict(sm_scale=D ** -0.5, causal=causal, q_offset=q_offset, k_offset=0, window=window)
     before = (flash_fwd.launches, flash_bwd.launches)
     out, lse = flash_fwd(q, k, v, mask, *alibi_args, **kw)
@@ -900,6 +1020,7 @@ def check_flash(label, B, T, S, H, KV, D, dtype, seed, causal=True, q_offset=0, 
     rec = {"phase": "kernel_check", "kernel": "flash_fwd+flash_bwd", "case": label,
            "dtype": str(dtype).split(".")[-1], "B": B, "T": T, "S": S, "H": H, "KV": KV,
            "D": D, "q_offset": q_offset, "window": window, "alibi": alibi,
+           "padding": "right" if right_pad else "left" if left_pad else "none",
            "fully_masked_rows": dead_rows, "max_abs_err": report, "tol": tol}
     if not math.isfinite(max_err) or worst > 0:
         emit({**rec, "ok": False})
@@ -1063,6 +1184,17 @@ def phase_train_kernels():
         for D in HEAD_DIM_CHECKS:
             check_flash(f"head_dim_{D}", B=2, T=90, S=90, H=8, KV=4, D=D, dtype=dtype,
                         seed=24 + D, alibi=D == 96)
+        # (e) the offline trainers' right-padded rows: SFT's shape, ILQL's
+        # and ilql_randomwalks' (timed)
+        for i, (B, T, H, D) in enumerate(RIGHT_PAD_FLASH_SHAPES):
+            rec = check_flash(f"right_pad_{B}x{T}", B=B, T=T, S=T, H=H, KV=H, D=D, dtype=dtype,
+                              seed=31 + i, right_pad=True, timed=bf)
+            if bf:
+                timed[f"flash_right_pad_{B}x{T}"] = rec
+        # (f) ppo_randomwalks' train batches: 64 rows of 11 (left-padded
+        # prompts), head dim 12
+        check_flash("randomwalks_ppo", B=64, T=11, S=11, H=12, KV=12, D=12, dtype=dtype,
+                    seed=35)
         if bf:
             timed["flash_train"], timed["flash_long"] = a, b
     for B, R in LOSS_SHAPES:
@@ -1206,27 +1338,30 @@ class CardReluBranches:
         return out
 
 
-def phase_slice_train_parity(trainer, card="cuda"):
-    """One collated batch of the run's store through ``loss_fn`` and
-    backward: on the card in f32 through the kernels (TF32 off), and on a
-    CPU copy of the same f32 model through the plain versions, the value
-    head's ReLU taking the card's branches (:class:`CardReluBranches`)."""
+def card_cpu_backward(trainer, build, batch, card, relu=None):
+    """``trainer.loss_fn`` and backward on one host ``batch``: on the card
+    in f32 through the kernels (TF32 off), and on a CPU copy of the same
+    f32 model through the plain versions. ``build(cfg32)`` makes an empty
+    model of the trainer's class; with ``relu`` (:class:`CardReluBranches`)
+    the heads' ReLU takes the card's branches on the CPU. Returns
+    ``{"card": ..., "cpu": ...}``: loss, host stats, gradients and the
+    launches of each pass."""
     from trlx_tpu_torch.models import heads
-    from trlx_tpu_torch.models.heads import CausalLMWithValueHead
     from trlx_tpu_torch.trainer.base import host_stats
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    batch = next(iter(trainer.store.create_loader(trainer.config.train.batch_size)))
     cfg32 = dataclasses.replace(trainer.tcfg, dtype=torch.float32, attention_impl="pallas")
     state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
     model, device = trainer.model, trainer.device
     results = {}
-    relu = heads.F = CardReluBranches()
+    if relu is not None:
+        heads.F = relu
     try:
         for key, dev in (("card", torch.device(card)), ("cpu", torch.device("cpu"))):
-            relu.recording = key == "card"
-            m = CausalLMWithValueHead(cfg32)
+            if relu is not None:
+                relu.recording = key == "card"
+            m = build(cfg32)
             m.load_state_dict(state)
             m = m.to(dev).requires_grad_(True)
             trainer.model, trainer.device = m, dev
@@ -1238,23 +1373,35 @@ def phase_slice_train_parity(trainer, card="cuda"):
                 torch.cuda.synchronize()
             results[key] = {
                 "loss": float(loss.detach()), "stats": host_stats(stats),
-                "grads": {k: p.grad.detach().cpu() for k, p in m.named_parameters()},
+                "grads": {k: p.grad.detach().cpu() for k, p in m.named_parameters()
+                          if p.grad is not None},
                 "launches": launch_counts(),
             }
+            del m, loss, stats
     finally:
         heads.F = torch.nn.functional
         trainer.model, trainer.device = model, device
         trainer._drop_batch_memo()
+    return results
+
+
+def compare_card_cpu(results, card, kernels, stat_atol=None):
+    """Problems and record fields of a :func:`card_cpu_backward` pair:
+    stats within ``PARITY_STAT_RTOL`` (+ ``stat_atol(key)``, default
+    ``PARITY_STAT_ATOL``), the loss within ``PARITY_STAT_RTOL``, every
+    gradient within ``PARITY_GRAD_RTOL`` of its tensor's largest (with an
+    absolute floor of 1e-5 of the model's largest gradient), no launch on
+    the CPU and each of ``kernels`` launched on the card."""
     gpu, cpu = results["card"], results["cpu"]
-    n = float(np.asarray(batch.response_mask).sum())
+    problems = []
+    if set(gpu["grads"]) != set(cpu["grads"]):
+        problems.append("the two passes gave gradients to different parameters")
     worst_stat, stat_name = 0.0, None
-    problems = relu.problems()
     for k, want in cpu["stats"].items():
         if k == "train/loss_kernel_pallas":
             continue
         got = gpu["stats"][k]
-        # a ratio within rounding of a clip bound may flip one token
-        atol = 1.5 / n if k.endswith("clipfrac") else PARITY_STAT_ATOL
+        atol = stat_atol(k) if stat_atol else PARITY_STAT_ATOL
         err = abs(got - want)
         if not err <= atol + PARITY_STAT_RTOL * abs(want):
             problems.append(f"stat {k}: {got} vs {want}")
@@ -1284,22 +1431,41 @@ def phase_slice_train_parity(trainer, card="cuda"):
     loss_rel = abs(gpu["loss"] - cpu["loss"]) / max(abs(cpu["loss"]), 1e-12)
     if not loss_rel <= PARITY_STAT_RTOL:
         problems.append(f"loss {gpu['loss']} vs {cpu['loss']}")
-    through = {k: gpu["launches"][k] for k in TRAIN_KERNELS}
+    through = {k: gpu["launches"][k] for k in kernels}
     if max(cpu["launches"].values()) != 0 or (
             torch.device(card).type == "cuda" and min(through.values()) <= 0):
         problems.append(f"launches card {gpu['launches']} / cpu {cpu['launches']}")
-    rec = {"phase": "slice_train_parity", "batch": list(np.asarray(batch.query_tensors).shape)
-           + [int(np.asarray(batch.response_tensors).shape[1])],
-           "tf32": False, "loss_card": gpu["loss"], "loss_cpu": cpu["loss"],
+    rec = {"tf32": False, "loss_card": gpu["loss"], "loss_cpu": cpu["loss"],
            "loss_rel_err": loss_rel, "worst_stat_rel_err": worst_stat, "worst_stat": stat_name,
            "worst_grad_rel_err": worst_grad, "worst_grad": grad_name,
            "grad_abs_floor": floor, "largest_grad": gmax,
            "floored_grad_err_over_largest": worst_floored, "floored_grad": floored_name,
            "grad_rtol": PARITY_GRAD_RTOL, "stat_rtol": PARITY_STAT_RTOL,
+           "kernel_launches_card": through, "params_compared": len(cpu["grads"])}
+    return problems, rec
+
+
+def phase_slice_train_parity(trainer, card="cuda"):
+    """One collated batch of the run's store through ``loss_fn`` and
+    backward: on the card in f32 through the kernels (TF32 off), and on a
+    CPU copy of the same f32 model through the plain versions, the value
+    head's ReLU taking the card's branches (:class:`CardReluBranches`)."""
+    from trlx_tpu_torch.models.heads import CausalLMWithValueHead
+
+    batch = next(iter(trainer.store.create_loader(trainer.config.train.batch_size)))
+    relu = CardReluBranches()
+    results = card_cpu_backward(trainer, CausalLMWithValueHead, batch, card, relu)
+    n = float(np.asarray(batch.response_mask).sum())
+    # a ratio within rounding of a clip bound may flip one token
+    problems, fields = compare_card_cpu(
+        results, card, TRAIN_KERNELS,
+        stat_atol=lambda k: 1.5 / n if k.endswith("clipfrac") else PARITY_STAT_ATOL)
+    problems = relu.problems() + problems
+    rec = {"phase": "slice_train_parity", "batch": list(np.asarray(batch.query_tensors).shape)
+           + [int(np.asarray(batch.response_tensors).shape[1])], **fields,
            "relu_branches_from_card": relu.taken, "relu_pre_max_there": relu.taken_pre_max,
            "relu_masks_replayed": relu.replayed,
-           "relu_kink_bounds": [RELU_KINK_MAX, RELU_KINK_ATOL],
-           "kernel_launches_card": through, "params_compared": len(cpu["grads"])}
+           "relu_kink_bounds": [RELU_KINK_MAX, RELU_KINK_ATOL]}
     emit({**rec, "ok": not problems})
     if problems:
         raise AssertionError(f"slice_train_parity: {problems}")
@@ -1468,17 +1634,404 @@ def phase_slice_spec_parity(device="cuda", spec="builtin:gpt2-small",
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the offline slices — SFT and ILQL through trlx.train(samples=...)
+# ---------------------------------------------------------------------------
+
+# the kernels of the offline paths: training (flash), evaluation (engine)
+OFFLINE_KERNELS = ("flash_fwd", "flash_bwd") + SERVE_KERNELS
+
+
+def offline_dialogs(n, lo, hi, seed):
+    """``n`` seeded [prompt, output] dialogues of lowercase bytes, ``lo`` to
+    ``hi`` bytes in all (the eos appended by the tokenizer may add one),
+    and a reward per dialogue (the output's share of vowels)."""
+    rs = np.random.RandomState(seed)
+    dialogs, rewards = [], []
+    for _ in range(n):
+        total = int(rs.randint(lo, hi))
+        cut = int(rs.randint(1, max(total // 4, 2)))
+        text = "".join(chr(c) for c in rs.randint(97, 123, size=total - 1))
+        dialogs.append([text[:cut], text[cut:]])
+        rewards.append(sum(ch in "aeiou" for ch in text[cut:]) / max(len(text) - cut, 1))
+    return dialogs, rewards
+
+
+def offline_launch_problems(trainer, launches, dev):
+    """The offline path's kernels launched, and #1–#3 exactly as often as
+    the engine's gauges (summed over the evals) plus its no-op prewarm
+    refills say."""
+    from trlx_tpu_torch.engine.core import ContinuousEngine
+
+    names = {"paged_prefill": "eval/prefill_kernel_launches",
+             "paged_decode": "eval/decode_kernel_launches",
+             "fused_sample": "eval/sample_kernel_launches"}
+    gauges = {k: sum(int(st.get(name, 0)) for _, st in trainer.tracker.history)
+              for k, name in names.items()}
+    for engine in trainer._generate_fns.values():
+        if isinstance(engine, ContinuousEngine):
+            for k in gauges:
+                gauges[k] += engine.prewarm_launches[k]
+    problems = []
+    if gauges != {k: launches[k] for k in gauges}:
+        problems.append(f"engine gauges + prewarm {gauges} != wrapper counts {launches}")
+    if dev.type == "cuda" and min(launches[k] for k in OFFLINE_KERNELS) <= 0:
+        problems.append(f"a kernel of the path never launched: {launches}")
+    return problems, gauges
+
+
+def _scratch_dir(tag):
+    import tempfile
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    return tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_", dir=os.path.join(ROOT, "build"))
+
+
+def offline_slice(phase, config, samples, dev, card, check, profile_steps=3, **train_kwargs):
+    """``trlx_tpu_torch.train(samples=...)`` on ``config`` with its
+    checkpoints in a scratch directory (removed after), every kernel
+    counter set to 0 just before and read just after; then
+    ``profile_steps`` steps of one batch under ``torch.profiler`` (on the
+    card). ``check(trainer, steps)`` returns ``(problems, fields)`` of the
+    method. Emits the phase's record; returns the trainer and the
+    launches."""
+    import shutil
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.profile_train import profile_steps as profile
+
+    ckpt = _scratch_dir(phase)
+    config = config.evolve(train=dict(checkpoint_dir=ckpt, tracker=None))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        # -- the main path -----------------------------------------------
+        trainer = trlx_tpu_torch.train(samples=samples, config=config, device=dev,
+                                       **train_kwargs)
+        # ---------------------------------------------------------------
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    hist = trainer.tracker.history
+    steps = [st for _, st in hist if "gradients/global_norm" in st]
+    step_ms = [1e3 * st["time/step"] for st in steps]
+    problems, gauges = offline_launch_problems(trainer, launches, dev)
+    if len(steps) != config.train.total_steps:
+        problems.append(f"{len(steps)} optimizer steps, not {config.train.total_steps}")
+    if not all(math.isfinite(st["losses/loss"]) for st in steps):
+        problems.append("a non-finite loss")
+    method_problems, fields = check(trainer, steps)
+    problems += method_problems
+    prof = {}
+    if dev.type == "cuda":
+        trainer.prepare_learning()
+        prof = profile(trainer, next(iter(trainer.train_dataloader)), profile_steps)
+    rec = {"phase": phase, "model": config.model.model_path,
+           "dtype": str(trainer.tcfg.dtype).split(".")[-1],
+           "seq_length": config.train.seq_length, "batch_size": config.train.batch_size,
+           "samples": len(samples), "optimizer_steps": len(steps),
+           "losses": [st["losses/loss"] for st in steps], **fields, "wall_s": wall,
+           "train_step_ms_median": statistics.median(step_ms), "train_step_ms": step_ms,
+           "train_tokens_per_s_median": statistics.median(
+               st["throughput/tokens_per_sec"] for st in steps),
+           "eval_generate_s": [st["time/generate"] for _, st in hist if "time/generate" in st],
+           "eval_gen_kwargs": config.method.gen_kwargs,
+           "launches": launches, "engine_gauges_plus_prewarm": gauges,
+           "profile": {k: prof[k] for k in ("train_step_ms_median", "device_busy_ms_per_step",
+                                             "device_busy_share", "device_busy_share_untraced",
+                                             "device_launches_per_step",
+                                             "device_ms_per_step_by_group", "top_kernels")
+                       if k in prof},
+           "card": card}
+    emit({**rec, "ok": not problems})
+    if problems:
+        raise AssertionError(f"{phase}: {problems}")
+    return trainer, launches
+
+
+def phase_slice_sft(device="cuda", spec="builtin:gpt2-small", total_steps=12, n_dialogs=96,
+                    seq_length=None, card=""):
+    """SFT through ``trlx_tpu_torch.train(samples=...)`` on
+    ``default_sft_config()`` (seq_length 1024, batch 8, bf16 over f32
+    masters), cut to ``total_steps``; the eval of 8 prompts at 40 new
+    tokens before and after. The loss must fall from the first step to the
+    last. Returns the trainer and the launches."""
+    from trlx_tpu_torch.data.default_configs import default_sft_config
+
+    train = dict(total_steps=total_steps)
+    if seq_length:
+        train["seq_length"] = seq_length
+    config = default_sft_config().evolve(train=train, model=dict(model_path=spec))
+    T = config.train.seq_length
+    samples, _ = offline_dialogs(n_dialogs, T // 4, T, seed=808)
+
+    def check(trainer, steps):
+        first, last = steps[0]["losses/loss"], steps[-1]["losses/loss"]
+        return ([] if last < first else [f"loss {first} → {last}: not lower"],
+                {"loss_first": first, "loss_last": last})
+
+    return offline_slice("slice_sft", config, samples, torch.device(device), card, check,
+                         eval_prompts=[s[0][:16] for s in samples[:8]])
+
+
+def _target_fingerprint(model):
+    """The first 4096 entries of every target-Q head parameter (a sync
+    moves every entry whose Q-head twin moved)."""
+    heads = model.ilql_heads
+    return torch.cat([p.detach().flatten()[:4096].clone()
+                      for name, p in heads.named_parameters() if name.startswith("target_q")])
+
+
+def phase_slice_ilql(device="cuda", spec="builtin:gpt2-small", total_steps=12, n_dialogs=1024,
+                     card=""):
+    """ILQL through ``trlx_tpu_torch.train(samples=..., rewards=...)`` on
+    ``default_ilql_config()`` (seq_length 64, batch 128, twin Q heads,
+    target syncs every 5 steps, bf16 over f32 masters), cut to
+    ``total_steps``; the eval (β 1, top-k 20, 56 new tokens) before and
+    after. The target heads must change after steps 5 and 10 and at no
+    other step. Returns the trainer and the launches."""
+    from trlx_tpu_torch.data.default_configs import default_ilql_config
+
+    config = default_ilql_config().evolve(train=dict(total_steps=total_steps),
+                                          model=dict(model_path=spec))
+    T = config.train.seq_length
+    samples, rewards = offline_dialogs(n_dialogs, T // 4, T, seed=909)
+    prints = {}
+
+    def hook(trainer):  # target-head fingerprints after each batch's callback
+        callback = trainer.post_backward_callback
+        prints[0] = _target_fingerprint(trainer.model)
+
+        def recording():
+            callback()
+            prints[trainer.iter_count] = _target_fingerprint(trainer.model)
+
+        trainer.post_backward_callback = recording
+
+    def check(trainer, steps):
+        every = config.method.steps_for_target_q_sync
+        its = sorted(prints)[1:]
+        changed = [it for it in its if not torch.equal(prints[it], prints[it - 1])]
+        want = [it for it in its if it % every == 0]
+        return ([] if changed == want else
+                [f"target heads changed after steps {changed}, not {want}"],
+                {"two_qs": config.method.two_qs, "target_sync_steps": changed})
+
+    return offline_slice("slice_ilql", config, samples, torch.device(device), card, check,
+                         rewards=rewards, init_trainer_hook=hook)
+
+
+def ilql_greedy_gaps(model, hook, prompt, tokens):
+    """The top-2 gaps of the ILQL-shaped logits (``hook`` applied to the
+    f32 model's outputs) at each response position of ``prompt`` followed
+    by ``tokens``, teacher-forced on the CPU."""
+    ids = torch.tensor(np.concatenate([prompt, tokens])[None], dtype=torch.int64)
+    with torch.no_grad():
+        out = model(ids)
+    P = len(prompt)
+    gaps = []
+    for pos in range(P - 1, P - 1 + len(tokens)):
+        step_out = {"target_qs": tuple(q[:, pos] for q in out["target_qs"]),
+                    "vs": out["vs"][:, pos]}
+        shaped = hook(step_out, out["logits"][:, pos])[0]
+        top2 = torch.topk(shaped, 2).values
+        gaps.append(float(top2[0] - top2[1]))
+    return gaps
+
+
+def phase_slice_offline_parity(sft, ilql, card="cuda", sft_rows=2, ilql_rows=16,
+                               n_prompts=16, max_new=24):
+    """f32, TF32 off. (a) One collated batch of each offline store (SFT:
+    ``sft_rows`` rows of 1024 tokens, right-padded; ILQL: ``ilql_rows``)
+    through ``loss_fn`` and backward on the card and on the CPU: loss and
+    stats within 1e-4, gradients within 1e-3, as ``slice_train_parity``
+    holds PPO. (b) The ILQL model's greedy eval answers (β 1, top-k 20) on
+    the card's paged engine equal the plain dense ``generate`` on the CPU
+    with the same hook, token for token; a divergence is tolerated only at
+    a near tie of the plain path's top-2 shaped logits."""
+    from trlx_tpu_torch.models.heads import CausalLMWithILQLHeads
+    from trlx_tpu_torch.models.transformer import CausalTransformer
+    from trlx_tpu_torch.ops.paged_kv import PagedSpec, num_table_blocks
+    from trlx_tpu_torch.ops.sampling import GenerationConfig, generate
+    from trlx_tpu_torch.ops.slot_refill import make_slot_refill_fns
+    from trlx_tpu_torch.engine.core import ContinuousEngine
+
+    problems, rec = [], {"phase": "slice_offline_parity", "card": card}
+    batch = next(iter(sft.store.create_loader(sft_rows)))
+    res = card_cpu_backward(sft, CausalTransformer, batch, card)
+    p, fields = compare_card_cpu(res, card, ("flash_fwd", "flash_bwd"))
+    problems += [f"sft: {x}" for x in p]
+    rec["sft"] = {"batch": list(batch["input_ids"].shape), **fields}
+    del res
+    batch = next(iter(ilql.store.create_loader(ilql_rows)))
+    relu = CardReluBranches()
+    two_qs = ilql.config.method.two_qs
+    res = card_cpu_backward(ilql, lambda c: CausalLMWithILQLHeads(c, two_qs), batch, card, relu)
+    p, fields = compare_card_cpu(res, card, ("flash_fwd", "flash_bwd"))
+    problems += [f"ilql: {x}" for x in relu.problems() + p]
+    rec["ilql"] = {"batch": list(batch.input_ids.shape), **fields,
+                   "relu_branches_from_card": relu.taken,
+                   "relu_pre_max_there": relu.taken_pre_max}
+    del res
+
+    # (b) greedy answers through the hook: the card's engine, the CPU's
+    # plain dense generate
+    cfg32 = dataclasses.replace(ilql.tcfg, dtype=torch.float32, attention_impl="auto")
+    state = {k: v.detach().cpu() for k, v in ilql.model.state_dict().items()}
+    hook = ilql.adjust_logits_fn({"beta": 1.0})
+    tok = ilql.tokenizer
+    gen = GenerationConfig(max_new_tokens=max_new, top_k=20, do_sample=False,
+                           eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id)
+    rs = np.random.RandomState(5150)
+    P = ilql.config.train.seq_length - ilql.config.method.gen_kwargs["max_new_tokens"]
+    prompts = np.full((n_prompts, P), tok.pad_token_id, np.int64)
+    pmask = np.zeros((n_prompts, P), np.int64)
+    for i in range(n_prompts):
+        n = int(rs.randint(1, P + 1))
+        prompts[i, P - n:] = rs.randint(97, 123, size=n)
+        pmask[i, P - n:] = 1
+    models = {}
+    for key, dev in (("card", torch.device(card)), ("cpu", torch.device("cpu"))):
+        m = CausalLMWithILQLHeads(cfg32, two_qs)
+        m.load_state_dict(state)
+        models[key] = m.to(dev).eval().requires_grad_(False)
+    zero_launch_counts()
+    paged = PagedSpec(16, 1 + 8 * num_table_blocks(P + max_new, 16))
+    fns = make_slot_refill_fns(cfg32, 8, P, gen, adjust_logits=hook, segment_len=8,
+                               paged=paged, device=torch.device(card))
+    engine = ContinuousEngine(fns, models["card"], tok.pad_token_id)
+    engine.enqueue_prompts(prompts, pmask, np.arange(n_prompts))
+    got = {c.index: c for c in engine.run()}
+    engine_launches = launch_counts()
+    plain = generate(models["cpu"], torch.tensor(prompts), torch.tensor(pmask),
+                     torch.arange(n_prompts), gen, adjust_logits=hook)
+    plain_tok = plain.response_tokens.numpy()
+    plain_mask = plain.response_mask.numpy()
+    ties, rows_equal, answered = [], 0, 0
+    for i in range(n_prompts):
+        a = got[i].tokens[got[i].mask == 1]
+        b = plain_tok[i][plain_mask[i] == 1]
+        answered += len(b)
+        if np.array_equal(a, b):
+            rows_equal += 1
+            continue
+        n = min(len(a), len(b))
+        diff = np.nonzero(a[:n] != b[:n])[0]
+        pos = min(int(diff[0]) if len(diff) else n, len(b) - 1)
+        gaps = ilql_greedy_gaps(models["cpu"], hook, prompts[i][pmask[i] == 1], b[: pos + 1])
+        ties.append({"prompt": i, "position": pos, "top2_gap": gaps[pos]})
+    problems += [f"greedy prompt {t['prompt']} diverges at {t['position']}" for t in ties
+                 if t["top2_gap"] >= F32_TIE_GAP]
+    if torch.device(card).type == "cuda" and min(
+            engine_launches[k] for k in SERVE_KERNELS) <= 0:
+        problems.append(f"the engine's kernels did not all launch: {engine_launches}")
+    rec["ilql_greedy"] = {"prompts": n_prompts, "max_new_tokens": max_new, "beta": 1.0,
+                          "top_k": 20, "tokens_answered": answered,
+                          "rows_equal_to_plain": rows_equal, "near_ties": ties,
+                          "tie_gap_tol": F32_TIE_GAP, "launches": engine_launches}
+    emit({**rec, "ok": not problems})
+    if problems:
+        raise AssertionError(f"slice_offline_parity: {problems}")
+    zero_launch_counts()
+    return rec
+
+
+# the acceptance runs' settings: benchmarks/randomwalks/PPO_CURVE.json's
+# config for PPO (its warm start: min(400, 2 · 160) SFT steps), and
+# tests/test_examples.py::test_ilql_randomwalks_learns' for ILQL. One
+# departure from PPO_CURVE.json, which sets no chunk_size (the example's
+# 128 applies): chunk_size 64, num_rollouts. A collection on the
+# continuous path keeps the first num_rollouts sequences to finish, so a
+# wider chunk fills the store with the shortest answers of each chunk,
+# where the JAX example's serial path keeps the first num_rollouts in
+# prompt order; with 128 the JAX continuous path and the port end between
+# 0.77 and 0.96 over seeds, with 64 between 0.93 and 1.0
+# (tests/randomwalks_curves.py on the CPU, PERF.md §6)
+RANDOMWALKS_PPO = {"train.total_steps": 160, "train.batch_size": 64,
+                   "method.num_rollouts": 64, "method.chunk_size": 64,
+                   "method.ppo_epochs": 4, "train.eval_interval": 8}
+RANDOMWALKS_ILQL = {"train.total_steps": 160, "train.epochs": 100,
+                    "train.eval_interval": 20, "train.batch_size": 32,
+                    "method.gen_kwargs.temperature": 0.05}
+# the bars: the PPO curve's last three evals at a mean optimality of at
+# least 0.9 (the JAX run went 0.078 → 0.99); ILQL's last three above its
+# first two by more than 0.1 (the JAX slow test's bound)
+RANDOMWALKS_PPO_BAR, RANDOMWALKS_ILQL_LIFT = 0.9, 0.1
+
+
+def phase_slice_randomwalks(device="cuda", ppo=None, ilql=None, card=""):
+    """The acceptance runs on the randomwalks model (six layers, hidden
+    144, head dim 12): ``tasks/ppo_randomwalks.py`` (SFT warm start, then
+    PPO) and ``tasks/ilql_randomwalks.py``, each through
+    ``trlx_tpu_torch.train`` with the kernel counters set to 0 just before
+    and read just after. Returns the launches of each."""
+    import shutil
+
+    from trlx_tpu_torch.tasks import ilql_randomwalks, ppo_randomwalks
+
+    dev = torch.device(device)
+    out, problems = {"phase": "slice_randomwalks", "card": card}, []
+    for name, main, hparams in (("ppo", ppo_randomwalks.main, ppo or RANDOMWALKS_PPO),
+                                ("ilql", ilql_randomwalks.main, ilql or RANDOMWALKS_ILQL)):
+        ckpt = _scratch_dir(f"randomwalks_{name}")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            # -- the main path -------------------------------------------
+            trainer = main({**hparams, "train.checkpoint_dir": ckpt}, device=dev)
+            # -----------------------------------------------------------
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        curve = [st["metrics/optimality"] for _, st in trainer.tracker.history
+                 if "metrics/optimality" in st]
+        first, last = float(np.mean(curve[:2])), float(np.mean(curve[-3:]))
+        steps = [st for _, st in trainer.tracker.history if "gradients/global_norm" in st]
+        out[name] = {"hparams": hparams, "optimality_curve": curve, "first_two_mean": first,
+                     "last_three_mean": last, "optimizer_steps": len(steps),
+                     "train_step_ms_median": statistics.median(
+                         1e3 * st["time/step"] for st in steps),
+                     "head_dim": trainer.tcfg.dims_per_head, "wall_s": wall,
+                     "launches": launches}
+        if name == "ppo" and not last >= RANDOMWALKS_PPO_BAR:
+            problems.append(f"PPO's last three evals {last} < {RANDOMWALKS_PPO_BAR}")
+        if name == "ilql" and not last > first + RANDOMWALKS_ILQL_LIFT:
+            problems.append(f"ILQL lifted {first} → {last}, not by > {RANDOMWALKS_ILQL_LIFT}")
+        kernels = OFFLINE_KERNELS + (("fused_loss_fwd", "fused_loss_bwd") if name == "ppo" else ())
+        if dev.type == "cuda" and min(launches[k] for k in kernels) <= 0:
+            problems.append(f"{name}: a kernel of the path never launched: {launches}")
+        del trainer
+    out["wall_s"] = out["ppo"]["wall_s"] + out["ilql"]["wall_s"]
+    emit({**out, "ok": not problems})
+    if problems:
+        raise AssertionError(f"slice_randomwalks: {problems}")
+    return {name: out[name]["launches"] for name in ("ppo", "ilql")}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 
-def kernel_record(name, launches, max_abs_err, rec):
+def kernel_record(name, launches, max_abs_err, rec, by_path):
+    """One kernel's entry: ``launches`` from its own slice's main path,
+    ``launches_by_path`` from every path's run."""
     source = SOURCES.get(name, name)
     return {"name": name, "route": "cuda", "source": f"trlx_tpu_torch/csrc/{source}.cu",
             "replaces": REPLACES[name], "launches": launches, "max_abs_err": max_abs_err,
             "ms": rec["kernel_ms"], "call_ms": rec["call_ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "launches_by_path": {path: counts[name] for path, counts in by_path.items()}}
 
 
 def main():
@@ -1497,11 +2050,21 @@ def main():
     del trainer
     spec_launches = phase_slice_spec(card=smi)
     phase_slice_spec_parity(card=smi)
-    kernels = [kernel_record(name, serve_launches[name], timed[name]["max_abs_err"], timed[name])
+    sft, sft_launches = phase_slice_sft(card=smi)
+    ilql, ilql_launches = phase_slice_ilql(card=smi)
+    phase_slice_offline_parity(sft, ilql)
+    del sft, ilql
+    randomwalks = phase_slice_randomwalks(card=smi)
+    # the served run counts the engine's kernels; nothing else launches there
+    by_path = {"serve": {**{k: 0 for k in REPLACES}, **serve_launches}, "train": train_launches,
+               "spec": spec_launches, "sft": sft_launches, "ilql": ilql_launches,
+               "randomwalks_ppo": randomwalks["ppo"], "randomwalks_ilql": randomwalks["ilql"]}
+    kernels = [kernel_record(name, serve_launches[name], timed[name]["max_abs_err"], timed[name],
+                             by_path)
                for name in SERVE_KERNELS]
     kernels.insert(2, kernel_record("paged_verify", spec_launches["paged_verify"],
                                     timed["paged_verify"]["max_abs_err"],
-                                    timed["paged_verify"]))
+                                    timed["paged_verify"], by_path))
     flash, loss = timed_train["flash_train"], timed_train["loss"]
     for name, rec, part, err in (
         ("flash_fwd", flash, "fwd", max(flash["max_abs_err"]["out"], flash["max_abs_err"]["lse"])),
@@ -1511,7 +2074,7 @@ def main():
         ("fused_loss_bwd", loss, "bwd", max(loss["max_abs_err"]["dlogprobs"],
                                             loss["max_abs_err"]["dvalues"])),
     ):
-        kernels.append(kernel_record(name, train_launches[name], err, rec[part]))
+        kernels.append(kernel_record(name, train_launches[name], err, rec[part], by_path))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -100,12 +100,10 @@ def jax_reference(lm):
     return tokens, mask, np.asarray(out.response_logprobs)
 
 
-def _engine(tcfg, model, block_size, config, segment_len=3, max_blocks=0, value_head=False,
-            **kw):
+def _engine(tcfg, model, block_size, config, segment_len=3, max_blocks=0, **kw):
     paged = PagedSpec(block_size, max_blocks or 1 + 2 * B * num_table_blocks(P + N, block_size) + 4)
     fns = make_slot_refill_fns(tcfg, B, P, config, adjust_logits=_boost_torch,
-                               segment_len=segment_len, paged=paged, device="cpu",
-                               value_head=value_head)
+                               segment_len=segment_len, paged=paged, device="cpu")
     return ContinuousEngine(fns, model, PAD, **kw)
 
 
@@ -188,7 +186,7 @@ def test_value_head_harvest_matches_jax_engine(lm):
     tcfg = TransformerConfig.gpt2("test", dtype=torch.float32)
     policy = CausalLMWithValueHead(tcfg).eval()
     policy.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, params), tcfg))
-    engine = _engine(tcfg, policy, 4, _gen_config(), value_head=True)
+    engine = _engine(tcfg, policy, 4, _gen_config())
     engine.enqueue_prompts(prompts, masks, np.arange(len(prompts)))
     got = {c.index: c for c in engine.run()}
     assert sorted(got) == sorted(want) == list(range(len(prompts)))
@@ -203,11 +201,12 @@ def test_value_head_harvest_matches_jax_engine(lm):
                     torch.tensor([0, 1]), _gen_config(), adjust_logits=_boost_torch)
     for j in range(2):
         np.testing.assert_allclose(solo.response_values[j].numpy(), got[j].values, atol=1e-5)
-    assert "value" in engine.fns.init_state().step_out
+    # the step state takes the structure the model emits
+    assert "value" in engine.state.step_out
     # a bare LM carries no value in its step state and harvests zero values
     _, _, model, _ = lm
     bare = _engine(tcfg, model, 4, _gen_config())
-    assert "value" not in bare.fns.init_state().step_out
+    assert "value" not in bare.state.step_out
     bare.enqueue_prompts(prompts[:2], masks[:2], [0, 1])
     assert all(np.all(c.values == 0.0) for c in bare.run())
 
@@ -218,10 +217,6 @@ def test_rejects_unported_configurations(lm):
     cfg = _gen_config()
     with pytest.raises(ValueError, match="paged"):
         make_slot_refill_fns(tcfg, B, P, cfg, paged=None, device="cpu")
-    with pytest.raises(ValueError, match="decode_kernel"):
-        make_slot_refill_fns(tcfg, B, P, cfg, paged=paged, decode_kernel="xla", device="cpu")
-    with pytest.raises(ValueError, match="prefill_kernel"):
-        make_slot_refill_fns(tcfg, B, P, cfg, paged=paged, prefill_kernel="xla", device="cpu")
     with pytest.raises(ValueError, match="speculative"):
         make_slot_refill_fns(tcfg, B, P, cfg, paged=paged, speculative=2, device="cpu")
     fns = make_slot_refill_fns(tcfg, B, P, cfg, paged=paged, device="cpu")

@@ -18,11 +18,13 @@ flash attention ragged tiles on both sides of the bf16 kernels' 64-row
 tiles, T = 1, GQA, a window edge inside a tile, ALiBi and rows that see no
 key, bit-equal repeated bf16 forwards and backwards; for every attention
 kernel head dims 12, 48, 96 and 256 in both types (and the raise above 256);
-for the fused sampler vocabularies of 97, 50257 and 128256 over B = 1, 8
-and 32 in every mode the paths meet, a row with one finite logit and
-bit-equal repeated calls; for the fused loss IW on and off, a masked row
-and values on the clip bounds. ``chip_smoke.py`` makes the same comparison at the
-serving and training shapes.
+for flash attention rows padded on the right (the offline trainers'
+batches) at SFT's training shape and ragged ones; for the fused sampler
+vocabularies of 97, 50257 and 128256 over B = 1, 8 and 32 in every mode
+the paths meet, f32 logits shaped by the ILQL hook under top-k, a row with
+one finite logit and bit-equal repeated calls; for the fused loss IW on and
+off, a masked row and values on the clip bounds. ``chip_smoke.py`` makes the
+same comparison at the serving and training shapes.
 """
 
 import pytest
@@ -56,8 +58,10 @@ from trlx_tpu_torch.ops.fused_loss import (
     fused_loss_fwd_reference,
 )
 
+from chip_smoke import ILQL_SAMPLE_MODES, ilql_shaped_logits
 from torch_kernel_cases import (
     CUDA_GEOMETRIES,
+    CUDA_RIGHT_PAD_FLASH_SHAPES,
     CUDA_VERIFY_CASES,
     FLASH_CASES,
     GEOMETRIES,
@@ -65,6 +69,7 @@ from torch_kernel_cases import (
     flash_case,
     loss_case,
     paged_case,
+    right_padded_flash_case,
     t,
     tied_logits,
     verify_case,
@@ -233,6 +238,20 @@ def test_cuda_fused_sample_rows_over_clusters(cuda, V, B, mode):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(ILQL_SAMPLE_MODES))
+@pytest.mark.parametrize("B", [8, 32])
+def test_cuda_fused_sample_on_ilql_shaped_f32_logits(cuda, B, mode):
+    # the ILQL eval: f32 logits shaped by the hook (not bf16-rounded), top-k
+    # 20 at temperature 1 and top-k 10 at 0.1 and 0.05, sampled and greedy
+    x = t(ilql_shaped_logits(B, 50257, seed=B)).to(cuda)
+    for g in (_gumbel(x.shape, B + 1, cuda), None):
+        tok, lp = fused_sample(x, g, **ILQL_SAMPLE_MODES[mode])
+        rtok, rlp = fused_sample_reference(x, g, **ILQL_SAMPLE_MODES[mode])
+        assert torch.equal(tok, rtok)
+        torch.testing.assert_close(lp, rlp, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("mode", sorted(_SAMPLE_MODES))
 def test_cuda_fused_sample_one_finite_logit(cuda, mode):
     # every other logit -inf (an eos-blocked, transition-masked row): the
@@ -294,8 +313,8 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
                      temperature=1.0, top_k=0, top_p=1.0)
 
 
-def _flash_args(case, seed, dtype, dev):
-    q, k, v, mask, extra, cot = flash_case(case, seed)
+def _flash_args(case, seed, dtype, dev, make=flash_case):
+    q, k, v, mask, extra, cot = make(case, seed)
     tq, tk, tv = (t(x).to(dev, dtype) for x in (q, k, v))
     kw = {key: (t(val).to(dev) if hasattr(val, "shape") else val)
           for key, val in extra.items()}
@@ -323,6 +342,28 @@ def test_cuda_flash_matches_plain_versions(cuda, case, dtype):
         assert got.dtype == dtype
         torch.testing.assert_close(got.float(), w, atol=_TOL[dtype] * 10, rtol=_TOL[dtype])
     assert (flash_fwd.launches, flash_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CUDA_RIGHT_PAD_FLASH_SHAPES)
+def test_cuda_flash_right_padded_matches_plain_versions(cuda, shape, dtype):
+    # the offline trainers' rows: keys padded on the right, causal
+    q, k, v, mask, alibi, kw, do = _flash_args(shape, sum(shape), dtype, cuda,
+                                               make=right_padded_flash_case)
+    # chip_smoke.py's FLASH_TOL (rows up to 1024 keys)
+    tol = {torch.float32: dict(out=(1e-4, 0.0), lse=(1e-4, 0.0), grad=(1e-3, 1e-4)),
+           torch.bfloat16: dict(out=(2e-2, 0.0), lse=(1e-3, 0.0), grad=(2e-2, 1e-2))}[dtype]
+    out, lse = flash_fwd(q, k, v, mask, *alibi, **kw)
+    f32 = [x.float() for x in (q, k, v)]
+    want, want_lse = flash_fwd_reference(*f32, mask, *alibi, **kw)
+    torch.testing.assert_close(out.float(), want, atol=tol["out"][0], rtol=tol["out"][1])
+    torch.testing.assert_close(lse, want_lse, atol=tol["lse"][0], rtol=tol["lse"][1])
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    grads = flash_bwd(q, k, v, mask, *alibi, lse, delta, do, **kw)
+    wants = flash_bwd_reference(*f32, mask, *alibi, lse, delta, do.float(), **kw)
+    for got, w in zip(grads, wants):
+        torch.testing.assert_close(got.float(), w, atol=tol["grad"][0], rtol=tol["grad"][1])
 
 
 @pytest.mark.gpu

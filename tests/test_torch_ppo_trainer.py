@@ -227,6 +227,18 @@ def test_rejected_settings_raise(tmp_path, override, setting):
         PPOTrainer(config=TRLConfig.from_dict(d), reward_fn=reward_fn, device="cpu")
 
 
+@pytest.mark.parametrize("num_rollouts,chunk_size,warns", [(4, 8, True), (8, 4, False),
+                                                           (8, 8, False)])
+def test_chunk_wider_than_collection_warns(tmp_path, caplog, num_rollouts, chunk_size, warns):
+    # a collection that keeps part of a chunk keeps the rows that finish
+    # first: the trainer says so when it is built
+    d = _config_dict(tmp_path)
+    d["method"].update(num_rollouts=num_rollouts, chunk_size=chunk_size)
+    with caplog.at_level("WARNING", logger="trlx_tpu_torch.trainer.base"):
+        PPOTrainer(config=TRLConfig.from_dict(d), reward_fn=reward_fn, device="cpu")
+    assert any("short answers" in r.getMessage() for r in caplog.records) == warns
+
+
 def test_config_tree_round_trips_and_rejects_typos():
     base = default_ppo_config()
     assert base.to_dict() == jax_default_ppo_config().to_dict()

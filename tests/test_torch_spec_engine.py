@@ -84,7 +84,7 @@ def _prompts(R=5):
 def _engine(tcfg, target, draft, config, block_size=4, segment_len=2):
     paged = PagedSpec(block_size, 1 + 3 * B * num_table_blocks(P + N + G, block_size))
     fns = make_slot_refill_fns(tcfg, B, P, config, segment_len=segment_len, paged=paged,
-                               speculative=G, draft_cfg=tcfg, device="cpu", value_head=True)
+                               speculative=G, draft_cfg=tcfg, device="cpu")
     return ContinuousEngine(fns, (target, draft), PAD)
 
 

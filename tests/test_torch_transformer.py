@@ -26,7 +26,7 @@ from trlx_tpu.models.transformer import TransformerConfig as JaxConfig
 from trlx_tpu.models.transformer import make_kv_cache as jax_make_kv_cache
 from trlx_tpu.models.transformer import stack_layer_params
 from trlx_tpu_torch.models.builder import build_causal_lm, hydra_ref_params, trainable_mask
-from trlx_tpu_torch.models.heads import CausalLMWithValueHead
+from trlx_tpu_torch.models.heads import CausalLMWithILQLHeads, CausalLMWithValueHead
 from trlx_tpu_torch.models.transformer import (
     CausalTransformer,
     TransformerConfig,
@@ -361,10 +361,13 @@ def test_builder_is_seeded_and_validates():
     with pytest.raises(ValueError, match="GPT-2 family"):
         TransformerConfig.gpt2("test", norm="rmsnorm")
     with pytest.raises(ValueError, match="value-head policy"):
-        build_causal_lm("builtin:gpt2-test", device="cpu", head="ilql")
+        build_causal_lm("builtin:gpt2-test", device="cpu", head="reward")
     policy, _ = build_causal_lm("builtin:gpt2-test", seed=3, device="cpu", head="value")
     assert isinstance(policy, CausalLMWithValueHead)
     assert torch.equal(policy.backbone.wte.weight, a.wte.weight)
+    ilql, _ = build_causal_lm("builtin:gpt2-test", seed=3, device="cpu", head="ilql")
+    assert isinstance(ilql, CausalLMWithILQLHeads)
+    assert torch.equal(ilql.backbone.wte.weight, a.wte.weight)
 
 
 def test_flash_branch_matches_jax_logits(pair):

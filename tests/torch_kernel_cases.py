@@ -5,6 +5,7 @@ so the tests that run on the card import no JAX."""
 import numpy as np
 import torch
 
+from chip_smoke import RIGHT_PAD_FLASH_SHAPES, right_pad_mask
 from trlx_tpu_torch.ops.paged_kv import num_table_blocks
 
 # (B, T, H, KV, D, block_size, S): block sizes 1/3/4, S not a multiple of
@@ -242,3 +243,18 @@ def loss_case(B, R, seed, tie_values=False):
         v[:, 1::4] = (ov - np.float32(0.2))[:, 1::4]
     blp = (olp + rs.randn(B, R) * 0.05).astype(np.float32)
     return [lp, v, olp, ov, rw, mask, blp]
+
+
+# the offline trainers' right-padded flash rows (chip_smoke.py's shapes)
+# on the card, and ragged tiles besides
+CUDA_RIGHT_PAD_FLASH_SHAPES = [RIGHT_PAD_FLASH_SHAPES[0], RIGHT_PAD_FLASH_SHAPES[2],
+                               (4, 70, 12, 12), (3, 129, 4, 64)]
+
+
+def right_padded_flash_case(shape, seed):
+    """``flash_case``'s tuple for a causal, right-padded, T = S shape."""
+    B, T, H, D = shape
+    rs = np.random.RandomState(seed)
+    q, k, v, cot = (rs.randn(B, T, H, D).astype(np.float32) for _ in range(4))
+    extra = dict(causal=True, q_offset=0, k_offset=0, window=0)
+    return q, k, v, right_pad_mask(B, T, seed + 1), extra, cot

@@ -13,7 +13,11 @@ Ported so far:
   ``ServeServer`` HTTP frontend;
 - online PPO through :func:`train` (``trlx.py``) — rollouts on that engine,
   scoring and training on the flash-attention forward and backward
-  kernels, the loss on the fused PPO loss kernels.
+  kernels, the loss on the fused PPO loss kernels;
+- speculative PPO rollouts (``engine.speculative``);
+- offline training through ``train(samples=...)``: SFT, and ILQL with
+  ``rewards=...`` — training on the flash-attention kernels, evaluation
+  on the paged engine (ILQL through its advantage-shaped sampling hook).
 """
 
 __version__ = "0.2.0"

@@ -281,9 +281,12 @@ class ContinuousEngine:
             self.stats.kv_cache_bytes += kv_bytes(self.state.d_cache)
         self._spec_base = self._read_spec_counters()
         self._params_version: Optional[int] = None
+        before = kernel_launches()
         if prewarm:
             self.state = self.fns.prewarm(self.params, self.state)
         self._launch_base = kernel_launches()
+        # the no-op prewarm refills' launches, which no collection counts
+        self.prewarm_launches = {k: self._launch_base[k] - before[k] for k in before}
 
     def begin_collection(self, model: Any = None, version: Optional[int] = None) -> None:
         """Reuse this engine for a fresh collection: drop leftovers of an

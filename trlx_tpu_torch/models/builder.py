@@ -3,9 +3,10 @@
 Port of the parts of ``trlx_tpu/models/builder.py`` the serving and PPO
 paths need:
 
-- :func:`build_causal_lm`: a backbone (``head=None``) or the policy with a
-  value head (``head="value"``), randomly initialised from a seed (no
-  download). Initialisation runs on the CPU from a seeded
+- :func:`build_causal_lm`: a backbone (``head=None``), the policy with a
+  value head (``head="value"``) or with the ILQL heads (``head="ilql"``,
+  the target heads starting as copies of the Q heads), randomly
+  initialised from a seed (no download). Initialisation runs on the CPU from a seeded
   ``torch.Generator`` and the model then moves to the device, so one seed
   gives the same weights on every device;
 - :func:`hydra_ref_params`: the frozen hydra reference — copies of the top
@@ -13,7 +14,8 @@ paths need:
 - :func:`trainable_mask`: which parameters train. The JAX semantics: with
   ``num_layers_unfrozen = k > 0`` only the top ``k`` blocks train among the
   blocks, while every non-block backbone entry (``wte``, ``wpe``,
-  ``ln_f``) and the heads train; ``-1`` trains everything.
+  ``ln_f``) and the heads train — except the ILQL target-Q heads, which
+  never do (the JAX ``_mask_heads``); ``-1`` trains everything else.
 """
 
 from typing import Dict, Optional, Tuple, Union
@@ -21,7 +23,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from trlx_tpu_torch.models.heads import CausalLMWithValueHead
+from trlx_tpu_torch.models.heads import CausalLMWithILQLHeads, CausalLMWithValueHead
 from trlx_tpu_torch.models.transformer import (
     CausalTransformer,
     HydraBranch,
@@ -38,16 +40,21 @@ def build_causal_lm(
     seed: int = 0,
     device: Union[None, str, torch.device] = None,
     head: Optional[str] = None,
+    two_qs: bool = True,
     **overrides,
 ) -> Tuple[nn.Module, TransformerConfig]:
     """Build ``(model, config)`` for a builtin spec with seeded weights, in
     eval mode with gradients off, on ``device`` (default: the GPU; raises
-    without one). ``head="value"`` wraps the backbone with the value head."""
-    if head not in (None, "value"):
-        raise ValueError(f"head={head!r}: the port builds the bare LM or the value-head policy")
+    without one). ``head="value"`` wraps the backbone with the value head,
+    ``head="ilql"`` with the ILQL heads (twin Q heads with ``two_qs``)."""
+    heads = {None: CausalTransformer, "value": CausalLMWithValueHead,
+             "ilql": lambda c: CausalLMWithILQLHeads(c, two_qs)}
+    if head not in heads:
+        raise ValueError(f"head={head!r}: the port builds the bare LM, the value-head "
+                         "policy or the ILQL policy (None | 'value' | 'ilql')")
     device = resolve_device(device)
     cfg = config_from_spec(model_path, **overrides)
-    model = CausalTransformer(cfg) if head is None else CausalLMWithValueHead(cfg)
+    model = heads[head](cfg)
     gen = torch.Generator().manual_seed(int(seed))
     model.reset_parameters(gen)
     return model.to(device).eval().requires_grad_(False), cfg
@@ -81,7 +88,7 @@ def trainable_mask(
     for name, _ in model.named_parameters():
         inner = name[len("backbone."):] if wrapped and name.startswith("backbone.") else None
         if wrapped and inner is None:
-            mask[name] = True  # heads
+            mask[name] = ".target_q_head_" not in name  # heads; targets only sync
             continue
         inner = name if inner is None else inner
         if inner.startswith("blocks."):

@@ -11,7 +11,11 @@ given as nested dicts of numpy arrays, into the port's ``state_dict``:
   sliced back into ``h_{i}`` first, as ``unstack_layer_params`` does;
 - a value-head policy's tree (``backbone`` + ``v_head``) maps onto
   :class:`~trlx_tpu_torch.models.heads.CausalLMWithValueHead`
-  (``backbone.*`` and ``v_head.in_proj`` / ``v_head.out_proj``);
+  (``backbone.*`` and ``v_head.in_proj`` / ``v_head.out_proj``), an ILQL
+  policy's (``backbone`` + ``ilql_heads/{v_head, q_head_i,
+  target_q_head_i}``) onto
+  :class:`~trlx_tpu_torch.models.heads.CausalLMWithILQLHeads`
+  (``ilql_heads.<head>.in_proj`` / ``out_proj``);
 - a hydra reference subtree (``builder.py::hydra_ref_params``: the top
   ``h_{i}``, ``ln_f`` and ``wte``) maps onto
   :class:`~trlx_tpu_torch.models.transformer.HydraBranch`: only the entries
@@ -84,9 +88,15 @@ def params_from_jax(np_params: Dict[str, Any], cfg: TransformerConfig) -> Dict[s
         norm("ln_f", tree["ln_f"])
     if not cfg.tie_word_embeddings:
         dense("lm_head", tree["lm_head"])
-    if "v_head" not in np_params:
+    heads = {}
+    if "v_head" in np_params:
+        heads["v_head"] = np_params["v_head"]
+    for name, node in np_params.get("ilql_heads", {}).items():
+        heads[f"ilql_heads.{name}"] = node
+    if not heads:
         return sd
     sd = {f"backbone.{k}": v for k, v in sd.items()}
-    for proj in ("in_proj", "out_proj"):
-        dense(f"v_head.{proj}", np_params["v_head"][proj])
+    for prefix, node in heads.items():
+        for proj in ("in_proj", "out_proj"):
+            dense(f"{prefix}.{proj}", node[proj])
     return sd

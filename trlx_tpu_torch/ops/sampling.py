@@ -30,6 +30,7 @@ __all__ = [
     "uniform_noise",
     "gumbel_noise",
     "sample_token_from_logits",
+    "tree_map",
     "last_step_info",
     "generate",
 ]
@@ -156,14 +157,27 @@ def sample_token_from_logits(
     return next_token.to(torch.int32), logprob
 
 
-_NON_CARRY_KEYS = ("cache", "logits")
+_NON_CARRY_KEYS = ("cache", "logits", "branch_input")
+
+
+def tree_map(fn: Callable, *trees: Any) -> Any:
+    """``fn`` over the tensors of equally shaped trees of tuples / lists /
+    dicts (the step-output structures the engines carry)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(tree_map(fn, *leaves) for leaves in zip(*trees))
+    return fn(*trees)
 
 
 def last_step_info(out: Dict[str, Any]) -> Dict[str, Any]:
     """Keep only last-position views of model outputs (what the
-    adjust-logits hook may read)."""
+    adjust-logits hook may read); tuple outputs (an ILQL model's Q heads)
+    keep their structure."""
     return {
-        k: v[:, -1] for k, v in out.items() if k not in _NON_CARRY_KEYS and v is not None
+        k: tree_map(lambda x: x[:, -1], v)
+        for k, v in out.items() if k not in _NON_CARRY_KEYS and v is not None
     }
 
 

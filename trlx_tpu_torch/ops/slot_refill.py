@@ -2,11 +2,9 @@
 engine, in PyTorch.
 
 Port of ``trlx_tpu/ops/slot_refill.py`` restricted to the in-place kernel
-path: ``paged=PagedSpec(...)``, ``decode_kernel="pallas"`` and
-``prefill_kernel="pallas"`` (the names keep the JAX package's config
-values; here they select the CUDA kernels), plain or speculative
-(``speculative=G``). Anything else raises ``ValueError``, as the JAX
-module does for invalid combinations.
+path (``paged=PagedSpec(...)``, the paged prefill and decode kernels),
+plain or speculative (``speculative=G``). Anything else raises
+``ValueError``, as the JAX module does for invalid combinations.
 
 Decode runs in fixed-size **segments** over per-slot state: after each
 segment the host engine harvests finished slots and refills them with
@@ -58,7 +56,7 @@ from trlx_tpu_torch.ops.paged_kv import (
     attach_block_table,
     init_paged_kv,
 )
-from trlx_tpu_torch.ops.sampling import GenerationConfig, last_step_info
+from trlx_tpu_torch.ops.sampling import GenerationConfig, last_step_info, tree_map
 from trlx_tpu_torch.ops.speculative import reject_spec_hooks, spec_round_step
 
 __all__ = ["SlotState", "SpecState", "SlotRefillFns", "make_slot_refill_fns"]
@@ -76,7 +74,9 @@ class SlotState:
     slot_mask: torch.Tensor  # [B, S] int64 attention slot mask
     cache: PagedKV  # block pool + [B, TB] block table
     logits: torch.Tensor  # [B, V] logits feeding the next sample
-    step_out: Dict[str, torch.Tensor]  # last-position views (adjust hook)
+    # last-position views of the model's outputs (the adjust hook reads
+    # them), shaped from the model's first refill; tuple leaves allowed
+    step_out: Dict[str, Any]
     prompt_len: torch.Tensor  # [B] int64 real prompt lengths
     done: torch.Tensor  # [B] bool finished (or empty) slots
     step: torch.Tensor  # [B] int64 per-slot decode step
@@ -153,18 +153,15 @@ def make_slot_refill_fns(
     adjust_logits: Optional[Callable[[Dict[str, Any], torch.Tensor], torch.Tensor]] = None,
     segment_len: int = 8,
     paged: Optional[PagedSpec] = None,
-    decode_kernel: str = "pallas",
-    prefill_kernel: str = "pallas",
     speculative: int = 0,
     device: Any = None,
-    value_head: bool = False,
     draft_cfg: Any = None,  # TransformerConfig of the draft (speculative)
 ) -> SlotRefillFns:
     """Build the slot-refill programs for one engine geometry on
-    ``device`` (default: the GPU; raises without one). ``value_head``
-    says whether the served model emits ``out["value"]``: only then does a
-    decode step record it into ``SlotState.values``; a bare LM's values
-    stay the zeros allocated once.
+    ``device`` (default: the GPU; raises without one). A decode step
+    records ``out["value"]`` into ``SlotState.values`` when the served
+    model emits it (the step state then carries ``"value"``); a bare LM's
+    values stay zero.
 
     ``speculative = G > 0`` swaps in the speculative programs: the draft
     model rides in the programs' ``params = (target, draft)`` as the
@@ -173,16 +170,6 @@ def make_slot_refill_fns(
         raise ValueError(
             "the port's slot-refill engine is the paged backend: pass "
             "paged=PagedSpec(...) (the dense backend is not ported)"
-        )
-    if decode_kernel != "pallas":
-        raise ValueError(
-            f"decode_kernel {decode_kernel!r}: the port runs the in-place "
-            "paged-decode kernel ('pallas'); the gather path is not ported"
-        )
-    if prefill_kernel != "pallas":
-        raise ValueError(
-            f"prefill_kernel {prefill_kernel!r}: the port runs the in-place "
-            "paged-prefill kernel ('pallas'); the gather path is not ported"
         )
     G = int(speculative or 0)
     if G < 0:
@@ -219,13 +206,7 @@ def make_slot_refill_fns(
             slot_mask=torch.zeros((B, S), **i64),
             cache=init_paged_kv(init_cache, paged, B, S, device=device),
             logits=torch.zeros((B, V), dtype=cfg.dtype, device=device),
-            step_out={
-                "hidden_states": torch.zeros((B, cfg.hidden_size), dtype=cfg.dtype, device=device),
-                "last_tokens": torch.zeros((B,), **i64),
-                # a value-head model's "value" rides here
-                **({"value": torch.zeros((B,), dtype=torch.float32, device=device)}
-                   if value_head else {}),
-            },
+            step_out={},
             prompt_len=torch.zeros((B,), **i64),
             done=torch.ones((B,), dtype=torch.bool, device=device),
             step=torch.zeros((B,), **i64),
@@ -253,6 +234,10 @@ def make_slot_refill_fns(
             cache_index=0, logits_span=(P - 1, P),
         )
         step_out_r = {**last_step_info(out), "last_tokens": ids[:, -1]}
+        if not state.step_out:  # the carry takes the structure the model emits
+            state.step_out = tree_map(
+                lambda x: torch.zeros((B,) + tuple(x.shape[1:]), dtype=x.dtype, device=device),
+                step_out_r)
         keep = np.nonzero(np.asarray(slot_idx) < B)[0]
         if keep.size == 0:
             return state
@@ -260,15 +245,13 @@ def make_slot_refill_fns(
         dst = torch.as_tensor(np.asarray(slot_idx)[keep], dtype=torch.int64, device=device)
         state.tokens[dst] = config.pad_token_id
         state.logprobs[dst] = 0.0
-        if value_head:
-            state.values[dst] = 0.0
+        state.values[dst] = 0.0
         state.mask[dst] = 0
         state.slot_mask[dst] = slot_mask_r[src]
         state.cache.block_table[dst] = tables[src]
         state.logits[dst] = out["logits"][src, -1].to(state.logits.dtype)
-        for k, v in state.step_out.items():
-            if k in step_out_r:
-                v[dst] = step_out_r[k][src].to(v.dtype)
+        tree_map(lambda v, r: v.index_copy_(0, dst, r[src].to(v.dtype)),
+                 state.step_out, step_out_r)
         state.prompt_len[dst] = pmask[src].sum(dim=1)
         state.done[dst] = False
         state.step[dst] = 0
@@ -465,7 +448,7 @@ def make_slot_refill_fns(
             st.logprobs = _row_set(
                 st.logprobs, torch.where(live, logprob, torch.zeros_like(logprob)),
                 st.step, live)
-            if value_head:
+            if "value" in st.step_out:
                 # the value prediction of the state before this token
                 value = st.step_out["value"]
                 st.values = _row_set(
@@ -488,11 +471,9 @@ def make_slot_refill_fns(
             )
             step_out = {**last_step_info(out), "last_tokens": next_token.to(torch.int64)}
             st.logits = torch.where(live[:, None], out["logits"][:, -1], st.logits)
-            st.step_out = {
-                k: torch.where(live.view(-1, *([1] * (v.ndim - 1))),
-                               step_out[k].to(v.dtype), v) if k in step_out else v
-                for k, v in st.step_out.items()
-            }
+            st.step_out = tree_map(
+                lambda v, x: torch.where(live.view(-1, *([1] * (v.ndim - 1))), x.to(v.dtype), v),
+                st.step_out, step_out)
             st.done = done
             st.step = torch.where(live, st.step + 1, st.step)
             live_steps += live.sum()

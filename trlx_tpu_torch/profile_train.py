@@ -83,22 +83,15 @@ def _group(name: str) -> str:
     return "other"
 
 
-def profile_train(device: torch.device, spec: str = "builtin:gpt2-small", steps: int = 4,
-                  trace: str = "") -> Dict[str, Any]:
+def profile_steps(trainer, batch, steps: int = 4, trace: str = "") -> Dict[str, Any]:
+    """Optimizer steps of ``trainer`` on one host ``batch``: three untimed,
+    ``steps`` timed, ``steps`` under ``torch.profiler``. Returns the step
+    times, the device's busy share, launches per step and device time by
+    group (the port's kernels, matrix products, the optimizer, the rest)
+    with the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
-    from trlx_tpu_torch.trainer.ppo import PPOTrainer
-
-    config = train_config(os.path.join("build", "profile_train"), spec)
-    trainer = PPOTrainer(config=config, reward_fn=reward_fn, device=device)
-    max_prompt = config.train.seq_length - config.method.gen_kwargs["max_new_tokens"]
-    trainer.add_prompt_pipeline(PromptPipeline(slice_prompts(), max_prompt, trainer.tokenizer))
-    t0 = time.perf_counter()
-    trainer.make_experience(config.method.num_rollouts)
-    exp_s = time.perf_counter() - t0
-    trainer.prepare_learning()
-    batch = next(iter(trainer.train_dataloader))
+    device = trainer.device
 
     def step():
         trainer.train_step(batch)
@@ -137,11 +130,7 @@ def profile_train(device: torch.device, spec: str = "builtin:gpt2-small", steps:
     untraced_s = sum(times)
     tokens = trainer._batch_token_count(batch)
     return {
-        "phase": "profile_train", "model": spec, "batch": list(batch.query_tensors.shape)
-        + [int(batch.response_tensors.shape[1])], "tokens_per_batch": tokens,
-        "rollout_collection_s": exp_s, "rollout_stats": {
-            k: v for k, v in trainer.make_experience_stats.items()
-            if k.startswith(("time/", "throughput/"))},
+        "tokens_per_batch": tokens,
         "train_step_ms_median": 1e3 * statistics.median(times),
         "train_step_ms": [1e3 * t for t in times],
         "train_tokens_per_s": tokens / statistics.median(times),
@@ -154,6 +143,30 @@ def profile_train(device: torch.device, spec: str = "builtin:gpt2-small", steps:
         "device_launches_per_step": sum(c for c, _ in by_name.values()) / steps,
         "device_ms_per_step_by_group": dict(groups),
         "top_kernels": [{"name": n[:120], "count": c, "ms": us * 1e-3} for n, (c, us) in top],
+    }
+
+
+def profile_train(device: torch.device, spec: str = "builtin:gpt2-small", steps: int = 4,
+                  trace: str = "") -> Dict[str, Any]:
+    from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer.ppo import PPOTrainer
+
+    config = train_config(os.path.join("build", "profile_train"), spec)
+    trainer = PPOTrainer(config=config, reward_fn=reward_fn, device=device)
+    max_prompt = config.train.seq_length - config.method.gen_kwargs["max_new_tokens"]
+    trainer.add_prompt_pipeline(PromptPipeline(slice_prompts(), max_prompt, trainer.tokenizer))
+    t0 = time.perf_counter()
+    trainer.make_experience(config.method.num_rollouts)
+    exp_s = time.perf_counter() - t0
+    trainer.prepare_learning()
+    batch = next(iter(trainer.train_dataloader))
+    return {
+        "phase": "profile_train", "model": spec, "batch": list(batch.query_tensors.shape)
+        + [int(batch.response_tensors.shape[1])],
+        "rollout_collection_s": exp_s, "rollout_stats": {
+            k: v for k, v in trainer.make_experience_stats.items()
+            if k.startswith(("time/", "throughput/"))},
+        **profile_steps(trainer, batch, steps, trace),
     }
 
 

@@ -87,30 +87,39 @@ def validate_speculative(config) -> None:
         )
 
 
-def reject_unported(config) -> None:
+def reject_unported(config, collects_rollouts: bool) -> None:
     """Raise ``ValueError`` naming the first setting this slice does not
-    run (the serial dense rollout path — which also holds the serial
-    speculative sampler —, async collection, serving inside a trainer, the
-    engine's prefix cache / chunked prefill / gather kernels, the staged
-    loss, gradient accumulation, parallel axes, scanned or rematerialised
-    layers, seq2seq, LoRA, resume, a tracker)."""
+    run (gradient accumulation, parallel axes, scanned or rematerialised
+    layers, seq2seq, LoRA, resume, a tracker, serving inside a trainer).
+
+    ``collects_rollouts`` (PPO) adds the rollout settings: the serial
+    dense rollout path — which also holds the serial speculative sampler
+    —, async collection, the engine's prefix cache / chunked prefill /
+    gather kernels and the staged loss. The offline trainers (SFT, ILQL)
+    collect nothing: the JAX package evaluates them on its serial dense
+    engine whatever ``engine:`` says, and the port on the paged engine
+    with its kernels, so those settings do not reach them."""
     t, e, m, par, res = (config.train, config.engine, config.model, config.parallel,
                          config.resilience)
-    loss_kernel = getattr(config.method, "loss_kernel", None)
-    checks = [
-        (not t.continuous_batching, "train.continuous_batching: false (the serial dense "
-         "rollout path) is not ported; the port collects through the paged engine"),
-        (config.async_rl.enabled, "async_rl.enabled: async collection is not ported"),
+    checks = []
+    if collects_rollouts:
+        loss_kernel = getattr(config.method, "loss_kernel", None)
+        checks += [
+            (not t.continuous_batching, "train.continuous_batching: false (the serial dense "
+             "rollout path) is not ported; the port collects through the paged engine"),
+            (config.async_rl.enabled, "async_rl.enabled: async collection is not ported"),
+            (e.backend != "paged", f"engine.backend {e.backend!r}: the port's engine is paged"),
+            (e.prefix_cache, "engine.prefix_cache: the prefix cache is not ported"),
+            (int(e.prefill_chunk) != 0, "engine.prefill_chunk: chunked prefill is not ported"),
+            (e.decode_kernel != "pallas", f"engine.decode_kernel {e.decode_kernel!r}: the "
+             "port runs the paged-decode kernel ('pallas'); the gather path is not ported"),
+            (e.prefill_kernel != "pallas", f"engine.prefill_kernel {e.prefill_kernel!r}: the "
+             "port runs the paged-prefill kernel ('pallas'); the gather path is not ported"),
+            (loss_kernel != "pallas", f"method.loss_kernel {loss_kernel!r}: the port runs the "
+             "fused PPO loss kernels ('pallas'); the staged loss path is not ported"),
+        ]
+    checks += [
         (config.serve.enabled, "serve.enabled: serving inside a trainer is not ported"),
-        (e.backend != "paged", f"engine.backend {e.backend!r}: the port's engine is paged"),
-        (e.prefix_cache, "engine.prefix_cache: the prefix cache is not ported"),
-        (int(e.prefill_chunk) != 0, "engine.prefill_chunk: chunked prefill is not ported"),
-        (e.decode_kernel != "pallas", f"engine.decode_kernel {e.decode_kernel!r}: the port "
-         "runs the paged-decode kernel ('pallas'); the gather path is not ported"),
-        (e.prefill_kernel != "pallas", f"engine.prefill_kernel {e.prefill_kernel!r}: the port "
-         "runs the paged-prefill kernel ('pallas'); the gather path is not ported"),
-        (loss_kernel != "pallas", f"method.loss_kernel {loss_kernel!r}: the port runs the "
-         "fused PPO loss kernels ('pallas'); the staged loss path is not ported"),
         (int(t.grad_accum) > 1, "train.grad_accum > 1: gradient accumulation is not ported"),
         (int(par.data) not in (-1, 1), "parallel.data > 1: the port runs on one device"),
         (par.scan_layers, "parallel.scan_layers: scanned layers are not ported"),
@@ -178,6 +187,9 @@ class TorchBaseTrainer(BaseRLTrainer):
     ``post_backward_callback`` / ``post_epoch_callback``."""
 
     model_head: Optional[str] = None
+    # PPO collects rollouts through the engine; the offline trainers only
+    # evaluate through it (see reject_unported)
+    collects_rollouts: bool = False
 
     def __init__(
         self,
@@ -190,7 +202,7 @@ class TorchBaseTrainer(BaseRLTrainer):
     ):
         super().__init__(config, reward_fn, metric_fn, stop_sequences, **kwargs)
         validate_speculative(config)
-        reject_unported(config)
+        reject_unported(config, self.collects_rollouts)
         depths = {k: int(getattr(config.train, k) or 0)
                   for k in ("rollout_pipeline_depth", "prefetch_batches")}
         if any(depths.values()):
@@ -206,7 +218,7 @@ class TorchBaseTrainer(BaseRLTrainer):
         overrides.setdefault("dtype", DTYPES[config.parallel.compute_dtype])
         self.model, self.tcfg = build_causal_lm(
             config.model.model_path, seed=config.train.seed, device=self.device,
-            head=self.model_head, **overrides,
+            head=self.model_head, two_qs=getattr(config.method, "two_qs", True), **overrides,
         )
         self.draft_model, self.draft_tcfg = None, None
         if config.model.draft_model_path:
@@ -246,6 +258,7 @@ class TorchBaseTrainer(BaseRLTrainer):
         )
         self._generate_fns: Dict[Any, Any] = {}
         self._warned_cb_draft = False
+        self.last_generate_stats: Dict[str, float] = {}  # the last generate's engine stats
         self._last_batch_host: Any = None
         self._last_batch_device: Any = None
         self.tracker = MemoryTracker()
@@ -268,6 +281,20 @@ class TorchBaseTrainer(BaseRLTrainer):
 
     def post_backward_callback(self) -> None:
         pass
+
+    def _resolved_logit_chunk(self) -> int:
+        """``method.logit_chunk`` when the model can stream the vocab
+        projection (it has ``project_logits``), else 0 — warning once."""
+        chunk = int(getattr(self.config.method, "logit_chunk", 0) or 0)
+        if not chunk or hasattr(type(self.model), "project_logits"):
+            return chunk
+        if not getattr(self, "_warned_logit_chunk", False):
+            self._warned_logit_chunk = True
+            logger.warning(
+                "method.logit_chunk=%d is IGNORED: %s has no project_logits — the full "
+                "[B, T, V] logits will be materialized", chunk, type(self.model).__name__,
+            )
+        return 0
 
     def post_epoch_callback(self) -> None:
         pass
@@ -383,10 +410,7 @@ class TorchBaseTrainer(BaseRLTrainer):
             self._generate_fns[key] = make_slot_refill_fns(
                 self.tcfg, batch_size, prompt_len, gen_config,
                 adjust_logits=self.adjust_logits_fn(dict(extra_kwargs)),
-                segment_len=segment_len, paged=paged,
-                decode_kernel=self.config.engine.decode_kernel,
-                prefill_kernel=self.config.engine.prefill_kernel,
-                device=self.device, value_head=self.model_head == "value",
+                segment_len=segment_len, paged=paged, device=self.device,
                 speculative=gamma, draft_cfg=self.draft_tcfg if gamma else None,
             )
         return self._generate_fns[key]
@@ -438,6 +462,7 @@ class TorchBaseTrainer(BaseRLTrainer):
                                       tag="eval" if eval_mode else "generate")
         engine.enqueue_prompts(input_ids, attention_mask, self._row_seeds(rows))
         done = sorted(engine.run(), key=lambda c: c.index)
+        self.last_generate_stats = engine.stats.metrics()
         base = done[0].index if done else 0
         assert [c.index - base for c in done] == list(range(rows))
         return {
@@ -470,8 +495,11 @@ class TorchBaseTrainer(BaseRLTrainer):
 
     def evaluate(self) -> Dict[str, Any]:
         """Generate on the eval prompts and score them with the reward and
-        metric functions; a single list-valued gen kwarg is swept."""
+        metric functions; a single list-valued gen kwarg is swept. The
+        engine's kernel launch gauges, summed over the eval's generate
+        calls, land in ``eval/*_kernel_launches``."""
         stats: Dict[str, Any] = {}
+        launches: Dict[str, float] = {}
         sweep_key, sweep_values = None, [None]
         for k, v in self.generate_kwargs.items():
             if isinstance(v, list):
@@ -486,6 +514,10 @@ class TorchBaseTrainer(BaseRLTrainer):
             for batch in loader:
                 out = self.generate(batch["input_ids"], batch["attention_mask"],
                                     eval_mode=True, **overrides)
+                for k, v in self.last_generate_stats.items():
+                    if k.endswith("_kernel_launches"):
+                        name = "eval/" + k.split("/", 1)[1]
+                        launches[name] = launches.get(name, 0.0) + v
                 samples, prompts, outputs = self.decode(batch["input_ids"],
                                                         out["response_tokens"])
                 all_samples += samples
@@ -504,6 +536,7 @@ class TorchBaseTrainer(BaseRLTrainer):
                 for name, values in metrics.items():
                     arr = np.asarray(values, dtype=np.float64)
                     stats[f"metrics/{name}{suffix}"] = float(arr.mean()) if arr.size else 0.0
+        stats.update(launches)
         self.nth_evaluation += 1
         return stats
 

@@ -42,6 +42,7 @@ from trlx_tpu_torch.utils.stats import RunningMoments, logprobs_of_labels
 @register_trainer
 class PPOTrainer(TorchBaseTrainer):
     model_head = "value"
+    collects_rollouts = True
 
     def __init__(self, config, **kwargs):
         super().__init__(config, **kwargs)
@@ -50,6 +51,13 @@ class PPOTrainer(TorchBaseTrainer):
             raise ValueError("config.method must be PPOConfig")
         if self.reward_fn is None:
             raise ValueError("PPO requires a reward_fn")
+        if 0 < method.num_rollouts < method.chunk_size:
+            logger.warning(
+                "method.chunk_size %d > method.num_rollouts %d: each collection keeps "
+                "the first %d sequences of a chunk to finish, i.e. its shortest "
+                "answers, which biases the store toward short answers; set "
+                "chunk_size to num_rollouts to keep whole chunks",
+                method.chunk_size, method.num_rollouts, method.num_rollouts)
         self.store = PPORolloutStorage(self.tokenizer.pad_token_id)
         self.kl_ctl = method.kl_controller()
         self.num_layers_unfrozen = config.model.num_layers_unfrozen
