@@ -72,7 +72,28 @@ Phases, each printing one JSON line:
    then 160 PPO steps, ``method.chunk_size`` 64: see ``RANDOMWALKS_PPO``)
    must end with a mean optimality of at least 0.9 over its last three
    evals, ``tasks/ilql_randomwalks.py`` (160 steps)
-   must lift its last three evals over its first two by more than 0.1.
+   must lift its last three evals over its first two by more than 0.1;
+9. the family slice (``FAMILY_SPEC``, Mistral-7B: rotary positions,
+   RMSNorm, the gated SiLU MLP, GQA 4:1 at head dim 128, a 4096 window):
+   at full width and depth, 16 HTTP requests on 8 slots with 4160-token
+   prompts (half cut to 512 tokens, left-padded by the engine), so the
+   window bites in prefill (#1) and decode (#2), beside the time of the
+   per-call f32 → bf16 weight cast and of the prefill's bias
+   (``slice_family_serve``); the same requests at four layers, greedy,
+   under the parity rules of phase 4, the bf16 tokens held to
+   ``FAMILY_BF16_GAP_TOL`` (``slice_family_parity``); PPO at
+   four layers through ``trlx_tpu_torch.train`` with the hydra branch
+   replaying two rotary blocks, #1–#3 and #5–#8 launching, and two rows
+   of one batch held card against CPU (``slice_family_train``,
+   ``slice_family_train_parity``). Phases 3 and 5 check the kernels at
+   this slice's shapes (the 4160-token windowed prefill over 4192 slots,
+   its decode, the sampler at V = 32000, the flash kernels at (16, 104,
+   32, 8, 128) with the window, the PPO collections' engine at 32 slots,
+   T 64, S 104, and their unfiltered sampler at V = 32000) and
+   bloom-560m's per-head ALiBi bias.
+
+Before the kernel summary, ``phase_seconds`` gives each phase's wall
+seconds.
 
 The line before the last holds the kernel summary (each kernel's launches
 on its own slice's path, and on every path in ``launches_by_path``), the one before it the
@@ -229,11 +250,12 @@ def busy_ms(fn, calls=10):
     return _busy_us(spans) / calls / 1e3
 
 
-def timed_pair(kernel, plain):
-    """Device and per-call times of a kernel and of its plain version."""
+def timed_pair(kernel, plain, **timing):
+    """Device and per-call times of a kernel and of its plain version
+    (``timing``: :func:`time_ms`'s counts)."""
     rec = {}
-    rec["kernel_ms"], rec["call_ms"] = time_ms(kernel)
-    rec["plain_ms"], rec["plain_call_ms"] = time_ms(plain)
+    rec["kernel_ms"], rec["call_ms"] = time_ms(kernel, **timing)
+    rec["plain_ms"], rec["plain_call_ms"] = time_ms(plain, **timing)
     return rec
 
 
@@ -358,11 +380,12 @@ def kernel_resources(name, tensor_cores):
 # ---------------------------------------------------------------------------
 
 
-def paged_inputs(rs, B, T, H, KV, D, bs, S, HB, dtype, dev, poison):
+def paged_inputs(rs, B, T, H, KV, D, bs, S, HB, dtype, dev, poison, window=0):
     """Random pool/table/bias for one geometry: rows see a random valid
-    key prefix (causal over the chunk for T > 1); table entries past a
-    row's valid columns are poisoned out of range when ``poison``; every
-    pool block holds random stale values."""
+    key prefix (causal over the chunk for T > 1, within ``window`` slots
+    of the query when set); table entries past a row's valid columns are
+    poisoned out of range when ``poison``; every pool block holds random
+    stale values."""
     from trlx_tpu_torch.ops.paged_kv import num_table_blocks
 
     TB = num_table_blocks(S, bs)
@@ -375,7 +398,11 @@ def paged_inputs(rs, B, T, H, KV, D, bs, S, HB, dtype, dev, poison):
     end_col = valid[:, None] - T + np.arange(T)[None, :]  # query slots
     cols = np.arange(S)[None, None, :]
     vis = (cols <= end_col[:, :, None]) & (rs.rand(B, 1, S) > 0.1)
-    vis[:, :, 0] = True
+    if window:
+        vis &= end_col[:, :, None] - cols < window
+        vis[np.arange(B)[:, None], np.arange(T)[None, :], end_col] = True
+    else:
+        vis[:, :, 0] = True
     bias = np.where(vis, 0.0, -1e9)[:, None].repeat(HB, axis=1)
     if HB > 1:
         bias = bias + np.where(vis[:, None], rs.randn(B, HB, 1, S) * 0.3, 0.0)
@@ -401,7 +428,7 @@ def verify_inputs(rs, B, T, H, KV, D, bs, S, dtype, dev, poison):
     committed slots and probe slots, as the model builds it; table entries
     past the row's allocated blocks stay 0 (the reserved block), and the
     last ``poison`` rows are done (whole table out of range)."""
-    from trlx_tpu_torch.models.transformer import CausalTransformer
+    from trlx_tpu_torch.models.transformer import attention_bias
     from trlx_tpu_torch.ops.paged_kv import num_table_blocks
 
     G, P = T - 1, 64
@@ -415,7 +442,7 @@ def verify_inputs(rs, B, T, H, KV, D, bs, S, dtype, dev, poison):
     for b in range(B):
         slot_mask[b, rs.randint(0, 8): c[b] + G] = 1
     query_slots = torch.tensor(c[:, None] - 1 + np.arange(T)[None, :])
-    bias = CausalTransformer._attention_bias(None, torch.tensor(slot_mask), query_slots)
+    bias = attention_bias(torch.tensor(slot_mask), query_slots)
     perm = rs.permutation(np.arange(1, NB))[: B * TB].reshape(B, TB)
     table = np.zeros((B, TB), np.int64)
     for b in range(B):
@@ -442,7 +469,10 @@ def attention_bound(inp, B, T, H, KV, D, S, HB, dtype):
 
 
 def check_attention(kind, B, T, H, KV, D, bs, S, HB, dtype, poison, seed,
-                    timed=False):
+                    timed=False, window=0, timing=None):
+    """One paged attention kernel against its plain version; ``window``
+    bounds every query's keys to its last ``window`` slots, ``timing``
+    passes :func:`time_ms`'s counts (long shapes)."""
     from trlx_tpu_torch.ops.paged_attention import (
         _gathered_view,
         paged_attention_decode,
@@ -460,7 +490,7 @@ def check_attention(kind, B, T, H, KV, D, bs, S, HB, dtype, poison, seed,
     if kind == "paged_verify":
         inp = verify_inputs(rs, B, T, H, KV, D, bs, S, dtype, dev, poison)
     else:
-        inp = paged_inputs(rs, B, T, H, KV, D, bs, S, HB, dtype, dev, poison)
+        inp = paged_inputs(rs, B, T, H, KV, D, bs, S, HB, dtype, dev, poison, window)
     if kind == "paged_decode":
         q, bias = inp["q"][:, 0].contiguous(), inp["bias"][:, :, 0].contiguous()
         kern, ref = paged_attention_decode, paged_attention_decode_reference
@@ -481,12 +511,13 @@ def check_attention(kind, B, T, H, KV, D, bs, S, HB, dtype, poison, seed,
     tol = 1e-4 if dtype == torch.float32 else 1e-2
     rec = {"phase": "kernel_check", "kernel": kind, "dtype": str(dtype).split(".")[-1],
            "B": B, "T": T, "H": H, "KV": KV, "D": D, "bs": bs, "S": S, "TB": inp["TB"],
-           "HB": HB, "poisoned_ids": poison, "max_abs_err": err, "tol": tol}
+           "HB": HB, "window": window, "poisoned_ids": poison, "max_abs_err": err, "tol": tol}
     if not math.isfinite(err) or err > tol:
         emit({**rec, "ok": False})
         raise AssertionError(f"{kind} disagrees with its plain version: {err} > {tol}")
     if timed:
-        rec.update(timed_pair(lambda: kern(*args), lambda: ref(*args)))
+        timing = timing or {}
+        rec.update(timed_pair(lambda: kern(*args), lambda: ref(*args), **timing))
         # library yardstick: SDPA on a gathered dense view with the same
         # bias (the gather itself is not timed)
         kd = _gathered_view(inp["k"], inp["table"], S, H).transpose(1, 2)
@@ -494,7 +525,8 @@ def check_attention(kind, B, T, H, KV, D, bs, S, HB, dtype, poison, seed,
         qd = inp["q"].transpose(1, 2)
         mask = inp["bias"].to(dtype)
         rec["library_ms"], rec["library_call_ms"] = time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask))
+            lambda: torch.nn.functional.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
+            **timing)
         b_ms, b_by = attention_bound(inp, B, T, H, KV, D, S, HB, dtype)
         rec["bound_ms"], rec["bound_by"] = b_ms, b_by
         rec["bound_us"] = 1e3 * b_ms
@@ -638,6 +670,39 @@ def phase_kernels():
                                   seed=81 + P + B, timed=bf, **geo)
             if bf:
                 timed[f"paged_prefill_{name}"], timed[f"paged_decode_{name}"] = pre, dec
+    # the family slice (Mistral-7B, FAMILY_SERVE): the 4160-token prefill
+    # over S = 4192 slots and its decode, GQA 4:1, D 128, the 4096 window
+    # biting (timed in bf16, the long prefill with fewer calls); bloom-560m's
+    # per-head ALiBi bias (HB = H = 16, D 64)
+    for dtype in (torch.bfloat16, torch.float32):
+        bf = dtype == torch.bfloat16
+        geo = dict(B=8, H=32, KV=8, D=128, bs=16, S=4192, HB=1, window=4096)
+        pre = check_attention("paged_prefill", T=4160, dtype=dtype, poison=True, seed=100,
+                              timed=bf, timing=dict(n=4, windows=3, calls=3), **geo)
+        dec = check_attention("paged_decode", T=1, dtype=dtype, poison=True, seed=101,
+                              timed=bf, **geo)
+        alibi_geo = dict(B=4, H=16, KV=16, D=64, bs=16, S=104, HB=16)
+        check_attention("paged_prefill", T=64, dtype=dtype, poison=True, seed=102, timed=bf,
+                        **alibi_geo)
+        check_attention("paged_decode", T=1, dtype=dtype, poison=True, seed=103, timed=bf,
+                        **alibi_geo)
+        if bf:
+            timed["paged_prefill_family"], timed["paged_decode_family"] = pre, dec
+        # the family slice's PPO collections (FAMILY_TRAIN_LAYERS of the same
+        # widths): a chunk's 32 slots, 64-token prompts, S = 64 + 40 new
+        geo = dict(B=32, H=32, KV=8, D=128, bs=16, S=104, HB=1, window=4096)
+        pre = check_attention("paged_prefill", T=64, dtype=dtype, poison=True, seed=105,
+                              timed=bf, **geo)
+        dec = check_attention("paged_decode", T=1, dtype=dtype, poison=True, seed=106,
+                              timed=bf, **geo)
+        if bf:
+            timed["paged_prefill_family_train"], timed["paged_decode_family_train"] = pre, dec
+    for mode in ("served", "greedy"):
+        rec = check_sample(mode, "bfloat16", B=8, V=32000, seed=104, timed=True)
+        if mode == "served":
+            timed["fused_sample_family"] = rec
+    timed["fused_sample_family_train"] = check_sample("train", "bfloat16", B=32, V=32000,
+                                                      seed=107, timed=True)
     # the fused sampler: every mode, B = 8 and 32 (timed on bf16-rounded
     # logits), and a 128256-wide row (llama-3's vocabulary)
     for i, mode in enumerate(SAMPLE_MODES):
@@ -735,15 +800,19 @@ def http_generate(port, body):
     return resp.status, tokens, n_done
 
 
-def f32_gaps(model32, prompts, responses):
-    """Teacher-forced f32 logits over prompt ‖ response: for each response
-    position, (best logit − logit of the given token, top-2 gap)."""
+def f32_gaps(model32, prompts, responses, masks=None):
+    """Teacher-forced f32 logits over prompt ‖ response (left padding of
+    the prompt masked by ``masks``): for each response position, (best
+    logit − logit of the given token, top-2 gap)."""
     out = []
     dev = next(model32.parameters()).device
-    for p, r in zip(prompts, responses):
+    for j, (p, r) in enumerate(zip(prompts, responses)):
         ids = torch.tensor(np.concatenate([p, r])[None], dtype=torch.int64, device=dev)
+        pmask = np.ones(len(p), np.int64) if masks is None else np.asarray(masks[j], np.int64)
+        mask = torch.tensor(np.concatenate([pmask, np.ones(len(r), np.int64)])[None], device=dev)
+        span = (len(p) - 1, len(p) - 1 + len(r))
         with torch.no_grad():
-            logits = model32(ids)["logits"][0, len(p) - 1 : len(p) - 1 + len(r)].float()
+            logits = model32(ids, attention_mask=mask, logits_span=span)["logits"][0].float()
         top2 = torch.topk(logits, 2, dim=-1).values
         given = logits.gather(1, torch.tensor(r, device=dev)[:, None])[:, 0]
         out.append(((top2[:, 0] - given).cpu().numpy(),
@@ -780,122 +849,313 @@ def serve_over_http(engine, bodies, max_new, vocab, sync):
     return results, wall, server
 
 
+class ServedSlice:
+    """One served configuration: the spec (with ``overrides``), the
+    generation settings and the paged engine's geometry, and the request
+    set — ``n_requests`` seeded prompts of ``prompt_len`` tokens, the even
+    ones greedy, the odd ones sampled (top-k 50, top-p 0.95), request 0
+    streamed; with ``short_len`` the requests ``i`` with ``i // 2`` odd
+    are cut to their last ``short_len`` tokens, left-padded by the
+    engine. ``eos`` defaults to the last token id (GPT-2's
+    ``<|endoftext|>``)."""
+
+    def __init__(self, spec, device, slots=8, block_size=16, segment_len=8, prompt_len=64,
+                 max_new=40, n_requests=16, short_len=0, eos=None, **overrides):
+        from trlx_tpu_torch.models.transformer import config_from_spec
+        from trlx_tpu_torch.ops.paged_kv import PagedSpec, num_table_blocks
+        from trlx_tpu_torch.ops.sampling import GenerationConfig
+
+        self.spec, self.overrides, self.dev = spec, overrides, torch.device(device)
+        self.slots, self.prompt_len, self.max_new = slots, prompt_len, max_new
+        self.block_size, self.segment_len, self.n_requests = block_size, segment_len, n_requests
+        self.vocab = V = config_from_spec(spec, **overrides).vocab_size
+        eos = V - 1 if eos is None else eos
+        self.gen = GenerationConfig(max_new_tokens=max_new, temperature=1.0, top_k=50,
+                                    top_p=0.95, do_sample=True, eos_token_id=eos,
+                                    pad_token_id=eos)
+        self.paged = PagedSpec(block_size, 1 + slots * num_table_blocks(prompt_len + max_new,
+                                                                        block_size) + 8)
+        rs = np.random.RandomState(1234)
+        self.prompts = rs.randint(0, V - 1, size=(n_requests, prompt_len))
+        self.masks = np.ones_like(self.prompts)
+        if short_len:
+            for i in range(n_requests):
+                if (i // 2) % 2:
+                    self.masks[i, : prompt_len - short_len] = 0
+                    self.prompts[i, : prompt_len - short_len] = eos
+        self.bodies = [{"prompt_ids": self.prompts[i][self.masks[i] == 1].tolist(), "seed": i,
+                        "do_sample": bool(i % 2), "stream": i == 0}
+                       for i in range(n_requests)]
+        self.greedy_idx = [i for i in range(n_requests) if i % 2 == 0]
+        self.sync = ((lambda: torch.cuda.synchronize()) if self.dev.type == "cuda"
+                     else (lambda: None))
+
+    def build(self, **kw):
+        from trlx_tpu_torch.models.builder import build_causal_lm
+
+        return build_causal_lm(self.spec, seed=0, device=self.dev, **self.overrides, **kw)
+
+    def engine(self, model, cfg):
+        from trlx_tpu_torch.engine.core import ContinuousEngine
+        from trlx_tpu_torch.ops.slot_refill import make_slot_refill_fns
+
+        fns = make_slot_refill_fns(cfg, self.slots, self.prompt_len, self.gen,
+                                   segment_len=self.segment_len, paged=self.paged,
+                                   device=self.dev)
+        return ContinuousEngine(fns, model, self.gen.eos_token_id)
+
+    def serve(self, model, cfg, phase, card="", **extra):
+        """The main path: warm up off the clock (the first decode segment
+        pays CUDA module loading and library set-up, which no later request
+        sees), set every count to 0, serve the request set over HTTP, read
+        the counts. Emits ``phase``'s line; returns (results, launches,
+        engine)."""
+        from trlx_tpu_torch.engine.core import kernel_launches
+
+        engine = self.engine(model, cfg)
+        warm = slice(0, self.slots)
+        engine.enqueue_prompts(self.prompts[warm], self.masks[warm], np.arange(self.slots))
+        engine.run()
+        self.sync()
+        zero_launch_counts()
+        engine.begin_collection()  # the engine's launch gauges count from here
+        # -- the main path: HTTP requests through the server ---------------
+        results, wall, server = serve_over_http(engine, self.bodies, self.max_new, self.vocab,
+                                                self.sync)
+        launches = kernel_launches()
+        # -----------------------------------------------------------------
+        st = engine.stats
+        gauges = {"paged_prefill": st.prefill_kernel_launches,
+                  "paged_decode": st.decode_kernel_launches,
+                  "paged_verify": st.verify_kernel_launches,
+                  "fused_sample": st.sample_kernel_launches}
+        if gauges != launches:
+            raise AssertionError(f"engine launch gauges {gauges} != wrapper counts {launches}")
+        launches = {k: launches[k] for k in SERVE_KERNELS}
+        # on CPU tensors the wrappers run their plain versions and count nothing
+        if self.dev.type == "cuda" and min(launches.values()) <= 0:
+            raise AssertionError(f"a kernel of the path never launched: {launches}")
+        served = sum(len(r[1]) for r in results)
+        sm = server.flat_metrics()
+        emit({"phase": phase, "model": self.spec, "overrides": self.overrides,
+              "dtype": str(cfg.dtype).split(".")[-1], "requests": self.n_requests,
+              "slots": self.slots, "kv_block_size": self.block_size,
+              "segment_len": self.segment_len, "prompt_len": self.prompt_len,
+              "true_prompt_lens": sorted({int(m.sum()) for m in self.masks}),
+              "max_new_tokens": self.max_new,
+              "served_tokens": served, "wall_s": wall, "tokens_per_s": served / wall,
+              "ttft_p50_s": sm["serve/ttft_p50"], "queue_wait_p50_s": sm["serve/queue_wait_p50"],
+              "decode_segment_ms_mean": 1e3 * st.decode_s / max(st.segments, 1),
+              "decode_step_ms_mean": 1e3 * st.decode_s / max(st.decode_steps, 1),
+              "segments": st.segments, "refill_prefills": st.refill_prefills,
+              "prefill_ms_mean": 1e3 * st.refill_s / max(st.refill_prefills, 1),
+              "slot_utilization": st.slot_utilization, "launches": launches,
+              "launches_per_request": {k: v / self.n_requests for k, v in launches.items()},
+              "stream_tokens": len(results[0][1]), "card": card, **extra})
+        return results, launches, engine
+
+    def profile(self, engine, phase):
+        """Where a served run's time goes: the request set through
+        ``engine`` directly (no HTTP), once timed and once under
+        ``torch.profiler``. Emits the wall time and ms per decode step of
+        the timed run, the device's busy share (the union of its kernels'
+        intervals over the traced run's wall time, and over the timed
+        run's, since tracing slows the host and not the kernels), launches
+        per decode step, device ms by group (the port's kernels, matrix
+        products, the rest) and the top kernels."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from trlx_tpu_torch.profile_serve import _busy_us, _group, device_events
+
+        def run():
+            engine.begin_collection()
+            engine.enqueue_prompts(self.prompts, self.masks, np.arange(self.n_requests),
+                                   greedy=np.arange(self.n_requests) % 2 == 0)
+            self.sync()
+            t0 = time.perf_counter()
+            engine.run()
+            self.sync()
+            st = engine.stats
+            return {"wall_s": time.perf_counter() - t0, "decode_steps": st.decode_steps,
+                    "decode_step_ms": 1e3 * st.decode_s / max(st.decode_steps, 1),
+                    "refill_prefills": st.refill_prefills,
+                    "prefill_ms": 1e3 * st.refill_s / max(st.refill_prefills, 1)}
+
+        timed = run()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            traced = run()
+        by_name, spans = {}, []
+        for evt in device_events(prof):
+            spans.append((evt.time_range.start, evt.time_range.end))
+            count, us = by_name.get(evt.name, (0, 0.0))
+            by_name[evt.name] = (count + 1, us + evt.time_range.end - evt.time_range.start)
+        busy_s = _busy_us(spans) * 1e-6
+        groups = {}
+        for name, (_, us) in by_name.items():
+            groups[_group(name)] = groups.get(_group(name), 0.0) + us * 1e-3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+        emit({"phase": phase, "model": self.spec, "timed": timed, "traced": traced,
+              "device_busy_share": busy_s / traced["wall_s"],
+              "device_busy_share_untraced": busy_s / timed["wall_s"],
+              "device_launches_per_decode_step": sum(c for c, _ in by_name.values())
+              / max(traced["decode_steps"], 1),
+              "device_ms_by_group": groups,
+              "top_kernels": [{"name": n[:100], "count": c, "ms": us * 1e-3}
+                              for n, (c, us) in top]})
+
+    def plain_greedy(self, model):
+        """``model``'s greedy responses to the greedy requests through the
+        plain dense-cache ``generate``."""
+        from trlx_tpu_torch.ops.sampling import generate
+
+        gi = self.greedy_idx
+        out = generate(model, torch.tensor(self.prompts[gi]), torch.tensor(self.masks[gi]),
+                       torch.tensor(np.asarray(gi, np.int64)),
+                       dataclasses.replace(self.gen, do_sample=False))
+        tok, mask = out.response_tokens.cpu().numpy(), out.response_mask.cpu().numpy()
+        return [tok[j][mask[j] == 1] for j in range(len(gi))]
+
+    def parity(self, bf16_results, phase, gap_tol=BF16_GAP_TOL, model16=None):
+        """Greedy parity against the plain dense-cache ``generate`` in f32:
+        (a) the greedy requests served over HTTP by the same server, engine
+        and kernels in f32, token for token (a divergence tolerated only at
+        a near tie of the plain path's top-2 logits); (b) the bf16 served
+        greedy responses ``bf16_results`` (aligned with ``greedy_idx``),
+        teacher-forced in f32, within ``gap_tol`` of the f32 argmax. With
+        ``model16`` (the served bf16 model) the record also prints its
+        largest teacher-forced logit error against f32 on the f32 plain
+        responses (the rounding that sets those gaps); it sets no limit."""
+        model32, cfg32 = self.build(dtype=torch.float32)
+        gi = self.greedy_idx
+        gp, gm = self.prompts[gi], self.masks[gi]
+        plain_resp = self.plain_greedy(model32)
+        served32, _, _ = serve_over_http(self.engine(model32, cfg32),
+                                         [self.bodies[i] for i in gi], self.max_new,
+                                         self.vocab, self.sync)
+        ties = []
+        for j in range(len(gi)):
+            a, b = np.asarray(served32[j][1]), plain_resp[j]
+            n = min(len(a), len(b))
+            diff = np.nonzero(a[:n] != b[:n])[0]
+            if len(diff) == 0 and len(a) == len(b):
+                continue
+            pos = min(int(diff[0]) if len(diff) else n, len(b) - 1)
+            _, gap2 = f32_gaps(model32, [gp[j]], [b[: pos + 1]], [gm[j]])[0]
+            ties.append({"request": gi[j], "position": pos, "top2_gap": float(gap2[pos])})
+            if gap2[pos] >= F32_TIE_GAP:
+                emit({"phase": phase, "ok": False, "f32_divergence": ties[-1]})
+                raise AssertionError(f"f32 served greedy tokens diverge from plain generate: "
+                                     f"{ties[-1]}")
+        gaps = f32_gaps(model32, gp, [np.asarray(r[1]) for r in bf16_results], gm)
+        trail = np.concatenate([g for g, _ in gaps])
+        top2 = np.concatenate([g2 for _, g2 in gaps])
+        worst = float(trail.max())
+        envelope = {} if model16 is None else {
+            "bf16_plain_logit_max_err": logit_error(model16, model32, gp, gm, plain_resp)}
+        rec = {"phase": phase, "model": self.spec, "overrides": self.overrides,
+               "f32_served_vs_plain_rows": len(gi),
+               "f32_near_ties": ties, "f32_tie_gap_tol": F32_TIE_GAP,
+               "bf16_served_positions": int(trail.size),
+               "bf16_served_vs_f32_max_gap": worst, "bf16_gap_tol": gap_tol, **envelope,
+               "bf16_served_f32_argmax_frac": float((trail == 0).mean()),
+               "bf16_served_rows_equal_to_plain": sum(
+                   int(np.array_equal(r[1], p)) for r, p in zip(bf16_results, plain_resp)),
+               # how often the f32 second-best token would have broken the limit
+               "f32_top2_gap_quantiles": {str(q): float(np.quantile(top2, q))
+                                          for q in (0.05, 0.25, 0.5, 0.75, 0.95)},
+               "f32_top2_gap_above_tol_frac": float((top2 > gap_tol).mean())}
+        if worst > gap_tol:
+            emit({**rec, "ok": False})
+            raise AssertionError(f"bf16 served greedy tokens stray from the f32 argmax: {worst}")
+        emit({**rec, "ok": True})
+        return rec
+
+
+def logit_error(model16, model32, prompts, masks, responses):
+    """Largest |bf16 logit − f32 logit| over the response positions of
+    prompt ‖ response, both models teacher-forced on the same tokens."""
+    worst = 0.0
+    dev = next(model32.parameters()).device
+    for p, m, r in zip(prompts, masks, responses):
+        ids = torch.tensor(np.concatenate([p, r])[None], dtype=torch.int64, device=dev)
+        mask = torch.tensor(np.concatenate([m, np.ones(len(r), np.int64)])[None], device=dev)
+        span = (len(p) - 1, len(p) - 1 + len(r))
+        with torch.no_grad():
+            l16, l32 = (mdl(ids, attention_mask=mask, logits_span=span)["logits"].float()
+                        for mdl in (model16, model32))
+        worst = max(worst, float((l16 - l32).abs().max()))
+    return worst
+
+
 def phase_slice(device="cuda", spec="builtin:gpt2-small", slots=8, block_size=16,
                 segment_len=8, prompt_len=64, max_new=40, n_requests=16, card=""):
-    from trlx_tpu_torch.engine.core import ContinuousEngine, kernel_launches
-    from trlx_tpu_torch.models.builder import build_causal_lm
-    from trlx_tpu_torch.ops.paged_kv import PagedSpec, num_table_blocks
-    from trlx_tpu_torch.ops.sampling import GenerationConfig, generate
-    from trlx_tpu_torch.ops.slot_refill import make_slot_refill_fns
-
-    dev = torch.device(device)
-    sync = (lambda: torch.cuda.synchronize()) if dev.type == "cuda" else (lambda: None)
-    model, cfg = build_causal_lm(spec, seed=0, device=dev)
-    V = cfg.vocab_size
-    eos = V - 1  # GPT-2's <|endoftext|>
-    gen = GenerationConfig(max_new_tokens=max_new, temperature=1.0, top_k=50,
-                           top_p=0.95, do_sample=True, eos_token_id=eos,
-                           pad_token_id=eos)
-    S = prompt_len + max_new
-    paged = PagedSpec(block_size, 1 + slots * num_table_blocks(S, block_size) + 8)
-
-    def make_engine(m, c):
-        fns = make_slot_refill_fns(c, slots, prompt_len, gen, segment_len=segment_len,
-                                   paged=paged, device=dev)
-        return ContinuousEngine(fns, m, eos)
-
-    engine = make_engine(model, cfg)
-    rs = np.random.RandomState(1234)
-    prompts = rs.randint(0, V - 1, size=(n_requests, prompt_len))
-    # warm-up off the clock: the first decode segment pays CUDA module
-    # loading and library set-up, which no later request sees
-    warm = prompts[:slots]
-    engine.enqueue_prompts(warm, np.ones_like(warm), np.arange(slots))
-    engine.run()
-    bodies = [{"prompt_ids": prompts[i].tolist(), "seed": i,
-               "do_sample": bool(i % 2), "stream": i == 0}
-              for i in range(n_requests)]
-    sync()
-    zero_launch_counts()
-    engine.begin_collection()  # the engine's launch gauges count from here
-    # -- the main path: HTTP requests through the server -----------------
-    results, wall, server = serve_over_http(engine, bodies, max_new, V, sync)
-    launches = kernel_launches()
-    # -------------------------------------------------------------------
-    st = engine.stats
-    gauges = {"paged_prefill": st.prefill_kernel_launches,
-              "paged_decode": st.decode_kernel_launches,
-              "paged_verify": st.verify_kernel_launches,
-              "fused_sample": st.sample_kernel_launches}
-    if gauges != launches:
-        raise AssertionError(f"engine launch gauges {gauges} != wrapper counts {launches}")
-    launches = {k: launches[k] for k in SERVE_KERNELS}
-    # on CPU tensors the wrappers run their plain versions and count nothing
-    if dev.type == "cuda" and min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
-    served = sum(len(r[1]) for r in results)
-    sm = server.flat_metrics()
-    emit({"phase": "slice_serve", "model": spec, "dtype": str(cfg.dtype).split(".")[-1],
-          "requests": n_requests, "slots": slots, "kv_block_size": block_size,
-          "segment_len": segment_len, "prompt_len": prompt_len, "max_new_tokens": max_new,
-          "served_tokens": served, "wall_s": wall, "tokens_per_s": served / wall,
-          "ttft_p50_s": sm["serve/ttft_p50"], "queue_wait_p50_s": sm["serve/queue_wait_p50"],
-          "decode_segment_ms_mean": 1e3 * st.decode_s / max(st.segments, 1),
-          "decode_step_ms_mean": 1e3 * st.decode_s / max(st.decode_steps, 1),
-          "segments": st.segments, "refill_prefills": st.refill_prefills,
-          "prefill_ms_mean": 1e3 * st.refill_s / max(st.refill_prefills, 1),
-          "slot_utilization": st.slot_utilization, "launches": launches,
-          "launches_per_request": {k: v / n_requests for k, v in launches.items()},
-          "stream_tokens": len(results[0][1]), "card": card})
-
-    # -- parity: greedy responses against the plain dense-cache generate --
-    model32, cfg32 = build_causal_lm(spec, seed=0, device=dev, dtype=torch.float32)
-    greedy_idx = [i for i in range(n_requests) if i % 2 == 0]
-    gp = prompts[greedy_idx]
-    plain = generate(model32, torch.tensor(gp), torch.tensor(np.ones_like(gp)),
-                     torch.tensor(np.asarray(greedy_idx, np.int64)),
-                     dataclasses.replace(gen, do_sample=False))
-    plain_tok = plain.response_tokens.cpu().numpy()
-    plain_mask = plain.response_mask.cpu().numpy()
-    plain_resp = [plain_tok[j][plain_mask[j] == 1] for j in range(len(greedy_idx))]
-    # (a) the greedy requests served over HTTP by the same server, engine
-    # and kernels in f32, against plain, token for token
-    served32, _, _ = serve_over_http(make_engine(model32, cfg32),
-                                     [bodies[i] for i in greedy_idx], max_new, V, sync)
-    ties = []
-    for j in range(len(greedy_idx)):
-        a, b = np.asarray(served32[j][1]), plain_resp[j]
-        n = min(len(a), len(b))
-        diff = np.nonzero(a[:n] != b[:n])[0]
-        if len(diff) == 0 and len(a) == len(b):
-            continue
-        pos = min(int(diff[0]) if len(diff) else n, len(b) - 1)
-        _, gap2 = f32_gaps(model32, [gp[j]], [b[: pos + 1]])[0]
-        ties.append({"request": greedy_idx[j], "position": pos, "top2_gap": float(gap2[pos])})
-        if gap2[pos] >= F32_TIE_GAP:
-            emit({"phase": "slice_parity", "ok": False, "f32_divergence": ties[-1]})
-            raise AssertionError(f"f32 served greedy tokens diverge from plain generate: {ties[-1]}")
-    # (b) the bf16 served greedy responses, teacher-forced in f32
-    gaps = f32_gaps(model32, gp, [np.asarray(results[i][1]) for i in greedy_idx])
-    trail = np.concatenate([g for g, _ in gaps])
-    top2 = np.concatenate([g2 for _, g2 in gaps])
-    worst = float(trail.max())
-    rec = {"phase": "slice_parity", "f32_served_vs_plain_rows": len(greedy_idx),
-           "f32_near_ties": ties, "f32_tie_gap_tol": F32_TIE_GAP,
-           "bf16_served_positions": int(trail.size),
-           "bf16_served_vs_f32_max_gap": worst, "bf16_gap_tol": BF16_GAP_TOL,
-           "bf16_served_f32_argmax_frac": float((trail == 0).mean()),
-           "bf16_served_rows_equal_to_plain": sum(
-               int(np.array_equal(results[i][1], p)) for i, p in zip(greedy_idx, plain_resp)),
-           # how often the f32 second-best token would have broken the limit
-           "f32_top2_gap_quantiles": {str(q): float(np.quantile(top2, q))
-                                      for q in (0.05, 0.25, 0.5, 0.75, 0.95)},
-           "f32_top2_gap_above_tol_frac": float((top2 > BF16_GAP_TOL).mean())}
-    if worst > BF16_GAP_TOL:
-        emit({**rec, "ok": False})
-        raise AssertionError(f"bf16 served greedy tokens stray from the f32 argmax: {worst}")
-    emit({**rec, "ok": True})
+    sl = ServedSlice(spec, device, slots, block_size, segment_len, prompt_len, max_new,
+                     n_requests)
+    model, cfg = sl.build()
+    results, launches, _ = sl.serve(model, cfg, "slice_serve", card)
+    sl.parity([results[i] for i in sl.greedy_idx], "slice_parity")
     return launches
+
+
+# the family slice: Mistral-7B (mistralai/Mistral-7B-v0.1 config.json: the
+# JAX preset's widths) served with prompts that cross its 4096 window
+FAMILY_SPEC = "builtin:mistral-7b"
+FAMILY_SERVE = dict(slots=8, prompt_len=4160, max_new=32, n_requests=16, short_len=512, eos=2)
+FAMILY_PARITY_LAYERS = 4  # two f32 7B copies and the KV pool exceed 80 GB
+# bf16 serving at this width against f32 (parity (b)): the JAX module's own
+# bf16 pass at 4 layers of these widths, on the CPU over 2048 positions
+# (tests/torch_family_bf16_reading.py), trails f32 by up to 0.196, its
+# 99.9th percentile 0.136; the parity reads 256 positions
+FAMILY_BF16_GAP_TOL = 0.15
+FAMILY_TRAIN_LAYERS = 4  # Adam over a full-depth 7B exceeds one card
+
+
+def phase_family_serve(device="cuda", spec=FAMILY_SPEC, card="", **kw):
+    """Mistral-7B at full width and depth on the paged engine behind the
+    HTTP frontend; beside the served run, the build's seconds, what two
+    costs of this path take on the card — the per-call f32→bf16 cast of
+    every projection weight (``_linear``, once per forward) and the
+    prefill's ``[B, 1, T, S]`` f32 bias — and, after it, a profile of the
+    same requests (:meth:`ServedSlice.profile`). Returns the launches."""
+    from trlx_tpu_torch.models.transformer import _query_slots, attention_bias
+
+    sl = ServedSlice(spec, device, **{**FAMILY_SERVE, **kw})
+    t0 = time.perf_counter()
+    model, cfg = sl.build()
+    extra = {"build_s": time.perf_counter() - t0}  # host draws, streamed to the card
+    if sl.dev.type == "cuda":
+        weights = [m.weight for m in model.modules() if isinstance(m, torch.nn.Linear)]
+
+        def cast_all():
+            for w in weights:
+                w.to(cfg.dtype)
+
+        extra["cast_weights_gb"] = sum(w.numel() for w in weights) * 6 / 1e9  # read f32, write bf16
+        extra["cast_weights_ms"], _ = time_ms(cast_all, n=3, windows=3, calls=3)
+        B, T = sl.slots, sl.prompt_len
+        mask = torch.ones((B, T + sl.max_new), dtype=torch.int64, device=sl.dev)
+        slots = _query_slots(0, B, T, sl.dev)
+        extra["prefill_bias_gb"] = B * T * (T + sl.max_new) * 4 / 1e9
+        extra["prefill_bias_ms"], _ = time_ms(
+            lambda: attention_bias(mask, slots, window=cfg.sliding_window), n=3, windows=3,
+            calls=3)
+    _, launches, engine = sl.serve(model, cfg, "slice_family_serve", card, **extra)
+    if sl.dev.type == "cuda":
+        sl.profile(engine, "slice_family_profile")
+    return launches
+
+
+def phase_family_parity(device="cuda", spec=FAMILY_SPEC, layers=FAMILY_PARITY_LAYERS, **kw):
+    """The family slice's requests at ``layers`` layers (full width): the
+    greedy ones served in bf16, then the f32 parity of
+    :meth:`ServedSlice.parity` with (b) held to ``FAMILY_BF16_GAP_TOL``."""
+    sl = ServedSlice(spec, device, **{**FAMILY_SERVE, **kw}, num_layers=layers)
+    model, cfg = sl.build()
+    results, _, _ = serve_over_http(sl.engine(model, cfg), [sl.bodies[i] for i in sl.greedy_idx],
+                                    sl.max_new, sl.vocab, sl.sync)
+    rec = sl.parity(results, "slice_family_parity", gap_tol=FAMILY_BF16_GAP_TOL, model16=model)
+    zero_launch_counts()
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1195,8 +1455,17 @@ def phase_train_kernels():
         # prompts), head dim 12
         check_flash("randomwalks_ppo", B=64, T=11, S=11, H=12, KV=12, D=12, dtype=dtype,
                     seed=35)
+        # (g) the family slice's train batches (Mistral-7B's GQA 4:1, D 128,
+        # its window of 4096, timed) and the window biting at 64; bloom-560m's
+        # ALiBi over H 16, D 64
+        fam = check_flash("family_train", B=16, T=104, S=104, H=32, KV=8, D=128, dtype=dtype,
+                          seed=36, window=4096, timed=bf)
+        check_flash("family_window_64", B=4, T=104, S=104, H=32, KV=8, D=128, dtype=dtype,
+                    seed=37, window=64)
+        check_flash("bloom_alibi", B=4, T=104, S=104, H=16, KV=16, D=64, dtype=dtype, seed=38,
+                    alibi=True)
         if bf:
-            timed["flash_train"], timed["flash_long"] = a, b
+            timed["flash_train"], timed["flash_long"], timed["flash_family"] = a, b, fam
     for B, R in LOSS_SHAPES:
         for use_iw in (False, True):
             rec = check_loss(B, R, use_iw, seed=B * R + use_iw,
@@ -1210,17 +1479,21 @@ def phase_train_kernels():
 # phase 6: the training slice — PPO on GPT-2 small through trlx.train
 # ---------------------------------------------------------------------------
 
-def phase_slice_train(device="cuda", spec="builtin:gpt2-small", total_steps=12, card=""):
-    """PPO through ``trlx_tpu_torch.trlx.train``; every kernel counter is
-    set to 0 just before and read just after. Returns (trainer, launches)."""
+def phase_slice_train(device="cuda", spec="builtin:gpt2-small", total_steps=12, card="",
+                      phase="slice_train", model_extra_kwargs=None, ckpt="chip_smoke_train"):
+    """PPO through ``trlx_tpu_torch.trlx.train`` (``model_extra_kwargs``
+    into ``model.model_extra_kwargs``); every kernel counter is set to 0
+    just before and read just after. Returns (trainer, launches)."""
     import trlx_tpu_torch
     from trlx_tpu_torch.profile_train import reward_fn, slice_prompts, train_config
 
     dev = torch.device(device)
-    ckpt = os.path.join(ROOT, "build", "chip_smoke_train")
+    ckpt = os.path.join(ROOT, "build", ckpt)
     # total_steps 12, not 8: 64 rollouts / batch 16 × 2 PPO epochs is 8
     # updates per collection, so 8 steps would end before the second one
     config = train_config(ckpt, spec, total_steps)
+    if model_extra_kwargs:
+        config = config.evolve(model=dict(model_extra_kwargs=model_extra_kwargs))
     prompts = slice_prompts()
     start = {}
 
@@ -1248,11 +1521,13 @@ def phase_slice_train(device="cuda", spec="builtin:gpt2-small", total_steps=12, 
     moved_keys = [k for k in end if k not in frozen]
     unchanged = [k for k in frozen if not torch.equal(end[k], start[k])]
     not_moved = [k for k in moved_keys if k.startswith(("backbone.blocks.", "backbone.ln_f",
-                                                        "backbone.wte", "v_head"))
+                                                        "backbone.wte", "backbone.lm_head",
+                                                        "v_head"))
                  and k.endswith("weight") and torch.equal(end[k], start[k])]
     step_ms = [1e3 * st["time/step"] for st in steps]
     tok_s = [st["throughput/tokens_per_sec"] for st in steps]
-    rec = {"phase": "slice_train", "model": spec, "dtype": str(trainer.tcfg.dtype).split(".")[-1],
+    rec = {"phase": phase, "model": spec, "model_extra_kwargs": model_extra_kwargs,
+           "dtype": str(trainer.tcfg.dtype).split(".")[-1],
            "num_layers_unfrozen": 2, "seq_length": 104, "batch_size": 16,
            "ppo_epochs": 2, "num_rollouts": 64, "chunk_size": 32, "max_new_tokens": 40,
            "optimizer_steps": len(steps), "rollout_collections": len(collections),
@@ -1281,7 +1556,7 @@ def phase_slice_train(device="cuda", spec="builtin:gpt2-small", total_steps=12, 
         problems.append(f"a kernel of the path never launched: {launches}")
     emit({**rec, "ok": not problems})
     if problems:
-        raise AssertionError(f"slice_train: {problems}")
+        raise AssertionError(f"{phase}: {problems}")
     return trainer, launches
 
 
@@ -1361,9 +1636,11 @@ def card_cpu_backward(trainer, build, batch, card, relu=None):
         for key, dev in (("card", torch.device(card)), ("cpu", torch.device("cpu"))):
             if relu is not None:
                 relu.recording = key == "card"
-            m = build(cfg32)
+            with torch.device("meta"):  # no default init: every tensor comes from state
+                m = build(cfg32)
+            m = m.to_empty(device=dev)
             m.load_state_dict(state)
-            m = m.to(dev).requires_grad_(True)
+            m.requires_grad_(True)
             trainer.model, trainer.device = m, dev
             trainer._drop_batch_memo()
             zero_launch_counts()
@@ -1445,14 +1722,15 @@ def compare_card_cpu(results, card, kernels, stat_atol=None):
     return problems, rec
 
 
-def phase_slice_train_parity(trainer, card="cuda"):
-    """One collated batch of the run's store through ``loss_fn`` and
-    backward: on the card in f32 through the kernels (TF32 off), and on a
-    CPU copy of the same f32 model through the plain versions, the value
-    head's ReLU taking the card's branches (:class:`CardReluBranches`)."""
+def phase_slice_train_parity(trainer, card="cuda", phase="slice_train_parity", rows=None):
+    """One collated batch of the run's store (``rows`` rows, the train
+    batch size by default) through ``loss_fn`` and backward: on the card
+    in f32 through the kernels (TF32 off), and on a CPU copy of the same
+    f32 model through the plain versions, the value head's ReLU taking the
+    card's branches (:class:`CardReluBranches`)."""
     from trlx_tpu_torch.models.heads import CausalLMWithValueHead
 
-    batch = next(iter(trainer.store.create_loader(trainer.config.train.batch_size)))
+    batch = next(iter(trainer.store.create_loader(rows or trainer.config.train.batch_size)))
     relu = CardReluBranches()
     results = card_cpu_backward(trainer, CausalLMWithValueHead, batch, card, relu)
     n = float(np.asarray(batch.response_mask).sum())
@@ -1461,16 +1739,35 @@ def phase_slice_train_parity(trainer, card="cuda"):
         results, card, TRAIN_KERNELS,
         stat_atol=lambda k: 1.5 / n if k.endswith("clipfrac") else PARITY_STAT_ATOL)
     problems = relu.problems() + problems
-    rec = {"phase": "slice_train_parity", "batch": list(np.asarray(batch.query_tensors).shape)
+    rec = {"phase": phase, "batch": list(np.asarray(batch.query_tensors).shape)
            + [int(np.asarray(batch.response_tensors).shape[1])], **fields,
            "relu_branches_from_card": relu.taken, "relu_pre_max_there": relu.taken_pre_max,
            "relu_masks_replayed": relu.replayed,
            "relu_kink_bounds": [RELU_KINK_MAX, RELU_KINK_ATOL]}
     emit({**rec, "ok": not problems})
     if problems:
-        raise AssertionError(f"slice_train_parity: {problems}")
+        raise AssertionError(f"{phase}: {problems}")
     zero_launch_counts()
     return rec
+
+
+def phase_family_train(device="cuda", spec=FAMILY_SPEC, layers=FAMILY_TRAIN_LAYERS, card="",
+                       parity_rows=2):
+    """``slice_train``'s PPO run on the family slice's spec at ``layers``
+    layers (full width, ``num_layers_unfrozen`` 2: the hydra branch
+    replays the top two blocks with rotary positions), then one batch of
+    ``parity_rows`` rows held card against CPU in f32 (the CPU pass of a
+    1.1B-parameter model is what bounds the rows). The run's final
+    checkpoint (~10 GB) is removed. Returns the launches."""
+    import shutil
+
+    name = "chip_smoke_family_train"
+    trainer, launches = phase_slice_train(device, spec, card=card, phase="slice_family_train",
+                                          model_extra_kwargs={"num_layers": layers}, ckpt=name)
+    shutil.rmtree(os.path.join(ROOT, "build", name), ignore_errors=True)
+    phase_slice_train_parity(trainer, card=device, phase="slice_family_train_parity",
+                             rows=parity_rows)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2040,25 +2337,44 @@ def main():
         return 1
     from trlx_tpu_torch.ops import kernel_utils  # noqa: F401 — needs the repo
 
-    smi = phase_device()
-    phase_build()
-    timed = phase_kernels()
-    timed_train = phase_train_kernels()
-    serve_launches = phase_slice(card=smi)
-    trainer, train_launches = phase_slice_train(card=smi)
-    phase_slice_train_parity(trainer)
+    seconds = {}
+
+    def clocked(fn, *args, **kw):
+        """``fn(*args, **kw)``, its wall seconds kept under its name."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        name = fn.__name__.removeprefix("phase_")
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    smi = clocked(phase_device)
+    clocked(phase_build)
+    timed = clocked(phase_kernels)
+    timed_train = clocked(phase_train_kernels)
+    serve_launches = clocked(phase_slice, card=smi)
+    trainer, train_launches = clocked(phase_slice_train, card=smi)
+    clocked(phase_slice_train_parity, trainer)
     del trainer
-    spec_launches = phase_slice_spec(card=smi)
-    phase_slice_spec_parity(card=smi)
-    sft, sft_launches = phase_slice_sft(card=smi)
-    ilql, ilql_launches = phase_slice_ilql(card=smi)
-    phase_slice_offline_parity(sft, ilql)
+    spec_launches = clocked(phase_slice_spec, card=smi)
+    clocked(phase_slice_spec_parity, card=smi)
+    sft, sft_launches = clocked(phase_slice_sft, card=smi)
+    ilql, ilql_launches = clocked(phase_slice_ilql, card=smi)
+    clocked(phase_slice_offline_parity, sft, ilql)
     del sft, ilql
-    randomwalks = phase_slice_randomwalks(card=smi)
-    # the served run counts the engine's kernels; nothing else launches there
-    by_path = {"serve": {**{k: 0 for k in REPLACES}, **serve_launches}, "train": train_launches,
+    randomwalks = clocked(phase_slice_randomwalks, card=smi)
+    torch.cuda.empty_cache()
+    family_serve = clocked(phase_family_serve, card=smi)
+    torch.cuda.empty_cache()
+    clocked(phase_family_parity)
+    torch.cuda.empty_cache()
+    family_train = clocked(phase_family_train, card=smi)
+    emit({"phase": "phase_seconds", **seconds, "total": sum(seconds.values())})
+    # a served run counts the engine's kernels; nothing else launches there
+    served = {k: 0 for k in REPLACES}
+    by_path = {"serve": {**served, **serve_launches}, "train": train_launches,
                "spec": spec_launches, "sft": sft_launches, "ilql": ilql_launches,
-               "randomwalks_ppo": randomwalks["ppo"], "randomwalks_ilql": randomwalks["ilql"]}
+               "randomwalks_ppo": randomwalks["ppo"], "randomwalks_ilql": randomwalks["ilql"],
+               "family_serve": {**served, **family_serve}, "family_train": family_train}
     kernels = [kernel_record(name, serve_launches[name], timed[name]["max_abs_err"], timed[name],
                              by_path)
                for name in SERVE_KERNELS]

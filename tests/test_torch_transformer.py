@@ -356,10 +356,12 @@ def test_builder_is_seeded_and_validates():
     assert float(a.blocks[0].ln_attn.weight.min()) == 1.0
     assert float(a.blocks[0].attn.q_proj.bias.abs().max()) == 0.0
     assert config_from_spec("builtin:gpt2-small").hidden_size == 768
-    with pytest.raises(ValueError, match="unported"):
-        config_from_spec("builtin:llama-test")
-    with pytest.raises(ValueError, match="GPT-2 family"):
-        TransformerConfig.gpt2("test", norm="rmsnorm")
+    with pytest.raises(ValueError, match="MoE"):
+        config_from_spec("builtin:mixtral-test")
+    with pytest.raises(ValueError, match="unknown model family"):
+        config_from_spec("builtin:t5-test")
+    with pytest.raises(ValueError, match="norm='batchnorm'"):
+        TransformerConfig.gpt2("test", norm="batchnorm")
     with pytest.raises(ValueError, match="value-head policy"):
         build_causal_lm("builtin:gpt2-test", device="cpu", head="reward")
     policy, _ = build_causal_lm("builtin:gpt2-test", seed=3, device="cpu", head="value")

@@ -6,16 +6,21 @@ paths need:
 - :func:`build_causal_lm`: a backbone (``head=None``), the policy with a
   value head (``head="value"``) or with the ILQL heads (``head="ilql"``,
   the target heads starting as copies of the Q heads), randomly
-  initialised from a seed (no download). Initialisation runs on the CPU from a seeded
-  ``torch.Generator`` and the model then moves to the device, so one seed
-  gives the same weights on every device;
+  initialised from a seed (no download). The model is constructed on the
+  ``meta`` device (no storage, no default init) and materialised on the
+  target device; each tensor's draws then come from a seeded CPU
+  ``torch.Generator`` in registration order and are copied over one at a
+  time (``transformer.seeded_init_``), so one seed gives the same weights
+  on every device and a 7B model never sits in host memory whole;
 - :func:`hydra_ref_params`: the frozen hydra reference — copies of the top
-  ``num_layers_unfrozen`` blocks, the final norm and the tied embedding;
+  ``num_layers_unfrozen`` blocks, the final norm and the lm head (the tied
+  embedding or the untied ``lm_head``);
 - :func:`trainable_mask`: which parameters train. The JAX semantics: with
   ``num_layers_unfrozen = k > 0`` only the top ``k`` blocks train among the
   blocks, while every non-block backbone entry (``wte``, ``wpe``,
-  ``ln_f``) and the heads train — except the ILQL target-Q heads, which
-  never do (the JAX ``_mask_heads``); ``-1`` trains everything else.
+  ``emb_ln``, ``ln_f``, an untied ``lm_head``) and the heads train —
+  except the ILQL target-Q heads, which never do (the JAX
+  ``_mask_heads``); ``-1`` trains everything else.
 """
 
 from typing import Dict, Optional, Tuple, Union
@@ -54,10 +59,11 @@ def build_causal_lm(
                          "policy or the ILQL policy (None | 'value' | 'ilql')")
     device = resolve_device(device)
     cfg = config_from_spec(model_path, **overrides)
-    model = heads[head](cfg)
-    gen = torch.Generator().manual_seed(int(seed))
-    model.reset_parameters(gen)
-    return model.to(device).eval().requires_grad_(False), cfg
+    with torch.device("meta"):  # no storage and no default init
+        model = heads[head](cfg)
+    model = model.to_empty(device=device)
+    model.reset_parameters(torch.Generator().manual_seed(int(seed)))
+    return model.eval().requires_grad_(False), cfg
 
 
 def _backbone(model: nn.Module) -> CausalTransformer:
@@ -68,8 +74,8 @@ def hydra_ref_params(
     model: nn.Module, tcfg: TransformerConfig, num_layers_unfrozen: int
 ) -> HydraBranch:
     """Frozen copy of the reference branch: the top ``num_layers_unfrozen``
-    blocks + final norm + lm head (tied embedding), on the model's device,
-    gradients off."""
+    blocks + final norm + lm head (tied embedding or untied ``lm_head``), on
+    the model's device, gradients off."""
     backbone = _backbone(model)
     start = tcfg.num_layers - num_layers_unfrozen
     ref = HydraBranch(tcfg, list(range(start, tcfg.num_layers)))
@@ -97,5 +103,5 @@ def trainable_mask(
                 layer >= tcfg.num_layers - num_layers_unfrozen
             )
         else:
-            mask[name] = True  # wte, wpe, ln_f (and an untied lm_head)
+            mask[name] = True  # wte, wpe, emb_ln, ln_f, an untied lm_head
     return mask

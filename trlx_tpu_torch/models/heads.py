@@ -21,20 +21,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from trlx_tpu_torch.models.transformer import CausalTransformer, TransformerConfig, _linear
+from trlx_tpu_torch.models.transformer import (
+    CausalTransformer,
+    TransformerConfig,
+    _linear,
+    seeded_init_,
+)
 
 __all__ = ["MLPHead", "CausalLMWithValueHead", "ILQLHeadsModule", "CausalLMWithILQLHeads",
            "sync_target_q_params"]
-
-
-def _reset_heads(module: nn.Module, generator: Optional[torch.Generator]) -> None:
-    """The JAX head initialisers: normal(0.02) kernels, zero biases."""
-    with torch.no_grad():
-        for name, p in module.named_parameters():
-            if name.endswith("bias"):
-                p.zero_()
-            else:
-                p.normal_(0.0, 0.02, generator=generator)
 
 
 class MLPHead(nn.Module):
@@ -66,7 +61,7 @@ class CausalLMWithValueHead(nn.Module):
         """The JAX initialisers: the backbone's, and normal(0.02) kernels with
         zero biases for the head."""
         self.backbone.reset_parameters(generator)
-        _reset_heads(self.v_head, generator)
+        seeded_init_(self.v_head, generator)
 
     def forward(
         self,
@@ -131,7 +126,7 @@ class CausalLMWithILQLHeads(nn.Module):
         """The JAX initialisers, then the target heads set to copies of the
         Q heads (``sync_target_q_params`` at alpha 1)."""
         self.backbone.reset_parameters(generator)
-        _reset_heads(self.ilql_heads, generator)
+        seeded_init_(self.ilql_heads, generator)
         sync_target_q_params(self, alpha=1.0)
 
     def forward(

@@ -1,10 +1,14 @@
-"""Causal transformer backbone in PyTorch (GPT-2 family).
+"""Causal transformer backbone in PyTorch (the dense families).
 
 Port of ``trlx_tpu/models/transformer.py``: :class:`TransformerConfig`
-(the fields and GPT-2 presets this path reads), :class:`CausalTransformer`,
-:class:`Block`, :class:`MLP`, :class:`Attention`, the additive ``-1e9``
-attention bias (``CausalTransformer._attention_bias``) and
-:func:`make_kv_cache`.
+with the presets of the dense families (gpt2, llama, mistral, gptj,
+gptneox/pythia, opt, bloom; the MoE family mixtral raises), rotary
+(:func:`rotary_sin_cos`, :func:`apply_rotary`, neox and gptj styles,
+partial ``rotary_dim``) and ALiBi (:func:`alibi_slopes`) positions,
+LayerNorm and RMSNorm, the gelu/silu (gated)/relu MLPs, sequential and
+parallel residual blocks, :class:`CausalTransformer`, the additive
+``-1e9`` attention bias with its window and ALiBi terms
+(:func:`attention_bias`) and :func:`make_kv_cache`.
 
 Numerics follow the JAX module: parameters are kept in ``param_dtype``
 (f32 master weights) and cast to the compute ``dtype`` (bf16 by default)
@@ -17,8 +21,9 @@ Attention has three branches:
   ``cache_index``, when :meth:`TransformerConfig.resolved_attention_impl`
   says so — the JAX ``use_flash`` rule): the flash-attention forward and
   backward kernels (``ops/flash_attention.py``) with the same masking
-  semantics as the bias (slot-causal + key validity), resolved inside the
-  kernel — no ``[B, 1, T, S]`` bias exists. This is the scoring and
+  semantics as the bias (slot-causal + key validity + the window, ALiBi
+  from true token positions), resolved inside the kernel — no
+  ``[B, 1, T, S]`` bias exists. This is the scoring and
   training path, and a dense-cache prefill (the span's K/V are written
   into the cache first, then the queries at slots ``[ci, ci + T)`` attend
   over the whole ``S``-wide cache);
@@ -38,6 +43,10 @@ Attention has three branches:
   per row at per-row depths) the paged-verify entry. The pool is updated
   in place.
 
+Rotary positions rotate q and k before the cache write, on every branch;
+a forward computes its ``(sin, cos)`` tables once and every layer shares
+them.
+
 The PPO path adds the hydra branch: ``forward(branch_layer=k)`` returns the
 activations entering the top ``k`` blocks as ``branch_input``, and
 :meth:`CausalTransformer.forward_branch` (or a frozen :class:`HydraBranch`
@@ -46,14 +55,25 @@ copy of those blocks) replays the top of the model from them.
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from functools import partial
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 __all__ = [
     "TransformerConfig",
+    "BUILTIN_SPECS",
+    "RMSNorm",
+    "LayerNorm",
+    "rotary_sin_cos",
+    "apply_rotary",
+    "alibi_slopes",
+    "attention_bias",
+    "get_activation",
+    "seeded_init_",
     "Attention",
     "MLP",
     "Block",
@@ -66,7 +86,8 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """Architecture of a decoder-only transformer (GPT-2 family)."""
+    """Architecture of a dense decoder-only transformer (the GPT-2, llama,
+    mistral, gptj, gptneox, opt and bloom families)."""
 
     vocab_size: int
     hidden_size: int
@@ -77,16 +98,27 @@ class TransformerConfig:
     num_kv_heads: Optional[int] = None  # < num_heads → grouped-query attention
     head_dim: Optional[int] = None
     model_type: Optional[str] = None
-    position_scheme: str = "learned"
-    pos_offset: int = 0
-    norm: str = "layernorm"
+    position_scheme: str = "learned"  # learned | rotary | alibi
+    pos_offset: int = 0  # OPT stores positions with an offset of 2
+    rotary_dim: Optional[int] = None  # partial rotary (gptj/neox); None = full
+    rope_theta: float = 10000.0
+    # sliding-window attention (mistral): each query sees the last
+    # ``sliding_window`` slots. Padding is left-only, so slot distance is
+    # position distance and every path enforces the window on slots
+    sliding_window: Optional[int] = None
+    norm: str = "layernorm"  # layernorm | rmsnorm
     layer_norm_epsilon: float = 1e-5
-    activation: str = "gelu_new"
+    activation: str = "gelu_new"  # gelu_new | gelu | silu (gated MLP) | relu
+    parallel_residual: bool = False  # gptj/neox: x + attn(ln(x)) + mlp(ln'(x))
+    shared_ln: bool = False  # gptj: one norm feeds both attention and MLP
     attn_bias: bool = True
     mlp_bias: bool = True
     qkv_bias: Optional[bool] = None  # overrides attn_bias for q/k/v if set
     tie_word_embeddings: bool = True
     final_norm: bool = True
+    embedding_layernorm: bool = False  # bloom: a norm after the word embedding
+    lm_head_bias: bool = False  # gptj: a bias on the untied lm head
+    num_experts: int = 0  # mixture-of-experts MLP (mixtral): not ported
     param_dtype: torch.dtype = torch.float32
     dtype: torch.dtype = torch.bfloat16  # activation/compute dtype
     # attention implementation of full passes: "auto" (the flash kernels for
@@ -97,20 +129,20 @@ class TransformerConfig:
     attention_impl: str = "auto"
 
     def __post_init__(self):
-        unsupported = {
-            "position_scheme": (self.position_scheme, "learned"),
-            "norm": (self.norm, "layernorm"),
-            "activation": (self.activation, "gelu_new"),
+        allowed = {
+            "position_scheme": ("learned", "rotary", "alibi"),
+            "norm": ("layernorm", "rmsnorm"),
+            "activation": tuple(_ACTIVATIONS),
+            "attention_impl": ("auto", "xla", "pallas"),
         }
-        for field, (got, want) in unsupported.items():
-            if got != want:
-                raise ValueError(
-                    f"{field}={got!r}: the port supports the GPT-2 family "
-                    f"({field}={want!r}) so far"
-                )
-        if self.attention_impl not in ("auto", "xla", "pallas"):
+        for field, values in allowed.items():
+            got = getattr(self, field)
+            if got not in values:
+                raise ValueError(f"{field}={got!r} ({' | '.join(values)})")
+        if self.num_experts > 0:
             raise ValueError(
-                f"attention_impl={self.attention_impl!r} (auto | xla | pallas)"
+                f"num_experts={self.num_experts}: the mixture-of-experts (MoE) MLP "
+                "is not ported yet; the port builds the dense families"
             )
 
     def resolved_attention_impl(self, device: Optional[torch.device] = None) -> str:
@@ -135,6 +167,14 @@ class TransformerConfig:
     def dims_per_head(self) -> int:
         return self.head_dim or self.hidden_size // self.num_heads
 
+    @property
+    def neox_rotary(self) -> bool:
+        """Rotary on split halves (llama/neox) rather than interleaved
+        pairs (gptj): the JAX rule."""
+        return self.norm == "rmsnorm" or not self.shared_ln
+
+    # ---- family presets (the JAX package's, sizes per the model cards) ----
+
     @staticmethod
     def gpt2(size: str = "small", **overrides) -> "TransformerConfig":
         dims = {
@@ -144,9 +184,95 @@ class TransformerConfig:
             "large": dict(vocab_size=50257, hidden_size=1280, num_layers=36, num_heads=20, intermediate_size=5120, max_position_embeddings=1024),
             "xl": dict(vocab_size=50257, hidden_size=1600, num_layers=48, num_heads=25, intermediate_size=6400, max_position_embeddings=1024),
         }[size]
-        base = {**dims, "model_type": "gpt2"}
-        base.update(overrides)
-        return TransformerConfig(**base)
+        return _make_preset(dims, overrides, model_type="gpt2", position_scheme="learned",
+                            norm="layernorm", activation="gelu_new", tie_word_embeddings=True)
+
+    @staticmethod
+    def llama(size: str = "7b", **overrides) -> "TransformerConfig":
+        dims = {
+            "test": dict(vocab_size=259, hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2, intermediate_size=128, max_position_embeddings=128),
+            "7b": dict(vocab_size=32000, hidden_size=4096, num_layers=32, num_heads=32, intermediate_size=11008, max_position_embeddings=2048),
+            "13b": dict(vocab_size=32000, hidden_size=5120, num_layers=40, num_heads=40, intermediate_size=13824, max_position_embeddings=2048),
+            "65b": dict(vocab_size=32000, hidden_size=8192, num_layers=80, num_heads=64, intermediate_size=22016, max_position_embeddings=2048),
+        }[size]
+        return _make_preset(dims, overrides, model_type="llama", position_scheme="rotary",
+                            norm="rmsnorm", layer_norm_epsilon=1e-6, activation="silu",
+                            attn_bias=False, mlp_bias=False, tie_word_embeddings=False)
+
+    @staticmethod
+    def mistral(size: str = "7b", **overrides) -> "TransformerConfig":
+        dims = {
+            "test": dict(vocab_size=259, hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2, intermediate_size=128, max_position_embeddings=128, sliding_window=8),
+            "7b": dict(vocab_size=32000, hidden_size=4096, num_layers=32, num_heads=32, num_kv_heads=8, intermediate_size=14336, max_position_embeddings=32768, sliding_window=4096),
+        }[size]
+        return _make_preset(dims, overrides, model_type="mistral", position_scheme="rotary",
+                            norm="rmsnorm", layer_norm_epsilon=1e-5, activation="silu",
+                            attn_bias=False, mlp_bias=False, tie_word_embeddings=False)
+
+    @staticmethod
+    def gptj(size: str = "6b", **overrides) -> "TransformerConfig":
+        dims = {
+            "test": dict(vocab_size=259, hidden_size=64, num_layers=2, num_heads=4, intermediate_size=256, max_position_embeddings=128),
+            "6b": dict(vocab_size=50400, hidden_size=4096, num_layers=28, num_heads=16, intermediate_size=16384, max_position_embeddings=2048),
+        }[size]
+        return _make_preset(dims, overrides, model_type="gptj", position_scheme="rotary",
+                            rotary_dim=64 if size != "test" else 8, norm="layernorm",
+                            activation="gelu_new", parallel_residual=True, shared_ln=True,
+                            attn_bias=False, qkv_bias=False, mlp_bias=True,
+                            tie_word_embeddings=False, lm_head_bias=True)
+
+    @staticmethod
+    def gptneox(size: str = "160m", **overrides) -> "TransformerConfig":
+        dims = {
+            "test": dict(vocab_size=259, hidden_size=64, num_layers=2, num_heads=4, intermediate_size=256, max_position_embeddings=128),
+            "160m": dict(vocab_size=50304, hidden_size=768, num_layers=12, num_heads=12, intermediate_size=3072, max_position_embeddings=2048),
+            "1.4b": dict(vocab_size=50304, hidden_size=2048, num_layers=24, num_heads=16, intermediate_size=8192, max_position_embeddings=2048),
+            "6.9b": dict(vocab_size=50432, hidden_size=4096, num_layers=32, num_heads=32, intermediate_size=16384, max_position_embeddings=2048),
+            "20b": dict(vocab_size=50432, hidden_size=6144, num_layers=44, num_heads=64, intermediate_size=24576, max_position_embeddings=2048),
+        }[size]
+        rotary_dim = (dims["hidden_size"] // dims["num_heads"]) // 4 if size != "test" else 4
+        return _make_preset(dims, overrides, model_type="gpt_neox", position_scheme="rotary",
+                            rotary_dim=rotary_dim, norm="layernorm", activation="gelu",
+                            parallel_residual=True, shared_ln=False, attn_bias=True,
+                            mlp_bias=True, tie_word_embeddings=False)
+
+    @staticmethod
+    def opt(size: str = "125m", **overrides) -> "TransformerConfig":
+        dims = {
+            "test": dict(vocab_size=259, hidden_size=64, num_layers=2, num_heads=4, intermediate_size=256, max_position_embeddings=128),
+            "125m": dict(vocab_size=50272, hidden_size=768, num_layers=12, num_heads=12, intermediate_size=3072, max_position_embeddings=2048),
+            "6.7b": dict(vocab_size=50272, hidden_size=4096, num_layers=32, num_heads=32, intermediate_size=16384, max_position_embeddings=2048),
+        }[size]
+        return _make_preset(dims, overrides, model_type="opt", position_scheme="learned",
+                            pos_offset=2, norm="layernorm", activation="relu",
+                            tie_word_embeddings=True)
+
+    @staticmethod
+    def bloom(size: str = "560m", **overrides) -> "TransformerConfig":
+        dims = {
+            "test": dict(vocab_size=259, hidden_size=64, num_layers=2, num_heads=4, intermediate_size=256, max_position_embeddings=128),
+            "560m": dict(vocab_size=250880, hidden_size=1024, num_layers=24, num_heads=16, intermediate_size=4096, max_position_embeddings=2048),
+        }[size]
+        return _make_preset(dims, overrides, model_type="bloom", position_scheme="alibi",
+                            norm="layernorm", activation="gelu", embedding_layernorm=True,
+                            tie_word_embeddings=True)
+
+
+def _make_preset(dims: dict, overrides: dict, **flags) -> TransformerConfig:
+    """Dims + family flags, ``overrides`` replacing any field."""
+    return TransformerConfig(**{**dims, **flags, **overrides})
+
+
+BUILTIN_SPECS = {
+    "gpt2": TransformerConfig.gpt2,
+    "llama": TransformerConfig.llama,
+    "mistral": TransformerConfig.mistral,
+    "gptj": TransformerConfig.gptj,
+    "gptneox": TransformerConfig.gptneox,
+    "pythia": TransformerConfig.gptneox,
+    "opt": TransformerConfig.opt,
+    "bloom": TransformerConfig.bloom,
+}
 
 
 def config_from_spec(spec: str, **overrides) -> TransformerConfig:
@@ -154,11 +280,104 @@ def config_from_spec(spec: str, **overrides) -> TransformerConfig:
     if spec.startswith("builtin:"):
         spec = spec.split(":", 1)[1]
     family, _, size = spec.partition("-")
-    if family != "gpt2":
-        raise ValueError(
-            f"unknown or unported model family {family!r}: the port has gpt2"
-        )
-    return TransformerConfig.gpt2(size or "test", **overrides)
+    if family == "mixtral":
+        raise ValueError("mixtral: the mixture-of-experts (MoE) MLP is not ported yet; "
+                         f"the port builds the dense families {sorted(BUILTIN_SPECS)}")
+    if family not in BUILTIN_SPECS:
+        raise ValueError(f"unknown model family {family!r}: known {sorted(BUILTIN_SPECS)}")
+    return BUILTIN_SPECS[family](size or "test", **overrides)
+
+
+_ACTIVATIONS = {
+    "gelu_new": partial(F.gelu, approximate="tanh"),
+    "gelu": partial(F.gelu, approximate="none"),
+    "silu": F.silu,
+    "relu": F.relu,
+}
+
+
+def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    return _ACTIVATIONS[name]
+
+
+# ---------------------------------------------------------------------------
+# positional encodings
+# ---------------------------------------------------------------------------
+
+
+def rotary_sin_cos(positions: torch.Tensor, dim: int, theta: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 sin/cos tables for RoPE at integer ``positions`` [B, T] →
+    [B, T, dim/2]."""
+    exponent = torch.arange(0, dim, 2, dtype=torch.float32, device=positions.device) / dim
+    inv_freq = 1.0 / (theta ** exponent)
+    freqs = positions[..., None].to(torch.float32) * inv_freq
+    return torch.sin(freqs), torch.cos(freqs)
+
+
+def apply_rotary(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor, rotary_dim: int,
+                 neox_style: bool) -> torch.Tensor:
+    """RoPE on the first ``rotary_dim`` dims of ``x`` [B, T, H, D]: split
+    halves with ``neox_style`` (llama/neox), interleaved pairs otherwise
+    (gptj). The rotation runs in f32 (the tables' type, as JAX promotes)
+    and the result is cast back to ``x.dtype``."""
+    x_rot, x_pass = x[..., :rotary_dim], x[..., rotary_dim:]
+    sin, cos = sin[:, :, None, :], cos[:, :, None, :]
+    if neox_style:
+        half = rotary_dim // 2
+        x1, x2 = x_rot[..., :half], x_rot[..., half:]
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    else:
+        x1, x2 = x_rot[..., ::2], x_rot[..., 1::2]
+        out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).flatten(-2)
+    return torch.cat([out, x_pass.to(out.dtype)], dim=-1).to(x.dtype)
+
+
+def alibi_slopes(num_heads: int) -> np.ndarray:
+    """ALiBi per-head slopes (Press et al.), the BLOOM recipe: a geometric
+    series for the largest power of two, then every other slope of the
+    next power's series."""
+
+    def pow2_slopes(n):
+        start = 2.0 ** (-(2.0 ** -(np.log2(n) - 3)))
+        return start * (start ** np.arange(n))
+
+    if np.log2(num_heads).is_integer():
+        return pow2_slopes(num_heads)
+    closest = 2 ** int(np.floor(np.log2(num_heads)))
+    base = pow2_slopes(closest)
+    extra = pow2_slopes(2 * closest)[0::2][: num_heads - closest]
+    return np.concatenate([base, extra])
+
+
+def key_positions(key_mask: torch.Tensor) -> torch.Tensor:
+    """[B, S] token positions of key slots: ``cumsum(mask) - 1`` (left
+    padding at 0)."""
+    return torch.clamp(torch.cumsum(key_mask, dim=1) - 1, min=0)
+
+
+def attention_bias(key_mask: torch.Tensor, query_slots: torch.Tensor,
+                   query_positions: Optional[torch.Tensor] = None, *,
+                   window: Optional[int] = None,
+                   slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Additive f32 bias over key slots: slot-causal, key validity and the
+    window on slot distance (0 visible, -1e9 masked), ``[B, 1, T, S]``; with
+    ALiBi ``slopes`` ``[B, H, T, S]``, adding ``slope · (key position −
+    query position)`` on visible pairs (the JAX ``_attention_bias``)."""
+    S = key_mask.shape[1]
+    key_slots = torch.arange(S, device=key_mask.device)[None, None, :]
+    visible = (key_slots <= query_slots[:, :, None]) & (key_mask[:, None, :] > 0)
+    if window:
+        visible = visible & (query_slots[:, :, None] - key_slots < window)
+    visible = visible[:, None]
+    zero = torch.zeros((), dtype=torch.float32, device=key_mask.device)
+    bias = torch.where(visible, zero, torch.full((), -1e9, dtype=torch.float32,
+                                                 device=key_mask.device))
+    if slopes is not None:
+        dist = (key_positions(key_mask)[:, None, :] - query_positions[:, :, None]).float()
+        alibi = slopes.to(key_mask.device, torch.float32)[None, :, None, None] * dist[:, None]
+        bias = bias + torch.where(visible, alibi, zero)
+    return bias
 
 
 def _linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -181,6 +400,26 @@ class LayerNorm(nn.Module):
         y = F.layer_norm(x.float(), (x.shape[-1],), self.weight.float(),
                          self.bias.float(), self.eps)
         return y.to(self.dtype)
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm (a scale, no bias) with f32 statistics and output in the
+    compute dtype: ``x · (rsqrt(mean(x²) + eps) · scale)``, as flax's."""
+
+    def __init__(self, cfg: TransformerConfig):
+        super().__init__()
+        self.eps = cfg.layer_norm_epsilon
+        self.dtype = cfg.dtype
+        self.weight = nn.Parameter(torch.ones(cfg.hidden_size, dtype=cfg.param_dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mul = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + self.eps)
+        return (xf * (mul * self.weight.float())).to(self.dtype)
+
+
+def Norm(cfg: TransformerConfig) -> nn.Module:
+    return RMSNorm(cfg) if cfg.norm == "rmsnorm" else LayerNorm(cfg)
 
 
 class PagedWrite:
@@ -212,7 +451,8 @@ class PagedWrite:
 
 
 class Attention(nn.Module):
-    """Multi-head / grouped-query attention with an explicit KV cache."""
+    """Multi-head / grouped-query attention with rotary or ALiBi positions
+    and an explicit KV cache."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -228,7 +468,8 @@ class Attention(nn.Module):
     def forward(
         self,
         x: torch.Tensor,  # [B, T, E]
-        attention_bias: torch.Tensor,  # [B, 1, T, S] additive f32
+        attention_bias: Optional[torch.Tensor],  # [B, 1 or H, T, S] additive f32
+        rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # rotary (sin, cos)
         cache: Optional[Dict[str, torch.Tensor]] = None,
         cache_index: Any = None,
         paged_write: Optional[PagedWrite] = None,
@@ -241,6 +482,10 @@ class Attention(nn.Module):
         q = _linear(self.q_proj, x, dt).view(B, T, H, D)
         k = _linear(self.k_proj, x, dt).view(B, T, KV, D)
         v = _linear(self.v_proj, x, dt).view(B, T, KV, D)
+        if rope is not None:  # before the cache write, on every branch
+            rdim = cfg.rotary_dim or D
+            q = apply_rotary(q, *rope, rdim, cfg.neox_rotary)
+            k = apply_rotary(k, *rope, rdim, cfg.neox_rotary)
 
         if cache is not None and "block_table" in cache:
             from trlx_tpu_torch.ops.paged_attention import (
@@ -280,8 +525,11 @@ class Attention(nn.Module):
         if flash_args is not None:
             from trlx_tpu_torch.ops.flash_attention import flash_attention
 
-            out = flash_attention(q, k, v, flash_args["key_mask"], causal=True,
-                                  q_offset=flash_args["q_offset"])
+            fa = flash_args
+            out = flash_attention(q, k, v, fa["key_mask"], causal=True, q_offset=fa["q_offset"],
+                                  q_positions=fa.get("q_positions"),
+                                  k_positions=fa.get("k_positions"),
+                                  alibi_slopes=fa.get("alibi_slopes"), window=fa.get("window"))
             return _linear(self.o_proj, out.reshape(B, T, H * D), dt), cache
 
         if KV < H:
@@ -295,34 +543,52 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
+    """``down(act(up(x)))``, or with ``silu`` the gated (llama) form
+    ``down(silu(gate(x)) · up(x))``."""
+
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.dtype = cfg.dtype
+        self.act = get_activation(cfg.activation)
         kw = dict(bias=cfg.mlp_bias, dtype=cfg.param_dtype)
+        self.gated = cfg.activation == "silu"
+        if self.gated:
+            self.gate_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
         self.up_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
         self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.gelu(_linear(self.up_proj, x, self.dtype), approximate="tanh")
+        if self.gated:
+            h = self.act(_linear(self.gate_proj, x, self.dtype)) * _linear(self.up_proj, x,
+                                                                         self.dtype)
+        else:
+            h = self.act(_linear(self.up_proj, x, self.dtype))
         return _linear(self.down_proj, h, self.dtype)
 
 
 class Block(nn.Module):
+    """Pre-norm block: sequential (``x + attn``, then ``+ mlp``) or, with
+    ``parallel_residual``, ``x + attn(ln(x)) + mlp(ln'(x))`` where gptj's
+    ``shared_ln`` feeds both from one norm (no ``ln_mlp``)."""
+
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
-        self.ln_attn = LayerNorm(cfg)
+        self.parallel_residual = cfg.parallel_residual
+        self.ln_attn = Norm(cfg)
         self.attn = Attention(cfg)
-        self.ln_mlp = LayerNorm(cfg)
+        self.ln_mlp = None if cfg.parallel_residual and cfg.shared_ln else Norm(cfg)
         self.mlp = MLP(cfg)
 
-    def forward(self, x, attention_bias, cache=None, cache_index=None, paged_write=None,
-                flash_args=None):
-        attn_out, new_cache = self.attn(
-            self.ln_attn(x), attention_bias, cache, cache_index, paged_write, flash_args
-        )
+    def forward(self, x, attention_bias, rope=None, cache=None, cache_index=None,
+                paged_write=None, flash_args=None):
+        h = self.ln_attn(x)
+        attn_out, new_cache = self.attn(h, attention_bias, rope, cache, cache_index,
+                                        paged_write, flash_args)
+        if self.parallel_residual:
+            mlp_in = h if self.ln_mlp is None else self.ln_mlp(x)
+            return x + attn_out + self.mlp(mlp_in), new_cache
         x = x + attn_out
-        x = x + self.mlp(self.ln_mlp(x))
-        return x, new_cache
+        return x + self.mlp(self.ln_mlp(x)), new_cache
 
 
 def _query_slots(q_offset: Any, B: int, T: int, device) -> torch.Tensor:
@@ -331,6 +597,36 @@ def _query_slots(q_offset: Any, B: int, T: int, device) -> torch.Tensor:
     if off.ndim == 1:
         off = off[:, None]
     return (off + torch.arange(T, device=device)[None, :]).expand(B, T)
+
+
+def _rope(cfg: TransformerConfig, positions: torch.Tensor):
+    """The rotary ``(sin, cos)`` tables of one forward (shared by every
+    layer), or None."""
+    if cfg.position_scheme != "rotary":
+        return None
+    return rotary_sin_cos(positions, cfg.rotary_dim or cfg.dims_per_head, cfg.rope_theta)
+
+
+def attn_inputs(cfg: TransformerConfig, key_mask, query_slots, positions, use_flash,
+                q_offset=0):
+    """``(bias, flash_args)`` for one forward — the single definition of the
+    masking semantics, shared by the full pass, the cached passes and the
+    hydra branch replay (the JAX ``_attn_inputs``). Flash queries sit at
+    slots ``[q_offset, q_offset + T)`` (a scalar); the window and ALiBi go
+    to the kernel, which builds no bias."""
+    alibi = cfg.position_scheme == "alibi"
+    slopes = (torch.tensor(alibi_slopes(cfg.num_heads), dtype=torch.float32,
+                           device=key_mask.device) if alibi else None)
+    if not use_flash:
+        return attention_bias(key_mask, query_slots, positions, window=cfg.sliding_window,
+                              slopes=slopes), None
+    args = {"key_mask": key_mask, "q_offset": int(q_offset)}
+    if cfg.sliding_window:
+        args["window"] = cfg.sliding_window
+    if alibi:
+        args.update(alibi_slopes=slopes, q_positions=positions,
+                    k_positions=key_positions(key_mask))
+    return None, args
 
 
 class CausalTransformer(nn.Module):
@@ -342,47 +638,22 @@ class CausalTransformer(nn.Module):
         self.config = cfg
         E = cfg.hidden_size
         self.wte = nn.Embedding(cfg.vocab_size, E, dtype=cfg.param_dtype)
-        self.wpe = nn.Embedding(cfg.max_position_embeddings + cfg.pos_offset, E,
-                                dtype=cfg.param_dtype)
+        if cfg.position_scheme == "learned":
+            self.wpe = nn.Embedding(cfg.max_position_embeddings + cfg.pos_offset, E,
+                                    dtype=cfg.param_dtype)
+        if cfg.embedding_layernorm:
+            self.emb_ln = Norm(cfg)
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.num_layers))
         if cfg.final_norm:
-            self.ln_f = LayerNorm(cfg)
+            self.ln_f = Norm(cfg)
         if not cfg.tie_word_embeddings:
-            self.lm_head = nn.Linear(E, cfg.vocab_size, bias=False, dtype=cfg.param_dtype)
+            self.lm_head = nn.Linear(E, cfg.vocab_size, bias=cfg.lm_head_bias,
+                                     dtype=cfg.param_dtype)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """The JAX initialisers: normal(0.02) weights and embeddings, zero
         biases, unit norm scales."""
-        for name, p in self.named_parameters():
-            with torch.no_grad():
-                if name.endswith("bias"):
-                    p.zero_()
-                elif ".ln_" in name or name.startswith("ln_f"):
-                    p.fill_(1.0)
-                else:
-                    p.normal_(0.0, 0.02, generator=generator)
-
-    def _attention_bias(self, key_mask: torch.Tensor, query_slots: torch.Tensor):
-        """Additive ``[B, 1, T, S]`` f32 bias over key slots: slot-causal
-        plus key validity (0 visible, -1e9 masked)."""
-        S = key_mask.shape[1]
-        key_slots = torch.arange(S, device=key_mask.device)[None, None, :]
-        visible = (key_slots <= query_slots[:, :, None]) & (key_mask[:, None, :] > 0)
-        bias = torch.where(
-            visible,
-            torch.zeros((), dtype=torch.float32, device=key_mask.device),
-            torch.full((), -1e9, dtype=torch.float32, device=key_mask.device),
-        )
-        return bias[:, None]
-
-    def _attn_inputs(self, key_mask, query_slots, use_flash, q_offset=0):
-        """``(bias, flash_args)`` for one forward — the single definition of
-        the masking semantics, shared by the full pass, the cached passes
-        and the hydra branch replay. Flash queries sit at slots
-        ``[q_offset, q_offset + T)`` (a scalar)."""
-        if use_flash:
-            return None, {"key_mask": key_mask, "q_offset": int(q_offset)}
-        return self._attention_bias(key_mask, query_slots), None
+        seeded_init_(self, generator)
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         dt = self.config.dtype
@@ -393,6 +664,17 @@ class CausalTransformer(nn.Module):
     def project_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """Vocab projection of (already final-normed) hidden states."""
         return self._logits(hidden)
+
+    def _embed(self, input_ids: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """The JAX ``_embed``: the table cast to the compute dtype, then
+        gathered (so the backward accumulates in that dtype, as JAX's)."""
+        cfg = self.config
+        x = self.wte.weight.to(cfg.dtype)[input_ids.to(torch.int64)]
+        if cfg.position_scheme == "learned":
+            x = x + self.wpe.weight.to(cfg.dtype)[positions + cfg.pos_offset]
+        if cfg.embedding_layernorm:
+            x = self.emb_ln(x)
+        return x
 
     def forward(
         self,
@@ -413,13 +695,11 @@ class CausalTransformer(nn.Module):
         offset = cache_index if (cache is not None and cache_index is not None) else 0
         query_slots = _query_slots(offset, B, T, device)
         if positions is None:
-            key_pos = torch.clamp(torch.cumsum(attention_mask, dim=1) - 1, min=0)
+            key_pos = key_positions(attention_mask)
             positions = key_pos if cache is None else key_pos.gather(1, query_slots)
         positions = positions.to(device=device, dtype=torch.int64)
 
-        dt = cfg.dtype
-        x = self.wte.weight.to(dt)[input_ids.to(torch.int64)]
-        x = x + self.wpe.weight.to(dt)[positions + cfg.pos_offset]
+        x = self._embed(input_ids, positions)
         # the JAX rule: flash for every multi-token pass except per-row
         # (vector) cache indices and paged caches, whose kernels consume the
         # additive bias rows
@@ -428,7 +708,9 @@ class CausalTransformer(nn.Module):
             T > 1 and torch.as_tensor(offset).ndim == 0 and not paged
             and cfg.resolved_attention_impl(device) == "pallas"
         )
-        bias, flash_args = self._attn_inputs(attention_mask, query_slots, use_flash, offset)
+        bias, flash_args = attn_inputs(cfg, attention_mask, query_slots, positions, use_flash,
+                                       offset)
+        rope = _rope(cfg, positions)
 
         paged_write = None
         if paged:
@@ -441,7 +723,7 @@ class CausalTransformer(nn.Module):
             if branch_layer is not None and i == len(self.blocks) - branch_layer:
                 branch_input = x
             layer_cache = cache[i] if cache is not None else None
-            x, updated = block(x, bias, layer_cache, offset, paged_write, flash_args)
+            x, updated = block(x, bias, rope, layer_cache, offset, paged_write, flash_args)
             if cache is not None:
                 new_cache.append(updated)
 
@@ -459,13 +741,13 @@ class CausalTransformer(nn.Module):
         logits_span: Optional[Tuple[int, int]] = None,
     ) -> Dict[str, Any]:
         """Run the top ``branch_layer`` blocks + final norm + lm head (the
-        JAX ``forward_branch``; GPT-2's learned positions entered at the
-        embedding, so ``positions`` is unused)."""
+        JAX ``forward_branch``): rotary positions are ``cumsum(mask) - 1``
+        unless given."""
         blocks = list(self.blocks)[len(self.blocks) - branch_layer:]
-        return _run_branch(self, blocks, hidden_states, attention_mask, logits_span)
+        return _run_branch(self, blocks, hidden_states, attention_mask, positions, logits_span)
 
 
-def _run_branch(owner, blocks, hidden_states, attention_mask, logits_span):
+def _run_branch(owner, blocks, hidden_states, attention_mask, positions, logits_span):
     """Replay ``blocks`` + ``owner``'s final norm and lm head on
     ``hidden_states`` (a full pass: slot-causal over ``attention_mask``)."""
     cfg = owner.config
@@ -474,12 +756,16 @@ def _run_branch(owner, blocks, hidden_states, attention_mask, logits_span):
     if attention_mask is None:
         attention_mask = torch.ones((B, T), dtype=torch.int64, device=device)
     attention_mask = attention_mask.to(device)
+    if positions is None:
+        positions = key_positions(attention_mask)
+    positions = positions.to(device=device, dtype=torch.int64)
     use_flash = T > 1 and cfg.resolved_attention_impl(device) == "pallas"
-    bias, flash_args = CausalTransformer._attn_inputs(
-        owner, attention_mask, _query_slots(0, B, T, device), use_flash)
+    bias, flash_args = attn_inputs(cfg, attention_mask, _query_slots(0, B, T, device),
+                                   positions, use_flash)
+    rope = _rope(cfg, positions)
     x = hidden_states
     for block in blocks:
-        x, _ = block(x, bias, flash_args=flash_args)
+        x, _ = block(x, bias, rope, flash_args=flash_args)
     h = owner.ln_f(x) if cfg.final_norm else x
     logits = owner._logits(h if logits_span is None else h[:, logits_span[0] : logits_span[1]])
     return {"logits": logits, "hidden_states": h}
@@ -488,7 +774,8 @@ def _run_branch(owner, blocks, hidden_states, attention_mask, logits_span):
 class HydraBranch(nn.Module):
     """The frozen hydra reference of a partially unfrozen model: copies of
     the top blocks (named by their layer index, as in the backbone's state
-    dict), the final norm and the (tied) embedding — what
+    dict), the final norm and the lm head (the tied embedding, or the
+    untied ``lm_head``) — what
     ``trlx_tpu/models/builder.py::hydra_ref_params`` keeps."""
 
     def __init__(self, cfg: TransformerConfig, layers: List[int]):
@@ -497,19 +784,37 @@ class HydraBranch(nn.Module):
         self.layers = list(layers)
         self.blocks = nn.ModuleDict({str(i): Block(cfg) for i in self.layers})
         if cfg.final_norm:
-            self.ln_f = LayerNorm(cfg)
+            self.ln_f = Norm(cfg)
         if cfg.tie_word_embeddings:
             self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, dtype=cfg.param_dtype)
         else:
-            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
+            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=cfg.lm_head_bias,
                                      dtype=cfg.param_dtype)
 
-    _attention_bias = CausalTransformer._attention_bias
     _logits = CausalTransformer._logits
 
     def forward(self, hidden_states, attention_mask=None, positions=None, logits_span=None):
         blocks = [self.blocks[str(i)] for i in self.layers]
-        return _run_branch(self, blocks, hidden_states, attention_mask, logits_span)
+        return _run_branch(self, blocks, hidden_states, attention_mask, positions, logits_span)
+
+
+def seeded_init_(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """The JAX initialisers over ``module``'s parameters in registration
+    order: zero biases, unit norm scales, normal(0.02) for the rest. The
+    draws come from the CPU ``generator`` one tensor at a time and are
+    copied to the parameter's device, so one seed gives the same weights on
+    every device and a 7B model never exists on the host whole."""
+    norm_scales = {f"{name}.weight" for name, m in module.named_modules()
+                   if isinstance(m, (LayerNorm, RMSNorm))}
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            elif name in norm_scales:
+                p.fill_(1.0)
+            else:
+                p.copy_(torch.empty(p.shape, dtype=p.dtype).normal_(0.0, 0.02,
+                                                                    generator=generator))
 
 
 def make_kv_cache(

@@ -5,7 +5,11 @@ given as nested dicts of numpy arrays, into the port's ``state_dict``:
 
 - flax ``Dense`` kernels are ``[in, out]``; ``torch.nn.Linear`` weights are
   ``[out, in]`` — every kernel is transposed;
-- tied embeddings: the LM head reuses ``wte`` (no ``lm_head`` entry);
+- tied embeddings: the LM head reuses ``wte`` (no ``lm_head`` entry); an
+  untied ``lm_head`` carries its bias where the family has one (gptj);
+- the families' trees: RMSNorm scales without a bias, the gated MLP's
+  ``gate_proj``, bloom's ``emb_ln``, no ``wpe`` under rotary or ALiBi
+  positions and no ``ln_mlp`` under gptj's shared norm;
 - layers come as ``h_{i}`` subtrees (the unscanned layout). A scanned tree
   (``h_scan/block`` with a leading layer axis, ``stack_layer_params``) is
   sliced back into ``h_{i}`` first, as ``unstack_layer_params`` does;
@@ -17,7 +21,7 @@ given as nested dicts of numpy arrays, into the port's ``state_dict``:
   :class:`~trlx_tpu_torch.models.heads.CausalLMWithILQLHeads`
   (``ilql_heads.<head>.in_proj`` / ``out_proj``);
 - a hydra reference subtree (``builder.py::hydra_ref_params``: the top
-  ``h_{i}``, ``ln_f`` and ``wte``) maps onto
+  ``h_{i}``, ``ln_f`` and ``wte`` or ``lm_head``) maps onto
   :class:`~trlx_tpu_torch.models.transformer.HydraBranch`: only the entries
   present are converted.
 """
@@ -69,21 +73,26 @@ def params_from_jax(np_params: Dict[str, Any], cfg: TransformerConfig) -> Dict[s
         if "bias" in node:
             sd[f"{prefix}.bias"] = t(node["bias"])
 
-    def norm(prefix, node):
+    def norm(prefix, node):  # RMSNorm has a scale alone
         sd[f"{prefix}.weight"] = t(node["scale"])
-        sd[f"{prefix}.bias"] = t(node["bias"])
+        if "bias" in node:
+            sd[f"{prefix}.bias"] = t(node["bias"])
 
+    if "emb_ln" in tree:
+        norm("emb_ln", tree["emb_ln"])
     for i in range(cfg.num_layers):
         if f"h_{i}" not in tree:  # a hydra reference holds the top layers only
             continue
         layer = tree[f"h_{i}"]
         p = f"blocks.{i}"
-        norm(f"{p}.ln_attn", layer["ln_attn"])
-        norm(f"{p}.ln_mlp", layer["ln_mlp"])
+        for ln in ("ln_attn", "ln_mlp"):  # gptj's shared norm has no ln_mlp
+            if ln in layer:
+                norm(f"{p}.{ln}", layer[ln])
         for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
             dense(f"{p}.attn.{proj}", layer["attn"][proj])
-        for proj in ("up_proj", "down_proj"):
-            dense(f"{p}.mlp.{proj}", layer["mlp"][proj])
+        for proj in ("gate_proj", "up_proj", "down_proj"):  # gate: the gated MLP
+            if proj in layer["mlp"]:
+                dense(f"{p}.mlp.{proj}", layer["mlp"][proj])
     if cfg.final_norm:
         norm("ln_f", tree["ln_f"])
     if not cfg.tie_word_embeddings:
