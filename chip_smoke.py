@@ -54,7 +54,27 @@ Phases, each printing one JSON line:
    off, greedy, the speculative engine's answers against the plain
    ``generate`` token for token, and with the draft set to the target's
    own weights an acceptance of exactly 1.0 (``slice_spec_parity``);
-7. the offline slices through ``trlx_tpu_torch.train(samples=...)``: SFT
+7. the serial slice, PPO at the presets' own settings: ``trlx_tpu_torch.
+   train`` on ``default_ppo_config()`` unchanged but for the checkpoint
+   directory, 32 steps (two collections of 128 rollouts in one chunk,
+   batch 32, 4 PPO epochs) and a checkpoint every 16: full-width GPT-2
+   small, 128 prompts of 64 bytes, serial dense rollouts pipelined at
+   depth 2, prefetch 2, the staged loss (``slice_serial``); the same run
+   with the six-layer draft and ``engine.speculative`` 0, the serial
+   speculative sampler (``slice_serial_spec``). Only #5 and #6 may launch
+   there, and both must; the trainable weights must move; each prints step
+   ms, ``time/exp``, rollout tokens/s, ``rollout_overlap_frac`` and the KV
+   gauge, and ``slice_serial`` over one profiled collection the card's
+   busy share and launches per decode step. In f32 with TF32 off (``slice_serial_parity``):
+   (a) a collection's store at depth 0 equals depth 2's element for
+   element; (b) one batch card against CPU (the staged loss); (c) serial
+   greedy answers equal the paged engine's; (d) the serial speculative
+   answers equal the plain ``generate``'s, and a self-draft accepts
+   exactly 1.0; (e) ``grad_accum`` 2 against the mean of 1 on the halves;
+   (f) a run resumed from its step-16 checkpoint against the uninterrupted
+   one (weights within tolerance; ``kl_ctl``, running moments and
+   ``iter_count`` exact);
+8. the offline slices through ``trlx_tpu_torch.train(samples=...)``: SFT
    on ``default_sft_config()`` (GPT-2 small, seq_length 1024, batch 8,
    12 steps; ``slice_sft``) and ILQL on ``default_ilql_config()`` (batch
    128 at seq_length 64, twin Q heads, 12 steps, the target heads synced
@@ -67,22 +87,24 @@ Phases, each printing one JSON line:
    ``generate`` (``slice_offline_parity``). The kernel checks of phase 3
    and 5 hold the flash kernels on right-padded rows at the SFT and ILQL
    shapes and the sampler on hook-shaped f32 logits under top-k;
-8. the acceptance runs on the randomwalks model (head dim 12,
+9. the acceptance runs on the randomwalks model (head dim 12,
    ``slice_randomwalks``): ``tasks/ppo_randomwalks.py`` (SFT warm start,
-   then 160 PPO steps, ``method.chunk_size`` 64: see ``RANDOMWALKS_PPO``)
+   then 160 PPO steps on the example's own settings: serial rollouts at
+   depth 2, the staged loss, chunks of 128; see ``RANDOMWALKS_PPO``)
    must end with a mean optimality of at least 0.9 over its last three
-   evals, ``tasks/ilql_randomwalks.py`` (160 steps)
+   evals, printed beside the continuous path's reading at chunks of 128,
+   ``tasks/ilql_randomwalks.py`` (160 steps)
    must lift its last three evals over its first two by more than 0.1;
-9. the family slice (``FAMILY_SPEC``, Mistral-7B: rotary positions,
+10. the family slice (``FAMILY_SPEC``, Mistral-7B: rotary positions,
    RMSNorm, the gated SiLU MLP, GQA 4:1 at head dim 128, a 4096 window):
    at full width and depth, 16 HTTP requests on 8 slots with 4160-token
    prompts (half cut to 512 tokens, left-padded by the engine), so the
    window bites in prefill (#1) and decode (#2), beside the time of the
    per-call f32 → bf16 weight cast and of the prefill's bias
-   (``slice_family_serve``); the same requests at four layers, greedy,
+   (``slice_family_serve``); the same requests at two layers, greedy,
    under the parity rules of phase 4, the bf16 tokens held to
    ``FAMILY_BF16_GAP_TOL`` (``slice_family_parity``); PPO at
-   four layers through ``trlx_tpu_torch.train`` with the hydra branch
+   two layers through ``trlx_tpu_torch.train`` with the hydra branch
    replaying two rotary blocks, #1–#3 and #5–#8 launching, and two rows
    of one batch held card against CPU (``slice_family_train``,
    ``slice_family_train_parity``). Phases 3 and 5 check the kernels at
@@ -1101,13 +1123,17 @@ def phase_slice(device="cuda", spec="builtin:gpt2-small", slots=8, block_size=16
 # JAX preset's widths) served with prompts that cross its 4096 window
 FAMILY_SPEC = "builtin:mistral-7b"
 FAMILY_SERVE = dict(slots=8, prompt_len=4160, max_new=32, n_requests=16, short_len=512, eos=2)
-FAMILY_PARITY_LAYERS = 4  # two f32 7B copies and the KV pool exceed 80 GB
+# the parity and PPO runs of the family slice at full width, cut in depth:
+# two f32 7B copies and the KV pool exceed 80 GB, Adam over a full-depth 7B
+# exceeds one card, and two layers (not four) keep the script within half
+# its time limit
+FAMILY_PARITY_LAYERS = 2
 # bf16 serving at this width against f32 (parity (b)): the JAX module's own
 # bf16 pass at 4 layers of these widths, on the CPU over 2048 positions
 # (tests/torch_family_bf16_reading.py), trails f32 by up to 0.196, its
 # 99.9th percentile 0.136; the parity reads 256 positions
 FAMILY_BF16_GAP_TOL = 0.15
-FAMILY_TRAIN_LAYERS = 4  # Adam over a full-depth 7B exceeds one card
+FAMILY_TRAIN_LAYERS = 2
 
 
 def phase_family_serve(device="cuda", spec=FAMILY_SPEC, card="", **kw):
@@ -1722,12 +1748,13 @@ def compare_card_cpu(results, card, kernels, stat_atol=None):
     return problems, rec
 
 
-def phase_slice_train_parity(trainer, card="cuda", phase="slice_train_parity", rows=None):
+def phase_slice_train_parity(trainer, card="cuda", phase="slice_train_parity", rows=None,
+                             kernels=TRAIN_KERNELS):
     """One collated batch of the run's store (``rows`` rows, the train
     batch size by default) through ``loss_fn`` and backward: on the card
-    in f32 through the kernels (TF32 off), and on a CPU copy of the same
-    f32 model through the plain versions, the value head's ReLU taking the
-    card's branches (:class:`CardReluBranches`)."""
+    in f32 through the kernels (TF32 off; each of ``kernels`` must launch),
+    and on a CPU copy of the same f32 model through the plain versions, the
+    value head's ReLU taking the card's branches (:class:`CardReluBranches`)."""
     from trlx_tpu_torch.models.heads import CausalLMWithValueHead
 
     batch = next(iter(trainer.store.create_loader(rows or trainer.config.train.batch_size)))
@@ -1736,7 +1763,7 @@ def phase_slice_train_parity(trainer, card="cuda", phase="slice_train_parity", r
     n = float(np.asarray(batch.response_mask).sum())
     # a ratio within rounding of a clip bound may flip one token
     problems, fields = compare_card_cpu(
-        results, card, TRAIN_KERNELS,
+        results, card, kernels,
         stat_atol=lambda k: 1.5 / n if k.endswith("clipfrac") else PARITY_STAT_ATOL)
     problems = relu.problems() + problems
     rec = {"phase": phase, "batch": list(np.asarray(batch.query_tensors).shape)
@@ -1926,6 +1953,429 @@ def phase_slice_spec_parity(device="cuda", spec="builtin:gpt2-small",
     emit({**rec, "ok": not problems})
     if problems:
         raise AssertionError(f"slice_spec_parity: {problems}")
+    zero_launch_counts()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# the serial slice — PPO at the presets' own settings
+# ---------------------------------------------------------------------------
+
+# the preset path's kernels: the flash forward (dense-cache prefill, scoring,
+# train forward) and backward; every other kernel must stay idle there
+SERIAL_KERNELS = ("flash_fwd", "flash_bwd")
+SERIAL_IDLE = tuple(k for k in REPLACES if k not in SERIAL_KERNELS)
+# two collections of 128 rollouts (batch 32, 4 PPO epochs: 16 steps each)
+SERIAL_STEPS, SERIAL_CHECKPOINT, SERIAL_PROMPTS = 32, 16, 128
+
+
+def serial_config(ckpt, spec="builtin:gpt2-small", total_steps=SERIAL_STEPS,
+                  checkpoint_interval=SERIAL_CHECKPOINT, **sections):
+    """``default_ppo_config()`` as it stands but for ``checkpoint_dir``,
+    ``total_steps``, ``checkpoint_interval`` and the model spec (the
+    preset's own on the card); ``sections`` evolve it further."""
+    from trlx_tpu_torch.data.default_configs import default_ppo_config
+
+    config = default_ppo_config().evolve(
+        train=dict(checkpoint_dir=ckpt, total_steps=total_steps,
+                   checkpoint_interval=checkpoint_interval),
+        model=dict(model_path=spec))
+    return config.evolve(**sections) if sections else config
+
+
+def trained_keys(trainer):
+    """The policy's trainable weight tensors (``param_mask``), by name."""
+    return [k for k, on in trainer.param_mask.items() if on and k.endswith("weight")]
+
+
+def profile_collection(trainer, prompts, n_rows):
+    """One serial dense generate of ``n_rows`` prompts and its scoring
+    forward under ``torch.profiler`` (after one warm-up call): wall ms, the
+    card's busy share (the union of the device kernels' intervals over the
+    wall time), device launches and the decode steps, and per decode step
+    the wall, busy and launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
+    from trlx_tpu_torch.profile_serve import _busy_us, device_events
+
+    cfg = trainer.config
+    width = cfg.train.seq_length - cfg.method.gen_kwargs["max_new_tokens"]
+    batch = next(iter(PromptPipeline(prompts[:n_rows], width, trainer.tokenizer)
+                      .create_loader(n_rows)))
+    ids, mask = np.asarray(batch["input_ids"]), np.asarray(batch["attention_mask"])
+
+    def run():
+        out = trainer.generate_serial(ids, mask)
+        gen_s = trainer.last_generate_time
+        score = trainer._dispatch_score(out.sequences, mask, out.response_tokens,
+                                        out.response_mask)
+        torch.cuda.synchronize()
+        return out, score, gen_s
+
+    run()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out, _, gen_s = run()
+        wall = time.perf_counter() - t0
+    events = device_events(prof)
+    busy = _busy_us([(e.time_range.start, e.time_range.end) for e in events]) * 1e-6
+    steps = int(out.response_mask.sum(dim=1).max())
+    return {"rows": n_rows, "prompt_width": int(ids.shape[1]), "decode_steps": steps,
+            "wall_ms": 1e3 * wall, "generate_ms": 1e3 * gen_s,
+            "device_busy_share": busy / wall, "device_idle_share": 1.0 - busy / wall,
+            "device_launches": len(events),
+            "per_decode_step": {"wall_ms": 1e3 * gen_s / max(steps, 1),
+                                "launches": len(events) / max(steps, 1)}}
+
+
+def phase_slice_serial(device="cuda", spec="builtin:gpt2-small", draft_layers=0, card="",
+                       n_prompts=SERIAL_PROMPTS, total_steps=SERIAL_STEPS,
+                       checkpoint_interval=SERIAL_CHECKPOINT, sections=None):
+    """PPO through ``trlx_tpu_torch.train`` on ``default_ppo_config()``
+    unchanged but for the checkpoint directory, ``total_steps`` and
+    ``checkpoint_interval``: serial dense rollouts pipelined at depth 2,
+    prefetch 2, the staged loss. With ``draft_layers`` the same run with
+    ``model.draft_model_path`` (the target spec cut to ``draft_layers``)
+    and ``engine.speculative`` 0: the serial speculative sampler
+    (``slice_serial_spec``). Every kernel counter is set to 0 just before
+    and read just after; #5 and #6 must launch and no other kernel may.
+    Then, without a draft, one collection's generate and scoring forward
+    under the profiler (``profile_collection``). ``sections`` (a CPU rehearsal's smaller
+    sizes) evolve the config further. Returns the launches."""
+    import shutil
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.profile_train import reward_fn, slice_prompts
+
+    phase = "slice_serial_spec" if draft_layers else "slice_serial"
+    dev = torch.device(device)
+    ckpt = _scratch_dir(phase)
+    sections = dict(sections or {})
+    if draft_layers:
+        sections["model"] = dict(draft_model_path=spec,
+                                 draft_model_extra_kwargs={"num_layers": draft_layers})
+    config = serial_config(ckpt, spec, total_steps, checkpoint_interval, **sections)
+    prompts = slice_prompts(n_prompts)
+    start = {}
+
+    def hook(trainer):
+        start.update({k: trainer.model.state_dict()[k].detach().cpu().clone()
+                      for k in trained_keys(trainer)})
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        # -- the main path -----------------------------------------------
+        trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=prompts, config=config,
+                                       init_trainer_hook=hook, device=dev)
+        # ---------------------------------------------------------------
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    hist = trainer.tracker.history
+    steps = [st for _, st in hist if "gradients/global_norm" in st]
+    collections = [st for _, st in hist if "time/exp" in st]
+    losses = [st["losses/total_loss"] for st in steps]
+    end = trainer.model.state_dict()
+    not_moved = [k for k in start if torch.equal(end[k].detach().cpu(), start[k])]
+    train = config.train
+    rec = {"phase": phase, "model": spec, "dtype": str(trainer.tcfg.dtype).split(".")[-1],
+           "settings": {"continuous_batching": train.continuous_batching,
+                        "rollout_pipeline_depth": train.rollout_pipeline_depth,
+                        "prefetch_batches": train.prefetch_batches,
+                        "loss_kernel": config.method.loss_kernel,
+                        "num_rollouts": config.method.num_rollouts,
+                        "chunk_size": config.method.chunk_size,
+                        "batch_size": train.batch_size, "ppo_epochs": config.method.ppo_epochs,
+                        "max_new_tokens": config.method.gen_kwargs["max_new_tokens"],
+                        "draft_layers": draft_layers,
+                        "draft_gamma": config.model.draft_gamma if draft_layers else None},
+           "optimizer_steps": len(steps), "rollout_collections": len(collections),
+           "losses": losses, "wall_s": wall,
+           "train_step_ms_median": statistics.median(1e3 * st["time/step"] for st in steps),
+           "time_exp_s": [c["time/exp"] for c in collections],
+           "time_generate_s": [c["time/generate"] for c in collections],
+           "rollout_tokens_per_s": [c.get("throughput/rollout_tokens_per_sec")
+                                    for c in collections],
+           "rollout_overlap_frac": [c["throughput/rollout_overlap_frac"] for c in collections],
+           "slot_utilization": [c["throughput/slot_utilization"] for c in collections],
+           "kv_cache_bytes": [c["memory/kv_cache_bytes"] for c in collections],
+           "loss_kernel_pallas": max(st["train/loss_kernel_pallas"] for st in steps),
+           "launches": launches, "trained_weights_unmoved": not_moved, "card": card}
+    if draft_layers:
+        rec["spec_acceptance_rate"] = [c["rollout/spec_acceptance_rate"] for c in collections]
+        rec["spec_rounds"] = [c["rollout/spec_rounds"] for c in collections]
+    problems = []
+    if len(steps) != total_steps or len(collections) < 2:
+        problems.append(f"{len(steps)} steps, {len(collections)} collections")
+    if not all(math.isfinite(x) for x in losses):
+        problems.append("a non-finite loss")
+    if not start or not_moved:
+        problems.append(f"trainable weights did not move: {not_moved[:4]}")
+    if dev.type == "cuda" and min(launches[k] for k in SERIAL_KERNELS) <= 0:
+        problems.append(f"#5 or #6 never launched: {launches}")
+    if any(launches[k] for k in SERIAL_IDLE):
+        problems.append(f"a kernel off the preset path launched: {launches}")
+    if draft_layers and not all(0.0 <= a <= 1.0 for a in rec["spec_acceptance_rate"]):
+        problems.append(f"acceptance {rec['spec_acceptance_rate']} outside [0, 1]")
+    if dev.type == "cuda" and not problems and not draft_layers:
+        rec["profiled_collection"] = profile_collection(trainer, prompts, n_prompts)
+        zero_launch_counts()
+    emit({**rec, "ok": not problems})
+    if problems:
+        raise AssertionError(f"{phase}: {problems}")
+    return launches
+
+
+def phase_slice_serial_spec(device="cuda", spec="builtin:gpt2-small",
+                            draft_layers=DRAFT_LAYERS, **kw):
+    """``phase_slice_serial`` with a ``draft_layers``-layer draft: the
+    serial speculative sampler."""
+    return phase_slice_serial(device, spec, draft_layers=draft_layers, **kw)
+
+
+def greedy_divergences(model32, prompts, masks, got, want):
+    """Rows of ``got`` that differ from ``want`` (token lists), each with
+    the f32 top-2 gap of ``model32`` at the first differing position of
+    ``want`` (phase 4's rule: a divergence is tolerated only at a gap
+    below ``F32_TIE_GAP``)."""
+    out = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = np.asarray(a), np.asarray(b)
+        if np.array_equal(a, b):
+            continue
+        n = min(len(a), len(b))
+        diff = np.nonzero(a[:n] != b[:n])[0]
+        pos = min(int(diff[0]) if len(diff) else n, len(b) - 1)
+        _, gap2 = f32_gaps(model32, [prompts[i]], [b[: pos + 1]], [masks[i]])[0]
+        out.append({"row": i, "position": pos, "top2_gap": float(gap2[pos])})
+    return out
+
+
+def weight_gap(a, b, start):
+    """Largest |a − b| over all weight tensors, over the largest change
+    from ``start`` of any weight in ``b``; with the tensor where it lies
+    and the absolute difference. A resume fault (another step count, other
+    data, a lost optimizer state) moves every trained tensor by about its
+    own update; rounding noise in gradients that are zero in exact
+    arithmetic (the key biases), which Adam's normalisation turns into
+    small steps, stays orders of magnitude below the largest change (two
+    uninterrupted CPU runs differ by ~1e-7 there)."""
+    moved = max(float((b[k] - start[k]).abs().max()) for k in b)
+    name, biggest = None, 0.0
+    for k in b:
+        err = float((a[k] - b[k]).abs().max())
+        if not err <= biggest:
+            name, biggest = k, err
+    return biggest / moved, name, biggest
+
+
+def phase_slice_serial_parity(device="cuda", spec="builtin:gpt2-small", card="",
+                              draft_layers=DRAFT_LAYERS, n_prompts=SERIAL_PROMPTS,
+                              greedy_rows=16, total_steps=SERIAL_STEPS,
+                              checkpoint_interval=SERIAL_CHECKPOINT, parity_rows=16,
+                              sections=None):
+    """The preset path in f32 with TF32 off (``parallel.compute_dtype``
+    float32): (a) the store of one collection at pipeline depth 0 equals
+    the one at depth 2, element for element; (b) one batch of that store
+    card against CPU (``phase_slice_train_parity``: the staged loss, #5 and
+    #6); (c) the serial greedy answers equal the paged engine's token for
+    token; (d) the serial speculative sampler's greedy answers equal the
+    plain ``generate``'s, and with the target as its own draft the
+    acceptance is exactly 1.0; (e) ``grad_accum`` 2 on a batch against the
+    mean of ``grad_accum`` 1 on its two halves, within
+    ``PARITY_GRAD_RTOL``; (f) a run resumed from its step-16 checkpoint in
+    a fresh ``train`` against the uninterrupted run: the final weights
+    within ``PARITY_GRAD_RTOL`` of the run's largest weight change
+    (``weight_gap``),
+    ``kl_ctl``, the running moments and ``iter_count`` exactly. Divergences
+    in (c) and (d) are tolerated only at f32 near ties (phase 4's rule).
+    ``sections`` (a CPU rehearsal's smaller sizes) evolve every config."""
+    import shutil
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.ops.sampling import generate
+    from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
+    from trlx_tpu_torch.profile_train import reward_fn, slice_prompts
+    from trlx_tpu_torch.trainer.ppo import PPOTrainer
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    def f32(**more):
+        """``sections`` with f32 compute and ``more`` merged in."""
+        out = {k: dict(v) for k, v in (sections or {}).items()}
+        for k, v in {"parallel": dict(compute_dtype="float32"), **more}.items():
+            out.setdefault(k, {}).update(v)
+        return out
+
+    prompts = slice_prompts(n_prompts)
+    rec, problems = {"phase": "slice_serial_parity", "model": spec, "dtype": "float32",
+                     "tf32": False, "card": card}, []
+
+    def width(config):
+        return config.train.seq_length - config.method.gen_kwargs["max_new_tokens"]
+
+    def trainer_at(depth=0, **sections):
+        # these trainers save nothing: the directory is never made
+        config = serial_config(os.path.join(ROOT, "build", "chip_smoke_serial_parity"), spec,
+                               total_steps, checkpoint_interval, **f32(**sections))
+        config.train.rollout_pipeline_depth = depth
+        trainer = PPOTrainer(config=config, reward_fn=reward_fn, device=dev)
+        trainer.add_prompt_pipeline(PromptPipeline(prompts, width(config), trainer.tokenizer))
+        return trainer
+
+
+    # (a) depth 0 against depth 2
+    stores, launches_a = {}, {}
+    for depth in (0, 2):
+        t = trainer_at(depth)
+        zero_launch_counts()
+        t.make_experience(t.config.method.num_rollouts)
+        launches_a[depth] = launch_counts()
+        stores[depth] = t
+    a, b = stores[0].store.history, stores[2].store.history
+    fields = ("query_tensor", "response_tensor", "logprobs", "values", "rewards")
+    equal = len(a) == len(b) and all(np.array_equal(getattr(x, f), getattr(y, f))
+                                     for x, y in zip(a, b) for f in fields)
+    rec["a_depth0_vs_depth2"] = {"rows": [len(a), len(b)], "equal": bool(equal),
+                                 "launches": launches_a[2]}
+    if not equal:
+        problems.append("(a) the depth-2 store differs from depth 0")
+    trainer = stores[0]
+    stores[2]._close_prompt_iterator()
+    del stores
+
+    # (b) one batch card against CPU, the staged loss
+    rec["b_train_parity"] = phase_slice_train_parity(
+        trainer, card=device, phase="slice_serial_train_parity", rows=parity_rows,
+        kernels=SERIAL_KERNELS)
+
+    # (c) serial greedy against the paged engine, one prompt batch
+    batch = next(iter(PromptPipeline(prompts[:greedy_rows], width(trainer.config),
+                                     trainer.tokenizer).create_loader(greedy_rows)))
+    ids, mask = np.asarray(batch["input_ids"]), np.asarray(batch["attention_mask"])
+
+    def rows(out):
+        return [out["response_tokens"][i][out["response_mask"][i] == 1]
+                for i in range(len(ids))]
+
+    serial = rows(trainer.generate(ids, mask, do_sample=False))
+    trainer.config.train.continuous_batching = True
+    paged = rows(trainer.generate(ids, mask, do_sample=False))
+    trainer.config.train.continuous_batching = False
+    ties = greedy_divergences(trainer.model, ids, mask, serial, paged)
+    rec["c_serial_vs_paged"] = {"rows": len(ids), "divergences": ties,
+                                "tie_gap_tol": F32_TIE_GAP}
+    problems += [f"(c) row {t['row']} diverges at {t['position']}" for t in ties
+                 if t["top2_gap"] >= F32_TIE_GAP]
+
+    # (e) grad_accum 2 against the mean of grad_accum 1 on the halves
+    full = trainer._device_batch(next(iter(trainer.store.create_loader(
+        trainer.config.train.batch_size))))
+    half = trainer.config.train.batch_size // 2
+    grads = []
+    for part in ({k: v[:half] for k, v in full.items()}, {k: v[half:] for k, v in full.items()}):
+        trainer.config.train.grad_accum = 1
+        trainer.accumulate_grads(part)
+        grads.append({n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()
+                      if p.grad is not None})
+    trainer.config.train.grad_accum = 2
+    trainer.accumulate_grads(full)
+    trainer.config.train.grad_accum = 1
+    got = {n: p.grad.detach() for n, p in trainer.model.named_parameters()
+           if p.grad is not None}
+    if not got.keys() == grads[0].keys() == grads[1].keys():
+        problems.append("(e) the passes gave gradients to different parameters")
+    want = {n: (grads[0][n] + grads[1][n]) / 2 for n in got}
+    gmax = max(float(g.abs().max()) for g in want.values())
+    worst, worst_name = 0.0, None
+    for n in want:
+        rel = float((got[n] - want[n]).abs().max()) / max(float(want[n].abs().max()),
+                                                           1e-5 * gmax)
+        if not rel <= worst:
+            worst, worst_name = rel, n
+    trainer.model.zero_grad(set_to_none=True)
+    rec["e_grad_accum"] = {"rows": 2 * half, "worst_grad_rel_err": worst,
+                           "worst_grad": worst_name, "grad_rtol": PARITY_GRAD_RTOL}
+    if not worst <= PARITY_GRAD_RTOL:
+        problems.append(f"(e) grad_accum 2: {worst_name} relative {worst}")
+    trainer._close_prompt_iterator()
+    del trainer, full, grads, got, want
+
+    # (d) the serial speculative sampler, greedy
+    spec_t = trainer_at(model=dict(draft_model_path=spec,
+                                   draft_model_extra_kwargs={"num_layers": draft_layers}))
+    G = int(spec_t.config.model.draft_gamma)
+    zero_launch_counts()
+    got = rows(spec_t.generate(ids, mask, do_sample=False))
+    draft_stats = dict(spec_t.last_generate_stats)
+    gen_config, _ = spec_t._resolve_gen_config(do_sample=False)
+    plain = generate(spec_t.model, torch.tensor(ids), torch.tensor(mask),
+                     torch.zeros(len(ids), dtype=torch.int64), gen_config)
+    want = [plain.response_tokens[i][plain.response_mask[i] == 1].cpu().numpy()
+            for i in range(len(ids))]
+    ties = greedy_divergences(spec_t.model, ids, mask, got, want)
+    n_self = len(ids) // 2
+    max_new = gen_config.max_new_tokens
+    spec_t.draft_model, spec_t.draft_tcfg = spec_t.model.backbone, spec_t.tcfg
+    spec_t.generate(ids[:n_self], mask[:n_self], do_sample=False, eos_token_id=None)
+    self_stats = dict(spec_t.last_generate_stats)
+    rec["d_serial_spec"] = {"rows": len(ids), "draft_layers": draft_layers, "gamma": G,
+                            "divergences": ties, "draft": draft_stats,
+                            "self_draft": {"rows": n_self, **self_stats},
+                            "launches": launch_counts()}
+    problems += [f"(d) row {t['row']} diverges at {t['position']}" for t in ties
+                 if t["top2_gap"] >= F32_TIE_GAP]
+    if max_new % (G + 1) == 0 and self_stats["rollout/spec_acceptance_rate"] != 1.0:
+        problems.append(f"(d) self-draft acceptance {self_stats['rollout/spec_acceptance_rate']}")
+    del spec_t
+
+    # (f) resume from the step-16 checkpoint against the uninterrupted run
+    runs = {}
+    for name in ("uninterrupted", "resumed"):
+        ckpt = _scratch_dir(f"serial_{name}")
+        if name == "resumed":
+            step_dir = f"checkpoint_{checkpoint_interval:0{len(str(total_steps))}d}"
+            shutil.copytree(os.path.join(runs["uninterrupted"]["ckpt"], step_dir),
+                            os.path.join(ckpt, step_dir))
+        config = serial_config(ckpt, spec, total_steps, checkpoint_interval,
+                               **f32(train=dict(resume_from_checkpoint=name == "resumed")))
+        start = {}
+
+        def hook(t):
+            start.update({k: v.detach().cpu().clone() for k, v in t.model.state_dict().items()})
+
+        t = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=prompts, config=config,
+                                 init_trainer_hook=hook, device=dev)
+        rm = t.running_moments
+        runs[name] = {"ckpt": ckpt, "start": start,
+                      "weights": {k: v.detach().cpu() for k, v in t.model.state_dict().items()},
+                      "exact": {"iter_count": t.iter_count, "step": t.step,
+                                "kl_ctl": t.kl_ctl.value,
+                                "running_moments": [rm.mean, rm.var, rm.std, rm.count],
+                                "prompt_chunks_drawn": t._prompt_chunks_drawn}}
+        del t
+    worst, name, biggest = weight_gap(runs["resumed"]["weights"], runs["uninterrupted"]["weights"],
+                                      runs["uninterrupted"]["start"])
+    rec["f_resume"] = {"exact": {k: runs[k]["exact"] for k in runs},
+                       "weights_diff_over_largest_change": worst, "weights_worst": name,
+                       "weights_max_abs_diff": biggest, "rtol": PARITY_GRAD_RTOL}
+    for run in runs.values():
+        shutil.rmtree(run["ckpt"], ignore_errors=True)
+    if runs["resumed"]["exact"] != runs["uninterrupted"]["exact"]:
+        problems.append(f"(f) resumed state {runs['resumed']['exact']} != "
+                        f"{runs['uninterrupted']['exact']}")
+    if not worst <= PARITY_GRAD_RTOL:
+        problems.append(f"(f) resumed weights: {name} off by {worst} of the largest change")
+    emit({**rec, "ok": not problems})
+    if problems:
+        raise AssertionError(f"slice_serial_parity: {problems}")
     zero_launch_counts()
     return rec
 
@@ -2242,15 +2692,14 @@ def phase_slice_offline_parity(sft, ilql, card="cuda", sft_rows=2, ilql_rows=16,
 # tests/test_examples.py::test_ilql_randomwalks_learns' for ILQL. One
 # departure from PPO_CURVE.json, which sets no chunk_size (the example's
 # 128 applies): chunk_size 64, num_rollouts. A collection on the
-# continuous path keeps the first num_rollouts sequences to finish, so a
-# wider chunk fills the store with the shortest answers of each chunk,
-# where the JAX example's serial path keeps the first num_rollouts in
-# prompt order; with 128 the JAX continuous path and the port end between
-# 0.77 and 0.96 over seeds, with 64 between 0.93 and 1.0
-# (tests/randomwalks_curves.py on the CPU, PERF.md §6)
-RANDOMWALKS_PPO = {"train.total_steps": 160, "train.batch_size": 64,
-                   "method.num_rollouts": 64, "method.chunk_size": 64,
-                   "method.ppo_epochs": 4, "train.eval_interval": 8}
+# the example's own settings (tasks/ppo_randomwalks.py: serial rollouts at
+# pipeline depth 2, the staged loss, chunks of 128), cut to 160 steps; the
+# port ends at 0.98 and 0.96 over two seeds there on the CPU
+# (tests/randomwalks_curves.py, PERF.md §6)
+RANDOMWALKS_PPO = {"train.total_steps": 160, "train.eval_interval": 8}
+# the card's reading of the continuous path with chunks of 128, which keep
+# each chunk's shortest answers (PERF.md §6), printed beside the new one
+RANDOMWALKS_PPO_CONTINUOUS_128 = 0.714
 RANDOMWALKS_ILQL = {"train.total_steps": 160, "train.epochs": 100,
                     "train.eval_interval": 20, "train.batch_size": 32,
                     "method.gen_kwargs.temperature": 0.05}
@@ -2263,7 +2712,8 @@ RANDOMWALKS_PPO_BAR, RANDOMWALKS_ILQL_LIFT = 0.9, 0.1
 def phase_slice_randomwalks(device="cuda", ppo=None, ilql=None, card=""):
     """The acceptance runs on the randomwalks model (six layers, hidden
     144, head dim 12): ``tasks/ppo_randomwalks.py`` (SFT warm start, then
-    PPO) and ``tasks/ilql_randomwalks.py``, each through
+    PPO on the example's settings: serial rollouts pipelined at depth 2,
+    the staged loss, chunks of 128) and ``tasks/ilql_randomwalks.py``, each through
     ``trlx_tpu_torch.train`` with the kernel counters set to 0 just before
     and read just after. Returns the launches of each."""
     import shutil
@@ -2299,12 +2749,18 @@ def phase_slice_randomwalks(device="cuda", ppo=None, ilql=None, card=""):
                          1e3 * st["time/step"] for st in steps),
                      "head_dim": trainer.tcfg.dims_per_head, "wall_s": wall,
                      "launches": launches}
-        if name == "ppo" and not last >= RANDOMWALKS_PPO_BAR:
-            problems.append(f"PPO's last three evals {last} < {RANDOMWALKS_PPO_BAR}")
+        if name == "ppo":
+            out[name]["continuous_path_chunk128_reading"] = RANDOMWALKS_PPO_CONTINUOUS_128
+            if not last >= RANDOMWALKS_PPO_BAR:
+                problems.append(f"PPO's last three evals {last} < {RANDOMWALKS_PPO_BAR}")
+            # the staged loss: the fused loss kernels stay idle
+            if launches["fused_loss_fwd"] or launches["fused_loss_bwd"]:
+                problems.append(f"ppo: the fused loss launched on the staged path: {launches}")
         if name == "ilql" and not last > first + RANDOMWALKS_ILQL_LIFT:
             problems.append(f"ILQL lifted {first} → {last}, not by > {RANDOMWALKS_ILQL_LIFT}")
-        kernels = OFFLINE_KERNELS + (("fused_loss_fwd", "fused_loss_bwd") if name == "ppo" else ())
-        if dev.type == "cuda" and min(launches[k] for k in kernels) <= 0:
+        # PPO: the warm start's evaluation runs the engine's kernels, the
+        # serial rollouts and the train steps the flash kernels
+        if dev.type == "cuda" and min(launches[k] for k in OFFLINE_KERNELS) <= 0:
             problems.append(f"{name}: a kernel of the path never launched: {launches}")
         del trainer
     out["wall_s"] = out["ppo"]["wall_s"] + out["ilql"]["wall_s"]
@@ -2357,6 +2813,10 @@ def main():
     del trainer
     spec_launches = clocked(phase_slice_spec, card=smi)
     clocked(phase_slice_spec_parity, card=smi)
+    serial_launches = clocked(phase_slice_serial, card=smi)
+    serial_spec_launches = clocked(phase_slice_serial_spec, card=smi)
+    clocked(phase_slice_serial_parity, card=smi)
+    torch.cuda.empty_cache()
     sft, sft_launches = clocked(phase_slice_sft, card=smi)
     ilql, ilql_launches = clocked(phase_slice_ilql, card=smi)
     clocked(phase_slice_offline_parity, sft, ilql)
@@ -2372,7 +2832,8 @@ def main():
     # a served run counts the engine's kernels; nothing else launches there
     served = {k: 0 for k in REPLACES}
     by_path = {"serve": {**served, **serve_launches}, "train": train_launches,
-               "spec": spec_launches, "sft": sft_launches, "ilql": ilql_launches,
+               "spec": spec_launches, "serial": serial_launches,
+               "serial_spec": serial_spec_launches, "sft": sft_launches, "ilql": ilql_launches,
                "randomwalks_ppo": randomwalks["ppo"], "randomwalks_ilql": randomwalks["ilql"],
                "family_serve": {**served, **family_serve}, "family_train": family_train}
     kernels = [kernel_record(name, serve_launches[name], timed[name]["max_abs_err"], timed[name],

@@ -13,8 +13,11 @@ order (tokens equal; logprobs, values and rewards ``atol=1e-4``), each
 optimizer step's loss, policy, value, return, ratio, learning-rate and
 gradient-norm stats (``rtol=1e-4``), the final parameters (``atol=1e-4``)
 and the frozen block bit-unchanged. ``trlx_tpu_torch.trlx.train`` is
-driven end to end, and the settings the slice does not run raise
-``ValueError`` naming the setting.
+driven end to end; the settings the port does not run raise ``ValueError``
+naming the setting, and those it runs since the serial path was ported
+(the serial path, ``grad_accum``, resume, the staged loss) each build a
+trainer that takes a step. ``tests/test_torch_serial_rollouts.py`` holds
+the serial path against the JAX trainer.
 """
 
 import copy
@@ -197,14 +200,19 @@ def test_train_entry_point_end_to_end(tmp_path):
 @pytest.mark.parametrize(
     "override,setting",
     [
-        ({"train": {"continuous_batching": False}}, "train.continuous_batching"),
         ({"async_rl": {"enabled": True}}, "async_rl.enabled"),
         ({"serve": {"enabled": True}}, "serve.enabled"),
         ({"engine": {"prefix_cache": True}}, "engine.prefix_cache"),
         ({"engine": {"prefill_chunk": 8}}, "engine.prefill_chunk"),
         ({"engine": {"speculative": 2}}, "engine.speculative"),
         ({"engine": {"decode_kernel": "xla"}}, "engine.decode_kernel"),
-        ({"train": {"grad_accum": 2}}, "train.grad_accum"),
+        ({"engine": {"prefill_kernel": "xla"}}, "engine.prefill_kernel"),
+        # the JAX trainer's checks: the paged knobs need the paged backend
+        # on either path
+        ({"train": {"continuous_batching": False},
+          "engine": {"backend": "dense", "prefix_cache": True}}, "engine.prefix_cache"),
+        ({"train": {"continuous_batching": False},
+          "engine": {"backend": "dense"}}, "engine.decode_kernel"),
         ({"parallel": {"fsdp": 2}}, "parallel.fsdp"),
         ({"parallel": {"model": 2}}, "parallel.model"),
         ({"parallel": {"scan_layers": True}}, "parallel.scan_layers"),
@@ -213,10 +221,14 @@ def test_train_entry_point_end_to_end(tmp_path):
         ({"model": {"peft_kwargs": {"peft_type": "lora", "r": 8}}}, "model.peft_kwargs"),
         # a draft whose vocabulary is not the policy's (50257 against 259)
         ({"model": {"draft_model_path": "builtin:gpt2-small"}}, "model.draft_model_path"),
-        ({"train": {"resume_from_checkpoint": True}}, "train.resume_from_checkpoint"),
         ({"train": {"tracker": "wandb"}}, "train.tracker"),
+        ({"train": {"profile_dir": "profiles"}}, "train.profile_dir"),
+        ({"train": {"rollout_logging_dir": "rollouts"}}, "train.rollout_logging_dir"),
+        ({"resilience": {"update_guard": "skip"}}, "resilience.update_guard"),
+        ({"resilience": {"fault_plan": "sigterm@step:2"}}, "resilience.fault_plan"),
+        ({"resilience": {"keep_last_n": 2}}, "resilience.keep_last_n"),
         ({"method": {"loss_kernel": "mosaic"}}, "method.loss_kernel"),
-        ({"method": {"loss_kernel": "xla"}}, "method.loss_kernel"),
+        ({"train": {"batch_size": 5, "grad_accum": 2}}, "train.grad_accum"),
     ],
 )
 def test_rejected_settings_raise(tmp_path, override, setting):
@@ -225,6 +237,36 @@ def test_rejected_settings_raise(tmp_path, override, setting):
         d[section].update(values)
     with pytest.raises(ValueError, match=setting.replace(".", r"\.")):
         PPOTrainer(config=TRLConfig.from_dict(d), reward_fn=reward_fn, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "override",
+    [
+        # settings the trainer rejected before the serial path was ported
+        {"train": {"continuous_batching": False},
+         "engine": {"backend": "dense", "decode_kernel": "xla", "prefill_kernel": "xla"}},
+        {"train": {"grad_accum": 2}},
+        {"train": {"resume_from_checkpoint": True}},
+        {"method": {"loss_kernel": "xla"}},
+    ],
+    ids=["serial", "grad_accum", "resume", "staged_loss"],
+)
+def test_ported_settings_take_a_step(tmp_path, override):
+    d = _config_dict(tmp_path)
+    for section, values in override.items():
+        d[section].update(values)
+    trainer = PPOTrainer(config=TRLConfig.from_dict(d), reward_fn=reward_fn, device="cpu")
+    max_prompt = d["train"]["seq_length"] - d["method"]["gen_kwargs"]["max_new_tokens"]
+    trainer.add_prompt_pipeline(PromptPipeline(_prompts(), max_prompt, trainer.tokenizer))
+    trainer.maybe_resume()  # an empty checkpoint_dir: nothing to load
+    trainer.make_experience(d["method"]["num_rollouts"])
+    trainer.prepare_learning()
+    before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    stats = trainer.train_step(next(iter(trainer.train_dataloader)))
+    assert trainer.step == 1 and np.isfinite(float(stats["losses/total_loss"]))
+    assert float(stats["train/loss_kernel_pallas"]) == 0.0  # CPU tensors: plain versions
+    moved = [k for k, v in trainer.model.state_dict().items() if not torch.equal(v, before[k])]
+    assert "v_head.out_proj.weight" in moved
 
 
 @pytest.mark.parametrize("num_rollouts,chunk_size,warns", [(4, 8, True), (8, 4, False),

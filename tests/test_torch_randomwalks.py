@@ -3,7 +3,8 @@ on the CPU.
 
 - the task generator equals ``examples/randomwalks/randomwalks.py`` (the
   same graph, walks, rewards and scores for a seed);
-- ``ppo_randomwalks.main`` (SFT warm start, then PPO) and
+- ``ppo_randomwalks.main`` (SFT warm start, then PPO on the example's
+  preset as it stands: serial, pipelined, the staged loss) and
   ``ilql_randomwalks.main`` run end to end through
   ``trlx_tpu_torch.train`` at 2 steps, as ``tests/test_examples.py``'s
   smoke tests run the JAX examples;
@@ -61,6 +62,13 @@ def test_ppo_randomwalks_smoke(tmp_path):
     )
     assert trainer.iter_count >= 1
     assert len(_optimality(trainer)) >= 2
+    # the example's preset as it stands: serial dense rollouts pipelined at
+    # depth 2, the staged loss
+    train, method = trainer.config.train, trainer.config.method
+    assert not train.continuous_batching and train.rollout_pipeline_depth == 2
+    assert method.loss_kernel == "xla"
+    collections = [st for _, st in trainer.tracker.history if "time/exp" in st]
+    assert collections and all("throughput/rollout_overlap_frac" in st for st in collections)
     # the warm start (the SFT run's final checkpoint) is the frozen
     # reference, and the policy's start: two steps at lr 3e-4 stay near it
     (saved,) = (tmp_path / "ckpt" / "sft_warmstart").glob("checkpoint_*/state.pt")

@@ -260,8 +260,8 @@ def test_default_sft_config_matches_jax():
     [
         ({"model": {"model_arch_type": "seq2seq"}}, "model.model_arch_type"),
         ({"model": {"peft_kwargs": {"peft_type": "lora", "r": 8}}}, "model.peft_kwargs"),
-        ({"train": {"grad_accum": 2}}, "train.grad_accum"),
-        ({"train": {"resume_from_checkpoint": True}}, "train.resume_from_checkpoint"),
+        ({"train": {"grad_accum": 3}}, "train.grad_accum"),  # batch 4 does not split
+        ({"resilience": {"keep_last_n": 2}}, "resilience.keep_last_n"),
         ({"parallel": {"fsdp": 2}}, "parallel.fsdp"),
         ({"serve": {"enabled": True}}, "serve.enabled"),
     ],
@@ -274,10 +274,29 @@ def test_offline_trainer_rejects_unported_settings(tmp_path, override, setting):
         SFTTrainer(config=TRLConfig.from_dict(d), device="cpu")
 
 
+@pytest.mark.parametrize(
+    "override",
+    [{"train": {"grad_accum": 2}}, {"train": {"resume_from_checkpoint": True}}],
+    ids=["grad_accum", "resume"],
+)
+def test_offline_trainer_takes_a_step_with_ported_settings(tmp_path, override):
+    """Settings the offline trainers rejected before they were ported
+    (gradient accumulation, resume) build a trainer that takes a step."""
+    d = _config_dict(tmp_path)
+    for section, values in override.items():
+        d[section].update(values)
+    trainer = SFTTrainer(config=TRLConfig.from_dict(d), device="cpu")
+    trainer.make_experience(_samples(), d["train"]["seq_length"])
+    trainer.maybe_resume()  # an empty checkpoint_dir: nothing to load
+    trainer.prepare_learning()
+    stats = trainer.train_step(next(iter(trainer.train_dataloader)))
+    assert trainer.step == 1 and np.isfinite(float(stats["losses/loss"].detach()))
+
+
 def test_offline_trainer_takes_the_presets_engine_settings(tmp_path):
     """The presets' serial rollout path and gather kernels are rollout
-    settings: the offline trainers run with them (they evaluate on the
-    paged engine), where PPO rejects them."""
+    settings: the offline trainers run with them and evaluate on the paged
+    engine (PPO collects on the serial path with them)."""
     d = _config_dict(tmp_path)
     assert d["train"]["continuous_batching"] is False
     assert d["engine"]["backend"] == "dense" and d["engine"]["decode_kernel"] == "xla"

@@ -1,9 +1,16 @@
-"""The continuous-batching generation engine over the paged block pool.
+"""The generation engines: the serial dense engine and the
+continuous-batching engine over the paged block pool.
 
 Port of ``trlx_tpu/engine/core.py`` for the paged path without the prefix
 cache and chunked prefill (``prefix_cache=False``, ``prefill_chunk=0``):
-:class:`ContinuousEngine`, :class:`EngineStats` and
-:class:`CompletedSequence`.
+:class:`Engine`, :class:`SerialEngine`, :class:`ContinuousEngine`,
+:class:`EngineStats` and :class:`CompletedSequence`.
+
+:class:`SerialEngine` is plain batch generation behind the engine
+interface: it wraps the trainer's serial rollout program
+(``ops/sampling.py::generate`` on a dense ``[B, P + N]`` cache, or
+``ops/speculative.py::generate_speculative``) unchanged, and each
+:meth:`SerialEngine.step` reproduces one such call on a submitted chunk.
 
 The engine is the host half: a queue of prompts, ``B`` slots, a
 refcounted :class:`~trlx_tpu_torch.engine.allocator.BlockAllocator` over
@@ -36,7 +43,7 @@ caller, or the serve pump thread) calls ``enqueue_prompts``/``step``.
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -57,6 +64,8 @@ from trlx_tpu_torch.ops.paged_prefill import paged_prefill_attention
 __all__ = [
     "CompletedSequence",
     "EngineStats",
+    "Engine",
+    "SerialEngine",
     "ContinuousEngine",
     "SERVE_CLASSES",
     "kernel_launches",
@@ -225,7 +234,110 @@ class EngineStats:
         return stats
 
 
-class ContinuousEngine:
+class Engine:
+    """The contract every generation engine keeps: feed prompts, turn the
+    crank, collect individually completed sequences. The trainers talk
+    only to this surface (the paged collection through :meth:`step`,
+    ``generate`` through :class:`SerialEngine`)."""
+
+    stats: EngineStats
+
+    def enqueue_prompts(self, input_ids: np.ndarray, attention_mask: np.ndarray,
+                        seeds: np.ndarray, metas: Optional[List[Any]] = None) -> None:
+        raise NotImplementedError
+
+    def step(self) -> List[CompletedSequence]:
+        raise NotImplementedError
+
+    @property
+    def busy(self) -> bool:
+        raise NotImplementedError
+
+    def run(self) -> List[CompletedSequence]:
+        """Drain queue and slots to completion."""
+        out: List[CompletedSequence] = []
+        while self.busy:
+            out.extend(self.step())
+        return out
+
+
+class SerialEngine(Engine):
+    """Plain batch generation behind the :class:`Engine` interface.
+
+    Wraps ``fn(params, input_ids, attention_mask, seeds)`` — the trainer's
+    serial rollout program, unchanged — which returns a
+    :class:`~trlx_tpu_torch.ops.sampling.GenerationOutput`, or
+    ``(output, stats)`` from the speculative sampler. Whole chunks are
+    buffered with the seeds they were submitted under, so each
+    :meth:`step` reproduces exactly one serial :meth:`generate` call."""
+
+    def __init__(self, generate_fn: Callable, params: Any, pad_token_id: int):
+        self._fn = generate_fn
+        self.params = params
+        self.pad_token_id = int(pad_token_id)
+        self._chunks: deque = deque()
+        self._submitted = 0
+        self.stats = EngineStats()
+
+    def generate(self, input_ids, attention_mask, seeds):
+        """The batch-synchronous path the trainer's ``generate`` takes:
+        whatever the wrapped program returns."""
+        return self._fn(self.params, input_ids, attention_mask, seeds)
+
+    def enqueue_prompts(self, input_ids, attention_mask, seeds=None, metas=None):
+        raise NotImplementedError(
+            "SerialEngine decodes whole chunks: use submit_chunk(input_ids, "
+            "attention_mask, seeds) (a queue of single prompts is the continuous "
+            "engine's)")
+
+    def submit_chunk(self, input_ids, attention_mask, seeds, metas=None) -> None:
+        input_ids, attention_mask, seeds = (
+            torch.as_tensor(np.ascontiguousarray(x), dtype=torch.int64)
+            for x in (input_ids, attention_mask, seeds))
+        idx = list(range(self._submitted, self._submitted + input_ids.shape[0]))
+        self._submitted += input_ids.shape[0]
+        self._chunks.append((idx, input_ids, attention_mask, seeds, metas))
+
+    @property
+    def busy(self) -> bool:
+        return bool(self._chunks)
+
+    def step(self) -> List[CompletedSequence]:
+        if not self._chunks:
+            return []
+        idx, ids, mask, seeds, metas = self._chunks.popleft()
+        t0 = time.perf_counter()
+        out = self.generate(ids, mask, seeds)
+        if type(out) is tuple:  # the speculative sampler: (output, stats)
+            out = out[0]
+        host = {
+            "tokens": out.response_tokens.cpu().numpy(),
+            "logprobs": out.response_logprobs.cpu().numpy(),
+            "values": out.response_values.cpu().numpy(),
+            "mask": out.response_mask.cpu().numpy(),
+        }
+        self.stats.decode_s += time.perf_counter() - t0
+        self.stats.segments += 1
+        n = len(idx)
+        steps = int(host["mask"].sum(axis=1).max()) if n else 0
+        self.stats.decode_steps += steps
+        self.stats.slot_steps += steps * n
+        self.stats.live_slot_steps += int(host["mask"].sum())
+        self.stats.harvested += n
+        self.stats.note_harvest(host["tokens"], host["mask"])
+        ids, mask = ids.numpy(), mask.numpy()
+        return [
+            CompletedSequence(
+                index=idx[i], prompt_ids=ids[i], prompt_mask=mask[i],
+                tokens=host["tokens"][i], logprobs=host["logprobs"][i],
+                values=host["values"][i], mask=host["mask"][i],
+                meta=metas[i] if metas is not None else None,
+            )
+            for i in range(n)
+        ]
+
+
+class ContinuousEngine(Engine):
     """Slot-refill decode over a fixed ``[B]`` slot batch on the paged
     block pool. ``fns`` come from
     :func:`trlx_tpu_torch.ops.slot_refill.make_slot_refill_fns`; ``model``
@@ -397,13 +509,6 @@ class ContinuousEngine:
     @property
     def busy(self) -> bool:
         return self.live > 0 or self.pending > 0
-
-    def run(self) -> List[CompletedSequence]:
-        """Drain queue + slots to completion."""
-        out: List[CompletedSequence] = []
-        while self.busy:
-            out.extend(self.step())
-        return out
 
     # -- paged-block bookkeeping ----------------------------------------
 

@@ -76,11 +76,11 @@ class FixedKLController:
 @register_method("PPOConfig")
 class PPOConfig(MethodConfig):
     """Hyperparameters of PPO (the JAX package's fields and defaults; see
-    ``trlx_tpu/models/ppo.py`` for each one's meaning). ``loss_kernel:
-    pallas`` selects the fused loss kernels (``ops/fused_loss.py``), the
-    CUDA kernels in this port; the trainer rejects the staged ``xla``
-    path, which stays the default only so the config matches the JAX
-    package's."""
+    ``trlx_tpu/models/ppo.py`` for each one's meaning). ``loss_kernel``
+    selects the staged loss (``xla``, the default: :meth:`get_advantages_and_returns`
+    then :meth:`loss`, in plain ops) or the fused loss kernels
+    (``pallas``: :meth:`loss_fused`, the CUDA kernels of
+    ``ops/fused_loss.py``)."""
 
     name: str = "PPOConfig"
     ppo_epochs: int = 4

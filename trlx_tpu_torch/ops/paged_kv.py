@@ -32,6 +32,7 @@ __all__ = [
     "detach_block_table",
     "kv_bytes",
     "block_bytes",
+    "dense_kv_bytes",
 ]
 
 ZERO_BLOCK = 0
@@ -104,3 +105,13 @@ def block_bytes(cache: Any) -> int:
     return int(
         sum(t.numel() * t.element_size() // t.shape[0] for t in _leaves(cache))
     )
+
+
+def dense_kv_bytes(cfg: Any, batch_size: int, slots: int) -> int:
+    """Bytes of the dense ``[batch_size, slots]`` cache that
+    :func:`~trlx_tpu_torch.models.transformer.make_kv_cache` allocates for
+    ``cfg`` (k and v of every layer in ``cfg.dtype``): the serial rollout
+    path's ``memory/kv_cache_bytes``."""
+    itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+    return int(2 * cfg.num_layers * batch_size * slots * cfg.kv_heads
+               * cfg.dims_per_head * itemsize)

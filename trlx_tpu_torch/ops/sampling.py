@@ -1,10 +1,11 @@
 """Autoregressive generation with an explicit dense KV cache, in PyTorch.
 
 Port of ``trlx_tpu/ops/sampling.py``: :class:`GenerationConfig`,
-:func:`process_logits`, :func:`sample_token_from_logits`,
-:func:`last_step_info` and the dense-cache :func:`generate` — the plain
-reference the paged engine is held against (greedy decodes must match it
-token for token).
+:func:`process_logits`, :func:`apply_transition_mask`,
+:func:`sample_token_from_logits`, :func:`last_step_info` and the
+dense-cache :func:`generate` — the serial rollout path's sampler
+(``engine/core.py::SerialEngine``) and the plain reference the paged
+engine is held against (greedy decodes must match it token for token).
 
 Randomness. JAX's threefry per-row key chains become a counter-based hash
 (:func:`gumbel_noise`): row ``i``'s Gumbel noise at decode step ``s``
@@ -27,6 +28,7 @@ __all__ = [
     "GenerationConfig",
     "GenerationOutput",
     "process_logits",
+    "apply_transition_mask",
     "uniform_noise",
     "gumbel_noise",
     "sample_token_from_logits",
@@ -74,6 +76,28 @@ def process_logits(
         ).amin(dim=-1, keepdim=True)
         logits = logits.masked_fill(logits < threshold, float("-inf"))
     return logits
+
+
+def apply_transition_mask(
+    mask: torch.Tensor,  # [Vm, Vm'] bool: allowed next token per last token
+    last_tokens: torch.Tensor,  # [B] the conditioning tokens
+    logits: torch.Tensor,  # [B, V]
+) -> torch.Tensor:
+    """Disallow transitions: ``mask[last, next] == False`` gives the logit
+    -1e10. A mask narrower than the vocab disallows the tokens past it; a
+    last token without a row (out of range) samples unconstrained."""
+    mask = mask.to(device=logits.device, dtype=torch.bool)
+    last_tokens = last_tokens.to(device=logits.device, dtype=torch.int64)
+    sel = mask[last_tokens.clamp(0, mask.shape[0] - 1)]
+    V = logits.shape[-1]
+    if mask.shape[1] >= V:
+        allowed = sel[..., :V]
+    else:
+        allowed = torch.zeros(logits.shape, dtype=torch.bool, device=logits.device)
+        allowed[..., : mask.shape[1]] = sel
+    row_known = (last_tokens >= 0) & (last_tokens < mask.shape[0])
+    allowed = allowed | ~row_known[..., None]
+    return torch.where(allowed, logits, torch.full_like(logits, -1e10))
 
 
 _M32 = 0xFFFFFFFF

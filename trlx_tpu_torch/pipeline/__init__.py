@@ -4,8 +4,9 @@ Port of ``trlx_tpu/pipeline/__init__.py``: the pipeline registry,
 :class:`BatchLoader` (numpy batches collated on the host, shuffled by index
 with ``random.Random(seed)`` — so a store that holds its rows in the JAX
 package's order yields the same minibatches), :class:`BasePipeline` and
-:class:`BaseRolloutStore`. The background-thread prefetch loader is not
-ported: the port collates at depth 0.
+:class:`BaseRolloutStore` and :class:`PrefetchLoader` (collation on a
+background thread, ``train.prefetch_batches`` and
+``train.rollout_pipeline_depth`` batches ahead).
 """
 
 import random
@@ -78,6 +79,75 @@ class BatchLoader:
             if self.drop_last and len(idxs) < self.batch_size:
                 return
             yield self.collate_fn([self.dataset[i] for i in idxs])
+
+
+class PrefetchLoader:
+    """Background-thread prefetch over any re-iterable batch loader: one
+    worker keeps up to ``depth`` collated batches ready while the device
+    consumes the current one. One worker keeps batch order and shuffle
+    determinism; a worker exception is raised again in the consumer."""
+
+    def __init__(self, loader, depth: int = 2):
+        if depth < 1:
+            raise ValueError(f"prefetch depth must be >= 1, got {depth}")
+        self.loader = loader
+        self.depth = depth
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def __iter__(self) -> Iterator[Any]:
+        import queue
+        import threading
+
+        q: "queue.Queue" = queue.Queue(maxsize=self.depth)
+        stop = threading.Event()
+        end, err = object(), object()
+
+        def put(item) -> bool:
+            """Enqueue unless the consumer stopped; never blocks forever."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for batch in self.loader:
+                    if not put(batch):
+                        return  # cancelled: drop the rest of the epoch
+                put(end)
+            except BaseException as e:  # raised again in the consumer
+                put((err, e))
+
+        t = threading.Thread(target=worker, daemon=True, name="trlx-prefetch")
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is end:
+                    return
+                if isinstance(item, tuple) and len(item) == 2 and item[0] is err:
+                    raise item[1]
+                yield item
+        finally:
+            # the consumer stopped (break, exception or exhaustion): cancel
+            # the worker between batches
+            stop.set()
+            try:
+                q.get_nowait()  # unblock a put in flight
+            except queue.Empty:
+                pass
+            try:
+                t.join(timeout=5)
+            except Exception:
+                # interpreter shutdown: an infinite prompt iterator over this
+                # loader is collected after threading's teardown, when the
+                # daemon worker is already gone and the join cannot say so
+                pass
 
 
 class BasePipeline:

@@ -7,24 +7,17 @@ same warm start: ``min(400, 2 · total_steps)`` SFT steps on the task's
 walk corpus, whose backbone is then copied into the policy and into its
 full frozen reference (``num_layers_unfrozen: -1``).
 
-Changes from the example's config:
+It runs the example's preset as it stands: rollouts on the serial dense
+path (``train.continuous_batching: false``) pipelined at
+``train.rollout_pipeline_depth`` 2, the staged loss
+(``method.loss_kernel: xla``), and the example's ``method.chunk_size`` of
+128, so a collection keeps whole chunks in prompt order.
 
-- ``train.continuous_batching: true``. The example's preset collects
-  rollouts on the JAX serial dense path, which the port does not run; the
-  port collects on its paged engine. The engine and loss settings beside
-  it (``engine.backend: paged``, the engine kernels and
-  ``method.loss_kernel: pallas``) name the kernels the port runs; the JAX
-  package holds them equal to its defaults;
-- the warm start's evaluation samples the task's 9 new tokens, not the
-  SFT preset's 40: 40 run past the model's 16 positions, where the JAX
-  embedding lookup reads NaN rows (``jnp.take`` fills out-of-range rows)
-  and the port's raises. Nothing reads that evaluation.
-
-With ``method.num_rollouts`` below ``method.chunk_size``, a collection on
-the continuous path keeps the sequences that finish first (the JAX
-continuous path does the same), the shortest answers of each chunk; the
-serial path keeps the first ``num_rollouts`` in prompt order. Set
-``chunk_size`` to ``num_rollouts`` there to keep whole chunks.
+One change from the example: the warm start's evaluation samples the
+task's 9 new tokens, not the SFT preset's 40. 40 run past the model's 16
+positions, where the JAX embedding lookup reads NaN rows (``jnp.take``
+fills out-of-range rows) and the port's raises. Nothing reads that
+evaluation.
 
 Run (on the GPU, or on the device named second; ``hparams`` are dot-path
 overrides); the last line printed is the optimality curve, one value per
@@ -39,14 +32,6 @@ import trlx_tpu_torch.trlx as trlx
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.data.default_configs import default_ppo_config, default_sft_config
 from trlx_tpu_torch.tasks.randomwalks import generate_random_walks
-
-# the port's paged engine and fused loss kernels (see the module docstring)
-PORT_SETTINGS = dict(
-    train=dict(continuous_batching=True),
-    engine=dict(backend="paged", decode_kernel="pallas", prefill_kernel="pallas"),
-    method=dict(loss_kernel="pallas"),
-)
-
 
 def model_settings(alphabet: str) -> Dict[str, Any]:
     return dict(
@@ -114,7 +99,7 @@ def main(hparams: Optional[Dict[str, Any]] = None, device: Any = None):
             init_kl_coef=0.05,
             gen_kwargs=dict(max_new_tokens=9, top_k=0, top_p=1.0, do_sample=True),
         ),
-    ).evolve(**PORT_SETTINGS)
+    )
     if hparams:
         config = TRLConfig.update(config, hparams)
 

@@ -57,14 +57,18 @@ class BaseRLTrainer:
         reward_fn: Optional[Callable] = None,
         metric_fn: Optional[Callable] = None,
         stop_sequences: Optional[List[str]] = None,
+        logit_mask: Any = None,
         **kwargs,
     ):
-        if kwargs:  # e.g. logit_mask: transition logit masks are not ported
+        if kwargs:
             raise ValueError(f"unknown or unported trainer arguments {sorted(kwargs)}")
         self.config = config
         self.reward_fn = reward_fn
         self.metric_fn = metric_fn
         self.stop_sequences = stop_sequences or []
+        # [V, V] bool: logit_mask[last_token, next_token] = allowed, applied
+        # to every sampling step (None: unconstrained)
+        self.logit_mask = logit_mask
 
     @abstractmethod
     def learn(self):

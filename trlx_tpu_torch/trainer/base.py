@@ -1,6 +1,6 @@
 """Shared trainer of the port: model and optimizer set-up, the train step,
-generation through the paged engine, evaluation, the learn loop and
-checkpoints.
+generation on the serial dense engine and on the paged engine, evaluation,
+the learn loop and checkpoints.
 
 Port of ``trlx_tpu/trainer/base.py`` (``TPUBaseTrainer``) as
 :class:`TorchBaseTrainer`, for the settings this slice runs:
@@ -13,22 +13,32 @@ Port of ``trlx_tpu/trainer/base.py`` (``TPUBaseTrainer``) as
   ``gradients/global_norm`` covers the frozen layers too; frozen
   parameters get no update and no weight decay (they are not in the
   optimizer). ``learning_rate`` is the schedule at the step count before
-  the update;
-- rollouts and evaluation generate through the paged
-  ``ContinuousEngine`` (``engine/core.py``) on the CUDA kernels; with
-  ``engine.speculative: k`` and ``model.draft_model_path`` its segments
-  run draft-propose → verify → accept rounds, the draft a bare LM built
-  from ``train.seed + 1``;
+  the update. With ``train.grad_accum`` k > 1 the batch splits into k
+  micro-batches whose gradients and stats are averaged (JAX's scan: each
+  micro-batch whitens its own advantages);
+- ``generate``: a rollout trainer (PPO) with ``train.continuous_batching:
+  false``, the presets' setting, samples on the serial dense
+  :class:`~trlx_tpu_torch.engine.core.SerialEngine` around
+  ``ops/sampling.py::generate``, or, with ``model.draft_model_path`` set,
+  around ``ops/speculative.py::generate_speculative`` (``model.draft_gamma``
+  draft tokens a round); with ``continuous_batching: true`` it runs the
+  paged ``ContinuousEngine`` on the CUDA kernels, whose segments run
+  draft-propose → verify → accept rounds with ``engine.speculative: k``.
+  The offline trainers (SFT, ILQL) collect nothing and evaluate on the
+  paged engine whatever ``continuous_batching`` says. Both engines take
+  the algorithm's ``adjust_logits`` hook and the transition ``logit_mask``;
+  the draft is a bare LM built from ``train.seed + 1``;
 - ``learn`` runs the JAX loop (epochs → batches → updates per batch,
   interval and final checkpoints, interval and final evaluation) without
-  its observability, resilience and serving hooks;
-- ``save`` writes one ``torch.save`` file of model, optimizer, step and
-  the trainer's extra state, at the JAX loop's save points.
+  its observability, resilience and serving hooks, the batches collated
+  ``train.prefetch_batches`` ahead on a background thread;
+- ``save`` commits one ``torch.save`` file of model, optimizer, step and
+  the trainer's host state (the rollout seed stream, torch's generators,
+  the prompt-stream position) atomically (``utils/checkpoint.py``);
+  ``train.resume_from_checkpoint`` loads the newest committed
+  ``checkpoint_<step>`` (:meth:`TorchBaseTrainer.maybe_resume`).
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
-``train.rollout_pipeline_depth`` and ``train.prefetch_batches`` only
-overlap host and device work (the JAX package pins their results as equal
-at any depth); the port runs both at depth 0 and says so once.
 """
 
 import dataclasses
@@ -42,19 +52,32 @@ import numpy as np
 import torch
 
 from trlx_tpu_torch.data.tokenizer import from_config as tokenizer_from_config
-from trlx_tpu_torch.engine.core import ContinuousEngine
+from trlx_tpu_torch.engine.core import ContinuousEngine, SerialEngine
 from trlx_tpu_torch.models.builder import build_causal_lm, trainable_mask
 from trlx_tpu_torch.models.transformer import config_from_spec
 from trlx_tpu_torch.ops.kernel_utils import resolve_device
-from trlx_tpu_torch.ops.paged_kv import PagedSpec, num_table_blocks
-from trlx_tpu_torch.ops.sampling import GenerationConfig
+from trlx_tpu_torch.ops.paged_kv import PagedSpec, dense_kv_bytes, num_table_blocks
+from trlx_tpu_torch.ops.sampling import (
+    GenerationConfig,
+    GenerationOutput,
+    apply_transition_mask,
+    generate as dense_generate,
+)
 from trlx_tpu_torch.ops.slot_refill import make_slot_refill_fns
+from trlx_tpu_torch.ops.speculative import generate_speculative, reject_spec_hooks
+from trlx_tpu_torch.pipeline import PrefetchLoader
 from trlx_tpu_torch.trainer import BaseRLTrainer
 from trlx_tpu_torch.utils import (
     filter_non_scalars,
     get_optimizer,
     get_scheduler,
     significant,
+)
+from trlx_tpu_torch.utils.checkpoint import (
+    _checkpoint_step_dirs,
+    is_committed,
+    load_state,
+    save_state,
 )
 
 logger = logging.getLogger(__name__)
@@ -65,10 +88,30 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch
 _PARALLEL_AXES = ("fsdp", "pipe", "model", "sequence", "expert", "dcn_data_parallelism")
 
 
-def validate_speculative(config) -> None:
-    """The JAX trainer's speculative-engine checks, each its own error:
-    ``engine.speculative >= 0``, a draft model, the paged backend."""
-    k = int(config.engine.speculative)
+def validate_engine(config) -> None:
+    """The JAX trainer's engine checks, each its own error: the paged-only
+    knobs (prefix cache, the paged kernels, chunked prefill) need
+    ``engine.backend: paged`` whichever path runs; ``engine.speculative
+    >= 0``, and a speculative engine needs a draft model and the paged
+    backend."""
+    e = config.engine
+    if e.prefix_cache and e.backend != "paged":
+        raise ValueError("engine.prefix_cache: true requires engine.backend: paged — dense "
+                         "per-slot KV caches cannot share blocks")
+    for knob in ("decode_kernel", "prefill_kernel"):
+        value = getattr(e, knob)
+        if value not in ("xla", "pallas"):
+            raise ValueError(f"unknown engine.{knob} {value!r} (xla | pallas)")
+        if value == "pallas" and e.backend != "paged":
+            raise ValueError(f"engine.{knob}: pallas is the in-place paged kernel — it "
+                             "requires engine.backend: paged")
+    if int(e.prefill_chunk) < 0:
+        raise ValueError(f"engine.prefill_chunk {e.prefill_chunk} must be >= 0 "
+                         "(0 = monolithic prefill)")
+    if int(e.prefill_chunk) and e.backend != "paged":
+        raise ValueError("engine.prefill_chunk (chunked-prefill scheduling) requires "
+                         "engine.backend: paged")
+    k = int(e.speculative)
     if k < 0:
         raise ValueError(f"engine.speculative {k} must be >= 0 (0 = off, k = draft "
                          "tokens proposed per verify round)")
@@ -80,7 +123,7 @@ def validate_speculative(config) -> None:
             "model.draft_model_path — the engine needs a draft model to propose "
             "tokens for the target to verify"
         )
-    if config.engine.backend != "paged":
+    if e.backend != "paged":
         raise ValueError(
             "engine.speculative requires engine.backend: paged — the verify pass "
             "commits accepted K/V through the block table with drop-mode writes"
@@ -89,46 +132,51 @@ def validate_speculative(config) -> None:
 
 def reject_unported(config, collects_rollouts: bool) -> None:
     """Raise ``ValueError`` naming the first setting this slice does not
-    run (gradient accumulation, parallel axes, scanned or rematerialised
-    layers, seq2seq, LoRA, resume, a tracker, serving inside a trainer).
+    run (parallel axes, scanned or rematerialised layers, seq2seq, LoRA, a
+    tracker, profiles and rollout logs, serving inside a trainer, the
+    update guard, fault plans and the checkpoint retention ring). The port
+    installs no preemption handler, so it writes no emergency checkpoint,
+    and runs on one device, so nothing reshards on restore.
 
-    ``collects_rollouts`` (PPO) adds the rollout settings: the serial
-    dense rollout path — which also holds the serial speculative sampler
-    —, async collection, the engine's prefix cache / chunked prefill /
-    gather kernels and the staged loss. The offline trainers (SFT, ILQL)
-    collect nothing: the JAX package evaluates them on its serial dense
-    engine whatever ``engine:`` says, and the port on the paged engine
-    with its kernels, so those settings do not reach them."""
+    ``collects_rollouts`` (PPO) adds the rollout settings: async
+    collection, the loss kernel's name, and — only with
+    ``train.continuous_batching: true``, as the serial dense path ignores
+    them in JAX too — the paged engine's backend, prefix cache, chunked
+    prefill and gather kernels. The offline trainers (SFT, ILQL) collect
+    nothing: they evaluate on the paged engine, so those settings do not
+    reach them."""
     t, e, m, par, res = (config.train, config.engine, config.model, config.parallel,
                          config.resilience)
     checks = []
     if collects_rollouts:
         loss_kernel = getattr(config.method, "loss_kernel", None)
         checks += [
-            (not t.continuous_batching, "train.continuous_batching: false (the serial dense "
-             "rollout path) is not ported; the port collects through the paged engine"),
             (config.async_rl.enabled, "async_rl.enabled: async collection is not ported"),
-            (e.backend != "paged", f"engine.backend {e.backend!r}: the port's engine is paged"),
-            (e.prefix_cache, "engine.prefix_cache: the prefix cache is not ported"),
-            (int(e.prefill_chunk) != 0, "engine.prefill_chunk: chunked prefill is not ported"),
-            (e.decode_kernel != "pallas", f"engine.decode_kernel {e.decode_kernel!r}: the "
-             "port runs the paged-decode kernel ('pallas'); the gather path is not ported"),
-            (e.prefill_kernel != "pallas", f"engine.prefill_kernel {e.prefill_kernel!r}: the "
-             "port runs the paged-prefill kernel ('pallas'); the gather path is not ported"),
-            (loss_kernel != "pallas", f"method.loss_kernel {loss_kernel!r}: the port runs the "
-             "fused PPO loss kernels ('pallas'); the staged loss path is not ported"),
+            (loss_kernel not in ("xla", "pallas"), f"method.loss_kernel {loss_kernel!r}: "
+             "'xla' (the staged loss) or 'pallas' (the fused loss kernels)"),
         ]
+        if t.continuous_batching:
+            checks += [
+                (e.backend != "paged", f"engine.backend {e.backend!r}: the port's "
+                 "continuous engine is paged"),
+                (e.prefix_cache, "engine.prefix_cache: the prefix cache is not ported"),
+                (int(e.prefill_chunk) != 0, "engine.prefill_chunk: chunked prefill is not "
+                 "ported"),
+                (e.decode_kernel != "pallas", f"engine.decode_kernel {e.decode_kernel!r}: "
+                 "the port runs the paged-decode kernel ('pallas'); the gather path is not "
+                 "ported"),
+                (e.prefill_kernel != "pallas", f"engine.prefill_kernel {e.prefill_kernel!r}: "
+                 "the port runs the paged-prefill kernel ('pallas'); the gather path is not "
+                 "ported"),
+            ]
     checks += [
         (config.serve.enabled, "serve.enabled: serving inside a trainer is not ported"),
-        (int(t.grad_accum) > 1, "train.grad_accum > 1: gradient accumulation is not ported"),
         (int(par.data) not in (-1, 1), "parallel.data > 1: the port runs on one device"),
         (par.scan_layers, "parallel.scan_layers: scanned layers are not ported"),
         (par.remat != "none", f"parallel.remat {par.remat!r}: rematerialisation is not ported"),
         (m.model_arch_type != "causal",
          f"model.model_arch_type {m.model_arch_type!r}: seq2seq is not ported"),
         (bool(m.peft_kwargs), "model.peft_kwargs: LoRA/PEFT is not ported"),
-        (t.resume_from_checkpoint, "train.resume_from_checkpoint: checkpoint load and "
-         "resume are not ported"),
         (t.tracker is not None, f"train.tracker {t.tracker!r}: the port logs to an "
          "in-memory tracker only (tracker: null)"),
         (t.profile_dir is not None, "train.profile_dir: profiler traces are not ported"),
@@ -137,6 +185,8 @@ def reject_unported(config, collects_rollouts: bool) -> None:
         (res.update_guard != "off", f"resilience.update_guard {res.update_guard!r}: the "
          "update guard is not ported"),
         (res.fault_plan is not None, "resilience.fault_plan: fault injection is not ported"),
+        (int(res.keep_last_n) > 0, "resilience.keep_last_n: the checkpoint retention ring "
+         "is not ported"),
     ]
     checks += [
         (int(getattr(par, axis)) > 1, f"parallel.{axis} > 1: the port runs on one device")
@@ -164,6 +214,37 @@ class MemoryTracker:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+class HostCopy:
+    """Device → host copies started on the calling thread: each CUDA
+    tensor is copied ``non_blocking`` into a pinned host buffer and one
+    event is recorded after the copies. :meth:`wait` synchronizes on that
+    event only, so a pipeline worker that lands a chunk never queues
+    behind work the main thread has launched since; host arrays and CPU
+    tensors pass through. The caller keeps the device tensors referenced
+    until the chunk is finalized."""
+
+    def __init__(self, arrays: Dict[str, Any]):
+        self._event = None
+        self._host: Dict[str, Any] = {}
+        for k, v in arrays.items():
+            if isinstance(v, torch.Tensor) and v.is_cuda:
+                buf = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                buf.copy_(v, non_blocking=True)
+                self._host[k] = buf
+                if self._event is None:
+                    self._event = torch.cuda.Event()
+            else:
+                self._host[k] = v
+        if self._event is not None:
+            self._event.record()
+
+    def wait(self) -> Dict[str, np.ndarray]:
+        if self._event is not None:
+            self._event.synchronize()
+        return {k: v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+                for k, v in self._host.items()}
 
 
 def host_stats(stats: Dict[str, Any]) -> Dict[str, float]:
@@ -201,14 +282,12 @@ class TorchBaseTrainer(BaseRLTrainer):
         **kwargs,
     ):
         super().__init__(config, reward_fn, metric_fn, stop_sequences, **kwargs)
-        validate_speculative(config)
+        validate_engine(config)
         reject_unported(config, self.collects_rollouts)
-        depths = {k: int(getattr(config.train, k) or 0)
-                  for k in ("rollout_pipeline_depth", "prefetch_batches")}
-        if any(depths.values()):
-            logger.info(
-                "train.rollout_pipeline_depth / train.prefetch_batches %s only overlap host "
-                "and device work; the port runs both at depth 0", depths,
+        if config.train.batch_size % max(1, int(config.train.grad_accum)) != 0:
+            raise ValueError(
+                f"train.batch_size ({config.train.batch_size}) must be divisible "
+                f"by train.grad_accum ({config.train.grad_accum})"
             )
         self.device = resolve_device(device)
         self.tokenizer = tokenizer_from_config(config.tokenizer)
@@ -257,8 +336,13 @@ class TorchBaseTrainer(BaseRLTrainer):
             if getattr(config.method, "gen_experience_kwargs", None) else None
         )
         self._generate_fns: Dict[Any, Any] = {}
-        self._warned_cb_draft = False
-        self.last_generate_stats: Dict[str, float] = {}  # the last generate's engine stats
+        # the last generate's engine stats, and its device-complete seconds
+        self.last_generate_stats: Dict[str, float] = {}
+        self.last_generate_time = 0.0
+        # prompt chunks drawn from the prompt iterator: a checkpoint records
+        # it and a resume replays that many draws
+        self._prompt_chunks_drawn = 0
+        self._resume_done = False
         self._last_batch_host: Any = None
         self._last_batch_device: Any = None
         self.tracker = MemoryTracker()
@@ -324,12 +408,40 @@ class TorchBaseTrainer(BaseRLTrainer):
     def _drop_batch_memo(self) -> None:
         self._last_batch_host = self._last_batch_device = None
 
+    def accumulate_grads(self, arrays: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        """Set every parameter's ``.grad`` for one device batch and return
+        the ``loss_fn`` stats. With ``train.grad_accum`` k > 1 the rows split
+        into k consecutive micro-batches, each a ``loss_fn`` pass of its own
+        (its own whitening and token means); gradients and stats are summed
+        over them and divided by k, in JAX's order."""
+        accum = max(1, int(self.config.train.grad_accum))
+        self.model.zero_grad(set_to_none=True)
+        if accum == 1:
+            loss, stats = self.loss_fn(arrays)
+            loss.backward()
+            return stats
+        rows = next(iter(arrays.values())).shape[0]
+        if rows % accum:
+            raise ValueError(f"a batch of {rows} rows does not split into "
+                             f"train.grad_accum ({accum}) micro-batches")
+        size = rows // accum
+        total: Dict[str, Any] = {}
+        for i in range(accum):
+            loss, stats = self.loss_fn({k: v[i * size:(i + 1) * size]
+                                        for k, v in arrays.items()})
+            loss.backward()
+            for k, v in stats.items():
+                v = v.detach() if isinstance(v, torch.Tensor) else v
+                total[k] = v if i == 0 else total[k] + v
+        for p in self.model.parameters():
+            if p.grad is not None:
+                p.grad.div_(accum)
+        return {k: v / accum for k, v in total.items()}
+
     def train_step(self, batch) -> Dict[str, Any]:
         """One optimization step on a host batch; returns device stats."""
         arrays = self._device_batch(batch)
-        self.model.zero_grad(set_to_none=True)
-        loss, stats = self.loss_fn(arrays)
-        loss.backward()
+        stats = self.accumulate_grads(arrays)
         gnorm = torch.nn.utils.get_total_norm(
             [p.grad for p in self.model.parameters() if p.grad is not None])
         lr = float(self.schedule(self.step))
@@ -396,20 +508,16 @@ class TorchBaseTrainer(BaseRLTrainer):
         if gamma and self.draft_model is None:
             raise ValueError("engine.speculative requires model.draft_model_path (no "
                              "draft model was built)")
-        if self.draft_model is not None and not gamma and not self._warned_cb_draft:
-            self._warned_cb_draft = True
-            logger.warning(
-                "model.draft_model_path is set but engine.speculative is 0: the engine "
-                "runs plain decode segments (set engine.speculative to propose k "
-                "tokens per verify round)"
-            )
         paged = self._resolve_paged_spec(batch_size, prompt_len, gen_config, gamma)
         key = ("slot_refill", gen_config, extra_kwargs, batch_size, prompt_len,
                segment_len, paged, gamma)
         if key not in self._generate_fns:
+            algo_adjust = self.adjust_logits_fn(dict(extra_kwargs))
+            if gamma:
+                reject_spec_hooks(self.logit_mask, algo_adjust)
             self._generate_fns[key] = make_slot_refill_fns(
                 self.tcfg, batch_size, prompt_len, gen_config,
-                adjust_logits=self.adjust_logits_fn(dict(extra_kwargs)),
+                adjust_logits=self._compose_logit_mask(algo_adjust),
                 segment_len=segment_len, paged=paged, device=self.device,
                 speculative=gamma, draft_cfg=self.draft_tcfg if gamma else None,
             )
@@ -446,17 +554,136 @@ class TorchBaseTrainer(BaseRLTrainer):
     def _row_seeds(self, rows: int) -> np.ndarray:
         return self._rollout_seeds.randint(0, 2**31 - 1, size=rows).astype(np.int64)
 
+    def _compose_logit_mask(self, adjust: Optional[Callable]) -> Optional[Callable]:
+        """Chain the transition ``logit_mask`` after the algorithm's logit
+        hook: tokens whose ``mask[last_token, next_token]`` is False sample
+        at -1e10."""
+        mask = self._logit_mask_tensor()
+        if mask is None:
+            return adjust
+
+        def fn(step_out: Dict[str, Any], logits: torch.Tensor) -> torch.Tensor:
+            if adjust is not None:
+                logits = adjust(step_out, logits)
+            return apply_transition_mask(mask, step_out["last_tokens"], logits)
+
+        return fn
+
+    def _logit_mask_tensor(self) -> Optional[torch.Tensor]:
+        if self.logit_mask is None:
+            return None
+        return torch.as_tensor(np.asarray(self.logit_mask), dtype=torch.bool,
+                               device=self.device)
+
+    def _serial_rollouts(self) -> bool:
+        """Does ``generate`` run the serial dense engine? For a rollout
+        trainer with ``train.continuous_batching: false``; the offline
+        trainers evaluate on the paged engine whatever it says."""
+        return self.collects_rollouts and not self.config.train.continuous_batching
+
+    def _get_generate_fn(self, gen_config: GenerationConfig,
+                         extra_kwargs: Tuple[Tuple[str, Any], ...] = ()) -> Callable:
+        """The serial rollout program ``fn(params, input_ids, attention_mask,
+        seeds)`` of one sampling config (cached): the dense ``generate``
+        with the composed logit hooks, or with a draft model the
+        speculative sampler (``params`` the ``(target, draft)`` pair), which
+        raises on either hook."""
+        key = ("serial", gen_config, extra_kwargs)
+        if key not in self._generate_fns:
+            algo_adjust = self.adjust_logits_fn(dict(extra_kwargs))
+            if self.draft_model is not None:
+                gamma = int(self.config.model.draft_gamma)
+                mask = self._logit_mask_tensor()
+
+                def fn(params, input_ids, attention_mask, seeds):
+                    target, draft = params
+                    return generate_speculative(
+                        target, draft, input_ids, attention_mask, seeds, gen_config,
+                        gamma=gamma, return_stats=True, transition_mask=mask,
+                        adjust_logits=algo_adjust)
+            else:
+                adjust = self._compose_logit_mask(algo_adjust)
+
+                def fn(params, input_ids, attention_mask, seeds):
+                    return dense_generate(params, input_ids, attention_mask, seeds,
+                                          gen_config, adjust_logits=adjust)
+
+            self._generate_fns[key] = fn
+        return self._generate_fns[key]
+
+    def _get_serial_engine(self, gen_config, extra_kwargs) -> SerialEngine:
+        """The :class:`SerialEngine` around this config's rollout program
+        (cached); it takes the live policy (and draft) at every call."""
+        key = ("serial_engine", gen_config, extra_kwargs)
+        if key not in self._generate_fns:
+            self._generate_fns[key] = SerialEngine(
+                self._get_generate_fn(gen_config, extra_kwargs), None,
+                self.tokenizer.pad_token_id)
+        engine = self._generate_fns[key]
+        engine.params = (self.model if self.draft_model is None
+                         else (self.model, self.draft_model))
+        return engine
+
+    def _dense_kv_gauge(self, prompt_shape: Tuple[int, int], gen_config) -> Dict[str, float]:
+        """``memory/kv_cache_bytes`` of the serial path: the dense
+        ``[B, P + N]`` cache, or under speculation the target's and the
+        draft's caches of ``P + N + draft_gamma`` columns each (what
+        ``ops/speculative.py`` allocates)."""
+        B, P = prompt_shape
+        S = P + gen_config.max_new_tokens
+        if self.draft_model is None:
+            total = dense_kv_bytes(self.tcfg, B, S)
+        else:
+            S += int(self.config.model.draft_gamma)
+            total = dense_kv_bytes(self.tcfg, B, S) + dense_kv_bytes(self.draft_tcfg, B, S)
+        return {"memory/kv_cache_bytes": float(total)}
+
+    @torch.no_grad()
+    def generate_serial(self, input_ids: np.ndarray, attention_mask: np.ndarray,
+                        eval_mode: bool = False, **kwargs) -> GenerationOutput:
+        """One serial dense generate of a left-padded prompt batch on the
+        device (per-row seeds from the rollout seed stream); the outputs
+        stay on the device. Sets :attr:`last_generate_time` (device-complete
+        seconds) and :attr:`last_generate_stats` (the KV gauge and, under
+        speculation, ``rollout/spec_acceptance_rate`` and
+        ``rollout/spec_rounds``)."""
+        gen_config, extra = self._resolve_gen_config(eval_mode, **kwargs)
+        input_ids = np.asarray(input_ids, np.int64)
+        seeds = self._row_seeds(input_ids.shape[0])
+        engine = self._get_serial_engine(gen_config, extra)
+        stats = self._dense_kv_gauge(input_ids.shape, gen_config)
+        t0 = time.perf_counter()
+        out = engine.generate(torch.as_tensor(input_ids),
+                              torch.as_tensor(np.asarray(attention_mask, np.int64)),
+                              torch.as_tensor(seeds))
+        if type(out) is tuple:  # the speculative sampler: (output, stats)
+            out, spec = out
+            stats["rollout/spec_acceptance_rate"] = float(spec["acceptance_rate"])
+            stats["rollout/spec_rounds"] = float(spec["rounds"])
+        _sync(self.device)
+        self.last_generate_time = time.perf_counter() - t0
+        self.last_generate_stats = stats
+        return out
+
     @torch.no_grad()
     def generate(self, input_ids: np.ndarray, attention_mask: Optional[np.ndarray] = None,
                  eval_mode: bool = False, **kwargs) -> Dict[str, np.ndarray]:
-        """Sample continuations for a left-padded prompt batch through the
-        paged engine. Returns host arrays ``response_tokens``,
-        ``response_mask``, ``response_logprobs`` and ``response_values``
-        (``[b, N]``, in the batch's row order)."""
-        gen_config, extra = self._resolve_gen_config(eval_mode, **kwargs)
+        """Sample continuations for a left-padded prompt batch: on the
+        serial dense engine for a rollout trainer with
+        ``train.continuous_batching: false`` (:meth:`generate_serial`),
+        else through the paged engine. Returns host arrays
+        ``response_tokens``, ``response_mask``, ``response_logprobs`` and
+        ``response_values`` (``[b, N]``, in the batch's row order)."""
         input_ids = np.asarray(input_ids, np.int64)
         if attention_mask is None:
             attention_mask = (input_ids != self.tokenizer.pad_token_id).astype(np.int64)
+        if self._serial_rollouts():
+            out = self.generate_serial(input_ids, attention_mask, eval_mode, **kwargs)
+            return {"response_tokens": out.response_tokens.cpu().numpy(),
+                    "response_mask": out.response_mask.cpu().numpy(),
+                    "response_logprobs": out.response_logprobs.cpu().numpy(),
+                    "response_values": out.response_values.cpu().numpy()}
+        gen_config, extra = self._resolve_gen_config(eval_mode, **kwargs)
         rows, width = input_ids.shape
         engine = self._cb_make_engine(gen_config, extra, rows, width,
                                       tag="eval" if eval_mode else "generate")
@@ -471,6 +698,9 @@ class TorchBaseTrainer(BaseRLTrainer):
             "response_logprobs": np.stack([c.logprobs for c in done]),
             "response_values": np.stack([c.values for c in done]),
         }
+
+    def generate_eval(self, input_ids, attention_mask=None, **kwargs) -> Dict[str, np.ndarray]:
+        return self.generate(input_ids, attention_mask, eval_mode=True, **kwargs)
 
     # ------------------------------------------------------------------
     # decoding and evaluation
@@ -546,9 +776,49 @@ class TorchBaseTrainer(BaseRLTrainer):
 
     def learn(self) -> Dict[str, Any]:
         """Epochs → batches → ``n_updates_per_batch`` updates per batch, with
-        interval checkpoints, interval evaluation and best-reward saves."""
+        interval checkpoints, interval evaluation and best-reward saves.
+        Resumes first when ``train.resume_from_checkpoint`` is set and
+        :meth:`maybe_resume` has not run yet, and closes the prompt
+        iterator at the end."""
         self.prepare_learning()
-        return self._learn_loop()
+        self.maybe_resume()
+        try:
+            return self._learn_loop()
+        finally:
+            self._close_prompt_iterator()
+
+    def _close_prompt_iterator(self) -> None:
+        """Close the prompt iterator at the end of learning, which stops
+        its prefetch worker (a collection after ``learn`` needs a fresh
+        ``add_prompt_pipeline``)."""
+        iterator = getattr(self, "prompt_iterator", None)
+        if iterator is not None and hasattr(iterator, "close"):
+            iterator.close()
+
+    def _maybe_prefetch(self, loader, depth: Optional[int] = None):
+        """``loader`` collated ``depth`` batches ahead on a background
+        thread (default ``train.prefetch_batches``; 0 leaves it as it is)."""
+        if depth is None:
+            depth = int(self.config.train.prefetch_batches or 0)
+        if depth > 0 and loader is not None:
+            return PrefetchLoader(loader, depth)
+        return loader
+
+    def _maybe_prefetch_prompts(self, loader):
+        """The prompt loader prefetched ``train.rollout_pipeline_depth``
+        chunks ahead: one worker keeps the order, so the rollouts do not
+        change."""
+        return self._maybe_prefetch(loader, int(self.config.train.rollout_pipeline_depth or 0))
+
+    def _count_prompt_chunks(self, iterator):
+        """Count every prompt chunk the trainer draws into
+        ``_prompt_chunks_drawn``: a checkpoint records the count, and a
+        resume draws and drops that many, so the prompt stream (and the
+        loader's per-epoch shuffle behind it) sits where the uninterrupted
+        run has it."""
+        for chunk in iterator:
+            self._prompt_chunks_drawn += 1
+            yield chunk
 
     def _checkpoint_path(self) -> str:
         width = len(str(self.total_steps))
@@ -559,7 +829,7 @@ class TorchBaseTrainer(BaseRLTrainer):
         results = self.evaluate()
         self.tracker.log(results, step=self.iter_count)
         for _ in range(self.config.train.epochs):
-            for batch in self.train_dataloader:
+            for batch in self._maybe_prefetch(self.train_dataloader):
                 for _ in range(self.n_updates_per_batch):
                     t0 = time.perf_counter()
                     device_stats = self.train_step(batch)
@@ -607,14 +877,97 @@ class TorchBaseTrainer(BaseRLTrainer):
     def _extra_checkpoint_state(self) -> Dict[str, Any]:
         return {}
 
+    def _restore_extra_checkpoint_state(self, extra: Dict[str, Any]) -> None:
+        pass
+
+    def _rng_state(self) -> Dict[str, Any]:
+        """The rollout seed stream and torch's generators, as tensors and
+        plain numbers (loadable with ``weights_only``)."""
+        name, keys, pos, has_gauss, cached = self._rollout_seeds.get_state()
+        state = {"rollout_seeds": {"name": name, "keys": torch.as_tensor(keys.astype(np.int64)),
+                                   "pos": int(pos), "has_gauss": int(has_gauss),
+                                   "cached_gaussian": float(cached)},
+                 "torch": torch.get_rng_state()}
+        if self.device.type == "cuda":
+            state["torch_cuda"] = torch.cuda.get_rng_state(self.device)
+        return state
+
+    def _restore_rng_state(self, state: Dict[str, Any]) -> None:
+        seeds = state["rollout_seeds"]
+        self._rollout_seeds.set_state((seeds["name"], seeds["keys"].numpy().astype(np.uint32),
+                                       seeds["pos"], seeds["has_gauss"],
+                                       seeds["cached_gaussian"]))
+        torch.set_rng_state(state["torch"])
+        if "torch_cuda" in state and self.device.type == "cuda":
+            torch.cuda.set_rng_state(state["torch_cuda"], self.device)
+
     def save(self, directory: Optional[str] = None, **kwargs) -> None:
-        """``torch.save`` of model, optimizer, step and the trainer's extra
-        state into ``directory/state.pt``."""
+        """Commit model, optimizer, step and the trainer's host state (its
+        extra state, the rollout seed stream, torch's generators and the
+        prompt-stream position) into ``directory/state.pt``
+        (``utils/checkpoint.py``: staged file, marker, rename)."""
         directory = directory or self.config.train.checkpoint_dir
-        os.makedirs(directory, exist_ok=True)
-        extra = {"iter_count": self.iter_count, "best_reward": self.best_reward}
+        extra = {"iter_count": self.iter_count, "best_reward": self.best_reward,
+                 "prompt_chunks_drawn": self._prompt_chunks_drawn}
         extra.update(self._extra_checkpoint_state())
-        torch.save({"model": self.model.state_dict(),
-                    "optimizer": self.optimizer.state_dict(),
-                    "step": self.step, "extra": extra},
-                   os.path.join(directory, "state.pt"))
+        save_state(directory, {"model": self.model.state_dict(),
+                               "optimizer": self.optimizer.state_dict(),
+                               "step": self.step, "extra": extra,
+                               "rng": self._rng_state()})
+
+    def load(self, directory: Optional[str] = None, **kwargs) -> None:
+        """Restore a committed checkpoint: weights, optimizer, step, the
+        host state, and the prompt stream fast-forwarded to the drawn
+        count it records."""
+        directory = directory or self.config.train.checkpoint_dir
+        state = load_state(directory)
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+        extra = state["extra"]
+        self.iter_count = int(extra.get("iter_count", 0))
+        self.best_reward = float(extra.get("best_reward", self.best_reward))
+        self._restore_extra_checkpoint_state(extra)
+        self._restore_rng_state(state["rng"])
+        # replay the prompt stream: draw and drop until this run's fresh
+        # iterator has drawn what the saved run had
+        target = int(extra.get("prompt_chunks_drawn", 0))
+        iterator = getattr(self, "prompt_iterator", None)
+        if iterator is not None and target > self._prompt_chunks_drawn:
+            logger.info("resume: fast-forwarding the prompt stream by %d chunks",
+                        target - self._prompt_chunks_drawn)
+            while self._prompt_chunks_drawn < target:
+                next(iterator)
+
+    def maybe_resume(self) -> None:
+        """With ``train.resume_from_checkpoint``, load the newest committed
+        ``checkpoint_<step>`` under ``train.checkpoint_dir``; a partial
+        directory (a crash mid-save) is skipped with a warning. Runs once:
+        ``train()`` calls it before the first collection (the rollouts
+        must come from the restored policy) and ``learn()`` again for a
+        trainer driven directly.
+
+        A checkpoint written where a collection follows (the last update
+        of a store) resumes into the uninterrupted run's trajectory: the
+        seed stream, the prompt stream, the KL controller and the running
+        moments are restored. The evaluations draw from the seed stream
+        too, so an evaluation between that checkpoint and the next
+        collection, or an adaptive KL controller's update after the
+        store's last batch, would fork the two runs (as in the JAX
+        package)."""
+        if self._resume_done:
+            return
+        self._resume_done = True
+        if not self.config.train.resume_from_checkpoint:
+            return
+        candidates = []
+        for _step, path in _checkpoint_step_dirs(self.config.train.checkpoint_dir):
+            if is_committed(path):
+                candidates.append(path)
+            else:
+                logger.warning("skipping uncommitted checkpoint %s (a crash mid-save?); the "
+                               "newest committed checkpoint wins", path)
+        if not candidates:
+            return
+        logger.info("Resuming training state from %s", candidates[-1])
+        self.load(candidates[-1])

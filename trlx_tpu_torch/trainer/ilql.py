@@ -15,10 +15,10 @@ Port of the causal part of ``trlx_tpu/trainer/ilql.py``:
   through the engine's ``adjust_logits`` hook, before the sampler's own
   top-k / temperature filters.
 
-``train.rollout_pipeline_depth`` only overlaps tokenization with index
-building in the JAX package (same result at any depth); the port runs at
-depth 0 (``trainer/base.py`` says so once). The seq2seq path is not
-ported.
+``train.rollout_pipeline_depth`` > 0 tokenizes in chunks on a
+:class:`~trlx_tpu_torch.pipeline.rollout_pipeline.RolloutPipeline` worker
+while the calling thread builds the indices of earlier chunks (the same
+store at any depth). The seq2seq path is not ported.
 """
 
 import logging
@@ -31,10 +31,34 @@ from trlx_tpu_torch.data.tokenizer import Tokenizer
 from trlx_tpu_torch.models.heads import sync_target_q_params
 from trlx_tpu_torch.models.ilql import ILQLConfig, batched_index_select
 from trlx_tpu_torch.pipeline.offline_pipeline import ILQLRolloutStorage, tokenize_dialogue
+from trlx_tpu_torch.pipeline.rollout_pipeline import RolloutPipeline
 from trlx_tpu_torch.trainer import register_trainer
 from trlx_tpu_torch.trainer.base import TorchBaseTrainer
 
 logger = logging.getLogger(__name__)
+
+# samples per pipelined tokenization chunk
+_TOKENIZE_CHUNK = 64
+
+
+def _fold_tokenized(samples, tokenizer: Optional[Tokenizer], max_length: int,
+                    pipeline_depth: int, fold: Callable, chunk_size: int = _TOKENIZE_CHUNK) -> None:
+    """Feed ``fold`` the tokenized samples in order: with
+    ``pipeline_depth`` > 0 chunks tokenize on the pipeline worker while
+    ``fold`` drains earlier chunks here (one worker and an ordered drain:
+    the same output as the serial path)."""
+    if tokenizer is None:
+        fold(list(samples))  # already tokenized
+        return
+    if pipeline_depth > 0 and len(samples) > chunk_size:
+        with RolloutPipeline(depth=pipeline_depth, finalize=fold,
+                             name="ilql_tokenize") as pipe:
+            for start in range(0, len(samples), chunk_size):
+                part = samples[start : start + chunk_size]
+                pipe.submit(lambda part=part: [tokenize_dialogue(s, tokenizer, max_length)
+                                               for s in part])
+        return
+    fold([tokenize_dialogue(s, tokenizer, max_length) for s in samples])
 
 
 def _causal_sample_arrays(sample) -> tuple:
@@ -59,13 +83,16 @@ def make_experience(
     rewards: List[float],
     tokenizer: Optional[Tokenizer] = None,
     max_length: int = 2048,
+    pipeline_depth: int = 0,
 ) -> ILQLRolloutStorage:
     """Tokenize samples (already-tokenized dialogues when ``tokenizer`` is
-    None) and shape their rewards into an :class:`ILQLRolloutStorage`."""
+    None) and shape their rewards into an :class:`ILQLRolloutStorage`;
+    ``pipeline_depth`` > 0 overlaps the tokenization with the index
+    building (:func:`_fold_tokenized`)."""
     logger.info("Collecting rollouts")
-    dialogs = (list(samples) if tokenizer is None
-               else [tokenize_dialogue(s, tokenizer, max_length) for s in samples])
-    rows = [_causal_sample_arrays(d) for d in dialogs]
+    rows: list = []
+    _fold_tokenized(samples, tokenizer, max_length, pipeline_depth,
+                    lambda chunk: rows.extend(_causal_sample_arrays(d) for d in chunk))
     all_input_ids = [r[0] for r in rows]
     all_actions_ixs = [r[1] for r in rows]
 
@@ -109,7 +136,9 @@ class ILQLTrainer(TorchBaseTrainer):
         self.store: Optional[ILQLRolloutStorage] = None
 
     def make_experience(self, samples, rewards, max_length: int = 2048) -> None:
-        self.store = make_experience(samples, rewards, self.tokenizer, max_length=max_length)
+        self.store = make_experience(
+            samples, rewards, self.tokenizer, max_length=max_length,
+            pipeline_depth=int(self.config.train.rollout_pipeline_depth or 0))
 
     def loss_fn(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, Any]]:
         input_ids = batch["input_ids"]

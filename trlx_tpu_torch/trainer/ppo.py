@@ -1,27 +1,38 @@
 """PPO trainer: rollout collection with a KL penalty against a frozen
 reference, reward scaling, GAE and the clipped objective.
 
-Port of ``trlx_tpu/trainer/ppo.py`` (``PPOTrainer``) for causal models on
-the continuous-batching path at rollout pipeline depth 0:
+Port of ``trlx_tpu/trainer/ppo.py`` (``PPOTrainer``) for causal models:
 
 - ``__init__`` takes the frozen reference snapshot — the hydra branch
   (copies of the top ``num_layers_unfrozen`` blocks, final norm and tied
   embedding) when ``num_layers_unfrozen > 0``, else a full frozen copy of
   the backbone;
-- ``make_experience`` → ``_collect_continuous``: prompt chunks are queued on
-  the paged ``ContinuousEngine``; finished sequences are harvested at
-  segment boundaries, grouped ``B`` at a time in completion order (the JAX
-  order, so the store holds the same rows in the same order), scored (one
-  policy forward with the value head and the hydra branch replay, on the
-  flash-attention kernels), then scored by ``reward_fn`` on the host and
-  finalized strictly in order (running moments, KL-penalty rewards,
-  ``PPORLElement`` rows);
-- ``loss_fn``: the train-step forward and the PPO loss through the fused
-  loss kernels (``loss_kernel: pallas``; the trainer rejects the staged
-  ``xla`` path), with the ``dist/entropy_hist`` sketch.
+- ``make_experience`` dispatches as JAX's does: ``train.continuous_batching``
+  → :meth:`_collect_continuous`, else ``train.rollout_pipeline_depth`` > 0
+  → :meth:`_collect_pipelined`, else :meth:`_collect_serial`;
+- the serial and pipelined paths run whole prompt chunks: the device side
+  (:meth:`_chunk_device`: one serial dense generate, the scoring forward
+  dispatched on its device outputs, and device → host copies started
+  behind each) on the main thread, the host side
+  (:meth:`_rollout_chunk_host`: landing the copies, string decoding,
+  ``reward_fn``) inline at depth 0 or on the :class:`RolloutPipeline`
+  worker, which launches no device work, and the ordered tail
+  (:meth:`_rollout_chunk_finalize`: running moments, KL-penalty rewards,
+  ``PPORLElement`` rows) on the main thread in submission order, so the
+  store is the same at any depth. The store keeps the first
+  ``num_rollouts`` rows in prompt order;
+- the continuous path queues prompt chunks on the paged
+  ``ContinuousEngine``, groups finished sequences ``B`` at a time in
+  completion order (the JAX order), and runs each group through the same
+  scoring forward, host stage and finalize;
+- ``loss_fn``: the train-step forward (flash-attention kernels on the
+  card), then with ``method.loss_kernel: xla`` the staged loss
+  (``get_advantages_and_returns``, then ``loss``), with ``pallas`` the
+  fused loss kernels; the ``dist/entropy_hist`` sketch.
 """
 
 import copy
+from collections import deque
 from time import perf_counter
 from typing import Any, Dict, Optional, Tuple
 
@@ -32,8 +43,9 @@ from trlx_tpu_torch.data.ppo_types import PPORLElement
 from trlx_tpu_torch.models.builder import hydra_ref_params
 from trlx_tpu_torch.models.ppo import PPOConfig, kl_penalty_rewards_np
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
+from trlx_tpu_torch.pipeline.rollout_pipeline import RolloutPipeline
 from trlx_tpu_torch.trainer import register_trainer
-from trlx_tpu_torch.trainer.base import TorchBaseTrainer, logger
+from trlx_tpu_torch.trainer.base import HostCopy, TorchBaseTrainer, logger
 from trlx_tpu_torch.utils import infinite_loader
 from trlx_tpu_torch.utils.dynamics import entropy_of_logits, loss_sketches
 from trlx_tpu_torch.utils.stats import RunningMoments, logprobs_of_labels
@@ -51,7 +63,7 @@ class PPOTrainer(TorchBaseTrainer):
             raise ValueError("config.method must be PPOConfig")
         if self.reward_fn is None:
             raise ValueError("PPO requires a reward_fn")
-        if 0 < method.num_rollouts < method.chunk_size:
+        if config.train.continuous_batching and 0 < method.num_rollouts < method.chunk_size:
             logger.warning(
                 "method.chunk_size %d > method.num_rollouts %d: each collection keeps "
                 "the first %d sequences of a chunk to finish, i.e. its shortest "
@@ -84,7 +96,8 @@ class PPOTrainer(TorchBaseTrainer):
         loader = pipeline.create_loader(
             self.config.method.chunk_size, shuffle=True, seed=self.config.train.seed
         )
-        self.prompt_iterator = infinite_loader(loader)
+        self.prompt_iterator = self._count_prompt_chunks(
+            infinite_loader(self._maybe_prefetch_prompts(loader)))
 
     def _extra_checkpoint_state(self) -> Dict[str, Any]:
         return {
@@ -97,6 +110,18 @@ class PPOTrainer(TorchBaseTrainer):
                 "count": self.running_moments.count,
             },
         }
+
+    def _restore_extra_checkpoint_state(self, extra: Dict[str, Any]) -> None:
+        if "kl_ctl_value" in extra:
+            self.kl_ctl.value = float(extra["kl_ctl_value"])
+        if "mean_kl" in extra:
+            self.mean_kl = float(extra["mean_kl"])
+        rm = extra.get("running_moments")
+        if rm:
+            self.running_moments.mean = rm["mean"]
+            self.running_moments.std = rm["std"]
+            self.running_moments.var = rm["var"]
+            self.running_moments.count = rm["count"]
 
     @torch.no_grad()
     def _score(self, sequences, prompt_mask, response_tokens, response_mask):
@@ -124,10 +149,12 @@ class PPOTrainer(TorchBaseTrainer):
 
     def _dispatch_score(self, sequences, prompt_mask, response_tokens,
                         response_mask) -> Dict[str, torch.Tensor]:
-        """Run the scoring forward on host rows; the outputs stay on the
-        device until the host stage lands them."""
+        """Run the scoring forward on host rows or on the generation's
+        device tensors; the outputs stay on the device until the host stage
+        lands them."""
         def dev(x):
-            return torch.as_tensor(np.asarray(x), dtype=torch.int64).to(self.device)
+            x = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+            return x.to(device=self.device, dtype=torch.int64)
 
         return self._score(dev(sequences), dev(prompt_mask), dev(response_tokens),
                            dev(response_mask))
@@ -143,24 +170,56 @@ class PPOTrainer(TorchBaseTrainer):
         score_out = self._dispatch_score(sequences, prompt_mask, response_tokens,
                                          response_mask)
         return {"prompt_ids": prompt_ids, "prompt_mask": prompt_mask,
-                "response_tokens": response_tokens, "response_mask": response_mask,
-                "score_out": score_out}
+                "gen_landing": HostCopy({"response_tokens": response_tokens,
+                                         "response_mask": response_mask}),
+                "score_out": score_out, "score_landing": HostCopy(score_out)}
+
+    def _rollout_chunk_device(self, stats: Dict[str, float]) -> Dict[str, Any]:
+        """Main-thread device side of one prompt chunk of the serial and
+        pipelined paths: prompt fetch, generation, and the scoring forward
+        with its device → host copies."""
+        batch = next(self.prompt_iterator)
+        return self._chunk_device(np.asarray(batch["input_ids"], np.int64),
+                                  np.asarray(batch["attention_mask"], np.int64), stats)
+
+    def _chunk_device(self, prompt_ids: np.ndarray, prompt_mask: np.ndarray,
+                      stats: Dict[str, float]) -> Dict[str, Any]:
+        """One serial dense generate of the chunk; the scoring forward runs
+        straight on its device outputs while the host stage decodes and
+        scores the landed tokens. The device tensors stay referenced here
+        until the chunk is finalized."""
+        t0 = perf_counter()
+        gen_out = self.generate_serial(prompt_ids, prompt_mask)
+        stats["time/exp_generate"] = perf_counter() - t0
+        stats["time/generate"] = self.last_generate_time
+        stats.update(self.last_generate_stats)
+        gen_landing = HostCopy({"response_tokens": gen_out.response_tokens,
+                                "response_mask": gen_out.response_mask})
+        score_out = self._dispatch_score(gen_out.sequences, prompt_mask,
+                                         gen_out.response_tokens, gen_out.response_mask)
+        return {"prompt_ids": prompt_ids, "prompt_mask": prompt_mask, "gen_out": gen_out,
+                "gen_landing": gen_landing, "score_out": score_out,
+                "score_landing": HostCopy(score_out)}
 
     def _rollout_chunk_host(self, dev: Dict[str, Any]) -> Dict[str, Any]:
-        """Host side of one group: decode strings, run ``reward_fn``, land
-        the scoring outputs."""
+        """Host side of one chunk or group (the pipeline worker at depth >
+        0): land the generated tokens, decode strings, run ``reward_fn``,
+        land the scoring outputs (usually there by then). Waits on the
+        copies' events only, and launches no device work."""
         host_t0 = perf_counter()
         stats: Dict[str, float] = {}
-        response_tokens, response_mask = dev["response_tokens"], dev["response_mask"]
+        landed = dev["gen_landing"].wait()
+        response_tokens, response_mask = landed["response_tokens"], landed["response_mask"]
         samples, prompts, outputs = self.decode(dev["prompt_ids"], response_tokens,
                                                 append_eos_token=True)
         t0 = perf_counter()
         scores = np.asarray(self.reward_fn(samples=samples, prompts=prompts, outputs=outputs),
                             dtype=np.float32)
         stats["time/reward"] = stats["time/exp_score"] = perf_counter() - t0
-        t0 = perf_counter()
-        host = {k: v.cpu().numpy() for k, v in dev["score_out"].items()}
-        stats["time/score"] = perf_counter() - t0
+        host = dev["score_landing"].wait()
+        # from the first landing to the scoring outputs' (the JAX "score"
+        # span: it stays open across the overlapped decode and reward)
+        stats["time/score"] = perf_counter() - host_t0
         return {"prompt_ids": dev["prompt_ids"], "prompt_mask": dev["prompt_mask"],
                 "response_tokens": response_tokens, "response_mask": response_mask,
                 "scores": scores, "host": host, "stats": stats,
@@ -168,8 +227,9 @@ class PPOTrainer(TorchBaseTrainer):
 
     def _rollout_chunk_finalize(self, chunk: Dict[str, Any], elements: list,
                                 stats: Dict[str, float], acc: Dict[str, float]) -> None:
-        """Ordered tail of one group: reward scaling (running moments),
-        KL-penalty rewards and the store rows, in submission order."""
+        """Ordered tail of one chunk or group, on the main thread in
+        submission order at any depth: reward scaling (running moments),
+        KL-penalty rewards and the store rows."""
         stats.update(chunk["stats"])
         acc["host_s"] += chunk["host_s"]
         response_mask = chunk["response_mask"]
@@ -208,6 +268,12 @@ class PPOTrainer(TorchBaseTrainer):
             stats["policy/sqrt_kl"] = 0.0
         acc["gen_tokens"] += int(response_mask.sum())
         acc["chunks"] += 1
+        # slot accounting of the chunked paths: a chunk decodes max(n_i)
+        # steps over its rows (the continuous path reports its engine's)
+        n_per_row = response_mask.sum(axis=1)
+        acc["slot_steps"] += int(response_mask.shape[0]) * (
+            int(n_per_row.max()) if n_per_row.size else 0)
+        acc["live_slot_steps"] += int(n_per_row.sum())
 
         prompt_ids, prompt_mask = chunk["prompt_ids"], chunk["prompt_mask"]
         for i in range(prompt_ids.shape[0]):
@@ -224,8 +290,9 @@ class PPOTrainer(TorchBaseTrainer):
 
     def _collect_continuous(self, num_rollouts: int, elements: list,
                             stats: Dict[str, float], acc: Dict[str, float]) -> None:
-        """Continuous-batching collection at pipeline depth 0: prompt chunks
-        are queued while the expected rows cannot cover the target; every
+        """Continuous-batching collection: prompt chunks (prefetched
+        ``train.rollout_pipeline_depth`` ahead; the host stage of a group
+        runs inline) are queued while the expected rows cannot cover the target; every
         engine step's harvest is grouped B at a time in completion order,
         scored and finalized immediately; the partial tail flushes once the
         engine drains."""
@@ -272,6 +339,48 @@ class PPOTrainer(TorchBaseTrainer):
         stats["time/exp_generate"] = engine.stats.decode_s + engine.stats.refill_s
         stats["time/generate"] = engine.stats.decode_s
 
+    def _collect_serial(self, num_rollouts: int, elements: list, stats: Dict[str, float],
+                        acc: Dict[str, float]) -> None:
+        """Depth 0: each chunk runs device → host → finalize in sequence,
+        the reference the pipelined path is held to."""
+        while len(elements) < num_rollouts:
+            chunk = self._rollout_chunk_host(self._rollout_chunk_device(stats))
+            self._rollout_chunk_finalize(chunk, elements, stats, acc)
+        stats["throughput/rollout_overlap_frac"] = 0.0
+
+    def _collect_pipelined(self, num_rollouts: int, depth: int, elements: list,
+                           stats: Dict[str, float], acc: Dict[str, float]) -> None:
+        """Software-pipelined collection: the main thread keeps the device
+        busy (chunk k + 1's generation dispatches as soon as chunk k's
+        scoring forward is queued) while up to ``depth`` chunks of host work
+        drain on the pipeline worker; finalize runs here, in submission
+        order, so the store equals the serial path's."""
+        rows_in_flight: deque = deque()  # row count of each chunk in flight
+
+        def finalize(chunk: Dict[str, Any]) -> None:
+            rows_in_flight.popleft()
+            self._rollout_chunk_finalize(chunk, elements, stats, acc)
+
+        t0 = perf_counter()
+        with RolloutPipeline(depth=depth, finalize=finalize, name="rollout") as pipe:
+            while True:
+                # submit while even full chunks cannot cover the target; when
+                # the rows in flight may, drain and count exactly (rows with
+                # empty responses are dropped at finalize), so the chunks
+                # processed are the serial loop's
+                if len(elements) + sum(rows_in_flight) >= num_rollouts:
+                    pipe.drain()
+                    if len(elements) >= num_rollouts:
+                        break
+                    continue
+                t_dev = perf_counter()
+                dev = self._rollout_chunk_device(stats)
+                stats["time/rollout_device"] = perf_counter() - t_dev
+                rows_in_flight.append(int(dev["prompt_ids"].shape[0]))
+                pipe.submit(lambda dev=dev: self._rollout_chunk_host(dev))
+            pipe_stats = pipe.stats
+        stats["throughput/rollout_overlap_frac"] = pipe_stats.overlap_frac(perf_counter() - t0)
+
     def make_experience(self, num_rollouts: int = 1024, iter_count: int = 0) -> None:
         """Collect ``num_rollouts`` experiences into the store."""
         logger.info("Collecting rollouts")
@@ -280,9 +389,16 @@ class PPOTrainer(TorchBaseTrainer):
         stats: Dict[str, float] = {}
         elements: list = []
         acc: Dict[str, float] = {"kl_sum": 0.0, "kl_batches": 0, "host_s": 0.0,
-                                 "gen_tokens": 0, "chunks": 0}
+                                 "gen_tokens": 0, "chunks": 0, "slot_steps": 0,
+                                 "live_slot_steps": 0}
+        depth = int(self.config.train.rollout_pipeline_depth or 0)
         exp_time = perf_counter()
-        self._collect_continuous(num_rollouts, elements, stats, acc)
+        if self.config.train.continuous_batching:
+            self._collect_continuous(num_rollouts, elements, stats, acc)
+        elif depth > 0:
+            self._collect_pipelined(num_rollouts, depth, elements, stats, acc)
+        else:
+            self._collect_serial(num_rollouts, elements, stats, acc)
         self.mean_kl = acc["kl_sum"] / max(acc["kl_batches"], 1)
         stats["kl_ctl_value"] = self.kl_ctl.value
         stats["time/rollout_host"] = acc["host_s"]
@@ -292,6 +408,11 @@ class PPOTrainer(TorchBaseTrainer):
         if total > 0 and acc["gen_tokens"]:
             stats["throughput/rollout_tokens_per_sec"] = acc["gen_tokens"] / total
         stats["rollout/gen_tokens"] = float(acc["gen_tokens"])
+        if acc["slot_steps"]:
+            # the continuous path already holds its engine's exact counts
+            util = acc["live_slot_steps"] / acc["slot_steps"]
+            stats.setdefault("throughput/slot_utilization", util)
+            stats.setdefault("rollout/padded_decode_frac", 1.0 - util)
         self.make_experience_stats = stats
         self.tracker.log(stats, step=iter_count)
         self.store.push(elements[:num_rollouts] if num_rollouts else elements)
@@ -319,16 +440,28 @@ class PPOTrainer(TorchBaseTrainer):
         logprobs = logprobs_of_labels(out["logits"], responses)
         values_pred = out["value"][:, Q - 1 : Q + R - 1]
 
-        # GAE + whitening + the clipped loss in the fused kernels, which take
-        # the raw rewards
-        loss, stats = method.loss_fused(
-            logprobs=logprobs, values=values_pred, old_logprobs=old_logprobs,
-            old_values=old_values, rewards=rewards, mask=response_mask,
-            behavior_logprobs=behavior,
-        )
-        # 1.0 only when the kernels, not their plain versions, ran
-        stats["train/loss_kernel_pallas"] = torch.tensor(
-            float(logprobs.is_cuda), device=logprobs.device)
+        if method.loss_kernel == "pallas":
+            # GAE + whitening + the clipped loss in the fused kernels, which
+            # take the raw rewards
+            loss, stats = method.loss_fused(
+                logprobs=logprobs, values=values_pred, old_logprobs=old_logprobs,
+                old_values=old_values, rewards=rewards, mask=response_mask,
+                behavior_logprobs=behavior,
+            )
+            # 1.0 only when the kernels, not their plain versions, ran
+            fused_ran = float(logprobs.is_cuda)
+        else:
+            # the staged loss: GAE and whitening on the batch, then the
+            # clipped loss, in plain ops
+            advantages, returns = method.get_advantages_and_returns(
+                old_values, rewards, response_mask)
+            loss, stats = method.loss(
+                logprobs=logprobs, values=values_pred, old_logprobs=old_logprobs,
+                old_values=old_values, advantages=advantages, returns=returns,
+                mask=response_mask, behavior_logprobs=behavior,
+            )
+            fused_ran = 0.0
+        stats["train/loss_kernel_pallas"] = torch.tensor(fused_ran, device=logprobs.device)
         if method.dist_sketches:
             stats.update(loss_sketches(
                 {"entropy": (entropy_of_logits(out["logits"]), response_mask)}))

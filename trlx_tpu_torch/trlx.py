@@ -92,6 +92,9 @@ def train(  # noqa: C901
         pipeline = get_pipeline(config.train.pipeline)(prompts, max_prompt_length,
                                                        trainer.tokenizer)
         trainer.add_prompt_pipeline(pipeline)
+        # restore before collecting: the first rollouts must come from the
+        # restored policy, seed stream and prompt stream
+        trainer.maybe_resume()
         trainer.make_experience(config.method.num_rollouts)
     elif samples:
         if rewards is not None and len(samples) != len(rewards):
