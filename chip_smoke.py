@@ -97,11 +97,12 @@ Phases, each printing one JSON line:
    must lift its last three evals over its first two by more than 0.1;
 10. the family slice (``FAMILY_SPEC``, Mistral-7B: rotary positions,
    RMSNorm, the gated SiLU MLP, GQA 4:1 at head dim 128, a 4096 window):
-   at full width and depth, 16 HTTP requests on 8 slots with 4160-token
+   at full width and 8 of its 32 layers, 16 HTTP requests on 8 slots with
+   4160-token
    prompts (half cut to 512 tokens, left-padded by the engine), so the
    window bites in prefill (#1) and decode (#2), beside the time of the
    per-call f32 → bf16 weight cast and of the prefill's bias
-   (``slice_family_serve``); the same requests at two layers, greedy,
+   (``slice_family_serve``); the same requests at one layer, greedy,
    under the parity rules of phase 4, the bf16 tokens held to
    ``FAMILY_BF16_GAP_TOL`` (``slice_family_parity``); PPO at
    two layers through ``trlx_tpu_torch.train`` with the hydra branch
@@ -112,7 +113,34 @@ Phases, each printing one JSON line:
    its decode, the sampler at V = 32000, the flash kernels at (16, 104,
    32, 8, 128) with the window, the PPO collections' engine at 32 slots,
    T 64, S 104, and their unfiltered sampler at V = 32000) and
-   bloom-560m's per-head ALiBi bias.
+   bloom-560m's per-head ALiBi bias;
+11. the GRPO slice: ``trlx_tpu_torch.train`` on ``default_grpo_config()``
+   unchanged but for the checkpoint directory (GPT-2 small,
+   ``num_layers_unfrozen`` 2, 128 rollouts in one chunk of 16 prompts ×
+   groups of 8, batch 32, 2 epochs, 40 sampled tokens, ``beta`` 0.04, the
+   staged loss; depth 2, which GRPO ignores), 16 steps with a checkpoint
+   at 8, on 128 seeded 64-byte prompts under :func:`grpo_reward`
+   (``slice_grpo``: only #5 and #6 launch); the same run with
+   ``train.continuous_batching`` and the paged engine, the group-aware
+   harvest (``slice_grpo_cb``: #1–#3, #5 and #6 launch). Each prints step
+   ms (median and spread), ``time/exp``, rollout tokens/s,
+   ``exp_scores/mean``, ``policy/sqrt_ref_kl`` and, serial, a profiled
+   collection's busy share. In f32 with TF32 off (``slice_grpo_parity``):
+   (a) greedy, under a seeded call-ordered reward, the serial store
+   against the continuous one group for group; (b) one batch's loss and
+   gradients on the kernels against a CPU copy's plain attention; (c) a
+   run resumed from ``slice_grpo``'s step-8 checkpoint against it;
+12. the MoE slice at Mixtral-8x7B's width (``MOE_SPEC``): served at four
+   layers, 16 HTTP requests on 8 slots, half 1024-token prompts and half
+   512, 32 new tokens, half greedy, with the build seconds, the experts'
+   per-call cast and the peak memory (``slice_moe_serve``); the f32
+   engine's greedy answers against the plain ``generate`` at two layers
+   (``slice_moe_parity``); and ``tasks/grpo_sentiments.py``'s GRPO at two
+   layers for 4 steps, with the router losses and the peak memory
+   (``slice_moe_grpo``). Phases 3 and 5 check the kernels at these
+   slices' shapes (the 1024-token prefill over 1056 slots and its decode;
+   the GRPO engine's 128-row refill at T = 984; its sampler at B = 128;
+   the flash kernels at (32, 104, 12, 12, 64) and (32, 72, 32, 8, 128)).
 
 Before the kernel summary, ``phase_seconds`` gives each phase's wall
 seconds.
@@ -124,6 +152,7 @@ failure raises, and the script exits non-zero without the result line.
 """
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -719,6 +748,29 @@ def phase_kernels():
                               timed=bf, **geo)
         if bf:
             timed["paged_prefill_family_train"], timed["paged_decode_family_train"] = pre, dec
+    # the MoE slice (Mixtral-8x7B's width, MOE_SERVE): 1024-token prefills
+    # over S = 1056 slots and their decode, GQA 4:1, D 128; the GRPO
+    # continuous slice's engine: a 128-row refill at T = 984 (seq_length
+    # 1024 − 40 new tokens) over S = 1024, GPT-2 small's heads (timed in bf16)
+    for dtype in (torch.bfloat16, torch.float32):
+        bf = dtype == torch.bfloat16
+        geo = dict(B=8, H=32, KV=8, D=128, bs=16, S=1056, HB=1)
+        pre = check_attention("paged_prefill", T=1024, dtype=dtype, poison=True, seed=110,
+                              timed=bf, timing=dict(n=8, windows=3, calls=3), **geo)
+        dec = check_attention("paged_decode", T=1, dtype=dtype, poison=True, seed=111,
+                              timed=bf, **geo)
+        if bf:
+            timed["paged_prefill_moe"], timed["paged_decode_moe"] = pre, dec
+        # (f32 on 16 of the rows: its plain version's [B, H, T, S] scores)
+        geo = dict(B=128 if bf else 16, H=12, KV=12, D=64, bs=16, S=1024, HB=1)
+        pre = check_attention("paged_prefill", T=984, dtype=dtype, poison=True, seed=112,
+                              timed=bf, timing=dict(n=4, windows=3, calls=3), **geo)
+        dec = check_attention("paged_decode", T=1, dtype=dtype, poison=True, seed=113,
+                              timed=bf, **geo)
+        if bf:
+            timed["paged_prefill_grpo_cb"], timed["paged_decode_grpo_cb"] = pre, dec
+    timed["fused_sample_grpo_cb"] = check_sample("train", "bfloat16", B=128, V=50257,
+                                                 seed=114, timed=True)
     for mode in ("served", "greedy"):
         rec = check_sample(mode, "bfloat16", B=8, V=32000, seed=104, timed=True)
         if mode == "served":
@@ -1122,12 +1174,15 @@ def phase_slice(device="cuda", spec="builtin:gpt2-small", slots=8, block_size=16
 # the family slice: Mistral-7B (mistralai/Mistral-7B-v0.1 config.json: the
 # JAX preset's widths) served with prompts that cross its 4096 window
 FAMILY_SPEC = "builtin:mistral-7b"
+# served at 8 of its 32 layers: with the GRPO and MoE phases the full
+# depth took the script to 896 s of phases (the limit is 800)
+FAMILY_SERVE_LAYERS = 8
 FAMILY_SERVE = dict(slots=8, prompt_len=4160, max_new=32, n_requests=16, short_len=512, eos=2)
 # the parity and PPO runs of the family slice at full width, cut in depth:
 # two f32 7B copies and the KV pool exceed 80 GB, Adam over a full-depth 7B
-# exceeds one card, and two layers (not four) keep the script within half
-# its time limit
-FAMILY_PARITY_LAYERS = 2
+# exceeds one card; the parity at one layer (two until the GRPO and MoE
+# phases came), the PPO run at two (its hydra branch replays two blocks)
+FAMILY_PARITY_LAYERS = 1
 # bf16 serving at this width against f32 (parity (b)): the JAX module's own
 # bf16 pass at 4 layers of these widths, on the CPU over 2048 positions
 # (tests/torch_family_bf16_reading.py), trails f32 by up to 0.196, its
@@ -1136,19 +1191,20 @@ FAMILY_BF16_GAP_TOL = 0.15
 FAMILY_TRAIN_LAYERS = 2
 
 
-def phase_family_serve(device="cuda", spec=FAMILY_SPEC, card="", **kw):
-    """Mistral-7B at full width and depth on the paged engine behind the
-    HTTP frontend; beside the served run, the build's seconds, what two
+def phase_family_serve(device="cuda", spec=FAMILY_SPEC, card="", layers=FAMILY_SERVE_LAYERS,
+                       **kw):
+    """Mistral-7B at full width, ``layers`` deep, on the paged engine behind
+    the HTTP frontend; beside the served run, the build's seconds, what two
     costs of this path take on the card — the per-call f32→bf16 cast of
     every projection weight (``_linear``, once per forward) and the
     prefill's ``[B, 1, T, S]`` f32 bias — and, after it, a profile of the
     same requests (:meth:`ServedSlice.profile`). Returns the launches."""
     from trlx_tpu_torch.models.transformer import _query_slots, attention_bias
 
-    sl = ServedSlice(spec, device, **{**FAMILY_SERVE, **kw})
+    sl = ServedSlice(spec, device, **{**FAMILY_SERVE, **kw}, num_layers=layers)
     t0 = time.perf_counter()
     model, cfg = sl.build()
-    extra = {"build_s": time.perf_counter() - t0}  # host draws, streamed to the card
+    extra = {"build_s": time.perf_counter() - t0, "layers": layers}  # host draws
     if sl.dev.type == "cuda":
         weights = [m.weight for m in model.modules() if isinstance(m, torch.nn.Linear)]
 
@@ -1490,8 +1546,28 @@ def phase_train_kernels():
                     seed=37, window=64)
         check_flash("bloom_alibi", B=4, T=104, S=104, H=16, KV=16, D=64, dtype=dtype, seed=38,
                     alibi=True)
+        # (h) the GRPO slices' train batches: GPT-2 small at batch 32 (64-byte
+        # prompts ‖ 40 new tokens) and Mixtral's GQA 4:1, D 128 on the task's
+        # review openings (32 ‖ 40), timed
+        grpo = check_flash("grpo_train", B=32, T=104, S=104, H=12, KV=12, D=64, dtype=dtype,
+                           seed=39, timed=bf)
+        moe = check_flash("moe_grpo_train", B=32, T=72, S=72, H=32, KV=8, D=128, dtype=dtype,
+                          seed=41, timed=bf)
+        # (i) the GRPO collections' passes, left-padded at both widths: the
+        # scoring forward and the hydra reference replay over all 128 rows of
+        # a chunk (16 prompts × 8 members, prompt ‖ 40 new tokens), the serial
+        # dense-cache prefill of those rows (T = the prompt width, S = T + 40)
+        # and the evaluation's prefill at batch 32
+        for tag, H, KV, D, P, seed in (("grpo", 12, 12, 64, 64, 42),
+                                       ("moe_grpo", 32, 8, 128, 32, 46)):
+            check_flash(f"{tag}_score", B=128, T=P + 40, S=P + 40, H=H, KV=KV, D=D,
+                        dtype=dtype, seed=seed)
+            for i, B in enumerate((128, 32)):
+                check_flash(f"{tag}_prefill_{B}", B=B, T=P, S=P + 40, H=H, KV=KV, D=D,
+                            dtype=dtype, seed=seed + 1 + i)
         if bf:
             timed["flash_train"], timed["flash_long"], timed["flash_family"] = a, b, fam
+            timed["flash_grpo"], timed["flash_moe_grpo"] = grpo, moe
     for B, R in LOSS_SHAPES:
         for use_iw in (False, True):
             rec = check_loss(B, R, use_iw, seed=B * R + use_iw,
@@ -2771,6 +2847,578 @@ def phase_slice_randomwalks(device="cuda", ppo=None, ilql=None, card=""):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the GRPO slice — default_grpo_config() through trlx.train
+# ---------------------------------------------------------------------------
+
+# the serial path's kernels: the flash forward (dense-cache prefill, scoring,
+# train forward) and backward; the continuous path adds the engine's #1-#3
+GRPO_KERNELS = ("flash_fwd", "flash_bwd")
+GRPO_CB_KERNELS = SERVE_KERNELS + GRPO_KERNELS
+# two collections of 128 rollouts (16 prompts x groups of 8, batch 32, 2
+# epochs: 8 steps each), a checkpoint after the first
+GRPO_STEPS, GRPO_CHECKPOINT, GRPO_PROMPTS = 16, 8, 128
+# (a) of the parity phase: serial and continuous logprobs of equal tokens,
+# f32 with TF32 off (different attention kernels, summation order only)
+GRPO_LOGPROB_ATOL = 1e-4
+# (b) of the parity phase: one step on the kernels against the plain
+# attention, f32
+GRPO_PARITY_LOSS_RTOL, GRPO_PARITY_GRAD_RTOL = 1e-5, 1e-4
+# the key-projection biases' gradient, zero in exact arithmetic, over the
+# model's largest gradient (f32 noise reads ~1e-9)
+GRPO_ZERO_GRAD_ATOL = 1e-7
+
+
+def grpo_reward(samples, prompts, outputs):
+    """The port's lexicon sentiment of each sample (``tasks/
+    grpo_sentiments.py``) plus the serial phases' byte share of its output
+    (``profile_train.reward_fn``): random weights write no lexicon word, so
+    the byte share is what tells a group's members apart."""
+    from trlx_tpu_torch.profile_train import reward_fn
+    from trlx_tpu_torch.tasks.grpo_sentiments import lexicon_sentiment
+
+    return [a + b for a, b in zip(lexicon_sentiment(samples),
+                                  reward_fn(samples, prompts, outputs))]
+
+
+def drawn_reward(seed=0):
+    """Scores drawn in call order from one seeded stream (greedy members of
+    a group are identical, so a text reward would give zero advantages)."""
+    rs = np.random.RandomState(seed)
+    return lambda samples, prompts, outputs: rs.randn(len(samples)).tolist()
+
+
+def grpo_config(ckpt, spec="builtin:gpt2-small", total_steps=GRPO_STEPS,
+                checkpoint_interval=GRPO_CHECKPOINT, continuous=False, **sections):
+    """``default_grpo_config()`` as it stands but for ``checkpoint_dir``,
+    ``total_steps``, ``checkpoint_interval`` and the spec; ``continuous``
+    turns on ``train.continuous_batching`` with the paged engine and its
+    kernels; ``sections`` evolve it further."""
+    from trlx_tpu_torch.data.default_configs import default_grpo_config
+
+    config = default_grpo_config().evolve(
+        train=dict(checkpoint_dir=ckpt, total_steps=total_steps,
+                   checkpoint_interval=checkpoint_interval),
+        model=dict(model_path=spec))
+    if continuous:
+        config = config.evolve(train=dict(continuous_batching=True),
+                               engine=dict(backend="paged", decode_kernel="pallas",
+                                           prefill_kernel="pallas"))
+    return config.evolve(**sections) if sections else config
+
+
+def phase_slice_grpo(device="cuda", spec="builtin:gpt2-small", continuous=False, card="",
+                     n_prompts=GRPO_PROMPTS, total_steps=GRPO_STEPS,
+                     checkpoint_interval=GRPO_CHECKPOINT, sections=None, keep=False):
+    """GRPO through ``trlx_tpu_torch.train`` on ``default_grpo_config()``:
+    GPT-2 small, ``num_layers_unfrozen`` 2, 128 rollouts in one chunk (16
+    prompts × groups of 8), batch 32, 2 epochs, 40 sampled tokens, ``beta``
+    0.04, the staged loss; depth 2, which GRPO ignores (its serial path
+    has no pipeline). ``continuous`` runs the group-aware harvest on the
+    paged engine (``slice_grpo_cb``). Every counter is set to 0 just
+    before and read just after: the serial run must launch #5/#6 and
+    nothing else, the continuous one #1-#3 and #5/#6. With ``keep`` the
+    checkpoints stay and the run's weights come back for the resume check
+    of :func:`phase_slice_grpo_parity`. Returns (launches, run)."""
+    import shutil
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.profile_train import slice_prompts
+
+    phase = "slice_grpo_cb" if continuous else "slice_grpo"
+    dev = torch.device(device)
+    ckpt = _scratch_dir(phase)
+    config = grpo_config(ckpt, spec, total_steps, checkpoint_interval, continuous,
+                         **(sections or {}))
+    prompts = slice_prompts(n_prompts)
+    start = {}
+
+    def hook(trainer):
+        start.update({k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()})
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        # -- the main path -----------------------------------------------
+        trainer = trlx_tpu_torch.train(reward_fn=grpo_reward, prompts=prompts, config=config,
+                                       init_trainer_hook=hook, device=dev)
+        # ---------------------------------------------------------------
+    finally:
+        if not keep:
+            shutil.rmtree(ckpt, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    hist = trainer.tracker.history
+    steps = [st for _, st in hist if "gradients/global_norm" in st]
+    collections = [st for _, st in hist if "time/exp" in st]
+    losses = [st["losses/total_loss"] for st in steps]
+    end = trainer.model.state_dict()
+    moved = [k for k in trained_keys(trainer) if not torch.equal(end[k].detach().cpu(), start[k])]
+    step_ms = [1e3 * st["time/step"] for st in steps]
+    method = config.method
+    rec = {"phase": phase, "model": spec, "dtype": str(trainer.tcfg.dtype).split(".")[-1],
+           "settings": {"continuous_batching": config.train.continuous_batching,
+                        "rollout_pipeline_depth": config.train.rollout_pipeline_depth,
+                        "num_rollouts": method.num_rollouts, "chunk_size": method.chunk_size,
+                        "group_size": method.group_size, "batch_size": config.train.batch_size,
+                        "ppo_epochs": method.ppo_epochs, "beta": method.beta,
+                        "loss_kernel": method.loss_kernel,
+                        "max_new_tokens": method.gen_kwargs["max_new_tokens"]},
+           "optimizer_steps": len(steps), "rollout_collections": len(collections),
+           "losses": losses, "wall_s": wall,
+           "train_step_ms_median": statistics.median(step_ms),
+           "train_step_ms_spread": [min(step_ms), max(step_ms)],
+           "time_exp_s": [c["time/exp"] for c in collections],
+           "time_exp_generate_s": [c["time/exp_generate"] for c in collections],
+           "rollout_tokens_per_s": [c.get("throughput/rollout_tokens_per_sec")
+                                    for c in collections],
+           "exp_scores_mean": [c["exp_scores/mean"] for c in collections],
+           "sqrt_ref_kl": [c["policy/sqrt_ref_kl"] for c in collections],
+           "slot_utilization": [c["throughput/slot_utilization"] for c in collections],
+           "launches": launches, "trained_weights_moved": len(moved), "card": card}
+    problems = []
+    if len(steps) != total_steps or len(collections) < 2:
+        problems.append(f"{len(steps)} steps, {len(collections)} collections")
+    if not all(math.isfinite(x) for x in losses):
+        problems.append("a non-finite loss")
+    if not moved:
+        problems.append("no trainable weight moved")
+    must = GRPO_CB_KERNELS if continuous else GRPO_KERNELS
+    if dev.type == "cuda" and min(launches[k] for k in must) <= 0:
+        problems.append(f"a kernel of the path never launched: {launches}")
+    if any(launches[k] for k in REPLACES if k not in must):
+        problems.append(f"a kernel off the path launched: {launches}")
+    if dev.type == "cuda" and not problems and not continuous:
+        rec["profiled_collection"] = profile_grpo_collection(trainer, prompts)
+        zero_launch_counts()
+    emit({**rec, "ok": not problems})
+    if problems:
+        raise AssertionError(f"{phase}: {problems}")
+    run = None
+    if keep:
+        run = {"ckpt": ckpt, "start": start,
+               "weights": {k: v.detach().cpu() for k, v in end.items()},
+               "exact": grpo_exact(trainer)}
+    trainer._close_prompt_iterator()
+    return launches, run
+
+
+def grpo_exact(trainer):
+    """The host state a resumed GRPO run must restore exactly."""
+    rm = trainer.running_moments
+    return {"iter_count": trainer.iter_count, "step": trainer.step, "mean_kl": trainer.mean_kl,
+            "running_moments": [rm.mean, rm.var, rm.std, rm.count],
+            "prompt_chunks_drawn": trainer._prompt_chunks_drawn}
+
+
+def profile_grpo_collection(trainer, prompts):
+    """One GRPO collection's generate and scoring (16 prompts fanned out
+    into 128 rows) under ``torch.profiler``, after a warm one: the card's
+    busy share and launches per decode step (:func:`profile_collection`)."""
+    G = trainer.config.method.group_size
+    rows = [p for p in prompts[: trainer.config.method.chunk_size // G] for _ in range(G)]
+    return profile_collection(trainer, rows, len(rows))
+
+
+def phase_slice_grpo_parity(run, device="cuda", spec="builtin:gpt2-small", card="",
+                            n_prompts=GRPO_PROMPTS, parity_rows=16, total_steps=GRPO_STEPS,
+                            checkpoint_interval=GRPO_CHECKPOINT, sections=None):
+    """In f32 with TF32 off: (a) under greedy rollouts and a seeded
+    call-ordered reward (:func:`drawn_reward`), one collection's serial
+    store against the continuous one, group for group (matched by prompt):
+    tokens equal, logprobs and reference logprobs within
+    ``GRPO_LOGPROB_ATOL``; (b) after one optimizer step on a sampled
+    collection (a greedy batch's exact gradient is zero), a batch of each
+    group's best member through ``loss_fn`` and backward on the card's
+    kernels against a CPU copy's plain attention: the loss within
+    ``GRPO_PARITY_LOSS_RTOL`` of its own value (which must not cancel: at
+    least half the token-mean |advantage|, with a KL above 0), every
+    gradient within ``GRPO_PARITY_GRAD_RTOL`` of its tensor's largest
+    (floored at 1e-5 of the model's largest). Then (c), on ``slice_grpo``'s own run
+    (``run``, bf16): a fresh ``train`` resumed from its step-8 checkpoint
+    against it, the weights within ``PARITY_GRAD_RTOL`` of the run's
+    largest change and the host state exactly."""
+    import shutil
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.models.transformer import CausalTransformer
+    from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
+    from trlx_tpu_torch.profile_train import slice_prompts
+    from trlx_tpu_torch.trainer.grpo import GRPOTrainer
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    prompts = slice_prompts(n_prompts)
+    rec, problems = {"phase": "slice_grpo_parity", "model": spec, "dtype": "float32",
+                     "tf32": False, "card": card}, []
+    f32 = {k: dict(v) for k, v in (sections or {}).items()}
+    f32.setdefault("parallel", {})["compute_dtype"] = "float32"
+    f32.setdefault("method", {})["gen_kwargs"] = dict(max_new_tokens=40, do_sample=False)
+
+    # (a) serial against continuous, greedy
+    stores = {}
+    for continuous in (False, True):
+        # these trainers save nothing: the directory is never made
+        config = grpo_config(os.path.join(ROOT, "build", "chip_smoke_grpo_parity"), spec,
+                             total_steps, checkpoint_interval, continuous, **f32)
+        t = GRPOTrainer(config=config, reward_fn=drawn_reward(), device=dev)
+        width = config.train.seq_length - config.method.gen_kwargs["max_new_tokens"]
+        t.add_prompt_pipeline(PromptPipeline(prompts, width, t.tokenizer))
+        zero_launch_counts()
+        t.make_experience(config.method.num_rollouts)
+        stores[continuous] = (t, launch_counts())
+        t._close_prompt_iterator()
+    serial, cb = stores[False][0].store.history, stores[True][0].store.history
+    key = lambda e: np.asarray(e.query_tensor).tobytes()  # noqa: E731
+    groups = {}
+    for e in cb:
+        groups.setdefault(key(e), []).append(e)
+    worst, unequal = 0.0, []
+    for i, e in enumerate(serial):
+        others = groups.get(key(e), [])
+        match = [o for o in others if np.array_equal(o.response_tensor, e.response_tensor)]
+        if not match:
+            unequal.append(i)
+            continue
+        for f in ("logprobs", "ref_logprobs"):
+            worst = max(worst, float(np.abs(np.asarray(getattr(match[0], f))
+                                            - np.asarray(getattr(e, f))).max()))
+    ties = []
+    if unequal:  # tolerated only at an f32 near tie of the serial path
+        t = stores[False][0]
+        ties = greedy_divergences(
+            t.model, [np.asarray(serial[i].query_tensor) for i in unequal],
+            [np.ones(len(serial[i].query_tensor), np.int64) for i in unequal],
+            [groups.get(key(serial[i]), [serial[i]])[0].response_tensor for i in unequal],
+            [serial[i].response_tensor for i in unequal])
+    rec["a_serial_vs_continuous"] = {
+        "rows": [len(serial), len(cb)], "groups": len(groups), "unequal_rows": len(unequal),
+        "divergences": ties, "logprob_max_abs_diff": worst, "atol": GRPO_LOGPROB_ATOL,
+        "launches": {"serial": stores[False][1], "continuous": stores[True][1]}}
+    if len(serial) != len(cb) or len(groups) != len(serial) // 8:
+        problems.append(f"(a) rows {len(serial)} / {len(cb)}, {len(groups)} groups")
+    problems += [f"(a) row {unequal[j]} diverges" for j, t in enumerate(ties)
+                 if t["top2_gap"] >= F32_TIE_GAP]
+    if not worst <= GRPO_LOGPROB_ATOL:
+        problems.append(f"(a) logprobs differ by {worst}")
+    del stores, cb
+
+    # (b) one batch on the card's kernels against the CPU's plain attention,
+    # after one optimizer step on the card: the ratio leaves 1 and the KL 0.
+    # Sampled: greedy members of a group are equal rows whose advantages sum
+    # to 0, so a greedy batch's exact gradient is 0 and both sides hold noise.
+    # The batch holds each group's best member: a batch of whole groups at
+    # equal lengths weighs each group's advantages, which sum to 0, equally,
+    # and its loss would cancel
+    config = grpo_config(os.path.join(ROOT, "build", "chip_smoke_grpo_parity"), spec,
+                         total_steps, checkpoint_interval,
+                         **{**f32, "method": {**f32["method"], "gen_kwargs": dict(
+                             max_new_tokens=40, top_k=0, top_p=1.0, do_sample=True)}})
+    trainer = GRPOTrainer(config=config, reward_fn=grpo_reward, device=dev)
+    width = config.train.seq_length - config.method.gen_kwargs["max_new_tokens"]
+    trainer.add_prompt_pipeline(PromptPipeline(prompts, width, trainer.tokenizer))
+    trainer.make_experience(config.method.num_rollouts)
+    trainer._close_prompt_iterator()
+    trainer.train_step(next(iter(trainer.store.create_loader(config.train.batch_size,
+                                                             shuffle=True))))
+    groups = {}
+    for e in trainer.store.history:
+        groups.setdefault(key(e), []).append(e)
+    best = [max(g, key=lambda e: float(e.advantage)) for g in groups.values()]
+    batch = trainer.store.collate(best[:parity_rows])
+    results = card_cpu_backward(trainer, CausalTransformer, batch, device)
+    gpu, cpu = results["card"], results["cpu"]
+    # the size of the loss's terms, the token-mean |advantage|: the loss must
+    # not cancel against it for the comparison to mean anything
+    mask = np.asarray(batch.response_mask, np.float64)
+    adv_scale = float((np.abs(np.asarray(batch.advantages, np.float64))[:, None] * mask).sum()
+                      / max(mask.sum(), 1.0))
+    loss_rel = abs(gpu["loss"] - cpu["loss"]) / max(abs(cpu["loss"]), 1e-30)
+    gmax = max(float(g.abs().max()) for g in cpu["grads"].values())
+    grad_worst, grad_name, zero_worst = 0.0, None, 0.0
+    for k, want in cpu["grads"].items():
+        err = float((gpu["grads"][k] - want).abs().max())
+        if k.endswith("attn.k_proj.bias"):
+            # zero in exact arithmetic (softmax ignores a shift that every
+            # key shares): both sides hold f32 noise, held absolutely
+            zero_worst = max(zero_worst, err / gmax)
+            continue
+        rel = err / max(float(want.abs().max()), 1e-5 * gmax)
+        if not rel <= grad_worst:
+            grad_worst, grad_name = rel, k
+    through = {k: gpu["launches"][k] for k in GRPO_KERNELS}
+    kl = {k: cpu["stats"][k] for k in ("losses/kl_loss", "policy/approx_kl")}
+    rec["b_step_parity"] = {"rows": len(batch.advantages), "loss_card": gpu["loss"],
+                            "loss_cpu": cpu["loss"], "token_mean_abs_advantage": adv_scale,
+                            "kl_after_one_step": kl,
+                            "loss_rel_err": loss_rel, "loss_rtol": GRPO_PARITY_LOSS_RTOL,
+                            "worst_grad_rel_err": grad_worst, "worst_grad": grad_name,
+                            "grad_rtol": GRPO_PARITY_GRAD_RTOL,
+                            "key_bias_err_over_largest": zero_worst,
+                            "key_bias_atol_over_largest": GRPO_ZERO_GRAD_ATOL,
+                            "params_compared": len(cpu["grads"]), "launches": through}
+    if not loss_rel <= GRPO_PARITY_LOSS_RTOL:
+        problems.append(f"(b) loss {gpu['loss']} vs {cpu['loss']}")
+    if not abs(cpu["loss"]) >= 0.5 * adv_scale or not min(kl.values()) > 0:
+        problems.append(f"(b) the compared loss {cpu['loss']} cancels against its terms "
+                        f"({adv_scale}) or the step left no KL: {kl}")
+    if not grad_worst <= GRPO_PARITY_GRAD_RTOL:
+        problems.append(f"(b) gradient {grad_name}: relative {grad_worst}")
+    if not zero_worst <= GRPO_ZERO_GRAD_ATOL:
+        problems.append(f"(b) key-bias gradients {zero_worst} of the largest")
+    if set(gpu["grads"]) != set(cpu["grads"]) or max(cpu["launches"].values()) != 0 or (
+            dev.type == "cuda" and min(through.values()) <= 0):
+        problems.append(f"(b) gradients or launches: card {gpu['launches']}, cpu "
+                        f"{cpu['launches']}")
+    del trainer, results
+
+    # (c) resume slice_grpo's run from its step-8 checkpoint
+    if run is not None:
+        ckpt = _scratch_dir("grpo_resumed")
+        step_dir = f"checkpoint_{checkpoint_interval:0{len(str(total_steps))}d}"
+        shutil.copytree(os.path.join(run["ckpt"], step_dir), os.path.join(ckpt, step_dir))
+        config = grpo_config(ckpt, spec, total_steps, checkpoint_interval,
+                             **{**(sections or {}), "train": {
+                                 **(sections or {}).get("train", {}),
+                                 "resume_from_checkpoint": True}})
+        try:
+            t = trlx_tpu_torch.train(reward_fn=grpo_reward, prompts=prompts, config=config,
+                                     device=dev)
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+            shutil.rmtree(run["ckpt"], ignore_errors=True)
+        weights = {k: v.detach().cpu() for k, v in t.model.state_dict().items()}
+        exact = grpo_exact(t)
+        gap, name, biggest = weight_gap(weights, run["weights"], run["start"])
+        rec["c_resume"] = {"exact": {"resumed": exact, "uninterrupted": run["exact"]},
+                           "weights_diff_over_largest_change": gap, "weights_worst": name,
+                           "weights_max_abs_diff": biggest, "rtol": PARITY_GRAD_RTOL}
+        if exact != run["exact"]:
+            problems.append(f"(c) resumed state {exact} != {run['exact']}")
+        if not gap <= PARITY_GRAD_RTOL:
+            problems.append(f"(c) resumed weights: {name} off by {gap} of the largest change")
+        del t
+    emit({**rec, "ok": not problems})
+    if problems:
+        raise AssertionError(f"slice_grpo_parity: {problems}")
+    zero_launch_counts()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the MoE slice — Mixtral-8x7B's width served and trained (GRPO)
+# ---------------------------------------------------------------------------
+
+# mistralai/Mixtral-8x7B-v0.1 config.json (the JAX preset): E 4096, GQA 32
+# over 8, D 128, SiLU experts of 14336, 8 experts top-2, vocab 32000,
+# rope_theta 1e6, dispatch groups of 512 tokens
+MOE_SPEC = "builtin:mixtral-8x7b"
+MOE_SERVE = dict(slots=8, prompt_len=1024, max_new=32, n_requests=16, short_len=512, eos=2)
+# depth cuts: 4 served layers hold 6.07 B f32 parameters (24.3 GB); the f32
+# parity holds 2 (12.7 GB); GRPO at 2 layers holds weights, gradients,
+# AdamW's moments and the hydra reference (~63 GB)
+MOE_SERVE_LAYERS, MOE_PARITY_LAYERS, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 2, 2, 4
+
+
+def phase_moe_serve(device="cuda", spec=MOE_SPEC, layers=MOE_SERVE_LAYERS,
+                    parity_layers=MOE_PARITY_LAYERS, card="", **kw):
+    """Mixtral-8x7B's width at ``layers`` layers on the paged engine behind
+    the HTTP frontend: 16 requests on 8 slots, half 1024-token prompts and
+    half 512, 32 new tokens, half greedy (``slice_moe_serve``: tokens/s,
+    TTFT p50, decode step ms, build seconds, peak memory). Then the served
+    model's first ``parity_layers`` blocks (the same f32 masters, with its
+    embedding, final norm and head) in f32 (``slice_moe_parity``): the
+    engine's greedy answers over HTTP against the plain dense-cache
+    ``generate``, token for token (a divergence tolerated only at an f32
+    near tie). Returns the launches."""
+    dev = torch.device(device)
+    sl = ServedSlice(spec, device, **{**MOE_SERVE, **kw}, num_layers=layers)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model, cfg = sl.build()
+    extra = {"build_s": time.perf_counter() - t0, "layers": layers,
+             "parameters": sum(p.numel() for p in model.parameters())}
+    if dev.type == "cuda":
+        # the cast of the experts' f32 masters at every call (read f32, write bf16)
+        experts = [p for n, p in model.named_parameters() if ".mlp.w_" in n]
+        extra["expert_cast_gb"] = sum(p.numel() for p in experts) * 6 / 1e9
+
+        def cast_all():
+            for p in experts:
+                p.to(cfg.dtype)
+
+        extra["expert_cast_ms"], _ = time_ms(cast_all, n=3, windows=3, calls=3)
+    if dev.type == "cuda":
+        extra["memory_after_build_gb"] = torch.cuda.memory_allocated(dev) / 1e9
+    _, launches, engine = sl.serve(model, cfg, "slice_moe_serve", card, **extra)
+    if dev.type == "cuda":  # the build, the warm-up and the served run
+        emit({"phase": "slice_moe_serve_memory", "layers": layers,
+              "after_build_gb": extra["memory_after_build_gb"],
+              "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+              "peak_reserved_gb": torch.cuda.max_memory_reserved(dev) / 1e9, "card": card})
+    del engine
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    # the parity model: the served model's first blocks, embedding, final
+    # norm and head (its f32 masters, shared, not drawn again) in f32
+    from trlx_tpu_torch.models.transformer import CausalTransformer
+
+    ps = ServedSlice(spec, device, **{**MOE_SERVE, **kw}, num_layers=parity_layers)
+    cfg32 = dataclasses.replace(cfg, num_layers=parity_layers, dtype=torch.float32)
+    with torch.device("meta"):
+        model32 = CausalTransformer(cfg32)
+    keys = set(model32.state_dict())
+    model32.load_state_dict({k: v for k, v in model.state_dict().items() if k in keys},
+                            assign=True)
+    del model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    gi = ps.greedy_idx
+    plain = ps.plain_greedy(model32)
+    served, _, _ = serve_over_http(ps.engine(model32, cfg32), [ps.bodies[i] for i in gi],
+                                   ps.max_new, ps.vocab, ps.sync)
+    ties = greedy_divergences(model32, ps.prompts[gi], ps.masks[gi],
+                              [np.asarray(r[1]) for r in served], plain)
+    rec = {"phase": "slice_moe_parity", "model": spec, "layers": parity_layers,
+           "dtype": "float32", "tf32": False, "greedy_rows": len(gi), "divergences": ties,
+           "tie_gap_tol": F32_TIE_GAP, "card": card}
+    bad = [t for t in ties if t["top2_gap"] >= F32_TIE_GAP]
+    emit({**rec, "ok": not bad})
+    if bad:
+        raise AssertionError(f"slice_moe_parity: served greedy tokens diverge: {bad}")
+    del model32
+    zero_launch_counts()
+    return launches
+
+
+def expert_rows(trainer):
+    """Host copies of the first 64 hidden rows of the last block's expert
+    weights, every expert's (its output feeds no router, so only the
+    policy loss and the KL move them)."""
+    mlp = trainer.model.blocks[-1].mlp
+    return {"w_up": mlp.w_up[:, :, :64].detach().cpu().clone(),
+            "w_down": mlp.w_down[:, :64].detach().cpu().clone()}
+
+
+def phase_moe_grpo(device="cuda", spec=MOE_SPEC, layers=MOE_TRAIN_LAYERS,
+                   total_steps=MOE_TRAIN_STEPS, card="", hparams=None):
+    """``tasks/grpo_sentiments.py``'s settings (seq_length 128, batch 32, 40
+    sampled tokens, the router losses at 0.01 and 0.001, 256 prompts and 64
+    eval prompts) at Mixtral-8x7B's width, ``layers`` layers (all of them
+    trained: ``num_layers_unfrozen`` 2), ``total_steps`` steps, rewarded by
+    :func:`grpo_reward` (the task's lexicon alone scores every member of a
+    random-weight policy alike: zero advantages, no policy gradient). The
+    run writes no checkpoint (``save`` is a no-op: the weights and AdamW
+    state would be ~38 GB). Prints step ms, the router losses and the peak
+    memory; a non-finite loss, advantages all 0, a router or a last
+    block's experts (which feed no router: only the policy terms reach
+    them) that did not move, or a kernel of the serial path that never
+    launched fails. Returns the launches."""
+    import shutil
+
+    from trlx_tpu_torch.tasks import grpo_sentiments as task
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    built = {}
+
+    memory = {}
+
+    def staged(trainer, name):
+        """Record the allocated and peak device memory (GB) around the
+        first call of ``trainer.<name>``."""
+        fn = getattr(trainer, name)
+
+        def wrapped(*a, **k):
+            if name in memory or dev.type != "cuda":
+                return fn(*a, **k)
+            before = torch.cuda.memory_allocated(dev) / 1e9
+            out = fn(*a, **k)
+            memory[name] = {"before": before, "after": torch.cuda.memory_allocated(dev) / 1e9,
+                            "peak": torch.cuda.max_memory_allocated(dev) / 1e9}
+            return out
+
+        setattr(trainer, name, wrapped)
+
+    def hook(trainer):
+        trainer.save = lambda *a, **k: None
+        built["s"] = time.perf_counter() - t0
+        built["router0"] = trainer.model.blocks[0].mlp.router.weight.detach().cpu().clone()
+        built["experts"] = expert_rows(trainer)
+        if dev.type == "cuda":
+            memory["built"] = torch.cuda.memory_allocated(dev) / 1e9
+        for name in ("make_experience", "evaluate", "accumulate_grads", "train_step"):
+            staged(trainer, name)
+
+    ckpt = _scratch_dir("moe_grpo")
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    # -- the main path ---------------------------------------------------
+    trainer = task.main(spec, {"train.total_steps": total_steps, "train.checkpoint_dir": ckpt,
+                               **(hparams or {})},
+                        device=dev, model_extra_kwargs={"num_layers": layers},
+                        init_trainer_hook=hook, reward_fn=grpo_reward)
+    # ---------------------------------------------------------------------
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    hist = trainer.tracker.history
+    steps = [st for _, st in hist if "gradients/global_norm" in st]
+    collections = [st for _, st in hist if "time/exp" in st]
+    losses = [st["losses/total_loss"] for st in steps]
+    moved = not torch.equal(trainer.model.blocks[0].mlp.router.weight.detach().cpu(),
+                            built["router0"])
+    experts_moved = {k: not torch.equal(v, built["experts"][k])
+                     for k, v in expert_rows(trainer).items()}
+    nonzero_adv = sum(float(e.advantage) != 0.0 for e in trainer.store.history)
+    rec = {"phase": "slice_moe_grpo", "model": spec, "layers": layers,
+           "parameters": sum(p.numel() for p in trainer.model.parameters()),
+           "dtype": str(trainer.tcfg.dtype).split(".")[-1], "build_s": built["s"], "wall_s": wall,
+           "optimizer_steps": len(steps), "losses": losses,
+           "train_step_ms": [1e3 * st["time/step"] for st in steps],
+           "train_step_ms_median": statistics.median(1e3 * st["time/step"] for st in steps),
+           "router_load_balance": [st["losses/router_load_balance"] for st in steps],
+           "router_z": [st["losses/router_z"] for st in steps],
+           "time_exp_s": [c["time/exp"] for c in collections],
+           "rollout_tokens_per_s": [c.get("throughput/rollout_tokens_per_sec")
+                                    for c in collections],
+           "exp_scores_mean": [c["exp_scores/mean"] for c in collections],
+           "router_moved": moved, "last_block_experts_moved": experts_moved,
+           "nonzero_advantages": [nonzero_adv, len(trainer.store.history)],
+           "launches": launches, "card": card,
+           "memory_by_stage_gb": memory,
+           "peak_memory_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                              if dev.type == "cuda" else None)}
+    problems = []
+    if len(steps) != total_steps:
+        problems.append(f"{len(steps)} steps")
+    if not all(math.isfinite(x) for x in losses + rec["router_z"] + rec["router_load_balance"]):
+        problems.append("a non-finite loss")
+    if not moved:
+        problems.append("the router did not move")
+    if not nonzero_adv or not all(experts_moved.values()):
+        problems.append(f"{nonzero_adv} nonzero advantages; experts moved: {experts_moved}")
+    if dev.type == "cuda" and min(launches[k] for k in GRPO_KERNELS) <= 0:
+        problems.append(f"#5 or #6 never launched: {launches}")
+    if any(launches[k] for k in REPLACES if k not in GRPO_KERNELS):
+        problems.append(f"a kernel off the serial path launched: {launches}")
+    emit({**rec, "ok": not problems})
+    shutil.rmtree(ckpt, ignore_errors=True)
+    trainer._close_prompt_iterator()
+    del trainer
+    if problems:
+        raise AssertionError(f"slice_moe_grpo: {problems}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2795,14 +3443,25 @@ def main():
 
     seconds = {}
 
-    def clocked(fn, *args, **kw):
-        """``fn(*args, **kw)``, its wall seconds kept under its name."""
+    def clocked(fn, *args, _as=None, **kw):
+        """``fn(*args, **kw)``, its wall seconds kept under its name (or
+        ``_as``)."""
         t0 = time.perf_counter()
         out = fn(*args, **kw)
-        name = fn.__name__.removeprefix("phase_")
+        name = _as or fn.__name__.removeprefix("phase_")
         seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
         return out
 
+    try:
+        return run_phases(clocked, seconds)
+    except BaseException:
+        # the phases that ran, for the record; then the failure
+        emit({"phase": "phase_seconds", **seconds, "total": sum(seconds.values())})
+        raise
+
+
+def run_phases(clocked, seconds):
+    """Every phase in order, then the summary lines; returns 0."""
     smi = clocked(phase_device)
     clocked(phase_build)
     timed = clocked(phase_kernels)
@@ -2816,6 +3475,11 @@ def main():
     serial_launches = clocked(phase_slice_serial, card=smi)
     serial_spec_launches = clocked(phase_slice_serial_spec, card=smi)
     clocked(phase_slice_serial_parity, card=smi)
+    grpo_launches, grpo_run = clocked(phase_slice_grpo, card=smi, keep=True)
+    grpo_cb_launches, _ = clocked(phase_slice_grpo, continuous=True, card=smi,
+                                  _as="slice_grpo_cb")
+    clocked(phase_slice_grpo_parity, grpo_run, card=smi)
+    del grpo_run
     torch.cuda.empty_cache()
     sft, sft_launches = clocked(phase_slice_sft, card=smi)
     ilql, ilql_launches = clocked(phase_slice_ilql, card=smi)
@@ -2828,6 +3492,12 @@ def main():
     clocked(phase_family_parity)
     torch.cuda.empty_cache()
     family_train = clocked(phase_family_train, card=smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_serve = clocked(phase_moe_serve, card=smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_grpo = clocked(phase_moe_grpo, card=smi)
     emit({"phase": "phase_seconds", **seconds, "total": sum(seconds.values())})
     # a served run counts the engine's kernels; nothing else launches there
     served = {k: 0 for k in REPLACES}
@@ -2835,7 +3505,9 @@ def main():
                "spec": spec_launches, "serial": serial_launches,
                "serial_spec": serial_spec_launches, "sft": sft_launches, "ilql": ilql_launches,
                "randomwalks_ppo": randomwalks["ppo"], "randomwalks_ilql": randomwalks["ilql"],
-               "family_serve": {**served, **family_serve}, "family_train": family_train}
+               "family_serve": {**served, **family_serve}, "family_train": family_train,
+               "grpo": grpo_launches, "grpo_cb": grpo_cb_launches,
+               "moe_serve": {**served, **moe_serve}, "moe_grpo": moe_grpo}
     kernels = [kernel_record(name, serve_launches[name], timed[name]["max_abs_err"], timed[name],
                              by_path)
                for name in SERVE_KERNELS]

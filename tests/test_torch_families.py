@@ -26,9 +26,9 @@ as ``tests/test_torch_transformer.py`` holds GPT-2:
   ``rtol=1e-4``, the updated weights at ``atol=1e-4``).
 
 Beside those: every preset size the JAX package gives builds the same
-config in the port, mixtral (MoE) raises naming MoE, and the builder's
-streamed seeded init gives the state dict of the old in-place rule bit
-for bit.
+config in the port (mixtral's MoE fields included; ``tests/test_torch_moe.py``
+holds the MoE model against JAX), and the builder's streamed seeded init
+gives the state dict of the old in-place rule bit for bit.
 """
 
 import dataclasses
@@ -88,6 +88,7 @@ PRESET_SIZES = {
     "pythia": ("test", "160m", "1.4b", "6.9b", "20b"),
     "opt": ("test", "125m", "6.7b"),
     "bloom": ("test", "560m"),
+    "mixtral": ("test", "8x7b"),
 }
 P, N = 12, 6  # prompt width (> mistral-test's window of 8) and new tokens
 
@@ -130,7 +131,9 @@ def test_config_presets_match_jax():
               if f.name in jax_fields and f.name not in ("dtype", "param_dtype",
                                                         "attention_impl")]
     assert {"rotary_dim", "rope_theta", "sliding_window", "parallel_residual", "shared_ln",
-            "embedding_layernorm", "lm_head_bias", "num_experts"} <= set(shared)
+            "embedding_layernorm", "lm_head_bias", "num_experts", "num_experts_per_tok",
+            "moe_capacity_factor", "moe_group_size", "moe_renormalize", "router_aux_coef",
+            "router_z_coef"} <= set(shared)
     for family, sizes in PRESET_SIZES.items():
         for size in sizes:
             ours = config_from_spec(f"builtin:{family}-{size}")
@@ -139,17 +142,6 @@ def test_config_presets_match_jax():
                 assert getattr(ours, field) == getattr(theirs, field), (family, size, field)
     for n in (4, 12, 16, 20, 25, 32, 64):  # non-powers of two take the interleave
         np.testing.assert_allclose(alibi_slopes(n), jax_alibi_slopes(n), rtol=1e-15)
-
-
-def test_moe_raises_naming_moe(tmp_path):
-    with pytest.raises(ValueError, match="MoE"):
-        config_from_spec("builtin:mixtral-test")
-    with pytest.raises(ValueError, match="MoE"):
-        TransformerConfig.mistral("test", num_experts=4)
-    d = _config_dict(tmp_path)
-    d["model"]["model_path"] = "builtin:mixtral-test"
-    with pytest.raises(ValueError, match="MoE"):
-        PPOTrainer(config=TRLConfig.from_dict(d), reward_fn=reward_fn, device="cpu")
 
 
 def _old_rule_state(spec, seed, head):

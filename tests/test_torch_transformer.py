@@ -356,8 +356,7 @@ def test_builder_is_seeded_and_validates():
     assert float(a.blocks[0].ln_attn.weight.min()) == 1.0
     assert float(a.blocks[0].attn.q_proj.bias.abs().max()) == 0.0
     assert config_from_spec("builtin:gpt2-small").hidden_size == 768
-    with pytest.raises(ValueError, match="MoE"):
-        config_from_spec("builtin:mixtral-test")
+    assert config_from_spec("builtin:mixtral-test").num_experts == 4
     with pytest.raises(ValueError, match="unknown model family"):
         config_from_spec("builtin:t5-test")
     with pytest.raises(ValueError, match="norm='batchnorm'"):

@@ -1,7 +1,8 @@
-"""The PPO, ILQL and SFT presets of the port.
+"""The PPO, ILQL, SFT and GRPO presets of the port.
 
-Port of ``default_ppo_config``, ``default_ilql_config`` and
-``default_sft_config`` from ``trlx_tpu/data/default_configs.py``: the
+Port of ``default_ppo_config``, ``default_ilql_config``,
+``default_sft_config`` and ``default_grpo_config`` from
+``trlx_tpu/data/default_configs.py``: the
 same hyperparameters, field for field, with the offline builtin model and
 tokenizer.
 """
@@ -15,11 +16,13 @@ from trlx_tpu_torch.data.configs import (
     TrainConfig,
     TRLConfig,
 )
+from trlx_tpu_torch.models.grpo import GRPOConfig
 from trlx_tpu_torch.models.ilql import ILQLConfig
 from trlx_tpu_torch.models.ppo import PPOConfig
 from trlx_tpu_torch.models.sft import SFTConfig
 
-__all__ = ["default_ppo_config", "default_ilql_config", "default_sft_config"]
+__all__ = ["default_ppo_config", "default_ilql_config", "default_sft_config",
+           "default_grpo_config"]
 
 
 def default_ppo_config() -> TRLConfig:
@@ -126,6 +129,45 @@ def default_sft_config() -> TRLConfig:
         ),
         method=SFTConfig(
             name="SFTConfig",
+            gen_kwargs=dict(max_new_tokens=40, top_k=0, top_p=1.0, do_sample=True),
+        ),
+        parallel=ParallelConfig(),
+    )
+
+
+def default_grpo_config() -> TRLConfig:
+    """DeepSeekMath-style GRPO: groups of 8, a fixed in-loss KL ``beta``,
+    no value function."""
+    return TRLConfig(
+        train=TrainConfig(
+            seq_length=1024,
+            epochs=100,
+            total_steps=10000,
+            batch_size=32,
+            checkpoint_interval=10000,
+            eval_interval=100,
+            pipeline="PromptPipeline",
+            trainer="GRPOTrainer",
+        ),
+        model=ModelConfig(model_path="builtin:gpt2-small", num_layers_unfrozen=2),
+        tokenizer=TokenizerConfig(tokenizer_path="builtin:bytes", truncation_side="right"),
+        optimizer=OptimizerConfig(
+            name="adamw",
+            kwargs=dict(lr=1e-5, betas=(0.9, 0.95), eps=1.0e-8, weight_decay=1.0e-6),
+        ),
+        scheduler=SchedulerConfig(
+            name="cosine_annealing", kwargs=dict(T_max=1e12, eta_min=1e-5, lr=1e-5)
+        ),
+        method=GRPOConfig(
+            name="GRPOConfig",
+            num_rollouts=128,
+            chunk_size=128,
+            ppo_epochs=2,
+            group_size=8,
+            beta=0.04,
+            scale_advantage=True,
+            cliprange=0.2,
+            cliprange_reward=10,
             gen_kwargs=dict(max_new_tokens=40, top_k=0, top_p=1.0, do_sample=True),
         ),
         parallel=ParallelConfig(),

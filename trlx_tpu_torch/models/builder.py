@@ -78,11 +78,12 @@ def hydra_ref_params(
     the model's device, gradients off."""
     backbone = _backbone(model)
     start = tcfg.num_layers - num_layers_unfrozen
-    ref = HydraBranch(tcfg, list(range(start, tcfg.num_layers)))
-    state = {k: v for k, v in backbone.state_dict().items() if k in ref.state_dict()}
-    ref.load_state_dict({k: v.detach().clone() for k, v in state.items()})
-    device = next(backbone.parameters()).device
-    return ref.to(device).eval().requires_grad_(False)
+    with torch.device("meta"):  # no host copy and no default init
+        ref = HydraBranch(tcfg, list(range(start, tcfg.num_layers)))
+    keys = set(ref.state_dict())
+    ref.load_state_dict({k: v.detach().clone() for k, v in backbone.state_dict().items()
+                         if k in keys}, assign=True)
+    return ref.eval().requires_grad_(False)
 
 
 def trainable_mask(

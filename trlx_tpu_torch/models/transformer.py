@@ -1,8 +1,12 @@
-"""Causal transformer backbone in PyTorch (the dense families).
+"""Causal transformer backbone in PyTorch (the dense families and the
+mixture-of-experts family).
 
 Port of ``trlx_tpu/models/transformer.py``: :class:`TransformerConfig`
 with the presets of the dense families (gpt2, llama, mistral, gptj,
-gptneox/pythia, opt, bloom; the MoE family mixtral raises), rotary
+gptneox/pythia, opt, bloom) and of mixtral, whose blocks run the
+:class:`MoEMLP` (top-k router, capacity-bounded one-hot dispatch, gated
+SiLU experts; the forward returns the token-weighted router statistics as
+``router_aux_loss``), rotary
 (:func:`rotary_sin_cos`, :func:`apply_rotary`, neox and gptj styles,
 partial ``rotary_dim``) and ALiBi (:func:`alibi_slopes`) positions,
 LayerNorm and RMSNorm, the gelu/silu (gated)/relu MLPs, sequential and
@@ -76,6 +80,8 @@ __all__ = [
     "seeded_init_",
     "Attention",
     "MLP",
+    "MoEMLP",
+    "router_aux_summary",
     "Block",
     "CausalTransformer",
     "HydraBranch",
@@ -86,8 +92,9 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """Architecture of a dense decoder-only transformer (the GPT-2, llama,
-    mistral, gptj, gptneox, opt and bloom families)."""
+    """Architecture of a decoder-only transformer (the GPT-2, llama,
+    mistral, gptj, gptneox, opt and bloom families, and mixtral's
+    mixture-of-experts MLP when ``num_experts > 0``)."""
 
     vocab_size: int
     hidden_size: int
@@ -118,7 +125,17 @@ class TransformerConfig:
     final_norm: bool = True
     embedding_layernorm: bool = False  # bloom: a norm after the word embedding
     lm_head_bias: bool = False  # gptj: a bias on the untied lm head
-    num_experts: int = 0  # mixture-of-experts MLP (mixtral): not ported
+    # mixture-of-experts MLP (mixtral; 0 = the dense MLP): a token group of
+    # G tokens (the largest divisor of T <= moe_group_size, 0 = the whole
+    # row) routes each token to its top ``num_experts_per_tok`` experts with
+    # C = ceil(k·G·moe_capacity_factor/E) slots per expert and group
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_group_size: int = 0
+    moe_renormalize: bool = True  # renormalise the top-k gate probabilities
+    router_aux_coef: float = 0.01  # load-balance loss weight (Switch)
+    router_z_coef: float = 0.0  # router logit z-loss weight (ST-MoE)
     param_dtype: torch.dtype = torch.float32
     dtype: torch.dtype = torch.bfloat16  # activation/compute dtype
     # attention implementation of full passes: "auto" (the flash kernels for
@@ -139,11 +156,6 @@ class TransformerConfig:
             got = getattr(self, field)
             if got not in values:
                 raise ValueError(f"{field}={got!r} ({' | '.join(values)})")
-        if self.num_experts > 0:
-            raise ValueError(
-                f"num_experts={self.num_experts}: the mixture-of-experts (MoE) MLP "
-                "is not ported yet; the port builds the dense families"
-            )
 
     def resolved_attention_impl(self, device: Optional[torch.device] = None) -> str:
         """``"pallas"`` (the flash branch) or ``"xla"`` (the bias path) for
@@ -210,6 +222,17 @@ class TransformerConfig:
                             attn_bias=False, mlp_bias=False, tie_word_embeddings=False)
 
     @staticmethod
+    def mixtral(size: str = "8x7b", **overrides) -> "TransformerConfig":
+        dims = {
+            "test": dict(vocab_size=259, hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2, intermediate_size=96, max_position_embeddings=128, num_experts=4),
+            "8x7b": dict(vocab_size=32000, hidden_size=4096, num_layers=32, num_heads=32, num_kv_heads=8, intermediate_size=14336, max_position_embeddings=32768, num_experts=8, moe_group_size=512),
+        }[size]
+        return _make_preset(dims, overrides, model_type="mixtral", position_scheme="rotary",
+                            rope_theta=1e6, norm="rmsnorm", layer_norm_epsilon=1e-5,
+                            activation="silu", attn_bias=False, mlp_bias=False,
+                            tie_word_embeddings=False, num_experts_per_tok=2)
+
+    @staticmethod
     def gptj(size: str = "6b", **overrides) -> "TransformerConfig":
         dims = {
             "test": dict(vocab_size=259, hidden_size=64, num_layers=2, num_heads=4, intermediate_size=256, max_position_embeddings=128),
@@ -267,6 +290,7 @@ BUILTIN_SPECS = {
     "gpt2": TransformerConfig.gpt2,
     "llama": TransformerConfig.llama,
     "mistral": TransformerConfig.mistral,
+    "mixtral": TransformerConfig.mixtral,
     "gptj": TransformerConfig.gptj,
     "gptneox": TransformerConfig.gptneox,
     "pythia": TransformerConfig.gptneox,
@@ -280,9 +304,6 @@ def config_from_spec(spec: str, **overrides) -> TransformerConfig:
     if spec.startswith("builtin:"):
         spec = spec.split(":", 1)[1]
     family, _, size = spec.partition("-")
-    if family == "mixtral":
-        raise ValueError("mixtral: the mixture-of-experts (MoE) MLP is not ported yet; "
-                         f"the port builds the dense families {sorted(BUILTIN_SPECS)}")
     if family not in BUILTIN_SPECS:
         raise ValueError(f"unknown model family {family!r}: known {sorted(BUILTIN_SPECS)}")
     return BUILTIN_SPECS[family](size or "test", **overrides)
@@ -566,10 +587,112 @@ class MLP(nn.Module):
         return _linear(self.down_proj, h, self.dtype)
 
 
+class MoEMLP(nn.Module):
+    """Mixture-of-experts MLP (the JAX ``MoEMLP``): an f32 router, softmax,
+    top-``k`` (renormalised with ``moe_renormalize``), and one-hot dispatch
+    into ``C`` static slots per expert and token group, gated SiLU experts
+    (``w_gate``, ``w_up`` of ``[E, d, f]``, ``w_down`` of ``[E, f, d]``, the
+    JAX layout), and the gate-weighted combine.
+
+    Slots are taken in choice priority: the running count runs over the
+    ``[N, k·G, E]`` k-major order, so every token's first choice outranks
+    any second choice. Overflow tokens and padding (``token_mask`` 0) get
+    a zero output; padding claims no slot. A decode step (T = 1) never
+    drops: ``C >= 1`` and the top-k experts are distinct.
+
+    Returns ``(y, aux)``; ``aux`` is ``[lb · n_real, Σ w · lse², n_real]``,
+    the Switch load-balance loss and the z-loss sum over real tokens, as
+    token-weighted sufficient statistics (:func:`router_aux_summary`
+    normalises their sum over layers)."""
+
+    def __init__(self, cfg: TransformerConfig):
+        super().__init__()
+        self.cfg = cfg
+        E, d, f = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+        self.act = get_activation(cfg.activation)
+        self.gated = cfg.activation == "silu"
+        self.router = nn.Linear(d, E, bias=False, dtype=cfg.param_dtype)
+        if self.gated:
+            self.w_gate = nn.Parameter(torch.empty(E, d, f, dtype=cfg.param_dtype))
+        self.w_up = nn.Parameter(torch.empty(E, d, f, dtype=cfg.param_dtype))
+        self.w_down = nn.Parameter(torch.empty(E, f, d, dtype=cfg.param_dtype))
+
+    def group_size(self, T: int) -> int:
+        """The dispatch group: the largest divisor of ``T`` at most
+        ``moe_group_size`` (the whole row when 0)."""
+        G = T
+        if self.cfg.moe_group_size > 0:
+            G = min(self.cfg.moe_group_size, T)
+            while T % G:
+                G -= 1
+        return G
+
+    def capacity(self, G: int) -> int:
+        cfg = self.cfg
+        return max(1, int(math.ceil(cfg.num_experts_per_tok * G * cfg.moe_capacity_factor
+                                    / cfg.num_experts)))
+
+    def forward(self, x: torch.Tensor, token_mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.cfg
+        E, K = cfg.num_experts, cfg.num_experts_per_tok
+        B, T, d = x.shape
+        dt = cfg.dtype
+        logits = F.linear(x.float(), self.router.weight.float())  # [B, T, E]
+        probs = torch.softmax(logits, dim=-1)
+        gate_vals, idx = torch.topk(probs, K, dim=-1)  # [B, T, K]
+        if cfg.moe_renormalize:
+            gate_vals = gate_vals / torch.clamp(gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
+
+        G = self.group_size(T)
+        N = B * (T // G)
+        xg = x.reshape(N, G, d)
+        w = (torch.ones((N, G), dtype=torch.float32, device=x.device) if token_mask is None
+             else token_mask.reshape(N, G).float())
+        C = self.capacity(G)
+        onehot = F.one_hot(idx.to(torch.int64), E).reshape(N, G, K, E)
+        onehot = onehot * w[..., None, None].to(onehot.dtype)  # padding claims no slot
+        perm = onehot.permute(0, 2, 1, 3).reshape(N, K * G, E)
+        pos = torch.cumsum(perm, dim=1) - perm  # slots taken before this entry
+        kept = perm * (pos < C)
+        slot = (pos[..., None] == torch.arange(C, device=x.device)).float() * kept[..., None]
+        gates_perm = gate_vals.reshape(N, G, K).permute(0, 2, 1).reshape(N, K * G)
+        combine = (slot * gates_perm[..., None, None]).reshape(N, K, G, E, C).sum(1)
+        dispatch = slot.reshape(N, K, G, E, C).sum(1)  # [N, G, E, C]
+
+        xin = torch.einsum("ngd,ngec->encd", xg, dispatch.to(x.dtype))
+        if self.gated:
+            h = self.act(torch.einsum("encd,edf->encf", xin, self.w_gate.to(dt)))
+            h = h * torch.einsum("encd,edf->encf", xin, self.w_up.to(dt))
+        else:
+            h = self.act(torch.einsum("encd,edf->encf", xin, self.w_up.to(dt)))
+        out = torch.einsum("encf,efd->encd", h, self.w_down.to(dt))
+        y = torch.einsum("encd,ngec->ngd", out, combine.to(out.dtype)).reshape(B, T, d)
+
+        # load balance over pre-capacity assignments, z-loss, real tokens only
+        n_real = w.sum()
+        denom = torch.clamp(n_real, min=1.0)
+        wf = w.reshape(B, T)
+        me = (probs * wf[..., None]).sum(dim=(0, 1)) / denom
+        ce = onehot.float().sum(dim=(0, 1, 2)) / (denom * K)
+        aux_lb = E * (me * ce).sum()
+        z_sum = (torch.logsumexp(logits, dim=-1).square() * wf).sum()
+        return y.to(dt), torch.stack([aux_lb * n_real, z_sum, n_real])
+
+
+def router_aux_summary(aux: torch.Tensor) -> torch.Tensor:
+    """The per-layer sum of :class:`MoEMLP` statistics → ``[load_balance,
+    router_z]``, token-weighted means."""
+    return aux[:2] / torch.clamp(aux[2], min=1.0)
+
+
 class Block(nn.Module):
     """Pre-norm block: sequential (``x + attn``, then ``+ mlp``) or, with
     ``parallel_residual``, ``x + attn(ln(x)) + mlp(ln'(x))`` where gptj's
-    ``shared_ln`` feeds both from one norm (no ``ln_mlp``)."""
+    ``shared_ln`` feeds both from one norm (no ``ln_mlp``). With
+    ``num_experts > 0`` the MLP is the :class:`MoEMLP`, routing the tokens
+    ``token_mask`` marks real; the block returns ``(x, cache, aux)``, the
+    router statistics or None."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -577,18 +700,25 @@ class Block(nn.Module):
         self.ln_attn = Norm(cfg)
         self.attn = Attention(cfg)
         self.ln_mlp = None if cfg.parallel_residual and cfg.shared_ln else Norm(cfg)
-        self.mlp = MLP(cfg)
+        self.mlp = MoEMLP(cfg) if cfg.num_experts > 0 else MLP(cfg)
+        self.moe = cfg.num_experts > 0
+
+    def _mlp(self, h, token_mask):
+        if self.moe:
+            return self.mlp(h, token_mask)
+        return self.mlp(h), None
 
     def forward(self, x, attention_bias, rope=None, cache=None, cache_index=None,
-                paged_write=None, flash_args=None):
+                paged_write=None, flash_args=None, token_mask=None):
         h = self.ln_attn(x)
         attn_out, new_cache = self.attn(h, attention_bias, rope, cache, cache_index,
                                         paged_write, flash_args)
         if self.parallel_residual:
-            mlp_in = h if self.ln_mlp is None else self.ln_mlp(x)
-            return x + attn_out + self.mlp(mlp_in), new_cache
+            mlp_out, aux = self._mlp(h if self.ln_mlp is None else self.ln_mlp(x), token_mask)
+            return x + attn_out + mlp_out, new_cache, aux
         x = x + attn_out
-        return x + self.mlp(self.ln_mlp(x)), new_cache
+        mlp_out, aux = self._mlp(self.ln_mlp(x), token_mask)
+        return x + mlp_out, new_cache, aux
 
 
 def _query_slots(q_offset: Any, B: int, T: int, device) -> torch.Tensor:
@@ -699,6 +829,13 @@ class CausalTransformer(nn.Module):
             positions = key_pos if cache is None else key_pos.gather(1, query_slots)
         positions = positions.to(device=device, dtype=torch.int64)
 
+        token_mask = None
+        if cfg.num_experts > 0:
+            # the MoE routes real query tokens only: under a cache, the slot
+            # mask at the query slots (the JAX ``_token_validity``)
+            token_mask = attention_mask if cache is None else attention_mask.gather(
+                1, torch.clamp(query_slots, max=attention_mask.shape[1] - 1))
+
         x = self._embed(input_ids, positions)
         # the JAX rule: flash for every multi-token pass except per-row
         # (vector) cache indices and paged caches, whose kernels consume the
@@ -719,18 +856,27 @@ class CausalTransformer(nn.Module):
                                      pool.shape[0], pool.shape[1])
         new_cache = [] if cache is not None else None
         branch_input = None
+        aux = None
         for i, block in enumerate(self.blocks):
             if branch_layer is not None and i == len(self.blocks) - branch_layer:
                 branch_input = x
             layer_cache = cache[i] if cache is not None else None
-            x, updated = block(x, bias, rope, layer_cache, offset, paged_write, flash_args)
+            x, updated, aux_i = block(x, bias, rope, layer_cache, offset, paged_write,
+                                      flash_args, token_mask)
+            if aux_i is not None:
+                aux = aux_i if aux is None else aux + aux_i
             if cache is not None:
                 new_cache.append(updated)
 
         h = self.ln_f(x) if cfg.final_norm else x
         logits = self._logits(h if logits_span is None else h[:, logits_span[0] : logits_span[1]])
-        return {"logits": logits, "hidden_states": h, "branch_input": branch_input,
-                "cache": new_cache}
+        out = {"logits": logits, "hidden_states": h, "branch_input": branch_input,
+               "cache": new_cache}
+        if aux is not None:
+            # token-weighted [load_balance, router_z] over every layer; the
+            # trainers fold them into the loss (``with_router_aux``)
+            out["router_aux_loss"] = router_aux_summary(aux)
+        return out
 
     def forward_branch(
         self,
@@ -765,7 +911,7 @@ def _run_branch(owner, blocks, hidden_states, attention_mask, positions, logits_
     rope = _rope(cfg, positions)
     x = hidden_states
     for block in blocks:
-        x, _ = block(x, bias, rope, flash_args=flash_args)
+        x, _, _ = block(x, bias, rope, flash_args=flash_args, token_mask=attention_mask)
     h = owner.ln_f(x) if cfg.final_norm else x
     logits = owner._logits(h if logits_span is None else h[:, logits_span[0] : logits_span[1]])
     return {"logits": logits, "hidden_states": h}

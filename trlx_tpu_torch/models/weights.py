@@ -10,6 +10,9 @@ given as nested dicts of numpy arrays, into the port's ``state_dict``:
 - the families' trees: RMSNorm scales without a bias, the gated MLP's
   ``gate_proj``, bloom's ``emb_ln``, no ``wpe`` under rotary or ALiBi
   positions and no ``ln_mlp`` under gptj's shared norm;
+- the MoE MLP (mixtral): the router ``Dense`` transposed like any kernel,
+  the experts' ``w_gate`` / ``w_up`` ``[E, d, f]`` and ``w_down`` ``[E, f, d]``
+  as they are (the port keeps the JAX layout);
 - layers come as ``h_{i}`` subtrees (the unscanned layout). A scanned tree
   (``h_scan/block`` with a leading layer axis, ``stack_layer_params``) is
   sliced back into ``h_{i}`` first, as ``unstack_layer_params`` does;
@@ -93,6 +96,11 @@ def params_from_jax(np_params: Dict[str, Any], cfg: TransformerConfig) -> Dict[s
         for proj in ("gate_proj", "up_proj", "down_proj"):  # gate: the gated MLP
             if proj in layer["mlp"]:
                 dense(f"{p}.mlp.{proj}", layer["mlp"][proj])
+        if "router" in layer["mlp"]:  # the MoE MLP: experts keep the JAX layout
+            dense(f"{p}.mlp.router", layer["mlp"]["router"])
+            for name in ("w_gate", "w_up", "w_down"):
+                if name in layer["mlp"]:
+                    sd[f"{p}.mlp.{name}"] = t(layer["mlp"][name])
     if cfg.final_norm:
         norm("ln_f", tree["ln_f"])
     if not cfg.tie_word_embeddings:

@@ -181,7 +181,8 @@ def sample_token_from_logits(
     return next_token.to(torch.int32), logprob
 
 
-_NON_CARRY_KEYS = ("cache", "logits", "branch_input")
+# router_aux_loss: the MoE statistics, a [2] vector unused in decoding
+_NON_CARRY_KEYS = ("cache", "logits", "branch_input", "router_aux_loss")
 
 
 def tree_map(fn: Callable, *trees: Any) -> Any:

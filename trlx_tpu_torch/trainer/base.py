@@ -138,8 +138,9 @@ def reject_unported(config, collects_rollouts: bool) -> None:
     installs no preemption handler, so it writes no emergency checkpoint,
     and runs on one device, so nothing reshards on restore.
 
-    ``collects_rollouts`` (PPO) adds the rollout settings: async
-    collection, the loss kernel's name, and — only with
+    ``collects_rollouts`` (PPO, GRPO) adds the rollout settings: async
+    collection, the loss kernel's name (and ``pallas`` only where the
+    method's ``LOSS_KERNELS`` hosts it), and — only with
     ``train.continuous_batching: true``, as the serial dense path ignores
     them in JAX too — the paged engine's backend, prefix cache, chunked
     prefill and gather kernels. The offline trainers (SFT, ILQL) collect
@@ -150,10 +151,15 @@ def reject_unported(config, collects_rollouts: bool) -> None:
     checks = []
     if collects_rollouts:
         loss_kernel = getattr(config.method, "loss_kernel", None)
+        hostable = getattr(type(config.method), "LOSS_KERNELS", ("xla", "pallas"))
         checks += [
             (config.async_rl.enabled, "async_rl.enabled: async collection is not ported"),
             (loss_kernel not in ("xla", "pallas"), f"method.loss_kernel {loss_kernel!r}: "
              "'xla' (the staged loss) or 'pallas' (the fused loss kernels)"),
+            (loss_kernel == "pallas" and "pallas" not in hostable,
+             f"method.loss_kernel: pallas is the fused GAE + whitening + clipped-loss "
+             f"kernel pair — {type(config.method).__name__} has no GAE/value-head loss to "
+             f"fuse (hostable kernels: {list(hostable)})"),
         ]
         if t.continuous_batching:
             checks += [
@@ -365,6 +371,28 @@ class TorchBaseTrainer(BaseRLTrainer):
 
     def post_backward_callback(self) -> None:
         pass
+
+    def with_router_aux(self, loss_stats: Tuple[torch.Tensor, Dict[str, Any]],
+                        out: Any) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Fold the MoE router losses (the Switch load balance and the
+        ST-MoE z-loss, weighted by the model config's ``router_aux_coef``
+        and ``router_z_coef``) into a trainer loss, logged as
+        ``losses/router_load_balance`` and ``losses/router_z``, with the
+        logged total (``losses/total_loss`` or ``losses/loss``) the
+        optimised one. A no-op for dense models; every ``loss_fn`` returns
+        through it."""
+        loss, stats = loss_stats
+        aux = out.get("router_aux_loss") if isinstance(out, dict) else None
+        if aux is None:
+            return loss, stats
+        new_loss = loss + self.tcfg.router_aux_coef * aux[0] + self.tcfg.router_z_coef * aux[1]
+        stats = dict(stats)
+        stats["losses/router_load_balance"] = aux[0].detach()
+        stats["losses/router_z"] = aux[1].detach()
+        for key in ("losses/total_loss", "losses/loss"):
+            if key in stats:
+                stats[key] = new_loss.detach()
+        return new_loss, stats
 
     def _resolved_logit_chunk(self) -> int:
         """``method.logit_chunk`` when the model can stream the vocab

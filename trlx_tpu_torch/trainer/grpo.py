@@ -1,0 +1,306 @@
+"""GRPO trainer: group sampling, group-relative advantages, no value head.
+
+Port of ``trlx_tpu/trainer/grpo.py`` (``GRPOTrainer``) for causal models.
+The PPO trainer's rollout machinery is inherited — the serial dense
+engine (plain, or speculative with ``model.draft_model_path``), the
+scoring forward dispatched on the generation's device tensors, the hydra
+reference branch — and what is learned from a rollout changes:
+
+- each prompt is repeated ``group_size`` times in a row (group-contiguous);
+- each sequence's scalar reward is normalised within its group
+  (:func:`~trlx_tpu_torch.models.grpo.group_advantages_np`): no values, no
+  GAE;
+- the KL penalty against the frozen reference moves from reward shaping
+  into the loss (:meth:`~trlx_tpu_torch.models.grpo.GRPOConfig.loss`), with
+  a fixed coefficient ``method.beta``.
+
+``make_experience`` dispatches as JAX's does: ``train.continuous_batching``
+→ the group-aware harvest on the paged engine
+(:meth:`GRPOTrainer._grpo_collect_continuous`), anything else → the serial
+path (:meth:`GRPOTrainer._grpo_collect_serial`). GRPO has no pipelined
+path, so ``train.rollout_pipeline_depth`` only sets the prompt prefetch.
+The async actor/learner split is not ported (``reject_unported`` refuses
+``async_rl.enabled``).
+"""
+
+from collections import deque
+from time import perf_counter
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from trlx_tpu_torch.data.grpo_types import GRPORLElement
+from trlx_tpu_torch.models.grpo import BASELINES, GRPOConfig, group_advantages_np
+from trlx_tpu_torch.pipeline.grpo_pipeline import GRPORolloutStorage
+from trlx_tpu_torch.trainer import register_trainer
+from trlx_tpu_torch.trainer.base import HostCopy, logger
+from trlx_tpu_torch.trainer.ppo import PPOTrainer
+from trlx_tpu_torch.utils import infinite_loader
+from trlx_tpu_torch.utils.stats import logprobs_of_labels
+
+
+@register_trainer
+class GRPOTrainer(PPOTrainer):
+    model_head = None  # no value function
+
+    def __init__(self, config, **kwargs):
+        # the JAX construction checks, before the model is built
+        if config.model.model_arch_type == "seq2seq":
+            raise NotImplementedError("GRPO is implemented for causal LMs")
+        method = config.method
+        if not isinstance(method, GRPOConfig):
+            raise ValueError("config.method must be GRPOConfig")
+        if method.chunk_size % method.group_size:
+            raise ValueError(f"chunk_size {method.chunk_size} must be a multiple of "
+                             f"group_size {method.group_size}")
+        if method.baseline not in BASELINES:
+            raise ValueError(f"unknown method.baseline '{method.baseline}'; known: {BASELINES}")
+        if config.async_rl.enabled and config.train.continuous_batching:
+            raise NotImplementedError(
+                "async_rl + train.continuous_batching is implemented for the PPO trainer "
+                "only: GRPO's group-aware harvest keeps the single-program CB loop. Drop "
+                "one of the two.")
+        if method.baseline == "rloo":
+            if method.group_size < 2:
+                raise ValueError("baseline=rloo needs group_size >= 2")
+            if method.scale_advantage:
+                logger.warning("baseline=rloo ignores scale_advantage (RLOO is unscaled by "
+                               "definition) — set method.scale_advantage: false to silence "
+                               "this")
+        super().__init__(config, **kwargs)
+        self.store = GRPORolloutStorage(self.tokenizer.pad_token_id)
+
+    def add_prompt_pipeline(self, pipeline) -> None:
+        """One loader row fans out into ``group_size`` rollout rows, so the
+        loader yields ``chunk_size // group_size`` prompts."""
+        method: GRPOConfig = self.config.method
+        loader = pipeline.create_loader(max(method.chunk_size // method.group_size, 1),
+                                        shuffle=True, seed=self.config.train.seed)
+        self.prompt_iterator = self._count_prompt_chunks(
+            infinite_loader(self._maybe_prefetch_prompts(loader)))
+
+    def post_backward_callback(self) -> None:
+        pass  # the KL coefficient (method.beta) is fixed in the loss
+
+    def _extra_checkpoint_state(self) -> Dict[str, Any]:
+        extra = super()._extra_checkpoint_state()
+        extra.pop("kl_ctl_value", None)
+        return extra
+
+    # ------------------------------------------------------------------
+    # rollout collection
+    # ------------------------------------------------------------------
+
+    def _grpo_score_batch(self, prompt_ids: np.ndarray, prompt_mask: np.ndarray,
+                          response_tokens: np.ndarray, response_mask: np.ndarray,
+                          elements: list, agg: Dict[str, Any], score_out=None) -> None:
+        """Score and store one group-contiguous batch: the scoring forward
+        (unless the serial path dispatched it on the generation's tensors),
+        string decoding and ``reward_fn`` while its outputs land, then the
+        ordered tail (:meth:`_grpo_chunk_finalize`)."""
+        if score_out is None:
+            score_out = self._dispatch_score(
+                np.concatenate([prompt_ids, response_tokens], axis=1), prompt_mask,
+                response_tokens, response_mask)
+        landing = HostCopy(score_out)
+        samples, prompts, outputs = self.decode(prompt_ids, response_tokens,
+                                                append_eos_token=True)
+        t0 = perf_counter()
+        scores = np.asarray(self.reward_fn(samples=samples, prompts=prompts, outputs=outputs),
+                            dtype=np.float32)
+        agg["score_time_sum"] += perf_counter() - t0
+        self._grpo_chunk_finalize({"prompt_ids": prompt_ids, "prompt_mask": prompt_mask,
+                                   "response_tokens": response_tokens,
+                                   "response_mask": response_mask, "scores": scores,
+                                   "host": landing.wait()}, elements, agg)
+
+    def _grpo_chunk_finalize(self, chunk: Dict[str, Any], elements: list,
+                             agg: Dict[str, Any]) -> None:
+        """Reward clipping, running moments (logged only: the group
+        normalisation is GRPO's reward scaling), group-relative
+        advantages, the logged k3 KL and one element per non-empty row."""
+        method: GRPOConfig = self.config.method
+        prompt_ids, prompt_mask = chunk["prompt_ids"], chunk["prompt_mask"]
+        response_tokens, response_mask = chunk["response_tokens"], chunk["response_mask"]
+        scores, host = chunk["scores"], chunk["host"]
+
+        clip = method.cliprange_reward
+        if clip:
+            scores = np.clip(scores, -clip, clip)
+        self.running_moments.update(scores)
+        agg["all_scores"].append(scores)
+        advantages = group_advantages_np(scores, method.group_size, method.scale_advantage,
+                                         baseline=method.baseline)
+        lp, rlp = host["logprobs"], host["ref_logprobs"]
+        delta = (rlp - lp) * response_mask
+        n_tok = max(response_mask.sum(), 1)
+        agg["kl_sum"] += float(((np.exp(delta) - delta - 1.0) * response_mask).sum() / n_tok)
+        agg["kl_batches"] += 1
+        agg["gen_tokens"] += int(response_mask.sum())
+        for i in range(prompt_ids.shape[0]):
+            n_i = int(response_mask[i].sum())
+            if n_i == 0:
+                continue
+            elements.append(GRPORLElement(
+                query_tensor=prompt_ids[i][prompt_mask[i] > 0],
+                response_tensor=response_tokens[i, :n_i],
+                logprobs=lp[i, :n_i],
+                ref_logprobs=rlp[i, :n_i],
+                advantage=float(advantages[i]),
+            ))
+
+    def _grpo_collect_serial(self, num_rollouts: int, elements: list,
+                             agg: Dict[str, Any]) -> None:
+        """Each prompt batch fans out into ``group_size`` rows, generates on
+        the serial dense engine to the slowest row, then scores; the
+        scoring forward is dispatched on the generation's device tensors
+        before the tokens land."""
+        G = self.config.method.group_size
+        while len(elements) < num_rollouts:
+            batch = next(self.prompt_iterator)
+            prompt_ids = np.repeat(np.asarray(batch["input_ids"], np.int64), G, axis=0)
+            prompt_mask = np.repeat(np.asarray(batch["attention_mask"], np.int64), G, axis=0)
+            t0 = perf_counter()
+            gen_out = self.generate_serial(prompt_ids, prompt_mask)
+            score_out = self._dispatch_score(gen_out.sequences, prompt_mask,
+                                             gen_out.response_tokens, gen_out.response_mask)
+            landed = HostCopy({"response_tokens": gen_out.response_tokens,
+                               "response_mask": gen_out.response_mask}).wait()
+            response_tokens, response_mask = landed["response_tokens"], landed["response_mask"]
+            agg["gen_time_sum"] += perf_counter() - t0
+            # a chunk decodes max(n_i) steps over its rows
+            n_per_row = response_mask.sum(axis=1)
+            agg["slot_steps"] += int(response_mask.shape[0]) * (
+                int(n_per_row.max()) if n_per_row.size else 0)
+            agg["live_slot_steps"] += int(n_per_row.sum())
+            self._grpo_score_batch(prompt_ids, prompt_mask, response_tokens, response_mask,
+                                   elements, agg, score_out=score_out)
+
+    def _grpo_collect_continuous(self, num_rollouts: int, elements: list,
+                                 agg: Dict[str, Any]) -> None:
+        """The group-aware harvest on the paged engine: prompts are queued
+        with ``meta = (group id, member)``; a group is ready when its last
+        member finishes, and ready groups flush in completion order,
+        ``chunk_size // group_size`` at a time, members sorted by index."""
+        if num_rollouts <= 0:
+            return
+        method: GRPOConfig = self.config.method
+        G = method.group_size
+        gen_config, extra_kwargs = self._resolve_gen_config(eval_mode=False)
+        groups_per_batch = max(method.chunk_size // G, 1)
+        state: Dict[str, Any] = {"engine": None, "supplied": 0, "processed": 0,
+                                 "next_group": 0}
+        partial: Dict[int, list] = {}  # group id → completed members
+        ready: deque = deque()  # complete groups, in completion order
+
+        def fetch_chunk() -> None:
+            batch = next(self.prompt_iterator)
+            ids = np.repeat(np.asarray(batch["input_ids"], np.int32), G, axis=0)
+            mask = np.repeat(np.asarray(batch["attention_mask"], np.int32), G, axis=0)
+            metas = [(state["next_group"] + r // G, r % G) for r in range(ids.shape[0])]
+            state["next_group"] += ids.shape[0] // G
+            if state["engine"] is None:
+                state["engine"] = self._cb_make_engine(gen_config, extra_kwargs,
+                                                       ids.shape[0], ids.shape[1])
+            state["engine"].enqueue_prompts(ids, mask, self._row_seeds(ids.shape[0]),
+                                            metas=metas)
+            state["supplied"] += ids.shape[0]
+
+        def flush(n_groups: int) -> None:
+            rows = [member for _ in range(n_groups)
+                    for member in sorted(ready.popleft(), key=lambda c: c.meta[1])]
+            state["processed"] += len(rows)
+            self._grpo_score_batch(
+                np.stack([c.prompt_ids for c in rows]).astype(np.int64),
+                np.stack([c.prompt_mask for c in rows]).astype(np.int64),
+                np.stack([c.tokens for c in rows]).astype(np.int64),
+                np.stack([c.mask for c in rows]).astype(np.int64),
+                elements, agg)
+
+        while True:
+            while len(elements) + state["supplied"] - state["processed"] < num_rollouts:
+                fetch_chunk()
+            engine = state["engine"]
+            if not engine.busy:
+                if ready:
+                    flush(len(ready))
+                if len(elements) >= num_rollouts:
+                    break
+                continue
+            for c in engine.step():
+                members = partial.setdefault(c.meta[0], [])
+                members.append(c)
+                if len(members) == G:
+                    ready.append(partial.pop(c.meta[0]))
+            while len(ready) >= groups_per_batch:
+                flush(groups_per_batch)
+
+        agg["gen_time_sum"] += engine.stats.decode_s + engine.stats.refill_s
+        agg["engine_stats"] = engine.stats
+
+    def make_experience(self, num_rollouts: int = 1024, iter_count: int = 0) -> None:
+        """Collect grouped rollouts with group-relative advantages."""
+        logger.info("Collecting GRPO rollouts")
+        if self.prompt_iterator is None:
+            raise RuntimeError("add_prompt_pipeline must be called before make_experience")
+        stats: Dict[str, float] = {}
+        elements: list = []
+        agg: Dict[str, Any] = {"kl_sum": 0.0, "kl_batches": 0, "all_scores": [],
+                               "gen_time_sum": 0.0, "score_time_sum": 0.0, "gen_tokens": 0,
+                               "slot_steps": 0, "live_slot_steps": 0}
+        exp_time = perf_counter()
+        if self.config.train.continuous_batching:
+            self._grpo_collect_continuous(num_rollouts, elements, agg)
+        else:
+            self._grpo_collect_serial(num_rollouts, elements, agg)
+
+        self.mean_kl = agg["kl_sum"] / max(agg["kl_batches"], 1)
+        stats["policy/sqrt_ref_kl"] = float(np.sqrt(max(self.mean_kl, 0.0)))
+        stats["time/exp_generate"] = agg["gen_time_sum"]
+        engine_stats = agg.get("engine_stats")
+        if engine_stats is None:
+            # the serial generate's KV gauge and, under speculation, its
+            # acceptance and rounds
+            stats.update(self.last_generate_stats)
+        stats["time/exp_score"] = agg["score_time_sum"]
+        pooled = (np.concatenate(agg["all_scores"]) if agg["all_scores"]
+                  else np.zeros((0,), np.float32))
+        stats["exp_scores/mean"] = float(pooled.mean()) if pooled.size else 0.0
+        stats["exp_scores/std"] = float(pooled.std()) if pooled.size else 0.0
+        if engine_stats is not None:
+            stats.update(engine_stats.metrics())
+        elif agg["slot_steps"]:
+            util = agg["live_slot_steps"] / agg["slot_steps"]
+            stats["throughput/slot_utilization"] = util
+            stats["rollout/padded_decode_frac"] = 1.0 - util
+        total = perf_counter() - exp_time
+        stats["time/exp"] = total
+        stats["rollout/gen_tokens"] = float(agg["gen_tokens"])
+        if total > 0 and agg["gen_tokens"]:
+            stats["throughput/rollout_tokens_per_sec"] = agg["gen_tokens"] / total
+        self.make_experience_stats = stats
+        self.tracker.log(stats, step=iter_count)
+        self.store.push(elements[:num_rollouts] if num_rollouts else elements)
+
+    # ------------------------------------------------------------------
+    # optimization
+    # ------------------------------------------------------------------
+
+    def loss_fn(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """The query‖response forward (the flash kernels on the card), then
+        the GRPO objective and the MoE router losses."""
+        method: GRPOConfig = self.config.method
+        queries = batch["query_tensors"].to(torch.int64)
+        responses = batch["response_tensors"].to(torch.int64)
+        Q, R = queries.shape[1], responses.shape[1]
+        input_ids = torch.cat([queries, responses], dim=1)
+        attention_mask = torch.cat([batch["query_mask"], batch["response_mask"]], dim=1)
+        out = self.model(input_ids, attention_mask=attention_mask, logits_span=(Q - 1, Q + R - 1))
+        logprobs = logprobs_of_labels(out["logits"], responses)
+        return self.with_router_aux(
+            method.loss(logprobs=logprobs, old_logprobs=batch["logprobs"],
+                        ref_logprobs=batch["ref_logprobs"], advantages=batch["advantages"],
+                        mask=batch["response_mask"],
+                        behavior_logprobs=batch.get("behavior_logprobs")),
+            out)

@@ -144,9 +144,9 @@ class ILQLTrainer(TorchBaseTrainer):
         input_ids = batch["input_ids"]
         # logits_span (0, 0): hidden states only — the cross-entropy needs
         # logits at the action positions alone, projected below
-        hidden = self.model.backbone_forward(
-            input_ids, attention_mask=batch["attention_mask"], logits_span=(0, 0)
-        )["hidden_states"]
+        out = self.model.backbone_forward(
+            input_ids, attention_mask=batch["attention_mask"], logits_span=(0, 0))
+        hidden = out["hidden_states"]
         hs_actions = batched_index_select(hidden, batch["actions_ixs"])
         hs_states = batched_index_select(hidden, batch["states_ixs"])
         qs, target_qs, vs = self.model.heads_on(hs_actions, hs_states)
@@ -154,8 +154,9 @@ class ILQLTrainer(TorchBaseTrainer):
         # the action itself: the token after the action index
         actions = input_ids[:, 1:].to(torch.int64).gather(
             1, batch["actions_ixs"].to(torch.int64))
-        return self.ilql.loss(logits=logits, qs=qs, target_qs=target_qs, vs=vs,
-                              actions=actions, rewards=batch["rewards"], dones=batch["dones"])
+        return self.with_router_aux(
+            self.ilql.loss(logits=logits, qs=qs, target_qs=target_qs, vs=vs, actions=actions,
+                           rewards=batch["rewards"], dones=batch["dones"]), out)
 
     def prepare_learning(self) -> None:
         self.train_dataloader = self.store.create_loader(

@@ -86,7 +86,8 @@ class PPOTrainer(TorchBaseTrainer):
         the hydra branch, or the whole backbone when every layer trains."""
         if self.num_layers_unfrozen > 0:
             return hydra_ref_params(self.model, self.tcfg, self.num_layers_unfrozen)
-        return copy.deepcopy(self.model.backbone).eval().requires_grad_(False)
+        backbone = getattr(self.model, "backbone", self.model)  # a head-less policy is one
+        return copy.deepcopy(backbone).eval().requires_grad_(False)
 
     # ------------------------------------------------------------------
     # rollout collection
@@ -126,7 +127,7 @@ class PPOTrainer(TorchBaseTrainer):
     @torch.no_grad()
     def _score(self, sequences, prompt_mask, response_tokens, response_mask):
         """The scoring forward of one (B, P, N) group: policy logprobs and
-        values, and the frozen reference's logprobs (hydra branch replay on
+        values (none for a head-less policy), and the frozen reference's logprobs (hydra branch replay on
         the trunk activations, or the full frozen copy). Logits at t
         predict token t + 1, so response token i is scored at P - 1 + i;
         the vocab projection is restricted to that span."""
@@ -141,11 +142,11 @@ class PPOTrainer(TorchBaseTrainer):
             ref_out = self.ref_params(out["branch_input"], full_mask, None, span)
         else:
             ref_out = self.ref_params(sequences, attention_mask=full_mask, logits_span=span)
-        return {
-            "logprobs": logprobs,
-            "ref_logprobs": logprobs_of_labels(ref_out["logits"], response_tokens),
-            "values": out["value"][:, P - 1 : P + N - 1].float(),
-        }
+        score = {"logprobs": logprobs,
+                 "ref_logprobs": logprobs_of_labels(ref_out["logits"], response_tokens)}
+        if "value" in out:  # a head-less policy (GRPO) scores no values
+            score["values"] = out["value"][:, P - 1 : P + N - 1].float()
+        return score
 
     def _dispatch_score(self, sequences, prompt_mask, response_tokens,
                         response_mask) -> Dict[str, torch.Tensor]:
@@ -465,7 +466,7 @@ class PPOTrainer(TorchBaseTrainer):
         if method.dist_sketches:
             stats.update(loss_sketches(
                 {"entropy": (entropy_of_logits(out["logits"]), response_mask)}))
-        return loss, stats
+        return self.with_router_aux((loss, stats), out)
 
     def prepare_learning(self) -> None:
         self.train_dataloader = self.store.create_loader(

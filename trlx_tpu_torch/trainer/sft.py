@@ -40,10 +40,11 @@ class SFTTrainer(TorchBaseTrainer):
             # logits_span (0, 0): hidden states only; chunked_loss projects
             out = self.model(batch["input_ids"], attention_mask=batch["attention_mask"],
                              logits_span=(0, 0))
-            return self.config.method.chunked_loss(self.model, out["hidden_states"],
-                                                   batch["labels"], chunk)
+            return self.with_router_aux(self.config.method.chunked_loss(
+                self.model, out["hidden_states"], batch["labels"], chunk), out)
         out = self.model(batch["input_ids"], attention_mask=batch["attention_mask"])
-        return self.config.method.loss(out["logits"], batch["labels"])
+        return self.with_router_aux(self.config.method.loss(out["logits"], batch["labels"]),
+                                    out)
 
     def prepare_learning(self) -> None:
         self._resolved_logit_chunk()  # the ignored-knob warning, before any step

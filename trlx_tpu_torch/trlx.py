@@ -1,7 +1,8 @@
 """Public API of the port: ``train()`` for online RL, offline RL and
 supervised fine-tuning.
 
-Port of ``trlx_tpu/trlx.py::train``: a ``reward_fn`` selects online PPO,
+Port of ``trlx_tpu/trlx.py::train``: a ``reward_fn`` selects online RL
+(PPO, or GRPO with ``config.train.trainer: GRPOTrainer``),
 ``samples`` with ``rewards`` offline ILQL, ``samples`` alone SFT. The user
 callback contracts are the JAX package's:
 
@@ -52,7 +53,8 @@ def train(  # noqa: C901
     (e.g. to transplant warm-start weights into the policy and its
     reference)."""
     for module in ("trlx_tpu_torch.pipeline.offline_pipeline", "trlx_tpu_torch.trainer.ppo",
-                   "trlx_tpu_torch.trainer.ilql", "trlx_tpu_torch.trainer.sft"):
+                   "trlx_tpu_torch.trainer.grpo", "trlx_tpu_torch.trainer.ilql",
+                   "trlx_tpu_torch.trainer.sft"):
         importlib.import_module(module)
     from trlx_tpu_torch.pipeline import get_pipeline
     from trlx_tpu_torch.trainer import get_trainer
