@@ -97,7 +97,7 @@ Phases, each printing one JSON line:
    must lift its last three evals over its first two by more than 0.1;
 10. the family slice (``FAMILY_SPEC``, Mistral-7B: rotary positions,
    RMSNorm, the gated SiLU MLP, GQA 4:1 at head dim 128, a 4096 window):
-   at full width and 8 of its 32 layers, 16 HTTP requests on 8 slots with
+   at full width and 4 of its 32 layers, 16 HTTP requests on 8 slots with
    4160-token
    prompts (half cut to 512 tokens, left-padded by the engine), so the
    window bites in prefill (#1) and decode (#2), beside the time of the
@@ -130,7 +130,7 @@ Phases, each printing one JSON line:
    against the continuous one group for group; (b) one batch's loss and
    gradients on the kernels against a CPU copy's plain attention; (c) a
    run resumed from ``slice_grpo``'s step-8 checkpoint against it;
-12. the MoE slice at Mixtral-8x7B's width (``MOE_SPEC``): served at four
+12. the MoE slice at Mixtral-8x7B's width (``MOE_SPEC``): served at two
    layers, 16 HTTP requests on 8 slots, half 1024-token prompts and half
    512, 32 new tokens, half greedy, with the build seconds, the experts'
    per-call cast and the peak memory (``slice_moe_serve``); the f32
@@ -140,7 +140,23 @@ Phases, each printing one JSON line:
    (``slice_moe_grpo``). Phases 3 and 5 check the kernels at these
    slices' shapes (the 1024-token prefill over 1056 slots and its decode;
    the GRPO engine's 128-row refill at T = 984; its sampler at B = 128;
-   the flash kernels at (32, 104, 12, 12, 64) and (32, 72, 32, 8, 128)).
+   the flash kernels at (32, 104, 12, 12, 64) and (32, 72, 32, 8, 128));
+13. preference learning: DPO through ``trlx_tpu_torch.train(samples=
+   triples)`` on ``tasks/dpo_sentiments.py`` (``default_dpo_config()``,
+   GPT-2 small, 256 triples, batch 16, one epoch of 16 steps, then the
+   evaluation on 64 review openings; ``slice_dpo``: the reference pass
+   launches #5 alone, the steps #5/#6, the evaluations #1–#3, counted
+   apart; the first loss must be ln 2); in f32 with TF32 off the reference
+   logps, one stepped batch's loss and gradients card against CPU, and
+   ``logit_chunk`` 64 against the full projection (``slice_dpo_parity``);
+   the TL;DR recipe's stage 2 (the reward model at the example's settings,
+   64 steps) with its end scores against the plain f32 forward, then stage
+   3's serial PPO against it (``slice_reward``: #5/#6 only); DPO with LoRA
+   (r 8, every projection) at Mistral-7B's width cut to
+   ``FAMILY_TRAIN_LAYERS`` layers, 4 steps: the base must not move and
+   every adapter must (``slice_dpo_lora``). Phase 5 checks the flash
+   kernels at these paths' right-padded shapes (``PREFERENCE_FLASH_SHAPES``)
+   and the stage-3 PPO's left-padded train batch and prefill.
 
 Before the kernel summary, ``phase_seconds`` gives each phase's wall
 seconds.
@@ -1174,9 +1190,10 @@ def phase_slice(device="cuda", spec="builtin:gpt2-small", slots=8, block_size=16
 # the family slice: Mistral-7B (mistralai/Mistral-7B-v0.1 config.json: the
 # JAX preset's widths) served with prompts that cross its 4096 window
 FAMILY_SPEC = "builtin:mistral-7b"
-# served at 8 of its 32 layers: with the GRPO and MoE phases the full
-# depth took the script to 896 s of phases (the limit is 800)
-FAMILY_SERVE_LAYERS = 8
+# served at 4 of its 32 layers: with the GRPO and MoE phases the full
+# depth took the script to 896 s of phases (the limit is 800), 8 layers
+# with the preference phases 880 s
+FAMILY_SERVE_LAYERS = 4
 FAMILY_SERVE = dict(slots=8, prompt_len=4160, max_new=32, n_requests=16, short_len=512, eos=2)
 # the parity and PPO runs of the family slice at full width, cut in depth:
 # two f32 7B copies and the KV pool exceed 80 GB, Adam over a full-depth 7B
@@ -1271,6 +1288,13 @@ def excess(got, want, atol, rtol):
 # 128 at seq_length 64) and ilql_randomwalks' (batch 32 at seq_length 11,
 # head dim 12); the gpu tests share these
 RIGHT_PAD_FLASH_SHAPES = [(8, 1024, 12, 64), (128, 64, 12, 64), (32, 11, 12, 12)]
+# the preference paths' flash calls, right-padded, T = S: (B, T, H, KV, D,
+# window). DPO's batch of 16 pairs (32 rows of prompt ‖ completion: the
+# task's triples pad to 64 or 72 bytes) at GPT-2 small's width, the reward
+# model's 8 pairs (16 rows padded to max_length 256, at most 110 real),
+# DPO + LoRA's 16 pairs at Mistral-7B's width; the gpu tests share these
+PREFERENCE_FLASH_SHAPES = {"dpo": (32, 72, 12, 12, 64, 0), "reward": (16, 256, 12, 12, 64, 0),
+                           "dpo_lora": (32, 72, 32, 8, 128, 4096)}
 
 
 def right_pad_mask(B, S, seed):
@@ -1335,6 +1359,7 @@ def check_flash(label, B, T, S, H, KV, D, dtype, seed, causal=True, q_offset=0, 
     )
 
     dev = torch.device("cuda")
+    t0 = time.perf_counter()
     rs = np.random.RandomState(seed)
     q, k, v, mask, alibi_args, do = flash_case_inputs(
         rs, B, T, S, H, KV, D, dtype, dev, left_pad, alibi, q_offset, dead_keys,
@@ -1396,6 +1421,7 @@ def check_flash(label, B, T, S, H, KV, D, dtype, seed, causal=True, q_offset=0, 
         rec["bwd"]["bound_ms"], rec["bwd"]["bound_by"] = bound(bwd_bytes, 10 * D * H * pairs, dtype)
         rec["visible_pairs_per_head"] = pairs
     flash_fwd.launches, flash_bwd.launches = before
+    rec["seconds"] = time.perf_counter() - t0
     emit({**rec, "ok": True})
     return rec
 
@@ -1565,6 +1591,23 @@ def phase_train_kernels():
             for i, B in enumerate((128, 32)):
                 check_flash(f"{tag}_prefill_{B}", B=B, T=P, S=P + 40, H=H, KV=KV, D=D,
                             dtype=dtype, seed=seed + 1 + i)
+        # (j) the preference paths' train batches, right-padded: DPO's 16
+        # pairs (timed) and the reward model's 8 at GPT-2 small's width, DPO
+        # + LoRA at Mistral-7B's (GQA 4:1, D 128, its window; timed at (h)'s
+        # MoE GRPO shape, which it equals)
+        for i, (tag, (B, T, H, KV, D, window)) in enumerate(PREFERENCE_FLASH_SHAPES.items()):
+            rec = check_flash(f"{tag}_train", B=B, T=T, S=T, H=H, KV=KV, D=D, dtype=dtype,
+                              seed=51 + i, window=window, right_pad=True,
+                              timed=bf and tag == "dpo")
+            if bf and tag == "dpo":
+                timed["flash_dpo"] = rec
+        # (k) the reward model's stage-3 PPO, left-padded: its train batches
+        # (16 rows of 206-byte prompts ‖ 50 tokens) and the serial
+        # collection's dense-cache prefill of a 16-row chunk
+        check_flash("reward_ppo_train", B=16, T=256, S=256, H=12, KV=12, D=64, dtype=dtype,
+                    seed=55)
+        check_flash("reward_ppo_prefill", B=16, T=206, S=256, H=12, KV=12, D=64, dtype=dtype,
+                    seed=56)
         if bf:
             timed["flash_train"], timed["flash_long"], timed["flash_family"] = a, b, fam
             timed["flash_grpo"], timed["flash_moe_grpo"] = grpo, moe
@@ -2509,13 +2552,14 @@ def _scratch_dir(tag):
     return tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_", dir=os.path.join(ROOT, "build"))
 
 
-def offline_slice(phase, config, samples, dev, card, check, profile_steps=3, **train_kwargs):
+def offline_slice(phase, config, samples, dev, card, check, profile_steps=3,
+                  loss_key="losses/loss", **train_kwargs):
     """``trlx_tpu_torch.train(samples=...)`` on ``config`` with its
     checkpoints in a scratch directory (removed after), every kernel
     counter set to 0 just before and read just after; then
     ``profile_steps`` steps of one batch under ``torch.profiler`` (on the
     card). ``check(trainer, steps)`` returns ``(problems, fields)`` of the
-    method. Emits the phase's record; returns the trainer and the
+    method; ``loss_key`` names its logged loss. Emits the phase's record; returns the trainer and the
     launches."""
     import shutil
 
@@ -2545,7 +2589,7 @@ def offline_slice(phase, config, samples, dev, card, check, profile_steps=3, **t
     problems, gauges = offline_launch_problems(trainer, launches, dev)
     if len(steps) != config.train.total_steps:
         problems.append(f"{len(steps)} optimizer steps, not {config.train.total_steps}")
-    if not all(math.isfinite(st["losses/loss"]) for st in steps):
+    if not all(math.isfinite(st[loss_key]) for st in steps):
         problems.append("a non-finite loss")
     method_problems, fields = check(trainer, steps)
     problems += method_problems
@@ -2557,7 +2601,7 @@ def offline_slice(phase, config, samples, dev, card, check, profile_steps=3, **t
            "dtype": str(trainer.tcfg.dtype).split(".")[-1],
            "seq_length": config.train.seq_length, "batch_size": config.train.batch_size,
            "samples": len(samples), "optimizer_steps": len(steps),
-           "losses": [st["losses/loss"] for st in steps], **fields, "wall_s": wall,
+           "losses": [st[loss_key] for st in steps], **fields, "wall_s": wall,
            "train_step_ms_median": statistics.median(step_ms), "train_step_ms": step_ms,
            "train_tokens_per_s_median": statistics.median(
                st["throughput/tokens_per_sec"] for st in steps),
@@ -3137,18 +3181,7 @@ def phase_slice_grpo_parity(run, device="cuda", spec="builtin:gpt2-small", card=
     adv_scale = float((np.abs(np.asarray(batch.advantages, np.float64))[:, None] * mask).sum()
                       / max(mask.sum(), 1.0))
     loss_rel = abs(gpu["loss"] - cpu["loss"]) / max(abs(cpu["loss"]), 1e-30)
-    gmax = max(float(g.abs().max()) for g in cpu["grads"].values())
-    grad_worst, grad_name, zero_worst = 0.0, None, 0.0
-    for k, want in cpu["grads"].items():
-        err = float((gpu["grads"][k] - want).abs().max())
-        if k.endswith("attn.k_proj.bias"):
-            # zero in exact arithmetic (softmax ignores a shift that every
-            # key shares): both sides hold f32 noise, held absolutely
-            zero_worst = max(zero_worst, err / gmax)
-            continue
-        rel = err / max(float(want.abs().max()), 1e-5 * gmax)
-        if not rel <= grad_worst:
-            grad_worst, grad_name = rel, k
+    grad_worst, grad_name, zero_worst = grad_gaps(gpu["grads"], cpu["grads"])
     through = {k: gpu["launches"][k] for k in GRPO_KERNELS}
     kl = {k: cpu["stats"][k] for k in ("losses/kl_loss", "policy/approx_kl")}
     rec["b_step_parity"] = {"rows": len(batch.advantages), "loss_card": gpu["loss"],
@@ -3217,10 +3250,12 @@ def phase_slice_grpo_parity(run, device="cuda", spec="builtin:gpt2-small", card=
 # rope_theta 1e6, dispatch groups of 512 tokens
 MOE_SPEC = "builtin:mixtral-8x7b"
 MOE_SERVE = dict(slots=8, prompt_len=1024, max_new=32, n_requests=16, short_len=512, eos=2)
-# depth cuts: 4 served layers hold 6.07 B f32 parameters (24.3 GB); the f32
-# parity holds 2 (12.7 GB); GRPO at 2 layers holds weights, gradients,
-# AdamW's moments and the hydra reference (~63 GB)
-MOE_SERVE_LAYERS, MOE_PARITY_LAYERS, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 2, 2, 4
+# depth cuts: 2 served layers hold 3.17 B f32 parameters (12.7 GB; 4 layers,
+# 6.07 B, drew for ~50 s on the host, and the preference phases took the
+# script to 880 s of phases); the f32 parity holds 2 (12.7 GB); GRPO at 2
+# layers holds weights, gradients, AdamW's moments and the hydra
+# reference (~63 GB)
+MOE_SERVE_LAYERS, MOE_PARITY_LAYERS, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 2, 2, 4
 
 
 def phase_moe_serve(device="cuda", spec=MOE_SPEC, layers=MOE_SERVE_LAYERS,
@@ -3328,25 +3363,7 @@ def phase_moe_grpo(device="cuda", spec=MOE_SPEC, layers=MOE_TRAIN_LAYERS,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-    built = {}
-
-    memory = {}
-
-    def staged(trainer, name):
-        """Record the allocated and peak device memory (GB) around the
-        first call of ``trainer.<name>``."""
-        fn = getattr(trainer, name)
-
-        def wrapped(*a, **k):
-            if name in memory or dev.type != "cuda":
-                return fn(*a, **k)
-            before = torch.cuda.memory_allocated(dev) / 1e9
-            out = fn(*a, **k)
-            memory[name] = {"before": before, "after": torch.cuda.memory_allocated(dev) / 1e9,
-                            "peak": torch.cuda.max_memory_allocated(dev) / 1e9}
-            return out
-
-        setattr(trainer, name, wrapped)
+    built, memory = {}, {}
 
     def hook(trainer):
         trainer.save = lambda *a, **k: None
@@ -3356,7 +3373,7 @@ def phase_moe_grpo(device="cuda", spec=MOE_SPEC, layers=MOE_TRAIN_LAYERS,
         if dev.type == "cuda":
             memory["built"] = torch.cuda.memory_allocated(dev) / 1e9
         for name in ("make_experience", "evaluate", "accumulate_grads", "train_step"):
-            staged(trainer, name)
+            record_memory(trainer, name, memory, dev)
 
     ckpt = _scratch_dir("moe_grpo")
     zero_launch_counts()
@@ -3415,6 +3432,531 @@ def phase_moe_grpo(device="cuda", spec=MOE_SPEC, layers=MOE_TRAIN_LAYERS,
     del trainer
     if problems:
         raise AssertionError(f"slice_moe_grpo: {problems}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 13: preference learning — DPO, the reward model (TL;DR stages 2–3)
+# and DPO with LoRA
+# ---------------------------------------------------------------------------
+
+# DPO: the reference pass runs #5, the steps #5/#6, the evaluation #1–#3
+DPO_KERNELS = OFFLINE_KERNELS
+DPO_STEPS, DPO_TRIPLES, DPO_EVAL_PROMPTS = 16, 256, 64  # one epoch at batch 16
+# the first step's loss: the policy is its own reference, so every margin
+# is 0 and the loss ln 2, up to the bf16 rounding of two passes' logps
+DPO_FIRST_LOSS_ATOL = 1e-2
+# slice_dpo_parity, f32 with TF32 off: pairs per batch; the reference
+# logps (relative), the loss (relative) and the gradients (of each
+# tensor's largest, floored at 1e-5 of the model's largest) held card
+# against the CPU's plain attention, and logit_chunk against the full
+# projection
+DPO_PARITY_PAIRS, DPO_PARITY_CHUNK, DPO_PARITY_LR = 4, 64, 1e-4
+DPO_LOGP_RTOL, DPO_PARITY_LOSS_RTOL, DPO_PARITY_GRAD_RTOL = 1e-4, 1e-5, 1e-4
+# the reward model: stage 2 cut to REWARD_STEPS steps, then stage 3's
+# serial PPO for REWARD_PPO_STEPS steps of one 64-rollout collection
+REWARD_KERNELS = ("flash_fwd", "flash_bwd")
+REWARD_STEPS, REWARD_PPO_STEPS = 64, 4
+# the trained model's end scores (bf16 compute over f32 weights) against
+# the f32 plain forward, over the largest |score|: bf16 rounds each hidden
+# entry by up to 2^-9 of itself and the errors grow through 12 blocks, so
+# a score moves by ~1 % of the scores' scale (64 steps train them to ~10);
+# the card's own f32 pass agrees to summation order, absolutely
+REWARD_BF16_SCORE_RTOL, REWARD_F32_SCORE_ATOL = 2e-2, 1e-4
+# DPO with LoRA at Mistral-7B's width, cut in depth to the family PPO's
+# FAMILY_TRAIN_LAYERS (8 layers drew 2.0 B parameters for 18.7 s of a
+# 21.4 s phase, and the script ran 880 s of phases)
+LORA_PEFT = {"peft_type": "lora", "r": 8, "lora_alpha": 16, "modified_modules": "all"}
+LORA_LAYERS, LORA_STEPS, LORA_EVAL_PROMPTS = FAMILY_TRAIN_LAYERS, 4, 16
+
+
+def record_memory(trainer, name, memory, dev):
+    """Wrap ``trainer.<name>``: its first call records the allocated device
+    memory before and after and the peak so far (GB) in ``memory[name]``."""
+    fn = getattr(trainer, name)
+
+    def wrapped(*a, **k):
+        if name in memory or dev.type != "cuda":
+            return fn(*a, **k)
+        before = torch.cuda.memory_allocated(dev) / 1e9
+        out = fn(*a, **k)
+        memory[name] = {"before": before, "after": torch.cuda.memory_allocated(dev) / 1e9,
+                        "peak": torch.cuda.max_memory_allocated(dev) / 1e9}
+        return out
+
+    setattr(trainer, name, wrapped)
+
+
+def count_launches(trainer, name, stages):
+    """Wrap ``trainer.<name>``: the kernel launches of its calls add up in
+    ``stages[name]``."""
+    fn = getattr(trainer, name)
+
+    def wrapped(*a, **k):
+        before = launch_counts()
+        out = fn(*a, **k)
+        after = launch_counts()
+        total = stages.setdefault(name, {key: 0 for key in after})
+        for key in after:
+            total[key] += after[key] - before[key]
+        return out
+
+    setattr(trainer, name, wrapped)
+
+
+def dpo_launch_problems(launches, stages, dev, steps_must=("flash_fwd", "flash_bwd")):
+    """The DPO path's launches: #5 alone in the reference pass, #5/#6 in
+    the steps, #1–#3 in the evaluations, nothing off the path."""
+    steps = {k: launches[k] - sum(s.get(k, 0) for s in stages.values()) for k in launches}
+    problems = []
+    if any(launches[k] for k in REPLACES if k not in DPO_KERNELS):
+        problems.append(f"a kernel off the path launched: {launches}")
+    if dev.type == "cuda":
+        ref = stages.get("make_experience", {})
+        if ref.get("flash_fwd", 0) <= 0 or any(v for k, v in ref.items() if k != "flash_fwd"):
+            problems.append(f"the reference pass launched {ref}")
+        if min(steps[k] for k in steps_must) <= 0:
+            problems.append(f"the steps launched {steps}")
+        if min(stages.get("evaluate", {}).get(k, 0) for k in SERVE_KERNELS) <= 0:
+            problems.append(f"the evaluation launched {stages.get('evaluate')}")
+    return problems, steps
+
+
+def phase_slice_dpo(device="cuda", spec="builtin:gpt2-small", total_steps=DPO_STEPS,
+                    n_triples=DPO_TRIPLES, n_eval=DPO_EVAL_PROMPTS, card="", hparams=None):
+    """DPO through ``trlx_tpu_torch.train(samples=triples)`` on
+    ``tasks/dpo_sentiments.py``'s settings (``default_dpo_config()``:
+    GPT-2 small at full width and depth, bf16 over f32 masters,
+    ``num_layers_unfrozen`` −1, ``seq_length`` 256, batch 16, ``beta`` 0.1)
+    on its 256 triples: the reference pass, one epoch (16 steps), the
+    evaluations on 64 review openings (40 sampled tokens, the lexicon
+    sentiment). Every counter is set to 0 just before and read just after;
+    the reference pass, the steps and the evaluations are counted apart.
+    A non-finite loss, a first loss off ln 2 by more than
+    ``DPO_FIRST_LOSS_ATOL``, no trained weight moving, a kernel off the
+    path or one of the path's never launching fails. Returns (trainer,
+    launches)."""
+    from trlx_tpu_torch.tasks import dpo_sentiments as task
+    from trlx_tpu_torch.tasks.sentiment import review_prompts
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    config = task.config(spec, {"train.total_steps": total_steps, **(hparams or {})})
+    stages, start = {}, {}
+
+    def hook(trainer):
+        start.update({k: trainer.model.state_dict()[k].detach().cpu().clone()
+                      for k in trained_keys(trainer)})
+        for name in ("make_experience", "evaluate"):
+            count_launches(trainer, name, stages)
+
+    def check(trainer, steps):
+        losses = [st["losses/total_loss"] for st in steps]
+        end = trainer.model.state_dict()
+        moved = [k for k in start if not torch.equal(end[k].detach().cpu(), start[k])]
+        problems, step_launches = dpo_launch_problems(launch_counts(), stages, dev)
+        if not abs(losses[0] - math.log(2.0)) <= DPO_FIRST_LOSS_ATOL:
+            problems.append(f"first loss {losses[0]}, not ln 2")
+        if not moved:
+            problems.append("no trained weight moved")
+        step_s = statistics.median(st["time/step"] for st in steps)
+        evals = [st for _, st in trainer.tracker.history if "metrics/sentiment" in st]
+        return problems, {
+            "reference_pass_s": trainer.ref_pass_time,
+            "pairs_per_s_median": config.train.batch_size / step_s,
+            "rewards_margin": [st["rewards/margin"] for st in steps],
+            "rewards_accuracy": [st["rewards/accuracy"] for st in steps],
+            "logps_chosen": [st["logps/chosen"] for st in steps],
+            "eval_sentiment": [st["metrics/sentiment"] for st in evals],
+            "launches_by_stage": {"reference_pass": stages.get("make_experience"),
+                                  "steps": step_launches, "evaluate": stages.get("evaluate")},
+            "trained_weights_moved": len(moved),
+            "peak_memory_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                               if dev.type == "cuda" else None)}
+
+    return offline_slice("slice_dpo", config, task.preference_triples(n_triples, seed=0), dev,
+                         card, check, loss_key="losses/total_loss",
+                         eval_prompts=review_prompts(n_eval, seed=1), metric_fn=task.metric_fn,
+                         init_trainer_hook=hook)
+
+
+def grad_gaps(got, want):
+    """``(worst, name, key_bias)``: the largest gradient error over its
+    tensor's largest (floored at 1e-5 of the model's largest) and where,
+    and the key-projection biases' largest error over the model's largest
+    gradient: theirs is 0 in exact arithmetic (softmax ignores a shift
+    every key shares), so both sides hold f32 noise, held absolutely
+    against ``GRPO_ZERO_GRAD_ATOL`` as in :func:`phase_slice_grpo_parity`."""
+    gmax = max(float(g.abs().max()) for g in want.values())
+    worst, name, key_bias = 0.0, None, 0.0
+    for k, w in want.items():
+        err = float((got[k] - w).abs().max())
+        if k.endswith("attn.k_proj.bias"):
+            key_bias = max(key_bias, err / gmax)
+            continue
+        rel = err / max(float(w.abs().max()), 1e-5 * gmax)
+        if not rel <= worst:  # NaN counts as worst
+            worst, name = rel, k
+    return worst, name, key_bias
+
+
+def phase_slice_dpo_parity(device="cuda", spec="builtin:gpt2-small", pairs=DPO_PARITY_PAIRS,
+                           chunk=DPO_PARITY_CHUNK, card=""):
+    """In f32 with TF32 off, on ``tasks/dpo_sentiments.py``'s settings at
+    ``pairs`` pairs a batch (lr ``DPO_PARITY_LR``): (a) the reference pass
+    on the card's kernels against a CPU copy's plain attention, every
+    pair's two logps within ``DPO_LOGP_RTOL``; (b) after one optimizer step
+    on a batch (so its loss leaves ln 2), that batch's loss and gradients
+    on the card against the CPU copy, the loss within
+    ``DPO_PARITY_LOSS_RTOL`` and every gradient within
+    ``DPO_PARITY_GRAD_RTOL`` of its tensor's largest (the key biases, whose
+    exact gradient is 0, within ``GRPO_ZERO_GRAD_ATOL`` of the model's
+    largest: :func:`grad_gaps`); (c) on the card,
+    ``method.logit_chunk`` ``chunk`` against the full projection, the same
+    tolerances."""
+    from trlx_tpu_torch.models.transformer import CausalTransformer
+    from trlx_tpu_torch.tasks import dpo_sentiments as task
+    from trlx_tpu_torch.trainer.dpo import DPOTrainer, completion_logps
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    config = task.config(spec, {
+        "train.batch_size": pairs, "parallel.compute_dtype": "float32",
+        "optimizer.kwargs.lr": DPO_PARITY_LR, "scheduler.kwargs.lr": DPO_PARITY_LR,
+        "scheduler.kwargs.eta_min": DPO_PARITY_LR,
+        # these trainers save nothing: the directory is never made
+        "train.checkpoint_dir": os.path.join(ROOT, "build", "chip_smoke_dpo_parity")})
+    trainer = DPOTrainer(config=config, device=dev)
+    triples = task.preference_triples(2 * pairs, seed=5)
+    state0 = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+    zero_launch_counts()
+    trainer.make_experience(triples, config.train.seq_length)
+    ref_launches = launch_counts()
+    card_refs = np.asarray([(e["ref_chosen_logp"], e["ref_rejected_logp"])
+                            for e in trainer.store.history], np.float64)
+    batches = list(trainer.store.create_loader(pairs, shuffle=False))
+    # (a) the CPU's plain forward of the same rows from the same weights
+    cfg32 = dataclasses.replace(trainer.tcfg, dtype=torch.float32)
+    with torch.device("meta"):
+        cpu_model = CausalTransformer(cfg32)
+    cpu_model.load_state_dict(state0, assign=True)
+    cpu_refs = []
+    with torch.no_grad():
+        for batch in batches:
+            ids, attn, out = (torch.as_tensor(batch[k]) for k in ("input_ids", "attention_mask",
+                                                                 "out_mask"))
+            cpu_refs.append(completion_logps(cpu_model, ids, attn, out)[0].numpy())
+    cpu_refs = np.concatenate(cpu_refs).reshape(-1, 2).astype(np.float64)
+    del cpu_model
+    logp_rel = float((np.abs(card_refs - cpu_refs) / np.abs(cpu_refs)).max())
+    rec = {"phase": "slice_dpo_parity", "model": spec, "dtype": "float32", "tf32": False,
+           "pairs": pairs, "seq_length": config.train.seq_length, "card": card,
+           "a_reference_logps": {"pairs": len(card_refs), "max_rel_err": logp_rel,
+                                 "rtol": DPO_LOGP_RTOL, "launches": ref_launches}}
+    problems = []
+    if not logp_rel <= DPO_LOGP_RTOL:
+        problems.append(f"(a) reference logps off by {logp_rel} relative")
+    if dev.type == "cuda" and (ref_launches["flash_fwd"] <= 0 or ref_launches["flash_bwd"]):
+        problems.append(f"(a) the reference pass launched {ref_launches}")
+
+    # (b) one step, then that batch on the card against the CPU
+    trainer.train_step(batches[0])
+    results = card_cpu_backward(trainer, CausalTransformer, batches[0], device)
+    gpu, cpu = results["card"], results["cpu"]
+    loss_rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    grad_worst, grad_name, key_bias = grad_gaps(gpu["grads"], cpu["grads"])
+    rec["b_step_parity"] = {
+        "loss_card": gpu["loss"], "loss_cpu": cpu["loss"], "loss_minus_ln2": cpu["loss"]
+        - math.log(2.0), "margin_cpu": cpu["stats"]["rewards/margin"],
+        "loss_rel_err": loss_rel, "loss_rtol": DPO_PARITY_LOSS_RTOL,
+        "worst_grad_rel_err": grad_worst, "worst_grad": grad_name,
+        "grad_rtol": DPO_PARITY_GRAD_RTOL, "key_bias_err_over_largest": key_bias,
+        "key_bias_atol_over_largest": GRPO_ZERO_GRAD_ATOL, "params_compared": len(cpu["grads"]),
+        "launches_card": {k: gpu["launches"][k] for k in ("flash_fwd", "flash_bwd")}}
+    if not loss_rel <= DPO_PARITY_LOSS_RTOL:
+        problems.append(f"(b) loss {gpu['loss']} vs {cpu['loss']}")
+    if not abs(cpu["loss"] - math.log(2.0)) >= 1e-3:
+        problems.append(f"(b) the compared loss {cpu['loss']} is still the first step's ln 2")
+    if not grad_worst <= DPO_PARITY_GRAD_RTOL:
+        problems.append(f"(b) gradient {grad_name}: relative {grad_worst}")
+    if not key_bias <= GRPO_ZERO_GRAD_ATOL:
+        problems.append(f"(b) key-bias gradients {key_bias} of the largest")
+    if set(gpu["grads"]) != set(cpu["grads"]) or max(cpu["launches"].values()) != 0 or (
+            dev.type == "cuda" and min(gpu["launches"][k] for k in REWARD_KERNELS) <= 0):
+        problems.append(f"(b) gradients or launches: card {gpu['launches']}, cpu "
+                        f"{cpu['launches']}")
+    del results
+
+    # (c) the streamed vocab projection against the full one, on the card
+    arrays = trainer._device_batch(batches[0])
+    passes, resolved = {}, []
+    for c in (0, chunk):
+        trainer.config.method.logit_chunk = c
+        resolved.append(trainer._resolved_logit_chunk())
+        trainer.model.zero_grad(set_to_none=True)
+        loss, _ = trainer.loss_fn(arrays)
+        loss.backward()
+        passes[c] = (float(loss.detach()), {k: p.grad.detach().clone()
+                                            for k, p in trainer.model.named_parameters()})
+    trainer.config.method.logit_chunk = 0
+    chunk_rel = abs(passes[chunk][0] - passes[0][0]) / abs(passes[0][0])
+    chunk_worst, chunk_name, chunk_key_bias = grad_gaps(passes[chunk][1], passes[0][1])
+    rec["c_logit_chunk"] = {"chunk": chunk, "resolved": resolved, "loss_full": passes[0][0],
+                            "loss_chunked": passes[chunk][0], "loss_rel_err": chunk_rel,
+                            "worst_grad_rel_err": chunk_worst, "worst_grad": chunk_name,
+                            "key_bias_err_over_largest": chunk_key_bias}
+    if not chunk_rel <= DPO_PARITY_LOSS_RTOL or resolved != [0, chunk]:
+        problems.append(f"(c) chunked loss {passes[chunk][0]} vs {passes[0][0]} (chunks "
+                        f"{resolved})")
+    if not chunk_worst <= DPO_PARITY_GRAD_RTOL or not chunk_key_bias <= GRPO_ZERO_GRAD_ATOL:
+        problems.append(f"(c) chunked gradient {chunk_name}: relative {chunk_worst}, key "
+                        f"biases {chunk_key_bias} of the largest")
+    del passes, trainer
+    emit({**rec, "ok": not problems})
+    if problems:
+        raise AssertionError(f"slice_dpo_parity: {problems}")
+
+
+def reward_score_texts(n=64, posts=16):
+    """Prompt ‖ chosen and prompt ‖ rejected of ``(n - posts) / 2``
+    comparison pairs (short rows) and ``posts`` TL;DR posts ‖ their
+    reference summary (cut at 256 bytes): right-padded rows of many
+    lengths."""
+    from trlx_tpu_torch.tasks import summarize_rlhf as task
+
+    pairs = task.load_comparisons((n - posts) // 2, seed=7)
+    texts = [p["prompt"] + p[k] for p in pairs for k in ("chosen", "rejected")]
+    return texts + [d["prompt"] + d["label"] for d in task.load_tldr(n - len(texts), seed=8)]
+
+
+def phase_slice_reward(device="cuda", spec="builtin:gpt2-small", steps=REWARD_STEPS,
+                       ppo_steps=REWARD_PPO_STEPS, card="", ppo_hparams=None):
+    """The TL;DR recipe's stages 2 and 3 (``tasks/summarize_rlhf.py``):
+    the reward model (GPT-2 small, bf16 over f32 masters) trained at the
+    example's settings (``max_length`` 256, batch 8, lr 1e-5, 256 pairs),
+    cut to ``steps`` steps; then PPO at the example's settings (``seq_length``
+    256, batch 16, one collection of 64 rollouts in chunks of 16, 50 tokens
+    at top-p 0.95, ``num_layers_unfrozen`` 8) for ``ppo_steps`` steps
+    against it, the reward the score minus the reference summary's (no
+    checkpoint is written: ``save`` is a no-op). Every
+    counter is set to 0 just before stage 2 and read just after stage 3;
+    between them the trained model's end scores on 64 texts are held
+    against the CPU's plain f32 forward (bf16 within
+    ``REWARD_BF16_SCORE_RTOL`` of the largest |score|; the card's f32 pass
+    within ``REWARD_F32_SCORE_ATOL``), with their launches taken back out. A
+    non-finite value, an unmoved reward model, a score off, or a kernel
+    other than #5/#6 launching (or either never) fails; ``ppo_hparams``
+    are further dot-path overrides of stage 3. Returns the launches."""
+    import shutil
+
+    from trlx_tpu_torch.tasks import summarize_rlhf as task
+
+    dev = torch.device(device)
+    rm_dir, ppo_dir = _scratch_dir("reward_model"), _scratch_dir("reward_ppo")
+    start, stamps = {}, []
+
+    def no_checkpoints(trainer):  # stage 3 writes no checkpoint
+        trainer.save = lambda *a, **k: None
+
+    def init_hook(model):
+        start.update({k: v.detach().cpu().clone() for k, v in model.state_dict().items()})
+        stamps.append(time.perf_counter())
+
+    def step_hook(_):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        stamps.append(time.perf_counter())
+
+    try:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        zero_launch_counts()
+        # -- the main path, stage 2 -------------------------------------------
+        model, cfg, history = task.train_reward_model(
+            spec, device=dev, total_steps=steps, checkpoint_dir=rm_dir, init_hook=init_hook,
+            step_hook=step_hook)
+        # ---------------------------------------------------------------------
+        stage2 = launch_counts()
+        moved = sum(not torch.equal(v.detach().cpu(), start[k])
+                    for k, v in model.state_dict().items())
+        del model
+        # the scores against the plain f32 forward (launches taken back out)
+        texts = reward_score_texts()
+        want = task.load_reward_fn(rm_dir, "cpu", dtype=torch.float32)(texts)
+        got = task.load_reward_fn(rm_dir, dev)(texts)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        got32 = task.load_reward_fn(rm_dir, dev, dtype=torch.float32)(texts)
+        for name, w in kernel_wrappers().items():
+            w.launches = stage2[name]
+        # -- the main path, stage 3 -------------------------------------------
+        trainer = task.main(spec, {"train.total_steps": ppo_steps,
+                                   "train.checkpoint_dir": ppo_dir, **(ppo_hparams or {})},
+                            reward_checkpoint_dir=rm_dir, device=dev,
+                            init_trainer_hook=no_checkpoints)
+        # ---------------------------------------------------------------------
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    finally:
+        shutil.rmtree(rm_dir, ignore_errors=True)
+        shutil.rmtree(ppo_dir, ignore_errors=True)
+    launches = launch_counts()
+    hist = trainer.tracker.history
+    ppo_steps_st = [st for _, st in hist if "gradients/global_norm" in st]
+    collections = [st for _, st in hist if "time/exp" in st]
+    step_ms = [1e3 * (b - a) for a, b in zip(stamps[1:], stamps[2:])]  # steps 2..n
+    scale = float(np.abs(want).max())
+    err16, err32 = float(np.abs(got - want).max()), float(np.abs(got32 - want).max())
+    rec = {"phase": "slice_reward", "model": spec, "dtype": str(cfg.dtype).split(".")[-1],
+           "stage2": {"steps": len(history), "max_length": 256, "batch_size": 8, "lr": 1e-5,
+                      "train_step_ms_median": statistics.median(step_ms),
+                      "train_step_ms_spread": [min(step_ms), max(step_ms)],
+                      "reward_loss": [h["reward/loss"] for h in history],
+                      "reward_accuracy": [h["reward/accuracy"] for h in history],
+                      "tensors_moved": moved, "launches": stage2},
+           "scores": {"texts": len(texts), "spread": [float(want.min()), float(want.max())],
+                      "bf16_max_abs_err": err16, "bf16_err_over_largest": err16 / scale,
+                      "bf16_rtol_of_largest": REWARD_BF16_SCORE_RTOL,
+                      "f32_card_max_abs_err": err32, "f32_atol": REWARD_F32_SCORE_ATOL},
+           "stage3": {"optimizer_steps": len(ppo_steps_st),
+                      "losses": [st["losses/total_loss"] for st in ppo_steps_st],
+                      "train_step_ms": [1e3 * st["time/step"] for st in ppo_steps_st],
+                      "time_exp_s": [c["time/exp"] for c in collections],
+                      "reward_fn_s": [c["time/exp_score"] for c in collections],
+                      "rollout_tokens_per_s": [c.get("throughput/rollout_tokens_per_sec")
+                                               for c in collections],
+                      "exp_scores_mean": [c["exp_scores/mean"] for c in collections]},
+           "launches": launches, "card": card}
+    problems = []
+    values = (rec["stage2"]["reward_loss"] + rec["stage3"]["losses"] + list(got)
+              + list(got32) + rec["stage3"]["exp_scores_mean"])
+    if not all(math.isfinite(x) for x in values):
+        problems.append("a non-finite value")
+    if len(history) != steps or len(ppo_steps_st) != ppo_steps or not collections:
+        problems.append(f"{len(history)} stage-2 steps, {len(ppo_steps_st)} PPO steps, "
+                        f"{len(collections)} collections")
+    if not moved:
+        problems.append("the reward model did not move")
+    if not err16 <= REWARD_BF16_SCORE_RTOL * scale or not err32 <= REWARD_F32_SCORE_ATOL:
+        problems.append(f"scores off the plain f32 forward: bf16 {err16}, f32 {err32}")
+    if dev.type == "cuda" and min(launches[k] for k in REWARD_KERNELS) <= 0:
+        problems.append(f"#5 or #6 never launched: {launches}")
+    if any(launches[k] for k in REPLACES if k not in REWARD_KERNELS):
+        problems.append(f"a kernel off the path launched: {launches}")
+    emit({**rec, "ok": not problems})
+    trainer._close_prompt_iterator()
+    del trainer
+    if problems:
+        raise AssertionError(f"slice_reward: {problems}")
+    return launches
+
+
+def phase_slice_dpo_lora(device="cuda", spec=FAMILY_SPEC, layers=LORA_LAYERS,
+                         total_steps=LORA_STEPS, n_eval=LORA_EVAL_PROMPTS, card=""):
+    """DPO with ``model.peft_kwargs`` ``LORA_PEFT`` (r 8, alpha 16, every
+    projection) on ``tasks/dpo_sentiments.py``'s settings at Mistral-7B's
+    full width (``FAMILY_SPEC``), cut to ``layers`` layers: 16 pairs a
+    batch, ``total_steps`` steps over 16 × ``total_steps`` triples, the
+    evaluations on ``n_eval`` review openings; no checkpoint is written
+    (``save`` is a no-op). Prints the trainable and total parameters, the
+    memory by stage, step ms and the launches (counted as in
+    :func:`phase_slice_dpo`). A first loss off ln 2, a base weight that
+    moved, an adapter ``lora_b`` still zero, or the DPO path's launch
+    rules broken fails. Returns the launches."""
+    import shutil
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.tasks import dpo_sentiments as task
+    from trlx_tpu_torch.tasks.sentiment import review_prompts
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    ckpt = _scratch_dir("dpo_lora")
+    config = task.config(spec, {"train.total_steps": total_steps,
+                                "train.checkpoint_dir": ckpt}).evolve(
+        model=dict(peft_kwargs=dict(LORA_PEFT), model_extra_kwargs={"num_layers": layers}))
+    batch = config.train.batch_size
+    memory, stages, built, base0 = {}, {}, {}, {}
+
+    def base_rows(model):
+        """Host copies of the first 64 rows of every frozen weight matrix
+        of the first and last blocks, and of the embedding and LM head."""
+        keep = ("blocks.0.", f"blocks.{layers - 1}.", "wte.", "lm_head.")
+        return {k: v.detach()[:64].cpu().clone() for k, v in model.state_dict().items()
+                if k.startswith(keep) and ".lora_" not in k and v.ndim == 2}
+
+    def hook(trainer):
+        trainer.save = lambda *a, **k: None
+        built["s"] = time.perf_counter() - t0
+        base0.update(base_rows(trainer.model))
+        if dev.type == "cuda":
+            memory["built"] = torch.cuda.memory_allocated(dev) / 1e9
+        for name in ("make_experience", "evaluate", "accumulate_grads", "train_step"):
+            record_memory(trainer, name, memory, dev)
+        for name in ("make_experience", "evaluate"):
+            count_launches(trainer, name, stages)
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    # -- the main path -------------------------------------------------------
+    trainer = trlx_tpu_torch.train(
+        samples=task.preference_triples(batch * total_steps, seed=0),
+        eval_prompts=review_prompts(n_eval, seed=1), metric_fn=task.metric_fn, config=config,
+        init_trainer_hook=hook, device=dev)
+    # -------------------------------------------------------------------------
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    steps = [st for _, st in trainer.tracker.history if "gradients/global_norm" in st]
+    losses = [st["losses/total_loss"] for st in steps]
+    params = dict(trainer.model.named_parameters())
+    trainable = sum(p.numel() for k, p in params.items() if trainer.param_mask[k])
+    base_moved = [k for k, v in base_rows(trainer.model).items() if not torch.equal(v, base0[k])]
+    lora_b = {k: float(p.detach().abs().max()) for k, p in params.items()
+              if k.endswith(".lora_b")}
+    problems, step_launches = dpo_launch_problems(launches, stages, dev)
+    rec = {"phase": "slice_dpo_lora", "model": spec, "layers": layers, "peft": LORA_PEFT,
+           "dtype": str(trainer.tcfg.dtype).split(".")[-1], "batch_pairs": batch,
+           "parameters": sum(p.numel() for p in params.values()),
+           "trainable_parameters": trainable,
+           "optimizer_tensors": sum(len(g["params"]) for g in trainer.optimizer.param_groups),
+           "build_s": built["s"], "wall_s": wall, "reference_pass_s": trainer.ref_pass_time,
+           "optimizer_steps": len(steps), "losses": losses,
+           "rewards_margin": [st["rewards/margin"] for st in steps],
+           "train_step_ms": [1e3 * st["time/step"] for st in steps],
+           "train_step_ms_median": statistics.median(1e3 * st["time/step"] for st in steps),
+           "base_tensors_checked": len(base0), "base_tensors_moved": base_moved,
+           "adapters": len(lora_b), "adapters_moved": sum(v > 0 for v in lora_b.values()),
+           "launches": launches,
+           "launches_by_stage": {"reference_pass": stages.get("make_experience"),
+                                 "steps": step_launches, "evaluate": stages.get("evaluate")},
+           "memory_by_stage_gb": memory,
+           "peak_memory_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                              if dev.type == "cuda" else None), "card": card}
+    if len(steps) != total_steps or not all(math.isfinite(x) for x in losses):
+        problems.append(f"{len(steps)} steps, losses {losses}")
+    if not abs(losses[0] - math.log(2.0)) <= DPO_FIRST_LOSS_ATOL:
+        problems.append(f"first loss {losses[0]}, not ln 2")
+    if base_moved or not base0:
+        problems.append(f"base weights moved: {base_moved}")
+    if not lora_b or not all(v > 0 for v in lora_b.values()):
+        problems.append(f"{sum(v == 0 for v in lora_b.values())} adapters never moved")
+    if trainable != sum(p.numel() for k, p in params.items() if ".lora_" in k):
+        problems.append(f"{trainable} trainable parameters are not the adapters")
+    emit({**rec, "ok": not problems})
+    shutil.rmtree(ckpt, ignore_errors=True)
+    del trainer
+    if problems:
+        raise AssertionError(f"slice_dpo_lora: {problems}")
     return launches
 
 
@@ -3485,6 +4027,11 @@ def run_phases(clocked, seconds):
     ilql, ilql_launches = clocked(phase_slice_ilql, card=smi)
     clocked(phase_slice_offline_parity, sft, ilql)
     del sft, ilql
+    dpo, dpo_launches = clocked(phase_slice_dpo, card=smi)
+    del dpo
+    clocked(phase_slice_dpo_parity, card=smi)
+    reward_launches = clocked(phase_slice_reward, card=smi)
+    torch.cuda.empty_cache()
     randomwalks = clocked(phase_slice_randomwalks, card=smi)
     torch.cuda.empty_cache()
     family_serve = clocked(phase_family_serve, card=smi)
@@ -3498,6 +4045,9 @@ def run_phases(clocked, seconds):
     gc.collect()
     torch.cuda.empty_cache()
     moe_grpo = clocked(phase_moe_grpo, card=smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dpo_lora_launches = clocked(phase_slice_dpo_lora, card=smi)
     emit({"phase": "phase_seconds", **seconds, "total": sum(seconds.values())})
     # a served run counts the engine's kernels; nothing else launches there
     served = {k: 0 for k in REPLACES}
@@ -3507,7 +4057,8 @@ def run_phases(clocked, seconds):
                "randomwalks_ppo": randomwalks["ppo"], "randomwalks_ilql": randomwalks["ilql"],
                "family_serve": {**served, **family_serve}, "family_train": family_train,
                "grpo": grpo_launches, "grpo_cb": grpo_cb_launches,
-               "moe_serve": {**served, **moe_serve}, "moe_grpo": moe_grpo}
+               "moe_serve": {**served, **moe_serve}, "moe_grpo": moe_grpo,
+               "dpo": dpo_launches, "reward": reward_launches, "dpo_lora": dpo_lora_launches}
     kernels = [kernel_record(name, serve_launches[name], timed[name]["max_abs_err"], timed[name],
                              by_path)
                for name in SERVE_KERNELS]

@@ -61,6 +61,7 @@ from trlx_tpu_torch.ops.fused_loss import (
 from chip_smoke import ILQL_SAMPLE_MODES, ilql_shaped_logits
 from torch_kernel_cases import (
     CUDA_GEOMETRIES,
+    CUDA_PREFERENCE_FLASH_SHAPES,
     CUDA_RIGHT_PAD_FLASH_SHAPES,
     CUDA_VERIFY_CASES,
     FLASH_CASES,
@@ -70,6 +71,7 @@ from torch_kernel_cases import (
     loss_case,
     paged_case,
     right_padded_flash_case,
+    right_padded_gqa_flash_case,
     t,
     tied_logits,
     verify_case,
@@ -346,11 +348,12 @@ def test_cuda_flash_matches_plain_versions(cuda, case, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", CUDA_RIGHT_PAD_FLASH_SHAPES)
+@pytest.mark.parametrize("shape", CUDA_RIGHT_PAD_FLASH_SHAPES + CUDA_PREFERENCE_FLASH_SHAPES)
 def test_cuda_flash_right_padded_matches_plain_versions(cuda, shape, dtype):
-    # the offline trainers' rows: keys padded on the right, causal
-    q, k, v, mask, alibi, kw, do = _flash_args(shape, sum(shape), dtype, cuda,
-                                               make=right_padded_flash_case)
+    # the offline and preference trainers' rows: keys padded on the right,
+    # causal (the preference shapes with their key heads and window)
+    make = right_padded_gqa_flash_case if len(shape) == 6 else right_padded_flash_case
+    q, k, v, mask, alibi, kw, do = _flash_args(shape, sum(shape), dtype, cuda, make=make)
     # chip_smoke.py's FLASH_TOL (rows up to 1024 keys)
     tol = {torch.float32: dict(out=(1e-4, 0.0), lse=(1e-4, 0.0), grad=(1e-3, 1e-4)),
            torch.bfloat16: dict(out=(2e-2, 0.0), lse=(1e-3, 0.0), grad=(2e-2, 1e-2))}[dtype]

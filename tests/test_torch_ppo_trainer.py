@@ -218,7 +218,8 @@ def test_train_entry_point_end_to_end(tmp_path):
         ({"parallel": {"scan_layers": True}}, "parallel.scan_layers"),
         ({"parallel": {"remat": "full"}}, "parallel.remat"),
         ({"model": {"model_arch_type": "seq2seq"}}, "model.model_arch_type"),
-        ({"model": {"peft_kwargs": {"peft_type": "lora", "r": 8}}}, "model.peft_kwargs"),
+        # LoRA runs (tests/test_torch_lora.py); another PEFT type raises, as in JAX
+        ({"model": {"peft_kwargs": {"peft_type": "prefix"}}}, "model.peft_kwargs"),
         # a draft whose vocabulary is not the policy's (50257 against 259)
         ({"model": {"draft_model_path": "builtin:gpt2-small"}}, "model.draft_model_path"),
         ({"train": {"tracker": "wandb"}}, "train.tracker"),
@@ -235,8 +236,13 @@ def test_rejected_settings_raise(tmp_path, override, setting):
     d = _config_dict(tmp_path)
     for section, values in override.items():
         d[section].update(values)
-    with pytest.raises(ValueError, match=setting.replace(".", r"\.")):
-        PPOTrainer(config=TRLConfig.from_dict(d), reward_fn=reward_fn, device="cpu")
+    with pytest.raises(ValueError, match=setting.replace(".", r"\.")) as err:
+        PPOTrainer(config=TRLConfig.from_dict(copy.deepcopy(d)), reward_fn=reward_fn,
+                   device="cpu")
+    if setting == "model.peft_kwargs":  # JAX raises it too: its message, named
+        with pytest.raises(ValueError) as jax_err:
+            JaxPPOTrainer(config=JaxTRLConfig.from_dict(d), reward_fn=reward_fn)
+        assert str(jax_err.value) in str(err.value)
 
 
 @pytest.mark.parametrize(

@@ -20,6 +20,8 @@ Inputs are made by numpy from a seed. Held:
   offline trainers still reject.
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -259,7 +261,9 @@ def test_default_sft_config_matches_jax():
     "override,setting",
     [
         ({"model": {"model_arch_type": "seq2seq"}}, "model.model_arch_type"),
-        ({"model": {"peft_kwargs": {"peft_type": "lora", "r": 8}}}, "model.peft_kwargs"),
+        # LoRA runs (tests/test_torch_lora.py); an unknown LoRA key raises, as in JAX
+        ({"model": {"peft_kwargs": {"peft_type": "lora", "r": 8, "dropout": 0.1}}},
+         "model.peft_kwargs"),
         ({"train": {"grad_accum": 3}}, "train.grad_accum"),  # batch 4 does not split
         ({"resilience": {"keep_last_n": 2}}, "resilience.keep_last_n"),
         ({"parallel": {"fsdp": 2}}, "parallel.fsdp"),
@@ -270,8 +274,12 @@ def test_offline_trainer_rejects_unported_settings(tmp_path, override, setting):
     d = _config_dict(tmp_path)
     for section, values in override.items():
         d[section].update(values)
-    with pytest.raises(ValueError, match=setting.replace(".", r"\.")):
-        SFTTrainer(config=TRLConfig.from_dict(d), device="cpu")
+    with pytest.raises(ValueError, match=setting.replace(".", r"\.")) as err:
+        SFTTrainer(config=TRLConfig.from_dict(copy.deepcopy(d)), device="cpu")
+    if setting == "model.peft_kwargs":  # JAX raises it too: its message, named
+        with pytest.raises(ValueError) as jax_err:
+            JaxSFTTrainer(config=JaxTRLConfig.from_dict(d))
+        assert str(jax_err.value) in str(err.value)
 
 
 @pytest.mark.parametrize(

@@ -5,7 +5,7 @@ so the tests that run on the card import no JAX."""
 import numpy as np
 import torch
 
-from chip_smoke import RIGHT_PAD_FLASH_SHAPES, right_pad_mask
+from chip_smoke import PREFERENCE_FLASH_SHAPES, RIGHT_PAD_FLASH_SHAPES, right_pad_mask
 from trlx_tpu_torch.ops.paged_kv import num_table_blocks
 
 # (B, T, H, KV, D, block_size, S): block sizes 1/3/4, S not a multiple of
@@ -249,6 +249,22 @@ def loss_case(B, R, seed, tie_values=False):
 # on the card, and ragged tiles besides
 CUDA_RIGHT_PAD_FLASH_SHAPES = [RIGHT_PAD_FLASH_SHAPES[0], RIGHT_PAD_FLASH_SHAPES[2],
                                (4, 70, 12, 12), (3, 129, 4, 64)]
+
+
+# the preference paths' right-padded rows (DPO, the reward model, DPO +
+# LoRA at Mistral-7B's GQA width): (B, T, H, KV, D, window)
+CUDA_PREFERENCE_FLASH_SHAPES = list(PREFERENCE_FLASH_SHAPES.values())
+
+
+def right_padded_gqa_flash_case(shape, seed):
+    """``flash_case``'s tuple for a causal, right-padded, T = S shape with
+    ``KV`` key heads and a window (0: none)."""
+    B, T, H, KV, D, window = shape
+    rs = np.random.RandomState(seed)
+    q, cot = (rs.randn(B, T, H, D).astype(np.float32) for _ in range(2))
+    k, v = (rs.randn(B, T, KV, D).astype(np.float32) for _ in range(2))
+    extra = dict(causal=True, q_offset=0, k_offset=0, window=window)
+    return q, k, v, right_pad_mask(B, T, seed + 1), extra, cot
 
 
 def right_padded_flash_case(shape, seed):

@@ -17,7 +17,10 @@ Ported so far:
 - speculative PPO rollouts (``engine.speculative``);
 - offline training through ``train(samples=...)``: SFT, and ILQL with
   ``rewards=...`` — training on the flash-attention kernels, evaluation
-  on the paged engine (ILQL through its advantage-shaped sampling hook).
+  on the paged engine (ILQL through its advantage-shaped sampling hook);
+- GRPO, the Mixtral MoE MLP, and preference learning: DPO through
+  ``train(samples=triples)``, the pairwise reward model
+  (``models/reward.py``) and LoRA through ``model.peft_kwargs``.
 """
 
 __version__ = "0.2.0"

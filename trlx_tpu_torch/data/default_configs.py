@@ -1,7 +1,7 @@
-"""The PPO, ILQL, SFT and GRPO presets of the port.
+"""The PPO, ILQL, SFT, GRPO and DPO presets of the port.
 
 Port of ``default_ppo_config``, ``default_ilql_config``,
-``default_sft_config`` and ``default_grpo_config`` from
+``default_sft_config``, ``default_grpo_config`` and ``default_dpo_config`` from
 ``trlx_tpu/data/default_configs.py``: the
 same hyperparameters, field for field, with the offline builtin model and
 tokenizer.
@@ -16,6 +16,7 @@ from trlx_tpu_torch.data.configs import (
     TrainConfig,
     TRLConfig,
 )
+from trlx_tpu_torch.models.dpo import DPOConfig
 from trlx_tpu_torch.models.grpo import GRPOConfig
 from trlx_tpu_torch.models.ilql import ILQLConfig
 from trlx_tpu_torch.models.ppo import PPOConfig
@@ -168,6 +169,39 @@ def default_grpo_config() -> TRLConfig:
             scale_advantage=True,
             cliprange=0.2,
             cliprange_reward=10,
+            gen_kwargs=dict(max_new_tokens=40, top_k=0, top_p=1.0, do_sample=True),
+        ),
+        parallel=ParallelConfig(),
+    )
+
+
+def default_dpo_config() -> TRLConfig:
+    """DPO preset: direct preference optimization on (prompt, chosen,
+    rejected) triples — no rollouts, no reward model."""
+    return TRLConfig(
+        train=TrainConfig(
+            seq_length=1024,
+            epochs=100,
+            total_steps=2000,
+            batch_size=16,
+            checkpoint_interval=10000,
+            eval_interval=100,
+            pipeline="PromptPipeline",
+            trainer="DPOTrainer",
+        ),
+        model=ModelConfig(model_path="builtin:gpt2-small", num_layers_unfrozen=-1),
+        tokenizer=TokenizerConfig(tokenizer_path="builtin:bytes", truncation_side="left"),
+        optimizer=OptimizerConfig(
+            name="adamw",
+            kwargs=dict(lr=5e-6, betas=(0.9, 0.95), eps=1.0e-8, weight_decay=1.0e-6),
+        ),
+        scheduler=SchedulerConfig(
+            name="cosine_annealing", kwargs=dict(T_max=1e12, eta_min=5e-6, lr=5e-6)
+        ),
+        method=DPOConfig(
+            name="DPOConfig",
+            beta=0.1,
+            label_smoothing=0.0,
             gen_kwargs=dict(max_new_tokens=40, top_k=0, top_p=1.0, do_sample=True),
         ),
         parallel=ParallelConfig(),

@@ -1,2 +1,3 @@
-"""Models of the port: the GPT-2-family causal transformer, its builder and
-the JAX weight interchange."""
+"""Models of the port: the causal transformer families, the policy
+heads, the reward model, the methods' configs and losses, the builder
+(LoRA included) and the JAX weight interchange."""

@@ -20,10 +20,16 @@ paths need:
   blocks, while every non-block backbone entry (``wte``, ``wpe``,
   ``emb_ln``, ``ln_f``, an untied ``lm_head``) and the heads train —
   except the ILQL target-Q heads, which never do (the JAX
-  ``_mask_heads``); ``-1`` trains everything else.
+  ``_mask_heads``); ``-1`` trains everything else. Under LoRA the base
+  freezes entirely: only the adapters of the unfrozen blocks and the heads
+  train;
+- LoRA's configuration: :func:`parse_peft_overrides` (``model.peft_kwargs``
+  → the config's ``lora_r``, ``lora_alpha`` and ``lora_targets``, with the
+  JAX errors) and :func:`merge_lora_params` (adapters folded into their
+  weights, for export).
 """
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -37,7 +43,58 @@ from trlx_tpu_torch.models.transformer import (
 )
 from trlx_tpu_torch.ops.kernel_utils import resolve_device
 
-__all__ = ["build_causal_lm", "hydra_ref_params", "trainable_mask"]
+__all__ = ["LORA_TARGET_GROUPS", "build_causal_lm", "hydra_ref_params", "merge_lora_params",
+           "parse_peft_overrides", "trainable_mask"]
+
+LORA_TARGET_GROUPS = {
+    "attention": ("q_proj", "k_proj", "v_proj", "o_proj"),
+    "mlp": ("gate_proj", "up_proj", "down_proj"),
+}
+LORA_TARGET_GROUPS["all"] = LORA_TARGET_GROUPS["attention"] + LORA_TARGET_GROUPS["mlp"]
+
+
+def parse_peft_overrides(peft_kwargs: Dict[str, Any]) -> Dict[str, Any]:
+    """``model.peft_kwargs`` → the config overrides ``lora_r``, ``lora_alpha``
+    and ``lora_targets`` (the JAX function: LoRA only; ``modified_modules``
+    a group of :data:`LORA_TARGET_GROUPS` or a list of projection names;
+    ``r`` / ``lora_r`` default 8, ``lora_alpha`` 16; unknown keys raise)."""
+    kw = dict(peft_kwargs)
+    peft_type = str(kw.pop("peft_type", kw.pop("delta_type", "lora"))).lower()
+    if peft_type != "lora":
+        raise ValueError(f"Only LoRA peft is supported (got '{peft_type}')")
+    modified = kw.pop("modified_modules", "all")
+    if isinstance(modified, str):
+        if modified not in LORA_TARGET_GROUPS:
+            raise ValueError(
+                f"modified_modules '{modified}' not in {sorted(LORA_TARGET_GROUPS)}; "
+                "pass an explicit list of projection names instead"
+            )
+        targets = LORA_TARGET_GROUPS[modified]
+    else:
+        targets = tuple(modified)
+    out = dict(lora_r=int(kw.pop("r", kw.pop("lora_r", 8))),
+               lora_alpha=float(kw.pop("lora_alpha", 16.0)), lora_targets=targets)
+    if kw:
+        raise ValueError(f"Unknown peft_kwargs keys: {sorted(kw)}")
+    return out
+
+
+def merge_lora_params(state_dict: Dict[str, torch.Tensor],
+                      cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
+    """Fold each adapter pair into its weight (``W += (alpha / r) · (A B)ᵀ``,
+    the ``[out, in]`` layout) and drop the ``lora_*`` entries: the state
+    dict of the same model without LoRA. A config without LoRA returns the
+    state dict as it is."""
+    if not cfg.lora_r:
+        return state_dict
+    scale = cfg.lora_alpha / cfg.lora_r
+    out = {k: v for k, v in state_dict.items() if not k.endswith((".lora_a", ".lora_b"))}
+    for key in state_dict:
+        if key.endswith(".lora_a"):
+            prefix = key[: -len("lora_a")]
+            a, b = state_dict[key], state_dict[prefix + "lora_b"]
+            out[prefix + "weight"] = out[prefix + "weight"] + (a @ b).t() * scale
+    return out
 
 
 def build_causal_lm(
@@ -89,7 +146,12 @@ def hydra_ref_params(
 def trainable_mask(
     model: nn.Module, tcfg: TransformerConfig, num_layers_unfrozen: int
 ) -> Dict[str, bool]:
-    """``{parameter name: trains}`` with the JAX ``trainable_mask`` rules."""
+    """``{parameter name: trains}`` with the JAX ``trainable_mask`` rules.
+    Under LoRA (``tcfg.lora_r > 0``) the backbone trains its adapters in the
+    unfrozen blocks only, the base nothing; a bare LM (no heads) follows
+    the same rule, where JAX's mask of a tree without a ``backbone`` key
+    trains every leaf (``ROADMAP.md`` Queue 3)."""
+    lora = tcfg.lora_r > 0
     mask: Dict[str, bool] = {}
     wrapped = hasattr(model, "backbone")
     for name, _ in model.named_parameters():
@@ -100,9 +162,10 @@ def trainable_mask(
         inner = name if inner is None else inner
         if inner.startswith("blocks."):
             layer = int(inner.split(".")[1])
-            mask[name] = num_layers_unfrozen < 0 or (
+            in_range = num_layers_unfrozen < 0 or (
                 layer >= tcfg.num_layers - num_layers_unfrozen
             )
+            mask[name] = in_range and (not lora or inner.endswith((".lora_a", ".lora_b")))
         else:
-            mask[name] = True  # wte, wpe, emb_ln, ln_f, an untied lm_head
+            mask[name] = not lora  # wte, wpe, emb_ln, ln_f, an untied lm_head
     return mask

@@ -79,6 +79,7 @@ __all__ = [
     "get_activation",
     "seeded_init_",
     "Attention",
+    "LoRALinear",
     "MLP",
     "MoEMLP",
     "router_aux_summary",
@@ -144,6 +145,13 @@ class TransformerConfig:
     # or "pallas" (force the flash branch; on CPU tensors its wrappers run
     # their plain versions)
     attention_impl: str = "auto"
+    # LoRA (``model.peft_kwargs``, ``builder.parse_peft_overrides``): r = 0
+    # disables; every projection named in ``lora_targets`` gets the adapter
+    # pair of :class:`LoRALinear`, and ``builder.trainable_mask`` trains the
+    # adapters of the unfrozen layer range only
+    lora_r: int = 0
+    lora_alpha: float = 16.0
+    lora_targets: Tuple[str, ...] = ()
 
     def __post_init__(self):
         allowed = {
@@ -401,10 +409,38 @@ def attention_bias(key_mask: torch.Tensor, query_slots: torch.Tensor,
     return bias
 
 
+class LoRALinear(nn.Linear):
+    """``nn.Linear`` with the additive low-rank branch of the JAX
+    ``LoRADense``: ``y = x Wᵀ (+ b) + (alpha / r) · (x A) B``, where
+    ``lora_a`` is ``[in, r]`` and ``lora_b`` ``[r, out]`` (the JAX layout).
+    ``lora_b`` starts at zero, so the layer is its base until trained."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool, r: int, alpha: float,
+                 dtype: torch.dtype):
+        super().__init__(in_features, out_features, bias=bias, dtype=dtype)
+        self.lora_a = nn.Parameter(torch.empty(in_features, r, dtype=dtype))
+        self.lora_b = nn.Parameter(torch.empty(r, out_features, dtype=dtype))
+        self.lora_scale = alpha / r
+
+
+def _dense(cfg: TransformerConfig, name: str, in_features: int, out_features: int,
+           bias: bool) -> nn.Linear:
+    """The projection ``name``: a :class:`LoRALinear` when LoRA targets it
+    (the JAX ``_dense``), else a plain ``nn.Linear``."""
+    if cfg.lora_r and name in cfg.lora_targets:
+        return LoRALinear(in_features, out_features, bias, cfg.lora_r, cfg.lora_alpha,
+                          cfg.param_dtype)
+    return nn.Linear(in_features, out_features, bias=bias, dtype=cfg.param_dtype)
+
+
 def _linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``x @ W.T + b`` with the f32 master weights cast to the compute dtype."""
+    """``x @ W.T + b`` with the f32 master weights cast to the compute
+    dtype, plus a :class:`LoRALinear`'s low-rank branch."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x, layer.weight.to(dtype), bias)
+    y = F.linear(x, layer.weight.to(dtype), bias)
+    if isinstance(layer, LoRALinear):
+        y = y + (x @ layer.lora_a.to(dtype)) @ layer.lora_b.to(dtype) * layer.lora_scale
+    return y
 
 
 class LayerNorm(nn.Module):
@@ -480,11 +516,10 @@ class Attention(nn.Module):
         self.cfg = cfg
         H, KV, D, E = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head, cfg.hidden_size
         qkv_bias = cfg.attn_bias if cfg.qkv_bias is None else cfg.qkv_bias
-        kw = dict(dtype=cfg.param_dtype)
-        self.q_proj = nn.Linear(E, H * D, bias=qkv_bias, **kw)
-        self.k_proj = nn.Linear(E, KV * D, bias=qkv_bias, **kw)
-        self.v_proj = nn.Linear(E, KV * D, bias=qkv_bias, **kw)
-        self.o_proj = nn.Linear(H * D, E, bias=cfg.attn_bias, **kw)
+        self.q_proj = _dense(cfg, "q_proj", E, H * D, qkv_bias)
+        self.k_proj = _dense(cfg, "k_proj", E, KV * D, qkv_bias)
+        self.v_proj = _dense(cfg, "v_proj", E, KV * D, qkv_bias)
+        self.o_proj = _dense(cfg, "o_proj", H * D, E, cfg.attn_bias)
 
     def forward(
         self,
@@ -571,12 +606,12 @@ class MLP(nn.Module):
         super().__init__()
         self.dtype = cfg.dtype
         self.act = get_activation(cfg.activation)
-        kw = dict(bias=cfg.mlp_bias, dtype=cfg.param_dtype)
+        E, F_, bias = cfg.hidden_size, cfg.intermediate_size, cfg.mlp_bias
         self.gated = cfg.activation == "silu"
         if self.gated:
-            self.gate_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
-        self.up_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
-        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
+            self.gate_proj = _dense(cfg, "gate_proj", E, F_, bias)
+        self.up_proj = _dense(cfg, "up_proj", E, F_, bias)
+        self.down_proj = _dense(cfg, "down_proj", F_, E, bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.gated:
@@ -777,8 +812,7 @@ class CausalTransformer(nn.Module):
         if cfg.final_norm:
             self.ln_f = Norm(cfg)
         if not cfg.tie_word_embeddings:
-            self.lm_head = nn.Linear(E, cfg.vocab_size, bias=cfg.lm_head_bias,
-                                     dtype=cfg.param_dtype)
+            self.lm_head = _dense(cfg, "lm_head", E, cfg.vocab_size, cfg.lm_head_bias)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """The JAX initialisers: normal(0.02) weights and embeddings, zero
@@ -934,8 +968,8 @@ class HydraBranch(nn.Module):
         if cfg.tie_word_embeddings:
             self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, dtype=cfg.param_dtype)
         else:
-            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=cfg.lm_head_bias,
-                                     dtype=cfg.param_dtype)
+            self.lm_head = _dense(cfg, "lm_head", cfg.hidden_size, cfg.vocab_size,
+                                  cfg.lm_head_bias)
 
     _logits = CausalTransformer._logits
 
@@ -946,18 +980,23 @@ class HydraBranch(nn.Module):
 
 def seeded_init_(module: nn.Module, generator: Optional[torch.Generator]) -> None:
     """The JAX initialisers over ``module``'s parameters in registration
-    order: zero biases, unit norm scales, normal(0.02) for the rest. The
-    draws come from the CPU ``generator`` one tensor at a time and are
-    copied to the parameter's device, so one seed gives the same weights on
-    every device and a 7B model never exists on the host whole."""
+    order: zero biases, unit norm scales, LoRA's zero ``lora_b`` and He-uniform
+    ``lora_a`` (bound √(6 / in)), normal(0.02) for the rest. The draws come
+    from the CPU ``generator`` one tensor at a time and are copied to the
+    parameter's device, so one seed gives the same weights on every device
+    and a 7B model never exists on the host whole."""
     norm_scales = {f"{name}.weight" for name, m in module.named_modules()
                    if isinstance(m, (LayerNorm, RMSNorm))}
     with torch.no_grad():
         for name, p in module.named_parameters():
-            if name.endswith("bias"):
+            if name.endswith(("bias", "lora_b")):
                 p.zero_()
             elif name in norm_scales:
                 p.fill_(1.0)
+            elif name.endswith("lora_a"):
+                bound = math.sqrt(6.0 / p.shape[0])
+                p.copy_(torch.empty(p.shape, dtype=p.dtype).uniform_(-bound, bound,
+                                                                     generator=generator))
             else:
                 p.copy_(torch.empty(p.shape, dtype=p.dtype).normal_(0.0, 0.02,
                                                                     generator=generator))

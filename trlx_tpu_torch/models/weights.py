@@ -23,6 +23,11 @@ given as nested dicts of numpy arrays, into the port's ``state_dict``:
   target_q_head_i}``) onto
   :class:`~trlx_tpu_torch.models.heads.CausalLMWithILQLHeads`
   (``ilql_heads.<head>.in_proj`` / ``out_proj``);
+- LoRA adapters (``lora_a`` ``[in, r]``, ``lora_b`` ``[r, out]``) beside a
+  projection's kernel keep the JAX layout (``LoRALinear``'s);
+- a reward model's tree (``backbone`` + ``r_head``) maps onto
+  :class:`~trlx_tpu_torch.models.reward.RewardModel` (``backbone.*`` and
+  ``r_head.weight``, the bias-free kernel transposed);
 - a hydra reference subtree (``builder.py::hydra_ref_params``: the top
   ``h_{i}``, ``ln_f`` and ``wte`` or ``lm_head``) maps onto
   :class:`~trlx_tpu_torch.models.transformer.HydraBranch`: only the entries
@@ -73,8 +78,9 @@ def params_from_jax(np_params: Dict[str, Any], cfg: TransformerConfig) -> Dict[s
 
     def dense(prefix, node):
         sd[f"{prefix}.weight"] = t(np.asarray(node["kernel"]).T)
-        if "bias" in node:
-            sd[f"{prefix}.bias"] = t(node["bias"])
+        for name in ("bias", "lora_a", "lora_b"):  # adapters keep the JAX layout
+            if name in node:
+                sd[f"{prefix}.{name}"] = t(node[name])
 
     def norm(prefix, node):  # RMSNorm has a scale alone
         sd[f"{prefix}.weight"] = t(node["scale"])
@@ -110,10 +116,12 @@ def params_from_jax(np_params: Dict[str, Any], cfg: TransformerConfig) -> Dict[s
         heads["v_head"] = np_params["v_head"]
     for name, node in np_params.get("ilql_heads", {}).items():
         heads[f"ilql_heads.{name}"] = node
-    if not heads:
+    if not heads and "r_head" not in np_params:
         return sd
     sd = {f"backbone.{k}": v for k, v in sd.items()}
     for prefix, node in heads.items():
         for proj in ("in_proj", "out_proj"):
             dense(f"{prefix}.{proj}", node[proj])
+    if "r_head" in np_params:
+        dense("r_head", np_params["r_head"])
     return sd

@@ -70,6 +70,12 @@ class BatchLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
+    def advance_epoch(self) -> None:
+        """Draw an epoch's shuffle without collating it (a resumed run's
+        skipped epoch)."""
+        if self.shuffle:
+            self._rng.shuffle(list(range(len(self.dataset))))
+
     def __iter__(self) -> Iterator[Any]:
         order = list(range(len(self.dataset)))
         if self.shuffle:

@@ -1,4 +1,7 @@
 """Acceptance tasks of the port: the randomwalks shortest-path task
 (``randomwalks.py``) and its PPO and ILQL runs (``ppo_randomwalks.py``,
-``ilql_randomwalks.py``), the port's copies of ``examples/randomwalks/``.
-Each run's ``main(hparams)`` runs on the GPU unless ``device="cpu"``."""
+``ilql_randomwalks.py``), the port's copies of ``examples/randomwalks/``;
+the sentiment runs (``grpo_sentiments.py``, ``dpo_sentiments.py``, their
+data and scorer in ``sentiment.py``) and the TL;DR recipe's reward model
+and PPO against it (``summarize_rlhf.py``). Each run's ``main`` runs on
+the GPU unless ``device="cpu"``."""

@@ -11,7 +11,7 @@ weights (``builtin:mixtral-test`` by default; ``builtin:mixtral-8x7b`` with
 ``main(model_extra_kwargs={"num_layers": k})`` cut to fit is the full width), the
 sentiment is the example's lexicon scorer and the prompts its templated
 reviews (the offline fallbacks of ``examples/sentiment_util.py``, copied
-here).
+into ``tasks/sentiment.py``).
 
 Run (on the GPU, or on the device named last; ``hparams`` are dot-path
 overrides); the last line printed is the mean eval reward, one value per
@@ -22,58 +22,12 @@ evaluation::
 
 from typing import Any, Dict, List, Optional
 
-import numpy as np
-
 import trlx_tpu_torch.trlx as trlx
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.data.default_configs import default_grpo_config
+from trlx_tpu_torch.tasks.sentiment import lexicon_sentiment, review_prompts
 
-POSITIVE_WORDS = (
-    "great good wonderful excellent amazing love loved beautiful best "
-    "fantastic brilliant enjoyable masterpiece superb delightful charming "
-    "perfect stunning captivating remarkable"
-).split()
-NEGATIVE_WORDS = (
-    "bad terrible awful worst boring hate hated dull poor disappointing "
-    "mediocre horrible waste annoying mess bland lifeless tedious forgettable "
-    "unwatchable"
-).split()
-
-_TEMPLATES_POS = [
-    "This movie was {} and I loved every minute of it.",
-    "An absolutely {} film, the best I have seen this year.",
-    "The acting was {} and the story kept me captivated.",
-]
-_TEMPLATES_NEG = [
-    "This movie was {} and I hated every minute of it.",
-    "An absolutely {} film, the worst I have seen this year.",
-    "The acting was {} and the story was a boring mess.",
-]
-
-
-def lexicon_sentiment(texts: List[str]) -> List[float]:
-    """Positive-sentiment score in [0, 1]: pos / (pos + neg) over the
-    lexicon's words, 0.5 for a text with none."""
-    scores = []
-    for t in texts:
-        words = t.lower().split()
-        pos = sum(w.strip(".,!?") in POSITIVE_WORDS for w in words)
-        neg = sum(w.strip(".,!?") in NEGATIVE_WORDS for w in words)
-        scores.append(pos / (pos + neg) if pos + neg else 0.5)
-    return scores
-
-
-def review_prompts(n: int = 128, seed: int = 0, prompt_words: int = 4) -> List[str]:
-    """The first ``prompt_words`` words of ``n`` templated reviews, half
-    positive and half negative at random."""
-    rng = np.random.RandomState(seed)
-    texts = []
-    for _ in range(n):
-        if rng.rand() < 0.5:
-            texts.append(rng.choice(_TEMPLATES_POS).format(rng.choice(POSITIVE_WORDS)))
-        else:
-            texts.append(rng.choice(_TEMPLATES_NEG).format(rng.choice(NEGATIVE_WORDS)))
-    return [" ".join(t.split()[:prompt_words]) for t in texts]
+__all__ = ["config", "lexicon_sentiment", "main", "review_prompts", "reward_fn"]
 
 
 def config(model_path: str = "builtin:mixtral-test",

@@ -15,7 +15,9 @@ Port of ``trlx_tpu/trainer/base.py`` (``TPUBaseTrainer``) as
   optimizer). ``learning_rate`` is the schedule at the step count before
   the update. With ``train.grad_accum`` k > 1 the batch splits into k
   micro-batches whose gradients and stats are averaged (JAX's scan: each
-  micro-batch whitens its own advantages);
+  micro-batch whitens its own advantages). ``model.peft_kwargs`` builds
+  LoRA adapters (``builder.parse_peft_overrides``): the base freezes and
+  the optimizer holds the adapters of the unfrozen blocks and the heads;
 - ``generate``: a rollout trainer (PPO) with ``train.continuous_batching:
   false``, the presets' setting, samples on the serial dense
   :class:`~trlx_tpu_torch.engine.core.SerialEngine` around
@@ -53,7 +55,7 @@ import torch
 
 from trlx_tpu_torch.data.tokenizer import from_config as tokenizer_from_config
 from trlx_tpu_torch.engine.core import ContinuousEngine, SerialEngine
-from trlx_tpu_torch.models.builder import build_causal_lm, trainable_mask
+from trlx_tpu_torch.models.builder import build_causal_lm, parse_peft_overrides, trainable_mask
 from trlx_tpu_torch.models.transformer import config_from_spec
 from trlx_tpu_torch.ops.kernel_utils import resolve_device
 from trlx_tpu_torch.ops.paged_kv import PagedSpec, dense_kv_bytes, num_table_blocks
@@ -132,7 +134,7 @@ def validate_engine(config) -> None:
 
 def reject_unported(config, collects_rollouts: bool) -> None:
     """Raise ``ValueError`` naming the first setting this slice does not
-    run (parallel axes, scanned or rematerialised layers, seq2seq, LoRA, a
+    run (parallel axes, scanned or rematerialised layers, seq2seq, a
     tracker, profiles and rollout logs, serving inside a trainer, the
     update guard, fault plans and the checkpoint retention ring). The port
     installs no preemption handler, so it writes no emergency checkpoint,
@@ -182,7 +184,6 @@ def reject_unported(config, collects_rollouts: bool) -> None:
         (par.remat != "none", f"parallel.remat {par.remat!r}: rematerialisation is not ported"),
         (m.model_arch_type != "causal",
          f"model.model_arch_type {m.model_arch_type!r}: seq2seq is not ported"),
-        (bool(m.peft_kwargs), "model.peft_kwargs: LoRA/PEFT is not ported"),
         (t.tracker is not None, f"train.tracker {t.tracker!r}: the port logs to an "
          "in-memory tracker only (tracker: null)"),
         (t.profile_dir is not None, "train.profile_dir: profiler traces are not ported"),
@@ -299,6 +300,11 @@ class TorchBaseTrainer(BaseRLTrainer):
         self.tokenizer = tokenizer_from_config(config.tokenizer)
 
         overrides = dict(config.model.model_extra_kwargs or {})
+        if config.model.peft_kwargs:
+            try:
+                overrides.update(parse_peft_overrides(config.model.peft_kwargs))
+            except ValueError as e:
+                raise ValueError(f"model.peft_kwargs: {e}") from None
         overrides.setdefault("param_dtype", DTYPES[config.parallel.param_dtype])
         overrides.setdefault("dtype", DTYPES[config.parallel.compute_dtype])
         self.model, self.tcfg = build_causal_lm(
@@ -856,9 +862,23 @@ class TorchBaseTrainer(BaseRLTrainer):
     def _learn_loop(self) -> Dict[str, Any]:
         results = self.evaluate()
         self.tracker.log(results, step=self.iter_count)
+        # an offline trainer resumed at update k skips the k updates its
+        # checkpoint holds (a skipped epoch burns its shuffle), so it goes
+        # on where the uninterrupted run was (JAX's emergency-resume
+        # fast-forward); a rollout trainer resumes into a fresh collection
+        skip = 0 if self.collects_rollouts else self.iter_count
+        done = 0
         for _ in range(self.config.train.epochs):
+            per_epoch = len(self.train_dataloader) * self.n_updates_per_batch if skip else 0
+            if skip and done + per_epoch <= skip:
+                done += per_epoch
+                self.train_dataloader.advance_epoch()
+                continue
             for batch in self._maybe_prefetch(self.train_dataloader):
                 for _ in range(self.n_updates_per_batch):
+                    if done < skip:
+                        done += 1
+                        continue
                     t0 = time.perf_counter()
                     device_stats = self.train_step(batch)
                     stats = host_stats(device_stats)  # one fetch; waits for the step

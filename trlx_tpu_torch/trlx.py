@@ -1,9 +1,11 @@
-"""Public API of the port: ``train()`` for online RL, offline RL and
-supervised fine-tuning.
+"""Public API of the port: ``train()`` for online RL, offline RL,
+supervised fine-tuning and preference learning.
 
 Port of ``trlx_tpu/trlx.py::train``: a ``reward_fn`` selects online RL
 (PPO, or GRPO with ``config.train.trainer: GRPOTrainer``),
-``samples`` with ``rewards`` offline ILQL, ``samples`` alone SFT. The user
+``samples`` with ``rewards`` offline ILQL, ``samples`` alone SFT, or
+with ``config.train.trainer: DPOTrainer`` DPO on ``(prompt, chosen,
+rejected)`` triples (``default_dpo_config()``). The user
 callback contracts are the JAX package's:
 
 - ``reward_fn(samples, prompts, outputs) -> List[float]``
@@ -54,7 +56,7 @@ def train(  # noqa: C901
     reference)."""
     for module in ("trlx_tpu_torch.pipeline.offline_pipeline", "trlx_tpu_torch.trainer.ppo",
                    "trlx_tpu_torch.trainer.grpo", "trlx_tpu_torch.trainer.ilql",
-                   "trlx_tpu_torch.trainer.sft"):
+                   "trlx_tpu_torch.trainer.sft", "trlx_tpu_torch.trainer.dpo"):
         importlib.import_module(module)
     from trlx_tpu_torch.pipeline import get_pipeline
     from trlx_tpu_torch.trainer import get_trainer
