@@ -97,7 +97,7 @@ Phases, each printing one JSON line:
    must lift its last three evals over its first two by more than 0.1;
 10. the family slice (``FAMILY_SPEC``, Mistral-7B: rotary positions,
    RMSNorm, the gated SiLU MLP, GQA 4:1 at head dim 128, a 4096 window):
-   at full width and 4 of its 32 layers, 16 HTTP requests on 8 slots with
+   at full width and 2 of its 32 layers, 16 HTTP requests on 8 slots with
    4160-token
    prompts (half cut to 512 tokens, left-padded by the engine), so the
    window bites in prefill (#1) and decode (#2), beside the time of the
@@ -130,11 +130,11 @@ Phases, each printing one JSON line:
    against the continuous one group for group; (b) one batch's loss and
    gradients on the kernels against a CPU copy's plain attention; (c) a
    run resumed from ``slice_grpo``'s step-8 checkpoint against it;
-12. the MoE slice at Mixtral-8x7B's width (``MOE_SPEC``): served at two
-   layers, 16 HTTP requests on 8 slots, half 1024-token prompts and half
+12. the MoE slice at Mixtral-8x7B's width (``MOE_SPEC``): served at one
+   layer, 16 HTTP requests on 8 slots, half 1024-token prompts and half
    512, 32 new tokens, half greedy, with the build seconds, the experts'
    per-call cast and the peak memory (``slice_moe_serve``); the f32
-   engine's greedy answers against the plain ``generate`` at two layers
+   engine's greedy answers against the plain ``generate`` at one layer
    (``slice_moe_parity``); and ``tasks/grpo_sentiments.py``'s GRPO at two
    layers for 4 steps, with the router losses and the peak memory
    (``slice_moe_grpo``). Phases 3 and 5 check the kernels at these
@@ -156,7 +156,21 @@ Phases, each printing one JSON line:
    ``FAMILY_TRAIN_LAYERS`` layers, 4 steps: the base must not move and
    every adapter must (``slice_dpo_lora``). Phase 5 checks the flash
    kernels at these paths' right-padded shapes (``PREFERENCE_FLASH_SHAPES``)
-   and the stage-3 PPO's left-padded train batch and prefill.
+   and the stage-3 PPO's left-padded train batch and prefill;
+14. the seq2seq (T5) path: ``tasks/ppo_sentiments_t5.py`` as it stands on
+   ``builtin:t5-small`` (full width and depth, 128 rollouts in one chunk,
+   40 tokens at top-p 0.95, right padding, the lexicon reward) for one
+   collection and the 16 updates it feeds, with a profiled collection
+   (``slice_t5_ppo``); ``tasks/ilql_summarize_t5.py``'s settings at
+   Flan-T5-XL's width cut to 2 + 2 layers, 256 comparisons, 8 steps and
+   the evaluations on 16 TL;DR posts at ``beta`` 1, 2 and 3
+   (``slice_t5_ilql``). Neither launches a kernel: T5's attention is an
+   einsum around a learned bias (no Pallas kernel in JAX either) and the
+   examples' loss is the staged one. In f32 with TF32 off
+   (``slice_t5_parity``): the buckets, the encoder and decoder passes and
+   greedy decoding card against CPU, cached decode against the full pass,
+   and one PPO step at ``loss_kernel`` xla and pallas, where #7/#8 must
+   launch; the bf16 logits' gap against f32.
 
 Before the kernel summary, ``phase_seconds`` gives each phase's wall
 seconds.
@@ -1190,10 +1204,10 @@ def phase_slice(device="cuda", spec="builtin:gpt2-small", slots=8, block_size=16
 # the family slice: Mistral-7B (mistralai/Mistral-7B-v0.1 config.json: the
 # JAX preset's widths) served with prompts that cross its 4096 window
 FAMILY_SPEC = "builtin:mistral-7b"
-# served at 4 of its 32 layers: with the GRPO and MoE phases the full
+# served at 2 of its 32 layers: with the GRPO and MoE phases the full
 # depth took the script to 896 s of phases (the limit is 800), 8 layers
-# with the preference phases 880 s
-FAMILY_SERVE_LAYERS = 4
+# with the preference phases 880 s, 4 with the T5 phases 886 s
+FAMILY_SERVE_LAYERS = 2
 FAMILY_SERVE = dict(slots=8, prompt_len=4160, max_new=32, n_requests=16, short_len=512, eos=2)
 # the parity and PPO runs of the family slice at full width, cut in depth:
 # two f32 7B copies and the KV pool exceed 80 GB, Adam over a full-depth 7B
@@ -3250,12 +3264,13 @@ def phase_slice_grpo_parity(run, device="cuda", spec="builtin:gpt2-small", card=
 # rope_theta 1e6, dispatch groups of 512 tokens
 MOE_SPEC = "builtin:mixtral-8x7b"
 MOE_SERVE = dict(slots=8, prompt_len=1024, max_new=32, n_requests=16, short_len=512, eos=2)
-# depth cuts: 2 served layers hold 3.17 B f32 parameters (12.7 GB; 4 layers,
-# 6.07 B, drew for ~50 s on the host, and the preference phases took the
-# script to 880 s of phases); the f32 parity holds 2 (12.7 GB); GRPO at 2
-# layers holds weights, gradients, AdamW's moments and the hydra
-# reference (~63 GB)
-MOE_SERVE_LAYERS, MOE_PARITY_LAYERS, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 2, 2, 4
+# depth cuts: one served layer holds 1.67 B f32 parameters (2 layers, 3.17
+# B, drew for ~27 s on the host, and with the T5 phases the script read
+# 886 s of phases; 4 layers, 6.07 B, ~50 s); the f32 parity holds one;
+# GRPO at 2 layers (the preset trains the top 2: its hydra branch needs
+# both) holds weights, gradients, AdamW's moments and the hydra reference
+# (~63 GB)
+MOE_SERVE_LAYERS, MOE_PARITY_LAYERS, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 1, 1, 2, 4
 
 
 def phase_moe_serve(device="cuda", spec=MOE_SPEC, layers=MOE_SERVE_LAYERS,
@@ -3961,6 +3976,462 @@ def phase_slice_dpo_lora(device="cuda", spec=FAMILY_SPEC, layers=LORA_LAYERS,
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the seq2seq (T5) path
+# ---------------------------------------------------------------------------
+
+T5_PPO_SPEC = "builtin:t5-small"
+# the width of the TL;DR T5 example's checkpoint (pvduy/flant5-xl_openai_tldr_sft),
+# cut in depth from 24 + 24 layers
+T5_ILQL_SPEC, T5_ILQL_LAYERS = "builtin:flan_t5-xl", 2
+T5_ILQL_STEPS, T5_ILQL_PAIRS, T5_ILQL_EVAL = 8, 256, 16
+# the fused loss pair runs under method.loss_kernel: pallas; T5's attention is
+# plain torch (an einsum around a learned bias, as in JAX)
+T5_KERNELS = ("fused_loss_fwd", "fused_loss_bwd")
+# f32 with TF32 off: card against CPU, cached against full, pallas against
+# xla, each relative to the largest |value| of the compared tensor
+T5_PARITY_REL = 1e-5
+# a gradient tensor whose largest entry is below this share of the model's
+# largest is ~0 in exact arithmetic and holds rounding noise on both sides
+# (random T5's std-1 tied embeddings saturate the decoder's self-attention
+# softmax, so its q/k projections read ~1e-10 of the largest on the card):
+# it is held to T5_PARITY_REL of this floor instead of its own largest
+T5_GRAD_FLOOR = 1e-3
+
+
+def timed_calls(trainer, name, seconds):
+    """Wrap ``trainer.<name>``: the wall seconds of each call (the card
+    synchronised at its end) append to ``seconds[name]``."""
+    fn = getattr(trainer, name)
+
+    def wrapped(*a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize(trainer.device)
+        seconds.setdefault(name, []).append(time.perf_counter() - t0)
+        return out
+
+    setattr(trainer, name, wrapped)
+
+
+def phase_slice_t5_ppo(device="cuda", spec=T5_PPO_SPEC, card="", hparams=None):
+    """``tasks/ppo_sentiments_t5.py`` (``examples/ppo_sentiments_t5.py`` on
+    the port) as it stands on the model its offline branch resolves to
+    (``builtin:t5-small`` at full width and depth: E 512, 6 + 6 layers, 8
+    heads × 64, FFN 2048 relu, vocab 32128, tied; bf16 over f32 masters),
+    cut only in steps: one collection of 128 rollouts and the
+    ``ppo_epochs`` updates it feeds (16), then the final evaluation and
+    checkpoint. Every kernel counter is set to 0 just before and read just
+    after: the example's path (T5's plain attention, the staged loss)
+    launches none, and a launch fails. Prints step ms (median and spread),
+    ``time/exp``, rollout tokens/s, the peak memory and, over one profiled
+    collection of the 128 prompts, the card's busy share and launches per
+    decode step. ``hparams`` (a CPU rehearsal's sizes) are dot-path
+    overrides. Returns the launches."""
+    import shutil
+
+    from trlx_tpu_torch.tasks import ppo_sentiments_t5 as task
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    ckpt = _scratch_dir("t5_ppo")
+    base = task.config(spec, hparams)
+    steps = base.method.num_rollouts // base.train.batch_size * base.method.ppo_epochs
+    overrides = {"train.total_steps": steps, "train.checkpoint_dir": ckpt, **(hparams or {})}
+    config = task.config(spec, overrides)
+    steps = config.train.total_steps
+    start = {}
+
+    def hook(trainer):
+        start.update({k: trainer.model.state_dict()[k].detach().cpu().clone()
+                      for k in trained_keys(trainer)})
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        # -- the main path -------------------------------------------------
+        trainer = task.main(spec, overrides, device=dev, init_trainer_hook=hook)
+        # -------------------------------------------------------------------
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    hist = trainer.tracker.history
+    step_stats = [st for _, st in hist if "gradients/global_norm" in st]
+    collections = [st for _, st in hist if "time/exp" in st]
+    losses = [st["losses/total_loss"] for st in step_stats]
+    step_ms = [1e3 * st["time/step"] for st in step_stats]
+    end = trainer.model.state_dict()
+    not_moved = [k for k in start if torch.equal(end[k].detach().cpu(), start[k])]
+    rec = {"phase": "slice_t5_ppo", "model": spec, "dtype": str(trainer.tcfg.dtype).split(".")[-1],
+           "parameters": sum(p.numel() for p in trainer.model.parameters()),
+           "settings": {"seq_length": config.train.seq_length,
+                        "batch_size": config.train.batch_size,
+                        "num_rollouts": config.method.num_rollouts,
+                        "chunk_size": config.method.chunk_size,
+                        "ppo_epochs": config.method.ppo_epochs,
+                        "num_layers_unfrozen": config.model.num_layers_unfrozen,
+                        "padding_side": config.tokenizer.padding_side,
+                        "loss_kernel": config.method.loss_kernel,
+                        "rollout_pipeline_depth": config.train.rollout_pipeline_depth,
+                        "gen_kwargs": dict(config.method.gen_kwargs)},
+           "optimizer_steps": len(step_stats), "rollout_collections": len(collections),
+           "losses": losses, "wall_s": wall, "train_step_ms": step_ms,
+           "train_step_ms_median": statistics.median(step_ms) if step_ms else None,
+           "train_step_ms_spread": [min(step_ms), max(step_ms)] if step_ms else None,
+           "time_exp_s": [c["time/exp"] for c in collections],
+           "time_generate_s": [c["time/generate"] for c in collections],
+           "rollout_tokens_per_s": [c.get("throughput/rollout_tokens_per_sec")
+                                    for c in collections],
+           "exp_scores_mean": [c["exp_scores/mean"] for c in collections],
+           "eval_reward_mean": [st["reward/mean"] for _, st in hist if "reward/mean" in st],
+           "launches": launches, "trained_weights_unmoved": not_moved,
+           "peak_memory_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                              if dev.type == "cuda" else None), "card": card}
+    problems = []
+    if len(step_stats) != steps or len(collections) != 1:
+        problems.append(f"{len(step_stats)} steps, {len(collections)} collections")
+    if not all(math.isfinite(x) for x in losses):
+        problems.append("a non-finite loss")
+    if not start or not_moved:
+        problems.append(f"trainable weights did not move: {not_moved[:4]}")
+    if any(launches.values()):
+        problems.append(f"a kernel off the example's path launched: {launches}")
+    if dev.type == "cuda" and not problems:
+        t0 = time.perf_counter()
+        rec["profiled_collection"] = profile_collection(trainer, task.prompts(),
+                                                        config.method.chunk_size)
+        rec["profile_s"] = time.perf_counter() - t0
+        zero_launch_counts()
+    emit({**rec, "ok": not problems})
+    del trainer
+    if problems:
+        raise AssertionError(f"slice_t5_ppo: {problems}")
+    return launches
+
+
+def phase_slice_t5_ilql(device="cuda", spec=T5_ILQL_SPEC, layers=T5_ILQL_LAYERS,
+                        total_steps=T5_ILQL_STEPS, n_pairs=T5_ILQL_PAIRS, n_eval=T5_ILQL_EVAL,
+                        card="", hparams=None):
+    """``tasks/ilql_summarize_t5.py`` (the TL;DR T5 example's settings:
+    ``seq_length`` 550, batch 8, lr 1e-6, tau 0.6, gamma 0.99, CQL 0.1,
+    AWAC 1, alpha 1e-4, the target heads synced every step, twin Q heads)
+    at Flan-T5-XL's width (``T5_ILQL_SPEC``: E 2048, 32 heads × 64, FFN
+    5120 gated-GELU, untied, vocab 32128; bf16 over f32 masters) cut to
+    ``layers`` + ``layers`` layers: ``n_pairs`` comparisons (2 × ``n_pairs``
+    samples at ±1), ``total_steps`` steps, the evaluations (at the start
+    and the end of ``learn``) on ``n_eval`` TL;DR posts at ``beta`` 1, 2
+    and 3, 50 tokens at top-k 50, scored by ROUGE; no checkpoint is
+    written (``save`` is a no-op: the state is ~11 GB). Every kernel
+    counter is set to 0 just before and read just after: nothing launches
+    on this path. Prints the parameters, step ms, the memory by stage and
+    the evaluation seconds. A non-finite loss, a launch, a trained weight
+    or a target head that did not move fails. Returns the launches."""
+    import shutil
+
+    from trlx_tpu_torch.tasks import ilql_summarize_t5 as task
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    ckpt = _scratch_dir("t5_ilql")
+    overrides = {"train.total_steps": total_steps, "train.checkpoint_dir": ckpt,
+                 **(hparams or {})}
+    memory, seconds, built, start = {}, {}, {}, {}
+
+    def hook(trainer):
+        trainer.save = lambda *a, **k: None
+        built["s"] = time.perf_counter() - t0
+        if dev.type == "cuda":
+            memory["built"] = torch.cuda.memory_allocated(dev) / 1e9
+        start["targets"] = _target_fingerprint(trainer.model).cpu()
+        start["q"] = trainer.model.ilql_heads.q_head_0.out_proj.weight.detach()[:64].cpu().clone()
+        start["dec"] = (trainer.model.backbone.dec_blocks[0].self_attn.q_proj.weight
+                        .detach()[:64].cpu().clone())
+        for name in ("make_experience", "evaluate", "accumulate_grads", "train_step"):
+            record_memory(trainer, name, memory, dev)
+        timed_calls(trainer, "evaluate", seconds)
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    # -- the main path -------------------------------------------------------
+    trainer = task.main(spec, overrides, n_pairs=n_pairs, n_eval=n_eval,
+                        reward_checkpoint_dir=os.path.join(ckpt, "no_reward_model"),
+                        device=dev, init_trainer_hook=hook,
+                        model_extra_kwargs={"num_layers": layers, "num_decoder_layers": layers})
+    # -------------------------------------------------------------------------
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    hist = trainer.tracker.history
+    step_stats = [st for _, st in hist if "gradients/global_norm" in st]
+    losses = [st["losses/loss"] for st in step_stats]
+    step_ms = [1e3 * st["time/step"] for st in step_stats]
+    model = trainer.model
+    moved = {
+        "target_heads": not torch.equal(_target_fingerprint(model).cpu(), start["targets"]),
+        "q_head": not torch.equal(model.ilql_heads.q_head_0.out_proj.weight.detach()[:64].cpu(),
+                                  start["q"]),
+        "decoder": not torch.equal(model.backbone.dec_blocks[0].self_attn.q_proj.weight
+                                   .detach()[:64].cpu(), start["dec"]),
+    }
+    store = trainer.store
+    rec = {"phase": "slice_t5_ilql", "model": spec, "layers": [layers, layers],
+           "dtype": str(trainer.tcfg.dtype).split(".")[-1],
+           "parameters": sum(p.numel() for p in model.parameters()),
+           "head_parameters": sum(p.numel() for p in model.ilql_heads.parameters()),
+           "samples": len(store), "batch_size": trainer.config.train.batch_size,
+           "prompt_tokens_max": max(len(e.input_ids) for e in store.history),
+           "output_tokens_max": max(len(e.decoder_input_ids) for e in store.history),
+           "build_s": built["s"], "wall_s": wall, "optimizer_steps": len(step_stats),
+           "losses": losses, "train_step_ms": step_ms,
+           "train_step_ms_median": statistics.median(step_ms) if step_ms else None,
+           "evaluate_s": seconds.get("evaluate"),
+           "eval_metrics": [{k: v for k, v in st.items() if k.startswith("metrics/rouge_avg")}
+                            for _, st in hist if any(k.startswith("metrics/") for k in st)],
+           "moved": moved, "launches": launches, "memory_by_stage_gb": memory,
+           "peak_memory_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                              if dev.type == "cuda" else None), "card": card}
+    problems = []
+    if len(step_stats) != total_steps or not all(math.isfinite(x) for x in losses):
+        problems.append(f"{len(step_stats)} steps, losses {losses}")
+    if not all(moved.values()):
+        problems.append(f"did not move: {moved}")
+    if any(launches.values()):
+        problems.append(f"a kernel launched on a path with none: {launches}")
+    emit({**rec, "ok": not problems})
+    shutil.rmtree(ckpt, ignore_errors=True)
+    del trainer, model
+    if problems:
+        raise AssertionError(f"slice_t5_ilql: {problems}")
+    return launches
+
+
+def rel_gap(got, want):
+    """max |got - want| over the largest |want| (host f32)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def t5_parity_inputs(vocab, rows=4, prompt_len=32, dec_len=24, seed=0):
+    """Encoder ids with right- and left-padded rows, decoder ids with a
+    right-padded row (the T5 tasks' layouts)."""
+    rs = np.random.RandomState(seed)
+    ids = torch.as_tensor(rs.randint(3, vocab, (rows, prompt_len)))
+    mask = torch.ones((rows, prompt_len), dtype=torch.int64)
+    mask[1, prompt_len * 2 // 3:] = 0
+    mask[2, : prompt_len // 4] = 0
+    dec = torch.as_tensor(rs.randint(3, vocab, (rows, dec_len)))
+    dmask = torch.ones((rows, dec_len), dtype=torch.int64)
+    dmask[0, dec_len // 2:] = 0
+    return ids, mask, dec, dmask
+
+
+def t5_ppo_step_parity(dev, spec, rollouts=32, max_new=40):
+    """One collected batch of ``tasks/ppo_sentiments_t5.py``'s PPO (f32,
+    ``rollouts`` rollouts in one chunk) through ``loss_fn`` and backward on
+    the card with ``loss_kernel`` xla (the staged loss) and pallas (#7/#8)
+    on the same weights, then one pallas ``train_step``: the loss, the
+    loss's own gradients (d logprobs, d values: what #8 returns) and every
+    model gradient within ``T5_PARITY_REL`` of the tensor's largest (the
+    largest at least ``T5_GRAD_FLOOR`` of the model's largest gradient),
+    #7/#8 launching in the pallas passes only."""
+    import shutil
+
+    from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
+    from trlx_tpu_torch.tasks import ppo_sentiments_t5 as task
+    from trlx_tpu_torch.trainer.ppo import PPOTrainer
+
+    ckpt = _scratch_dir("t5_parity")
+    config = task.config(spec, {"parallel.compute_dtype": "float32",
+                                "method.num_rollouts": rollouts, "method.chunk_size": rollouts,
+                                "train.batch_size": rollouts, "train.checkpoint_dir": ckpt,
+                                "method.gen_kwargs.max_new_tokens": max_new})
+    trainer = PPOTrainer(config=config, reward_fn=task.reward_fn, device=dev)
+    width = config.train.seq_length - max_new
+    trainer.add_prompt_pipeline(PromptPipeline(task.prompts(rollouts), width, trainer.tokenizer))
+    trainer.make_experience(rollouts)
+    batch = next(iter(trainer.store.create_loader(rollouts)))
+    trainer.model.requires_grad_(True)
+    passes = {}
+    for kernel in ("xla", "pallas"):
+        trainer.config.method.loss_kernel = kernel
+        trainer.model.zero_grad(set_to_none=True)
+        zero_launch_counts()
+        loss, _ = trainer.loss_fn(trainer._device_batch(batch))
+        loss.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        passes[kernel] = {"loss": float(loss.detach()), "launches": launch_counts(),
+                          "grads": {k: p.grad.detach().clone()
+                                    for k, p in trainer.model.named_parameters()
+                                    if p.grad is not None}}
+    xla, fused = passes["xla"], passes["pallas"]
+    gmax = max(float(g.abs().max()) for g in xla["grads"].values())
+    floor = T5_GRAD_FLOOR * gmax
+    worst, worst_name = 0.0, None
+    for k, want in xla["grads"].items():
+        err = float((fused["grads"][k] - want).abs().max())
+        rel = err / max(float(want.abs().max()), floor)
+        if worst_name is None or not rel <= worst:
+            worst, worst_name = rel, k
+    loss_rel = abs(fused["loss"] - xla["loss"]) / max(abs(xla["loss"]), 1e-12)
+    loss_grads = t5_loss_grads(trainer, batch)
+    zero_launch_counts()
+    stats = trainer.train_step(batch)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    step_launches = launch_counts()
+    rec = {"batch": [int(x) for x in np.asarray(batch.query_tensors).shape]
+           + [int(np.asarray(batch.response_tensors).shape[1])],
+           "loss_xla": xla["loss"], "loss_pallas": fused["loss"], "loss_rel_err": loss_rel,
+           "worst_grad_rel_err": worst, "worst_grad": worst_name, "largest_grad": gmax,
+           "grad_floor": floor,
+           "floored_grads": sum(float(g.abs().max()) < floor for g in xla["grads"].values()),
+           "grads_compared": len(xla["grads"]), "loss_grads_rel_err": loss_grads,
+           "launches_xla": xla["launches"],
+           "launches_pallas": fused["launches"], "train_step_launches": step_launches,
+           "train_step_loss": float(stats["losses/total_loss"])}
+    problems = []
+    if set(fused["grads"]) != set(xla["grads"]):
+        problems.append("the two passes gave gradients to different parameters")
+    if not (worst <= T5_PARITY_REL and loss_rel <= T5_PARITY_REL
+            and max(loss_grads.values()) <= T5_PARITY_REL):
+        problems.append(f"pallas against xla: loss {loss_rel}, loss gradients {loss_grads}, "
+                        f"gradient {worst_name} {worst}")
+    if any(xla["launches"].values()):
+        problems.append(f"the staged loss launched {xla['launches']}")
+    for name, counts in (("loss_fn", fused["launches"]), ("train_step", step_launches)):
+        if any(v for k, v in counts.items() if k not in T5_KERNELS) or (
+                dev.type == "cuda" and min(counts[k] for k in T5_KERNELS) <= 0):
+            problems.append(f"the pallas {name} launched {counts}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return problems, rec, step_launches
+
+
+def t5_loss_grads(trainer, batch):
+    """The staged and the fused loss's gradients with respect to the
+    logprobs and values of one forward (detached leaves): their largest gap
+    over the staged one's largest, by input."""
+    from trlx_tpu_torch.utils.stats import logprobs_of_labels
+
+    m, arr = trainer.config.method, trainer._device_batch(batch)
+    responses = arr["response_tensors"].to(torch.int64)
+    dec_in, dec_mask = trainer._decoder_inputs(responses, arr["response_mask"])
+    with torch.no_grad():
+        out = trainer.model(arr["query_tensors"].to(torch.int64),
+                            attention_mask=arr["query_mask"], decoder_input_ids=dec_in,
+                            decoder_attention_mask=dec_mask)
+    mask = arr["response_mask"].float()
+    old = dict(old_logprobs=arr["logprobs"], old_values=arr["values"], mask=mask)
+    grads = {}
+    for kernel in ("xla", "pallas"):
+        lp = logprobs_of_labels(out["logits"], responses).detach().requires_grad_(True)
+        v = out["value"].detach().float().requires_grad_(True)
+        if kernel == "xla":
+            adv, ret = m.get_advantages_and_returns(arr["values"], arr["rewards"], mask)
+            loss, _ = m.loss(logprobs=lp, values=v, advantages=adv, returns=ret, **old)
+        else:
+            loss, _ = m.loss_fused(logprobs=lp, values=v, rewards=arr["rewards"], **old)
+        grads[kernel] = torch.autograd.grad(loss, (lp, v))
+    return {name: rel_gap(grads["pallas"][i], grads["xla"][i])
+            for i, name in enumerate(("logprobs", "values"))}
+
+
+def phase_slice_t5_parity(card="cuda", spec=T5_PPO_SPEC, max_new=24, rollouts=32):
+    """In f32 with TF32 off, at ``spec`` (t5-small) from one seed on the
+    card and on the CPU: (a) ``relative_position_bucket`` on the card
+    equals the CPU's for every offset in [-1024, 1024], both directions,
+    at (32, 128) and (8, 20); (b) the encoder states, the full decoder
+    pass's logits and values within ``T5_PARITY_REL`` of the largest
+    |value|, on padded rows; (c) cached decode against the full pass on
+    the card, the same bound; (d) greedy ``generate_seq2seq`` on the card
+    equal to the CPU's token for token; (e) one PPO step at ``loss_kernel``
+    xla and pallas (:func:`t5_ppo_step_parity`: #7/#8 must launch). Prints
+    the bf16 logits' gap against f32 on the card (largest over the largest
+    |logit|, and where the greedy tokens part). Returns the pallas step's
+    launches."""
+    from trlx_tpu_torch.models.builder import build_seq2seq_lm
+    from trlx_tpu_torch.models.seq2seq import relative_position_bucket
+    from trlx_tpu_torch.ops.sampling import GenerationConfig, generate_seq2seq
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, cpu = torch.device(card), torch.device("cpu")
+    rec = {"phase": "slice_t5_parity", "model": spec, "tf32": False, "rel_bound": T5_PARITY_REL}
+    problems = []
+    rel = torch.arange(-1024, 1025)
+    buckets = {}
+    for nb, md in ((32, 128), (8, 20)):
+        for bidirectional in (True, False):
+            got = relative_position_bucket(rel.to(dev), bidirectional, nb, md).cpu()
+            want = relative_position_bucket(rel, bidirectional, nb, md)
+            buckets[f"{nb}/{md}/{'bi' if bidirectional else 'uni'}"] = int((got != want).sum())
+    rec["bucket_mismatches"] = buckets
+    if any(buckets.values()):
+        problems.append(f"buckets differ: {buckets}")
+
+    models = {d.type: build_seq2seq_lm(spec, seed=0, device=d, head="value",
+                                       dtype=torch.float32)[0] for d in (dev, cpu)}
+    cfg = models[dev.type].config
+    ids, mask, dec, dmask = t5_parity_inputs(cfg.vocab_size)
+    outs = {}
+    with torch.no_grad():
+        for key, m in models.items():
+            d = next(m.parameters()).device
+            outs[key] = m(ids.to(d), mask.to(d), decoder_input_ids=dec.to(d),
+                          decoder_attention_mask=dmask.to(d))
+        card_out, cpu_out = outs[dev.type], outs["cpu"]
+        gaps = {k: rel_gap(card_out[k], cpu_out[k])
+                for k in ("encoder_hidden", "logits", "value")}
+        m = models[dev.type]
+        T = dec.shape[1]
+        enc, cache = m.encode_for_decode(ids.to(dev), mask.to(dev), T + 1)
+        cached = torch.cat([m.decode(dec[:, t : t + 1].to(dev), enc, mask.to(dev), cache=cache,
+                                     cache_index=t)["logits"] for t in range(T)], dim=1)
+        full = m(ids.to(dev), mask.to(dev), decoder_input_ids=dec.to(dev))["logits"]
+        gaps["cached_decode"] = rel_gap(cached, full)
+        gen = GenerationConfig(max_new_tokens=max_new, do_sample=False)
+        seeds = torch.arange(ids.shape[0])
+        greedy = {key: generate_seq2seq(m_, ids, mask, seeds, gen).response_tokens.cpu()
+                  for key, m_ in models.items()}
+        bf16 = build_seq2seq_lm(spec, seed=0, device=dev, head="value",
+                                dtype=torch.bfloat16)[0]
+        logits16 = bf16(ids.to(dev), mask.to(dev), decoder_input_ids=dec.to(dev),
+                        decoder_attention_mask=dmask.to(dev))["logits"]
+        greedy16 = generate_seq2seq(bf16, ids, mask, seeds, gen).response_tokens.cpu()
+    rows = (dmask > 0).to(dev)
+    rec["gaps"] = gaps
+    rec["greedy_equal"] = bool(torch.equal(greedy[dev.type], greedy["cpu"]))
+    rec["greedy_tokens"] = int(greedy["cpu"].numel())
+    rec["bf16_logit_gap_over_largest"] = rel_gap(logits16[rows], card_out["logits"][rows])
+    rec["bf16_greedy_tokens_equal_f32"] = int((greedy16 == greedy[dev.type]).sum())
+    bad = {k: v for k, v in gaps.items() if not v <= T5_PARITY_REL}
+    if bad:
+        problems.append(f"gaps above {T5_PARITY_REL}: {bad}")
+    if not rec["greedy_equal"]:
+        problems.append("greedy tokens differ between the card and the CPU")
+    del models, bf16, outs, card_out, cpu_out
+    step_problems, rec["ppo_step"], launches = t5_ppo_step_parity(dev, spec, rollouts)
+    problems += step_problems
+    emit({**rec, "ok": not problems})
+    zero_launch_counts()
+    if problems:
+        raise AssertionError(f"slice_t5_parity: {problems}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -4048,6 +4519,13 @@ def run_phases(clocked, seconds):
     gc.collect()
     torch.cuda.empty_cache()
     dpo_lora_launches = clocked(phase_slice_dpo_lora, card=smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t5_ppo_launches = clocked(phase_slice_t5_ppo, card=smi)
+    t5_ilql_launches = clocked(phase_slice_t5_ilql, card=smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    clocked(phase_slice_t5_parity)
     emit({"phase": "phase_seconds", **seconds, "total": sum(seconds.values())})
     # a served run counts the engine's kernels; nothing else launches there
     served = {k: 0 for k in REPLACES}
@@ -4058,7 +4536,8 @@ def run_phases(clocked, seconds):
                "family_serve": {**served, **family_serve}, "family_train": family_train,
                "grpo": grpo_launches, "grpo_cb": grpo_cb_launches,
                "moe_serve": {**served, **moe_serve}, "moe_grpo": moe_grpo,
-               "dpo": dpo_launches, "reward": reward_launches, "dpo_lora": dpo_lora_launches}
+               "dpo": dpo_launches, "reward": reward_launches, "dpo_lora": dpo_lora_launches,
+               "t5_ppo": t5_ppo_launches, "t5_ilql": t5_ilql_launches}
     kernels = [kernel_record(name, serve_launches[name], timed[name]["max_abs_err"], timed[name],
                              by_path)
                for name in SERVE_KERNELS]

@@ -217,7 +217,10 @@ def test_train_entry_point_end_to_end(tmp_path):
         ({"parallel": {"model": 2}}, "parallel.model"),
         ({"parallel": {"scan_layers": True}}, "parallel.scan_layers"),
         ({"parallel": {"remat": "full"}}, "parallel.remat"),
-        ({"model": {"model_arch_type": "seq2seq"}}, "model.model_arch_type"),
+        # seq2seq PPO runs (tests/test_torch_seq2seq_trainers.py; its
+        # continuous-batching refusal is tested below); an arch type the
+        # port does not know is refused
+        ({"model": {"model_arch_type": "encoder"}}, "model.model_arch_type"),
         # LoRA runs (tests/test_torch_lora.py); another PEFT type raises, as in JAX
         ({"model": {"peft_kwargs": {"peft_type": "prefix"}}}, "model.peft_kwargs"),
         # a draft whose vocabulary is not the policy's (50257 against 259)
@@ -243,6 +246,18 @@ def test_rejected_settings_raise(tmp_path, override, setting):
         with pytest.raises(ValueError) as jax_err:
             JaxPPOTrainer(config=JaxTRLConfig.from_dict(d), reward_fn=reward_fn)
         assert str(jax_err.value) in str(err.value)
+
+
+def test_seq2seq_under_continuous_batching_raises_jax_message(tmp_path):
+    """Seq2seq PPO runs (``tests/test_torch_seq2seq_trainers.py``), but not
+    on the continuous path: JAX's ``NotImplementedError``, word for word."""
+    d = _config_dict(tmp_path)
+    assert d["train"]["continuous_batching"]
+    d["model"].update(model_path="builtin:t5-test", model_arch_type="seq2seq")
+    with pytest.raises(NotImplementedError) as err:
+        PPOTrainer(config=TRLConfig.from_dict(d), reward_fn=reward_fn, device="cpu")
+    assert str(err.value) == ("train.continuous_batching supports causal LMs only: the "
+                              "seq2seq decoder has no slot-refill path")
 
 
 @pytest.mark.parametrize(

@@ -26,7 +26,15 @@ paths need:
 - LoRA's configuration: :func:`parse_peft_overrides` (``model.peft_kwargs``
   → the config's ``lora_r``, ``lora_alpha`` and ``lora_targets``, with the
   JAX errors) and :func:`merge_lora_params` (adapters folded into their
-  weights, for export).
+  weights, for export);
+- the seq2seq (T5) assembly: :func:`resolve_seq2seq_config`
+  (``builtin:t5-<size>`` and ``builtin:flan_t5-<size>``),
+  :func:`build_seq2seq_lm` (the same ``meta`` construction and seeded
+  draws), :func:`seq2seq_hydra_ref_params` (copies of the top decoder
+  blocks, the decoder's final norm and bias table, and the head) and
+  :func:`seq2seq_trainable_mask` (the reference's
+  ``freeze_bottom_seq2seq_layers``, with its k = 0 quirk: the whole
+  decoder trains).
 """
 
 from typing import Any, Dict, Optional, Tuple, Union
@@ -34,7 +42,18 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from trlx_tpu_torch.models.heads import CausalLMWithILQLHeads, CausalLMWithValueHead
+from trlx_tpu_torch.models.heads import (
+    CausalLMWithILQLHeads,
+    CausalLMWithValueHead,
+    Seq2SeqLMWithILQLHeads,
+    Seq2SeqLMWithValueHead,
+)
+from trlx_tpu_torch.models.seq2seq import (
+    SEQ2SEQ_SPECS,
+    Seq2SeqConfig,
+    Seq2SeqHydraBranch,
+    T5Transformer,
+)
 from trlx_tpu_torch.models.transformer import (
     CausalTransformer,
     HydraBranch,
@@ -43,8 +62,9 @@ from trlx_tpu_torch.models.transformer import (
 )
 from trlx_tpu_torch.ops.kernel_utils import resolve_device
 
-__all__ = ["LORA_TARGET_GROUPS", "build_causal_lm", "hydra_ref_params", "merge_lora_params",
-           "parse_peft_overrides", "trainable_mask"]
+__all__ = ["LORA_TARGET_GROUPS", "build_causal_lm", "build_seq2seq_lm", "hydra_ref_params",
+           "merge_lora_params", "parse_peft_overrides", "resolve_seq2seq_config",
+           "seq2seq_hydra_ref_params", "seq2seq_trainable_mask", "trainable_mask"]
 
 LORA_TARGET_GROUPS = {
     "attention": ("q_proj", "k_proj", "v_proj", "o_proj"),
@@ -111,12 +131,18 @@ def build_causal_lm(
     ``head="ilql"`` with the ILQL heads (twin Q heads with ``two_qs``)."""
     heads = {None: CausalTransformer, "value": CausalLMWithValueHead,
              "ilql": lambda c: CausalLMWithILQLHeads(c, two_qs)}
+    return _materialise(heads, head, config_from_spec(model_path, **overrides), seed, device)
+
+
+def _materialise(heads, head, cfg, seed, device) -> Tuple[nn.Module, Any]:
+    """``heads[head](cfg)`` built on ``meta`` (no storage, no default
+    init), materialised on ``device`` and drawn from ``seed``; eval mode,
+    gradients off."""
     if head not in heads:
         raise ValueError(f"head={head!r}: the port builds the bare LM, the value-head "
                          "policy or the ILQL policy (None | 'value' | 'ilql')")
     device = resolve_device(device)
-    cfg = config_from_spec(model_path, **overrides)
-    with torch.device("meta"):  # no storage and no default init
+    with torch.device("meta"):
         model = heads[head](cfg)
     model = model.to_empty(device=device)
     model.reset_parameters(torch.Generator().manual_seed(int(seed)))
@@ -168,4 +194,93 @@ def trainable_mask(
             mask[name] = in_range and (not lora or inner.endswith((".lora_a", ".lora_b")))
         else:
             mask[name] = not lora  # wte, wpe, emb_ln, ln_f, an untied lm_head
+    return mask
+
+
+# ---------------------------------------------------------------------------
+# seq2seq (T5)
+# ---------------------------------------------------------------------------
+
+
+def resolve_seq2seq_config(model_path: str, **overrides) -> Seq2SeqConfig:
+    """``builtin:t5-<size>`` or ``builtin:flan_t5-<size>`` (``test`` when no
+    size is given) → :class:`Seq2SeqConfig` with ``overrides``. A
+    checkpoint path raises: nothing is downloaded or imported."""
+    if not model_path.startswith("builtin:"):
+        raise ValueError(f"model path {model_path!r}: the port builds the builtin seq2seq "
+                         f"specs (builtin:<family>-<size>, families {sorted(SEQ2SEQ_SPECS)}) "
+                         "from a seed; it imports no checkpoint")
+    family, _, size = model_path.split(":", 1)[1].partition("-")
+    if family not in SEQ2SEQ_SPECS:
+        raise ValueError(f"Unknown seq2seq family '{family}'. Known: {sorted(SEQ2SEQ_SPECS)}")
+    return SEQ2SEQ_SPECS[family](size or "test", **overrides)
+
+
+def build_seq2seq_lm(
+    model_path: str = "builtin:t5-small",
+    seed: int = 0,
+    device: Union[None, str, torch.device] = None,
+    head: Optional[str] = None,
+    two_qs: bool = True,
+    **overrides,
+) -> Tuple[nn.Module, Seq2SeqConfig]:
+    """:func:`build_causal_lm` for T5: the bare :class:`T5Transformer`, the
+    value-head policy or the ILQL policy, seeded, on ``device``."""
+    heads = {None: T5Transformer, "value": Seq2SeqLMWithValueHead,
+             "ilql": lambda c: Seq2SeqLMWithILQLHeads(c, two_qs)}
+    return _materialise(heads, head, resolve_seq2seq_config(model_path, **overrides), seed,
+                        device)
+
+
+def seq2seq_hydra_ref_params(model: nn.Module, scfg: Seq2SeqConfig,
+                             num_layers_unfrozen: int) -> Seq2SeqHydraBranch:
+    """Frozen copy of the seq2seq reference branch: the top
+    ``num_layers_unfrozen`` decoder blocks, the decoder's final norm and
+    relative-position table, and the head, on the model's device,
+    gradients off."""
+    backbone = _backbone(model)
+    start = scfg.num_decoder_layers - num_layers_unfrozen
+    with torch.device("meta"):
+        ref = Seq2SeqHydraBranch(scfg, list(range(start, scfg.num_decoder_layers)))
+    keys = set(ref.state_dict())
+    ref.load_state_dict({k: v.detach().clone() for k, v in backbone.state_dict().items()
+                         if k in keys}, assign=True)
+    return ref.eval().requires_grad_(False)
+
+
+_SEQ2SEQ_FROZEN = ("wte.", "enc_", "enc_ln_f.", "dec_ln_f.", "dec_rel_bias.")
+
+
+def seq2seq_trainable_mask(model: nn.Module, scfg: Seq2SeqConfig,
+                           num_layers_unfrozen: int) -> Dict[str, bool]:
+    """``{parameter name: trains}`` with the JAX ``seq2seq_trainable_mask``
+    rules: ``-1`` trains everything; ``k >= 0`` freezes the embedding, the
+    whole encoder, both final norms and both bias tables, and trains the
+    top ``k`` decoder blocks (all of them at ``k = 0``, the reference's
+    quirk), an untied ``lm_head`` and the heads (never the ILQL target
+    heads). Under LoRA only the adapters of the trained decoder blocks and
+    the heads train."""
+    lora = scfg.lora_r > 0
+    mask: Dict[str, bool] = {}
+    wrapped = hasattr(model, "backbone")
+    for name, _ in model.named_parameters():
+        inner = name[len("backbone."):] if wrapped and name.startswith("backbone.") else None
+        if wrapped and inner is None:
+            mask[name] = ".target_q_head_" not in name  # heads; targets only sync
+            continue
+        inner = name if inner is None else inner
+        dec_block = inner.startswith("dec_blocks.")
+        if num_layers_unfrozen < 0:
+            trains = True
+        elif inner.startswith(_SEQ2SEQ_FROZEN):
+            trains = False
+        elif dec_block:
+            layer = int(inner.split(".")[1])
+            trains = (num_layers_unfrozen == 0
+                      or layer >= scfg.num_decoder_layers - num_layers_unfrozen)
+        else:
+            trains = True  # an untied lm_head
+        if lora:
+            trains = trains and dec_block and inner.endswith((".lora_a", ".lora_b"))
+        mask[name] = trains
     return mask

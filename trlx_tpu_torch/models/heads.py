@@ -12,7 +12,13 @@ Port of ``trlx_tpu/models/heads.py`` for causal models:
   heads), :class:`CausalLMWithILQLHeads` and the Polyak
   :func:`sync_target_q_params`. The target heads take no gradient (their
   outputs are detached, the JAX ``stop_gradient``) and stay out of the
-  optimizer (``builder.trainable_mask``): they move only by the sync.
+  optimizer (``builder.trainable_mask``): they move only by the sync;
+- the seq2seq (T5) wrappers :class:`Seq2SeqLMWithValueHead` and
+  :class:`Seq2SeqLMWithILQLHeads`, whose heads read the *decoder* hidden
+  states; their ``decode`` (the cached decoder step of
+  ``ops/sampling.py::generate_seq2seq``) adds the heads' outputs, so the
+  value and ILQL's Q/V reach the sampling hook as they do on the causal
+  path.
 """
 
 from typing import Any, Dict, Optional, Tuple
@@ -21,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from trlx_tpu_torch.models.seq2seq import Seq2SeqConfig, T5Transformer
 from trlx_tpu_torch.models.transformer import (
     CausalTransformer,
     TransformerConfig,
@@ -29,7 +36,7 @@ from trlx_tpu_torch.models.transformer import (
 )
 
 __all__ = ["MLPHead", "CausalLMWithValueHead", "ILQLHeadsModule", "CausalLMWithILQLHeads",
-           "sync_target_q_params"]
+           "Seq2SeqLMWithValueHead", "Seq2SeqLMWithILQLHeads", "sync_target_q_params"]
 
 
 class MLPHead(nn.Module):
@@ -160,6 +167,101 @@ class CausalLMWithILQLHeads(nn.Module):
     def project_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """Vocab projection of gathered (final-normed) hidden states."""
         return self.backbone.project_logits(hidden)
+
+    def heads_on(self, hs_actions: torch.Tensor, hs_states: torch.Tensor):
+        return self.ilql_heads.heads_on(hs_actions, hs_states)
+
+
+class _Seq2SeqLM(nn.Module):
+    """The T5 backbone's entry points, shared by the two seq2seq
+    wrappers; ``_with_heads`` adds a wrapper's head outputs."""
+
+    def __init__(self, cfg: Seq2SeqConfig):
+        super().__init__()
+        self.config = cfg
+        self.backbone = T5Transformer(cfg)
+
+    def _with_heads(self, out: Dict[str, Any]) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def encode_for_decode(self, input_ids, attention_mask, max_decode_len):
+        return self.backbone.encode_for_decode(input_ids, attention_mask, max_decode_len)
+
+    def decode(self, decoder_input_ids, encoder_hidden, encoder_mask, cache=None,
+               cache_index=0) -> Dict[str, Any]:
+        """One cached decoder step (or a full decoder pass), with the heads
+        on its hidden states."""
+        return self._with_heads(self.backbone.decode(
+            decoder_input_ids, encoder_hidden, encoder_mask, cache=cache,
+            cache_index=cache_index))
+
+    def project_logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        return self.backbone.project_logits(hidden)
+
+
+class Seq2SeqLMWithValueHead(_Seq2SeqLM):
+    """T5 policy + scalar value head on the decoder hidden states
+    (``out["value"]``, ``[B, T]`` f32)."""
+
+    def __init__(self, cfg: Seq2SeqConfig):
+        super().__init__(cfg)
+        self.v_head = MLPHead(cfg, 1)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        self.backbone.reset_parameters(generator)
+        seeded_init_(self.v_head, generator)
+
+    def _with_heads(self, out: Dict[str, Any]) -> Dict[str, Any]:
+        out["value"] = self.v_head(out["hidden_states"])[..., 0]
+        return out
+
+    def forward(self, input_ids, attention_mask=None, decoder_input_ids=None,
+                decoder_attention_mask=None, branch_layer=None) -> Dict[str, Any]:
+        return self._with_heads(self.backbone(
+            input_ids, attention_mask=attention_mask, decoder_input_ids=decoder_input_ids,
+            decoder_attention_mask=decoder_attention_mask, branch_layer=branch_layer))
+
+    def forward_branch(self, hidden_states, branch_layer, encoder_hidden, encoder_mask,
+                       decoder_mask=None):
+        return self.backbone.forward_branch(hidden_states, branch_layer, encoder_hidden,
+                                            encoder_mask, decoder_mask)
+
+
+class Seq2SeqLMWithILQLHeads(_Seq2SeqLM):
+    """T5 policy + ILQL heads (V, twin Q, twin target-Q) on the decoder
+    hidden states: ``forward`` and ``decode`` add ``qs``, ``target_qs`` and
+    ``vs`` over every decoder position (ILQL's ``adjust_logits`` reads the
+    last one's)."""
+
+    def __init__(self, cfg: Seq2SeqConfig, two_qs: bool = True):
+        super().__init__(cfg)
+        self.ilql_heads = ILQLHeadsModule(cfg, two_qs)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        self.backbone.reset_parameters(generator)
+        seeded_init_(self.ilql_heads, generator)
+        sync_target_q_params(self, alpha=1.0)
+
+    def _with_heads(self, out: Dict[str, Any]) -> Dict[str, Any]:
+        hs = out["hidden_states"]
+        qs, target_qs, vs = self.ilql_heads.heads_on(hs, hs)
+        out.update(qs=qs, target_qs=target_qs, vs=vs)
+        return out
+
+    def forward(self, input_ids, attention_mask=None, decoder_input_ids=None,
+                decoder_attention_mask=None) -> Dict[str, Any]:
+        return self._with_heads(self.backbone_forward(
+            input_ids, attention_mask, decoder_input_ids, decoder_attention_mask))
+
+    def backbone_forward(self, input_ids, attention_mask=None, decoder_input_ids=None,
+                         decoder_attention_mask=None, logits_span=None) -> Dict[str, Any]:
+        """The backbone alone: the loss gathers decoder hidden states at the
+        action and state indices first and applies the heads to those rows
+        only."""
+        return self.backbone(input_ids, attention_mask=attention_mask,
+                             decoder_input_ids=decoder_input_ids,
+                             decoder_attention_mask=decoder_attention_mask,
+                             logits_span=logits_span)
 
     def heads_on(self, hs_actions: torch.Tensor, hs_states: torch.Tensor):
         return self.ilql_heads.heads_on(hs_actions, hs_states)

@@ -978,13 +978,16 @@ class HydraBranch(nn.Module):
         return _run_branch(self, blocks, hidden_states, attention_mask, positions, logits_span)
 
 
-def seeded_init_(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+def seeded_init_(module: nn.Module, generator: Optional[torch.Generator],
+                 stds: Optional[Dict[str, float]] = None) -> None:
     """The JAX initialisers over ``module``'s parameters in registration
     order: zero biases, unit norm scales, LoRA's zero ``lora_b`` and He-uniform
-    ``lora_a`` (bound √(6 / in)), normal(0.02) for the rest. The draws come
+    ``lora_a`` (bound √(6 / in)), normal(0.02) for the rest (normal(``stds
+    [name]``) for a parameter named there). The draws come
     from the CPU ``generator`` one tensor at a time and are copied to the
     parameter's device, so one seed gives the same weights on every device
     and a 7B model never exists on the host whole."""
+    stds = stds or {}
     norm_scales = {f"{name}.weight" for name, m in module.named_modules()
                    if isinstance(m, (LayerNorm, RMSNorm))}
     with torch.no_grad():
@@ -998,8 +1001,8 @@ def seeded_init_(module: nn.Module, generator: Optional[torch.Generator]) -> Non
                 p.copy_(torch.empty(p.shape, dtype=p.dtype).uniform_(-bound, bound,
                                                                      generator=generator))
             else:
-                p.copy_(torch.empty(p.shape, dtype=p.dtype).normal_(0.0, 0.02,
-                                                                    generator=generator))
+                p.copy_(torch.empty(p.shape, dtype=p.dtype).normal_(
+                    0.0, stds.get(name, 0.02), generator=generator))
 
 
 def make_kv_cache(

@@ -5,7 +5,8 @@ Port of ``trlx_tpu/ops/sampling.py``: :class:`GenerationConfig`,
 :func:`sample_token_from_logits`, :func:`last_step_info` and the
 dense-cache :func:`generate` — the serial rollout path's sampler
 (``engine/core.py::SerialEngine``) and the plain reference the paged
-engine is held against (greedy decodes must match it token for token).
+engine is held against (greedy decodes must match it token for token) —
+and :func:`generate_seq2seq`, its encoder-decoder (T5) counterpart.
 
 Randomness. JAX's threefry per-row key chains become a counter-based hash
 (:func:`gumbel_noise`): row ``i``'s Gumbel noise at decode step ``s``
@@ -35,6 +36,7 @@ __all__ = [
     "tree_map",
     "last_step_info",
     "generate",
+    "generate_seq2seq",
 ]
 
 
@@ -207,7 +209,7 @@ def last_step_info(out: Dict[str, Any]) -> Dict[str, Any]:
 
 
 class GenerationOutput(NamedTuple):
-    sequences: torch.Tensor  # [B, P + N] prompt (left-padded) ‖ response
+    sequences: torch.Tensor  # [B, P + N] prompt (padded) ‖ response
     response_tokens: torch.Tensor  # [B, N] pad-filled after eos
     response_mask: torch.Tensor  # [B, N] 1 on real response tokens (incl. eos)
     response_logprobs: torch.Tensor  # [B, N] behaviour logprobs
@@ -271,6 +273,69 @@ def generate(
         out = model(tok[:, None].to(torch.int64), attention_mask=slot_mask,
                     positions=(prompt_len + step)[:, None], cache=cache,
                     cache_index=P + step)
+        logits = out["logits"][:, -1]
+        step_out = {**last_step_info(out), "last_tokens": tok}
+    return GenerationOutput(
+        sequences=torch.cat([input_ids.to(torch.int32), tokens], dim=1),
+        response_tokens=tokens,
+        response_mask=mask,
+        response_logprobs=logprobs,
+        response_values=values,
+        prompt_mask=attention_mask.to(torch.int32),
+    )
+
+
+@torch.no_grad()
+def generate_seq2seq(
+    model: Any,  # a T5Transformer or a seq2seq wrapper of models/heads.py
+    input_ids: torch.Tensor,  # [B, P] padded encoder prompts
+    attention_mask: torch.Tensor,  # [B, P]
+    seeds: torch.Tensor,  # [B] int64 per-row seeds
+    config: GenerationConfig,
+    start_token_id: int = 0,
+    adjust_logits: Optional[Callable[[Dict[str, Any], torch.Tensor], torch.Tensor]] = None,
+) -> GenerationOutput:
+    """Seq2seq sampling: one encoder pass
+    (``model.encode_for_decode``, the cross-attention K/V projected once
+    into an ``N + 1``-slot decoder cache), then the decoder from slot 0
+    with ``start_token_id``, one cached step a token, with per-row eos
+    early exit and the :func:`sample_token_from_logits` semantics of
+    :func:`generate` (the ``adjust_logits`` hook reads the decoder step's
+    last-position outputs). ``sequences`` is ``prompt ‖ tokens``."""
+    device = next(model.parameters()).device
+    input_ids = input_ids.to(device=device, dtype=torch.int64)
+    attention_mask = attention_mask.to(device=device, dtype=torch.int64)
+    seeds = seeds.to(device=device, dtype=torch.int64)
+    B = input_ids.shape[0]
+    N = config.max_new_tokens
+    enc_hidden, cache = model.encode_for_decode(input_ids, attention_mask, N + 1)
+    start = torch.full((B, 1), start_token_id, dtype=torch.int64, device=device)
+    out = model.decode(start, enc_hidden, attention_mask, cache=cache, cache_index=0)
+    logits = out["logits"][:, -1]
+    step_out = {**last_step_info(out), "last_tokens": start[:, 0]}
+
+    tokens = torch.full((B, N), config.pad_token_id, dtype=torch.int32, device=device)
+    logprobs = torch.zeros((B, N), dtype=torch.float32, device=device)
+    values = torch.zeros((B, N), dtype=torch.float32, device=device)
+    mask = torch.zeros((B, N), dtype=torch.int32, device=device)
+    done = torch.zeros((B,), dtype=torch.bool, device=device)
+    for step in range(N):
+        steps = torch.full((B,), step, dtype=torch.int64, device=device)
+        tok, lp = sample_token_from_logits(logits, step_out, seeds, config, steps,
+                                           adjust_logits)
+        live = ~done
+        tok = torch.where(live, tok, torch.full_like(tok, config.pad_token_id))
+        tokens[:, step] = tok
+        logprobs[:, step] = torch.where(live, lp, torch.zeros_like(lp))
+        if "value" in step_out:  # the value of the state before this token
+            values[:, step] = torch.where(live, step_out["value"].float(), torch.zeros_like(lp))
+        mask[:, step] = live.to(torch.int32)
+        if config.eos_token_id is not None:
+            done = done | (tok == config.eos_token_id)
+        if step + 1 == N or bool(done.all()):
+            break
+        out = model.decode(tok[:, None].to(torch.int64), enc_hidden, attention_mask,
+                           cache=cache, cache_index=step + 1)
         logits = out["logits"][:, -1]
         step_out = {**last_step_info(out), "last_tokens": tok}
     return GenerationOutput(

@@ -10,11 +10,12 @@ Port of ``trlx_tpu/pipeline/offline_pipeline.py`` for causal models:
   token budget) and the SFT :class:`DialogStore` (right-padded, labels
   ``IGNORE_INDEX`` off the output turns);
 - :func:`ilql_collate` and :class:`ILQLRolloutStorage` (right-padded,
-  ``drop_last``).
+  ``drop_last``), and their seq2seq twins :func:`ilql_seq2seq_collate` and
+  :class:`ILQLSeq2SeqRolloutStorage` (prompt, attention mask and decoder
+  tokens right-padded to one width).
 
 Loaders shuffle with ``random.Random(seed)``, as the JAX package's do, so a
 store holding the same rows in the same order yields the same batches.
-The seq2seq ILQL storage is not ported.
 """
 
 from dataclasses import dataclass
@@ -22,7 +23,12 @@ from typing import Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from trlx_tpu_torch.data.ilql_types import ILQLBatch, ILQLElement
+from trlx_tpu_torch.data.ilql_types import (
+    ILQLBatch,
+    ILQLElement,
+    ILQLSeq2SeqBatch,
+    ILQLSeq2SeqElement,
+)
 from trlx_tpu_torch.data.tokenizer import Tokenizer
 from trlx_tpu_torch.models.sft import IGNORE_INDEX
 from trlx_tpu_torch.pipeline import (
@@ -250,5 +256,53 @@ class ILQLRolloutStorage(BaseRolloutStore):
     ) -> BatchLoader:
         return BatchLoader(
             self, batch_size, lambda elems: ilql_collate(elems, pad_multiple, fixed_length),
+            shuffle=shuffle, drop_last=drop_last, seed=seed,
+        )
+
+
+def ilql_seq2seq_collate(
+    elems: List[ILQLSeq2SeqElement], pad_multiple: int = 8, fixed_length: Optional[int] = None
+) -> ILQLSeq2SeqBatch:
+    """:func:`ilql_collate` for seq2seq elements: the prompt, its mask and
+    the decoder tokens right-padded (each to its own bucketed width, or all
+    to ``fixed_length``)."""
+    input_ids, _ = pad_rows([e.input_ids for e in elems], 0, "right", pad_multiple, fixed_length)
+    attn, _ = pad_rows([e.attention_mask for e in elems], 0, "right", pad_multiple, fixed_length)
+    dec_ids, _ = pad_rows([e.decoder_input_ids for e in elems], 0, "right", pad_multiple,
+                          fixed_length)
+    rewards, _ = pad_rows([e.rewards for e in elems], 0.0, "right", pad_multiple, None, np.float32)
+    a_len = rewards.shape[1]
+    actions_ixs, _ = pad_rows([e.actions_ixs for e in elems], 0, "right", 1, a_len)
+    states_ixs, _ = pad_rows([e.states_ixs for e in elems], 0, "right", 1, a_len + 1)
+    dones, _ = pad_rows([e.dones for e in elems], 0, "right", 1, a_len + 1)
+    return ILQLSeq2SeqBatch(input_ids, attn, dec_ids, rewards, states_ixs, actions_ixs, dones)
+
+
+class ILQLSeq2SeqRolloutStorage(BaseRolloutStore):
+    """Rollout storage for offline seq2seq ILQL training."""
+
+    def __init__(self, input_ids, attention_mask, decoder_input_ids, rewards, states_ixs,
+                 actions_ixs, dones):
+        super().__init__()
+        self.history = [
+            ILQLSeq2SeqElement(*row)
+            for row in zip(input_ids, attention_mask, decoder_input_ids, rewards, states_ixs,
+                           actions_ixs, dones)
+        ]
+
+    def push(self, exps):
+        self.history.extend(exps)
+
+    def create_loader(
+        self,
+        batch_size: int,
+        shuffle: bool = True,
+        pad_multiple: int = 8,
+        fixed_length: Optional[int] = None,
+        drop_last: bool = True,
+        seed: int = 0,
+    ) -> BatchLoader:
+        return BatchLoader(
+            self, batch_size, lambda elems: ilql_seq2seq_collate(elems, pad_multiple, fixed_length),
             shuffle=shuffle, drop_last=drop_last, seed=seed,
         )

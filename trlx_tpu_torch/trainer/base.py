@@ -30,6 +30,14 @@ Port of ``trlx_tpu/trainer/base.py`` (``TPUBaseTrainer``) as
   paged engine whatever ``continuous_batching`` says. Both engines take
   the algorithm's ``adjust_logits`` hook and the transition ``logit_mask``;
   the draft is a bare LM built from ``train.seed + 1``;
+- seq2seq (``model.model_arch_type: seq2seq``, T5) runs under PPO and
+  ILQL: the model is ``builder.build_seq2seq_lm`` with
+  ``seq2seq_trainable_mask``; every generate (rollouts and evaluation) is
+  ``ops/sampling.py::generate_seq2seq`` on the serial engine; a draft
+  model is ignored with JAX's warning, and PPO refuses
+  ``train.continuous_batching`` with JAX's ``NotImplementedError`` (the
+  decoder has no slot-refill path); samples join prompt and output with
+  the tokenizer's ``sep_token`` (a space without one);
 - ``learn`` runs the JAX loop (epochs → batches → updates per batch,
   interval and final checkpoints, interval and final evaluation) without
   its observability, resilience and serving hooks, the batches collated
@@ -55,7 +63,13 @@ import torch
 
 from trlx_tpu_torch.data.tokenizer import from_config as tokenizer_from_config
 from trlx_tpu_torch.engine.core import ContinuousEngine, SerialEngine
-from trlx_tpu_torch.models.builder import build_causal_lm, parse_peft_overrides, trainable_mask
+from trlx_tpu_torch.models.builder import (
+    build_causal_lm,
+    build_seq2seq_lm,
+    parse_peft_overrides,
+    seq2seq_trainable_mask,
+    trainable_mask,
+)
 from trlx_tpu_torch.models.transformer import config_from_spec
 from trlx_tpu_torch.ops.kernel_utils import resolve_device
 from trlx_tpu_torch.ops.paged_kv import PagedSpec, dense_kv_bytes, num_table_blocks
@@ -64,6 +78,7 @@ from trlx_tpu_torch.ops.sampling import (
     GenerationOutput,
     apply_transition_mask,
     generate as dense_generate,
+    generate_seq2seq,
 )
 from trlx_tpu_torch.ops.slot_refill import make_slot_refill_fns
 from trlx_tpu_torch.ops.speculative import generate_speculative, reject_spec_hooks
@@ -132,11 +147,12 @@ def validate_engine(config) -> None:
         )
 
 
-def reject_unported(config, collects_rollouts: bool) -> None:
+def reject_unported(config, collects_rollouts: bool, seq2seq_ok: bool) -> None:
     """Raise ``ValueError`` naming the first setting this slice does not
-    run (parallel axes, scanned or rematerialised layers, seq2seq, a
-    tracker, profiles and rollout logs, serving inside a trainer, the
-    update guard, fault plans and the checkpoint retention ring). The port
+    run (parallel axes, scanned or rematerialised layers, seq2seq outside
+    PPO and ILQL (``seq2seq_ok``), a tracker, profiles and rollout logs,
+    serving inside a trainer, the update guard, fault plans and the
+    checkpoint retention ring). The port
     installs no preemption handler, so it writes no emergency checkpoint,
     and runs on one device, so nothing reshards on restore.
 
@@ -182,8 +198,9 @@ def reject_unported(config, collects_rollouts: bool) -> None:
         (int(par.data) not in (-1, 1), "parallel.data > 1: the port runs on one device"),
         (par.scan_layers, "parallel.scan_layers: scanned layers are not ported"),
         (par.remat != "none", f"parallel.remat {par.remat!r}: rematerialisation is not ported"),
-        (m.model_arch_type != "causal",
-         f"model.model_arch_type {m.model_arch_type!r}: seq2seq is not ported"),
+        (m.model_arch_type != "causal" and not (seq2seq_ok and m.model_arch_type == "seq2seq"),
+         f"model.model_arch_type {m.model_arch_type!r}: the port runs seq2seq models under "
+         "PPO and ILQL only"),
         (t.tracker is not None, f"train.tracker {t.tracker!r}: the port logs to an "
          "in-memory tracker only (tracker: null)"),
         (t.profile_dir is not None, "train.profile_dir: profiler traces are not ported"),
@@ -278,6 +295,8 @@ class TorchBaseTrainer(BaseRLTrainer):
     # PPO collects rollouts through the engine; the offline trainers only
     # evaluate through it (see reject_unported)
     collects_rollouts: bool = False
+    # the trainers with a seq2seq branch (PPO and ILQL, as in JAX)
+    supports_seq2seq: bool = False
 
     def __init__(
         self,
@@ -290,7 +309,13 @@ class TorchBaseTrainer(BaseRLTrainer):
     ):
         super().__init__(config, reward_fn, metric_fn, stop_sequences, **kwargs)
         validate_engine(config)
-        reject_unported(config, self.collects_rollouts)
+        self.is_seq2seq = config.model.model_arch_type == "seq2seq"
+        if self.is_seq2seq and self.collects_rollouts and config.train.continuous_batching:
+            raise NotImplementedError(
+                "train.continuous_batching supports causal LMs only: the "
+                "seq2seq decoder has no slot-refill path"
+            )
+        reject_unported(config, self.collects_rollouts, self.supports_seq2seq)
         if config.train.batch_size % max(1, int(config.train.grad_accum)) != 0:
             raise ValueError(
                 f"train.batch_size ({config.train.batch_size}) must be divisible "
@@ -307,12 +332,17 @@ class TorchBaseTrainer(BaseRLTrainer):
                 raise ValueError(f"model.peft_kwargs: {e}") from None
         overrides.setdefault("param_dtype", DTYPES[config.parallel.param_dtype])
         overrides.setdefault("dtype", DTYPES[config.parallel.compute_dtype])
-        self.model, self.tcfg = build_causal_lm(
+        build, mask_fn = ((build_seq2seq_lm, seq2seq_trainable_mask) if self.is_seq2seq
+                          else (build_causal_lm, trainable_mask))
+        self.model, self.tcfg = build(
             config.model.model_path, seed=config.train.seed, device=self.device,
             head=self.model_head, two_qs=getattr(config.method, "two_qs", True), **overrides,
         )
         self.draft_model, self.draft_tcfg = None, None
-        if config.model.draft_model_path:
+        if config.model.draft_model_path and self.is_seq2seq:
+            logger.warning("model.draft_model_path is ignored for seq2seq models: "
+                           "speculative decoding is implemented for causal LMs only")
+        elif config.model.draft_model_path:
             # a bare LM, randomly initialised from train.seed + 1
             draft_overrides = dict(config.model.draft_model_extra_kwargs or {})
             draft_overrides.setdefault("param_dtype", overrides["param_dtype"])
@@ -331,7 +361,7 @@ class TorchBaseTrainer(BaseRLTrainer):
             )
         # JAX differentiates every parameter; the mask decides who updates
         self.model.requires_grad_(True)
-        self.param_mask = trainable_mask(self.model, self.tcfg, config.model.num_layers_unfrozen)
+        self.param_mask = mask_fn(self.model, self.tcfg, config.model.num_layers_unfrozen)
         self.schedule = get_scheduler(config.scheduler.name, dict(config.scheduler.kwargs),
                                       default_lr=config.optimizer.kwargs.get("lr"))
         self.optimizer = get_optimizer(
@@ -610,22 +640,32 @@ class TorchBaseTrainer(BaseRLTrainer):
                                device=self.device)
 
     def _serial_rollouts(self) -> bool:
-        """Does ``generate`` run the serial dense engine? For a rollout
-        trainer with ``train.continuous_batching: false``; the offline
+        """Does ``generate`` run the serial engine? For a rollout trainer
+        with ``train.continuous_batching: false``, and for every seq2seq
+        trainer (its decoder has no paged path); the causal offline
         trainers evaluate on the paged engine whatever it says."""
-        return self.collects_rollouts and not self.config.train.continuous_batching
+        return self.is_seq2seq or (self.collects_rollouts
+                                   and not self.config.train.continuous_batching)
 
     def _get_generate_fn(self, gen_config: GenerationConfig,
                          extra_kwargs: Tuple[Tuple[str, Any], ...] = ()) -> Callable:
         """The serial rollout program ``fn(params, input_ids, attention_mask,
         seeds)`` of one sampling config (cached): the dense ``generate``
-        with the composed logit hooks, or with a draft model the
-        speculative sampler (``params`` the ``(target, draft)`` pair), which
-        raises on either hook."""
+        with the composed logit hooks (``generate_seq2seq`` for a seq2seq
+        model), or with a draft model the speculative sampler (``params``
+        the ``(target, draft)`` pair), which raises on either hook."""
         key = ("serial", gen_config, extra_kwargs)
         if key not in self._generate_fns:
             algo_adjust = self.adjust_logits_fn(dict(extra_kwargs))
-            if self.draft_model is not None:
+            if self.is_seq2seq:
+                adjust = self._compose_logit_mask(algo_adjust)
+                start_id = self.tcfg.decoder_start_token_id
+
+                def fn(params, input_ids, attention_mask, seeds):
+                    return generate_seq2seq(params, input_ids, attention_mask, seeds,
+                                            gen_config, start_token_id=start_id,
+                                            adjust_logits=adjust)
+            elif self.draft_model is not None:
                 gamma = int(self.config.model.draft_gamma)
                 mask = self._logit_mask_tensor()
 
@@ -662,7 +702,10 @@ class TorchBaseTrainer(BaseRLTrainer):
         """``memory/kv_cache_bytes`` of the serial path: the dense
         ``[B, P + N]`` cache, or under speculation the target's and the
         draft's caches of ``P + N + draft_gamma`` columns each (what
-        ``ops/speculative.py`` allocates)."""
+        ``ops/speculative.py`` allocates). No gauge for a seq2seq model, as
+        in JAX (its self- and cross-attention caches have their own layout)."""
+        if self.is_seq2seq:
+            return {}
         B, P = prompt_shape
         S = P + gen_config.max_new_tokens
         if self.draft_model is None:
@@ -754,7 +797,11 @@ class TorchBaseTrainer(BaseRLTrainer):
                 str_output += self.tokenizer.eos_token
             str_prompts.append(str_prompt)
             str_outputs.append(str_output)
-            str_samples.append(str_prompt + str_output)
+            if self.is_seq2seq:  # prompt and output joined by the sep token
+                sep = getattr(self.tokenizer, "sep_token", None) or " "
+                str_samples.append(str_prompt + sep + str_output)
+            else:
+                str_samples.append(str_prompt + str_output)
         return str_samples, str_prompts, str_outputs
 
     def evaluate(self) -> Dict[str, Any]:

@@ -1,14 +1,18 @@
 """ILQL trainer: offline RL from reward-labeled samples.
 
-Port of the causal part of ``trlx_tpu/trainer/ilql.py``:
+Port of ``trlx_tpu/trainer/ilql.py``:
 
 - :func:`make_experience` tokenizes dialogues, builds per-token action and
   state indices (an action at output position t − 1, the causal shift),
   normalizes the returns over the dataset (float64) and puts each scalar
-  return on its sample's last action;
-- ``loss_fn`` runs the backbone once, gathers hidden states at the action
-  and state indices, and applies the heads and the vocab projection to the
-  gathered rows only;
+  return on its sample's last action; :func:`make_experience_seq2seq`
+  (``model.model_arch_type: seq2seq``) sends the prompt to the encoder and
+  the output to the decoder, actions at decoder positions 0 … L − 2 and
+  states 0 … L − 1;
+- ``loss_fn`` runs the backbone once (for T5 the encoder and the decoder
+  on the output tokens), gathers hidden states at the action and state
+  indices, and applies the heads and the vocab projection to the gathered
+  rows only;
 - the target-Q heads Polyak-sync every ``steps_for_target_q_sync``
   optimizer steps (``post_backward_callback``, after the batch's update);
 - generation shapes the sampling logits to ``log π + β (min target-Q − V)``
@@ -18,7 +22,9 @@ Port of the causal part of ``trlx_tpu/trainer/ilql.py``:
 ``train.rollout_pipeline_depth`` > 0 tokenizes in chunks on a
 :class:`~trlx_tpu_torch.pipeline.rollout_pipeline.RolloutPipeline` worker
 while the calling thread builds the indices of earlier chunks (the same
-store at any depth). The seq2seq path is not ported.
+store at any depth). A seq2seq trainer evaluates through
+``ops/sampling.py::generate_seq2seq`` on the serial engine, the hook
+reading the decoder step's heads.
 """
 
 import logging
@@ -30,7 +36,11 @@ import torch
 from trlx_tpu_torch.data.tokenizer import Tokenizer
 from trlx_tpu_torch.models.heads import sync_target_q_params
 from trlx_tpu_torch.models.ilql import ILQLConfig, batched_index_select
-from trlx_tpu_torch.pipeline.offline_pipeline import ILQLRolloutStorage, tokenize_dialogue
+from trlx_tpu_torch.pipeline.offline_pipeline import (
+    ILQLRolloutStorage,
+    ILQLSeq2SeqRolloutStorage,
+    tokenize_dialogue,
+)
 from trlx_tpu_torch.pipeline.rollout_pipeline import RolloutPipeline
 from trlx_tpu_torch.trainer import register_trainer
 from trlx_tpu_torch.trainer.base import TorchBaseTrainer
@@ -107,8 +117,15 @@ def make_experience(
         sample_lengths.mean(), sample_lengths.min(), sample_lengths.max(),
     )
 
-    # dataset-level return normalization; the scalar return lands on the
-    # last action token
+    attention_mask = [np.ones(len(x), np.int32) for x in all_input_ids]
+    return ILQLRolloutStorage(all_input_ids, attention_mask,
+                              _token_rewards(rewards, all_actions_ixs),
+                              [r[2] for r in rows], all_actions_ixs, [r[3] for r in rows])
+
+
+def _token_rewards(rewards, all_actions_ixs) -> List[np.ndarray]:
+    """Dataset-level return normalization (float64); each scalar return
+    lands on its sample's last action token."""
     returns = np.asarray(rewards, dtype=np.float64)
     returns = returns - returns.mean()
     std = returns.std()
@@ -118,15 +135,45 @@ def make_experience(
     for rs, ret in zip(token_rewards, returns):
         if len(rs):
             rs[-1] = ret
+    return token_rewards
 
-    attention_mask = [np.ones(len(x), np.int32) for x in all_input_ids]
-    return ILQLRolloutStorage(all_input_ids, attention_mask, token_rewards,
-                              [r[2] for r in rows], all_actions_ixs, [r[3] for r in rows])
+
+def _seq2seq_sample_arrays(sample) -> tuple:
+    """``(prompt_ids, output_ids, actions_ixs, states_ixs, dones)`` of one
+    tokenized dialogue: the prompt turns feed the encoder, the output turns
+    the decoder, whose positions the actions and states index."""
+    prompt = np.asarray([t for m in sample if not m.is_output for t in m.tokens], np.int32)
+    output = np.asarray([t for m in sample if m.is_output for t in m.tokens], np.int32)
+    actions_ixs = np.arange(0, max(len(output) - 1, 0), dtype=np.int32)
+    states_ixs = np.concatenate([actions_ixs, np.array([max(len(output) - 1, 0)], np.int32)])
+    dones = np.array([1] * (len(states_ixs) - 1) + [0], np.int32)
+    return prompt, output, actions_ixs, states_ixs, dones
+
+
+def make_experience_seq2seq(
+    samples: List[Union[str, List[str]]],
+    rewards: List[float],
+    tokenizer: Optional[Tokenizer] = None,
+    max_length: int = 2048,
+    pipeline_depth: int = 0,
+) -> ILQLSeq2SeqRolloutStorage:
+    """:func:`make_experience` for a seq2seq model: an
+    :class:`ILQLSeq2SeqRolloutStorage` of (prompt, output) pairs with the
+    actions and states over decoder positions."""
+    logger.info("Collecting rollouts")
+    rows: list = []
+    _fold_tokenized(samples, tokenizer, max_length, pipeline_depth,
+                    lambda chunk: rows.extend(_seq2seq_sample_arrays(d) for d in chunk))
+    prompts, outputs, actions_ixs, states_ixs, dones = (list(col) for col in zip(*rows))
+    return ILQLSeq2SeqRolloutStorage(
+        prompts, [np.ones(len(x), np.int32) for x in prompts], outputs,
+        _token_rewards(rewards, actions_ixs), states_ixs, actions_ixs, dones)
 
 
 @register_trainer
 class ILQLTrainer(TorchBaseTrainer):
     model_head = "ilql"
+    supports_seq2seq = True
 
     def __init__(self, config, **kwargs):
         super().__init__(config, **kwargs)
@@ -136,23 +183,29 @@ class ILQLTrainer(TorchBaseTrainer):
         self.store: Optional[ILQLRolloutStorage] = None
 
     def make_experience(self, samples, rewards, max_length: int = 2048) -> None:
-        self.store = make_experience(
-            samples, rewards, self.tokenizer, max_length=max_length,
-            pipeline_depth=int(self.config.train.rollout_pipeline_depth or 0))
+        build = make_experience_seq2seq if self.is_seq2seq else make_experience
+        self.store = build(samples, rewards, self.tokenizer, max_length=max_length,
+                           pipeline_depth=int(self.config.train.rollout_pipeline_depth or 0))
 
     def loss_fn(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        input_ids = batch["input_ids"]
         # logits_span (0, 0): hidden states only — the cross-entropy needs
         # logits at the action positions alone, projected below
-        out = self.model.backbone_forward(
-            input_ids, attention_mask=batch["attention_mask"], logits_span=(0, 0))
+        if self.is_seq2seq:  # actions and states index the decoder positions
+            action_source = batch["decoder_input_ids"]
+            out = self.model.backbone_forward(
+                batch["input_ids"], attention_mask=batch["attention_mask"],
+                decoder_input_ids=action_source, logits_span=(0, 0))
+        else:
+            action_source = batch["input_ids"]
+            out = self.model.backbone_forward(
+                action_source, attention_mask=batch["attention_mask"], logits_span=(0, 0))
         hidden = out["hidden_states"]
         hs_actions = batched_index_select(hidden, batch["actions_ixs"])
         hs_states = batched_index_select(hidden, batch["states_ixs"])
         qs, target_qs, vs = self.model.heads_on(hs_actions, hs_states)
         logits = self.model.project_logits(hs_actions)
         # the action itself: the token after the action index
-        actions = input_ids[:, 1:].to(torch.int64).gather(
+        actions = action_source[:, 1:].to(torch.int64).gather(
             1, batch["actions_ixs"].to(torch.int64))
         return self.with_router_aux(
             self.ilql.loss(logits=logits, qs=qs, target_qs=target_qs, vs=vs, actions=actions,

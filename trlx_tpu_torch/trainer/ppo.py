@@ -1,12 +1,13 @@
 """PPO trainer: rollout collection with a KL penalty against a frozen
 reference, reward scaling, GAE and the clipped objective.
 
-Port of ``trlx_tpu/trainer/ppo.py`` (``PPOTrainer``) for causal models:
+Port of ``trlx_tpu/trainer/ppo.py`` (``PPOTrainer``), causal and seq2seq:
 
 - ``__init__`` takes the frozen reference snapshot — the hydra branch
   (copies of the top ``num_layers_unfrozen`` blocks, final norm and tied
-  embedding) when ``num_layers_unfrozen > 0``, else a full frozen copy of
-  the backbone;
+  embedding; for T5 the top decoder blocks, the decoder's final norm and
+  bias table, and the head) when ``num_layers_unfrozen > 0``, else a full
+  frozen copy of the backbone;
 - ``make_experience`` dispatches as JAX's does: ``train.continuous_batching``
   → :meth:`_collect_continuous`, else ``train.rollout_pipeline_depth`` > 0
   → :meth:`_collect_pipelined`, else :meth:`_collect_serial`;
@@ -28,7 +29,11 @@ Port of ``trlx_tpu/trainer/ppo.py`` (``PPOTrainer``) for causal models:
 - ``loss_fn``: the train-step forward (flash-attention kernels on the
   card), then with ``method.loss_kernel: xla`` the staged loss
   (``get_advantages_and_returns``, then ``loss``), with ``pallas`` the
-  fused loss kernels; the ``dist/entropy_hist`` sketch.
+  fused loss kernels; the ``dist/entropy_hist`` sketch;
+- seq2seq (T5): the prompt feeds the encoder and the decoder is
+  teacher-forced on the start token followed by ``response[:-1]``, so
+  decoder position i scores response token i (:meth:`_score_seq2seq` and
+  ``loss_fn``'s seq2seq branch: the same staged or fused loss and sketch).
 """
 
 import copy
@@ -40,7 +45,7 @@ import numpy as np
 import torch
 
 from trlx_tpu_torch.data.ppo_types import PPORLElement
-from trlx_tpu_torch.models.builder import hydra_ref_params
+from trlx_tpu_torch.models.builder import hydra_ref_params, seq2seq_hydra_ref_params
 from trlx_tpu_torch.models.ppo import PPOConfig, kl_penalty_rewards_np
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
 from trlx_tpu_torch.pipeline.rollout_pipeline import RolloutPipeline
@@ -55,6 +60,7 @@ from trlx_tpu_torch.utils.stats import RunningMoments, logprobs_of_labels
 class PPOTrainer(TorchBaseTrainer):
     model_head = "value"
     collects_rollouts = True
+    supports_seq2seq = True
 
     def __init__(self, config, **kwargs):
         super().__init__(config, **kwargs)
@@ -85,7 +91,8 @@ class PPOTrainer(TorchBaseTrainer):
         """Frozen reference of the current weights (buffer-owning copies):
         the hydra branch, or the whole backbone when every layer trains."""
         if self.num_layers_unfrozen > 0:
-            return hydra_ref_params(self.model, self.tcfg, self.num_layers_unfrozen)
+            branch = seq2seq_hydra_ref_params if self.is_seq2seq else hydra_ref_params
+            return branch(self.model, self.tcfg, self.num_layers_unfrozen)
         backbone = getattr(self.model, "backbone", self.model)  # a head-less policy is one
         return copy.deepcopy(backbone).eval().requires_grad_(False)
 
@@ -131,6 +138,8 @@ class PPOTrainer(TorchBaseTrainer):
         the trunk activations, or the full frozen copy). Logits at t
         predict token t + 1, so response token i is scored at P - 1 + i;
         the vocab projection is restricted to that span."""
+        if self.is_seq2seq:
+            return self._score_seq2seq(sequences, prompt_mask, response_tokens, response_mask)
         P, N = prompt_mask.shape[1], response_tokens.shape[1]
         nlu = self.num_layers_unfrozen
         full_mask = torch.cat([prompt_mask, response_mask], dim=1)
@@ -147,6 +156,36 @@ class PPOTrainer(TorchBaseTrainer):
         if "value" in out:  # a head-less policy (GRPO) scores no values
             score["values"] = out["value"][:, P - 1 : P + N - 1].float()
         return score
+
+    def _decoder_inputs(self, response_tokens, response_mask):
+        """The teacher-forced decoder input (the start token, then
+        ``response[:-1]``) and its mask."""
+        start = torch.full_like(response_tokens[:, :1], self.tcfg.decoder_start_token_id)
+        return (torch.cat([start, response_tokens[:, :-1]], dim=1),
+                torch.cat([torch.ones_like(response_mask[:, :1]), response_mask[:, :-1]],
+                          dim=1))
+
+    def _score_seq2seq(self, sequences, prompt_mask, response_tokens, response_mask):
+        """The seq2seq scoring forward: the prompt through the encoder, the
+        decoder teacher-forced (decoder position i scores response token
+        i); values from the value head; the reference's logprobs from the
+        hydra branch on the trunk's decoder activations (its bias from its
+        own table) or from the full frozen copy."""
+        P = prompt_mask.shape[1]
+        nlu = self.num_layers_unfrozen
+        prompt_ids = sequences[:, :P]
+        dec_in, dec_mask = self._decoder_inputs(response_tokens, response_mask)
+        out = self.model(prompt_ids, attention_mask=prompt_mask, decoder_input_ids=dec_in,
+                         decoder_attention_mask=dec_mask, branch_layer=nlu if nlu > 0 else None)
+        if nlu > 0:
+            ref_out = self.ref_params(out["branch_input"], out["encoder_hidden"], prompt_mask,
+                                      dec_mask)
+        else:
+            ref_out = self.ref_params(prompt_ids, attention_mask=prompt_mask,
+                                      decoder_input_ids=dec_in, decoder_attention_mask=dec_mask)
+        return {"logprobs": logprobs_of_labels(out["logits"], response_tokens),
+                "values": out["value"].float(),
+                "ref_logprobs": logprobs_of_labels(ref_out["logits"], response_tokens)}
 
     def _dispatch_score(self, sequences, prompt_mask, response_tokens,
                         response_mask) -> Dict[str, torch.Tensor]:
@@ -435,11 +474,18 @@ class PPOTrainer(TorchBaseTrainer):
         rewards = batch["rewards"]
         behavior = batch.get("behavior_logprobs")
 
-        input_ids = torch.cat([queries, responses], dim=1)
-        attention_mask = torch.cat([query_mask, batch["response_mask"]], dim=1)
-        out = self.model(input_ids, attention_mask=attention_mask, logits_span=(Q - 1, Q + R - 1))
+        if self.is_seq2seq:
+            dec_in, dec_mask = self._decoder_inputs(responses, batch["response_mask"])
+            out = self.model(queries, attention_mask=query_mask, decoder_input_ids=dec_in,
+                             decoder_attention_mask=dec_mask)
+            values_pred = out["value"]
+        else:
+            input_ids = torch.cat([queries, responses], dim=1)
+            attention_mask = torch.cat([query_mask, batch["response_mask"]], dim=1)
+            out = self.model(input_ids, attention_mask=attention_mask,
+                             logits_span=(Q - 1, Q + R - 1))
+            values_pred = out["value"][:, Q - 1 : Q + R - 1]
         logprobs = logprobs_of_labels(out["logits"], responses)
-        values_pred = out["value"][:, Q - 1 : Q + R - 1]
 
         if method.loss_kernel == "pallas":
             # GAE + whitening + the clipped loss in the fused kernels, which
