@@ -170,7 +170,23 @@ Phases, each printing one JSON line:
    (``slice_t5_parity``): the buckets, the encoder and decoder passes and
    greedy decoding card against CPU, cached decode against the full pass,
    and one PPO step at ``loss_kernel`` xla and pallas, where #7/#8 must
-   launch; the bf16 logits' gap against f32.
+   launch; the bf16 logits' gap against f32;
+15. run management and resilience: ``tasks/ppo_sentiments_llama.py`` as it
+   stands (``remat: minimal``, bf16, ``seq_length`` 1024, batch 32, 128
+   rollouts in one chunk, 4 PPO epochs, 40 new tokens,
+   ``num_layers_unfrozen`` 2) at ``builtin:llama-7b``'s full width cut to
+   ``REMAT_LAYERS`` of 32 layers, one collection and its 16 updates, with
+   the step ms, the peak memory and #5/#6 launching twice / once per
+   layer and step (``slice_remat``); one of its batches through remat
+   ``none``, ``minimal`` and ``full`` on the same model: the loss and the
+   gradients equal, the peak memory falling, #5 launching once per layer
+   under ``none`` and twice under the others (``slice_remat_policies``);
+   and the presets' serial PPO path at gpt2-small under a fault plan, at
+   both loss kernels: reward retries, a NaN loss skipped by the update
+   guard, a SIGTERM's emergency checkpoint and its resume equal bitwise to
+   the uninterrupted run, the retention ring, the JSONL tracker, rollout
+   logs and a profiler window naming the flash kernels
+   (``slice_resilience``).
 
 Before the kernel summary, ``phase_seconds`` gives each phase's wall
 seconds.
@@ -1622,7 +1638,19 @@ def phase_train_kernels():
                     seed=55)
         check_flash("reward_ppo_prefill", B=16, T=206, S=256, H=12, KV=12, D=64, dtype=dtype,
                     seed=56)
+        # (l) the Llama-7B remat path (MHA, D 128), left-padded: its train
+        # batches (32 rows of review openings ‖ 40 tokens; timed), the
+        # scoring forward and hydra replay over the 128-row chunk, and the
+        # serial prefills of the chunk and of an evaluation batch
+        llama = check_flash("llama_train", B=32, T=72, S=72, H=32, KV=32, D=128, dtype=dtype,
+                            seed=57, timed=bf)
+        check_flash("llama_score", B=128, T=72, S=72, H=32, KV=32, D=128, dtype=dtype,
+                    seed=58)
+        for i, B in enumerate((128, 32)):
+            check_flash(f"llama_prefill_{B}", B=B, T=32, S=72, H=32, KV=32, D=128,
+                        dtype=dtype, seed=59 + i)
         if bf:
+            timed["flash_llama"] = llama
             timed["flash_train"], timed["flash_long"], timed["flash_family"] = a, b, fam
             timed["flash_grpo"], timed["flash_moe_grpo"] = grpo, moe
     for B, R in LOSS_SHAPES:
@@ -4436,6 +4464,402 @@ def phase_slice_t5_parity(card="cuda", spec=T5_PPO_SPEC, max_new=24, rollouts=32
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# run management and resilience (remat, the update guard, preemption, retries,
+# fault plans, the retention ring, trackers, profiler windows, rollout logs)
+# ---------------------------------------------------------------------------
+
+REMAT_SPEC = "builtin:llama-7b"
+# the depth slice_remat and slice_remat_policies run (of 32): remat "none"
+# in the policies phase must fit beside the f32 weights and the gradients
+# JAX's semantics keep for every layer (it does not at 32), and the
+# phases share the 800 s line (on an H100 the whole depth under "minimal"
+# took 61.8 s and 64.8 GB, 8 layers 30.5 s: PERF.md)
+REMAT_LAYERS = 4
+# the flash kernels each policy launches per layer of one training forward
+# and backward: the forward kernel runs again in the backward under remat
+REMAT_FLASH_FWD_PER_LAYER = {"none": 1, "minimal": 2, "full": 2}
+# a gradient that goes through an atomic accumulation (the embedding's
+# index backward) may differ in rounding across policies; every other one
+# must be bitwise equal. Held to this share of its tensor's largest |grad|
+REMAT_ATOMIC_REL = 1e-2
+REMAT_ATOMIC = ("wte.weight", "wpe.weight")
+
+
+def remat_hparams(layers, ckpt, steps):
+    return {"model.model_extra_kwargs.num_layers": layers, "train.total_steps": steps,
+            "train.checkpoint_dir": ckpt}
+
+
+def phase_slice_remat(device="cuda", spec=REMAT_SPEC, layers=REMAT_LAYERS, card="",
+                      hparams=None):
+    """``tasks/ppo_sentiments_llama.py`` (``examples/ppo_sentiments_llama.py``
+    on the port) as it stands — ``remat: minimal``, bf16 over f32 masters,
+    ``seq_length`` 1024, batch 32, 128 rollouts in one chunk, 4 PPO epochs,
+    40 new tokens, ``num_layers_unfrozen`` 2 — at ``builtin:llama-7b``'s
+    full width cut to ``layers`` of its 32 layers: one collection and its
+    16 updates, then the final evaluation. The final checkpoint write is
+    skipped (``trainer.save`` is a no-op: the f32 state is tens of GB).
+    Every kernel counter is set to 0 just before and read just after; the
+    train steps' own launches are counted apart: per step #5 launches
+    twice per layer (the forward and its recompute) and #6 once. Prints the
+    depth, step ms, the peak memory and the launches. Returns ``(trainer,
+    launches)``; ``hparams`` (a CPU rehearsal's sizes) are dot-path
+    overrides."""
+    import shutil
+
+    from trlx_tpu_torch.tasks import ppo_sentiments_llama as task
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    ckpt = _scratch_dir("remat")
+    base = task.config(spec, hparams=hparams)
+    steps = base.method.num_rollouts // base.train.batch_size * base.method.ppo_epochs
+    overrides = {**remat_hparams(layers, ckpt, steps), **(hparams or {})}
+    config = task.config(spec, hparams=overrides)
+    steps = config.train.total_steps
+    stages, memory = {}, {}
+
+    def hook(trainer):
+        trainer.save = lambda *a, **k: None
+        count_launches(trainer, "train_step", stages)
+        record_memory(trainer, "make_experience", memory, dev)
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        # -- the main path -------------------------------------------------
+        trainer = task.main(spec, overrides, device=dev, init_trainer_hook=hook)
+        # -------------------------------------------------------------------
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    hist = trainer.tracker.history
+    step_stats = [st for _, st in hist if "gradients/global_norm" in st]
+    collections = [st for _, st in hist if "time/exp" in st]
+    losses = [st["losses/total_loss"] for st in step_stats]
+    step_ms = [1e3 * st["time/step"] for st in step_stats]
+    in_steps = stages.get("train_step", {k: 0 for k in launches})
+    tcfg = trainer.tcfg
+    want = {"flash_fwd": 2 * tcfg.num_layers * steps, "flash_bwd": tcfg.num_layers * steps}
+    rec = {"phase": "slice_remat", "model": spec, "layers": tcfg.num_layers,
+           "of_layers": config_layers(spec), "remat": tcfg.remat,
+           "dtype": str(tcfg.dtype).split(".")[-1],
+           "parameters": sum(p.numel() for p in trainer.model.parameters()),
+           "settings": {"seq_length": config.train.seq_length,
+                        "batch_size": config.train.batch_size,
+                        "num_rollouts": config.method.num_rollouts,
+                        "chunk_size": config.method.chunk_size,
+                        "ppo_epochs": config.method.ppo_epochs,
+                        "num_layers_unfrozen": config.model.num_layers_unfrozen,
+                        "loss_kernel": config.method.loss_kernel,
+                        "gen_kwargs": dict(config.method.gen_kwargs)},
+           "optimizer_steps": len(step_stats), "rollout_collections": len(collections),
+           "losses": losses, "wall_s": wall, "train_step_ms": step_ms,
+           "train_step_ms_median": statistics.median(step_ms) if step_ms else None,
+           "time_exp_s": [c["time/exp"] for c in collections],
+           "launches": launches, "train_step_launches": in_steps,
+           "train_step_launches_expected": want, "memory_gb": memory,
+           "peak_memory_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                              if dev.type == "cuda" else None), "card": card}
+    problems = []
+    if len(step_stats) != steps or len(collections) != 1:
+        problems.append(f"{len(step_stats)} steps, {len(collections)} collections")
+    if not all(math.isfinite(x) for x in losses):
+        problems.append("a non-finite loss")
+    if dev.type == "cuda" and any(in_steps[k] != n for k, n in want.items()):
+        problems.append(f"the steps launched {in_steps}, not {want}")
+    if any(launches[k] for k in REPLACES if k not in SERIAL_KERNELS):
+        problems.append(f"a kernel off the example's path launched: {launches}")
+    emit({**rec, "ok": not problems})
+    if problems:
+        raise AssertionError(f"slice_remat: {problems}")
+    return trainer, launches
+
+
+def config_layers(spec):
+    from trlx_tpu_torch.models.transformer import config_from_spec
+
+    return config_from_spec(spec).num_layers
+
+
+def phase_slice_remat_policies(trainer, card=""):
+    """One batch of ``slice_remat``'s store through the train step's loss
+    and backward under remat ``none``, ``minimal`` and ``full``, on the
+    same model: the loss must be bitwise equal, and every gradient too but
+    those of an atomic accumulation (``REMAT_ATOMIC``, held to
+    ``REMAT_ATOMIC_REL`` of their largest |grad|); the memory the forward
+    keeps for the backward and the peak above the pass's start (the
+    gradient buffers allocated before it) must fall from ``none`` to
+    ``minimal`` to ``full``;
+    #5 launches once per layer under ``none`` and twice under the others
+    (``REMAT_FLASH_FWD_PER_LAYER``), #6 once. The gradients of ``none``
+    are kept on the host for the comparison."""
+    dev = trainer.device
+    model = trainer.model
+    backbone = getattr(model, "backbone", model)
+    cfg0 = backbone.config
+    L = cfg0.num_layers
+    batch = next(iter(trainer.store.create_loader(trainer.config.train.batch_size)))
+    arrays = trainer._device_batch(batch)
+    results, ref = {}, {}
+    problems = []
+    # the gradient buffers (f32, every tensor) exist before each pass and
+    # are zeroed in place, so the memory above the pass's start is what the
+    # policy keeps for the backward and the backward's transients
+    for p in model.parameters():
+        p.grad = torch.zeros_like(p)
+    gb = (lambda n: n / 1e9) if dev.type == "cuda" else (lambda n: None)
+    try:
+        for policy in ("none", "minimal", "full"):
+            backbone.config = dataclasses.replace(cfg0, remat=policy)
+            model.zero_grad(set_to_none=False)
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            start = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            loss, _ = trainer.loss_fn(arrays)
+            kept = torch.cuda.memory_allocated(dev) - start if dev.type == "cuda" else 0
+            loss.backward()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            seconds = time.perf_counter() - t0
+            launches = launch_counts()
+            peak = torch.cuda.max_memory_allocated(dev) - start if dev.type == "cuda" else 0
+            grads = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+            gaps = {}
+            if policy == "none":
+                ref = {n: g.detach().to("cpu", copy=True) for n, g in grads.items()}
+                ref_loss = loss.detach().cpu()
+            else:
+                for n, g in grads.items():
+                    want = ref[n].to(dev)
+                    if not torch.equal(g, want):
+                        gaps[n] = float((g - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+                if not torch.equal(loss.detach().cpu(), ref_loss):
+                    problems.append(f"{policy}: loss {float(loss)} != {float(ref_loss)}")
+                if set(grads) != set(ref):
+                    problems.append(f"{policy}: gradients of other tensors")
+                bad = {n: v for n, v in gaps.items()
+                       if not n.endswith(REMAT_ATOMIC) or v > REMAT_ATOMIC_REL}
+                if bad:
+                    problems.append(f"{policy}: gradients differ: {sorted(bad.items())[:6]}")
+            want_fwd = REMAT_FLASH_FWD_PER_LAYER[policy] * L
+            if dev.type == "cuda" and (launches["flash_fwd"] != want_fwd
+                                       or launches["flash_bwd"] != L):
+                problems.append(f"{policy}: #5/#6 launched {launches['flash_fwd']}/"
+                                f"{launches['flash_bwd']}, not {want_fwd}/{L}")
+            results[policy] = {"loss": loss.item(), "peak_gb_above_start": gb(peak),
+                               "kept_after_forward_gb": gb(kept),
+                               "seconds": seconds, "flash_fwd": launches["flash_fwd"],
+                               "flash_bwd": launches["flash_bwd"],
+                               "gradients_not_bitwise": gaps}
+            del loss, grads
+    finally:
+        backbone.config = cfg0
+        model.zero_grad(set_to_none=True)
+        zero_launch_counts()
+    for key in ("peak_gb_above_start", "kept_after_forward_gb"):
+        vals = [results[p][key] for p in ("none", "minimal", "full")]
+        if dev.type == "cuda" and not vals[0] > vals[1] > vals[2]:
+            problems.append(f"{key} does not fall none > minimal > full: {vals}")
+    emit({"phase": "slice_remat_policies", "layers": L, "rows": int(arrays["query_tensors"].shape[0]),
+          "width": int(arrays["query_tensors"].shape[1] + arrays["response_tensors"].shape[1]),
+          "policies": results, "atomic_rel_tol": REMAT_ATOMIC_REL, "card": card,
+          "ok": not problems})
+    if problems:
+        raise AssertionError(f"slice_remat_policies: {problems}")
+
+
+RESILIENCE_PLAN = "reward_raise@call:2*2; nan_loss@step:3"
+RESILIENCE_PREEMPT = "sigterm@step:5"
+RESILIENCE_STEPS, RESILIENCE_INTERVAL, RESILIENCE_KEEP = 8, 2, 2
+
+
+def ring_survivors(saves, keep):
+    """The ``checkpoint_<step>`` dirs the retention ring leaves: each
+    interval save first prunes the committed ones beyond the newest
+    ``keep``; an emergency or final save does not prune."""
+    alive = []
+    for step, interval in saves:
+        if interval and keep > 0:
+            alive = alive[-keep:] if len(alive) > keep else alive
+        if step not in alive:
+            alive.append(step)
+    return alive
+
+
+def resilience_run(config, prompts, dev, expect_preempt=False):
+    """``trlx_tpu_torch.train`` once; ``(trainer or None, preempted)``."""
+    import trlx_tpu_torch
+    from trlx_tpu_torch.profile_train import reward_fn
+    from trlx_tpu_torch.resilience import TrainingPreempted
+
+    try:
+        trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=prompts, config=config,
+                                       device=dev)
+    except TrainingPreempted:
+        if not expect_preempt:
+            raise
+        return None, True
+    return trainer, False
+
+
+def phase_slice_resilience(device="cuda", spec="builtin:gpt2-small", card="",
+                           total_steps=RESILIENCE_STEPS, n_prompts=SERIAL_PROMPTS,
+                           sections=None):
+    """The presets' serial PPO path (``serial_config``) under a fault plan,
+    for each loss kernel (``xla``, ``pallas``): ``RESILIENCE_PLAN`` (the
+    reward function fails its 2nd and 3rd attempts, the loss of update 4 is
+    poisoned to NaN) with ``update_guard: skip``, ``keep_last_n`` 2,
+    checkpoints every 2 updates, the JSONL tracker, rollout logs and a
+    profiler window of 2 steps (``TRLX_TPU_PROFILE``). An uninterrupted run,
+    then the same plan with ``sigterm@step:5`` (an emergency checkpoint),
+    then a resume to ``total_steps`` from it: the final weights must equal
+    the uninterrupted run's bitwise; ``stats.jsonl`` must show one skipped
+    update, the guard's flag and the gradient norm non-finite at the
+    poisoned update (so the NaN came through the loss kernels' backward),
+    and 2 reward retries; the checkpoints left are the ring's; the trace
+    names #5 and #6; rollout files are written; the default signal handlers
+    are back. Every kernel counter is set to 0 just before the three runs
+    of each kernel and read after; #5 and #6 (and, at ``pallas``, #7/#8)
+    must launch. Returns the launches summed over both kernels."""
+    import glob
+    import shutil
+    import signal
+
+    from trlx_tpu_torch.observability.profiling import PROFILE_ENV
+    from trlx_tpu_torch.profile_train import slice_prompts
+
+    dev = torch.device(device)
+    prompts = slice_prompts(n_prompts)
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    total = {k: 0 for k in REPLACES}
+    records, problems = [], []
+    for loss_kernel in ("xla", "pallas"):
+        root = _scratch_dir(f"resilience_{loss_kernel}")
+        prof_dir = os.path.join(root, "profile")
+        os.environ[PROFILE_ENV] = f"steps:1-2,dir:{prof_dir}"
+
+        def config(tag, plan):
+            d = os.path.join(root, tag)
+            sec = {**(sections or {})}
+            sec["train"] = dict(sec.get("train", {}), tracker="jsonl",
+                                rollout_logging_dir=os.path.join(d, "rollouts"),
+                                resume_from_checkpoint=True)
+            sec["method"] = dict(sec.get("method", {}), loss_kernel=loss_kernel)
+            sec["resilience"] = dict(fault_plan=plan, update_guard="skip",
+                                     keep_last_n=RESILIENCE_KEEP, reward_backoff_s=0.01)
+            return serial_config(d, spec, total_steps, RESILIENCE_INTERVAL, **sec)
+
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            # -- the main path: uninterrupted, preempted, resumed -------------
+            ref, _ = resilience_run(config("ref", RESILIENCE_PLAN), prompts, dev)
+            os.environ.pop(PROFILE_ENV, None)
+            _, preempted = resilience_run(
+                config("run", f"{RESILIENCE_PLAN}; {RESILIENCE_PREEMPT}"), prompts, dev,
+                expect_preempt=True)
+            emergency = sorted(os.listdir(os.path.join(root, "run")))
+            resumed, _ = resilience_run(config("run", RESILIENCE_PLAN), prompts, dev)
+            # ------------------------------------------------------------------
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            a, b = ref.model.state_dict(), resumed.model.state_dict()
+            unequal = [k for k in a if not torch.equal(a[k], b[k])]
+            records_jsonl = [json.loads(line) for line in
+                             open(os.path.join(root, "ref", "logs", "stats.jsonl"))]
+            steps = [r for r in records_jsonl if "gradients/global_norm" in r]
+            poisoned = [r for r in steps if r.get("resilience/update_ok") == 0.0]
+            last = steps[-1] if steps else {}
+            left = {tag: sorted(int(n.rsplit("_", 1)[1]) for n in
+                                os.listdir(os.path.join(root, tag)) if n.startswith("checkpoint_"))
+                    for tag in ("ref", "run")}
+            saves_ref = [(s, True) for s in range(RESILIENCE_INTERVAL, total_steps + 1,
+                                                  RESILIENCE_INTERVAL)] + [(total_steps, False)]
+            preempt_at = int(RESILIENCE_PREEMPT.rsplit(":", 1)[1])
+            saves_run = ([(s, True) for s in range(RESILIENCE_INTERVAL, preempt_at + 1,
+                                                     RESILIENCE_INTERVAL)]
+                         + [(preempt_at, False)]
+                         + [(s, True) for s in range(preempt_at + 1, total_steps + 1)
+                            if s % RESILIENCE_INTERVAL == 0] + [(total_steps, False)])
+            want_left = {"ref": ring_survivors(saves_ref, RESILIENCE_KEEP),
+                         "run": ring_survivors(saves_run, RESILIENCE_KEEP)}
+            traces = glob.glob(os.path.join(prof_dir, "*.json"))
+            names = set()
+            for path in traces:
+                with open(path) as f:
+                    names |= {e.get("name", "") for e in json.load(f).get("traceEvents", [])
+                              if e.get("cat") == "kernel"}
+            rollouts = {tag: sorted(os.listdir(os.path.join(root, tag, "rollouts")))
+                        for tag in ("ref", "run")}
+        finally:
+            os.environ.pop(PROFILE_ENV, None)
+            shutil.rmtree(root, ignore_errors=True)
+        rec = {"phase": "slice_resilience", "loss_kernel": loss_kernel, "wall_s": wall,
+               "preempted": preempted, "emergency_dir": emergency,
+               "final_weights_unequal": unequal[:8], "steps": len(steps),
+               "poisoned_steps": [{k: r.get(k) for k in ("step", "resilience/update_ok",
+                                                         "gradients/global_norm",
+                                                         "losses/total_loss")}
+                                  for r in poisoned],
+               "skipped_updates": last.get("resilience/skipped_updates"),
+               "reward_retries": last.get("resilience/reward_retries"),
+               "learning_rate": [r.get("learning_rate") for r in steps],
+               "checkpoints_left": left, "checkpoints_expected": want_left,
+               "trace_kernels": sorted(n for n in names if "flash_" in n or "fused_" in n)[:8],
+               "rollout_files": rollouts, "launches": launches, "card": card}
+        bad = []
+        if not preempted:
+            bad.append("no preemption")
+        if unequal:
+            bad.append(f"resumed weights differ: {unequal[:4]}")
+        if len(steps) != total_steps or last.get("resilience/skipped_updates") != 1.0:
+            bad.append(f"{len(steps)} steps, skipped {last.get('resilience/skipped_updates')}")
+        if (len(poisoned) != 1
+                or math.isfinite(float(poisoned[0].get("gradients/global_norm", 0.0)))):
+            bad.append(f"the guard's flag or the norm at the poisoned update: {poisoned}")
+        if last.get("resilience/reward_retries") != 2.0:
+            bad.append(f"reward retries {last.get('resilience/reward_retries')}")
+        if left != want_left:
+            bad.append(f"checkpoints left {left}, the ring's {want_left}")
+        if dev.type == "cuda" and not all(any(k in n for n in names)
+                                           for k in ("flash_fwd", "flash_bwd")):
+            bad.append(f"the trace names no flash kernel: {sorted(names)[:8]}")
+        if not traces:
+            bad.append("no trace written")
+        if not rollouts["ref"] or not rollouts["run"]:
+            bad.append(f"rollout files {rollouts}")
+        must = SERIAL_KERNELS + (T5_KERNELS if loss_kernel == "pallas" else ())
+        if dev.type == "cuda" and min(launches[k] for k in must) <= 0:
+            bad.append(f"a kernel of the path never launched: {launches}")
+        if any(launches[k] for k in REPLACES if k not in must):
+            bad.append(f"a kernel off the path launched: {launches}")
+        if any(signal.getsignal(s) != h for s, h in handlers.items()):
+            bad.append("the signal handlers were not restored")
+        emit({**rec, "ok": not bad})
+        problems += [f"{loss_kernel}: {p}" for p in bad]
+        for k in total:
+            total[k] += launches[k]
+        del ref, resumed
+    if problems:
+        raise AssertionError(f"slice_resilience: {problems}")
+    return total
+
+
 def kernel_record(name, launches, max_abs_err, rec, by_path):
     """One kernel's entry: ``launches`` from its own slice's main path,
     ``launches_by_path`` from every path's run."""
@@ -4526,6 +4950,14 @@ def run_phases(clocked, seconds):
     gc.collect()
     torch.cuda.empty_cache()
     clocked(phase_slice_t5_parity)
+    gc.collect()
+    torch.cuda.empty_cache()
+    remat_trainer, remat_launches = clocked(phase_slice_remat, card=smi)
+    clocked(phase_slice_remat_policies, remat_trainer, card=smi)
+    del remat_trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    resilience_launches = clocked(phase_slice_resilience, card=smi)
     emit({"phase": "phase_seconds", **seconds, "total": sum(seconds.values())})
     # a served run counts the engine's kernels; nothing else launches there
     served = {k: 0 for k in REPLACES}
@@ -4537,7 +4969,8 @@ def run_phases(clocked, seconds):
                "grpo": grpo_launches, "grpo_cb": grpo_cb_launches,
                "moe_serve": {**served, **moe_serve}, "moe_grpo": moe_grpo,
                "dpo": dpo_launches, "reward": reward_launches, "dpo_lora": dpo_lora_launches,
-               "t5_ppo": t5_ppo_launches, "t5_ilql": t5_ilql_launches}
+               "t5_ppo": t5_ppo_launches, "t5_ilql": t5_ilql_launches,
+               "remat": remat_launches, "resilience": resilience_launches}
     kernels = [kernel_record(name, serve_launches[name], timed[name]["max_abs_err"], timed[name],
                              by_path)
                for name in SERVE_KERNELS]

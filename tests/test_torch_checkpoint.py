@@ -38,6 +38,9 @@ from trlx_tpu_torch.utils.checkpoint import (
     newest_committed_checkpoint,
     save_state,
 )
+from torch_threads import use_one_cpu_thread
+
+use_one_cpu_thread()
 
 
 def test_save_commits_and_loads(tmp_path):

@@ -54,6 +54,9 @@ from trlx_tpu_torch.models.builder import build_causal_lm
 from trlx_tpu_torch.models.weights import params_from_jax
 from trlx_tpu_torch.pipeline.dpo_pipeline import DPOStore
 from trlx_tpu_torch.trainer.dpo import DPOTrainer, completion_logps
+from torch_threads import use_one_cpu_thread
+
+use_one_cpu_thread()
 
 RTOL, ATOL = 1e-5, 1e-5
 STAT_ATOL = 1e-6
@@ -331,9 +334,11 @@ def test_construction_checks_raise_as_jax(tmp_path, override, error, match):
 
 @pytest.mark.parametrize("override,setting", [
     ({"parallel": {"fsdp": 2}}, "parallel.fsdp"),
-    ({"parallel": {"remat": "full"}}, "parallel.remat"),
-    ({"train": {"tracker": "wandb"}}, "train.tracker"),
-    ({"resilience": {"keep_last_n": 2}}, "resilience.keep_last_n"),
+    # remat, trackers and the retention ring run; these wait for their
+    # subsystems
+    ({"resilience": {"fault_plan": "actor_crash@collection:2"}}, "resilience.fault_plan"),
+    ({"resilience": {"fault_plan": "flightrec_dump@step:4"}}, "resilience.fault_plan"),
+    ({"parallel": {"scan_layers": True, "pipe": 4}}, "parallel.pipe"),
     ({"train": {"grad_accum": 3}}, "train.grad_accum"),
 ])
 def test_unported_settings_raise(tmp_path, override, setting):

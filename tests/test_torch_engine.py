@@ -38,6 +38,9 @@ from trlx_tpu_torch.models.weights import params_from_jax
 from trlx_tpu_torch.ops.paged_kv import PagedSpec, num_table_blocks
 from trlx_tpu_torch.ops.sampling import GenerationConfig, generate
 from trlx_tpu_torch.ops.slot_refill import make_slot_refill_fns
+from torch_threads import use_one_cpu_thread
+
+use_one_cpu_thread()
 
 EOS, PAD = 3, 258
 B, P, N = 2, 10, 9

@@ -69,6 +69,9 @@ from trlx_tpu_torch.ops.sampling import GenerationConfig
 from trlx_tpu_torch.ops.slot_refill import make_slot_refill_fns
 from trlx_tpu_torch.trainer.base import host_stats
 from trlx_tpu_torch.trainer.ppo import PPOTrainer
+from torch_threads import use_one_cpu_thread
+
+use_one_cpu_thread()
 
 ATOL = 1e-4
 # bf16 against bf16: the test presets' logits stay below 2 in magnitude,

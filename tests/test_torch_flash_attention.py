@@ -29,6 +29,9 @@ from trlx_tpu_torch.ops.flash_attention import (
     flash_bwd,
     flash_fwd,
 )
+from torch_threads import use_one_cpu_thread
+
+use_one_cpu_thread()
 
 OUT_ATOL, GRAD_ATOL = 1e-5, 1e-4
 

@@ -56,6 +56,9 @@ from trlx_tpu_torch.ops.fused_loss import (
 from trlx_tpu_torch.utils.dynamics import SKETCH_BINS, SKETCH_RANGES
 from trlx_tpu_torch.utils.stats import RunningMoments, whiten
 from tests.torch_kernel_cases import loss_case
+from torch_threads import use_one_cpu_thread
+
+use_one_cpu_thread()
 
 B, R = 7, 13
 RTOL = 1e-5

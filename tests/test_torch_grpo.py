@@ -54,6 +54,9 @@ from trlx_tpu_torch.models.grpo import group_advantages_np
 from trlx_tpu_torch.models.weights import params_from_jax
 from trlx_tpu_torch.trainer.grpo import GRPOTrainer
 from trlx_tpu_torch.utils.checkpoint import load_state
+from torch_threads import use_one_cpu_thread
+
+use_one_cpu_thread()
 
 RTOL, ATOL = 1e-5, 1e-5
 # an absolute floor for stats that are rounding noise in exact arithmetic

@@ -48,6 +48,9 @@ from trlx_tpu_torch.models.ilql import ILQLConfig, batched_index_select, topk_ma
 from trlx_tpu_torch.models.weights import params_from_jax
 from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
 from trlx_tpu_torch.trainer.ilql import ILQLTrainer, make_experience
+from torch_threads import use_one_cpu_thread
+
+use_one_cpu_thread()
 
 RTOL, ATOL = 1e-4, 1e-4
 LOSS_RTOL = 1e-5

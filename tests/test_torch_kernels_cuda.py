@@ -76,6 +76,9 @@ from torch_kernel_cases import (
     tied_logits,
     verify_case,
 )
+from torch_threads import use_one_cpu_thread
+
+use_one_cpu_thread()
 
 # f32: summation order only; bf16: the output's rounding (the kernel
 # accumulates in f32 and is compared with the plain version run in f32)

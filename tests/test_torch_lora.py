@@ -47,6 +47,9 @@ from trlx_tpu_torch.models.builder import build_causal_lm
 from trlx_tpu_torch.models.transformer import LoRALinear, _linear
 from trlx_tpu_torch.models.weights import params_from_jax
 from trlx_tpu_torch.utils.checkpoint import load_state
+from torch_threads import use_one_cpu_thread
+
+use_one_cpu_thread()
 
 RTOL, ATOL = 1e-5, 1e-5
 STAT_ATOL = 1e-6

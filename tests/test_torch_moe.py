@@ -63,6 +63,9 @@ from trlx_tpu_torch.trainer.grpo import GRPOTrainer
 from trlx_tpu_torch.trainer.ilql import ILQLTrainer
 from trlx_tpu_torch.trainer.ppo import PPOTrainer
 from trlx_tpu_torch.trainer.sft import SFTTrainer
+from torch_threads import use_one_cpu_thread
+
+use_one_cpu_thread()
 
 ATOL = 1e-5
 P, N = 12, 6

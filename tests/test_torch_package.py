@@ -19,6 +19,9 @@ import pytest
 import torch
 
 from trlx_tpu_torch.ops import kernel_utils
+from torch_threads import use_one_cpu_thread
+
+use_one_cpu_thread()
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "trlx_tpu_torch"

@@ -58,6 +58,9 @@ from torch_kernel_cases import (
     tied_logits,
     verify_case,
 )
+from torch_threads import use_one_cpu_thread
+
+use_one_cpu_thread()
 
 ATOL = 1e-5
 

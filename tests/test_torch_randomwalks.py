@@ -22,6 +22,9 @@ import torch
 
 from trlx_tpu_torch.tasks import ilql_randomwalks, ppo_randomwalks
 from trlx_tpu_torch.tasks.randomwalks import generate_random_walks
+from torch_threads import use_one_cpu_thread
+
+use_one_cpu_thread()
 
 EXAMPLE = os.path.join(os.path.dirname(__file__), "..", "examples", "randomwalks")
 

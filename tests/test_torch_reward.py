@@ -48,6 +48,9 @@ from trlx_tpu_torch.models.reward import (
 )
 from trlx_tpu_torch.models.weights import params_from_jax
 from trlx_tpu_torch.tasks import summarize_rlhf
+from torch_threads import use_one_cpu_thread
+
+use_one_cpu_thread()
 
 RTOL = 1e-5
 EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

@@ -52,6 +52,9 @@ from trlx_tpu_torch.models.builder import (
 from trlx_tpu_torch.models.seq2seq import Seq2SeqConfig, relative_position_bucket
 from trlx_tpu_torch.models.weights import seq2seq_params_from_jax
 from trlx_tpu_torch.ops.sampling import GenerationConfig, generate_seq2seq
+from torch_threads import use_one_cpu_thread
+
+use_one_cpu_thread()
 
 jax.config.update("jax_default_matmul_precision", "highest")
 

@@ -47,6 +47,9 @@ from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
 from trlx_tpu_torch.trainer.ilql import ILQLTrainer, make_experience_seq2seq
 from trlx_tpu_torch.trainer.ppo import PPOTrainer
 from trlx_tpu_torch.utils.checkpoint import load_state
+from torch_threads import use_one_cpu_thread
+
+use_one_cpu_thread()
 
 STAT_PREFIXES = ("losses/", "policy/", "values/", "old_values/", "returns/", "qvalues/",
                  "awac_weight/")

@@ -52,6 +52,9 @@ from trlx_tpu_torch.pipeline import BatchLoader, PrefetchLoader
 from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
 from trlx_tpu_torch.pipeline.rollout_pipeline import RolloutPipeline
 from trlx_tpu_torch.trainer.ppo import PPOTrainer
+from torch_threads import use_one_cpu_thread
+
+use_one_cpu_thread()
 
 STAT_PREFIXES = ("losses/", "policy/", "values/", "old_values/", "returns/")
 STAT_KEYS = ("ratio", "learning_rate", "gradients/global_norm")

@@ -29,6 +29,9 @@ from trlx_tpu_torch.ops.slot_refill import make_slot_refill_fns
 from trlx_tpu_torch.serve.request import ServeRequest
 from trlx_tpu_torch.serve.scheduler import AdmissionController
 from trlx_tpu_torch.serve.server import ServeServer
+from torch_threads import use_one_cpu_thread
+
+use_one_cpu_thread()
 
 
 def _server(lm, **kw):

@@ -47,6 +47,9 @@ from trlx_tpu_torch.pipeline.offline_pipeline import (
     tokenize_dialogue,
 )
 from trlx_tpu_torch.trainer.sft import SFTTrainer
+from torch_threads import use_one_cpu_thread
+
+use_one_cpu_thread()
 
 RTOL, ATOL = 1e-4, 1e-4
 LOSS_RTOL = 1e-5
@@ -265,7 +268,9 @@ def test_default_sft_config_matches_jax():
         ({"model": {"peft_kwargs": {"peft_type": "lora", "r": 8, "dropout": 0.1}}},
          "model.peft_kwargs"),
         ({"train": {"grad_accum": 3}}, "train.grad_accum"),  # batch 4 does not split
-        ({"resilience": {"keep_last_n": 2}}, "resilience.keep_last_n"),
+        # the retention ring runs (tests/test_torch_resilience_trainer.py);
+        # elastic restore waits for the port's parallelism
+        ({"resilience": {"fault_plan": "topology_shrink@resume:1"}}, "resilience.fault_plan"),
         ({"parallel": {"fsdp": 2}}, "parallel.fsdp"),
         ({"serve": {"enabled": True}}, "serve.enabled"),
     ],

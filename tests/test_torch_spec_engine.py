@@ -58,6 +58,9 @@ from trlx_tpu_torch.ops.slot_refill import make_slot_refill_fns
 from trlx_tpu_torch.ops.speculative import generate_speculative
 from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
 from trlx_tpu_torch.trainer.ppo import PPOTrainer
+from torch_threads import use_one_cpu_thread
+
+use_one_cpu_thread()
 
 B, P, N, G = 2, 12, 10, 3
 PAD = 258

@@ -39,6 +39,9 @@ from trlx_tpu_torch.models.transformer import CausalTransformer, TransformerConf
 from trlx_tpu_torch.models.weights import params_from_jax
 from trlx_tpu_torch.ops.sampling import GenerationConfig, generate
 from trlx_tpu_torch.ops.speculative import accept_and_extra, generate_speculative
+from torch_threads import use_one_cpu_thread
+
+use_one_cpu_thread()
 
 ATOL = 1e-5
 PAD = 258

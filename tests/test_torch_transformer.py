@@ -35,6 +35,9 @@ from trlx_tpu_torch.models.transformer import (
 )
 from trlx_tpu_torch.models.weights import params_from_jax
 from trlx_tpu_torch.ops.paged_kv import attach_block_table, detach_block_table
+from torch_threads import use_one_cpu_thread
+
+use_one_cpu_thread()
 
 ATOL = 1e-4
 

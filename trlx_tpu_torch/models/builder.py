@@ -62,9 +62,10 @@ from trlx_tpu_torch.models.transformer import (
 )
 from trlx_tpu_torch.ops.kernel_utils import resolve_device
 
-__all__ = ["LORA_TARGET_GROUPS", "build_causal_lm", "build_seq2seq_lm", "hydra_ref_params",
-           "merge_lora_params", "parse_peft_overrides", "resolve_seq2seq_config",
-           "seq2seq_hydra_ref_params", "seq2seq_trainable_mask", "trainable_mask"]
+__all__ = ["DTYPES", "LORA_TARGET_GROUPS", "assemble_overrides", "build_causal_lm",
+           "build_seq2seq_lm", "hydra_ref_params", "merge_lora_params", "parse_peft_overrides",
+           "resolve_seq2seq_config", "seq2seq_hydra_ref_params", "seq2seq_trainable_mask",
+           "trainable_mask"]
 
 LORA_TARGET_GROUPS = {
     "attention": ("q_proj", "k_proj", "v_proj", "o_proj"),
@@ -97,6 +98,33 @@ def parse_peft_overrides(peft_kwargs: Dict[str, Any]) -> Dict[str, Any]:
     if kw:
         raise ValueError(f"Unknown peft_kwargs keys: {sorted(kw)}")
     return out
+
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def assemble_overrides(model_config, parallel=None,
+                       scan_layers_supported: bool = True) -> Dict[str, Any]:
+    """The model config overrides of a trainer (JAX's
+    ``_assemble_overrides``): ``model.model_extra_kwargs``, LoRA from
+    ``model.peft_kwargs``, and from ``parallel`` the dtypes, ``remat`` and
+    (where the architecture scans: not T5, whose extras lose the key)
+    ``scan_layers``, each only where the extras do not set it."""
+    overrides: Dict[str, Any] = dict(model_config.model_extra_kwargs or {})
+    if not scan_layers_supported:
+        overrides.pop("scan_layers", None)
+    if model_config.peft_kwargs:
+        try:
+            overrides.update(parse_peft_overrides(model_config.peft_kwargs))
+        except ValueError as e:
+            raise ValueError(f"model.peft_kwargs: {e}") from None
+    if parallel is not None:
+        overrides.setdefault("param_dtype", DTYPES[parallel.param_dtype])
+        overrides.setdefault("dtype", DTYPES[parallel.compute_dtype])
+        overrides.setdefault("remat", parallel.remat)
+        if scan_layers_supported:
+            overrides.setdefault("scan_layers", bool(parallel.scan_layers or parallel.pipe > 1))
+    return overrides
 
 
 def merge_lora_params(state_dict: Dict[str, torch.Tensor],

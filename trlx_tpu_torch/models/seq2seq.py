@@ -26,6 +26,10 @@ self-attention K/V of ``[B, N + 1, H, D]`` written in place at
 ``cache_index``, and the cross-attention K/V projected once from the
 encoder states (:meth:`T5Transformer.encode_for_decode`).
 
+``remat: full`` wraps each encoder and decoder block of a pass that takes
+gradients in ``torch.utils.checkpoint`` (``transformer.run_block``); T5
+takes no other policy, so ``minimal`` is no remat, as in JAX.
+
 LoRA (``lora_r > 0``) adds adapters to the decoder's named projections
 only: encoder modules get none, as in JAX (the reference restricts T5's
 adapters to the decoder blocks).
@@ -39,7 +43,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from trlx_tpu_torch.models.transformer import LoRALinear, RMSNorm, _linear, seeded_init_
+from trlx_tpu_torch.models.transformer import (
+    LoRALinear,
+    RMSNorm,
+    _linear,
+    run_block,
+    seeded_init_,
+)
 
 __all__ = [
     "Seq2SeqConfig",
@@ -80,6 +90,13 @@ class Seq2SeqConfig:
     lora_r: int = 0
     lora_alpha: float = 16.0
     lora_targets: Tuple[str, ...] = ()
+    # ``parallel.remat``: "full" recomputes each block in the backward;
+    # any other value is no remat
+    remat: str = "none"
+
+    @property
+    def block_remat(self) -> str:
+        return "full" if self.remat == "full" else "none"
 
     def __post_init__(self):
         if self.activation not in ("relu", "gated-gelu"):
@@ -319,7 +336,7 @@ def _run_decoder_branch(owner, blocks, hidden_states, encoder_hidden, encoder_ma
     cross_bias = _pad_bias(encoder_mask.to(device)).to(cfg.dtype)
     x = hidden_states
     for block in blocks:
-        x = block(x, self_bias, encoder_hidden, cross_bias)
+        x = run_block(block, cfg.block_remat, x, self_bias, encoder_hidden, cross_bias)
     h = owner.dec_ln_f(x)
     return {"logits": _logits(owner, h), "hidden_states": h}
 
@@ -366,7 +383,7 @@ class T5Transformer(nn.Module):
         bias = bias.to(self.config.dtype)
         x = self._embed(input_ids)
         for block in self.enc_blocks:
-            x = block(x, bias)
+            x = run_block(block, self.config.block_remat, x, bias)
         return self.enc_ln_f(x)
 
     def decode(
@@ -397,11 +414,12 @@ class T5Transformer(nn.Module):
         self_bias = self_bias.to(cfg.dtype)
         cross_bias = _pad_bias(encoder_mask.to(device)).to(cfg.dtype)
         branch_input = None
+        remat = cfg.block_remat if cache is None else "none"
         for i, block in enumerate(self.dec_blocks):
             if branch_layer is not None and i == len(self.dec_blocks) - branch_layer:
                 branch_input = x
-            x = block(x, self_bias, encoder_hidden, cross_bias,
-                      cache=None if cache is None else cache[i], cache_index=cache_index)
+            x = run_block(block, remat, x, self_bias, encoder_hidden, cross_bias,
+                          None if cache is None else cache[i], cache_index)
         h = self.dec_ln_f(x)
         span = h if logits_span is None else h[:, logits_span[0] : logits_span[1]]
         return {"logits": _logits(self, span), "hidden_states": h,

@@ -55,6 +55,19 @@ The PPO path adds the hydra branch: ``forward(branch_layer=k)`` returns the
 activations entering the top ``k`` blocks as ``branch_input``, and
 :meth:`CausalTransformer.forward_branch` (or a frozen :class:`HydraBranch`
 copy of those blocks) replays the top of the model from them.
+
+Rematerialisation (``remat``, JAX's ``_remat_policy``) wraps each block of
+a pass that takes gradients (no cache, grad enabled: the train step's
+forward and the hydra branch's) in ``torch.utils.checkpoint``
+(:func:`run_block`): ``full`` saves only the block's inputs and recomputes
+the block in the backward; ``minimal`` is JAX's
+``checkpoint_dots_with_no_batch_dims``, a selective policy that keeps the
+outputs of ``aten.mm`` / ``aten.addmm`` (what the projections' ``F.linear``
+becomes) and recomputes the rest — the per-call weight casts, the norms,
+the attention products and the attention kernels, which are calls into
+their libraries the policy cannot see, so flash attention's forward kernel
+runs again in the backward under both policies. A block returns its MoE
+router statistics as a value, so a recomputed block records nothing twice.
 """
 
 import dataclasses
@@ -84,6 +97,7 @@ __all__ = [
     "MoEMLP",
     "router_aux_summary",
     "Block",
+    "run_block",
     "CausalTransformer",
     "HydraBranch",
     "make_kv_cache",
@@ -152,6 +166,16 @@ class TransformerConfig:
     lora_r: int = 0
     lora_alpha: float = 16.0
     lora_targets: Tuple[str, ...] = ()
+    # rematerialisation of the blocks in passes that take gradients
+    # (``parallel.remat``, :func:`run_block`): "full" recomputes each block
+    # in the backward, "minimal" keeps the products without a batch
+    # dimension (the projections) and recomputes the rest; anything else is
+    # no remat, as in JAX
+    remat: str = "none"
+    # ``parallel.scan_layers``: JAX stacks the blocks on a layer axis; the
+    # port keeps per-layer modules either way (``weights.py`` unstacks a
+    # scanned JAX tree)
+    scan_layers: bool = False
 
     def __post_init__(self):
         allowed = {
@@ -756,6 +780,35 @@ class Block(nn.Module):
         return x + mlp_out, new_cache, aux
 
 
+REMAT_POLICIES = ("full", "minimal")
+
+
+def _minimal_policy(ctx, op, *args, **kwargs):
+    """``checkpoint_dots_with_no_batch_dims``: keep the projections'
+    products, recompute everything else (``bmm`` and einsums with a batch
+    dimension, casts, norms, elementwise)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def run_block(block: nn.Module, remat: str, *args):
+    """``block(*args)``, under ``torch.utils.checkpoint`` (non-reentrant)
+    when ``remat`` is ``full`` or ``minimal`` and autograd records: the
+    caller passes ``"none"`` for cached passes."""
+    if remat not in REMAT_POLICIES or not torch.is_grad_enabled():
+        return block(*args)
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    if remat == "minimal":
+        return checkpoint(block, *args, use_reentrant=False,
+                          context_fn=partial(create_selective_checkpoint_contexts,
+                                             _minimal_policy))
+    return checkpoint(block, *args, use_reentrant=False)
+
+
 def _query_slots(q_offset: Any, B: int, T: int, device) -> torch.Tensor:
     """[B, T] slot indices of queries at ``q_offset`` (scalar or [B])."""
     off = torch.as_tensor(q_offset, device=device).to(torch.int64)
@@ -891,12 +944,13 @@ class CausalTransformer(nn.Module):
         new_cache = [] if cache is not None else None
         branch_input = None
         aux = None
+        remat = cfg.remat if cache is None else "none"
         for i, block in enumerate(self.blocks):
             if branch_layer is not None and i == len(self.blocks) - branch_layer:
                 branch_input = x
             layer_cache = cache[i] if cache is not None else None
-            x, updated, aux_i = block(x, bias, rope, layer_cache, offset, paged_write,
-                                      flash_args, token_mask)
+            x, updated, aux_i = run_block(block, remat, x, bias, rope, layer_cache, offset,
+                                          paged_write, flash_args, token_mask)
             if aux_i is not None:
                 aux = aux_i if aux is None else aux + aux_i
             if cache is not None:
@@ -945,7 +999,8 @@ def _run_branch(owner, blocks, hidden_states, attention_mask, positions, logits_
     rope = _rope(cfg, positions)
     x = hidden_states
     for block in blocks:
-        x, _, _ = block(x, bias, rope, flash_args=flash_args, token_mask=attention_mask)
+        x, _, _ = run_block(block, cfg.remat, x, bias, rope, None, None, None, flash_args,
+                            attention_mask)
     h = owner.ln_f(x) if cfg.final_norm else x
     logits = owner._logits(h if logits_span is None else h[:, logits_span[0] : logits_span[1]])
     return {"logits": logits, "hidden_states": h}

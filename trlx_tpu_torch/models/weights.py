@@ -15,7 +15,8 @@ given as nested dicts of numpy arrays, into the port's ``state_dict``:
   as they are (the port keeps the JAX layout);
 - layers come as ``h_{i}`` subtrees (the unscanned layout). A scanned tree
   (``h_scan/block`` with a leading layer axis, ``stack_layer_params``) is
-  sliced back into ``h_{i}`` first, as ``unstack_layer_params`` does;
+  sliced back into ``h_{i}`` first, as ``unstack_layer_params`` does (a
+  scanned hydra reference's stack into the top layers' indices);
 - a value-head policy's tree (``backbone`` + ``v_head``) maps onto
   :class:`~trlx_tpu_torch.models.heads.CausalLMWithValueHead`
   (``backbone.*`` and ``v_head.in_proj`` / ``v_head.out_proj``), an ILQL
@@ -51,7 +52,10 @@ from trlx_tpu_torch.models.transformer import TransformerConfig
 __all__ = ["params_from_jax", "seq2seq_params_from_jax"]
 
 
-def _unstack(backbone: Dict[str, Any]) -> Dict[str, Any]:
+def _unstack(backbone: Dict[str, Any], num_layers: int) -> Dict[str, Any]:
+    """A scanned tree's ``h_scan/block`` (leading layer axis) as ``h_{i}``
+    subtrees. A hydra reference's stack holds the top layers only, so its
+    k entries are layers ``num_layers - k`` and up."""
     if "h_scan" not in backbone:
         return backbone
     out = {k: v for k, v in backbone.items() if k != "h_scan"}
@@ -65,15 +69,16 @@ def _unstack(backbone: Dict[str, Any]) -> Dict[str, Any]:
     first = stacked
     while isinstance(first, dict):
         first = next(iter(first.values()))
-    for i in range(np.asarray(first).shape[0]):
-        out[f"h_{i}"] = take(stacked, i)
+    count = np.asarray(first).shape[0]
+    for i in range(count):
+        out[f"h_{num_layers - count + i}"] = take(stacked, i)
     return out
 
 
 def params_from_jax(np_params: Dict[str, Any], cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
     """JAX parameter tree (numpy leaves) → the port's ``state_dict``."""
     tree = np_params.get("backbone", np_params)
-    tree = _unstack(tree)
+    tree = _unstack(tree, cfg.num_layers)
 
     def t(x):
         return torch.tensor(np.asarray(x), dtype=cfg.param_dtype)

@@ -3,7 +3,8 @@
 Port of ``trlx_tpu/pipeline/grpo_pipeline.py``: the PPO store's buffer
 and loader with the GRPO fields (a per-sequence advantage and the
 reference logprobs instead of values and per-token rewards); collation
-pads as the JAX store does. The JSON rollout export is not ported.
+pads as the JAX store does; the JSON rollout export writes the GRPO
+fields.
 """
 
 from typing import List, Optional
@@ -17,6 +18,15 @@ from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
 
 class GRPORolloutStorage(PPORolloutStorage):
     """Replay buffer of :class:`GRPORLElement` used during GRPO learning."""
+
+    def _export_row(self, e: GRPORLElement) -> dict:
+        return {
+            "query_tensor": np.asarray(e.query_tensor).tolist(),
+            "response_tensor": np.asarray(e.response_tensor).tolist(),
+            "logprobs": np.asarray(e.logprobs).tolist(),
+            "ref_logprobs": np.asarray(e.ref_logprobs).tolist(),
+            "advantage": float(e.advantage),
+        }
 
     def collate(
         self,

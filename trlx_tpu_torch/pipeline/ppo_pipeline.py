@@ -2,9 +2,12 @@
 
 Port of ``trlx_tpu/pipeline/ppo_pipeline.py``: a replay buffer of per-sample
 experiences with a left-pad-queries / right-pad-responses collator
-(bucketed lengths). The JSON rollout export is not ported.
+(bucketed lengths), and the JSON rollout export of
+``train.rollout_logging_dir`` (:meth:`PPORolloutStorage.export_history`).
 """
 
+import json
+import os
 from typing import List, Optional
 
 import numpy as np
@@ -27,6 +30,38 @@ class PPORolloutStorage(BaseRolloutStore):
 
     def clear_history(self):
         self.history = []
+
+    def _export_row(self, exp: PPORLElement) -> dict:
+        return {
+            "query_tensor": np.asarray(exp.query_tensor).tolist(),
+            "response_tensor": np.asarray(exp.response_tensor).tolist(),
+            "logprobs": np.asarray(exp.logprobs).tolist(),
+            "values": np.asarray(exp.values).tolist(),
+            "rewards": np.asarray(exp.rewards).tolist(),
+        }
+
+    def export_history(self, location: str):
+        """Write the store's rollouts as one JSON list into
+        ``location/epoch-<n>.json``, ``n`` the next ordinal after the
+        exports already there (deterministic names; no export overwrites
+        another)."""
+        assert os.path.exists(location)
+        fpath = os.path.join(location, f"epoch-{self._next_export_index(location):06d}.json")
+        with open(fpath, "w") as f:
+            json.dump([self._export_row(exp) for exp in self.history], f)
+
+    @staticmethod
+    def _next_export_index(location: str) -> int:
+        """The smallest ordinal above every ``epoch-*.json`` present."""
+        taken = []
+        for name in sorted(os.listdir(location)):
+            if not (name.startswith("epoch-") and name.endswith(".json")):
+                continue
+            try:
+                taken.append(int(name[len("epoch-"):-len(".json")]))
+            except ValueError:
+                continue
+        return max(taken) + 1 if taken else 0
 
     def collate(
         self,

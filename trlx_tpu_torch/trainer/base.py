@@ -39,14 +39,30 @@ Port of ``trlx_tpu/trainer/base.py`` (``TPUBaseTrainer``) as
   decoder has no slot-refill path); samples join prompt and output with
   the tokenizer's ``sep_token`` (a space without one);
 - ``learn`` runs the JAX loop (epochs → batches → updates per batch,
-  interval and final checkpoints, interval and final evaluation) without
-  its observability, resilience and serving hooks, the batches collated
-  ``train.prefetch_batches`` ahead on a background thread;
+  interval and final checkpoints, interval and final evaluation), the
+  batches collated ``train.prefetch_batches`` ahead on a background
+  thread, with JAX's run management and resilience
+  (``trlx_tpu_torch/resilience/``): ``reward_fn`` and the tracker
+  hardened once (retries, backoff, fallbacks), the preemption handler
+  installed for the loop, the fault plan polled at each step boundary
+  (``sigterm``/``sigint``) and in the train step (``nan_loss``), the update
+  guard (``skip`` drops the update before the optimizer steps,
+  ``rollback`` restores the newest committed checkpoint, ``halt``
+  raises), the metrics registry's snapshot merged into every step's
+  stats, the profiler window around the train steps, and the retention
+  ring (``resilience.keep_last_n``) pruning before each interval save;
+  the tracker is ``utils/trackers.py::make_tracker``'s (JSONL into
+  ``<checkpoint_dir>/logs`` by default). JAX's span tracer, health
+  detectors, flight recorder, watchdogs and serving inside a trainer are
+  not ported;
 - ``save`` commits one ``torch.save`` file of model, optimizer, step and
   the trainer's host state (the rollout seed stream, torch's generators,
-  the prompt-stream position) atomically (``utils/checkpoint.py``);
-  ``train.resume_from_checkpoint`` loads the newest committed
-  ``checkpoint_<step>`` (:meth:`TorchBaseTrainer.maybe_resume`).
+  the prompt-stream position) atomically (``utils/checkpoint.py``); an
+  emergency checkpoint (preemption) adds the evaluation count and the
+  rollout store, and a resume from it fast-forwards the loop to its step
+  boundary, so the run continues bitwise; ``train.resume_from_checkpoint``
+  loads the newest committed ``checkpoint_<step>``
+  (:meth:`TorchBaseTrainer.maybe_resume`).
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """
@@ -54,6 +70,7 @@ Entry points run on the GPU unless the caller passes ``device="cpu"``.
 import dataclasses
 import logging
 import os
+import signal
 import time
 from abc import abstractmethod
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -64,13 +81,15 @@ import torch
 from trlx_tpu_torch.data.tokenizer import from_config as tokenizer_from_config
 from trlx_tpu_torch.engine.core import ContinuousEngine, SerialEngine
 from trlx_tpu_torch.models.builder import (
+    assemble_overrides,
     build_causal_lm,
     build_seq2seq_lm,
-    parse_peft_overrides,
     seq2seq_trainable_mask,
     trainable_mask,
 )
 from trlx_tpu_torch.models.transformer import config_from_spec
+from trlx_tpu_torch.observability.metrics import MetricsRegistry
+from trlx_tpu_torch.observability.profiling import ProfileWindow
 from trlx_tpu_torch.ops.kernel_utils import resolve_device
 from trlx_tpu_torch.ops.paged_kv import PagedSpec, dense_kv_bytes, num_table_blocks
 from trlx_tpu_torch.ops.sampling import (
@@ -83,6 +102,14 @@ from trlx_tpu_torch.ops.sampling import (
 from trlx_tpu_torch.ops.slot_refill import make_slot_refill_fns
 from trlx_tpu_torch.ops.speculative import generate_speculative, reject_spec_hooks
 from trlx_tpu_torch.pipeline import PrefetchLoader
+from trlx_tpu_torch.resilience import (
+    UNPORTED_KINDS,
+    UPDATE_OK_KEY,
+    FaultPlan,
+    NonFiniteUpdateError,
+    Resilience,
+    TrainingPreempted,
+)
 from trlx_tpu_torch.trainer import BaseRLTrainer
 from trlx_tpu_torch.utils import (
     filter_non_scalars,
@@ -94,12 +121,13 @@ from trlx_tpu_torch.utils.checkpoint import (
     _checkpoint_step_dirs,
     is_committed,
     load_state,
+    newest_committed_checkpoint,
+    prune_checkpoints,
     save_state,
 )
+from trlx_tpu_torch.utils.trackers import make_tracker
 
 logger = logging.getLogger(__name__)
-
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 # parallel axes of the JAX mesh: the port runs on one device
 _PARALLEL_AXES = ("fsdp", "pipe", "model", "sequence", "expert", "dcn_data_parallelism")
@@ -149,12 +177,14 @@ def validate_engine(config) -> None:
 
 def reject_unported(config, collects_rollouts: bool, seq2seq_ok: bool) -> None:
     """Raise ``ValueError`` naming the first setting this slice does not
-    run (parallel axes, scanned or rematerialised layers, seq2seq outside
-    PPO and ILQL (``seq2seq_ok``), a tracker, profiles and rollout logs,
-    serving inside a trainer, the update guard, fault plans and the
-    checkpoint retention ring). The port
-    installs no preemption handler, so it writes no emergency checkpoint,
-    and runs on one device, so nothing reshards on restore.
+    run: parallel axes (the port runs on one device; ``parallel.
+    scan_layers`` runs, as per-layer modules, with ``pipe`` 1), seq2seq
+    outside PPO and ILQL (``seq2seq_ok``), serving inside a trainer, and a
+    fault plan (``resilience.fault_plan`` or ``TRLX_TPU_FAULT_PLAN``) that
+    names a kind whose subsystem the port does not have yet
+    (``resilience/faults.py::UNPORTED_KINDS``). Trackers, profiler
+    windows, rollout logs, remat, the update guard, fault plans of the
+    polled kinds and the retention ring run.
 
     ``collects_rollouts`` (PPO, GRPO) adds the rollout settings: async
     collection, the loss kernel's name (and ``pallas`` only where the
@@ -164,8 +194,7 @@ def reject_unported(config, collects_rollouts: bool, seq2seq_ok: bool) -> None:
     prefill and gather kernels. The offline trainers (SFT, ILQL) collect
     nothing: they evaluate on the paged engine, so those settings do not
     reach them."""
-    t, e, m, par, res = (config.train, config.engine, config.model, config.parallel,
-                         config.resilience)
+    t, e, m, par = config.train, config.engine, config.model, config.parallel
     checks = []
     if collects_rollouts:
         loss_kernel = getattr(config.method, "loss_kernel", None)
@@ -193,24 +222,18 @@ def reject_unported(config, collects_rollouts: bool, seq2seq_ok: bool) -> None:
                  "the port runs the paged-prefill kernel ('pallas'); the gather path is not "
                  "ported"),
             ]
+    unported_faults = sorted({
+        spec.kind for spec in FaultPlan.from_config(config.resilience.fault_plan).specs
+        if spec.kind in UNPORTED_KINDS})
     checks += [
         (config.serve.enabled, "serve.enabled: serving inside a trainer is not ported"),
         (int(par.data) not in (-1, 1), "parallel.data > 1: the port runs on one device"),
-        (par.scan_layers, "parallel.scan_layers: scanned layers are not ported"),
-        (par.remat != "none", f"parallel.remat {par.remat!r}: rematerialisation is not ported"),
         (m.model_arch_type != "causal" and not (seq2seq_ok and m.model_arch_type == "seq2seq"),
          f"model.model_arch_type {m.model_arch_type!r}: the port runs seq2seq models under "
          "PPO and ILQL only"),
-        (t.tracker is not None, f"train.tracker {t.tracker!r}: the port logs to an "
-         "in-memory tracker only (tracker: null)"),
-        (t.profile_dir is not None, "train.profile_dir: profiler traces are not ported"),
-        (t.rollout_logging_dir is not None, "train.rollout_logging_dir: rollout export is "
-         "not ported"),
-        (res.update_guard != "off", f"resilience.update_guard {res.update_guard!r}: the "
-         "update guard is not ported"),
-        (res.fault_plan is not None, "resilience.fault_plan: fault injection is not ported"),
-        (int(res.keep_last_n) > 0, "resilience.keep_last_n: the checkpoint retention ring "
-         "is not ported"),
+        (bool(unported_faults), "resilience.fault_plan: the port does not poll the fault "
+         "kinds " + ", ".join(f"{k!r} (waits for {UNPORTED_KINDS[k]})"
+                              for k in unported_faults)),
     ]
     checks += [
         (int(getattr(par, axis)) > 1, f"parallel.{axis} > 1: the port runs on one device")
@@ -219,20 +242,6 @@ def reject_unported(config, collects_rollouts: bool, seq2seq_ok: bool) -> None:
     for bad, message in checks:
         if bad:
             raise ValueError(message)
-
-
-class MemoryTracker:
-    """The ``tracker: null`` sink: keeps every logged stats dict in
-    :attr:`history` as ``(step, stats)``."""
-
-    def __init__(self):
-        self.history: List[Tuple[int, Dict[str, Any]]] = []
-
-    def log(self, stats: Dict[str, Any], step: int) -> None:
-        self.history.append((int(step), dict(stats)))
-
-    def finish(self) -> None:
-        pass
 
 
 def _sync(device: torch.device) -> None:
@@ -324,14 +333,8 @@ class TorchBaseTrainer(BaseRLTrainer):
         self.device = resolve_device(device)
         self.tokenizer = tokenizer_from_config(config.tokenizer)
 
-        overrides = dict(config.model.model_extra_kwargs or {})
-        if config.model.peft_kwargs:
-            try:
-                overrides.update(parse_peft_overrides(config.model.peft_kwargs))
-            except ValueError as e:
-                raise ValueError(f"model.peft_kwargs: {e}") from None
-        overrides.setdefault("param_dtype", DTYPES[config.parallel.param_dtype])
-        overrides.setdefault("dtype", DTYPES[config.parallel.compute_dtype])
+        overrides = assemble_overrides(config.model, config.parallel,
+                                       scan_layers_supported=not self.is_seq2seq)
         build, mask_fn = ((build_seq2seq_lm, seq2seq_trainable_mask) if self.is_seq2seq
                           else (build_causal_lm, trainable_mask))
         self.model, self.tcfg = build(
@@ -387,7 +390,18 @@ class TorchBaseTrainer(BaseRLTrainer):
         self._resume_done = False
         self._last_batch_host: Any = None
         self._last_batch_device: Any = None
-        self.tracker = MemoryTracker()
+        # the metrics registry whose snapshot rides every step's stats, the
+        # resilience bundle (reward_fn and the tracker hardened once, so
+        # every call site is), and the profiler window
+        self.metrics = MetricsRegistry()
+        self.resilience = Resilience(config, metrics=self.metrics)
+        self.reward_fn = self.resilience.harden_reward_fn(self.reward_fn,
+                                                          seed=config.train.seed)
+        self.tracker = self.resilience.harden_tracker(make_tracker(config),
+                                                      seed=config.train.seed)
+        self.profile = ProfileWindow.from_env(config)
+        self._emergency_resume = False
+        self._batch_iter: Any = None
         self.eval_pipeline = None
         self.iter_count = 0
         self.nth_evaluation = 0
@@ -478,12 +492,22 @@ class TorchBaseTrainer(BaseRLTrainer):
         into k consecutive micro-batches, each a ``loss_fn`` pass of its own
         (its own whitening and token means); gradients and stats are summed
         over them and divided by k, in JAX's order."""
+        return self._accumulate(arrays)[0]
+
+    def _accumulate(self, arrays: Dict[str, torch.Tensor], loss_scale: Optional[float] = None
+                    ) -> Tuple[Dict[str, Any], Optional[torch.Tensor]]:
+        """:meth:`accumulate_grads`, returning also the (scaled) loss when
+        there is one micro-batch. ``loss_scale`` multiplies each
+        micro-batch's loss before its backward (the fault plan's NaN; None
+        leaves the loss as it is, as JAX's exact multiply by 1.0 does)."""
         accum = max(1, int(self.config.train.grad_accum))
         self.model.zero_grad(set_to_none=True)
         if accum == 1:
             loss, stats = self.loss_fn(arrays)
+            if loss_scale is not None:
+                loss = loss * loss_scale
             loss.backward()
-            return stats
+            return stats, loss.detach()
         rows = next(iter(arrays.values())).shape[0]
         if rows % accum:
             raise ValueError(f"a batch of {rows} rows does not split into "
@@ -493,6 +517,8 @@ class TorchBaseTrainer(BaseRLTrainer):
         for i in range(accum):
             loss, stats = self.loss_fn({k: v[i * size:(i + 1) * size]
                                         for k, v in arrays.items()})
+            if loss_scale is not None:
+                loss = loss * loss_scale
             loss.backward()
             for k, v in stats.items():
                 v = v.detach() if isinstance(v, torch.Tensor) else v
@@ -500,22 +526,51 @@ class TorchBaseTrainer(BaseRLTrainer):
         for p in self.model.parameters():
             if p.grad is not None:
                 p.grad.div_(accum)
-        return {k: v / accum for k, v in total.items()}
+        return {k: v / accum for k, v in total.items()}, None
+
+    def _loss_scale(self) -> Optional[float]:
+        """None, or NaN when the fault plan poisons this update's loss
+        (``nan_loss@step:N``, JAX's ``_loss_scale``): the loss and every
+        gradient turn non-finite, which the update guard must catch."""
+        plan = self.resilience.plan
+        if plan and plan.poll("nan_loss", step=self.iter_count):
+            logger.warning("fault plan: poisoning the loss of update %d to NaN",
+                           self.iter_count)
+            return float("nan")
+        return None
 
     def train_step(self, batch) -> Dict[str, Any]:
-        """One optimization step on a host batch; returns device stats."""
+        """One optimization step on a host batch; returns device stats.
+
+        With ``resilience.update_guard`` on, the step checks
+        ``isfinite(gradients/global_norm)`` (and ``isfinite(loss)`` with one
+        micro-batch) and reads that flag on the host once, before the
+        optimizer steps: under ``skip`` a failed check takes no optimizer
+        step, so the parameters, the optimizer state and the step count
+        that drives the LR schedule stay as they were (JAX's select of the
+        old state). The flag rides the stats as ``resilience/update_ok``;
+        ``rollback`` and ``halt`` act on it in the learn loop."""
         arrays = self._device_batch(batch)
-        stats = self.accumulate_grads(arrays)
+        stats, loss = self._accumulate(arrays, self._loss_scale())
         gnorm = torch.nn.utils.get_total_norm(
             [p.grad for p in self.model.parameters() if p.grad is not None])
         lr = float(self.schedule(self.step))
+        stats = dict(stats)
+        stats["learning_rate"] = lr
+        stats["gradients/global_norm"] = gnorm
+        policy = self.resilience.guard.policy
+        if policy != "off":
+            ok = torch.isfinite(gnorm)
+            if loss is not None:
+                ok = ok & torch.isfinite(loss)
+            ok = bool(ok.item())  # the one host read the guard costs
+            stats[UPDATE_OK_KEY] = float(ok)
+            if policy == "skip" and not ok:
+                return stats
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
         self.step += 1
-        stats = dict(stats)
-        stats["learning_rate"] = lr
-        stats["gradients/global_norm"] = gnorm
         return stats
 
     @staticmethod
@@ -857,16 +912,30 @@ class TorchBaseTrainer(BaseRLTrainer):
 
     def learn(self) -> Dict[str, Any]:
         """Epochs → batches → ``n_updates_per_batch`` updates per batch, with
-        interval checkpoints, interval evaluation and best-reward saves.
-        Resumes first when ``train.resume_from_checkpoint`` is set and
-        :meth:`maybe_resume` has not run yet, and closes the prompt
-        iterator at the end."""
+        interval checkpoints (the retention ring pruning first), interval
+        evaluation and best-reward saves. Resumes first when
+        ``train.resume_from_checkpoint`` is set and :meth:`maybe_resume`
+        has not run yet, and closes the prompt iterator at the end.
+
+        The preemption handler holds SIGTERM/SIGINT for the duration of the
+        loop (an emergency checkpoint at the next step boundary, then
+        :class:`~trlx_tpu_torch.resilience.TrainingPreempted`); any
+        exception closes the profiler window and flushes the tracker before
+        it propagates, so a dying run keeps its stats."""
         self.prepare_learning()
         self.maybe_resume()
         try:
-            return self._learn_loop()
+            with self.resilience.preemption:
+                return self._learn_loop()
+        except BaseException:
+            self.profile.stop()
+            try:
+                self.tracker.finish()
+            except Exception:  # pragma: no cover - defensive, crash path
+                pass
+            raise
         finally:
-            self._close_prompt_iterator()
+            self._stop_prefetch()
 
     def _close_prompt_iterator(self) -> None:
         """Close the prompt iterator at the end of learning, which stops
@@ -906,37 +975,100 @@ class TorchBaseTrainer(BaseRLTrainer):
         return os.path.join(self.config.train.checkpoint_dir,
                             f"checkpoint_{self.iter_count:0{width}d}")
 
-    def _learn_loop(self) -> Dict[str, Any]:
-        results = self.evaluate()
-        self.tracker.log(results, step=self.iter_count)
-        # an offline trainer resumed at update k skips the k updates its
-        # checkpoint holds (a skipped epoch burns its shuffle), so it goes
-        # on where the uninterrupted run was (JAX's emergency-resume
-        # fast-forward); a rollout trainer resumes into a fresh collection
-        skip = 0 if self.collects_rollouts else self.iter_count
+    def _check_faults_and_preemption(self) -> None:
+        """The step-boundary seam, before every update: deliver the fault
+        plan's signals for this step (the installed handler runs at once,
+        so the request is honoured at this boundary), then honour a
+        preemption request: stop the prefetch workers, wait for the card,
+        commit one emergency checkpoint and raise
+        :class:`~trlx_tpu_torch.resilience.TrainingPreempted`."""
+        plan = self.resilience.plan
+        if plan:
+            if plan.poll("sigterm", step=self.iter_count):
+                signal.raise_signal(signal.SIGTERM)
+            if plan.poll("sigint", step=self.iter_count):
+                signal.raise_signal(signal.SIGINT)
+        preemption = self.resilience.preemption
+        if not preemption.requested:
+            return
+        path = self._checkpoint_path()
+        logger.warning("preemption (%s): writing emergency checkpoint to %s",
+                       preemption.signal_received, path)
+        self._stop_prefetch()
+        _sync(self.device)
+        self.save(path, emergency=True)
+        raise TrainingPreempted(
+            f"preempted by {preemption.signal_received}; emergency checkpoint committed at "
+            f"{path} — relaunch with train.resume_from_checkpoint to continue",
+            checkpoint_dir=path)
+
+    def _stop_prefetch(self) -> None:
+        """Stop the train-batch and prompt prefetch workers (closing their
+        generators cancels them between batches)."""
+        if hasattr(self._batch_iter, "close"):
+            self._batch_iter.close()
+        self._batch_iter = None
+        self._close_prompt_iterator()
+
+    def _learn_loop(self) -> Dict[str, Any]:  # noqa: C901
+        # an emergency checkpoint froze the run between two updates: the
+        # loop fast-forwards to that boundary, running no update, evaluation
+        # or callback that came before it (JAX's emergency resume); an
+        # offline trainer resumed from an interval checkpoint at update k
+        # skips its k updates too (a skipped epoch burns its shuffle), while
+        # a rollout trainer resumes into a fresh collection
+        emergency = self._emergency_resume
+        self._emergency_resume = False
+        skip = self.iter_count if emergency or not self.collects_rollouts else 0
         done = 0
+        if emergency:
+            results: Dict[str, Any] = {}
+            logger.info("emergency resume: fast-forwarding to update %d", skip)
+        else:
+            results = self.evaluate()
+            self.tracker.log(results, step=self.iter_count)
+        profile = self.profile
         for _ in range(self.config.train.epochs):
             per_epoch = len(self.train_dataloader) * self.n_updates_per_batch if skip else 0
-            if skip and done + per_epoch <= skip:
+            if done < skip and done + per_epoch <= skip:
                 done += per_epoch
-                self.train_dataloader.advance_epoch()
+                # a rollout trainer builds a fresh loader per collection
+                if not self.collects_rollouts:
+                    self.train_dataloader.advance_epoch()
                 continue
-            for batch in self._maybe_prefetch(self.train_dataloader):
+            epoch_ran = False
+            self._batch_iter = iter(self._maybe_prefetch(self.train_dataloader))
+            for batch in self._batch_iter:
+                batch_ran = False
                 for _ in range(self.n_updates_per_batch):
                     if done < skip:
                         done += 1
                         continue
+                    batch_ran = epoch_ran = True
+                    self._check_faults_and_preemption()
+                    profile.on_step_start(self.iter_count)
                     t0 = time.perf_counter()
-                    device_stats = self.train_step(batch)
-                    stats = host_stats(device_stats)  # one fetch; waits for the step
-                    _sync(self.device)
+                    with profile.step_annotation("train", self.iter_count):
+                        device_stats = self.train_step(batch)
+                        stats = host_stats(device_stats)  # one fetch; waits for the step
+                        _sync(self.device)
                     step_time = time.perf_counter() - t0
+                    # the update guard: skip already kept the old state,
+                    # rollback and halt are host decisions
+                    if self.resilience.guard.after_step(stats) == "rollback":
+                        self._rollback_to_committed()
                     stats["time/step"] = step_time
                     stats["throughput/tokens_per_sec"] = (
                         self._batch_token_count(batch) / step_time if step_time > 0 else 0.0)
+                    stats.update(self.metrics.snapshot())
+                    profile.on_step_end(self.iter_count)
                     self.iter_count += 1
 
                     if self.iter_count % self.config.train.checkpoint_interval == 0:
+                        # the retention ring prunes before the interval save
+                        keep = int(self.resilience.config.keep_last_n)
+                        if keep > 0:
+                            prune_checkpoints(self.config.train.checkpoint_dir, keep)
                         self.save(self._checkpoint_path())
                     if self.iter_count % self.config.train.eval_interval == 0:
                         results = self.evaluate()
@@ -951,6 +1083,7 @@ class TorchBaseTrainer(BaseRLTrainer):
                     logger.info(" | ".join(f"{k}: {significant(v)}" for k, v in stats.items()
                                            if k.startswith("losses/")))
                     if self.iter_count >= self.total_steps:
+                        profile.stop()
                         self._drop_batch_memo()
                         results = self.evaluate()
                         stats.update(results)
@@ -959,11 +1092,35 @@ class TorchBaseTrainer(BaseRLTrainer):
                         self.tracker.finish()
                         return results
                     self.tracker.log(stats, step=self.iter_count)
-                self.post_backward_callback()
-            self._drop_batch_memo()
-            self.post_epoch_callback()
+                # batches an emergency resume fast-forwarded had their
+                # callback before the checkpoint
+                if batch_ran or not emergency:
+                    self.post_backward_callback()
+            if epoch_ran or not emergency:
+                self._drop_batch_memo()
+                self.post_epoch_callback()
+        profile.stop()
         self.tracker.finish()
         return results
+
+    def _rollback_to_committed(self) -> None:
+        """The update guard's rollback: restore the newest committed
+        checkpoint's train state and host state, keeping the loop's
+        position (the poisoned batch is skipped, not retried). Without a
+        committed checkpoint the update has landed and nothing sane is left
+        to continue from: it raises."""
+        root = self.config.train.checkpoint_dir
+        path = newest_committed_checkpoint(root)
+        if path is None:
+            raise NonFiniteUpdateError(
+                f"non-finite update with update_guard='rollback' but no committed checkpoint "
+                f"exists under {root} to restore — halting (lower "
+                "train.checkpoint_interval, or use 'skip')")
+        cur_iter, cur_best = self.iter_count, self.best_reward
+        self.load(path, restore_payload=False)
+        self.iter_count, self.best_reward = cur_iter, cur_best
+        self._drop_batch_memo()
+        logger.warning("rolled back train state to %s", path)
 
     # ------------------------------------------------------------------
     # checkpoints
@@ -973,6 +1130,14 @@ class TorchBaseTrainer(BaseRLTrainer):
         return {}
 
     def _restore_extra_checkpoint_state(self, extra: Dict[str, Any]) -> None:
+        pass
+
+    def _emergency_payload(self) -> Dict[str, Any]:
+        """Host data an exact mid-run resume needs beyond the train state
+        (PPO and GRPO: the rollout store), as tensors and plain values."""
+        return {}
+
+    def _restore_emergency_payload(self, payload: Dict[str, Any]) -> None:
         pass
 
     def _rng_state(self) -> Dict[str, Any]:
@@ -996,24 +1161,36 @@ class TorchBaseTrainer(BaseRLTrainer):
         if "torch_cuda" in state and self.device.type == "cuda":
             torch.cuda.set_rng_state(state["torch_cuda"], self.device)
 
-    def save(self, directory: Optional[str] = None, **kwargs) -> None:
+    def save(self, directory: Optional[str] = None, emergency: bool = False,
+             **kwargs) -> None:
         """Commit model, optimizer, step and the trainer's host state (its
         extra state, the rollout seed stream, torch's generators and the
         prompt-stream position) into ``directory/state.pt``
-        (``utils/checkpoint.py``: staged file, marker, rename)."""
+        (``utils/checkpoint.py``: staged file, marker, rename).
+        ``emergency=True`` (preemption) also freezes the evaluation count
+        and the trainer's payload (the rollout store), so a resumed run
+        continues bitwise from this step boundary."""
         directory = directory or self.config.train.checkpoint_dir
         extra = {"iter_count": self.iter_count, "best_reward": self.best_reward,
                  "prompt_chunks_drawn": self._prompt_chunks_drawn}
         extra.update(self._extra_checkpoint_state())
+        if emergency:
+            extra.update(emergency=True, nth_evaluation=self.nth_evaluation,
+                         payload=self._emergency_payload())
         save_state(directory, {"model": self.model.state_dict(),
                                "optimizer": self.optimizer.state_dict(),
                                "step": self.step, "extra": extra,
                                "rng": self._rng_state()})
 
-    def load(self, directory: Optional[str] = None, **kwargs) -> None:
-        """Restore a committed checkpoint: weights, optimizer, step, the
-        host state, and the prompt stream fast-forwarded to the drawn
-        count it records."""
+    def load(self, directory: Optional[str] = None, restore_payload: bool = True,
+             **kwargs) -> None:
+        """Restore a committed checkpoint: weights, optimizer, step and the
+        host state; with ``restore_payload`` (a resume) also the rollout
+        seed stream, an emergency checkpoint's payload (so ``learn()``
+        fast-forwards to its boundary) and the prompt stream, fast-forwarded
+        to the drawn count it records. The update guard's rollback passes
+        ``restore_payload=False``: its prompt and seed streams are live and
+        go on."""
         directory = directory or self.config.train.checkpoint_dir
         state = load_state(directory)
         self.model.load_state_dict(state["model"])
@@ -1023,7 +1200,13 @@ class TorchBaseTrainer(BaseRLTrainer):
         self.iter_count = int(extra.get("iter_count", 0))
         self.best_reward = float(extra.get("best_reward", self.best_reward))
         self._restore_extra_checkpoint_state(extra)
+        if not restore_payload:
+            return
         self._restore_rng_state(state["rng"])
+        if extra.get("emergency"):
+            self._emergency_resume = True
+            self.nth_evaluation = int(extra.get("nth_evaluation", self.nth_evaluation))
+            self._restore_emergency_payload(extra.get("payload", {}))
         # replay the prompt stream: draw and drop until this run's fresh
         # iterator has drawn what the saved run had
         target = int(extra.get("prompt_chunks_drawn", 0))

@@ -83,6 +83,9 @@ class GRPOTrainer(PPOTrainer):
     def post_backward_callback(self) -> None:
         pass  # the KL coefficient (method.beta) is fixed in the loss
 
+    def _store_element_cls(self) -> type:
+        return GRPORLElement
+
     def _extra_checkpoint_state(self) -> Dict[str, Any]:
         extra = super()._extra_checkpoint_state()
         extra.pop("kl_ctl_value", None)
@@ -241,6 +244,8 @@ class GRPOTrainer(PPOTrainer):
 
     def make_experience(self, num_rollouts: int = 1024, iter_count: int = 0) -> None:
         """Collect grouped rollouts with group-relative advantages."""
+        if self._consume_skip_initial_experience():
+            return
         logger.info("Collecting GRPO rollouts")
         if self.prompt_iterator is None:
             raise RuntimeError("add_prompt_pipeline must be called before make_experience")
@@ -282,6 +287,7 @@ class GRPOTrainer(PPOTrainer):
         self.make_experience_stats = stats
         self.tracker.log(stats, step=iter_count)
         self.store.push(elements[:num_rollouts] if num_rollouts else elements)
+        self._export_rollouts()
 
     # ------------------------------------------------------------------
     # optimization

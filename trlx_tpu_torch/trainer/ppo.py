@@ -30,6 +30,10 @@ Port of ``trlx_tpu/trainer/ppo.py`` (``PPOTrainer``), causal and seq2seq:
   card), then with ``method.loss_kernel: xla`` the staged loss
   (``get_advantages_and_returns``, then ``loss``), with ``pallas`` the
   fused loss kernels; the ``dist/entropy_hist`` sketch;
+- ``train.rollout_logging_dir`` exports the store after every collection
+  (``PPORolloutStorage.export_history``); an emergency checkpoint carries
+  the store (:meth:`_emergency_payload`), and the first collection after
+  its resume is skipped, as the store already holds those rollouts;
 - seq2seq (T5): the prompt feeds the encoder and the decoder is
   teacher-forced on the start token followed by ``response[:-1]``, so
   decoder position i scores response token i (:meth:`_score_seq2seq` and
@@ -37,6 +41,8 @@ Port of ``trlx_tpu/trainer/ppo.py`` (``PPOTrainer``), causal and seq2seq:
 """
 
 import copy
+import dataclasses
+import os
 from collections import deque
 from time import perf_counter
 from typing import Any, Dict, Optional, Tuple
@@ -86,6 +92,10 @@ class PPOTrainer(TorchBaseTrainer):
         self.prompt_iterator = None
         self.mean_kl = 0.0
         self.make_experience_stats: Dict[str, float] = {}
+        self._skip_initial_experience = False
+        self.rollout_logging_dir = config.train.rollout_logging_dir
+        if self.rollout_logging_dir is not None:
+            os.makedirs(self.rollout_logging_dir, exist_ok=True)
 
     def _ref_snapshot(self) -> torch.nn.Module:
         """Frozen reference of the current weights (buffer-owning copies):
@@ -130,6 +140,46 @@ class PPOTrainer(TorchBaseTrainer):
             self.running_moments.std = rm["std"]
             self.running_moments.var = rm["var"]
             self.running_moments.count = rm["count"]
+
+    def _store_element_cls(self) -> type:
+        return PPORLElement
+
+    def _emergency_payload(self) -> Dict[str, Any]:
+        """The rollout store, field by field as tensors (an optional field
+        that is None is left out)."""
+        rows = []
+        for elem in self.store.history:
+            row = {}
+            for f in dataclasses.fields(elem):
+                value = getattr(elem, f.name)
+                if value is not None:
+                    # np.array keeps a scalar field (GRPO's advantage) 0-d
+                    row[f.name] = torch.from_numpy(np.array(value))
+            rows.append(row)
+        return {"store": rows}
+
+    def _restore_emergency_payload(self, payload: Dict[str, Any]) -> None:
+        if "store" not in payload:
+            return
+        cls = self._store_element_cls()
+        self.store.clear_history()
+        self.store.push([cls(**{k: v.item() if v.ndim == 0 else v.numpy()
+                                for k, v in row.items()}) for row in payload["store"]])
+        # the uninterrupted run trains on these rollouts here
+        self._skip_initial_experience = True
+
+    def _consume_skip_initial_experience(self) -> bool:
+        """True once after an emergency resume restored the store."""
+        if self._skip_initial_experience:
+            self._skip_initial_experience = False
+            logger.info("emergency resume: rollout store restored from the checkpoint; "
+                        "skipping the initial collection")
+            return True
+        return False
+
+    def _export_rollouts(self) -> None:
+        if self.rollout_logging_dir is not None:
+            self.store.export_history(location=self.rollout_logging_dir)
 
     @torch.no_grad()
     def _score(self, sequences, prompt_mask, response_tokens, response_mask):
@@ -423,6 +473,8 @@ class PPOTrainer(TorchBaseTrainer):
 
     def make_experience(self, num_rollouts: int = 1024, iter_count: int = 0) -> None:
         """Collect ``num_rollouts`` experiences into the store."""
+        if self._consume_skip_initial_experience():
+            return
         logger.info("Collecting rollouts")
         if self.prompt_iterator is None:
             raise RuntimeError("add_prompt_pipeline must be called before make_experience")
@@ -456,6 +508,7 @@ class PPOTrainer(TorchBaseTrainer):
         self.make_experience_stats = stats
         self.tracker.log(stats, step=iter_count)
         self.store.push(elements[:num_rollouts] if num_rollouts else elements)
+        self._export_rollouts()
 
     # ------------------------------------------------------------------
     # optimization

@@ -14,18 +14,27 @@ as committed only when both the marker and ``state.pt`` are there, so a
 crash mid-save leaves either the previous complete checkpoint or a
 directory that resume skips — never a half-written ``state.pt`` that it
 would load.
+
+:func:`prune_checkpoints` is the retention ring
+(``resilience.keep_last_n``), and the commit polls the fault plan's
+``crash_save@save:N`` after the staged file is written and before the
+marker, as JAX's commit does.
 """
 
 import os
+import shutil
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+from trlx_tpu_torch.resilience.faults import InjectedFault, poll_fault
 
 __all__ = [
     "COMMIT_MARKER",
     "STATE_FILE",
     "is_committed",
     "newest_committed_checkpoint",
+    "prune_checkpoints",
     "save_state",
     "load_state",
 ]
@@ -69,6 +78,20 @@ def newest_committed_checkpoint(root: str) -> Optional[str]:
     return None
 
 
+def prune_checkpoints(root: str, keep_last_n: int) -> List[str]:
+    """The retention ring: delete the committed ``checkpoint_<int>``
+    directories beyond the newest ``keep_last_n``. Uncommitted directories
+    and ``best_checkpoint`` are never touched; 0 disables. Returns the
+    pruned paths."""
+    if keep_last_n <= 0:
+        return []
+    committed = [p for _s, p in _checkpoint_step_dirs(root) if is_committed(p)]
+    pruned = committed[:-keep_last_n]
+    for path in pruned:
+        shutil.rmtree(path, ignore_errors=True)
+    return pruned
+
+
 def _fsync(path: str) -> None:
     fd = os.open(path, os.O_RDONLY)
     try:
@@ -80,12 +103,16 @@ def _fsync(path: str) -> None:
 def save_state(directory: str, state: Dict[str, Any]) -> None:
     """``torch.save`` ``state`` into ``directory/state.pt`` with the atomic
     commit: staged file, marker, rename. The previous checkpoint of the
-    directory stays loadable until the rename."""
+    directory stays loadable until the rename; an injected ``crash_save``
+    raises :class:`~trlx_tpu_torch.resilience.faults.InjectedFault` before
+    the marker."""
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, STATE_FILE)
     staging = path + ".staging"
     torch.save(state, staging)
     _fsync(staging)
+    if poll_fault("crash_save"):
+        raise InjectedFault(f"fault plan: crash before checkpoint commit ({directory})")
     marker = os.path.join(directory, COMMIT_MARKER)
     with open(marker, "w") as f:
         f.write("1\n")
