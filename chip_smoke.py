@@ -97,7 +97,7 @@ Phases, each printing one JSON line:
    must lift its last three evals over its first two by more than 0.1;
 10. the family slice (``FAMILY_SPEC``, Mistral-7B: rotary positions,
    RMSNorm, the gated SiLU MLP, GQA 4:1 at head dim 128, a 4096 window):
-   at full width and 2 of its 32 layers, 16 HTTP requests on 8 slots with
+   at full width and 1 of its 32 layers, 16 HTTP requests on 8 slots with
    4160-token
    prompts (half cut to 512 tokens, left-padded by the engine), so the
    window bites in prefill (#1) and decode (#2), beside the time of the
@@ -105,8 +105,8 @@ Phases, each printing one JSON line:
    (``slice_family_serve``); the same requests at one layer, greedy,
    under the parity rules of phase 4, the bf16 tokens held to
    ``FAMILY_BF16_GAP_TOL`` (``slice_family_parity``); PPO at
-   two layers through ``trlx_tpu_torch.train`` with the hydra branch
-   replaying two rotary blocks, #1–#3 and #5–#8 launching, and two rows
+   one layer through ``trlx_tpu_torch.train`` with the hydra branch
+   replaying its rotary block, #1–#3 and #5–#8 launching, and two rows
    of one batch held card against CPU (``slice_family_train``,
    ``slice_family_train_parity``). Phases 3 and 5 check the kernels at
    this slice's shapes (the 4160-token windowed prefill over 4192 slots,
@@ -186,7 +186,29 @@ Phases, each printing one JSON line:
    guard, a SIGTERM's emergency checkpoint and its resume equal bitwise to
    the uninterrupted run, the retention ring, the JSONL tracker, rollout
    logs and a profiler window naming the flash kernels
-   (``slice_resilience``).
+   (``slice_resilience``);
+16. the rest of serving on GPT-2 small at full width and depth: the prefix
+   cache, chunked prefill, priority preemption and the host tier over HTTP
+   (``slice_serve_prefix``, bf16: :func:`prefix_stream`'s 32 requests of
+   two tenants in six waves on 8 slots, 256-token prompts, chunks of 64, a
+   40-entry cap and a 64-block host tier, no eos token; prefix hits, tier
+   hits and preemptions must all happen, #1–#3 launch as the engine's
+   gauges plus its prewarm say); the same stream in f32 with TF32 off,
+   its greedy answers against a cold engine and the plain ``generate``,
+   warm against cold logprobs, every re-landed block bitwise, the host
+   counters equal to the bf16 run's (``slice_serve_prefix_parity``); and
+   serving inside PPO's ``learn()`` on ``default_ppo_config()`` with the
+   continuous path, the prefix cache, chunks of 32 and ``serve.enabled``,
+   8 streamed greedy requests held against a solo ``generate`` under
+   their version's retained weights, a ``request_flood`` drill
+   (``slice_serve_train``, after ``slice_grpo_parity``, which holds the
+   group-aware harvest with the prefix cache against without as its (d)).
+   Phase 3 checks #1 at these phases' spans (``PREFIX_SPAN_SHAPES``).
+
+Phase 3 and 5 time the plain versions and the library calls only at the
+shapes ``PERF.md`` records (the table's rows and its other shapes); at
+every other shape the kernel alone is timed (``KERNEL_ONLY``), and the
+plain version runs once for the error check.
 
 Before the kernel summary, ``phase_seconds`` gives each phase's wall
 seconds.
@@ -205,6 +227,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -273,7 +296,7 @@ def emit(obj):
 SLEEP_CYCLES_PER_MS = 2.0e6
 
 
-def time_ms(fn, n=50, windows=5, calls=25, warmup=3):
+def time_ms(fn, n=50, windows=5, calls=25, warmup=3, waits=False):
     """``(ms, call_ms)`` of ``fn``, in milliseconds per call.
 
     ``ms`` is device time alone: the card sleeps (``torch.cuda._sleep``)
@@ -290,7 +313,9 @@ def time_ms(fn, n=50, windows=5, calls=25, warmup=3):
     on the main path, where a layer reads what it has just written.
 
     ``call_ms`` is the per-call figure the main path pays, host included:
-    event, one call, event, synchronize; median over ``calls`` calls."""
+    event, one call, event, synchronize; median over ``calls`` calls.
+    ``waits``: ``fn`` is known to wait for the card itself, so ``ms`` is
+    :func:`busy_ms` at once, without the sleeping windows it would fail."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -303,6 +328,8 @@ def time_ms(fn, n=50, windows=5, calls=25, warmup=3):
         b.record()
         b.synchronize()
         per_call.append(a.elapsed_time(b))
+    if waits:
+        return busy_ms(fn), statistics.median(per_call)
     t0 = time.perf_counter()
     for _ in range(n):
         fn()
@@ -347,12 +374,20 @@ def busy_ms(fn, calls=10):
     return _busy_us(spans) / calls / 1e3
 
 
-def timed_pair(kernel, plain, **timing):
-    """Device and per-call times of a kernel and of its plain version
-    (``timing``: :func:`time_ms`'s counts)."""
+# a check's ``timed`` level at the shapes whose times PERF.md does not
+# record: the kernel alone is timed (the plain versions and library calls,
+# host-bound, are timed only at the recorded shapes; ``timed=True``)
+KERNEL_ONLY = "kernel"
+
+
+def timed_pair(kernel, plain, with_plain=True, plain_waits=False, **timing):
+    """Device and per-call times of a kernel and, ``with_plain``, of its
+    plain version (``timing``: :func:`time_ms`'s counts; ``plain_waits``:
+    the plain version waits for the card itself)."""
     rec = {}
     rec["kernel_ms"], rec["call_ms"] = time_ms(kernel, **timing)
-    rec["plain_ms"], rec["plain_call_ms"] = time_ms(plain, **timing)
+    rec["plain_ms"], rec["plain_call_ms"] = (time_ms(plain, waits=plain_waits, **timing)
+                                             if with_plain else (None, None))
     return rec
 
 
@@ -477,32 +512,53 @@ def kernel_resources(name, tensor_cores):
 # ---------------------------------------------------------------------------
 
 
-def paged_inputs(rs, B, T, H, KV, D, bs, S, HB, dtype, dev, poison, window=0):
+def device_generator(rs, dev):
+    """A generator on ``dev`` seeded by the case's numpy stream: the large
+    operands of the kernel checks are drawn on the device, as host draws of
+    billions of values would dominate the checks' time."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rs.randint(0, 2**31 - 1)))
+    return gen
+
+
+def device_randn(rs, dev):
+    """``randn(*shape)`` in f32 on ``dev`` (:func:`device_generator`)."""
+    gen = device_generator(rs, dev)
+    return lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+
+
+def paged_inputs(rs, B, T, H, KV, D, bs, S, HB, dtype, dev, poison, window=0, q_start=None):
     """Random pool/table/bias for one geometry: rows see a random valid
     key prefix (causal over the chunk for T > 1, within ``window`` slots
     of the query when set); table entries past a row's valid columns are
     poisoned out of range when ``poison``; every pool block holds random
-    stale values."""
+    stale values. With ``q_start`` every row's queries sit at the slots
+    ``[q_start, q_start + T)`` (a suffix after a prefix hit, or a chunk
+    span): the committed columns below them are visible, and every column
+    from ``q_start + T`` on is masked. ``vis`` (``[B, T, S]`` bool) is on
+    ``dev``."""
     from trlx_tpu_torch.ops.paged_kv import num_table_blocks
 
+    dev = torch.device(dev)
     TB = num_table_blocks(S, bs)
     NB = 1 + B * TB + 3
-    q = torch.tensor(rs.randn(B, T, H, D), dtype=torch.float32)
-    kp = torch.tensor(rs.randn(NB, bs, KV, D), dtype=torch.float32)
-    vp = torch.tensor(rs.randn(NB, bs, KV, D), dtype=torch.float32)
+    randn = device_randn(rs, dev)
+    q, kp, vp = randn(B, T, H, D), randn(NB, bs, KV, D), randn(NB, bs, KV, D)
     perm = rs.permutation(np.arange(1, NB))[: B * TB].reshape(B, TB)
-    valid = rs.randint(T, S + 1, size=B)  # visible key columns per row
-    end_col = valid[:, None] - T + np.arange(T)[None, :]  # query slots
-    cols = np.arange(S)[None, None, :]
-    vis = (cols <= end_col[:, :, None]) & (rs.rand(B, 1, S) > 0.1)
+    valid = (rs.randint(T, S + 1, size=B) if q_start is None
+             else np.full(B, q_start + T))  # visible key columns per row
+    end_col = torch.as_tensor(valid[:, None] - T + np.arange(T)[None, :],
+                              device=dev)  # query slots
+    cols = torch.arange(S, device=dev)[None, None, :]
+    vis = (cols <= end_col[:, :, None]) & torch.as_tensor(rs.rand(B, 1, S) > 0.1, device=dev)
     if window:
         vis &= end_col[:, :, None] - cols < window
-        vis[np.arange(B)[:, None], np.arange(T)[None, :], end_col] = True
+        vis.scatter_(2, end_col[:, :, None], True)
     else:
         vis[:, :, 0] = True
-    bias = np.where(vis, 0.0, -1e9)[:, None].repeat(HB, axis=1)
+    bias = torch.where(vis, 0.0, -1e9)[:, None].expand(B, HB, T, S)
     if HB > 1:
-        bias = bias + np.where(vis[:, None], rs.randn(B, HB, 1, S) * 0.3, 0.0)
+        bias = bias + torch.where(vis[:, None], randn(B, HB, 1, S) * 0.3, 0.0)
     table = perm.copy()
     if poison:
         for b in range(B):
@@ -512,7 +568,7 @@ def paged_inputs(rs, B, T, H, KV, D, bs, S, HB, dtype, dev, poison, window=0):
     return dict(
         q=f(q), k=f(kp), v=f(vp),
         table=torch.tensor(table, dtype=torch.int32, device=dev),
-        bias=torch.tensor(bias, dtype=torch.float32, device=dev),
+        bias=bias.float().contiguous(),
         vis=vis, TB=TB, NB=NB,
     )
 
@@ -546,7 +602,8 @@ def verify_inputs(rs, B, T, H, KV, D, bs, S, dtype, dev, poison):
         alloc = -(-int(c[b] + rs.randint(0, G + 1)) // bs)  # covers the committed columns
         table[b, :alloc] = perm[b, :alloc]
     table[B - poison:] = NB
-    f = lambda *shape: torch.tensor(rs.randn(*shape), dtype=torch.float32).to(dev, dtype)  # noqa: E731
+    randn = device_randn(rs, dev)
+    f = lambda *shape: randn(*shape).to(dtype)  # noqa: E731
     return dict(
         q=f(B, T, H, D), k=f(NB, bs, KV, D), v=f(NB, bs, KV, D),
         table=torch.tensor(table, dtype=torch.int32, device=dev),
@@ -556,7 +613,7 @@ def verify_inputs(rs, B, T, H, KV, D, bs, S, dtype, dev, poison):
 
 def attention_bound(inp, B, T, H, KV, D, S, HB, dtype):
     elem = torch.finfo(dtype).bits // 8
-    visible_cols = int(inp["vis"].any(axis=1).sum())  # key columns any query needs
+    visible_cols = int(inp["vis"].any(1).sum())  # key columns any query needs
     visible_pairs = int(inp["vis"].sum())  # (query, key) pairs per head
     nbytes = (2 * B * T * H * D * elem  # q in, out
               + 2 * visible_cols * KV * D * elem  # K and V columns read
@@ -566,10 +623,11 @@ def attention_bound(inp, B, T, H, KV, D, S, HB, dtype):
 
 
 def check_attention(kind, B, T, H, KV, D, bs, S, HB, dtype, poison, seed,
-                    timed=False, window=0, timing=None):
+                    timed=False, window=0, timing=None, q_start=None):
     """One paged attention kernel against its plain version; ``window``
     bounds every query's keys to its last ``window`` slots, ``timing``
-    passes :func:`time_ms`'s counts (long shapes)."""
+    passes :func:`time_ms`'s counts (long shapes), ``q_start`` places the
+    queries at a fixed offset (:func:`paged_inputs`)."""
     from trlx_tpu_torch.ops.paged_attention import (
         _gathered_view,
         paged_attention_decode,
@@ -587,7 +645,7 @@ def check_attention(kind, B, T, H, KV, D, bs, S, HB, dtype, poison, seed,
     if kind == "paged_verify":
         inp = verify_inputs(rs, B, T, H, KV, D, bs, S, dtype, dev, poison)
     else:
-        inp = paged_inputs(rs, B, T, H, KV, D, bs, S, HB, dtype, dev, poison, window)
+        inp = paged_inputs(rs, B, T, H, KV, D, bs, S, HB, dtype, dev, poison, window, q_start)
     if kind == "paged_decode":
         q, bias = inp["q"][:, 0].contiguous(), inp["bias"][:, :, 0].contiguous()
         kern, ref = paged_attention_decode, paged_attention_decode_reference
@@ -608,22 +666,27 @@ def check_attention(kind, B, T, H, KV, D, bs, S, HB, dtype, poison, seed,
     tol = 1e-4 if dtype == torch.float32 else 1e-2
     rec = {"phase": "kernel_check", "kernel": kind, "dtype": str(dtype).split(".")[-1],
            "B": B, "T": T, "H": H, "KV": KV, "D": D, "bs": bs, "S": S, "TB": inp["TB"],
-           "HB": HB, "window": window, "poisoned_ids": poison, "max_abs_err": err, "tol": tol}
+           "HB": HB, "window": window, "q_start": q_start, "poisoned_ids": poison,
+           "max_abs_err": err, "tol": tol}
     if not math.isfinite(err) or err > tol:
         emit({**rec, "ok": False})
         raise AssertionError(f"{kind} disagrees with its plain version: {err} > {tol}")
     if timed:
         timing = timing or {}
-        rec.update(timed_pair(lambda: kern(*args), lambda: ref(*args), **timing))
-        # library yardstick: SDPA on a gathered dense view with the same
-        # bias (the gather itself is not timed)
-        kd = _gathered_view(inp["k"], inp["table"], S, H).transpose(1, 2)
-        vd = _gathered_view(inp["v"], inp["table"], S, H).transpose(1, 2)
-        qd = inp["q"].transpose(1, 2)
-        mask = inp["bias"].to(dtype)
-        rec["library_ms"], rec["library_call_ms"] = time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
-            **timing)
+        full = timed is True
+        rec.update(timed_pair(lambda: kern(*args), lambda: ref(*args), full, **timing))
+        rec["library_ms"] = rec["library_call_ms"] = None
+        if full:
+            # library yardstick: SDPA on a gathered dense view with the same
+            # bias (the gather itself is not timed)
+            kd = _gathered_view(inp["k"], inp["table"], S, H).transpose(1, 2)
+            vd = _gathered_view(inp["v"], inp["table"], S, H).transpose(1, 2)
+            qd = inp["q"].transpose(1, 2)
+            mask = inp["bias"].to(dtype)
+            rec["library_ms"], rec["library_call_ms"] = time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(qd, kd, vd,
+                                                                         attn_mask=mask),
+                **timing)
         b_ms, b_by = attention_bound(inp, B, T, H, KV, D, S, HB, dtype)
         rec["bound_ms"], rec["bound_by"] = b_ms, b_by
         rec["bound_us"] = 1e3 * b_ms
@@ -675,17 +738,18 @@ def check_sample(mode, dtype_name, B, V, seed, timed=False):
 
     dev = torch.device("cuda")
     rs = np.random.RandomState(seed)
-    logits = torch.tensor(rs.randn(B, V) * 3.0, dtype=torch.float32)
+    gen = device_generator(rs, dev)
+    logits = 3.0 * torch.randn((B, V), generator=gen, device=dev)
     if dtype_name == "bfloat16":  # bf16 model logits: many exact ties
         logits = logits.to(torch.bfloat16).float()
     if dtype_name == "ilql_f32":
-        logits = torch.tensor(ilql_shaped_logits(B, V, seed))
-    logits = logits.to(dev).contiguous()
+        logits = torch.tensor(ilql_shaped_logits(B, V, seed), device=dev)
+    logits = logits.contiguous()
     settings = sample_mode(mode)
     gumbel = None
     if settings.pop("sample"):
-        u = rs.uniform(1e-7, 1 - 1e-7, size=(B, V))
-        gumbel = torch.tensor(-np.log(-np.log(u)), dtype=torch.float32, device=dev)
+        u = 1e-7 + (1.0 - 2e-7) * torch.rand((B, V), generator=gen, device=dev)
+        gumbel = -torch.log(-torch.log(u))
     before = fused_sample.launches
     tok, lp = fused_sample(logits, gumbel, **settings)
     torch.cuda.synchronize()
@@ -701,7 +765,8 @@ def check_sample(mode, dtype_name, B, V, seed, timed=False):
         raise AssertionError(f"fused_sample {mode} disagrees: {mism} tokens, lp err {err}")
     if timed:
         rec.update(timed_pair(lambda: fused_sample(logits, gumbel, **settings),
-                              lambda: fused_sample_reference(logits, gumbel, **settings)))
+                              lambda: fused_sample_reference(logits, gumbel, **settings),
+                              timed is True))
         rec["library_ms"] = None  # no single PyTorch call computes it
         nbytes = B * V * 4 * (2 if gumbel is not None else 1) + B * 8
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4 * B * V, torch.float32)
@@ -725,7 +790,7 @@ def phase_kernels():
         # a long row (recorded, not gated): the decode's column split over
         # 4 spans of 256 and its merge launch
         check_attention("paged_decode", T=1, dtype=dtype, poison=True, seed=7,
-                        timed=bf, **{**slice_geo, "S": 1000})
+                        timed=bf and KERNEL_ONLY, **{**slice_geo, "S": 1000})
         if bf:
             timed["paged_prefill"], timed["paged_decode"] = pre, dec
         # the bf16 kernel's layout edges: T = 5 (the verify's G + 1, keys
@@ -745,6 +810,20 @@ def phase_kernels():
                               timed=dtype == torch.bfloat16)
         if "kernel_ms" in rec:
             timed["paged_verify"] = rec
+    # the prefix-cache and chunked-prefill spans of the serving phases
+    # (PREFIX_SERVE: P = 256, 40 new tokens, S = 296): the suffix after a
+    # 48-column hit (T = 208, the two-warp layout) and after a 240-column
+    # one (T = 16 = bs: a repeated prompt's hit is capped one block short,
+    # the four-warp layout), and a T = 64 chunk span at offset 128, every
+    # column from its end on masked (timed in bf16)
+    for dtype in (torch.bfloat16, torch.float32):
+        bf = dtype == torch.bfloat16
+        for name, T, q_start in PREFIX_SPAN_SHAPES:
+            rec = check_attention("paged_prefill", B=8, T=T, H=12, KV=12, D=64, bs=16, S=296,
+                                  HB=1, dtype=dtype, poison=True, seed=120 + q_start,
+                                  timed=bf, q_start=q_start)
+            if bf:
+                timed[f"paged_prefill_{name}"] = rec
     # every attention kernel at head dims off the tensor-core templates
     # (padded inside the loads), at 256 (CUDA cores for the span kernel,
     # decode's padded 256) and above (split over the head dim), GQA, in
@@ -762,9 +841,9 @@ def phase_kernels():
             bf = dtype == torch.bfloat16
             geo = dict(B=B, H=H, KV=H, D=D, bs=16, S=S, HB=1)
             pre = check_attention("paged_prefill", T=P, dtype=dtype, poison=True,
-                                  seed=80 + P + B, timed=bf, **geo)
+                                  seed=80 + P + B, timed=bf and KERNEL_ONLY, **geo)
             dec = check_attention("paged_decode", T=1, dtype=dtype, poison=True,
-                                  seed=81 + P + B, timed=bf, **geo)
+                                  seed=81 + P + B, timed=bf and KERNEL_ONLY, **geo)
             if bf:
                 timed[f"paged_prefill_{name}"], timed[f"paged_decode_{name}"] = pre, dec
     # the family slice (Mistral-7B, FAMILY_SERVE): the 4160-token prefill
@@ -779,19 +858,19 @@ def phase_kernels():
         dec = check_attention("paged_decode", T=1, dtype=dtype, poison=True, seed=101,
                               timed=bf, **geo)
         alibi_geo = dict(B=4, H=16, KV=16, D=64, bs=16, S=104, HB=16)
-        check_attention("paged_prefill", T=64, dtype=dtype, poison=True, seed=102, timed=bf,
-                        **alibi_geo)
-        check_attention("paged_decode", T=1, dtype=dtype, poison=True, seed=103, timed=bf,
-                        **alibi_geo)
+        check_attention("paged_prefill", T=64, dtype=dtype, poison=True, seed=102,
+                        timed=bf and KERNEL_ONLY, **alibi_geo)
+        check_attention("paged_decode", T=1, dtype=dtype, poison=True, seed=103,
+                        timed=bf and KERNEL_ONLY, **alibi_geo)
         if bf:
             timed["paged_prefill_family"], timed["paged_decode_family"] = pre, dec
         # the family slice's PPO collections (FAMILY_TRAIN_LAYERS of the same
         # widths): a chunk's 32 slots, 64-token prompts, S = 64 + 40 new
         geo = dict(B=32, H=32, KV=8, D=128, bs=16, S=104, HB=1, window=4096)
         pre = check_attention("paged_prefill", T=64, dtype=dtype, poison=True, seed=105,
-                              timed=bf, **geo)
+                              timed=bf and KERNEL_ONLY, **geo)
         dec = check_attention("paged_decode", T=1, dtype=dtype, poison=True, seed=106,
-                              timed=bf, **geo)
+                              timed=bf and KERNEL_ONLY, **geo)
         if bf:
             timed["paged_prefill_family_train"], timed["paged_decode_family_train"] = pre, dec
     # the MoE slice (Mixtral-8x7B's width, MOE_SERVE): 1024-token prefills
@@ -804,7 +883,7 @@ def phase_kernels():
         pre = check_attention("paged_prefill", T=1024, dtype=dtype, poison=True, seed=110,
                               timed=bf, timing=dict(n=8, windows=3, calls=3), **geo)
         dec = check_attention("paged_decode", T=1, dtype=dtype, poison=True, seed=111,
-                              timed=bf, **geo)
+                              timed=bf and KERNEL_ONLY, **geo)
         if bf:
             timed["paged_prefill_moe"], timed["paged_decode_moe"] = pre, dec
         # (f32 on 16 of the rows: its plain version's [B, H, T, S] scores)
@@ -812,32 +891,34 @@ def phase_kernels():
         pre = check_attention("paged_prefill", T=984, dtype=dtype, poison=True, seed=112,
                               timed=bf, timing=dict(n=4, windows=3, calls=3), **geo)
         dec = check_attention("paged_decode", T=1, dtype=dtype, poison=True, seed=113,
-                              timed=bf, **geo)
+                              timed=bf and KERNEL_ONLY, **geo)
         if bf:
             timed["paged_prefill_grpo_cb"], timed["paged_decode_grpo_cb"] = pre, dec
     timed["fused_sample_grpo_cb"] = check_sample("train", "bfloat16", B=128, V=50257,
-                                                 seed=114, timed=True)
+                                                 seed=114, timed=KERNEL_ONLY)
     for mode in ("served", "greedy"):
-        rec = check_sample(mode, "bfloat16", B=8, V=32000, seed=104, timed=True)
+        rec = check_sample(mode, "bfloat16", B=8, V=32000, seed=104, timed=KERNEL_ONLY)
         if mode == "served":
             timed["fused_sample_family"] = rec
     timed["fused_sample_family_train"] = check_sample("train", "bfloat16", B=32, V=32000,
-                                                      seed=107, timed=True)
+                                                      seed=107, timed=KERNEL_ONLY)
     # the fused sampler: every mode, B = 8 and 32 (timed on bf16-rounded
     # logits), and a 128256-wide row (llama-3's vocabulary)
     for i, mode in enumerate(SAMPLE_MODES):
         for B in (8, 32):
             for dname in ("bfloat16", "float32"):
+                recorded = (mode, B) == ("topp", 8)  # the table's shape
                 rec = check_sample(mode, dname, B=B, V=50257, seed=10 + i + B,
-                                   timed=dname == "bfloat16")
+                                   timed=dname == "bfloat16" and (recorded or KERNEL_ONLY))
                 if (mode, B, dname) == ("topp", 8, "bfloat16"):
                     timed["fused_sample"] = rec
     for mode in ("served", "train", "greedy"):
-        check_sample(mode, "bfloat16", B=8, V=128256, seed=60, timed=True)
+        check_sample(mode, "bfloat16", B=8, V=128256, seed=60, timed=KERNEL_ONLY)
     # the ILQL eval: hook-shaped f32 logits, top-k, sampled, B = 8 and 32
     for i, mode in enumerate(ILQL_SAMPLE_MODES):
         for B in (8, 32):
-            rec = check_sample(mode, "ilql_f32", B=B, V=50257, seed=70 + i + B, timed=True)
+            rec = check_sample(mode, "ilql_f32", B=B, V=50257, seed=70 + i + B,
+                               timed=KERNEL_ONLY)
             if (mode, B) == ("ilql", 32):
                 timed["fused_sample_ilql"] = rec
     # the offline paths' sampler shapes: ILQL's 128 eval slots; the
@@ -845,12 +926,17 @@ def phase_kernels():
     # PPO collection's unfiltered sampling (64 rows) and ILQL's top-k 10
     # (20 eval prompts)
     timed["fused_sample_ilql_128"] = check_sample("ilql", "ilql_f32", B=128, V=50257,
-                                                  seed=90, timed=True)
+                                                  seed=90, timed=KERNEL_ONLY)
     for B in (64, 20):
         check_sample("train", "bfloat16", B=B, V=RANDOMWALKS_VOCAB, seed=91 + B)
     for mode in ("ilql_randomwalks", "ilql_randomwalks_t0.05"):
         check_sample(mode, "ilql_f32", B=20, V=RANDOMWALKS_VOCAB, seed=93)
     return timed
+
+
+# the serving phases' #1 spans over S = 296: (name, T, first query slot)
+PREFIX_SPAN_SHAPES = (("suffix_after_48", 208, 48), ("suffix_after_240", 16, 240),
+                      ("chunk_at_128", 64, 128))
 
 
 # the engine geometry (B, P, S, H, D) the offline paths give #1 and #2:
@@ -890,8 +976,9 @@ F32_TIE_GAP = 1e-4
 BF16_GAP_TOL = 0.05
 
 
-def http_generate(port, body):
-    """POST /v1/generate; returns (status, tokens, n_tokens_reported)."""
+def http_generate(port, body, meta=None):
+    """POST /v1/generate; returns (status, tokens, n_tokens_reported). With
+    ``meta`` (a dict), the response's ``params_version`` lands in it."""
     import http.client
 
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
@@ -906,6 +993,8 @@ def http_generate(port, body):
         return resp.status, None, None
     if not body.get("stream"):
         data = json.loads(raw)
+        if meta is not None:
+            meta["params_version"] = data["params_version"]
         return resp.status, data["tokens"], data["n_tokens"]
     tokens, n_done = [], None
     for event in raw.split("\n\n"):
@@ -917,6 +1006,8 @@ def http_generate(port, body):
         tokens.extend(payload.get("tokens", []))
         if payload.get("done"):
             n_done = payload["n_tokens"]
+            if meta is not None:
+                meta["params_version"] = payload["params_version"]
     return resp.status, tokens, n_done
 
 
@@ -1217,25 +1308,569 @@ def phase_slice(device="cuda", spec="builtin:gpt2-small", slots=8, block_size=16
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the rest of serving — the prefix cache, chunked prefill,
+# priority preemption and the host tier over HTTP, and serving inside PPO
+# ---------------------------------------------------------------------------
+
+# slice_serve_prefix's geometry: GPT-2 small at full width and depth, 8
+# slots, 256-token prompts (each tenant's 192-token system prompt and 64
+# tokens of the request's own), 40 new tokens and no eos token (every
+# request's length, hence the schedule, is fixed), 16-token blocks, chunks
+# of 64, an entry cap of 40 below two tenants' chains (12 shared and 3 own
+# blocks a request: 36 for 8 requests) and a 64-block host tier
+PREFIX_SERVE = dict(slots=8, prompt_len=256, system_len=192, block_size=16, max_new=40,
+                    prefill_chunk=64, cap_blocks=40, tier_blocks=64, segment_len=8)
+# the host counters of the stream: the bf16 and the f32 run read them alike
+PREFIX_COUNTERS = ("refill_prefills", "refilled_rows", "prefill_tokens", "prefill_chunk_calls",
+                   "prefix_lookup_blocks", "prefix_hit_blocks", "prefix_tokens_saved",
+                   "prefix_evicted_blocks", "host_tier_hit_blocks", "host_tier_tokens_saved",
+                   "preempted_rows", "segments", "decode_steps", "harvested")
+# behaviour logprobs of equal greedy tokens, warm (hits, chunks, re-lands)
+# against a cold engine, f32 with TF32 off
+PREFIX_LOGPROB_ATOL = 1e-4
+
+
+def prefix_stream(vocab, geo=PREFIX_SERVE, seed=4321):
+    """The 32 requests of the prefix phases, in waves ``[(requests,
+    steps)]``: each request a dict of ``tenant``, ``class``, ``ids`` (the
+    full prompt), ``greedy`` and ``seed``; ``steps`` the engine steps
+    granted once the wave is in (None: until the engine is idle).
+
+    1. 8 actor requests of tenant A, one step: every slot prefills its
+       first chunk;
+    2. 2 interactive requests of A, arriving while the actors still
+       prefill: they preempt two actor slots, whose committed chunk comes
+       back as a prefix hit;
+    3. 8 actor requests of tenant B, one step; 4. 2 interactive ones of B
+       (B's chains push A's out of the capped cache, into the host tier);
+    5. 6 new actor requests of A, three steps (their prefill, then they
+       decode): A's system prompt re-lands from the tier;
+    6. 6 exact repeats (3 of wave 5, 3 of wave 3), arriving while wave 5
+       decodes: a whole-prompt hit, capped one block short, leaves a
+       16-token suffix, whose prefill stalls the decoding rows.
+
+    Even requests decode greedily, odd ones sample."""
+    rs = np.random.RandomState(seed)
+    P, L = geo["prompt_len"], geo["system_len"]
+    system = {t: rs.randint(0, vocab - 1, L) for t in ("A", "B")}
+    made = []
+
+    def req(tenant, klass, ids=None):
+        if ids is None:
+            ids = np.concatenate([system[tenant], rs.randint(0, vocab - 1, P - L)])
+        made.append({"tenant": tenant, "class": klass, "ids": ids,
+                     "greedy": len(made) % 2 == 0, "seed": len(made)})
+        return made[-1]
+
+    w1 = [req("A", "actor") for _ in range(8)]
+    w2 = [req("A", "interactive") for _ in range(2)]
+    w3 = [req("B", "actor") for _ in range(8)]
+    w4 = [req("B", "interactive") for _ in range(2)]
+    w5 = [req("A", "actor") for _ in range(6)]
+    w6 = [req(r["tenant"], "actor", r["ids"]) for r in w5[:3] + w3[:3]]
+    return [(w1, 1), (w2, None), (w3, 1), (w4, None), (w5, 3), (w6, None)]
+
+
+class GatedEngine:
+    """A ``ContinuousEngine`` behind a gate: the serve pump sees it busy,
+    and steps it, only while the gate grants steps. A wave of requests is
+    all in the engine before the step that must see it, whatever the HTTP
+    handlers' timing, so a stream's schedule (and every host counter) is
+    the same on every run. Everything else is the engine's."""
+
+    def __init__(self, engine):
+        self._engine = engine
+        self._cv = threading.Condition()
+        self._grant = 0  # steps left; -1: until the engine is idle
+        self.completed = []
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    @property
+    def busy(self):
+        with self._cv:
+            return self._engine.busy and self._grant != 0
+
+    def step(self):
+        out = self._engine.step()
+        with self._cv:
+            self.completed.extend(out)
+            if self._grant > 0:
+                self._grant -= 1
+            self._cv.notify_all()
+        return out
+
+    def run_granted(self, steps, timeout=600.0):
+        """Grant ``steps`` (None: until idle) and wait for them."""
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            self._grant = -1 if steps is None else steps
+            while self._grant > 0 or (self._grant == -1 and self._engine.busy):
+                if not self._cv.wait(max(deadline - time.monotonic(), 0.0)):
+                    raise TimeoutError(f"granted steps did not run: {self._grant}")
+            self._grant = 0
+
+
+def serve_prefix_stream(engine, waves, max_new, sync):
+    """Serve ``waves`` over HTTP through ``ServeServer`` on ``engine``
+    behind a :class:`GatedEngine`: each request POSTed on its own thread
+    once the one before it is in the engine (request 0 streamed), then
+    the wave's steps granted. Returns (HTTP results by request, completed
+    sequences by request, server, wall seconds)."""
+    from trlx_tpu_torch.serve.server import ServeServer
+
+    gated = GatedEngine(engine)
+    server = ServeServer(gated, max_queue=64, drain_timeout_s=120.0)
+    server.start(host="127.0.0.1", port=0)
+    base, results, threads = engine._submitted, {}, []
+    t0 = time.perf_counter()
+    try:
+        for requests, steps in waves:
+            for r in requests:
+                i = len(threads)
+                body = {"prompt_ids": r["ids"].tolist(), "tenant": r["tenant"],
+                        "class": r["class"], "seed": r["seed"], "do_sample": not r["greedy"],
+                        "stream": i == 0}
+                th = threading.Thread(
+                    target=lambda i=i, b=body: results.__setitem__(
+                        i, http_generate(server.port, b)), name=f"prefix-client-{i}")
+                th.start()
+                threads.append(th)
+                deadline = time.monotonic() + 60
+                while engine._submitted < base + i + 1:
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(f"request {i} never reached the engine")
+                    time.sleep(0.0005)
+            gated.run_granted(steps)
+        for th in threads:
+            th.join(timeout=300)
+    finally:
+        clean = server.drain(timeout_s=60.0)
+    sync()
+    wall = time.perf_counter() - t0
+    alive = [t.name for t in (server._pump, server._http_thread) if t.is_alive()]
+    if server.pump_error is not None or alive or not clean:
+        raise AssertionError(f"server did not stop cleanly: {server.pump_error!r} "
+                             f"alive={alive} clean={clean}")
+    for i in range(len(threads)):
+        status, toks, n_rep = results.get(i, (None, None, None))
+        if status != 200 or toks is None or len(toks) != max_new or n_rep != max_new:
+            raise AssertionError(f"request {i}: status {status}, tokens {toks}")
+    completed = {c.index - base: c for c in gated.completed}
+    return results, completed, server, wall
+
+
+def recording_tier(max_blocks, block_bytes):
+    """A ``HostTier`` that keeps a device copy of every spilled block and
+    holds each re-landed block to it, bitwise (``checked``, ``unequal``)."""
+    from trlx_tpu_torch.serve.tiering import HostTier
+
+    class _Recording(HostTier):
+        def __init__(self):
+            super().__init__(max_blocks, block_bytes=block_bytes)
+            self.copies, self.checked, self.unequal = {}, 0, 0
+
+        def spill(self, digest, pool, block):
+            if digest not in self:
+                self.copies[digest] = [{n: layer[n][block].clone() for n in ("k", "v")}
+                                       for layer in pool]
+            super().spill(digest, pool, block)
+
+        def reland_many(self, digests, pool, blocks):
+            out = super().reland_many(digests, pool, blocks)
+            for d, b in zip(digests, blocks):
+                same = all(torch.equal(layer[n][b], saved[n])
+                           for layer, saved in zip(pool, self.copies[d]) for n in ("k", "v"))
+                self.checked += 1
+                self.unequal += not same
+            return out
+
+    return _Recording()
+
+
+def prefix_engine(model, cfg, dev, geo=PREFIX_SERVE, prefix=True, tier=None, sample=True):
+    """The prefix phases' engine: ``geo``'s slots, prompt width, blocks,
+    chunks, entry cap and (``tier``) host tier; no eos token."""
+    from trlx_tpu_torch.engine.core import ContinuousEngine
+    from trlx_tpu_torch.ops.paged_kv import PagedSpec, num_table_blocks
+    from trlx_tpu_torch.ops.sampling import GenerationConfig
+    from trlx_tpu_torch.ops.slot_refill import make_slot_refill_fns
+
+    P, N, bs = geo["prompt_len"], geo["max_new"], geo["block_size"]
+    gen = GenerationConfig(max_new_tokens=N, temperature=1.0, top_k=50, top_p=0.95,
+                           do_sample=sample, eos_token_id=None,
+                           pad_token_id=cfg.vocab_size - 1)
+    paged = PagedSpec(bs, 1 + 2 * geo["slots"] * num_table_blocks(P + N, bs) + 8)
+    fns = make_slot_refill_fns(cfg, geo["slots"], P, gen, segment_len=geo["segment_len"],
+                               paged=paged, device=dev)
+    engine = ContinuousEngine(fns, model, gen.pad_token_id, prefix_cache=prefix,
+                              prefix_capacity_blocks=geo["cap_blocks"] if prefix else 0,
+                              prefill_chunk=geo["prefill_chunk"] if prefix else 0)
+    if tier is not None:
+        engine.attach_host_tier(tier)
+    return engine, gen
+
+
+def record_hits(engine):
+    """Each request's final prefix hit in columns (a preempted request is
+    prepared again on re-admission), by engine submission index."""
+    hits, prepare = {}, engine._prepare_row
+
+    def recorded(req, slot):
+        hits[req.index] = prepare(req, slot)
+        return hits[req.index]
+
+    engine._prepare_row = recorded
+    return hits
+
+
+def phase_slice_serve_prefix(device="cuda", spec="builtin:gpt2-small", geo=PREFIX_SERVE,
+                             card="", dtype=None, phase="slice_serve_prefix", tier_cls=None,
+                             overrides=None):
+    """The prefix cache, chunked prefill, priority preemption and the host
+    tier on the served path (bf16): :func:`prefix_stream`'s 32 requests
+    over HTTP through ``ServeServer`` on one engine (:func:`prefix_engine`,
+    its tier ``geo["tier_blocks"]`` blocks), the kernel counters set to 0
+    just before the engine is built and read after the server drained.
+    Prints TTFT p50 of cold (no hit) and warm requests (to the prefill that
+    seeds the first token; a wave's submission time included), decode ms a
+    step, the prefix, tier, chunk, preemption and decode-stall gauges. Fails
+    unless prefix hits, tier hits and preemptions are all > 0, every
+    request got its 40 tokens, and on the card #1–#3 launched, as often as
+    the engine's gauges plus its prewarm say. ``overrides`` (a CPU
+    rehearsal's smaller widths) go to the model's config. Returns
+    (launches, the run)."""
+    from trlx_tpu_torch.engine.core import kernel_launches
+    from trlx_tpu_torch.models.builder import build_causal_lm
+    from trlx_tpu_torch.ops.paged_kv import block_bytes
+    from trlx_tpu_torch.serve.tiering import HostTier
+
+    dev = torch.device(device)
+    extra = dict(overrides or {}, **({} if dtype is None else {"dtype": dtype}))
+    model, cfg = build_causal_lm(spec, seed=0, device=dev, **extra)
+    sync = (lambda: torch.cuda.synchronize()) if dev.type == "cuda" else (lambda: None)
+    waves = prefix_stream(cfg.vocab_size, geo)
+    sync()
+    zero_launch_counts()
+    engine, _ = prefix_engine(model, cfg, dev, geo)
+    make_tier = tier_cls or (lambda n, b: HostTier(n, block_bytes=b))
+    tier = make_tier(geo["tier_blocks"], block_bytes(engine.state.cache))
+    engine.attach_host_tier(tier)
+    engine.begin_collection()
+    hits = record_hits(engine)
+    # -- the main path: HTTP requests through the server ------------------
+    results, completed, server, wall = serve_prefix_stream(engine, waves, geo["max_new"], sync)
+    launches = kernel_launches()
+    # ---------------------------------------------------------------------
+    st = engine.stats
+    gauges = {"paged_prefill": st.prefill_kernel_launches,
+              "paged_decode": st.decode_kernel_launches,
+              "paged_verify": st.verify_kernel_launches,
+              "fused_sample": st.sample_kernel_launches}
+    expected = {k: gauges[k] + engine.prewarm_launches[k] for k in gauges}
+    problems = []
+    if launches != expected:
+        problems.append(f"launches {launches} != gauges + prewarm {expected}")
+    launches = {k: launches[k] for k in SERVE_KERNELS}
+    if dev.type == "cuda" and min(launches.values()) <= 0:
+        problems.append(f"a kernel of the path never launched: {launches}")
+    counters = {k: getattr(st, k) for k in PREFIX_COUNTERS}
+    for name in ("prefix_hit_blocks", "host_tier_hit_blocks", "preempted_rows",
+                 "prefill_chunk_calls"):
+        if counters[name] <= 0:
+            problems.append(f"{name} is {counters[name]}")
+    ttft = {i: c.t_prefill1 - c.t_enqueue for i, c in completed.items()}
+    cold = [ttft[i] for i in ttft if hits.get(i, 0) == 0]
+    warm = [ttft[i] for i in ttft if hits.get(i, 0) > 0]
+    snap, sm, m = tier.snapshot(), server.flat_metrics(), st.metrics()
+    rec = {"phase": phase, "model": spec, "dtype": str(cfg.dtype).split(".")[-1],
+           "geometry": geo, "requests": len(completed), "wall_s": wall,
+           "requests_by_hit_columns": {str(h): sum(1 for v in hits.values() if v == h)
+                                       for h in sorted(set(hits.values()))},
+           "served_tokens": sum(len(r[1]) for r in results.values()),
+           "ttft_p50_cold_s": float(np.median(cold)) if cold else None,
+           "ttft_p50_warm_s": float(np.median(warm)) if warm else None,
+           "cold_requests": len(cold), "warm_requests": len(warm),
+           "serve_ttft_p50_s": sm["serve/ttft_p50"],
+           "decode_step_ms_mean": 1e3 * st.decode_s / max(st.decode_steps, 1),
+           "prefix_hit_rate": m["engine/prefix_hit_rate"],
+           "prefix_tokens_saved": m["engine/prefix_tokens_saved"],
+           "host_tier_hit_blocks": m["engine/host_tier_hit_blocks"],
+           "spilled_blocks": snap["spilled"], "tier": snap,
+           "preempted_rows": st.preempted_rows,
+           "decode_stall_s": {q: m[f"rollout/decode_stall_{q}"] for q in ("p50", "p95", "max")},
+           "counters": counters, "launches": launches, "card": card}
+    emit({**rec, "ok": not problems})
+    if problems:
+        raise AssertionError(f"{phase}: {problems}")
+    return launches, {"counters": counters, "results": results, "completed": completed,
+                      "waves": waves, "engine": engine, "model": model, "cfg": cfg,
+                      "tier": tier}
+
+
+def phase_slice_serve_prefix_parity(reference, device="cuda", spec="builtin:gpt2-small",
+                                    geo=PREFIX_SERVE, card="", overrides=None):
+    """In f32 with TF32 off, the same stream as ``slice_serve_prefix``
+    (``reference``: its return) on the same path: (a) the greedy answers
+    with the cache, chunks and tier equal a cold engine's (no cache, no
+    chunks) and the plain ``generate``'s token for token (a divergence
+    tolerated only at a near tie of the plain path's top-2 logits), their
+    behaviour logprobs within ``PREFIX_LOGPROB_ATOL`` of the cold engine's;
+    (b) every spilled-then-re-landed block bitwise the spilled one; (c) the
+    host counters equal ``slice_serve_prefix``'s."""
+    from trlx_tpu_torch.ops.sampling import generate
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    _, run = phase_slice_serve_prefix(
+        device, spec, geo, card, dtype=torch.float32, phase="slice_serve_prefix_f32",
+        tier_cls=recording_tier, overrides=overrides)
+    model, cfg, completed, tier = run["model"], run["cfg"], run["completed"], run["tier"]
+    requests = [r for wave, _ in run["waves"] for r in wave]
+    greedy = [i for i, r in enumerate(requests) if r["greedy"]]
+    prompts = np.stack([requests[i]["ids"] for i in greedy])
+    masks = np.ones_like(prompts)
+    warm = [completed[i].tokens[completed[i].mask == 1] for i in greedy]
+    cold_engine, gen = prefix_engine(model, cfg, dev, geo, prefix=False)
+    cold_engine.enqueue_prompts(prompts, masks, np.asarray(greedy),
+                                greedy=np.ones(len(greedy), bool))
+    cold_done = {c.index: c for c in cold_engine.run()}
+    cold = [cold_done[j] for j in range(len(greedy))]
+    out = generate(model, torch.tensor(prompts), torch.tensor(masks),
+                   torch.tensor(np.asarray(greedy, np.int64)),
+                   dataclasses.replace(gen, do_sample=False))
+    tok, msk = out.response_tokens.cpu().numpy(), out.response_mask.cpu().numpy()
+    plain = [tok[j][msk[j] == 1] for j in range(len(greedy))]
+    problems, report = [], {}
+    for name, want in (("cold_engine", [c.tokens[c.mask == 1] for c in cold]),
+                       ("plain_generate", plain)):
+        div = greedy_divergences(model, prompts, masks, warm, want)
+        report[name] = div
+        problems += [f"{name}: request {greedy[d['row']]} diverges at {d['position']} "
+                     f"(top-2 gap {d['top2_gap']})" for d in div if d["top2_gap"] >= F32_TIE_GAP]
+    worst = 0.0
+    for j, i in enumerate(greedy):
+        if np.array_equal(completed[i].tokens, cold[j].tokens):
+            worst = max(worst, float(np.abs(completed[i].logprobs - cold[j].logprobs).max()))
+    if not worst <= PREFIX_LOGPROB_ATOL:
+        problems.append(f"warm against cold logprobs differ by {worst}")
+    if tier.checked <= 0 or tier.unequal:
+        problems.append(f"re-landed blocks: {tier.checked} checked, {tier.unequal} unequal")
+    ref = reference["counters"]
+    if run["counters"] != ref:
+        problems.append(f"host counters {run['counters']} != slice_serve_prefix's {ref}")
+    rec = {"phase": "slice_serve_prefix_parity", "model": spec, "dtype": "float32",
+           "tf32": False, "greedy_requests": len(greedy), "divergences": report,
+           "f32_tie_gap_tol": F32_TIE_GAP, "warm_vs_cold_logprob_max_abs_diff": worst,
+           "logprob_atol": PREFIX_LOGPROB_ATOL, "relanded_blocks_checked": tier.checked,
+           "relanded_blocks_unequal": tier.unequal, "counters": run["counters"],
+           "counters_equal": run["counters"] == ref, "card": card}
+    emit({**rec, "ok": not problems})
+    if problems:
+        raise AssertionError(f"slice_serve_prefix_parity: {problems}")
+    zero_launch_counts()
+    return rec
+
+
+# slice_serve_train: PPO on default_ppo_config() on the continuous path
+# with serving inside learn(), 8 steps, 8 streamed greedy requests
+SERVE_TRAIN_STEPS, SERVE_TRAIN_REQUESTS = 8, 8
+SERVE_TRAIN_KERNELS = SERVE_KERNELS + ("flash_fwd", "flash_bwd")
+
+
+def phase_slice_serve_train(device="cuda", spec="builtin:gpt2-small", card="",
+                            total_steps=SERVE_TRAIN_STEPS, n_requests=SERVE_TRAIN_REQUESTS,
+                            n_prompts=None, sections=None):
+    """Serving inside PPO's ``learn()``: ``trlx_tpu_torch.train`` on
+    ``default_ppo_config()`` with ``train.continuous_batching``, the paged
+    engine and its kernels, ``engine.prefix_cache``, ``prefill_chunk`` 32
+    and ``serve.enabled`` (2 slots, ``retain_param_versions`` 4), f32 with
+    TF32 off, ``total_steps`` updates, ``request_flood@step:4``. A client
+    thread streams ``n_requests`` greedy interactive requests through the
+    running server, one at each of an even spread of step boundaries, and
+    keeps the weights of the version each answer is stamped with
+    (``params_for_version``, while retained). The harness paces
+    ``learn()`` so that the answers spread over the run: at a request's
+    step boundary, after the weights are published, the next update waits
+    (at most 120 s, outside the step's timer) for the answer, since on the
+    card eight updates take about a second. After ``learn()`` each
+    answer must equal a solo plain ``generate`` under its version's
+    weights (the near-tie rule), the drill must have shed load with 429s,
+    no serve thread may be alive, and #1–#3 and #5/#6 must have launched.
+    Prints step ms and the served requests' TTFT p50. Returns the
+    launches."""
+    import shutil
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.ops.sampling import generate
+    from trlx_tpu_torch.profile_train import reward_fn, slice_prompts
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    ckpt = _scratch_dir("slice_serve_train")
+    sections = {k: dict(v) for k, v in (sections or {}).items()}
+    for name, values in (
+            ("train", dict(continuous_batching=True)),
+            ("engine", dict(backend="paged", decode_kernel="pallas", prefill_kernel="pallas",
+                            prefix_cache=True, prefill_chunk=32)),
+            ("serve", dict(enabled=True, slots=2, retain_param_versions=4,
+                           drain_timeout_s=120.0)),
+            ("parallel", dict(compute_dtype="float32")),
+            ("resilience", dict(fault_plan="request_flood@step:4"))):
+        sections[name] = {**values, **sections.get(name, {})}
+    config = serial_config(ckpt, spec, total_steps, total_steps, **sections)
+    prompt = np.random.RandomState(77).randint(0, 50000, 48)
+    boundaries = [k * total_steps // n_requests for k in range(n_requests)]
+    answered = {b: threading.Event() for b in boundaries}
+    state = {"server": None, "requests": [], "weights": {}, "error": None}
+
+    def client(trainer):
+        try:
+            deadline = time.monotonic() + 600
+            while trainer._serve is None or not trainer._serve.port:
+                if time.monotonic() > deadline:
+                    raise TimeoutError("the serving frontend never came up")
+                time.sleep(0.002)
+            server = state["server"] = trainer._serve
+            for b in boundaries:
+                # version b is published at the boundary before update b + 1
+                while (server.params_for_version(b) is None and trainer._serve is not None
+                       and trainer.iter_count <= b):
+                    time.sleep(0.002)
+                req, rejection = server.submit(prompt, klass="interactive", stream=True,
+                                               greedy=True)
+                if req is None:
+                    raise AssertionError(f"request at step {b} rejected: {rejection}")
+                state["requests"].append(req)
+                req.wait_done(timeout=300)
+                version = req.snapshot()["params_version"]
+                if version not in state["weights"]:
+                    state["weights"][version] = server.params_for_version(version)
+                answered[b].set()
+        except BaseException as e:  # noqa: BLE001 — re-raised by the phase
+            state["error"] = e
+        finally:
+            for event in answered.values():
+                event.set()
+
+    threads = []
+
+    def hook(trainer):
+        boundary = trainer._check_faults_and_preemption
+
+        def paced():
+            boundary()  # publishes the version the next request is served under
+            if trainer.iter_count in answered:
+                answered[trainer.iter_count].wait(timeout=120)
+
+        trainer._check_faults_and_preemption = paced
+        threads.append(threading.Thread(target=client, args=(trainer,),
+                                        name="serve-train-client", daemon=True))
+        threads[0].start()
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer = trlx_tpu_torch.train(reward_fn=reward_fn,
+                                       prompts=slice_prompts(n_prompts or SERIAL_PROMPTS),
+                                       config=config, device=dev, init_trainer_hook=hook)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    threads[0].join(timeout=300)
+    if state["error"] is not None:
+        raise state["error"]
+    server, problems = state["server"], []
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith("trlx-serve") and t.is_alive()]
+    if alive or trainer._serve is not None or not server.admission.draining:
+        problems.append(f"serving was not drained: alive {alive}")
+    gen, _ = trainer._resolve_gen_config(eval_mode=True,
+                                         max_new_tokens=int(config.serve.max_new_tokens))
+    gen = dataclasses.replace(gen, do_sample=False)
+    P = config.train.seq_length - gen.max_new_tokens
+    ids = np.full((1, P), trainer.tokenizer.pad_token_id, np.int64)
+    mask = np.zeros((1, P), np.int64)
+    ids[0, -len(prompt):], mask[0, -len(prompt):] = prompt, 1
+    checked, versions = [], []
+    for k, req in enumerate(state["requests"]):
+        streamed = []
+        while True:
+            kind, payload = req.next_event(timeout=1.0)
+            if kind == "tokens":
+                streamed.extend(int(t) for t in payload)
+            elif kind != "pending":
+                break
+        snap = req.snapshot()
+        version = snap["params_version"]
+        weights = state["weights"].get(version)
+        if snap["state"] != "DONE" or streamed != [int(t) for t in req.result_tokens]:
+            problems.append(f"request {k}: {snap['state']}, streamed {len(streamed)} tokens")
+            continue
+        if weights is None:
+            problems.append(f"request {k}: version {version}'s weights were not kept")
+            continue
+        versions.append(version)
+        out = generate(weights, torch.tensor(ids), torch.tensor(mask),
+                       torch.zeros(1, dtype=torch.int64), gen)
+        want = out.response_tokens[0][out.response_mask[0] == 1].cpu().numpy()
+        div = greedy_divergences(weights, ids, mask, [np.asarray(streamed)], [want])
+        checked.append({"request": k, "version": version, "tokens": len(streamed),
+                        "ttft_s": snap["ttft_s"], "divergences": div})
+        problems += [f"request {k} (version {version}) diverges at {d['position']} "
+                     f"(gap {d['top2_gap']})" for d in div if d["top2_gap"] >= F32_TIE_GAP]
+    if len(versions) != n_requests or len(set(versions)) < 2:
+        problems.append(f"answers' versions {versions} of {n_requests} requests")
+    sm = server.flat_metrics()
+    if not sm["serve/flood_rejected"] > 0:
+        problems.append(f"the request_flood drill shed nothing: {sm['serve/flood_rejected']}")
+    launches = {k: launches[k] for k in REPLACES}
+    if dev.type == "cuda" and min(launches[k] for k in SERVE_TRAIN_KERNELS) <= 0:
+        problems.append(f"a kernel of the path never launched: {launches}")
+    steps = [st["time/step"] for _, st in trainer.tracker.history if "time/step" in st]
+    rec = {"phase": "slice_serve_train", "model": spec, "dtype": "float32", "tf32": False,
+           "steps": trainer.iter_count, "wall_s": wall,
+           "step_ms_median": 1e3 * float(np.median(steps)) if steps else None,
+           "step_ms": [1e3 * s for s in steps], "answers": checked,
+           "versions_kept": sorted(v for v, w in state["weights"].items() if w is not None),
+           "served_ttft_p50_s": sm["serve/ttft_p50"], "flood_rejected": sm["serve/flood_rejected"],
+           "launches": launches, "card": card}
+    emit({**rec, "ok": not problems})
+    if problems:
+        raise AssertionError(f"slice_serve_train: {problems}")
+    return launches
+
+
 # the family slice: Mistral-7B (mistralai/Mistral-7B-v0.1 config.json: the
 # JAX preset's widths) served with prompts that cross its 4096 window
 FAMILY_SPEC = "builtin:mistral-7b"
-# served at 2 of its 32 layers: with the GRPO and MoE phases the full
+# served at 1 of its 32 layers: with the GRPO and MoE phases the full
 # depth took the script to 896 s of phases (the limit is 800), 8 layers
-# with the preference phases 880 s, 4 with the T5 phases 886 s
-FAMILY_SERVE_LAYERS = 2
+# with the preference phases 880 s, 4 with the T5 phases 886 s, 2 with
+# the serving phases 820 s on a slow host
+FAMILY_SERVE_LAYERS = 1
 FAMILY_SERVE = dict(slots=8, prompt_len=4160, max_new=32, n_requests=16, short_len=512, eos=2)
 # the parity and PPO runs of the family slice at full width, cut in depth:
 # two f32 7B copies and the KV pool exceed 80 GB, Adam over a full-depth 7B
 # exceeds one card; the parity at one layer (two until the GRPO and MoE
-# phases came), the PPO run at two (its hydra branch replays two blocks)
+# phases came), the PPO run at one (two until the serving phases came; its
+# hydra branch replays that block)
 FAMILY_PARITY_LAYERS = 1
 # bf16 serving at this width against f32 (parity (b)): the JAX module's own
 # bf16 pass at 4 layers of these widths, on the CPU over 2048 positions
 # (tests/torch_family_bf16_reading.py), trails f32 by up to 0.196, its
 # 99.9th percentile 0.136; the parity reads 256 positions
 FAMILY_BF16_GAP_TOL = 0.15
-FAMILY_TRAIN_LAYERS = 2
+FAMILY_TRAIN_LAYERS = 1
 
 
 def phase_family_serve(device="cuda", spec=FAMILY_SPEC, card="", layers=FAMILY_SERVE_LAYERS,
@@ -1353,8 +1988,9 @@ def flash_case_inputs(rs, B, T, S, H, KV, D, dtype, dev, left_pad, alibi, q_offs
             mask[b, : rs.randint(0, max(S // 4, 1))] = 0.0
     if dead_keys:
         mask[0, dead_keys[0]:dead_keys[1]] = 0.0
-    f = lambda *shape: torch.tensor(rs.randn(*shape), dtype=torch.float32).to(dev, dtype)  # noqa: E731
-    q, k, v, do = f(B, T, H, D), f(B, S, KV, D), f(B, S, KV, D), f(B, T, H, D)
+    randn = device_randn(rs, dev)
+    q, k, v, do = (randn(*shape).to(dtype)
+                   for shape in ((B, T, H, D), (B, S, KV, D), (B, S, KV, D), (B, T, H, D)))
     alibi_args = [None, None, None]
     if alibi:
         kpos = np.maximum(np.cumsum(mask, axis=1) - 1, 0).astype(np.int32)
@@ -1427,26 +2063,31 @@ def check_flash(label, B, T, S, H, KV, D, dtype, seed, causal=True, q_offset=0, 
         io = elem * (2 * B * T * H * D + 2 * B * S * KV * D)
         fwd_bytes = io + 4 * B * S + 4 * B * H * T
         bwd_bytes = 2 * io + 8 * B * H * T + 4 * B * S
+        full = timed is True
         rec["fwd"] = timed_pair(
             lambda: flash_fwd(q, k, v, mask, *alibi_args, **kw),
-            lambda: flash_fwd_reference(q, k, v, mask, *alibi_args, **kw))
+            lambda: flash_fwd_reference(q, k, v, mask, *alibi_args, **kw), full)
         rec["bwd"] = timed_pair(
             lambda: flash_bwd(q, k, v, mask, *alibi_args, lse, delta, do, **kw),
-            lambda: flash_bwd_reference(q, k, v, mask, *alibi_args, lse, delta, do, **kw))
-        # library yardstick: SDPA with the same boolean mask (GQA repeated),
-        # forward, and its backward alone on a retained graph
-        g = H // KV
-        qd = q.transpose(1, 2).detach().requires_grad_(True)
-        kd = k.repeat_interleave(g, dim=2).transpose(1, 2).detach().requires_grad_(True)
-        vd = v.repeat_interleave(g, dim=2).transpose(1, 2).detach().requires_grad_(True)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        with torch.no_grad():
-            rec["fwd"]["library_ms"], rec["fwd"]["library_call_ms"] = time_ms(
-                lambda: sdpa(qd, kd, vd, attn_mask=vis))
-        ref_out = sdpa(qd, kd, vd, attn_mask=vis)
-        dod = do.transpose(1, 2)
-        rec["bwd"]["library_ms"], rec["bwd"]["library_call_ms"] = time_ms(
-            lambda: torch.autograd.grad(ref_out, (qd, kd, vd), dod, retain_graph=True))
+            lambda: flash_bwd_reference(q, k, v, mask, *alibi_args, lse, delta, do, **kw),
+            full)
+        for part in ("fwd", "bwd"):
+            rec[part]["library_ms"] = rec[part]["library_call_ms"] = None
+        if full:
+            # library yardstick: SDPA with the same boolean mask (GQA
+            # repeated), forward, and its backward alone on a retained graph
+            g = H // KV
+            qd = q.transpose(1, 2).detach().requires_grad_(True)
+            kd = k.repeat_interleave(g, dim=2).transpose(1, 2).detach().requires_grad_(True)
+            vd = v.repeat_interleave(g, dim=2).transpose(1, 2).detach().requires_grad_(True)
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            with torch.no_grad():
+                rec["fwd"]["library_ms"], rec["fwd"]["library_call_ms"] = time_ms(
+                    lambda: sdpa(qd, kd, vd, attn_mask=vis))
+            ref_out = sdpa(qd, kd, vd, attn_mask=vis)
+            dod = do.transpose(1, 2)
+            rec["bwd"]["library_ms"], rec["bwd"]["library_call_ms"] = time_ms(
+                lambda: torch.autograd.grad(ref_out, (qd, kd, vd), dod, retain_graph=True))
         rec["fwd"]["bound_ms"], rec["fwd"]["bound_by"] = bound(fwd_bytes, 4 * D * H * pairs, dtype)
         rec["bwd"]["bound_ms"], rec["bwd"]["bound_by"] = bound(bwd_bytes, 10 * D * H * pairs, dtype)
         rec["visible_pairs_per_head"] = pairs
@@ -1507,6 +2148,7 @@ def check_loss(B, R, use_iw, seed, timed=False):
     )
 
     dev = torch.device("cuda")
+    t0 = time.perf_counter()
     p = LossParams(gamma=1.0, lam=0.95, cliprange=0.2, cliprange_value=0.2, vf_coef=1.0,
                    iw_correction="clip" if use_iw else "off", iw_clip=1.05, dist_sketches=True)
     ops = loss_operands(B, R, seed, dev)[: 7 if use_iw else 6]
@@ -1539,17 +2181,22 @@ def check_loss(B, R, use_iw, seed, timed=False):
         fwd_bytes = 4 * n * len(ops) + 4 * (2 * n + 1 + sc.numel() + hist.numel() + 3)
         bwd_bytes = 4 * n * (len(ops) - 1 + 2) + 4 * (3 + 1) + 4 * 2 * n
         # no single PyTorch call computes either
+        # the plain versions read stats back to the host: they wait for the
+        # card, so they are timed by their kernels' busy time
         rec["fwd"] = {**timed_pair(lambda: fused_loss_fwd(p, ops),
-                                   lambda: fused_loss_fwd_reference(p, ops)),
+                                   lambda: fused_loss_fwd_reference(p, ops), timed is True,
+                                   plain_waits=True),
                       "library_ms": None}
         rec["bwd"] = {**timed_pair(lambda: fused_loss_bwd(p, ops, res, g),
-                                   lambda: fused_loss_bwd_reference(p, ops, wres, g)),
+                                   lambda: fused_loss_bwd_reference(p, ops, wres, g),
+                                   timed is True, plain_waits=True),
                       "library_ms": None}
         # about 60 f32 operations per element forward (GAE, whitening,
         # both clipped losses, stats, sketches), about 40 backward
         rec["fwd"]["bound_ms"], rec["fwd"]["bound_by"] = bound(fwd_bytes, 60 * n, torch.float32)
         rec["bwd"]["bound_ms"], rec["bwd"]["bound_by"] = bound(bwd_bytes, 40 * n, torch.float32)
     fused_loss_fwd.launches, fused_loss_bwd.launches = before
+    rec["seconds"] = time.perf_counter() - t0
     emit({**rec, "ok": True})
     return rec
 
@@ -1560,6 +2207,7 @@ def check_loss(B, R, use_iw, seed, timed=False):
 # the forward's staged shared-memory layout (read from global memory)
 LOSS_SHAPES = ((16, 40), (32, 40), (32, 128), (13, 77), (48, 160))
 LOSS_TIMED = LOSS_SHAPES[:3]
+LOSS_RECORDED = LOSS_SHAPES[:2]
 
 
 def phase_train_kernels():
@@ -1573,7 +2221,7 @@ def phase_train_kernels():
                         timed=bf)
         # (b) the default config's length
         b = check_flash("long", B=4, T=1024, S=1024, H=12, KV=12, D=64, dtype=dtype, seed=22,
-                        timed=bf)
+                        timed=bf and KERNEL_ONLY)
         # (c) GQA, T != S, a query offset, a window, ALiBi, fully masked rows
         check_flash("gqa_window_alibi", B=2, T=77, S=300, H=32, KV=8, D=128, dtype=dtype,
                     seed=23, q_offset=223, window=64, alibi=True, dead_keys=(200, 290))
@@ -1586,7 +2234,7 @@ def phase_train_kernels():
         # and ilql_randomwalks' (timed)
         for i, (B, T, H, D) in enumerate(RIGHT_PAD_FLASH_SHAPES):
             rec = check_flash(f"right_pad_{B}x{T}", B=B, T=T, S=T, H=H, KV=H, D=D, dtype=dtype,
-                              seed=31 + i, right_pad=True, timed=bf)
+                              seed=31 + i, right_pad=True, timed=bf and KERNEL_ONLY)
             if bf:
                 timed[f"flash_right_pad_{B}x{T}"] = rec
         # (f) ppo_randomwalks' train batches: 64 rows of 11 (left-padded
@@ -1597,7 +2245,7 @@ def phase_train_kernels():
         # its window of 4096, timed) and the window biting at 64; bloom-560m's
         # ALiBi over H 16, D 64
         fam = check_flash("family_train", B=16, T=104, S=104, H=32, KV=8, D=128, dtype=dtype,
-                          seed=36, window=4096, timed=bf)
+                          seed=36, window=4096, timed=bf and KERNEL_ONLY)
         check_flash("family_window_64", B=4, T=104, S=104, H=32, KV=8, D=128, dtype=dtype,
                     seed=37, window=64)
         check_flash("bloom_alibi", B=4, T=104, S=104, H=16, KV=16, D=64, dtype=dtype, seed=38,
@@ -1606,7 +2254,7 @@ def phase_train_kernels():
         # prompts ‖ 40 new tokens) and Mixtral's GQA 4:1, D 128 on the task's
         # review openings (32 ‖ 40), timed
         grpo = check_flash("grpo_train", B=32, T=104, S=104, H=12, KV=12, D=64, dtype=dtype,
-                           seed=39, timed=bf)
+                           seed=39, timed=bf and KERNEL_ONLY)
         moe = check_flash("moe_grpo_train", B=32, T=72, S=72, H=32, KV=8, D=128, dtype=dtype,
                           seed=41, timed=bf)
         # (i) the GRPO collections' passes, left-padded at both widths: the
@@ -1655,8 +2303,11 @@ def phase_train_kernels():
             timed["flash_grpo"], timed["flash_moe_grpo"] = grpo, moe
     for B, R in LOSS_SHAPES:
         for use_iw in (False, True):
+            # the table's (16, 40) and T5's (32, 40) in full, (32, 128) the
+            # kernels alone
             rec = check_loss(B, R, use_iw, seed=B * R + use_iw,
-                             timed=(B, R) in LOSS_TIMED and not use_iw)
+                             timed=(B, R) in LOSS_TIMED and not use_iw
+                             and ((B, R) in LOSS_RECORDED or KERNEL_ONLY))
             if (B, R, use_iw) == (16, 40, False):
                 timed["loss"] = rec
     return timed
@@ -1667,10 +2318,12 @@ def phase_train_kernels():
 # ---------------------------------------------------------------------------
 
 def phase_slice_train(device="cuda", spec="builtin:gpt2-small", total_steps=12, card="",
-                      phase="slice_train", model_extra_kwargs=None, ckpt="chip_smoke_train"):
+                      phase="slice_train", model_extra_kwargs=None, ckpt="chip_smoke_train",
+                      num_layers_unfrozen=None):
     """PPO through ``trlx_tpu_torch.trlx.train`` (``model_extra_kwargs``
-    into ``model.model_extra_kwargs``); every kernel counter is set to 0
-    just before and read just after. Returns (trainer, launches)."""
+    into ``model.model_extra_kwargs``, ``num_layers_unfrozen`` in place of
+    the training config's 2); every kernel counter is set to 0 just before
+    and read just after. Returns (trainer, launches)."""
     import trlx_tpu_torch
     from trlx_tpu_torch.profile_train import reward_fn, slice_prompts, train_config
 
@@ -1681,6 +2334,8 @@ def phase_slice_train(device="cuda", spec="builtin:gpt2-small", total_steps=12, 
     config = train_config(ckpt, spec, total_steps)
     if model_extra_kwargs:
         config = config.evolve(model=dict(model_extra_kwargs=model_extra_kwargs))
+    if num_layers_unfrozen is not None:
+        config = config.evolve(model=dict(num_layers_unfrozen=num_layers_unfrozen))
     prompts = slice_prompts()
     start = {}
 
@@ -1715,7 +2370,8 @@ def phase_slice_train(device="cuda", spec="builtin:gpt2-small", total_steps=12, 
     tok_s = [st["throughput/tokens_per_sec"] for st in steps]
     rec = {"phase": phase, "model": spec, "model_extra_kwargs": model_extra_kwargs,
            "dtype": str(trainer.tcfg.dtype).split(".")[-1],
-           "num_layers_unfrozen": 2, "seq_length": 104, "batch_size": 16,
+           "num_layers_unfrozen": trainer.config.model.num_layers_unfrozen,
+           "seq_length": 104, "batch_size": 16,
            "ppo_epochs": 2, "num_rollouts": 64, "chunk_size": 32, "max_new_tokens": 40,
            "optimizer_steps": len(steps), "rollout_collections": len(collections),
            "losses": losses, "wall_s": wall,
@@ -1942,8 +2598,9 @@ def phase_slice_train_parity(trainer, card="cuda", phase="slice_train_parity", r
 def phase_family_train(device="cuda", spec=FAMILY_SPEC, layers=FAMILY_TRAIN_LAYERS, card="",
                        parity_rows=2):
     """``slice_train``'s PPO run on the family slice's spec at ``layers``
-    layers (full width, ``num_layers_unfrozen`` 2: the hydra branch
-    replays the top two blocks with rotary positions), then one batch of
+    layers (full width, ``num_layers_unfrozen`` the smaller of 2 and
+    ``layers``: the hydra branch replays the top blocks with rotary
+    positions), then one batch of
     ``parity_rows`` rows held card against CPU in f32 (the CPU pass of a
     1.1B-parameter model is what bounds the rows). The run's final
     checkpoint (~10 GB) is removed. Returns the launches."""
@@ -1951,7 +2608,8 @@ def phase_family_train(device="cuda", spec=FAMILY_SPEC, layers=FAMILY_TRAIN_LAYE
 
     name = "chip_smoke_family_train"
     trainer, launches = phase_slice_train(device, spec, card=card, phase="slice_family_train",
-                                          model_extra_kwargs={"num_layers": layers}, ckpt=name)
+                                          model_extra_kwargs={"num_layers": layers}, ckpt=name,
+                                          num_layers_unfrozen=min(2, layers))
     shutil.rmtree(os.path.join(ROOT, "build", name), ignore_errors=True)
     phase_slice_train_parity(trainer, card=device, phase="slice_family_train_parity",
                              rows=parity_rows)
@@ -3124,7 +3782,11 @@ def phase_slice_grpo_parity(run, device="cuda", spec="builtin:gpt2-small", card=
     (floored at 1e-5 of the model's largest). Then (c), on ``slice_grpo``'s own run
     (``run``, bf16): a fresh ``train`` resumed from its step-8 checkpoint
     against it, the weights within ``PARITY_GRAD_RTOL`` of the run's
-    largest change and the host state exactly."""
+    largest change and the host state exactly. (d): greedy, the
+    group-aware harvest with ``engine.prefix_cache`` on against the same
+    collection without it, over chunks of the same 8 prompts: the stores
+    equal element for element (the near-tie rule), logprobs within
+    ``GRPO_LOGPROB_ATOL``, with prefix hits > 0."""
     import shutil
 
     import trlx_tpu_torch
@@ -3191,6 +3853,53 @@ def phase_slice_grpo_parity(run, device="cuda", spec="builtin:gpt2-small", card=
     if not worst <= GRPO_LOGPROB_ATOL:
         problems.append(f"(a) logprobs differ by {worst}")
     del stores, cb
+
+    # (d) the group-aware harvest with engine.prefix_cache against without,
+    # greedy: half the preset's rollouts (64) in two chunks of the same
+    # prompts (4 at the preset's groups of 8), so the second chunk's groups
+    # are admitted, as the first chunk's rows harvest, onto committed
+    # chains; the stores equal element for element
+    from trlx_tpu_torch.engine.core import ContinuousEngine
+
+    base = grpo_config("", spec, total_steps, checkpoint_interval, True, **f32).method
+    rollouts = base.num_rollouts // 2
+    chunk = rollouts // 2
+    repeated, stores_d = slice_prompts(max(chunk // base.group_size, 1)), {}
+    for prefix in (False, True):
+        config = grpo_config(os.path.join(ROOT, "build", "chip_smoke_grpo_parity"), spec,
+                             total_steps, checkpoint_interval, True,
+                             **{**f32, "method": {**f32["method"], "chunk_size": chunk,
+                                                  "num_rollouts": rollouts},
+                                "engine": {**f32.get("engine", {}), "prefix_cache": prefix}})
+        t = GRPOTrainer(config=config, reward_fn=drawn_reward(), device=dev)
+        width = config.train.seq_length - config.method.gen_kwargs["max_new_tokens"]
+        t.add_prompt_pipeline(PromptPipeline(repeated, width, t.tokenizer))
+        t.make_experience(config.method.num_rollouts)
+        t._close_prompt_iterator()
+        engines = [e for e in t._generate_fns.values() if isinstance(e, ContinuousEngine)]
+        stores_d[prefix] = (t, sum(e.stats.prefix_hit_blocks for e in engines))
+    (cold_t, _), (warm_t, hits) = stores_d[False], stores_d[True]
+    cold_s, warm_s = cold_t.store.history, warm_t.store.history
+    unequal = [i for i, (a, b) in enumerate(zip(cold_s, warm_s))
+               if not np.array_equal(a.response_tensor, b.response_tensor)]
+    worst_d = max((float(np.abs(np.asarray(getattr(a, f)) - np.asarray(getattr(b, f))).max())
+                   for i, (a, b) in enumerate(zip(cold_s, warm_s)) if i not in unequal
+                   for f in ("logprobs", "ref_logprobs")), default=0.0)
+    ties_d = greedy_divergences(
+        cold_t.model, [np.asarray(cold_s[i].query_tensor) for i in unequal],
+        [np.ones(len(cold_s[i].query_tensor), np.int64) for i in unequal],
+        [warm_s[i].response_tensor for i in unequal],
+        [cold_s[i].response_tensor for i in unequal]) if unequal else []
+    rec["d_prefix_cache"] = {"rows": [len(cold_s), len(warm_s)], "prefix_hit_blocks": hits,
+                             "unequal_rows": len(unequal), "divergences": ties_d,
+                             "logprob_max_abs_diff": worst_d, "atol": GRPO_LOGPROB_ATOL}
+    if len(cold_s) != len(warm_s) or hits <= 0:
+        problems.append(f"(d) rows {len(cold_s)} / {len(warm_s)}, prefix hits {hits}")
+    problems += [f"(d) row {unequal[j]} diverges" for j, t in enumerate(ties_d)
+                 if t["top2_gap"] >= F32_TIE_GAP]
+    if not worst_d <= GRPO_LOGPROB_ATOL:
+        problems.append(f"(d) logprobs differ by {worst_d}")
+    del stores_d, cold_t, warm_t, cold_s, warm_s
 
     # (b) one batch on the card's kernels against the CPU's plain attention,
     # after one optimizer step on the card: the ratio leaves 1 and the KL 0.
@@ -4474,8 +5183,9 @@ REMAT_SPEC = "builtin:llama-7b"
 # in the policies phase must fit beside the f32 weights and the gradients
 # JAX's semantics keep for every layer (it does not at 32), and the
 # phases share the 800 s line (on an H100 the whole depth under "minimal"
-# took 61.8 s and 64.8 GB, 8 layers 30.5 s: PERF.md)
-REMAT_LAYERS = 4
+# took 61.8 s and 64.8 GB, 8 layers 30.5 s: PERF.md; 4 until the serving
+# phases came)
+REMAT_LAYERS = 2
 # the flash kernels each policy launches per layer of one training forward
 # and backward: the forward kernel runs again in the backward under remat
 REMAT_FLASH_FWD_PER_LAYER = {"none": 1, "minimal": 2, "full": 2}
@@ -4904,6 +5614,11 @@ def run_phases(clocked, seconds):
     timed = clocked(phase_kernels)
     timed_train = clocked(phase_train_kernels)
     serve_launches = clocked(phase_slice, card=smi)
+    prefix_launches, prefix_run = clocked(phase_slice_serve_prefix, card=smi)
+    clocked(phase_slice_serve_prefix_parity, prefix_run, card=smi)
+    del prefix_run
+    gc.collect()
+    torch.cuda.empty_cache()
     trainer, train_launches = clocked(phase_slice_train, card=smi)
     clocked(phase_slice_train_parity, trainer)
     del trainer
@@ -4917,6 +5632,9 @@ def run_phases(clocked, seconds):
                                   _as="slice_grpo_cb")
     clocked(phase_slice_grpo_parity, grpo_run, card=smi)
     del grpo_run
+    torch.cuda.empty_cache()
+    serve_train_launches = clocked(phase_slice_serve_train, card=smi)
+    gc.collect()
     torch.cuda.empty_cache()
     sft, sft_launches = clocked(phase_slice_sft, card=smi)
     ilql, ilql_launches = clocked(phase_slice_ilql, card=smi)
@@ -4961,7 +5679,8 @@ def run_phases(clocked, seconds):
     emit({"phase": "phase_seconds", **seconds, "total": sum(seconds.values())})
     # a served run counts the engine's kernels; nothing else launches there
     served = {k: 0 for k in REPLACES}
-    by_path = {"serve": {**served, **serve_launches}, "train": train_launches,
+    by_path = {"serve": {**served, **serve_launches},
+               "serve_prefix": {**served, **prefix_launches}, "train": train_launches,
                "spec": spec_launches, "serial": serial_launches,
                "serial_spec": serial_spec_launches, "sft": sft_launches, "ilql": ilql_launches,
                "randomwalks_ppo": randomwalks["ppo"], "randomwalks_ilql": randomwalks["ilql"],
@@ -4970,7 +5689,8 @@ def run_phases(clocked, seconds):
                "moe_serve": {**served, **moe_serve}, "moe_grpo": moe_grpo,
                "dpo": dpo_launches, "reward": reward_launches, "dpo_lora": dpo_lora_launches,
                "t5_ppo": t5_ppo_launches, "t5_ilql": t5_ilql_launches,
-               "remat": remat_launches, "resilience": resilience_launches}
+               "remat": remat_launches, "resilience": resilience_launches,
+               "serve_train": serve_train_launches}
     kernels = [kernel_record(name, serve_launches[name], timed[name]["max_abs_err"], timed[name],
                              by_path)
                for name in SERVE_KERNELS]

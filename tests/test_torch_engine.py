@@ -223,10 +223,16 @@ def test_rejects_unported_configurations(lm):
     with pytest.raises(ValueError, match="speculative"):
         make_slot_refill_fns(tcfg, B, P, cfg, paged=paged, speculative=2, device="cpu")
     fns = make_slot_refill_fns(tcfg, B, P, cfg, paged=paged, device="cpu")
-    with pytest.raises(ValueError, match="prefix cache"):
-        ContinuousEngine(fns, model, PAD, prefix_cache=True)
-    with pytest.raises(ValueError, match="chunked prefill"):
-        ContinuousEngine(fns, model, PAD, prefill_chunk=4)
+    # the prefix cache and chunked prefill run on the plain engine; with
+    # speculation they stay refused, each naming its setting
+    spec_fns = make_slot_refill_fns(tcfg, B, P, cfg, paged=paged, speculative=2,
+                                    device="cpu", draft_cfg=tcfg)
+    with pytest.raises(ValueError, match="engine.prefix_cache"):
+        ContinuousEngine(spec_fns, (model, model), PAD, prefix_cache=True)
+    with pytest.raises(ValueError, match="engine.prefill_chunk"):
+        ContinuousEngine(spec_fns, (model, model), PAD, prefill_chunk=4)
+    with pytest.raises(ValueError, match="prefill_chunk"):
+        ContinuousEngine(fns, model, PAD, prefill_chunk=-1)
     engine = ContinuousEngine(fns, model, PAD, prewarm=False)
     with pytest.raises(ValueError, match="padded width"):
         engine.enqueue_prompts(np.zeros((1, P + 1)), np.ones((1, P + 1)), [0])

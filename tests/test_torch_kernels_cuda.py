@@ -23,10 +23,13 @@ batches) at SFT's training shape and ragged ones; for the fused sampler
 vocabularies of 97, 50257 and 128256 over B = 1, 8 and 32 in every mode
 the paths meet, f32 logits shaped by the ILQL hook under top-k, a row with
 one finite logit and bit-equal repeated calls; for the fused loss IW on and
-off, a masked row and values on the clip bounds. ``chip_smoke.py`` makes the
+off, a masked row and values on the clip bounds; the paged span kernel at
+the serving phases' prefix-cache and chunked-prefill spans (a suffix after
+a 48- and a 240-column hit, a 64-query chunk at offset 128). ``chip_smoke.py`` makes the
 same comparison at the serving and training shapes.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -58,7 +61,7 @@ from trlx_tpu_torch.ops.fused_loss import (
     fused_loss_fwd_reference,
 )
 
-from chip_smoke import ILQL_SAMPLE_MODES, ilql_shaped_logits
+from chip_smoke import ILQL_SAMPLE_MODES, PREFIX_SPAN_SHAPES, ilql_shaped_logits, paged_inputs
 from torch_kernel_cases import (
     CUDA_GEOMETRIES,
     CUDA_PREFERENCE_FLASH_SHAPES,
@@ -136,6 +139,25 @@ def test_cuda_verify_matches_plain_version(cuda, case, dtype):
     # the verify counts its own launches of the prefill kernel
     assert (paged_verify_attention.launches, paged_prefill_attention.launches) == (
         before[0] + 1, before[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,T,q_start", PREFIX_SPAN_SHAPES)
+def test_cuda_prefill_at_the_prefix_and_chunk_spans(cuda, name, T, q_start, dtype):
+    """#1 at ``chip_smoke.py``'s serving spans over S = 296 (GPT-2 small's
+    heads, blocks of 16): the queries at ``[q_start, q_start + T)``, the
+    committed columns below them visible, every column from the span's
+    end on masked."""
+    inp = paged_inputs(np.random.RandomState(q_start), 8, T, 12, 12, 64, 16, 296, 1, dtype,
+                       cuda, True, q_start=q_start)
+    args = [inp["q"], inp["k"], inp["v"], inp["table"], inp["bias"]]
+    before = paged_prefill_attention.launches
+    out = paged_prefill_attention(*args)
+    assert out.dtype == dtype and out.is_cuda
+    want = paged_prefill_attention_reference(*_as_f32(args))
+    torch.testing.assert_close(out.float(), want, atol=_TOL[dtype], rtol=0)
+    assert paged_prefill_attention.launches == before + 1
 
 
 # head dims off the tensor-core kernels' templates (12, 48, 96: padded

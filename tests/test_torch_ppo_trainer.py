@@ -204,10 +204,19 @@ def test_train_entry_point_end_to_end(tmp_path):
     "override,setting",
     [
         ({"async_rl": {"enabled": True}}, "async_rl.enabled"),
-        ({"serve": {"enabled": True}}, "serve.enabled"),
-        ({"engine": {"prefix_cache": True}}, "engine.prefix_cache"),
-        ({"engine": {"prefill_chunk": 8}}, "engine.prefill_chunk"),
+        # serving inside the trainer, the prefix cache and chunked prefill
+        # run (tests/test_torch_serve_training.py, test_torch_prefix_cache.py,
+        # test_torch_chunked_prefill.py); JAX's serve.* checks refuse
+        ({"train": {"continuous_batching": False}, "serve": {"enabled": True}},
+         "serve.enabled"),
+        ({"serve": {"enabled": True, "host_tier_blocks": 4}}, "serve.host_tier_blocks"),
+        ({"serve": {"enabled": True, "slots": 2, "reserve_slots": 2}}, "serve.reserve_slots"),
+        ({"serve": {"enabled": True, "default_class": "vip"}}, "serve.default_class"),
         ({"engine": {"speculative": 2}}, "engine.speculative"),
+        # speculation with the prefix cache stays out of the port
+        ({"engine": {"speculative": 2, "prefix_cache": True},
+          "model": {"draft_model_path": "builtin:gpt2-test"}},
+         "engine.speculative with engine.prefix_cache"),
         ({"engine": {"decode_kernel": "xla"}}, "engine.decode_kernel"),
         ({"engine": {"prefill_kernel": "xla"}}, "engine.prefill_kernel"),
         # the JAX trainer's checks: the paged knobs need the paged backend
@@ -235,8 +244,6 @@ def test_train_entry_point_end_to_end(tmp_path):
         # a draft whose vocabulary is not the policy's (50257 against 259)
         ({"model": {"draft_model_path": "builtin:gpt2-small"}}, "model.draft_model_path"),
         ({"resilience": {"fault_plan": "weight_sync_drop@version:2"}}, "resilience.fault_plan"),
-        ({"resilience": {"fault_plan": "slow_client@request:1"}}, "resilience.fault_plan"),
-        ({"resilience": {"fault_plan": "request_flood@step:1"}}, "resilience.fault_plan"),
         ({"resilience": {"fault_plan": "sigterm@step:2; flightrec_dump@step:1"}},
          "resilience.fault_plan"),
         ({"resilience": {"fault_plan": "health_trip@step:1"}}, "resilience.fault_plan"),

@@ -5,6 +5,7 @@ from trlx_tpu_torch.engine.allocator import (  # noqa: F401
     BlockPoolExhausted,
     TenantQuotaExceeded,
 )
+from trlx_tpu_torch.engine.prefix_cache import PrefixCache  # noqa: F401
 from trlx_tpu_torch.engine.core import (  # noqa: F401
     SERVE_CLASSES,
     CompletedSequence,

@@ -1,10 +1,10 @@
 """The generation engines: the serial dense engine and the
 continuous-batching engine over the paged block pool.
 
-Port of ``trlx_tpu/engine/core.py`` for the paged path without the prefix
-cache and chunked prefill (``prefix_cache=False``, ``prefill_chunk=0``):
-:class:`Engine`, :class:`SerialEngine`, :class:`ContinuousEngine`,
-:class:`EngineStats` and :class:`CompletedSequence`.
+Port of ``trlx_tpu/engine/core.py``'s paged path: :class:`Engine`,
+:class:`SerialEngine`, :class:`ContinuousEngine`, :class:`EngineStats` and
+:class:`CompletedSequence`, with the prefix cache, chunked prefill, the
+host tier and priority preemption.
 
 :class:`SerialEngine` is plain batch generation behind the engine
 interface: it wraps the trainer's serial rollout program
@@ -12,14 +12,37 @@ interface: it wraps the trainer's serial rollout program
 ``ops/speculative.py::generate_speculative``) unchanged, and each
 :meth:`SerialEngine.step` reproduces one such call on a submitted chunk.
 
-The engine is the host half: a queue of prompts, ``B`` slots, a
+The continuous engine is the host half: a queue of prompts, ``B`` slots, a
 refcounted :class:`~trlx_tpu_torch.engine.allocator.BlockAllocator` over
 the pool and a host mirror of the block table. Each :meth:`step` admits
 queued prompts into free slots (best priority class first, FIFO within a
-class), prefills them in place, grows live rows' tables lazily to cover
-the next segment, runs one decode segment (``ops/slot_refill.py``) and
-harvests finished slots in slot order. A harvested sequence equals a solo
-``ops/sampling.py::generate`` of the same prompt and seed.
+class), runs one prefill span for every still-prefilling slot, grows the
+decoding rows' tables lazily to cover the next segment, runs one decode
+segment (``ops/slot_refill.py``) and harvests finished slots in slot
+order. A harvested sequence equals a solo ``ops/sampling.py::generate``
+of the same prompt and seed.
+
+- **Prefix cache** (``prefix_cache=True``): admission matches the row's
+  padded prompt against the tenant's radix chain
+  (``engine/prefix_cache.py``), retains the matched blocks, re-lands
+  chunks the host tier holds beyond them, and prefills only the suffix
+  (the refill at ``hit``); a seeded row's full prompt blocks are committed
+  after the prefill that finished them. Committed KV is valid only under
+  the weights that computed it: adopting changed weights flushes the
+  cache and the tier. The trainers' engines read the policy's live
+  weights, which an optimizer step changes in place, so they pass a
+  version (the trainer's weights counter) and the flush follows it, not
+  the module's identity.
+- **Chunked prefill** (``prefill_chunk=c``): an admitted prompt prefills
+  one span per :meth:`step`, up to the next absolute multiple of ``c``,
+  between decode segments; mid-prompt spans run the cache-only chunk
+  program, the last the refill at ``hit = start``. Leading all-pad
+  columns are skipped (``first_real``). ``rollout/decode_stall_*``
+  measure how long decoding rows waited on prefill work.
+- **Priority preemption**: queued higher-class requests vacate
+  still-prefilling lower-class slots at a step boundary; the victim's
+  committed chunks enter its tenant's chain first, so its work comes back
+  as a prefix hit. ``reserve_slots`` holds slots for interactive traffic.
 
 Speculative segments (``fns.speculative = G > 0``): the engine's params
 are a ``(target, draft)`` tuple, adopted as one object by
@@ -29,7 +52,7 @@ columns; a segment may commit up to ``segment_len · (G + 1)`` tokens per
 row, so tables grow by that much, and after each segment every row's
 committed length is read from the device ``step``. A harvested sequence
 equals a solo ``ops/speculative.py::generate_speculative`` of the row.
-``EngineStats.spec_*`` feed the ``engine/spec_*`` gauges.
+The prefix cache and chunked prefill are not ported with speculation.
 
 Kernel gauges: ``engine/decode_kernel_launches``,
 ``engine/prefill_kernel_launches``, ``engine/verify_kernel_launches`` and
@@ -53,6 +76,7 @@ from trlx_tpu_torch.engine.allocator import (
     BlockPoolExhausted,
     TenantQuotaExceeded,
 )
+from trlx_tpu_torch.engine.prefix_cache import PrefixCache
 from trlx_tpu_torch.ops.paged_attention import (
     fused_sample,
     paged_attention_decode,
@@ -120,6 +144,9 @@ class _Request:
     t_refill1: float = 0.0
     tenant: Optional[str] = None
     klass: str = "actor"
+    # chunked prefill: the next prompt column to prefill (None = prefill
+    # done, or the row is not in a slot)
+    prefill_pos: Optional[int] = None
 
 
 @dataclass
@@ -141,9 +168,24 @@ class EngineStats:
     kv_blocks_total: int = 0
     kv_blocks_in_use: int = 0  # high-water blocks simultaneously held
     kv_bytes_high_water: int = 0
-    prefill_tokens: int = 0
+    prefill_tokens: int = 0  # prompt columns actually prefilled
+    prefill_chunk_calls: int = 0  # mid-prompt chunk program calls
+    # wall seconds of prefill work that ran while >= 1 decoding slot waited,
+    # one sample per such prefill event
     decode_stall_s: float = 0.0
     decode_stall_samples: List[float] = field(default_factory=list)
+    # prefix cache
+    prefix_enabled: bool = False
+    prefix_lookup_blocks: int = 0
+    prefix_hit_blocks: int = 0
+    prefix_tokens_saved: int = 0  # prompt columns not prefilled
+    prefix_evicted_blocks: int = 0
+    # host tier: evicted prefix blocks re-landed instead of prefilled
+    host_tier_enabled: bool = False
+    host_tier_hit_blocks: int = 0
+    host_tier_tokens_saved: int = 0
+    # still-prefilling lower-class slots vacated for higher-class requests
+    preempted_rows: int = 0
     # kernel launches during this collection (deltas of the wrappers'
     # counters since the collection began)
     decode_kernel_launches: int = 0
@@ -185,6 +227,16 @@ class EngineStats:
             return 0.0
         return self.spec_committed / self.spec_live_rounds
 
+    @property
+    def prefix_hit_rate(self) -> float:
+        if self.prefix_lookup_blocks == 0:
+            return 0.0
+        return self.prefix_hit_blocks / self.prefix_lookup_blocks
+
+    @property
+    def decode_stall_max(self) -> float:
+        return float(max(self.decode_stall_samples)) if self.decode_stall_samples else 0.0
+
     @staticmethod
     def _pct(samples: List[float], q: float) -> float:
         return float(np.percentile(np.asarray(samples), q)) if samples else 0.0
@@ -212,12 +264,22 @@ class EngineStats:
             "memory/kv_cache_bytes": float(self.kv_cache_bytes),
             "rollout/decode_stall_p50": self._pct(self.decode_stall_samples, 50.0),
             "rollout/decode_stall_p95": self._pct(self.decode_stall_samples, 95.0),
+            "rollout/decode_stall_max": self.decode_stall_max,
+            "rollout/prefill_chunks": float(self.prefill_chunk_calls),
             "engine/kv_blocks_in_use": float(self.kv_blocks_in_use),
             "engine/block_pool_occupancy": self.kv_blocks_in_use / max(self.kv_blocks_total, 1),
             "engine/decode_kernel_launches": float(self.decode_kernel_launches),
             "engine/prefill_kernel_launches": float(self.prefill_kernel_launches),
             "engine/sample_kernel_launches": float(self.sample_kernel_launches),
         }
+        if self.prefix_enabled:
+            stats["engine/prefix_hit_rate"] = self.prefix_hit_rate
+            stats["engine/prefix_tokens_saved"] = float(self.prefix_tokens_saved)
+        if self.preempted_rows:
+            stats["engine/preempted_rows"] = float(self.preempted_rows)
+        if self.host_tier_enabled:
+            stats["engine/host_tier_hit_blocks"] = float(self.host_tier_hit_blocks)
+            stats["engine/host_tier_tokens_saved"] = float(self.host_tier_tokens_saved)
         if self.spec_gamma:
             stats["engine/spec_acceptance_rate"] = self.spec_acceptance_rate
             stats["engine/spec_tokens_per_round"] = self.spec_tokens_per_round
@@ -342,6 +404,9 @@ class ContinuousEngine(Engine):
     block pool. ``fns`` come from
     :func:`trlx_tpu_torch.ops.slot_refill.make_slot_refill_fns`; ``model``
     is the served ``CausalTransformer`` (its device must be ``fns.device``).
+    ``prefix_cache`` turns on shared-prefix prefill skipping (capped at
+    ``prefix_capacity_blocks`` entries when > 0); ``prefill_chunk`` the
+    chunked-prefill scheduling (see the module docstring).
     """
 
     def __init__(
@@ -351,12 +416,20 @@ class ContinuousEngine(Engine):
         pad_token_id: int,
         prewarm: bool = True,
         prefix_cache: bool = False,
+        prefix_capacity_blocks: int = 0,
         prefill_chunk: int = 0,
     ):
-        if prefix_cache:
-            raise ValueError("the prefix cache is not ported yet (prefix_cache=False)")
-        if prefill_chunk:
-            raise ValueError("chunked prefill is not ported yet (prefill_chunk=0)")
+        self._gamma = int(fns.speculative)
+        self._chunk = int(prefill_chunk)
+        if self._chunk < 0:
+            raise ValueError(f"prefill_chunk {self._chunk} must be >= 0")
+        if self._gamma and prefix_cache:
+            raise ValueError("engine.speculative with engine.prefix_cache: the speculative "
+                             "refill prefills whole prompts (prefix hits are not ported "
+                             "with speculation)")
+        if self._gamma and self._chunk:
+            raise ValueError("engine.speculative with engine.prefill_chunk: chunked prefill "
+                             "is not ported with speculation")
         self.fns = fns
         self.params = model
         self.pad_token_id = int(pad_token_id)
@@ -364,15 +437,18 @@ class ContinuousEngine(Engine):
         self.B = fns.batch_size
         self.P = fns.prompt_len
         self.N = fns.max_new_tokens
-        self._gamma = int(fns.speculative)
         self._S = self.P + self.N + self._gamma
         self._queue: deque = deque()
         self._slots: List[Optional[_Request]] = [None] * self.B
+        # True once the slot's final prefill span ran (the refill seeded its
+        # state row); a still-prefilling slot neither decodes nor harvests
+        self._seeded: List[bool] = [False] * self.B
         self._submitted = 0
         self.stats = EngineStats()
-        # serving hooks of the JAX engine that this slice leaves out
+        # host tier of evicted prefix blocks (attach_host_tier)
         self.host_tier: Any = None
-        self.prefix: Any = None
+        # slots only interactive-class requests may take
+        self.reserve_slots = 0
         # requests that failed admission (tenant quota): the owner drains them
         self.failed: deque = deque()
 
@@ -380,6 +456,13 @@ class ContinuousEngine(Engine):
         self._bs = self.spec.block_size
         self._TB = num_table_blocks(self._S, self._bs)
         self.allocator = BlockAllocator(self.spec.max_blocks)
+        self.prefix: Optional[PrefixCache] = None
+        if prefix_cache:
+            self.prefix = PrefixCache(self._bs, prefix_capacity_blocks)
+            self.stats.prefix_enabled = True
+        # host mirror of the device block table: authoritative between
+        # programs (the refill applies the same rows on the card; segment
+        # growth pushes the whole mirror)
         self._tables = np.zeros((self.B, self._TB), np.int32)
         self._row_blocks: List[Optional[List[int]]] = [None] * self.B
         self._alloc_upto = [0] * self.B
@@ -392,6 +475,10 @@ class ContinuousEngine(Engine):
             # the draft's dense [B, S] cache is persistent engine state too
             self.stats.kv_cache_bytes += kv_bytes(self.state.d_cache)
         self._spec_base = self._read_spec_counters()
+        # the weights the pool's committed KV (and every prefix entry) was
+        # computed under: by identity, or by the caller's version when it
+        # gives one (a module updated in place keeps its identity)
+        self._kv_params = model
         self._params_version: Optional[int] = None
         before = kernel_launches()
         if prewarm:
@@ -402,7 +489,9 @@ class ContinuousEngine(Engine):
 
     def begin_collection(self, model: Any = None, version: Optional[int] = None) -> None:
         """Reuse this engine for a fresh collection: drop leftovers of an
-        aborted run, adopt ``model`` and reset the per-collection stats."""
+        aborted run, adopt ``model`` (flushing the prefix cache and the
+        tier when the weights changed: a new object, or with ``version``
+        a new version) and reset the per-collection stats."""
         self._queue.clear()
         self.failed.clear()
         for slot in range(self.B):
@@ -414,12 +503,15 @@ class ContinuousEngine(Engine):
             self._alloc_upto[slot] = 0
             self._steps_bound[slot] = 0
             self._slots[slot] = None
+            self._seeded[slot] = False
         self.state.done.fill_(True)
         if model is not None:
             self.swap_params(model, version)
         self.stats = EngineStats(
             kv_cache_bytes=self.stats.kv_cache_bytes,
             kv_blocks_total=self.stats.kv_blocks_total,
+            prefix_enabled=self.stats.prefix_enabled,
+            host_tier_enabled=self.stats.host_tier_enabled,
             spec_gamma=self._gamma,
         )
         self._spec_base = self._read_spec_counters()
@@ -435,18 +527,45 @@ class ContinuousEngine(Engine):
             return all(x is y for x, y in zip(a, b))
         return a is b
 
+    def _params_changed(self, model: Any, version: Optional[int]) -> bool:
+        """One int compare when both sides carry a version, identity
+        otherwise."""
+        if version is not None and self._params_version is not None:
+            return version != self._params_version
+        return not self._same_params(model, self._kv_params)
+
     def swap_params(self, model: Any, version: Optional[int] = None) -> bool:
         """Adopt an updated model — or ``(target, draft)`` pair, as one
         object, so a swap never verifies an old target against a new draft
-        — at a step boundary. Returns True when it (or its memoized
-        version) changed."""
-        if version is not None and self._params_version is not None:
-            changed = version != self._params_version
-        else:
-            changed = not self._same_params(model, self.params)
+        — at a step boundary. Changed weights flush the prefix cache and
+        the host tier (their KV was computed under the old ones). Returns
+        True when they changed."""
+        changed = self._params_changed(model, version)
+        if changed:
+            if self.prefix is not None:
+                self.prefix.clear(self.allocator)
+            if self.host_tier is not None:
+                self.host_tier.clear()
+            self._kv_params = model
         self._params_version = version
         self.params = model
         return changed
+
+    def attach_host_tier(self, tier: Any) -> None:
+        """Put a :class:`~trlx_tpu_torch.serve.tiering.HostTier` behind the
+        prefix cache: evicted entries spill their blocks host-side, and
+        admission re-lands host-resident chunks instead of prefilling."""
+        if self.prefix is None:
+            raise ValueError("host tiering requires the prefix cache (engine.prefix_cache: "
+                             "true) — only committed prefix entries ever spill")
+        self.host_tier = tier
+        self.stats.host_tier_enabled = True
+        self.prefix.spill = self._spill_entry
+
+    def _spill_entry(self, entry: Any) -> None:
+        """Prefix-cache eviction hook: copy the victim's block host-side
+        before the cache drops its ref."""
+        self.host_tier.spill(entry.digest, self.state.cache.pool, entry.block)
 
     # -- feeding ---------------------------------------------------------
 
@@ -461,7 +580,9 @@ class ContinuousEngine(Engine):
         greedy: Optional[np.ndarray] = None,  # [b] bool, default all False
     ) -> None:
         """Queue a prompt batch; rows narrower than ``P`` are left-padded.
-        Rows flagged ``greedy`` decode greedily; the rest sample (when the
+        ``tenant`` scopes the rows' prefix-cache namespace and block quota,
+        ``klass`` is their priority class (:data:`SERVE_CLASSES`). Rows
+        flagged ``greedy`` decode greedily; the rest sample (when the
         engine's config samples)."""
         if klass not in _CLASS_RANK:
             raise ValueError(
@@ -512,27 +633,102 @@ class ContinuousEngine(Engine):
 
     # -- paged-block bookkeeping ----------------------------------------
 
+    def _alloc_blocks(self, n: int, tenant: Optional[str] = None) -> List[int]:
+        """Allocate with one eviction retry: under pool pressure, drop LRU
+        prefix entries (their blocks free unless a live row shares them);
+        a quota'd tenant's pressure evicts only that tenant's entries."""
+        if n == 0:
+            return []
+        try:
+            return self.allocator.alloc(n, tenant=tenant)
+        except TenantQuotaExceeded:
+            if self.prefix is None:
+                raise
+            quota = self.allocator.tenant_quota(tenant)
+            headroom = max((quota or 0) - self.allocator.tenant_blocks_in_use(tenant), 0)
+            self.stats.prefix_evicted_blocks += self.prefix.evict(
+                self.allocator, blocks_needed=n - headroom, tenant=tenant)
+            # still over quota: the caller fails this request, not the engine
+            return self.allocator.alloc(n, tenant=tenant)
+        except BlockPoolExhausted:
+            if self.prefix is None:
+                raise
+            self.stats.prefix_evicted_blocks += self.prefix.evict(
+                self.allocator, blocks_needed=n - self.allocator.blocks_free)
+            return self.allocator.alloc(n, tenant=tenant)
+
     def _note_block_usage(self) -> None:
         self.stats.kv_blocks_in_use = self.allocator.high_water
         self.stats.kv_bytes_high_water = self.allocator.high_water * self._block_bytes
 
-    def _prepare_row(self, req: _Request, slot: int) -> None:
-        """Fresh private blocks for the prompt region of one row."""
+    def _prepare_row(self, req: _Request, slot: int) -> int:
+        """Assign the blocks of one admitted row: shared prefix blocks from
+        the cache (one more ref each), host-tier re-lands beyond the device
+        hit, fresh private blocks for the rest of the prompt. Returns the
+        hit in cache columns (block-aligned, capped so the last prompt
+        block is always prefilled: its last position seeds the sampler)."""
+        shared: List[int] = []
+        cap = (self.P - 1) // self._bs
+        if self.prefix is not None:
+            shared = self.prefix.match(req.input_ids, req.attention_mask,
+                                       tenant=req.tenant)[:cap]
+            self.stats.prefix_lookup_blocks += cap
+            self.stats.prefix_hit_blocks += len(shared)
+        # retain the matched chain before allocating: an eviction under
+        # pool pressure then only drops the cache's ref, and the block can
+        # never come back as this row's writable fresh block
+        self.allocator.retain(shared)
+        relanded = self._reland_from_tier(req, len(shared), cap, shared)
+        hit_chain = shared + relanded
         n_prompt_blocks = (self.P - 1) // self._bs + 1
-        fresh = self.allocator.alloc(n_prompt_blocks, tenant=req.tenant)
+        try:
+            fresh = self._alloc_blocks(n_prompt_blocks - len(hit_chain), tenant=req.tenant)
+        except (BlockPoolExhausted, TenantQuotaExceeded):
+            self.allocator.release(hit_chain)
+            raise
         row = np.zeros(self._TB, np.int32)
-        row[:n_prompt_blocks] = fresh
+        row[: len(hit_chain)] = hit_chain
+        row[len(hit_chain):n_prompt_blocks] = fresh
         self._tables[slot] = row
-        self._row_blocks[slot] = fresh
+        self._row_blocks[slot] = hit_chain + fresh
         self._alloc_upto[slot] = n_prompt_blocks
         self._steps_bound[slot] = 0
+        return len(hit_chain) * self._bs
+
+    def _reland_from_tier(self, req: _Request, n_hit: int, cap: int,
+                          shared: List[int]) -> List[int]:
+        """Probe the host tier for the consecutive chunks beyond the device
+        hit; write each host-resident chunk into a fresh device block and
+        commit it back into the tenant's chain. Returns the re-landed
+        blocks, the row's ref held."""
+        if self.host_tier is None or n_hit >= cap:
+            return []
+        digests = self.prefix.chain_digests(req.input_ids, req.attention_mask, cap,
+                                            tenant=req.tenant)
+        run: List[bytes] = []
+        for i in range(n_hit, min(cap, len(digests))):
+            if not self.host_tier.probe(digests[i]):
+                break
+            run.append(digests[i])
+        if not run:
+            return []
+        try:
+            blocks = self._alloc_blocks(len(run), tenant=req.tenant)
+        except (BlockPoolExhausted, TenantQuotaExceeded):
+            return []  # the tier is an optimisation: prefill instead
+        self.host_tier.reland_many(run, self.state.cache.pool, blocks)
+        self.prefix.insert(req.input_ids, req.attention_mask, shared + blocks,
+                           self.allocator, tenant=req.tenant)
+        self.stats.host_tier_hit_blocks += len(blocks)
+        self.stats.host_tier_tokens_saved += len(blocks) * self._bs
+        return blocks
 
     def _ensure_decode_blocks(self, segment_len: int) -> bool:
-        """Grow each live row's table to cover the columns the next segment
-        may write. Returns True when a table changed."""
+        """Grow each decoding row's table to cover the columns the next
+        segment may write. Returns True when a table changed."""
         dirty = False
         for slot in range(self.B):
-            if self._slots[slot] is None:
+            if self._slots[slot] is None or not self._seeded[slot]:
                 continue
             # a spec segment commits up to (gamma + 1) tokens per round
             need_cols = self.P + min(self.N, self._steps_bound[slot]
@@ -540,7 +736,7 @@ class ContinuousEngine(Engine):
             need_blocks = (need_cols - 1) // self._bs + 1
             have = self._alloc_upto[slot]
             if need_blocks > have:
-                fresh = self.allocator.alloc(need_blocks - have)
+                fresh = self._alloc_blocks(need_blocks - have)
                 self._tables[slot, have:need_blocks] = fresh
                 self._row_blocks[slot].extend(fresh)
                 self._alloc_upto[slot] = need_blocks
@@ -552,69 +748,206 @@ class ContinuousEngine(Engine):
 
     # -- the slot-refill state machine -----------------------------------
 
-    def _pop_next(self) -> _Request:
-        """Best-class-first, FIFO-within-class pop of the non-empty queue
-        (classes were validated by :meth:`enqueue_prompts`)."""
-        q = self._queue
-        best = min(range(len(q)), key=lambda i: (_CLASS_RANK[q[i].klass], q[i].index))
-        req = q[best]
-        del q[best]
+    def _decoding(self) -> int:
+        """Slots holding a seeded (decoding or awaiting-harvest) row: the
+        population a prefill event stalls."""
+        return sum(1 for s in range(self.B) if self._slots[s] is not None and self._seeded[s])
+
+    def _note_prefill_event(self, waiting: int, t0: float, t1: float) -> None:
+        self.stats.refill_s += t1 - t0
+        if waiting > 0:
+            self.stats.decode_stall_s += t1 - t0
+            self.stats.decode_stall_samples.append(t1 - t0)
+
+    @staticmethod
+    def _rank(req: _Request) -> int:
+        return _CLASS_RANK[req.klass]
+
+    def _pop_next(self, only_interactive: bool = False) -> Optional[_Request]:
+        """Best-class-first, FIFO-within-class (by submission index) pop: a
+        requeued preemption victim's lower index restores its place in its
+        class. With ``only_interactive`` (the reserve-slot guard) only
+        interactive requests are eligible."""
+        best_i, best_key = -1, None
+        for i, req in enumerate(self._queue):
+            rank = self._rank(req)
+            if only_interactive and rank > 0:
+                continue
+            key = (rank, req.index)
+            if best_key is None or key < best_key:
+                best_i, best_key = i, key
+        if best_key is None:
+            return None
+        req = self._queue[best_i]
+        del self._queue[best_i]
         return req
 
+    def _preempt_slot(self, slot: int) -> None:
+        """Vacate one still-prefilling slot: its committed prompt chunks
+        enter the tenant's chain first (the insert retains them, so they
+        come back as a prefix hit on re-admission), then the row's block
+        refs drop and the request returns to the queue."""
+        req = self._slots[slot]
+        pos = req.prefill_pos or 0
+        if self.prefix is not None and pos >= self._bs:
+            n_committed = min(pos // self._bs, (self.P - 1) // self._bs)
+            self.prefix.insert(req.input_ids, req.attention_mask,
+                               list(self._tables[slot, :n_committed]), self.allocator,
+                               tenant=req.tenant)
+        self.allocator.release(self._row_blocks[slot])
+        self._row_blocks[slot] = None
+        self._alloc_upto[slot] = 0
+        self._steps_bound[slot] = 0
+        self._slots[slot] = None
+        self._seeded[slot] = False
+        req.prefill_pos = None
+        self._queue.append(req)
+        self.stats.preempted_rows += 1
+
+    def _preempt_for_priority(self) -> None:
+        """Queued higher-class requests that cannot find a free slot vacate
+        still-prefilling lower-class slots (worst class first, least
+        progressed first). Seeded slots are never preempted: their KV would
+        be lost mid-sequence."""
+        if not self._queue:
+            return
+        free = sum(1 for s in range(self.B) if self._slots[s] is None)
+        waiting = sorted(self._rank(r) for r in self._queue)
+        victims = sorted(
+            (s for s in range(self.B) if self._slots[s] is not None and not self._seeded[s]),
+            key=lambda s: (-self._rank(self._slots[s]), self._slots[s].prefill_pos or 0),
+        )
+        for slot in victims:
+            vrank = self._rank(self._slots[slot])
+            demand = sum(1 for r in waiting if r < vrank)
+            if demand <= free:
+                continue  # free slots already cover the outranking demand
+            waiting.append(vrank)
+            self._preempt_slot(slot)
+            free += 1
+
     def _admit(self) -> None:
-        """Move queued prompts into free slots and prefill them in one
-        bucketed refill. A tenant whose quota cannot cover its prompt fails
-        onto :attr:`failed` instead of failing the engine."""
+        """Move queued requests into free slots, best class first (FIFO
+        within a class), and assign their blocks (prefix hits shared,
+        host-tier re-lands, the rest fresh); each row's ``prefill_pos``
+        starts at its hit, and :meth:`_advance_prefill` runs the prefill
+        work. ``reserve_slots`` holds the last free slots for interactive
+        requests: once non-interactive rows hold ``B - reserve_slots``
+        slots, only interactive ones are admitted. A tenant whose quota
+        cannot cover its prompt fails onto :attr:`failed` instead of
+        failing the engine, and the slot goes to the next request."""
+        self._preempt_for_priority()
         free = deque(s for s in range(self.B) if self._slots[s] is None)
-        rows: List[_Request] = []
-        slots: List[int] = []
+        admitted = 0
         while free and self._queue:
-            req = self._pop_next()
+            only_interactive = False
+            if self.reserve_slots > 0:
+                non_interactive = sum(1 for r in self._slots
+                                      if r is not None and self._rank(r) > 0)
+                only_interactive = non_interactive >= self.B - self.reserve_slots
+            req = self._pop_next(only_interactive)
+            if req is None:
+                break
             slot = free[0]
             try:
-                self._prepare_row(req, slot)
+                hit = self._prepare_row(req, slot)
             except TenantQuotaExceeded as e:
                 self.failed.append((req, str(e)))
                 continue
             free.popleft()
             self._slots[slot] = req
-            rows.append(req)
-            slots.append(slot)
-        if not rows:
+            self._seeded[slot] = False
+            admitted += 1
+            pos0 = hit
+            if self._chunk:
+                # skip the all-pad leading columns (never visible: their
+                # slot mask is 0), starting at the chunk-grid point at or
+                # below the first real column; the final span stays
+                # non-empty for an all-pad row
+                first_real = self.P - int(np.sum(req.attention_mask))
+                pos0 = max(hit, min((first_real // self._chunk) * self._chunk,
+                                    ((self.P - 1) // self._chunk) * self._chunk))
+            req.prefill_pos = pos0
+            self.stats.prefix_tokens_saved += hit
+        self.stats.refilled_rows += admitted
+        self._note_block_usage()
+
+    def _next_span(self, pos: int) -> int:
+        """End column of the prefill span starting at ``pos``: the whole
+        remaining prompt without chunking, else the next absolute multiple
+        of the chunk size (rows admitted at different hits converge onto
+        one span grid after their first chunk, so they group)."""
+        if not self._chunk:
+            return self.P
+        return min(self.P, (pos // self._chunk + 1) * self._chunk)
+
+    def _advance_prefill(self) -> None:
+        """One prefill span for every still-prefilling slot, grouped by
+        identical ``(start, end)``: a mid-prompt span runs the cache-only
+        chunk program, a span reaching ``P`` the refill at ``hit = start``,
+        which seeds the slot. Prefix-cache insertion comes after every
+        program call of the event."""
+        pending = [(s, self._slots[s].prefill_pos) for s in range(self.B)
+                   if self._slots[s] is not None and self._slots[s].prefill_pos is not None]
+        if not pending:
             return
-        waiting = self.live - len(rows)
-        t0 = time.perf_counter()
-        self.state = self.fns.refill_rows(
-            self.params, self.state,
-            np.stack([r.input_ids for r in rows]),
-            np.stack([r.attention_mask for r in rows]),
-            np.asarray(slots, np.int64),
-            np.asarray([r.seed for r in rows], np.int64),
-            np.stack([self._tables[s] for s in slots]),
-            greedy=np.asarray([r.greedy for r in rows], bool),
-        )
-        # the first sampled token rides on this prefill's logits: wait for
-        # it so the prefill span measures device time
-        if self.fns.device.type == "cuda":
-            torch.cuda.synchronize(self.fns.device)
-        t1 = time.perf_counter()
-        self.stats.refill_prefills += 1
-        self.stats.refilled_rows += len(rows)
-        self.stats.prefill_tokens += self.P * len(rows)
-        self.stats.refill_s += t1 - t0
-        if waiting > 0:
-            self.stats.decode_stall_s += t1 - t0
-            self.stats.decode_stall_samples.append(t1 - t0)
-        for req in rows:
-            req.t_refill0, req.t_refill1 = t0, t1
-            wait = max(t0 - req.t_enqueue, 0.0)
-            self.stats.queue_wait_s += wait
-            self.stats.queue_wait_samples.append(wait)
+        waiting = self._decoding()
+        by_span: Dict[tuple, List[int]] = {}
+        for slot, pos in pending:
+            by_span.setdefault((pos, self._next_span(pos)), []).append(slot)
+        finished: List[int] = []
+        for (start, end), slots in sorted(by_span.items()):
+            rows = [self._slots[s] for s in slots]
+            t0 = time.perf_counter()
+            ids = np.stack([r.input_ids for r in rows])
+            masks = np.stack([r.attention_mask for r in rows])
+            tables = np.stack([self._tables[s] for s in slots])
+            if end < self.P:
+                self.state = self.fns.prefill_chunk_rows(self.params, self.state, ids, masks,
+                                                         tables, start, end)
+                self.stats.prefill_chunk_calls += 1
+            else:
+                self.state = self.fns.refill_rows(
+                    self.params, self.state, ids, masks, np.asarray(slots, np.int64),
+                    np.asarray([r.seed for r in rows], np.int64), tables, hit=start,
+                    greedy=np.asarray([r.greedy for r in rows], bool))
+                finished.extend(slots)
+            # wait for the span, so the prefill event measures device time
+            if self.fns.device.type == "cuda":
+                torch.cuda.synchronize(self.fns.device)
+            t1 = time.perf_counter()
+            self.stats.refill_prefills += 1
+            self.stats.prefill_tokens += (end - start) * len(rows)
+            self._note_prefill_event(waiting, t0, t1)
+            for req, slot in zip(rows, slots):
+                if req.t_refill0 == 0.0:
+                    req.t_refill0 = t0
+                    wait = max(t0 - req.t_enqueue, 0.0)
+                    self.stats.queue_wait_s += wait
+                    self.stats.queue_wait_samples.append(wait)
+                if end < self.P:
+                    req.prefill_pos = end
+                else:
+                    req.prefill_pos = None
+                    req.t_refill1 = t1
+                    self._seeded[slot] = True
+        if self.prefix is not None and finished:
+            # commit only the blocks a later match can use: hits are capped
+            # at (P - 1) // bs blocks
+            n_full = (self.P - 1) // self._bs
+            for slot in finished:
+                req = self._slots[slot]
+                self.prefix.insert(req.input_ids, req.attention_mask,
+                                   list(self._tables[slot, :n_full]), self.allocator,
+                                   tenant=req.tenant)
         self._note_block_usage()
 
     def _harvest(self) -> List[CompletedSequence]:
         done = self.state.done.cpu().numpy()
-        finished = [s for s in range(self.B) if self._slots[s] is not None and done[s]]
+        # a still-prefilling slot reads done=True from its empty state row:
+        # it has not started
+        finished = [s for s in range(self.B)
+                    if self._slots[s] is not None and self._seeded[s] and done[s]]
         if not finished:
             return []
         idx = torch.as_tensor(finished, device=self.fns.device)
@@ -628,6 +961,9 @@ class ContinuousEngine(Engine):
         for j, slot in enumerate(finished):  # slot order: deterministic
             req = self._slots[slot]
             self._slots[slot] = None
+            self._seeded[slot] = False
+            # blocks the prefix cache (or a sharing row) still holds stay
+            # allocated
             self.allocator.release(self._row_blocks[slot])
             self._row_blocks[slot] = None
             self._alloc_upto[slot] = 0
@@ -644,13 +980,13 @@ class ContinuousEngine(Engine):
         return completed
 
     def progress_snapshot(self) -> List[tuple]:
-        """``(index, meta, tokens)`` for every live slot: the host copy of
-        the row's committed response so far (for token streaming)."""
+        """``(index, meta, tokens)`` for every decoding slot: the host copy
+        of the row's committed response so far (for token streaming)."""
         out: List[tuple] = []
         toks = None
         for slot in range(self.B):
             req = self._slots[slot]
-            if req is None:
+            if req is None or not self._seeded[slot]:
                 continue
             n = min(self._steps_bound[slot], self.N)
             if n <= 0:
@@ -679,10 +1015,12 @@ class ContinuousEngine(Engine):
         return dict(zip(self._SPEC_COUNTERS, vals))
 
     def step(self) -> List[CompletedSequence]:
-        """One admit → prefill → segment → harvest turn; returns newly
-        completed sequences."""
+        """One admit → prefill span → segment → harvest turn; returns newly
+        completed sequences. With ``prefill_chunk`` set, the prefill work
+        of one step is at most one chunk per still-prefilling slot."""
         self._admit()
-        if self.live == 0:
+        self._advance_prefill()
+        if self._decoding() == 0:
             self._note_launches()
             return []
         if self._ensure_decode_blocks(self.fns.segment_len):
@@ -703,7 +1041,7 @@ class ContinuousEngine(Engine):
                 setattr(self.stats, f"spec_{k}", cur[k] - self._spec_base[k])
             bound = self.state.step.tolist()
         for slot in range(self.B):
-            if self._slots[slot] is not None:
+            if self._slots[slot] is not None and self._seeded[slot]:
                 self._steps_bound[slot] = (int(bound[slot]) if self._gamma else
                                            min(self.N, self._steps_bound[slot] + steps))
         out = self._harvest()

@@ -16,6 +16,14 @@ column that reads it is masked by the ``-1e9`` bias.
 Unlike the JAX package (immutable arrays), the pool here is updated in
 place: the model's paged attention commits each step's K/V straight into
 the pool tensors, which saves a pool copy per step.
+
+Block copies for the host tier (``serve/tiering.py``; the JAX tier's
+``_read_block`` / ``_write_blocks``): :func:`read_block` copies one
+block's rows of every layer's K and V into a row of host buffers
+(:func:`host_block_buffers`, pinned when the pool is on the card), and
+:func:`write_blocks` writes a run of such rows back into pool blocks, one
+host → device copy per layer and tensor for the whole run. The copies are
+verbatim, so a written-back block is bitwise the block that was read.
 """
 
 from typing import Any, List, NamedTuple
@@ -33,6 +41,9 @@ __all__ = [
     "kv_bytes",
     "block_bytes",
     "dense_kv_bytes",
+    "host_block_buffers",
+    "read_block",
+    "write_blocks",
 ]
 
 ZERO_BLOCK = 0
@@ -115,3 +126,40 @@ def dense_kv_bytes(cfg: Any, batch_size: int, slots: int) -> int:
     itemsize = torch.empty((), dtype=cfg.dtype).element_size()
     return int(2 * cfg.num_layers * batch_size * slots * cfg.kv_heads
                * cfg.dims_per_head * itemsize)
+
+
+def host_block_buffers(pool: List[dict], rows: int) -> List[dict]:
+    """Per-layer ``{"k", "v"}`` host tensors of ``[rows, bs, KV, D]`` in the
+    pool's dtype: ``rows`` blocks' worth of every layer. Pinned when the
+    pool is on the card, so the copies in and out run asynchronously on the
+    current stream."""
+    pin = pool[0]["k"].is_cuda
+    return [{name: torch.empty((rows,) + tuple(layer[name].shape[1:]),
+                               dtype=layer[name].dtype, pin_memory=pin)
+             for name in ("k", "v")} for layer in pool]
+
+
+def read_block(pool: List[dict], block: int, out: List[dict], row: int) -> None:
+    """Copy pool block ``block`` of every layer's K and V into row ``row`` of
+    the host buffers ``out`` (stream-ordered: a later kernel that reuses
+    the block cannot overwrite it before the copy has read it)."""
+    for layer, buf in zip(pool, out):
+        for name in ("k", "v"):
+            buf[name][row].copy_(layer[name][block], non_blocking=True)
+
+
+def write_blocks(pool: List[dict], blocks: List[int], src: List[dict],
+                 rows: List[int]) -> List[dict]:
+    """Write host rows ``rows`` of ``src`` verbatim into pool blocks
+    ``blocks`` (in place; returns the pool): the run is gathered into one
+    staging tensor per layer and tensor and copied in one transfer."""
+    device = pool[0]["k"].device
+    idx = torch.as_tensor(list(rows), dtype=torch.int64)
+    dst = torch.as_tensor(list(blocks), dtype=torch.int64, device=device)
+    for layer, buf in zip(pool, src):
+        for name in ("k", "v"):
+            staged = buf[name].index_select(0, idx)
+            if device.type == "cuda":
+                staged = staged.pin_memory()
+            layer[name].index_copy_(0, dst, staged.to(device, non_blocking=True))
+    return pool

@@ -16,11 +16,21 @@ table rows are poisoned out of range every step) nor advance — so a
 harvested sequence equals what a solo :func:`ops.sampling.generate` of the
 same prompt and seed produces.
 
-- refill: the prompt span ``[0, P)`` of ``R`` rows is prefilled in place —
-  the model's paged branch commits K/V through the rows' block tables and
-  calls the paged-prefill kernel; rows are padded to a power-of-two bucket
-  (padding rows carry out-of-range tables, so every write drops), which
-  bounds the set of shapes the kernels see;
+- refill: the prompt span ``[hit, P)`` of ``R`` rows is prefilled in place
+  — the model's paged branch commits K/V through the rows' block tables
+  and calls the paged-prefill kernel; rows are padded to a power-of-two
+  bucket (padding rows carry out-of-range tables, so every write drops),
+  which bounds the set of shapes the kernels see. ``hit > 0`` (a prefix
+  cache hit, or the last span of a chunked prefill) runs only the suffix
+  ``[hit, P)`` at ``cache_index = hit``: its queries attend to the
+  committed columns below ``hit`` through the table, and the last
+  position's logits seed the sampler;
+- prefill chunk (``prefill_chunk_rows``): a mid-prompt span ``[start,
+  end)`` committed to the pool only — no logits, no slot state. The key
+  width stays the full ``S`` with columns ``>= end`` masked, so the span's
+  queries see exactly what the same rows see inside the whole prefill.
+  Tables come from the engine's host mirror (the device table rows of
+  still-prefilling slots are stale by design);
 - decode segment: up to ``segment_len`` steps of fused sampling
   (``ops/paged_attention.py::sample_token_fused``) then a one-token forward
   through the paged-decode kernel. The JAX ``lax.while_loop`` is a Python
@@ -134,6 +144,9 @@ class SlotRefillFns(NamedTuple):
     # tokens per live row per round; the programs take (target, draft)
     speculative: int = 0
     config: Optional[GenerationConfig] = None
+    # (model, state, ids [r,P], mask [r,P], table_rows [r,TB], start, end)
+    # → state: a mid-prompt span committed to the pool (chunked prefill)
+    prefill_chunk_rows: Optional[Callable[..., SlotState]] = None
 
 
 def _row_set(buf: torch.Tensor, val: torch.Tensor, col: torch.Tensor,
@@ -216,11 +229,12 @@ def make_slot_refill_fns(
 
     @torch.no_grad()
     def refill(model, state: SlotState, input_ids, prompt_mask, slot_idx,
-               seeds, table_rows, greedy) -> SlotState:
-        """Prefill ``R`` rows in place through their block tables and seed
-        their slots. ``slot_idx >= B`` marks bucket padding: those rows'
-        tables are out of range (their writes drop) and their results are
-        not scattered into the state."""
+               seeds, table_rows, greedy, hit: int = 0) -> SlotState:
+        """Prefill ``R`` rows' span ``[hit, P)`` in place through their
+        block tables and seed their slots; the columns below ``hit`` are
+        already committed in the rows' blocks. ``slot_idx >= B`` marks
+        bucket padding: those rows' tables are out of range (their writes
+        drop) and their results are not scattered into the state."""
         R = input_ids.shape[0]
         ids = torch.as_tensor(input_ids, dtype=torch.int64).to(device)
         pmask = torch.as_tensor(prompt_mask, dtype=torch.int64).to(device)
@@ -229,9 +243,9 @@ def make_slot_refill_fns(
             [pmask, torch.zeros((R, N), dtype=torch.int64, device=device)], dim=1
         )
         out = model(
-            ids, attention_mask=slot_mask_r,
+            ids[:, hit:], attention_mask=slot_mask_r,
             cache=attach_block_table(state.cache.pool, tables),
-            cache_index=0, logits_span=(P - 1, P),
+            cache_index=hit, logits_span=(P - hit - 1, P - hit),
         )
         step_out_r = {**last_step_info(out), "last_tokens": ids[:, -1]}
         if not state.step_out:  # the carry takes the structure the model emits
@@ -386,8 +400,13 @@ def make_slot_refill_fns(
         """Host wrapper: pad ``r`` rows to a power-of-two bucket (padding
         rows carry ``slot_idx = B``) and run the refill. ``greedy`` ([r]
         bool, default all False) marks rows decoded greedily."""
-        if hit:
-            raise ValueError("prefix-cache hits (hit > 0) are not ported yet")
+        if not 0 <= hit < P:
+            raise ValueError(f"refill hit {hit} must leave a prompt column to prefill "
+                             f"(0 <= hit < P = {P})")
+        if hit and G:
+            raise ValueError("speculative refills prefill the whole prompt (hit = 0): "
+                             "the prefix cache and chunked prefill are not ported with "
+                             "engine.speculative")
         slot_idx = np.asarray(slot_idx, np.int64)
         seeds = np.asarray(seeds, np.int64).reshape(-1)
         greedy = np.zeros(seeds.shape, bool) if greedy is None else np.asarray(greedy, bool)
@@ -397,8 +416,40 @@ def make_slot_refill_fns(
             slot_idx = np.concatenate([slot_idx, np.full((pad,), B, np.int64)])
             seeds = np.concatenate([seeds, np.zeros((pad,), np.int64)])
             greedy = np.concatenate([greedy, np.zeros((pad,), bool)])
-        return run_refill(model, state, input_ids, prompt_mask, slot_idx, seeds,
-                          table_rows, greedy)
+        if G:
+            return spec_refill(model, state, input_ids, prompt_mask, slot_idx, seeds,
+                               table_rows, greedy)
+        return refill(model, state, input_ids, prompt_mask, slot_idx, seeds, table_rows,
+                      greedy, hit)
+
+    @torch.no_grad()
+    def prefill_chunk_rows(model, state: SlotState, input_ids, prompt_mask, table_rows,
+                           start: int, end: int) -> SlotState:
+        """Commit the mid-prompt span ``[start, end)`` of ``r`` rows into
+        their pool blocks: the cache-only chunk program (no logits, no slot
+        state; the rows stay empty and done until their final span runs the
+        refill with ``hit = start``). Keys keep the full width ``S`` with
+        columns ``>= end`` masked out, so the span's queries attend to what
+        the same rows' queries attend to inside the whole prefill."""
+        if G:
+            raise ValueError("chunked prefill is not ported with engine.speculative")
+        if not 0 <= start < end < P:
+            raise ValueError(f"mid-chunk span [{start}, {end}) must sit strictly inside the "
+                             f"prompt region [0, {P}): the final span is the refill")
+        _, _, input_ids, prompt_mask, table_rows = _bucket_pad(input_ids, prompt_mask,
+                                                               table_rows)
+        R = input_ids.shape[0]
+        ids = torch.as_tensor(input_ids, dtype=torch.int64).to(device)
+        pmask = torch.as_tensor(prompt_mask, dtype=torch.int64).to(device)
+        tables = torch.as_tensor(table_rows, dtype=torch.int32).to(device)
+        # visibility: the prompt columns [0, end) only
+        span_mask = pmask * (torch.arange(P, device=device)[None, :] < end)
+        key_mask = torch.cat([span_mask, torch.zeros((R, S - P), dtype=torch.int64,
+                                                     device=device)], dim=1)
+        model(ids[:, start:end], attention_mask=key_mask,
+              cache=attach_block_table(state.cache.pool, tables), cache_index=start,
+              logits_span=(0, 0))
+        return state
 
     def prewarm(model, state: SlotState) -> SlotState:
         """Run every refill bucket once as a no-op (all rows padding, every
@@ -485,6 +536,7 @@ def make_slot_refill_fns(
         refill_rows=refill_rows,
         prewarm=prewarm,
         decode_segment=spec_decode_segment if G else decode_segment,
+        prefill_chunk_rows=prefill_chunk_rows,
         batch_size=B,
         prompt_len=P,
         max_new_tokens=N,

@@ -15,9 +15,9 @@ Plan syntax (``;``-separated entries, whitespace ignored)::
                      for reward_raise/publish_raise every attempt counts)
              step  — fires when the trainer's completed-update count == N
              save  — the Nth ``save_state`` call (1-based)
-             resume, collection, version, request — the JAX package's
-                     restore, async-collection, weight-publish and
-                     serve-request counters
+             request — the serve request id (1-based)
+             resume, collection, version — the JAX package's restore,
+                     async-collection and weight-publish counters
     count    consecutive firings (default 1)
 
 The port polls the kinds whose sites it has (:data:`POLLED_KINDS`):
@@ -28,6 +28,9 @@ The port polls the kinds whose sites it has (:data:`POLLED_KINDS`):
     sigint@step:5           # the same with SIGINT
     nan_loss@step:7         # the loss of update 8 is poisoned to NaN
     crash_save@save:2       # the 2nd save_state dies before committing
+    request_flood@step:3    # a synthetic admission burst sheds load (429s)
+                            # before update 4 (serving inside a trainer)
+    slow_client@request:2   # the 2nd serve request's streaming consumer stalls
 
 The other kinds parse, and the trainer refuses a plan that names one
 (:data:`UNPORTED_KINDS` names the subsystem each waits for).
@@ -54,13 +57,12 @@ _KINDS = frozenset({
 # the kinds the port has sites for
 POLLED_KINDS = frozenset({
     "reward_raise", "publish_raise", "sigterm", "sigint", "nan_loss", "crash_save",
+    "slow_client", "request_flood",
 })
 # the other kinds, and the subsystem of the port each waits for
 UNPORTED_KINDS = {
     "actor_crash": "async RL (async_rl/*)",
     "weight_sync_drop": "async RL (async_rl/*)",
-    "slow_client": "serving inside a trainer (serve.enabled)",
-    "request_flood": "serving inside a trainer (serve.enabled)",
     "flightrec_dump": "observability (the flight recorder)",
     "health_trip": "observability (the health detectors)",
     "sleep_one_proc": "observability (cluster telemetry across processes)",
@@ -149,20 +151,24 @@ class FaultPlan:
     def __bool__(self) -> bool:
         return bool(self.specs)
 
-    def poll(self, kind: str, step: Optional[int] = None) -> bool:
+    def poll(self, kind: str, step: Optional[int] = None,
+             request: Optional[int] = None) -> bool:
         """Should the consulting site fault now?
 
-        With no ``step`` this is an *invocation* poll: the per-kind call
-        counter advances by one and call/save/resume-triggered entries
-        match against it. With ``step=s`` only step-triggered entries are
-        checked against the caller's own counter (idempotent — the trainer
-        polls once per update). The port has no collection, version or
-        request sites."""
+        With no caller counter this is an *invocation* poll: the per-kind
+        call counter advances by one and call/save/resume-triggered entries
+        match against it. With ``step=s`` (or ``request=r``) only the
+        step-triggered (request-triggered) entries are checked against the
+        caller's own counter (idempotent — the trainer polls once per
+        update, the serving frontend once per request). The port has no
+        collection or version sites."""
         if not self.specs:
             return False
         with self._lock:
             if step is not None:
                 value, triggers = step, ("step",)
+            elif request is not None:
+                value, triggers = request, ("request",)
             else:
                 value = self._counters.get(kind, 0) + 1
                 self._counters[kind] = value
@@ -190,8 +196,9 @@ def set_active_plan(plan: Optional[FaultPlan]) -> None:
     _ACTIVE_PLAN = plan if plan else None
 
 
-def poll_fault(kind: str) -> bool:
-    """An invocation poll of the active plan, for sites without a plan
-    handle; False when no plan is active."""
+def poll_fault(kind: str, step: Optional[int] = None,
+               request: Optional[int] = None) -> bool:
+    """A poll of the active plan, for sites without a plan handle; False
+    when no plan is active."""
     plan = _ACTIVE_PLAN
-    return bool(plan) and plan.poll(kind)
+    return bool(plan) and plan.poll(kind, step=step, request=request)

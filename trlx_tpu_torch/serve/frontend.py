@@ -21,8 +21,12 @@ Port of ``trlx_tpu/serve/frontend.py``. Endpoints:
   per-class breakdown.
 
 Handler threads only touch the ``ServeServer`` handoff surface (``submit``
-→ per-request condition variables), never the engine. The JAX frontend's
-injected slow-client fault drill is not part of this port.
+→ per-request condition variables), never the engine.
+
+The ``slow_client@request:N`` fault is polled here, on the consumer side:
+the afflicted streaming handler stops reading its deltas, which must end
+with the producer dropping the connection while the engine finishes the
+sequence.
 """
 
 import json
@@ -30,6 +34,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
 
 import numpy as np
+
+from trlx_tpu_torch.resilience.faults import poll_fault
 
 __all__ = ["make_http_server"]
 
@@ -90,6 +96,7 @@ class _Handler(BaseHTTPRequestHandler):
             klass=body.get("class"),
             seed=int(body.get("seed", 0)),
             stream=bool(body.get("stream", False)),
+            max_new_tokens=int(body.get("max_new_tokens", 0)),
             greedy=not bool(body.get("do_sample", True)),
         )
         if req is None:
@@ -122,6 +129,10 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_json(503, {"error": snap["error"] or state.lower()})
 
     def _stream_response(self, req: Any) -> None:
+        # the slow-client drill: this consumer stalls; the producer must
+        # fill the bounded buffer, drop the request and keep its slot
+        # decoding to harvest
+        stalled = poll_fault("slow_client", request=req.rid)
         self.send_response(200)
         self.send_header("Content-Type", "text/event-stream")
         self.send_header("Cache-Control", "no-cache")
@@ -129,6 +140,10 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         try:
             while True:
+                if stalled:
+                    if req.wait_done(timeout=0.1) in ("DROPPED", "FAILED"):
+                        return
+                    continue
                 kind, payload = req.next_event(timeout=0.1)
                 if kind == "tokens":
                     self._write_sse({"tokens": [int(t) for t in payload]})

@@ -1,7 +1,9 @@
 """ServeRequest: one in-flight serving request's cross-thread state.
 
-Port of ``trlx_tpu/serve/request.py`` (host Python). The JAX request's
-``max_new_tokens`` field is not carried over: nothing enforced it.
+Port of ``trlx_tpu/serve/request.py`` (host Python). ``max_new_tokens``
+is carried as in the JAX request (the request's own budget, or the
+server's ``default_max_new_tokens``); the engine's decode budget is its
+compiled ``N`` on both packages.
 
 A request is born on an HTTP handler thread (``frontend.py``), generated
 by the pump thread (``server.py``), and consumed — token deltas, then the
@@ -13,11 +15,11 @@ guarded by one condition variable:
   transitions (``finish`` / ``fail``), lifecycle timestamps;
 - the handler *consumes*: ``next_event`` blocks on the condition until a
   delta or the terminal state arrives;
-- the bounded stream buffer is the slow-client firewall: when a stalled
-  consumer
+- the bounded stream buffer is the slow-client firewall (the
+  ``slow_client@request:N`` fault drills it): when a stalled consumer
   lets ``max_buffered`` deltas pile up, the producer marks the request
   DROPPED and stops buffering — the engine slot keeps decoding and
-  harvests normally, only the
+  harvests normally (its work may feed the prefix cache), only the
   *connection* is abandoned. The pump never blocks on a client.
 
 States::
@@ -56,6 +58,7 @@ class ServeRequest:
         klass: str,
         seed: int,
         stream: bool,
+        max_new_tokens: int = 0,
         max_buffered: int = 64,
         greedy: bool = False,
     ):
@@ -68,6 +71,7 @@ class ServeRequest:
         self.klass = klass
         self.seed = int(seed)
         self.stream = bool(stream)
+        self.max_new_tokens = int(max_new_tokens)
         self.max_buffered = max(1, int(max_buffered))
         self.greedy = bool(greedy)  # decode greedily instead of sampling
         self.t_submit = time.perf_counter()

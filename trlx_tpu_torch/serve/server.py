@@ -9,26 +9,31 @@ Port of ``trlx_tpu/serve/server.py``. Threading model:
 - **HTTP handler threads** (``frontend.py``) talk to the pump through
   ``queue.Queue`` handoffs and per-request :class:`ServeRequest` condition
   variables — they never touch the engine;
-- the **owner thread** publishes fresh weights through a latest-wins
-  queue (``publish``) and owns start/drain/close.
+- the **owner thread** (the trainer's main thread when serving inside
+  ``learn()``) publishes fresh weights through a latest-wins queue
+  (``publish``), runs admission drills (``flood_drill``) and owns
+  start/drain/close.
 
 Published weights are adopted only when the engine has no live serve work,
-so every response is generated under one weights version. A request's
-sampling seed is its ``seed`` field, so a sampled response is reproducible
-by a solo ``ops/sampling.py::generate`` with that seed.
+so every response is generated under one weights version (stamped on the
+request as ``params_version``); ``retain_param_versions`` keeps the newest
+published copies for :meth:`ServeServer.params_for_version`, so a served
+response can be held against a solo ``ops/sampling.py::generate`` under
+the weights that produced it. A request's sampling seed is its ``seed``
+field, so a sampled response is reproducible by a solo ``generate`` with
+that seed. The engine's prefix cache and host tier are driven by the pump
+like the rest of the engine; the tier's counters ride ``serve/tier_*``.
 
 Graceful drain: new admissions get 503 at once, in-flight requests get a
 bounded window to finish, then the pump exits — failing whatever remains
 so no handler thread is left blocked — and the HTTP listener shuts down.
 Both threads are joined.
-
-The JAX server's host-RAM tier and prefix-cache hooks are not part of
-this port yet; the engine exposes them as ``None``.
 """
 
 import queue
 import threading
 import time
+from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -52,6 +57,8 @@ class ServeServer:
         max_queue: int = 64,
         stream_buffer: int = 64,
         drain_timeout_s: float = 5.0,
+        retain_param_versions: int = 0,
+        default_max_new_tokens: int = 0,
     ):
         if getattr(engine, "spec", None) is None:
             raise ValueError(
@@ -63,6 +70,7 @@ class ServeServer:
         self.default_class = default_class
         self.stream_buffer = int(stream_buffer)
         self.drain_timeout_s = float(drain_timeout_s)
+        self.default_max_new_tokens = int(default_max_new_tokens)
         self.admission = AdmissionController(
             slots=engine.B, slo_s=slo_s, max_queue=max_queue
         )
@@ -71,6 +79,11 @@ class ServeServer:
         self._params_q: "queue.Queue[Tuple[Any, Optional[int]]]" = queue.Queue()
         self._stop = threading.Event()
         self._wake = threading.Event()
+        self._lock = threading.Lock()
+        # published weights by version, the newest retain_param_versions
+        # kept (0 = none)
+        self._retain = int(retain_param_versions)
+        self._history: "OrderedDict[int, Any]" = OrderedDict()  # guarded-by: _lock
         self._pump: Optional[threading.Thread] = None
         self._httpd: Any = None
         self._http_thread: Optional[threading.Thread] = None
@@ -106,9 +119,41 @@ class ServeServer:
 
     def publish(self, params: Any, version: Optional[int] = None) -> None:
         """Latest-wins weights handoff; the pump adopts them at the next
-        point with no live serve work."""
+        point with no live serve work. The newest ``retain_param_versions``
+        published objects stay readable through :meth:`params_for_version`.
+        ``params`` must not change after the call (a copy, not the live
+        model)."""
         self._params_q.put((params, version))
+        if self._retain > 0 and version is not None:
+            with self._lock:
+                self._history[int(version)] = params
+                self._history.move_to_end(int(version))
+                while len(self._history) > self._retain:
+                    self._history.popitem(last=False)
         self._wake.set()
+
+    def params_for_version(self, version: int) -> Any:
+        """The weights published as ``version`` (None once dropped)."""
+        with self._lock:
+            return self._history.get(int(version))
+
+    def flood_drill(self, n: int = 0) -> int:
+        """Admission drill (``request_flood@step:N``): push a synthetic
+        burst of ``n`` (default twice ``max_queue``) admissions through the
+        real gate; accepted probes are released at once (no engine work),
+        rejections prove the 429 path sheds load. Returns the rejections."""
+        n = int(n) or 2 * self.admission.max_queue
+        accepted = 0
+        rejected = 0
+        for _ in range(n):
+            if self.admission.try_admit(self.default_class).admitted:
+                accepted += 1
+            else:
+                rejected += 1
+        for _ in range(accepted):
+            self.admission.release(self.default_class)
+        self.metrics.note_flood_rejected(rejected)
+        return rejected
 
     def drain(self, timeout_s: Optional[float] = None) -> bool:
         """Graceful shutdown: stop admitting (503), give in-flight requests
@@ -154,10 +199,13 @@ class ServeServer:
         seed: int = 0,
         stream: bool = False,
         greedy: bool = False,
+        max_new_tokens: int = 0,
     ) -> Tuple[Optional[ServeRequest], Optional[Tuple[int, str, float]]]:
         """Admission-checked request entry: ``(request, None)`` on
         acceptance or ``(None, (status, reason, retry_after_s))``. ``greedy``
-        decodes this request greedily; otherwise it samples with ``seed``."""
+        decodes this request greedily; otherwise it samples with ``seed``.
+        ``max_new_tokens`` (default ``default_max_new_tokens``) is carried
+        on the request as in JAX; the engine's budget is its ``N``."""
         tenant = tenant or self.default_tenant
         klass = klass or self.default_class
         prompt_ids = np.asarray(prompt_ids, np.int32).reshape(-1)
@@ -180,6 +228,7 @@ class ServeServer:
             rid=next(self._rid_iter), prompt_ids=prompt_ids,
             prompt_mask=prompt_mask, tenant=tenant, klass=klass, seed=seed,
             stream=stream, max_buffered=self.stream_buffer, greedy=greedy,
+            max_new_tokens=int(max_new_tokens) or self.default_max_new_tokens,
         )
         self.metrics.adjust_active(+1)
         self._ingress.put(req)
@@ -307,6 +356,8 @@ class ServeServer:
 
     def _publish_gauges(self) -> None:
         self.metrics.set_admission(self.admission.snapshot())
+        if self.engine.host_tier is not None:
+            self.metrics.set_tier(self.engine.host_tier.snapshot())
 
     # -- observation (any thread) ----------------------------------------
 

@@ -53,8 +53,18 @@ Port of ``trlx_tpu/trainer/base.py`` (``TPUBaseTrainer``) as
   ring (``resilience.keep_last_n``) pruning before each interval save;
   the tracker is ``utils/trackers.py::make_tracker``'s (JSONL into
   ``<checkpoint_dir>/logs`` by default). JAX's span tracer, health
-  detectors, flight recorder, watchdogs and serving inside a trainer are
-  not ported;
+  detectors, flight recorder and watchdogs are not ported;
+- serving inside a trainer (``serve.enabled``, the rollout trainers on
+  the continuous path): ``learn`` stands up a serving engine of its own
+  behind ``ServeServer`` and its HTTP listener, publishes a copy of the
+  policy's weights before the listener starts and at every step boundary
+  (stamped ``iter_count``; the serving engine never reads the live,
+  updating weights), runs the ``request_flood`` drill there, and drains
+  the server on the clean, crash and preemption paths;
+- the rollout engines' prefix cache (``engine.prefix_cache``) is flushed
+  whenever the weights change: an optimizer step updates the policy in
+  place, so the engines take the trainer's weights counter as their
+  version;
 - ``save`` commits one ``torch.save`` file of model, optimizer, step and
   the trainer's host state (the rollout seed stream, torch's generators,
   the prompt-stream position) atomically (``utils/checkpoint.py``); an
@@ -67,6 +77,7 @@ Port of ``trlx_tpu/trainer/base.py`` (``TPUBaseTrainer``) as
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """
 
+import copy
 import dataclasses
 import logging
 import os
@@ -79,7 +90,7 @@ import numpy as np
 import torch
 
 from trlx_tpu_torch.data.tokenizer import from_config as tokenizer_from_config
-from trlx_tpu_torch.engine.core import ContinuousEngine, SerialEngine
+from trlx_tpu_torch.engine.core import SERVE_CLASSES, ContinuousEngine, SerialEngine
 from trlx_tpu_torch.models.builder import (
     assemble_overrides,
     build_causal_lm,
@@ -91,7 +102,12 @@ from trlx_tpu_torch.models.transformer import config_from_spec
 from trlx_tpu_torch.observability.metrics import MetricsRegistry
 from trlx_tpu_torch.observability.profiling import ProfileWindow
 from trlx_tpu_torch.ops.kernel_utils import resolve_device
-from trlx_tpu_torch.ops.paged_kv import PagedSpec, dense_kv_bytes, num_table_blocks
+from trlx_tpu_torch.ops.paged_kv import (
+    PagedSpec,
+    block_bytes,
+    dense_kv_bytes,
+    num_table_blocks,
+)
 from trlx_tpu_torch.ops.sampling import (
     GenerationConfig,
     GenerationOutput,
@@ -175,12 +191,42 @@ def validate_engine(config) -> None:
         )
 
 
+def validate_serve(config) -> None:
+    """The JAX trainer's construction checks of ``serve.*``, each its own
+    ``ValueError`` naming the setting."""
+    s = config.serve
+    if not s.enabled:
+        return
+    if config.engine.backend != "paged":
+        raise ValueError("serve.enabled requires engine.backend: paged — token streaming "
+                         "snapshots and priority preemption are block-table operations")
+    if not config.train.continuous_batching:
+        raise ValueError("serve.enabled requires train.continuous_batching: true — the "
+                         "serving engine is a ContinuousEngine built through the "
+                         "slot-refill program cache")
+    if int(s.slots) < 1:
+        raise ValueError(f"serve.slots {s.slots} must be >= 1")
+    if not 0 <= int(s.reserve_slots) < int(s.slots):
+        raise ValueError(f"serve.reserve_slots {s.reserve_slots} must leave at least one "
+                         f"unreserved slot of serve.slots {s.slots}")
+    if float(s.drain_timeout_s) <= 0:
+        raise ValueError(f"serve.drain_timeout_s {s.drain_timeout_s} must be > 0 (the "
+                         "graceful-drain window)")
+    if int(s.host_tier_blocks) and not config.engine.prefix_cache:
+        raise ValueError("serve.host_tier_blocks requires engine.prefix_cache: true — only "
+                         "committed prefix entries ever spill to the host tier")
+    if s.default_class not in SERVE_CLASSES:
+        raise ValueError(f"unknown serve.default_class {s.default_class!r} (expected one "
+                         f"of {SERVE_CLASSES})")
+
+
 def reject_unported(config, collects_rollouts: bool, seq2seq_ok: bool) -> None:
     """Raise ``ValueError`` naming the first setting this slice does not
     run: parallel axes (the port runs on one device; ``parallel.
     scan_layers`` runs, as per-layer modules, with ``pipe`` 1), seq2seq
-    outside PPO and ILQL (``seq2seq_ok``), serving inside a trainer, and a
-    fault plan (``resilience.fault_plan`` or ``TRLX_TPU_FAULT_PLAN``) that
+    outside PPO and ILQL (``seq2seq_ok``), serving inside an offline
+    trainer (JAX's reason: only the rollout trainers have an engine to
+    serve from), and a fault plan (``resilience.fault_plan`` or ``TRLX_TPU_FAULT_PLAN``) that
     names a kind whose subsystem the port does not have yet
     (``resilience/faults.py::UNPORTED_KINDS``). Trackers, profiler
     windows, rollout logs, remat, the update guard, fault plans of the
@@ -190,8 +236,9 @@ def reject_unported(config, collects_rollouts: bool, seq2seq_ok: bool) -> None:
     collection, the loss kernel's name (and ``pallas`` only where the
     method's ``LOSS_KERNELS`` hosts it), and — only with
     ``train.continuous_batching: true``, as the serial dense path ignores
-    them in JAX too — the paged engine's backend, prefix cache, chunked
-    prefill and gather kernels. The offline trainers (SFT, ILQL) collect
+    them in JAX too — the paged engine's backend, its gather kernels, and
+    speculation together with the prefix cache or chunked prefill. The
+    offline trainers (SFT, ILQL) collect
     nothing: they evaluate on the paged engine, so those settings do not
     reach them."""
     t, e, m, par = config.train, config.engine, config.model, config.parallel
@@ -212,9 +259,11 @@ def reject_unported(config, collects_rollouts: bool, seq2seq_ok: bool) -> None:
             checks += [
                 (e.backend != "paged", f"engine.backend {e.backend!r}: the port's "
                  "continuous engine is paged"),
-                (e.prefix_cache, "engine.prefix_cache: the prefix cache is not ported"),
-                (int(e.prefill_chunk) != 0, "engine.prefill_chunk: chunked prefill is not "
-                 "ported"),
+                (int(e.speculative) > 0 and e.prefix_cache, "engine.speculative with "
+                 "engine.prefix_cache: prefix hits are not ported with speculation"),
+                (int(e.speculative) > 0 and int(e.prefill_chunk) != 0, "engine.speculative "
+                 "with engine.prefill_chunk: chunked prefill is not ported with "
+                 "speculation"),
                 (e.decode_kernel != "pallas", f"engine.decode_kernel {e.decode_kernel!r}: "
                  "the port runs the paged-decode kernel ('pallas'); the gather path is not "
                  "ported"),
@@ -226,7 +275,8 @@ def reject_unported(config, collects_rollouts: bool, seq2seq_ok: bool) -> None:
         spec.kind for spec in FaultPlan.from_config(config.resilience.fault_plan).specs
         if spec.kind in UNPORTED_KINDS})
     checks += [
-        (config.serve.enabled, "serve.enabled: serving inside a trainer is not ported"),
+        (config.serve.enabled and not collects_rollouts, "serve.enabled: this trainer has "
+         "no continuous-batching engine path to serve from (PPO-family trainers only)"),
         (int(par.data) not in (-1, 1), "parallel.data > 1: the port runs on one device"),
         (m.model_arch_type != "causal" and not (seq2seq_ok and m.model_arch_type == "seq2seq"),
          f"model.model_arch_type {m.model_arch_type!r}: the port runs seq2seq models under "
@@ -318,6 +368,8 @@ class TorchBaseTrainer(BaseRLTrainer):
     ):
         super().__init__(config, reward_fn, metric_fn, stop_sequences, **kwargs)
         validate_engine(config)
+        if self.collects_rollouts:
+            validate_serve(config)
         self.is_seq2seq = config.model.model_arch_type == "seq2seq"
         if self.is_seq2seq and self.collects_rollouts and config.train.continuous_batching:
             raise NotImplementedError(
@@ -372,6 +424,12 @@ class TorchBaseTrainer(BaseRLTrainer):
             [p for n, p in self.model.named_parameters() if self.param_mask[n]],
         )
         self.step = 0  # optimizer updates taken (the JAX TrainState.step)
+        # bumped whenever the weights change (an optimizer step, a load):
+        # the rollout engines' version, which flushes their prefix caches
+        self._weights_version = 0
+        # the serving frontend (serve.enabled): built in learn(), drained
+        # on every exit from it
+        self._serve = None
         # per-row sampling seeds of the rollout and eval engines
         self._rollout_seeds = np.random.RandomState(config.train.seed)
 
@@ -571,6 +629,7 @@ class TorchBaseTrainer(BaseRLTrainer):
             group["lr"] = lr
         self.optimizer.step()
         self.step += 1
+        self._weights_version += 1
         return stats
 
     @staticmethod
@@ -616,9 +675,28 @@ class TorchBaseTrainer(BaseRLTrainer):
             raise ValueError(f"engine.kv_block_size {bs} must be >= 1")
         max_blocks = int(self.config.engine.max_kv_blocks)
         if max_blocks <= 0:
+            # with the prefix cache, room for as many cached blocks again
             max_blocks = 1 + batch_size * num_table_blocks(
-                prompt_len + gen_config.max_new_tokens + int(gamma), bs)
+                prompt_len + gen_config.max_new_tokens + int(gamma), bs) * (
+                    2 if self._prefix_cache_enabled() else 1)
         return PagedSpec(block_size=bs, max_blocks=max_blocks)
+
+    def _prefix_cache_enabled(self) -> bool:
+        """``engine.prefix_cache``, turned off with a one-time warning for
+        MoE policies, as in JAX: expert capacity is shared across a
+        sequence's tokens, so a suffix-only prefill would not equal the
+        whole prefill there."""
+        if not self.config.engine.prefix_cache:
+            return False
+        if getattr(self.tcfg, "num_experts", 0):
+            if not getattr(self, "_warned_moe_prefix", False):
+                self._warned_moe_prefix = True
+                logger.warning("engine.prefix_cache disabled: MoE expert capacity is shared "
+                               "across a sequence's tokens, so suffix-only prefill would not "
+                               "be bit-identical to the full prefill (set "
+                               "engine.prefix_cache: false to silence)")
+            return False
+        return True
 
     def _get_slot_refill_fns(self, gen_config, extra_kwargs, batch_size: int,
                              prompt_len: int, segment_len: int):
@@ -653,21 +731,34 @@ class TorchBaseTrainer(BaseRLTrainer):
         return target
 
     def _cb_make_engine(self, gen_config, extra_kwargs, rows: int, chunk_width: int,
-                        tag: Any = None) -> ContinuousEngine:
+                        tag: Any = None, params: Any = None,
+                        version: Optional[int] = None,
+                        prefix_and_chunks: bool = True) -> ContinuousEngine:
         """The engine for ``rows`` slots, cached per shape bucket and reset
         for a fresh collection. Its prompt width is the trainer-level
         budget ``seq_length − max_new_tokens``, bumped to the chunk's
-        collation width if a loader pads wider; narrower chunks left-pad."""
+        collation width if a loader pads wider; narrower chunks left-pad.
+        The prefix cache and chunked prefill come from ``engine:`` (the
+        rollout and serving engines; ``generate``'s engine, JAX's serial
+        generate, runs without them). The engine runs ``params`` (default:
+        the live policy, versioned by the trainer's weights counter, so
+        its prefix cache is flushed after every update)."""
         seg = max(1, int(self.config.train.continuous_batching_segment or 8))
         engine_p = max(int(self.config.train.seq_length) - gen_config.max_new_tokens,
                        chunk_width)
         key = ("cb_engine", gen_config, extra_kwargs, rows, engine_p, seg, tag)
         engine = self._generate_fns.get(key)
+        if version is None and params is None:
+            version = self._weights_version
         if engine is None:
             fns = self._get_slot_refill_fns(gen_config, extra_kwargs, rows, engine_p, seg)
-            engine = ContinuousEngine(fns, self._engine_params(), self.tokenizer.pad_token_id)
+            engine = ContinuousEngine(
+                fns, self._engine_params(params), self.tokenizer.pad_token_id,
+                prefix_cache=prefix_and_chunks and self._prefix_cache_enabled(),
+                prefix_capacity_blocks=int(self.config.engine.prefix_cache_blocks),
+                prefill_chunk=int(self.config.engine.prefill_chunk) if prefix_and_chunks else 0)
             self._generate_fns[key] = engine
-        engine.begin_collection(self._engine_params())
+        engine.begin_collection(self._engine_params(params), version=version)
         return engine
 
     def _row_seeds(self, rows: int) -> np.ndarray:
@@ -818,7 +909,8 @@ class TorchBaseTrainer(BaseRLTrainer):
         gen_config, extra = self._resolve_gen_config(eval_mode, **kwargs)
         rows, width = input_ids.shape
         engine = self._cb_make_engine(gen_config, extra, rows, width,
-                                      tag="eval" if eval_mode else "generate")
+                                      tag="eval" if eval_mode else "generate",
+                                      prefix_and_chunks=False)
         engine.enqueue_prompts(input_ids, attention_mask, self._row_seeds(rows))
         done = sorted(engine.run(), key=lambda c: c.index)
         self.last_generate_stats = engine.stats.metrics()
@@ -921,10 +1013,13 @@ class TorchBaseTrainer(BaseRLTrainer):
         loop (an emergency checkpoint at the next step boundary, then
         :class:`~trlx_tpu_torch.resilience.TrainingPreempted`); any
         exception closes the profiler window and flushes the tracker before
-        it propagates, so a dying run keeps its stats."""
+        it propagates, so a dying run keeps its stats. With
+        ``serve.enabled`` the serving frontend starts before the loop and
+        drains on every way out of it."""
         self.prepare_learning()
         self.maybe_resume()
         try:
+            self._maybe_start_serving()
             with self.resilience.preemption:
                 return self._learn_loop()
         except BaseException:
@@ -935,7 +1030,71 @@ class TorchBaseTrainer(BaseRLTrainer):
                 pass
             raise
         finally:
+            self._shutdown_serving()
             self._stop_prefetch()
+
+    def _maybe_start_serving(self) -> None:
+        """Stand up the serving frontend (``serve.enabled``): a serving
+        engine of its own (``serve.slots`` slots, the evaluation generation
+        settings with ``serve.max_new_tokens``, the prefix cache and chunks
+        of ``engine:``), tenant quotas, the host tier when
+        ``serve.host_tier_blocks > 0``, and ``ServeServer``; the first
+        weights copy is published before the HTTP listener starts, so every
+        admitted request is stamped with a version."""
+        cfg = self.config.serve
+        if not cfg.enabled or self._serve is not None:
+            return
+        from trlx_tpu_torch.serve.server import ServeServer
+        from trlx_tpu_torch.serve.tiering import HostTier
+
+        gen_kwargs = {}
+        if int(cfg.max_new_tokens) > 0:
+            gen_kwargs["max_new_tokens"] = int(cfg.max_new_tokens)
+        gen_config, extra_kwargs = self._resolve_gen_config(eval_mode=True, **gen_kwargs)
+        weights = self._serve_params_copy()
+        engine = self._cb_make_engine(gen_config, extra_kwargs, int(cfg.slots), 1,
+                                      tag="serve", params=weights, version=self.iter_count)
+        engine.reserve_slots = int(cfg.reserve_slots)
+        for tenant, blocks in (cfg.tenant_quota_blocks or {}).items():
+            engine.allocator.set_tenant_quota(str(tenant), int(blocks))
+        if int(cfg.host_tier_blocks) > 0 and engine.host_tier is None:
+            engine.attach_host_tier(HostTier(int(cfg.host_tier_blocks),
+                                             block_bytes=block_bytes(engine.state.cache)))
+        slo_s = {k: float(v) for k, v in (("interactive", cfg.slo_interactive_s),
+                                          ("eval", cfg.slo_eval_s),
+                                          ("actor", cfg.slo_actor_s)) if float(v) > 0}
+        self._serve = ServeServer(
+            engine, default_tenant=cfg.default_tenant, default_class=cfg.default_class,
+            slo_s=slo_s, max_queue=int(cfg.max_queue), stream_buffer=int(cfg.stream_buffer),
+            drain_timeout_s=float(cfg.drain_timeout_s),
+            retain_param_versions=int(cfg.retain_param_versions),
+            default_max_new_tokens=int(cfg.max_new_tokens),
+        )
+        self._serve.publish(self._engine_params(weights), version=self.iter_count)
+        self._serve.start(host=cfg.host, port=int(cfg.port))
+        logger.info("serving frontend up on %s:%d (%d slots, classes %s)", cfg.host,
+                    self._serve.port, int(cfg.slots), list(slo_s) or "un-SLO-gated")
+
+    def _serve_params_copy(self) -> Any:
+        """A copy of the policy that later optimizer steps do not touch:
+        the serving engine must never read the live weights (they change
+        in place under it), and ``serve.retain_param_versions`` keeps old
+        copies readable after any number of updates. Parameters only (no
+        gradients), frozen, in eval mode."""
+        weights = copy.deepcopy(self.model)
+        weights.requires_grad_(False)
+        return weights.eval()
+
+    def _shutdown_serving(self) -> None:
+        """Drain the serving frontend (new admissions 503, in-flight
+        requests get ``serve.drain_timeout_s``, both serve threads joined).
+        Never raises."""
+        serve, self._serve = self._serve, None
+        if serve is not None:
+            try:
+                serve.drain()
+            except Exception:  # pragma: no cover - defensive teardown
+                logger.warning("serve drain failed", exc_info=True)
 
     def _close_prompt_iterator(self) -> None:
         """Close the prompt iterator at the end of learning, which stops
@@ -978,9 +1137,11 @@ class TorchBaseTrainer(BaseRLTrainer):
     def _check_faults_and_preemption(self) -> None:
         """The step-boundary seam, before every update: deliver the fault
         plan's signals for this step (the installed handler runs at once,
-        so the request is honoured at this boundary), then honour a
-        preemption request: stop the prefetch workers, wait for the card,
-        commit one emergency checkpoint and raise
+        so the request is honoured at this boundary) and, while serving,
+        its ``request_flood`` drill; publish the current weights to the
+        serving frontend; then honour a preemption request: stop the
+        prefetch workers, wait for the card, commit one emergency
+        checkpoint and raise
         :class:`~trlx_tpu_torch.resilience.TrainingPreempted`."""
         plan = self.resilience.plan
         if plan:
@@ -988,6 +1149,18 @@ class TorchBaseTrainer(BaseRLTrainer):
                 signal.raise_signal(signal.SIGTERM)
             if plan.poll("sigint", step=self.iter_count):
                 signal.raise_signal(signal.SIGINT)
+            if self._serve is not None and plan.poll("request_flood", step=self.iter_count):
+                # the admission drill: a synthetic burst through the real
+                # gate must shed load with 429s
+                rejected = self._serve.flood_drill()
+                logger.warning("request_flood drill at step %d: %d synthetic requests shed "
+                               "by admission", self.iter_count, rejected)
+        if self._serve is not None:
+            # serve-while-training: every step boundary publishes the current
+            # weights; the pump adopts them at its next serve-idle point, so
+            # every response is generated under one version
+            self._serve.publish(self._engine_params(self._serve_params_copy()),
+                                version=self.iter_count)
         preemption = self.resilience.preemption
         if not preemption.requested:
             return
@@ -1061,6 +1234,8 @@ class TorchBaseTrainer(BaseRLTrainer):
                     stats["throughput/tokens_per_sec"] = (
                         self._batch_token_count(batch) / step_time if step_time > 0 else 0.0)
                     stats.update(self.metrics.snapshot())
+                    if self._serve is not None:
+                        stats.update(self._serve.flat_metrics())
                     profile.on_step_end(self.iter_count)
                     self.iter_count += 1
 
@@ -1194,6 +1369,7 @@ class TorchBaseTrainer(BaseRLTrainer):
         directory = directory or self.config.train.checkpoint_dir
         state = load_state(directory)
         self.model.load_state_dict(state["model"])
+        self._weights_version += 1
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
         extra = state["extra"]
