@@ -229,6 +229,7 @@ import subprocess
 import sys
 import threading
 import time
+from collections import Counter
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -2118,7 +2119,7 @@ def edge_values(p, ops):
     """Masked sketched values within 1e-5 of a bin edge (a 1-ulp
     difference may move them to the neighbouring bin)."""
     from trlx_tpu_torch.ops.fused_loss import _method_of
-    from trlx_tpu_torch.utils.dynamics import SKETCH_BINS, SKETCH_RANGES
+    from trlx_tpu_torch.observability.dynamics import SKETCH_BINS, SKETCH_RANGES
 
     m = _method_of(p)
     lp, v, olp, ov, rw, mask = ops[:6]
@@ -2466,6 +2467,7 @@ def card_cpu_backward(trainer, build, batch, card, relu=None):
     launches of each pass."""
     from trlx_tpu_torch.models import heads
     from trlx_tpu_torch.trainer.base import host_stats
+    from trlx_tpu_torch.utils import filter_non_scalars
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2492,7 +2494,8 @@ def card_cpu_backward(trainer, build, batch, card, relu=None):
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             results[key] = {
-                "loss": float(loss.detach()), "stats": host_stats(stats),
+                "loss": float(loss.detach()),
+                "stats": filter_non_scalars(host_stats(stats)),
                 "grads": {k: p.grad.detach().cpu() for k, p in m.named_parameters()
                           if p.grad is not None},
                 "launches": launch_counts(),
@@ -2833,10 +2836,12 @@ def profile_collection(trainer, prompts, n_rows):
         return out, score, gen_s
 
     run()
+    spans_before = len(trainer.obs.tracer.events())
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out, _, gen_s = run()
         wall = time.perf_counter() - t0
+    spans = len(trainer.obs.tracer.events()) - spans_before
     events = device_events(prof)
     busy = _busy_us([(e.time_range.start, e.time_range.end) for e in events]) * 1e-6
     steps = int(out.response_mask.sum(dim=1).max())
@@ -2844,8 +2849,10 @@ def profile_collection(trainer, prompts, n_rows):
             "wall_ms": 1e3 * wall, "generate_ms": 1e3 * gen_s,
             "device_busy_share": busy / wall, "device_idle_share": 1.0 - busy / wall,
             "device_launches": len(events),
+            "spans": spans,
             "per_decode_step": {"wall_ms": 1e3 * gen_s / max(steps, 1),
-                                "launches": len(events) / max(steps, 1)}}
+                                "launches": len(events) / max(steps, 1),
+                                "spans": spans / max(steps, 1)}}
 
 
 def phase_slice_serial(device="cuda", spec="builtin:gpt2-small", draft_layers=0, card="",
@@ -2902,6 +2909,8 @@ def phase_slice_serial(device="cuda", spec="builtin:gpt2-small", draft_layers=0,
     end = trainer.model.state_dict()
     not_moved = [k for k in start if torch.equal(end[k].detach().cpu(), start[k])]
     train = config.train
+    # the first step counts the FLOPs and carries no MFU
+    mfus = [st["throughput/mfu"] for st in steps if "throughput/mfu" in st]
     rec = {"phase": phase, "model": spec, "dtype": str(trainer.tcfg.dtype).split(".")[-1],
            "settings": {"continuous_batching": train.continuous_batching,
                         "rollout_pipeline_depth": train.rollout_pipeline_depth,
@@ -2916,6 +2925,11 @@ def phase_slice_serial(device="cuda", spec="builtin:gpt2-small", draft_layers=0,
            "optimizer_steps": len(steps), "rollout_collections": len(collections),
            "losses": losses, "wall_s": wall,
            "train_step_ms_median": statistics.median(1e3 * st["time/step"] for st in steps),
+           "mfu": [st.get("throughput/mfu") for st in steps],
+           "mfu_median": statistics.median(mfus) if mfus else None,
+           "train_step_flops": trainer._train_step_flops,
+           "spans": dict(Counter(e["name"] for e in trainer.obs.tracer.events()
+                                 if e.get("ph") != "M")),
            "time_exp_s": [c["time/exp"] for c in collections],
            "time_generate_s": [c["time/generate"] for c in collections],
            "rollout_tokens_per_s": [c.get("throughput/rollout_tokens_per_sec")
@@ -2939,6 +2953,8 @@ def phase_slice_serial(device="cuda", spec="builtin:gpt2-small", draft_layers=0,
         problems.append(f"#5 or #6 never launched: {launches}")
     if any(launches[k] for k in SERIAL_IDLE):
         problems.append(f"a kernel off the preset path launched: {launches}")
+    if len(mfus) != len(steps) - 1 or not all(0.0 < m <= 1.0 for m in mfus):
+        problems.append(f"throughput/mfu outside (0, 1]: {rec['mfu']}")
     if draft_layers and not all(0.0 <= a <= 1.0 for a in rec["spec_acceptance_rate"]):
         problems.append(f"acceptance {rec['spec_acceptance_rate']} outside [0, 1]")
     if dev.type == "cuda" and not problems and not draft_layers:
@@ -5391,7 +5407,8 @@ def phase_slice_remat_policies(trainer, card=""):
         raise AssertionError(f"slice_remat_policies: {problems}")
 
 
-RESILIENCE_PLAN = "reward_raise@call:2*2; nan_loss@step:3"
+RESILIENCE_PLAN = ("reward_raise@call:2*2; nan_loss@step:3; flightrec_dump@step:2; "
+                   "health_trip@step:4; sleep_one_proc@step:2")
 RESILIENCE_PREEMPT = "sigterm@step:5"
 RESILIENCE_STEPS, RESILIENCE_INTERVAL, RESILIENCE_KEEP = 8, 2, 2
 
@@ -5441,9 +5458,21 @@ def phase_slice_resilience(device="cuda", spec="builtin:gpt2-small", card="",
     poisoned update (so the NaN came through the loss kernels' backward),
     and 2 reward retries; the checkpoints left are the ring's; the trace
     names #5 and #6; rollout files are written; the default signal handlers
-    are back. Every kernel counter is set to 0 just before the three runs
-    of each kernel and read after; #5 and #6 (and, at ``pallas``, #7/#8)
-    must launch. Returns the launches summed over both kernels."""
+    are back. Observability (``observability_problems``): the
+    uninterrupted run's ``trace.json`` and ``spans.jsonl`` hold one fenced
+    ``train_step`` span per update whose duration is the logged
+    ``time/step`` (update 2 holding the injected straggler's sleep), the
+    flight recorder dumped at step 2 (``flightrec_dump``) and, in the
+    preempted run, on the preemption, ``health/verdict`` tripped at step 4
+    (``health_trip``, with its triage batch), ``throughput/mfu`` in (0, 1]
+    on every update after the counted first, the ``memory/device_*`` gauges
+    read; after both kernels, the ``dist/*`` gauges of the ``pallas`` run
+    (#7's sketch bins) equal the ``xla`` run's at the first update, where
+    both loss paths take the same operands (later updates' gaps are
+    reported). Every
+    kernel counter is set to 0 just before the three runs of each kernel
+    and read after; #5 and #6 (and, at ``pallas``, #7/#8) must launch.
+    Returns the launches summed over both kernels."""
     import glob
     import shutil
     import signal
@@ -5456,6 +5485,7 @@ def phase_slice_resilience(device="cuda", spec="builtin:gpt2-small", card="",
     handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
     total = {k: 0 for k in REPLACES}
     records, problems = [], []
+    dist_by_kernel = {}
     for loss_kernel in ("xla", "pallas"):
         root = _scratch_dir(f"resilience_{loss_kernel}")
         prof_dir = os.path.join(root, "profile")
@@ -5516,6 +5546,10 @@ def phase_slice_resilience(device="cuda", spec="builtin:gpt2-small", card="",
                               if e.get("cat") == "kernel"}
             rollouts = {tag: sorted(os.listdir(os.path.join(root, tag, "rollouts")))
                         for tag in ("ref", "run")}
+            obs_rec, obs_bad = observability_problems(root, ref, dev)
+            dist_by_kernel[loss_kernel] = [
+                {k: v for k, v in st.items() if k.startswith("dist/")}
+                for _, st in ref.tracker.history if "gradients/global_norm" in st]
         finally:
             os.environ.pop(PROFILE_ENV, None)
             shutil.rmtree(root, ignore_errors=True)
@@ -5531,8 +5565,9 @@ def phase_slice_resilience(device="cuda", spec="builtin:gpt2-small", card="",
                "learning_rate": [r.get("learning_rate") for r in steps],
                "checkpoints_left": left, "checkpoints_expected": want_left,
                "trace_kernels": sorted(n for n in names if "flash_" in n or "fused_" in n)[:8],
-               "rollout_files": rollouts, "launches": launches, "card": card}
-        bad = []
+               "rollout_files": rollouts, "observability": obs_rec, "launches": launches,
+               "card": card}
+        bad = list(obs_bad)
         if not preempted:
             bad.append("no preemption")
         if unequal:
@@ -5565,9 +5600,83 @@ def phase_slice_resilience(device="cuda", spec="builtin:gpt2-small", card="",
         for k in total:
             total[k] += launches[k]
         del ref, resumed
+    # the first update feeds both loss paths the same operands (the same
+    # rollouts and weights), so #7's sketch bins must give the staged
+    # loss's gauges exactly; later updates start from weights the two
+    # runs' last-bit gradient differences moved apart (Adam's step on
+    # gradients that are zero in exact arithmetic), and are reported
+    first_x, first_p = (dist_by_kernel[k][0] if dist_by_kernel[k] else {}
+                        for k in ("xla", "pallas"))
+    first_gaps = [(k, first_x.get(k), first_p.get(k)) for k in sorted(set(first_x) | set(first_p))
+                  if first_x.get(k) != first_p.get(k)]
+    later = [max((abs(a[k] - b[k]) for k in a if k in b), default=0.0)
+             for a, b in zip(dist_by_kernel["xla"][1:], dist_by_kernel["pallas"][1:])]
+    emit({"phase": "slice_resilience_dist", "updates": len(dist_by_kernel["xla"]),
+          "first_update_gauges": len(first_x), "first_update_unequal": first_gaps,
+          "later_updates_max_abs_gap": later,
+          "ok": not first_gaps and len(first_x) > 0})
+    if first_gaps or not first_x or len(dist_by_kernel["xla"]) != len(dist_by_kernel["pallas"]):
+        problems.append(f"dist/* of pallas differ from xla at the first update: {first_gaps}")
     if problems:
         raise AssertionError(f"slice_resilience: {problems}")
     return total
+
+
+def observability_problems(root, ref, dev):
+    """``slice_resilience``'s observability checks of one loss kernel's
+    runs under ``root`` (``ref``: the uninterrupted run's trainer):
+    ``(record, problems)``."""
+    from trlx_tpu_torch.resilience.faults import SLEEP_FAULT_S
+
+    problems = []
+    ref_logs, run_logs = os.path.join(root, "ref", "logs"), os.path.join(root, "run", "logs")
+    steps = [st for _, st in ref.tracker.history if "gradients/global_norm" in st]
+    for name in ("trace.json", "spans.jsonl", "flightrec.json"):
+        if not os.path.exists(os.path.join(ref_logs, name)):
+            problems.append(f"no {name} in the uninterrupted run's logs")
+    spans = []
+    if os.path.exists(os.path.join(ref_logs, "spans.jsonl")):
+        with open(os.path.join(ref_logs, "spans.jsonl")) as f:
+            spans = [json.loads(line) for line in f]
+    step_spans = [sp["dur_s"] for sp in spans if sp["name"] == "train_step"]
+    logged = [st["time/step"] for st in steps]
+    if len(step_spans) != len(steps) or not all(
+            math.isclose(a, b, rel_tol=1e-9) for a, b in zip(step_spans, logged)):
+        problems.append(f"train_step spans {step_spans} against time/step {logged}")
+    if len(logged) > 2 and not logged[2] >= SLEEP_FAULT_S:
+        problems.append(f"update 2 took {logged[2]} s, under the injected {SLEEP_FAULT_S} s")
+    dumps = [st.get("flightrec/dumps") for st in steps]
+    if dumps[:3] != [None, None, 1.0]:
+        problems.append(f"flightrec/dumps by update {dumps}: no dump at step 2")
+    preempt_dump = {}
+    if os.path.exists(os.path.join(run_logs, "flightrec.json")):
+        with open(os.path.join(run_logs, "flightrec.json")) as f:
+            preempt_dump = json.load(f)
+    preempt_records = [r for r in preempt_dump.get("records", [])
+                       if r["kind"] == "resilience"
+                       and r.get("data", {}).get("event") == "preemption"]
+    if not str(preempt_dump.get("reason", "")).startswith("TrainingPreempted") or \
+            not preempt_records:
+        problems.append(f"the preempted run's flight record: {preempt_dump.get('reason')}")
+    verdicts = [st.get("health/verdict") for st in steps]
+    if len(verdicts) < 5 or verdicts[4] != 1.0:
+        problems.append(f"health/verdict by update {verdicts}: no trip at step 4")
+    if not os.path.exists(os.path.join(ref_logs, "triage", "step4.npz")):
+        problems.append("no triage batch at step 4")
+    mfus = [st.get("throughput/mfu") for st in steps]
+    if not all(m is not None and 0.0 < m <= 1.0 for m in mfus[1:]):
+        problems.append(f"throughput/mfu {mfus}")
+    memory = {k: steps[-1].get(k) for k in ("memory/device_bytes_in_use",
+                                             "memory/device_peak_bytes",
+                                             "memory/device_limit_bytes")}
+    if dev.type == "cuda" and not all(v and v > 0 for v in memory.values()):
+        problems.append(f"memory gauges {memory}")
+    rec = {"train_step_spans": len(step_spans), "time_step_s": logged,
+           "flightrec_dumps": dumps, "preempt_dump_reason": preempt_dump.get("reason"),
+           "preempt_dump_records": len(preempt_dump.get("records", [])),
+           "health_verdict": verdicts, "mfu": mfus, "train_step_flops": ref._train_step_flops,
+           "memory": memory, "span_names": sorted({sp["name"] for sp in spans})}
+    return rec, problems
 
 
 def kernel_record(name, launches, max_abs_err, rec, by_path):

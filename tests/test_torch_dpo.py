@@ -337,7 +337,8 @@ def test_construction_checks_raise_as_jax(tmp_path, override, error, match):
     # remat, trackers and the retention ring run; these wait for their
     # subsystems
     ({"resilience": {"fault_plan": "actor_crash@collection:2"}}, "resilience.fault_plan"),
-    ({"resilience": {"fault_plan": "flightrec_dump@step:4"}}, "resilience.fault_plan"),
+    ({"resilience": {"fault_plan": "flightrec_dump@step:4; topology_shrink@resume:1"}},
+     "resilience.fault_plan"),
     ({"parallel": {"scan_layers": True, "pipe": 4}}, "parallel.pipe"),
     ({"train": {"grad_accum": 3}}, "train.grad_accum"),
 ])

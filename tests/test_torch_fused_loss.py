@@ -53,7 +53,7 @@ from trlx_tpu_torch.ops.fused_loss import (
     residual_views,
     stat_keys,
 )
-from trlx_tpu_torch.utils.dynamics import SKETCH_BINS, SKETCH_RANGES
+from trlx_tpu_torch.observability.dynamics import SKETCH_BINS, SKETCH_RANGES
 from trlx_tpu_torch.utils.stats import RunningMoments, whiten
 from tests.torch_kernel_cases import loss_case
 from torch_threads import use_one_cpu_thread

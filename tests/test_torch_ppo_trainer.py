@@ -244,10 +244,15 @@ def test_train_entry_point_end_to_end(tmp_path):
         # a draft whose vocabulary is not the policy's (50257 against 259)
         ({"model": {"draft_model_path": "builtin:gpt2-small"}}, "model.draft_model_path"),
         ({"resilience": {"fault_plan": "weight_sync_drop@version:2"}}, "resilience.fault_plan"),
-        ({"resilience": {"fault_plan": "sigterm@step:2; flightrec_dump@step:1"}},
+        # flightrec_dump, health_trip and sleep_one_proc are polled
+        # (tests/test_torch_health.py); the kinds still unported are refused
+        # beside polled ones too
+        ({"resilience": {"fault_plan": "sigterm@step:2; topology_shrink@resume:1"}},
          "resilience.fault_plan"),
-        ({"resilience": {"fault_plan": "health_trip@step:1"}}, "resilience.fault_plan"),
-        ({"resilience": {"fault_plan": "sleep_one_proc@step:2*3"}}, "resilience.fault_plan"),
+        ({"resilience": {"fault_plan": "health_trip@step:1; actor_crash@collection:2"}},
+         "resilience.fault_plan"),
+        ({"resilience": {"fault_plan": "sleep_one_proc@step:2*3; weight_sync_drop@version:1"}},
+         "resilience.fault_plan"),
         ({"resilience": {"fault_plan": "sigterm_one_proc@step:5"}}, "resilience.fault_plan"),
         ({"method": {"loss_kernel": "mosaic"}}, "method.loss_kernel"),
         ({"train": {"batch_size": 5, "grad_accum": 2}}, "train.grad_accum"),
@@ -378,7 +383,7 @@ def test_optimizers_match_optax(name):
 
 def test_sketches_match_jax():
     from trlx_tpu.observability import dynamics as jax_dynamics
-    from trlx_tpu_torch.utils import dynamics
+    from trlx_tpu_torch.observability import dynamics
 
     rs = np.random.RandomState(3)
     x = (rs.randn(5, 9) * 3).astype(np.float32)

@@ -59,6 +59,14 @@ Kernel gauges: ``engine/decode_kernel_launches``,
 ``engine/sample_kernel_launches`` are read from the kernel wrappers'
 launch counters — what actually launched, never a configuration string.
 
+Tracing (``span`` and ``tracer``, an ``Observability``'s): every segment
+runs under a ``rollout/segment`` span, which closes device-complete
+because the segment returns step counts read back from the card (that
+read is its fence: no event or synchronize is added); each harvested
+request emits ``engine/queue_wait`` → ``engine/prefill`` →
+``engine/decode`` (and ``engine/spec_verify`` under speculation) on its
+slot's track, and each mid-prompt chunk ``engine/prefill_chunk``.
+
 Thread affinity: single-threaded by design — exactly one thread (the
 caller, or the serve pump thread) calls ``enqueue_prompts``/``step``.
 """
@@ -418,8 +426,16 @@ class ContinuousEngine(Engine):
         prefix_cache: bool = False,
         prefix_capacity_blocks: int = 0,
         prefill_chunk: int = 0,
+        span: Optional[Callable[..., Any]] = None,
+        tracer: Any = None,
     ):
         self._gamma = int(fns.speculative)
+        # an Observability.span-shaped callable: every segment runs under a
+        # "rollout/segment" span; a tracer adds each request's lifecycle
+        # events at harvest (engine/queue_wait → prefill → decode, and
+        # engine/spec_verify under speculation) and engine/prefill_chunk
+        self._span = span
+        self._tracer = tracer
         self._chunk = int(prefill_chunk)
         if self._chunk < 0:
             raise ValueError(f"prefill_chunk {self._chunk} must be >= 0")
@@ -925,6 +941,10 @@ class ContinuousEngine(Engine):
                     wait = max(t0 - req.t_enqueue, 0.0)
                     self.stats.queue_wait_s += wait
                     self.stats.queue_wait_samples.append(wait)
+                if self._tracer is not None and end < self.P:
+                    self._tracer.add_complete_event(
+                        "engine/prefill_chunk", t0, t1, track=f"engine/slot{slot}",
+                        index=req.index, start=start, end=end)
                 if end < self.P:
                     req.prefill_pos = end
                 else:
@@ -962,6 +982,7 @@ class ContinuousEngine(Engine):
             req = self._slots[slot]
             self._slots[slot] = None
             self._seeded[slot] = False
+            self._trace_request(req, slot, t_harvest, gen_len=float(host["mask"][j].sum()))
             # blocks the prefix cache (or a sharing row) still holds stay
             # allocated
             self.allocator.release(self._row_blocks[slot])
@@ -978,6 +999,27 @@ class ContinuousEngine(Engine):
             ))
         self.stats.harvested += len(completed)
         return completed
+
+    def _trace_request(self, req: _Request, slot: int, t_harvest: float,
+                       gen_len: float = 0.0) -> None:
+        """The request's lifecycle events (queue wait → prefill → decode,
+        closed by the harvest) on its slot's track: a slot holds one
+        request at a time, so a stalled generation shows on its row."""
+        if self._tracer is None or req.t_refill1 <= 0.0:
+            return
+        track = f"engine/slot{slot}"
+        self._tracer.add_complete_event("engine/queue_wait", req.t_enqueue, req.t_refill0,
+                                        track=track, index=req.index)
+        self._tracer.add_complete_event("engine/prefill", req.t_refill0, req.t_refill1,
+                                        track=track, index=req.index)
+        self._tracer.add_complete_event("engine/decode", req.t_refill1, t_harvest,
+                                        track=track, index=req.index)
+        if self._gamma:
+            # the decode window is draft-propose → verify rounds: one span
+            # per request, so a low-acceptance row shows on its track
+            self._tracer.add_complete_event("engine/spec_verify", req.t_refill1, t_harvest,
+                                            track=track, index=req.index, gamma=self._gamma,
+                                            tokens=gen_len)
 
     def progress_snapshot(self) -> List[tuple]:
         """``(index, meta, tokens)`` for every decoding slot: the host copy
@@ -1026,9 +1068,17 @@ class ContinuousEngine(Engine):
         if self._ensure_decode_blocks(self.fns.segment_len):
             self._push_tables()
         self._note_block_usage()
-        t0 = time.perf_counter()
-        self.state, live_steps, steps = self.fns.decode_segment(self.params, self.state)
-        self.stats.decode_s += time.perf_counter() - t0
+        if self._span is not None:
+            # decode_segment returns host counts read from the card after
+            # its last step, so the span closes device-complete: that read
+            # is the fence, and no event or synchronize is added
+            with self._span("rollout/segment", live=self.live, pending=self.pending) as sp:
+                self.state, live_steps, steps = self.fns.decode_segment(self.params, self.state)
+            self.stats.decode_s += sp.duration
+        else:
+            t0 = time.perf_counter()
+            self.state, live_steps, steps = self.fns.decode_segment(self.params, self.state)
+            self.stats.decode_s += time.perf_counter() - t0
         self.stats.segments += 1
         self.stats.decode_steps += steps
         self.stats.slot_steps += steps * self.B

@@ -15,7 +15,7 @@ import torch.nn.functional as F
 
 from trlx_tpu_torch.data.method_configs import MethodConfig, register_method
 from trlx_tpu_torch.utils import flatten_dict
-from trlx_tpu_torch.utils.dynamics import loss_sketches
+from trlx_tpu_torch.observability.dynamics import loss_sketches
 
 __all__ = ["DPOConfig"]
 

@@ -22,7 +22,7 @@ import torch
 from trlx_tpu_torch.data.method_configs import register_method
 from trlx_tpu_torch.models.ppo import PPOConfig, _clip, iw_weights
 from trlx_tpu_torch.utils import flatten_dict
-from trlx_tpu_torch.utils.dynamics import loss_sketches
+from trlx_tpu_torch.observability.dynamics import loss_sketches
 from trlx_tpu_torch.utils.stats import get_tensor_stats
 
 __all__ = ["BASELINES", "GRPOConfig", "group_advantages_np"]

@@ -119,7 +119,7 @@ class ILQLConfig(MethodConfig):
 
         dist = {}
         if self.dist_sketches:
-            from trlx_tpu_torch.utils.dynamics import entropy_of_logits, loss_sketches
+            from trlx_tpu_torch.observability.dynamics import entropy_of_logits, loss_sketches
 
             # the first Q head's TD error as the value error, the expectile
             # gap (min Q' − V) as the advantage analogue

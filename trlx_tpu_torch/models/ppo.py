@@ -23,7 +23,7 @@ import torch
 
 from trlx_tpu_torch.data.method_configs import MethodConfig, register_method
 from trlx_tpu_torch.utils import flatten_dict
-from trlx_tpu_torch.utils.dynamics import loss_sketches
+from trlx_tpu_torch.observability.dynamics import loss_sketches
 from trlx_tpu_torch.utils.stats import get_tensor_stats, whiten
 
 __all__ = [

@@ -41,11 +41,14 @@ from typing import Optional, Tuple
 import torch
 
 from trlx_tpu_torch.ops.kernel_utils import (
+    attention_flops,
     check_cuda_operand,
     check_head_dim,
     check_launch,
     current_stream_ptr,
     kernel_fn,
+    note_kernel_flops,
+    plain_version,
 )
 
 __all__ = [
@@ -143,12 +146,15 @@ def flash_fwd(
     """Attention forward. Returns ``(out (B, T, H, D) in q.dtype, lse
     (B, H, T) f32)``."""
     _check_shapes(q, k, v)
+    note_kernel_flops("flash_fwd", attention_flops(q.shape[0], q.shape[1], k.shape[1],
+                                                   q.shape[2], q.shape[3]))
     if q.device.type == "cpu":
-        return flash_fwd_reference(
-            q, k, v, key_mask, q_positions, k_positions, alibi_slopes,
-            sm_scale=sm_scale, causal=causal, q_offset=q_offset,
-            k_offset=k_offset, window=window,
-        )
+        with plain_version():
+            return flash_fwd_reference(
+                q, k, v, key_mask, q_positions, k_positions, alibi_slopes,
+                sm_scale=sm_scale, causal=causal, q_offset=q_offset,
+                k_offset=k_offset, window=window,
+            )
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd runs on cuda or cpu, not {q.device}")
     _check_flash_operands(q, k, v, key_mask, q_positions, k_positions, alibi_slopes)
@@ -209,12 +215,15 @@ def flash_bwd(
     """Attention backward by recomputation. Returns ``(dq, dk, dv)``: dq in
     q's dtype, dk/dv in k's (GQA partials summed over each group)."""
     _check_shapes(q, k, v)
+    note_kernel_flops("flash_bwd", attention_flops(q.shape[0], q.shape[1], k.shape[1],
+                                                   q.shape[2], q.shape[3], backward=True))
     if q.device.type == "cpu":
-        return flash_bwd_reference(
-            q, k, v, key_mask, q_positions, k_positions, alibi_slopes, lse, delta, do,
-            sm_scale=sm_scale, causal=causal, q_offset=q_offset, k_offset=k_offset,
-            window=window,
-        )
+        with plain_version():
+            return flash_bwd_reference(
+                q, k, v, key_mask, q_positions, k_positions, alibi_slopes, lse, delta, do,
+                sm_scale=sm_scale, causal=causal, q_offset=q_offset, k_offset=k_offset,
+                window=window,
+            )
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd runs on cuda or cpu, not {q.device}")
     _check_flash_operands(q, k, v, key_mask, q_positions, k_positions, alibi_slopes)

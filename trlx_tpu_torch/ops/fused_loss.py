@@ -36,13 +36,15 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from trlx_tpu_torch.observability.dynamics import SKETCH_BINS
 from trlx_tpu_torch.ops.kernel_utils import (
     check_cuda_operand,
     check_launch,
     current_stream_ptr,
     kernel_fn,
+    note_kernel_flops,
+    plain_version,
 )
-from trlx_tpu_torch.utils.dynamics import SKETCH_BINS
 from trlx_tpu_torch.utils.stats import masked_mean, masked_var
 
 __all__ = [
@@ -174,6 +176,14 @@ _N_MOMENTS = 3
 _TAIL = 1 + len(_SCALAR_KEYS) + len(_HIST_KEYS) * SKETCH_BINS
 
 
+# FLOP formulas of the two kernels (elementwise arithmetic per (row, token)
+# of the plain version): the forward's GAE step (6), whitening (6), clipped
+# policy term (8), clipped value term (9), stats (11) and five sketches (3
+# each, 15); the backward's whitening and both clipped terms' derivatives
+LOSS_FWD_FLOPS_PER_TOKEN = 55
+LOSS_BWD_FLOPS_PER_TOKEN = 14
+
+
 def residual_views(res: torch.Tensor, B: int, R: int):
     """``(advantages, returns, moments)`` of packed residuals: the raw
     (unwhitened) advantages and the returns, (B, R), and the moments
@@ -195,9 +205,11 @@ def fused_loss_fwd(p: LossParams, operands: Tuple[torch.Tensor, ...]):
     :func:`stat_keys` order; ``res`` packs the residuals
     :func:`fused_loss_bwd` takes (:func:`residual_views`)."""
     _check_operands(operands)
+    note_kernel_flops("fused_loss_fwd", LOSS_FWD_FLOPS_PER_TOKEN * operands[0].numel())
     device = operands[0].device
     if device.type == "cpu":
-        return fused_loss_fwd_reference(p, operands)
+        with plain_version():
+            return fused_loss_fwd_reference(p, operands)
     ops = _cuda_operands("fused_loss_fwd", operands, device)
     B, R = ops[0].shape
     use_iw = len(ops) == 7
@@ -249,9 +261,11 @@ def fused_loss_bwd(p: LossParams, operands: Tuple[torch.Tensor, ...], res: torch
     forward's packed residuals ``res`` and the loss cotangent ``g_loss``
     (one f32). Returns ``(dlogprobs, dvalues)``, (B, R) f32."""
     _check_operands(operands)
+    note_kernel_flops("fused_loss_bwd", LOSS_BWD_FLOPS_PER_TOKEN * operands[0].numel())
     device = operands[0].device
     if device.type == "cpu":
-        return fused_loss_bwd_reference(p, operands, res, g_loss)
+        with plain_version():
+            return fused_loss_bwd_reference(p, operands, res, g_loss)
     B, R = operands[0].shape
     ops = _cuda_operands("fused_loss_bwd", operands, device)
     check_cuda_operand(res, "residuals", device, (torch.float32,))

@@ -14,6 +14,13 @@ Counterpart of ``trlx_tpu/ops/pallas_utils.py``. Three things live here:
   it is not 0. Nothing is built when a module is imported.
 - **Paged-table helpers** shared by the paged kernels' plain versions:
   :func:`clamp_block_table` and :func:`pad_bias_to`.
+- **FLOP tallies** for the train step's MFU
+  (``observability/metrics.py::train_step_flops``): every wrapper notes its
+  kernel's FLOP formula (:func:`note_kernel_flops`) beside its launch
+  counter, into each open :func:`counting_kernel_flops` tally, and runs its
+  plain version on CPU tensors inside :func:`plain_version`, which hides
+  the plain version's aten ops from ``FlopCounterMode`` while a tally is
+  open, so no call counts twice.
 
 Shared device code lives in ``csrc/*.cuh`` headers, included by the
 sources that need it; a library's name hashes its source and the headers,
@@ -31,8 +38,9 @@ import shutil
 import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Union
+from typing import Dict, Iterable, Iterator, List, Optional, Union
 
 import torch
 
@@ -50,6 +58,11 @@ __all__ = [
     "current_stream_ptr",
     "clamp_block_table",
     "pad_bias_to",
+    "KernelFlops",
+    "counting_kernel_flops",
+    "note_kernel_flops",
+    "plain_version",
+    "attention_flops",
 ]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -243,3 +256,71 @@ def pad_bias_to(bias: torch.Tensor, width: int) -> torch.Tensor:
     if short <= 0:
         return bias
     return torch.nn.functional.pad(bias, (0, short))
+
+
+# ---------------------------------------------------------------------------
+# FLOP tallies (the train step's MFU)
+# ---------------------------------------------------------------------------
+
+
+class KernelFlops:
+    """FLOPs the kernel wrappers noted while one tally was open, by kernel."""
+
+    def __init__(self):
+        self.by_kernel: Dict[str, float] = {}
+
+    @property
+    def total(self) -> float:
+        return float(sum(self.by_kernel.values()))
+
+
+_flop_lock = threading.Lock()
+# the open tallies; process-wide, as a CUDA backward runs the wrappers on
+# autograd's device thread (so a serving thread's launches during a counted
+# train step count too)
+_flop_tallies: List[KernelFlops] = []  # guarded-by: _flop_lock
+
+
+@contextmanager
+def counting_kernel_flops() -> Iterator[KernelFlops]:
+    """Open a tally of every wrapper's FLOP formula until exit."""
+    tally = KernelFlops()
+    with _flop_lock:
+        _flop_tallies.append(tally)
+    try:
+        yield tally
+    finally:
+        with _flop_lock:
+            _flop_tallies.remove(tally)
+
+
+def note_kernel_flops(name: str, flops: float) -> None:
+    """Add one call's FLOP formula to every open tally (a wrapper calls it
+    on the kernel's and on the plain version's path alike)."""
+    with _flop_lock:
+        for tally in _flop_tallies:
+            tally.by_kernel[name] = tally.by_kernel.get(name, 0.0) + float(flops)
+
+
+@contextmanager
+def plain_version() -> Iterator[None]:
+    """Run a wrapper's plain version. While a tally is open its aten ops run
+    outside the torch dispatch modes (``FlopCounterMode``), as the kernel's
+    launch is invisible to them: the call counts once, by its formula."""
+    with _flop_lock:
+        counting = bool(_flop_tallies)
+    if not counting:
+        yield
+        return
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        yield
+
+
+def attention_flops(B: int, T: int, S: int, H: int, D: int, backward: bool = False) -> float:
+    """Matmul FLOPs of attention over a dense ``T × S`` score block, as
+    ``FlopCounterMode`` counts ``scaled_dot_product_attention``: forward
+    q·k and p·v (``4 B H T S D``), backward the recomputed scores and four
+    gradient products (``10 B H T S D``). Masked columns are counted."""
+    return (10.0 if backward else 4.0) * B * H * T * S * D

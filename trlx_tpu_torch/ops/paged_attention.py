@@ -36,12 +36,15 @@ from typing import Optional, Tuple
 import torch
 
 from trlx_tpu_torch.ops.kernel_utils import (
+    attention_flops,
     check_cuda_operand,
     check_head_dim,
     check_launch,
     clamp_block_table,
     current_stream_ptr,
     kernel_fn,
+    note_kernel_flops,
+    plain_version,
 )
 from trlx_tpu_torch.ops.sampling import _block_eos, gumbel_noise, process_logits
 
@@ -63,6 +66,10 @@ DECODE_SPAN_COLS = 256
 # the widest row csrc/fused_sample.cu takes: its CLUSTER blocks' slices of
 # at most MAX_SLICE logits each (16-bit halves of the masses cannot overflow)
 SAMPLE_MAX_VOCAB = 8 * 65535
+# FLOP formula of csrc/fused_sample.cu: elementwise arithmetic per logit
+# (temperature, the thresholds' compares, softmax exp and sum, the Gumbel
+# add, the logprob)
+SAMPLE_FLOPS_PER_LOGIT = 8
 
 
 def _check_paged_shapes(H, KV, HB, S, TB, bs):
@@ -109,8 +116,10 @@ def paged_attention_decode(
     TB = block_table.shape[1]
     HB, S = bias.shape[1], bias.shape[2]
     _check_paged_shapes(H, KV, HB, S, TB, bs)
+    note_kernel_flops("paged_decode", attention_flops(B, 1, S, H, D))
     if q.device.type == "cpu":
-        return paged_attention_decode_reference(q, k_pool, v_pool, block_table, bias)
+        with plain_version():
+            return paged_attention_decode_reference(q, k_pool, v_pool, block_table, bias)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_decode runs on cuda or cpu, not {q.device}")
     _check_paged_operands(q, k_pool, v_pool, block_table, bias)
@@ -196,8 +205,11 @@ def paged_verify_attention(
     )
 
     check_span_shapes(q, k_pool, block_table, bias, "verify window")
+    B, T, H, D = q.shape
+    note_kernel_flops("paged_verify", attention_flops(B, T, bias.shape[-1], H, D))
     if q.device.type == "cpu":
-        return paged_verify_attention_reference(q, k_pool, v_pool, block_table, bias)
+        with plain_version():
+            return paged_verify_attention_reference(q, k_pool, v_pool, block_table, bias)
     out, args = span_launch_args(q, k_pool, v_pool, block_table, bias,
                                  "paged_verify_attention")
     check_launch("paged_prefill", kernel_fn("paged_prefill", SPAN_ARGTYPES)(*args))
@@ -236,10 +248,12 @@ def fused_sample(
     cluster's distributed shared memory. Deterministic. Returns
     ``(token [B] int32, logprob [B] f32)``."""
     B, V = logits.shape
+    note_kernel_flops("fused_sample", SAMPLE_FLOPS_PER_LOGIT * B * V)
     if logits.device.type == "cpu":
-        return fused_sample_reference(
-            logits, gumbel, temperature=temperature, top_k=top_k, top_p=top_p
-        )
+        with plain_version():
+            return fused_sample_reference(
+                logits, gumbel, temperature=temperature, top_k=top_k, top_p=top_p
+            )
     if logits.device.type != "cuda":
         raise ValueError(f"fused_sample runs on cuda or cpu, not {logits.device}")
     check_cuda_operand(logits, "logits", logits.device, (torch.float32,))

@@ -26,10 +26,13 @@ tensors; on CUDA tensors it launches the kernel or raises.
 import torch
 
 from trlx_tpu_torch.ops.kernel_utils import (
+    attention_flops,
     check_head_dim,
     check_launch,
     current_stream_ptr,
     kernel_fn,
+    note_kernel_flops,
+    plain_version,
 )
 from trlx_tpu_torch.ops.paged_attention import (
     _DTYPE_CODE,
@@ -54,8 +57,11 @@ def paged_prefill_attention(
     """Chunked prompt attention reading K/V through the block table.
     Returns ``(B, T, H, D)`` in ``q.dtype``. The pool is only read."""
     check_span_shapes(q, k_pool, block_table, bias, "chunk length")
+    B, T, H, D = q.shape
+    note_kernel_flops("paged_prefill", attention_flops(B, T, bias.shape[-1], H, D))
     if q.device.type == "cpu":
-        return paged_prefill_attention_reference(q, k_pool, v_pool, block_table, bias)
+        with plain_version():
+            return paged_prefill_attention_reference(q, k_pool, v_pool, block_table, bias)
     out, args = span_launch_args(q, k_pool, v_pool, block_table, bias,
                                  "paged_prefill_attention")
     check_launch("paged_prefill", kernel_fn("paged_prefill", SPAN_ARGTYPES)(*args))

@@ -1,7 +1,6 @@
 """Bounded-depth software pipeline for experience collection.
 
-Port of ``trlx_tpu/pipeline/rollout_pipeline.py`` (without the tracer
-hook). A rollout chunk has a device side (generation and the scoring
+Port of ``trlx_tpu/pipeline/rollout_pipeline.py``. A rollout chunk has a device side (generation and the scoring
 forward, dispatched by the main thread) and a host side (waiting for the
 landed outputs, string decoding, ``reward_fn``) that needs nothing from
 the device beyond those outputs. Serially, the device idles while the host
@@ -26,7 +25,11 @@ equivalent to the serial schedule.
 - overlap accounting: ``host_work_s`` (time inside ``work()``) and
   ``wait_s`` (time the submitting thread blocked on the pipeline) give
   ``throughput/rollout_overlap_frac`` = host work hidden behind device
-  work ÷ the collection's wall time.
+  work ÷ the collection's wall time;
+- with a ``tracer`` (``observability/tracing.py``), the worker's spans go
+  to one named track (``<name> pipeline worker``) across collections, and
+  the time the submitting thread blocks on the pipeline is recorded as
+  ``<name>/device_idle`` spans.
 """
 
 import queue
@@ -88,7 +91,7 @@ class RolloutPipeline:
     """
 
     def __init__(self, depth: int = 2, finalize: Optional[Callable[[Any], Any]] = None,
-                 name: str = "rollout"):
+                 name: str = "rollout", tracer: Any = None):
         if depth < 1:
             raise ValueError(f"pipeline depth must be >= 1, got {depth}")
         self.depth = depth
@@ -98,6 +101,7 @@ class RolloutPipeline:
         self._stats_lock = threading.Lock()
         self.stats = PipelineStats(depth=depth)
         self._finalize = finalize
+        self._tracer = tracer
         self._todo: "queue.Queue" = queue.Queue()
         self._done: "queue.Queue" = queue.Queue()
         self._cancel = threading.Event()
@@ -111,6 +115,9 @@ class RolloutPipeline:
     # -- worker side ----------------------------------------------------
 
     def _worker_loop(self) -> None:
+        if self._tracer is not None:
+            # one stable track per role, whichever thread runs it
+            self._tracer.alias_current_thread(f"{self.name} pipeline worker")
         while True:
             chunk = self._todo.get()
             if chunk is _END:
@@ -141,7 +148,11 @@ class RolloutPipeline:
         try:
             if block:
                 t0 = time.perf_counter()
-                chunk = self._done.get()
+                if self._tracer is not None:
+                    with self._tracer.span(f"{self.name}/device_idle"):
+                        chunk = self._done.get()
+                else:
+                    chunk = self._done.get()
                 with self._stats_lock:
                     self.stats.wait_s += time.perf_counter() - t0
             else:

@@ -31,6 +31,11 @@ The port polls the kinds whose sites it has (:data:`POLLED_KINDS`):
     request_flood@step:3    # a synthetic admission burst sheds load (429s)
                             # before update 4 (serving inside a trainer)
     slow_client@request:2   # the 2nd serve request's streaming consumer stalls
+    flightrec_dump@step:2   # the flight recorder dumps before update 3
+    health_trip@step:4      # a forced health trip at update 5 (flight record,
+                            # triage batch)
+    sleep_one_proc@step:2   # the last rank sleeps SLEEP_FAULT_S in update 3
+                            # (an injected straggler for cluster telemetry)
 
 The other kinds parse, and the trainer refuses a plan that names one
 (:data:`UNPORTED_KINDS` names the subsystem each waits for).
@@ -57,19 +62,18 @@ _KINDS = frozenset({
 # the kinds the port has sites for
 POLLED_KINDS = frozenset({
     "reward_raise", "publish_raise", "sigterm", "sigint", "nan_loss", "crash_save",
-    "slow_client", "request_flood",
+    "slow_client", "request_flood", "flightrec_dump", "health_trip", "sleep_one_proc",
 })
 # the other kinds, and the subsystem of the port each waits for
 UNPORTED_KINDS = {
     "actor_crash": "async RL (async_rl/*)",
     "weight_sync_drop": "async RL (async_rl/*)",
-    "flightrec_dump": "observability (the flight recorder)",
-    "health_trip": "observability (the health detectors)",
-    "sleep_one_proc": "observability (cluster telemetry across processes)",
     "sigterm_one_proc": "several processes (coordinated preemption)",
     "topology_shrink": "several processes (elastic restore)",
 }
 assert POLLED_KINDS | set(UNPORTED_KINDS) == _KINDS
+# seconds the injected straggler (sleep_one_proc) stalls the last rank's step
+SLEEP_FAULT_S = float(os.environ.get("TRLX_TPU_FAULT_SLEEP_S", "0.5"))
 _TRIGGERS = frozenset(
     {"call", "step", "save", "resume", "collection", "version", "request"}
 )

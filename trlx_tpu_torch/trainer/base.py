@@ -52,8 +52,23 @@ Port of ``trlx_tpu/trainer/base.py`` (``TPUBaseTrainer``) as
   stats, the profiler window around the train steps, and the retention
   ring (``resilience.keep_last_n``) pruning before each interval save;
   the tracker is ``utils/trackers.py::make_tracker``'s (JSONL into
-  ``<checkpoint_dir>/logs`` by default). JAX's span tracer, health
-  detectors, flight recorder and watchdogs are not ported;
+  ``<checkpoint_dir>/logs`` by default);
+- run observability (``trlx_tpu_torch/observability/``, one
+  :class:`~trlx_tpu_torch.observability.Observability` bundle per trainer,
+  ``trainer.obs``): the fenced ``train_step`` and ``generate`` spans (a
+  fence waits on a CUDA event; the train step's replaces the old
+  synchronize), the engines' ``rollout/segment`` and per-request spans,
+  throughput and MFU (the train step's FLOPs counted on its first call,
+  ``observability/metrics.py::train_step_flops``), the memory and
+  new-signature watchdogs, the loss's sketch histograms fetched in the
+  stats' one device → host copy and summarized into ``dist/*`` gauges, the
+  health detectors (a trip dumps the batch as ``triage/step<N>.npz`` and
+  the flight record), the cluster beat at each step boundary, and the
+  flight recorder dumped on any exception, NaN-halt or preemption and at
+  the fault plan's ``flightrec_dump``; ``trace.json`` and ``spans.jsonl``
+  are written at the end of ``learn`` and on its crash path, into
+  ``TRLX_TPU_TRACE_DIR``, ``train.logging_dir`` or
+  ``<checkpoint_dir>/logs``;
 - serving inside a trainer (``serve.enabled``, the rollout trainers on
   the continuous path): ``learn`` stands up a serving engine of its own
   behind ``ServeServer`` and its HTTP listener, publishes a copy of the
@@ -79,6 +94,7 @@ Entry points run on the GPU unless the caller passes ``device="cpu"``.
 
 import copy
 import dataclasses
+import json
 import logging
 import os
 import signal
@@ -99,8 +115,8 @@ from trlx_tpu_torch.models.builder import (
     trainable_mask,
 )
 from trlx_tpu_torch.models.transformer import config_from_spec
-from trlx_tpu_torch.observability.metrics import MetricsRegistry
-from trlx_tpu_torch.observability.profiling import ProfileWindow
+from trlx_tpu_torch.observability import Observability, mfu as obs_mfu, train_step_flops
+from trlx_tpu_torch.observability.tracing import process_count, process_index
 from trlx_tpu_torch.ops.kernel_utils import resolve_device
 from trlx_tpu_torch.ops.paged_kv import (
     PagedSpec,
@@ -144,6 +160,10 @@ from trlx_tpu_torch.utils.checkpoint import (
 from trlx_tpu_torch.utils.trackers import make_tracker
 
 logger = logging.getLogger(__name__)
+
+# the triage dumps of a bad batch (_dump_triage): rows kept, files per run
+TRIAGE_MAX_ROWS = 64
+TRIAGE_MAX_DUMPS = 8
 
 # parallel axes of the JAX mesh: the port runs on one device
 _PARALLEL_AXES = ("fsdp", "pipe", "model", "sequence", "expert", "dcn_data_parallelism")
@@ -323,6 +343,12 @@ class HostCopy:
         if self._event is not None:
             self._event.record()
 
+    @property
+    def event(self) -> Optional[Any]:
+        """The CUDA event after the copies (None when nothing was copied):
+        a span fences on it to wait for exactly this chunk's work."""
+        return self._event
+
     def wait(self) -> Dict[str, np.ndarray]:
         if self._event is not None:
             self._event.synchronize()
@@ -330,16 +356,23 @@ class HostCopy:
                 for k, v in self._host.items()}
 
 
-def host_stats(stats: Dict[str, Any]) -> Dict[str, float]:
-    """Scalar stats as floats, fetched from the device in one copy;
-    non-scalar entries (the sketch histograms) are dropped."""
-    scalars = {k: v for k, v in stats.items()
-               if isinstance(v, torch.Tensor) and v.numel() == 1}
-    out = filter_non_scalars({k: v for k, v in stats.items()
-                              if not isinstance(v, torch.Tensor)})
-    if scalars:
-        vals = torch.stack([v.detach().reshape(()).float() for v in scalars.values()]).cpu()
-        out.update(zip(scalars, vals.tolist()))
+def host_stats(stats: Dict[str, Any]) -> Dict[str, Any]:
+    """The stats on the host, fetched from the device in one copy: scalar
+    tensors as floats, the other tensors (the ``dist/*_hist`` sketch
+    histograms) as f32 numpy arrays of their shapes; host values pass
+    through. The caller summarizes the histograms
+    (``DynamicsSummarizer.summarize``) before ``filter_non_scalars`` drops
+    them."""
+    tensors = {k: v for k, v in stats.items() if isinstance(v, torch.Tensor)}
+    out: Dict[str, Any] = {k: v for k, v in stats.items() if k not in tensors}
+    if not tensors:
+        return out
+    flat = torch.cat([v.detach().reshape(-1).float() for v in tensors.values()]).cpu().numpy()
+    at = 0
+    for k, v in tensors.items():
+        n = v.numel()
+        out[k] = float(flat[at]) if n == 1 else flat[at:at + n].reshape(tuple(v.shape))
+        at += n
     return out
 
 
@@ -448,16 +481,21 @@ class TorchBaseTrainer(BaseRLTrainer):
         self._resume_done = False
         self._last_batch_host: Any = None
         self._last_batch_device: Any = None
-        # the metrics registry whose snapshot rides every step's stats, the
+        # run observability (tracer, metrics registry, watchdogs, profiler
+        # window, flight recorder, cluster beat, dynamics and health), the
         # resilience bundle (reward_fn and the tracker hardened once, so
-        # every call site is), and the profiler window
-        self.metrics = MetricsRegistry()
+        # every call site is)
+        self.obs = Observability(config, device=self.device)
+        self.metrics = self.obs.metrics
         self.resilience = Resilience(config, metrics=self.metrics)
         self.reward_fn = self.resilience.harden_reward_fn(self.reward_fn,
                                                           seed=config.train.seed)
         self.tracker = self.resilience.harden_tracker(make_tracker(config),
                                                       seed=config.train.seed)
-        self.profile = ProfileWindow.from_env(config)
+        # the train step's FLOPs: None until its first call counts them,
+        # then the count (-1.0: unavailable)
+        self._train_step_flops: Optional[float] = None
+        self._triage_dumps = 0
         self._emergency_resume = False
         self._batch_iter: Any = None
         self.eval_pipeline = None
@@ -600,6 +638,12 @@ class TorchBaseTrainer(BaseRLTrainer):
     def train_step(self, batch) -> Dict[str, Any]:
         """One optimization step on a host batch; returns device stats.
 
+        The first call runs under the FLOP counter
+        (``observability/metrics.py::train_step_flops``; the MFU's
+        numerator). Every call feeds the new-signature watchdog
+        (``recompile/train_step``). ``sleep_one_proc@step:N`` of the fault
+        plan stalls the last rank's update N for ``SLEEP_FAULT_S``.
+
         With ``resilience.update_guard`` on, the step checks
         ``isfinite(gradients/global_norm)`` (and ``isfinite(loss)`` with one
         micro-batch) and reads that flag on the host once, before the
@@ -608,6 +652,27 @@ class TorchBaseTrainer(BaseRLTrainer):
         that drives the LR schedule stay as they were (JAX's select of the
         old state). The flag rides the stats as ``resilience/update_ok``;
         ``rollback`` and ``halt`` act on it in the learn loop."""
+        plan = self.resilience.plan
+        if (plan and process_index() == process_count() - 1
+                and plan.poll("sleep_one_proc", step=self.iter_count)):
+            # a deterministic straggler for the cluster telemetry
+            from trlx_tpu_torch.resilience.faults import SLEEP_FAULT_S
+
+            logger.warning("fault plan: sleeping %ss inside update %d (injected straggler)",
+                           SLEEP_FAULT_S, self.iter_count)
+            time.sleep(SLEEP_FAULT_S)
+        if self._train_step_flops is None:
+            stats, flops = train_step_flops(self._optimizer_step, batch)
+            self._train_step_flops = flops or -1.0
+        else:
+            stats = self._optimizer_step(batch)
+        # keyed on the (stable) function: each access makes a new bound method
+        self.obs.recompile.observe("train_step", type(self)._optimizer_step,
+                                   self._device_batch(batch))
+        return stats
+
+    def _optimizer_step(self, batch) -> Dict[str, Any]:
+        """:meth:`train_step`'s update: gradients, the guard, the optimizer."""
         arrays = self._device_batch(batch)
         stats, loss = self._accumulate(arrays, self._loss_scale())
         gnorm = torch.nn.utils.get_total_norm(
@@ -634,9 +699,27 @@ class TorchBaseTrainer(BaseRLTrainer):
 
     @staticmethod
     def _batch_token_count(batch) -> int:
+        """Real (unpadded) tokens the batch feeds the step: its
+        ``attention_mask``, else the sum of its masks, else its width ×
+        rows."""
         items = batch._asdict() if hasattr(batch, "_asdict") else batch
-        return int(sum(np.asarray(v).sum() for k, v in items.items()
-                       if k.endswith("mask") and hasattr(v, "sum")))
+        if not isinstance(items, dict):
+            return 0
+        if "attention_mask" in items:
+            return int(np.asarray(items["attention_mask"]).sum())
+        masks = [v for k, v in items.items() if k.endswith("mask") and hasattr(v, "sum")]
+        if masks:
+            return int(sum(np.asarray(m).sum() for m in masks))
+        for v in items.values():
+            if hasattr(v, "shape") and len(v.shape) >= 2:
+                return int(v.shape[0] * v.shape[1])
+        return 0
+
+    def _step_flops(self) -> Optional[float]:
+        """The train step's counted FLOPs, or None before (or without) a
+        count."""
+        flops = self._train_step_flops
+        return flops if flops is not None and flops > 0 else None
 
     # ------------------------------------------------------------------
     # generation
@@ -754,6 +837,8 @@ class TorchBaseTrainer(BaseRLTrainer):
             fns = self._get_slot_refill_fns(gen_config, extra_kwargs, rows, engine_p, seg)
             engine = ContinuousEngine(
                 fns, self._engine_params(params), self.tokenizer.pad_token_id,
+                # fenced rollout/segment spans, per-request lifecycle events
+                span=self.obs.span, tracer=self.obs.tracer,
                 prefix_cache=prefix_and_chunks and self._prefix_cache_enabled(),
                 prefix_capacity_blocks=int(self.config.engine.prefix_cache_blocks),
                 prefill_chunk=int(self.config.engine.prefill_chunk) if prefix_and_chunks else 0)
@@ -875,17 +960,22 @@ class TorchBaseTrainer(BaseRLTrainer):
         seeds = self._row_seeds(input_ids.shape[0])
         engine = self._get_serial_engine(gen_config, extra)
         stats = self._dense_kv_gauge(input_ids.shape, gen_config)
-        t0 = time.perf_counter()
-        out = engine.generate(torch.as_tensor(input_ids),
-                              torch.as_tensor(np.asarray(attention_mask, np.int64)),
-                              torch.as_tensor(seeds))
-        if type(out) is tuple:  # the speculative sampler: (output, stats)
-            out, spec = out
-            stats["rollout/spec_acceptance_rate"] = float(spec["acceptance_rate"])
-            stats["rollout/spec_rounds"] = float(spec["rounds"])
-        _sync(self.device)
-        self.last_generate_time = time.perf_counter() - t0
+        for k, v in stats.items():  # a registry gauge too, as in JAX
+            self.metrics.set_gauge(k, v)
+        args = (torch.as_tensor(input_ids), torch.as_tensor(np.asarray(attention_mask, np.int64)),
+                torch.as_tensor(seeds))
+        # fenced: the duration is the card's decode, not its launch latency
+        # (nested under the collection's "rollout" span)
+        with self.obs.span("generate", eval_mode=bool(eval_mode)) as sp:
+            out = engine.generate(*args)
+            if type(out) is tuple:  # the speculative sampler: (output, stats)
+                out, spec = out
+                stats["rollout/spec_acceptance_rate"] = float(spec["acceptance_rate"])
+                stats["rollout/spec_rounds"] = float(spec["rounds"])
+            sp.fence((out.sequences, out.response_tokens))
+        self.last_generate_time = sp.duration
         self.last_generate_stats = stats
+        self.obs.recompile.observe("generate", engine._fn, args[:2])
         return out
 
     @torch.no_grad()
@@ -912,7 +1002,8 @@ class TorchBaseTrainer(BaseRLTrainer):
                                       tag="eval" if eval_mode else "generate",
                                       prefix_and_chunks=False)
         engine.enqueue_prompts(input_ids, attention_mask, self._row_seeds(rows))
-        done = sorted(engine.run(), key=lambda c: c.index)
+        with self.obs.span("generate", eval_mode=bool(eval_mode)):
+            done = sorted(engine.run(), key=lambda c: c.index)
         self.last_generate_stats = engine.stats.metrics()
         base = done[0].index if done else 0
         assert [c.index - base for c in done] == list(range(rows))
@@ -1012,26 +1103,106 @@ class TorchBaseTrainer(BaseRLTrainer):
         The preemption handler holds SIGTERM/SIGINT for the duration of the
         loop (an emergency checkpoint at the next step boundary, then
         :class:`~trlx_tpu_torch.resilience.TrainingPreempted`); any
-        exception closes the profiler window and flushes the tracker before
-        it propagates, so a dying run keeps its stats. With
-        ``serve.enabled`` the serving frontend starts before the loop and
-        drains on every way out of it."""
+        exception (a crash, the update guard's halt, a preemption) closes
+        the profiler window, dumps the flight recorder, exports the span
+        trace and flushes the tracker before it propagates, so a dying run
+        keeps its stats and its last moments. With ``serve.enabled`` the
+        serving frontend starts before the loop and drains on every way out
+        of it."""
         self.prepare_learning()
         self.maybe_resume()
         try:
             self._maybe_start_serving()
             with self.resilience.preemption:
                 return self._learn_loop()
-        except BaseException:
-            self.profile.stop()
-            try:
-                self.tracker.finish()
-            except Exception:  # pragma: no cover - defensive, crash path
-                pass
+        except BaseException as e:
+            self._shutdown_observability(reason=f"{type(e).__name__}: {e}")
             raise
         finally:
             self._shutdown_serving()
             self._stop_prefetch()
+
+    def _export_observability(self) -> None:
+        """Span export (``trace.json`` + ``spans.jsonl``) beside the
+        tracker's stats; a failed export never fails a run."""
+        try:
+            paths = self.obs.export()
+            if paths:
+                logger.info("wrote span trace: %s", paths["trace"])
+        except Exception as e:  # pragma: no cover - defensive
+            logger.warning("span trace export failed: %s", e)
+
+    def _shutdown_observability(self, reason: Optional[str] = None) -> None:
+        """Close the profiler window, export the span trace and flush the
+        tracker, never raising; a ``reason`` (a crash path) also dumps the
+        flight recorder (``flightrec.json``)."""
+        try:
+            self.obs.profile.stop()
+        except Exception:  # pragma: no cover - defensive, crash path
+            pass
+        if reason is not None:
+            self.obs.dump_flight_record(reason=reason)
+        self._export_observability()
+        try:
+            self.tracker.finish()
+        except Exception:  # pragma: no cover - defensive, crash path
+            pass
+
+    def _triage_extra(self, arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Derived per-token quantities to keep with a triaged batch (PPO
+        adds advantages, returns and logprob deltas); best effort."""
+        return {}
+
+    def _dump_triage(self, reason: str, stats: Dict[str, Any]) -> Optional[str]:
+        """Write the current batch as ``triage/step<N>.npz`` beside the
+        trace exports, so a bad update can be replayed offline: its first
+        ``TRIAGE_MAX_ROWS`` rows, the trainer's derived quantities and a
+        ``__meta__`` record (step, reason, finite scalar stats); at most
+        ``TRIAGE_MAX_DUMPS`` files a run, written atomically, rank 0 only,
+        never raising. Returns the path or None."""
+        if process_index() != 0:
+            return None
+        directory = self.obs._trace_dir
+        batch = self._last_batch_host
+        if hasattr(batch, "_asdict"):
+            batch = batch._asdict()
+        if not directory or not isinstance(batch, dict) or self._triage_dumps >= TRIAGE_MAX_DUMPS:
+            return None
+        try:
+            arrays: Dict[str, np.ndarray] = {}
+            for key, value in batch.items():
+                if hasattr(value, "shape") and getattr(value, "ndim", 0) > 0:
+                    arrays[key] = np.asarray(value[:TRIAGE_MAX_ROWS])
+            if not arrays:
+                return None
+            try:
+                extra = self._triage_extra(arrays)
+            except Exception:  # pragma: no cover - defensive, crash path
+                extra = {}
+            for key, value in extra.items():
+                arrays.setdefault(key, np.asarray(value)[:TRIAGE_MAX_ROWS])
+            meta = {"step": self.iter_count, "reason": reason,
+                    "rows": int(next(iter(arrays.values())).shape[0]),
+                    "stats": {k: float(v) for k, v in stats.items()
+                              if isinstance(v, (int, float)) and np.isfinite(v)}}
+            arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode("utf-8"), dtype=np.uint8)
+            triage_dir = os.path.join(directory, "triage")
+            os.makedirs(triage_dir, exist_ok=True)
+            path = os.path.join(triage_dir, f"step{self.iter_count}.npz")
+            tmp = path + ".tmp.npz"
+            with open(tmp, "wb") as f:
+                np.savez(f, **arrays)
+            os.replace(tmp, path)
+            self._triage_dumps += 1
+            self.metrics.inc("health/triage_dumps")
+            self.obs.flightrec.record("triage", {
+                "step": self.iter_count, "reason": reason, "path": path,
+                "keys": sorted(k for k in arrays if k != "__meta__")})
+            logger.warning("triage batch dumped to %s (%s)", path, reason)
+            return path
+        except Exception:  # pragma: no cover - defensive, crash path
+            logger.warning("triage dump failed", exc_info=True)
+            return None
 
     def _maybe_start_serving(self) -> None:
         """Stand up the serving frontend (``serve.enabled``): a serving
@@ -1142,13 +1313,24 @@ class TorchBaseTrainer(BaseRLTrainer):
         serving frontend; then honour a preemption request: stop the
         prefetch workers, wait for the card, commit one emergency
         checkpoint and raise
-        :class:`~trlx_tpu_torch.resilience.TrainingPreempted`."""
+        :class:`~trlx_tpu_torch.resilience.TrainingPreempted`. The fault
+        plan's ``flightrec_dump`` dumps the flight recorder here and its
+        ``health_trip`` arms a trip the step's health update takes; the
+        cluster beat exchanges the last step's scalars (and the preemption
+        flag) across ranks."""
         plan = self.resilience.plan
         if plan:
             if plan.poll("sigterm", step=self.iter_count):
                 signal.raise_signal(signal.SIGTERM)
             if plan.poll("sigint", step=self.iter_count):
                 signal.raise_signal(signal.SIGINT)
+            if plan.poll("flightrec_dump", step=self.iter_count):
+                # the crash path's dump, without a crash
+                self.obs.dump_flight_record(
+                    reason=f"fault plan: flightrec_dump@step:{self.iter_count}")
+            if plan.poll("health_trip", step=self.iter_count):
+                # this step's health update takes it: flight record, triage
+                self.obs.health.force_trip("fault_plan", step=self.iter_count)
             if self._serve is not None and plan.poll("request_flood", step=self.iter_count):
                 # the admission drill: a synthetic burst through the real
                 # gate must shed load with 429s
@@ -1162,8 +1344,22 @@ class TorchBaseTrainer(BaseRLTrainer):
             self._serve.publish(self._engine_params(self._serve_params_copy()),
                                 version=self.iter_count)
         preemption = self.resilience.preemption
-        if not preemption.requested:
+        requested = preemption.requested
+        coordinate = self.resilience.config.coordinate_preemption
+        if self.obs.cluster.enabled or coordinate:
+            # one gather carries the preemption flag and the per-rank
+            # scalars; local when one process runs
+            requested_any = self.obs.cluster.beat(requested, step=self.iter_count,
+                                                  collective=coordinate)
+            if coordinate:
+                requested = requested_any
+        if not requested:
             return
+        if not preemption.requested:  # a peer was signalled
+            preemption.request("peer preemption (coordinated)")
+        self.obs.flightrec.record("resilience", {
+            "event": "preemption", "signal": preemption.signal_received,
+            "step": self.iter_count})
         path = self._checkpoint_path()
         logger.warning("preemption (%s): writing emergency checkpoint to %s",
                        preemption.signal_received, path)
@@ -1200,7 +1396,7 @@ class TorchBaseTrainer(BaseRLTrainer):
         else:
             results = self.evaluate()
             self.tracker.log(results, step=self.iter_count)
-        profile = self.profile
+        profile = self.obs.profile
         for _ in range(self.config.train.epochs):
             per_epoch = len(self.train_dataloader) * self.n_updates_per_batch if skip else 0
             if done < skip and done + per_epoch <= skip:
@@ -1220,22 +1416,59 @@ class TorchBaseTrainer(BaseRLTrainer):
                     batch_ran = epoch_ran = True
                     self._check_faults_and_preemption()
                     profile.on_step_start(self.iter_count)
-                    t0 = time.perf_counter()
+                    counted = self._train_step_flops is None  # this step counts FLOPs
                     with profile.step_annotation("train", self.iter_count):
-                        device_stats = self.train_step(batch)
-                        stats = host_stats(device_stats)  # one fetch; waits for the step
-                        _sync(self.device)
-                    step_time = time.perf_counter() - t0
+                        with self.obs.span("train_step") as sp:
+                            device_stats = self.train_step(batch)
+                            # waits on one CUDA event after the update's
+                            # kernels: the duration is the card's
+                            sp.fence(device_stats)
+                    host = host_stats(device_stats)  # one copy, sketches included
+                    stats = filter_non_scalars(host)
+                    # the sketch histograms as dist/* gauges, before the
+                    # filtered stats drop them
+                    stats.update(self.obs.dynamics.summarize(host))
+                    # a rejected update: triage the batch before any rollback
+                    if stats.get(UPDATE_OK_KEY) == 0.0:
+                        if self._dump_triage("update_guard", stats):
+                            self.obs.dump_flight_record(
+                                reason=f"update guard rejected step {self.iter_count}")
                     # the update guard: skip already kept the old state,
                     # rollback and halt are host decisions
                     if self.resilience.guard.after_step(stats) == "rollback":
                         self._rollback_to_committed()
+                    step_time = sp.duration
                     stats["time/step"] = step_time
-                    stats["throughput/tokens_per_sec"] = (
-                        self._batch_token_count(batch) / step_time if step_time > 0 else 0.0)
+                    stats["time/train_step"] = step_time
+                    items = batch._asdict() if hasattr(batch, "_asdict") else batch
+                    batch_size = next((v.shape[0] for v in items.values() if hasattr(v, "shape")),
+                                      self.config.train.batch_size)
+                    # the counted step ran under the FLOP counter's per-op
+                    # dispatch: no MFU from its time
+                    stats.update(self.obs.throughput.step_stats(
+                        step_time, tokens=self._batch_token_count(batch), samples=batch_size,
+                        flops_per_device=None if counted else self._step_flops()))
+                    stats.update(self.obs.memory.collect())
+                    # feeds the next boundary's cluster beat
+                    self.obs.cluster.note_step(
+                        step_time, tokens_per_sec=stats.get("throughput/tokens_per_sec", 0.0),
+                        device_bytes=stats.get("memory/device_bytes_in_use",
+                                               stats.get("memory/host_rss_bytes", 0.0)))
+                    self.obs.note_dropped_spans()
                     stats.update(self.metrics.snapshot())
                     if self._serve is not None:
                         stats.update(self._serve.flat_metrics())
+                    # the windowed health detectors; a trip dumps the batch
+                    # and the flight record
+                    stats.update(self.obs.health.update(stats, step=self.iter_count))
+                    tripped = self.obs.health.just_tripped
+                    if tripped is not None:
+                        if self._dump_triage(f"health:{tripped}", stats):
+                            # this step's snapshot is already taken
+                            stats["health/triage_dumps"] = float(self._triage_dumps)
+                        self.obs.dump_flight_record(
+                            reason=f"health_trip: {tripped} @ step {self.iter_count}")
+                    self.obs.flightrec.record("step", {"iter": self.iter_count, "stats": stats})
                     profile.on_step_end(self.iter_count)
                     self.iter_count += 1
 
@@ -1259,11 +1492,17 @@ class TorchBaseTrainer(BaseRLTrainer):
                                            if k.startswith("losses/")))
                     if self.iter_count >= self.total_steps:
                         profile.stop()
+                        flops = self._step_flops()
+                        if flops and "throughput/mfu" not in stats:
+                            stats["throughput/mfu"] = obs_mfu(flops, step_time,
+                                                              self.obs.throughput.peak)
                         self._drop_batch_memo()
                         results = self.evaluate()
                         stats.update(results)
+                        stats.update(self.obs.throughput.summary())
                         self.tracker.log(stats, step=self.iter_count)
                         self.save(self._checkpoint_path())
+                        self._export_observability()
                         self.tracker.finish()
                         return results
                     self.tracker.log(stats, step=self.iter_count)
@@ -1275,6 +1514,7 @@ class TorchBaseTrainer(BaseRLTrainer):
                 self._drop_batch_memo()
                 self.post_epoch_callback()
         profile.stop()
+        self._export_observability()
         self.tracker.finish()
         return results
 
@@ -1295,6 +1535,8 @@ class TorchBaseTrainer(BaseRLTrainer):
         self.load(path, restore_payload=False)
         self.iter_count, self.best_reward = cur_iter, cur_best
         self._drop_batch_memo()
+        self.obs.flightrec.record("resilience", {"event": "rollback", "checkpoint": path,
+                                                 "step": self.iter_count})
         logger.warning("rolled back train state to %s", path)
 
     # ------------------------------------------------------------------

@@ -274,7 +274,10 @@ class GRPOTrainer(PPOTrainer):
         stats["exp_scores/mean"] = float(pooled.mean()) if pooled.size else 0.0
         stats["exp_scores/std"] = float(pooled.std()) if pooled.size else 0.0
         if engine_stats is not None:
-            stats.update(engine_stats.metrics())
+            engine_metrics = engine_stats.metrics()
+            stats.update(engine_metrics)
+            # the engine's picture survives a run that dies mid-collection
+            self.obs.flightrec.record("engine_stats", engine_metrics)
         elif agg["slot_steps"]:
             util = agg["live_slot_steps"] / agg["slot_steps"]
             stats["throughput/slot_utilization"] = util

@@ -30,6 +30,12 @@ Port of ``trlx_tpu/trainer/ppo.py`` (``PPOTrainer``), causal and seq2seq:
   card), then with ``method.loss_kernel: xla`` the staged loss
   (``get_advantages_and_returns``, then ``loss``), with ``pallas`` the
   fused loss kernels; the ``dist/entropy_hist`` sketch;
+- observability, at JAX's sites: the ``rollout`` span of each chunk (on
+  the pipelined path the device side; the worker's host side as a
+  ``rollout/overlap`` span fenced on the chunk's scoring copies), inside
+  it ``score`` and ``reward``; per collection the reference-KL sketch
+  (``dist/ref_kl_*``), the generation lengths and the repetition canary,
+  which feed the health detectors (``obs.health.observe_rollout``);
 - ``train.rollout_logging_dir`` exports the store after every collection
   (``PPORolloutStorage.export_history``); an emergency checkpoint carries
   the store (:meth:`_emergency_payload`), and the first collection after
@@ -58,7 +64,12 @@ from trlx_tpu_torch.pipeline.rollout_pipeline import RolloutPipeline
 from trlx_tpu_torch.trainer import register_trainer
 from trlx_tpu_torch.trainer.base import HostCopy, TorchBaseTrainer, logger
 from trlx_tpu_torch.utils import infinite_loader
-from trlx_tpu_torch.utils.dynamics import entropy_of_logits, loss_sketches
+from trlx_tpu_torch.observability.dynamics import (
+    SKETCH_RANGES,
+    entropy_of_logits,
+    loss_sketches,
+    sketch_np,
+)
 from trlx_tpu_torch.utils.stats import RunningMoments, logprobs_of_labels
 
 
@@ -298,18 +309,19 @@ class PPOTrainer(TorchBaseTrainer):
         copies' events only, and launches no device work."""
         host_t0 = perf_counter()
         stats: Dict[str, float] = {}
-        landed = dev["gen_landing"].wait()
-        response_tokens, response_mask = landed["response_tokens"], landed["response_mask"]
-        samples, prompts, outputs = self.decode(dev["prompt_ids"], response_tokens,
-                                                append_eos_token=True)
-        t0 = perf_counter()
-        scores = np.asarray(self.reward_fn(samples=samples, prompts=prompts, outputs=outputs),
-                            dtype=np.float32)
-        stats["time/reward"] = stats["time/exp_score"] = perf_counter() - t0
-        host = dev["score_landing"].wait()
-        # from the first landing to the scoring outputs' (the JAX "score"
-        # span: it stays open across the overlapped decode and reward)
-        stats["time/score"] = perf_counter() - host_t0
+        # the "score" span stays open across the overlapped decode and
+        # reward, to the scoring outputs' landing
+        with self.obs.span("score") as score_sp:
+            landed = dev["gen_landing"].wait()
+            response_tokens, response_mask = landed["response_tokens"], landed["response_mask"]
+            samples, prompts, outputs = self.decode(dev["prompt_ids"], response_tokens,
+                                                    append_eos_token=True)
+            with self.obs.span("reward") as reward_sp:
+                scores = np.asarray(self.reward_fn(samples=samples, prompts=prompts,
+                                                   outputs=outputs), dtype=np.float32)
+            stats["time/reward"] = stats["time/exp_score"] = reward_sp.duration
+            host = dev["score_landing"].wait()
+        stats["time/score"] = score_sp.duration
         return {"prompt_ids": dev["prompt_ids"], "prompt_mask": dev["prompt_mask"],
                 "response_tokens": response_tokens, "response_mask": response_mask,
                 "scores": scores, "host": host, "stats": stats,
@@ -358,6 +370,21 @@ class PPOTrainer(TorchBaseTrainer):
             stats["policy/sqrt_kl"] = 0.0
         acc["gen_tokens"] += int(response_mask.sum())
         acc["chunks"] += 1
+        # the rollout side's sketch: per-token k3 KL against the frozen
+        # reference, which only the host holds here
+        fmask = np.asarray(response_mask, np.float32)
+        ref_lr = (np.asarray(host["logprobs"]) - np.asarray(host["ref_logprobs"])) * fmask
+        ref_k3 = (np.exp(ref_lr) - 1.0) - ref_lr
+        lo, hi = SKETCH_RANGES["ref_kl"]
+        acc["ref_kl_hist"] = acc.get("ref_kl_hist", 0.0) + sketch_np(ref_k3, fmask, lo=lo, hi=hi)
+        # generation lengths and the repeated-adjacent-token canary (the
+        # continuous path keeps its engine's exact numbers)
+        toks = np.asarray(response_tokens)
+        pair_mask = fmask[:, 1:] * fmask[:, :-1]
+        acc["rep_pairs"] = acc.get("rep_pairs", 0.0) + float(
+            ((toks[:, 1:] == toks[:, :-1]) * pair_mask).sum())
+        acc["rep_total"] = acc.get("rep_total", 0.0) + float(pair_mask.sum())
+        acc.setdefault("gen_lens", []).extend(fmask.sum(axis=1).astype(np.int64).tolist())
         # slot accounting of the chunked paths: a chunk decodes max(n_i)
         # steps over its rows (the continuous path reports its engine's)
         n_per_row = response_mask.sum(axis=1)
@@ -425,16 +452,20 @@ class PPOTrainer(TorchBaseTrainer):
                 submit_group(group)
 
         engine = state["engine"]
-        stats.update(engine.stats.metrics())
+        engine_metrics = engine.stats.metrics()
+        stats.update(engine_metrics)
         stats["time/exp_generate"] = engine.stats.decode_s + engine.stats.refill_s
         stats["time/generate"] = engine.stats.decode_s
+        # the engine's picture survives a run that dies mid-collection
+        self.obs.flightrec.record("engine_stats", engine_metrics)
 
     def _collect_serial(self, num_rollouts: int, elements: list, stats: Dict[str, float],
                         acc: Dict[str, float]) -> None:
         """Depth 0: each chunk runs device → host → finalize in sequence,
         the reference the pipelined path is held to."""
         while len(elements) < num_rollouts:
-            chunk = self._rollout_chunk_host(self._rollout_chunk_device(stats))
+            with self.obs.span("rollout"):
+                chunk = self._rollout_chunk_host(self._rollout_chunk_device(stats))
             self._rollout_chunk_finalize(chunk, elements, stats, acc)
         stats["throughput/rollout_overlap_frac"] = 0.0
 
@@ -452,7 +483,8 @@ class PPOTrainer(TorchBaseTrainer):
             self._rollout_chunk_finalize(chunk, elements, stats, acc)
 
         t0 = perf_counter()
-        with RolloutPipeline(depth=depth, finalize=finalize, name="rollout") as pipe:
+        with RolloutPipeline(depth=depth, finalize=finalize, name="rollout",
+                             tracer=self.obs.tracer) as pipe:
             while True:
                 # submit while even full chunks cannot cover the target; when
                 # the rows in flight may, drain and count exactly (rows with
@@ -463,11 +495,21 @@ class PPOTrainer(TorchBaseTrainer):
                     if len(elements) >= num_rollouts:
                         break
                     continue
-                t_dev = perf_counter()
-                dev = self._rollout_chunk_device(stats)
-                stats["time/rollout_device"] = perf_counter() - t_dev
+                # the device side on this thread; the host side shows as
+                # "rollout/overlap" on the worker's track
+                with self.obs.span("rollout", pipelined=True) as rollout_sp:
+                    dev = self._rollout_chunk_device(stats)
+                stats["time/rollout_device"] = rollout_sp.duration
                 rows_in_flight.append(int(dev["prompt_ids"].shape[0]))
-                pipe.submit(lambda dev=dev: self._rollout_chunk_host(dev))
+
+                def work(dev=dev):
+                    # fenced on this chunk's scoring copies (their event):
+                    # the span closes once they are on the host
+                    with self.obs.span("rollout/overlap") as sp:
+                        sp.fence(dev["score_landing"].event)
+                        return self._rollout_chunk_host(dev)
+
+                pipe.submit(work)
             pipe_stats = pipe.stats
         stats["throughput/rollout_overlap_frac"] = pipe_stats.overlap_frac(perf_counter() - t0)
 
@@ -505,6 +547,18 @@ class PPOTrainer(TorchBaseTrainer):
             util = acc["live_slot_steps"] / acc["slot_steps"]
             stats.setdefault("throughput/slot_utilization", util)
             stats.setdefault("rollout/padded_decode_frac", 1.0 - util)
+        # the rollout side's dynamics summaries and the health canary
+        # (setdefault keeps the engine's exact counters)
+        ref_hist = acc.get("ref_kl_hist")
+        if ref_hist is not None:
+            stats.update(self.obs.dynamics.summarize({"dist/ref_kl_hist": ref_hist}))
+        gen_lens = acc.get("gen_lens")
+        if gen_lens:
+            stats.setdefault("rollout/gen_len_p50", float(np.percentile(gen_lens, 50)))
+            stats.setdefault("rollout/gen_len_p95", float(np.percentile(gen_lens, 95)))
+        if acc.get("rep_total"):
+            stats.setdefault("rollout/repetition_frac", acc["rep_pairs"] / acc["rep_total"])
+        self.obs.health.observe_rollout(stats)
         self.make_experience_stats = stats
         self.tracker.log(stats, step=iter_count)
         self.store.push(elements[:num_rollouts] if num_rollouts else elements)
@@ -576,8 +630,45 @@ class PPOTrainer(TorchBaseTrainer):
             self.config.train.epochs * self.n_updates_per_batch * len(self.train_dataloader),
         )
 
+    def _triage_extra(self, arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """A triaged batch's GAE advantages and returns, and the per-token
+        logprob deltas of one forward under the current weights (best
+        effort: the tokens and masks are the part that matters)."""
+        extra: Dict[str, np.ndarray] = {}
+        values, rewards, mask = (arrays.get(k) for k in ("values", "rewards", "response_mask"))
+        try:
+            if values is not None and rewards is not None and mask is not None:
+                adv, ret = self.config.method.get_advantages_and_returns(
+                    torch.as_tensor(values), torch.as_tensor(rewards),
+                    torch.as_tensor(mask, dtype=torch.float32))
+                extra["advantages"] = adv.numpy()
+                extra["returns"] = ret.numpy()
+        except Exception:  # pragma: no cover - defensive, crash path
+            pass
+        needed = ("query_tensors", "response_tensors", "query_mask", "response_mask", "logprobs")
+        try:
+            if not self.is_seq2seq and all(k in arrays for k in needed):
+                dev = {k: torch.as_tensor(arrays[k]).to(self.device) for k in needed}
+                Q, R = dev["query_tensors"].shape[1], dev["response_tensors"].shape[1]
+                responses = dev["response_tensors"].to(torch.int64)
+                with torch.no_grad():
+                    out = self.model(
+                        torch.cat([dev["query_tensors"].to(torch.int64), responses], dim=1),
+                        attention_mask=torch.cat([dev["query_mask"], dev["response_mask"]], dim=1),
+                        logits_span=(Q - 1, Q + R - 1))
+                    new_logprobs = logprobs_of_labels(out["logits"], responses)
+                extra["logprob_deltas"] = (new_logprobs.float().cpu().numpy()
+                                           - np.asarray(arrays["logprobs"]))
+        except Exception:  # pragma: no cover - defensive, crash path
+            pass
+        return extra
+
     def post_backward_callback(self) -> None:
         self.kl_ctl.update(self.mean_kl, n_steps=self.config.train.batch_size)
+        skips = getattr(self.kl_ctl, "skipped", 0)
+        if skips:
+            # non-finite chunk KLs the controller refused to fold in
+            self.metrics.set_gauge("health/kl_ctl_skips", float(skips))
 
     def post_epoch_callback(self) -> None:
         # fresh rollouts with the updated policy
