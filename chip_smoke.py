@@ -181,8 +181,8 @@ Phases, each printing one JSON line:
    ``none``, ``minimal`` and ``full`` on the same model: the loss and the
    gradients equal, the peak memory falling, #5 launching once per layer
    under ``none`` and twice under the others (``slice_remat_policies``);
-   and the presets' serial PPO path at gpt2-small under a fault plan, at
-   both loss kernels: reward retries, a NaN loss skipped by the update
+   and the presets' serial PPO path at gpt2-small's width (6 of its 12
+   layers) under a fault plan, at both loss kernels: reward retries, a NaN loss skipped by the update
    guard, a SIGTERM's emergency checkpoint and its resume equal bitwise to
    the uninterrupted run, the retention ring, the JSONL tracker, rollout
    logs and a profiler window naming the flash kernels
@@ -203,7 +203,27 @@ Phases, each printing one JSON line:
    their version's retained weights, a ``request_flood`` drill
    (``slice_serve_train``, after ``slice_grpo_parity``, which holds the
    group-aware harvest with the prefix cache against without as its (d)).
-   Phase 3 checks #1 at these phases' spans (``PREFIX_SPAN_SHAPES``).
+   Phase 3 checks #1 at these phases' spans (``PREFIX_SPAN_SHAPES``);
+17. Hugging Face checkpoints (``slice_hf``, no ``transformers`` and no
+   ``safetensors`` package), each part right after the phase whose model
+   it reuses: (a) after ``slice_serial``, its policy through
+   ``trainer.save_pretrained`` (GPT-2's HF ``config.json``, the value head
+   merged as ``v_head.*``), ``build_causal_lm(<dir>, head="value")`` with a
+   backbone bitwise the trainer's, 16 HTTP requests (half greedy) on the
+   loaded model equal to the in-memory policy's on one gated schedule
+   (#1–#3), and PPO from ``model_path=<dir>`` for one collection and two
+   updates under the fused loss (#5–#8), its first scoring logprobs equal
+   to the in-memory policy's (``phase_slice_hf_gpt2``); (b) after
+   ``slice_family_parity``, its Mistral-7B-width model written as a
+   sharded bf16 ``model.safetensors.index.json`` (:func:`write_safetensors`)
+   and read back by ``load_pretrained`` alone and by ``build_causal_lm
+   (<dir>)``, each with its seconds, GB/s and peak device memory, the
+   weights and logits equal to the model's rounded to bf16, and one
+   prefill and four decode steps of the paged engine on the built model (#1–#3;
+   ``phase_slice_hf_mistral``); (c) after ``slice_t5_ppo``, its t5-small
+   exported and reloaded by ``build_seq2seq_lm``, greedy tokens equal
+   (``phase_slice_hf_t5``). Their seconds add up under ``slice_hf``, their
+   launches under the path ``hf``.
 
 Phase 3 and 5 time the plain versions and the library calls only at the
 shapes ``PERF.md`` records (the table's rows and its other shapes); at
@@ -1910,17 +1930,20 @@ def phase_family_serve(device="cuda", spec=FAMILY_SPEC, card="", layers=FAMILY_S
     return launches
 
 
-def phase_family_parity(device="cuda", spec=FAMILY_SPEC, layers=FAMILY_PARITY_LAYERS, **kw):
+def phase_family_parity(device="cuda", spec=FAMILY_SPEC, layers=FAMILY_PARITY_LAYERS,
+                        keep=False, **kw):
     """The family slice's requests at ``layers`` layers (full width): the
     greedy ones served in bf16, then the f32 parity of
-    :meth:`ServedSlice.parity` with (b) held to ``FAMILY_BF16_GAP_TOL``."""
+    :meth:`ServedSlice.parity` with (b) held to ``FAMILY_BF16_GAP_TOL``.
+    With ``keep``, returns the served model and its config too
+    (``slice_hf``'s (b) writes it as a checkpoint)."""
     sl = ServedSlice(spec, device, **{**FAMILY_SERVE, **kw}, num_layers=layers)
     model, cfg = sl.build()
     results, _, _ = serve_over_http(sl.engine(model, cfg), [sl.bodies[i] for i in sl.greedy_idx],
                                     sl.max_new, sl.vocab, sl.sync)
     rec = sl.parity(results, "slice_family_parity", gap_tol=FAMILY_BF16_GAP_TOL, model16=model)
     zero_launch_counts()
-    return rec
+    return (rec, model, cfg) if keep else rec
 
 
 # ---------------------------------------------------------------------------
@@ -2857,7 +2880,7 @@ def profile_collection(trainer, prompts, n_rows):
 
 def phase_slice_serial(device="cuda", spec="builtin:gpt2-small", draft_layers=0, card="",
                        n_prompts=SERIAL_PROMPTS, total_steps=SERIAL_STEPS,
-                       checkpoint_interval=SERIAL_CHECKPOINT, sections=None):
+                       checkpoint_interval=SERIAL_CHECKPOINT, sections=None, keep=False):
     """PPO through ``trlx_tpu_torch.train`` on ``default_ppo_config()``
     unchanged but for the checkpoint directory, ``total_steps`` and
     ``checkpoint_interval``: serial dense rollouts pipelined at depth 2,
@@ -2868,7 +2891,8 @@ def phase_slice_serial(device="cuda", spec="builtin:gpt2-small", draft_layers=0,
     and read just after; #5 and #6 must launch and no other kernel may.
     Then, without a draft, one collection's generate and scoring forward
     under the profiler (``profile_collection``). ``sections`` (a CPU rehearsal's smaller
-    sizes) evolve the config further. Returns the launches."""
+    sizes) evolve the config further. Returns the launches (and, with
+    ``keep``, the trainer: ``slice_hf``'s (a) exports its policy)."""
     import shutil
 
     import trlx_tpu_torch
@@ -2963,7 +2987,7 @@ def phase_slice_serial(device="cuda", spec="builtin:gpt2-small", draft_layers=0,
     emit({**rec, "ok": not problems})
     if problems:
         raise AssertionError(f"{phase}: {problems}")
-    return launches
+    return (launches, trainer) if keep else launches
 
 
 def phase_slice_serial_spec(device="cuda", spec="builtin:gpt2-small",
@@ -4767,7 +4791,7 @@ def timed_calls(trainer, name, seconds):
     setattr(trainer, name, wrapped)
 
 
-def phase_slice_t5_ppo(device="cuda", spec=T5_PPO_SPEC, card="", hparams=None):
+def phase_slice_t5_ppo(device="cuda", spec=T5_PPO_SPEC, card="", hparams=None, keep=False):
     """``tasks/ppo_sentiments_t5.py`` (``examples/ppo_sentiments_t5.py`` on
     the port) as it stands on the model its offline branch resolves to
     (``builtin:t5-small`` at full width and depth: E 512, 6 + 6 layers, 8
@@ -4780,7 +4804,8 @@ def phase_slice_t5_ppo(device="cuda", spec=T5_PPO_SPEC, card="", hparams=None):
     ``time/exp``, rollout tokens/s, the peak memory and, over one profiled
     collection of the 128 prompts, the card's busy share and launches per
     decode step. ``hparams`` (a CPU rehearsal's sizes) are dot-path
-    overrides. Returns the launches."""
+    overrides. Returns the launches (and, with ``keep``, the trainer:
+    ``slice_hf``'s (c) exports its policy)."""
     import shutil
 
     from trlx_tpu_torch.tasks import ppo_sentiments_t5 as task
@@ -4862,10 +4887,9 @@ def phase_slice_t5_ppo(device="cuda", spec=T5_PPO_SPEC, card="", hparams=None):
         rec["profile_s"] = time.perf_counter() - t0
         zero_launch_counts()
     emit({**rec, "ok": not problems})
-    del trainer
     if problems:
         raise AssertionError(f"slice_t5_ppo: {problems}")
-    return launches
+    return (launches, trainer) if keep else launches
 
 
 def phase_slice_t5_ilql(device="cuda", spec=T5_ILQL_SPEC, layers=T5_ILQL_LAYERS,
@@ -5411,6 +5435,10 @@ RESILIENCE_PLAN = ("reward_raise@call:2*2; nan_loss@step:3; flightrec_dump@step:
                    "health_trip@step:4; sleep_one_proc@step:2")
 RESILIENCE_PREEMPT = "sigterm@step:5"
 RESILIENCE_STEPS, RESILIENCE_INTERVAL, RESILIENCE_KEEP = 8, 2, 2
+# the presets' model cut to 6 of GPT-2 small's 12 layers (full width): with
+# slice_hf the script read 722.4 s of phases on a fast host, against 670.9
+# before it; the drills' checks do not depend on the depth
+RESILIENCE_LAYERS = 6
 
 
 def ring_survivors(saves, keep):
@@ -5445,7 +5473,8 @@ def resilience_run(config, prompts, dev, expect_preempt=False):
 def phase_slice_resilience(device="cuda", spec="builtin:gpt2-small", card="",
                            total_steps=RESILIENCE_STEPS, n_prompts=SERIAL_PROMPTS,
                            sections=None):
-    """The presets' serial PPO path (``serial_config``) under a fault plan,
+    """The presets' serial PPO path (``serial_config``; the model cut to
+    ``RESILIENCE_LAYERS`` layers) under a fault plan,
     for each loss kernel (``xla``, ``pallas``): ``RESILIENCE_PLAN`` (the
     reward function fails its 2nd and 3rd attempts, the loss of update 4 is
     poisoned to NaN) with ``update_guard: skip``, ``keep_last_n`` 2,
@@ -5500,6 +5529,8 @@ def phase_slice_resilience(device="cuda", spec="builtin:gpt2-small", card="",
             sec["method"] = dict(sec.get("method", {}), loss_kernel=loss_kernel)
             sec["resilience"] = dict(fault_plan=plan, update_guard="skip",
                                      keep_last_n=RESILIENCE_KEEP, reward_backoff_s=0.01)
+            sec["model"] = dict(sec.get("model", {}), model_extra_kwargs={
+                "num_layers": min(RESILIENCE_LAYERS, config_layers(spec))})
             return serial_config(d, spec, total_steps, RESILIENCE_INTERVAL, **sec)
 
         if dev.type == "cuda":
@@ -5679,6 +5710,383 @@ def observability_problems(root, ref, dev):
     return rec, problems
 
 
+# ---------------------------------------------------------------------------
+# phase 17: Hugging Face checkpoints on the card (no transformers, no
+# safetensors package)
+# ---------------------------------------------------------------------------
+
+# the key names of transformers' GPT2Config that the export writes
+GPT2_HF_KEYS = {"model_type", "architectures", "vocab_size", "n_positions", "n_embd", "n_layer",
+                "n_head", "n_inner", "layer_norm_epsilon"}
+# the reference's value head, Sequential(Linear, ReLU, Linear), against the port's
+V_HEAD_KEYS = {"v_head.0.weight": "v_head.in_proj.weight", "v_head.0.bias": "v_head.in_proj.bias",
+               "v_head.2.weight": "v_head.out_proj.weight", "v_head.2.bias": "v_head.out_proj.bias"}
+# (a)'s 16 requests: 64-token prompts, 32 new tokens (no eos), half greedy
+HF_SERVE = dict(slots=8, prompt_len=64, block_size=16, max_new=32, segment_len=8)
+HF_REQUESTS = 16
+# (a)'s PPO from the directory: one collection of 64 rollouts, two updates of
+# 32 under the fused loss (#7/#8)
+HF_PPO = dict(num_rollouts=64, chunk_size=64, ppo_epochs=1, loss_kernel="pallas")
+HF_PPO_STEPS = 2
+# f32 round-off: the scoring logprobs are f32, the weights bitwise equal
+HF_LOGPROB_ATOL = 1e-5
+HF_LOGIT_ATOL = 1e-5
+# (b): shards of at most 512 MiB (two at Mistral-7B's width, one layer, bf16)
+HF_SHARD_BYTES = 512 * 2 ** 20
+HF_ENGINE = dict(slots=4, prompt_len=256, block_size=16, max_new=4, segment_len=4)
+SAFETENSORS_NAMES = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16"}
+
+
+def write_safetensors(directory, tensors, dtype, shard_bytes):
+    """A small writer of the safetensors format (an 8-byte little-endian
+    header length, a JSON header, raw bytes), no ``safetensors`` package:
+    ``tensors`` cast to ``dtype`` into shards of at most ``shard_bytes`` (a
+    tensor is never split) named as ``transformers`` names them, and
+    ``model.safetensors.index.json``. Returns (shard files, bytes)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    groups, size = [[]], 0
+    for name, t in tensors.items():
+        n = t.numel() * item
+        if groups[-1] and size + n > shard_bytes:
+            groups.append([])
+            size = 0
+        groups[-1].append(name)
+        size += n
+    files, weight_map, total = [], {}, 0
+    for i, names in enumerate(groups):
+        file = f"model-{i + 1:05d}-of-{len(groups):05d}.safetensors"
+        header, offset = {"__metadata__": {"format": "pt"}}, 0
+        for name in names:
+            n = tensors[name].numel() * item
+            header[name] = {"dtype": SAFETENSORS_NAMES[dtype],
+                            "shape": list(tensors[name].shape), "data_offsets": [offset, offset + n]}
+            offset += n
+            weight_map[name] = file
+        raw = json.dumps(header).encode()
+        raw += b" " * (-len(raw) % 8)
+        with open(os.path.join(directory, file), "wb") as f:
+            f.write(len(raw).to_bytes(8, "little"))
+            f.write(raw)
+            for name in names:
+                t = tensors[name].detach().to(dtype).contiguous().cpu()
+                t.view(torch.uint8).numpy().tofile(f)
+        files.append(file)
+        total += 8 + len(raw) + offset
+    with open(os.path.join(directory, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    return files, total
+
+
+def hf_requests(vocab, n=HF_REQUESTS, geo=HF_SERVE, seed=1717):
+    """(a)'s requests in one wave: seeded full-width prompts, the even
+    ones greedy."""
+    rs = np.random.RandomState(seed)
+    reqs = [{"tenant": None, "class": "actor", "ids": rs.randint(0, vocab - 1, geo["prompt_len"]),
+             "greedy": i % 2 == 0, "seed": i} for i in range(n)]
+    return [(reqs, None)]
+
+
+def hf_serve(model, cfg, dev, sync, waves):
+    """``waves`` over HTTP through ``ServeServer`` on a paged engine over
+    ``model``, behind the gate (every request in the engine before its
+    first step, so two models see one schedule). Returns (tokens by
+    request, wall seconds)."""
+    geo = {**HF_SERVE, "cap_blocks": 0, "prefill_chunk": 0}
+    engine, _ = prefix_engine(model, cfg, dev, geo=geo, prefix=False)
+    results, _, _, wall = serve_prefix_stream(engine, waves, geo["max_new"], sync)
+    return {i: list(r[1]) for i, r in results.items()}, wall
+
+
+def phase_slice_hf_gpt2(trainer, device="cuda", card="", sections=None):
+    """(a) The policy ``slice_serial`` trained (GPT-2 small, full width and
+    depth, f32 masters): ``trainer.save_pretrained`` writes the HF
+    directory (``config.json`` in GPT-2's HF keys, ``pytorch_model.bin``
+    with the value head merged as ``v_head.*``, bitwise the trainer's);
+    ``build_causal_lm(<dir>, head="value")`` gives a backbone bitwise equal
+    to the trainer's (the heads are seeded, as from any checkpoint); 16
+    requests over HTTP, half greedy, on the loaded model equal the
+    trainer's in-memory policy's on the same schedule (#1–#3); and
+    ``trlx_tpu_torch.train`` with ``model.model_path`` the directory
+    (``HF_PPO``: one collection, two updates under the fused loss, #5–#8),
+    whose first scoring logprobs equal the in-memory policy's on the same
+    rows within ``HF_LOGPROB_ATOL``. Counts are set to 0 just before the
+    serve and the PPO run and read just after; the directory is removed at
+    the end. ``sections`` (a CPU rehearsal's sizes) evolve the PPO config.
+    Returns the launches."""
+    import shutil
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.models.builder import build_causal_lm
+    from trlx_tpu_torch.profile_train import reward_fn, slice_prompts
+
+    dev = torch.device(device)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    tmp = _scratch_dir("slice_hf_gpt2")
+    problems, launches = [], Counter()
+    rec = {"phase": "slice_hf_gpt2", "policy": trainer.config.model.model_path, "card": card}
+    policy = {k: v.detach() for k, v in trainer.model.state_dict().items()}
+    try:
+        t0 = time.perf_counter()
+        trainer.save_pretrained(tmp)
+        rec["save_s"] = time.perf_counter() - t0
+        rec["files"] = sorted(os.listdir(tmp))
+        with open(os.path.join(tmp, "config.json")) as f:
+            rec["config_json"] = hf_cfg = json.load(f)
+        if hf_cfg.get("model_type") != "gpt2" or set(hf_cfg) != GPT2_HF_KEYS:
+            problems.append(f"config.json is not GPT-2's: {sorted(hf_cfg)}")
+        saved = torch.load(os.path.join(tmp, "pytorch_model.bin"), weights_only=True)
+        rec["v_head_unequal"] = [k for k, ours in V_HEAD_KEYS.items()
+                                 if k not in saved or not torch.equal(saved[k],
+                                                                     policy[ours].cpu())]
+        del saved
+        if rec["v_head_unequal"]:
+            problems.append(f"the merged value head differs: {rec['v_head_unequal']}")
+
+        t0 = time.perf_counter()
+        model, cfg = build_causal_lm(tmp, head="value", device=dev)
+        sync()
+        rec["load_s"] = time.perf_counter() - t0
+        loaded = model.state_dict()
+        rec["backbone_unequal"] = [k for k in policy if k.startswith("backbone.")
+                                   and not torch.equal(loaded[k], policy[k])]
+        if rec["backbone_unequal"]:
+            problems.append(f"reloaded backbone differs: {rec['backbone_unequal'][:4]}")
+
+        waves = hf_requests(cfg.vocab_size)
+        sync()
+        zero_launch_counts()
+        # -- the main path: the loaded model served over HTTP ---------------
+        served, rec["serve_wall_s"] = hf_serve(model, cfg, dev, sync, waves)
+        served_launches = launch_counts()
+        # -------------------------------------------------------------------
+        launches.update(served_launches)
+        in_memory, _ = hf_serve(trainer.model, trainer.tcfg, dev, sync, waves)
+        zero_launch_counts()
+        greedy = [i for i, r in enumerate(waves[0][0]) if r["greedy"]]
+        rec["greedy_rows_equal"] = sum(served[i] == in_memory[i] for i in greedy)
+        rec["sampled_rows_equal"] = sum(served[i] == in_memory[i] for i in served
+                                        if i not in greedy)
+        rec["serve_launches"] = {k: served_launches[k] for k in SERVE_KERNELS}
+        if rec["greedy_rows_equal"] != len(greedy):
+            problems.append(f"greedy rows differ from the in-memory policy's: "
+                            f"{rec['greedy_rows_equal']} of {len(greedy)} equal")
+        if dev.type == "cuda" and min(rec["serve_launches"].values()) <= 0:
+            problems.append(f"#1-#3 never launched serving the loaded model: {served_launches}")
+        del model, loaded
+
+        scored = {}
+
+        def hook(t):
+            score = t._dispatch_score
+
+            def first_score(*args):
+                out = score(*args)
+                if not scored:
+                    scored["args"] = [torch.as_tensor(a).clone() for a in args]
+                    scored["logprobs"] = out["logprobs"].detach().clone()
+                return out
+
+            t._dispatch_score = first_score
+
+        ckpt = _scratch_dir("slice_hf_ppo")
+        ppo_sections = dict(sections or {})
+        ppo_sections["method"] = {**HF_PPO, **ppo_sections.get("method", {})}
+        config = serial_config(ckpt, tmp, HF_PPO_STEPS, HF_PPO_STEPS * 8, **ppo_sections)
+        sync()
+        zero_launch_counts()
+        try:
+            # -- the main path: PPO from the checkpoint directory ------------
+            ppo = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=slice_prompts(64),
+                                       config=config, init_trainer_hook=hook, device=dev)
+            sync()
+            ppo_launches = launch_counts()
+            # ----------------------------------------------------------------
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        launches.update(ppo_launches)
+        steps = [st for _, st in ppo.tracker.history if "gradients/global_norm" in st]
+        want = trainer._dispatch_score(*scored["args"])["logprobs"]
+        zero_launch_counts()
+        mask = scored["args"][3].to(want.device) > 0
+        rec["ppo"] = {"model_path_is_dir": os.path.isdir(config.model.model_path),
+                      "optimizer_steps": len(steps),
+                      "losses": [st["losses/total_loss"] for st in steps],
+                      "first_scoring_rows": int(want.shape[0]),
+                      "first_logprob_max_abs_err": float(
+                          (scored["logprobs"] - want).abs()[mask].max()),
+                      "launches": ppo_launches}
+        del ppo
+        if len(steps) != HF_PPO_STEPS or not all(math.isfinite(x) for x in rec["ppo"]["losses"]):
+            problems.append(f"PPO from the directory: {rec['ppo']}")
+        if rec["ppo"]["first_logprob_max_abs_err"] > HF_LOGPROB_ATOL:
+            problems.append(f"first scoring logprobs differ: {rec['ppo']['first_logprob_max_abs_err']}")
+        if dev.type == "cuda" and min(ppo_launches[k] for k in TRAIN_KERNELS) <= 0:
+            problems.append(f"#5-#8 never launched in PPO from the directory: {ppo_launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({**rec, "launches": dict(launches), "ok": not problems})
+    if problems:
+        raise AssertionError(f"slice_hf_gpt2: {problems}")
+    return dict(launches)
+
+
+def phase_slice_hf_mistral(model, cfg, device="cuda", card="", rows=2, geo=HF_ENGINE):
+    """(b) Mistral-7B's width at the family phases' depth — their model, no
+    new draw — as a hub checkpoint looks: its HF state dict (the port's
+    exporter) in bf16, sharded by :func:`write_safetensors` (at most
+    ``HF_SHARD_BYTES`` a shard), beside its ``config.json``. Two reads of
+    it onto the card, each with its seconds, GB/s of checkpoint and peak
+    device memory above what was allocated before it (a warm read of
+    files just written): ``load_pretrained`` alone (the weights as
+    stored, bf16), then ``build_causal_lm(<dir>)``, the path users and
+    trainers take (the backbone cast to its f32 masters, nothing drawn).
+    Both give the in-memory model's weights rounded to bf16 (rounded in
+    place: the phase is the model's last use), bitwise; the built model's
+    logits equal the rounded model's within ``HF_LOGIT_ATOL``; then one
+    prefill and ``geo["max_new"]`` decode steps of the paged engine on the
+    built model (#1–#3, counted from 0), its greedy tokens equal to the
+    rounded in-memory model's. Returns the launches."""
+    import shutil
+
+    from trlx_tpu_torch.models import hf_interop
+    from trlx_tpu_torch.models.builder import build_causal_lm
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+
+    def timed_read(read):
+        """``(read(), seconds, peak bytes above the allocation before)``."""
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev) if cuda else 0
+        t0 = time.perf_counter()
+        out = read()
+        sync()
+        return out, time.perf_counter() - t0, (
+            torch.cuda.max_memory_allocated(dev) - base if cuda else None)
+
+    tmp = _scratch_dir("slice_hf_mistral")
+    try:
+        t0 = time.perf_counter()
+        files, nbytes = write_safetensors(
+            tmp, hf_interop.params_to_hf_state_dict(model.state_dict(), cfg), torch.bfloat16,
+            HF_SHARD_BYTES)
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(hf_interop.hf_config_from_transformer(cfg), f)
+        write_s = time.perf_counter() - t0
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(p.to(torch.bfloat16))
+        want = model.state_dict()
+        (state_dict, _), load_s, load_peak = timed_read(
+            lambda: hf_interop.load_pretrained(tmp, device=dev))
+        loaded_dtype = str(state_dict["wte.weight"].dtype).split(".")[-1]
+        unequal = [k for k in want if not torch.equal(state_dict[k].float(), want[k])]
+        del state_dict
+        (loaded, lcfg), build_s, build_peak = timed_read(
+            lambda: build_causal_lm(tmp, device=dev))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    unequal += [f"built:{k}" for k, v in loaded.state_dict().items()
+                if not torch.equal(v, want[k])]
+    ids = torch.as_tensor(np.random.RandomState(7).randint(
+        0, cfg.vocab_size - 1, (rows, geo["prompt_len"])), device=dev)
+    with torch.no_grad():
+        logit_err = float((loaded(ids)["logits"].float() - model(ids)["logits"].float())
+                          .abs().max())
+    prompts = np.random.RandomState(8).randint(0, cfg.vocab_size - 1,
+                                               (geo["slots"], geo["prompt_len"]))
+
+    def engine_tokens(m, c):
+        engine, _ = prefix_engine(m, c, dev, geo={**geo, "cap_blocks": 0, "prefill_chunk": 0},
+                                  prefix=False, sample=False)
+        engine.enqueue_prompts(prompts, np.ones_like(prompts), np.arange(len(prompts)))
+        done = engine.run()
+        sync()
+        return {c_.index: c_.tokens.tolist() for c_ in done}
+
+    sync()
+    zero_launch_counts()
+    # -- the main path: the loaded model through the paged engine ------------
+    got = engine_tokens(loaded, lcfg)
+    launches = launch_counts()
+    # -------------------------------------------------------------------------
+    ref = engine_tokens(model, cfg)
+    zero_launch_counts()
+    weights_gb = sum(v.numel() * v.element_size() for v in want.values()) / 1e9
+    rec = {"phase": "slice_hf_mistral", "model": FAMILY_SPEC, "layers": cfg.num_layers,
+           "shards": files, "checkpoint_gb": nbytes / 1e9, "write_s": write_s, "read": "warm",
+           "load_s": load_s, "load_gb_per_s": nbytes / 1e9 / load_s, "loaded_dtype": loaded_dtype,
+           "load_peak_gb": load_peak and load_peak / 1e9, "build_s": build_s,
+           "build_gb_per_s": nbytes / 1e9 / build_s, "built_weights_gb": weights_gb,
+           "build_peak_gb": build_peak and build_peak / 1e9,
+           "weights_unequal_to_bf16_rounded": unequal, "logit_max_abs_err": logit_err,
+           "engine_rows_equal": sum(got[i] == ref[i] for i in ref), "engine_rows": len(ref),
+           "launches": {k: launches[k] for k in SERVE_KERNELS}, "card": card}
+    problems = []
+    if len(files) < 2:
+        problems.append(f"{len(files)} shard(s)")
+    if unequal:
+        problems.append(f"loaded weights differ from the bf16-rounded model: {unequal[:4]}")
+    if not logit_err <= HF_LOGIT_ATOL:
+        problems.append(f"logits differ by {logit_err}")
+    if rec["engine_rows_equal"] != len(ref):
+        problems.append("the loaded model's greedy tokens differ")
+    if dev.type == "cuda" and min(rec["launches"].values()) <= 0:
+        problems.append(f"#1-#3 never launched: {launches}")
+    emit({**rec, "ok": not problems})
+    if problems:
+        raise AssertionError(f"slice_hf_mistral: {problems}")
+    return launches
+
+
+def phase_slice_hf_t5(trainer, device="cuda", card="", rows=4, max_new=24):
+    """(c) The t5-small policy ``slice_t5_ppo`` trained:
+    ``trainer.save_pretrained`` → ``build_seq2seq_lm(<dir>)``; greedy
+    ``generate_seq2seq`` on the loaded model equals the in-memory model's
+    token for token, its backbone bitwise the trainer's (T5 launches none
+    of the port's kernels). Returns the launches of the loaded model's
+    decode (counted from 0: all zero)."""
+    import shutil
+
+    from trlx_tpu_torch.models.builder import build_seq2seq_lm
+    from trlx_tpu_torch.ops.sampling import GenerationConfig, generate_seq2seq
+
+    dev = torch.device(device)
+    tmp = _scratch_dir("slice_hf_t5")
+    try:
+        trainer.save_pretrained(tmp)
+        files = sorted(os.listdir(tmp))
+        model, cfg = build_seq2seq_lm(tmp, device=dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    policy = trainer.model.backbone
+    unequal = [k for k, v in policy.state_dict().items()
+               if not torch.equal(model.state_dict()[k], v)]
+    ids, mask, _, _ = t5_parity_inputs(cfg.vocab_size, rows=rows)
+    gen = GenerationConfig(max_new_tokens=max_new, do_sample=False, eos_token_id=1,
+                           pad_token_id=cfg.pad_token_id)
+    seeds = torch.arange(rows)
+    zero_launch_counts()
+    with torch.no_grad():
+        # -- the main path: greedy decoding on the loaded model --------------
+        got = generate_seq2seq(model, ids, mask, seeds, gen).response_tokens.cpu()
+        launches = launch_counts()
+        # ---------------------------------------------------------------------
+        want = generate_seq2seq(policy, ids, mask, seeds, gen).response_tokens.cpu()
+    rec = {"phase": "slice_hf_t5", "model": trainer.config.model.model_path, "files": files,
+           "backbone_unequal": unequal, "greedy_rows": rows, "max_new_tokens": max_new,
+           "greedy_tokens_equal": bool(torch.equal(got, want)), "launches": launches,
+           "card": card}
+    ok = not unequal and rec["greedy_tokens_equal"] and not any(launches.values())
+    emit({**rec, "ok": ok})
+    if not ok:
+        raise AssertionError(f"slice_hf_t5: {rec}")
+    return launches
+
+
 def kernel_record(name, launches, max_abs_err, rec, by_path):
     """One kernel's entry: ``launches`` from its own slice's main path,
     ``launches_by_path`` from every path's run."""
@@ -5733,7 +6141,12 @@ def run_phases(clocked, seconds):
     del trainer
     spec_launches = clocked(phase_slice_spec, card=smi)
     clocked(phase_slice_spec_parity, card=smi)
-    serial_launches = clocked(phase_slice_serial, card=smi)
+    serial_launches, serial_trainer = clocked(phase_slice_serial, card=smi, keep=True)
+    hf_launches = Counter(clocked(phase_slice_hf_gpt2, serial_trainer, card=smi,
+                                  _as="slice_hf"))
+    del serial_trainer
+    gc.collect()
+    torch.cuda.empty_cache()
     serial_spec_launches = clocked(phase_slice_serial_spec, card=smi)
     clocked(phase_slice_serial_parity, card=smi)
     grpo_launches, grpo_run = clocked(phase_slice_grpo, card=smi, keep=True)
@@ -5758,7 +6171,11 @@ def run_phases(clocked, seconds):
     torch.cuda.empty_cache()
     family_serve = clocked(phase_family_serve, card=smi)
     torch.cuda.empty_cache()
-    clocked(phase_family_parity)
+    _, family_model, family_cfg = clocked(phase_family_parity, keep=True)
+    hf_launches.update(clocked(phase_slice_hf_mistral, family_model, family_cfg, card=smi,
+                               _as="slice_hf"))
+    del family_model
+    gc.collect()
     torch.cuda.empty_cache()
     family_train = clocked(phase_family_train, card=smi)
     gc.collect()
@@ -5772,7 +6189,9 @@ def run_phases(clocked, seconds):
     dpo_lora_launches = clocked(phase_slice_dpo_lora, card=smi)
     gc.collect()
     torch.cuda.empty_cache()
-    t5_ppo_launches = clocked(phase_slice_t5_ppo, card=smi)
+    t5_ppo_launches, t5_trainer = clocked(phase_slice_t5_ppo, card=smi, keep=True)
+    hf_launches.update(clocked(phase_slice_hf_t5, t5_trainer, card=smi, _as="slice_hf"))
+    del t5_trainer
     t5_ilql_launches = clocked(phase_slice_t5_ilql, card=smi)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5799,7 +6218,7 @@ def run_phases(clocked, seconds):
                "dpo": dpo_launches, "reward": reward_launches, "dpo_lora": dpo_lora_launches,
                "t5_ppo": t5_ppo_launches, "t5_ilql": t5_ilql_launches,
                "remat": remat_launches, "resilience": resilience_launches,
-               "serve_train": serve_train_launches}
+               "serve_train": serve_train_launches, "hf": {**served, **hf_launches}}
     kernels = [kernel_record(name, serve_launches[name], timed[name]["max_abs_err"], timed[name],
                              by_path)
                for name in SERVE_KERNELS]

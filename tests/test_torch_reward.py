@@ -18,8 +18,11 @@ Inputs are made by numpy from a seed; weights go through
   final weights;
 - stage 3's reward function: the port's checkpoint scores against JAX's
   ``load_reward_fn`` on the same weights, and the baseline subtraction;
-- ``build_reward_model`` refuses a checkpoint path, naming
-  ``models/hf_interop.py``.
+- ``build_reward_model`` on a path that holds no checkpoint raises the
+  loader's ``ValueError``; on a tiny HF checkpoint directory it imports
+  the backbone (its scores on the backbone's hidden states equal a plain
+  forward of the HF model's last hidden state through the seeded
+  ``r_head``) and seeds ``r_head`` as a builtin spec of the same shape.
 """
 
 import os
@@ -147,8 +150,28 @@ def test_reward_loss_fn_and_gradients_match_jax(spec):
 
 
 def test_build_reward_model_refuses_a_checkpoint_path():
-    with pytest.raises(ValueError, match="models/hf_interop.py"):
+    with pytest.raises(ValueError, match="not a Hugging Face checkpoint directory"):
         build_reward_model("EleutherAI/gpt-j-6B", device="cpu")
+
+
+def test_build_reward_model_from_a_checkpoint_directory(tmp_path):
+    from torch_hf_cases import causal_ids, save, tiny_hf
+
+    hf = tiny_hf("gpt2")
+    path = save(hf, str(tmp_path / "gpt2"), "safetensors")
+    model, cfg = build_reward_model(path, device="cpu", dtype=torch.float32, seed=3)
+    hf_sd = hf.state_dict()
+    assert torch.equal(model.backbone.wte.weight, hf_sd["transformer.wte.weight"])
+    # the head is the only draw: normal(0.02), first from the seed's generator
+    want_head = torch.empty(1, cfg.hidden_size).normal_(
+        0.0, 0.02, generator=torch.Generator().manual_seed(3))
+    assert torch.equal(model.r_head.weight, want_head)
+    ids = torch.tensor(causal_ids(cfg.vocab_size))
+    with torch.no_grad():
+        hidden = hf.transformer(ids).last_hidden_state
+        want = (hidden @ model.r_head.weight.t())[..., 0]
+        got = model(ids)["rewards"]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)
 
 
 STAGE2 = dict(max_length=96, batch_size=8, total_steps=4, lr=1e-4, n_pairs=32)

@@ -1,10 +1,11 @@
 """Tokenizers of the port.
 
-Port of ``trlx_tpu/data/tokenizer.py`` for the builtin, file-free
-tokenizers: :class:`ByteTokenizer` (``builtin:bytes``: ids 0..255 are raw
-bytes, then bos/eos/pad) and :class:`CharTokenizer`
-(``builtin:chars:<alphabet>``). ``from_config`` dispatches on the
-``tokenizer_path`` spec; other paths (Hugging Face tokenizers) raise.
+Port of ``trlx_tpu/data/tokenizer.py``: the builtin, file-free tokenizers
+:class:`ByteTokenizer` (``builtin:bytes``: ids 0..255 are raw bytes, then
+bos/eos/pad) and :class:`CharTokenizer` (``builtin:chars:<alphabet>``), and
+:class:`HFTokenizer`, an adapter over ``transformers.AutoTokenizer`` for a
+local tokenizer directory (``transformers`` is imported when one is built).
+``from_config`` dispatches on the ``tokenizer_path`` spec.
 """
 
 from typing import Dict, List, Optional, Sequence, Union
@@ -183,8 +184,48 @@ class CharTokenizer(Tokenizer):
         return "".join(out)
 
 
+class HFTokenizer(Tokenizer):
+    """Adapter over a ``transformers`` tokenizer (local files only).
+    Delegates everything; fills pad when the tokenizer has none, as JAX
+    does (the reference: ``accelerate_base_trainer.py:60-66``)."""
+
+    def __init__(self, path: str, padding_side: str = "left", truncation_side: str = "right"):
+        try:
+            from transformers import AutoTokenizer
+        except ImportError as e:
+            raise ImportError(f"tokenizer {path!r}: a Hugging Face tokenizer needs the "
+                              "transformers package, which is not installed; use a builtin: "
+                              "tokenizer") from e
+
+        self._tok = AutoTokenizer.from_pretrained(path)
+        self._tok.padding_side = padding_side
+        self._tok.truncation_side = truncation_side
+        if self._tok.pad_token is None:
+            self._tok.pad_token = "<|padding|>"
+        self.padding_side = padding_side
+        self.truncation_side = truncation_side
+
+    def __getattr__(self, name):
+        return getattr(self._tok, name)
+
+    @property
+    def vocab_size(self) -> int:  # added tokens included
+        return len(self._tok)
+
+    def encode(self, text: str, add_special_tokens: bool = False) -> List[int]:
+        return self._tok(text, add_special_tokens=add_special_tokens).input_ids
+
+    def decode(self, ids: Sequence[int], skip_special_tokens: bool = True) -> str:
+        return self._tok.decode(ids, skip_special_tokens=skip_special_tokens)
+
+    def __call__(self, text, truncation=False, max_length=None, add_special_tokens=False, **kw):
+        return self._tok(text, truncation=truncation, max_length=max_length,
+                         add_special_tokens=add_special_tokens, **kw)
+
+
 def from_config(config) -> Tokenizer:
-    """Build a tokenizer from a :class:`TokenizerConfig`."""
+    """Build a tokenizer from a :class:`TokenizerConfig`: a ``builtin:``
+    spec, else a local Hugging Face tokenizer directory."""
     path = config.tokenizer_path
     if path.startswith("builtin:"):
         spec = path.split(":", 1)[1]
@@ -193,7 +234,4 @@ def from_config(config) -> Tokenizer:
         if spec.startswith("chars:"):
             return CharTokenizer(spec[len("chars:") :], config.padding_side, config.truncation_side)
         raise ValueError(f"Unknown builtin tokenizer spec: {path}")
-    raise ValueError(
-        f"tokenizer {path!r}: the port has the builtin tokenizers only "
-        "(builtin:bytes, builtin:chars:<alphabet>)"
-    )
+    return HFTokenizer(path, config.padding_side, config.truncation_side)

@@ -1,17 +1,27 @@
-"""Model construction from a ``builtin:<family>-<size>`` spec.
+"""Model construction from a ``builtin:<family>-<size>`` spec or a local
+Hugging Face checkpoint directory.
 
 Port of the parts of ``trlx_tpu/models/builder.py`` the serving and PPO
 paths need:
 
+- :func:`resolve_transformer_config`: a ``builtin:`` spec's preset, or a
+  checkpoint directory's ``config.json`` (``hf_interop.config_from_hf``),
+  with the overrides applied on top (JAX's ``dataclasses.replace``);
 - :func:`build_causal_lm`: a backbone (``head=None``), the policy with a
   value head (``head="value"``) or with the ILQL heads (``head="ilql"``,
   the target heads starting as copies of the Q heads), randomly
-  initialised from a seed (no download). The model is constructed on the
+  initialised from a seed. The model is constructed on the
   ``meta`` device (no storage, no default init) and materialised on the
   target device; each tensor's draws then come from a seeded CPU
   ``torch.Generator`` in registration order and are copied over one at a
   time (``transformer.seeded_init_``), so one seed gives the same weights
-  on every device and a 7B model never sits in host memory whole;
+  on every device and a 7B model never sits in host memory whole. From a
+  checkpoint directory the imported weights are the backbone and nothing
+  else (JAX's ``_import_hf_backbone``): the checkpoint's tensors become the
+  backbone's parameters (cast to ``param_dtype``), and only the heads and
+  LoRA adapters are drawn from the seed, in registration order (so the
+  heads' draws are not a builtin spec's, whose draws pass through the
+  backbone first);
 - :func:`hydra_ref_params`: the frozen hydra reference — copies of the top
   ``num_layers_unfrozen`` blocks, the final norm and the lm head (the tied
   embedding or the untied ``lm_head``);
@@ -28,7 +38,8 @@ paths need:
   JAX errors) and :func:`merge_lora_params` (adapters folded into their
   weights, for export);
 - the seq2seq (T5) assembly: :func:`resolve_seq2seq_config`
-  (``builtin:t5-<size>`` and ``builtin:flan_t5-<size>``),
+  (``builtin:t5-<size>``, ``builtin:flan_t5-<size>`` or a T5 checkpoint
+  directory),
   :func:`build_seq2seq_lm` (the same ``meta`` construction and seeded
   draws), :func:`seq2seq_hydra_ref_params` (copies of the top decoder
   blocks, the decoder's final norm and bias table, and the head) and
@@ -37,16 +48,19 @@ paths need:
   decoder trains).
 """
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
+from trlx_tpu_torch.models import hf_interop
 from trlx_tpu_torch.models.heads import (
     CausalLMWithILQLHeads,
     CausalLMWithValueHead,
     Seq2SeqLMWithILQLHeads,
     Seq2SeqLMWithValueHead,
+    sync_target_q_params,
 )
 from trlx_tpu_torch.models.seq2seq import (
     SEQ2SEQ_SPECS,
@@ -59,13 +73,14 @@ from trlx_tpu_torch.models.transformer import (
     HydraBranch,
     TransformerConfig,
     config_from_spec,
+    seeded_init_,
 )
 from trlx_tpu_torch.ops.kernel_utils import resolve_device
 
 __all__ = ["DTYPES", "LORA_TARGET_GROUPS", "assemble_overrides", "build_causal_lm",
            "build_seq2seq_lm", "hydra_ref_params", "merge_lora_params", "parse_peft_overrides",
-           "resolve_seq2seq_config", "seq2seq_hydra_ref_params", "seq2seq_trainable_mask",
-           "trainable_mask"]
+           "resolve_seq2seq_config", "resolve_transformer_config", "seq2seq_hydra_ref_params",
+           "seq2seq_trainable_mask", "trainable_mask"]
 
 LORA_TARGET_GROUPS = {
     "attention": ("q_proj", "k_proj", "v_proj", "o_proj"),
@@ -145,6 +160,23 @@ def merge_lora_params(state_dict: Dict[str, torch.Tensor],
     return out
 
 
+def _checkpoint_dir(model_path: str) -> Optional[str]:
+    """None for a ``builtin:`` spec, else the path (a checkpoint directory)."""
+    return None if model_path.startswith("builtin:") else model_path
+
+
+def resolve_transformer_config(model_path: str, **overrides) -> TransformerConfig:
+    """The config of a ``builtin:<family>-<size>`` spec, or of a local HF
+    checkpoint directory's ``config.json``, with ``overrides`` applied on
+    top. A path that is no checkpoint directory raises the loader's
+    ``ValueError``."""
+    path = _checkpoint_dir(model_path)
+    if path is None:
+        return config_from_spec(model_path, **overrides)
+    cfg = hf_interop.config_from_hf(hf_interop.read_hf_config(path))
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
 def build_causal_lm(
     model_path: str = "builtin:gpt2-small",
     seed: int = 0,
@@ -153,27 +185,41 @@ def build_causal_lm(
     two_qs: bool = True,
     **overrides,
 ) -> Tuple[nn.Module, TransformerConfig]:
-    """Build ``(model, config)`` for a builtin spec with seeded weights, in
-    eval mode with gradients off, on ``device`` (default: the GPU; raises
-    without one). ``head="value"`` wraps the backbone with the value head,
-    ``head="ilql"`` with the ILQL heads (twin Q heads with ``two_qs``)."""
+    """Build ``(model, config)`` for a builtin spec with seeded weights, or
+    for a local HF checkpoint directory (its backbone imported over the
+    seeded model), in eval mode with gradients off, on ``device``
+    (default: the GPU; raises without one). ``head="value"`` wraps the
+    backbone with the value head, ``head="ilql"`` with the ILQL heads (twin
+    Q heads with ``two_qs``)."""
     heads = {None: CausalTransformer, "value": CausalLMWithValueHead,
              "ilql": lambda c: CausalLMWithILQLHeads(c, two_qs)}
-    return _materialise(heads, head, config_from_spec(model_path, **overrides), seed, device)
+    return _materialise(heads, head, resolve_transformer_config(model_path, **overrides),
+                        seed, device, _checkpoint_dir(model_path), hf_interop.load_pretrained)
 
 
-def _materialise(heads, head, cfg, seed, device) -> Tuple[nn.Module, Any]:
+def _materialise(heads, head, cfg, seed, device, path=None, load=None
+                 ) -> Tuple[nn.Module, Any]:
     """``heads[head](cfg)`` built on ``meta`` (no storage, no default
-    init), materialised on ``device`` and drawn from ``seed``; eval mode,
-    gradients off."""
+    init), materialised on ``device`` and drawn from ``seed``. With a
+    checkpoint ``path``, ``load`` reads its backbone onto ``device`` and
+    its tensors become the backbone's parameters; only the rest (the
+    heads, LoRA adapters) is drawn, in registration order, so no backbone
+    draw is paid and thrown away. Eval mode, gradients off."""
     if head not in heads:
         raise ValueError(f"head={head!r}: the port builds the bare LM, the value-head "
                          "policy or the ILQL policy (None | 'value' | 'ilql')")
     device = resolve_device(device)
+    generator = torch.Generator().manual_seed(int(seed))
     with torch.device("meta"):
         model = heads[head](cfg)
-    model = model.to_empty(device=device)
-    model.reset_parameters(torch.Generator().manual_seed(int(seed)))
+    if path is None:
+        model = model.to_empty(device=device)
+        model.reset_parameters(generator)
+    else:
+        state_dict, _ = load(path, device=device, cfg=cfg)
+        seeded_init_(model, generator, names=hf_interop.import_backbone(model, state_dict, device))
+        if hasattr(model, "ilql_heads"):  # the target heads start as the Q heads
+            sync_target_q_params(model, alpha=1.0)
     return model.eval().requires_grad_(False), cfg
 
 
@@ -232,12 +278,13 @@ def trainable_mask(
 
 def resolve_seq2seq_config(model_path: str, **overrides) -> Seq2SeqConfig:
     """``builtin:t5-<size>`` or ``builtin:flan_t5-<size>`` (``test`` when no
-    size is given) → :class:`Seq2SeqConfig` with ``overrides``. A
-    checkpoint path raises: nothing is downloaded or imported."""
-    if not model_path.startswith("builtin:"):
-        raise ValueError(f"model path {model_path!r}: the port builds the builtin seq2seq "
-                         f"specs (builtin:<family>-<size>, families {sorted(SEQ2SEQ_SPECS)}) "
-                         "from a seed; it imports no checkpoint")
+    size is given), or a local T5 checkpoint directory's ``config.json``
+    → :class:`Seq2SeqConfig` with ``overrides``. A path that is no
+    checkpoint directory raises the loader's ``ValueError``."""
+    path = _checkpoint_dir(model_path)
+    if path is not None:
+        cfg = hf_interop.seq2seq_config_from_hf(hf_interop.read_hf_config(path))
+        return dataclasses.replace(cfg, **overrides) if overrides else cfg
     family, _, size = model_path.split(":", 1)[1].partition("-")
     if family not in SEQ2SEQ_SPECS:
         raise ValueError(f"Unknown seq2seq family '{family}'. Known: {sorted(SEQ2SEQ_SPECS)}")
@@ -253,11 +300,12 @@ def build_seq2seq_lm(
     **overrides,
 ) -> Tuple[nn.Module, Seq2SeqConfig]:
     """:func:`build_causal_lm` for T5: the bare :class:`T5Transformer`, the
-    value-head policy or the ILQL policy, seeded, on ``device``."""
+    value-head policy or the ILQL policy, seeded (and its backbone
+    imported from a checkpoint directory), on ``device``."""
     heads = {None: T5Transformer, "value": Seq2SeqLMWithValueHead,
              "ilql": lambda c: Seq2SeqLMWithILQLHeads(c, two_qs)}
     return _materialise(heads, head, resolve_seq2seq_config(model_path, **overrides), seed,
-                        device)
+                        device, _checkpoint_dir(model_path), hf_interop.load_pretrained_seq2seq)
 
 
 def seq2seq_hydra_ref_params(model: nn.Module, scfg: Seq2SeqConfig,

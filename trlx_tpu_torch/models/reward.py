@@ -13,9 +13,9 @@ Port of ``trlx_tpu/models/reward.py``:
   first differing token to the longer sequence's end) as masks over the
   ``[B, T]`` block; identical pairs add nothing;
 - :func:`reward_loss_fn`: one forward over chosen ‖ rejected, then the loss;
-- :func:`build_reward_model`: a ``builtin:`` spec with seeded weights.
-  A checkpoint path raises: importing one waits for ``models/hf_interop.py``,
-  which the port does not have yet.
+- :func:`build_reward_model`: a ``builtin:`` spec with seeded weights, or
+  a local Hugging Face checkpoint directory whose backbone is imported
+  (``models/hf_interop.py``) under a seeded ``r_head``.
 """
 
 from typing import Any, Dict, Optional, Tuple, Union
@@ -27,10 +27,8 @@ from torch import nn
 from trlx_tpu_torch.models.transformer import (
     CausalTransformer,
     TransformerConfig,
-    config_from_spec,
     seeded_init_,
 )
-from trlx_tpu_torch.ops.kernel_utils import resolve_device
 
 __all__ = ["RewardModel", "end_scores", "pairwise_reward_loss", "reward_loss_fn",
            "build_reward_model"]
@@ -120,17 +118,17 @@ def build_reward_model(model_path: str = "builtin:gpt2-small", seed: int = 0,
                        ) -> Tuple[RewardModel, TransformerConfig]:
     """``(model, config)`` for a ``builtin:`` spec with seeded weights (the
     :func:`~trlx_tpu_torch.models.builder.build_causal_lm` way: constructed
-    on ``meta``, drawn tensor by tensor), in eval mode with gradients on,
-    on ``device`` (default: the GPU)."""
-    if not model_path.startswith("builtin:"):
-        raise ValueError(
-            f"model_path {model_path!r}: a checkpoint import needs models/hf_interop.py, "
-            "which the port does not have yet; use a builtin:<family>-<size> spec"
-        )
-    device = resolve_device(device)
-    cfg = config_from_spec(model_path, **overrides)
-    with torch.device("meta"):
-        model = RewardModel(cfg)
-    model = model.to_empty(device=device)
-    model.reset_parameters(torch.Generator().manual_seed(int(seed)))
-    return model.eval(), cfg
+    on ``meta``, drawn tensor by tensor), or for a local HF checkpoint
+    directory (its backbone imported, ``r_head`` seeded), in eval mode with
+    gradients on, on ``device`` (default: the GPU)."""
+    from trlx_tpu_torch.models import hf_interop
+    from trlx_tpu_torch.models.builder import (
+        _checkpoint_dir,
+        _materialise,
+        resolve_transformer_config,
+    )
+
+    model, cfg = _materialise({None: RewardModel}, None,
+                              resolve_transformer_config(model_path, **overrides), seed, device,
+                              _checkpoint_dir(model_path), hf_interop.load_pretrained)
+    return model.requires_grad_(True), cfg

@@ -95,6 +95,11 @@ class Seq2SeqConfig:
     remat: str = "none"
 
     @property
+    def model_type(self) -> str:
+        """The Hugging Face family (``hf_interop``'s export key)."""
+        return "t5"
+
+    @property
     def block_remat(self) -> str:
         return "full" if self.remat == "full" else "none"
 

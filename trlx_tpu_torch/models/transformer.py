@@ -73,7 +73,7 @@ router statistics as a value, so a recomputed block records nothing twice.
 import dataclasses
 import math
 from functools import partial
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Collection, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -1034,19 +1034,23 @@ class HydraBranch(nn.Module):
 
 
 def seeded_init_(module: nn.Module, generator: Optional[torch.Generator],
-                 stds: Optional[Dict[str, float]] = None) -> None:
+                 stds: Optional[Dict[str, float]] = None,
+                 names: Optional[Collection[str]] = None) -> None:
     """The JAX initialisers over ``module``'s parameters in registration
     order: zero biases, unit norm scales, LoRA's zero ``lora_b`` and He-uniform
     ``lora_a`` (bound √(6 / in)), normal(0.02) for the rest (normal(``stds
     [name]``) for a parameter named there). The draws come
     from the CPU ``generator`` one tensor at a time and are copied to the
     parameter's device, so one seed gives the same weights on every device
-    and a 7B model never exists on the host whole."""
+    and a 7B model never exists on the host whole. ``names`` limits the
+    draws to those parameters (a model whose backbone was imported)."""
     stds = stds or {}
     norm_scales = {f"{name}.weight" for name, m in module.named_modules()
                    if isinstance(m, (LayerNorm, RMSNorm))}
     with torch.no_grad():
         for name, p in module.named_parameters():
+            if names is not None and name not in names:
+                continue
             if name.endswith(("bias", "lora_b")):
                 p.zero_()
             elif name in norm_scales:

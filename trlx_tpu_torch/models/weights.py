@@ -40,6 +40,14 @@ the bias tables' ``rel_bias`` embeddings, the two final norms, an untied
 ``lm_head``), a seq2seq value-head or ILQL policy, and the seq2seq hydra
 reference subtree (``seq2seq_hydra_ref_params``), which maps onto
 :class:`~trlx_tpu_torch.models.seq2seq.Seq2SeqHydraBranch`.
+
+A tree's leaves may also be torch tensors (``models/hf_interop.py`` builds
+JAX's layout from a Hugging Face checkpoint read straight into torch, bf16
+included): they keep their type and device, and are not copied (a
+transposed kernel stays a view); numpy or JAX leaves are copied from the
+host in the config's ``param_dtype``. :func:`params_to_jax` is the inverse, the
+port's ``state_dict`` as a tree of JAX's layout with torch leaves, which
+the HF exporters read.
 """
 
 from typing import Any, Dict
@@ -49,7 +57,23 @@ import torch
 
 from trlx_tpu_torch.models.transformer import TransformerConfig
 
-__all__ = ["params_from_jax", "seq2seq_params_from_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "seq2seq_params_from_jax"]
+
+
+def _leaf(param_dtype):
+    """Leaf → torch tensor: a torch leaf as it is (its type, its device, no
+    copy); a numpy or JAX leaf copied from the host in ``param_dtype``."""
+
+    def t(x):
+        if isinstance(x, torch.Tensor):
+            return x
+        return torch.tensor(np.asarray(x), dtype=param_dtype)
+
+    return t
+
+
+def _transpose(x):
+    return x.t() if isinstance(x, torch.Tensor) else np.asarray(x).T
 
 
 def _unstack(backbone: Dict[str, Any], num_layers: int) -> Dict[str, Any]:
@@ -76,12 +100,10 @@ def _unstack(backbone: Dict[str, Any], num_layers: int) -> Dict[str, Any]:
 
 
 def params_from_jax(np_params: Dict[str, Any], cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
-    """JAX parameter tree (numpy leaves) → the port's ``state_dict``."""
+    """JAX parameter tree (numpy or torch leaves) → the port's ``state_dict``."""
     tree = np_params.get("backbone", np_params)
     tree = _unstack(tree, cfg.num_layers)
-
-    def t(x):
-        return torch.tensor(np.asarray(x), dtype=cfg.param_dtype)
+    t = _leaf(cfg.param_dtype)
 
     sd: Dict[str, torch.Tensor] = {}
     for name in ("wte", "wpe"):
@@ -122,7 +144,7 @@ def _converters(sd: Dict[str, torch.Tensor], t):
     LayerNorm's bias) into ``sd`` under a prefix."""
 
     def dense(prefix, node):
-        sd[f"{prefix}.weight"] = t(np.asarray(node["kernel"]).T)
+        sd[f"{prefix}.weight"] = t(_transpose(node["kernel"]))
         for name in ("bias", "lora_a", "lora_b"):  # adapters keep the JAX layout
             if name in node:
                 sd[f"{prefix}.{name}"] = t(node[name])
@@ -156,13 +178,11 @@ def _with_heads(sd, np_params, t) -> Dict[str, torch.Tensor]:
 
 
 def seq2seq_params_from_jax(np_params: Dict[str, Any], scfg) -> Dict[str, torch.Tensor]:
-    """JAX seq2seq parameter tree (numpy leaves) → the port's ``state_dict``
-    (a bare ``T5Transformer``, a value-head or ILQL policy, or a hydra
-    reference subtree, whose absent entries are skipped)."""
+    """JAX seq2seq parameter tree (numpy or torch leaves) → the port's
+    ``state_dict`` (a bare ``T5Transformer``, a value-head or ILQL policy,
+    or a hydra reference subtree, whose absent entries are skipped)."""
     tree = np_params.get("backbone", np_params)
-
-    def t(x):
-        return torch.tensor(np.asarray(x), dtype=scfg.param_dtype)
+    t = _leaf(scfg.param_dtype)
 
     sd: Dict[str, torch.Tensor] = {}
     dense, norm = _converters(sd, t)
@@ -193,3 +213,48 @@ def seq2seq_params_from_jax(np_params: Dict[str, Any], scfg) -> Dict[str, torch.
                 if proj in layer["mlp"]:
                     dense(f"{p}.mlp.{proj}", layer["mlp"][proj])
     return _with_heads(sd, np_params, t)
+
+
+_EMBEDDINGS = ("wte", "wpe", "rel_bias")
+_NORMS = ("ln_attn", "ln_mlp", "ln_f", "emb_ln", "ln_self", "ln_cross", "enc_ln_f", "dec_ln_f")
+_STACKS = {"blocks": "h", "enc_blocks": "enc", "dec_blocks": "dec"}
+_HEADS = ("v_head", "ilql_heads", "r_head")
+
+
+def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_jax` and
+    :func:`seq2seq_params_from_jax`: the port's ``state_dict`` (a bare
+    backbone, or a policy with its heads) as a tree of JAX's layout whose
+    leaves are the port's tensors (Linear weights transposed to flax's
+    ``[in, out]`` as views; embeddings, norm scales, the MoE experts and
+    LoRA adapters as they are). Layers come as ``h_{i}`` / ``enc_{i}`` /
+    ``dec_{i}`` subtrees, the unscanned layout."""
+    wrapped = any(k.startswith(_HEADS) for k in state_dict)
+    tree: Dict[str, Any] = {}
+    for key, value in state_dict.items():
+        parts = key.split(".")
+        if wrapped and parts[0] == "backbone":
+            parts = parts[1:]
+            node = tree.setdefault("backbone", {})
+        else:
+            node = tree
+        path, i = [], 0
+        while i < len(parts) - 1:
+            if parts[i] in _STACKS:
+                path.append(f"{_STACKS[parts[i]]}_{parts[i + 1]}")
+                i += 2
+            else:
+                path.append(parts[i])
+                i += 1
+        leaf, module = parts[-1], path[-1] if path else ""
+        for name in path:
+            node = node.setdefault(name, {})
+        if module in _EMBEDDINGS:
+            node["embedding"] = value
+        elif module in _NORMS:
+            node["scale" if leaf == "weight" else leaf] = value
+        elif leaf == "weight":
+            node["kernel"] = _transpose(value)
+        else:  # a bias, a LoRA adapter or the MoE experts (``mlp.w_*``)
+            node[leaf] = value
+    return tree

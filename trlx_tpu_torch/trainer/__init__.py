@@ -77,3 +77,7 @@ class BaseRLTrainer:
     @abstractmethod
     def save(self, directory: Optional[str] = None, **kwargs):
         """Checkpoint the training state."""
+
+    def save_pretrained(self, directory: Optional[str] = None, **kwargs):
+        """Export the model's weights in an interoperable (HF) layout."""
+        raise NotImplementedError

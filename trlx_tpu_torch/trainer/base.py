@@ -111,10 +111,10 @@ from trlx_tpu_torch.models.builder import (
     assemble_overrides,
     build_causal_lm,
     build_seq2seq_lm,
+    resolve_transformer_config,
     seq2seq_trainable_mask,
     trainable_mask,
 )
-from trlx_tpu_torch.models.transformer import config_from_spec
 from trlx_tpu_torch.observability import Observability, mfu as obs_mfu, train_step_flops
 from trlx_tpu_torch.observability.tracing import process_count, process_index
 from trlx_tpu_torch.ops.kernel_utils import resolve_device
@@ -155,6 +155,8 @@ from trlx_tpu_torch.utils.checkpoint import (
     load_state,
     newest_committed_checkpoint,
     prune_checkpoints,
+    push_to_hub,
+    save_pretrained,
     save_state,
 )
 from trlx_tpu_torch.utils.trackers import make_tracker
@@ -431,12 +433,13 @@ class TorchBaseTrainer(BaseRLTrainer):
             logger.warning("model.draft_model_path is ignored for seq2seq models: "
                            "speculative decoding is implemented for causal LMs only")
         elif config.model.draft_model_path:
-            # a bare LM, randomly initialised from train.seed + 1
+            # a bare LM, randomly initialised from train.seed + 1 (a
+            # checkpoint directory's backbone imported over it)
             draft_overrides = dict(config.model.draft_model_extra_kwargs or {})
             draft_overrides.setdefault("param_dtype", overrides["param_dtype"])
             draft_overrides.setdefault("dtype", overrides["dtype"])
-            vocab = config_from_spec(config.model.draft_model_path,
-                                     **draft_overrides).vocab_size
+            vocab = resolve_transformer_config(config.model.draft_model_path,
+                                               **draft_overrides).vocab_size
             if vocab != self.tcfg.vocab_size:
                 raise ValueError(
                     f"model.draft_model_path {config.model.draft_model_path!r}: draft "
@@ -1598,6 +1601,24 @@ class TorchBaseTrainer(BaseRLTrainer):
                                "optimizer": self.optimizer.state_dict(),
                                "step": self.step, "extra": extra,
                                "rng": self._rng_state()})
+
+    def save_pretrained(self, directory: Optional[str] = None, **kwargs) -> None:
+        """Export the policy (``utils/checkpoint.py::save_pretrained``): the
+        port's dump and, for an HF family, a ``transformers``-loadable
+        directory with the heads merged; ``<checkpoint_dir>/hf_model`` by
+        default, the tokenizer's files copied when its path is a
+        directory."""
+        save_pretrained(directory or f"{self.config.train.checkpoint_dir}/hf_model",
+                        self.model.state_dict(), self.tcfg,
+                        tokenizer_path=self.config.tokenizer.tokenizer_path)
+
+    def push_to_hub(self, repo_id: str, **kwargs) -> str:
+        """Publish the current policy to the HF Hub: a full
+        :meth:`save_pretrained` export staged locally, then uploaded in one
+        call (``utils/checkpoint.py::push_to_hub``, whose ``uploader=``
+        replaces the network step)."""
+        kwargs.setdefault("tokenizer_path", self.config.tokenizer.tokenizer_path)
+        return push_to_hub(repo_id, self.model.state_dict(), self.tcfg, **kwargs)
 
     def load(self, directory: Optional[str] = None, restore_payload: bool = True,
              **kwargs) -> None:

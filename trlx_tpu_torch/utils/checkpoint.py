@@ -19,14 +19,28 @@ would load.
 (``resilience.keep_last_n``), and the commit polls the fault plan's
 ``crash_save@save:N`` after the staged file is written and before the
 marker, as JAX's commit does.
+
+The interoperable export (JAX's :func:`save_pretrained`,
+:func:`load_pretrained_params` and :func:`push_to_hub`): the port's own
+dump — ``trlx_tpu_torch_model.pt`` (the ``state_dict``, heads included)
+and ``trlx_tpu_torch_config.json`` (the config's fields) — with a
+``transformers``-loadable ``pytorch_model.bin`` + ``config.json`` beside
+it (``models/hf_interop.py::save_pretrained_hf``) for every architecture
+with an HF family; :func:`push_to_hub` stages that export and hands it to
+an upload step in one call.
 """
 
+import dataclasses
+import json
+import logging
 import os
 import shutil
-from typing import Any, Dict, List, Optional, Tuple
+import tempfile
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from trlx_tpu_torch.ops.kernel_utils import resolve_device
 from trlx_tpu_torch.resilience.faults import InjectedFault, poll_fault
 
 __all__ = [
@@ -37,10 +51,17 @@ __all__ = [
     "prune_checkpoints",
     "save_state",
     "load_state",
+    "save_pretrained",
+    "load_pretrained_params",
+    "push_to_hub",
 ]
 
 COMMIT_MARKER = "COMMITTED"
 STATE_FILE = "state.pt"
+PRETRAINED_FILE = "trlx_tpu_torch_model.pt"
+PRETRAINED_CONFIG = "trlx_tpu_torch_config.json"
+
+logger = logging.getLogger(__name__)
 
 
 def is_committed(directory: str) -> bool:
@@ -126,3 +147,90 @@ def load_state(directory: str) -> Dict[str, Any]:
         raise FileNotFoundError(f"{directory} holds no committed checkpoint")
     return torch.load(os.path.join(directory, STATE_FILE), map_location="cpu",
                       weights_only=True)
+
+
+def save_pretrained(directory: str, state_dict: Dict[str, torch.Tensor], config,
+                    tokenizer_path: Optional[str] = None) -> None:
+    """Export weights and architecture: ``trlx_tpu_torch_model.pt`` (the
+    ``state_dict`` on the CPU, dtypes kept), ``trlx_tpu_torch_config.json``
+    (the config's fields, ``framework`` and ``tokenizer_path``) and, for an
+    architecture with an HF family, ``pytorch_model.bin`` + ``config.json``
+    with the heads merged under the reference's prefixes. An architecture
+    without one (:class:`~trlx_tpu_torch.models.hf_interop.UnsupportedHFExport`)
+    keeps the native dump alone; any other conversion error propagates."""
+    from trlx_tpu_torch.models.hf_interop import UnsupportedHFExport, save_pretrained_hf
+
+    os.makedirs(directory, exist_ok=True)
+    torch.save({k: v.detach().cpu() for k, v in state_dict.items()},
+               os.path.join(directory, PRETRAINED_FILE))
+    fields = {k: (str(v) if isinstance(v, torch.dtype) else v)
+              for k, v in dataclasses.asdict(config).items()}
+    fields["framework"] = "trlx_tpu_torch"
+    if tokenizer_path is not None:
+        fields["tokenizer_path"] = tokenizer_path
+    with open(os.path.join(directory, PRETRAINED_CONFIG), "w") as f:
+        json.dump(fields, f, indent=2)
+    try:
+        save_pretrained_hf(directory, state_dict, config, tokenizer_path)
+    except UnsupportedHFExport as e:
+        logger.warning("Skipping the HF-format export (%s); %s was written", e, PRETRAINED_FILE)
+
+
+def load_pretrained_params(directory: str, model: Optional[torch.nn.Module] = None,
+                           device: Union[None, str, torch.device] = None
+                           ) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of a :func:`save_pretrained` directory on
+    ``device`` (None: the card; the CPU only when named), read memory-mapped
+    tensor by tensor, and loaded into ``model`` when one is given."""
+    state_dict = torch.load(os.path.join(directory, PRETRAINED_FILE), map_location="cpu",
+                            weights_only=True, mmap=True)
+    device = resolve_device(device)
+    state_dict = {k: state_dict.pop(k).to(device) for k in list(state_dict)}
+    if model is not None:
+        model.load_state_dict(state_dict)
+    return state_dict
+
+
+def push_to_hub(repo_id: str, state_dict: Dict[str, torch.Tensor], config,
+                tokenizer_path: Optional[str] = None, private: bool = True,
+                commit_message: str = "Upload trlx_tpu_torch model",
+                token: Optional[str] = None, staging_dir: Optional[str] = None,
+                uploader: Optional[Callable[[str, str], Any]] = None) -> str:
+    """Publish a :func:`save_pretrained` export to the Hugging Face Hub
+    (the reference's models inherit ``PushToHubMixin``).
+
+    The payload is staged locally first (``staging_dir``, or a temporary
+    directory removed after a successful upload), then uploaded in one
+    ``upload_folder`` call. ``uploader`` — a callable ``(repo_id,
+    staged_dir) -> url`` — replaces the network step (tests, custom
+    transports); without it ``huggingface_hub`` is needed, and its absence
+    raises before anything is staged. A failed upload keeps the staged
+    export for a manual upload and re-raises. Returns the upload step's
+    URL."""
+    api = None
+    if uploader is None:
+        try:
+            from huggingface_hub import HfApi
+        except ImportError as e:
+            raise RuntimeError(
+                f"push_to_hub needs the huggingface_hub package for the upload step ({e}); "
+                "install it, or pass uploader= to supply your own transport") from e
+        api = HfApi(token=token)
+
+    staged = staging_dir or tempfile.mkdtemp(prefix="trlx_tpu_torch_hub_")
+    cleanup = staging_dir is None
+    try:
+        save_pretrained(staged, state_dict, config, tokenizer_path)
+        if uploader is not None:
+            return str(uploader(repo_id, staged))
+        api.create_repo(repo_id, private=private, exist_ok=True)
+        info = api.upload_folder(repo_id=repo_id, folder_path=staged,
+                                 commit_message=commit_message)
+        return str(getattr(info, "commit_url", info))
+    except Exception:
+        cleanup = False  # keep the files a manual upload needs
+        logger.error("push_to_hub failed after staging; the export is kept at %s", staged)
+        raise
+    finally:
+        if cleanup:
+            shutil.rmtree(staged, ignore_errors=True)
