@@ -223,7 +223,28 @@ Phases, each printing one JSON line:
    ``phase_slice_hf_mistral``); (c) after ``slice_t5_ppo``, its t5-small
    exported and reloaded by ``build_seq2seq_lm``, greedy tokens equal
    (``phase_slice_hf_t5``). Their seconds add up under ``slice_hf``, their
-   launches under the path ``hf``.
+   launches under the path ``hf``;
+18. the rest of the engine, each part on a model an earlier phase built:
+   (a) after ``slice_spec_parity``, speculation with the prefix cache and
+   chunked prefill together on the prefix phases' bf16 GPT-2 small with a
+   six-layer draft (``SPEC_PREFIX``: two tenants' 256-token prompts, two
+   waves, hits of 192 and 240 columns, chunks of 64; #1, #4 and #5
+   launch, decode stalls measured) and its f32 twin against the solo
+   sampler (``slice_spec_prefix``); (b) PPO on ``default_ppo_config()``
+   with ``train.continuous_batching`` at the engine's defaults, the dense
+   backend, inline and with the pipelined host stage, the stores equal,
+   and in f32 the dense, paged-gather and paged-kernel engines against
+   ``generate`` (``slice_engine_dense``); (c) after ``slice_grpo_parity``,
+   ``slice_grpo_cb``'s run for 2 steps under ``engine.speculative`` 4
+   (``slice_grpo_spec``); (d) after ``slice_hf``'s (b), a Llama-family
+   draft (vocabulary 32000, a quarter of the width) for the family
+   parity's f32 Mistral-7B-width model, greedy with the prefix cache on
+   repeated prompts, against ``generate`` (``slice_family_spec``); (e) in
+   ``slice_offline_parity``, ILQL's speculative sampling: greedy against
+   the hooked ``generate`` in f32, and the trainer's own ``generate``
+   with a two-layer draft. Phase 3 checks #1 after a 192-column hit over
+   the speculative key width and #4 over rows sharing their first 12
+   blocks.
 
 Phase 3 and 5 time the plain versions and the library calls only at the
 shapes ``PERF.md`` records (the table's rows and its other shapes); at
@@ -594,18 +615,20 @@ def paged_inputs(rs, B, T, H, KV, D, bs, S, HB, dtype, dev, poison, window=0, q_
     )
 
 
-def verify_inputs(rs, B, T, H, KV, D, bs, S, dtype, dev, poison):
+def verify_inputs(rs, B, T, H, KV, D, bs, S, dtype, dev, poison, P=64, shared_blocks=0):
     """The speculative verify's operands at per-row depths: ``G = T - 1``,
-    ``N = S - P - G`` with ``P = 64``; row ``b`` has committed ``n_b``
-    tokens (random, row 1's probe window ``[c - 1, c + G)`` crossing a
-    block edge), a left-padded prompt, and the slot-causal bias over its
-    committed slots and probe slots, as the model builds it; table entries
-    past the row's allocated blocks stay 0 (the reserved block), and the
-    last ``poison`` rows are done (whole table out of range)."""
+    ``N = S - P - G``; row ``b`` has committed ``n_b`` tokens (random, row
+    1's probe window ``[c - 1, c + G)`` crossing a block edge), a
+    left-padded prompt, and the slot-causal bias over its committed slots
+    and probe slots, as the model builds it; table entries past the row's
+    allocated blocks stay 0 (the reserved block), and the last ``poison``
+    rows are done (whole table out of range). With ``shared_blocks`` every
+    row's first table entries are row 0's blocks (a prefix-cache hit
+    shared by every slot)."""
     from trlx_tpu_torch.models.transformer import attention_bias
     from trlx_tpu_torch.ops.paged_kv import num_table_blocks
 
-    G, P = T - 1, 64
+    G = T - 1
     N = S - P - G
     TB = num_table_blocks(S, bs)
     NB = 1 + B * TB + 3
@@ -622,6 +645,7 @@ def verify_inputs(rs, B, T, H, KV, D, bs, S, dtype, dev, poison):
     for b in range(B):
         alloc = -(-int(c[b] + rs.randint(0, G + 1)) // bs)  # covers the committed columns
         table[b, :alloc] = perm[b, :alloc]
+        table[b, :shared_blocks] = perm[0, :shared_blocks]
     table[B - poison:] = NB
     randn = device_randn(rs, dev)
     f = lambda *shape: randn(*shape).to(dtype)  # noqa: E731
@@ -644,11 +668,12 @@ def attention_bound(inp, B, T, H, KV, D, S, HB, dtype):
 
 
 def check_attention(kind, B, T, H, KV, D, bs, S, HB, dtype, poison, seed,
-                    timed=False, window=0, timing=None, q_start=None):
+                    timed=False, window=0, timing=None, q_start=None, verify_geo=None):
     """One paged attention kernel against its plain version; ``window``
     bounds every query's keys to its last ``window`` slots, ``timing``
     passes :func:`time_ms`'s counts (long shapes), ``q_start`` places the
-    queries at a fixed offset (:func:`paged_inputs`)."""
+    queries at a fixed offset (:func:`paged_inputs`), ``verify_geo`` the
+    verify's prompt width and shared blocks (:func:`verify_inputs`)."""
     from trlx_tpu_torch.ops.paged_attention import (
         _gathered_view,
         paged_attention_decode,
@@ -664,7 +689,7 @@ def check_attention(kind, B, T, H, KV, D, bs, S, HB, dtype, poison, seed,
     dev = torch.device("cuda")
     rs = np.random.RandomState(seed)
     if kind == "paged_verify":
-        inp = verify_inputs(rs, B, T, H, KV, D, bs, S, dtype, dev, poison)
+        inp = verify_inputs(rs, B, T, H, KV, D, bs, S, dtype, dev, poison, **(verify_geo or {}))
     else:
         inp = paged_inputs(rs, B, T, H, KV, D, bs, S, HB, dtype, dev, poison, window, q_start)
     if kind == "paged_decode":
@@ -688,6 +713,7 @@ def check_attention(kind, B, T, H, KV, D, bs, S, HB, dtype, poison, seed,
     rec = {"phase": "kernel_check", "kernel": kind, "dtype": str(dtype).split(".")[-1],
            "B": B, "T": T, "H": H, "KV": KV, "D": D, "bs": bs, "S": S, "TB": inp["TB"],
            "HB": HB, "window": window, "q_start": q_start, "poisoned_ids": poison,
+           **({"verify_geo": verify_geo} if verify_geo else {}),
            "max_abs_err": err, "tol": tol}
     if not math.isfinite(err) or err > tol:
         emit({**rec, "ok": False})
@@ -845,6 +871,26 @@ def phase_kernels():
                                   timed=bf, q_start=q_start)
             if bf:
                 timed[f"paged_prefill_{name}"] = rec
+    # slice_spec_prefix's spans (SPEC_PREFIX: P = 256, 40 new tokens, G = 4,
+    # so S = 300): #1 on the suffix after a 192-column hit over the
+    # speculative key width, and #4 over probes whose rows share their first
+    # 12 blocks (the tenant's system prompt); errors in both types, one
+    # device time each in bf16
+    spec_S = SPEC_PREFIX["prompt_len"] + SPEC_PREFIX["max_new"] + SPEC_GAMMA
+    for dtype in (torch.bfloat16, torch.float32):
+        bf = dtype == torch.bfloat16
+        rec = check_attention("paged_prefill", B=8, T=64, H=12, KV=12, D=64, bs=16, S=spec_S,
+                              HB=1, dtype=dtype, poison=True, seed=130, q_start=192,
+                              timed=bf and KERNEL_ONLY)
+        if bf:
+            timed["paged_prefill_spec_suffix_after_192"] = rec
+        rec = check_attention("paged_verify", B=8, T=SPEC_GAMMA + 1, H=12, KV=12, D=64, bs=16,
+                              S=spec_S, HB=1, dtype=dtype, poison=2, seed=131,
+                              timed=bf and KERNEL_ONLY,
+                              verify_geo={"P": SPEC_PREFIX["prompt_len"],
+                                          "shared_blocks": SPEC_PREFIX["system_len"] // 16})
+        if bf:
+            timed["paged_verify_shared_prefix"] = rec
     # every attention kernel at head dims off the tensor-core templates
     # (padded inside the loads), at 256 (CUDA cores for the span kernel,
     # decode's padded 256) and above (split over the head dim), GQA, in
@@ -1258,6 +1304,7 @@ class ServedSlice:
         largest teacher-forced logit error against f32 on the f32 plain
         responses (the rounding that sets those gaps); it sets no limit."""
         model32, cfg32 = self.build(dtype=torch.float32)
+        self.model32, self.cfg32 = model32, cfg32  # slice_family_spec reuses them
         gi = self.greedy_idx
         gp, gm = self.prompts[gi], self.masks[gi]
         plain_resp = self.plain_greedy(model32)
@@ -1936,14 +1983,15 @@ def phase_family_parity(device="cuda", spec=FAMILY_SPEC, layers=FAMILY_PARITY_LA
     greedy ones served in bf16, then the f32 parity of
     :meth:`ServedSlice.parity` with (b) held to ``FAMILY_BF16_GAP_TOL``.
     With ``keep``, returns the served model and its config too
-    (``slice_hf``'s (b) writes it as a checkpoint)."""
+    (``slice_hf``'s (b) writes it as a checkpoint), and the parity's f32
+    model and config (``slice_family_spec`` speculates on it)."""
     sl = ServedSlice(spec, device, **{**FAMILY_SERVE, **kw}, num_layers=layers)
     model, cfg = sl.build()
     results, _, _ = serve_over_http(sl.engine(model, cfg), [sl.bodies[i] for i in sl.greedy_idx],
                                     sl.max_new, sl.vocab, sl.sync)
     rec = sl.parity(results, "slice_family_parity", gap_tol=FAMILY_BF16_GAP_TOL, model16=model)
     zero_launch_counts()
-    return (rec, model, cfg) if keep else rec
+    return (rec, model, cfg, sl.model32, sl.cfg32) if keep else rec
 
 
 # ---------------------------------------------------------------------------
@@ -2725,14 +2773,16 @@ def spec_engine(target, draft, draft_cfg, cfg, gen, slots, prompt_len, dev):
 
 def phase_slice_spec_parity(device="cuda", spec="builtin:gpt2-small",
                             draft_layers=DRAFT_LAYERS, slots=8, prompt_len=64, max_new=40,
-                            n_prompts=16, card=""):
+                            n_prompts=16, card="", keep=False):
     """f32, TF32 off, greedy. (a) The speculative engine (six-layer draft)
     answers ``n_prompts`` prompts; each answer equals the plain ``generate``
     of the target token for token (a divergence is tolerated only at a
     near tie of the plain path's top-2 logits, as in ``slice_parity``):
     greedy speculation is exact for any draft. (b) With the target's own
     weights as the draft, acceptance is exactly 1.0 and every round
-    commits ``G + 1`` tokens (``max_new`` a multiple of ``G + 1``, no eos)."""
+    commits ``G + 1`` tokens (``max_new`` a multiple of ``G + 1``, no eos).
+    With ``keep``, returns the f32 target and draft with their configs
+    too (``slice_spec_prefix`` and ``slice_engine_dense`` reuse them)."""
     from trlx_tpu_torch.models.builder import build_causal_lm
     from trlx_tpu_torch.ops.sampling import GenerationConfig, generate
 
@@ -2799,7 +2849,406 @@ def phase_slice_spec_parity(device="cuda", spec="builtin:gpt2-small",
     if problems:
         raise AssertionError(f"slice_spec_parity: {problems}")
     zero_launch_counts()
-    return rec
+    return (rec, {"target": target, "cfg": cfg, "draft": draft, "draft_cfg": draft_cfg}
+            ) if keep else rec
+
+
+# ---------------------------------------------------------------------------
+# the rest of the engine: speculation with the prefix cache and chunked
+# prefill, the dense backend and the gather paths, a draft of another family
+# ---------------------------------------------------------------------------
+
+# slice_spec_prefix: PREFIX_SERVE's geometry (8 slots, two tenants' 256-token
+# prompts sharing 192-token system prompts, 40 new tokens, blocks of 16,
+# chunks of 64) under speculation with slice_spec's draft; 16 requests in
+# two waves: 4 fresh ones (2 a tenant), given 4 engine steps (their 4
+# prefill spans, the last one's step decoding 4 rounds: at most 20 of the
+# 40 tokens), then 8 fresh and 4 exact repeats of the
+# first wave, which find its chains committed (hits of 192 and 240
+# columns) and whose prefills stall the rows already decoding
+SPEC_PREFIX = dict(slots=8, prompt_len=256, system_len=192, block_size=16, max_new=40,
+                   prefill_chunk=64, segment_len=4, fresh=12, repeats=4, first_wave=4,
+                   first_steps=4)
+SPEC_PREFIX_KERNELS = ("paged_prefill", "paged_verify", "flash_fwd")
+# the PPO collection of slice_engine_dense: the preset's one collection and
+# its 16 updates (128 rollouts, batch 32, 4 epochs), the fused loss
+ENGINE_DENSE_STEPS = 16
+ENGINE_DENSE_KERNELS = TRAIN_KERNELS
+# slice_family_spec: the draft a model.draft_model_extra_kwargs of
+# builtin:llama-7b makes: Llama's family and vocabulary (32000), a quarter of
+# Mistral-7B's width, one layer; 4 prompts of 512 tokens and their repeats
+FAMILY_DRAFT_SPEC = "builtin:llama-7b"
+FAMILY_DRAFT_KWARGS = dict(num_layers=1, hidden_size=1024, num_heads=8, num_kv_heads=8,
+                           intermediate_size=2816)
+FAMILY_SPEC_GEO = dict(slots=4, prompt_len=512, max_new=32, n_prompts=4, block_size=16,
+                       segment_len=4)
+FAMILY_SPEC_KERNELS = ("paged_prefill", "paged_verify")
+# GRPO's harvest under speculation: slice_grpo_cb's run for 2 steps
+GRPO_SPEC_STEPS = 2
+GRPO_SPEC_KERNELS = ("paged_prefill", "paged_verify", "flash_fwd", "flash_bwd")
+
+
+def spec_prefix_requests(vocab, geo=SPEC_PREFIX, seed=2718):
+    """``(ids [R, P], tenants)``: ``geo["fresh"]`` prompts of two tenants'
+    system prompts plus their own tokens (A and B alternating), then
+    ``geo["repeats"]`` exact repeats of the first ones."""
+    rs = np.random.RandomState(seed)
+    P, L = geo["prompt_len"], geo["system_len"]
+    system = {t: rs.randint(0, vocab - 1, L) for t in ("A", "B")}
+    tenants = ["A" if i % 2 == 0 else "B" for i in range(geo["fresh"])]
+    ids = [np.concatenate([system[t], rs.randint(0, vocab - 1, P - L)]) for t in tenants]
+    ids += ids[: geo["repeats"]]
+    tenants += tenants[: geo["repeats"]]
+    return np.stack(ids).astype(np.int64), tenants
+
+
+def spec_prefix_engine(target, draft, draft_cfg, cfg, dev, geo, gen):
+    """The speculative engine over the prefix cache and chunked prefill
+    (the in-place kernels; ``SPEC_GAMMA`` draft tokens a round)."""
+    from trlx_tpu_torch.engine.core import ContinuousEngine
+    from trlx_tpu_torch.ops.paged_kv import PagedSpec, num_table_blocks
+    from trlx_tpu_torch.ops.slot_refill import make_slot_refill_fns
+
+    P, bs = geo["prompt_len"], geo["block_size"]
+    S = P + gen.max_new_tokens + SPEC_GAMMA
+    paged = PagedSpec(bs, 1 + 2 * geo["slots"] * num_table_blocks(S, bs) + 8)
+    fns = make_slot_refill_fns(cfg, geo["slots"], P, gen, segment_len=geo["segment_len"],
+                               paged=paged, speculative=SPEC_GAMMA, draft_cfg=draft_cfg,
+                               device=dev)
+    return ContinuousEngine(fns, (target, draft), gen.pad_token_id, prefix_cache=True,
+                            prefill_chunk=geo.get("prefill_chunk", 0))
+
+
+def run_tenants(engine, ids, tenants, seeds, first_wave=None, first_steps=0):
+    """Queue each row under its tenant and drain; with ``first_wave``, only
+    that many rows first, ``first_steps`` engine steps, then the rest. The
+    harvest by row."""
+    base, done = engine._submitted, []
+    first_wave = len(ids) if first_wave is None else first_wave
+    for lo, hi in ((0, first_wave), (first_wave, len(ids))):
+        for i in range(lo, hi):
+            engine.enqueue_prompts(ids[i:i + 1], np.ones_like(ids[i:i + 1]), seeds[i:i + 1],
+                                   tenant=tenants[i])
+        if lo == 0:
+            for _ in range(first_steps):
+                done.extend(engine.step())
+    done.extend(engine.run())
+    return {c.index - base: c for c in done}
+
+
+def phase_slice_spec_prefix(model16, f32, device="cuda", spec="builtin:gpt2-small",
+                            draft_layers=DRAFT_LAYERS, geo=SPEC_PREFIX, card=""):
+    """Speculation with the prefix cache and chunked prefill together. The
+    bf16 run (``model16``: the prefix phases' GPT-2 small, seed 0; a
+    ``draft_layers``-layer draft, seed 1): :func:`spec_prefix_requests`'s
+    16 requests in two waves, sampled (top-k 50, top-p 0.95), no eos, the counters set
+    to 0 once the engine is built and read after it drained. Prints the
+    prefix hit rate, acceptance, tokens per round, decode ms a round and
+    the decode stalls; fails unless prefix hits and chunk calls happened,
+    every row got its 40 tokens, the second wave stalled decoding rows,
+    and #1 (hits, chunks), #4 (verify) and #5
+    (the draft's dense prefill) launched. Then in f32 with TF32 off
+    (``f32``: ``slice_spec_parity``'s target and draft), greedy, every row
+    against the solo ``generate_speculative`` (all rows in one call):
+    tokens equal, a divergence tolerated only at a near tie of the plain
+    path's top-2 logits."""
+    from trlx_tpu_torch.models.builder import build_causal_lm
+    from trlx_tpu_torch.ops.sampling import GenerationConfig
+    from trlx_tpu_torch.ops.speculative import generate_speculative
+
+    dev = torch.device(device)
+    draft16, draft_cfg = build_causal_lm(spec, seed=1, device=dev, num_layers=draft_layers,
+                                         dtype=model16.config.dtype)
+    cfg = model16.config
+    V = cfg.vocab_size
+    ids, tenants = spec_prefix_requests(V, geo)
+    seeds = np.arange(len(ids), dtype=np.int64)
+    gen = GenerationConfig(max_new_tokens=geo["max_new"], temperature=1.0, top_k=50,
+                           top_p=0.95, do_sample=True, eos_token_id=None, pad_token_id=V - 1)
+    engine = spec_prefix_engine(model16, draft16, draft_cfg, cfg, dev, geo, gen)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    zero_launch_counts()
+    engine.begin_collection()
+    t0 = time.perf_counter()
+    # -- the main path ---------------------------------------------------
+    got = run_tenants(engine, ids, tenants, seeds, geo.get("first_wave"),
+                      geo.get("first_steps", 0))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    # ---------------------------------------------------------------------
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    st, m = engine.stats, engine.stats.metrics()
+    rec = {"phase": "slice_spec_prefix", "model": spec, "draft_layers": draft_layers,
+           "dtype": str(cfg.dtype).split(".")[-1], "speculative": SPEC_GAMMA, "geometry": geo,
+           "requests": len(ids), "wall_s": wall,
+           "prefix_hit_rate": m["engine/prefix_hit_rate"],
+           "prefix_tokens_saved": st.prefix_tokens_saved,
+           "prefill_chunk_calls": st.prefill_chunk_calls,
+           "spec_acceptance_rate": st.spec_acceptance_rate,
+           "spec_tokens_per_round": st.spec_tokens_per_round, "spec_rounds": st.spec_rounds,
+           "decode_round_ms_mean": 1e3 * st.decode_s / max(st.decode_steps, 1),
+           # a round's time over the tokens it commits a live row: the
+           # counterpart of a plain engine's decode step
+           "decode_ms_per_token_step": 1e3 * st.decode_s / max(st.decode_steps, 1)
+           / max(st.spec_tokens_per_round, 1.0),
+           "decode_stall_s": {q: m[f"rollout/decode_stall_{q}"] for q in ("p50", "p95", "max")},
+           "decode_stall_samples": len(st.decode_stall_samples),
+           "launches": launches, "card": card}
+    problems = []
+    if sorted(got) != list(range(len(ids))) or any(int(c.mask.sum()) != geo["max_new"]
+                                                    for c in got.values()):
+        problems.append("a request did not get its tokens")
+    if st.prefix_hit_blocks <= 0 or st.prefill_chunk_calls <= 0 or not st.decode_stall_samples:
+        problems.append(f"hits {st.prefix_hit_blocks}, chunk calls {st.prefill_chunk_calls}, "
+                        f"stalls {len(st.decode_stall_samples)}")
+    if not 0.0 <= st.spec_acceptance_rate <= 1.0:
+        problems.append(f"acceptance {st.spec_acceptance_rate}")
+    if dev.type == "cuda" and min(launches[k] for k in SPEC_PREFIX_KERNELS) <= 0:
+        problems.append(f"a kernel of the path never launched: {launches}")
+    if any(launches[k] for k in ("paged_decode", "fused_sample")):
+        problems.append(f"a kernel off the speculative path launched: {launches}")
+    del engine
+
+    # the f32 twin: greedy, every row against its solo sampler
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    greedy = dataclasses.replace(gen, do_sample=False)
+    engine = spec_prefix_engine(f32["target"], f32["draft"], f32["draft_cfg"], f32["cfg"], dev,
+                                geo, greedy)
+    got32 = run_tenants(engine, ids, tenants, seeds, geo.get("first_wave"),
+                        geo.get("first_steps", 0))
+    ones = np.ones_like(ids)
+    # the solo sampler over all rows in one call: a row's rounds read its
+    # own caches only, so each row is its solo run (up to the GEMMs'
+    # rounding by row count, which the near-tie rule covers)
+    solo = generate_speculative(f32["target"], f32["draft"], torch.tensor(ids),
+                                torch.tensor(ones), torch.tensor(seeds), greedy,
+                                gamma=SPEC_GAMMA)
+    want = list(solo.response_tokens.cpu().numpy())
+    ties = greedy_divergences(f32["target"], ids, ones, [got32[i].tokens for i in range(len(ids))],
+                              want)
+    rec["f32"] = {"rows_equal_to_solo": len(ids) - len(ties), "near_ties": ties,
+                  "tie_gap_tol": F32_TIE_GAP, "prefix_hit_rate": engine.stats.prefix_hit_rate,
+                  "spec_acceptance_rate": engine.stats.spec_acceptance_rate}
+    problems += [f"f32 row {t['row']} diverges at {t['position']}" for t in ties
+                 if t["top2_gap"] >= F32_TIE_GAP]
+    emit({**rec, "ok": not problems})
+    if problems:
+        raise AssertionError(f"slice_spec_prefix: {problems}")
+    zero_launch_counts()
+    return {k: launches[k] for k in REPLACES}
+
+
+def dense_engine_answers(model, cfg, prompts, gen, dev, backend, slots=8, bs=16):
+    """Greedy answers of ``prompts`` on one continuous path: ``backend``
+    ``dense``, ``paged-xla`` (the gather paths) or ``paged-pallas`` (the
+    in-place kernels)."""
+    from trlx_tpu_torch.engine.core import ContinuousEngine
+    from trlx_tpu_torch.ops.paged_kv import PagedSpec, num_table_blocks
+    from trlx_tpu_torch.ops.slot_refill import make_slot_refill_fns
+
+    P = prompts.shape[1]
+    kw = {}
+    if backend != "dense":
+        kernel = backend.split("-")[1]
+        kw = dict(paged=PagedSpec(bs, 1 + slots * num_table_blocks(P + gen.max_new_tokens, bs)),
+                  decode_kernel=kernel, prefill_kernel=kernel)
+    fns = make_slot_refill_fns(cfg, slots, P, gen, segment_len=8, device=dev, **kw)
+    engine = ContinuousEngine(fns, model, gen.pad_token_id)
+    engine.enqueue_prompts(prompts, np.ones_like(prompts), np.arange(len(prompts)))
+    got = {c.index: c for c in engine.run()}
+    return [got[i].tokens[got[i].mask == 1] for i in range(len(prompts))]
+
+
+def phase_slice_engine_dense(f32, device="cuda", spec="builtin:gpt2-small", card="",
+                             n_prompts=128, total_steps=ENGINE_DENSE_STEPS,
+                             sections=None, parity_prompts=16, parity_len=64, parity_new=40):
+    """PPO on the continuous path at the engine's default settings (the
+    dense backend, JAX's default): ``default_ppo_config()`` with
+    ``train.continuous_batching`` and the fused loss, one collection of 128
+    rollouts on 128 slots and its ``total_steps`` updates, once with the
+    host stage inline (depth 0) and once on the ``RolloutPipeline`` (the
+    preset's depth 2). Each run's counters are set to 0 just before and
+    read just after: #5 (the refills' and scoring's prefills) and #6–#8
+    must launch, the paged kernels must not; the two runs' stores must be
+    equal element for element. Then in f32 with TF32 off (``f32``:
+    ``slice_spec_parity``'s target), ``parity_prompts`` greedy prompts on
+    the dense backend, the paged gather paths and the paged kernels: each
+    equal to the plain ``generate`` token for token (a divergence only at
+    a near tie). Returns the launches of the depth-0 run."""
+    import shutil
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.ops.sampling import GenerationConfig, generate
+    from trlx_tpu_torch.profile_train import reward_fn, slice_prompts
+
+    dev = torch.device(device)
+    prompts = slice_prompts(n_prompts)
+    runs, problems = {}, []
+    for depth in (0, 2):
+        ckpt = _scratch_dir(f"slice_engine_dense_{depth}")
+        config = serial_config(ckpt, spec, total_steps, 10 ** 6,
+                               train=dict(continuous_batching=True,
+                                          rollout_pipeline_depth=depth),
+                               method=dict(loss_kernel="pallas"))
+        if sections:
+            config = config.evolve(**sections)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            # -- the main path -------------------------------------------
+            trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=prompts, config=config,
+                                           device=dev)
+            # -----------------------------------------------------------
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        hist = trainer.tracker.history
+        steps = [st for _, st in hist if "gradients/global_norm" in st]
+        collections = [st for _, st in hist if "time/exp" in st]
+        fns = [v for k, v in trainer._generate_fns.items() if k[0] == "slot_refill"]
+        runs[depth] = {
+            "depth": depth, "wall_s": wall, "optimizer_steps": len(steps),
+            "backend": "dense" if fns and all(f.paged is None for f in fns) else "paged",
+            "train_step_ms_median": statistics.median(1e3 * st["time/step"] for st in steps),
+            "time_exp_s": [c["time/exp"] for c in collections],
+            "rollout_tokens_per_s": [c.get("throughput/rollout_tokens_per_sec")
+                                     for c in collections],
+            "rollout_overlap_frac": [c["throughput/rollout_overlap_frac"] for c in collections],
+            "decode_segment_ms": [1e3 * c["time/generate"] / max(c["rollout/segments"], 1)
+                                  for c in collections],
+            "kv_cache_bytes": [c["memory/kv_cache_bytes"] for c in collections],
+            "launches": launches,
+            "store": [(e.query_tensor, e.response_tensor, e.logprobs, e.values, e.rewards)
+                      for e in trainer.store.history]}
+        if len(steps) != total_steps or not collections:
+            problems.append(f"depth {depth}: {len(steps)} steps, {len(collections)} collections")
+        if runs[depth]["backend"] != "dense":
+            problems.append(f"depth {depth}: the continuous engine was not the dense backend")
+        if dev.type == "cuda" and min(launches[k] for k in ENGINE_DENSE_KERNELS) <= 0:
+            problems.append(f"depth {depth}: a kernel of the path never launched: {launches}")
+        if any(launches[k] for k in SERVE_KERNELS + ("paged_verify",)):
+            problems.append(f"depth {depth}: a paged kernel launched: {launches}")
+        trainer._close_prompt_iterator()
+        del trainer
+    a, b = runs[0].pop("store"), runs[2].pop("store")
+    unequal = [i for i, (x, y) in enumerate(zip(a, b))
+               if not all(np.array_equal(np.asarray(u), np.asarray(w)) for u, w in zip(x, y))]
+    if len(a) != len(b) or unequal:
+        problems.append(f"stores at depth 0 and 2 differ: {len(a)} / {len(b)} rows, "
+                        f"rows {unequal[:4]}")
+
+    # f32: the three continuous paths against the plain generate
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    model, cfg = f32["target"], f32["cfg"]
+    V = cfg.vocab_size
+    gen = GenerationConfig(max_new_tokens=parity_new, do_sample=False, eos_token_id=V - 1,
+                           pad_token_id=V - 1)
+    ids = np.random.RandomState(6060).randint(0, V - 1, size=(parity_prompts, parity_len))
+    ones = np.ones_like(ids)
+    plain = generate(model, torch.tensor(ids), torch.tensor(ones), torch.arange(parity_prompts),
+                     gen)
+    want = [plain.response_tokens[i][plain.response_mask[i] == 1].cpu().numpy()
+            for i in range(parity_prompts)]
+    parity = {}
+    for backend in ("dense", "paged-xla", "paged-pallas"):
+        ties = greedy_divergences(model, ids, ones,
+                                  dense_engine_answers(model, cfg, ids, gen, dev, backend), want)
+        parity[backend] = {"rows_equal_to_plain": parity_prompts - len(ties), "near_ties": ties}
+        problems += [f"f32 {backend} row {t['row']} diverges at {t['position']}" for t in ties
+                     if t["top2_gap"] >= F32_TIE_GAP]
+    rec = {"phase": "slice_engine_dense", "model": spec, "steps": total_steps, "runs": runs,
+           "stores_equal": not unequal and len(a) == len(b), "store_rows": len(a),
+           "f32_paths": parity, "tie_gap_tol": F32_TIE_GAP, "card": card}
+    emit({**rec, "ok": not problems})
+    if problems:
+        raise AssertionError(f"slice_engine_dense: {problems}")
+    zero_launch_counts()
+    return runs[0]["launches"]
+
+
+def phase_slice_family_spec(model32, cfg32, device="cuda", card="", geo=FAMILY_SPEC_GEO,
+                            spec=FAMILY_SPEC, draft_spec=FAMILY_DRAFT_SPEC, draft_kwargs=None):
+    """A draft of another family on the speculative engine: ``model32``
+    (``slice_family_parity``'s f32 Mistral-7B-width model at one layer) as
+    the target, a Llama-family draft of vocabulary 32000 and a quarter of
+    its width (``FAMILY_DRAFT_KWARGS``, what ``model.draft_model_extra_kwargs``
+    gives the trainer's draft), TF32 off, greedy, the prefix cache on: 4
+    prompts of 512 tokens, then their exact repeats (a hit of 496 columns,
+    the suffix of 16 prefilled at the hit). Every answer must equal the
+    plain greedy ``generate`` token for token (a divergence only at a near
+    tie), the repeats must hit, and #1 and #4 must launch (counters set to
+    0 once the engine is built)."""
+    from trlx_tpu_torch.models.builder import build_causal_lm
+    from trlx_tpu_torch.ops.sampling import GenerationConfig, generate
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    draft, draft_cfg = build_causal_lm(draft_spec, seed=11, device=dev, dtype=torch.float32,
+                                       **(FAMILY_DRAFT_KWARGS if draft_kwargs is None
+                                          else draft_kwargs))
+    build_s = time.perf_counter() - t0
+    V = cfg32.vocab_size
+    if draft_cfg.vocab_size != V:
+        raise AssertionError(f"draft vocabulary {draft_cfg.vocab_size} != {V}")
+    n, P = geo["n_prompts"], geo["prompt_len"]
+    base = np.random.RandomState(8080).randint(3, V, size=(n, P))
+    ids = np.concatenate([base, base])
+    ones = np.ones_like(ids)
+    gen = GenerationConfig(max_new_tokens=geo["max_new"], do_sample=False, eos_token_id=2,
+                           pad_token_id=2)
+    engine = spec_prefix_engine(model32, draft, draft_cfg, cfg32, dev, geo, gen)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    zero_launch_counts()
+    engine.begin_collection()
+    t0 = time.perf_counter()
+    # -- the main path -----------------------------------------------------
+    engine.enqueue_prompts(ids, ones, np.arange(len(ids)))
+    done = {c.index: c for c in engine.run()}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    # -----------------------------------------------------------------------
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    got = [done[i].tokens[done[i].mask == 1] for i in range(len(ids))]
+    plain = generate(model32, torch.tensor(base), torch.tensor(ones[:n]), torch.arange(n), gen)
+    want = [plain.response_tokens[i][plain.response_mask[i] == 1].cpu().numpy()
+            for i in range(n)] * 2
+    ties = greedy_divergences(model32, ids, ones, got, want)
+    st = engine.stats
+    rec = {"phase": "slice_family_spec", "target": spec, "target_layers":
+           cfg32.num_layers, "draft": draft_spec, "draft_kwargs": draft_kwargs or
+           FAMILY_DRAFT_KWARGS, "draft_build_s": build_s, "dtype": "float32", "tf32": False,
+           "geometry": geo, "wall_s": wall, "rows_equal_to_plain": len(ids) - len(ties),
+           "near_ties": ties, "tie_gap_tol": F32_TIE_GAP,
+           "prefix_hit_rate": st.prefix_hit_rate, "prefix_tokens_saved": st.prefix_tokens_saved,
+           "spec_acceptance_rate": st.spec_acceptance_rate,
+           "spec_tokens_per_round": st.spec_tokens_per_round,
+           "decode_round_ms_mean": 1e3 * st.decode_s / max(st.decode_steps, 1),
+           "launches": launches, "card": card}
+    problems = [f"row {t['row']} diverges at {t['position']}" for t in ties
+                if t["top2_gap"] >= F32_TIE_GAP]
+    if st.prefix_hit_blocks <= 0:
+        problems.append("the repeated prompts did not hit")
+    if dev.type == "cuda" and min(launches[k] for k in FAMILY_SPEC_KERNELS) <= 0:
+        problems.append(f"a kernel of the path never launched: {launches}")
+    emit({**rec, "ok": not problems})
+    if problems:
+        raise AssertionError(f"slice_family_spec: {problems}")
+    zero_launch_counts()
+    return {k: launches[k] for k in REPLACES}
 
 
 # ---------------------------------------------------------------------------
@@ -3540,11 +3989,91 @@ def phase_slice_offline_parity(sft, ilql, card="cuda", sft_rows=2, ilql_rows=16,
                           "top_k": 20, "tokens_answered": answered,
                           "rows_equal_to_plain": rows_equal, "near_ties": ties,
                           "tie_gap_tol": F32_TIE_GAP, "launches": engine_launches}
+    del engine
+    rec["ilql_spec"], spec_problems = ilql_speculative(ilql, models, prompts, pmask, gen, hook,
+                                                       plain_tok, plain_mask, card)
+    problems += spec_problems
     emit({**rec, "ok": not problems})
     if problems:
         raise AssertionError(f"slice_offline_parity: {problems}")
     zero_launch_counts()
     return rec
+
+
+ILQL_DRAFT_LAYERS = 2
+
+
+def ilql_speculative(ilql, models, prompts, pmask, gen, hook, plain_tok, plain_mask, card):
+    """ILQL's speculative sampling (JAX ``generate``'s draft path): a
+    ``ILQL_DRAFT_LAYERS``-layer draft of the policy's spec. (1) f32 on the
+    card, greedy: ``generate_speculative`` with ILQL's hook on the
+    verify distributions answers as the CPU's plain hooked ``generate``
+    (``plain_tok``), a divergence only at a near tie of the shaped logits;
+    (2) the trainer's own ``generate`` with the draft in its place (bf16,
+    its eval settings): it samples through the serial speculative sampler
+    (the acceptance gauge appears) and #5 launches there (the target's and
+    the draft's dense prefills). Returns (record, problems)."""
+    from trlx_tpu_torch.models.builder import build_causal_lm
+    from trlx_tpu_torch.ops.speculative import generate_speculative
+
+    dev = torch.device(card)
+    spec = ilql.config.model.model_path
+    draft32, _ = build_causal_lm(spec, seed=17, device=dev, dtype=torch.float32,
+                                 num_layers=ILQL_DRAFT_LAYERS)
+    gamma = int(ilql.config.model.draft_gamma)
+    out, stats = generate_speculative(models["card"], draft32, torch.tensor(prompts),
+                                      torch.tensor(pmask), torch.arange(len(prompts)), gen,
+                                      gamma=gamma, return_stats=True, adjust_logits=hook)
+    tok, mask = out.response_tokens.cpu().numpy(), out.response_mask.cpu().numpy()
+    ties, problems = [], []
+    for i in range(len(prompts)):
+        a, b = tok[i][mask[i] == 1], plain_tok[i][plain_mask[i] == 1]
+        if np.array_equal(a, b):
+            continue
+        n = min(len(a), len(b))
+        diff = np.nonzero(a[:n] != b[:n])[0]
+        pos = min(int(diff[0]) if len(diff) else n, len(b) - 1)
+        gaps = ilql_greedy_gaps(models["cpu"], hook, prompts[i][pmask[i] == 1], b[: pos + 1])
+        ties.append({"prompt": i, "position": pos, "top2_gap": gaps[pos]})
+    problems += [f"speculative greedy prompt {t['prompt']} diverges at {t['position']}"
+                 for t in ties if t["top2_gap"] >= F32_TIE_GAP]
+    del draft32
+    # (2) the trainer's entry point, sampling as its evaluation does
+    draft16, draft_cfg = build_causal_lm(spec, seed=17, device=dev, dtype=ilql.tcfg.dtype,
+                                         num_layers=ILQL_DRAFT_LAYERS)
+    ilql.draft_model, ilql.draft_tcfg = draft16, draft_cfg
+    ilql._generate_fns.clear()
+    try:
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        answers = ilql.generate(prompts, pmask, eval_mode=True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        gstats = dict(ilql.last_generate_stats)
+    finally:
+        ilql.draft_model, ilql.draft_tcfg = None, None
+        ilql._generate_fns.clear()
+    if "rollout/spec_acceptance_rate" not in gstats:
+        problems.append(f"the trainer's generate did not speculate: {gstats}")
+    if dev.type == "cuda" and launches["flash_fwd"] <= 0:
+        problems.append(f"#5 never launched in the speculative sampler: {launches}")
+    if any(launches[k] for k in SERVE_KERNELS + ("paged_verify",)):
+        problems.append(f"a paged kernel launched in the serial sampler: {launches}")
+    rec = {"draft_layers": ILQL_DRAFT_LAYERS, "gamma": gamma,
+           "greedy_f32": {"rows_equal_to_plain": len(prompts) - len(ties), "near_ties": ties,
+                          "acceptance": stats["acceptance_rate"],
+                          "tokens_per_round": stats["tokens_per_round"]},
+           "trainer_generate": {"wall_s": wall, "gen_kwargs": dict(ilql.generate_kwargs),
+                                "tokens": int(answers["response_mask"].sum()),
+                                "spec_acceptance_rate": gstats.get(
+                                    "rollout/spec_acceptance_rate"),
+                                "spec_rounds": gstats.get("rollout/spec_rounds"),
+                                "launches": launches}}
+    return rec, problems
 
 
 # the acceptance runs' settings: benchmarks/randomwalks/PPO_CURVE.json's
@@ -3692,7 +4221,8 @@ def grpo_config(ckpt, spec="builtin:gpt2-small", total_steps=GRPO_STEPS,
 
 def phase_slice_grpo(device="cuda", spec="builtin:gpt2-small", continuous=False, card="",
                      n_prompts=GRPO_PROMPTS, total_steps=GRPO_STEPS,
-                     checkpoint_interval=GRPO_CHECKPOINT, sections=None, keep=False):
+                     checkpoint_interval=GRPO_CHECKPOINT, sections=None, keep=False,
+                     speculative=0, draft_layers=DRAFT_LAYERS):
     """GRPO through ``trlx_tpu_torch.train`` on ``default_grpo_config()``:
     GPT-2 small, ``num_layers_unfrozen`` 2, 128 rollouts in one chunk (16
     prompts × groups of 8), batch 32, 2 epochs, 40 sampled tokens, ``beta``
@@ -3702,17 +4232,26 @@ def phase_slice_grpo(device="cuda", spec="builtin:gpt2-small", continuous=False,
     before and read just after: the serial run must launch #5/#6 and
     nothing else, the continuous one #1-#3 and #5/#6. With ``keep`` the
     checkpoints stay and the run's weights come back for the resume check
-    of :func:`phase_slice_grpo_parity`. Returns (launches, run)."""
+    of :func:`phase_slice_grpo_parity`. ``speculative`` k runs the harvest
+    under ``engine.speculative`` k with a ``draft_layers``-layer draft
+    (``slice_grpo_spec``: #1, #4, #5 and #6 launch, and neither #2 nor #3:
+    rounds sample with the plain sampler, as in JAX). Returns (launches,
+    run)."""
     import shutil
 
     import trlx_tpu_torch
     from trlx_tpu_torch.profile_train import slice_prompts
 
-    phase = "slice_grpo_cb" if continuous else "slice_grpo"
+    phase = ("slice_grpo_spec" if speculative else "slice_grpo_cb" if continuous
+             else "slice_grpo")
     dev = torch.device(device)
     ckpt = _scratch_dir(phase)
-    config = grpo_config(ckpt, spec, total_steps, checkpoint_interval, continuous,
-                         **(sections or {}))
+    sections = dict(sections or {})
+    if speculative:
+        sections["engine"] = {**sections.get("engine", {}), "speculative": speculative}
+        sections["model"] = {**sections.get("model", {}), "draft_model_path": spec,
+                             "draft_model_extra_kwargs": {"num_layers": draft_layers}}
+    config = grpo_config(ckpt, spec, total_steps, checkpoint_interval, continuous, **sections)
     prompts = slice_prompts(n_prompts)
     start = {}
 
@@ -3761,14 +4300,24 @@ def phase_slice_grpo(device="cuda", spec="builtin:gpt2-small", continuous=False,
            "sqrt_ref_kl": [c["policy/sqrt_ref_kl"] for c in collections],
            "slot_utilization": [c["throughput/slot_utilization"] for c in collections],
            "launches": launches, "trained_weights_moved": len(moved), "card": card}
+    if speculative:
+        rec.update(speculative=speculative, draft_layers=draft_layers,
+                   spec_acceptance_rate=[c["engine/spec_acceptance_rate"] for c in collections],
+                   spec_tokens_per_round=[c["engine/spec_tokens_per_round"]
+                                          for c in collections],
+                   spec_rounds=[c["rollout/spec_rounds"] for c in collections])
     problems = []
-    if len(steps) != total_steps or len(collections) < 2:
+    per_collection = method.num_rollouts // config.train.batch_size * method.ppo_epochs
+    if len(steps) != total_steps or len(collections) < min(2, -(-total_steps // per_collection)):
         problems.append(f"{len(steps)} steps, {len(collections)} collections")
     if not all(math.isfinite(x) for x in losses):
         problems.append("a non-finite loss")
     if not moved:
         problems.append("no trainable weight moved")
-    must = GRPO_CB_KERNELS if continuous else GRPO_KERNELS
+    if speculative and not all(0.0 <= a <= 1.0 for a in rec["spec_acceptance_rate"]):
+        problems.append(f"acceptance {rec['spec_acceptance_rate']} outside [0, 1]")
+    must = (GRPO_SPEC_KERNELS if speculative else GRPO_CB_KERNELS if continuous
+            else GRPO_KERNELS)
     if dev.type == "cuda" and min(launches[k] for k in must) <= 0:
         problems.append(f"a kernel of the path never launched: {launches}")
     if any(launches[k] for k in REPLACES if k not in must):
@@ -6133,6 +6682,7 @@ def run_phases(clocked, seconds):
     serve_launches = clocked(phase_slice, card=smi)
     prefix_launches, prefix_run = clocked(phase_slice_serve_prefix, card=smi)
     clocked(phase_slice_serve_prefix_parity, prefix_run, card=smi)
+    prefix_model = prefix_run["model"]  # slice_spec_prefix speculates on it
     del prefix_run
     gc.collect()
     torch.cuda.empty_cache()
@@ -6140,7 +6690,12 @@ def run_phases(clocked, seconds):
     clocked(phase_slice_train_parity, trainer)
     del trainer
     spec_launches = clocked(phase_slice_spec, card=smi)
-    clocked(phase_slice_spec_parity, card=smi)
+    _, spec32 = clocked(phase_slice_spec_parity, card=smi, keep=True)
+    spec_prefix_launches = clocked(phase_slice_spec_prefix, prefix_model, spec32, card=smi)
+    engine_dense_launches = clocked(phase_slice_engine_dense, spec32, card=smi)
+    del prefix_model, spec32
+    gc.collect()
+    torch.cuda.empty_cache()
     serial_launches, serial_trainer = clocked(phase_slice_serial, card=smi, keep=True)
     hf_launches = Counter(clocked(phase_slice_hf_gpt2, serial_trainer, card=smi,
                                   _as="slice_hf"))
@@ -6154,13 +6709,16 @@ def run_phases(clocked, seconds):
                                   _as="slice_grpo_cb")
     clocked(phase_slice_grpo_parity, grpo_run, card=smi)
     del grpo_run
+    grpo_spec_launches, _ = clocked(phase_slice_grpo, continuous=True, card=smi,
+                                    total_steps=GRPO_SPEC_STEPS, checkpoint_interval=10 ** 6,
+                                    speculative=SPEC_GAMMA, _as="slice_grpo_spec")
     torch.cuda.empty_cache()
     serve_train_launches = clocked(phase_slice_serve_train, card=smi)
     gc.collect()
     torch.cuda.empty_cache()
     sft, sft_launches = clocked(phase_slice_sft, card=smi)
     ilql, ilql_launches = clocked(phase_slice_ilql, card=smi)
-    clocked(phase_slice_offline_parity, sft, ilql)
+    offline = clocked(phase_slice_offline_parity, sft, ilql)
     del sft, ilql
     dpo, dpo_launches = clocked(phase_slice_dpo, card=smi)
     del dpo
@@ -6171,10 +6729,13 @@ def run_phases(clocked, seconds):
     torch.cuda.empty_cache()
     family_serve = clocked(phase_family_serve, card=smi)
     torch.cuda.empty_cache()
-    _, family_model, family_cfg = clocked(phase_family_parity, keep=True)
+    _, family_model, family_cfg, family32, family32_cfg = clocked(phase_family_parity,
+                                                                  keep=True)
     hf_launches.update(clocked(phase_slice_hf_mistral, family_model, family_cfg, card=smi,
                                _as="slice_hf"))
     del family_model
+    family_spec_launches = clocked(phase_slice_family_spec, family32, family32_cfg, card=smi)
+    del family32
     gc.collect()
     torch.cuda.empty_cache()
     family_train = clocked(phase_family_train, card=smi)
@@ -6218,7 +6779,10 @@ def run_phases(clocked, seconds):
                "dpo": dpo_launches, "reward": reward_launches, "dpo_lora": dpo_lora_launches,
                "t5_ppo": t5_ppo_launches, "t5_ilql": t5_ilql_launches,
                "remat": remat_launches, "resilience": resilience_launches,
-               "serve_train": serve_train_launches, "hf": {**served, **hf_launches}}
+               "serve_train": serve_train_launches, "hf": {**served, **hf_launches},
+               "spec_prefix": spec_prefix_launches, "engine_dense": engine_dense_launches,
+               "grpo_spec": grpo_spec_launches, "family_spec": family_spec_launches,
+               "ilql_spec": offline["ilql_spec"]["trainer_generate"]["launches"]}
     kernels = [kernel_record(name, serve_launches[name], timed[name]["max_abs_err"], timed[name],
                              by_path)
                for name in SERVE_KERNELS]

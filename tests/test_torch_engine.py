@@ -215,22 +215,44 @@ def test_value_head_harvest_matches_jax_engine(lm):
 
 
 def test_rejects_unported_configurations(lm):
+    """What stays refused are JAX's own combinations: the in-place kernels,
+    speculation, the prefix cache and chunked prefill need the paged
+    backend, speculation needs a draft. The dense backend, the gather
+    kernels and speculation with the prefix cache or chunked prefill
+    build (``tests/test_torch_engine_paths.py`` holds them against JAX)."""
     _, _, model, tcfg = lm
     paged = PagedSpec(4, 16)
     cfg = _gen_config()
-    with pytest.raises(ValueError, match="paged"):
-        make_slot_refill_fns(tcfg, B, P, cfg, paged=None, device="cpu")
+    for knob in ("decode_kernel", "prefill_kernel"):
+        with pytest.raises(ValueError, match=f"{knob}: pallas .* paged"):
+            make_slot_refill_fns(tcfg, B, P, cfg, paged=None, device="cpu", **{knob: "pallas"})
+        with pytest.raises(ValueError, match=f"unknown {knob}"):
+            make_slot_refill_fns(tcfg, B, P, cfg, paged=paged, device="cpu", **{knob: "mosaic"})
+    with pytest.raises(ValueError, match="speculative .* paged"):
+        make_slot_refill_fns(tcfg, B, P, cfg, paged=None, speculative=2, draft_cfg=tcfg,
+                             device="cpu")
     with pytest.raises(ValueError, match="speculative"):
         make_slot_refill_fns(tcfg, B, P, cfg, paged=paged, speculative=2, device="cpu")
+    with pytest.raises(ValueError, match="transition_mask"):
+        make_slot_refill_fns(tcfg, B, P, cfg, paged=paged, device="cpu",
+                             transition_mask=np.ones((259, 259), bool))
     fns = make_slot_refill_fns(tcfg, B, P, cfg, paged=paged, device="cpu")
-    # the prefix cache and chunked prefill run on the plain engine; with
-    # speculation they stay refused, each naming its setting
+    assert (fns.decode_kernel, fns.prefill_kernel) == ("pallas", "pallas")
+    dense = make_slot_refill_fns(tcfg, B, P, cfg, device="cpu")
+    assert dense.paged is None and dense.prefill_chunk_rows is None
+    assert (dense.decode_kernel, dense.prefill_kernel) == ("xla", "xla")
+    with pytest.raises(ValueError, match="engine.prefix_cache requires the paged"):
+        ContinuousEngine(dense, model, PAD, prefix_cache=True)
+    with pytest.raises(ValueError, match="engine.prefill_chunk requires the paged"):
+        ContinuousEngine(dense, model, PAD, prefill_chunk=4)
+    with pytest.raises(ValueError, match="dense backend prefills whole prompts"):
+        dense.refill_program(2, hit=4)
+    # speculation composes with the prefix cache and chunked prefill
     spec_fns = make_slot_refill_fns(tcfg, B, P, cfg, paged=paged, speculative=2,
                                     device="cpu", draft_cfg=tcfg)
-    with pytest.raises(ValueError, match="engine.prefix_cache"):
-        ContinuousEngine(spec_fns, (model, model), PAD, prefix_cache=True)
-    with pytest.raises(ValueError, match="engine.prefill_chunk"):
-        ContinuousEngine(spec_fns, (model, model), PAD, prefill_chunk=4)
+    engine = ContinuousEngine(spec_fns, (model, model), PAD, prefix_cache=True,
+                              prefill_chunk=4)
+    assert engine.prefix is not None and engine._chunk == 4
     with pytest.raises(ValueError, match="prefill_chunk"):
         ContinuousEngine(fns, model, PAD, prefill_chunk=-1)
     engine = ContinuousEngine(fns, model, PAD, prewarm=False)

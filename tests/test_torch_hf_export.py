@@ -278,9 +278,12 @@ def test_push_to_hub_failure_keeps_staged_export(tmp_path, monkeypatch):
 
 
 def test_push_to_hub_needs_huggingface_hub_before_staging(tmp_path, monkeypatch):
+    # built before the temp dir moves: a process's first meta-device build
+    # imports torch._dynamo, which makes its cache directory under the temp
+    # dir; what is held here is that push_to_hub stages nothing
+    model, cfg = build_causal_lm("builtin:gpt2-test", device="cpu")
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     monkeypatch.setitem(sys.modules, "huggingface_hub", None)
-    model, cfg = build_causal_lm("builtin:gpt2-test", device="cpu")
     with pytest.raises(RuntimeError, match="huggingface_hub"):
         checkpoint.push_to_hub("org/x", model.state_dict(), cfg)
     assert os.listdir(tmp_path) == []

@@ -213,12 +213,8 @@ def test_train_entry_point_end_to_end(tmp_path):
         ({"serve": {"enabled": True, "slots": 2, "reserve_slots": 2}}, "serve.reserve_slots"),
         ({"serve": {"enabled": True, "default_class": "vip"}}, "serve.default_class"),
         ({"engine": {"speculative": 2}}, "engine.speculative"),
-        # speculation with the prefix cache stays out of the port
-        ({"engine": {"speculative": 2, "prefix_cache": True},
-          "model": {"draft_model_path": "builtin:gpt2-test"}},
-         "engine.speculative with engine.prefix_cache"),
-        ({"engine": {"decode_kernel": "xla"}}, "engine.decode_kernel"),
-        ({"engine": {"prefill_kernel": "xla"}}, "engine.prefill_kernel"),
+        # speculation with the prefix cache and chunked prefill, the gather
+        # kernels and the dense backend run (tests/test_torch_engine_paths.py);
         # the JAX trainer's checks: the paged knobs need the paged backend
         # on either path
         ({"train": {"continuous_batching": False},

@@ -264,11 +264,23 @@ def test_serial_speculative_generate_matches_jax(tmp_path):
     S = ids.shape[1] + 8 + 3
     assert pt.last_generate_stats["memory/kv_cache_bytes"] == (
         jax_dense_kv_bytes(jt.tcfg, 6, S) + jax_dense_kv_bytes(jt.draft_tcfg, 6, S))
-    # hooks under speculation raise, as the port's speculative sampler does
-    pt.logit_mask = np.ones((pt.tcfg.vocab_size,) * 2, bool)
-    pt._generate_fns.clear()
-    with pytest.raises(ValueError, match="transition_mask"):
-        pt.generate(ids, mask)
+    # a transition mask under speculation shapes draft and target alike,
+    # as JAX's serial speculative sampler does
+    rs = np.random.RandomState(3)
+    logit_mask = rs.rand(pt.tcfg.vocab_size, pt.tcfg.vocab_size) < 0.3
+    logit_mask[:, 97:123] |= rs.rand(pt.tcfg.vocab_size, 26) < 0.5
+    for t in (jt, pt):
+        t.logit_mask = logit_mask
+        t._generate_fns.clear()
+    theirs = jt.generate(ids, mask)
+    ours = pt.generate(ids, mask)
+    np.testing.assert_array_equal(ours["response_tokens"], np.asarray(theirs.response_tokens))
+    np.testing.assert_allclose(ours["response_logprobs"], np.asarray(theirs.response_logprobs),
+                               atol=ATOL, rtol=0)
+    toks, prev = ours["response_tokens"], np.concatenate([ids[:, -1:], ours["response_tokens"]
+                                                          [:, :-1]], axis=1)
+    live = ours["response_mask"] > 0
+    assert logit_mask[prev[live], toks[live]].all()
 
 
 def test_logit_mask_shapes_serial_rollouts_as_jax(tmp_path):

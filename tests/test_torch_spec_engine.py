@@ -219,9 +219,14 @@ def test_engine_validation(models):
         make_slot_refill_fns(tcfg, B, P, config, paged=paged, speculative=G, device="cpu")
     with pytest.raises(ValueError, match="must be >= 0"):
         make_slot_refill_fns(tcfg, B, P, config, paged=paged, speculative=-1, device="cpu")
-    with pytest.raises(ValueError, match="adjust_logits"):
-        make_slot_refill_fns(tcfg, B, P, config, paged=paged, speculative=G, draft_cfg=tcfg,
-                             adjust_logits=lambda step_out, logits: logits, device="cpu")
+    with pytest.raises(ValueError, match="require the paged KV backend"):
+        make_slot_refill_fns(tcfg, B, P, config, speculative=G, draft_cfg=tcfg, device="cpu")
+    # the hooks run under speculation (tests/test_torch_engine_paths.py)
+    hooked = make_slot_refill_fns(tcfg, B, P, config, paged=paged, speculative=G,
+                                  draft_cfg=tcfg, device="cpu",
+                                  adjust_logits=lambda step_out, logits: logits,
+                                  transition_mask=np.ones((259, 259), bool))
+    assert hooked.speculative == G
     engine = _engine(tcfg, target, draft, config)
     ids, mask = _prompts(R=1)
     with pytest.raises(ValueError, match="per-row greedy flag"):

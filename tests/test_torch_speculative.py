@@ -205,11 +205,33 @@ def test_sampled_rows_depend_only_on_their_seed(models):
 
 
 def test_sampler_hooks_raise(models):
+    """The hooks used to raise here; they now run (JAX parity in
+    ``tests/test_torch_engine_paths.py``). An all-allowing mask and an
+    identity hook leave the draws as they are; a mask that allows only
+    token 5 after every token, and a hook that forbids token 5 with the
+    mask allowing it and one other, each steer every committed token."""
     _, target, draft, _ = models
     ids, mask = _prompts()
-    cfg = GenerationConfig(max_new_tokens=2, pad_token_id=PAD)
+    cfg = GenerationConfig(max_new_tokens=6, do_sample=True, temperature=0.9,
+                           eos_token_id=None, pad_token_id=PAD)
     args = (target, draft, torch.tensor(ids), torch.tensor(mask), torch.arange(B), cfg)
-    with pytest.raises(ValueError, match="transition_mask"):
-        generate_speculative(*args, transition_mask=torch.ones(259, 259, dtype=torch.bool))
-    with pytest.raises(ValueError, match="adjust_logits"):
-        generate_speculative(*args, adjust_logits=lambda step_out, logits: logits)
+    free = generate_speculative(*args, gamma=G)
+    same = generate_speculative(*args, gamma=G,
+                                transition_mask=torch.ones(259, 259, dtype=torch.bool),
+                                adjust_logits=lambda step_out, logits: logits)
+    for f in ("response_tokens", "response_logprobs", "response_values"):
+        torch.testing.assert_close(getattr(same, f), getattr(free, f), atol=0, rtol=0)
+    only5 = torch.zeros(259, 259, dtype=torch.bool)
+    only5[:, 5] = True
+    forced = generate_speculative(*args, gamma=G, transition_mask=only5)
+    assert bool((forced.response_tokens == 5).all())
+    assert torch.allclose(forced.response_logprobs, torch.zeros(()), atol=1e-6)
+    two = torch.zeros(259, 259, dtype=torch.bool)
+    two[:, 5] = two[:, 7] = True
+
+    def no5(step_out, logits):
+        assert step_out["last_tokens"].shape == logits.shape[:-1]
+        return logits.masked_fill(torch.arange(logits.shape[-1]) == 5, -1e9)
+
+    steered = generate_speculative(*args, gamma=G, transition_mask=two, adjust_logits=no5)
+    assert bool((steered.response_tokens == 7).all())

@@ -1,10 +1,11 @@
 """The generation engines: the serial dense engine and the
-continuous-batching engine over the paged block pool.
+continuous-batching engine over a dense per-slot cache or the paged block
+pool.
 
-Port of ``trlx_tpu/engine/core.py``'s paged path: :class:`Engine`,
+Port of ``trlx_tpu/engine/core.py``: :class:`Engine`,
 :class:`SerialEngine`, :class:`ContinuousEngine`, :class:`EngineStats` and
 :class:`CompletedSequence`, with the prefix cache, chunked prefill, the
-host tier and priority preemption.
+host tier and priority preemption on the paged backend.
 
 :class:`SerialEngine` is plain batch generation behind the engine
 interface: it wraps the trainer's serial rollout program
@@ -12,9 +13,13 @@ interface: it wraps the trainer's serial rollout program
 ``ops/speculative.py::generate_speculative``) unchanged, and each
 :meth:`SerialEngine.step` reproduces one such call on a submitted chunk.
 
-The continuous engine is the host half: a queue of prompts, ``B`` slots, a
-refcounted :class:`~trlx_tpu_torch.engine.allocator.BlockAllocator` over
-the pool and a host mirror of the block table. Each :meth:`step` admits
+The continuous engine is the host half: a queue of prompts and ``B``
+slots. On the dense backend (``fns.paged`` is None, JAX's default) every
+admission prefills the admitted rows' whole prompts at once into their
+slots' cache rows; the prefix cache and chunked prefill need the paged
+backend, as in JAX. On the paged backend it adds a refcounted
+:class:`~trlx_tpu_torch.engine.allocator.BlockAllocator` over the pool
+and a host mirror of the block table, and each :meth:`step` admits
 queued prompts into free slots (best priority class first, FIFO within a
 class), runs one prefill span for every still-prefilling slot, grows the
 decoding rows' tables lazily to cover the next segment, runs one decode
@@ -52,7 +57,9 @@ columns; a segment may commit up to ``segment_len · (G + 1)`` tokens per
 row, so tables grow by that much, and after each segment every row's
 committed length is read from the device ``step``. A harvested sequence
 equals a solo ``ops/speculative.py::generate_speculative`` of the row.
-The prefix cache and chunked prefill are not ported with speculation.
+Speculation composes with the prefix cache (the target prefills only the
+suffix past a hit; the draft prefills whole) and with chunked prefill (the
+target's prompt is chunked; the draft is seeded at the final span).
 
 Kernel gauges: ``engine/decode_kernel_launches``,
 ``engine/prefill_kernel_launches``, ``engine/verify_kernel_launches`` and
@@ -439,13 +446,6 @@ class ContinuousEngine(Engine):
         self._chunk = int(prefill_chunk)
         if self._chunk < 0:
             raise ValueError(f"prefill_chunk {self._chunk} must be >= 0")
-        if self._gamma and prefix_cache:
-            raise ValueError("engine.speculative with engine.prefix_cache: the speculative "
-                             "refill prefills whole prompts (prefix hits are not ported "
-                             "with speculation)")
-        if self._gamma and self._chunk:
-            raise ValueError("engine.speculative with engine.prefill_chunk: chunked prefill "
-                             "is not ported with speculation")
         self.fns = fns
         self.params = model
         self.pad_token_id = int(pad_token_id)
@@ -468,24 +468,35 @@ class ContinuousEngine(Engine):
         # requests that failed admission (tenant quota): the owner drains them
         self.failed: deque = deque()
 
+        # the paged geometry, or None for the dense backend
         self.spec = fns.paged
-        self._bs = self.spec.block_size
-        self._TB = num_table_blocks(self._S, self._bs)
-        self.allocator = BlockAllocator(self.spec.max_blocks)
+        self.allocator: Optional[BlockAllocator] = None
         self.prefix: Optional[PrefixCache] = None
-        if prefix_cache:
-            self.prefix = PrefixCache(self._bs, prefix_capacity_blocks)
-            self.stats.prefix_enabled = True
-        # host mirror of the device block table: authoritative between
-        # programs (the refill applies the same rows on the card; segment
-        # growth pushes the whole mirror)
-        self._tables = np.zeros((self.B, self._TB), np.int32)
-        self._row_blocks: List[Optional[List[int]]] = [None] * self.B
-        self._alloc_upto = [0] * self.B
         self._steps_bound = [0] * self.B
-        self.stats.kv_blocks_total = self.spec.max_blocks - 1
+        if self.spec is not None:
+            self._bs = self.spec.block_size
+            self._TB = num_table_blocks(self._S, self._bs)
+            self.allocator = BlockAllocator(self.spec.max_blocks)
+            if prefix_cache:
+                self.prefix = PrefixCache(self._bs, prefix_capacity_blocks)
+                self.stats.prefix_enabled = True
+            # host mirror of the device block table: authoritative between
+            # programs (the refill applies the same rows on the card;
+            # segment growth pushes the whole mirror)
+            self._tables = np.zeros((self.B, self._TB), np.int32)
+            self._row_blocks: List[Optional[List[int]]] = [None] * self.B
+            self._alloc_upto = [0] * self.B
+            self.stats.kv_blocks_total = self.spec.max_blocks - 1
+            self._block_bytes = block_bytes(self.state.cache)
+        elif prefix_cache:
+            raise ValueError("engine.prefix_cache requires the paged KV backend "
+                             "(engine.backend: paged) — dense per-slot caches cannot "
+                             "share blocks")
+        elif self._chunk:
+            raise ValueError("engine.prefill_chunk requires the paged KV backend "
+                             "(engine.backend: paged) — the chunk programs commit "
+                             "prompt spans through the block table")
         self.stats.spec_gamma = self._gamma
-        self._block_bytes = block_bytes(self.state.cache)
         self.stats.kv_cache_bytes = kv_bytes(self.state.cache)
         if self._gamma:
             # the draft's dense [B, S] cache is persistent engine state too
@@ -513,10 +524,11 @@ class ContinuousEngine(Engine):
         for slot in range(self.B):
             if self._slots[slot] is None:
                 continue
-            if self._row_blocks[slot] is not None:
-                self.allocator.release(self._row_blocks[slot])
-            self._row_blocks[slot] = None
-            self._alloc_upto[slot] = 0
+            if self.spec is not None:
+                if self._row_blocks[slot] is not None:
+                    self.allocator.release(self._row_blocks[slot])
+                self._row_blocks[slot] = None
+                self._alloc_upto[slot] = 0
             self._steps_bound[slot] = 0
             self._slots[slot] = None
             self._seeded[slot] = False
@@ -531,7 +543,8 @@ class ContinuousEngine(Engine):
             spec_gamma=self._gamma,
         )
         self._spec_base = self._read_spec_counters()
-        self.allocator.high_water = self.allocator.blocks_in_use
+        if self.allocator is not None:
+            self.allocator.high_water = self.allocator.blocks_in_use
         self._launch_base = kernel_launches()
 
     @staticmethod
@@ -674,6 +687,8 @@ class ContinuousEngine(Engine):
             return self.allocator.alloc(n, tenant=tenant)
 
     def _note_block_usage(self) -> None:
+        if self.allocator is None:
+            return
         self.stats.kv_blocks_in_use = self.allocator.high_water
         self.stats.kv_bytes_high_water = self.allocator.high_water * self._block_bytes
 
@@ -798,6 +813,15 @@ class ContinuousEngine(Engine):
         del self._queue[best_i]
         return req
 
+    def _pop_admissible(self) -> Optional[_Request]:
+        """The next request a free slot may take: once non-interactive rows
+        hold ``B - reserve_slots`` slots, interactive ones only."""
+        only_interactive = False
+        if self.reserve_slots > 0:
+            non_interactive = sum(1 for r in self._slots if r is not None and self._rank(r) > 0)
+            only_interactive = non_interactive >= self.B - self.reserve_slots
+        return self._pop_next(only_interactive)
+
     def _preempt_slot(self, slot: int) -> None:
         """Vacate one still-prefilling slot: its committed prompt chunks
         enter the tenant's chain first (the insert retains them, so they
@@ -851,17 +875,17 @@ class ContinuousEngine(Engine):
         requests: once non-interactive rows hold ``B - reserve_slots``
         slots, only interactive ones are admitted. A tenant whose quota
         cannot cover its prompt fails onto :attr:`failed` instead of
-        failing the engine, and the slot goes to the next request."""
+        failing the engine, and the slot goes to the next request. The
+        dense backend prefills the admitted rows' whole prompts at once
+        (:meth:`_admit_dense`)."""
+        if self.spec is None:
+            self._admit_dense()
+            return
         self._preempt_for_priority()
         free = deque(s for s in range(self.B) if self._slots[s] is None)
         admitted = 0
         while free and self._queue:
-            only_interactive = False
-            if self.reserve_slots > 0:
-                non_interactive = sum(1 for r in self._slots
-                                      if r is not None and self._rank(r) > 0)
-                only_interactive = non_interactive >= self.B - self.reserve_slots
-            req = self._pop_next(only_interactive)
+            req = self._pop_admissible()
             if req is None:
                 break
             slot = free[0]
@@ -887,6 +911,46 @@ class ContinuousEngine(Engine):
             self.stats.prefix_tokens_saved += hit
         self.stats.refilled_rows += admitted
         self._note_block_usage()
+
+    def _admit_dense(self) -> None:
+        """Dense backend: fill the free slots (best class first, FIFO
+        within a class; ``reserve_slots`` as on the paged backend) and
+        prefill all admitted rows in one grouped refill, which seeds
+        them. Every occupied slot is seeded, so nothing is preempted."""
+        free = deque(s for s in range(self.B) if self._slots[s] is None)
+        rows: List[_Request] = []
+        slots: List[int] = []
+        while free and self._queue:
+            req = self._pop_admissible()
+            if req is None:
+                break
+            slot = free.popleft()
+            self._slots[slot] = req
+            rows.append(req)
+            slots.append(slot)
+        if not rows:
+            return
+        waiting = self._decoding()
+        t0 = time.perf_counter()
+        self.state = self.fns.refill_rows(
+            self.params, self.state, np.stack([r.input_ids for r in rows]),
+            np.stack([r.attention_mask for r in rows]), np.asarray(slots, np.int64),
+            np.asarray([r.seed for r in rows], np.int64),
+            greedy=np.asarray([r.greedy for r in rows], bool))
+        if self.fns.device.type == "cuda":
+            torch.cuda.synchronize(self.fns.device)
+        t1 = time.perf_counter()
+        self.stats.refill_prefills += 1
+        self.stats.prefill_tokens += self.P * len(rows)
+        self._note_prefill_event(waiting, t0, t1)
+        for req, slot in zip(rows, slots):
+            req.t_refill0, req.t_refill1 = t0, t1
+            self._seeded[slot] = True
+            self._steps_bound[slot] = 0
+            wait = max(t0 - req.t_enqueue, 0.0)
+            self.stats.queue_wait_s += wait
+            self.stats.queue_wait_samples.append(wait)
+        self.stats.refilled_rows += len(rows)
 
     def _next_span(self, pos: int) -> int:
         """End column of the prefill span starting at ``pos``: the whole
@@ -983,11 +1047,12 @@ class ContinuousEngine(Engine):
             self._slots[slot] = None
             self._seeded[slot] = False
             self._trace_request(req, slot, t_harvest, gen_len=float(host["mask"][j].sum()))
-            # blocks the prefix cache (or a sharing row) still holds stay
-            # allocated
-            self.allocator.release(self._row_blocks[slot])
-            self._row_blocks[slot] = None
-            self._alloc_upto[slot] = 0
+            if self.spec is not None:
+                # blocks the prefix cache (or a sharing row) still holds
+                # stay allocated
+                self.allocator.release(self._row_blocks[slot])
+                self._row_blocks[slot] = None
+                self._alloc_upto[slot] = 0
             self._steps_bound[slot] = 0
             completed.append(CompletedSequence(
                 index=req.index, prompt_ids=req.input_ids,
@@ -1061,13 +1126,15 @@ class ContinuousEngine(Engine):
         completed sequences. With ``prefill_chunk`` set, the prefill work
         of one step is at most one chunk per still-prefilling slot."""
         self._admit()
-        self._advance_prefill()
+        if self.spec is not None:
+            self._advance_prefill()
         if self._decoding() == 0:
             self._note_launches()
             return []
-        if self._ensure_decode_blocks(self.fns.segment_len):
-            self._push_tables()
-        self._note_block_usage()
+        if self.spec is not None:
+            if self._ensure_decode_blocks(self.fns.segment_len):
+                self._push_tables()
+            self._note_block_usage()
         if self._span is not None:
             # decode_segment returns host counts read from the card after
             # its last step, so the span closes device-complete: that read

@@ -1,8 +1,8 @@
 """Paged KV cache: fixed-size KV blocks + per-slot block tables.
 
-Port of the parts of ``trlx_tpu/ops/paged_kv.py`` the in-place kernel path
-runs. The persistent KV state is a block pool — per layer ``{"k", "v"}``
-tensors of ``[max_blocks, block_size, kv_heads, head_dim]`` — plus a
+Port of ``trlx_tpu/ops/paged_kv.py``. The persistent KV state is a block
+pool — per layer ``{"k", "v"}`` tensors of ``[max_blocks, block_size,
+kv_heads, head_dim]`` — plus a
 ``[B, TB]`` int32 block table mapping logical cache column ``s`` of slot
 ``b`` to pool row ``table[b, s // block_size]``. Blocks are handed out by
 the host allocator (``trlx_tpu_torch/engine/allocator.py``) as sequences
@@ -16,6 +16,14 @@ column that reads it is masked by the ``-1e9`` bias.
 Unlike the JAX package (immutable arrays), the pool here is updated in
 place: the model's paged attention commits each step's K/V straight into
 the pool tensors, which saves a pool copy per step.
+
+The gather paths (``engine.decode_kernel`` / ``engine.prefill_kernel``
+``xla``, JAX's reference shape) run the dense compute on a transient view:
+:func:`gather_view` builds the dense ``[rows, S]`` cache of a set of table
+rows, and :func:`scatter_span` (a prefill span) or :func:`scatter_steps`
+(each row's decode-segment columns) commit the written columns back into
+the pool. Out-of-range table ids (padding rows, frozen slots) read the last
+pool block, which their masks hide, and write nothing.
 
 Block copies for the host tier (``serve/tiering.py``; the JAX tier's
 ``_read_block`` / ``_write_blocks``): :func:`read_block` copies one
@@ -38,6 +46,9 @@ __all__ = [
     "init_paged_kv",
     "attach_block_table",
     "detach_block_table",
+    "gather_view",
+    "scatter_span",
+    "scatter_steps",
     "kv_bytes",
     "block_bytes",
     "dense_kv_bytes",
@@ -96,6 +107,75 @@ def attach_block_table(pool: List[dict], block_table: torch.Tensor) -> List[dict
 def detach_block_table(cache: List[dict]) -> List[dict]:
     """Inverse of :func:`attach_block_table`: the bare pool list."""
     return [{k: v for k, v in layer.items() if k != "block_table"} for layer in cache]
+
+
+def gather_view(pool: List[dict], block_table: torch.Tensor, slots: int) -> List[dict]:
+    """Dense per-layer ``{"k", "v"}`` views ``[rows, slots, KV, D]`` of
+    ``block_table``'s rows (fresh tensors: the dense forwards write into
+    them). Table ids are clamped into the pool, so an out-of-range padding
+    id reads the last block; such columns are masked out of attention and
+    never scattered back."""
+    NB = pool[0]["k"].shape[0]
+    R, TB = block_table.shape
+    idx = torch.clamp(block_table.to(torch.int64), 0, NB - 1)
+
+    def view(leaf):
+        v = leaf[idx]  # [R, TB, bs, KV, D]
+        return v.reshape((R, TB * leaf.shape[1]) + tuple(leaf.shape[2:]))[:, :slots].contiguous()
+
+    return [{name: view(layer[name]) for name in ("k", "v")} for layer in pool]
+
+
+def _commit(pool: List[dict], block_table: torch.Tensor, dense: List[dict], rows: torch.Tensor,
+            cols: torch.Tensor, valid: torch.Tensor) -> List[dict]:
+    """Write ``dense[l][name][rows, cols]`` into the pool at the table's
+    blocks for the lanes where ``valid`` holds and the table id is in
+    range (drop-mode: everything else writes nothing)."""
+    NB, bs = pool[0]["k"].shape[:2]
+    TB = block_table.shape[1]
+    blk = block_table.to(torch.int64).gather(1, torch.clamp(cols // bs, max=TB - 1))
+    keep = valid & (blk >= 0) & (blk < NB)
+    r, j = keep.nonzero(as_tuple=True)
+    dst = (blk * bs + cols % bs)[r, j]
+    src_rows, src_cols = rows.expand_as(cols)[r, j], cols[r, j]
+    for layer, view in zip(pool, dense):
+        for name in ("k", "v"):
+            leaf = layer[name]
+            leaf.view((NB * bs,) + tuple(leaf.shape[2:]))[dst] = (
+                view[name][src_rows, src_cols].to(leaf.dtype))
+    return pool
+
+
+def scatter_span(pool: List[dict], block_table: torch.Tensor, dense_rows: List[dict],
+                 start: int, length: int) -> List[dict]:
+    """Commit columns ``[start, start + length)`` of the dense row views
+    into the pool through the rows' tables (the prefill write-back), in
+    place; rows whose table ids are out of range write nothing."""
+    if length <= 0:
+        return pool
+    R = block_table.shape[0]
+    device = block_table.device
+    cols = (start + torch.arange(length, device=device))[None, :].expand(R, length)
+    rows = torch.arange(R, device=device)[:, None]
+    return _commit(pool, block_table, dense_rows, rows, cols,
+                   torch.ones((R, length), dtype=torch.bool, device=device))
+
+
+def scatter_steps(pool: List[dict], block_table: torch.Tensor, dense_view: List[dict],
+                  base_cols: torch.Tensor, counts: torch.Tensor, max_steps: int) -> List[dict]:
+    """Commit each row's decode-segment writes, columns ``[base_cols[b],
+    base_cols[b] + counts[b])`` of the dense view, into the pool, in
+    place. A row that froze mid-segment commits only its live writes; the
+    dense compute's dead writes (done rows re-writing masked columns) are
+    not carried over."""
+    B = block_table.shape[0]
+    device = block_table.device
+    S = dense_view[0]["k"].shape[1]
+    j = torch.arange(max_steps, device=device)[None, :]
+    cols = base_cols.to(device, torch.int64)[:, None] + j
+    valid = j < counts.to(device, torch.int64)[:, None]
+    rows = torch.arange(B, device=device)[:, None]
+    return _commit(pool, block_table, dense_view, rows, torch.clamp(cols, 0, S - 1), valid)
 
 
 def _leaves(cache: Any):

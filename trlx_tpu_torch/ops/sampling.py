@@ -164,11 +164,13 @@ def sample_token_from_logits(
     config: GenerationConfig,
     step: torch.Tensor,  # [B] per-row decode steps
     adjust_logits: Optional[Callable[[Dict[str, Any], torch.Tensor], torch.Tensor]],
+    greedy: Optional[torch.Tensor] = None,  # [B] bool rows decoded greedily
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shared sampling semantics: adjust-logits hook, ``min_new_tokens``
     eos blocking, temperature/top-k/top-p filtering, Gumbel-argmax draw
-    (plain argmax when greedy), and the behaviour logprob of the chosen
-    token under the unfiltered row."""
+    (plain argmax when greedy, and zero noise on rows flagged ``greedy``),
+    and the behaviour logprob of the chosen token under the unfiltered
+    row."""
     if adjust_logits is not None:
         logits = adjust_logits(step_out, logits)
     logits = _block_eos(logits.float(), config, step)
@@ -176,6 +178,8 @@ def sample_token_from_logits(
     if config.do_sample:
         noise = gumbel_noise(seeds, torch.as_tensor(step, device=logits.device)
                              .expand(logits.shape[0]), logits.shape[-1])
+        if greedy is not None:
+            noise = noise.masked_fill(greedy[:, None], 0.0)
         next_token = torch.argmax(noise + filtered, dim=-1)
     else:
         next_token = torch.argmax(filtered, dim=-1)

@@ -27,18 +27,27 @@ proposals (Gumbel noise), ``d = G`` the ``G`` acceptance uniforms,
 depends only on its seed and its round, so an engine slot that hosts the
 row after a refill draws exactly what a solo run draws.
 
-The port has no logit masks and PPO passes no adjust hook, so
-``transition_mask`` and ``adjust_logits`` raise ``ValueError`` when given.
+Logit hooks, as in JAX: ``transition_mask`` (the trainer's ``[V, V]``
+prev → next mask) is applied to the draft's proposal distributions and to
+the target's verify distributions alike, so constrained sampling stays
+lossless; ``adjust_logits`` (an algorithm's reshaping, ILQL's ``log π +
+β (min Q − V)``) is applied to the target's verify logits only, before the
+mask, with the verify forward's per-position outputs (``[B, G + 1, ...]``
+views and ``last_tokens = [t_last, d_1 .. d_G]``). The draft proposes from
+its own unadjusted distribution and the acceptance rule corrects it, so the
+committed tokens are exact draws from the adjusted target.
 """
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from trlx_tpu_torch.ops.sampling import (
+    _NON_CARRY_KEYS,
     GenerationConfig,
     GenerationOutput,
     _block_eos,
+    apply_transition_mask,
     gumbel_noise,
     process_logits,
     uniform_noise,
@@ -48,18 +57,7 @@ __all__ = [
     "accept_and_extra",
     "spec_round_step",
     "generate_speculative",
-    "reject_spec_hooks",
 ]
-
-
-def reject_spec_hooks(transition_mask: Any = None, adjust_logits: Any = None) -> None:
-    """Raise for the sampler hooks the port's speculation does not run."""
-    if transition_mask is not None:
-        raise ValueError("transition_mask under speculation is not ported: the port "
-                         "has no logit masks")
-    if adjust_logits is not None:
-        raise ValueError("adjust_logits under speculation is not ported: PPO passes no "
-                         "adjust hook")
 
 
 def _filtered_probs(logits: torch.Tensor, config: GenerationConfig) -> torch.Tensor:
@@ -123,6 +121,8 @@ def spec_round_step(
     draft: Any,  # draft LM
     config: GenerationConfig,
     G: int,
+    transition_mask: Optional[torch.Tensor] = None,  # [Vm, Vm'] bool
+    adjust_logits: Optional[Callable[[Dict[str, Any], torch.Tensor], torch.Tensor]] = None,
 ) -> Dict[str, Any]:
     """One draft-propose → verify → accept round over the shared carry —
     the body of both :func:`generate_speculative` and the engine's spec
@@ -134,7 +134,9 @@ def spec_round_step(
     ``values`` / ``mask`` [B, N+G+1] (written in place), and the scalar
     counters ``rounds`` / ``accepted`` / ``live_rounds`` / ``committed``.
     ``accepted`` counts acceptance before budget and eos clipping,
-    ``committed`` after. The step launches work only: no host sync."""
+    ``committed`` after. The step launches work only: no host sync.
+    ``transition_mask`` shapes the draft's proposals and the target's
+    verify distributions; ``adjust_logits`` the target's only, first."""
     B, P = prompt_mask.shape
     N = config.max_new_tokens
     NB = N + G + 1
@@ -156,7 +158,10 @@ def spec_round_step(
     for j in range(G):
         out_j = draft(tok[:, None], attention_mask=mask_round, cache=d_cache,
                       cache_index=c - 1 + j)
-        logits_j = _block_eos(out_j["logits"][:, -1].float(), config, n_out + j)
+        logits_j = out_j["logits"][:, -1].float()
+        if transition_mask is not None:  # q_{j+1} conditions on the fed token
+            logits_j = apply_transition_mask(transition_mask, tok, logits_j)
+        logits_j = _block_eos(logits_j, config, n_out + j)
         probs_j = _filtered_probs(logits_j, config)
         if q_probs is None:
             q_probs = torch.empty((B, G, probs_j.shape[-1]), dtype=torch.float32, device=dev)
@@ -178,7 +183,17 @@ def spec_round_step(
                    cache_index=c - 1)
     # verify position j produces response position n_out + j
     pos = n_out[:, None] + torch.arange(G + 1, device=dev)[None, :]
-    t_logits = _block_eos(t_out["logits"].float(), config, pos)
+    t_logits = t_out["logits"].float()
+    if adjust_logits is not None:
+        # the plain sampler's order: the algorithm's reshaping, then the
+        # mask, then eos blocking; the step outputs keep the verify shape
+        step_info = {k: v for k, v in t_out.items()
+                     if k not in _NON_CARRY_KEYS and v is not None}
+        step_info["last_tokens"] = verify_in  # position j conditions on it
+        t_logits = adjust_logits(step_info, t_logits).float()
+    if transition_mask is not None:
+        t_logits = apply_transition_mask(transition_mask, verify_in, t_logits)
+    t_logits = _block_eos(t_logits, config, pos)
     p_probs = _filtered_probs(t_logits, config)  # p_0 .. p_G
     t_logprobs_all = torch.log_softmax(t_logits, dim=-1)
     t_values = t_out.get("value")
@@ -242,19 +257,21 @@ def generate_speculative(
     config: GenerationConfig,
     gamma: int = 4,
     return_stats: bool = False,
-    transition_mask: Any = None,
-    adjust_logits: Any = None,
+    transition_mask: Any = None,  # [Vm, Vm'] bool: draft and target alike
+    adjust_logits: Optional[Callable[[Dict[str, Any], torch.Tensor], torch.Tensor]] = None,
 ):
     """Sample ``config.max_new_tokens`` continuations by draft-and-verify
     with dense caches of ``S = P + N + G`` columns — the solo reference the
     speculative engine is held against. Returns a
     :class:`~trlx_tpu_torch.ops.sampling.GenerationOutput` (the target's
     logprobs and values, with :func:`~trlx_tpu_torch.ops.sampling.generate`'s
-    semantics), or ``(output, stats)``."""
+    semantics), or ``(output, stats)``. The hooks act as in
+    :func:`spec_round_step`."""
     from trlx_tpu_torch.models.transformer import make_kv_cache
 
-    reject_spec_hooks(transition_mask, adjust_logits)
     device = next(target.parameters()).device
+    if transition_mask is not None:
+        transition_mask = torch.as_tensor(transition_mask, dtype=torch.bool, device=device)
     input_ids = input_ids.to(device=device, dtype=torch.int64)
     prompt_mask = attention_mask.to(device=device, dtype=torch.int64)
     seeds = seeds.to(device=device, dtype=torch.int64)
@@ -285,7 +302,8 @@ def generate_speculative(
     }
     while not bool(carry["done"].all()):
         carry = spec_round_step(carry, prompt_mask=prompt_mask, target=target, draft=draft,
-                                config=config, G=G)
+                                config=config, G=G, transition_mask=transition_mask,
+                                adjust_logits=adjust_logits)
     tokens = carry["tokens"][:, :N]
     out = GenerationOutput(
         sequences=torch.cat([input_ids.to(torch.int32), tokens], dim=1),

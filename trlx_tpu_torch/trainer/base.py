@@ -24,12 +24,19 @@ Port of ``trlx_tpu/trainer/base.py`` (``TPUBaseTrainer``) as
   ``ops/sampling.py::generate``, or, with ``model.draft_model_path`` set,
   around ``ops/speculative.py::generate_speculative`` (``model.draft_gamma``
   draft tokens a round); with ``continuous_batching: true`` it runs the
-  paged ``ContinuousEngine`` on the CUDA kernels, whose segments run
-  draft-propose → verify → accept rounds with ``engine.speculative: k``.
-  The offline trainers (SFT, ILQL) collect nothing and evaluate on the
-  paged engine whatever ``continuous_batching`` says. Both engines take
-  the algorithm's ``adjust_logits`` hook and the transition ``logit_mask``;
-  the draft is a bare LM built from ``train.seed + 1``;
+  ``ContinuousEngine`` as ``engine:`` says, as JAX does: the dense
+  backend (the default), or the paged one with the in-place kernels or
+  the gather paths (``decode_kernel`` / ``prefill_kernel``), whose
+  segments run draft-propose → verify → accept rounds with
+  ``engine.speculative: k``. The offline trainers (SFT, ILQL) collect
+  nothing: they evaluate on the paged engine with the in-place kernels
+  whatever ``continuous_batching`` says, and with a draft model on the
+  serial speculative sampler, as JAX's ``generate`` does (ILQL's
+  speculative sampling). Both engines take the algorithm's
+  ``adjust_logits`` hook and the transition ``logit_mask`` (under
+  speculation separately: the mask shapes draft and target alike, the
+  hook the target's verify distributions); the draft is a bare LM built
+  from ``train.seed + 1``;
 - seq2seq (``model.model_arch_type: seq2seq``, T5) runs under PPO and
   ILQL: the model is ``builder.build_seq2seq_lm`` with
   ``seq2seq_trainable_mask``; every generate (rollouts and evaluation) is
@@ -132,7 +139,7 @@ from trlx_tpu_torch.ops.sampling import (
     generate_seq2seq,
 )
 from trlx_tpu_torch.ops.slot_refill import make_slot_refill_fns
-from trlx_tpu_torch.ops.speculative import generate_speculative, reject_spec_hooks
+from trlx_tpu_torch.ops.speculative import generate_speculative
 from trlx_tpu_torch.pipeline import PrefetchLoader
 from trlx_tpu_torch.resilience import (
     UNPORTED_KINDS,
@@ -256,14 +263,11 @@ def reject_unported(config, collects_rollouts: bool, seq2seq_ok: bool) -> None:
 
     ``collects_rollouts`` (PPO, GRPO) adds the rollout settings: async
     collection, the loss kernel's name (and ``pallas`` only where the
-    method's ``LOSS_KERNELS`` hosts it), and — only with
-    ``train.continuous_batching: true``, as the serial dense path ignores
-    them in JAX too — the paged engine's backend, its gather kernels, and
-    speculation together with the prefix cache or chunked prefill. The
-    offline trainers (SFT, ILQL) collect
-    nothing: they evaluate on the paged engine, so those settings do not
-    reach them."""
-    t, e, m, par = config.train, config.engine, config.model, config.parallel
+    method's ``LOSS_KERNELS`` hosts it). Every ``engine:`` setting runs
+    (:func:`validate_engine` keeps JAX's checks). The offline trainers
+    (SFT, ILQL) collect nothing: they evaluate on the paged engine, so the
+    engine settings do not reach them."""
+    m, par = config.model, config.parallel
     checks = []
     if collects_rollouts:
         loss_kernel = getattr(config.method, "loss_kernel", None)
@@ -277,22 +281,6 @@ def reject_unported(config, collects_rollouts: bool, seq2seq_ok: bool) -> None:
              f"kernel pair — {type(config.method).__name__} has no GAE/value-head loss to "
              f"fuse (hostable kernels: {list(hostable)})"),
         ]
-        if t.continuous_batching:
-            checks += [
-                (e.backend != "paged", f"engine.backend {e.backend!r}: the port's "
-                 "continuous engine is paged"),
-                (int(e.speculative) > 0 and e.prefix_cache, "engine.speculative with "
-                 "engine.prefix_cache: prefix hits are not ported with speculation"),
-                (int(e.speculative) > 0 and int(e.prefill_chunk) != 0, "engine.speculative "
-                 "with engine.prefill_chunk: chunked prefill is not ported with "
-                 "speculation"),
-                (e.decode_kernel != "pallas", f"engine.decode_kernel {e.decode_kernel!r}: "
-                 "the port runs the paged-decode kernel ('pallas'); the gather path is not "
-                 "ported"),
-                (e.prefill_kernel != "pallas", f"engine.prefill_kernel {e.prefill_kernel!r}: "
-                 "the port runs the paged-prefill kernel ('pallas'); the gather path is not "
-                 "ported"),
-            ]
     unported_faults = sorted({
         spec.kind for spec in FaultPlan.from_config(config.resilience.fault_plan).specs
         if spec.kind in UNPORTED_KINDS})
@@ -751,11 +739,26 @@ class TorchBaseTrainer(BaseRLTrainer):
         ))
         return GenerationConfig(**clean), extra
 
+    def _engine_compute(self) -> Tuple[bool, str, str]:
+        """``(paged, decode_kernel, prefill_kernel)`` of the continuous
+        engines. A rollout trainer runs ``engine:`` as JAX does (the dense
+        backend forces the dense compute, ``xla``); the offline trainers'
+        evaluation engine is the paged one on the in-place kernels."""
+        e = self.config.engine
+        if not self.collects_rollouts:
+            return True, "pallas", "pallas"
+        if e.backend != "paged":
+            return False, "xla", "xla"
+        return True, e.decode_kernel, e.prefill_kernel
+
     def _resolve_paged_spec(self, batch_size: int, prompt_len: int, gen_config,
-                            gamma: int = 0) -> PagedSpec:
-        """The pool geometry of ``engine:``; ``max_kv_blocks: 0`` sizes the
-        pool so every slot can reach full length. Speculative tables carry
-        entries for the ``gamma`` probe columns past ``P + N`` too."""
+                            gamma: int = 0) -> Optional[PagedSpec]:
+        """The pool geometry of ``engine:``, or None for the dense backend;
+        ``max_kv_blocks: 0`` sizes the pool so every slot can reach full
+        length. Speculative tables carry entries for the ``gamma`` probe
+        columns past ``P + N`` too."""
+        if not self._engine_compute()[0]:
+            return None
         bs = int(self.config.engine.kv_block_size)
         if bs < 1:
             raise ValueError(f"engine.kv_block_size {bs} must be >= 1")
@@ -792,17 +795,24 @@ class TorchBaseTrainer(BaseRLTrainer):
             raise ValueError("engine.speculative requires model.draft_model_path (no "
                              "draft model was built)")
         paged = self._resolve_paged_spec(batch_size, prompt_len, gen_config, gamma)
+        _, decode_kernel, prefill_kernel = self._engine_compute()
         key = ("slot_refill", gen_config, extra_kwargs, batch_size, prompt_len,
-               segment_len, paged, gamma)
+               segment_len, paged, decode_kernel, prefill_kernel, gamma)
         if key not in self._generate_fns:
             algo_adjust = self.adjust_logits_fn(dict(extra_kwargs))
             if gamma:
-                reject_spec_hooks(self.logit_mask, algo_adjust)
+                # the rounds take the mask separately (draft and target
+                # alike) and the algorithm's hook for the verify alone
+                hooks = dict(adjust_logits=algo_adjust,
+                             transition_mask=self._logit_mask_tensor(),
+                             draft_cfg=self.draft_tcfg)
+            else:
+                hooks = dict(adjust_logits=self._compose_logit_mask(algo_adjust))
             self._generate_fns[key] = make_slot_refill_fns(
                 self.tcfg, batch_size, prompt_len, gen_config,
-                adjust_logits=self._compose_logit_mask(algo_adjust),
                 segment_len=segment_len, paged=paged, device=self.device,
-                speculative=gamma, draft_cfg=self.draft_tcfg if gamma else None,
+                speculative=gamma, decode_kernel=decode_kernel,
+                prefill_kernel=prefill_kernel, **hooks,
             )
         return self._generate_fns[key]
 
@@ -875,11 +885,16 @@ class TorchBaseTrainer(BaseRLTrainer):
 
     def _serial_rollouts(self) -> bool:
         """Does ``generate`` run the serial engine? For a rollout trainer
-        with ``train.continuous_batching: false``, and for every seq2seq
-        trainer (its decoder has no paged path); the causal offline
-        trainers evaluate on the paged engine whatever it says."""
-        return self.is_seq2seq or (self.collects_rollouts
-                                   and not self.config.train.continuous_batching)
+        with ``train.continuous_batching: false``, for every seq2seq
+        trainer (its decoder has no paged path), and for an offline trainer
+        with a draft model (JAX's serial speculative sampler: ILQL's
+        speculative sampling); the other causal offline trainers evaluate
+        on the paged engine whatever it says."""
+        if self.is_seq2seq:
+            return True
+        if self.collects_rollouts:
+            return not self.config.train.continuous_batching
+        return self.draft_model is not None
 
     def _get_generate_fn(self, gen_config: GenerationConfig,
                          extra_kwargs: Tuple[Tuple[str, Any], ...] = ()) -> Callable:
@@ -887,7 +902,8 @@ class TorchBaseTrainer(BaseRLTrainer):
         seeds)`` of one sampling config (cached): the dense ``generate``
         with the composed logit hooks (``generate_seq2seq`` for a seq2seq
         model), or with a draft model the speculative sampler (``params``
-        the ``(target, draft)`` pair), which raises on either hook."""
+        the ``(target, draft)`` pair), which takes the mask and the
+        algorithm's hook separately."""
         key = ("serial", gen_config, extra_kwargs)
         if key not in self._generate_fns:
             algo_adjust = self.adjust_logits_fn(dict(extra_kwargs))

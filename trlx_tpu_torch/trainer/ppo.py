@@ -22,10 +22,11 @@ Port of ``trlx_tpu/trainer/ppo.py`` (``PPOTrainer``), causal and seq2seq:
   ``PPORLElement`` rows) on the main thread in submission order, so the
   store is the same at any depth. The store keeps the first
   ``num_rollouts`` rows in prompt order;
-- the continuous path queues prompt chunks on the paged
-  ``ContinuousEngine``, groups finished sequences ``B`` at a time in
-  completion order (the JAX order), and runs each group through the same
-  scoring forward, host stage and finalize;
+- the continuous path queues prompt chunks on the ``ContinuousEngine``,
+  groups finished sequences ``B`` at a time in completion order (the JAX
+  order), and runs each group through the same scoring forward, host
+  stage (inline at depth 0, on the :class:`RolloutPipeline` worker at
+  depth > 0 while the engine keeps stepping) and finalize;
 - ``loss_fn``: the train-step forward (flash-attention kernels on the
   card), then with ``method.loss_kernel: xla`` the staged loss
   (``get_advantages_and_returns``, then ``loss``), with ``pallas`` the
@@ -50,6 +51,7 @@ import copy
 import dataclasses
 import os
 from collections import deque
+from contextlib import ExitStack
 from time import perf_counter
 from typing import Any, Dict, Optional, Tuple
 
@@ -405,15 +407,19 @@ class PPOTrainer(TorchBaseTrainer):
                 rewards=rewards[i, :n_i],
             ))
 
-    def _collect_continuous(self, num_rollouts: int, elements: list,
+    def _collect_continuous(self, num_rollouts: int, depth: int, elements: list,
                             stats: Dict[str, float], acc: Dict[str, float]) -> None:
-        """Continuous-batching collection: prompt chunks (prefetched
-        ``train.rollout_pipeline_depth`` ahead; the host stage of a group
-        runs inline) are queued while the expected rows cannot cover the target; every
-        engine step's harvest is grouped B at a time in completion order,
-        scored and finalized immediately; the partial tail flushes once the
-        engine drains."""
+        """Continuous-batching collection: prompt chunks are queued while
+        the expected rows cannot cover the target; every engine step's
+        harvest is grouped B at a time in completion order and each group's
+        scoring forward dispatched at once. Its host stage runs inline at
+        ``train.rollout_pipeline_depth`` 0, else on the
+        :class:`RolloutPipeline` worker (up to ``depth`` groups in flight)
+        while the engine keeps stepping; finalize runs on this thread in
+        submission order, so the store equals the inline one. The partial
+        tail flushes once the engine drains."""
         if num_rollouts <= 0:
+            stats["throughput/rollout_overlap_frac"] = 0.0
             return
         gen_config, extra_kwargs = self._resolve_gen_config(eval_mode=False)
         state = {"engine": None, "supplied": 0, "finalized_rows": 0}
@@ -429,27 +435,53 @@ class PPOTrainer(TorchBaseTrainer):
             state["engine"].enqueue_prompts(ids, mask, self._row_seeds(ids.shape[0]))
             state["supplied"] += ids.shape[0]
 
-        def submit_group(group: list) -> None:
-            chunk = self._rollout_chunk_host(self._cb_group_device(group))
+        def finalize(chunk: Dict[str, Any]) -> None:
             state["finalized_rows"] += int(chunk["prompt_ids"].shape[0])
             self._rollout_chunk_finalize(chunk, elements, stats, acc)
 
-        while True:
-            while len(elements) + state["supplied"] - state["finalized_rows"] < num_rollouts:
-                fetch_chunk()
-            engine = state["engine"]
-            B = engine.B
-            if not engine.busy:
-                while harvest_buf:
+        t0 = perf_counter()
+        with ExitStack() as ctx:
+            pipe = None
+            if depth > 0:
+                pipe = ctx.enter_context(RolloutPipeline(
+                    depth=depth, finalize=finalize, name="rollout", tracer=self.obs.tracer))
+
+            def submit_group(group: list) -> None:
+                dev = self._cb_group_device(group)
+                if pipe is None:
+                    finalize(self._rollout_chunk_host(dev))
+                    return
+
+                def work(dev=dev):
+                    # fenced on the group's scoring copies (their event)
+                    with self.obs.span("rollout/overlap") as sp:
+                        sp.fence(dev["score_landing"].event)
+                        return self._rollout_chunk_host(dev)
+
+                pipe.submit(work)
+
+            while True:
+                # rows in the pipeline are supplied and not yet finalized:
+                # they count as expected elements
+                while len(elements) + state["supplied"] - state["finalized_rows"] < num_rollouts:
+                    fetch_chunk()
+                engine = state["engine"]
+                B = engine.B
+                if not engine.busy:
+                    while harvest_buf:
+                        group, harvest_buf = harvest_buf[:B], harvest_buf[B:]
+                        submit_group(group)
+                    if pipe is not None:
+                        pipe.drain()
+                    if len(elements) >= num_rollouts:
+                        break
+                    continue
+                harvest_buf.extend(engine.step())
+                while len(harvest_buf) >= B:
                     group, harvest_buf = harvest_buf[:B], harvest_buf[B:]
                     submit_group(group)
-                if len(elements) >= num_rollouts:
-                    break
-                continue
-            harvest_buf.extend(engine.step())
-            while len(harvest_buf) >= B:
-                group, harvest_buf = harvest_buf[:B], harvest_buf[B:]
-                submit_group(group)
+            stats["throughput/rollout_overlap_frac"] = (
+                pipe.stats.overlap_frac(perf_counter() - t0) if pipe is not None else 0.0)
 
         engine = state["engine"]
         engine_metrics = engine.stats.metrics()
@@ -528,7 +560,7 @@ class PPOTrainer(TorchBaseTrainer):
         depth = int(self.config.train.rollout_pipeline_depth or 0)
         exp_time = perf_counter()
         if self.config.train.continuous_batching:
-            self._collect_continuous(num_rollouts, elements, stats, acc)
+            self._collect_continuous(num_rollouts, depth, elements, stats, acc)
         elif depth > 0:
             self._collect_pipelined(num_rollouts, depth, elements, stats, acc)
         else:
