@@ -244,7 +244,20 @@ Phases, each printing one JSON line:
    the hooked ``generate`` in f32, and the trainer's own ``generate``
    with a two-layer draft. Phase 3 checks #1 after a 192-column hit over
    the speculative key width and #4 over rows sharing their first 12
-   blocks.
+   blocks;
+19. async RL (``slice_async``, after ``slice_hf``'s (a), on the policy
+   ``slice_serial`` trained): the PPO preset on the continuous paged path
+   with the fused loss and the clipped IW correction, ``async_rl`` in
+   thread mode: (a) at ``max_staleness: 0`` one collection whose store
+   equals the serial continuous path's from the same seeds; (b) two
+   actors at ``max_staleness: 1`` through ``trlx_tpu_torch.train`` for
+   32 steps: no chunk staler than 1, the ``async/*`` stats, the IW clip
+   fraction, ``time/exp`` beside ``slice_serial``'s, the actor/learner
+   span overlap, the snapshot copy and the peak memory, #1–#3 and #5–#8
+   all launching; (c) process mode on the file transport with one
+   ``run_actor`` child on the same card (its own launches reported in its
+   chunks, the npz write seconds); (d) the collective transport for one
+   collection; (e) GRPO async for one collection.
 
 Phase 3 and 5 time the plain versions and the library calls only at the
 shapes ``PERF.md`` records (the table's rows and its other shapes); at
@@ -6428,8 +6441,8 @@ def phase_slice_hf_gpt2(trainer, device="cuda", card="", sections=None):
         def hook(t):
             score = t._dispatch_score
 
-            def first_score(*args):
-                out = score(*args)
+            def first_score(*args, **kwargs):
+                out = score(*args, **kwargs)
                 if not scored:
                     scored["args"] = [torch.as_tensor(a).clone() for a in args]
                     scored["logprobs"] = out["logprobs"].detach().clone()
@@ -6636,6 +6649,426 @@ def phase_slice_hf_t5(trainer, device="cuda", card="", rows=4, max_new=24):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# async RL on the card — the actor/learner split
+# ---------------------------------------------------------------------------
+
+# the card path: the engine's kernels on the actor threads, the flash
+# kernels and the fused loss (with its IW operand) on the learner
+ASYNC_KERNELS = SERVE_KERNELS + TRAIN_KERNELS
+# (b): the presets' two collections of 128 rollouts, 16 updates each
+ASYNC_STEPS = 32
+# (c): the process-mode run, cut to one PPO epoch (4 updates a phase) so
+# that two collections take 8 updates, each published as a weights file
+# (publishing at the phase ends only)
+ASYNC_PROCESS = dict(total_steps=8, ppo_epochs=1, sync_every=4)
+ASYNC_CHILD_LIMIT_S = 600
+# (a): the serial continuous store against the async one, matched by prompt
+# and response: the same rows scored in another batch order (bf16)
+ASYNC_LOGPROB_ATOL = 5e-2
+# (e): the sampler's bf16 decode logprobs against the scoring forward's bf16
+# pass over the same tokens and weights; a row or version mismatch moves
+# them by whole nats
+ASYNC_BEHAVIOR_GAP_TOL = 0.5
+
+
+def async_card_config(ckpt, spec="builtin:gpt2-small", total_steps=ASYNC_STEPS, sections=None,
+                      **async_rl):
+    """``serial_config`` with the card path of the async slice: the
+    continuous path on the paged engine and its kernels, the fused loss
+    with the clipped IW correction, and ``async_rl`` (thread mode unless
+    ``async_rl`` says otherwise; ``enabled: False`` is the serial
+    continuous path); ``sections`` (a CPU rehearsal's sizes) evolve it
+    further."""
+    config = serial_config(
+        ckpt, spec, total_steps, 10 ** 6, train=dict(continuous_batching=True),
+        engine=dict(backend="paged", decode_kernel="pallas", prefill_kernel="pallas"),
+        method=dict(loss_kernel="pallas", iw_correction="clip"),
+        async_rl={"enabled": True, "mode": "thread", **async_rl})
+    return config.evolve(**sections) if sections else config
+
+
+def store_pairs(trainer):
+    """The store's elements sorted by (prompt, response) bytes."""
+    return sorted(trainer.store.history,
+                  key=lambda e: (e.query_tensor.tobytes(), e.response_tensor.tobytes()))
+
+
+def store_gaps(got, want):
+    """Tokens equal row for row (``store_pairs`` order) and the largest
+    logprob and value gaps, or the first row whose tokens differ."""
+    if len(got) != len(want):
+        return {"rows": [len(got), len(want)], "tokens_equal": False}
+    lp = val = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not (np.array_equal(a.query_tensor, b.query_tensor)
+                and np.array_equal(a.response_tensor, b.response_tensor)):
+            return {"rows": len(got), "tokens_equal": False, "first_unequal": i}
+        lp = max(lp, float(np.abs(a.logprobs - b.logprobs).max()))
+        val = max(val, float(np.abs(a.values - b.values).max()))
+    return {"rows": len(got), "tokens_equal": True, "logprob_max_abs_gap": lp,
+            "value_max_abs_gap": val}
+
+
+def union_s(intervals):
+    """Seconds covered by the union of ``(t0, t1)`` intervals."""
+    total, end = 0.0, -math.inf
+    for t0, t1 in sorted(intervals):
+        if t1 > end:
+            total += t1 - max(t0, end)
+            end = t1
+    return total
+
+
+def span_overlap(events, a, b):
+    """Union seconds of the spans named ``a``, of those named ``b``, and of
+    their intersection (Chrome-trace microseconds in, seconds out)."""
+    def spans(name):
+        return [(e["ts"] * 1e-6, (e["ts"] + e["dur"]) * 1e-6) for e in events
+                if e.get("ph") == "X" and e.get("name") == name]
+
+    sa, sb = spans(a), spans(b)
+    both = [(max(x0, y0), min(x1, y1)) for x0, x1 in sa for y0, y1 in sb
+            if min(x1, y1) > max(x0, y0)]
+    return union_s(sa), union_s(sb), union_s(both)
+
+
+def ppo_trainer(config, prompts, dev, policy=None, reward=None):
+    """A PPO (or GRPO) trainer with its prompt pipeline (``policy``: a
+    state dict to start from, the reference re-taken from it; ``reward``:
+    default ``profile_train.reward_fn``)."""
+    import trlx_tpu_torch.trainer.grpo  # noqa: F401 (registers GRPOTrainer)
+    from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
+    from trlx_tpu_torch.profile_train import reward_fn
+    from trlx_tpu_torch.trainer import get_trainer
+
+    trainer = get_trainer(config.train.trainer)(config=config, reward_fn=reward or reward_fn,
+                                                device=dev)
+    if policy is not None:
+        trainer.model.load_state_dict(policy)
+        trainer.ref_params = trainer._ref_snapshot()
+    width = config.train.seq_length - config.method.gen_kwargs["max_new_tokens"]
+    trainer.add_prompt_pipeline(PromptPipeline(prompts, width, trainer.tokenizer))
+    return trainer
+
+
+def async_actor_child(config_json, device, n_prompts=SERIAL_PROMPTS):
+    """The process-mode actor of ``slice_async``'s (c), run in a fresh
+    interpreter: ``run_actor`` on the config, the slice's reward and
+    prompts, until the learner marks the spool done."""
+    import trlx_tpu_torch.trainer.ppo  # noqa: F401 (registers PPOConfig)
+    from trlx_tpu_torch.async_rl.actor import run_actor
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.profile_train import reward_fn, slice_prompts
+
+    config = TRLConfig.from_dict(json.loads(config_json))
+    n = run_actor(config, reward_fn=reward_fn, prompts=slice_prompts(n_prompts),
+                  device=device)
+    print("ACTOR_DONE", n, flush=True)
+
+
+def phase_slice_async(serial, device="cuda", spec="builtin:gpt2-small", card="",
+                      sections=None, process=ASYNC_PROCESS, steps=ASYNC_STEPS,
+                      n_prompts=SERIAL_PROMPTS):
+    """Async RL on the card: the presets' PPO on the card path
+    (``async_card_config``) from the policy ``slice_serial`` trained
+    (``serial``, kept for ``slice_hf``), with ``async_rl`` in thread mode:
+
+    (a) at ``max_staleness: 0``, one collection, the store against the
+    serial continuous path's from the same seeds: tokens equal, the
+    logprob gap stated (``ASYNC_LOGPROB_ATOL``);
+    (b) ``trlx_tpu_torch.train`` at ``max_staleness: 1`` with 2 actors for
+    two collections (``ASYNC_STEPS``): every chunk's staleness <= 1, the
+    ``async/*`` stats, the IW clip fraction, ``time/exp`` beside
+    ``slice_serial``'s, the actors' busy time against the learner's
+    train steps (span overlap), one weights snapshot's copy ms and bytes,
+    the peak memory, and the launches: counts set to 0 just before and
+    read just after, #1–#3 and #5–#8 must all launch;
+    (c) process mode on the file transport: one ``run_actor`` child (a
+    fresh interpreter on the same card, the seed's weights on both sides as
+    the process-mode actor builds its own trainer) for two collections
+    (``ASYNC_PROCESS``), the npz write seconds, and the child's launch counts
+    reported in its chunks (#1–#3 must launch there);
+    (d) the collective transport in thread mode for one collection, two
+    fleet members, its store's tokens equal (a)'s;
+    (e) GRPO async for one collection on ``default_grpo_config()`` (the
+    bare LM starts from the same policy's backbone): the sampler's
+    behaviour logprobs against the scoring forward's.
+
+    ``sections`` (a CPU rehearsal's sizes) evolve every config; ``process``,
+    ``steps`` and ``n_prompts`` cut (c), (b) and the prompts. Returns (b)'s
+    launches."""
+    import shutil
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.async_rl.channel import snapshot_params
+    from trlx_tpu_torch.profile_train import reward_fn, slice_prompts
+
+    dev = torch.device(device)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    problems, rec = [], {"phase": "slice_async", "card": card}
+    policy = {k: v.detach().clone() for k, v in serial.model.state_dict().items()}
+    prompts = slice_prompts(n_prompts)
+    serial_exp = [st["time/exp"] for _, st in serial.tracker.history if "time/exp" in st]
+
+    # (c)'s actor child starts first: its interpreter and trainer come up
+    # while (a) and (b) run, then it waits on the weights manifest
+    ckpt_c, root = _scratch_dir("slice_async_c"), _scratch_dir("slice_async_root")
+    pconfig = async_card_config(ckpt_c, spec, process["total_steps"], sections, mode="process",
+                                root_dir=root, max_staleness=0, actor_timeout_s=300.0,
+                                sync_every=process["sync_every"])
+    pconfig = pconfig.evolve(method=dict(ppo_epochs=process["ppo_epochs"]))
+    log_path = os.path.join(root, "actor.log")
+    child_src = ("import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
+                 "chip_smoke.async_actor_child({cfg!r}, {dev!r}, {n})").format(
+        root=ROOT, cfg=json.dumps(pconfig.to_dict()), dev=str(dev), n=n_prompts)
+    with open(log_path, "w") as log:
+        child = subprocess.Popen([sys.executable, "-c", child_src], stdout=log,
+                                 stderr=subprocess.STDOUT, cwd=ROOT)
+    try:
+        # -- (a) staleness 0 against the serial continuous path ----------------
+        ckpt = _scratch_dir("slice_async_a")
+        try:
+            cb = ppo_trainer(async_card_config(ckpt, spec, sections=sections, enabled=False),
+                             prompts, dev, policy)
+            n = cb.config.method.num_rollouts
+            cb.make_experience(n)
+            want = store_pairs(cb)
+            cb_exp = cb.make_experience_stats["time/exp"]
+            cb._shutdown_collectors()
+            del cb
+            asy = ppo_trainer(async_card_config(ckpt, spec, sections=sections, max_staleness=0),
+                              prompts, dev, policy)
+            try:
+                sync()
+                zero_launch_counts()
+                asy.make_experience(n)
+                sync()
+                launches_a = launch_counts()
+            finally:
+                asy._shutdown_collectors()
+            stats = asy.make_experience_stats
+            got = store_pairs(asy)
+            rec["a"] = {"staleness_max": stats["async/staleness_max"],
+                        "chunks": stats["async/chunks"], "time_exp_s": stats["time/exp"],
+                        "serial_continuous_time_exp_s": cb_exp, "launches": launches_a,
+                        **store_gaps(got, want)}
+            del asy
+            if not rec["a"]["tokens_equal"]:
+                problems.append(f"(a) the async store's tokens differ from the serial one's: "
+                                f"{rec['a']}")
+            elif rec["a"]["logprob_max_abs_gap"] > ASYNC_LOGPROB_ATOL:
+                problems.append(f"(a) logprob gap {rec['a']['logprob_max_abs_gap']}")
+            if stats["async/staleness_max"] != 0.0:
+                problems.append(f"(a) staleness {stats['async/staleness_max']} at bound 0")
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # -- (b) the card path at staleness 1, two actors -----------------------
+        ckpt = _scratch_dir("slice_async_b")
+        config = async_card_config(ckpt, spec, steps, sections, num_actors=2, max_staleness=1)
+
+        def hook(trainer):
+            trainer.model.load_state_dict(policy)
+            trainer.ref_params = trainer._ref_snapshot()
+            trainer.save = lambda *a, **k: None  # the run's f32 state: no file needed
+
+        try:
+            sync()
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+                before_gb = torch.cuda.memory_allocated(dev) / 1e9
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            # -- the main path -------------------------------------------------
+            trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=prompts, config=config,
+                                           init_trainer_hook=hook, device=dev)
+            sync()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            # ------------------------------------------------------------------
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        hist = trainer.tracker.history
+        steps_st = [st for _, st in hist if "gradients/global_norm" in st]
+        collections = [st for _, st in hist if "time/exp" in st]
+        actor_s, learner_s, overlap_s = span_overlap(trainer.obs.tracer.events(),
+                                                     "async/actor_chunk", "train_step")
+        snap_bytes = sum(t.numel() * t.element_size() for t in trainer.model.state_dict().values())
+        copies = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            snap = snapshot_params(trainer.model)
+            sync()
+            copies.append(1e3 * (time.perf_counter() - t0))
+            del snap
+        rec["b"] = {"settings": {"num_actors": 2, "max_staleness": 1, "steps": steps,
+                                 "num_rollouts": config.method.num_rollouts,
+                                 "chunk_size": config.method.chunk_size},
+                    "optimizer_steps": len(steps_st), "wall_s": wall,
+                    "collections": [{k: v for k, v in c.items() if k.startswith("async/")}
+                                    for c in collections],
+                    "staleness_max": max(c["async/staleness_max"] for c in collections),
+                    "iw_rho_clipfrac": [st.get("iw/rho_clipfrac") for st in steps_st],
+                    "iw_rho_mean": [st.get("iw/rho_mean") for st in steps_st],
+                    "time_exp_s": [c["time/exp"] for c in collections],
+                    "serial_time_exp_s": serial_exp,
+                    "train_step_ms_median": statistics.median(1e3 * st["time/step"]
+                                                              for st in steps_st),
+                    "actor_busy_s": actor_s, "learner_train_s": learner_s, "overlap_s": overlap_s,
+                    "publish_copy_ms": copies, "snapshot_gb": snap_bytes / 1e9,
+                    "weight_syncs": trainer.metrics.counter("async/weight_syncs"),
+                    "launches": launches}
+        if dev.type == "cuda":
+            rec["b"]["memory_gb"] = {"before": before_gb,
+                                     "peak": torch.cuda.max_memory_allocated(dev) / 1e9}
+        losses = [st["losses/total_loss"] for st in steps_st]
+        if len(steps_st) != steps or len(collections) != 2 or not all(map(math.isfinite, losses)):
+            problems.append(f"(b) {len(steps_st)} steps, {len(collections)} collections, {losses}")
+        if rec["b"]["staleness_max"] > 1.0:
+            problems.append(f"(b) staleness {rec['b']['staleness_max']} above the bound 1")
+        if not all(e.behavior_logprobs is not None for e in trainer.store.history):
+            problems.append("(b) behaviour logprobs missing from the store")
+        if any(x is None for x in rec["b"]["iw_rho_clipfrac"]):
+            problems.append("(b) a step without the IW stats")
+        if dev.type == "cuda" and min(launches[k] for k in ASYNC_KERNELS) <= 0:
+            problems.append(f"(b) a kernel of the card path never launched: {launches}")
+        trainer._shutdown_collectors()
+        del trainer
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # -- (c) process mode: the run_actor child started above -------------
+        writes = []
+
+        def phook(t):
+            t.save = lambda *a, **k: None
+            channel = t._ensure_async_collector().channel
+            publish = channel.publish
+
+            def timed(params, version, force=False):
+                t0 = time.perf_counter()
+                publish(params, version, force=force)
+                writes.append(time.perf_counter() - t0)
+
+            channel.publish = timed
+
+        learner = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=prompts, config=pconfig,
+                                       init_trainer_hook=phook, device=dev)
+        child_rc = child.wait(ASYNC_CHILD_LIMIT_S)
+        with open(log_path) as f:
+            child_log = f.read()
+        pcols = [st for _, st in learner.tracker.history if "time/exp" in st]
+        child_launches = [{k.split("/")[-1]: v for k, v in c.items()
+                           if k.startswith("async/actor_launches/")} for c in pcols]
+        weights_gb = sum(t.numel() * 4 for t in learner.model.state_dict().values()) / 1e9
+        rec["c"] = {"settings": process, "child_rc": child_rc,
+                    "child_chunks": child_log.split("ACTOR_DONE")[-1].split()[0]
+                    if "ACTOR_DONE" in child_log else None,
+                    "collections": len(pcols),
+                    "staleness_max": [c.get("async/staleness_max") for c in pcols],
+                    "time_exp_s": [c["time/exp"] for c in pcols],
+                    "child_launches": child_launches,
+                    "npz_writes": len([w for w in writes if w > 1e-3]),
+                    "npz_write_s": [w for w in writes if w > 1e-3], "npz_gb": weights_gb}
+        learner._shutdown_collectors()
+        del learner
+        if child_rc != 0 or "ACTOR_DONE" not in child_log:
+            problems.append(f"(c) the actor child failed (rc {child_rc}): {child_log[-2000:]}")
+        if len(pcols) != 2 or any(c.get("async/staleness_max") != 0.0 for c in pcols):
+            problems.append(f"(c) collections {rec['c']}")
+        if dev.type == "cuda" and not all(min(c.get(k, 0) for k in SERVE_KERNELS) > 0
+                                          for c in child_launches):
+            problems.append(f"(c) #1-#3 did not launch in the actor child: {child_launches}")
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # -- (d) the collective transport, thread mode, one collection ---------
+        ckpt = _scratch_dir("slice_async_d")
+        try:
+            fleet = ppo_trainer(async_card_config(ckpt, spec, sections=sections, max_staleness=0,
+                                                  num_actors=2, transport="collective"),
+                                prompts, dev, policy)
+            try:
+                sync()
+                zero_launch_counts()
+                fleet.make_experience(n)
+                sync()
+                launches_d = launch_counts()
+            finally:
+                fleet._shutdown_collectors()
+            stats = fleet.make_experience_stats
+            rec["d"] = {"fleet_size": stats.get("async/fleet_size"),
+                        "publish_gb": stats.get("async/publish_bytes", 0.0) / 1e9,
+                        "time_exp_s": stats["time/exp"],
+                        "staleness_max": stats["async/staleness_max"],
+                        "launches": launches_d, **store_gaps(store_pairs(fleet), want)}
+            del fleet
+            if not rec["d"]["tokens_equal"] or rec["d"]["fleet_size"] != 2.0:
+                problems.append(f"(d) {rec['d']}")
+            if dev.type == "cuda" and min(launches_d[k] for k in SERVE_KERNELS) <= 0:
+                problems.append(f"(d) #1-#3 never launched: {launches_d}")
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # -- (e) GRPO async, one collection ------------------------------------
+        ckpt = _scratch_dir("slice_async_e")
+        try:
+            gconfig = grpo_config(ckpt, spec, async_rl=dict(enabled=True, mode="thread",
+                                                            max_staleness=0),
+                                  method=dict(iw_correction="clip"))
+            if sections:
+                gconfig = gconfig.evolve(**{k: v for k, v in sections.items() if k != "method"})
+            backbone = {k[len("backbone."):]: v for k, v in policy.items()
+                        if k.startswith("backbone.")}
+            grpo = ppo_trainer(gconfig, prompts, dev, backbone, reward=grpo_reward)
+            try:
+                sync()
+                zero_launch_counts()
+                grpo.make_experience(gconfig.method.num_rollouts)
+                sync()
+                launches_e = launch_counts()
+            finally:
+                grpo._shutdown_collectors()
+            hist_e = grpo.store.history
+            gap = max(float(np.abs(e.behavior_logprobs - e.logprobs).max()) for e in hist_e)
+            G = gconfig.method.group_size
+            adv = np.asarray([e.advantage for e in hist_e])
+            rec["e"] = {"rows": len(hist_e), "chunks": grpo.make_experience_stats["async/chunks"],
+                        "behavior_vs_scoring_logprob_gap": gap,
+                        "group_advantage_mean_max": float(np.abs(
+                            adv[: len(adv) // G * G].reshape(-1, G).mean(axis=1)).max()),
+                        "time_exp_s": grpo.make_experience_stats["time/exp"],
+                        "launches": launches_e}
+            del grpo
+            if len(hist_e) != gconfig.method.num_rollouts or gap > ASYNC_BEHAVIOR_GAP_TOL:
+                problems.append(f"(e) {rec['e']}")
+            if dev.type == "cuda" and launches_e["flash_fwd"] <= 0:
+                problems.append(f"(e) #5 never launched: {launches_e}")
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(60)
+        shutil.rmtree(ckpt_c, ignore_errors=True)
+        shutil.rmtree(root, ignore_errors=True)
+    zero_launch_counts()
+    emit({**rec, "ok": not problems})
+    if problems:
+        raise AssertionError(f"slice_async: {problems}")
+    return launches
+
+
 def kernel_record(name, launches, max_abs_err, rec, by_path):
     """One kernel's entry: ``launches`` from its own slice's main path,
     ``launches_by_path`` from every path's run."""
@@ -6699,6 +7132,7 @@ def run_phases(clocked, seconds):
     serial_launches, serial_trainer = clocked(phase_slice_serial, card=smi, keep=True)
     hf_launches = Counter(clocked(phase_slice_hf_gpt2, serial_trainer, card=smi,
                                   _as="slice_hf"))
+    async_launches = clocked(phase_slice_async, serial_trainer, card=smi)
     del serial_trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -6782,7 +7216,8 @@ def run_phases(clocked, seconds):
                "serve_train": serve_train_launches, "hf": {**served, **hf_launches},
                "spec_prefix": spec_prefix_launches, "engine_dense": engine_dense_launches,
                "grpo_spec": grpo_spec_launches, "family_spec": family_spec_launches,
-               "ilql_spec": offline["ilql_spec"]["trainer_generate"]["launches"]}
+               "ilql_spec": offline["ilql_spec"]["trainer_generate"]["launches"],
+               "async": async_launches}
     kernels = [kernel_record(name, serve_launches[name], timed[name]["max_abs_err"], timed[name],
                              by_path)
                for name in SERVE_KERNELS]

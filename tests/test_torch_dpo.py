@@ -336,7 +336,7 @@ def test_construction_checks_raise_as_jax(tmp_path, override, error, match):
     ({"parallel": {"fsdp": 2}}, "parallel.fsdp"),
     # remat, trackers and the retention ring run; these wait for their
     # subsystems
-    ({"resilience": {"fault_plan": "actor_crash@collection:2"}}, "resilience.fault_plan"),
+    ({"resilience": {"fault_plan": "sigterm_one_proc@step:2"}}, "resilience.fault_plan"),
     ({"resilience": {"fault_plan": "flightrec_dump@step:4; topology_shrink@resume:1"}},
      "resilience.fault_plan"),
     ({"parallel": {"scan_layers": True, "pipe": 4}}, "parallel.pipe"),

@@ -147,6 +147,8 @@ def test_every_cuda_source_has_wrapper_counter_and_plain_version():
         src = inspect.getsource(wrapper)
         # counted where the kernel launches, and the plain version only for CPU tensors
         assert src.count(f"{wrapper_name}.launches += 1") == 1
+        # actor threads launch beside the learner: no count may be lost
+        assert f"with launch_lock:  # actor threads launch beside the learner\n        {wrapper_name}.launches += 1" in src
         assert f'kernel_fn("{stem}"' in src
         assert 'device.type == "cpu"' in src and plain_name in src
 

@@ -203,7 +203,9 @@ def test_train_entry_point_end_to_end(tmp_path):
 @pytest.mark.parametrize(
     "override,setting",
     [
-        ({"async_rl": {"enabled": True}}, "async_rl.enabled"),
+        # async collection runs (tests/test_torch_async_rl.py); the parallel
+        # axes wait for their subsystem
+        ({"parallel": {"sequence": 2}}, "parallel.sequence"),
         # serving inside the trainer, the prefix cache and chunked prefill
         # run (tests/test_torch_serve_training.py, test_torch_prefix_cache.py,
         # test_torch_chunked_prefill.py); JAX's serve.* checks refuse
@@ -228,9 +230,10 @@ def test_train_entry_point_end_to_end(tmp_path):
         # remat, trackers, profiles, rollout logs, the update guard, the
         # retention ring and the polled fault kinds run
         # (tests/test_torch_resilience_trainer.py, test_torch_trackers.py,
-        # test_torch_remat.py); a fault kind whose subsystem is not ported
-        # is refused, naming it
-        ({"resilience": {"fault_plan": "actor_crash@collection:1"}}, "resilience.fault_plan"),
+        # test_torch_remat.py), and so do the async kinds
+        # (tests/test_torch_async_rl.py); a fault kind whose subsystem is not
+        # ported is refused, naming it
+        ({"resilience": {"fault_plan": "sigterm_one_proc@step:1"}}, "resilience.fault_plan"),
         # seq2seq PPO runs (tests/test_torch_seq2seq_trainers.py; its
         # continuous-batching refusal is tested below); an arch type the
         # port does not know is refused
@@ -239,15 +242,16 @@ def test_train_entry_point_end_to_end(tmp_path):
         ({"model": {"peft_kwargs": {"peft_type": "prefix"}}}, "model.peft_kwargs"),
         # a draft whose vocabulary is not the policy's (50257 against 259)
         ({"model": {"draft_model_path": "builtin:gpt2-small"}}, "model.draft_model_path"),
-        ({"resilience": {"fault_plan": "weight_sync_drop@version:2"}}, "resilience.fault_plan"),
+        ({"resilience": {"fault_plan": "topology_shrink@resume:2"}}, "resilience.fault_plan"),
         # flightrec_dump, health_trip and sleep_one_proc are polled
         # (tests/test_torch_health.py); the kinds still unported are refused
         # beside polled ones too
         ({"resilience": {"fault_plan": "sigterm@step:2; topology_shrink@resume:1"}},
          "resilience.fault_plan"),
-        ({"resilience": {"fault_plan": "health_trip@step:1; actor_crash@collection:2"}},
+        ({"resilience": {"fault_plan": "health_trip@step:1; actor_crash@collection:2; "
+                                       "topology_shrink@resume:2"}},
          "resilience.fault_plan"),
-        ({"resilience": {"fault_plan": "sleep_one_proc@step:2*3; weight_sync_drop@version:1"}},
+        ({"resilience": {"fault_plan": "weight_sync_drop@version:1; sigterm_one_proc@step:1"}},
          "resilience.fault_plan"),
         ({"resilience": {"fault_plan": "sigterm_one_proc@step:5"}}, "resilience.fault_plan"),
         ({"method": {"loss_kernel": "mosaic"}}, "method.loss_kernel"),

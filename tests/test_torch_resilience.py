@@ -325,6 +325,6 @@ def test_polled_fault_kinds_and_env_plan_are_checked(tmp_path, monkeypatch):
     reject_unported(_config(tmp_path, fault_plan="; ".join(f"{k}@step:1"
                                                            for k in sorted(POLLED_KINDS))),
                     True, True)
-    monkeypatch.setenv("TRLX_TPU_FAULT_PLAN", "actor_crash@collection:1")
-    with pytest.raises(ValueError, match="actor_crash"):
+    monkeypatch.setenv("TRLX_TPU_FAULT_PLAN", "topology_shrink@resume:1")
+    with pytest.raises(ValueError, match="topology_shrink"):
         reject_unported(_config(tmp_path), True, True)

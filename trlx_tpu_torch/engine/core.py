@@ -356,10 +356,12 @@ class SerialEngine(Engine):
         self._submitted = 0
         self.stats = EngineStats()
 
-    def generate(self, input_ids, attention_mask, seeds):
+    def generate(self, input_ids, attention_mask, seeds, params=None):
         """The batch-synchronous path the trainer's ``generate`` takes:
-        whatever the wrapped program returns."""
-        return self._fn(self.params, input_ids, attention_mask, seeds)
+        whatever the wrapped program returns, under ``params`` (default:
+        the engine's own)."""
+        return self._fn(self.params if params is None else params, input_ids,
+                        attention_mask, seeds)
 
     def enqueue_prompts(self, input_ids, attention_mask, seeds=None, metas=None):
         raise NotImplementedError(

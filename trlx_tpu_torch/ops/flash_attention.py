@@ -41,6 +41,7 @@ from typing import Optional, Tuple
 import torch
 
 from trlx_tpu_torch.ops.kernel_utils import (
+    launch_lock,
     attention_flops,
     check_cuda_operand,
     check_head_dim,
@@ -170,7 +171,8 @@ def flash_fwd(
             int(k_offset), int(bool(causal)), int(window or 0), float(sm_scale),
             _DTYPE_CODE[q.dtype], current_stream_ptr(q.device))
     check_launch("flash_fwd", rc)
-    flash_fwd.launches += 1
+    with launch_lock:  # actor threads launch beside the learner
+        flash_fwd.launches += 1
     return out, lse
 
 
@@ -244,7 +246,8 @@ def flash_bwd(
             int(k_offset), int(bool(causal)), int(window or 0), float(sm_scale),
             _DTYPE_CODE[q.dtype], current_stream_ptr(q.device))
     check_launch("flash_bwd", rc)
-    flash_bwd.launches += 1
+    with launch_lock:  # actor threads launch beside the learner
+        flash_bwd.launches += 1
     return dq, dk, dv
 
 

@@ -38,6 +38,7 @@ import torch
 
 from trlx_tpu_torch.observability.dynamics import SKETCH_BINS
 from trlx_tpu_torch.ops.kernel_utils import (
+    launch_lock,
     check_cuda_operand,
     check_launch,
     current_stream_ptr,
@@ -220,7 +221,8 @@ def fused_loss_fwd(p: LossParams, operands: Tuple[torch.Tensor, ...]):
         buf.data_ptr(), B, R, *_scalar_args(p), int(p.dist_sketches),
         current_stream_ptr(device))
     check_launch("fused_loss_fwd", rc)
-    fused_loss_fwd.launches += 1
+    with launch_lock:  # actor threads launch beside the learner
+        fused_loss_fwd.launches += 1
     ns = len(_SCALAR_KEYS)
     scalars = buf[o + 1 + (0 if use_iw else len(_IW_KEYS)): o + 1 + ns]
     nh = len(_HIST_KEYS) if p.dist_sketches else 0
@@ -283,7 +285,8 @@ def fused_loss_bwd(p: LossParams, operands: Tuple[torch.Tensor, ...], res: torch
         ops[6].data_ptr() if use_iw else None, res.data_ptr(), g_loss.data_ptr(),
         out.data_ptr(), B, R, *_scalar_args(p)[2:], current_stream_ptr(device))
     check_launch("fused_loss_bwd", rc)
-    fused_loss_bwd.launches += 1
+    with launch_lock:  # actor threads launch beside the learner
+        fused_loss_bwd.launches += 1
     return out.unbind(0)
 
 

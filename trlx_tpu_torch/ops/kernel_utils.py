@@ -53,6 +53,7 @@ __all__ = [
     "load_kernel",
     "kernel_fn",
     "check_launch",
+    "launch_lock",
     "check_cuda_operand",
     "check_head_dim",
     "current_stream_ptr",
@@ -115,7 +116,10 @@ _NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: _lock
-_fns: Dict[str, tuple] = {}  # name → (library, its C entry with argtypes set)
+_fns: Dict[str, tuple] = {}  # name → (library, its C entry with argtypes set); guarded-by: _lock
+# every wrapper's ``launches += 1`` runs under this lock: async actor threads
+# launch beside the learner, and an unlocked read-add-store can lose a count
+launch_lock = threading.Lock()
 
 
 def resolve_device(device: Union[None, str, torch.device] = None) -> torch.device:
@@ -192,11 +196,15 @@ def kernel_fn(name: str, argtypes: list):
     hit = _fns.get(name)
     if hit is not None and hit[0] is lib:
         return hit[1]
-    fn = getattr(lib, name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    _fns[name] = (lib, fn)
-    return fn
+    with _lock:  # set once, never while another thread calls the entry
+        hit = _fns.get(name)
+        if hit is not None and hit[0] is lib:
+            return hit[1]
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[name] = (lib, fn)
+        return fn
 
 
 def check_launch(name: str, rc: int) -> None:

@@ -36,6 +36,7 @@ from typing import Optional, Tuple
 import torch
 
 from trlx_tpu_torch.ops.kernel_utils import (
+    launch_lock,
     attention_flops,
     check_cuda_operand,
     check_head_dim,
@@ -136,7 +137,8 @@ def paged_attention_decode(
             B, H, KV, D, NB, bs, TB, HB, S, _DTYPE_CODE[q.dtype],
             current_stream_ptr(q.device))
     check_launch("paged_decode", rc)
-    paged_attention_decode.launches += 1
+    with launch_lock:  # actor threads launch beside the learner
+        paged_attention_decode.launches += 1
     return out
 
 
@@ -213,7 +215,8 @@ def paged_verify_attention(
     out, args = span_launch_args(q, k_pool, v_pool, block_table, bias,
                                  "paged_verify_attention")
     check_launch("paged_prefill", kernel_fn("paged_prefill", SPAN_ARGTYPES)(*args))
-    paged_verify_attention.launches += 1
+    with launch_lock:  # actor threads launch beside the learner
+        paged_verify_attention.launches += 1
     return out
 
 
@@ -270,7 +273,8 @@ def fused_sample(
             tok.data_ptr(), lp.data_ptr(), B, V, float(temperature),
             int(top_k or 0), float(top_p), current_stream_ptr(logits.device))
     check_launch("fused_sample", rc)
-    fused_sample.launches += 1
+    with launch_lock:  # actor threads launch beside the learner
+        fused_sample.launches += 1
     return tok, lp
 
 

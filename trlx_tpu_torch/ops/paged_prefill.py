@@ -26,6 +26,7 @@ tensors; on CUDA tensors it launches the kernel or raises.
 import torch
 
 from trlx_tpu_torch.ops.kernel_utils import (
+    launch_lock,
     attention_flops,
     check_head_dim,
     check_launch,
@@ -65,7 +66,8 @@ def paged_prefill_attention(
     out, args = span_launch_args(q, k_pool, v_pool, block_table, bias,
                                  "paged_prefill_attention")
     check_launch("paged_prefill", kernel_fn("paged_prefill", SPAN_ARGTYPES)(*args))
-    paged_prefill_attention.launches += 1
+    with launch_lock:  # actor threads launch beside the learner
+        paged_prefill_attention.launches += 1
     return out
 
 

@@ -16,8 +16,9 @@ Plan syntax (``;``-separated entries, whitespace ignored)::
              step  — fires when the trainer's completed-update count == N
              save  — the Nth ``save_state`` call (1-based)
              request — the serve request id (1-based)
-             resume, collection, version — the JAX package's restore,
-                     async-collection and weight-publish counters
+             collection — the async collection a chunk feeds (1-based)
+             version — the async weight publish's version
+             resume — the JAX package's restore counter
     count    consecutive firings (default 1)
 
 The port polls the kinds whose sites it has (:data:`POLLED_KINDS`):
@@ -36,6 +37,10 @@ The port polls the kinds whose sites it has (:data:`POLLED_KINDS`):
                             # triage batch)
     sleep_one_proc@step:2   # the last rank sleeps SLEEP_FAULT_S in update 3
                             # (an injected straggler for cluster telemetry)
+    actor_crash@collection:2  # an async actor dies on its first chunk of
+                              # collection 2 (requeued, respawned or shrunk)
+    weight_sync_drop@version:3  # the async weight publish of version 3 is
+                                # dropped (actors keep version 2)
 
 The other kinds parse, and the trainer refuses a plan that names one
 (:data:`UNPORTED_KINDS` names the subsystem each waits for).
@@ -63,11 +68,10 @@ _KINDS = frozenset({
 POLLED_KINDS = frozenset({
     "reward_raise", "publish_raise", "sigterm", "sigint", "nan_loss", "crash_save",
     "slow_client", "request_flood", "flightrec_dump", "health_trip", "sleep_one_proc",
+    "actor_crash", "weight_sync_drop",
 })
 # the other kinds, and the subsystem of the port each waits for
 UNPORTED_KINDS = {
-    "actor_crash": "async RL (async_rl/*)",
-    "weight_sync_drop": "async RL (async_rl/*)",
     "sigterm_one_proc": "several processes (coordinated preemption)",
     "topology_shrink": "several processes (elastic restore)",
 }
@@ -156,21 +160,26 @@ class FaultPlan:
         return bool(self.specs)
 
     def poll(self, kind: str, step: Optional[int] = None,
+             collection: Optional[int] = None, version: Optional[int] = None,
              request: Optional[int] = None) -> bool:
         """Should the consulting site fault now?
 
         With no caller counter this is an *invocation* poll: the per-kind
         call counter advances by one and call/save/resume-triggered entries
-        match against it. With ``step=s`` (or ``request=r``) only the
-        step-triggered (request-triggered) entries are checked against the
-        caller's own counter (idempotent — the trainer polls once per
-        update, the serving frontend once per request). The port has no
-        collection or version sites."""
+        match against it. With ``step=s`` / ``collection=c`` /
+        ``version=v`` / ``request=r`` only the matching trigger's entries
+        are checked against the caller's own counter (idempotent — the
+        caller polls once per update / collection / publish / serve
+        request)."""
         if not self.specs:
             return False
         with self._lock:
             if step is not None:
                 value, triggers = step, ("step",)
+            elif collection is not None:
+                value, triggers = collection, ("collection",)
+            elif version is not None:
+                value, triggers = version, ("version",)
             elif request is not None:
                 value, triggers = request, ("request",)
             else:

@@ -87,6 +87,14 @@ Port of ``trlx_tpu/trainer/base.py`` (``TPUBaseTrainer``) as
   whenever the weights change: an optimizer step updates the policy in
   place, so the engines take the trainer's weights counter as their
   version;
+- async collection (``async_rl.enabled``, PPO and GRPO): actor threads
+  draw engines from the same caches as the learner, so the caches are
+  built under one lock (``_engine_lock``; the continuous engines are
+  tagged per actor thread), ``generate_serial`` takes an actor's weights
+  snapshot and seeds without touching the shared serial engine, and
+  :attr:`last_generate_time` / :attr:`last_generate_stats` are per
+  thread; ``learn`` stops the collectors (:meth:`_shutdown_collectors`)
+  on every way out of it;
 - ``save`` commits one ``torch.save`` file of model, optimizer, step and
   the trainer's host state (the rollout seed stream, torch's generators,
   the prompt-stream position) atomically (``utils/checkpoint.py``); an
@@ -105,6 +113,7 @@ import json
 import logging
 import os
 import signal
+import threading
 import time
 from abc import abstractmethod
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -261,9 +270,10 @@ def reject_unported(config, collects_rollouts: bool, seq2seq_ok: bool) -> None:
     windows, rollout logs, remat, the update guard, fault plans of the
     polled kinds and the retention ring run.
 
-    ``collects_rollouts`` (PPO, GRPO) adds the rollout settings: async
-    collection, the loss kernel's name (and ``pallas`` only where the
-    method's ``LOSS_KERNELS`` hosts it). Every ``engine:`` setting runs
+    ``collects_rollouts`` (PPO, GRPO) adds the rollout settings: the loss
+    kernel's name (and ``pallas`` only where the method's ``LOSS_KERNELS``
+    hosts it). Async collection (``async_rl``) runs, its own settings
+    checked where the collector is built. Every ``engine:`` setting runs
     (:func:`validate_engine` keeps JAX's checks). The offline trainers
     (SFT, ILQL) collect nothing: they evaluate on the paged engine, so the
     engine settings do not reach them."""
@@ -273,7 +283,6 @@ def reject_unported(config, collects_rollouts: bool, seq2seq_ok: bool) -> None:
         loss_kernel = getattr(config.method, "loss_kernel", None)
         hostable = getattr(type(config.method), "LOSS_KERNELS", ("xla", "pallas"))
         checks += [
-            (config.async_rl.enabled, "async_rl.enabled: async collection is not ported"),
             (loss_kernel not in ("xla", "pallas"), f"method.loss_kernel {loss_kernel!r}: "
              "'xla' (the staged loss) or 'pallas' (the fused loss kernels)"),
             (loss_kernel == "pallas" and "pallas" not in hostable,
@@ -463,7 +472,11 @@ class TorchBaseTrainer(BaseRLTrainer):
             if getattr(config.method, "gen_experience_kwargs", None) else None
         )
         self._generate_fns: Dict[Any, Any] = {}
+        # the engine and program caches: actor threads build from them too
+        self._engine_lock = threading.RLock()
         # the last generate's engine stats, and its device-complete seconds
+        # (per thread: async actors generate beside the learner)
+        self._generate_local = threading.local()
         self.last_generate_stats: Dict[str, float] = {}
         self.last_generate_time = 0.0
         # prompt chunks drawn from the prompt iterator: a checkpoint records
@@ -493,6 +506,24 @@ class TorchBaseTrainer(BaseRLTrainer):
         self.iter_count = 0
         self.nth_evaluation = 0
         self.best_reward = -float("inf")
+
+    @property
+    def last_generate_stats(self) -> Dict[str, float]:
+        """This thread's last generate's engine stats."""
+        return getattr(self._generate_local, "stats", {})
+
+    @last_generate_stats.setter
+    def last_generate_stats(self, stats: Dict[str, float]) -> None:
+        self._generate_local.stats = stats
+
+    @property
+    def last_generate_time(self) -> float:
+        """This thread's last serial generate's device-complete seconds."""
+        return getattr(self._generate_local, "time", 0.0)
+
+    @last_generate_time.setter
+    def last_generate_time(self, seconds: float) -> None:
+        self._generate_local.time = seconds
 
     # ------------------------------------------------------------------
     # subclass contract
@@ -798,23 +829,24 @@ class TorchBaseTrainer(BaseRLTrainer):
         _, decode_kernel, prefill_kernel = self._engine_compute()
         key = ("slot_refill", gen_config, extra_kwargs, batch_size, prompt_len,
                segment_len, paged, decode_kernel, prefill_kernel, gamma)
-        if key not in self._generate_fns:
-            algo_adjust = self.adjust_logits_fn(dict(extra_kwargs))
-            if gamma:
-                # the rounds take the mask separately (draft and target
-                # alike) and the algorithm's hook for the verify alone
-                hooks = dict(adjust_logits=algo_adjust,
-                             transition_mask=self._logit_mask_tensor(),
-                             draft_cfg=self.draft_tcfg)
-            else:
-                hooks = dict(adjust_logits=self._compose_logit_mask(algo_adjust))
-            self._generate_fns[key] = make_slot_refill_fns(
-                self.tcfg, batch_size, prompt_len, gen_config,
-                segment_len=segment_len, paged=paged, device=self.device,
-                speculative=gamma, decode_kernel=decode_kernel,
-                prefill_kernel=prefill_kernel, **hooks,
-            )
-        return self._generate_fns[key]
+        with self._engine_lock:
+            if key not in self._generate_fns:
+                algo_adjust = self.adjust_logits_fn(dict(extra_kwargs))
+                if gamma:
+                    # the rounds take the mask separately (draft and target
+                    # alike) and the algorithm's hook for the verify alone
+                    hooks = dict(adjust_logits=algo_adjust,
+                                 transition_mask=self._logit_mask_tensor(),
+                                 draft_cfg=self.draft_tcfg)
+                else:
+                    hooks = dict(adjust_logits=self._compose_logit_mask(algo_adjust))
+                self._generate_fns[key] = make_slot_refill_fns(
+                    self.tcfg, batch_size, prompt_len, gen_config,
+                    segment_len=segment_len, paged=paged, device=self.device,
+                    speculative=gamma, decode_kernel=decode_kernel,
+                    prefill_kernel=prefill_kernel, **hooks,
+                )
+            return self._generate_fns[key]
 
     def _engine_params(self, params: Any = None) -> Any:
         """The model the rollout engines run (the policy itself: the
@@ -843,24 +875,30 @@ class TorchBaseTrainer(BaseRLTrainer):
         engine_p = max(int(self.config.train.seq_length) - gen_config.max_new_tokens,
                        chunk_width)
         key = ("cb_engine", gen_config, extra_kwargs, rows, engine_p, seg, tag)
-        engine = self._generate_fns.get(key)
         if version is None and params is None:
             version = self._weights_version
-        if engine is None:
-            fns = self._get_slot_refill_fns(gen_config, extra_kwargs, rows, engine_p, seg)
-            engine = ContinuousEngine(
-                fns, self._engine_params(params), self.tokenizer.pad_token_id,
-                # fenced rollout/segment spans, per-request lifecycle events
-                span=self.obs.span, tracer=self.obs.tracer,
-                prefix_cache=prefix_and_chunks and self._prefix_cache_enabled(),
-                prefix_capacity_blocks=int(self.config.engine.prefix_cache_blocks),
-                prefill_chunk=int(self.config.engine.prefill_chunk) if prefix_and_chunks else 0)
-            self._generate_fns[key] = engine
+        with self._engine_lock:  # async actors build theirs beside the learner
+            engine = self._generate_fns.get(key)
+            if engine is None:
+                fns = self._get_slot_refill_fns(gen_config, extra_kwargs, rows, engine_p, seg)
+                engine = ContinuousEngine(
+                    fns, self._engine_params(params), self.tokenizer.pad_token_id,
+                    # fenced rollout/segment spans, per-request lifecycle events
+                    span=self.obs.span, tracer=self.obs.tracer,
+                    prefix_cache=prefix_and_chunks and self._prefix_cache_enabled(),
+                    prefix_capacity_blocks=int(self.config.engine.prefix_cache_blocks),
+                    prefill_chunk=(int(self.config.engine.prefill_chunk)
+                                   if prefix_and_chunks else 0))
+                self._generate_fns[key] = engine
         engine.begin_collection(self._engine_params(params), version=version)
         return engine
 
-    def _row_seeds(self, rows: int) -> np.ndarray:
-        return self._rollout_seeds.randint(0, 2**31 - 1, size=rows).astype(np.int64)
+    def _row_seeds(self, rows: int, stream: Optional[np.random.RandomState] = None
+                   ) -> np.ndarray:
+        """``rows`` per-row sampling seeds from the rollout seed stream (or
+        from ``stream``, an async collector's copy of it)."""
+        stream = self._rollout_seeds if stream is None else stream
+        return stream.randint(0, 2**31 - 1, size=rows).astype(np.int64)
 
     def _compose_logit_mask(self, adjust: Optional[Callable]) -> Optional[Callable]:
         """Chain the transition ``logit_mask`` after the algorithm's logit
@@ -905,48 +943,60 @@ class TorchBaseTrainer(BaseRLTrainer):
         the ``(target, draft)`` pair), which takes the mask and the
         algorithm's hook separately."""
         key = ("serial", gen_config, extra_kwargs)
-        if key not in self._generate_fns:
-            algo_adjust = self.adjust_logits_fn(dict(extra_kwargs))
-            if self.is_seq2seq:
-                adjust = self._compose_logit_mask(algo_adjust)
-                start_id = self.tcfg.decoder_start_token_id
+        with self._engine_lock:
+            if key not in self._generate_fns:
+                self._generate_fns[key] = self._build_generate_fn(gen_config, extra_kwargs)
+            return self._generate_fns[key]
 
-                def fn(params, input_ids, attention_mask, seeds):
-                    return generate_seq2seq(params, input_ids, attention_mask, seeds,
-                                            gen_config, start_token_id=start_id,
-                                            adjust_logits=adjust)
-            elif self.draft_model is not None:
-                gamma = int(self.config.model.draft_gamma)
-                mask = self._logit_mask_tensor()
+    def _build_generate_fn(self, gen_config: GenerationConfig,
+                           extra_kwargs: Tuple[Tuple[str, Any], ...]) -> Callable:
+        """:meth:`_get_generate_fn`'s program for one sampling config."""
+        algo_adjust = self.adjust_logits_fn(dict(extra_kwargs))
+        if self.is_seq2seq:
+            adjust = self._compose_logit_mask(algo_adjust)
+            start_id = self.tcfg.decoder_start_token_id
 
-                def fn(params, input_ids, attention_mask, seeds):
-                    target, draft = params
-                    return generate_speculative(
-                        target, draft, input_ids, attention_mask, seeds, gen_config,
-                        gamma=gamma, return_stats=True, transition_mask=mask,
-                        adjust_logits=algo_adjust)
-            else:
-                adjust = self._compose_logit_mask(algo_adjust)
+            def fn(params, input_ids, attention_mask, seeds):
+                return generate_seq2seq(params, input_ids, attention_mask, seeds,
+                                        gen_config, start_token_id=start_id,
+                                        adjust_logits=adjust)
+        elif self.draft_model is not None:
+            gamma = int(self.config.model.draft_gamma)
+            mask = self._logit_mask_tensor()
 
-                def fn(params, input_ids, attention_mask, seeds):
-                    return dense_generate(params, input_ids, attention_mask, seeds,
-                                          gen_config, adjust_logits=adjust)
+            def fn(params, input_ids, attention_mask, seeds):
+                target, draft = params
+                return generate_speculative(
+                    target, draft, input_ids, attention_mask, seeds, gen_config,
+                    gamma=gamma, return_stats=True, transition_mask=mask,
+                    adjust_logits=algo_adjust)
+        else:
+            adjust = self._compose_logit_mask(algo_adjust)
 
-            self._generate_fns[key] = fn
-        return self._generate_fns[key]
+            def fn(params, input_ids, attention_mask, seeds):
+                return dense_generate(params, input_ids, attention_mask, seeds,
+                                      gen_config, adjust_logits=adjust)
+        return fn
 
     def _get_serial_engine(self, gen_config, extra_kwargs) -> SerialEngine:
         """The :class:`SerialEngine` around this config's rollout program
         (cached); it takes the live policy (and draft) at every call."""
         key = ("serial_engine", gen_config, extra_kwargs)
-        if key not in self._generate_fns:
-            self._generate_fns[key] = SerialEngine(
-                self._get_generate_fn(gen_config, extra_kwargs), None,
-                self.tokenizer.pad_token_id)
-        engine = self._generate_fns[key]
-        engine.params = (self.model if self.draft_model is None
-                         else (self.model, self.draft_model))
+        with self._engine_lock:
+            if key not in self._generate_fns:
+                self._generate_fns[key] = SerialEngine(
+                    self._get_generate_fn(gen_config, extra_kwargs), None,
+                    self.tokenizer.pad_token_id)
+            engine = self._generate_fns[key]
+        engine.params = self._serial_params()
         return engine
+
+    def _serial_params(self, model: Any = None) -> Any:
+        """The serial program's ``params``: the policy (``model``, an async
+        actor's weights snapshot, or the live one), paired with the draft
+        under speculation."""
+        model = self.model if model is None else model
+        return model if self.draft_model is None else (model, self.draft_model)
 
     def _dense_kv_gauge(self, prompt_shape: Tuple[int, int], gen_config) -> Dict[str, float]:
         """``memory/kv_cache_bytes`` of the serial path: the dense
@@ -967,16 +1017,20 @@ class TorchBaseTrainer(BaseRLTrainer):
 
     @torch.no_grad()
     def generate_serial(self, input_ids: np.ndarray, attention_mask: np.ndarray,
-                        eval_mode: bool = False, **kwargs) -> GenerationOutput:
+                        eval_mode: bool = False, model: Any = None,
+                        seeds: Optional[np.ndarray] = None, **kwargs) -> GenerationOutput:
         """One serial dense generate of a left-padded prompt batch on the
-        device (per-row seeds from the rollout seed stream); the outputs
-        stay on the device. Sets :attr:`last_generate_time` (device-complete
-        seconds) and :attr:`last_generate_stats` (the KV gauge and, under
-        speculation, ``rollout/spec_acceptance_rate`` and
-        ``rollout/spec_rounds``)."""
+        device (per-row seeds from the rollout seed stream, or ``seeds``);
+        the outputs stay on the device. ``model`` (an async actor's weights
+        snapshot) replaces the live policy for this call. Sets
+        :attr:`last_generate_time` (device-complete seconds) and
+        :attr:`last_generate_stats` (the KV gauge and, under speculation,
+        ``rollout/spec_acceptance_rate`` and ``rollout/spec_rounds``) for
+        the calling thread."""
         gen_config, extra = self._resolve_gen_config(eval_mode, **kwargs)
         input_ids = np.asarray(input_ids, np.int64)
-        seeds = self._row_seeds(input_ids.shape[0])
+        if seeds is None:
+            seeds = self._row_seeds(input_ids.shape[0])
         engine = self._get_serial_engine(gen_config, extra)
         stats = self._dense_kv_gauge(input_ids.shape, gen_config)
         for k, v in stats.items():  # a registry gauge too, as in JAX
@@ -986,7 +1040,8 @@ class TorchBaseTrainer(BaseRLTrainer):
         # fenced: the duration is the card's decode, not its launch latency
         # (nested under the collection's "rollout" span)
         with self.obs.span("generate", eval_mode=bool(eval_mode)) as sp:
-            out = engine.generate(*args)
+            out = engine.generate(*args, params=None if model is None
+                                  else self._serial_params(model))
             if type(out) is tuple:  # the speculative sampler: (output, stats)
                 out, spec = out
                 stats["rollout/spec_acceptance_rate"] = float(spec["acceptance_rate"])
@@ -1139,7 +1194,7 @@ class TorchBaseTrainer(BaseRLTrainer):
             raise
         finally:
             self._shutdown_serving()
-            self._stop_prefetch()
+            self._shutdown_collectors()
 
     def _export_observability(self) -> None:
         """Span export (``trace.json`` + ``spans.jsonl``) beside the
@@ -1382,13 +1437,19 @@ class TorchBaseTrainer(BaseRLTrainer):
         path = self._checkpoint_path()
         logger.warning("preemption (%s): writing emergency checkpoint to %s",
                        preemption.signal_received, path)
-        self._stop_prefetch()
+        self._shutdown_collectors()
         _sync(self.device)
         self.save(path, emergency=True)
         raise TrainingPreempted(
             f"preempted by {preemption.signal_received}; emergency checkpoint committed at "
             f"{path} — relaunch with train.resume_from_checkpoint to continue",
             checkpoint_dir=path)
+
+    def _shutdown_collectors(self) -> None:
+        """Stop the background experience collectors (PPO's async actors
+        override this and chain back here), then the prefetch workers. The
+        actors go first: they draw from the prompt iterator."""
+        self._stop_prefetch()
 
     def _stop_prefetch(self) -> None:
         """Stop the train-batch and prompt prefetch workers (closing their
@@ -1473,6 +1534,11 @@ class TorchBaseTrainer(BaseRLTrainer):
                         step_time, tokens_per_sec=stats.get("throughput/tokens_per_sec", 0.0),
                         device_bytes=stats.get("memory/device_bytes_in_use",
                                                stats.get("memory/host_rss_bytes", 0.0)))
+                    # the collective fleet's membership rides the same beat
+                    # (None off-fleet)
+                    collector = getattr(self, "_async", None)
+                    if collector is not None:
+                        self.obs.cluster.note_fleet(collector.fleet_size())
                     self.obs.note_dropped_spans()
                     stats.update(self.metrics.snapshot())
                     if self._serve is not None:

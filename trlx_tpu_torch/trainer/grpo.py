@@ -14,13 +14,16 @@ reference branch — and what is learned from a rollout changes:
   into the loss (:meth:`~trlx_tpu_torch.models.grpo.GRPOConfig.loss`), with
   a fixed coefficient ``method.beta``.
 
-``make_experience`` dispatches as JAX's does: ``train.continuous_batching``
-→ the group-aware harvest on the paged engine
-(:meth:`GRPOTrainer._grpo_collect_continuous`), anything else → the serial
-path (:meth:`GRPOTrainer._grpo_collect_serial`). GRPO has no pipelined
-path, so ``train.rollout_pipeline_depth`` only sets the prompt prefetch.
-The async actor/learner split is not ported (``reject_unported`` refuses
-``async_rl.enabled``).
+``make_experience`` dispatches as JAX's does: ``async_rl.enabled`` → the
+actor/learner split (:meth:`GRPOTrainer._collect_async_grpo`: actors fan
+each prompt batch out, generate serially under their weights snapshot and
+score it, the learner finalizes in index order), else
+``train.continuous_batching`` → the group-aware harvest on the paged
+engine (:meth:`GRPOTrainer._grpo_collect_continuous`), anything else → the
+serial path (:meth:`GRPOTrainer._grpo_collect_serial`). Async GRPO keeps
+the serial generation path: with ``train.continuous_batching`` it is
+refused at construction, as in JAX. GRPO has no pipelined path, so
+``train.rollout_pipeline_depth`` only sets the prompt prefetch.
 """
 
 from collections import deque
@@ -98,25 +101,37 @@ class GRPOTrainer(PPOTrainer):
     def _grpo_score_batch(self, prompt_ids: np.ndarray, prompt_mask: np.ndarray,
                           response_tokens: np.ndarray, response_mask: np.ndarray,
                           elements: list, agg: Dict[str, Any], score_out=None) -> None:
-        """Score and store one group-contiguous batch: the scoring forward
-        (unless the serial path dispatched it on the generation's tensors),
-        string decoding and ``reward_fn`` while its outputs land, then the
-        ordered tail (:meth:`_grpo_chunk_finalize`)."""
+        """Score and store one group-contiguous batch: the produce half
+        (:meth:`_grpo_chunk_produce`), then the ordered tail
+        (:meth:`_grpo_chunk_finalize`) — the halves the async split runs on
+        the actor and on the learner."""
+        chunk = self._grpo_chunk_produce(prompt_ids, prompt_mask, response_tokens,
+                                         response_mask, score_out=score_out)
+        agg["score_time_sum"] += chunk["score_s"]
+        self._grpo_chunk_finalize(chunk, elements, agg)
+
+    def _grpo_chunk_produce(self, prompt_ids: np.ndarray, prompt_mask: np.ndarray,
+                            response_tokens: np.ndarray, response_mask: np.ndarray,
+                            score_out=None, model=None) -> Dict[str, Any]:
+        """The device and host half of one group-contiguous batch: the
+        scoring forward (unless the caller dispatched it on the
+        generation's tensors; under ``model``, default the live policy),
+        string decoding and ``reward_fn`` while its outputs land. It needs
+        no learner state, so an async actor runs it."""
         if score_out is None:
             score_out = self._dispatch_score(
                 np.concatenate([prompt_ids, response_tokens], axis=1), prompt_mask,
-                response_tokens, response_mask)
+                response_tokens, response_mask, model=model)
         landing = HostCopy(score_out)
         samples, prompts, outputs = self.decode(prompt_ids, response_tokens,
                                                 append_eos_token=True)
         t0 = perf_counter()
         scores = np.asarray(self.reward_fn(samples=samples, prompts=prompts, outputs=outputs),
                             dtype=np.float32)
-        agg["score_time_sum"] += perf_counter() - t0
-        self._grpo_chunk_finalize({"prompt_ids": prompt_ids, "prompt_mask": prompt_mask,
-                                   "response_tokens": response_tokens,
-                                   "response_mask": response_mask, "scores": scores,
-                                   "host": landing.wait()}, elements, agg)
+        score_s = perf_counter() - t0
+        return {"prompt_ids": prompt_ids, "prompt_mask": prompt_mask,
+                "response_tokens": response_tokens, "response_mask": response_mask,
+                "scores": scores, "host": landing.wait(), "score_s": score_s}
 
     def _grpo_chunk_finalize(self, chunk: Dict[str, Any], elements: list,
                              agg: Dict[str, Any]) -> None:
@@ -141,6 +156,11 @@ class GRPOTrainer(PPOTrainer):
         agg["kl_sum"] += float(((np.exp(delta) - delta - 1.0) * response_mask).sum() / n_tok)
         agg["kl_batches"] += 1
         agg["gen_tokens"] += int(response_mask.sum())
+        # async chunks carry the sampler's behaviour logprobs, kept only
+        # when the IW correction consumes them
+        behavior = chunk.get("behavior_logprobs")
+        if method.iw_correction == "off":
+            behavior = None
         for i in range(prompt_ids.shape[0]):
             n_i = int(response_mask[i].sum())
             if n_i == 0:
@@ -151,6 +171,8 @@ class GRPOTrainer(PPOTrainer):
                 logprobs=lp[i, :n_i],
                 ref_logprobs=rlp[i, :n_i],
                 advantage=float(advantages[i]),
+                behavior_logprobs=(np.asarray(behavior[i, :n_i], np.float32)
+                                   if behavior is not None else None),
             ))
 
     def _grpo_collect_serial(self, num_rollouts: int, elements: list,
@@ -242,6 +264,60 @@ class GRPOTrainer(PPOTrainer):
         agg["gen_time_sum"] += engine.stats.decode_s + engine.stats.refill_s
         agg["engine_stats"] = engine.stats
 
+    # ------------------------------------------------------------------
+    # async collection (async_rl.enabled)
+    # ------------------------------------------------------------------
+
+    def _async_spec_seeds(self, stream: np.random.RandomState, rows: int) -> np.ndarray:
+        """A chunk's seeds: one per row after the group fan-out, as the
+        serial path draws them."""
+        return self._row_seeds(rows * self.config.method.group_size, stream)
+
+    def _async_produce_chunk(self, spec, params, version, channel) -> Dict[str, Any]:
+        """GRPO actor chunk: the spec's prompt batch fans out into
+        ``group_size`` group-contiguous rows, generates serially under the
+        adopted weights and the spec's seeds, and produces the score batch
+        with the sampler's behaviour logprobs. (Async GRPO keeps the serial
+        generation path; the group-aware harvest stays on the
+        single-program loop.)"""
+        if self.config.train.continuous_batching:
+            raise NotImplementedError(
+                "async_rl + train.continuous_batching is implemented for the PPO trainer "
+                "only: GRPO's group-aware harvest keeps the single-program CB loop. Drop "
+                "one of the two.")
+        G = self.config.method.group_size
+        prompt_ids = np.repeat(spec.prompt_ids, G, axis=0)
+        prompt_mask = np.repeat(spec.prompt_mask, G, axis=0)
+        gen_out = self.generate_serial(prompt_ids, prompt_mask, model=params, seeds=spec.seeds)
+        score_out = self._dispatch_score(gen_out.sequences, prompt_mask,
+                                         gen_out.response_tokens, gen_out.response_mask,
+                                         model=params)
+        landed = HostCopy({"response_tokens": gen_out.response_tokens,
+                           "response_mask": gen_out.response_mask,
+                           "behavior_logprobs": gen_out.response_logprobs}).wait()
+        chunk = self._grpo_chunk_produce(prompt_ids, prompt_mask, landed["response_tokens"],
+                                         landed["response_mask"], score_out=score_out)
+        chunk["behavior_logprobs"] = np.asarray(landed["behavior_logprobs"], np.float32)
+        return chunk
+
+    def _collect_async_grpo(self, num_rollouts: int, elements: list,
+                            agg: Dict[str, Any]) -> None:
+        """Learner-side drain for GRPO: the PPO collector's ordered-finalize
+        contract, with the GRPO finalize tail."""
+        collector = self._ensure_async_collector()
+        collector.begin_collection()
+        while len(elements) < num_rollouts:
+            chunk = collector.next_chunk()
+            agg["score_time_sum"] += chunk.payload["score_s"]
+            self._grpo_chunk_finalize(chunk.payload, elements, agg)
+            mask = chunk.payload["response_mask"]
+            n_per_row = mask.sum(axis=1)
+            agg["slot_steps"] += int(mask.shape[0]) * (
+                int(n_per_row.max()) if n_per_row.size else 0)
+            agg["live_slot_steps"] += int(n_per_row.sum())
+        collector.end_collection()
+        agg["async_stats"] = collector.collection_stats()
+
     def make_experience(self, num_rollouts: int = 1024, iter_count: int = 0) -> None:
         """Collect grouped rollouts with group-relative advantages."""
         if self._consume_skip_initial_experience():
@@ -255,7 +331,9 @@ class GRPOTrainer(PPOTrainer):
                                "gen_time_sum": 0.0, "score_time_sum": 0.0, "gen_tokens": 0,
                                "slot_steps": 0, "live_slot_steps": 0}
         exp_time = perf_counter()
-        if self.config.train.continuous_batching:
+        if self.config.async_rl.enabled:
+            self._collect_async_grpo(num_rollouts, elements, agg)
+        elif self.config.train.continuous_batching:
             self._grpo_collect_continuous(num_rollouts, elements, agg)
         else:
             self._grpo_collect_serial(num_rollouts, elements, agg)
@@ -273,6 +351,8 @@ class GRPOTrainer(PPOTrainer):
                   else np.zeros((0,), np.float32))
         stats["exp_scores/mean"] = float(pooled.mean()) if pooled.size else 0.0
         stats["exp_scores/std"] = float(pooled.std()) if pooled.size else 0.0
+        if "async_stats" in agg:
+            stats.update(agg["async_stats"])
         if engine_stats is not None:
             engine_metrics = engine_stats.metrics()
             stats.update(engine_metrics)

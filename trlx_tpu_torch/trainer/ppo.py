@@ -8,9 +8,21 @@ Port of ``trlx_tpu/trainer/ppo.py`` (``PPOTrainer``), causal and seq2seq:
   embedding; for T5 the top decoder blocks, the decoder's final norm and
   bias table, and the head) when ``num_layers_unfrozen > 0``, else a full
   frozen copy of the backbone;
-- ``make_experience`` dispatches as JAX's does: ``train.continuous_batching``
-  → :meth:`_collect_continuous`, else ``train.rollout_pipeline_depth`` > 0
+- ``make_experience`` dispatches as JAX's does: ``async_rl.enabled`` →
+  :meth:`_collect_async`, else ``train.continuous_batching`` →
+  :meth:`_collect_continuous`, else ``train.rollout_pipeline_depth`` > 0
   → :meth:`_collect_pipelined`, else :meth:`_collect_serial`;
+- the async actor/learner split (``trlx_tpu_torch/async_rl/``): actors
+  (threads, or ``run_actor`` processes) produce chunks —
+  :meth:`_async_produce_chunk`, the serial device and host halves under
+  the actor's weights snapshot and the chunk's seeds, or with
+  ``train.continuous_batching`` an engine of the actor's own that swaps
+  newly published weights in at segment boundaries — while the learner
+  drains them in index order through the same finalize; every optimizer
+  update publishes a snapshot (:meth:`train_step`). The payload carries
+  the sampler's behaviour logprobs, which ride into the store when
+  ``method.iw_correction`` consumes them (the fused loss kernels' IW
+  operand);
 - the serial and pipelined paths run whole prompt chunks: the device side
   (:meth:`_chunk_device`: one serial dense generate, the scoring forward
   dispatched on its device outputs, and device → host copies started
@@ -50,6 +62,7 @@ Port of ``trlx_tpu/trainer/ppo.py`` (``PPOTrainer``), causal and seq2seq:
 import copy
 import dataclasses
 import os
+import threading
 from collections import deque
 from contextlib import ExitStack
 from time import perf_counter
@@ -109,6 +122,10 @@ class PPOTrainer(TorchBaseTrainer):
         self.rollout_logging_dir = config.train.rollout_logging_dir
         if self.rollout_logging_dir is not None:
             os.makedirs(self.rollout_logging_dir, exist_ok=True)
+        # the async collector, built at the first async make_experience;
+        # _async_version is the learner's update clock (the channel version)
+        self._async = None
+        self._async_version = 0
 
     def _ref_snapshot(self) -> torch.nn.Module:
         """Frozen reference of the current weights (buffer-owning copies):
@@ -195,19 +212,22 @@ class PPOTrainer(TorchBaseTrainer):
             self.store.export_history(location=self.rollout_logging_dir)
 
     @torch.no_grad()
-    def _score(self, sequences, prompt_mask, response_tokens, response_mask):
+    def _score(self, sequences, prompt_mask, response_tokens, response_mask, model=None):
         """The scoring forward of one (B, P, N) group: policy logprobs and
         values (none for a head-less policy), and the frozen reference's logprobs (hydra branch replay on
         the trunk activations, or the full frozen copy). Logits at t
         predict token t + 1, so response token i is scored at P - 1 + i;
-        the vocab projection is restricted to that span."""
+        the vocab projection is restricted to that span. ``model`` (an
+        async actor's weights snapshot) replaces the live policy."""
+        model = self.model if model is None else model
         if self.is_seq2seq:
-            return self._score_seq2seq(sequences, prompt_mask, response_tokens, response_mask)
+            return self._score_seq2seq(sequences, prompt_mask, response_tokens, response_mask,
+                                       model)
         P, N = prompt_mask.shape[1], response_tokens.shape[1]
         nlu = self.num_layers_unfrozen
         full_mask = torch.cat([prompt_mask, response_mask], dim=1)
         span = (P - 1, P + N - 1)
-        out = self.model(sequences, attention_mask=full_mask,
+        out = model(sequences, attention_mask=full_mask,
                          branch_layer=nlu if nlu > 0 else None, logits_span=span)
         logprobs = logprobs_of_labels(out["logits"], response_tokens)
         if nlu > 0:
@@ -228,7 +248,7 @@ class PPOTrainer(TorchBaseTrainer):
                 torch.cat([torch.ones_like(response_mask[:, :1]), response_mask[:, :-1]],
                           dim=1))
 
-    def _score_seq2seq(self, sequences, prompt_mask, response_tokens, response_mask):
+    def _score_seq2seq(self, sequences, prompt_mask, response_tokens, response_mask, model):
         """The seq2seq scoring forward: the prompt through the encoder, the
         decoder teacher-forced (decoder position i scores response token
         i); values from the value head; the reference's logprobs from the
@@ -238,8 +258,8 @@ class PPOTrainer(TorchBaseTrainer):
         nlu = self.num_layers_unfrozen
         prompt_ids = sequences[:, :P]
         dec_in, dec_mask = self._decoder_inputs(response_tokens, response_mask)
-        out = self.model(prompt_ids, attention_mask=prompt_mask, decoder_input_ids=dec_in,
-                         decoder_attention_mask=dec_mask, branch_layer=nlu if nlu > 0 else None)
+        out = model(prompt_ids, attention_mask=prompt_mask, decoder_input_ids=dec_in,
+                    decoder_attention_mask=dec_mask, branch_layer=nlu if nlu > 0 else None)
         if nlu > 0:
             ref_out = self.ref_params(out["branch_input"], out["encoder_hidden"], prompt_mask,
                                       dec_mask)
@@ -251,31 +271,34 @@ class PPOTrainer(TorchBaseTrainer):
                 "ref_logprobs": logprobs_of_labels(ref_out["logits"], response_tokens)}
 
     def _dispatch_score(self, sequences, prompt_mask, response_tokens,
-                        response_mask) -> Dict[str, torch.Tensor]:
+                        response_mask, model=None) -> Dict[str, torch.Tensor]:
         """Run the scoring forward on host rows or on the generation's
-        device tensors; the outputs stay on the device until the host stage
-        lands them."""
+        device tensors (under ``model``, default the live policy); the
+        outputs stay on the device until the host stage lands them."""
         def dev(x):
             x = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
             return x.to(device=self.device, dtype=torch.int64)
 
         return self._score(dev(sequences), dev(prompt_mask), dev(response_tokens),
-                           dev(response_mask))
+                           dev(response_mask), model=model)
 
-    def _cb_group_device(self, group: list) -> Dict[str, Any]:
+    def _cb_group_device(self, group: list, model=None) -> Dict[str, Any]:
         """Device side of one harvested group: assemble the score batch
-        from individually completed sequences and run the scoring forward."""
+        from individually completed sequences and run the scoring forward
+        (under ``model``, default the live policy). The harvest's own
+        logprobs ride along as the behaviour logprobs."""
         prompt_ids = np.stack([c.prompt_ids for c in group]).astype(np.int32)
         prompt_mask = np.stack([c.prompt_mask for c in group]).astype(np.int32)
         response_tokens = np.stack([c.tokens for c in group]).astype(np.int32)
         response_mask = np.stack([c.mask for c in group]).astype(np.int32)
         sequences = np.concatenate([prompt_ids, response_tokens], axis=1)
         score_out = self._dispatch_score(sequences, prompt_mask, response_tokens,
-                                         response_mask)
+                                         response_mask, model=model)
         return {"prompt_ids": prompt_ids, "prompt_mask": prompt_mask,
                 "gen_landing": HostCopy({"response_tokens": response_tokens,
                                          "response_mask": response_mask}),
-                "score_out": score_out, "score_landing": HostCopy(score_out)}
+                "score_out": score_out, "score_landing": HostCopy(score_out),
+                "behavior_logprobs": np.stack([c.logprobs for c in group]).astype(np.float32)}
 
     def _rollout_chunk_device(self, stats: Dict[str, float]) -> Dict[str, Any]:
         """Main-thread device side of one prompt chunk of the serial and
@@ -286,20 +309,24 @@ class PPOTrainer(TorchBaseTrainer):
                                   np.asarray(batch["attention_mask"], np.int64), stats)
 
     def _chunk_device(self, prompt_ids: np.ndarray, prompt_mask: np.ndarray,
-                      stats: Dict[str, float]) -> Dict[str, Any]:
+                      stats: Dict[str, float], model=None,
+                      seeds: Optional[np.ndarray] = None) -> Dict[str, Any]:
         """One serial dense generate of the chunk; the scoring forward runs
         straight on its device outputs while the host stage decodes and
         scores the landed tokens. The device tensors stay referenced here
-        until the chunk is finalized."""
+        until the chunk is finalized. Shared by the serial paths (the live
+        policy, seeds from the rollout stream) and the async actors (their
+        weights snapshot ``model`` and the chunk's ``seeds``)."""
         t0 = perf_counter()
-        gen_out = self.generate_serial(prompt_ids, prompt_mask)
+        gen_out = self.generate_serial(prompt_ids, prompt_mask, model=model, seeds=seeds)
         stats["time/exp_generate"] = perf_counter() - t0
         stats["time/generate"] = self.last_generate_time
         stats.update(self.last_generate_stats)
         gen_landing = HostCopy({"response_tokens": gen_out.response_tokens,
                                 "response_mask": gen_out.response_mask})
         score_out = self._dispatch_score(gen_out.sequences, prompt_mask,
-                                         gen_out.response_tokens, gen_out.response_mask)
+                                         gen_out.response_tokens, gen_out.response_mask,
+                                         model=model)
         return {"prompt_ids": prompt_ids, "prompt_mask": prompt_mask, "gen_out": gen_out,
                 "gen_landing": gen_landing, "score_out": score_out,
                 "score_landing": HostCopy(score_out)}
@@ -395,6 +422,11 @@ class PPOTrainer(TorchBaseTrainer):
         acc["live_slot_steps"] += int(n_per_row.sum())
 
         prompt_ids, prompt_mask = chunk["prompt_ids"], chunk["prompt_mask"]
+        # async chunks carry the sampler's behaviour logprobs; they ride into
+        # the store only when the IW correction consumes them
+        behavior = chunk.get("behavior_logprobs")
+        if self.config.method.iw_correction == "off":
+            behavior = None
         for i in range(prompt_ids.shape[0]):
             n_i = int(response_mask[i].sum())
             if n_i == 0:
@@ -405,6 +437,8 @@ class PPOTrainer(TorchBaseTrainer):
                 logprobs=host["logprobs"][i, :n_i],
                 values=host["values"][i, :n_i],
                 rewards=rewards[i, :n_i],
+                behavior_logprobs=(np.asarray(behavior[i, :n_i], np.float32)
+                                   if behavior is not None else None),
             ))
 
     def _collect_continuous(self, num_rollouts: int, depth: int, elements: list,
@@ -545,6 +579,213 @@ class PPOTrainer(TorchBaseTrainer):
             pipe_stats = pipe.stats
         stats["throughput/rollout_overlap_frac"] = pipe_stats.overlap_frac(perf_counter() - t0)
 
+    # ------------------------------------------------------------------
+    # async collection (async_rl.enabled): the actor/learner split
+    # ------------------------------------------------------------------
+    #
+    # N actors (threads here, or run_actor processes) produce experience
+    # chunks continuously — gated by the weight channel's staleness bound —
+    # while the learner drains chunks in index order and trains. The
+    # learner publishes a weights snapshot after every update (in-flight
+    # weight sync), so collection k+1 is generated under weights at most
+    # max_staleness updates behind its consumption.
+
+    def _async_chunks_per_collection(self) -> int:
+        from trlx_tpu_torch.async_rl.actor import chunks_per_collection
+
+        return chunks_per_collection(self.config)
+
+    def _async_queue_capacity(self) -> int:
+        cap = int(self.config.async_rl.queue_capacity)
+        return cap if cap > 0 else 2 * self._async_chunks_per_collection()
+
+    def _async_updates_per_phase(self) -> int:
+        """Optimizer updates between two collections: one learn-loop epoch
+        (the gate target the learner announces at drain end)."""
+        method = self.config.method
+        batches = max(1, int(method.num_rollouts) // int(self.config.train.batch_size))
+        return int(method.ppo_epochs) * batches
+
+    def _async_spec_seeds(self, stream: np.random.RandomState, rows: int) -> np.ndarray:
+        """The per-row seeds of a chunk of ``rows`` prompts, drawn from
+        ``stream`` as the serial path draws them from the rollout stream."""
+        return self._row_seeds(rows, stream)
+
+    def _ensure_async_collector(self):
+        if self._async is not None:
+            return self._async
+        from trlx_tpu_torch.async_rl.channel import FileWeightChannel, WeightChannel
+        from trlx_tpu_torch.async_rl.queue import ExperienceQueue, FileExperienceQueue
+        from trlx_tpu_torch.async_rl.runtime import AsyncCollector
+
+        acfg = self.config.async_rl
+        capacity = self._async_queue_capacity()
+        coordinator = None
+        member_factory = None
+        if acfg.transport not in ("file", "collective"):
+            raise ValueError(f"unknown async_rl.transport '{acfg.transport}' "
+                             "(file | collective)")
+        if acfg.mode not in ("thread", "process"):
+            raise ValueError(f"unknown async_rl.mode '{acfg.mode}' (thread | process)")
+        if acfg.mode == "process" and not acfg.root_dir:
+            raise ValueError(
+                "async_rl.mode: process requires async_rl.root_dir (a directory shared "
+                "with the run_actor processes: the spool and weights, or the collective "
+                "fleet's endpoint)")
+        if acfg.transport == "collective":
+            # the fleet fabric: weights-dissemination tree + in-fabric chunk
+            # commits + elastic membership
+            if acfg.queue_policy == "drop_oldest":
+                raise ValueError(
+                    "async_rl.transport: collective back-pressures through the fleet "
+                    "production window; queue_policy: drop_oldest is a file-transport knob")
+            from trlx_tpu_torch.async_rl.transport import (
+                CollectiveExperienceQueue,
+                CollectiveWeightChannel,
+                FleetCoordinator,
+                make_member_factory,
+                write_endpoint,
+            )
+
+            coordinator = FleetCoordinator(
+                fanout=acfg.fanout, bind_host=acfg.bind_host, capacity=capacity,
+                plan=self.resilience.plan, metrics=self.obs.metrics,
+                sync_every=acfg.sync_every, actor_timeout_s=acfg.actor_timeout_s)
+            queue = CollectiveExperienceQueue(coordinator)
+            channel = CollectiveWeightChannel(coordinator)
+            if acfg.mode == "process":
+                write_endpoint(acfg.root_dir, coordinator.address, coordinator.authkey)
+            else:
+                # each actor thread joins the fleet as its own member over
+                # loopback — the same wire protocol as actor processes
+                member_factory = make_member_factory(coordinator, lambda: self.model)
+        elif acfg.mode == "process":
+            queue = FileExperienceQueue(
+                os.path.join(acfg.root_dir, "spool"), capacity=capacity,
+                poll_interval_s=acfg.poll_interval_s, metrics=self.obs.metrics)
+            channel = FileWeightChannel(
+                os.path.join(acfg.root_dir, "weights"), plan=self.resilience.plan,
+                metrics=self.obs.metrics, sync_every=acfg.sync_every,
+                poll_interval_s=acfg.poll_interval_s, fetch_timeout_s=acfg.fetch_timeout_s)
+        else:
+            queue = ExperienceQueue(
+                capacity, policy=acfg.queue_policy, metrics=self.obs.metrics,
+                # late-bound through self._async: evicted chunks regenerate
+                on_drop=self._async_on_drop if acfg.queue_policy == "drop_oldest" else None)
+            channel = WeightChannel(plan=self.resilience.plan, metrics=self.obs.metrics,
+                                    sync_every=acfg.sync_every)
+        self._async = AsyncCollector(
+            trainer=self, queue=queue, channel=channel, num_actors=acfg.num_actors,
+            max_staleness=acfg.max_staleness,
+            updates_per_phase=self._async_updates_per_phase(),
+            chunks_per_collection=self._async_chunks_per_collection(),
+            # process mode: the actors are external run_actor processes
+            spawn_actors=acfg.mode == "thread",
+            chunk_timeout_s=acfg.actor_timeout_s,
+            max_actor_restarts=acfg.max_actor_restarts, metrics=self.obs.metrics,
+            tracer=self.obs.tracer, span=self.obs.span, member_factory=member_factory,
+            transport=coordinator)
+        self._async.version = self._async_version
+        return self._async
+
+    def _async_on_drop(self, chunk) -> None:
+        """drop_oldest eviction callback: hand the evicted chunk back to the
+        collector for regeneration under fresher weights."""
+        if self._async is not None:
+            self._async.requeue_dropped(chunk)
+
+    def _async_produce_chunk(self, spec, params, version, channel) -> Dict[str, Any]:
+        """One actor chunk, device and host halves, under the actor's
+        adopted ``params`` (a channel snapshot — never the live policy,
+        which the optimizer updates in place) and the spec's seeds. Serial
+        generation by default; with ``train.continuous_batching`` the chunk
+        decodes on an engine of the actor's own with in-flight weight
+        swaps at segment boundaries. The payload always carries the
+        sampler's exact behaviour logprobs — under in-flight swaps they are
+        the only honest record of the (mixed-version) behaviour policy."""
+        stats: Dict[str, float] = {}
+        if self.config.train.continuous_batching:
+            dev = self._async_produce_cb(spec, params, version, channel, stats)
+            behavior = dev["behavior_logprobs"]
+        else:
+            dev = self._chunk_device(spec.prompt_ids, spec.prompt_mask, stats, model=params,
+                                     seeds=spec.seeds)
+            behavior = HostCopy({"lp": dev["gen_out"].response_logprobs})
+        chunk = self._rollout_chunk_host(dev)
+        chunk["stats"].update(stats)
+        if isinstance(behavior, HostCopy):
+            behavior = behavior.wait()["lp"]
+        chunk["behavior_logprobs"] = np.asarray(behavior, np.float32)
+        return chunk
+
+    def _async_produce_cb(self, spec, params, version, channel,
+                          stats: Dict[str, float]) -> Dict[str, Any]:
+        """Continuous-batching actor chunk: slot-refill segment decode over
+        the chunk's prompts with their per-row seeds, on an engine tagged
+        with this actor thread, adopting newly published weights at every
+        segment boundary (``ContinuousEngine.swap_params``' version check
+        is one int compare; a real change flushes the prefix cache, so
+        stale shared KV is never reused). Live rows keep decoding across a
+        swap — their recorded logprobs stay the exact behaviour
+        distribution. The group is scored under the last adopted weights."""
+        gen_config, extra_kwargs = self._resolve_gen_config(eval_mode=False)
+        ids, mask = spec.prompt_ids, spec.prompt_mask
+        engine = self._cb_make_engine(gen_config, extra_kwargs, ids.shape[0], ids.shape[1],
+                                      tag=("async", threading.get_ident()), params=params,
+                                      version=version)
+        engine.enqueue_prompts(ids, mask, spec.seeds)
+        completed = []
+        while engine.busy:
+            completed.extend(engine.step())
+            if channel is not None and engine.busy:
+                fresh, fresh_version = channel.fetch(template=self.model)
+                # speculative engines swap the (target, draft) pair at once
+                engine.swap_params(self._engine_params(fresh), fresh_version)
+        completed.sort(key=lambda c: c.index)
+        stats["time/exp_generate"] = engine.stats.decode_s + engine.stats.refill_s
+        stats["time/generate"] = engine.stats.decode_s
+        gen_params = engine.params
+        if int(self.config.engine.speculative):
+            gen_params = gen_params[0]  # scoring runs under the target
+        return self._cb_group_device(completed, model=gen_params)
+
+    def _collect_async(self, num_rollouts: int, elements: list, stats: Dict[str, float],
+                       acc: Dict[str, float]) -> None:
+        """Learner-side drain: consume actor chunks in strict index order
+        (running moments fold exactly as the serial path's) and finalize on
+        this thread. ``begin_collection`` force-publishes the weights this
+        collection is consumed under; ``end_collection`` announces the
+        upcoming phase's end version — the staleness gate for the chunks
+        feeding the NEXT collection."""
+        collector = self._ensure_async_collector()
+        collector.begin_collection()
+        while len(elements) < num_rollouts:
+            chunk = collector.next_chunk()
+            self._rollout_chunk_finalize(chunk.payload, elements, stats, acc)
+        collector.end_collection()
+        stats.update(collector.collection_stats())
+
+    def train_step(self, batch) -> Dict[str, Any]:
+        stats = super().train_step(batch)
+        if self._async is not None:
+            # the learner's update clock IS the weight-channel version:
+            # publish after every optimizer update (in-flight sync; thinned
+            # by async_rl.sync_every inside the channel)
+            self._async_version += 1
+            self._async.on_update(self.model, self._async_version)
+        return stats
+
+    def _shutdown_collectors(self) -> None:
+        # actors first (they draw from the prompt iterator), then the base
+        # stops the prefetch workers and closes the iterator chain
+        if self._async is not None:
+            try:
+                self._async.close()
+            except Exception:  # pragma: no cover - defensive
+                pass
+        super()._shutdown_collectors()
+
+
     def make_experience(self, num_rollouts: int = 1024, iter_count: int = 0) -> None:
         """Collect ``num_rollouts`` experiences into the store."""
         if self._consume_skip_initial_experience():
@@ -559,7 +800,12 @@ class PPOTrainer(TorchBaseTrainer):
                                  "live_slot_steps": 0}
         depth = int(self.config.train.rollout_pipeline_depth or 0)
         exp_time = perf_counter()
-        if self.config.train.continuous_batching:
+        if self.config.async_rl.enabled:
+            # actors generate — continuously, across collections — and this
+            # thread only drains and finalizes; continuous_batching selects
+            # the actors' engine path
+            self._collect_async(num_rollouts, elements, stats, acc)
+        elif self.config.train.continuous_batching:
             self._collect_continuous(num_rollouts, depth, elements, stats, acc)
         elif depth > 0:
             self._collect_pipelined(num_rollouts, depth, elements, stats, acc)
