@@ -303,11 +303,13 @@ REPLACES = {
     "fused_sample": "trlx_tpu/ops/paged_attention.py:373",
     "flash_fwd": "trlx_tpu/ops/flash_attention.py:318",
     "flash_bwd": "trlx_tpu/ops/flash_attention.py:377",
+    "flash_bwd_chunk": "trlx_tpu/ops/flash_attention.py:434",
     "fused_loss_fwd": "trlx_tpu/ops/fused_loss.py:274",
     "fused_loss_bwd": "trlx_tpu/ops/fused_loss.py:309",
 }
-# the CUDA source of each kernel row (the verify runs the prefill kernel)
-SOURCES = {"paged_verify": "paged_prefill"}
+# the CUDA source of each kernel row (the verify runs the prefill kernel,
+# the backward's chunk form the backward kernel)
+SOURCES = {"paged_verify": "paged_prefill", "flash_bwd_chunk": "flash_bwd"}
 SERVE_KERNELS = ("paged_prefill", "paged_decode", "fused_sample")
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd", "fused_loss_fwd", "fused_loss_bwd")
 # the speculative rollout path: target refill, verify, draft refill and
@@ -317,7 +319,7 @@ SPEC_KERNELS = ("paged_prefill", "paged_verify") + TRAIN_KERNELS
 
 def kernel_wrappers():
     """name → wrapper (each carries its ``launches`` counter)."""
-    from trlx_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    from trlx_tpu_torch.ops.flash_attention import flash_attention_bwd_chunk, flash_bwd, flash_fwd
     from trlx_tpu_torch.ops.fused_loss import fused_loss_bwd, fused_loss_fwd
     from trlx_tpu_torch.ops.paged_attention import (
         fused_sample,
@@ -329,6 +331,7 @@ def kernel_wrappers():
     return {"paged_prefill": paged_prefill_attention, "paged_decode": paged_attention_decode,
             "paged_verify": paged_verify_attention,
             "fused_sample": fused_sample, "flash_fwd": flash_fwd, "flash_bwd": flash_bwd,
+            "flash_bwd_chunk": flash_attention_bwd_chunk,
             "fused_loss_fwd": fused_loss_fwd, "fused_loss_bwd": fused_loss_bwd}
 
 
@@ -2337,11 +2340,12 @@ def phase_train_kernels():
                     alibi=True)
         # (h) the GRPO slices' train batches: GPT-2 small at batch 32 (64-byte
         # prompts ‖ 40 new tokens) and Mixtral's GQA 4:1, D 128 on the task's
-        # review openings (32 ‖ 40), timed
+        # review openings (32 ‖ 40), the kernels timed (the plain versions
+        # and SDPA only at (a)'s shape, PERF.md's table row)
         grpo = check_flash("grpo_train", B=32, T=104, S=104, H=12, KV=12, D=64, dtype=dtype,
                            seed=39, timed=bf and KERNEL_ONLY)
         moe = check_flash("moe_grpo_train", B=32, T=72, S=72, H=32, KV=8, D=128, dtype=dtype,
-                          seed=41, timed=bf)
+                          seed=41, timed=bf and KERNEL_ONLY)
         # (i) the GRPO collections' passes, left-padded at both widths: the
         # scoring forward and the hydra reference replay over all 128 rows of
         # a chunk (16 prompts × 8 members, prompt ‖ 40 new tokens), the serial
@@ -2355,13 +2359,13 @@ def phase_train_kernels():
                 check_flash(f"{tag}_prefill_{B}", B=B, T=P, S=P + 40, H=H, KV=KV, D=D,
                             dtype=dtype, seed=seed + 1 + i)
         # (j) the preference paths' train batches, right-padded: DPO's 16
-        # pairs (timed) and the reward model's 8 at GPT-2 small's width, DPO
+        # pairs (the kernels timed) and the reward model's 8 at GPT-2 small's width, DPO
         # + LoRA at Mistral-7B's (GQA 4:1, D 128, its window; timed at (h)'s
         # MoE GRPO shape, which it equals)
         for i, (tag, (B, T, H, KV, D, window)) in enumerate(PREFERENCE_FLASH_SHAPES.items()):
             rec = check_flash(f"{tag}_train", B=B, T=T, S=T, H=H, KV=KV, D=D, dtype=dtype,
                               seed=51 + i, window=window, right_pad=True,
-                              timed=bf and tag == "dpo")
+                              timed=bf and tag == "dpo" and KERNEL_ONLY)
             if bf and tag == "dpo":
                 timed["flash_dpo"] = rec
         # (k) the reward model's stage-3 PPO, left-padded: its train batches
@@ -2372,11 +2376,11 @@ def phase_train_kernels():
         check_flash("reward_ppo_prefill", B=16, T=206, S=256, H=12, KV=12, D=64, dtype=dtype,
                     seed=56)
         # (l) the Llama-7B remat path (MHA, D 128), left-padded: its train
-        # batches (32 rows of review openings ‖ 40 tokens; timed), the
+        # batches (32 rows of review openings ‖ 40 tokens; the kernels timed), the
         # scoring forward and hydra replay over the 128-row chunk, and the
         # serial prefills of the chunk and of an evaluation batch
         llama = check_flash("llama_train", B=32, T=72, S=72, H=32, KV=32, D=128, dtype=dtype,
-                            seed=57, timed=bf)
+                            seed=57, timed=bf and KERNEL_ONLY)
         check_flash("llama_score", B=128, T=72, S=72, H=32, KV=32, D=128, dtype=dtype,
                     seed=58)
         for i, B in enumerate((128, 32)):
@@ -2396,6 +2400,267 @@ def phase_train_kernels():
             if (B, R, use_iw) == (16, 40, False):
                 timed["loss"] = rec
     return timed
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the ring — sequence parallelism on the flash kernels
+# ---------------------------------------------------------------------------
+
+# ring size and widths: examples/long_context_sft.py's (sequence 4, T 8192,
+# batch 8, llama-test at hidden 256, 8 heads) and Llama-7B's attention (32
+# heads of 128) at the same length, one row, left-padded
+RING_N = 4
+RING_EXAMPLE = dict(B=8, T=8192, H=8, KV=8, D=32)
+RING_LLAMA = dict(B=1, T=8192, H=32, KV=32, D=128)
+RING_LLAMA_WINDOW = 4096
+RING_PLAIN_T = 1024  # the plain versions' check: dense f32 scores fit there
+RING_SFT_STEPS = 2
+
+
+def ring_operands(B, T, H, KV, D, dtype, seed, dev, left_pad=0):
+    """q, k, v, the key mask (row 0 left-padded by ``left_pad``) and the
+    output cotangent, drawn on the card."""
+    rs = np.random.RandomState(seed)
+    randn = device_randn(rs, dev)
+    q, g = (randn(B, T, H, D).to(dtype) for _ in range(2))
+    k, v = (randn(B, T, KV, D).to(dtype) for _ in range(2))
+    mask = torch.ones(B, T, device=dev)
+    mask[0, :left_pad] = 0.0
+    return q, k, v, mask, g
+
+
+def attention_fwd_bwd(fn, q, k, v, mask, g, **kw):
+    """``fn``'s output and the gradients of q, k and v for cotangent g."""
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = fn(*leaves, mask, **kw)
+    return out.detach(), torch.autograd.grad(out, leaves, g)
+
+
+def attention_gaps(got, want, mask, dtype):
+    """``{name: (excess over FLASH_TOL, max abs err)}`` of an (out, grads)
+    pair against another; the output on unmasked query rows (a row that
+    sees no key is 0 on the kernel side, undefined on the plain one)."""
+    tol = FLASH_TOL[dtype]
+    valid = mask > 0.5
+    gaps = {"out": excess(got[0][valid], want[0][valid], *tol["out"])}
+    for name, a, b in zip(("dq", "dk", "dv"), got[1], want[1]):
+        gaps[name] = excess(a, b, *tol["grad"])
+    return gaps
+
+
+def events_ms(fn, reps=3):
+    """Median CUDA-event milliseconds of ``fn`` (after one warm call)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def ring_pair_record(dtype, dev, B, Tp, H, D, q_offset, timed):
+    """#5 and #6' (``flash_attention_bwd_chunk``) on one (q-half x k-half)
+    pair of the ring at slot offsets ``(q_offset, 0)``, against their plain
+    versions; with ``timed`` their device times (the plain versions' too)
+    and bounds. The lse and delta are the pair's own (a global lse takes
+    the same kernel path)."""
+    from trlx_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_chunk,
+        flash_bwd_reference,
+        flash_fwd,
+        flash_fwd_reference,
+    )
+
+    q, k, v, mask, do = ring_operands(B, Tp, H, H, D, dtype, 71 + q_offset, dev)
+    kw = dict(sm_scale=D ** -0.5, causal=True, q_offset=q_offset, k_offset=0, window=0)
+    before = launch_counts()
+    out, lse = flash_fwd(q, k, v, mask, None, None, None, **kw)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    chunk = lambda: flash_attention_bwd_chunk(q, k, v, mask, lse, delta, do,  # noqa: E731
+                                              q_offset=q_offset)
+    grads = chunk()
+    f32 = [x.float() for x in (q, k, v)]
+    want, want_lse = flash_fwd_reference(*f32, mask, None, None, None, **kw)
+    plain_bwd = lambda: flash_bwd_reference(*f32, mask, None, None, None, lse,  # noqa: E731
+                                            delta, do.float(), **kw)
+    wgrads = plain_bwd()
+    tol = FLASH_TOL[dtype]
+    fwd_err = max(excess(out, want, *tol["out"])[1], excess(lse, want_lse, *tol["lse"])[1])
+    bwd = [excess(a, b, *tol["grad"]) for a, b in zip(grads, wgrads)]
+    fwd_ex = max(excess(out, want, *tol["out"])[0], excess(lse, want_lse, *tol["lse"])[0])
+    rec = {"B": B, "T": Tp, "S": Tp, "H": H, "D": D, "q_offset": q_offset,
+           "dtype": str(dtype).split(".")[-1],
+           "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": max(e for _, e in bwd),
+           "ok": fwd_ex <= 0 and max(x for x, _ in bwd) <= 0}
+    if timed:
+        pairs, _ = flash_visible_pairs(mask, Tp, Tp, True, q_offset, 0)
+        elem = torch.finfo(dtype).bits // 8
+        io = elem * 4 * B * Tp * H * D
+        rec["fwd"] = timed_pair(lambda: flash_fwd(q, k, v, mask, None, None, None, **kw),
+                                lambda: flash_fwd_reference(q, k, v, mask, None, None, None,
+                                                            **kw), timed is True)
+        rec["bwd"] = timed_pair(chunk, plain_bwd, timed is True)
+        rec["fwd"]["bound_ms"], rec["fwd"]["bound_by"] = bound(
+            io + 4 * B * Tp + 4 * B * H * Tp, 4 * D * H * pairs, dtype)
+        rec["bwd"]["bound_ms"], rec["bwd"]["bound_by"] = bound(
+            2 * io + 8 * B * H * Tp + 4 * B * Tp, 10 * D * H * pairs, dtype)
+        rec["fwd"]["library_ms"] = rec["bwd"]["library_ms"] = None
+        rec["visible_pairs_per_head"] = pairs
+    # these launches are checks, not the main path's
+    for name, w in kernel_wrappers().items():
+        w.launches = before[name]
+    return rec
+
+
+def phase_slice_ring(device="cuda", card="", n=RING_N, example=RING_EXAMPLE, llama=RING_LLAMA,
+                     plain_T=RING_PLAIN_T, sft_steps=RING_SFT_STEPS, sft_seq=None):
+    """Ring attention on the card, the in-process transport (one card holds
+    no second NCCL rank):
+
+    (c) the main path: every counter 0, the ring's forward and backward at
+        long_context_sft's width (``sequence`` 4, T 8192) in bf16, the
+        counters read: #5, #6 and #6' (``flash_attention_bwd_chunk``) must
+        have launched; its ms beside the monolithic flash call's;
+    (a) that run and an f32 one against one monolithic ``flash_attention``
+        call and its backward (``FLASH_TOL``), and the ring at T
+        ``plain_T`` against the plain versions (``attention_reference``, f32
+        autograd);
+    (b) Llama-7B's attention width, bf16, the row left-padded, and again
+        with a window of 4096, against the monolithic kernels; #5 and #6'
+        on one of the ring's pairs against their plain versions, timed;
+    (d) ``tasks/long_context_sft.py`` through ``trlx_tpu_torch.train`` in
+        one process (``sequence`` 1, T 8192, ``sft_steps`` steps): the mesh
+        and trainer wiring leave the one-device path as it was.
+
+    Returns ``(launches, record of #6' for the kernels line)``."""
+    import shutil
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.ops.flash_attention import attention_reference, flash_attention
+    from trlx_tpu_torch.parallel.ring_attention import ring_flash_attention
+    from trlx_tpu_torch.tasks.long_context_sft import config as sft_config
+    from trlx_tpu_torch.tasks.long_context_sft import synthetic_documents
+
+    dev = torch.device(device)
+    card_run = dev.type == "cuda"  # a CPU rehearsal runs the plain versions, untimed
+    sync = torch.cuda.synchronize if card_run else (lambda: None)
+    t0 = time.perf_counter()
+    problems, rec = [], {"phase": "slice_ring", "card": card, "n": n, "example": example,
+                         "llama": llama}
+    bf16, f32 = torch.bfloat16, torch.float32
+    ring = lambda *a, **kw: ring_flash_attention(*a, n, **kw)  # noqa: E731
+    parts, t_part = {}, [time.perf_counter()]
+
+    def part(name):  # wall seconds of each part, for the phase's budget
+        sync()
+        now = time.perf_counter()
+        parts[name], t_part[0] = now - t_part[0], now
+
+    # -- (c) the main path ------------------------------------------------
+    ops = ring_operands(**example, dtype=bf16, seed=61, dev=dev)
+    sync()
+    zero_launch_counts()
+    got = attention_fwd_bwd(ring, *ops)
+    sync()
+    launches = launch_counts()
+    # -------------------------------------------------------------------
+    rec["launches"] = {k: launches[k] for k in ("flash_fwd", "flash_bwd", "flash_bwd_chunk")}
+    for name in ("flash_fwd", "flash_bwd", "flash_bwd_chunk"):
+        if card_run and not launches[name]:
+            problems.append(f"{name} never launched on the ring's path")
+    want = attention_fwd_bwd(flash_attention, *ops)
+    gaps = {"example_bf16": attention_gaps(got, want, ops[3], bf16)}
+    if card_run:
+        rec["ring_fwd_bwd_ms"] = events_ms(lambda: attention_fwd_bwd(ring, *ops))
+        rec["monolithic_fwd_bwd_ms"] = events_ms(lambda: attention_fwd_bwd(flash_attention,
+                                                                           *ops))
+    del got, want, ops
+    part("c_main_path_and_monolithic_bf16")
+
+    # -- (a) f32, and the plain versions at plain_T -----------------------
+    ops = ring_operands(**example, dtype=f32, seed=62, dev=dev)
+    gaps["example_f32"] = attention_gaps(attention_fwd_bwd(ring, *ops),
+                                         attention_fwd_bwd(flash_attention, *ops), ops[3], f32)
+    del ops
+    part("a_example_f32")
+    for dtype in (bf16, f32):
+        ops = ring_operands(**{**example, "T": plain_T}, dtype=dtype, seed=63, dev=dev,
+                            left_pad=37)
+        plain = attention_fwd_bwd(lambda q, k, v, m: attention_reference(q, k, v, m)[0],
+                                  *[x.float() for x in ops[:3]], ops[3], ops[4].float())
+        gaps[f"plain_T{plain_T}_{str(dtype)[6:]}"] = attention_gaps(
+            attention_fwd_bwd(ring, *ops), plain, ops[3], dtype)
+        del ops, plain
+    part("a_plain_versions")
+
+    # -- (b) Llama-7B's attention width -----------------------------------
+    ops = ring_operands(**llama, dtype=bf16, seed=64, dev=dev, left_pad=llama["T"] // 8)
+    for tag, window in (("llama", None), ("llama_window", RING_LLAMA_WINDOW)):
+        gaps[tag] = attention_gaps(attention_fwd_bwd(ring, *ops, window=window),
+                                   attention_fwd_bwd(flash_attention, *ops, window=window),
+                                   ops[3], bf16)
+    del ops
+    part("b_llama")
+    half = example["T"] // (2 * n)
+    pair = ring_pair_record(bf16, dev, example["B"], half, example["H"], example["D"],
+                            q_offset=(2 * n - 1) * half, timed=card_run)
+    diagonal = ring_pair_record(bf16, dev, example["B"], half, example["H"], example["D"],
+                                q_offset=0, timed=card_run and KERNEL_ONLY)
+    rec["pair"], rec["diagonal_pair"] = pair, diagonal
+    part("b_pairs_timed")
+    for name, p in (("pair", pair), ("diagonal_pair", diagonal)):
+        if not p["ok"]:
+            problems.append(f"#5/#6' disagree with their plain versions on the {name}")
+    rec["max_abs_err"] = {tag: {k: e for k, (_, e) in g.items()} for tag, g in gaps.items()}
+    for tag, g in gaps.items():
+        bad = {k: e for k, (x, e) in g.items() if not math.isfinite(e) or x > 0}
+        if bad:
+            problems.append(f"{tag}: the ring disagrees beyond FLASH_TOL: {bad}")
+    if card_run:
+        torch.cuda.empty_cache()
+
+    # -- (d) long_context_sft in one process ------------------------------
+    ckpt = _scratch_dir("slice_ring")
+    cfg = sft_config({"parallel.data": 1, "parallel.sequence": 1, "train.total_steps": sft_steps,
+                      "train.epochs": 1, "train.checkpoint_dir": ckpt, "train.tracker": None,
+                      **({"train.seq_length": sft_seq} if sft_seq else {})})
+    T = cfg.train.seq_length
+    docs = synthetic_documents(sft_steps * cfg.train.batch_size, target_chars=T - 64)
+    zero_launch_counts()
+    try:
+        trainer = trlx_tpu_torch.train(samples=docs, config=cfg, device=dev,
+                                       eval_prompts=[d[: d.index(".") + 1] for d in docs[:8]])
+        sync()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    sft_launches = launch_counts()
+    steps = [st for _, st in trainer.tracker.history if "gradients/global_norm" in st]
+    rec["sft"] = {"seq_length": T, "batch_size": cfg.train.batch_size, "mesh": trainer.mesh,
+                  "losses": [st["losses/loss"] for st in steps],
+                  "train_step_ms": [1e3 * st["time/train_step"] for st in steps],
+                  "launches": {k: sft_launches[k] for k in ("flash_fwd", "flash_bwd",
+                                                            "flash_bwd_chunk")}}
+    if len(steps) != sft_steps or not all(math.isfinite(x) for x in rec["sft"]["losses"]):
+        problems.append(f"long_context_sft: {rec['sft']['losses']} over {len(steps)} steps")
+    if trainer.mesh is not None or sft_launches["flash_bwd_chunk"]:
+        problems.append("long_context_sft at one process built a mesh or ran the ring")
+    if card_run and not (sft_launches["flash_fwd"] and sft_launches["flash_bwd"]):
+        problems.append("long_context_sft ran without the flash kernels")
+    del trainer
+    part("d_long_context_sft")
+    zero_launch_counts()
+    rec["part_seconds"] = parts
+    rec["seconds"] = time.perf_counter() - t0
+    emit({**rec, "ok": not problems})
+    if problems:
+        raise AssertionError(f"slice_ring: {problems}")
+    chunk = {**pair.get("bwd", {}), "max_abs_err": max(pair["bwd_max_abs_err"],
+                                                       rec["max_abs_err"]["example_bf16"]["dk"])}
+    return launches, chunk
 
 
 # ---------------------------------------------------------------------------
@@ -7112,6 +7377,7 @@ def run_phases(clocked, seconds):
     clocked(phase_build)
     timed = clocked(phase_kernels)
     timed_train = clocked(phase_train_kernels)
+    ring_launches, ring_chunk = clocked(phase_slice_ring, card=smi)
     serve_launches = clocked(phase_slice, card=smi)
     prefix_launches, prefix_run = clocked(phase_slice_serve_prefix, card=smi)
     clocked(phase_slice_serve_prefix_parity, prefix_run, card=smi)
@@ -7217,7 +7483,7 @@ def run_phases(clocked, seconds):
                "spec_prefix": spec_prefix_launches, "engine_dense": engine_dense_launches,
                "grpo_spec": grpo_spec_launches, "family_spec": family_spec_launches,
                "ilql_spec": offline["ilql_spec"]["trainer_generate"]["launches"],
-               "async": async_launches}
+               "async": async_launches, "ring": ring_launches}
     kernels = [kernel_record(name, serve_launches[name], timed[name]["max_abs_err"], timed[name],
                              by_path)
                for name in SERVE_KERNELS]
@@ -7234,6 +7500,9 @@ def run_phases(clocked, seconds):
                                             loss["max_abs_err"]["dvalues"])),
     ):
         kernels.append(kernel_record(name, train_launches[name], err, rec[part], by_path))
+        if name == "flash_bwd":  # its chunk form, on the ring's path
+            kernels.append(kernel_record("flash_bwd_chunk", ring_launches["flash_bwd_chunk"],
+                                         ring_chunk["max_abs_err"], ring_chunk, by_path))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

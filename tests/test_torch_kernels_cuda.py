@@ -25,8 +25,13 @@ the paths meet, f32 logits shaped by the ILQL hook under top-k, a row with
 one finite logit and bit-equal repeated calls; for the fused loss IW on and
 off, a masked row and values on the clip bounds; the paged span kernel at
 the serving phases' prefix-cache and chunked-prefill spans (a suffix after
-a 48- and a 240-column hit, a 64-query chunk at offset 128). ``chip_smoke.py`` makes the
-same comparison at the serving and training shapes.
+a 48- and a 240-column hit, a 64-query chunk at offset 128); the flash
+backward's chunk form (#6 through ``flash_attention_bwd_chunk``) at ring
+offsets with the global ``lse`` of a longer sequence, a fully masked row
+and a pair wholly in the causal future (exact zeros over NaN-filled memory),
+and the in-process ring against the monolithic flash kernels.
+``chip_smoke.py`` makes the same comparison at the serving and training
+shapes and at the ring's full width.
 """
 
 import numpy as np
@@ -48,6 +53,7 @@ from trlx_tpu_torch.ops.paged_prefill import (
 
 from trlx_tpu_torch.ops.flash_attention import (
     flash_attention,
+    flash_attention_bwd_chunk,
     flash_bwd,
     flash_bwd_reference,
     flash_fwd,
@@ -516,3 +522,89 @@ def test_cuda_fused_loss_is_deterministic(cuda, shape):
     g = torch.tensor(1.0, device=cuda)
     for a, b in zip(fused_loss_bwd(p, ops, first[3], g), fused_loss_bwd(p, ops, second[3], g)):
         assert torch.equal(a, b)
+
+
+# (T, S, q_offset, k_offset, alibi, window, H, KV, D): ring chunk pairs; the
+# last lies wholly in the causal future of its queries
+CHUNK_CASES = [
+    (128, 128, 128, 0, False, 0, 4, 4, 64),
+    (128, 128, 256, 128, True, 0, 4, 2, 32),
+    (96, 160, 256, 0, False, 200, 4, 2, 128),
+    (64, 64, 64, 64, False, 0, 8, 8, 64),
+    (128, 128, 0, 128, False, 0, 4, 2, 64),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CHUNK_CASES)
+def test_cuda_flash_bwd_chunk_matches_plain_version(cuda, case, dtype):
+    T, S, q_off, k_off, alibi, window, H, KV, D = case
+    rs = np.random.RandomState(sum(case[:4]))
+    B = 2
+    q, do = (t(rs.randn(B, T, H, D).astype(np.float32)).to(cuda, dtype) for _ in range(2))
+    k, v = (t(rs.randn(B, S, KV, D).astype(np.float32)).to(cuda, dtype) for _ in range(2))
+    mask = np.ones((B, S), np.float32)
+    mask[0, :5] = 0.0
+    mask[1] = 0.0  # row 1 sees no key anywhere: its global lse is NEG_INF
+    lse = (rs.randn(B, H, T) + 4.0).astype(np.float32)
+    lse[1] = -1e30
+    mask, lse = t(mask).to(cuda), t(lse).to(cuda)
+    delta = t(rs.randn(B, H, T).astype(np.float32)).to(cuda)
+    kw = dict(sm_scale=D ** -0.5, causal=True, q_offset=q_off, k_offset=k_off, window=window)
+    pos = [None, None, None]
+    if alibi:
+        pos = [t((np.arange(n)[None].repeat(B, 0) + off).astype(np.int32)).to(cuda)
+               for n, off in ((T, q_off), (S, k_off))]
+        pos.append(t((2.0 ** (-8.0 * np.arange(1, H + 1) / H)).astype(np.float32)).to(cuda))
+    # NaN in the memory the wrapper's outputs will reuse: a tile the kernel
+    # did not store would show
+    torch.full((4 * B * S * H * D,), float("nan"), device=cuda)
+    before = (flash_attention_bwd_chunk.launches, flash_bwd.launches)
+    grads = flash_attention_bwd_chunk(q, k, v, mask, lse, delta, do, q_positions=pos[0],
+                                      k_positions=pos[1], alibi_slopes=pos[2],
+                                      **{k_: v_ for k_, v_ in kw.items() if k_ != "sm_scale"})
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_chunk.launches, flash_bwd.launches) == (before[0] + 1,
+                                                                       before[1] + 1)
+    wants = flash_bwd_reference(q.float(), k.float(), v.float(), mask, *pos, lse, delta,
+                                do.float(), **kw)
+    for got, w in zip(grads, wants):
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        assert not got[1].any()  # the row that sees no key: zeros
+        if k_off >= q_off + T:
+            assert not got.any()  # wholly future: exact zeros
+        torch.testing.assert_close(got.float(), w, atol=_TOL[dtype] * 10, rtol=_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,placement,window,KV", [(2, "zigzag", 0, 2), (4, "zigzag", 96, 4),
+                                                   (4, "contiguous", 0, 2)])
+def test_cuda_ring_matches_monolithic_flash(cuda, n, placement, window, KV, dtype):
+    from trlx_tpu_torch.parallel.ring_attention import ring_flash_attention
+
+    B, T, H, D = 2, 512, 4, 64
+    rs = np.random.RandomState(n + KV)
+    q, g = (t(rs.randn(B, T, H, D).astype(np.float32)).to(cuda, dtype) for _ in range(2))
+    k, v = (t(rs.randn(B, T, KV, D).astype(np.float32)).to(cuda, dtype) for _ in range(2))
+    mask = torch.ones(B, T, device=cuda)
+    mask[0, :37] = 0.0
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = flash_attention_bwd_chunk.launches
+    out = ring_flash_attention(*leaves, mask, n, placement=placement, window=window or None)
+    grads = torch.autograd.grad(out, leaves, g)
+    mono = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = flash_attention(*mono, mask, window=window or None)
+    wgrads = torch.autograd.grad(want, mono, g)
+    assert flash_attention_bwd_chunk.launches - before == n * n * (4 if placement == "zigzag"
+                                                                   else 1)
+    # FLASH_TOL of chip_smoke.py: both sides are the kernels, the ring
+    # combining partial softmaxes in f32
+    tol = {torch.float32: ((1e-4, 0.0), (1e-3, 1e-4)),
+           torch.bfloat16: ((2e-2, 0.0), (2e-2, 1e-2))}[dtype]
+    valid = mask > 0
+    torch.testing.assert_close(out.float()[valid], want.float()[valid], atol=tol[0][0],
+                               rtol=tol[0][1])
+    for got, w in zip(grads, wgrads):
+        torch.testing.assert_close(got.float(), w.float(), atol=tol[1][0], rtol=tol[1][1])

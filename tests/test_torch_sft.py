@@ -4,9 +4,10 @@ JAX package, on the CPU.
 
 Inputs are made by numpy from a seed. Held:
 
-- the loss and the chunked loss (any T, the chunk padded) against JAX's
-  ``SFTConfig.loss`` at 1e-5 relative in f32, and the chunked loss's
-  gradient against the full loss's;
+- the loss and the chunked loss (any T, the chunk padded) on the
+  next-token labels (``next_token_labels``) against JAX's
+  ``SFTConfig.loss``, which shifts inside, at 1e-5 relative in f32, and
+  the chunked loss's gradient against the full loss's;
 - ``tokenize_dialogue`` (both truncation sides, bare strings, the eos
   rule) and ``DialogStore``'s collated batches element for element; both
   loaders shuffle with ``random.Random(seed)``, so the same store yields
@@ -39,7 +40,7 @@ from trlx_tpu.trainer.sft import SFTTrainer as JaxSFTTrainer
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.data.default_configs import default_sft_config
 from trlx_tpu_torch.data.tokenizer import ByteTokenizer
-from trlx_tpu_torch.models.sft import IGNORE_INDEX, SFTConfig
+from trlx_tpu_torch.models.sft import IGNORE_INDEX, SFTConfig, next_token_labels
 from trlx_tpu_torch.models.weights import params_from_jax
 from trlx_tpu_torch.pipeline.offline_pipeline import (
     DialogStore,
@@ -83,7 +84,7 @@ def test_loss_matches_jax(T):
     rs = np.random.RandomState(T)
     logits, labels = _logits_labels(rs, 3, T, 37)
     want, wstats = JaxSFTConfig().loss(jnp.asarray(logits), jnp.asarray(labels))
-    got, stats = SFTConfig().loss(torch.tensor(logits), torch.tensor(labels))
+    got, stats = SFTConfig().loss(torch.tensor(logits), torch.tensor(next_token_labels(labels)))
     np.testing.assert_allclose(float(got), float(want), rtol=LOSS_RTOL)
     for k in ("losses/loss", "losses/ppl"):
         np.testing.assert_allclose(float(stats[k]), float(wstats[k]), rtol=LOSS_RTOL, err_msg=k)
@@ -102,14 +103,14 @@ class _Head(torch.nn.Module):
 
 @pytest.mark.parametrize("T,chunk", [(9, 4), (16, 5), (23, 7), (23, 64)])
 def test_chunked_loss_equals_loss(T, chunk):
-    """At odd T (the shifted length) the chunk pads; the loss and the
+    """At T not a multiple of the chunk the chunk pads; the loss and the
     gradients of the projection and of the hidden states equal the full
     loss's."""
     rs = np.random.RandomState(100 + T)
     hidden = torch.tensor(rs.randn(3, T, 8).astype(np.float32), requires_grad=True)
     w = torch.tensor(rs.randn(8, 37).astype(np.float32))
-    _, labels = _logits_labels(rs, 3, T, 37)
-    labels = torch.tensor(labels)
+    _, labels_np = _logits_labels(rs, 3, T, 37)
+    labels = torch.tensor(next_token_labels(labels_np))
     method = SFTConfig(logit_chunk=chunk)
     head = _Head(w.clone())
     full, _ = method.loss(head.project_logits(hidden), labels)
@@ -123,7 +124,7 @@ def test_chunked_loss_equals_loss(T, chunk):
     for a, b in zip(g_chunk, g_full):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6, rtol=1e-5)
     want, _ = JaxSFTConfig().loss(jnp.asarray((hidden @ w).detach().numpy()),
-                                  jnp.asarray(labels.numpy()))
+                                  jnp.asarray(labels_np))
     np.testing.assert_allclose(chunked.item(), float(want), rtol=LOSS_RTOL)
 
 

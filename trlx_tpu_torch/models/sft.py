@@ -5,19 +5,30 @@ name) with the next-token cross-entropy over labels where
 ``IGNORE_INDEX`` marks positions left out of the loss (the prompt turns
 of a dialogue), on full logits (:meth:`SFTConfig.loss`) or streamed
 through the vocab projection in T-chunks (:meth:`SFTConfig.chunked_loss`,
-``logit_chunk > 0``).
+``logit_chunk > 0``). Both take the next-token labels
+(:func:`next_token_labels`, made on the whole rows before a batch is
+split over ranks), where JAX's shift the labels inside the loss.
 """
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from trlx_tpu_torch.data.method_configs import MethodConfig, register_method
 
-__all__ = ["IGNORE_INDEX", "SFTConfig"]
+__all__ = ["IGNORE_INDEX", "SFTConfig", "next_token_labels"]
 
 IGNORE_INDEX = -100
+
+
+def next_token_labels(labels: np.ndarray) -> np.ndarray:
+    """The causal shift: the label each position predicts, ``labels[:, 1:]``
+    with the last position ``IGNORE_INDEX``."""
+    out = np.full_like(labels, IGNORE_INDEX)
+    out[:, :-1] = labels[:, 1:]
+    return out
 
 
 def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -47,11 +58,14 @@ class SFTConfig(MethodConfig):
         self,
         logits: torch.Tensor,  # [B, T, V]
         labels: torch.Tensor,  # [B, T]
+        reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        # causal shift: logits at t predict the label at t + 1
-        token_nll, mask = _token_nll(logits[:, :-1], labels[:, 1:])
-        loss = torch.sum(token_nll * mask) / torch.clamp(mask.sum(), min=1.0)
-        return loss, {"losses/loss": loss, "losses/ppl": torch.exp(loss)}
+        """The token mean of the NLL of ``labels``, the next-token labels
+        (:func:`next_token_labels`). ``reduce`` (a batch split over ranks)
+        sums a tensor over every rank that holds a part of the batch
+        (:func:`_token_mean`)."""
+        token_nll, mask = _token_nll(logits, labels)
+        return _token_mean(torch.sum(token_nll * mask), mask.sum(), reduce)
 
     def chunked_loss(
         self,
@@ -59,6 +73,7 @@ class SFTConfig(MethodConfig):
         hidden: torch.Tensor,  # [B, T, E] final-normed hidden states
         labels: torch.Tensor,  # [B, T]
         chunk: int,
+        reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """:meth:`loss` without the full logits: hidden chunks stream through
         ``project_logits`` (``ops/chunked.py``)."""
@@ -71,6 +86,21 @@ class SFTConfig(MethodConfig):
 
         zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
         s, n = stream_projected_reduce(
-            model, hidden[:, :-1], [(labels[:, 1:], IGNORE_INDEX)], chunk, (zero, zero), body)
-        loss = s / torch.clamp(n, min=1.0)
+            model, hidden, [(labels, IGNORE_INDEX)], chunk, (zero, zero), body)
+        return _token_mean(s, n, reduce)
+
+
+def _token_mean(nll_sum: torch.Tensor, count: torch.Tensor,
+                reduce: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``nll_sum / max(count, 1)`` with its stats. With ``reduce`` the
+    count is the global one and the returned loss is this rank's share:
+    the shares sum to the global token mean (a mean of per-rank means
+    would weight ranks, not tokens), and so do their gradients; the logged
+    loss is the global mean."""
+    if reduce is None:
+        loss = nll_sum / torch.clamp(count, min=1.0)
         return loss, {"losses/loss": loss, "losses/ppl": torch.exp(loss)}
+    loss = nll_sum / torch.clamp(reduce(count.detach()), min=1.0)
+    total = reduce(loss.detach())
+    return loss, {"losses/loss": total, "losses/ppl": torch.exp(total)}

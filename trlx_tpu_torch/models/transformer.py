@@ -30,7 +30,10 @@ Attention has three branches:
   ``[B, 1, T, S]`` bias exists. This is the scoring and
   training path, and a dense-cache prefill (the span's K/V are written
   into the cache first, then the queries at slots ``[ci, ci + T)`` attend
-  over the whole ``S``-wide cache);
+  over the whole ``S``-wide cache). A full pass given a
+  ``sequence_group`` holds this rank's zigzag shard of every row, with
+  the global positions, and attends through ring attention over that
+  group (``parallel/ring_attention.py``);
 - **dense** (``cache = {"k", "v"}`` of ``[B, S, KV, D]``, or no cache on
   the bias path): this call's K/V are written at ``cache_index`` (a
   scalar, or a ``[B]`` vector of per-row first columns: each row writes
@@ -602,6 +605,19 @@ class Attention(nn.Module):
                 cache["v"][rows, cols] = v.to(cache["v"].dtype)
             k, v = cache["k"].to(dt), cache["v"].to(dt)
 
+        if flash_args is not None and "ring" in flash_args:
+            # sequence-parallel exact attention: this rank holds one zigzag
+            # shard of the sequence and K/V rotate over the mesh's
+            # ``sequence`` group (the JAX ``ring_flash_attention`` hook)
+            from trlx_tpu_torch.parallel.ring_attention import ring_flash_attention_group
+
+            fa = flash_args
+            out = ring_flash_attention_group(q, k, v, fa["key_mask"], fa["ring"],
+                                             q_positions=fa.get("q_positions"),
+                                             k_positions=fa.get("k_positions"),
+                                             alibi_slopes=fa.get("alibi_slopes"),
+                                             window=fa.get("window"))
+            return _linear(self.o_proj, out.reshape(B, T, H * D), dt), cache
         if flash_args is not None:
             from trlx_tpu_torch.ops.flash_attention import flash_attention
 
@@ -825,13 +841,29 @@ def _rope(cfg: TransformerConfig, positions: torch.Tensor):
     return rotary_sin_cos(positions, cfg.rotary_dim or cfg.dims_per_head, cfg.rope_theta)
 
 
+def _check_sequence_shard(cfg: TransformerConfig, flash: bool) -> None:
+    """Refuse a sequence-sharded forward that would not run the ring: the
+    bias path would attend within the shard alone."""
+    if cfg.num_experts > 0:
+        raise ValueError("parallel.sequence > 1 with a mixture-of-experts model: the MoE "
+                         "dispatch groups whole rows, which a sequence shard does not hold "
+                         "(expert parallelism comes with slice 22)")
+    if not flash:
+        raise ValueError("parallel.sequence > 1 runs ring attention on the flash path: a "
+                         "full pass with no cache and model.attention_impl 'pallas' (on the "
+                         "CPU 'auto' takes the bias path, which attends within a shard)")
+
+
 def attn_inputs(cfg: TransformerConfig, key_mask, query_slots, positions, use_flash,
-                q_offset=0):
+                q_offset=0, ring=None):
     """``(bias, flash_args)`` for one forward — the single definition of the
     masking semantics, shared by the full pass, the cached passes and the
     hydra branch replay (the JAX ``_attn_inputs``). Flash queries sit at
     slots ``[q_offset, q_offset + T)`` (a scalar); the window and ALiBi go
-    to the kernel, which builds no bias."""
+    to the kernel, which builds no bias. ``ring`` (the process group of a
+    sequence-sharded full pass) routes the flash call through ring
+    attention; ALiBi's key positions are then the (global) ``positions``
+    of the shard's own slots."""
     alibi = cfg.position_scheme == "alibi"
     slopes = (torch.tensor(alibi_slopes(cfg.num_heads), dtype=torch.float32,
                            device=key_mask.device) if alibi else None)
@@ -839,11 +871,13 @@ def attn_inputs(cfg: TransformerConfig, key_mask, query_slots, positions, use_fl
         return attention_bias(key_mask, query_slots, positions, window=cfg.sliding_window,
                               slopes=slopes), None
     args = {"key_mask": key_mask, "q_offset": int(q_offset)}
+    if ring is not None:
+        args["ring"] = ring
     if cfg.sliding_window:
         args["window"] = cfg.sliding_window
     if alibi:
         args.update(alibi_slopes=slopes, q_positions=positions,
-                    k_positions=key_positions(key_mask))
+                    k_positions=positions if ring is not None else key_positions(key_mask))
     return None, args
 
 
@@ -902,7 +936,13 @@ class CausalTransformer(nn.Module):
         cache_index: Any = None,
         logits_span: Optional[Tuple[int, int]] = None,
         branch_layer: Optional[int] = None,
+        sequence_group: Any = None,
     ) -> Dict[str, Any]:
+        """``sequence_group`` (a ``torch.distributed`` process group, the
+        mesh's ``sequence`` axis): ``input_ids`` are this rank's zigzag
+        shard of every row and ``positions`` their global positions; the
+        attention runs as ring attention over the group (the JAX
+        ``_maybe_ring_mesh``). It needs the flash path and no cache."""
         cfg = self.config
         B, T = input_ids.shape
         device = input_ids.device
@@ -932,8 +972,10 @@ class CausalTransformer(nn.Module):
             T > 1 and torch.as_tensor(offset).ndim == 0 and not paged
             and cfg.resolved_attention_impl(device) == "pallas"
         )
+        if sequence_group is not None:
+            _check_sequence_shard(cfg, use_flash and cache is None)
         bias, flash_args = attn_inputs(cfg, attention_mask, query_slots, positions, use_flash,
-                                       offset)
+                                       offset, sequence_group)
         rope = _rope(cfg, positions)
 
         paged_write = None

@@ -50,14 +50,14 @@ port's ``state_dict`` as a tree of JAX's layout with torch leaves, which
 the HF exporters read.
 """
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from trlx_tpu_torch.models.transformer import TransformerConfig
 
-__all__ = ["params_from_jax", "params_to_jax", "seq2seq_params_from_jax"]
+__all__ = ["jax_param_path", "params_from_jax", "params_to_jax", "seq2seq_params_from_jax"]
 
 
 def _leaf(param_dtype):
@@ -218,7 +218,38 @@ def seq2seq_params_from_jax(np_params: Dict[str, Any], scfg) -> Dict[str, torch.
 _EMBEDDINGS = ("wte", "wpe", "rel_bias")
 _NORMS = ("ln_attn", "ln_mlp", "ln_f", "emb_ln", "ln_self", "ln_cross", "enc_ln_f", "dec_ln_f")
 _STACKS = {"blocks": "h", "enc_blocks": "enc", "dec_blocks": "dec"}
-_HEADS = ("v_head", "ilql_heads", "r_head")
+# the head modules of a policy's state dict (its backbone then sits under
+# ``backbone.``)
+HEAD_PREFIXES = ("v_head", "ilql_heads", "r_head")
+
+
+def jax_param_path(key: str, wrapped: bool) -> Tuple[Tuple[str, ...], bool]:
+    """The JAX tree path of a key of the port's ``state_dict`` and whether
+    the tensor is the transpose of JAX's leaf (a Linear weight ``[out, in]``
+    against flax's ``[in, out]`` kernel). ``wrapped``: the state dict is a
+    policy's, its backbone under ``backbone.``. Layers map to ``h_{i}`` /
+    ``enc_{i}`` / ``dec_{i}``, the unscanned layout."""
+    parts = key.split(".")
+    path: List[str] = []
+    if wrapped and parts[0] == "backbone":
+        parts, path = parts[1:], ["backbone"]
+    i = 0
+    while i < len(parts) - 1:
+        if parts[i] in _STACKS:
+            path.append(f"{_STACKS[parts[i]]}_{parts[i + 1]}")
+            i += 2
+        else:
+            path.append(parts[i])
+            i += 1
+    leaf, module = parts[-1], path[-1] if path else ""
+    if module in _EMBEDDINGS:
+        return tuple(path + ["embedding"]), False
+    if module in _NORMS:
+        return tuple(path + ["scale" if leaf == "weight" else leaf]), False
+    if leaf == "weight":
+        return tuple(path + ["kernel"]), True
+    # a bias, a LoRA adapter or the MoE experts (``mlp.w_*``)
+    return tuple(path + [leaf]), False
 
 
 def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
@@ -228,33 +259,13 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     leaves are the port's tensors (Linear weights transposed to flax's
     ``[in, out]`` as views; embeddings, norm scales, the MoE experts and
     LoRA adapters as they are). Layers come as ``h_{i}`` / ``enc_{i}`` /
-    ``dec_{i}`` subtrees, the unscanned layout."""
-    wrapped = any(k.startswith(_HEADS) for k in state_dict)
+    ``dec_{i}`` subtrees, the unscanned layout (:func:`jax_param_path`)."""
+    wrapped = any(k.startswith(HEAD_PREFIXES) for k in state_dict)
     tree: Dict[str, Any] = {}
     for key, value in state_dict.items():
-        parts = key.split(".")
-        if wrapped and parts[0] == "backbone":
-            parts = parts[1:]
-            node = tree.setdefault("backbone", {})
-        else:
-            node = tree
-        path, i = [], 0
-        while i < len(parts) - 1:
-            if parts[i] in _STACKS:
-                path.append(f"{_STACKS[parts[i]]}_{parts[i + 1]}")
-                i += 2
-            else:
-                path.append(parts[i])
-                i += 1
-        leaf, module = parts[-1], path[-1] if path else ""
-        for name in path:
+        path, transposed = jax_param_path(key, wrapped)
+        node = tree
+        for name in path[:-1]:
             node = node.setdefault(name, {})
-        if module in _EMBEDDINGS:
-            node["embedding"] = value
-        elif module in _NORMS:
-            node["scale" if leaf == "weight" else leaf] = value
-        elif leaf == "weight":
-            node["kernel"] = _transpose(value)
-        else:  # a bias, a LoRA adapter or the MoE experts (``mlp.w_*``)
-            node[leaf] = value
+        node[path[-1]] = _transpose(value) if transposed else value
     return tree

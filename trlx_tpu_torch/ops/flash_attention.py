@@ -8,6 +8,11 @@ Hopper, each with a plain PyTorch version beside it:
 - :func:`flash_bwd` (``csrc/flash_bwd.cu``): dq, dk and dv recomputed from
   ``lse`` and ``delta = rowsum(do * out)`` (two launches, dk/dv then dq).
 
+:func:`flash_attention_bwd_chunk` is the backward's chunk form, one
+(q-chunk x kv-chunk) term from the *global* ``lse`` and ``delta`` with
+slot offsets (ring attention's backward, ``parallel/ring_attention.py``);
+it launches :func:`flash_bwd`'s kernel.
+
 Both run bf16 on tensor cores at head dims up to 128 (compiled for 16, 32,
 64 and 128, any other D padded inside the loads), bf16 above 128 and f32
 on CUDA cores; the C entries choose by D before the launch. Any D >= 1
@@ -60,6 +65,7 @@ __all__ = [
     "flash_fwd_reference",
     "flash_bwd",
     "flash_bwd_reference",
+    "flash_attention_bwd_chunk",
 ]
 
 NEG_INF = -1e30
@@ -283,6 +289,71 @@ def flash_bwd_reference(q, k, v, key_mask, q_positions, k_positions, alibi_slope
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _as_kernel_operands(q, k, v, key_mask, q_positions, k_positions, alibi_slopes):
+    """Contiguous q, k, v, an f32 key mask and, with ALiBi, int32 positions
+    and f32 slopes: the operands :func:`flash_fwd` and :func:`flash_bwd`
+    take."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    key_mask = key_mask.to(torch.float32).contiguous()
+    if alibi_slopes is not None:
+        alibi_slopes = alibi_slopes.to(torch.float32).contiguous()
+        q_positions = q_positions.to(torch.int32).contiguous()
+        k_positions = k_positions.to(torch.int32).contiguous()
+    return q, k, v, key_mask, q_positions, k_positions, alibi_slopes
+
+
+def flash_attention_bwd_chunk(
+    q: torch.Tensor,  # (B, T, H, D) local queries
+    k: torch.Tensor,  # (B, S, KV, D) visiting key chunk
+    v: torch.Tensor,  # (B, S, KV, D)
+    key_mask: torch.Tensor,  # (B, S)
+    lse: torch.Tensor,  # (B, H, T) GLOBAL logsumexp of the full (ring) softmax
+    delta: torch.Tensor,  # (B, H, T) rowsum(do * out_final)
+    do: torch.Tensor,  # (B, T, H, D) cotangent of the final output
+    *,
+    causal: bool = True,
+    sm_scale: Optional[float] = None,
+    q_offset=0,
+    k_offset=0,
+    q_positions: Optional[torch.Tensor] = None,  # (B, T) for ALiBi
+    k_positions: Optional[torch.Tensor] = None,  # (B, S) for ALiBi
+    alibi_slopes: Optional[torch.Tensor] = None,  # (H,)
+    window: Optional[int] = None,  # sliding-window width (None = unbounded)
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One (q-chunk x kv-chunk) term of the flash backward, in model layout
+    (the JAX ``flash_attention_bwd_chunk``).
+
+    With the *global* ``lse`` / ``delta``, the terms summed over every kv
+    chunk of a ring sweep are the monolithic backward. One launch of
+    :func:`flash_bwd`'s kernel gives all three gradients, dq in q's dtype
+    and dk / dv in k's. A pair wholly in the causal future (or outside the
+    window) gives exact zeros: every key tile's block stores its
+    accumulators, which start at zero, whether or not a query sees it. A
+    row whose global ``lse`` is ``NEG_INF`` sees no key anywhere, so
+    ``exp(s - lse)`` is never formed for it. The kernel masks rows and
+    columns past T and S itself, so nothing is padded (JAX pads query
+    rows with a ``+1e30`` lse sentinel).
+
+    ``launches`` counts the launches made through this entry; they are
+    :func:`flash_bwd`'s launches too."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[3])
+    q, k, v, key_mask, q_positions, k_positions, alibi_slopes = _as_kernel_operands(
+        q, k, v, key_mask, q_positions, k_positions, alibi_slopes)
+    grads = flash_bwd(q, k, v, key_mask, q_positions, k_positions, alibi_slopes,
+                      lse.to(torch.float32).contiguous(), delta.to(torch.float32).contiguous(),
+                      do.to(q.dtype).contiguous(), sm_scale=float(sm_scale),
+                      causal=bool(causal), q_offset=int(q_offset), k_offset=int(k_offset),
+                      window=int(window or 0))
+    if q.device.type == "cuda":
+        with launch_lock:
+            flash_attention_bwd_chunk.launches += 1
+    return grads
+
+
+flash_attention_bwd_chunk.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # autograd pairing and the model-layout entry point
 # ---------------------------------------------------------------------------
@@ -336,12 +407,8 @@ def flash_attention(
     B, T, H, D = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    key_mask = key_mask.to(torch.float32).contiguous()
-    if alibi_slopes is not None:
-        alibi_slopes = alibi_slopes.to(torch.float32).contiguous()
-        q_positions = q_positions.to(torch.int32).contiguous()
-        k_positions = k_positions.to(torch.int32).contiguous()
+    q, k, v, key_mask, q_positions, k_positions, alibi_slopes = _as_kernel_operands(
+        q, k, v, key_mask, q_positions, k_positions, alibi_slopes)
     opts = dict(sm_scale=float(sm_scale), causal=bool(causal), q_offset=int(q_offset),
                 k_offset=int(k_offset), window=int(window or 0))
     if return_lse:

@@ -72,8 +72,8 @@ POLLED_KINDS = frozenset({
 })
 # the other kinds, and the subsystem of the port each waits for
 UNPORTED_KINDS = {
-    "sigterm_one_proc": "several processes (coordinated preemption)",
-    "topology_shrink": "several processes (elastic restore)",
+    "sigterm_one_proc": "slice 21: coordinated preemption over several processes",
+    "topology_shrink": "slice 21: elastic restore over several processes",
 }
 assert POLLED_KINDS | set(UNPORTED_KINDS) == _KINDS
 # seconds the injected straggler (sleep_one_proc) stalls the last rank's step

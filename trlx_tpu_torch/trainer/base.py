@@ -149,6 +149,13 @@ from trlx_tpu_torch.ops.sampling import (
 )
 from trlx_tpu_torch.ops.slot_refill import make_slot_refill_fns
 from trlx_tpu_torch.ops.speculative import generate_speculative
+from trlx_tpu_torch.parallel.mesh import (
+    make_mesh,
+    mesh_shape_from_config,
+    set_global_mesh,
+    world_size,
+)
+from trlx_tpu_torch.parallel.sharding import shard_params
 from trlx_tpu_torch.pipeline import PrefetchLoader
 from trlx_tpu_torch.resilience import (
     UNPORTED_KINDS,
@@ -167,7 +174,9 @@ from trlx_tpu_torch.utils import (
 )
 from trlx_tpu_torch.utils.checkpoint import (
     _checkpoint_step_dirs,
+    gather_full_state,
     is_committed,
+    load_full_state,
     load_state,
     newest_committed_checkpoint,
     prune_checkpoints,
@@ -183,8 +192,15 @@ logger = logging.getLogger(__name__)
 TRIAGE_MAX_ROWS = 64
 TRIAGE_MAX_DUMPS = 8
 
-# parallel axes of the JAX mesh: the port runs on one device
-_PARALLEL_AXES = ("fsdp", "pipe", "model", "sequence", "expert", "dcn_data_parallelism")
+# the mesh axes the port runs (for the trainers with ``parallel_ok``), and
+# the ones that wait for a later slice, with their reasons
+_PARALLEL_AXES = ("data", "fsdp", "sequence")
+_UNPORTED_AXES = {
+    "model": "tensor parallelism comes with slice 22",
+    "pipe": "pipeline parallelism comes with slice 22",
+    "expert": "expert parallelism comes with slice 22",
+    "dcn_data_parallelism": "the multi-host data layout comes with slice 21",
+}
 
 
 def validate_engine(config) -> None:
@@ -258,10 +274,14 @@ def validate_serve(config) -> None:
                          f"of {SERVE_CLASSES})")
 
 
-def reject_unported(config, collects_rollouts: bool, seq2seq_ok: bool) -> None:
+def reject_unported(config, collects_rollouts: bool, seq2seq_ok: bool,
+                    parallel_ok: bool = False) -> None:
     """Raise ``ValueError`` naming the first setting this slice does not
-    run: parallel axes (the port runs on one device; ``parallel.
-    scan_layers`` runs, as per-layer modules, with ``pipe`` 1), seq2seq
+    run: parallel axes (``model``, ``pipe`` and ``expert`` above 1 for
+    every trainer; ``data``, ``fsdp`` and ``sequence`` above 1 for the
+    trainers without ``parallel_ok``, and a mesh that does not fit the
+    world for those with it; ``parallel.scan_layers`` runs, as per-layer
+    modules, with ``pipe`` 1), seq2seq
     outside PPO and ILQL (``seq2seq_ok``), serving inside an offline
     trainer (JAX's reason: only the rollout trainers have an engine to
     serve from), and a fault plan (``resilience.fault_plan`` or ``TRLX_TPU_FAULT_PLAN``) that
@@ -296,7 +316,6 @@ def reject_unported(config, collects_rollouts: bool, seq2seq_ok: bool) -> None:
     checks += [
         (config.serve.enabled and not collects_rollouts, "serve.enabled: this trainer has "
          "no continuous-batching engine path to serve from (PPO-family trainers only)"),
-        (int(par.data) not in (-1, 1), "parallel.data > 1: the port runs on one device"),
         (m.model_arch_type != "causal" and not (seq2seq_ok and m.model_arch_type == "seq2seq"),
          f"model.model_arch_type {m.model_arch_type!r}: the port runs seq2seq models under "
          "PPO and ILQL only"),
@@ -305,12 +324,29 @@ def reject_unported(config, collects_rollouts: bool, seq2seq_ok: bool) -> None:
                               for k in unported_faults)),
     ]
     checks += [
-        (int(getattr(par, axis)) > 1, f"parallel.{axis} > 1: the port runs on one device")
-        for axis in _PARALLEL_AXES
+        (int(getattr(par, axis)) > 1, f"parallel.{axis} > 1: {reason}")
+        for axis, reason in _UNPORTED_AXES.items()
     ]
+    if not parallel_ok:
+        checks.append((world_size() > 1, "parallel.data: this trainer runs in one process; "
+                       "data, fsdp and sequence parallelism run under SFT, the other "
+                       "trainers come with slice 21"))
+        checks += [
+            (int(getattr(par, axis)) not in (-1, 1), f"parallel.{axis} > 1: this trainer runs "
+             "on one device; data, fsdp and sequence parallelism run under SFT, the other "
+             "trainers come with slice 21")
+            for axis in _PARALLEL_AXES
+        ]
     for bad, message in checks:
         if bad:
             raise ValueError(message)
+    if parallel_ok:
+        try:
+            mesh_shape_from_config(par)
+        except ValueError as e:
+            axis = next((a for a in _PARALLEL_AXES if int(getattr(par, a)) > 1), "data")
+            raise ValueError(f"parallel.{axis}: {e} (start one process per device: "
+                             "trlx.initialize_runtime)") from e
 
 
 def _sync(device: torch.device) -> None:
@@ -386,6 +422,8 @@ class TorchBaseTrainer(BaseRLTrainer):
     # PPO collects rollouts through the engine; the offline trainers only
     # evaluate through it (see reject_unported)
     collects_rollouts: bool = False
+    # runs over a mesh of several processes (data, fsdp, sequence): SFT
+    parallel_ok: bool = False
     # the trainers with a seq2seq branch (PPO and ILQL, as in JAX)
     supports_seq2seq: bool = False
 
@@ -408,13 +446,20 @@ class TorchBaseTrainer(BaseRLTrainer):
                 "train.continuous_batching supports causal LMs only: the "
                 "seq2seq decoder has no slot-refill path"
             )
-        reject_unported(config, self.collects_rollouts, self.supports_seq2seq)
+        reject_unported(config, self.collects_rollouts, self.supports_seq2seq,
+                        self.parallel_ok)
         if config.train.batch_size % max(1, int(config.train.grad_accum)) != 0:
             raise ValueError(
                 f"train.batch_size ({config.train.batch_size}) must be divisible "
                 f"by train.grad_accum ({config.train.grad_accum})"
             )
         self.device = resolve_device(device)
+        # the mesh over the world's processes (JAX's constructor); at world
+        # size 1 none is built and nothing is wrapped. No model code reads
+        # the global mesh: a sequence-sharded forward is given its group
+        self.mesh = (make_mesh(config.parallel, self.device.type) if world_size() > 1
+                     else None)
+        set_global_mesh(self.mesh)
         self.tokenizer = tokenizer_from_config(config.tokenizer)
 
         overrides = assemble_overrides(config.model, config.parallel,
@@ -450,6 +495,9 @@ class TorchBaseTrainer(BaseRLTrainer):
         # JAX differentiates every parameter; the mask decides who updates
         self.model.requires_grad_(True)
         self.param_mask = mask_fn(self.model, self.tcfg, config.model.num_layers_unfrozen)
+        if self.mesh is not None:
+            # FSDP2 over the mesh, before the optimizer sees the parameters
+            shard_params(self.model, self.mesh)
         self.schedule = get_scheduler(config.scheduler.name, dict(config.scheduler.kwargs),
                                       default_lr=config.optimizer.kwargs.get("lr"))
         self.optimizer = get_optimizer(
@@ -596,10 +644,16 @@ class TorchBaseTrainer(BaseRLTrainer):
         if batch is self._last_batch_host:
             return self._last_batch_device
         items = batch._asdict() if hasattr(batch, "_asdict") else batch
-        arrays = {k: torch.as_tensor(np.asarray(v)).to(self.device)
-                  for k, v in items.items() if hasattr(v, "ndim")}
+        items = self.host_batch({k: v for k, v in items.items() if hasattr(v, "ndim")})
+        arrays = {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in items.items()}
         self._last_batch_host, self._last_batch_device = batch, arrays
         return arrays
+
+    def host_batch(self, items: Dict[str, Any]) -> Dict[str, Any]:
+        """The arrays a step takes from a collated host batch: here the
+        batch as it is. The trainers with ``parallel_ok`` take this rank's
+        part under the mesh."""
+        return items
 
     def _drop_batch_memo(self) -> None:
         self._last_batch_host = self._last_batch_device = None
@@ -699,6 +753,8 @@ class TorchBaseTrainer(BaseRLTrainer):
         stats, loss = self._accumulate(arrays, self._loss_scale())
         gnorm = torch.nn.utils.get_total_norm(
             [p.grad for p in self.model.parameters() if p.grad is not None])
+        if hasattr(gnorm, "full_tensor"):  # FSDP2's sharded gradients
+            gnorm = gnorm.full_tensor()
         lr = float(self.schedule(self.step))
         stats = dict(stats)
         stats["learning_rate"] = lr
@@ -1560,7 +1616,7 @@ class TorchBaseTrainer(BaseRLTrainer):
                     if self.iter_count % self.config.train.checkpoint_interval == 0:
                         # the retention ring prunes before the interval save
                         keep = int(self.resilience.config.keep_last_n)
-                        if keep > 0:
+                        if keep > 0 and process_index() == 0:
                             prune_checkpoints(self.config.train.checkpoint_dir, keep)
                         self.save(self._checkpoint_path())
                     if self.iter_count % self.config.train.eval_interval == 0:
@@ -1679,10 +1735,27 @@ class TorchBaseTrainer(BaseRLTrainer):
         if emergency:
             extra.update(emergency=True, nth_evaluation=self.nth_evaluation,
                          payload=self._emergency_payload())
-        save_state(directory, {"model": self.model.state_dict(),
-                               "optimizer": self.optimizer.state_dict(),
-                               "step": self.step, "extra": extra,
-                               "rng": self._rng_state()})
+        model_sd, optim_sd = self._full_state()
+        if process_index() == 0:
+            save_state(directory, {"model": model_sd, "optimizer": optim_sd,
+                                   "step": self.step, "extra": extra,
+                                   "rng": self._rng_state()})
+        self._barrier()
+
+    def _full_state(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """``(model, optimizer)`` state in the one-device format: under the
+        mesh gathered onto rank 0 (``utils/checkpoint.py::
+        gather_full_state``, a collective; other ranks get empty dicts)."""
+        if self.mesh is None:
+            return self.model.state_dict(), self.optimizer.state_dict()
+        return gather_full_state(self.model, self.optimizer)
+
+    def _barrier(self) -> None:
+        """Under the mesh, every rank waits here for rank 0's writes."""
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            dist.barrier()
 
     def save_pretrained(self, directory: Optional[str] = None, **kwargs) -> None:
         """Export the policy (``utils/checkpoint.py::save_pretrained``): the
@@ -1690,15 +1763,21 @@ class TorchBaseTrainer(BaseRLTrainer):
         directory with the heads merged; ``<checkpoint_dir>/hf_model`` by
         default, the tokenizer's files copied when its path is a
         directory."""
-        save_pretrained(directory or f"{self.config.train.checkpoint_dir}/hf_model",
-                        self.model.state_dict(), self.tcfg,
-                        tokenizer_path=self.config.tokenizer.tokenizer_path)
+        model_sd = self._full_state()[0]
+        if process_index() == 0:
+            save_pretrained(directory or f"{self.config.train.checkpoint_dir}/hf_model",
+                            model_sd, self.tcfg,
+                            tokenizer_path=self.config.tokenizer.tokenizer_path)
+        self._barrier()
 
     def push_to_hub(self, repo_id: str, **kwargs) -> str:
         """Publish the current policy to the HF Hub: a full
         :meth:`save_pretrained` export staged locally, then uploaded in one
         call (``utils/checkpoint.py::push_to_hub``, whose ``uploader=``
         replaces the network step)."""
+        if self.mesh is not None:
+            raise ValueError("push_to_hub under a mesh: export with save_pretrained (rank 0 "
+                             "writes the full weights) and upload that directory")
         kwargs.setdefault("tokenizer_path", self.config.tokenizer.tokenizer_path)
         return push_to_hub(repo_id, self.model.state_dict(), self.tcfg, **kwargs)
 
@@ -1713,9 +1792,12 @@ class TorchBaseTrainer(BaseRLTrainer):
         go on."""
         directory = directory or self.config.train.checkpoint_dir
         state = load_state(directory)
-        self.model.load_state_dict(state["model"])
+        if self.mesh is None:
+            self.model.load_state_dict(state["model"])
+            self.optimizer.load_state_dict(state["optimizer"])
+        else:  # the full state, resharded over this mesh
+            load_full_state(self.model, self.optimizer, state["model"], state["optimizer"])
         self._weights_version += 1
-        self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
         extra = state["extra"]
         self.iter_count = int(extra.get("iter_count", 0))

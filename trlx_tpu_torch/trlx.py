@@ -12,9 +12,13 @@ callback contracts are the JAX package's:
 - ``metric_fn(samples, prompts, outputs) -> Dict[str, List[float]]``
 
 Training runs on the GPU unless the caller passes ``device="cpu"``.
+Several processes (:func:`initialize_runtime`) form one
+``torch.distributed`` world: every process runs ``train()`` with the
+same arguments and drives one device.
 """
 
 import importlib
+import os
 import warnings
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
@@ -26,7 +30,54 @@ from trlx_tpu_torch.data.default_configs import (
 )
 from trlx_tpu_torch.utils import set_seed
 
-__all__ = ["train"]
+__all__ = ["initialize_runtime", "train"]
+
+
+def initialize_runtime(device: Any = None):
+    """Process-level runtime set-up from environment variables (the JAX
+    ``initialize_runtime``); returns the device this process drives.
+
+    Idempotent (a second call finds the group initialized). The world
+    comes from JAX's variables (``TRLX_TPU_COORDINATOR=host:port``,
+    ``TRLX_TPU_NUM_PROCESSES``, ``TRLX_TPU_PROCESS_ID``) or torchrun's
+    (``MASTER_ADDR`` / ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
+    ``LOCAL_RANK``). With more than one process it calls
+    ``torch.distributed.init_process_group``: ``gloo`` when the caller
+    asked for the CPU, else ``nccl`` with this rank's device
+    ``cuda:LOCAL_RANK`` (the process id modulo the host's card count
+    when ``LOCAL_RANK`` is unset: one process per card on every host).
+    With one process, or a group already initialized by the caller, it
+    starts nothing and the device is the caller's."""
+    import torch
+    import torch.distributed as dist
+
+    coordinator = os.environ.get("TRLX_TPU_COORDINATOR")
+    if coordinator:
+        world = int(os.environ.get("TRLX_TPU_NUM_PROCESSES", "1"))
+        rank = int(os.environ.get("TRLX_TPU_PROCESS_ID", "0"))
+        init_method = f"tcp://{coordinator}"
+    else:
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        rank = int(os.environ.get("RANK", "0"))
+        init_method = "env://"
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if world > 1 and not cpu:
+        local_rank = os.environ.get("LOCAL_RANK")
+        if local_rank is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("several processes on the GPU need a CUDA device; pass "
+                                   "device='cpu' to run them over gloo")
+            local_rank = rank % torch.cuda.device_count()
+        device = torch.device("cuda", int(local_rank))
+    if world == 1 or dist.is_initialized():
+        return device
+    if cpu:
+        dist.init_process_group("gloo", init_method=init_method, world_size=world, rank=rank)
+    else:
+        torch.cuda.set_device(device)
+        dist.init_process_group("nccl", init_method=init_method, world_size=world, rank=rank,
+                                device_id=device)
+    return device
 
 
 def train(  # noqa: C901
@@ -54,6 +105,7 @@ def train(  # noqa: C901
     ``init_trainer_hook(trainer)`` runs before any rollout or training
     (e.g. to transplant warm-start weights into the policy and its
     reference)."""
+    device = initialize_runtime(device)
     for module in ("trlx_tpu_torch.pipeline.offline_pipeline", "trlx_tpu_torch.trainer.ppo",
                    "trlx_tpu_torch.trainer.grpo", "trlx_tpu_torch.trainer.ilql",
                    "trlx_tpu_torch.trainer.sft", "trlx_tpu_torch.trainer.dpo"):

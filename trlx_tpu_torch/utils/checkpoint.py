@@ -20,6 +20,15 @@ would load.
 ``crash_save@save:N`` after the staged file is written and before the
 marker, as JAX's commit does.
 
+Under FSDP2 (a trainer over a mesh of several processes) a save gathers
+the full state onto rank 0, on the CPU, in the one-device format
+(:func:`gather_full_state`: ``get_model_state_dict`` /
+``get_optimizer_state_dict`` with ``full_state_dict=True,
+cpu_offload=True``, the optimizer state re-keyed by parameter index), and
+only rank 0 writes; a resume loads that full state and reshards it
+(:func:`load_full_state`). So a checkpoint of any world size resumes at
+any other.
+
 The interoperable export (JAX's :func:`save_pretrained`,
 :func:`load_pretrained_params` and :func:`push_to_hub`): the port's own
 dump — ``trlx_tpu_torch_model.pt`` (the ``state_dict``, heads included)
@@ -51,6 +60,8 @@ __all__ = [
     "prune_checkpoints",
     "save_state",
     "load_state",
+    "gather_full_state",
+    "load_full_state",
     "save_pretrained",
     "load_pretrained_params",
     "push_to_hub",
@@ -147,6 +158,65 @@ def load_state(directory: str) -> Dict[str, Any]:
         raise FileNotFoundError(f"{directory} holds no committed checkpoint")
     return torch.load(os.path.join(directory, STATE_FILE), map_location="cpu",
                       weights_only=True)
+
+
+def _optimizer_fqns(model: torch.nn.Module, optimizer) -> List[List[str]]:
+    """The parameter names of each of the optimizer's groups, in order."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return [[names[id(p)] for p in group["params"]] for group in optimizer.param_groups]
+
+
+def gather_full_state(model: torch.nn.Module, optimizer) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The full ``(model, optimizer)`` state of an FSDP2-sharded model on
+    rank 0, on the CPU, in the format ``state_dict()`` gives on one device
+    (the optimizer's state keyed by parameter index); other ranks get
+    empty dicts. A collective: every rank calls it."""
+    import torch.distributed as dist
+    from torch.distributed.checkpoint.state_dict import (
+        StateDictOptions,
+        get_model_state_dict,
+        get_optimizer_state_dict,
+    )
+
+    opts = StateDictOptions(full_state_dict=True, cpu_offload=True)
+    model_sd = get_model_state_dict(model, options=opts)
+    optim_sd = get_optimizer_state_dict(model, optimizer, options=opts)
+    if dist.get_rank() != 0:
+        return {}, {}
+    index, groups = 0, []
+    state = {}
+    for group, fqns in zip(optim_sd["param_groups"], _optimizer_fqns(model, optimizer)):
+        ids = []
+        for fqn in fqns:
+            if fqn in optim_sd["state"]:
+                state[index] = optim_sd["state"][fqn]
+            ids.append(index)
+            index += 1
+        groups.append({**{k: v for k, v in group.items() if k != "params"}, "params": ids})
+    return dict(model_sd), {"state": state, "param_groups": groups}
+
+
+def load_full_state(model: torch.nn.Module, optimizer, model_sd: Dict[str, Any],
+                    optim_sd: Dict[str, Any]) -> None:
+    """Load a full state (the one-device format) into an FSDP2-sharded
+    model and its optimizer, each rank keeping its shards."""
+    from torch.distributed.checkpoint.state_dict import (
+        StateDictOptions,
+        set_model_state_dict,
+        set_optimizer_state_dict,
+    )
+
+    opts = StateDictOptions(full_state_dict=True)
+    set_model_state_dict(model, model_sd, options=opts)
+    index, state, groups = 0, {}, []
+    for group, fqns in zip(optim_sd["param_groups"], _optimizer_fqns(model, optimizer)):
+        for fqn in fqns:
+            if index in optim_sd["state"]:
+                state[fqn] = optim_sd["state"][index]
+            index += 1
+        groups.append({**{k: v for k, v in group.items() if k != "params"}, "params": fqns})
+    set_optimizer_state_dict(model, optimizer, {"state": state, "param_groups": groups},
+                             options=opts)
 
 
 def save_pretrained(directory: str, state_dict: Dict[str, torch.Tensor], config,
