@@ -65,7 +65,8 @@ Phases, each printing one JSON line:
    there, and both must; the trainable weights must move; each prints step
    ms, ``time/exp``, rollout tokens/s, ``rollout_overlap_frac`` and the KV
    gauge, and ``slice_serial`` over one profiled collection the card's
-   busy share and launches per decode step. In f32 with TF32 off (``slice_serial_parity``):
+   busy share and launches per decode step. In f32 with TF32 off, at
+   ``PARITY_LAYERS`` (3) of the 12 layers (``slice_serial_parity``):
    (a) a collection's store at depth 0 equals depth 2's element for
    element; (b) one batch card against CPU (the staged loss); (c) serial
    greedy answers equal the paged engine's; (d) the serial speculative
@@ -115,9 +116,9 @@ Phases, each printing one JSON line:
    T 64, S 104, and their unfiltered sampler at V = 32000) and
    bloom-560m's per-head ALiBi bias;
 11. the GRPO slice: ``trlx_tpu_torch.train`` on ``default_grpo_config()``
-   unchanged but for the checkpoint directory (GPT-2 small,
-   ``num_layers_unfrozen`` 2, 128 rollouts in one chunk of 16 prompts ×
-   groups of 8, batch 32, 2 epochs, 40 sampled tokens, ``beta`` 0.04, the
+   unchanged but for the checkpoint directory (GPT-2 small's width at
+   ``GRPO_LAYERS`` (4) of its 12 layers, ``num_layers_unfrozen`` 2, 128
+   rollouts in one chunk of 16 prompts × groups of 8, batch 32, 2 epochs, 40 sampled tokens, ``beta`` 0.04, the
    staged loss; depth 2, which GRPO ignores), 16 steps with a checkpoint
    at 8, on 128 seeded 64-byte prompts under :func:`grpo_reward`
    (``slice_grpo``: only #5 and #6 launch); the same run with
@@ -125,7 +126,8 @@ Phases, each printing one JSON line:
    harvest (``slice_grpo_cb``: #1–#3, #5 and #6 launch). Each prints step
    ms (median and spread), ``time/exp``, rollout tokens/s,
    ``exp_scores/mean``, ``policy/sqrt_ref_kl`` and, serial, a profiled
-   collection's busy share. In f32 with TF32 off (``slice_grpo_parity``):
+   collection's busy share. In f32 with TF32 off, (a), (b) and (d) at
+   ``PARITY_LAYERS`` (3) of the 12 layers (``slice_grpo_parity``):
    (a) greedy, under a seeded call-ordered reward, the serial store
    against the continuous one group for group; (b) one batch's loss and
    gradients on the kernels against a CPU copy's plain attention; (c) a
@@ -258,6 +260,18 @@ Phases, each printing one JSON line:
    ``run_actor`` child on the same card (its own launches reported in its
    chunks, the npz write seconds); (d) the collective transport for one
    collection; (e) GRPO async for one collection.
+20. the ring (``slice_ring``, after ``train_kernels``): ring attention in
+   one process on #5 and #6' against the monolithic flash call;
+21. PPO over two processes on the one card (``slice_parallel_rl``, last):
+   two ranks in a gloo group of their own (one card holds no second NCCL
+   rank) run the training slice's PPO at ``data`` 2, and two more at
+   ``fsdp`` 2 beside them (f32, ``PARALLEL_RL_LAYERS`` (6) layers), each
+   after a probe of gloo's collectives on CUDA tensors; the ranks' weights
+   bitwise equal after
+   every step, step 1 against a one-process step over the same store,
+   ``sigterm_one_proc`` stopping both ranks at one checkpoint, and its
+   resume in one process through the elastic reshard (launches per rank
+   under the path ``parallel_rl``).
 
 Phase 3 and 5 time the plain versions and the library calls only at the
 shapes ``PERF.md`` records (the table's rows and its other shapes); at
@@ -273,6 +287,7 @@ card's name and power limit; the last line is the result object. Any
 failure raises, and the script exits non-zero without the result line.
 """
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -3760,11 +3775,19 @@ def weight_gap(a, b, start):
     return biggest / moved, name, biggest
 
 
+# the f32 parity phases of the preset paths run GPT-2 small's width at 3
+# of its 12 layers (slice_parallel_rl's time): every check compares two
+# paths on one model, and with the presets' 2 unfrozen layers one block
+# stays frozen, so the hydra reference branch still starts mid-stack and
+# the gradient still stops at the frozen boundary
+PARITY_LAYERS = 3
+
+
 def phase_slice_serial_parity(device="cuda", spec="builtin:gpt2-small", card="",
                               draft_layers=DRAFT_LAYERS, n_prompts=SERIAL_PROMPTS,
                               greedy_rows=16, total_steps=SERIAL_STEPS,
                               checkpoint_interval=SERIAL_CHECKPOINT, parity_rows=16,
-                              sections=None):
+                              sections=None, layers=PARITY_LAYERS):
     """The preset path in f32 with TF32 off (``parallel.compute_dtype``
     float32): (a) the store of one collection at pipeline depth 0 equals
     the one at depth 2, element for element; (b) one batch of that store
@@ -3780,6 +3803,7 @@ def phase_slice_serial_parity(device="cuda", spec="builtin:gpt2-small", card="",
     (``weight_gap``),
     ``kl_ctl``, the running moments and ``iter_count`` exactly. Divergences
     in (c) and (d) are tolerated only at f32 near ties (phase 4's rule).
+    The model runs ``layers`` of its layers (``PARITY_LAYERS``; None: all).
     ``sections`` (a CPU rehearsal's smaller sizes) evolve every config."""
     import shutil
 
@@ -3794,8 +3818,11 @@ def phase_slice_serial_parity(device="cuda", spec="builtin:gpt2-small", card="",
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     def f32(**more):
-        """``sections`` with f32 compute and ``more`` merged in."""
+        """``sections`` with f32 compute, the cut depth and ``more`` merged
+        in."""
         out = {k: dict(v) for k, v in (sections or {}).items()}
+        if layers:
+            out.setdefault("model", {})["model_extra_kwargs"] = dict(num_layers=layers)
         for k, v in {"parallel": dict(compute_dtype="float32"), **more}.items():
             out.setdefault(k, {}).update(v)
         return out
@@ -4448,6 +4475,10 @@ GRPO_CB_KERNELS = SERVE_KERNELS + GRPO_KERNELS
 # two collections of 128 rollouts (16 prompts x groups of 8, batch 32, 2
 # epochs: 8 steps each), a checkpoint after the first
 GRPO_STEPS, GRPO_CHECKPOINT, GRPO_PROMPTS = 16, 8, 128
+# the GRPO phases run GPT-2 small's width at 4 of its 12 layers
+# (slice_parallel_rl's time): the preset's settings otherwise, a frozen
+# trunk of 2 blocks under the 2 unfrozen ones
+GRPO_LAYERS = 4
 # (a) of the parity phase: serial and continuous logprobs of equal tokens,
 # f32 with TF32 off (different attention kernels, summation order only)
 GRPO_LOGPROB_ATOL = 1e-4
@@ -4500,9 +4531,10 @@ def grpo_config(ckpt, spec="builtin:gpt2-small", total_steps=GRPO_STEPS,
 def phase_slice_grpo(device="cuda", spec="builtin:gpt2-small", continuous=False, card="",
                      n_prompts=GRPO_PROMPTS, total_steps=GRPO_STEPS,
                      checkpoint_interval=GRPO_CHECKPOINT, sections=None, keep=False,
-                     speculative=0, draft_layers=DRAFT_LAYERS):
+                     speculative=0, draft_layers=DRAFT_LAYERS, layers=GRPO_LAYERS):
     """GRPO through ``trlx_tpu_torch.train`` on ``default_grpo_config()``:
-    GPT-2 small, ``num_layers_unfrozen`` 2, 128 rollouts in one chunk (16
+    GPT-2 small at ``layers`` of its layers (``GRPO_LAYERS``; None: all),
+    ``num_layers_unfrozen`` 2, 128 rollouts in one chunk (16
     prompts × groups of 8), batch 32, 2 epochs, 40 sampled tokens, ``beta``
     0.04, the staged loss; depth 2, which GRPO ignores (its serial path
     has no pipeline). ``continuous`` runs the group-aware harvest on the
@@ -4525,6 +4557,9 @@ def phase_slice_grpo(device="cuda", spec="builtin:gpt2-small", continuous=False,
     dev = torch.device(device)
     ckpt = _scratch_dir(phase)
     sections = dict(sections or {})
+    if layers:
+        sections["model"] = {**sections.get("model", {}),
+                             "model_extra_kwargs": {"num_layers": layers}}
     if speculative:
         sections["engine"] = {**sections.get("engine", {}), "speculative": speculative}
         sections["model"] = {**sections.get("model", {}), "draft_model_path": spec,
@@ -4608,7 +4643,7 @@ def phase_slice_grpo(device="cuda", spec="builtin:gpt2-small", continuous=False,
         raise AssertionError(f"{phase}: {problems}")
     run = None
     if keep:
-        run = {"ckpt": ckpt, "start": start,
+        run = {"ckpt": ckpt, "start": start, "layers": layers,
                "weights": {k: v.detach().cpu() for k, v in end.items()},
                "exact": grpo_exact(trainer)}
     trainer._close_prompt_iterator()
@@ -4634,7 +4669,8 @@ def profile_grpo_collection(trainer, prompts):
 
 def phase_slice_grpo_parity(run, device="cuda", spec="builtin:gpt2-small", card="",
                             n_prompts=GRPO_PROMPTS, parity_rows=16, total_steps=GRPO_STEPS,
-                            checkpoint_interval=GRPO_CHECKPOINT, sections=None):
+                            checkpoint_interval=GRPO_CHECKPOINT, sections=None,
+                            layers=PARITY_LAYERS):
     """In f32 with TF32 off: (a) under greedy rollouts and a seeded
     call-ordered reward (:func:`drawn_reward`), one collection's serial
     store against the continuous one, group for group (matched by prompt):
@@ -4653,7 +4689,8 @@ def phase_slice_grpo_parity(run, device="cuda", spec="builtin:gpt2-small", card=
     group-aware harvest with ``engine.prefix_cache`` on against the same
     collection without it, over chunks of the same 8 prompts: the stores
     equal element for element (the near-tie rule), logprobs within
-    ``GRPO_LOGPROB_ATOL``, with prefix hits > 0."""
+    ``GRPO_LOGPROB_ATOL``, with prefix hits > 0. (a), (b) and (d) run
+    ``layers`` of the model's layers (``PARITY_LAYERS``; None: all)."""
     import shutil
 
     import trlx_tpu_torch
@@ -4672,6 +4709,8 @@ def phase_slice_grpo_parity(run, device="cuda", spec="builtin:gpt2-small", card=
     f32 = {k: dict(v) for k, v in (sections or {}).items()}
     f32.setdefault("parallel", {})["compute_dtype"] = "float32"
     f32.setdefault("method", {})["gen_kwargs"] = dict(max_new_tokens=40, do_sample=False)
+    if layers:
+        f32.setdefault("model", {})["model_extra_kwargs"] = dict(num_layers=layers)
 
     # (a) serial against continuous, greedy
     stores = {}
@@ -4831,8 +4870,11 @@ def phase_slice_grpo_parity(run, device="cuda", spec="builtin:gpt2-small", card=
         ckpt = _scratch_dir("grpo_resumed")
         step_dir = f"checkpoint_{checkpoint_interval:0{len(str(total_steps))}d}"
         shutil.copytree(os.path.join(run["ckpt"], step_dir), os.path.join(ckpt, step_dir))
+        model = dict((sections or {}).get("model", {}))
+        if run.get("layers"):  # the run's own depth
+            model["model_extra_kwargs"] = {"num_layers": run["layers"]}
         config = grpo_config(ckpt, spec, total_steps, checkpoint_interval,
-                             **{**(sections or {}), "train": {
+                             **{**(sections or {}), "model": model, "train": {
                                  **(sections or {}).get("train", {}),
                                  "resume_from_checkpoint": True}})
         try:
@@ -6264,7 +6306,8 @@ RESILIENCE_PREEMPT = "sigterm@step:5"
 RESILIENCE_STEPS, RESILIENCE_INTERVAL, RESILIENCE_KEEP = 8, 2, 2
 # the presets' model cut to 6 of GPT-2 small's 12 layers (full width): with
 # slice_hf the script read 722.4 s of phases on a fast host, against 670.9
-# before it; the drills' checks do not depend on the depth
+# before it; the drills' checks do not depend on the depth (at 2 layers the
+# phase read within its host noise of 6: it is not depth-bound)
 RESILIENCE_LAYERS = 6
 
 
@@ -7334,6 +7377,399 @@ def phase_slice_async(serial, device="cuda", spec="builtin:gpt2-small", card="",
     return launches
 
 
+# the slice's PPO over two processes on the one card: the training slice's
+# settings (continuous paged rollouts, the fused loss) at full width in
+# f32, cut to PARALLEL_RL_LAYERS layers; preempted by sigterm_one_proc at
+# PARALLEL_RL_PREEMPT, then resumed in one process to PARALLEL_RL_STEPS
+PARALLEL_RL_KERNELS = SERVE_KERNELS + TRAIN_KERNELS
+PARALLEL_RL_LAYERS = 6
+# the axes run on the card: FSDP2 over gloo needs the four collectives of
+# GLOO_COLLECTIVES on CUDA tensors (PERF.md records the probe)
+PARALLEL_RL_AXES = ({"data": 2, "fsdp": 1}, {"data": 1, "fsdp": 2})
+PARALLEL_RL_PREEMPT, PARALLEL_RL_STEPS = 3, 5
+PARALLEL_RL_RTOL = 1e-5
+PARALLEL_RL_LIMIT_S = 420
+GLOO_COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce",
+                    "broadcast")
+
+
+def gloo_cuda_probe(dev):
+    """Each of FSDP2's collectives once on ``dev`` tensors over the default
+    (gloo) group: ``{name: "ok" | the error's own words}``, a wrong result
+    counted as an error. Recorded, never used to pick a path."""
+    import torch.distributed as dist
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    x = torch.full((4,), float(r + 1), device=dev)
+    want_sum = float(n * (n + 1) / 2)
+
+    def gather():
+        out = torch.empty(4 * n, device=dev)
+        dist.all_gather_into_tensor(out, x)
+        return bool((out.view(n, 4)[:, 0].cpu() == torch.arange(1, n + 1).float()).all())
+
+    def scatter():
+        out = torch.empty(4, device=dev)
+        dist.reduce_scatter_tensor(out, torch.cat([x] * n))
+        return bool((out.cpu() == want_sum).all())
+
+    def reduce():
+        y = x.clone()
+        dist.all_reduce(y)
+        return bool((y.cpu() == want_sum).all())
+
+    def broadcast():
+        y = x.clone()
+        dist.broadcast(y, src=0)
+        return bool((y.cpu() == 1.0).all())
+
+    out = {}
+    for name, fn in zip(GLOO_COLLECTIVES, (gather, scatter, reduce, broadcast)):
+        try:
+            out[name] = "ok" if fn() else "wrong result"
+        except Exception as e:  # the probe's record: the error's own words
+            out[name] = f"{type(e).__name__}: {e}"[:300]
+    return out
+
+
+def _state_digest(tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(k.encode())
+        flat = tensors[k].detach().cpu().reshape(-1).contiguous()
+        h.update(flat.view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def _optimizer_digest(optim_sd):
+    return _state_digest({f"{i}/{k}": torch.as_tensor(v) for i, st in optim_sd["state"].items()
+                          for k, v in st.items()})
+
+
+def parallel_rl_config(ckpt, parallel, spec="builtin:gpt2-small", layers=PARALLEL_RL_LAYERS,
+                       total_steps=PARALLEL_RL_STEPS, fault_plan=None, resume=False):
+    """``profile_train.train_config`` (the training slice) in f32 at
+    ``layers`` layers over ``parallel``; ``fault_plan`` and a resume from
+    ``ckpt`` on top."""
+    from trlx_tpu_torch.profile_train import train_config
+
+    config = train_config(ckpt, spec, total_steps)
+    return config.evolve(
+        model=dict(model_extra_kwargs=dict(num_layers=layers)),
+        parallel=dict(compute_dtype="float32", **parallel),
+        resilience=dict(fault_plan=fault_plan),
+        train=dict(resume_from_checkpoint=resume))
+
+
+def parallel_rl_worker(args_path):
+    """One rank of ``slice_parallel_rl`` (its own process, started by
+    :func:`parallel_rl_ranks`): a gloo group of two made here, on the
+    card, before ``train()`` (``initialize_runtime`` leaves it as it is);
+    the probe; then for each of the phase's axes the preempted world-2 PPO
+    run with every step's full-weight digest, the launch counts of this
+    rank (zeroed just before ``train()``), the store, and at the
+    preemption the full state's digests, the KL controller and the running
+    moments. Writes ``<out>.rank<r>.json`` (a record per axis); rank 0
+    also each axis's first store and batch (``<ckpt>.store.pt``) and step
+    1's stats."""
+    import faulthandler
+
+    import torch.distributed as dist
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.parallel.sharding import full_model_state
+    from trlx_tpu_torch.profile_train import reward_fn, slice_prompts
+    from trlx_tpu_torch.resilience import TrainingPreempted
+    from trlx_tpu_torch.utils.checkpoint import gather_full_state
+
+    faulthandler.enable()  # a crash in a collective still leaves its stack in the log
+    with open(args_path) as f:
+        args = json.load(f)
+    rank, dev = int(args["rank"]), torch.device(args["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{args['port']}",
+                            world_size=2, rank=rank)
+    t0 = time.perf_counter()
+    probe = gloo_cuda_probe(dev)
+    records = []
+    for parallel, ckpt in zip(args["axes"], args["ckpts"]):
+        config = parallel_rl_config(ckpt, parallel, spec=args["spec"], layers=args["layers"],
+                                    fault_plan=f"sigterm_one_proc@step:{PARALLEL_RL_PREEMPT}")
+        out, digests, seen = {"rank": rank, "probe": probe}, [], {}
+        # seconds since the group formed: the trainer built, each step done
+        clock = out["clock_s"] = {"start": time.perf_counter() - t0, "steps": []}
+
+        def hook(trainer):
+            clock["built"] = time.perf_counter() - t0
+            seen["trainer"] = trainer
+            step = trainer.train_step
+
+            def train_step(batch):
+                stats = step(batch)
+                if not digests and rank == 0:  # the store and batch of step 1
+                    items = batch._asdict() if hasattr(batch, "_asdict") else batch
+                    torch.save({"store": trainer._emergency_payload()["store"],
+                                "batch": {k: torch.as_tensor(np.asarray(v))
+                                          for k, v in items.items() if hasattr(v, "shape")}},
+                               ckpt + ".store.pt")
+                if not digests:
+                    out["step1"] = {k: float(stats[k]) for k in ("losses/total_loss",
+                                                                 "gradients/global_norm")}
+                digests.append(_state_digest(full_model_state(trainer.model)))
+                clock["steps"].append(time.perf_counter() - t0)
+                return stats
+
+            trainer.train_step = train_step
+
+        zero_launch_counts()
+        try:
+            trlx_tpu_torch.train(reward_fn=reward_fn, prompts=slice_prompts(), config=config,
+                                 init_trainer_hook=hook, device=dev)
+            out["preempted"] = None
+        except TrainingPreempted as e:
+            out["preempted"] = e.checkpoint_dir
+        out["launches"] = launch_counts()
+        clock["preempted"] = time.perf_counter() - t0
+        trainer = seen.pop("trainer")
+        model_sd, optim_sd = gather_full_state(trainer.model, trainer.optimizer)
+        if rank == 0:
+            out["state"] = {"model": _state_digest(model_sd),
+                            "optimizer": _optimizer_digest(optim_sd)}
+        rm = trainer.running_moments
+        out.update(digests=digests, iter_count=trainer.iter_count,
+                   kl_ctl=float(trainer.kl_ctl.value), mean_kl=float(trainer.mean_kl),
+                   running_moments=[float(rm.mean), float(rm.var), float(rm.count)],
+                   store=_state_digest({str(i): torch.as_tensor(np.concatenate(
+                       [np.asarray(v, np.float64).ravel() for v in vars(e).values()
+                        if v is not None])) for i, e in enumerate(trainer.store.history)}))
+        records.append(out)
+        del trainer, model_sd, optim_sd
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    with open(f"{args['out']}.rank{rank}.json", "w") as f:
+        json.dump(records, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def parallel_rl_ranks(axes, dev, spec, layers, root):
+    """The ranks of :func:`parallel_rl_worker`: a pair of processes
+    (``sys.executable``) for each axis, every pair started at once, each
+    in a gloo group of its own. Yields per axis, in order, once its pair
+    has exited, the two ranks' records and the checkpoint directory; every
+    rank still running at ``PARALLEL_RL_LIMIT_S``, or when the caller
+    closes the generator, is killed."""
+    import socket
+
+    socks = [socket.socket() for _ in axes]  # bound together: distinct ports
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    pairs = []
+    try:
+        for i, (parallel, port) in enumerate(zip(axes, ports)):
+            sub = os.path.join(root, f"axis{i}")
+            os.makedirs(sub)
+            ckpt = os.path.join(sub, "ckpt")
+            procs, logs = [], []
+            for rank in range(2):
+                args = os.path.join(sub, f"args{rank}.json")
+                with open(args, "w") as f:
+                    json.dump({"rank": rank, "device": str(dev), "port": port,
+                               "axes": [parallel], "ckpts": [ckpt], "spec": spec,
+                               "layers": layers, "out": os.path.join(sub, "out")}, f)
+                logs.append(open(os.path.join(sub, f"rank{rank}.log"), "w"))
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", "import sys, chip_smoke; "
+                     f"sys.exit(chip_smoke.parallel_rl_worker({args!r}))"],
+                    stdout=logs[-1], stderr=subprocess.STDOUT, cwd=ROOT))
+            pairs.append((sub, ckpt, procs, logs))
+        deadline = time.monotonic() + PARALLEL_RL_LIMIT_S
+        for sub, ckpt, procs, logs in pairs:
+            for p in procs:
+                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            for rank, p in enumerate(procs):
+                if p.returncode != 0:
+                    logs[rank].flush()
+                    with open(os.path.join(sub, f"rank{rank}.log")) as f:
+                        tail = f.read()[-3000:]
+                    raise AssertionError(
+                        f"slice_parallel_rl rank {rank} exited {p.returncode}: {tail}")
+            ranks = []
+            for rank in range(2):
+                with open(os.path.join(sub, f"out.rank{rank}.json")) as f:
+                    ranks.append(json.load(f)[0])
+            yield ranks, ckpt
+    finally:
+        for _, _, procs, logs in pairs:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(30)
+            for f in logs:
+                f.close()
+
+
+def parallel_rl_resume(ckpt, store_path, dev, spec, layers):
+    """In one process on the card: first, from the same seeded weights, a
+    step over the world-2 run's first store and batch (its loss and
+    gradient norm); then the world-2 emergency checkpoint resumed over it
+    (the load replaces the weights, the optimizer, the step and the store)
+    and the run finished. Returns the step-1 stats, the restored state's
+    digests (taken right after the load), the KL controller, the running
+    moments, and the elastic restore count with the remaining steps'
+    losses."""
+    import trlx_tpu_torch
+    from trlx_tpu_torch.profile_train import reward_fn, slice_prompts
+
+    config = parallel_rl_config(ckpt, {"data": -1, "fsdp": 1}, spec=spec, layers=layers,
+                                resume=True)
+    step1, restored = {}, {}
+
+    def hook(trainer):
+        saved = torch.load(store_path, weights_only=True)
+        trainer._restore_emergency_payload({"store": saved["store"]})
+        stats = trainer.train_step({k: v.numpy() for k, v in saved["batch"].items()})
+        step1.update({k: float(stats[k]) for k in ("losses/total_loss",
+                                                   "gradients/global_norm")})
+        load = trainer.load
+
+        def traced(*a, **kw):
+            load(*a, **kw)
+            rm = trainer.running_moments
+            restored.update(
+                model=_state_digest(trainer.model.state_dict()),
+                optimizer=_optimizer_digest(trainer.optimizer.state_dict()),
+                kl_ctl=float(trainer.kl_ctl.value), mean_kl=float(trainer.mean_kl),
+                running_moments=[float(rm.mean), float(rm.var), float(rm.count)],
+                iter_count=trainer.iter_count)
+
+        trainer.load = traced
+
+    trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=slice_prompts(), config=config,
+                                   init_trainer_hook=hook, device=dev)
+    steps = [(s, st) for s, st in trainer.tracker.history if "gradients/global_norm" in st]
+    return step1, restored, {
+        "elastic_restores": trainer.metrics.counter("resilience/elastic_restores"),
+        "reshard_s": trainer.metrics.snapshot().get("resilience/reshard_s"),
+        "steps": [s for s, _ in steps],
+        "losses": [float(st["losses/total_loss"]) for _, st in steps]}
+
+
+def phase_slice_parallel_rl(device="cuda", spec="builtin:gpt2-small", layers=PARALLEL_RL_LAYERS,
+                            card="", axes=PARALLEL_RL_AXES):
+    """PPO over two processes on one card (NCCL takes one rank per card, so
+    the two ranks make a gloo group of their own). For each of ``axes``
+    (``data`` 2, ``fsdp`` 2), two ranks run the training slice's PPO
+    (continuous paged rollouts, the fused loss; f32; ``layers`` layers)
+    with ``sigterm_one_proc@step:PARALLEL_RL_PREEMPT``, every axis's pair
+    at once, and each axis is checked once its pair exits
+    (:func:`parallel_rl_check`); the probe of
+    gloo's collectives on CUDA tensors runs first in each. Checks: every
+    collective the axis needs ran (FSDP2's four for ``fsdp``; the ``data``
+    axis's gradient all-reduce and the row gathers); each rank launched
+    #1–#3 and #5–#8 (counts zeroed just before ``train()``, read after);
+    the ranks' full weights are bitwise equal after every step and their
+    stores equal; step 1's loss and gradient norm are within
+    ``PARALLEL_RL_RTOL`` of a world-1 step on the card over the same store
+    and batch; both ranks stopped at the preemption step with one committed
+    checkpoint whose manifest records two processes; resumed in one
+    process, the reshard path ran once, the restored weights, AdamW
+    moments, KL controller and running moments equal the ranks' state
+    bitwise, and the remaining steps' losses are finite. Returns the
+    launches of rank 0 summed over the axes (per rank)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:  # both ranks on the one card
+        dev = torch.device("cuda", torch.cuda.current_device())
+    launches = Counter({k: 0 for k in REPLACES})
+    root = _scratch_dir("parallel_rl")
+    t0 = time.perf_counter()
+    with contextlib.closing(parallel_rl_ranks(axes, dev, spec, layers, root)) as runs:
+        for parallel, (ranks, ckpt) in zip(axes, runs):
+            # seconds from the start of every pair to this axis's exit
+            world2_s = time.perf_counter() - t0
+            parallel_rl_check(parallel, ranks, ckpt, dev, spec, layers, card, world2_s,
+                              launches)
+    return dict(launches)
+
+
+def parallel_rl_check(parallel, ranks, ckpt, dev, spec, layers, card, world2_s, launches):
+    """One axis of :func:`phase_slice_parallel_rl`: the checks of its two
+    ranks' records and the one-process resume of its checkpoint; rank 0's
+    launches added to ``launches``."""
+    from trlx_tpu_torch.resilience import read_manifest
+    from trlx_tpu_torch.utils.checkpoint import is_committed
+
+    name = "fsdp2" if parallel["fsdp"] > 1 else "data2"
+    problems = []
+    need = GLOO_COLLECTIVES if parallel["fsdp"] > 1 else ("all_gather_into_tensor",
+                                                          "all_reduce")
+    for r in ranks:
+        bad = {k: v for k, v in r["probe"].items() if k in need and v != "ok"}
+        if bad:
+            problems.append(f"rank {r['rank']}: collectives failed {bad}")
+        if dev.type == "cuda":
+            idle = [k for k in PARALLEL_RL_KERNELS if r["launches"][k] <= 0]
+            if idle:
+                problems.append(f"rank {r['rank']}: kernels never launched {idle}")
+    if ranks[0]["digests"] != ranks[1]["digests"]:
+        problems.append("the ranks' full weights differ after a step")
+    if len(ranks[0]["digests"]) != PARALLEL_RL_PREEMPT:
+        problems.append(f"{len(ranks[0]['digests'])} steps before the preemption")
+    if ranks[0]["store"] != ranks[1]["store"]:
+        problems.append("the ranks' stores differ")
+    for key in ("kl_ctl", "mean_kl", "running_moments", "iter_count"):
+        if ranks[0][key] != ranks[1][key]:
+            problems.append(f"the ranks' {key} differ")
+    if [r["preempted"] for r in ranks] != [ranks[0]["preempted"]] * 2 or not ranks[0][
+            "preempted"] or ranks[0]["iter_count"] != PARALLEL_RL_PREEMPT:
+        problems.append(f"preemption: {[(r['preempted'], r['iter_count']) for r in ranks]}")
+    committed = sorted(p for p in os.listdir(ckpt) if p.startswith("checkpoint_")
+                       and is_committed(os.path.join(ckpt, p)))
+    manifest = read_manifest(os.path.join(ckpt, committed[0])) if committed else None
+    if len(committed) != 1 or (manifest or {}).get("mesh", {}).get("process_count") != 2:
+        problems.append(f"committed checkpoints {committed}, manifest "
+                        f"{(manifest or {}).get('mesh')}")
+    t1 = time.perf_counter()
+    world1, restored, resumed = parallel_rl_resume(ckpt, ckpt + ".store.pt", dev, spec,
+                                                   layers)
+    world1_s = time.perf_counter() - t1
+    gaps = {k: abs(ranks[0]["step1"][k] - v) / max(abs(v), 1e-12) for k, v in world1.items()}
+    if max(gaps.values()) > PARALLEL_RL_RTOL:
+        problems.append(f"step 1 against world 1: {gaps}")
+    want = dict(ranks[0]["state"], kl_ctl=ranks[0]["kl_ctl"], mean_kl=ranks[0]["mean_kl"],
+                running_moments=ranks[0]["running_moments"],
+                iter_count=PARALLEL_RL_PREEMPT)
+    diff = [k for k, v in want.items() if restored.get(k) != v]
+    if diff:
+        problems.append(f"the restored state differs from the ranks': {diff}")
+    if resumed["elastic_restores"] != 1.0:
+        problems.append(f"elastic restores {resumed['elastic_restores']}")
+    if resumed["steps"] != list(range(PARALLEL_RL_PREEMPT + 1, PARALLEL_RL_STEPS + 1)) or \
+            not all(math.isfinite(x) for x in resumed["losses"]):
+        problems.append(f"resumed steps {resumed['steps']} losses {resumed['losses']}")
+    launches.update(ranks[0]["launches"])
+    emit({"phase": "slice_parallel_rl", "axes": parallel, "layers": layers, "model": spec,
+          "dtype": "float32", "probe": [r["probe"] for r in ranks],
+          "launches_per_rank": [r["launches"] for r in ranks],
+          "step1": ranks[0]["step1"], "world1_step1": world1, "step1_rel_gap": gaps,
+          "weight_digests_equal": ranks[0]["digests"] == ranks[1]["digests"],
+          "preempted_at": ranks[0]["iter_count"], "committed": committed,
+          "manifest_mesh": (manifest or {}).get("mesh"), "resumed": resumed,
+          "restored_equal": not diff, "world2_s": world2_s, "world1_s": world1_s,
+          "rank0_clock_s": ranks[0]["clock_s"],
+          "card": card, "ok": not problems})
+    if problems:
+        raise AssertionError(f"slice_parallel_rl {name}: {problems}")
+
+
 def kernel_record(name, launches, max_abs_err, rec, by_path):
     """One kernel's entry: ``launches`` from its own slice's main path,
     ``launches_by_path`` from every path's run."""
@@ -7351,6 +7787,7 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from trlx_tpu_torch.ops import kernel_utils  # noqa: F401 — needs the repo
+
 
     seconds = {}
 
@@ -7465,6 +7902,9 @@ def run_phases(clocked, seconds):
     gc.collect()
     torch.cuda.empty_cache()
     resilience_launches = clocked(phase_slice_resilience, card=smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parallel_rl_launches = clocked(phase_slice_parallel_rl, card=smi)
     emit({"phase": "phase_seconds", **seconds, "total": sum(seconds.values())})
     # a served run counts the engine's kernels; nothing else launches there
     served = {k: 0 for k in REPLACES}
@@ -7483,7 +7923,8 @@ def run_phases(clocked, seconds):
                "spec_prefix": spec_prefix_launches, "engine_dense": engine_dense_launches,
                "grpo_spec": grpo_spec_launches, "family_spec": family_spec_launches,
                "ilql_spec": offline["ilql_spec"]["trainer_generate"]["launches"],
-               "async": async_launches, "ring": ring_launches}
+               "async": async_launches, "ring": ring_launches,
+               "parallel_rl": parallel_rl_launches}
     kernels = [kernel_record(name, serve_launches[name], timed[name]["max_abs_err"], timed[name],
                              by_path)
                for name in SERVE_KERNELS]

@@ -334,11 +334,12 @@ def test_construction_checks_raise_as_jax(tmp_path, override, error, match):
 
 @pytest.mark.parametrize("override,setting", [
     ({"parallel": {"fsdp": 2}}, "parallel.fsdp"),
-    # remat, trackers and the retention ring run; these wait for their
-    # subsystems
-    ({"resilience": {"fault_plan": "sigterm_one_proc@step:2"}}, "resilience.fault_plan"),
-    ({"resilience": {"fault_plan": "flightrec_dump@step:4; topology_shrink@resume:1"}},
-     "resilience.fault_plan"),
+    # remat, trackers, the retention ring and every fault kind run
+    # (sigterm_one_proc and topology_shrink: tests/test_torch_elastic.py);
+    # sequence parallelism waits for its slice, and a dcn factor must divide
+    # the data axis
+    ({"parallel": {"sequence": 2}}, "parallel.sequence"),
+    ({"parallel": {"dcn_data_parallelism": 2}}, "parallel.dcn_data_parallelism"),
     ({"parallel": {"scan_layers": True, "pipe": 4}}, "parallel.pipe"),
     ({"train": {"grad_accum": 3}}, "train.grad_accum"),
 ])

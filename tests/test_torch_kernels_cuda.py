@@ -29,10 +29,13 @@ a 48- and a 240-column hit, a 64-query chunk at offset 128); the flash
 backward's chunk form (#6 through ``flash_attention_bwd_chunk``) at ring
 offsets with the global ``lse`` of a longer sequence, a fully masked row
 and a pair wholly in the causal future (exact zeros over NaN-filled memory),
-and the in-process ring against the monolithic flash kernels.
-``chip_smoke.py`` makes the same comparison at the serving and training
+and the in-process ring against the monolithic flash kernels; two
+processes on the card in a gloo group carrying FSDP2's collectives on
+CUDA tensors (``slice_parallel_rl``'s set-up). ``chip_smoke.py`` makes the same comparison at the serving and training
 shapes and at the ring's full width.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -608,3 +611,45 @@ def test_cuda_ring_matches_monolithic_flash(cuda, n, placement, window, KV, dtyp
                                rtol=tol[0][1])
     for got, w in zip(grads, wgrads):
         torch.testing.assert_close(got.float(), w.float(), atol=tol[1][0], rtol=tol[1][1])
+
+
+_GLOO_RANK = """
+import json, sys, torch, torch.distributed as dist
+import chip_smoke
+rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2, rank=rank)
+probe = chip_smoke.gloo_cuda_probe(torch.device("cuda", 0))
+dist.destroy_process_group()
+json.dump(probe, open(f"{out}.{rank}", "w"))
+"""
+
+
+@pytest.mark.gpu
+def test_cuda_gloo_carries_fsdp2_collectives(cuda, tmp_path):
+    """Two processes on the one card in a gloo group (``slice_parallel_rl``'s
+    set-up): each of FSDP2's collectives runs on CUDA tensors and gives
+    the right result (``chip_smoke.gloo_cuda_probe``)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from chip_smoke import GLOO_COLLECTIVES, ROOT
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = str(tmp_path / "probe")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([ROOT, os.environ.get("PYTHONPATH", "")])}
+    procs = [subprocess.Popen([sys.executable, "-c", _GLOO_RANK, str(r), str(port), out],
+                              cwd=ROOT, env=env) for r in range(2)]
+    try:
+        assert [p.wait(timeout=300) for p in procs] == [0, 0]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r in range(2):
+        with open(f"{out}.{r}") as f:
+            assert json.load(f) == {k: "ok" for k in GLOO_COLLECTIVES}

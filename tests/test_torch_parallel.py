@@ -256,7 +256,7 @@ def _dpo_config():
 
 
 PRESETS["dpo"] = _dpo_config
-# (collects_rollouts, seq2seq_ok, parallel_ok) as each trainer passes them
+# (collects_rollouts, seq2seq_ok, sequence_ok) as each trainer passes them
 TRAINER_FLAGS = {"ppo": (True, True, False), "grpo": (True, False, False),
                  "ilql": (False, True, False), "dpo": (False, False, False),
                  "sft": (False, False, True)}
@@ -277,7 +277,13 @@ def test_unported_axes_refused_for_every_trainer(trainer, axis):
 @pytest.mark.parametrize("trainer", ["ppo", "grpo", "ilql", "dpo"])
 @pytest.mark.parametrize("axis", ["data", "fsdp", "sequence"])
 def test_parallel_axes_refused_outside_sft(trainer, axis):
-    with pytest.raises(ValueError, match=rf"parallel\.{axis} > 1: .*slice 21"):
+    """Outside SFT only ``sequence`` is refused (slice 22 rings the RL and
+    preference trainers' forwards); ``data`` and ``fsdp`` run, so at world
+    size 1 an axis of 2 fails only to fit the world (an inferred ``data``
+    axis leaves no device for it), and the error names it."""
+    match = (r"parallel\.sequence > 1: .*slice 22" if axis == "sequence"
+             else rf"parallel\.{axis}: .*(needs 2 devices, have 1|Device count 1 not divisible)")
+    with pytest.raises(ValueError, match=match):
         reject_unported(_with_parallel(trainer, **{axis: 2}), *TRAINER_FLAGS[trainer])
 
 
@@ -289,7 +295,8 @@ def test_sft_takes_the_axes_the_world_fits():
         reject_unported(_with_parallel("sft", sequence=2), *TRAINER_FLAGS["sft"])
     with pytest.raises(ValueError, match=r"parallel\.fsdp: .*needs 2 devices, have 1"):
         reject_unported(_with_parallel("sft", data=1, fsdp=2), *TRAINER_FLAGS["sft"])
-    with pytest.raises(ValueError, match=r"parallel\.dcn_data_parallelism > 1: .*slice 21"):
+    with pytest.raises(ValueError, match=r"parallel\.dcn_data_parallelism: data axis 1 not "
+                       r"divisible by dcn_data_parallelism 2"):
         reject_unported(_with_parallel("sft", dcn_data_parallelism=2), *TRAINER_FLAGS["sft"])
 
 

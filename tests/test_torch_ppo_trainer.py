@@ -231,9 +231,10 @@ def test_train_entry_point_end_to_end(tmp_path):
         # retention ring and the polled fault kinds run
         # (tests/test_torch_resilience_trainer.py, test_torch_trackers.py,
         # test_torch_remat.py), and so do the async kinds
-        # (tests/test_torch_async_rl.py); a fault kind whose subsystem is not
-        # ported is refused, naming it
-        ({"resilience": {"fault_plan": "sigterm_one_proc@step:1"}}, "resilience.fault_plan"),
+        # (tests/test_torch_async_rl.py), and so do sigterm_one_proc and
+        # topology_shrink (tests/test_torch_elastic.py): every kind is
+        # polled. Expert parallelism waits for its slice
+        ({"parallel": {"expert": 2}}, "parallel.expert"),
         # seq2seq PPO runs (tests/test_torch_seq2seq_trainers.py; its
         # continuous-batching refusal is tested below); an arch type the
         # port does not know is refused
@@ -242,18 +243,16 @@ def test_train_entry_point_end_to_end(tmp_path):
         ({"model": {"peft_kwargs": {"peft_type": "prefix"}}}, "model.peft_kwargs"),
         # a draft whose vocabulary is not the policy's (50257 against 259)
         ({"model": {"draft_model_path": "builtin:gpt2-small"}}, "model.draft_model_path"),
-        ({"resilience": {"fault_plan": "topology_shrink@resume:2"}}, "resilience.fault_plan"),
+        # data and fsdp run over several processes
+        # (tests/test_torch_parallel_rl.py): at one process an axis of 2
+        # does not fit the world, and a dcn factor must divide the data axis
+        ({"parallel": {"data": 2}}, "parallel.data"),
+        ({"parallel": {"dcn_data_parallelism": 2}}, "parallel.dcn_data_parallelism"),
         # flightrec_dump, health_trip and sleep_one_proc are polled
-        # (tests/test_torch_health.py); the kinds still unported are refused
-        # beside polled ones too
-        ({"resilience": {"fault_plan": "sigterm@step:2; topology_shrink@resume:1"}},
-         "resilience.fault_plan"),
-        ({"resilience": {"fault_plan": "health_trip@step:1; actor_crash@collection:2; "
-                                       "topology_shrink@resume:2"}},
-         "resilience.fault_plan"),
-        ({"resilience": {"fault_plan": "weight_sync_drop@version:1; sigterm_one_proc@step:1"}},
-         "resilience.fault_plan"),
-        ({"resilience": {"fault_plan": "sigterm_one_proc@step:5"}}, "resilience.fault_plan"),
+        # (tests/test_torch_health.py); a loss kernel of another name is not
+        ({"method": {"loss_kernel": "triton"}}, "method.loss_kernel"),
+        ({"parallel": {"pipe": 2}}, "parallel.pipe"),
+        ({"parallel": {"data": 1, "fsdp": 2}}, "parallel.fsdp"),
         ({"method": {"loss_kernel": "mosaic"}}, "method.loss_kernel"),
         ({"train": {"batch_size": 5, "grad_accum": 2}}, "train.grad_accum"),
     ],

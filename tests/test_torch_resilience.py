@@ -313,18 +313,19 @@ def test_default_trainer_hardens_as_jax(tmp_path):
                             os.path.join(str(tmp_path), "logs", "stats.jsonl"))
 
 
-@pytest.mark.parametrize("kind", sorted(UNPORTED_KINDS))
+@pytest.mark.parametrize("kind", ["sigterm_one_proc", "topology_shrink"])
 def test_unported_fault_kind_names_its_subsystem(tmp_path, kind):
-    config = _config(tmp_path, fault_plan=f"sigterm@step:3; {kind}@step:1")
-    with pytest.raises(ValueError, match="resilience.fault_plan") as err:
-        reject_unported(config, True, True)
-    assert repr(kind) in str(err.value) and UNPORTED_KINDS[kind] in str(err.value)
+    """The last two kinds that waited for a subsystem (coordinated
+    preemption and elastic restore, ``resilience/elastic.py``) are polled
+    now: no kind is unported, and a plan naming either runs."""
+    assert not UNPORTED_KINDS and kind in POLLED_KINDS
+    reject_unported(_config(tmp_path, fault_plan=f"sigterm@step:3; {kind}@step:1"), True, True)
 
 
 def test_polled_fault_kinds_and_env_plan_are_checked(tmp_path, monkeypatch):
     reject_unported(_config(tmp_path, fault_plan="; ".join(f"{k}@step:1"
                                                            for k in sorted(POLLED_KINDS))),
                     True, True)
-    monkeypatch.setenv("TRLX_TPU_FAULT_PLAN", "topology_shrink@resume:1")
-    with pytest.raises(ValueError, match="topology_shrink"):
+    monkeypatch.setenv("TRLX_TPU_FAULT_PLAN", "topology_shrink@resume:1; bogus@step:1")
+    with pytest.raises(ValueError, match="bogus"):
         reject_unported(_config(tmp_path), True, True)

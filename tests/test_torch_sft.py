@@ -269,9 +269,10 @@ def test_default_sft_config_matches_jax():
         ({"model": {"peft_kwargs": {"peft_type": "lora", "r": 8, "dropout": 0.1}}},
          "model.peft_kwargs"),
         ({"train": {"grad_accum": 3}}, "train.grad_accum"),  # batch 4 does not split
-        # the retention ring runs (tests/test_torch_resilience_trainer.py);
-        # elastic restore waits for the port's parallelism
-        ({"resilience": {"fault_plan": "topology_shrink@resume:1"}}, "resilience.fault_plan"),
+        # the retention ring and elastic restore run
+        # (tests/test_torch_resilience_trainer.py, test_torch_elastic.py);
+        # tensor parallelism waits for its slice
+        ({"parallel": {"model": 2}}, "parallel.model"),
         ({"parallel": {"fsdp": 2}}, "parallel.fsdp"),
         ({"serve": {"enabled": True}}, "serve.enabled"),
     ],

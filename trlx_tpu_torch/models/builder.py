@@ -228,17 +228,21 @@ def _backbone(model: nn.Module) -> CausalTransformer:
 
 
 def hydra_ref_params(
-    model: nn.Module, tcfg: TransformerConfig, num_layers_unfrozen: int
+    model: nn.Module, tcfg: TransformerConfig, num_layers_unfrozen: int,
+    backbone_state: Optional[Dict[str, torch.Tensor]] = None,
 ) -> HydraBranch:
     """Frozen copy of the reference branch: the top ``num_layers_unfrozen``
     blocks + final norm + lm head (tied embedding or untied ``lm_head``), on
-    the model's device, gradients off."""
-    backbone = _backbone(model)
+    the model's device, gradients off. ``backbone_state`` (the backbone's
+    full weights, for a sharded model) replaces the model's
+    ``state_dict``."""
+    if backbone_state is None:
+        backbone_state = _backbone(model).state_dict()
     start = tcfg.num_layers - num_layers_unfrozen
     with torch.device("meta"):  # no host copy and no default init
         ref = HydraBranch(tcfg, list(range(start, tcfg.num_layers)))
     keys = set(ref.state_dict())
-    ref.load_state_dict({k: v.detach().clone() for k, v in backbone.state_dict().items()
+    ref.load_state_dict({k: v.detach().clone() for k, v in backbone_state.items()
                          if k in keys}, assign=True)
     return ref.eval().requires_grad_(False)
 

@@ -81,21 +81,58 @@ class ILQLConfig(MethodConfig):
 
         Σ_i mean (Q_i − (r + γ V'))² + expectile_τ(min Q' − V)
         + cql_scale Σ_i CE(q_i, a) + awac_scale exp(β(min Q' − V)) CE(logits, a)
-        """
-        logits = logits.float()
-        vs = vs.float()
-        terminal_mask = dones[:, :-1].float()
-        n_nonterminal = torch.clamp(terminal_mask.sum(), min=1.0)
-        actions_exp = actions.to(torch.int64)[..., None]
 
-        Q = [_take(q, actions_exp) for q in qs]
+        :meth:`token_terms` reduces the vocab-wide tensors to per-token ones
+        and :meth:`loss_from_terms` takes the means; a trainer over several
+        processes joins the per-token terms of every rank in between."""
+        return self.loss_from_terms(self.token_terms(logits, qs, target_qs, vs, actions),
+                                    rewards, dones)
+
+    def token_terms(
+        self,
+        logits: torch.Tensor,  # [B, A, V]
+        qs: Sequence[torch.Tensor],  # each [B, A, V]
+        target_qs: Sequence[torch.Tensor],  # each [B, A, V]
+        vs: torch.Tensor,  # [B, S, 1]
+        actions: torch.Tensor,  # [B, A]
+    ) -> Dict[str, torch.Tensor]:
+        """The per-token quantities the objective needs, rows first: each Q
+        head at the action (``q`` [B, n, A]), the min target-Q there
+        (``target_q`` [B, A], detached), the values (``v`` [B, S]), each Q
+        head's cross-entropy against the action (``ce_q`` [B, n, A]), the
+        policy's (``ce_logits`` [B, A]) and, with ``dist_sketches``, the
+        policy's entropy (``entropy`` [B, A], detached)."""
+        actions_exp = actions.to(torch.int64)[..., None]
         targetQs = [_take(q, actions_exp).detach() for q in target_qs]
         targetQ = targetQs[0]
         for tq in targetQs[1:]:
             targetQ = torch.minimum(targetQ, tq)
 
-        V = vs[:, :-1, 0]
-        Vnext = vs[:, 1:, 0] * dones[:, 1:].to(vs.dtype)
+        def ce(logit_like):  # [B, A, V] against actions → [B, A]
+            return -torch.log_softmax(logit_like.float(), dim=-1).gather(-1, actions_exp)[..., 0]
+
+        logits = logits.float()
+        terms = {"q": torch.stack([_take(q, actions_exp) for q in qs], dim=1),
+                 "target_q": targetQ, "v": vs.float()[..., 0],
+                 "ce_q": torch.stack([ce(q) for q in qs], dim=1), "ce_logits": ce(logits)}
+        if self.dist_sketches:
+            from trlx_tpu_torch.observability.dynamics import entropy_of_logits
+
+            terms["entropy"] = entropy_of_logits(logits).detach()
+        return terms
+
+    def loss_from_terms(self, terms: Dict[str, torch.Tensor], rewards: torch.Tensor,
+                        dones: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """The objective and its stats from :meth:`token_terms`' per-token
+        quantities (of one process's batch, or of every rank's joined)."""
+        terminal_mask = dones[:, :-1].float()
+        n_nonterminal = torch.clamp(terminal_mask.sum(), min=1.0)
+        Q = list(terms["q"].unbind(1))
+        targetQ = terms["target_q"]
+        vs = terms["v"]
+
+        V = vs[:, :-1]
+        Vnext = vs[:, 1:] * dones[:, 1:].to(vs.dtype)
         Q_target = rewards + self.gamma * Vnext.detach()
 
         loss_q = sum(torch.sum(torch.square(Qi - Q_target) * terminal_mask) / n_nonterminal
@@ -107,26 +144,24 @@ class ILQLConfig(MethodConfig):
                              torch.full_like(diff, 1.0 - self.tau))
         loss_v = torch.sum(weight * torch.square(diff) * terminal_mask) / n_nonterminal
 
-        def ce(logit_like):  # [B, A, V] against actions → [B, A]
-            return -torch.log_softmax(logit_like.float(), dim=-1).gather(-1, actions_exp)[..., 0]
-
-        loss_cql = sum(torch.sum(ce(q) * terminal_mask) / n_nonterminal for q in qs)
+        loss_cql = sum(torch.sum(ce_q * terminal_mask) / n_nonterminal
+                       for ce_q in terms["ce_q"].unbind(1))
 
         awac_weight = torch.exp(self.beta * (targetQ - V)).detach()
-        loss_awac = torch.sum(ce(logits) * awac_weight * terminal_mask) / n_nonterminal
+        loss_awac = torch.sum(terms["ce_logits"] * awac_weight * terminal_mask) / n_nonterminal
 
         loss = loss_q + loss_v + self.cql_scale * loss_cql + self.awac_scale * loss_awac
 
         dist = {}
         if self.dist_sketches:
-            from trlx_tpu_torch.observability.dynamics import entropy_of_logits, loss_sketches
+            from trlx_tpu_torch.observability.dynamics import loss_sketches
 
             # the first Q head's TD error as the value error, the expectile
             # gap (min Q' − V) as the advantage analogue
             dist = loss_sketches({
                 "value_error": (Q[0] - Q_target, terminal_mask),
                 "advantages": (diff, terminal_mask),
-                "entropy": (entropy_of_logits(logits), terminal_mask),
+                "entropy": (terms["entropy"], terminal_mask),
             })
         stats = dict(
             **dist,

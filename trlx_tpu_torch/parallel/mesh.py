@@ -9,8 +9,14 @@ so the mesh spans the processes of the ``torch.distributed`` world: its
 device count is the world size, and :func:`make_mesh` returns a
 ``torch.distributed.device_mesh.DeviceMesh`` over them, rank ``r`` at the
 row-major position ``r`` of the shape (``data`` outermost, so with ranks
-numbered host by host the data axis is the one that crosses hosts, as
-JAX's ``dcn_data_parallelism`` layout has it).
+numbered host by host the data axis is the one that crosses hosts).
+``parallel.dcn_data_parallelism`` = k splits the data axis into (k, data
+/ k) with the k factor across hosts, as JAX's
+``create_hybrid_device_mesh`` lays it (:func:`hybrid_rank_array`): each
+host (a contiguous block of ranks) holds an ``ici`` sub-mesh of the shape
+with the data axis cut by k, and the k blocks stack along ``data``. With
+one device per process that layout is the row-major one, so only the
+data-parallel collectives cross hosts either way.
 
 A trainer builds the mesh only when the world holds more than one
 process; at world size 1 no ``DeviceMesh`` exists, :func:`get_global_mesh`
@@ -25,6 +31,7 @@ from trlx_tpu_torch.data.configs import ParallelConfig
 __all__ = [
     "MESH_AXES",
     "get_global_mesh",
+    "hybrid_rank_array",
     "local_mesh",
     "make_mesh",
     "mesh_descriptor",
@@ -123,16 +130,38 @@ def mesh_shape_from_config(
     return tuple(sizes)
 
 
+def hybrid_rank_array(shape: Tuple[int, ...], dcn: int):
+    """The ranks of a mesh of ``shape`` laid out as JAX's
+    ``create_hybrid_device_mesh(ici_shape, dcn_shape)`` lays devices, for
+    one device per process and ranks numbered host by host: ``dcn`` blocks
+    of ``n / dcn`` consecutive ranks (the hosts), each reshaped row-major to
+    ``ici_shape`` (``shape`` with its data axis cut by ``dcn``), stacked
+    along the data axis."""
+    import numpy as np
+
+    n = int(math.prod(shape))
+    if dcn < 1 or shape[0] % dcn:
+        raise ValueError(f"data axis {shape[0]} not divisible by dcn_data_parallelism {dcn}")
+    ici_shape = (shape[0] // dcn,) + tuple(shape[1:])
+    blocks = [np.arange(g * n // dcn, (g + 1) * n // dcn).reshape(ici_shape)
+              for g in range(dcn)]
+    return np.concatenate(blocks, axis=0)
+
+
 def make_mesh(parallel: Optional[ParallelConfig] = None, device_type: str = "cuda"):
     """The global ``DeviceMesh`` of a :class:`ParallelConfig` over the
     initialized world (``init_device_mesh`` with :data:`MESH_AXES` as its
-    dimension names). ``dcn_data_parallelism`` must divide the data axis,
-    as in JAX; the row-major rank layout already puts ``data`` outermost."""
-    from torch.distributed.device_mesh import init_device_mesh
+    dimension names). With ``dcn_data_parallelism`` > 1 the ranks take
+    JAX's hybrid layout (:func:`hybrid_rank_array`), which must divide the
+    data axis, as in JAX."""
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
     parallel = parallel or ParallelConfig()
     shape = mesh_shape_from_config(parallel)
     dcn = int(parallel.dcn_data_parallelism)
-    if dcn > 1 and shape[0] % dcn != 0:
-        raise ValueError(f"data axis {shape[0]} not divisible by dcn_data_parallelism {dcn}")
+    if dcn > 1:
+        import torch
+
+        ranks = torch.as_tensor(hybrid_rank_array(shape, dcn))
+        return DeviceMesh(device_type, ranks, mesh_dim_names=MESH_AXES)
     return init_device_mesh(device_type, shape, mesh_dim_names=MESH_AXES)

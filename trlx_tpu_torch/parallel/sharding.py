@@ -34,19 +34,46 @@ would shard weights over ``sequence`` too, against the table.
 :func:`shard_batch` gives each rank its rows over ``data`` x ``fsdp``
 and, for sequence-sharded arrays, its zigzag shard of the sequence over
 ``sequence`` (``parallel/ring_attention.py::zigzag_order``).
+
+The RL and preference trainers (PPO, GRPO, ILQL, DPO) run over ``data``
+x ``fsdp``: :func:`row_part` is a rank's contiguous rows of a host batch
+(None when the data axes do not divide it, which replicates, as in JAX);
+:func:`allgather_host` joins per-rank host results in rank order (the
+rollout store is the one a single process builds); :func:`gather_rows`
+joins a loss operand's rows over the data axes inside autograd, its
+backward keeping this rank's slice only, so a loss every rank computes on
+the whole minibatch is differentiated once (FSDP2 sums the ranks);
+:func:`unsharded` holds every FSDP2 unit's full weights for a stretch of
+forwards whose number differs per rank (a collection on the rank's rows)
+and :func:`full_model_state` gives every rank the full weights (a frozen
+reference copy).
 """
 
+import contextlib
 import functools
 import logging
 import re
-from typing import Any, Dict, Optional, Tuple
+import sys
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from trlx_tpu_torch.parallel.mesh import axis_sizes
 
 __all__ = [
+    "allgather_host",
     "batch_spec",
+    "data_parallel_rank",
+    "data_parallel_size",
+    "full_model_state",
+    "full_tensor",
+    "gather_rows",
+    "global_grad_norm",
+    "local_shard",
+    "row_part",
+    "unsharded",
     "fit_spec",
     "param_spec_for_path",
     "port_param_spec",
@@ -238,7 +265,6 @@ def shard_params(model, mesh) -> None:
     names (dim 0 where the rule replicates or no prefix divides), gradients
     summed over every rank. Build the optimizer after this call: the
     parameters become ``DTensor`` s."""
-    import torch
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
@@ -263,11 +289,17 @@ def shard_params(model, mesh) -> None:
         # plain sums: PREMUL_SUM, FSDP2's scaled reduction, is NCCL-only
         unit.set_gradient_divide_factor(1.0)
         unit.set_force_sum_reduction_for_comms(True)
+    # the root's other entry (ILQL's loss runs the backbone, then the heads
+    # and the projection on gathered rows): FSDP2 gathers the root's
+    # weights around it as around ``forward``
+    from torch.distributed.fsdp import register_fsdp_forward_method
+
+    if hasattr(model, "backbone_forward"):
+        register_fsdp_forward_method(model, "backbone_forward")
 
 
 def _coords(mesh) -> Dict[str, int]:
     """This rank's index along every axis of ``mesh``."""
-    import torch.distributed as dist
 
     me = dist.get_rank()
     where = (mesh.mesh == me).nonzero()[0].tolist()
@@ -306,3 +338,224 @@ def shard_batch(batch: Dict[str, Any], mesh, sequence_sharded: bool = False,
         return x
 
     return {k: put(v) for k, v in batch.items()}
+
+
+# ---------------------------------------------------------------------------
+# the RL and preference trainers over ``data`` x ``fsdp``
+# ---------------------------------------------------------------------------
+
+
+def data_parallel_size(mesh) -> int:
+    """``data`` x ``fsdp``: the ranks a batch's rows split over (1 without a
+    mesh)."""
+    if mesh is None:
+        return 1
+    sizes = axis_sizes(mesh)
+    return sizes["data"] * sizes["fsdp"]
+
+
+def data_parallel_rank(mesh) -> int:
+    """This rank's index over ``data`` x ``fsdp`` (``data`` major, as
+    :func:`shard_batch` takes rows)."""
+    if mesh is None:
+        return 0
+    sizes, at = axis_sizes(mesh), _coords(mesh)
+    return at["data"] * sizes["fsdp"] + at["fsdp"]
+
+
+def _data_parallel_group(mesh):
+    """The process group of ``data`` x ``fsdp``: the whole world, since the
+    trainers that gather rows refuse every other axis above 1."""
+
+    if data_parallel_size(mesh) != dist.get_world_size():
+        raise ValueError("row gathers run over data x fsdp only: every other mesh axis "
+                         "must be 1")
+    return None
+
+
+def row_part(rows: int, mesh, unit: int = 1) -> Optional[slice]:
+    """This rank's contiguous part of ``rows`` host rows over ``data`` x
+    ``fsdp``, in whole units of ``unit`` rows (a GRPO group, a DPO pair);
+    None when there is no mesh or the data axes do not divide the units,
+    and then every rank takes every row (JAX's replication of an undivided
+    leading dim)."""
+    dp = data_parallel_size(mesh)
+    if dp == 1 or rows % unit or (rows // unit) % dp:
+        return None
+    size = rows // dp
+    at = data_parallel_rank(mesh)
+    return slice(at * size, (at + 1) * size)
+
+
+def allgather_host(obj: Any, mesh) -> List[Any]:
+    """Every rank's ``obj`` (picklable host data), in rank order over
+    ``data`` x ``fsdp``: one ``all_gather_object``, which every rank calls
+    in the same order."""
+
+    group = _data_parallel_group(mesh)
+    out: List[Any] = [None] * data_parallel_size(mesh)
+    dist.all_gather_object(out, obj, group=group)
+    return out
+
+
+class _GatherRows(torch.autograd.Function):
+    """Forward: the rows of every rank, concatenated in rank order
+    (``all_gather_into_tensor``). Backward: this rank's slice of the
+    incoming gradient, not summed, since every rank computes the same loss
+    on the gathered rows and FSDP2 sums the ranks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, n: int, at: int, group):
+        ctx.rows, ctx.at = x.shape[0], at
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.at * ctx.rows:(ctx.at + 1) * ctx.rows], None, None, None
+
+
+class _ReplicatedRows(torch.autograd.Function):
+    """Rows every rank already holds whole: the identity forward, and a
+    ``1 / n`` share of the gradient, which FSDP2's sum over the ranks makes
+    whole."""
+
+    @staticmethod
+    def forward(ctx, x, n: int):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def gather_rows(x, mesh, split: bool = True):
+    """A loss operand's rows over ``data`` x ``fsdp``, inside autograd:
+    with ``split`` (each rank holds its part, :func:`row_part`) the rows of
+    every rank in rank order, whose backward keeps this rank's slice only;
+    without it (each rank holds every row) ``x`` itself, whose backward
+    passes ``1 / n`` of the gradient. Either way a loss every rank computes
+    on the result takes, summed over the ranks by FSDP2, the gradient of
+    the one global loss. The identity without a mesh."""
+    n = data_parallel_size(mesh)
+    if n == 1:
+        return x
+    if not split:
+        return _ReplicatedRows.apply(x, n) if x.requires_grad else x
+    return _GatherRows.apply(x, n, data_parallel_rank(mesh), _data_parallel_group(mesh))
+
+
+def fsdp_units(model) -> List[Any]:
+    """The model's FSDP2 units (the root, then each block), or none. No
+    module is wrapped before FSDP2 is imported, and one process never
+    imports it (its import costs seconds), so that case returns at once."""
+    if "torch.distributed.fsdp" not in sys.modules:
+        return []
+    from torch.distributed.fsdp import FSDPModule
+
+    return [m for m in model.modules() if isinstance(m, FSDPModule)]
+
+
+@contextlib.contextmanager
+def unsharded(model) -> Iterator[None]:
+    """Hold every FSDP2 unit's full weights for the duration: one
+    all-gather per unit on entry (in module order, the same on every rank),
+    no reshard after a forward inside, a reshard on exit. The forwards
+    inside issue no collective, so each rank may run as many as its own
+    rows need (a collection's decode steps). A no-op for a model FSDP2 does
+    not wrap."""
+    units = fsdp_units(model)
+    if not units:
+        yield
+        return
+    # the root keeps its weights after a forward already (FSDP2's root rule)
+    inner = [unit for unit in units if unit is not model]
+    for unit in inner:
+        unit.set_reshard_after_forward(False, recurse=False)
+    try:
+        for unit in units:
+            unit.unshard()
+        yield
+    finally:
+        for unit in units:
+            unit.reshard()
+        for unit in inner:
+            unit.set_reshard_after_forward(True, recurse=False)
+
+
+def _shard_of(t) -> Optional[Tuple[int, int]]:
+    """``(mesh dim, tensor dim)`` of a DTensor's one ``Shard`` placement
+    (FSDP2 shards over one mesh dim); None for a replicated DTensor or a
+    plain tensor."""
+    for mesh_dim, placement in enumerate(getattr(t, "placements", ())):
+        if placement.is_shard():
+            return mesh_dim, placement.dim
+    return None
+
+
+def full_tensor(t):
+    """The whole tensor of an FSDP2 ``DTensor`` on every rank (a plain
+    tensor passes through): the local shards joined with one
+    ``all_gather_into_tensor`` over the shard dim's group, each padded to
+    ``torch.chunk``'s size. Plain c10d collectives only: the functional
+    collectives behind ``DTensor.full_tensor`` / ``redistribute`` are not
+    carried by every backend on every device (gloo on CUDA tensors)."""
+    where = _shard_of(t)
+    if where is None:
+        return t.to_local() if hasattr(t, "to_local") else t
+    mesh_dim, dim = where
+    group = t.device_mesh.get_group(mesh_dim)
+    n = dist.get_world_size(group)
+    size = t.shape[dim]
+    chunk = -(-size // n)
+    part = t.to_local().detach().movedim(dim, 0)
+    if part.shape[0] < chunk:
+        part = torch.cat([part, part.new_zeros((chunk - part.shape[0],) + part.shape[1:])])
+    out = part.new_empty((n * chunk,) + part.shape[1:])
+    dist.all_gather_into_tensor(out, part.contiguous(), group=group)
+    return out[:size].movedim(0, dim).contiguous()
+
+
+def local_shard(full, like):
+    """This rank's shard of a whole tensor ``full`` with ``like``'s
+    (a DTensor's) placement, as ``torch.chunk`` splits it; ``full`` itself
+    for a plain or replicated ``like``."""
+    where = _shard_of(like)
+    if where is None:
+        return full
+    mesh_dim, dim = where
+    group = like.device_mesh.get_group(mesh_dim)
+    pieces = full.chunk(dist.get_world_size(group), dim=dim)
+    at = dist.get_rank(group)
+    return pieces[at] if at < len(pieces) else full.narrow(dim, 0, 0)
+
+
+def global_grad_norm(grads):
+    """The 2-norm of every gradient, FSDP2's sharded ones included: each
+    shard group's squared sum of its local shards joined by a plain
+    ``all_reduce``, replicated gradients counted once."""
+    replicated, sharded = 0.0, {}
+    for g in grads:
+        where = _shard_of(g)
+        local = g.to_local() if hasattr(g, "to_local") else g
+        sq = local.detach().float().pow(2).sum()
+        if where is None:
+            replicated = replicated + sq
+        else:
+            group = g.device_mesh.get_group(where[0])
+            sharded[group] = sharded.get(group, 0.0) + sq
+    for group, sq in sharded.items():
+        dist.all_reduce(sq, group=group)
+        replicated = replicated + sq
+    return torch.as_tensor(replicated).sqrt()
+
+
+def full_model_state(model) -> Dict[str, Any]:
+    """The full ``state_dict`` of an FSDP2-sharded model on every rank, on
+    the model's device (:func:`full_tensor`, a collective: every rank
+    calls it); the model's own ``state_dict`` without FSDP2."""
+    if not fsdp_units(model):
+        return model.state_dict()
+    return {k: full_tensor(v) for k, v in model.state_dict().items()}

@@ -13,16 +13,26 @@ Port of ``trlx_tpu/resilience/``, bundled per trainer as
 - :mod:`.faults` — the :class:`FaultPlan` that drives each of them on the
   CPU or the card.
 
+- :mod:`.elastic` — the topology manifest of every checkpoint, the
+  restore that reshards onto a changed topology, and the preemption flag
+  coordinated over the processes of a mesh.
+
 Checkpoints commit atomically (``utils/checkpoint.py``); the guard's
-rollback and ``maybe_resume`` trust only committed ones. The port runs on
-one process and one device: the preemption flag needs no coordination
-across processes (JAX's allgather of it is a no-op on one process too)
-and a restore never reshards (the JAX package's elastic reshard waits
-for the port's parallelism).
+rollback and ``maybe_resume`` trust only committed ones.
 """
 
 from typing import Any, Callable, Optional
 
+from trlx_tpu_torch.resilience.elastic import (
+    MANIFEST_FORMAT,
+    MANIFEST_NAME,
+    ElasticRestoreError,
+    build_manifest,
+    coordinate_preemption,
+    manifest_mismatch,
+    read_manifest,
+    restore_state_elastic,
+)
 from trlx_tpu_torch.resilience.faults import (
     UNPORTED_KINDS,
     FaultPlan,
@@ -35,6 +45,9 @@ from trlx_tpu_torch.resilience.preemption import PreemptionHandler, TrainingPree
 from trlx_tpu_torch.resilience.retry import HostCallGuard, ResilientTracker, neutral_rewards
 
 __all__ = [
+    "MANIFEST_FORMAT",
+    "MANIFEST_NAME",
+    "ElasticRestoreError",
     "FaultPlan",
     "HostCallGuard",
     "InjectedFault",
@@ -46,8 +59,13 @@ __all__ = [
     "UNPORTED_KINDS",
     "UPDATE_OK_KEY",
     "UpdateGuard",
+    "build_manifest",
+    "coordinate_preemption",
+    "manifest_mismatch",
     "neutral_rewards",
     "poll_fault",
+    "read_manifest",
+    "restore_state_elastic",
     "set_active_plan",
 ]
 

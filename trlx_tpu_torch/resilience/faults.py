@@ -18,7 +18,7 @@ Plan syntax (``;``-separated entries, whitespace ignored)::
              request — the serve request id (1-based)
              collection — the async collection a chunk feeds (1-based)
              version — the async weight publish's version
-             resume — the JAX package's restore counter
+             resume — the Nth checkpoint restore (1-based)
     count    consecutive firings (default 1)
 
 The port polls the kinds whose sites it has (:data:`POLLED_KINDS`):
@@ -41,9 +41,13 @@ The port polls the kinds whose sites it has (:data:`POLLED_KINDS`):
                               # collection 2 (requeued, respawned or shrunk)
     weight_sync_drop@version:3  # the async weight publish of version 3 is
                                 # dropped (actors keep version 2)
+    sigterm_one_proc@step:5     # SIGTERM to process 0 only before update 6;
+                                # the coordinated flag stops every rank
+    topology_shrink@resume:1    # the 1st restore takes the elastic reshard
+                                # path (resilience/elastic.py)
 
-The other kinds parse, and the trainer refuses a plan that names one
-(:data:`UNPORTED_KINDS` names the subsystem each waits for).
+Every kind has a site (:data:`UNPORTED_KINDS` is empty; a kind that
+parses without a site would be refused by the trainer).
 
 Plans come from ``config.resilience.fault_plan`` or the
 ``TRLX_TPU_FAULT_PLAN`` environment variable (it wins, so a relaunched run
@@ -64,17 +68,15 @@ _KINDS = frozenset({
     "slow_client", "request_flood",
 })
 
-# the kinds the port has sites for
+# the kinds the port has sites for: every kind
 POLLED_KINDS = frozenset({
     "reward_raise", "publish_raise", "sigterm", "sigint", "nan_loss", "crash_save",
     "slow_client", "request_flood", "flightrec_dump", "health_trip", "sleep_one_proc",
-    "actor_crash", "weight_sync_drop",
+    "actor_crash", "weight_sync_drop", "sigterm_one_proc", "topology_shrink",
 })
-# the other kinds, and the subsystem of the port each waits for
-UNPORTED_KINDS = {
-    "sigterm_one_proc": "slice 21: coordinated preemption over several processes",
-    "topology_shrink": "slice 21: elastic restore over several processes",
-}
+# kinds that parse but have no site in the port yet, and what each waits
+# for (none: the trainer refuses a plan that names one)
+UNPORTED_KINDS: Dict[str, str] = {}
 assert POLLED_KINDS | set(UNPORTED_KINDS) == _KINDS
 # seconds the injected straggler (sleep_one_proc) stalls the last rank's step
 SLEEP_FAULT_S = float(os.environ.get("TRLX_TPU_FAULT_SLEEP_S", "0.5"))

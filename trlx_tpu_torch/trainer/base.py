@@ -102,7 +102,20 @@ Port of ``trlx_tpu/trainer/base.py`` (``TPUBaseTrainer``) as
   rollout store, and a resume from it fast-forwards the loop to its step
   boundary, so the run continues bitwise; ``train.resume_from_checkpoint``
   loads the newest committed ``checkpoint_<step>``
-  (:meth:`TorchBaseTrainer.maybe_resume`).
+  (:meth:`TorchBaseTrainer.maybe_resume`). Every checkpoint commits the
+  topology manifest with its state, and every restore goes through
+  ``resilience/elastic.py::restore_state_elastic`` (a changed topology, or
+  ``topology_shrink``, takes the reshard path); the preemption flag is
+  coordinated over the processes (``sigterm_one_proc`` signals process 0
+  alone);
+- over several processes (``parallel.data`` / ``fsdp``, with the
+  ``dcn_data_parallelism`` layout; ``sequence`` for SFT only) every
+  trainer shards its weights with FSDP2 and takes its rows of each batch
+  (:meth:`TorchBaseTrainer.host_batch`); its loss joins the operands of
+  every rank's rows (:meth:`TorchBaseTrainer.gather_rows`), so losses,
+  stats and gradients are the global batch's; rank 0 alone writes
+  checkpoints and exports (``push_to_hub`` included) from the gathered
+  state.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """
@@ -150,12 +163,20 @@ from trlx_tpu_torch.ops.sampling import (
 from trlx_tpu_torch.ops.slot_refill import make_slot_refill_fns
 from trlx_tpu_torch.ops.speculative import generate_speculative
 from trlx_tpu_torch.parallel.mesh import (
+    MESH_AXES,
     make_mesh,
     mesh_shape_from_config,
     set_global_mesh,
     world_size,
 )
-from trlx_tpu_torch.parallel.sharding import shard_params
+from trlx_tpu_torch.parallel.sharding import (
+    data_parallel_size,
+    gather_rows,
+    global_grad_norm,
+    shard_batch,
+    shard_params,
+    unsharded,
+)
 from trlx_tpu_torch.pipeline import PrefetchLoader
 from trlx_tpu_torch.resilience import (
     UNPORTED_KINDS,
@@ -164,6 +185,9 @@ from trlx_tpu_torch.resilience import (
     NonFiniteUpdateError,
     Resilience,
     TrainingPreempted,
+    build_manifest,
+    coordinate_preemption,
+    restore_state_elastic,
 )
 from trlx_tpu_torch.trainer import BaseRLTrainer
 from trlx_tpu_torch.utils import (
@@ -176,8 +200,6 @@ from trlx_tpu_torch.utils.checkpoint import (
     _checkpoint_step_dirs,
     gather_full_state,
     is_committed,
-    load_full_state,
-    load_state,
     newest_committed_checkpoint,
     prune_checkpoints,
     push_to_hub,
@@ -192,14 +214,14 @@ logger = logging.getLogger(__name__)
 TRIAGE_MAX_ROWS = 64
 TRIAGE_MAX_DUMPS = 8
 
-# the mesh axes the port runs (for the trainers with ``parallel_ok``), and
-# the ones that wait for a later slice, with their reasons
+# the mesh axes the port runs (``data`` and ``fsdp`` for every trainer,
+# ``sequence`` for those with ``sequence_ok`` too), and the ones that wait
+# for a later slice, with their reasons
 _PARALLEL_AXES = ("data", "fsdp", "sequence")
 _UNPORTED_AXES = {
     "model": "tensor parallelism comes with slice 22",
     "pipe": "pipeline parallelism comes with slice 22",
     "expert": "expert parallelism comes with slice 22",
-    "dcn_data_parallelism": "the multi-host data layout comes with slice 21",
 }
 
 
@@ -275,28 +297,30 @@ def validate_serve(config) -> None:
 
 
 def reject_unported(config, collects_rollouts: bool, seq2seq_ok: bool,
-                    parallel_ok: bool = False) -> None:
+                    sequence_ok: bool = False) -> None:
     """Raise ``ValueError`` naming the first setting this slice does not
-    run: parallel axes (``model``, ``pipe`` and ``expert`` above 1 for
-    every trainer; ``data``, ``fsdp`` and ``sequence`` above 1 for the
-    trainers without ``parallel_ok``, and a mesh that does not fit the
-    world for those with it; ``parallel.scan_layers`` runs, as per-layer
-    modules, with ``pipe`` 1), seq2seq
-    outside PPO and ILQL (``seq2seq_ok``), serving inside an offline
-    trainer (JAX's reason: only the rollout trainers have an engine to
-    serve from), and a fault plan (``resilience.fault_plan`` or ``TRLX_TPU_FAULT_PLAN``) that
-    names a kind whose subsystem the port does not have yet
-    (``resilience/faults.py::UNPORTED_KINDS``). Trackers, profiler
-    windows, rollout logs, remat, the update guard, fault plans of the
-    polled kinds and the retention ring run.
+    run: parallel axes (``model``, ``pipe`` and ``expert`` above 1;
+    ``sequence`` above 1 for a trainer without ``sequence_ok``: SFT alone
+    rings its forwards; a mesh that does not fit the world, or a
+    ``dcn_data_parallelism`` that does not divide its data axis;
+    ``parallel.scan_layers`` runs, as per-layer modules, with ``pipe``
+    1), async collection,
+    serving inside a trainer and seq2seq models under a world above 1,
+    seq2seq outside PPO and ILQL (``seq2seq_ok``), serving inside an
+    offline trainer (JAX's reason: only the rollout trainers have an
+    engine to serve from), and a fault plan (``resilience.fault_plan`` or
+    ``TRLX_TPU_FAULT_PLAN``) that names a kind whose subsystem the port
+    does not have (``resilience/faults.py::UNPORTED_KINDS``, empty now).
+    Trackers, profiler windows, rollout logs, remat, the update guard,
+    fault plans and the retention ring run.
 
     ``collects_rollouts`` (PPO, GRPO) adds the rollout settings: the loss
     kernel's name (and ``pallas`` only where the method's ``LOSS_KERNELS``
-    hosts it). Async collection (``async_rl``) runs, its own settings
-    checked where the collector is built. Every ``engine:`` setting runs
-    (:func:`validate_engine` keeps JAX's checks). The offline trainers
-    (SFT, ILQL) collect nothing: they evaluate on the paged engine, so the
-    engine settings do not reach them."""
+    hosts it). Async collection (``async_rl``) runs in one process, its
+    own settings checked where the collector is built. Every ``engine:``
+    setting runs (:func:`validate_engine` keeps JAX's checks). The offline
+    trainers (SFT, ILQL, DPO) collect nothing: they evaluate on the paged
+    engine, so the engine settings do not reach them."""
     m, par = config.model, config.parallel
     checks = []
     if collects_rollouts:
@@ -327,26 +351,45 @@ def reject_unported(config, collects_rollouts: bool, seq2seq_ok: bool,
         (int(getattr(par, axis)) > 1, f"parallel.{axis} > 1: {reason}")
         for axis, reason in _UNPORTED_AXES.items()
     ]
-    if not parallel_ok:
-        checks.append((world_size() > 1, "parallel.data: this trainer runs in one process; "
-                       "data, fsdp and sequence parallelism run under SFT, the other "
-                       "trainers come with slice 21"))
+    if not sequence_ok:
+        checks.append((int(par.sequence) > 1, "parallel.sequence > 1: only SFT rings its "
+                       "forwards; the RL and preference trainers' cacheless forwards under "
+                       "sequence parallelism (a gather of the response span for the PPO loss "
+                       "kernels) come with slice 22"))
+    if world_size() > 1:
         checks += [
-            (int(getattr(par, axis)) not in (-1, 1), f"parallel.{axis} > 1: this trainer runs "
-             "on one device; data, fsdp and sequence parallelism run under SFT, the other "
-             "trainers come with slice 21")
-            for axis in _PARALLEL_AXES
+            (config.async_rl.enabled, "async_rl.enabled: async collection runs in one "
+             "process; the actor/learner split over several processes comes with slice 23"),
+            (config.serve.enabled, "serve.enabled: serving inside a trainer runs in one "
+             "process; serving over several processes comes with slice 23"),
+            (m.model_arch_type == "seq2seq", "model.model_arch_type 'seq2seq': seq2seq "
+             "models run in one process; seq2seq over several processes comes with slice 23"),
         ]
     for bad, message in checks:
         if bad:
             raise ValueError(message)
-    if parallel_ok:
-        try:
-            mesh_shape_from_config(par)
-        except ValueError as e:
-            axis = next((a for a in _PARALLEL_AXES if int(getattr(par, a)) > 1), "data")
-            raise ValueError(f"parallel.{axis}: {e} (start one process per device: "
-                             "trlx.initialize_runtime)") from e
+    try:
+        shape = mesh_shape_from_config(par)
+    except ValueError as e:
+        axis = next((a for a in _PARALLEL_AXES if int(getattr(par, a)) > 1), "data")
+        raise ValueError(f"parallel.{axis}: {e} (start one process per device: "
+                         "trlx.initialize_runtime)") from e
+    if not sequence_ok and shape[MESH_AXES.index("sequence")] > 1:
+        raise ValueError("parallel.sequence: the inferred axis would span "
+                         f"{shape[MESH_AXES.index('sequence')]} processes; only SFT rings "
+                         "its forwards (slice 22 for the other trainers)")
+    dcn = int(par.dcn_data_parallelism)
+    if dcn > 1 and shape[0] % dcn:
+        raise ValueError(f"parallel.dcn_data_parallelism: data axis {shape[0]} not "
+                         f"divisible by dcn_data_parallelism {dcn}")
+
+
+def _all_reduce_(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over every rank, in place."""
+    import torch.distributed as dist
+
+    dist.all_reduce(x)
+    return x
 
 
 def _sync(device: torch.device) -> None:
@@ -422,8 +465,9 @@ class TorchBaseTrainer(BaseRLTrainer):
     # PPO collects rollouts through the engine; the offline trainers only
     # evaluate through it (see reject_unported)
     collects_rollouts: bool = False
-    # runs over a mesh of several processes (data, fsdp, sequence): SFT
-    parallel_ok: bool = False
+    # rings its forwards over a ``sequence`` axis (every trainer runs over
+    # ``data`` and ``fsdp``): SFT
+    sequence_ok: bool = False
     # the trainers with a seq2seq branch (PPO and ILQL, as in JAX)
     supports_seq2seq: bool = False
 
@@ -447,7 +491,7 @@ class TorchBaseTrainer(BaseRLTrainer):
                 "seq2seq decoder has no slot-refill path"
             )
         reject_unported(config, self.collects_rollouts, self.supports_seq2seq,
-                        self.parallel_ok)
+                        self.sequence_ok)
         if config.train.batch_size % max(1, int(config.train.grad_accum)) != 0:
             raise ValueError(
                 f"train.batch_size ({config.train.batch_size}) must be divisible "
@@ -533,6 +577,8 @@ class TorchBaseTrainer(BaseRLTrainer):
         self._resume_done = False
         self._last_batch_host: Any = None
         self._last_batch_device: Any = None
+        # under the mesh: did the last host batch split over the data axes?
+        self._batch_split = False
         # run observability (tracer, metrics registry, watchdogs, profiler
         # window, flight recorder, cluster beat, dynamics and health), the
         # resilience bundle (reward_fn and the tracker hardened once, so
@@ -601,6 +647,24 @@ class TorchBaseTrainer(BaseRLTrainer):
         aux = out.get("router_aux_loss") if isinstance(out, dict) else None
         if aux is None:
             return loss, stats
+        if self.mesh is not None:
+            # each rank's router losses are its rows' means: the mean over
+            # the data axes is the global batch's, and each rank's share of
+            # it is what FSDP2's sum of the gradients makes whole
+            n = data_parallel_size(self.mesh)
+            logged = torch.stack([aux[0].detach(), aux[1].detach()])
+            _all_reduce_(logged)
+            aux = (aux[0] / n, aux[1] / n)
+            new_loss = (loss + self.tcfg.router_aux_coef * aux[0]
+                        + self.tcfg.router_z_coef * aux[1])
+            stats = dict(stats)
+            stats["losses/router_load_balance"] = logged[0] / n
+            stats["losses/router_z"] = logged[1] / n
+            for key in ("losses/total_loss", "losses/loss"):
+                if key in stats:
+                    stats[key] = stats[key] + (self.tcfg.router_aux_coef * logged[0]
+                                               + self.tcfg.router_z_coef * logged[1]) / n
+            return new_loss, stats
         new_loss = loss + self.tcfg.router_aux_coef * aux[0] + self.tcfg.router_z_coef * aux[1]
         stats = dict(stats)
         stats["losses/router_load_balance"] = aux[0].detach()
@@ -649,11 +713,28 @@ class TorchBaseTrainer(BaseRLTrainer):
         self._last_batch_host, self._last_batch_device = batch, arrays
         return arrays
 
-    def host_batch(self, items: Dict[str, Any]) -> Dict[str, Any]:
-        """The arrays a step takes from a collated host batch: here the
-        batch as it is. The trainers with ``parallel_ok`` take this rank's
-        part under the mesh."""
-        return items
+    def host_batch(self, items: Dict[str, Any], unit: int = 1) -> Dict[str, Any]:
+        """The arrays a step takes from a collated host batch: the batch as
+        it is, or under the mesh this rank's rows over ``data`` x ``fsdp``
+        (``parallel/sharding.py::shard_batch``, aligned to the
+        gradient-accumulation micro-batches) when the data axes divide its
+        units of ``unit`` rows, else every row (JAX's replication of an
+        undivided leading dim). :meth:`gather_rows` joins a loss operand
+        back either way."""
+        if self.mesh is None:
+            return items
+        micro = max(1, int(self.config.train.grad_accum))
+        rows = next(v.shape[0] for v in items.values() if getattr(v, "ndim", 0))
+        self._batch_split = (rows // unit) % (data_parallel_size(self.mesh) * micro) == 0 \
+            and rows % unit == 0
+        return shard_batch(items, self.mesh, micro=micro) if self._batch_split else items
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """A loss operand of this rank's rows joined over ``data`` x
+        ``fsdp`` inside autograd (``parallel/sharding.py::gather_rows``):
+        a loss computed on the result is the global batch's on every rank,
+        and the gradients FSDP2 sums over the ranks are its gradient."""
+        return gather_rows(x, self.mesh, split=self._batch_split)
 
     def _drop_batch_memo(self) -> None:
         self._last_batch_host = self._last_batch_device = None
@@ -751,10 +832,11 @@ class TorchBaseTrainer(BaseRLTrainer):
         """:meth:`train_step`'s update: gradients, the guard, the optimizer."""
         arrays = self._device_batch(batch)
         stats, loss = self._accumulate(arrays, self._loss_scale())
-        gnorm = torch.nn.utils.get_total_norm(
-            [p.grad for p in self.model.parameters() if p.grad is not None])
-        if hasattr(gnorm, "full_tensor"):  # FSDP2's sharded gradients
-            gnorm = gnorm.full_tensor()
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        if self.mesh is None:
+            gnorm = torch.nn.utils.get_total_norm(grads)
+        else:  # FSDP2's sharded gradients
+            gnorm = global_grad_norm(grads)
         lr = float(self.schedule(self.step))
         stats = dict(stats)
         stats["learning_rate"] = lr
@@ -1190,10 +1272,16 @@ class TorchBaseTrainer(BaseRLTrainer):
             overrides = {sweep_key: sweep_value} if sweep_key else {}
             all_samples, all_prompts, all_outputs = [], [], []
             t0 = time.perf_counter()
-            for batch in loader:
-                out = self.generate(batch["input_ids"], batch["attention_mask"],
-                                    eval_mode=True, **overrides)
-                for k, v in self.last_generate_stats.items():
+            # every rank generates every row; under FSDP2 the weights are
+            # gathered once for the sweep, not once per decode step
+            outs = []
+            with unsharded(self.model):
+                for batch in loader:
+                    out = self.generate(batch["input_ids"], batch["attention_mask"],
+                                        eval_mode=True, **overrides)
+                    outs.append((batch, out, dict(self.last_generate_stats)))
+            for batch, out, gen_stats in outs:
+                for k, v in gen_stats.items():
                     if k.endswith("_kernel_launches"):
                         name = "eval/" + k.split("/", 1)[1]
                         launches[name] = launches.get(name, 0.0) + v
@@ -1454,6 +1542,10 @@ class TorchBaseTrainer(BaseRLTrainer):
                 signal.raise_signal(signal.SIGTERM)
             if plan.poll("sigint", step=self.iter_count):
                 signal.raise_signal(signal.SIGINT)
+            # every rank polls (lockstep counters) and process 0 alone is
+            # signalled: the coordinated flag below carries it to the peers
+            if plan.poll("sigterm_one_proc", step=self.iter_count) and process_index() == 0:
+                signal.raise_signal(signal.SIGTERM)
             if plan.poll("flightrec_dump", step=self.iter_count):
                 # the crash path's dump, without a crash
                 self.obs.dump_flight_record(
@@ -1479,8 +1571,9 @@ class TorchBaseTrainer(BaseRLTrainer):
         if self.obs.cluster.enabled or coordinate:
             # one gather carries the preemption flag and the per-rank
             # scalars; local when one process runs
-            requested_any = self.obs.cluster.beat(requested, step=self.iter_count,
-                                                  collective=coordinate)
+            requested_any = coordinate_preemption(
+                requested, beat=lambda flag: self.obs.cluster.beat(
+                    flag, step=self.iter_count, collective=coordinate))
             if coordinate:
                 requested = requested_any
         if not requested:
@@ -1736,10 +1829,12 @@ class TorchBaseTrainer(BaseRLTrainer):
             extra.update(emergency=True, nth_evaluation=self.nth_evaluation,
                          payload=self._emergency_payload())
         model_sd, optim_sd = self._full_state()
+        # the topology this state was saved from (resilience/elastic.py)
+        manifest = build_manifest(self.model, self.mesh, self.device.type)
         if process_index() == 0:
             save_state(directory, {"model": model_sd, "optimizer": optim_sd,
                                    "step": self.step, "extra": extra,
-                                   "rng": self._rng_state()})
+                                   "rng": self._rng_state()}, manifest=manifest)
         self._barrier()
 
     def _full_state(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
@@ -1770,16 +1865,22 @@ class TorchBaseTrainer(BaseRLTrainer):
                             tokenizer_path=self.config.tokenizer.tokenizer_path)
         self._barrier()
 
-    def push_to_hub(self, repo_id: str, **kwargs) -> str:
+    def push_to_hub(self, repo_id: str, **kwargs) -> Optional[str]:
         """Publish the current policy to the HF Hub: a full
         :meth:`save_pretrained` export staged locally, then uploaded in one
         call (``utils/checkpoint.py::push_to_hub``, whose ``uploader=``
-        replaces the network step)."""
-        if self.mesh is not None:
-            raise ValueError("push_to_hub under a mesh: export with save_pretrained (rank 0 "
-                             "writes the full weights) and upload that directory")
+        replaces the network step). Under a mesh the full weights are
+        gathered onto rank 0, which alone writes and uploads (JAX's rank-0
+        rule); the other ranks wait at the barrier and return None."""
         kwargs.setdefault("tokenizer_path", self.config.tokenizer.tokenizer_path)
-        return push_to_hub(repo_id, self.model.state_dict(), self.tcfg, **kwargs)
+        model_sd = self._full_state()[0]
+        url = None
+        try:
+            if process_index() == 0:
+                url = push_to_hub(repo_id, model_sd, self.tcfg, **kwargs)
+        finally:
+            self._barrier()
+        return url
 
     def load(self, directory: Optional[str] = None, restore_payload: bool = True,
              **kwargs) -> None:
@@ -1791,12 +1892,11 @@ class TorchBaseTrainer(BaseRLTrainer):
         ``restore_payload=False``: its prompt and seed streams are live and
         go on."""
         directory = directory or self.config.train.checkpoint_dir
-        state = load_state(directory)
-        if self.mesh is None:
-            self.model.load_state_dict(state["model"])
-            self.optimizer.load_state_dict(state["optimizer"])
-        else:  # the full state, resharded over this mesh
-            load_full_state(self.model, self.optimizer, state["model"], state["optimizer"])
+        # the one restore entry (resilience/elastic.py): the topology
+        # manifest decides between the per-rank load and the reshard
+        state = restore_state_elastic(directory, self.model, self.optimizer, mesh=self.mesh,
+                                      elastic=self.resilience.config.elastic,
+                                      metrics=self.metrics, device_type=self.device.type)
         self._weights_version += 1
         self.step = int(state["step"])
         extra = state["extra"]

@@ -15,7 +15,11 @@ config=default_dpo_config())``.
   logits or streamed through the vocab projection with
   ``method.logit_chunk``), :meth:`DPOConfig.loss`, then
   ``with_router_aux`` (an MoE policy's router losses);
-- evaluation generates on the paged engine (``trainer/base.py``).
+- evaluation generates on the paged engine (``trainer/base.py``);
+- over a mesh (``parallel.data`` / ``fsdp``) each rank takes whole pairs
+  of every batch, in the reference pass and in the step; the pairs'
+  summed logprobs of every rank are joined before the loss, so it is the
+  global mean.
 
 The seq2seq path is not ported (``NotImplementedError``, as in JAX).
 """
@@ -24,9 +28,11 @@ import logging
 import time
 from typing import Any, Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from trlx_tpu_torch.models.dpo import DPOConfig
+from trlx_tpu_torch.parallel.sharding import allgather_host, row_part
 from trlx_tpu_torch.pipeline.dpo_pipeline import DPOStore
 from trlx_tpu_torch.trainer import register_trainer
 from trlx_tpu_torch.trainer.base import TorchBaseTrainer
@@ -97,10 +103,19 @@ class DPOTrainer(TorchBaseTrainer):
         bs = min(self.config.train.batch_size, len(self.store))
         idx = 0
         for batch in self.store.create_loader(bs, shuffle=False, drop_last=False):
-            ids, attn, out = (torch.as_tensor(batch[k]).to(self.device)
+            arrays = {k: np.asarray(batch[k]) for k in ("input_ids", "attention_mask",
+                                                        "out_mask")}
+            # under the mesh each rank scores its pairs (every pair when the
+            # data axes do not divide them), joined in rank order
+            part = row_part(arrays["input_ids"].shape[0], self.mesh, unit=2)
+            if part is not None:
+                arrays = {k: v[part] for k, v in arrays.items()}
+            ids, attn, out = (torch.as_tensor(arrays[k]).to(self.device)
                               for k in ("input_ids", "attention_mask", "out_mask"))
             # the weights before any update are the reference
             logps = completion_logps(self.model, ids, attn, out, chunk)[0].cpu().numpy()
+            if part is not None:
+                logps = np.concatenate(allgather_host(logps, self.mesh))
             n = logps.shape[0] // 2
             for j in range(n):  # interleaved (c0, r0, c1, r1, ...)
                 self.store.history[idx + j]["ref_chosen_logp"] = float(logps[2 * j])
@@ -114,10 +129,19 @@ class DPOTrainer(TorchBaseTrainer):
         logps, out = completion_logps(self.model, batch["input_ids"], batch["attention_mask"],
                                       batch["out_mask"], self._resolved_logit_chunk())
         refs = batch["ref_logps"]
+        if self.mesh is not None:
+            # every rank's pairs (whole, interleaved): the loss is the global
+            # mean, and each rank's backward keeps its own pairs
+            logps, refs = self.gather_rows(logps), self.gather_rows(refs)
         # chosen at even rows, rejected at odd
         return self.with_router_aux(self.config.method.loss(
             policy_chosen_logps=logps[0::2], policy_rejected_logps=logps[1::2],
             ref_chosen_logps=refs[0::2], ref_rejected_logps=refs[1::2]), out)
+
+    def host_batch(self, items: Dict[str, Any], unit: int = 2) -> Dict[str, Any]:
+        """The step's rows: under the mesh whole pairs (two interleaved
+        rows) per rank."""
+        return super().host_batch(items, unit=unit)
 
     def prepare_learning(self) -> None:
         if len(self.store) < self.config.train.batch_size:

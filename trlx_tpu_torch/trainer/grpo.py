@@ -28,13 +28,14 @@ refused at construction, as in JAX. GRPO has no pipelined path, so
 
 from collections import deque
 from time import perf_counter
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from trlx_tpu_torch.data.grpo_types import GRPORLElement
 from trlx_tpu_torch.models.grpo import BASELINES, GRPOConfig, group_advantages_np
+from trlx_tpu_torch.parallel.sharding import unsharded
 from trlx_tpu_torch.pipeline.grpo_pipeline import GRPORolloutStorage
 from trlx_tpu_torch.trainer import register_trainer
 from trlx_tpu_torch.trainer.base import HostCopy, logger
@@ -100,15 +101,22 @@ class GRPOTrainer(PPOTrainer):
 
     def _grpo_score_batch(self, prompt_ids: np.ndarray, prompt_mask: np.ndarray,
                           response_tokens: np.ndarray, response_mask: np.ndarray,
-                          elements: list, agg: Dict[str, Any], score_out=None) -> None:
-        """Score and store one group-contiguous batch: the produce half
+                          elements: list, agg: Dict[str, Any], score_out=None,
+                          split: bool = False, order: Optional[np.ndarray] = None) -> int:
+        """Score and store one group-contiguous batch (``split``: this
+        rank's groups of it, with the rows' sort keys ``order`` from the
+        group-aware harvest, :meth:`_gather_chunk`): the produce half
         (:meth:`_grpo_chunk_produce`), then the ordered tail
         (:meth:`_grpo_chunk_finalize`) — the halves the async split runs on
-        the actor and on the learner."""
+        the actor and on the learner. Returns the rows stored (every
+        rank's)."""
         chunk = self._grpo_chunk_produce(prompt_ids, prompt_mask, response_tokens,
                                          response_mask, score_out=score_out)
+        chunk["split"] = split
+        if order is not None:
+            chunk["order"] = order
         agg["score_time_sum"] += chunk["score_s"]
-        self._grpo_chunk_finalize(chunk, elements, agg)
+        return self._grpo_chunk_finalize(chunk, elements, agg)
 
     def _grpo_chunk_produce(self, prompt_ids: np.ndarray, prompt_mask: np.ndarray,
                             response_tokens: np.ndarray, response_mask: np.ndarray,
@@ -137,7 +145,9 @@ class GRPOTrainer(PPOTrainer):
                              agg: Dict[str, Any]) -> None:
         """Reward clipping, running moments (logged only: the group
         normalisation is GRPO's reward scaling), group-relative
-        advantages, the logged k3 KL and one element per non-empty row."""
+        advantages, the logged k3 KL and one element per non-empty row, on
+        every rank's rows under the mesh (:meth:`_gather_chunk`)."""
+        chunk = self._gather_chunk(chunk)
         method: GRPOConfig = self.config.method
         prompt_ids, prompt_mask = chunk["prompt_ids"], chunk["prompt_mask"]
         response_tokens, response_mask = chunk["response_tokens"], chunk["response_mask"]
@@ -174,6 +184,7 @@ class GRPOTrainer(PPOTrainer):
                 behavior_logprobs=(np.asarray(behavior[i, :n_i], np.float32)
                                    if behavior is not None else None),
             ))
+        return int(prompt_ids.shape[0])
 
     def _grpo_collect_serial(self, num_rollouts: int, elements: list,
                              agg: Dict[str, Any]) -> None:
@@ -186,8 +197,10 @@ class GRPOTrainer(PPOTrainer):
             batch = next(self.prompt_iterator)
             prompt_ids = np.repeat(np.asarray(batch["input_ids"], np.int64), G, axis=0)
             prompt_mask = np.repeat(np.asarray(batch["attention_mask"], np.int64), G, axis=0)
+            prompt_ids, prompt_mask, seeds, at = self._rank_rows(prompt_ids, prompt_mask,
+                                                                 unit=G)
             t0 = perf_counter()
-            gen_out = self.generate_serial(prompt_ids, prompt_mask)
+            gen_out = self.generate_serial(prompt_ids, prompt_mask, seeds=seeds)
             score_out = self._dispatch_score(gen_out.sequences, prompt_mask,
                                              gen_out.response_tokens, gen_out.response_mask)
             landed = HostCopy({"response_tokens": gen_out.response_tokens,
@@ -200,14 +213,21 @@ class GRPOTrainer(PPOTrainer):
                 int(n_per_row.max()) if n_per_row.size else 0)
             agg["live_slot_steps"] += int(n_per_row.sum())
             self._grpo_score_batch(prompt_ids, prompt_mask, response_tokens, response_mask,
-                                   elements, agg, score_out=score_out)
+                                   elements, agg, score_out=score_out, split=at is not None)
 
     def _grpo_collect_continuous(self, num_rollouts: int, elements: list,
                                  agg: Dict[str, Any]) -> None:
         """The group-aware harvest on the paged engine: prompts are queued
         with ``meta = (group id, member)``; a group is ready when its last
         member finishes, and ready groups flush in completion order,
-        ``chunk_size // group_size`` at a time, members sorted by index."""
+        ``chunk_size // group_size`` at a time, members sorted by index.
+
+        Under the mesh each rank collects its whole groups of one chunk at
+        a time, on an idle engine, and flushes them once the engine
+        drains; each row is keyed by (the engine step that completed its
+        group, the group's global index in the chunk, its member), one
+        process's flush order for a chunk on an idle engine, which
+        :meth:`_gather_chunk` restores on the joined rows."""
         if num_rollouts <= 0:
             return
         method: GRPOConfig = self.config.method
@@ -215,37 +235,53 @@ class GRPOTrainer(PPOTrainer):
         gen_config, extra_kwargs = self._resolve_gen_config(eval_mode=False)
         groups_per_batch = max(method.chunk_size // G, 1)
         state: Dict[str, Any] = {"engine": None, "supplied": 0, "processed": 0,
-                                 "next_group": 0}
+                                 "next_group": 0, "split": False, "steps": 0}
         partial: Dict[int, list] = {}  # group id → completed members
-        ready: deque = deque()  # complete groups, in completion order
+        # (the engine step that completed it, members) of every complete
+        # group, in completion order
+        ready: deque = deque()
+        mesh = self.mesh is not None
 
         def fetch_chunk() -> None:
             batch = next(self.prompt_iterator)
             ids = np.repeat(np.asarray(batch["input_ids"], np.int32), G, axis=0)
             mask = np.repeat(np.asarray(batch["attention_mask"], np.int32), G, axis=0)
-            metas = [(state["next_group"] + r // G, r % G) for r in range(ids.shape[0])]
+            rows = ids.shape[0]
+            ids, mask, seeds, at = self._rank_rows(ids, mask, unit=G)
+            state["split"], state["steps"] = at is not None, 0
+            # (group id, member, the group's global index in the chunk)
+            g0 = (at or 0) // G
+            metas = [(state["next_group"] + r // G, r % G, g0 + r // G)
+                     for r in range(ids.shape[0])]
             state["next_group"] += ids.shape[0] // G
             if state["engine"] is None:
                 state["engine"] = self._cb_make_engine(gen_config, extra_kwargs,
                                                        ids.shape[0], ids.shape[1])
-            state["engine"].enqueue_prompts(ids, mask, self._row_seeds(ids.shape[0]),
-                                            metas=metas)
-            state["supplied"] += ids.shape[0]
+            state["engine"].enqueue_prompts(ids, mask, seeds, metas=metas)
+            state["supplied"] += rows
 
         def flush(n_groups: int) -> None:
-            rows = [member for _ in range(n_groups)
-                    for member in sorted(ready.popleft(), key=lambda c: c.meta[1])]
-            state["processed"] += len(rows)
-            self._grpo_score_batch(
+            groups = [ready.popleft() for _ in range(n_groups)]
+            keyed = [(step, member) for step, group in groups
+                     for member in sorted(group, key=lambda c: c.meta[1])]
+            rows = [member for _, member in keyed]
+            state["processed"] += self._grpo_score_batch(
                 np.stack([c.prompt_ids for c in rows]).astype(np.int64),
                 np.stack([c.prompt_mask for c in rows]).astype(np.int64),
                 np.stack([c.tokens for c in rows]).astype(np.int64),
                 np.stack([c.mask for c in rows]).astype(np.int64),
-                elements, agg)
+                elements, agg, split=state["split"],
+                order=(np.asarray([(step, c.meta[2], c.meta[1]) for step, c in keyed],
+                                  np.int64) if state["split"] else None))
 
         while True:
             while len(elements) + state["supplied"] - state["processed"] < num_rollouts:
+                # under the mesh: the last chunk harvested and flushed
+                if mesh and (ready or state["engine"] is not None and state["engine"].busy):
+                    break
                 fetch_chunk()
+                if mesh:
+                    break
             engine = state["engine"]
             if not engine.busy:
                 if ready:
@@ -253,12 +289,13 @@ class GRPOTrainer(PPOTrainer):
                 if len(elements) >= num_rollouts:
                     break
                 continue
+            state["steps"] += 1
             for c in engine.step():
                 members = partial.setdefault(c.meta[0], [])
                 members.append(c)
                 if len(members) == G:
-                    ready.append(partial.pop(c.meta[0]))
-            while len(ready) >= groups_per_batch:
+                    ready.append((state["steps"], partial.pop(c.meta[0])))
+            while not mesh and len(ready) >= groups_per_batch:
                 flush(groups_per_batch)
 
         agg["gen_time_sum"] += engine.stats.decode_s + engine.stats.refill_s
@@ -331,12 +368,13 @@ class GRPOTrainer(PPOTrainer):
                                "gen_time_sum": 0.0, "score_time_sum": 0.0, "gen_tokens": 0,
                                "slot_steps": 0, "live_slot_steps": 0}
         exp_time = perf_counter()
-        if self.config.async_rl.enabled:
-            self._collect_async_grpo(num_rollouts, elements, agg)
-        elif self.config.train.continuous_batching:
-            self._grpo_collect_continuous(num_rollouts, elements, agg)
-        else:
-            self._grpo_collect_serial(num_rollouts, elements, agg)
+        with unsharded(self.model):  # each rank decodes its own groups
+            if self.config.async_rl.enabled:
+                self._collect_async_grpo(num_rollouts, elements, agg)
+            elif self.config.train.continuous_batching:
+                self._grpo_collect_continuous(num_rollouts, elements, agg)
+            else:
+                self._grpo_collect_serial(num_rollouts, elements, agg)
 
         self.mean_kl = agg["kl_sum"] / max(agg["kl_batches"], 1)
         stats["policy/sqrt_ref_kl"] = float(np.sqrt(max(self.mean_kl, 0.0)))
@@ -387,9 +425,13 @@ class GRPOTrainer(PPOTrainer):
         attention_mask = torch.cat([batch["query_mask"], batch["response_mask"]], dim=1)
         out = self.model(input_ids, attention_mask=attention_mask, logits_span=(Q - 1, Q + R - 1))
         logprobs = logprobs_of_labels(out["logits"], responses)
-        return self.with_router_aux(
-            method.loss(logprobs=logprobs, old_logprobs=batch["logprobs"],
+        operands = dict(logprobs=logprobs, old_logprobs=batch["logprobs"],
                         ref_logprobs=batch["ref_logprobs"], advantages=batch["advantages"],
                         mask=batch["response_mask"],
-                        behavior_logprobs=batch.get("behavior_logprobs")),
-            out)
+                        behavior_logprobs=batch.get("behavior_logprobs"))
+        if self.mesh is not None:
+            # the token normalisation spans the global minibatch (PPO's
+            # gather: each rank's backward keeps its own rows)
+            operands = {k: None if v is None else self.gather_rows(v)
+                        for k, v in operands.items()}
+        return self.with_router_aux(method.loss(**operands), out)

@@ -12,7 +12,11 @@ Port of ``trlx_tpu/trainer/ilql.py``:
 - ``loss_fn`` runs the backbone once (for T5 the encoder and the decoder
   on the output tokens), gathers hidden states at the action and state
   indices, and applies the heads and the vocab projection to the gathered
-  rows only;
+  rows only. Over a mesh (``parallel.data`` / ``fsdp``) each rank takes
+  its rows of the batch and the per-token terms of every rank are joined
+  before the masked means (``ILQLConfig.token_terms`` /
+  ``loss_from_terms``); the target heads are sharded like the Q heads, so
+  the Polyak sync is the same local update on every rank's shards;
 - the target-Q heads Polyak-sync every ``steps_for_target_q_sync``
   optimizer steps (``post_backward_callback``, after the batch's update);
 - generation shapes the sampling logits to ``log π + β (min target-Q − V)``
@@ -207,9 +211,18 @@ class ILQLTrainer(TorchBaseTrainer):
         # the action itself: the token after the action index
         actions = action_source[:, 1:].to(torch.int64).gather(
             1, batch["actions_ixs"].to(torch.int64))
-        return self.with_router_aux(
-            self.ilql.loss(logits=logits, qs=qs, target_qs=target_qs, vs=vs, actions=actions,
-                           rewards=batch["rewards"], dones=batch["dones"]), out)
+        if self.mesh is None:
+            return self.with_router_aux(
+                self.ilql.loss(logits=logits, qs=qs, target_qs=target_qs, vs=vs,
+                               actions=actions, rewards=batch["rewards"],
+                               dones=batch["dones"]), out)
+        # under the mesh the per-token terms of every rank's rows are joined
+        # (each rank's backward keeps its own), so the masked means span the
+        # global batch
+        terms = {k: self.gather_rows(v) for k, v in
+                 self.ilql.token_terms(logits, qs, target_qs, vs, actions).items()}
+        return self.with_router_aux(self.ilql.loss_from_terms(
+            terms, self.gather_rows(batch["rewards"]), self.gather_rows(batch["dones"])), out)
 
     def prepare_learning(self) -> None:
         self.train_dataloader = self.store.create_loader(

@@ -74,6 +74,12 @@ import torch
 from trlx_tpu_torch.data.ppo_types import PPORLElement
 from trlx_tpu_torch.models.builder import hydra_ref_params, seq2seq_hydra_ref_params
 from trlx_tpu_torch.models.ppo import PPOConfig, kl_penalty_rewards_np
+from trlx_tpu_torch.parallel.sharding import (
+    allgather_host,
+    full_model_state,
+    row_part,
+    unsharded,
+)
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
 from trlx_tpu_torch.pipeline.rollout_pipeline import RolloutPipeline
 from trlx_tpu_torch.trainer import register_trainer
@@ -129,12 +135,32 @@ class PPOTrainer(TorchBaseTrainer):
 
     def _ref_snapshot(self) -> torch.nn.Module:
         """Frozen reference of the current weights (buffer-owning copies):
-        the hydra branch, or the whole backbone when every layer trains."""
+        the hydra branch, or the whole backbone when every layer trains.
+        Under the mesh every rank holds it whole, built from the gathered
+        weights (a collective)."""
+        if self.mesh is not None:
+            return self._ref_snapshot_gathered()
         if self.num_layers_unfrozen > 0:
             branch = seq2seq_hydra_ref_params if self.is_seq2seq else hydra_ref_params
             return branch(self.model, self.tcfg, self.num_layers_unfrozen)
         backbone = getattr(self.model, "backbone", self.model)  # a head-less policy is one
         return copy.deepcopy(backbone).eval().requires_grad_(False)
+
+    def _ref_snapshot_gathered(self) -> torch.nn.Module:
+        """:meth:`_ref_snapshot` of an FSDP2-sharded causal policy: the
+        backbone's full weights on every rank, loaded into the hydra branch
+        or into a fresh backbone (seq2seq runs in one process)."""
+        prefix = "backbone." if hasattr(self.model, "backbone") else ""
+        state = {k[len(prefix):]: v for k, v in full_model_state(self.model).items()
+                 if k.startswith(prefix)}
+        if self.num_layers_unfrozen > 0:
+            return hydra_ref_params(self.model, self.tcfg, self.num_layers_unfrozen,
+                                    backbone_state=state)
+        backbone = getattr(self.model, "backbone", self.model)
+        with torch.device("meta"):
+            ref = type(backbone)(self.tcfg)
+        ref.load_state_dict({k: v.detach().clone() for k, v in state.items()}, assign=True)
+        return ref.eval().requires_grad_(False)
 
     # ------------------------------------------------------------------
     # rollout collection
@@ -305,8 +331,25 @@ class PPOTrainer(TorchBaseTrainer):
         pipelined paths: prompt fetch, generation, and the scoring forward
         with its device → host copies."""
         batch = next(self.prompt_iterator)
-        return self._chunk_device(np.asarray(batch["input_ids"], np.int64),
-                                  np.asarray(batch["attention_mask"], np.int64), stats)
+        ids, mask, seeds, at = self._rank_rows(np.asarray(batch["input_ids"], np.int64),
+                                               np.asarray(batch["attention_mask"], np.int64))
+        dev = self._chunk_device(ids, mask, stats, seeds=seeds)
+        dev.update(rows=len(batch["input_ids"]), split=at is not None)
+        return dev
+
+    def _rank_rows(self, ids: np.ndarray, mask: np.ndarray, unit: int = 1):
+        """A prompt chunk's per-row seeds, all drawn (every rank draws the
+        whole chunk's from one shared stream, so its draws are the global
+        rows' draws), and this rank's rows of the chunk and the seeds in
+        whole units of ``unit`` rows (a GRPO group): ``(ids, mask, seeds,
+        at)``, ``at`` the global index of the rank's first row; every row and
+        ``at`` None when the data axes do not divide the units
+        (``parallel/sharding.py::row_part``)."""
+        seeds = self._row_seeds(ids.shape[0])
+        part = row_part(ids.shape[0], self.mesh, unit)
+        if part is None:
+            return ids, mask, seeds, None
+        return ids[part], mask[part], seeds[part], part.start
 
     def _chunk_device(self, prompt_ids: np.ndarray, prompt_mask: np.ndarray,
                       stats: Dict[str, float], model=None,
@@ -351,16 +394,55 @@ class PPOTrainer(TorchBaseTrainer):
             stats["time/reward"] = stats["time/exp_score"] = reward_sp.duration
             host = dev["score_landing"].wait()
         stats["time/score"] = score_sp.duration
-        return {"prompt_ids": dev["prompt_ids"], "prompt_mask": dev["prompt_mask"],
-                "response_tokens": response_tokens, "response_mask": response_mask,
-                "scores": scores, "host": host, "stats": stats,
-                "host_s": perf_counter() - host_t0}
+        chunk = {"prompt_ids": dev["prompt_ids"], "prompt_mask": dev["prompt_mask"],
+                 "response_tokens": response_tokens, "response_mask": response_mask,
+                 "scores": scores, "host": host, "stats": stats,
+                 "host_s": perf_counter() - host_t0, "split": dev.get("split", False)}
+        if "order" in dev:  # a split harvest's sort keys (:meth:`_gather_chunk`)
+            chunk["order"] = dev["order"]
+        return chunk
+
+    # the per-row host results of a chunk that the ranks split
+    _GATHERED_ROWS = ("prompt_ids", "prompt_mask", "response_tokens", "response_mask",
+                      "scores", "behavior_logprobs", "order")
+
+    def _gather_chunk(self, chunk: Dict[str, Any]) -> Dict[str, Any]:
+        """The whole chunk from every rank's part (``chunk["split"]``):
+        each per-row host array, the scoring outputs included, joined in
+        rank order, so the ordered tail sees the global rows on every rank
+        and the store is the one a single process builds. A harvest of the
+        continuous paths carries ``order``, per-row integer keys (the first
+        column first) that put the joined rows in one process's completion
+        order. A chunk every rank collected whole passes as it is."""
+        if not chunk.get("split"):
+            return chunk
+        local = {k: chunk[k] for k in self._GATHERED_ROWS if chunk.get(k) is not None}
+        local["host"] = chunk["host"]
+        parts = allgather_host(local, self.mesh)
+        whole = dict(chunk, split=False)
+        for k in local:
+            if k == "host":
+                whole[k] = {h: np.concatenate([p[k][h] for p in parts]) for h in local[k]}
+            else:
+                whole[k] = np.concatenate([p[k] for p in parts])
+        if "order" in local:
+            keys = whole.pop("order")
+            perm = np.lexsort(keys.T[::-1])
+            for k in local:
+                if k == "host":
+                    whole[k] = {h: v[perm] for h, v in whole[k].items()}
+                elif k != "order":
+                    whole[k] = whole[k][perm]
+        return whole
 
     def _rollout_chunk_finalize(self, chunk: Dict[str, Any], elements: list,
-                                stats: Dict[str, float], acc: Dict[str, float]) -> None:
+                                stats: Dict[str, float], acc: Dict[str, float]) -> int:
         """Ordered tail of one chunk or group, on the main thread in
-        submission order at any depth: reward scaling (running moments),
-        KL-penalty rewards and the store rows."""
+        submission order at any depth: the rows of every rank joined under
+        the mesh (:meth:`_gather_chunk`), then reward scaling (running
+        moments), KL-penalty rewards and the store rows. Returns the rows
+        it finalized (every rank's)."""
+        chunk = self._gather_chunk(chunk)
         stats.update(chunk["stats"])
         acc["host_s"] += chunk["host_s"]
         response_mask = chunk["response_mask"]
@@ -440,6 +522,7 @@ class PPOTrainer(TorchBaseTrainer):
                 behavior_logprobs=(np.asarray(behavior[i, :n_i], np.float32)
                                    if behavior is not None else None),
             ))
+        return int(prompt_ids.shape[0])
 
     def _collect_continuous(self, num_rollouts: int, depth: int, elements: list,
                             stats: Dict[str, float], acc: Dict[str, float]) -> None:
@@ -451,27 +534,43 @@ class PPOTrainer(TorchBaseTrainer):
         :class:`RolloutPipeline` worker (up to ``depth`` groups in flight)
         while the engine keeps stepping; finalize runs on this thread in
         submission order, so the store equals the inline one. The partial
-        tail flushes once the engine drains."""
+        tail flushes once the engine drains.
+
+        Under the mesh each rank collects its rows of one chunk at a time,
+        on an idle engine, and submits the chunk's harvest as one group
+        once the engine drains. Every row is keyed by (the engine step that
+        finished it, its global row), one process's harvest order for a
+        chunk on an idle engine, and :meth:`_gather_chunk` sorts the joined
+        rows by these keys; so a collection of one chunk stores what one
+        process stores. Over several chunks one process refills freed
+        slots from the next chunk, and its order can differ."""
         if num_rollouts <= 0:
             stats["throughput/rollout_overlap_frac"] = 0.0
             return
         gen_config, extra_kwargs = self._resolve_gen_config(eval_mode=False)
-        state = {"engine": None, "supplied": 0, "finalized_rows": 0}
+        state = {"engine": None, "supplied": 0, "finalized_rows": 0, "split": False,
+                 "steps": 0}
         harvest_buf: list = []
+        mesh = self.mesh is not None
 
         def fetch_chunk() -> None:
             batch = next(self.prompt_iterator)
-            ids = np.asarray(batch["input_ids"], np.int32)
-            mask = np.asarray(batch["attention_mask"], np.int32)
+            rows = len(batch["input_ids"])
+            ids, mask, seeds, at = self._rank_rows(
+                np.asarray(batch["input_ids"], np.int32),
+                np.asarray(batch["attention_mask"], np.int32))
+            state["split"], state["steps"] = at is not None, 0
             if state["engine"] is None:
                 state["engine"] = self._cb_make_engine(gen_config, extra_kwargs,
                                                        ids.shape[0], ids.shape[1])
-            state["engine"].enqueue_prompts(ids, mask, self._row_seeds(ids.shape[0]))
-            state["supplied"] += ids.shape[0]
+            # under the mesh each row's meta is its global index in the chunk
+            start = at or 0
+            state["engine"].enqueue_prompts(
+                ids, mask, seeds, metas=list(range(start, start + len(ids))) if mesh else None)
+            state["supplied"] += rows
 
         def finalize(chunk: Dict[str, Any]) -> None:
-            state["finalized_rows"] += int(chunk["prompt_ids"].shape[0])
-            self._rollout_chunk_finalize(chunk, elements, stats, acc)
+            state["finalized_rows"] += self._rollout_chunk_finalize(chunk, elements, stats, acc)
 
         t0 = perf_counter()
         with ExitStack() as ctx:
@@ -482,6 +581,9 @@ class PPOTrainer(TorchBaseTrainer):
 
             def submit_group(group: list) -> None:
                 dev = self._cb_group_device(group)
+                dev["split"] = state["split"]
+                if state["split"]:
+                    dev["order"] = np.asarray([c.meta for c in group], np.int64)
                 if pipe is None:
                     finalize(self._rollout_chunk_host(dev))
                     return
@@ -497,8 +599,15 @@ class PPOTrainer(TorchBaseTrainer):
             while True:
                 # rows in the pipeline are supplied and not yet finalized:
                 # they count as expected elements
-                while len(elements) + state["supplied"] - state["finalized_rows"] < num_rollouts:
+                while (len(elements) + state["supplied"] - state["finalized_rows"]
+                       < num_rollouts):
+                    # under the mesh: the last chunk harvested and submitted
+                    if mesh and (harvest_buf or state["engine"] is not None
+                                 and state["engine"].busy):
+                        break
                     fetch_chunk()
+                    if mesh:
+                        break
                 engine = state["engine"]
                 B = engine.B
                 if not engine.busy:
@@ -510,8 +619,13 @@ class PPOTrainer(TorchBaseTrainer):
                     if len(elements) >= num_rollouts:
                         break
                     continue
-                harvest_buf.extend(engine.step())
-                while len(harvest_buf) >= B:
+                done = engine.step()
+                if mesh:
+                    state["steps"] += 1
+                    for c in done:
+                        c.meta = (state["steps"], c.meta)
+                harvest_buf.extend(done)
+                while not mesh and len(harvest_buf) >= B:
                     group, harvest_buf = harvest_buf[:B], harvest_buf[B:]
                     submit_group(group)
             stats["throughput/rollout_overlap_frac"] = (
@@ -566,7 +680,7 @@ class PPOTrainer(TorchBaseTrainer):
                 with self.obs.span("rollout", pipelined=True) as rollout_sp:
                     dev = self._rollout_chunk_device(stats)
                 stats["time/rollout_device"] = rollout_sp.duration
-                rows_in_flight.append(int(dev["prompt_ids"].shape[0]))
+                rows_in_flight.append(int(dev["rows"]))
 
                 def work(dev=dev):
                     # fenced on this chunk's scoring copies (their event):
@@ -800,17 +914,20 @@ class PPOTrainer(TorchBaseTrainer):
                                  "live_slot_steps": 0}
         depth = int(self.config.train.rollout_pipeline_depth or 0)
         exp_time = perf_counter()
-        if self.config.async_rl.enabled:
-            # actors generate — continuously, across collections — and this
-            # thread only drains and finalizes; continuous_batching selects
-            # the actors' engine path
-            self._collect_async(num_rollouts, elements, stats, acc)
-        elif self.config.train.continuous_batching:
-            self._collect_continuous(num_rollouts, depth, elements, stats, acc)
-        elif depth > 0:
-            self._collect_pipelined(num_rollouts, depth, elements, stats, acc)
-        else:
-            self._collect_serial(num_rollouts, elements, stats, acc)
+        # under the mesh each rank generates and scores its own rows, as many
+        # decode steps as they need: the weights stay gathered meanwhile
+        with unsharded(self.model):
+            if self.config.async_rl.enabled:
+                # actors generate — continuously, across collections — and
+                # this thread only drains and finalizes; continuous_batching
+                # selects the actors' engine path
+                self._collect_async(num_rollouts, elements, stats, acc)
+            elif self.config.train.continuous_batching:
+                self._collect_continuous(num_rollouts, depth, elements, stats, acc)
+            elif depth > 0:
+                self._collect_pipelined(num_rollouts, depth, elements, stats, acc)
+            else:
+                self._collect_serial(num_rollouts, elements, stats, acc)
         self.mean_kl = acc["kl_sum"] / max(acc["kl_batches"], 1)
         stats["kl_ctl_value"] = self.kl_ctl.value
         stats["time/rollout_host"] = acc["host_s"]
@@ -871,6 +988,18 @@ class PPOTrainer(TorchBaseTrainer):
                              logits_span=(Q - 1, Q + R - 1))
             values_pred = out["value"][:, Q - 1 : Q + R - 1]
         logprobs = logprobs_of_labels(out["logits"], responses)
+        entropy = entropy_of_logits(out["logits"]) if method.dist_sketches else None
+        if self.mesh is not None:
+            # the minibatch's [B, R] operands over data x fsdp: the loss (its
+            # GAE scan, whitening and masked means) spans the global
+            # minibatch on every rank, and each rank's backward keeps its
+            # own rows' slice
+            g = self.gather_rows
+            logprobs, values_pred = g(logprobs), g(values_pred)
+            old_logprobs, old_values, rewards = g(old_logprobs), g(old_values), g(rewards)
+            response_mask = g(response_mask)
+            behavior = None if behavior is None else g(behavior)
+            entropy = None if entropy is None else g(entropy.detach())
 
         if method.loss_kernel == "pallas":
             # GAE + whitening + the clipped loss in the fused kernels, which
@@ -894,9 +1023,8 @@ class PPOTrainer(TorchBaseTrainer):
             )
             fused_ran = 0.0
         stats["train/loss_kernel_pallas"] = torch.tensor(fused_ran, device=logprobs.device)
-        if method.dist_sketches:
-            stats.update(loss_sketches(
-                {"entropy": (entropy_of_logits(out["logits"]), response_mask)}))
+        if entropy is not None:
+            stats.update(loss_sketches({"entropy": (entropy, response_mask)}))
         return self.with_router_aux((loss, stats), out)
 
     def prepare_learning(self) -> None:
@@ -910,8 +1038,9 @@ class PPOTrainer(TorchBaseTrainer):
 
     def _triage_extra(self, arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """A triaged batch's GAE advantages and returns, and the per-token
-        logprob deltas of one forward under the current weights (best
-        effort: the tokens and masks are the part that matters)."""
+        logprob deltas of one forward under the current weights (one
+        process only; best effort: the tokens and masks are the part that
+        matters)."""
         extra: Dict[str, np.ndarray] = {}
         values, rewards, mask = (arrays.get(k) for k in ("values", "rewards", "response_mask"))
         try:
@@ -925,7 +1054,9 @@ class PPOTrainer(TorchBaseTrainer):
             pass
         needed = ("query_tensors", "response_tensors", "query_mask", "response_mask", "logprobs")
         try:
-            if not self.is_seq2seq and all(k in arrays for k in needed):
+            # rank 0 alone triages: under the mesh a forward of its own would
+            # break FSDP2's lockstep, so the deltas are left out there
+            if not self.is_seq2seq and self.mesh is None and all(k in arrays for k in needed):
                 dev = {k: torch.as_tensor(arrays[k]).to(self.device) for k in needed}
                 Q, R = dev["query_tensors"].shape[1], dev["response_tensors"].shape[1]
                 responses = dev["response_tensors"].to(torch.int64)

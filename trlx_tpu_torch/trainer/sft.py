@@ -31,7 +31,7 @@ from trlx_tpu_torch.trainer.base import TorchBaseTrainer
 @register_trainer
 class SFTTrainer(TorchBaseTrainer):
     model_head = None
-    parallel_ok = True
+    sequence_ok = True
 
     def __init__(self, config, **kwargs):
         super().__init__(config, **kwargs)
@@ -68,7 +68,7 @@ class SFTTrainer(TorchBaseTrainer):
         return self.with_router_aux(self.config.method.loss(out["logits"], batch["labels"],
                                                             reduce), out)
 
-    def host_batch(self, items: Dict[str, Any]) -> Dict[str, Any]:
+    def host_batch(self, items: Dict[str, Any], unit: int = 1) -> Dict[str, Any]:
         """The step's arrays: the labels shifted to the next-token labels
         on the whole rows (the last position ignored). Under the mesh, this
         rank's part (``parallel/sharding.py::shard_batch``): over

@@ -14,7 +14,9 @@ callback contracts are the JAX package's:
 Training runs on the GPU unless the caller passes ``device="cpu"``.
 Several processes (:func:`initialize_runtime`) form one
 ``torch.distributed`` world: every process runs ``train()`` with the
-same arguments and drives one device.
+same arguments and drives one device, and every trainer builds its mesh
+from ``config.parallel`` (``data`` / ``fsdp`` for all of them,
+``sequence`` for SFT).
 """
 
 import importlib

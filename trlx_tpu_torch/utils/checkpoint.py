@@ -8,10 +8,16 @@ Port of the commit protocol of ``trlx_tpu/utils/checkpoint.py``
 trainer's host state) and the ``COMMITTED`` marker.
 
 A save writes the file under a staging name beside its final one
-(``state.pt.staging``), syncs it to disk, writes the marker, then renames
-the staged file over ``state.pt`` (an atomic replace). A directory counts
-as committed only when both the marker and ``state.pt`` are there, so a
-crash mid-save leaves either the previous complete checkpoint or a
+(``state.pt.staging``), and the topology manifest beside it
+(``topology.json.staging``, ``resilience/elastic.py::build_manifest``),
+syncs them to disk, writes the marker reading ``swap`` (the staged files
+are this commit), renames the manifest and then the state over their
+final names (atomic replaces) and rewrites the marker to ``1``. A
+directory counts as committed when the marker is there beside
+``state.pt``, or reads ``swap`` beside a staged state: a crash between the
+marker and the renames leaves files that :func:`_recover_interrupted_swap`
+finishes renaming before any read (an interrupted swap heals), and a crash
+before the marker leaves either the previous complete checkpoint or a
 directory that resume skips — never a half-written ``state.pt`` that it
 would load.
 
@@ -22,12 +28,11 @@ marker, as JAX's commit does.
 
 Under FSDP2 (a trainer over a mesh of several processes) a save gathers
 the full state onto rank 0, on the CPU, in the one-device format
-(:func:`gather_full_state`: ``get_model_state_dict`` /
-``get_optimizer_state_dict`` with ``full_state_dict=True,
-cpu_offload=True``, the optimizer state re-keyed by parameter index), and
-only rank 0 writes; a resume loads that full state and reshards it
-(:func:`load_full_state`). So a checkpoint of any world size resumes at
-any other.
+(:func:`gather_full_state`: every sharded weight and optimizer moment
+joined by plain all-gathers, the optimizer state keyed by parameter
+index), and only rank 0 writes; a resume loads that full state and each
+rank copies in its shards (:func:`load_full_state`). So a checkpoint of
+any world size resumes at any other.
 
 The interoperable export (JAX's :func:`save_pretrained`,
 :func:`load_pretrained_params` and :func:`push_to_hub`): the port's own
@@ -50,6 +55,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import torch
 
 from trlx_tpu_torch.ops.kernel_utils import resolve_device
+from trlx_tpu_torch.resilience.elastic import MANIFEST_NAME
 from trlx_tpu_torch.resilience.faults import InjectedFault, poll_fault
 
 __all__ = [
@@ -75,10 +81,42 @@ PRETRAINED_CONFIG = "trlx_tpu_torch_config.json"
 logger = logging.getLogger(__name__)
 
 
+_SWAP = "swap"
+
+
+def _marker_says_swap(directory: str) -> bool:
+    try:
+        with open(os.path.join(directory, COMMIT_MARKER)) as f:
+            return f.read().strip() == _SWAP
+    except OSError:
+        return False
+
+
 def is_committed(directory: str) -> bool:
-    """Does ``directory`` hold a complete, committed checkpoint?"""
-    return (os.path.isfile(os.path.join(directory, STATE_FILE))
-            and os.path.exists(os.path.join(directory, COMMIT_MARKER)))
+    """Does ``directory`` hold a complete, committed checkpoint (or one
+    whose commit a crash interrupted between its marker and its renames,
+    which a read heals first)?"""
+    if not os.path.exists(os.path.join(directory, COMMIT_MARKER)):
+        return False
+    if os.path.isfile(os.path.join(directory, STATE_FILE)):
+        return True
+    return (_marker_says_swap(directory)
+            and os.path.isfile(os.path.join(directory, STATE_FILE + ".staging")))
+
+
+def _recover_interrupted_swap(directory: str) -> None:
+    """Finish a commit that a crash interrupted after its marker: rename
+    the staged manifest and state over their final names and mark the
+    directory committed. A no-op for any other directory."""
+    if not _marker_says_swap(directory):
+        return
+    for name in (MANIFEST_NAME, STATE_FILE):
+        staged = os.path.join(directory, name + ".staging")
+        if os.path.exists(staged):
+            os.replace(staged, os.path.join(directory, name))
+    with open(os.path.join(directory, COMMIT_MARKER), "w") as f:
+        f.write("1\n")
+    logger.warning("healed an interrupted checkpoint commit in %s", directory)
 
 
 def _checkpoint_step_dirs(root: str) -> List[Tuple[int, str]]:
@@ -132,91 +170,111 @@ def _fsync(path: str) -> None:
         os.close(fd)
 
 
-def save_state(directory: str, state: Dict[str, Any]) -> None:
-    """``torch.save`` ``state`` into ``directory/state.pt`` with the atomic
-    commit: staged file, marker, rename. The previous checkpoint of the
-    directory stays loadable until the rename; an injected ``crash_save``
-    raises :class:`~trlx_tpu_torch.resilience.faults.InjectedFault` before
-    the marker."""
+def save_state(directory: str, state: Dict[str, Any],
+               manifest: Optional[Dict[str, Any]] = None) -> None:
+    """``torch.save`` ``state`` into ``directory/state.pt`` and ``manifest``
+    (the topology record) into ``directory/topology.json`` with the atomic
+    commit: staged files, marker, renames. The previous checkpoint of the
+    directory stays loadable until the renames; a save without a manifest
+    removes a stale one. An injected ``crash_save`` raises
+    :class:`~trlx_tpu_torch.resilience.faults.InjectedFault` before the
+    marker."""
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, STATE_FILE)
     staging = path + ".staging"
     torch.save(state, staging)
     _fsync(staging)
+    manifest_path = os.path.join(directory, MANIFEST_NAME)
+    if manifest is not None:
+        with open(manifest_path + ".staging", "w") as f:
+            json.dump(manifest, f)
+        _fsync(manifest_path + ".staging")
     if poll_fault("crash_save"):
         raise InjectedFault(f"fault plan: crash before checkpoint commit ({directory})")
     marker = os.path.join(directory, COMMIT_MARKER)
     with open(marker, "w") as f:
-        f.write("1\n")
+        f.write(_SWAP + "\n")
+    _fsync(marker)
+    if manifest is not None:
+        os.replace(manifest_path + ".staging", manifest_path)
+    elif os.path.exists(manifest_path):
+        os.remove(manifest_path)
     os.replace(staging, path)
+    with open(marker, "w") as f:
+        f.write("1\n")
     _fsync(directory)
 
 
 def load_state(directory: str) -> Dict[str, Any]:
-    """The state of a committed checkpoint, on the CPU."""
+    """The state of a committed checkpoint, on the CPU (an interrupted
+    commit healed first)."""
+    _recover_interrupted_swap(directory)
     if not is_committed(directory):
         raise FileNotFoundError(f"{directory} holds no committed checkpoint")
     return torch.load(os.path.join(directory, STATE_FILE), map_location="cpu",
                       weights_only=True)
 
 
-def _optimizer_fqns(model: torch.nn.Module, optimizer) -> List[List[str]]:
-    """The parameter names of each of the optimizer's groups, in order."""
-    names = {id(p): n for n, p in model.named_parameters()}
-    return [[names[id(p)] for p in group["params"]] for group in optimizer.param_groups]
-
-
 def gather_full_state(model: torch.nn.Module, optimizer) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """The full ``(model, optimizer)`` state of an FSDP2-sharded model on
     rank 0, on the CPU, in the format ``state_dict()`` gives on one device
     (the optimizer's state keyed by parameter index); other ranks get
-    empty dicts. A collective: every rank calls it."""
+    empty dicts. Each sharded tensor is joined by
+    ``parallel/sharding.py::full_tensor`` (plain c10d all-gathers). A
+    collective: every rank calls it."""
     import torch.distributed as dist
-    from torch.distributed.checkpoint.state_dict import (
-        StateDictOptions,
-        get_model_state_dict,
-        get_optimizer_state_dict,
-    )
 
-    opts = StateDictOptions(full_state_dict=True, cpu_offload=True)
-    model_sd = get_model_state_dict(model, options=opts)
-    optim_sd = get_optimizer_state_dict(model, optimizer, options=opts)
-    if dist.get_rank() != 0:
-        return {}, {}
-    index, groups = 0, []
+    from trlx_tpu_torch.parallel.sharding import full_tensor
+
+    first = dist.get_rank() == 0
+    model_sd = {}
+    for k, v in model.state_dict().items():
+        v = full_tensor(v)
+        if first:
+            model_sd[k] = v.detach().cpu()
+    optim_sd = optimizer.state_dict()
     state = {}
-    for group, fqns in zip(optim_sd["param_groups"], _optimizer_fqns(model, optimizer)):
-        ids = []
-        for fqn in fqns:
-            if fqn in optim_sd["state"]:
-                state[index] = optim_sd["state"][fqn]
-            ids.append(index)
-            index += 1
-        groups.append({**{k: v for k, v in group.items() if k != "params"}, "params": ids})
-    return dict(model_sd), {"state": state, "param_groups": groups}
+    for index, st in optim_sd["state"].items():
+        row = {}
+        for k, v in st.items():
+            v = full_tensor(v) if isinstance(v, torch.Tensor) else v
+            row[k] = v.detach().cpu() if isinstance(v, torch.Tensor) else v
+        state[index] = row
+    if not first:
+        return {}, {}
+    return model_sd, {"state": state, "param_groups": optim_sd["param_groups"]}
 
 
 def load_full_state(model: torch.nn.Module, optimizer, model_sd: Dict[str, Any],
                     optim_sd: Dict[str, Any]) -> None:
     """Load a full state (the one-device format) into an FSDP2-sharded
-    model and its optimizer, each rank keeping its shards."""
-    from torch.distributed.checkpoint.state_dict import (
-        StateDictOptions,
-        set_model_state_dict,
-        set_optimizer_state_dict,
-    )
+    model and its optimizer, each rank copying in its own shards
+    (``parallel/sharding.py::local_shard``; no collective)."""
+    from torch.distributed.tensor import DTensor
 
-    opts = StateDictOptions(full_state_dict=True)
-    set_model_state_dict(model, model_sd, options=opts)
-    index, state, groups = 0, {}, []
-    for group, fqns in zip(optim_sd["param_groups"], _optimizer_fqns(model, optimizer)):
-        for fqn in fqns:
-            if index in optim_sd["state"]:
-                state[fqn] = optim_sd["state"][index]
-            index += 1
-        groups.append({**{k: v for k, v in group.items() if k != "params"}, "params": fqns})
-    set_optimizer_state_dict(model, optimizer, {"state": state, "param_groups": groups},
-                             options=opts)
+    from trlx_tpu_torch.parallel.sharding import local_shard
+
+    live = model.state_dict()
+    missing = sorted(set(live) ^ set(model_sd))
+    if missing:
+        raise KeyError(f"the state's keys differ from the model's: {missing[:8]}")
+    with torch.no_grad():
+        for k, v in live.items():
+            target = v.to_local() if isinstance(v, DTensor) else v
+            target.copy_(local_shard(model_sd[k].to(target.device, target.dtype), v))
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    state = {}
+    for index, st in optim_sd["state"].items():
+        p = params[int(index)]
+        row = {}
+        for k, v in st.items():
+            if isinstance(v, torch.Tensor) and isinstance(p, DTensor) and v.shape == p.shape:
+                v = DTensor.from_local(local_shard(v.to(p.device), p), p.device_mesh,
+                                       p.placements, run_check=False, shape=p.shape,
+                                       stride=p.stride())
+            row[k] = v
+        state[index] = row
+    optimizer.load_state_dict({"state": state, "param_groups": optim_sd["param_groups"]})
 
 
 def save_pretrained(directory: str, state_dict: Dict[str, torch.Tensor], config,
