@@ -7557,64 +7557,101 @@ def parallel_rl_worker(args_path):
     return 0
 
 
-def parallel_rl_ranks(axes, dev, spec, layers, root):
-    """The ranks of :func:`parallel_rl_worker`: a pair of processes
-    (``sys.executable``) for each axis, every pair started at once, each
-    in a gloo group of its own. Yields per axis, in order, once its pair
-    has exited, the two ranks' records and the checkpoint directory; every
-    rank still running at ``PARALLEL_RL_LIMIT_S``, or when the caller
-    closes the generator, is killed."""
+def start_rank_groups(worker, groups):
+    """Start every rank of ``groups`` at once, each group a gloo world of
+    its own on a free port: for each ``(sub, ranks)`` one process
+    (``sys.executable``) per entry of ``ranks`` running
+    ``chip_smoke.<worker>`` on that rank's JSON arguments (``rank`` and
+    ``port`` added), logged to ``sub/rank<r>.log``. Returns ``[(sub,
+    procs, logs)]``; kills what it started if one cannot start."""
     import socket
 
-    socks = [socket.socket() for _ in axes]  # bound together: distinct ports
+    socks = [socket.socket() for _ in groups]  # bound together: distinct ports
     for s in socks:
         s.bind(("127.0.0.1", 0))
     ports = [s.getsockname()[1] for s in socks]
     for s in socks:
         s.close()
-    pairs = []
+    started = []
     try:
-        for i, (parallel, port) in enumerate(zip(axes, ports)):
-            sub = os.path.join(root, f"axis{i}")
-            os.makedirs(sub)
-            ckpt = os.path.join(sub, "ckpt")
+        for (sub, ranks), port in zip(groups, ports):
             procs, logs = [], []
-            for rank in range(2):
-                args = os.path.join(sub, f"args{rank}.json")
-                with open(args, "w") as f:
-                    json.dump({"rank": rank, "device": str(dev), "port": port,
-                               "axes": [parallel], "ckpts": [ckpt], "spec": spec,
-                               "layers": layers, "out": os.path.join(sub, "out")}, f)
+            started.append((sub, procs, logs))
+            for rank, args in enumerate(ranks):
+                path = os.path.join(sub, f"args{rank}.json")
+                with open(path, "w") as f:
+                    json.dump(dict(args, rank=rank, port=port), f)
                 logs.append(open(os.path.join(sub, f"rank{rank}.log"), "w"))
                 procs.append(subprocess.Popen(
                     [sys.executable, "-c", "import sys, chip_smoke; "
-                     f"sys.exit(chip_smoke.parallel_rl_worker({args!r}))"],
+                     f"sys.exit(chip_smoke.{worker}({path!r}))"],
                     stdout=logs[-1], stderr=subprocess.STDOUT, cwd=ROOT))
-            pairs.append((sub, ckpt, procs, logs))
+    except BaseException:
+        kill_ranks(started)
+        raise
+    return started
+
+
+def wait_rank_group(group, deadline, phase):
+    """Wait for one group of :func:`start_rank_groups` until ``deadline``
+    (``time.monotonic()``); raise with the log's tail of a rank that
+    exited with another code than 0."""
+    sub, procs, logs = group
+    for p in procs:
+        p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    for rank, p in enumerate(procs):
+        if p.returncode != 0:
+            logs[rank].flush()
+            with open(os.path.join(sub, f"rank{rank}.log")) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"{phase} rank {rank} exited {p.returncode}: {tail}")
+
+
+def kill_ranks(groups):
+    """Kill every rank of ``groups`` still running and close its log."""
+    for _, procs, logs in groups:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+        for f in logs:
+            f.close()
+
+
+def start_parallel_rl_ranks(axes, dev, spec, layers, root):
+    """The ranks of :func:`parallel_rl_worker`: a pair for each axis, in
+    ``root/axis<i>`` with its checkpoint in ``ckpt`` there, every pair
+    started at once (:func:`start_rank_groups`)."""
+    groups = []
+    for i, parallel in enumerate(axes):
+        sub = os.path.join(root, f"axis{i}")
+        os.makedirs(sub)
+        args = {"device": str(dev), "axes": [parallel], "ckpts": [os.path.join(sub, "ckpt")],
+                "spec": spec, "layers": layers, "out": os.path.join(sub, "out")}
+        groups.append((sub, [args, args]))
+    return start_rank_groups("parallel_rl_worker", groups)
+
+
+def parallel_rl_ranks(axes, dev, spec, layers, root, pairs=None):
+    """The pairs of :func:`start_parallel_rl_ranks` (started here unless
+    given). Yields per axis, in order, once its pair has exited, the two
+    ranks' records and the checkpoint directory; every rank still running
+    at ``PARALLEL_RL_LIMIT_S``, or when the caller closes the generator, is
+    killed."""
+    try:
+        if pairs is None:
+            pairs = start_parallel_rl_ranks(axes, dev, spec, layers, root)
         deadline = time.monotonic() + PARALLEL_RL_LIMIT_S
-        for sub, ckpt, procs, logs in pairs:
-            for p in procs:
-                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
-            for rank, p in enumerate(procs):
-                if p.returncode != 0:
-                    logs[rank].flush()
-                    with open(os.path.join(sub, f"rank{rank}.log")) as f:
-                        tail = f.read()[-3000:]
-                    raise AssertionError(
-                        f"slice_parallel_rl rank {rank} exited {p.returncode}: {tail}")
+        for pair in pairs:
+            sub = pair[0]
+            wait_rank_group(pair, deadline, "slice_parallel_rl")
             ranks = []
             for rank in range(2):
                 with open(os.path.join(sub, f"out.rank{rank}.json")) as f:
                     ranks.append(json.load(f)[0])
-            yield ranks, ckpt
+            yield ranks, os.path.join(sub, "ckpt")
     finally:
-        for _, _, procs, logs in pairs:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait(30)
-            for f in logs:
-                f.close()
+        kill_ranks(pairs or [])
 
 
 def parallel_rl_resume(ckpt, store_path, dev, spec, layers):
@@ -7664,7 +7701,8 @@ def parallel_rl_resume(ckpt, store_path, dev, spec, layers):
 
 
 def phase_slice_parallel_rl(device="cuda", spec="builtin:gpt2-small", layers=PARALLEL_RL_LAYERS,
-                            card="", axes=PARALLEL_RL_AXES):
+                            card="", axes=PARALLEL_RL_AXES, phase="slice_parallel_rl",
+                            pairs=None, root=None):
     """PPO over two processes on one card (NCCL takes one rank per card, so
     the two ranks make a gloo group of their own). For each of ``axes``
     (``data`` 2, ``fsdp`` 2), two ranks run the training slice's PPO
@@ -7683,31 +7721,35 @@ def phase_slice_parallel_rl(device="cuda", spec="builtin:gpt2-small", layers=PAR
     checkpoint whose manifest records two processes; resumed in one
     process, the reshard path ran once, the restored weights, AdamW
     moments, KL controller and running moments equal the ranks' state
-    bitwise, and the remaining steps' losses are finite. Returns the
-    launches of rank 0 summed over the axes (per rank)."""
+    bitwise, and the remaining steps' losses are finite. ``pairs`` (of
+    :func:`start_parallel_rl_ranks`, in ``root``) are ranks started
+    earlier. Returns the launches of rank 0 summed over the axes (per
+    rank)."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:  # both ranks on the one card
         dev = torch.device("cuda", torch.cuda.current_device())
     launches = Counter({k: 0 for k in REPLACES})
-    root = _scratch_dir("parallel_rl")
+    root = root or _scratch_dir(phase.removeprefix("slice_"))
     t0 = time.perf_counter()
-    with contextlib.closing(parallel_rl_ranks(axes, dev, spec, layers, root)) as runs:
+    with contextlib.closing(parallel_rl_ranks(axes, dev, spec, layers, root, pairs)) as runs:
         for parallel, (ranks, ckpt) in zip(axes, runs):
             # seconds from the start of every pair to this axis's exit
             world2_s = time.perf_counter() - t0
             parallel_rl_check(parallel, ranks, ckpt, dev, spec, layers, card, world2_s,
-                              launches)
+                              launches, phase)
     return dict(launches)
 
 
-def parallel_rl_check(parallel, ranks, ckpt, dev, spec, layers, card, world2_s, launches):
+def parallel_rl_check(parallel, ranks, ckpt, dev, spec, layers, card, world2_s, launches,
+                      phase="slice_parallel_rl"):
     """One axis of :func:`phase_slice_parallel_rl`: the checks of its two
     ranks' records and the one-process resume of its checkpoint; rank 0's
     launches added to ``launches``."""
     from trlx_tpu_torch.resilience import read_manifest
     from trlx_tpu_torch.utils.checkpoint import is_committed
 
-    name = "fsdp2" if parallel["fsdp"] > 1 else "data2"
+    name = next((f"{a}{parallel[a]}" for a in ("model", "fsdp") if parallel.get(a, 1) > 1),
+                "data2")
     problems = []
     need = GLOO_COLLECTIVES if parallel["fsdp"] > 1 else ("all_gather_into_tensor",
                                                           "all_reduce")
@@ -7756,7 +7798,7 @@ def parallel_rl_check(parallel, ranks, ckpt, dev, spec, layers, card, world2_s, 
             not all(math.isfinite(x) for x in resumed["losses"]):
         problems.append(f"resumed steps {resumed['steps']} losses {resumed['losses']}")
     launches.update(ranks[0]["launches"])
-    emit({"phase": "slice_parallel_rl", "axes": parallel, "layers": layers, "model": spec,
+    emit({"phase": phase, "axes": parallel, "layers": layers, "model": spec,
           "dtype": "float32", "probe": [r["probe"] for r in ranks],
           "launches_per_rank": [r["launches"] for r in ranks],
           "step1": ranks[0]["step1"], "world1_step1": world1, "step1_rel_gap": gaps,
@@ -7767,7 +7809,337 @@ def parallel_rl_check(parallel, ranks, ckpt, dev, spec, layers, card, world2_s, 
           "rank0_clock_s": ranks[0]["clock_s"],
           "card": card, "ok": not problems})
     if problems:
-        raise AssertionError(f"slice_parallel_rl {name}: {problems}")
+        raise AssertionError(f"{phase} {name}: {problems}")
+
+
+# ---------------------------------------------------------------------------
+# slice_tensor_parallel: tensor parallelism over the mesh's ``model`` axis
+# ---------------------------------------------------------------------------
+
+# (a) examples/ilql_sentiments_20b.py's settings (ILQL, data 1, fsdp -1,
+# model 4, bf16, remat full, 64 new tokens at top-k 20 and beta 2) at
+# GPT-NeoX-20B's width, four ranks sharing the one card through gloo. Cut:
+# the depth to 2 of 44 layers, the batch from 8 to 2 and the sequence from
+# 1024 to 256 (the batch first, then the sequence): each rank holds a
+# quarter of 2 blocks, of the embedding and LM head and of four
+# vocab-wide Q heads, with f32 weights, gradients and Adam moments
+TP_SPEC, TP_RANKS, TP_LAYERS = "builtin:gptneox-20b", 4, 2
+TP_BATCH, TP_SEQ, TP_STEPS, TP_NEW_TOKENS = 2, 256, 3, 64
+TP_SAMPLES, TP_EVAL_PROMPTS = 32, 4
+TP_CUTS = {"num_layers": [44, TP_LAYERS], "batch_size": [8, TP_BATCH],
+           "seq_length": [1024, TP_SEQ], "total_steps": [2000, TP_STEPS],
+           "samples": ["512 IMDB reviews (not in the repository)",
+                       f"{TP_SAMPLES} seeded byte strings"],
+           "eval_prompts": [64, TP_EVAL_PROMPTS],
+           "evaluations": ["before the steps, every 200 and after", "after the steps"]}
+# the kernels every rank of (a) launches: the train and score forwards and
+# the backward on its heads, the eval engine on its heads and the gathered
+# logits
+TP_KERNELS = ("flash_fwd", "flash_bwd", "paged_prefill", "paged_decode", "fused_sample")
+# step 1's bf16 losses and gradient norm against one process on the same
+# batch (its forward and backward: a backward-only fault, such as a
+# missing gradient sum over ``model``, moves the norm): the ranks sum
+# partial products of the row-parallel projections in f32 and round to
+# bf16 after the sum, where one process rounds each GEMM's output once
+TP_LOSS_RTOL, TP_LOSS_ATOL = 2e-2, 1e-3
+TP_LIMIT_S = 600
+# (b) PPO at model 2 on slice_parallel_rl's machinery (the fused loss
+# kernels; GPT-2 small's width at PARITY_LAYERS, f32; its vocabulary of
+# 50257 replicates the head)
+TP_PPO_AXES = ({"data": 1, "fsdp": 1, "model": 2},)
+
+
+def tp_ilql_config(ckpt, parallel, spec=TP_SPEC, layers=TP_LAYERS):
+    """``examples/ilql_sentiments_20b.py``'s config with :data:`TP_CUTS`,
+    over ``parallel`` (no checkpoints, one evaluation at each end)."""
+    from trlx_tpu_torch.data.default_configs import default_ilql_config
+
+    return default_ilql_config().evolve(
+        train=dict(seq_length=TP_SEQ, batch_size=TP_BATCH, total_steps=TP_STEPS,
+                   eval_interval=10 ** 6, checkpoint_interval=10 ** 6, save_best=False,
+                   checkpoint_dir=ckpt, tracker=None),
+        model=dict(model_path=spec, model_extra_kwargs=dict(num_layers=layers)),
+        tokenizer=dict(tokenizer_path="builtin:bytes"),
+        parallel=dict(compute_dtype="bfloat16", remat="full", **parallel),
+        method=dict(gen_kwargs=dict(max_new_tokens=TP_NEW_TOKENS, top_k=20, beta=2.0)))
+
+
+def tp_data(seed=2022):
+    """Seeded stand-ins for the example's IMDB texts, rewards and prompts."""
+    rs = np.random.RandomState(seed)
+    texts = ["".join(chr(c) for c in rs.randint(97, 123, size=int(rs.randint(40, 120))))
+             for _ in range(TP_SAMPLES)]
+    prompts = ["".join(chr(c) for c in rs.randint(97, 123, size=12))
+               for _ in range(TP_EVAL_PROMPTS)]
+    return texts, [float(x) for x in rs.rand(TP_SAMPLES)], prompts
+
+
+def shard_digests(model):
+    """``(replicated, whole)`` BLAKE2 digests of a tensor-parallel model:
+    of the parameters every ``model`` rank holds whole, and of the whole
+    weights gathered over ``model``, as the digest of every rank's digest
+    of its shares, gathered in rank order (one ``all_gather_object``, not
+    the weights: two ranks' gathered weights are equal when every share
+    is)."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    dims = model.tp_dims
+    rep, mine = hashlib.blake2b(), hashlib.blake2b()
+    for k, v in model.state_dict().items():
+        local = v.detach().cpu().contiguous().view(torch.uint8).numpy()
+        (mine if k in dims else rep).update(k.encode() + local.tobytes())
+    shares = [None] * model.tensor_parallel.size
+    dist.all_gather_object(shares, mine.hexdigest(), group=model.tensor_parallel.group)
+    return rep.hexdigest(), hashlib.blake2b("".join(shares + [rep.hexdigest()]).encode()
+                                            ).hexdigest()
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def tensor_parallel_worker(args_path):
+    """One of the :data:`TP_RANKS` ranks of ``slice_tensor_parallel`` (a):
+    a gloo group made here on the card, then ``train(samples=...,
+    rewards=...)`` on :func:`tp_ilql_config` at ``model`` 4, every kernel
+    counter set to 0 just before, its evaluation before the steps skipped
+    (the one after them runs); records every step's losses and seconds,
+    the peak memory, the launches and the :func:`shard_digests`. Rank 0
+    also saves step 1's batch (``<out>.batch.pt``). The checkpoint saves
+    are no-ops (the f32 state of the cut model is tens of GB)."""
+    import faulthandler
+
+    import torch.distributed as dist
+
+    import trlx_tpu_torch
+
+    entry = time.perf_counter()
+    faulthandler.enable()
+    with open(args_path) as f:
+        args = json.load(f)
+    rank, dev = int(args["rank"]), torch.device(args["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    else:  # a rehearsal on the CPU
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{args['port']}",
+                            world_size=TP_RANKS, rank=rank)
+    t0 = time.perf_counter()
+    config = tp_ilql_config(args["ckpt"], dict(data=1, fsdp=-1, model=TP_RANKS, sequence=1),
+                            spec=args["spec"], layers=args["layers"])
+    texts, rewards, prompts = tp_data()
+    out = {"rank": rank, "steps": [], "step_s": [], "group_s": t0 - entry}
+    seen = {}
+
+    def hook(trainer):
+        out["built_s"] = time.perf_counter() - t0
+        seen["trainer"] = trainer
+        trainer.save = lambda *a, **kw: None
+        evaluate = trainer.evaluate
+
+        def after_the_steps():
+            # the steps first, then the one evaluation
+            return evaluate() if out["steps"] else {}
+
+        trainer.evaluate = after_the_steps
+        step = trainer.train_step
+
+        def train_step(batch):
+            if not out["steps"] and rank == 0:
+                items = batch._asdict() if hasattr(batch, "_asdict") else batch
+                torch.save({k: torch.as_tensor(np.asarray(v)) for k, v in items.items()
+                            if hasattr(v, "shape")}, args["out"] + ".batch.pt")
+            _sync(dev)
+            t = time.perf_counter()
+            stats = step(batch)
+            _sync(dev)
+            out["step_s"].append(time.perf_counter() - t)
+            out["steps"].append({k: float(v) for k, v in stats.items()
+                                 if k.startswith("losses/") or k == "gradients/global_norm"})
+            return stats
+
+        trainer.train_step = train_step
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    zero_launch_counts()
+    trainer = trlx_tpu_torch.train(samples=texts, rewards=rewards, eval_prompts=prompts,
+                                   config=config, device=dev, init_trainer_hook=hook)
+    _sync(dev)
+    out["launches"] = launch_counts()
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda else None
+    out["train_s"] = time.perf_counter() - t0
+    evals = [st for _, st in trainer.tracker.history if any(k.startswith("eval/")
+                                                             for k in st)]
+    out["eval_keys"] = sorted({k for st in evals for k in st if k.startswith("eval/")})[:12]
+    out["tp"] = {"size": trainer.model.tensor_parallel.size,
+                 "split": len(trainer.model.tp_dims),
+                 "kv_heads_per_rank": trainer.tcfg.cache_kv_heads,
+                 "vocab_range": list(trainer.model.backbone.vocab_range or ())}
+    t1 = time.perf_counter()
+    out["replicated"], out["whole"] = shard_digests(trainer.model)
+    out["digest_s"] = time.perf_counter() - t1
+    with open(f"{args['out']}.rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def tensor_parallel_ranks(dev, spec, layers, root):
+    """The :data:`TP_RANKS` processes of :func:`tensor_parallel_worker`,
+    started at once (:func:`start_rank_groups`); their records once all
+    have exited (every rank still running at :data:`TP_LIMIT_S` is
+    killed)."""
+    out = os.path.join(root, "out")
+    args = {"device": str(dev), "spec": spec, "layers": layers,
+            "ckpt": os.path.join(root, "ckpt"), "out": out}
+    groups = start_rank_groups("tensor_parallel_worker", [(root, [args] * TP_RANKS)])
+    try:
+        wait_rank_group(groups[0], time.monotonic() + TP_LIMIT_S, "slice_tensor_parallel")
+        ranks = []
+        for rank in range(TP_RANKS):
+            with open(f"{out}.rank{rank}.json") as f:
+                ranks.append(json.load(f))
+        return ranks, out + ".batch.pt"
+    finally:
+        kill_ranks(groups)
+
+
+class _Stop(Exception):
+    pass
+
+
+def tensor_parallel_reference(batch_path, dev, spec, layers, root):
+    """Step 1's losses and gradient norm of one process on the card (no
+    mesh) over the four-rank run's first batch, from the same seeded
+    weights: the loss forward and backward of the cut model, no optimizer
+    step (and so no optimizer state)."""
+    import trlx_tpu_torch
+
+    config = tp_ilql_config(os.path.join(root, "ckpt1"), dict(data=1, fsdp=1, model=1),
+                            spec=spec, layers=layers)
+    texts, rewards, prompts = tp_data()
+    got = {}
+
+    def hook(trainer):
+        batch = {k: v.numpy() for k, v in torch.load(batch_path, weights_only=True).items()}
+        stats, _ = trainer._accumulate(trainer._device_batch(batch))
+        got.update({k: float(v) for k, v in stats.items() if k.startswith("losses/")})
+        got["gradients/global_norm"] = float(torch.nn.utils.get_total_norm(
+            [p.grad for p in trainer.model.parameters() if p.grad is not None]))
+        raise _Stop
+
+    try:
+        trlx_tpu_torch.train(samples=texts, rewards=rewards, eval_prompts=prompts,
+                             config=config, device=dev, init_trainer_hook=hook)
+    except _Stop:
+        pass
+    return got
+
+
+def tensor_parallel_part_a(dev, spec, layers, root, card, t0):
+    """(a) of :func:`phase_slice_tensor_parallel`: the four ranks, their
+    checks, step 1 of one process, the record; returns the ranks'
+    records."""
+    ranks, batch_path = tensor_parallel_ranks(dev, spec, layers, root)
+    ranks_s = time.perf_counter() - t0
+    problems = []
+    for r in ranks:
+        if len(r["steps"]) != TP_STEPS or not all(
+                math.isfinite(v) for st in r["steps"] for v in st.values()):
+            problems.append(f"rank {r['rank']}: steps {r['steps']}")
+        idle = [k for k in TP_KERNELS if r["launches"][k] <= 0]
+        if idle and dev.type == "cuda":
+            problems.append(f"rank {r['rank']}: kernels never launched {idle}")
+    for key in ("replicated", "whole"):
+        if len({r[key] for r in ranks}) != 1:
+            problems.append(f"the ranks' {key} weights differ")
+    if any(r["steps"] != ranks[0]["steps"] for r in ranks):
+        problems.append("the ranks logged different losses")
+    t1 = time.perf_counter()
+    ref = tensor_parallel_reference(batch_path, dev, spec, layers, root)
+    ref_s = time.perf_counter() - t1
+    gc.collect()
+    torch.cuda.empty_cache()
+    step1 = ranks[0]["steps"][0] if ranks[0]["steps"] else {}
+    missing = sorted(set(ref) - set(step1))
+    gaps = {k: abs(step1[k] - v) / max(abs(v), 1e-6) for k, v in ref.items() if k in step1}
+    if missing or not gaps or any(abs(step1[k] - v) > TP_LOSS_RTOL * abs(v) + TP_LOSS_ATOL
+                                  for k, v in ref.items() if k in step1):
+        problems.append(f"step 1 against one process: {gaps}, missing {missing}")
+    emit({"phase": "slice_tensor_parallel", "part": "a", "model": spec, "layers": layers,
+          "ranks": TP_RANKS, "axes": {"data": 1, "fsdp": 1, "model": TP_RANKS},
+          "dtype": "bfloat16", "remat": "full", "cuts": TP_CUTS, "tp": ranks[0]["tp"],
+          "launches_per_rank": [r["launches"] for r in ranks],
+          "peak_gb_per_rank": [r["peak_gb"] for r in ranks],
+          "step_s_per_rank": [r["step_s"] for r in ranks],
+          "built_s_per_rank": [r["built_s"] for r in ranks],
+          "train_s_per_rank": [r["train_s"] for r in ranks],
+          "digest_s_per_rank": [r["digest_s"] for r in ranks],
+          "group_s_per_rank": [r["group_s"] for r in ranks],
+          "step1": step1, "one_process_step1": ref, "step1_rel_gap": gaps,
+          "loss_tol": [TP_LOSS_RTOL, TP_LOSS_ATOL], "eval_keys": ranks[0]["eval_keys"],
+          "weights_equal": len({r["whole"] for r in ranks}) == 1,
+          "replicated_equal": len({r["replicated"] for r in ranks}) == 1,
+          "ranks_s": ranks_s, "one_process_s": ref_s, "card": card, "ok": not problems})
+    if problems:
+        raise AssertionError(f"slice_tensor_parallel (a): {problems}")
+    return ranks
+
+
+def phase_slice_tensor_parallel(device="cuda", card="", spec=TP_SPEC, layers=TP_LAYERS,
+                                ppo_spec="builtin:gpt2-small", ppo_layers=PARITY_LAYERS):
+    """Tensor parallelism on the card, in two parts.
+
+    (a) ILQL at GPT-NeoX-20B's full width (hidden 6144, 64 heads, ffn
+    24576, vocabulary 50432: 16 heads, a quarter of the ffn and 12608 ids
+    a rank) on :func:`tp_ilql_config` (``examples/ilql_sentiments_20b.py``
+    with :data:`TP_CUTS`), four ranks on the one card in a gloo group
+    (:func:`tensor_parallel_ranks`), through ``train(samples=...,
+    rewards=...)``: :data:`TP_STEPS` updates, then one evaluation's 64 new
+    tokens through the paged engine (the one before the steps skipped).
+    Checks: every rank took every step
+    with finite losses, and launched each of :data:`TP_KERNELS` (counts
+    zeroed just before ``train()``); the parameters every rank holds whole
+    and the whole weights gathered over ``model`` are bitwise equal across
+    the ranks; once the ranks exit, step 1's losses and gradient norm of
+    one process over the same batch and seeded weights (its forward and
+    backward) agree within :data:`TP_LOSS_RTOL` relative plus
+    :data:`TP_LOSS_ATOL`.
+    Records the peak memory per rank and the seconds per step.
+
+    (b) PPO at ``model`` 2 (:data:`TP_PPO_AXES`) on
+    :func:`phase_slice_parallel_rl`'s machinery at ``ppo_spec``'s width and
+    ``ppo_layers`` depth in f32, its pair started beside (a)'s ranks,
+    with the fused loss kernels: the ranks'
+    weights bitwise equal after every step, step 1 within 1e-5 of one
+    process, #1–#3 and #5–#8 launched on each rank, the preemption and its
+    one-process resume. Returns rank 0's launches of (a) and (b)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    root, ppo_root = _scratch_dir("tensor_parallel"), _scratch_dir("tensor_parallel_ppo")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # (b)'s pair runs beside (a)'s ranks, which spend their first tens of
+    # seconds drawing weights on the host
+    ppo_pairs = start_parallel_rl_ranks(TP_PPO_AXES, dev, ppo_spec, ppo_layers, ppo_root)
+    try:
+        ranks = tensor_parallel_part_a(dev, spec, layers, root, card, t0)
+    except BaseException:
+        kill_ranks(ppo_pairs)
+        raise
+    launches = Counter(ranks[0]["launches"])
+    launches.update(phase_slice_parallel_rl(device, spec=ppo_spec, layers=ppo_layers, card=card,
+                                            axes=TP_PPO_AXES, phase="slice_tensor_parallel",
+                                            pairs=ppo_pairs, root=ppo_root))
+    return dict(launches)
 
 
 def kernel_record(name, launches, max_abs_err, rec, by_path):
@@ -7905,6 +8277,9 @@ def run_phases(clocked, seconds):
     gc.collect()
     torch.cuda.empty_cache()
     parallel_rl_launches = clocked(phase_slice_parallel_rl, card=smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tensor_parallel_launches = clocked(phase_slice_tensor_parallel, card=smi)
     emit({"phase": "phase_seconds", **seconds, "total": sum(seconds.values())})
     # a served run counts the engine's kernels; nothing else launches there
     served = {k: 0 for k in REPLACES}
@@ -7924,7 +8299,8 @@ def run_phases(clocked, seconds):
                "grpo_spec": grpo_spec_launches, "family_spec": family_spec_launches,
                "ilql_spec": offline["ilql_spec"]["trainer_generate"]["launches"],
                "async": async_launches, "ring": ring_launches,
-               "parallel_rl": parallel_rl_launches}
+               "parallel_rl": parallel_rl_launches,
+               "tensor_parallel": tensor_parallel_launches}
     kernels = [kernel_record(name, serve_launches[name], timed[name]["max_abs_err"], timed[name],
                              by_path)
                for name in SERVE_KERNELS]

@@ -273,13 +273,26 @@ def test_sigterm_one_proc_stops_every_rank_at_one_checkpoint(preempted_world2):
     assert len({r["store"] for r in got["ranks"]}) == 1
 
 
-@pytest.mark.parametrize("direction", ["shrink", "grow"])
+@pytest.mark.parametrize("direction", ["shrink", "grow", "shrink-model", "grow-model"])
 def test_shrink_and_grow_reshard_and_resume_equal(tmp_path, jax_ppo, preempted_world2,
                                                   direction):
     """An emergency checkpoint of one topology resumed on the other takes
-    the reshard path once and continues JAX's uninterrupted run."""
+    the reshard path once and continues JAX's uninterrupted run; a
+    ``model`` 2 checkpoint (each weight gathered over ``model``, its
+    manifest recording the split dims) resumes in one process, and a
+    one-process one at ``model`` 2 (each rank takes its share)."""
     if direction == "shrink":
         run, world, parallel = preempted_world2, 1, {}
+    elif direction == "shrink-model":
+        got, committed, d = _preempted(tmp_path / "m2", jax_ppo, 2,
+                                       f"sigterm_one_proc@step:{PREEMPT_AT}", data=1, model=2)
+        assert committed == [f"checkpoint_{PREEMPT_AT}"]
+        manifest = read_manifest(str(tmp_path / "m2" / "ckpt" / committed[0]))
+        assert manifest["mesh"]["shape"][3] == 2
+        q = next(rec for path, rec in manifest["leaves"].items() if "q_proj/kernel" in path)
+        assert "model" in q["spec"] and q["shape"] == [64, 64]
+        run = {"config": d, "checkpoint": str(tmp_path / "m2" / "ckpt" / committed[0])}
+        world, parallel = 1, {"model": 1}
     else:
         got, committed, d = _preempted(tmp_path / "w1", jax_ppo, 1,
                                        f"sigterm@step:{PREEMPT_AT}")
@@ -287,7 +300,7 @@ def test_shrink_and_grow_reshard_and_resume_equal(tmp_path, jax_ppo, preempted_w
         assert read_manifest(str(tmp_path / "w1" / "ckpt" / committed[0]))["mesh"][
             "process_count"] == 1
         run = {"config": d, "checkpoint": str(tmp_path / "w1" / "ckpt" / committed[0])}
-        world, parallel = 2, {"data": 2}
+        world, parallel = 2, {"data": 2} if direction == "grow" else {"data": 1, "model": 2}
     resumed = _resume(tmp_path / direction, run, jax_ppo["params0"], world, **parallel)
     assert resumed["world"] == world
     assert resumed["metrics"]["resilience/elastic_restores"] == 1.0

@@ -653,3 +653,37 @@ def test_cuda_gloo_carries_fsdp2_collectives(cuda, tmp_path):
     for r in range(2):
         with open(f"{out}.{r}") as f:
             assert json.load(f) == {k: "ok" for k in GLOO_COLLECTIVES}
+
+
+@pytest.mark.gpu
+def test_cuda_engine_on_each_ranks_heads_gives_the_unsharded_tokens(cuda, monkeypatch):
+    """The paged engine of a value-head model cut over two ``model`` ranks
+    (threads, with ``tests/torch_tp_cases.py``'s stand-in for the group):
+    each rank launches #1, #2 and #3 on its KV heads and the gathered
+    logits, and every rank's greedy tokens are the unsharded engine's."""
+    from torch_tp_cases import ENGINE_OVERRIDES, ENGINE_SPEC, engine_prompts, engine_tokens, \
+        run_ranks
+
+    from trlx_tpu_torch.engine.core import kernel_launches
+    from trlx_tpu_torch.models.builder import build_causal_lm
+
+    kw = dict(param_dtype=torch.float32, dtype=torch.float32, **ENGINE_OVERRIDES)
+    model, cfg = build_causal_lm(ENGINE_SPEC, seed=0, device=cuda, head="value", **kw)
+    ids, mask = engine_prompts(cfg.vocab_size)
+    want = engine_tokens(model, cfg, cuda, ids, mask)  # builds the kernels first
+    before = kernel_launches()
+
+    def rank(tp):
+        m, c = build_causal_lm(ENGINE_SPEC, seed=0, device=cuda, head="value",
+                               tensor_parallel=tp, **kw)
+        assert c.cache_kv_heads == cfg.kv_heads // 2
+        return engine_tokens(m, c, cuda, ids, mask)
+
+    got = run_ranks(2, rank, monkeypatch)
+    after = kernel_launches()
+    for name in ("paged_prefill", "paged_decode", "fused_sample"):
+        assert after[name] > before[name], name
+    for tokens in got:
+        assert sorted(tokens) == sorted(want)
+        for row in want:
+            np.testing.assert_array_equal(tokens[row], want[row])

@@ -270,18 +270,23 @@ def _with_parallel(name, **axes) -> TRLConfig:
 @pytest.mark.parametrize("trainer", sorted(PRESETS))
 @pytest.mark.parametrize("axis", ["model", "pipe", "expert"])
 def test_unported_axes_refused_for_every_trainer(trainer, axis):
-    with pytest.raises(ValueError, match=rf"parallel\.{axis} > 1: .*slice 22"):
+    """``pipe`` and ``expert`` wait for slice 23; ``model`` runs for every
+    trainer (slice 22), so at world size 1 an axis of 2 fails only to fit
+    the world, and the error names it."""
+    match = (r"parallel\.model: .*(needs 2 devices, have 1|Device count 1 not divisible)"
+             if axis == "model" else rf"parallel\.{axis} > 1: .*slice 23")
+    with pytest.raises(ValueError, match=match):
         reject_unported(_with_parallel(trainer, **{axis: 2}), *TRAINER_FLAGS[trainer])
 
 
 @pytest.mark.parametrize("trainer", ["ppo", "grpo", "ilql", "dpo"])
 @pytest.mark.parametrize("axis", ["data", "fsdp", "sequence"])
 def test_parallel_axes_refused_outside_sft(trainer, axis):
-    """Outside SFT only ``sequence`` is refused (slice 22 rings the RL and
+    """Outside SFT only ``sequence`` is refused (slice 23 rings the RL and
     preference trainers' forwards); ``data`` and ``fsdp`` run, so at world
     size 1 an axis of 2 fails only to fit the world (an inferred ``data``
     axis leaves no device for it), and the error names it."""
-    match = (r"parallel\.sequence > 1: .*slice 22" if axis == "sequence"
+    match = (r"parallel\.sequence > 1: .*slice 23" if axis == "sequence"
              else rf"parallel\.{axis}: .*(needs 2 devices, have 1|Device count 1 not divisible)")
     with pytest.raises(ValueError, match=match):
         reject_unported(_with_parallel(trainer, **{axis: 2}), *TRAINER_FLAGS[trainer])
@@ -367,7 +372,7 @@ def test_sequence_shard_refuses_the_bias_path(attention_impl):
               "v": torch.zeros(1, 8, lm.config.kv_heads, lm.config.dims_per_head)}]
     with pytest.raises(ValueError, match="ring attention on the flash path"):
         lm(ids, cache=cache, cache_index=0, sequence_group=object())
-    with pytest.raises(ValueError, match="mixture-of-experts.*slice 22"):
+    with pytest.raises(ValueError, match="mixture-of-experts.*slice 23"):
         _tiny_lm("builtin:mixtral-test", "pallas")(ids, sequence_group=object())
 
 

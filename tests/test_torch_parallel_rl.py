@@ -22,7 +22,11 @@ is the oracle of its cases:
   (``train.continuous_batching``, against JAX's on the same settings),
   with an end-of-sequence token that greedy rows meet at different
   steps, so one process's completion order differs from row order and
-  from the ranks' joined harvests.
+  from the ranks' joined harvests; and the same over two prompt chunks
+  a collection (``-chunks``), where one process refills the slots that
+  the first chunk's short rows free with the second chunk's rows, so its
+  store order crosses the chunk boundary (each rank replays one engine's
+  slot schedule, ``parallel/slot_schedule.py``).
 
 ``builtin:gpt2-test`` in f32 with greedy rollouts, the JAX run's initial
 weights carried over. Every step's losses and gradient norm agree with
@@ -30,6 +34,8 @@ JAX's to 1e-5 relative (1e-6 absolute for losses that vanish in exact
 arithmetic), the final weights to 1e-5 relative in each tensor's 2-norm,
 and the two ranks' stores and full weights are bitwise equal.
 """
+
+import json
 
 import pytest
 
@@ -53,14 +59,16 @@ LOSS_KEYS = {"ppo": ("losses/total_loss", "losses/policy_loss", "losses/value_lo
              "dpo": ("losses/total_loss", "rewards/accuracy", "rewards/margin")}
 
 
-def continuous(eos):
+def continuous(eos, **method):
     """The continuous paged path on both sides, with ``eos`` as the
     end-of-sequence token: one that ends a few greedy rows of the first
     collection early (PPO) or a group of the second rank's (GRPO), at
-    different steps."""
+    different steps. ``method`` overrides make a collection several
+    prompt chunks: one process queues them all and refills the slots that
+    short rows free from the next chunk."""
     return dict(train=dict(continuous_batching=True, continuous_batching_segment=2),
                 engine=dict(backend="paged", kv_block_size=4),
-                method=dict(gen_kwargs=dict(eos_token_id=eos)))
+                method=dict(gen_kwargs=dict(eos_token_id=eos), **method))
 
 
 # case: (trainer, parallel axes of the two ranks, method overrides, the
@@ -75,6 +83,12 @@ CASES = {
                        dict(loss_kernel="pallas"), {}),
     "ppo-data2-cb": ("ppo", dict(data=2), dict(loss_kernel="pallas"), continuous(110)),
     "grpo-data2-cb": ("grpo", dict(data=2), {}, continuous(115)),
+    # four chunks of 4 rows on an engine of 4 slots
+    "ppo-data2-cb-chunks": ("ppo", dict(data=2), dict(loss_kernel="pallas"),
+                            continuous(110, chunk_size=4)),
+    # 16 groups of 2 in four chunks of 8 rows on an engine of 8 slots
+    "grpo-data2-cb-chunks": ("grpo", dict(data=2), {},
+                             continuous(111, num_rollouts=32, chunk_size=8, group_size=2)),
 }
 _JAX = {}
 
@@ -85,7 +99,7 @@ def jax_runs(tmp_path_factory):
     per module on first use."""
     def get(case):
         kind, _, _, shared = CASES[case]
-        key = (kind, bool(shared))
+        key = (kind, json.dumps(shared, sort_keys=True))
         if key not in _JAX:
             _JAX[key] = jax_run(kind, tmp_path_factory.mktemp(f"jax_{kind}"), **shared)
         return _JAX[key]

@@ -191,6 +191,16 @@ def test_sequence_parallel_sft_matches_jax(tmp_path, jax_run):
     _check_params(got["params"], jax_run["params"])
 
 
+def test_tensor_parallel_sft_matches_jax(tmp_path, jax_run):
+    """``model`` 2: the rank's query heads (llama-test's 4 over 2 KV
+    heads) and ffn share; the 259-token vocabulary replicates."""
+    got = _run_world(tmp_path / "model", _config_dict(tmp_path / "ckpt", model=2),
+                     jax_run["params0"], world=2)
+    assert got["world"] == 2
+    _check_losses(got, jax_run, jax_run["steps"])
+    _check_params(got["params"], jax_run["params"])
+
+
 def test_fsdp_sft_matches_jax_and_resumes_at_world_one(tmp_path, jax_run):
     ckpt = tmp_path / "ckpt"
     got = _run_world(tmp_path / "fsdp", _config_dict(ckpt, fsdp=2), jax_run["params0"],

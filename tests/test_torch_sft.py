@@ -271,7 +271,8 @@ def test_default_sft_config_matches_jax():
         ({"train": {"grad_accum": 3}}, "train.grad_accum"),  # batch 4 does not split
         # the retention ring and elastic restore run
         # (tests/test_torch_resilience_trainer.py, test_torch_elastic.py);
-        # tensor parallelism waits for its slice
+        # tensor parallelism runs (tests/test_torch_tensor_parallel.py): at
+        # world size 1 a model axis of 2 does not fit, and the error names it
         ({"parallel": {"model": 2}}, "parallel.model"),
         ({"parallel": {"fsdp": 2}}, "parallel.fsdp"),
         ({"serve": {"enabled": True}}, "serve.enabled"),

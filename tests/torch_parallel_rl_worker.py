@@ -33,7 +33,7 @@ from trlx_tpu_torch import trlx
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.models.weights import params_from_jax
 from trlx_tpu_torch.observability.tracing import process_index
-from trlx_tpu_torch.parallel.sharding import full_model_state
+from trlx_tpu_torch.parallel.sharding import full_model_state, load_full_model_state
 from trlx_tpu_torch.resilience import TrainingPreempted
 
 
@@ -99,13 +99,11 @@ def unflatten(flat):
 
 
 def load_weights(trainer, params_path):
-    from torch.distributed.checkpoint.state_dict import StateDictOptions, set_model_state_dict
-
     sd = params_from_jax(unflatten(dict(np.load(params_path))), trainer.tcfg)
     if trainer.mesh is None:
         trainer.model.load_state_dict(sd)
-    else:
-        set_model_state_dict(trainer.model, sd, options=StateDictOptions(full_state_dict=True))
+    else:  # each rank's model share and FSDP2 shard
+        load_full_model_state(trainer.model, sd)
     if hasattr(trainer, "ref_params"):
         trainer.ref_params = trainer._ref_snapshot()
 

@@ -41,13 +41,13 @@ def unflatten(flat):
 
 
 def load_weights(trainer, params_path):
-    from torch.distributed.checkpoint.state_dict import StateDictOptions, set_model_state_dict
+    from trlx_tpu_torch.parallel.sharding import load_full_model_state
 
     sd = params_from_jax(unflatten(dict(np.load(params_path))), trainer.tcfg)
     if trainer.mesh is None:
         trainer.model.load_state_dict(sd)
-    else:
-        set_model_state_dict(trainer.model, sd, options=StateDictOptions(full_state_dict=True))
+    else:  # each rank's model share and FSDP2 shard
+        load_full_model_state(trainer.model, sd)
 
 
 def main(config_path, params_path, out_path):

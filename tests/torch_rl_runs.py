@@ -180,23 +180,34 @@ def check_steps(got, want, steps, keys, rtol=1e-5, atol=1e-6):
 NOISE_ONLY = ".attn.k_proj.bias"
 
 
-def check_params(got, want_flat, kind, rtol=1e-5, lr=1e-3, steps=6):
+def check_params(got, want_flat, kind, rtol=1e-5, lr=1e-3, steps=6, config=None,
+                 noise_only=(NOISE_ONLY,)):
     """The port's final state dict against JAX's final tree, relative in
-    each tensor's 2-norm; the key biases (:data:`NOISE_ONLY`) within the
-    Adam steps' bound, ``lr`` per step."""
+    each tensor's 2-norm; the parameters whose exact gradient is zero
+    (``noise_only``, the key biases :data:`NOISE_ONLY` by default) within
+    the Adam steps' bound, ``lr`` per step. ``config`` (a config dict)
+    names the model; ``builtin:gpt2-test`` by default."""
     import torch
 
-    from trlx_tpu_torch.models.builder import resolve_transformer_config
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.models.builder import assemble_overrides, resolve_transformer_config
     from trlx_tpu_torch.models.weights import params_from_jax
     from torch_parallel_rl_worker import unflatten
 
-    cfg = resolve_transformer_config("builtin:gpt2-test", param_dtype=torch.float32)
+    if config is None:
+        cfg = resolve_transformer_config("builtin:gpt2-test", param_dtype=torch.float32)
+    else:
+        import trlx_tpu_torch.trlx  # noqa: F401  (registers the method configs)
+
+        c = TRLConfig.from_dict(config)
+        cfg = resolve_transformer_config(c.model.model_path,
+                                         **assemble_overrides(c.model, c.parallel))
     want = params_from_jax(unflatten(want_flat), cfg)
     assert sorted(got) == sorted(want), kind
     gaps = {k: float(np.linalg.norm(got[k] - w.numpy()) / max(np.linalg.norm(w.numpy()), 1e-30))
-            for k, w in want.items() if not k.endswith(NOISE_ONLY)}
+            for k, w in want.items() if not k.endswith(tuple(noise_only))}
     bad = {k: g for k, g in gaps.items() if g > rtol}
     assert not bad, bad
     for k, w in want.items():
-        if k.endswith(NOISE_ONLY):
+        if k.endswith(tuple(noise_only)):
             assert np.abs(got[k] - w.numpy()).max() <= 2 * lr * steps, k

@@ -183,6 +183,7 @@ def build_causal_lm(
     device: Union[None, str, torch.device] = None,
     head: Optional[str] = None,
     two_qs: bool = True,
+    tensor_parallel: Any = None,
     **overrides,
 ) -> Tuple[nn.Module, TransformerConfig]:
     """Build ``(model, config)`` for a builtin spec with seeded weights, or
@@ -190,21 +191,27 @@ def build_causal_lm(
     seeded model), in eval mode with gradients off, on ``device``
     (default: the GPU; raises without one). ``head="value"`` wraps the
     backbone with the value head, ``head="ilql"`` with the ILQL heads (twin
-    Q heads with ``two_qs``)."""
+    Q heads with ``two_qs``). ``tensor_parallel`` (a rank's
+    ``parallel/tensor_parallel.py::TensorParallel``) builds the rank's
+    share of the ``model`` axis: the same seeded weights, cut."""
     heads = {None: CausalTransformer, "value": CausalLMWithValueHead,
              "ilql": lambda c: CausalLMWithILQLHeads(c, two_qs)}
     return _materialise(heads, head, resolve_transformer_config(model_path, **overrides),
-                        seed, device, _checkpoint_dir(model_path), hf_interop.load_pretrained)
+                        seed, device, _checkpoint_dir(model_path), hf_interop.load_pretrained,
+                        tensor_parallel)
 
 
-def _materialise(heads, head, cfg, seed, device, path=None, load=None
+def _materialise(heads, head, cfg, seed, device, path=None, load=None, tp=None
                  ) -> Tuple[nn.Module, Any]:
     """``heads[head](cfg)`` built on ``meta`` (no storage, no default
     init), materialised on ``device`` and drawn from ``seed``. With a
     checkpoint ``path``, ``load`` reads its backbone onto ``device`` and
     its tensors become the backbone's parameters; only the rest (the
     heads, LoRA adapters) is drawn, in registration order, so no backbone
-    draw is paid and thrown away. Eval mode, gradients off."""
+    draw is paid and thrown away. With ``tp`` the model is cut to the
+    rank's share on ``meta`` first, and each split weight is drawn whole on
+    the host and its share copied to ``device``, so the rank never holds
+    the whole model. Eval mode, gradients off."""
     if head not in heads:
         raise ValueError(f"head={head!r}: the port builds the bare LM, the value-head "
                          "policy or the ILQL policy (None | 'value' | 'ilql')")
@@ -212,6 +219,20 @@ def _materialise(heads, head, cfg, seed, device, path=None, load=None
     generator = torch.Generator().manual_seed(int(seed))
     with torch.device("meta"):
         model = heads[head](cfg)
+    if tp is not None and path is None:
+        from trlx_tpu_torch.parallel.tensor_parallel import apply_tensor_parallel
+
+        whole = {k: tuple(p.shape) for k, p in model.named_parameters()}
+        dims = apply_tensor_parallel(model, tp)
+        model = model.to_empty(device=device)
+        cuts = {k: (d, tp.part(whole[k][d])[0], whole[k]) for k, d in dims.items()}
+        # the whole model's draws in registration order (its
+        # reset_parameters), each split weight cut from its whole draw
+        seeded_init_(model, generator, cuts=cuts)
+        if hasattr(model, "ilql_heads"):
+            sync_target_q_params(model, alpha=1.0)
+        return model.eval().requires_grad_(False), dataclasses.replace(
+            cfg, model_parallel=tp.size)
     if path is None:
         model = model.to_empty(device=device)
         model.reset_parameters(generator)
@@ -220,6 +241,11 @@ def _materialise(heads, head, cfg, seed, device, path=None, load=None
         seeded_init_(model, generator, names=hf_interop.import_backbone(model, state_dict, device))
         if hasattr(model, "ilql_heads"):  # the target heads start as the Q heads
             sync_target_q_params(model, alpha=1.0)
+    if tp is not None:
+        from trlx_tpu_torch.parallel.tensor_parallel import apply_tensor_parallel
+
+        apply_tensor_parallel(model, tp)
+        cfg = dataclasses.replace(cfg, model_parallel=tp.size)
     return model.eval().requires_grad_(False), cfg
 
 

@@ -31,12 +31,17 @@ def next_token_labels(labels: np.ndarray) -> np.ndarray:
     return out
 
 
-def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor,
+               logprobs: Optional[Callable] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-token NLL (f32) and the 0/1 mask of labels that count — the one
-    definition of the cross-entropy body, shared by both loss paths."""
+    definition of the cross-entropy body, shared by both loss paths.
+    ``logprobs(logits, labels)`` replaces the log-softmax gather (the
+    vocab-parallel one on a rank's slice of the vocabulary)."""
     labels = labels.to(torch.int64)
     mask = (labels != IGNORE_INDEX).float()
     safe = torch.where(labels == IGNORE_INDEX, torch.zeros_like(labels), labels)
+    if logprobs is not None:
+        return -logprobs(logits, safe), mask
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
     return nll, mask
@@ -59,12 +64,13 @@ class SFTConfig(MethodConfig):
         logits: torch.Tensor,  # [B, T, V]
         labels: torch.Tensor,  # [B, T]
         reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+        logprobs: Optional[Callable] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The token mean of the NLL of ``labels``, the next-token labels
         (:func:`next_token_labels`). ``reduce`` (a batch split over ranks)
         sums a tensor over every rank that holds a part of the batch
-        (:func:`_token_mean`)."""
-        token_nll, mask = _token_nll(logits, labels)
+        (:func:`_token_mean`); ``logprobs`` as :func:`_token_nll`."""
+        token_nll, mask = _token_nll(logits, labels, logprobs)
         return _token_mean(torch.sum(token_nll * mask), mask.sum(), reduce)
 
     def chunked_loss(
@@ -74,13 +80,14 @@ class SFTConfig(MethodConfig):
         labels: torch.Tensor,  # [B, T]
         chunk: int,
         reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+        logprobs: Optional[Callable] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """:meth:`loss` without the full logits: hidden chunks stream through
         ``project_logits`` (``ops/chunked.py``)."""
         from trlx_tpu_torch.ops.chunked import stream_projected_reduce
 
         def body(carry, logits, lab):
-            nll, m = _token_nll(logits, lab)
+            nll, m = _token_nll(logits, lab, logprobs)
             s, n = carry
             return s + torch.sum(nll * m), n + torch.sum(m)
 

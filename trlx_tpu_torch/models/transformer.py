@@ -179,6 +179,10 @@ class TransformerConfig:
     # port keeps per-layer modules either way (``weights.py`` unstacks a
     # scanned JAX tree)
     scan_layers: bool = False
+    # the ``model`` axis's size on the modules of a tensor-parallel rank
+    # (``parallel/tensor_parallel.py::apply_tensor_parallel`` sets it; the
+    # other fields stay the full model's)
+    model_parallel: int = 1
 
     def __post_init__(self):
         allowed = {
@@ -209,6 +213,15 @@ class TransformerConfig:
     @property
     def kv_heads(self) -> int:
         return self.num_kv_heads or self.num_heads
+
+    @property
+    def cache_kv_heads(self) -> int:
+        """The KV heads of one rank's cache and block pool."""
+        if self.model_parallel == 1:
+            return self.kv_heads
+        from trlx_tpu_torch.parallel.tensor_parallel import local_kv_heads
+
+        return local_kv_heads(self, self.model_parallel)
 
     @property
     def dims_per_head(self) -> int:
@@ -462,12 +475,35 @@ def _dense(cfg: TransformerConfig, name: str, in_features: int, out_features: in
 
 def _linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``x @ W.T + b`` with the f32 master weights cast to the compute
-    dtype, plus a :class:`LoRALinear`'s low-rank branch."""
-    bias = None if layer.bias is None else layer.bias.to(dtype)
-    y = F.linear(x, layer.weight.to(dtype), bias)
+    dtype, plus a :class:`LoRALinear`'s low-rank branch. A layer that
+    ``parallel/tensor_parallel.py`` split runs column-parallel (the rank's
+    output features; the backward sums the input's gradient over
+    ``model``) or row-parallel (the rank's input features, the partial
+    products summed over ``model``, then the bias once); LoRA's replicated
+    adapters take the rank's columns of ``lora_b`` or rows of ``lora_a``."""
+    mode = getattr(layer, "tp_mode", None)
+    if mode is None:
+        bias = None if layer.bias is None else layer.bias.to(dtype)
+        y = F.linear(x, layer.weight.to(dtype), bias)
+        if isinstance(layer, LoRALinear):
+            y = y + (x @ layer.lora_a.to(dtype)) @ layer.lora_b.to(dtype) * layer.lora_scale
+        return y
+    from trlx_tpu_torch.parallel.tensor_parallel import copy_to_model, reduce_from_model
+
+    lo, hi = layer.tp_range
+    if mode == "column":
+        x = copy_to_model(x, layer.tp)
+        bias = None if layer.bias is None else layer.bias.to(dtype)
+        y = F.linear(x, layer.weight.to(dtype), bias)
+        if isinstance(layer, LoRALinear):
+            y = y + (x @ layer.lora_a.to(dtype)) @ layer.lora_b[:, lo:hi].to(dtype) \
+                * layer.lora_scale
+        return y
+    y = F.linear(x, layer.weight.to(dtype))
     if isinstance(layer, LoRALinear):
-        y = y + (x @ layer.lora_a.to(dtype)) @ layer.lora_b.to(dtype) * layer.lora_scale
-    return y
+        y = y + (x @ layer.lora_a[lo:hi].to(dtype)) @ layer.lora_b.to(dtype) * layer.lora_scale
+    y = reduce_from_model(y, layer.tp)
+    return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
 class LayerNorm(nn.Module):
@@ -536,12 +572,17 @@ class PagedWrite:
 
 class Attention(nn.Module):
     """Multi-head / grouped-query attention with rotary or ALiBi positions
-    and an explicit KV cache."""
+    and an explicit KV cache. Under tensor parallelism it runs the rank's
+    ``heads`` query heads and ``n_kv`` KV heads (``kv_index`` picks them
+    from replicated k/v projections)."""
+
+    kv_index: Optional[List[int]] = None
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
         H, KV, D, E = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head, cfg.hidden_size
+        self.heads, self.n_kv = H, KV
         qkv_bias = cfg.attn_bias if cfg.qkv_bias is None else cfg.qkv_bias
         self.q_proj = _dense(cfg, "q_proj", E, H * D, qkv_bias)
         self.k_proj = _dense(cfg, "k_proj", E, KV * D, qkv_bias)
@@ -561,10 +602,19 @@ class Attention(nn.Module):
         cfg = self.cfg
         dt = cfg.dtype
         B, T, _ = x.shape
-        H, KV, D = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head
+        H, KV, D = self.heads, self.n_kv, cfg.dims_per_head
         q = _linear(self.q_proj, x, dt).view(B, T, H, D)
-        k = _linear(self.k_proj, x, dt).view(B, T, KV, D)
-        v = _linear(self.v_proj, x, dt).view(B, T, KV, D)
+        if self.kv_index is not None:
+            # replicated k/v, of which the rank reads its query heads' KV
+            # heads: the input's gradient and the k/v weights' are partial,
+            # summed over ``model`` (here and in ``sync_model_grads``)
+            from trlx_tpu_torch.parallel.tensor_parallel import copy_to_model
+
+            x = copy_to_model(x, self.tp)
+        k = _linear(self.k_proj, x, dt).view(B, T, -1, D)
+        v = _linear(self.v_proj, x, dt).view(B, T, -1, D)
+        if self.kv_index is not None:
+            k, v = k[:, :, self.kv_index], v[:, :, self.kv_index]
         if rope is not None:  # before the cache write, on every branch
             rdim = cfg.rotary_dim or D
             q = apply_rotary(q, *rope, rdim, cfg.neox_rotary)
@@ -735,6 +785,14 @@ class MoEMLP(nn.Module):
         combine = (slot * gates_perm[..., None, None]).reshape(N, K, G, E, C).sum(1)
         dispatch = slot.reshape(N, K, G, E, C).sum(1)  # [N, G, E, C]
 
+        tp = getattr(self, "tp", None)
+        if tp is not None:
+            # the rank's share of every expert's ffn: the input's gradient
+            # and the combine weights' are summed over ``model``, the
+            # partial outputs after the combine
+            from trlx_tpu_torch.parallel.tensor_parallel import copy_to_model
+
+            xg, combine = copy_to_model(xg, tp), copy_to_model(combine, tp)
         xin = torch.einsum("ngd,ngec->encd", xg, dispatch.to(x.dtype))
         if self.gated:
             h = self.act(torch.einsum("encd,edf->encf", xin, self.w_gate.to(dt)))
@@ -743,6 +801,10 @@ class MoEMLP(nn.Module):
             h = self.act(torch.einsum("encd,edf->encf", xin, self.w_up.to(dt)))
         out = torch.einsum("encf,efd->encd", h, self.w_down.to(dt))
         y = torch.einsum("encd,ngec->ngd", out, combine.to(out.dtype)).reshape(B, T, d)
+        if tp is not None:
+            from trlx_tpu_torch.parallel.tensor_parallel import reduce_from_model
+
+            y = reduce_from_model(y, tp)
 
         # load balance over pre-capacity assignments, z-loss, real tokens only
         n_real = w.sum()
@@ -847,7 +909,7 @@ def _check_sequence_shard(cfg: TransformerConfig, flash: bool) -> None:
     if cfg.num_experts > 0:
         raise ValueError("parallel.sequence > 1 with a mixture-of-experts model: the MoE "
                          "dispatch groups whole rows, which a sequence shard does not hold "
-                         "(expert parallelism comes with slice 22)")
+                         "(expert parallelism comes with slice 23)")
     if not flash:
         raise ValueError("parallel.sequence > 1 runs ring attention on the flash path: a "
                          "full pass with no cache and model.attention_impl 'pallas' (on the "
@@ -855,7 +917,7 @@ def _check_sequence_shard(cfg: TransformerConfig, flash: bool) -> None:
 
 
 def attn_inputs(cfg: TransformerConfig, key_mask, query_slots, positions, use_flash,
-                q_offset=0, ring=None):
+                q_offset=0, ring=None, heads: Optional[Tuple[int, int]] = None):
     """``(bias, flash_args)`` for one forward — the single definition of the
     masking semantics, shared by the full pass, the cached passes and the
     hydra branch replay (the JAX ``_attn_inputs``). Flash queries sit at
@@ -863,10 +925,14 @@ def attn_inputs(cfg: TransformerConfig, key_mask, query_slots, positions, use_fl
     to the kernel, which builds no bias. ``ring`` (the process group of a
     sequence-sharded full pass) routes the flash call through ring
     attention; ALiBi's key positions are then the (global) ``positions``
-    of the shard's own slots."""
+    of the shard's own slots. ``heads`` (``[lo, hi)``, a tensor-parallel
+    rank's query heads) takes those heads' ALiBi slopes."""
     alibi = cfg.position_scheme == "alibi"
-    slopes = (torch.tensor(alibi_slopes(cfg.num_heads), dtype=torch.float32,
-                           device=key_mask.device) if alibi else None)
+    slopes = None
+    if alibi:
+        lo, hi = heads or (0, cfg.num_heads)
+        slopes = torch.tensor(alibi_slopes(cfg.num_heads)[lo:hi], dtype=torch.float32,
+                              device=key_mask.device)
     if not use_flash:
         return attention_bias(key_mask, query_slots, positions, window=cfg.sliding_window,
                               slopes=slopes), None
@@ -883,7 +949,15 @@ def attn_inputs(cfg: TransformerConfig, key_mask, query_slots, positions, use_fl
 
 class CausalTransformer(nn.Module):
     """Decoder-only LM: ``forward`` returns logits, final hidden states and
-    the (updated) cache."""
+    the (updated) cache. Under tensor parallelism (``tp``, set by
+    ``parallel/tensor_parallel.py``) the rank holds ``vocab_range`` of the
+    word embedding and LM head (None: replicated) and runs ``head_range``
+    of the query heads; the logits come back whole (gathered over
+    ``model``) unless the forward runs under ``local_logits()``."""
+
+    tp: Any = None
+    vocab_range: Optional[Tuple[int, int]] = None
+    head_range: Optional[Tuple[int, int]] = None
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -908,9 +982,27 @@ class CausalTransformer(nn.Module):
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         dt = self.config.dtype
+        if self.vocab_range is None:
+            if self.config.tie_word_embeddings:
+                return h @ self.wte.weight.to(dt).t()
+            return _linear(self.lm_head, h, dt)
+        from trlx_tpu_torch.parallel.tensor_parallel import (
+            copy_to_model,
+            gather_from_model,
+            logits_stay_local,
+        )
+
         if self.config.tie_word_embeddings:
-            return h @ self.wte.weight.to(dt).t()
-        return _linear(self.lm_head, h, dt)
+            local = copy_to_model(h, self.tp) @ self.wte.weight.to(dt).t()
+        else:
+            local = _linear(self.lm_head, h, dt)
+        return local if logits_stay_local() else gather_from_model(local, self.tp)
+
+    @property
+    def vocab_shard(self) -> Optional[Tuple[int, Any]]:
+        """``(first id, TensorParallel)`` of the rank's logits under
+        ``local_logits()``, or None when they are whole."""
+        return None if self.vocab_range is None else (self.vocab_range[0], self.tp)
 
     def project_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """Vocab projection of (already final-normed) hidden states."""
@@ -920,7 +1012,13 @@ class CausalTransformer(nn.Module):
         """The JAX ``_embed``: the table cast to the compute dtype, then
         gathered (so the backward accumulates in that dtype, as JAX's)."""
         cfg = self.config
-        x = self.wte.weight.to(cfg.dtype)[input_ids.to(torch.int64)]
+        if self.vocab_range is not None:
+            from trlx_tpu_torch.parallel.tensor_parallel import vocab_parallel_embed
+
+            x = vocab_parallel_embed(self.wte.weight.to(cfg.dtype), input_ids,
+                                     self.vocab_range[0], self.tp)
+        else:
+            x = self.wte.weight.to(cfg.dtype)[input_ids.to(torch.int64)]
         if cfg.position_scheme == "learned":
             x = x + self.wpe.weight.to(cfg.dtype)[positions + cfg.pos_offset]
         if cfg.embedding_layernorm:
@@ -975,7 +1073,7 @@ class CausalTransformer(nn.Module):
         if sequence_group is not None:
             _check_sequence_shard(cfg, use_flash and cache is None)
         bias, flash_args = attn_inputs(cfg, attention_mask, query_slots, positions, use_flash,
-                                       offset, sequence_group)
+                                       offset, sequence_group, self.head_range)
         rope = _rope(cfg, positions)
 
         paged_write = None
@@ -1037,7 +1135,7 @@ def _run_branch(owner, blocks, hidden_states, attention_mask, positions, logits_
     positions = positions.to(device=device, dtype=torch.int64)
     use_flash = T > 1 and cfg.resolved_attention_impl(device) == "pallas"
     bias, flash_args = attn_inputs(cfg, attention_mask, _query_slots(0, B, T, device),
-                                   positions, use_flash)
+                                   positions, use_flash, heads=owner.head_range)
     rope = _rope(cfg, positions)
     x = hidden_states
     for block in blocks:
@@ -1068,7 +1166,11 @@ class HydraBranch(nn.Module):
             self.lm_head = _dense(cfg, "lm_head", cfg.hidden_size, cfg.vocab_size,
                                   cfg.lm_head_bias)
 
+    tp = CausalTransformer.tp
+    vocab_range = CausalTransformer.vocab_range
+    head_range = CausalTransformer.head_range
     _logits = CausalTransformer._logits
+    vocab_shard = CausalTransformer.vocab_shard
 
     def forward(self, hidden_states, attention_mask=None, positions=None, logits_span=None):
         blocks = [self.blocks[str(i)] for i in self.layers]
@@ -1077,7 +1179,8 @@ class HydraBranch(nn.Module):
 
 def seeded_init_(module: nn.Module, generator: Optional[torch.Generator],
                  stds: Optional[Dict[str, float]] = None,
-                 names: Optional[Collection[str]] = None) -> None:
+                 names: Optional[Collection[str]] = None,
+                 cuts: Optional[Dict[str, Tuple[int, int, Tuple[int, ...]]]] = None) -> None:
     """The JAX initialisers over ``module``'s parameters in registration
     order: zero biases, unit norm scales, LoRA's zero ``lora_b`` and He-uniform
     ``lora_a`` (bound √(6 / in)), normal(0.02) for the rest (normal(``stds
@@ -1085,8 +1188,18 @@ def seeded_init_(module: nn.Module, generator: Optional[torch.Generator],
     from the CPU ``generator`` one tensor at a time and are copied to the
     parameter's device, so one seed gives the same weights on every device
     and a 7B model never exists on the host whole. ``names`` limits the
-    draws to those parameters (a model whose backbone was imported)."""
-    stds = stds or {}
+    draws to those parameters (a model whose backbone was imported).
+    ``cuts`` (``{name: (dim, start, whole shape)}``, a tensor-parallel
+    rank's split parameters) draws the whole tensor and keeps the
+    parameter's share from ``start`` along ``dim``."""
+    stds, cuts = stds or {}, cuts or {}
+
+    def draw(name, p, fill):
+        if name not in cuts:
+            return fill(torch.empty(p.shape, dtype=p.dtype))
+        dim, start, whole = cuts[name]
+        return fill(torch.empty(whole, dtype=p.dtype)).narrow(dim, start, p.shape[dim])
+
     norm_scales = {f"{name}.weight" for name, m in module.named_modules()
                    if isinstance(m, (LayerNorm, RMSNorm))}
     with torch.no_grad():
@@ -1099,20 +1212,21 @@ def seeded_init_(module: nn.Module, generator: Optional[torch.Generator],
                 p.fill_(1.0)
             elif name.endswith("lora_a"):
                 bound = math.sqrt(6.0 / p.shape[0])
-                p.copy_(torch.empty(p.shape, dtype=p.dtype).uniform_(-bound, bound,
-                                                                     generator=generator))
+                p.copy_(draw(name, p, lambda t: t.uniform_(-bound, bound,
+                                                           generator=generator)))
             else:
-                p.copy_(torch.empty(p.shape, dtype=p.dtype).normal_(
-                    0.0, stds.get(name, 0.02), generator=generator))
+                p.copy_(draw(name, p, lambda t: t.normal_(0.0, stds.get(name, 0.02),
+                                                          generator=generator)))
 
 
 def make_kv_cache(
     cfg: TransformerConfig, batch_size: int, max_length: int, dtype=None, device=None
 ) -> List[Dict[str, torch.Tensor]]:
     """All-zeros per-layer ``{"k", "v"}`` cache of ``[batch, max_length,
-    kv_heads, head_dim]`` (also the block-pool layout: rows = blocks)."""
+    kv_heads, head_dim]`` (also the block-pool layout: rows = blocks); a
+    tensor-parallel rank's holds its KV heads only."""
     dtype = dtype or cfg.dtype
-    shape = (batch_size, max_length, cfg.kv_heads, cfg.dims_per_head)
+    shape = (batch_size, max_length, cfg.cache_kv_heads, cfg.dims_per_head)
     return [
         {"k": torch.zeros(shape, dtype=dtype, device=device),
          "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -204,7 +204,7 @@ def dense_kv_bytes(cfg: Any, batch_size: int, slots: int) -> int:
     ``cfg`` (k and v of every layer in ``cfg.dtype``): the serial rollout
     path's ``memory/kv_cache_bytes``."""
     itemsize = torch.empty((), dtype=cfg.dtype).element_size()
-    return int(2 * cfg.num_layers * batch_size * slots * cfg.kv_heads
+    return int(2 * cfg.num_layers * batch_size * slots * cfg.cache_kv_heads
                * cfg.dims_per_head * itemsize)
 
 

@@ -1,15 +1,18 @@
 """Parallelism: the device mesh, the sharding rules and ring attention.
 
 Port of ``trlx_tpu/parallel`` for the ``data`` (with its
-``dcn_data_parallelism`` layout), ``fsdp`` and ``sequence`` axes:
-:mod:`.mesh` (a ``torch.distributed`` ``DeviceMesh`` over the world's
-processes, one device each), :mod:`.sharding` (JAX's rule table,
-FSDP2 placement of the ``fsdp`` part, each rank's part of a batch) and
-:mod:`.ring_attention` (exact attention over a sequence split around a
-ring, on the flash kernels), and the row gathers of the RL and preference
-trainers over ``data`` x ``fsdp``. Tensor, expert and pipeline
-parallelism are not ported (the trainers refuse ``model``, ``expert`` and
-``pipe`` above 1).
+``dcn_data_parallelism`` layout), ``fsdp``, ``model`` and ``sequence``
+axes: :mod:`.mesh` (a ``torch.distributed`` ``DeviceMesh`` over the
+world's processes, one device each, with its data-parallel and ``model``
+groups), :mod:`.sharding` (JAX's rule table, each rank's ``model`` share
+and the FSDP2 placement of the ``fsdp`` part, each rank's part of a
+batch), :mod:`.tensor_parallel` (the ``model`` axis's collectives inside
+autograd and the head-aligned cut of a model), :mod:`.ring_attention`
+(exact attention over a sequence split around a ring, on the flash
+kernels), :mod:`.slot_schedule` (one engine's continuous schedule replayed
+over the data axes), and the row gathers of the RL and preference
+trainers over ``data`` x ``fsdp``. Expert and pipeline parallelism are
+not ported (the trainers refuse ``expert`` and ``pipe`` above 1).
 """
 
 from trlx_tpu_torch.parallel.mesh import (

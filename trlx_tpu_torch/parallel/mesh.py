@@ -18,6 +18,13 @@ with the data axis cut by k, and the k blocks stack along ``data``. With
 one device per process that layout is the row-major one, so only the
 data-parallel collectives cross hosts either way.
 
+Besides the mesh's own per-axis groups, :func:`make_mesh` builds, when an
+axis beside ``data`` and ``fsdp`` spans ranks (``model``), the
+data-parallel groups (:func:`data_parallel_group`: the ranks that share
+every other coordinate, ``data`` major) on every rank at once, as
+``new_group`` requires; the ``model`` group is the mesh's
+(:func:`tensor_parallel`).
+
 A trainer builds the mesh only when the world holds more than one
 process; at world size 1 no ``DeviceMesh`` exists, :func:`get_global_mesh`
 returns None and the one-device path runs as before.
@@ -37,6 +44,8 @@ __all__ = [
     "mesh_descriptor",
     "mesh_shape_from_config",
     "set_global_mesh",
+    "data_parallel_group",
+    "tensor_parallel",
     "world_size",
 ]
 
@@ -163,5 +172,48 @@ def make_mesh(parallel: Optional[ParallelConfig] = None, device_type: str = "cud
         import torch
 
         ranks = torch.as_tensor(hybrid_rank_array(shape, dcn))
-        return DeviceMesh(device_type, ranks, mesh_dim_names=MESH_AXES)
-    return init_device_mesh(device_type, shape, mesh_dim_names=MESH_AXES)
+        mesh = DeviceMesh(device_type, ranks, mesh_dim_names=MESH_AXES)
+    else:
+        mesh = init_device_mesh(device_type, shape, mesh_dim_names=MESH_AXES)
+    mesh.trlx_data_parallel_group = _make_data_parallel_group(mesh)
+    return mesh
+
+
+def _make_data_parallel_group(mesh) -> Any:
+    """This rank's group over ``data`` x ``fsdp`` (None when those axes
+    span the world). Every rank creates every group, in one order."""
+    import torch.distributed as dist
+
+    sizes = axis_sizes(mesh)
+    dp = sizes["data"] * sizes["fsdp"]
+    if dp == mesh.mesh.numel():
+        return None
+    d, f = MESH_AXES.index("data"), MESH_AXES.index("fsdp")
+    rest = [i for i in range(len(MESH_AXES)) if i not in (d, f)]
+    rows = mesh.mesh.permute(*rest, d, f).reshape(-1, dp).tolist()
+    me, mine = dist.get_rank(), None
+    for ranks in rows:
+        group = dist.new_group(ranks)
+        if me in ranks:
+            mine = group
+    return mine
+
+
+def data_parallel_group(mesh) -> Any:
+    """The process group of this rank's ``data`` x ``fsdp`` ranks (the
+    ranks that share its ``model`` coordinate), None for the whole
+    world."""
+    return getattr(mesh, "trlx_data_parallel_group", None)
+
+
+def tensor_parallel(mesh):
+    """This rank's ``TensorParallel`` over the mesh's ``model`` axis, or
+    None when the axis is 1 (or there is no mesh)."""
+    if mesh is None or axis_sizes(mesh).get("model", 1) == 1:
+        return None
+    import torch.distributed as dist
+
+    from trlx_tpu_torch.parallel.tensor_parallel import TensorParallel
+
+    group = mesh.get_group("model")
+    return TensorParallel(group, dist.get_world_size(group), dist.get_rank(group))

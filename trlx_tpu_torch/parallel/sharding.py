@@ -14,11 +14,17 @@ parameter of the port onto JAX's path and shape
 (``models/weights.py::jax_param_path``), resolves the rule there and maps
 the dims back through the transpose.
 
-:func:`shard_params` applies the ``fsdp`` part with FSDP2
-(``torch.distributed.fsdp.fully_shard``), each block first, then the root.
-Design: FSDP2 runs over a two-dim mesh of its own, ``replicate`` =
-every axis but ``fsdp`` (``data`` x ``sequence`` here) and ``shard`` =
-``fsdp``, the ranks taken from the global mesh. So a weight is sharded
+:func:`shard_params` first cuts each weight to the rank's share of the
+``model`` axis (``parallel/tensor_parallel.py``: head-aligned; a
+parameter the port replicates keeps no ``model`` entry in
+:func:`port_param_spec`), then applies the ``fsdp`` part to the share
+with FSDP2 (``torch.distributed.fsdp.fully_shard``), each block first,
+then the root. Design: FSDP2 runs over a two-dim mesh of its own per
+``model`` coordinate, ``replicate`` = every axis but ``fsdp`` and
+``model`` (``data`` x ``sequence`` here) and ``shard`` = ``fsdp``, the
+ranks taken from the global mesh (a 3-D mesh ``model`` x ``replicate`` x
+``shard`` sliced to the rank's coordinate); with ``model`` alone (``data``
+x ``fsdp`` = 1) no FSDP2 is applied. So a weight is sharded
 over ``fsdp`` on the dim the rule table names (``shard_placement_fn``;
 dim 0 where the table replicates, since FSDP2 shards every parameter) and
 replicated over ``data`` and ``sequence``, as JAX's specs say; and the
@@ -36,7 +42,8 @@ and, for sequence-sharded arrays, its zigzag shard of the sequence over
 ``sequence`` (``parallel/ring_attention.py::zigzag_order``).
 
 The RL and preference trainers (PPO, GRPO, ILQL, DPO) run over ``data``
-x ``fsdp``: :func:`row_part` is a rank's contiguous rows of a host batch
+x ``fsdp`` (ranks that differ only in ``model`` take the same rows):
+:func:`row_part` is a rank's contiguous rows of a host batch
 (None when the data axes do not divide it, which replicates, as in JAX);
 :func:`allgather_host` joins per-rank host results in rank order (the
 rollout store is the one a single process builds); :func:`gather_rows`
@@ -46,7 +53,8 @@ the whole minibatch is differentiated once (FSDP2 sums the ranks);
 :func:`unsharded` holds every FSDP2 unit's full weights for a stretch of
 forwards whose number differs per rank (a collection on the rank's rows)
 and :func:`full_model_state` gives every rank the full weights (a frozen
-reference copy).
+reference copy), joined over ``fsdp`` and ``model``;
+:func:`load_full_model_state` hands each rank its share of full weights.
 """
 
 import contextlib
@@ -64,6 +72,7 @@ from trlx_tpu_torch.parallel.mesh import axis_sizes
 
 __all__ = [
     "allgather_host",
+    "load_full_model_state",
     "batch_spec",
     "data_parallel_rank",
     "data_parallel_size",
@@ -233,44 +242,78 @@ def batch_spec(ndim: int = 2, sequence_sharded: bool = False) -> tuple:
 
 
 def port_param_spec(name: str, shape: Tuple[int, ...], wrapped: bool,
-                    mesh: Optional[Any] = None) -> tuple:
+                    mesh: Optional[Any] = None, cfg: Optional[Any] = None) -> tuple:
     """The spec of the port's parameter ``name`` (a ``state_dict`` key) in
     the port's own dims: the rule of its JAX path on JAX's shape, mapped
-    back through the ``[out, in]`` transpose of a Linear weight."""
+    back through the ``[out, in]`` transpose of a Linear weight. With the
+    model's config ``cfg`` and a ``model`` axis above 1, a ``model`` entry
+    stays only where the port splits the parameter
+    (``parallel/tensor_parallel.py::tp_param_dims``: head-aligned splits;
+    a projection whose heads ``model`` does not divide replicates)."""
     from trlx_tpu_torch.models.weights import jax_param_path
 
     path, transposed = jax_param_path(name, wrapped)
     jax_shape = tuple(shape)[::-1] if transposed else tuple(shape)
     spec = param_spec_for_path("/".join(path), jax_shape, mesh)
-    return tuple(spec)[::-1] if transposed else tuple(spec)
+    spec = tuple(spec)[::-1] if transposed else tuple(spec)
+    n = axis_sizes(mesh).get("model", 1) if mesh is not None else 1
+    if cfg is None or n == 1:
+        return spec
+    from trlx_tpu_torch.parallel.tensor_parallel import tp_param_dims
+
+    split = tp_param_dims(name, tuple(shape), cfg, n)
+    out = []
+    for dim, axis in enumerate(spec):
+        names = axis if isinstance(axis, tuple) else (axis,)
+        if "model" in names and dim != split:
+            names = tuple(a for a in names if a != "model")
+            axis = None if not names else names if len(names) > 1 else names[0]
+        out.append(axis)
+    return tuple(out)
 
 
 def _fsdp_mesh(mesh):
-    """FSDP2's two-dim mesh (``replicate``, ``shard``): ``shard`` is the
-    global mesh's ``fsdp`` axis, ``replicate`` every other axis, flattened
-    in mesh order; the ranks are the global mesh's."""
+    """FSDP2's two-dim mesh (``replicate``, ``shard``) of this rank's
+    ``model`` coordinate: ``shard`` is the global mesh's ``fsdp`` axis,
+    ``replicate`` every other axis but ``model``, flattened in mesh order.
+    Every rank builds the one 3-D mesh (``model``, ``replicate``,
+    ``shard``) of the global mesh's ranks and takes its slice."""
     from torch.distributed.device_mesh import DeviceMesh
 
     names = list(mesh.mesh_dim_names)
-    f = names.index("fsdp")
-    order = [i for i in range(len(names)) if i != f] + [f]
-    ranks = mesh.mesh.permute(*order).reshape(-1, mesh.mesh.shape[f])
-    return DeviceMesh(mesh.device_type, ranks, mesh_dim_names=("replicate", "shard"))
+    f, m = names.index("fsdp"), names.index("model")
+    order = [m] + [i for i in range(len(names)) if i not in (f, m)] + [f]
+    ranks = mesh.mesh.permute(*order).reshape(mesh.mesh.shape[m], -1, mesh.mesh.shape[f])
+    full = DeviceMesh(mesh.device_type, ranks,
+                      mesh_dim_names=("model", "replicate", "shard"))
+    return full["replicate", "shard"]
 
 
 def shard_params(model, mesh) -> None:
-    """Shard ``model`` in place with FSDP2 over ``mesh`` (the module
-    docstring's design): ``fully_shard`` on each transformer block, then
-    on the root, every parameter sharded over ``fsdp`` on the dim its rule
-    names (dim 0 where the rule replicates or no prefix divides), gradients
-    summed over every rank. Build the optimizer after this call: the
+    """Shard ``model`` in place over ``mesh`` (the module docstring's
+    design): with a ``model`` axis above 1 each weight first cut to the
+    rank's share of it (``parallel/tensor_parallel.py::
+    apply_tensor_parallel``), then FSDP2 on this rank's ``model``
+    coordinate: ``fully_shard`` on each transformer block, then on the
+    root, every parameter sharded over ``fsdp`` on the dim its rule names
+    (dim 0 where the rule replicates or no prefix divides), gradients
+    summed over the data axes. Build the optimizer after this call: the
     parameters become ``DTensor`` s."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
     from trlx_tpu_torch.models.transformer import Block
     from trlx_tpu_torch.models.weights import HEAD_PREFIXES
+    from trlx_tpu_torch.parallel.mesh import tensor_parallel
+    from trlx_tpu_torch.parallel.tensor_parallel import apply_tensor_parallel
 
+    tp = tensor_parallel(mesh)
+    if tp is not None and getattr(model, "tensor_parallel", None) is None:
+        apply_tensor_parallel(model, tp)
+    if tp is not None and data_parallel_size(mesh) == 1:
+        # the model axis alone: no FSDP2 (nothing to shard or reduce over
+        # the data axes), the rank's share stays plain tensors
+        return
     names = {id(p): n for n, p in model.named_parameters()}
     wrapped = any(n.startswith(HEAD_PREFIXES) for n in names.values())
 
@@ -345,6 +388,12 @@ def shard_batch(batch: Dict[str, Any], mesh, sequence_sharded: bool = False,
 # ---------------------------------------------------------------------------
 
 
+def _tp_of(model):
+    """``(TensorParallel, {key: split dim})`` of a tensor-parallel model,
+    or ``(None, {})``."""
+    return getattr(model, "tensor_parallel", None), getattr(model, "tp_dims", {})
+
+
 def data_parallel_size(mesh) -> int:
     """``data`` x ``fsdp``: the ranks a batch's rows split over (1 without a
     mesh)."""
@@ -364,13 +413,11 @@ def data_parallel_rank(mesh) -> int:
 
 
 def _data_parallel_group(mesh):
-    """The process group of ``data`` x ``fsdp``: the whole world, since the
-    trainers that gather rows refuse every other axis above 1."""
+    """The process group of this rank's ``data`` x ``fsdp`` ranks (the
+    ranks of its ``model`` coordinate; None: the whole world)."""
+    from trlx_tpu_torch.parallel.mesh import data_parallel_group
 
-    if data_parallel_size(mesh) != dist.get_world_size():
-        raise ValueError("row gathers run over data x fsdp only: every other mesh axis "
-                         "must be 1")
-    return None
+    return data_parallel_group(mesh)
 
 
 def row_part(rows: int, mesh, unit: int = 1) -> Optional[slice]:
@@ -389,8 +436,10 @@ def row_part(rows: int, mesh, unit: int = 1) -> Optional[slice]:
 
 def allgather_host(obj: Any, mesh) -> List[Any]:
     """Every rank's ``obj`` (picklable host data), in rank order over
-    ``data`` x ``fsdp``: one ``all_gather_object``, which every rank calls
-    in the same order."""
+    ``data`` x ``fsdp``: one ``all_gather_object`` over this rank's
+    data-parallel group, which every rank calls in the same order. Ranks
+    that differ only in ``model`` hold the same rows and gather the same
+    list, each data-parallel row block once."""
 
     group = _data_parallel_group(mesh)
     out: List[Any] = [None] * data_parallel_size(mesh)
@@ -495,13 +544,25 @@ def _shard_of(t) -> Optional[Tuple[int, int]]:
     return None
 
 
-def full_tensor(t):
+def full_tensor(t, tp=None, tp_dim: Optional[int] = None):
     """The whole tensor of an FSDP2 ``DTensor`` on every rank (a plain
     tensor passes through): the local shards joined with one
     ``all_gather_into_tensor`` over the shard dim's group, each padded to
-    ``torch.chunk``'s size. Plain c10d collectives only: the functional
-    collectives behind ``DTensor.full_tensor`` / ``redistribute`` are not
-    carried by every backend on every device (gloo on CUDA tensors)."""
+    ``torch.chunk``'s size, then, for a tensor that tensor parallelism
+    split on ``tp_dim``, every ``model`` rank's share joined over ``tp``'s
+    group. Plain c10d collectives only: the functional collectives behind
+    ``DTensor.full_tensor`` / ``redistribute`` are not carried by every
+    backend on every device (gloo on CUDA tensors)."""
+    t = _fsdp_full(t)
+    if tp is None or tp_dim is None:
+        return t
+    part = t.detach().movedim(tp_dim, 0).contiguous()
+    out = part.new_empty((tp.size * part.shape[0],) + tuple(part.shape[1:]))
+    dist.all_gather_into_tensor(out, part, group=tp.group)
+    return out.movedim(0, tp_dim).contiguous()
+
+
+def _fsdp_full(t):
     where = _shard_of(t)
     if where is None:
         return t.to_local() if hasattr(t, "to_local") else t
@@ -518,10 +579,14 @@ def full_tensor(t):
     return out[:size].movedim(0, dim).contiguous()
 
 
-def local_shard(full, like):
-    """This rank's shard of a whole tensor ``full`` with ``like``'s
-    (a DTensor's) placement, as ``torch.chunk`` splits it; ``full`` itself
-    for a plain or replicated ``like``."""
+def local_shard(full, like, tp=None, tp_dim: Optional[int] = None):
+    """This rank's shard of a whole tensor ``full``: its ``model`` share
+    along ``tp_dim`` (a tensor-parallel split), then ``like``'s (a
+    DTensor's) placement, as ``torch.chunk`` splits it; ``full`` itself
+    for a plain or replicated ``like`` and no split."""
+    if tp is not None and tp_dim is not None:
+        lo, hi = tp.part(full.shape[tp_dim])
+        full = full.narrow(tp_dim, lo, hi - lo)
     where = _shard_of(like)
     if where is None:
         return full
@@ -532,30 +597,55 @@ def local_shard(full, like):
     return pieces[at] if at < len(pieces) else full.narrow(dim, 0, 0)
 
 
-def global_grad_norm(grads):
+def global_grad_norm(grads, split: Optional[List[bool]] = None, tp=None):
     """The 2-norm of every gradient, FSDP2's sharded ones included: each
     shard group's squared sum of its local shards joined by a plain
-    ``all_reduce``, replicated gradients counted once."""
-    replicated, sharded = 0.0, {}
-    for g in grads:
+    ``all_reduce``, replicated gradients counted once. ``split`` flags the
+    gradients of parameters tensor parallelism split over ``tp``'s group:
+    their squared sums are joined over ``model`` too, each share counted
+    once, while a parameter every ``model`` rank holds whole counts once."""
+    totals = {}
+    for i, g in enumerate(grads):
         where = _shard_of(g)
         local = g.to_local() if hasattr(g, "to_local") else g
         sq = local.detach().float().pow(2).sum()
-        if where is None:
-            replicated = replicated + sq
-        else:
-            group = g.device_mesh.get_group(where[0])
-            sharded[group] = sharded.get(group, 0.0) + sq
-    for group, sq in sharded.items():
-        dist.all_reduce(sq, group=group)
-        replicated = replicated + sq
-    return torch.as_tensor(replicated).sqrt()
+        key = (None if where is None else g.device_mesh.get_group(where[0]),
+               bool(split[i]) if split is not None and tp is not None else False)
+        totals[key] = totals.get(key, 0.0) + sq
+    out = 0.0
+    for (group, over_model), sq in totals.items():
+        sq = torch.as_tensor(sq)
+        if group is not None:
+            dist.all_reduce(sq, group=group)
+        if over_model:
+            dist.all_reduce(sq, group=tp.group)
+        out = out + sq
+    return torch.as_tensor(out).sqrt()
 
 
 def full_model_state(model) -> Dict[str, Any]:
-    """The full ``state_dict`` of an FSDP2-sharded model on every rank, on
-    the model's device (:func:`full_tensor`, a collective: every rank
-    calls it); the model's own ``state_dict`` without FSDP2."""
-    if not fsdp_units(model):
+    """The full ``state_dict`` of a sharded model on every rank, on the
+    model's device, joined over ``fsdp`` and ``model`` (:func:`full_tensor`,
+    a collective: every rank calls it); the model's own ``state_dict``
+    when nothing is sharded."""
+    tp, dims = _tp_of(model)
+    if not fsdp_units(model) and tp is None:
         return model.state_dict()
-    return {k: full_tensor(v) for k, v in model.state_dict().items()}
+    return {k: full_tensor(v, tp, dims.get(k)) for k, v in model.state_dict().items()}
+
+
+def load_full_model_state(model, state: Dict[str, Any]) -> None:
+    """Copy a full ``state_dict`` (one device's format, e.g. JAX's weights
+    carried over by ``models/weights.py::params_from_jax``) into a sharded
+    model: each rank takes its ``model`` share and its FSDP2 shard of every
+    tensor (:func:`local_shard`; no collective)."""
+    tp, dims = _tp_of(model)
+    live = model.state_dict()
+    missing = sorted(set(live) ^ set(state))
+    if missing:
+        raise KeyError(f"the state's keys differ from the model's: {missing[:8]}")
+    with torch.no_grad():
+        for k, v in live.items():
+            target = v.to_local() if hasattr(v, "to_local") else v
+            target.copy_(local_shard(torch.as_tensor(state[k]).to(target.device, target.dtype),
+                                     v, tp, dims.get(k)))

@@ -9,8 +9,10 @@ state by ``utils/checkpoint.py::save_state``): the mesh's axis names and
 shape (``parallel/mesh.py::mesh_descriptor``; one process without a mesh
 records every axis at 1), the process and device counts, and per
 parameter its JAX path (``models/weights.py::jax_param_path``), the
-FSDP2 placement in JAX's dims (``fsdp`` on the dim ``parallel/sharding.py``
-shards, None elsewhere), its dtype and its global shape.
+placement in JAX's dims (``fsdp`` on the dim ``parallel/sharding.py``
+shards, ``model`` on the dim tensor parallelism splits, both where both
+do, None elsewhere), its dtype and its global shape (the whole tensor's,
+across ``model`` too).
 
 **Restore.** :func:`restore_state_elastic` is the one restore entry of the
 trainers. It compares the manifest with the live topology
@@ -45,7 +47,7 @@ import json
 import logging
 import os
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -94,13 +96,19 @@ def _leaf_records(model: torch.nn.Module) -> Dict[str, Dict[str, Any]]:
 
     named = list(model.named_parameters())
     wrapped = any(n.startswith(HEAD_PREFIXES) for n, _ in named)
+    tp, dims = getattr(model, "tensor_parallel", None), getattr(model, "tp_dims", {})
     leaves: Dict[str, Dict[str, Any]] = {}
     for name, p in named:
         shape = [int(d) for d in p.shape]
-        spec = [None] * len(shape)
+        spec: List[Any] = [None] * len(shape)
+        if tp is not None and name in dims:
+            # a tensor-parallel share: the global shape, split over model
+            shape[dims[name]] *= tp.size
+            spec[dims[name]] = "model"
         for placement in getattr(p, "placements", ()):
             if placement.is_shard():
-                spec[placement.dim] = "fsdp"
+                d = placement.dim
+                spec[d] = "fsdp" if spec[d] is None else [spec[d], "fsdp"]
         try:
             path, transposed = jax_param_path(name, wrapped)
             key = "/".join(path)

@@ -109,8 +109,9 @@ Port of ``trlx_tpu/trainer/base.py`` (``TPUBaseTrainer``) as
   coordinated over the processes (``sigterm_one_proc`` signals process 0
   alone);
 - over several processes (``parallel.data`` / ``fsdp``, with the
-  ``dcn_data_parallelism`` layout; ``sequence`` for SFT only) every
-  trainer shards its weights with FSDP2 and takes its rows of each batch
+  ``dcn_data_parallelism`` layout; ``model``, tensor parallelism on the
+  rank's heads, ffn share and vocabulary slice; ``sequence`` for SFT only)
+  every trainer shards its weights with FSDP2 and takes its rows of each batch
   (:meth:`TorchBaseTrainer.host_batch`); its loss joins the operands of
   every rank's rows (:meth:`TorchBaseTrainer.gather_rows`), so losses,
   stats and gradients are the global batch's; rank 0 alone writes
@@ -120,6 +121,7 @@ Port of ``trlx_tpu/trainer/base.py`` (``TPUBaseTrainer``) as
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -163,12 +165,22 @@ from trlx_tpu_torch.ops.sampling import (
 from trlx_tpu_torch.ops.slot_refill import make_slot_refill_fns
 from trlx_tpu_torch.ops.speculative import generate_speculative
 from trlx_tpu_torch.parallel.mesh import (
+    data_parallel_group,
+    tensor_parallel,
     MESH_AXES,
     make_mesh,
     mesh_shape_from_config,
     set_global_mesh,
     world_size,
 )
+from trlx_tpu_torch.parallel.tensor_parallel import (
+    local_logits,
+    sync_model_grads,
+    vocab_parallel_entropy,
+    vocab_parallel_logprobs,
+)
+from trlx_tpu_torch.utils.stats import logprobs_of_labels
+from trlx_tpu_torch.observability.dynamics import entropy_of_logits
 from trlx_tpu_torch.parallel.sharding import (
     data_parallel_size,
     gather_rows,
@@ -214,14 +226,13 @@ logger = logging.getLogger(__name__)
 TRIAGE_MAX_ROWS = 64
 TRIAGE_MAX_DUMPS = 8
 
-# the mesh axes the port runs (``data`` and ``fsdp`` for every trainer,
-# ``sequence`` for those with ``sequence_ok`` too), and the ones that wait
-# for a later slice, with their reasons
-_PARALLEL_AXES = ("data", "fsdp", "sequence")
+# the mesh axes the port runs (``data``, ``fsdp`` and ``model`` for every
+# trainer, ``sequence`` for those with ``sequence_ok`` too), and the ones
+# that wait for a later slice, with their reasons
+_PARALLEL_AXES = ("data", "fsdp", "model", "sequence")
 _UNPORTED_AXES = {
-    "model": "tensor parallelism comes with slice 22",
-    "pipe": "pipeline parallelism comes with slice 22",
-    "expert": "expert parallelism comes with slice 22",
+    "pipe": "pipeline parallelism comes with slice 23",
+    "expert": "expert parallelism comes with slice 23",
 }
 
 
@@ -301,7 +312,8 @@ def reject_unported(config, collects_rollouts: bool, seq2seq_ok: bool,
     """Raise ``ValueError`` naming the first setting this slice does not
     run: parallel axes (``model``, ``pipe`` and ``expert`` above 1;
     ``sequence`` above 1 for a trainer without ``sequence_ok``: SFT alone
-    rings its forwards; a mesh that does not fit the world, or a
+    rings its forwards; ``model`` together with ``sequence`` above 1; a
+    mesh that does not fit the world, or a
     ``dcn_data_parallelism`` that does not divide its data axis;
     ``parallel.scan_layers`` runs, as per-layer modules, with ``pipe``
     1), async collection,
@@ -355,15 +367,18 @@ def reject_unported(config, collects_rollouts: bool, seq2seq_ok: bool,
         checks.append((int(par.sequence) > 1, "parallel.sequence > 1: only SFT rings its "
                        "forwards; the RL and preference trainers' cacheless forwards under "
                        "sequence parallelism (a gather of the response span for the PPO loss "
-                       "kernels) come with slice 22"))
+                       "kernels) come with slice 23"))
+    checks.append((int(par.sequence) > 1 and int(par.model) != 1, "parallel.model with "
+                   "parallel.sequence > 1: ring attention over tensor-parallel heads comes "
+                   "with slice 23"))
     if world_size() > 1:
         checks += [
             (config.async_rl.enabled, "async_rl.enabled: async collection runs in one "
-             "process; the actor/learner split over several processes comes with slice 23"),
+             "process; the actor/learner split over several processes comes with slice 24"),
             (config.serve.enabled, "serve.enabled: serving inside a trainer runs in one "
-             "process; serving over several processes comes with slice 23"),
+             "process; serving over several processes comes with slice 24"),
             (m.model_arch_type == "seq2seq", "model.model_arch_type 'seq2seq': seq2seq "
-             "models run in one process; seq2seq over several processes comes with slice 23"),
+             "models run in one process; seq2seq over several processes comes with slice 24"),
         ]
     for bad, message in checks:
         if bad:
@@ -377,18 +392,21 @@ def reject_unported(config, collects_rollouts: bool, seq2seq_ok: bool,
     if not sequence_ok and shape[MESH_AXES.index("sequence")] > 1:
         raise ValueError("parallel.sequence: the inferred axis would span "
                          f"{shape[MESH_AXES.index('sequence')]} processes; only SFT rings "
-                         "its forwards (slice 22 for the other trainers)")
+                         "its forwards (slice 23 for the other trainers)")
+    if shape[MESH_AXES.index("sequence")] > 1 and shape[MESH_AXES.index("model")] > 1:
+        raise ValueError("parallel.model with parallel.sequence > 1: ring attention over "
+                         "tensor-parallel heads comes with slice 23")
     dcn = int(par.dcn_data_parallelism)
     if dcn > 1 and shape[0] % dcn:
         raise ValueError(f"parallel.dcn_data_parallelism: data axis {shape[0]} not "
                          f"divisible by dcn_data_parallelism {dcn}")
 
 
-def _all_reduce_(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over every rank, in place."""
+def _all_reduce_(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over ``group`` (every rank by default), in place."""
     import torch.distributed as dist
 
-    dist.all_reduce(x)
+    dist.all_reduce(x, group=group)
     return x
 
 
@@ -510,9 +528,13 @@ class TorchBaseTrainer(BaseRLTrainer):
                                        scan_layers_supported=not self.is_seq2seq)
         build, mask_fn = ((build_seq2seq_lm, seq2seq_trainable_mask) if self.is_seq2seq
                           else (build_causal_lm, trainable_mask))
+        # under a model axis the rank builds its share of the weights only
+        tp = {} if self.mesh is None or self.is_seq2seq else {
+            "tensor_parallel": tensor_parallel(self.mesh)}
         self.model, self.tcfg = build(
             config.model.model_path, seed=config.train.seed, device=self.device,
-            head=self.model_head, two_qs=getattr(config.method, "two_qs", True), **overrides,
+            head=self.model_head, two_qs=getattr(config.method, "two_qs", True), **tp,
+            **overrides,
         )
         self.draft_model, self.draft_tcfg = None, None
         if config.model.draft_model_path and self.is_seq2seq:
@@ -653,7 +675,7 @@ class TorchBaseTrainer(BaseRLTrainer):
             # it is what FSDP2's sum of the gradients makes whole
             n = data_parallel_size(self.mesh)
             logged = torch.stack([aux[0].detach(), aux[1].detach()])
-            _all_reduce_(logged)
+            _all_reduce_(logged, data_parallel_group(self.mesh))
             aux = (aux[0] / n, aux[1] / n)
             new_loss = (loss + self.tcfg.router_aux_coef * aux[0]
                         + self.tcfg.router_z_coef * aux[1])
@@ -728,6 +750,34 @@ class TorchBaseTrainer(BaseRLTrainer):
         self._batch_split = (rows // unit) % (data_parallel_size(self.mesh) * micro) == 0 \
             and rows % unit == 0
         return shard_batch(items, self.mesh, micro=micro) if self._batch_split else items
+
+    def _vocab_shard(self):
+        """``(first id, TensorParallel)`` of the policy's vocabulary slice
+        under tensor parallelism, or None (the logits come whole)."""
+        return getattr(getattr(self.model, "backbone", self.model), "vocab_shard", None)
+
+    def vocab_local(self):
+        """The context of a loss forward: with a vocabulary split over
+        ``model`` its logits stay each rank's slice (no ``[B, T, V]``
+        gather), which :meth:`label_logprobs` and :meth:`logits_entropy`
+        read."""
+        return local_logits() if self._vocab_shard() is not None else contextlib.nullcontext()
+
+    def label_logprobs(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """``logprobs_of_labels`` of a loss forward's logits, the
+        vocab-parallel log-softmax on a rank's slice."""
+        shard = self._vocab_shard()
+        if shard is None:
+            return logprobs_of_labels(logits, labels)
+        return vocab_parallel_logprobs(logits, labels, *shard)
+
+    def logits_entropy(self, logits: torch.Tensor) -> torch.Tensor:
+        """``entropy_of_logits`` of a loss forward's logits (a rank's slice
+        under a split vocabulary)."""
+        shard = self._vocab_shard()
+        if shard is None:
+            return entropy_of_logits(logits)
+        return vocab_parallel_entropy(logits, shard[1])
 
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         """A loss operand of this rank's rows joined over ``data`` x
@@ -832,11 +882,16 @@ class TorchBaseTrainer(BaseRLTrainer):
         """:meth:`train_step`'s update: gradients, the guard, the optimizer."""
         arrays = self._device_batch(batch)
         stats, loss = self._accumulate(arrays, self._loss_scale())
-        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
         if self.mesh is None:
-            gnorm = torch.nn.utils.get_total_norm(grads)
-        else:  # FSDP2's sharded gradients
-            gnorm = global_grad_norm(grads)
+            gnorm = torch.nn.utils.get_total_norm(
+                [p.grad for p in self.model.parameters() if p.grad is not None])
+        else:  # FSDP2's sharded gradients, split over model too
+            sync_model_grads(self.model)
+            split = getattr(self.model, "tp_dims", {})
+            named = [(k, p.grad) for k, p in self.model.named_parameters()
+                     if p.grad is not None]
+            gnorm = global_grad_norm([g for _, g in named], [k in split for k, _ in named],
+                                     getattr(self.model, "tensor_parallel", None))
         lr = float(self.schedule(self.step))
         stats = dict(stats)
         stats["learning_rate"] = lr

@@ -44,14 +44,17 @@ __all__ = ["DPOTrainer", "completion_logps"]
 
 
 def completion_logps(model, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                     out_mask: torch.Tensor, chunk: int = 0) -> Tuple[torch.Tensor, Any]:
+                     out_mask: torch.Tensor, chunk: int = 0,
+                     logprobs=logprobs_of_labels) -> Tuple[torch.Tensor, Any]:
     """Summed logprob of each row's completion tokens (token t predicted at
     position t − 1, counted where ``out_mask`` and ``attention_mask`` hold),
     in f32, and the forward's outputs (the router losses of an MoE policy).
 
     With ``chunk`` > 0 the vocab projection streams in T-chunks
     (``ops/chunked.py``): the ``[B, T, V]`` logits never exist whole, which
-    matters more here than in SFT, as every pair holds two rows."""
+    matters more here than in SFT, as every pair holds two rows.
+    ``logprobs`` reads the logits (the trainer's ``label_logprobs`` under
+    a vocabulary split over ``model``)."""
     sel = (out_mask[:, 1:] * attention_mask[:, 1:]).float()
     labels = input_ids[:, 1:]
     if chunk:
@@ -60,7 +63,7 @@ def completion_logps(model, input_ids: torch.Tensor, attention_mask: torch.Tenso
         out = model(input_ids, attention_mask=attention_mask, logits_span=(0, 0))
 
         def body(carry, logits, lab, s):
-            return carry + torch.sum(logprobs_of_labels(logits, lab) * s, dim=1)
+            return carry + torch.sum(logprobs(logits, lab) * s, dim=1)
 
         sums = stream_projected_reduce(
             model, out["hidden_states"][:, :-1], [(labels, 0), (sel, 0.0)], chunk,
@@ -68,7 +71,7 @@ def completion_logps(model, input_ids: torch.Tensor, attention_mask: torch.Tenso
             body)
         return sums, out
     out = model(input_ids, attention_mask=attention_mask)
-    lp = logprobs_of_labels(out["logits"][:, :-1], labels)
+    lp = logprobs(out["logits"][:, :-1], labels)
     # an f32 sum: a bf16 sum of hundreds of logprobs has an ulp of O(1)
     # nats, the order of real DPO margins
     return torch.sum(lp.float() * sel, dim=1), out
@@ -126,8 +129,10 @@ class DPOTrainer(TorchBaseTrainer):
 
     def loss_fn(self, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        logps, out = completion_logps(self.model, batch["input_ids"], batch["attention_mask"],
-                                      batch["out_mask"], self._resolved_logit_chunk())
+        with self.vocab_local():
+            logps, out = completion_logps(self.model, batch["input_ids"],
+                                          batch["attention_mask"], batch["out_mask"],
+                                          self._resolved_logit_chunk(), self.label_logprobs)
         refs = batch["ref_logps"]
         if self.mesh is not None:
             # every rank's pairs (whole, interleaved): the loss is the global

@@ -102,10 +102,9 @@ class GRPOTrainer(PPOTrainer):
     def _grpo_score_batch(self, prompt_ids: np.ndarray, prompt_mask: np.ndarray,
                           response_tokens: np.ndarray, response_mask: np.ndarray,
                           elements: list, agg: Dict[str, Any], score_out=None,
-                          split: bool = False, order: Optional[np.ndarray] = None) -> int:
+                          split: bool = False) -> int:
         """Score and store one group-contiguous batch (``split``: this
-        rank's groups of it, with the rows' sort keys ``order`` from the
-        group-aware harvest, :meth:`_gather_chunk`): the produce half
+        rank's groups of it, :meth:`_gather_chunk`): the produce half
         (:meth:`_grpo_chunk_produce`), then the ordered tail
         (:meth:`_grpo_chunk_finalize`) — the halves the async split runs on
         the actor and on the learner. Returns the rows stored (every
@@ -113,20 +112,21 @@ class GRPOTrainer(PPOTrainer):
         chunk = self._grpo_chunk_produce(prompt_ids, prompt_mask, response_tokens,
                                          response_mask, score_out=score_out)
         chunk["split"] = split
-        if order is not None:
-            chunk["order"] = order
         agg["score_time_sum"] += chunk["score_s"]
         return self._grpo_chunk_finalize(chunk, elements, agg)
 
     def _grpo_chunk_produce(self, prompt_ids: np.ndarray, prompt_mask: np.ndarray,
                             response_tokens: np.ndarray, response_mask: np.ndarray,
-                            score_out=None, model=None) -> Dict[str, Any]:
+                            score_out=None, model=None, host=None) -> Dict[str, Any]:
         """The device and host half of one group-contiguous batch: the
         scoring forward (unless the caller dispatched it on the
-        generation's tensors; under ``model``, default the live policy),
-        string decoding and ``reward_fn`` while its outputs land. It needs
-        no learner state, so an async actor runs it."""
-        if score_out is None:
+        generation's tensors, or passes its landed outputs as ``host``;
+        under ``model``, default the live policy), string decoding and
+        ``reward_fn`` while its outputs land. It needs no learner state, so
+        an async actor runs it."""
+        if host is not None:
+            score_out = host
+        elif score_out is None:
             score_out = self._dispatch_score(
                 np.concatenate([prompt_ids, response_tokens], axis=1), prompt_mask,
                 response_tokens, response_mask, model=model)
@@ -222,66 +222,53 @@ class GRPOTrainer(PPOTrainer):
         member finishes, and ready groups flush in completion order,
         ``chunk_size // group_size`` at a time, members sorted by index.
 
-        Under the mesh each rank collects its whole groups of one chunk at
-        a time, on an idle engine, and flushes them once the engine
-        drains; each row is keyed by (the engine step that completed its
-        group, the group's global index in the chunk, its member), one
-        process's flush order for a chunk on an idle engine, which
-        :meth:`_gather_chunk` restores on the joined rows."""
+        Under the mesh every rank replays one engine's schedule
+        (:meth:`_replay_schedule`) and records the flushes one process
+        makes; once the engine drains, every rank's scored rows are joined
+        and each flush is rewarded and finalized in turn on every rank."""
         if num_rollouts <= 0:
             return
         method: GRPOConfig = self.config.method
         G = method.group_size
         gen_config, extra_kwargs = self._resolve_gen_config(eval_mode=False)
         groups_per_batch = max(method.chunk_size // G, 1)
+        if self.mesh is not None:
+            engine = self._grpo_collect_continuous_mesh(num_rollouts, elements, agg,
+                                                        gen_config, extra_kwargs,
+                                                        groups_per_batch)
+            agg["gen_time_sum"] += engine.stats.decode_s + engine.stats.refill_s
+            agg["engine_stats"] = engine.stats
+            return
         state: Dict[str, Any] = {"engine": None, "supplied": 0, "processed": 0,
-                                 "next_group": 0, "split": False, "steps": 0}
+                                 "next_group": 0}
         partial: Dict[int, list] = {}  # group id → completed members
-        # (the engine step that completed it, members) of every complete
-        # group, in completion order
-        ready: deque = deque()
-        mesh = self.mesh is not None
+        ready: deque = deque()  # the members of every complete group, in completion order
 
         def fetch_chunk() -> None:
             batch = next(self.prompt_iterator)
             ids = np.repeat(np.asarray(batch["input_ids"], np.int32), G, axis=0)
             mask = np.repeat(np.asarray(batch["attention_mask"], np.int32), G, axis=0)
             rows = ids.shape[0]
-            ids, mask, seeds, at = self._rank_rows(ids, mask, unit=G)
-            state["split"], state["steps"] = at is not None, 0
-            # (group id, member, the group's global index in the chunk)
-            g0 = (at or 0) // G
-            metas = [(state["next_group"] + r // G, r % G, g0 + r // G)
-                     for r in range(ids.shape[0])]
-            state["next_group"] += ids.shape[0] // G
+            metas = [(state["next_group"] + r // G, r % G) for r in range(rows)]
+            state["next_group"] += rows // G
             if state["engine"] is None:
-                state["engine"] = self._cb_make_engine(gen_config, extra_kwargs,
-                                                       ids.shape[0], ids.shape[1])
-            state["engine"].enqueue_prompts(ids, mask, seeds, metas=metas)
+                state["engine"] = self._cb_make_engine(gen_config, extra_kwargs, rows,
+                                                       ids.shape[1])
+            state["engine"].enqueue_prompts(ids, mask, self._row_seeds(rows), metas=metas)
             state["supplied"] += rows
 
         def flush(n_groups: int) -> None:
-            groups = [ready.popleft() for _ in range(n_groups)]
-            keyed = [(step, member) for step, group in groups
-                     for member in sorted(group, key=lambda c: c.meta[1])]
-            rows = [member for _, member in keyed]
+            rows = [member for _ in range(n_groups)
+                    for member in sorted(ready.popleft(), key=lambda c: c.meta[1])]
             state["processed"] += self._grpo_score_batch(
                 np.stack([c.prompt_ids for c in rows]).astype(np.int64),
                 np.stack([c.prompt_mask for c in rows]).astype(np.int64),
                 np.stack([c.tokens for c in rows]).astype(np.int64),
-                np.stack([c.mask for c in rows]).astype(np.int64),
-                elements, agg, split=state["split"],
-                order=(np.asarray([(step, c.meta[2], c.meta[1]) for step, c in keyed],
-                                  np.int64) if state["split"] else None))
+                np.stack([c.mask for c in rows]).astype(np.int64), elements, agg)
 
         while True:
             while len(elements) + state["supplied"] - state["processed"] < num_rollouts:
-                # under the mesh: the last chunk harvested and flushed
-                if mesh and (ready or state["engine"] is not None and state["engine"].busy):
-                    break
                 fetch_chunk()
-                if mesh:
-                    break
             engine = state["engine"]
             if not engine.busy:
                 if ready:
@@ -289,17 +276,56 @@ class GRPOTrainer(PPOTrainer):
                 if len(elements) >= num_rollouts:
                     break
                 continue
-            state["steps"] += 1
             for c in engine.step():
                 members = partial.setdefault(c.meta[0], [])
                 members.append(c)
                 if len(members) == G:
-                    ready.append((state["steps"], partial.pop(c.meta[0])))
-            while not mesh and len(ready) >= groups_per_batch:
+                    ready.append(partial.pop(c.meta[0]))
+            while len(ready) >= groups_per_batch:
                 flush(groups_per_batch)
 
         agg["gen_time_sum"] += engine.stats.decode_s + engine.stats.refill_s
         agg["engine_stats"] = engine.stats
+
+    def _grpo_collect_continuous_mesh(self, num_rollouts: int, elements: list,
+                                      agg: Dict[str, Any], gen_config, extra_kwargs,
+                                      groups_per_batch: int):
+        """The group-aware harvest under the mesh (``parallel/
+        slot_schedule.py``): a group's global id is its row id // G, and
+        the flushes are the one-process loop's, recorded as lists of row
+        ids and finalized once every rank's scored rows are joined."""
+        G = self.config.method.group_size
+        partial: Dict[int, list] = {}
+        ready: deque = deque()
+        flushes: list = []
+
+        def close(finished, drained, B):
+            for row, empty in finished:
+                members = partial.setdefault(row // G, [])
+                members.append((row, empty))
+                if len(members) == G:
+                    ready.append(sorted(partial.pop(row // G)))
+            rows = kept = 0
+            while ready and (len(ready) >= groups_per_batch or drained):
+                batch = [ready.popleft() for _ in range(min(groups_per_batch, len(ready)))]
+                flushes.append([row for group in batch for row, _ in group])
+                rows += G * len(batch)
+                kept += sum(not empty for group in batch for _, empty in group)
+            return rows, kept
+
+        sched = self._replay_schedule(num_rollouts, len(elements), gen_config, extra_kwargs,
+                                      close, fan_out=G)
+        rows = self._schedule_rows(sched)
+        for flush in flushes:
+            part = self._take_rows(rows, flush)
+            chunk = self._grpo_chunk_produce(part["prompt_ids"].astype(np.int64),
+                                             part["prompt_mask"].astype(np.int64),
+                                             part["response_tokens"].astype(np.int64),
+                                             part["response_mask"].astype(np.int64),
+                                             host=part["host"])
+            agg["score_time_sum"] += chunk["score_s"]
+            self._grpo_chunk_finalize(chunk, elements, agg)
+        return sched.engine
 
     # ------------------------------------------------------------------
     # async collection (async_rl.enabled)
@@ -423,8 +449,10 @@ class GRPOTrainer(PPOTrainer):
         Q, R = queries.shape[1], responses.shape[1]
         input_ids = torch.cat([queries, responses], dim=1)
         attention_mask = torch.cat([batch["query_mask"], batch["response_mask"]], dim=1)
-        out = self.model(input_ids, attention_mask=attention_mask, logits_span=(Q - 1, Q + R - 1))
-        logprobs = logprobs_of_labels(out["logits"], responses)
+        with self.vocab_local():
+            out = self.model(input_ids, attention_mask=attention_mask,
+                             logits_span=(Q - 1, Q + R - 1))
+        logprobs = self.label_logprobs(out["logits"], responses)
         operands = dict(logprobs=logprobs, old_logprobs=batch["logprobs"],
                         ref_logprobs=batch["ref_logprobs"], advantages=batch["advantages"],
                         mask=batch["response_mask"],

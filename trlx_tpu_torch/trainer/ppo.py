@@ -66,7 +66,7 @@ import threading
 from collections import deque
 from contextlib import ExitStack
 from time import perf_counter
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -80,6 +80,8 @@ from trlx_tpu_torch.parallel.sharding import (
     row_part,
     unsharded,
 )
+from trlx_tpu_torch.parallel.slot_schedule import SlotSchedule, local_slots
+from trlx_tpu_torch.parallel.tensor_parallel import apply_tensor_parallel
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
 from trlx_tpu_torch.pipeline.rollout_pipeline import RolloutPipeline
 from trlx_tpu_torch.trainer import register_trainer
@@ -147,20 +149,27 @@ class PPOTrainer(TorchBaseTrainer):
         return copy.deepcopy(backbone).eval().requires_grad_(False)
 
     def _ref_snapshot_gathered(self) -> torch.nn.Module:
-        """:meth:`_ref_snapshot` of an FSDP2-sharded causal policy: the
-        backbone's full weights on every rank, loaded into the hydra branch
-        or into a fresh backbone (seq2seq runs in one process)."""
+        """:meth:`_ref_snapshot` of a sharded causal policy: the backbone's
+        full weights on every rank, loaded into the hydra branch or into a
+        fresh backbone (seq2seq runs in one process), then cut to the
+        rank's ``model`` share like the policy."""
         prefix = "backbone." if hasattr(self.model, "backbone") else ""
         state = {k[len(prefix):]: v for k, v in full_model_state(self.model).items()
                  if k.startswith(prefix)}
         if self.num_layers_unfrozen > 0:
-            return hydra_ref_params(self.model, self.tcfg, self.num_layers_unfrozen,
-                                    backbone_state=state)
-        backbone = getattr(self.model, "backbone", self.model)
-        with torch.device("meta"):
-            ref = type(backbone)(self.tcfg)
-        ref.load_state_dict({k: v.detach().clone() for k, v in state.items()}, assign=True)
-        return ref.eval().requires_grad_(False)
+            ref = hydra_ref_params(self.model, self.tcfg, self.num_layers_unfrozen,
+                                   backbone_state=state)
+        else:
+            backbone = getattr(self.model, "backbone", self.model)
+            with torch.device("meta"):
+                ref = type(backbone)(self.tcfg)
+            ref.load_state_dict({k: v.detach().clone() for k, v in state.items()},
+                                assign=True)
+            ref = ref.eval().requires_grad_(False)
+        tp = getattr(self.model, "tensor_parallel", None)
+        if tp is not None:
+            apply_tensor_parallel(ref, tp)
+        return ref
 
     # ------------------------------------------------------------------
     # rollout collection
@@ -398,22 +407,18 @@ class PPOTrainer(TorchBaseTrainer):
                  "response_tokens": response_tokens, "response_mask": response_mask,
                  "scores": scores, "host": host, "stats": stats,
                  "host_s": perf_counter() - host_t0, "split": dev.get("split", False)}
-        if "order" in dev:  # a split harvest's sort keys (:meth:`_gather_chunk`)
-            chunk["order"] = dev["order"]
         return chunk
 
     # the per-row host results of a chunk that the ranks split
     _GATHERED_ROWS = ("prompt_ids", "prompt_mask", "response_tokens", "response_mask",
-                      "scores", "behavior_logprobs", "order")
+                      "scores", "behavior_logprobs")
 
     def _gather_chunk(self, chunk: Dict[str, Any]) -> Dict[str, Any]:
         """The whole chunk from every rank's part (``chunk["split"]``):
         each per-row host array, the scoring outputs included, joined in
         rank order, so the ordered tail sees the global rows on every rank
-        and the store is the one a single process builds. A harvest of the
-        continuous paths carries ``order``, per-row integer keys (the first
-        column first) that put the joined rows in one process's completion
-        order. A chunk every rank collected whole passes as it is."""
+        and the store is the one a single process builds. A chunk every
+        rank collected whole passes as it is."""
         if not chunk.get("split"):
             return chunk
         local = {k: chunk[k] for k in self._GATHERED_ROWS if chunk.get(k) is not None}
@@ -425,14 +430,6 @@ class PPOTrainer(TorchBaseTrainer):
                 whole[k] = {h: np.concatenate([p[k][h] for p in parts]) for h in local[k]}
             else:
                 whole[k] = np.concatenate([p[k] for p in parts])
-        if "order" in local:
-            keys = whole.pop("order")
-            perm = np.lexsort(keys.T[::-1])
-            for k in local:
-                if k == "host":
-                    whole[k] = {h: v[perm] for h, v in whole[k].items()}
-                elif k != "order":
-                    whole[k] = whole[k][perm]
         return whole
 
     def _rollout_chunk_finalize(self, chunk: Dict[str, Any], elements: list,
@@ -534,40 +531,30 @@ class PPOTrainer(TorchBaseTrainer):
         :class:`RolloutPipeline` worker (up to ``depth`` groups in flight)
         while the engine keeps stepping; finalize runs on this thread in
         submission order, so the store equals the inline one. The partial
-        tail flushes once the engine drains.
-
-        Under the mesh each rank collects its rows of one chunk at a time,
-        on an idle engine, and submits the chunk's harvest as one group
-        once the engine drains. Every row is keyed by (the engine step that
-        finished it, its global row), one process's harvest order for a
-        chunk on an idle engine, and :meth:`_gather_chunk` sorts the joined
-        rows by these keys; so a collection of one chunk stores what one
-        process stores. Over several chunks one process refills freed
-        slots from the next chunk, and its order can differ."""
+        tail flushes once the engine drains. Under the mesh:
+        :meth:`_collect_continuous_mesh`."""
         if num_rollouts <= 0:
             stats["throughput/rollout_overlap_frac"] = 0.0
             return
         gen_config, extra_kwargs = self._resolve_gen_config(eval_mode=False)
-        state = {"engine": None, "supplied": 0, "finalized_rows": 0, "split": False,
-                 "steps": 0}
+        if self.mesh is not None:
+            engine = self._collect_continuous_mesh(num_rollouts, elements, stats, acc,
+                                                   gen_config, extra_kwargs)
+            stats["throughput/rollout_overlap_frac"] = 0.0
+            self._note_engine_stats(engine, stats)
+            return
+        state = {"engine": None, "supplied": 0, "finalized_rows": 0}
         harvest_buf: list = []
-        mesh = self.mesh is not None
 
         def fetch_chunk() -> None:
             batch = next(self.prompt_iterator)
-            rows = len(batch["input_ids"])
-            ids, mask, seeds, at = self._rank_rows(
-                np.asarray(batch["input_ids"], np.int32),
-                np.asarray(batch["attention_mask"], np.int32))
-            state["split"], state["steps"] = at is not None, 0
+            ids = np.asarray(batch["input_ids"], np.int32)
             if state["engine"] is None:
                 state["engine"] = self._cb_make_engine(gen_config, extra_kwargs,
                                                        ids.shape[0], ids.shape[1])
-            # under the mesh each row's meta is its global index in the chunk
-            start = at or 0
-            state["engine"].enqueue_prompts(
-                ids, mask, seeds, metas=list(range(start, start + len(ids))) if mesh else None)
-            state["supplied"] += rows
+            state["engine"].enqueue_prompts(ids, np.asarray(batch["attention_mask"], np.int32),
+                                            self._row_seeds(ids.shape[0]))
+            state["supplied"] += ids.shape[0]
 
         def finalize(chunk: Dict[str, Any]) -> None:
             state["finalized_rows"] += self._rollout_chunk_finalize(chunk, elements, stats, acc)
@@ -581,9 +568,6 @@ class PPOTrainer(TorchBaseTrainer):
 
             def submit_group(group: list) -> None:
                 dev = self._cb_group_device(group)
-                dev["split"] = state["split"]
-                if state["split"]:
-                    dev["order"] = np.asarray([c.meta for c in group], np.int64)
                 if pipe is None:
                     finalize(self._rollout_chunk_host(dev))
                     return
@@ -601,13 +585,7 @@ class PPOTrainer(TorchBaseTrainer):
                 # they count as expected elements
                 while (len(elements) + state["supplied"] - state["finalized_rows"]
                        < num_rollouts):
-                    # under the mesh: the last chunk harvested and submitted
-                    if mesh and (harvest_buf or state["engine"] is not None
-                                 and state["engine"].busy):
-                        break
                     fetch_chunk()
-                    if mesh:
-                        break
                 engine = state["engine"]
                 B = engine.B
                 if not engine.busy:
@@ -619,25 +597,122 @@ class PPOTrainer(TorchBaseTrainer):
                     if len(elements) >= num_rollouts:
                         break
                     continue
-                done = engine.step()
-                if mesh:
-                    state["steps"] += 1
-                    for c in done:
-                        c.meta = (state["steps"], c.meta)
-                harvest_buf.extend(done)
-                while not mesh and len(harvest_buf) >= B:
+                harvest_buf.extend(engine.step())
+                while len(harvest_buf) >= B:
                     group, harvest_buf = harvest_buf[:B], harvest_buf[B:]
                     submit_group(group)
             stats["throughput/rollout_overlap_frac"] = (
                 pipe.stats.overlap_frac(perf_counter() - t0) if pipe is not None else 0.0)
+        self._note_engine_stats(state["engine"], stats)
 
-        engine = state["engine"]
+    def _note_engine_stats(self, engine, stats: Dict[str, float]) -> None:
         engine_metrics = engine.stats.metrics()
         stats.update(engine_metrics)
         stats["time/exp_generate"] = engine.stats.decode_s + engine.stats.refill_s
         stats["time/generate"] = engine.stats.decode_s
         # the engine's picture survives a run that dies mid-collection
         self.obs.flightrec.record("engine_stats", engine_metrics)
+
+    def _replay_schedule(self, num_rollouts: int, stored: int, gen_config, extra_kwargs,
+                         close: Callable[..., Tuple[int, int]],
+                         fan_out: int = 1) -> SlotSchedule:
+        """The one-process continuous loop under the mesh, on the global
+        slot schedule (``parallel/slot_schedule.py``): chunks are queued
+        while ``stored`` (the non-empty rows of the groups closed so far)
+        plus the rows not yet closed cannot cover ``num_rollouts``; each
+        step's finished rows of every rank go to ``close(rows, drained,
+        B)`` in one engine's harvest order (``drained`` once the engine is
+        idle, ``B`` its slots), which returns the ``(rows, non-empty
+        rows)`` it closed. ``fan_out``
+        repeats each prompt (GRPO's group). Returns the schedule, whose
+        ``completed`` holds this rank's rows."""
+        sched, supplied, closed = None, 0, 0
+        while True:
+            while stored + supplied - closed < num_rollouts:
+                batch = next(self.prompt_iterator)
+                ids = np.repeat(np.asarray(batch["input_ids"], np.int32), fan_out, axis=0)
+                mask = np.repeat(np.asarray(batch["attention_mask"], np.int32), fan_out,
+                                 axis=0)
+                if sched is None:
+                    engine = self._cb_make_engine(gen_config, extra_kwargs,
+                                                  local_slots(len(ids), self.mesh),
+                                                  ids.shape[1])
+                    sched = SlotSchedule(engine, len(ids), self.mesh)
+                sched.enqueue(ids, mask, self._row_seeds(len(ids)))
+                supplied += len(ids)
+            drained = not sched.busy
+            rows, kept = close([] if drained else sched.step(), drained, sched.B)
+            closed, stored = closed + rows, stored + kept
+            if drained and stored >= num_rollouts:
+                return sched
+
+    def _schedule_rows(self, sched: SlotSchedule) -> Dict[str, Any]:
+        """The scored rows of a replayed collection, every rank's, indexed
+        by global row id: this rank scores its own harvest ``B / dp`` rows
+        at a time, then the per-row host results of every rank are joined
+        (one ``all_gather_object``) and put in row-id order."""
+        ids = sorted(sched.completed)
+        width = sched.engine.B
+        parts = []
+        for i in range(0, len(ids), width):
+            dev = self._cb_group_device([sched.completed[r] for r in ids[i:i + width]])
+            gen = dev["gen_landing"].wait()
+            parts.append({"row": np.asarray(ids[i:i + width], np.int64),
+                          "prompt_ids": dev["prompt_ids"], "prompt_mask": dev["prompt_mask"],
+                          "response_tokens": gen["response_tokens"],
+                          "response_mask": gen["response_mask"],
+                          "host": dev["score_landing"].wait()})
+        if sched.split:
+            parts = [p for ps in allgather_host(parts, self.mesh) for p in ps]
+        rows = np.concatenate([p["row"] for p in parts])
+        perm = np.argsort(rows, kind="stable")
+        out = {k: np.concatenate([p[k] for p in parts])[perm]
+               for k in ("prompt_ids", "prompt_mask", "response_tokens", "response_mask")}
+        out["host"] = {h: np.concatenate([p["host"][h] for p in parts])[perm]
+                       for h in parts[0]["host"]}
+        return out
+
+    @staticmethod
+    def _take_rows(rows: Dict[str, Any], index: List[int]) -> Dict[str, Any]:
+        out = {k: v[index] for k, v in rows.items() if k != "host"}
+        out["host"] = {h: v[index] for h, v in rows["host"].items()}
+        return out
+
+    def _collect_continuous_mesh(self, num_rollouts: int, elements: list,
+                                 stats: Dict[str, float], acc: Dict[str, float],
+                                 gen_config, extra_kwargs):
+        """The continuous collection under the mesh: each rank decodes the
+        rows one engine would put in its slots (:meth:`_replay_schedule`),
+        the groups of ``B`` rows one process would submit are recorded in
+        its harvest order, and once the engine drains every rank's scored
+        rows are joined (:meth:`_schedule_rows`) and each group takes the
+        host stage (decode, ``reward_fn``) and the ordered tail in turn on
+        every rank, so every rank's store is one process's for any number
+        of chunks."""
+        groups: List[List[int]] = []
+        buf: List[Tuple[int, bool]] = []
+
+        def close(finished, drained, B):
+            buf.extend(finished)
+            rows = kept = 0
+            while buf and (len(buf) >= B or drained):
+                group, buf[:] = buf[:B], buf[B:]
+                groups.append([r for r, _ in group])
+                rows += len(group)
+                kept += sum(not empty for _, empty in group)
+            return rows, kept
+
+        sched = self._replay_schedule(num_rollouts, len(elements), gen_config, extra_kwargs,
+                                      close)
+        rows = self._schedule_rows(sched)
+        for group in groups:
+            part = self._take_rows(rows, group)
+            dev = {"prompt_ids": part["prompt_ids"], "prompt_mask": part["prompt_mask"],
+                   "gen_landing": HostCopy({"response_tokens": part["response_tokens"],
+                                            "response_mask": part["response_mask"]}),
+                   "score_landing": HostCopy(part["host"])}
+            self._rollout_chunk_finalize(self._rollout_chunk_host(dev), elements, stats, acc)
+        return sched.engine
 
     def _collect_serial(self, num_rollouts: int, elements: list, stats: Dict[str, float],
                         acc: Dict[str, float]) -> None:
@@ -984,11 +1059,12 @@ class PPOTrainer(TorchBaseTrainer):
         else:
             input_ids = torch.cat([queries, responses], dim=1)
             attention_mask = torch.cat([query_mask, batch["response_mask"]], dim=1)
-            out = self.model(input_ids, attention_mask=attention_mask,
-                             logits_span=(Q - 1, Q + R - 1))
+            with self.vocab_local():
+                out = self.model(input_ids, attention_mask=attention_mask,
+                                 logits_span=(Q - 1, Q + R - 1))
             values_pred = out["value"][:, Q - 1 : Q + R - 1]
-        logprobs = logprobs_of_labels(out["logits"], responses)
-        entropy = entropy_of_logits(out["logits"]) if method.dist_sketches else None
+        logprobs = self.label_logprobs(out["logits"], responses)
+        entropy = self.logits_entropy(out["logits"]) if method.dist_sketches else None
         if self.mesh is not None:
             # the minibatch's [B, R] operands over data x fsdp: the loss (its
             # GAE scan, whitening and masked means) spans the global

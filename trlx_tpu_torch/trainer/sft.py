@@ -15,13 +15,14 @@ token mean (``models/sft.py::_token_mean``) and FSDP2 sums the gradients
 rank generates its rows whole, from the same seed.
 """
 
+import functools
 from typing import Any, Dict, List, Tuple, Union
 
 import numpy as np
 import torch
 
 from trlx_tpu_torch.models.sft import IGNORE_INDEX, SFTConfig, next_token_labels
-from trlx_tpu_torch.parallel.mesh import axis_sizes
+from trlx_tpu_torch.parallel.mesh import axis_sizes, data_parallel_group
 from trlx_tpu_torch.parallel.sharding import shard_batch
 from trlx_tpu_torch.pipeline.offline_pipeline import DialogStore, tokenize_dialogue
 from trlx_tpu_torch.trainer import register_trainer
@@ -54,19 +55,24 @@ class SFTTrainer(TorchBaseTrainer):
         chunk = self._resolved_logit_chunk()
         # the labels are the next-token labels (``host_batch``); under the
         # mesh the token count is summed over every rank
-        reduce = None if self.mesh is None else _all_reduce_sum
+        reduce = None if self.mesh is None else functools.partial(
+            _all_reduce_sum, group=(data_parallel_group(self.mesh)
+                                    if axis_sizes(self.mesh)["model"] > 1 else None))
         kw = {}
         if self.sequence_group is not None:
             kw = {"positions": batch["positions"], "sequence_group": self.sequence_group}
-        if chunk:
-            # logits_span (0, 0): hidden states only; chunked_loss projects
-            out = self.model(batch["input_ids"], attention_mask=batch["attention_mask"],
-                             logits_span=(0, 0), **kw)
-            return self.with_router_aux(self.config.method.chunked_loss(
-                self.model, out["hidden_states"], batch["labels"], chunk, reduce), out)
-        out = self.model(batch["input_ids"], attention_mask=batch["attention_mask"], **kw)
+        logprobs = self.label_logprobs if self._vocab_shard() is not None else None
+        with self.vocab_local():
+            if chunk:
+                # logits_span (0, 0): hidden states only; chunked_loss projects
+                out = self.model(batch["input_ids"], attention_mask=batch["attention_mask"],
+                                 logits_span=(0, 0), **kw)
+                return self.with_router_aux(self.config.method.chunked_loss(
+                    self.model, out["hidden_states"], batch["labels"], chunk, reduce,
+                    logprobs), out)
+            out = self.model(batch["input_ids"], attention_mask=batch["attention_mask"], **kw)
         return self.with_router_aux(self.config.method.loss(out["logits"], batch["labels"],
-                                                            reduce), out)
+                                                            reduce, logprobs), out)
 
     def host_batch(self, items: Dict[str, Any], unit: int = 1) -> Dict[str, Any]:
         """The step's arrays: the labels shifted to the next-token labels
@@ -99,10 +105,12 @@ class SFTTrainer(TorchBaseTrainer):
                                self.config.train.epochs * len(self.train_dataloader))
 
 
-def _all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over every rank of the world (a copy)."""
+def _all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over the ranks that hold a part of the batch (a copy):
+    the world, or under a ``model`` axis the data-parallel group (the
+    ``model`` ranks hold the same rows)."""
     import torch.distributed as dist
 
     x = x.clone()
-    dist.all_reduce(x)
+    dist.all_reduce(x, group=group)
     return x

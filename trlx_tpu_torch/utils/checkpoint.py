@@ -215,29 +215,41 @@ def load_state(directory: str) -> Dict[str, Any]:
                       weights_only=True)
 
 
+def _tp_layout(model: torch.nn.Module, optimizer) -> Tuple[Any, Dict[str, int], List[Any]]:
+    """``(TensorParallel or None, {key: split dim}, [split dim of each
+    optimizer parameter, by index])`` of a tensor-parallel model."""
+    tp, dims = getattr(model, "tensor_parallel", None), getattr(model, "tp_dims", {})
+    names = {id(p): n for n, p in model.named_parameters()}
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    return tp, dims, [(p, dims.get(names.get(id(p)))) for p in params]
+
+
 def gather_full_state(model: torch.nn.Module, optimizer) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """The full ``(model, optimizer)`` state of an FSDP2-sharded model on
-    rank 0, on the CPU, in the format ``state_dict()`` gives on one device
-    (the optimizer's state keyed by parameter index); other ranks get
-    empty dicts. Each sharded tensor is joined by
+    """The full ``(model, optimizer)`` state of a sharded model on rank 0,
+    on the CPU, in the format ``state_dict()`` gives on one device (the
+    optimizer's state keyed by parameter index); other ranks get empty
+    dicts. Each sharded tensor is joined over ``fsdp`` and ``model`` by
     ``parallel/sharding.py::full_tensor`` (plain c10d all-gathers). A
     collective: every rank calls it."""
     import torch.distributed as dist
 
     from trlx_tpu_torch.parallel.sharding import full_tensor
 
+    tp, dims, layout = _tp_layout(model, optimizer)
     first = dist.get_rank() == 0
     model_sd = {}
     for k, v in model.state_dict().items():
-        v = full_tensor(v)
+        v = full_tensor(v, tp, dims.get(k))
         if first:
             model_sd[k] = v.detach().cpu()
     optim_sd = optimizer.state_dict()
     state = {}
     for index, st in optim_sd["state"].items():
+        p, dim = layout[int(index)]
         row = {}
         for k, v in st.items():
-            v = full_tensor(v) if isinstance(v, torch.Tensor) else v
+            if isinstance(v, torch.Tensor):
+                v = full_tensor(v, tp, dim if v.shape == p.shape else None)
             row[k] = v.detach().cpu() if isinstance(v, torch.Tensor) else v
         state[index] = row
     if not first:
@@ -247,31 +259,28 @@ def gather_full_state(model: torch.nn.Module, optimizer) -> Tuple[Dict[str, Any]
 
 def load_full_state(model: torch.nn.Module, optimizer, model_sd: Dict[str, Any],
                     optim_sd: Dict[str, Any]) -> None:
-    """Load a full state (the one-device format) into an FSDP2-sharded
-    model and its optimizer, each rank copying in its own shards
-    (``parallel/sharding.py::local_shard``; no collective)."""
+    """Load a full state (the one-device format) into a sharded model and
+    its optimizer, each rank copying in its ``model`` share and its FSDP2
+    shards (``parallel/sharding.py::local_shard``; no collective)."""
     from torch.distributed.tensor import DTensor
 
-    from trlx_tpu_torch.parallel.sharding import local_shard
+    from trlx_tpu_torch.parallel.sharding import load_full_model_state, local_shard
 
-    live = model.state_dict()
-    missing = sorted(set(live) ^ set(model_sd))
-    if missing:
-        raise KeyError(f"the state's keys differ from the model's: {missing[:8]}")
-    with torch.no_grad():
-        for k, v in live.items():
-            target = v.to_local() if isinstance(v, DTensor) else v
-            target.copy_(local_shard(model_sd[k].to(target.device, target.dtype), v))
-    params = [p for group in optimizer.param_groups for p in group["params"]]
+    load_full_model_state(model, model_sd)
+    tp, _, layout = _tp_layout(model, optimizer)
     state = {}
     for index, st in optim_sd["state"].items():
-        p = params[int(index)]
+        p, dim = layout[int(index)]
+        whole = list(p.shape)
+        if dim is not None:
+            whole[dim] *= tp.size
         row = {}
         for k, v in st.items():
-            if isinstance(v, torch.Tensor) and isinstance(p, DTensor) and v.shape == p.shape:
-                v = DTensor.from_local(local_shard(v.to(p.device), p), p.device_mesh,
-                                       p.placements, run_check=False, shape=p.shape,
-                                       stride=p.stride())
+            if isinstance(v, torch.Tensor) and list(v.shape) == whole and v.ndim:
+                v = local_shard(v.to(p.device), p, tp, dim)
+                if isinstance(p, DTensor):
+                    v = DTensor.from_local(v, p.device_mesh, p.placements, run_check=False,
+                                           shape=p.shape, stride=p.stride())
             row[k] = v
         state[index] = row
     optimizer.load_state_dict({"state": state, "param_groups": optim_sd["param_groups"]})
